@@ -1,13 +1,18 @@
 """bayesrrcpp_tpu_torch -- the BayesR engine in PyTorch, for NVIDIA Hopper.
 
 A port of :mod:`bayesrrcpp_tpu` (JAX on a TPU, kept beside it as the
-reference).  This package covers the BayesR main path: one chain of the
-``"bayesr"`` sampler (SURVEY C1) on 2-bit packed genotypes with no missing
-calls, swept by the strided-rounds block-Jacobi kernel
-(``csrc/jacobi_t.cu``, the counterpart of
-``bayesrrcpp_tpu/ops/pallas_jacobi_t.py:_jacobi_t_kernel``), plus the plain
-Gram-blocked sweep on dense X behind :func:`api.BayesRSamplerV2`.  Whatever
-lies outside that slice raises ``NotImplementedError`` naming its ROADMAP
+reference).  This package covers one chain of two samplers on 2-bit packed
+genotypes with no missing calls, each swept by its strided-rounds
+block-Jacobi kernel in ``csrc/jacobi_t.cu``:
+
+- BayesR, the ``"bayesr"`` variant (SURVEY C1), the counterpart of
+  ``bayesrrcpp_tpu/ops/pallas_jacobi_t.py:_jacobi_t_kernel``;
+- the regularized horseshoe (SURVEY C4), the counterpart of
+  ``_hs_jacobi_t_kernel``;
+
+plus the plain Gram-blocked sweeps on dense X behind
+:func:`api.BayesRSamplerV2` and :func:`api.HorseshoeR`.  Whatever lies
+outside that slice raises ``NotImplementedError`` naming its ROADMAP
 entry.
 
 The package imports torch and numpy only, never jax.
@@ -23,14 +28,17 @@ _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 _torch.set_float32_matmul_precision("highest")
 
-from .config import BayesRConfig, ChainConfig  # noqa: E402
+from .config import BayesRConfig, ChainConfig, HorseshoeConfig  # noqa: E402
 from .distributions import TorchVariates  # noqa: E402
 from .models.bayesr import SpikeSlabSampler  # noqa: E402
+from .models.horseshoe import HorseshoeSampler  # noqa: E402
+from .models.state import HorseshoeState, SpikeSlabState  # noqa: E402
 from . import distributions, simulate  # noqa: E402
 
 __version__ = "0.1.0"
 
 __all__ = [
-    "BayesRConfig", "ChainConfig", "SpikeSlabSampler", "TorchVariates",
+    "BayesRConfig", "ChainConfig", "HorseshoeConfig", "HorseshoeSampler",
+    "HorseshoeState", "SpikeSlabSampler", "SpikeSlabState", "TorchVariates",
     "distributions", "simulate",
 ]

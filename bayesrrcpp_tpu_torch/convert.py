@@ -8,9 +8,9 @@ needs no JAX.  Layout is free between the two packages, semantics are not:
   eps is un-permuted here;
 - packed words keep ``pack_codes_host``'s format (individual 16w+k at bits
   2k of word w) in both packages and pass through unchanged;
-- beta and labels keep the JAX Mpad, since both packages choose the same
-  plan; the PRNG key is dropped (the port's randomness lives in the
-  variates object passed to each step).
+- beta, labels, lambda and v keep the JAX Mpad, since both packages
+  choose the same plan; the PRNG key is dropped (the port's randomness
+  lives in the variates object passed to each step).
 """
 from __future__ import annotations
 
@@ -18,7 +18,8 @@ import numpy as np
 import torch
 
 from .models.bayesr import MarkerData
-from .models.state import SpikeSlabState
+from .models.horseshoe import HorseshoeData
+from .models.state import HorseshoeState, SpikeSlabState
 from .ops import genotypes
 
 
@@ -33,17 +34,22 @@ def unpermute_eps(eps_packed, Npad) -> np.ndarray:
     return out
 
 
-def state_from_jax(state: dict, sampler) -> SpikeSlabState:
-    """The port's state from a JAX ``SpikeSlabState`` given as a dict of
-    NumPy arrays (e.g. ``{k: np.asarray(v) for k, v in
-    jax_state._asdict().items()}``)."""
-    dev = sampler.device
+def _eps_from_jax(state: dict, sampler) -> np.ndarray:
     if tuple(np.shape(state["beta"])) != (sampler.Mpad,):
         raise ValueError(f"beta has shape {np.shape(state['beta'])}; the "
                          f"sampler plans Mpad={sampler.Mpad}")
     eps = np.asarray(state["eps"])
     if sampler.x_packed:
         eps = unpermute_eps(eps, sampler.Npad)
+    return eps
+
+
+def state_from_jax(state: dict, sampler) -> SpikeSlabState:
+    """The port's state from a JAX ``SpikeSlabState`` given as a dict of
+    NumPy arrays (e.g. ``{k: np.asarray(v) for k, v in
+    jax_state._asdict().items()}``)."""
+    dev = sampler.device
+    eps = _eps_from_jax(state, sampler)
     return SpikeSlabState(
         iteration=int(state["iteration"]),
         mu=_t(state["mu"], dev),
@@ -57,25 +63,48 @@ def state_from_jax(state: dict, sampler) -> SpikeSlabState:
         sigmaF=_t(state["sigmaF"], dev))
 
 
-def data_from_jax(data: dict, *, N: int, device) -> MarkerData:
-    """The port's packed ``MarkerData`` from a JAX packed ``MarkerData``
-    given as a dict of NumPy arrays (words, xsq, Gram, mean, scale and
-    column sums pass through; row_valid is rebuilt in individual order)."""
+def horseshoe_state_from_jax(state: dict, sampler) -> HorseshoeState:
+    """The port's state from a JAX ``HorseshoeState`` given as a dict of
+    NumPy arrays (as ``state_from_jax``)."""
+    dev = sampler.device
+    eps = _eps_from_jax(state, sampler)
+    return HorseshoeState(
+        iteration=int(state["iteration"]),
+        eps=_t(eps, dev),
+        **{k: _t(state[k], dev)
+           for k in ("mu", "beta", "sigmaE", "lam", "v", "tau", "eta",
+                     "c2")})
+
+
+def horseshoe_data_from_jax(data: dict, *, N: int, device) -> HorseshoeData:
+    """The port's packed ``HorseshoeData`` from a JAX packed
+    ``HorseshoeData`` given as a dict of NumPy arrays (as
+    ``data_from_jax``; the JAX lane permutation n_perm is dropped)."""
     words = np.asarray(data["XT"])
     if words.dtype != np.int32:
         raise NotImplementedError(
             "only 2-bit packed data carries across (dense and int8 storage: "
             "ROADMAP Queue 1 item 7)")
     Npad = words.shape[1] * genotypes.WORDS
-    return MarkerData(
+    return HorseshoeData(
         XT=torch.as_tensor(words, device=device),
         xsq=_t(data["xsq"], device),
         gram=_t(data["gram"], device),
-        g_assign=_t(data["g_assign"], device, torch.int32),
         valid=_t(data["valid"], device, torch.bool),
-        cva=_t(data["cva"], device),
-        prior_pi=_t(data["prior_pi"], device),
         x_mean=_t(data["x_mean"], device),
         x_scale=_t(data["x_scale"], device),
         row_valid=torch.arange(Npad, device=device) < N,
         x_colsum=_t(data["x_colsum"], device))
+
+
+def data_from_jax(data: dict, *, N: int, device) -> MarkerData:
+    """The port's packed ``MarkerData`` from a JAX packed ``MarkerData``
+    given as a dict of NumPy arrays (words, xsq, Gram, mean, scale and
+    column sums pass through; row_valid is rebuilt in individual order)."""
+    geno = horseshoe_data_from_jax(data, N=N, device=device)
+    return MarkerData(
+        **geno._asdict(),
+        g_assign=_t(data["g_assign"], device, torch.int32),
+        cva=_t(data["cva"], device),
+        prior_pi=_t(data["prior_pi"], device))
+

@@ -1,11 +1,14 @@
-// Strided-rounds BayesR block-Jacobi sweep on 2-bit packed genotypes,
-// written for Hopper (sm_90a).
+// Strided-rounds BayesR and horseshoe block-Jacobi sweeps on 2-bit packed
+// genotypes, written for Hopper (sm_90a).
 //
-// Replaces the TPU Pallas kernel
+// Replaces the TPU Pallas kernels
 //   bayesrrcpp_tpu/ops/pallas_jacobi_t.py:_jacobi_t_kernel
-//   (wrapper bayesr_jacobi_t_pallas, pallas_call at :1032)
-// in its fold-affine 2-bit mode.  Python wrapper and plain version:
-// bayesrrcpp_tpu_torch/ops/jacobi_t.py.
+//   (wrapper bayesr_jacobi_t_pallas, pallas_call at :1032) and
+//   bayesrrcpp_tpu/ops/pallas_jacobi_t.py:_hs_jacobi_t_kernel
+//   (wrapper horseshoe_jacobi_t_pallas, pallas_call at :1151)
+// in their fold-affine 2-bit mode.  Python wrappers and plain versions:
+// bayesrrcpp_tpu_torch/ops/jacobi_t.py.  The two sweeps share the dot and
+// apply launches and differ in the solve (solve_kernel, hs_solve_kernel).
 //
 // One sweep is nr rounds.  Round r sweeps slab s = rho[r], the J blocks
 // {j*nr + s : j < J} of B markers each, in three launches:
@@ -22,12 +25,16 @@
 //          component draw in the visited lane and a rank-1 update
 //          r -= G[m, :] * d over the warp with the Gram block in shared
 //          memory.  Writes beta, labels, d*scale, and per-block v/bacc
-//          partials (reduced in a fixed order by the wrapper).
+//          partials (reduced in a fixed order by the wrapper).  The
+//          horseshoe's hs_solve_kernel has the same layout, with a
+//          conjugate normal draw per step and no labels.
 //   apply  eps -= sum_m d_m * x_m over the round's rows with d != 0 (most
-//          markers stay in the spike, d == 0 exactly): each CTA compacts
-//          the round's nonzero d*scale in index order into shared memory,
-//          then four threads share a word, each owning 4 of its 16 eps
-//          lanes, and stream the nonzero rows branch-free.
+//          BayesR markers stay in the spike, d == 0 exactly): each CTA
+//          compacts the round's nonzero d*scale in index order into shared
+//          memory, then four threads share a word, each owning 4 of its 16
+//          eps lanes, and stream the nonzero rows branch-free.  In the
+//          horseshoe every valid marker moves, so the apply streams all
+//          J*B rows, as many bytes as the dot, at a few warps per SM.
 //
 // What bounds it on an H100: the dot reads all words once per sweep (12.6
 // GB at N=100,352 x M=503,808) and decodes every code, so it is bound by
@@ -322,6 +329,95 @@ __global__ void __launch_bounds__(32) solve_kernel(SolveArgs a) {
   }
 }
 
+struct HsSolveArgs {
+  const float* partial; int nsplit;
+  const int* rho; int round; int nr; int J; int B;
+  const float* gram; const float* xsq; const float* mean; const float* scale;
+  const float* beta_in; float* beta_out;
+  const int* inner; const float* z;
+  const float* lam; const float* tau; const float* c2; const float* sigmaE;
+  const unsigned char* valid;
+  float* dsc; float* dms;
+};
+
+// The horseshoe's solve (pallas_jacobi_t.py:_hs_jacobi_t_kernel, :722-774):
+// solve_kernel's warp-per-block layout, fold algebra, broadcast of the
+// visited marker and canonical z index, with a conjugate normal draw in
+// place of the component selection.  Per-lane constants in the op order
+// of the TPU kernel's operand table (build_pkgT_hs_strided, :155-173):
+//   s_j = tau*c2*lam / (tau*lam + c2), denom = xsq + sE/s_j,
+//   invd = 1/denom, sd = sqrt(sE/denom);
+// per step beta_new = num*invd + sd*z with num = r + beta_old*xsq.
+__global__ void __launch_bounds__(32) hs_solve_kernel(HsSolveArgs a) {
+  const int j = blockIdx.x;
+  const int lane = threadIdx.x;
+  const int B = a.B;
+  const int JB1 = a.J * B + 1;
+  const int slab = a.rho[a.round];
+  const long long blk = (long long)j * a.nr + slab;
+  const long long m = blk * B + lane;
+  const bool act = lane < B;
+
+  __shared__ float4 gs4[kMaxB * kMaxB / 4];
+  const float* gs = reinterpret_cast<const float*>(gs4);
+  const float4* g4 = reinterpret_cast<const float4*>(a.gram + blk * B * B);
+#pragma unroll 8
+  for (int e = lane; e < B * B / 4; e += 32) gs4[e] = g4[e];
+
+  float esum = 0.f;
+  for (int q = lane; q < a.nsplit; q += 32)
+    esum += a.partial[(long long)q * JB1 + JB1 - 1];
+  esum = warp_sum(esum);
+  float rc = 0.f;
+  if (act) {
+    const float* pr = a.partial + j * B + lane;
+#pragma unroll 8
+    for (int q = 0; q < a.nsplit; ++q) rc += pr[(long long)q * JB1];
+  }
+
+  float r = 0.f, sc = 0.f, ms = 0.f, xs = 0.f, bold = 0.f, okf = 0.f;
+  float zl = 0.f, invd = 0.f, sd = 0.f;
+  int inn = 0;
+  if (act) {
+    sc = a.scale[m];
+    ms = a.mean[m] * sc;
+    r = rc * sc - ms * esum;
+    xs = a.xsq[m];
+    bold = a.beta_in[m];
+    okf = a.valid[m] ? 1.f : 0.f;
+    inn = a.inner[blk * B + lane];
+    zl = a.z[((long long)slab * a.J + j) * B + lane];
+    const float sE = *a.sigmaE, tau = *a.tau, c2 = *a.c2, lam = a.lam[m];
+    const float s_j = tau * c2 * lam / (tau * lam + c2);
+    const float denom = xs + sE / s_j;
+    invd = 1.f / denom;
+    sd = sqrtf(sE / denom);
+  }
+  __syncwarp();
+
+  float d_own = 0.f;
+  for (int t = 0; t < B; ++t) {
+    const int mk = __shfl_sync(kFull, inn, t);
+    const float zt = __shfl_sync(kFull, zl, t);
+    float d = 0.f;
+    if (lane == mk) {
+      const float num = r + bold * xs;
+      const float beta_new = num * invd + sd * zt;
+      d = okf * (beta_new - bold);
+      d_own = d;
+    }
+    d = __shfl_sync(kFull, d, mk);
+    if (act) r = r - gs[mk * B + lane] * d;
+  }
+
+  if (act) {
+    a.beta_out[m] = bold + d_own;
+    a.dsc[j * B + lane] = d_own * sc;
+  }
+  const float dms = warp_sum(act ? d_own * ms : 0.f);
+  if (lane == 0) a.dms[j] = dms;
+}
+
 __global__ void __launch_bounds__(kApplyThreads)
 apply_kernel(const uint32_t* __restrict__ words, int Nw,
              float* __restrict__ eps, const unsigned char* __restrict__ row_valid,
@@ -467,6 +563,53 @@ int jacobi_t_sweep(const void* words, int Nw, int nr, int J, int B, int K,
       case 8: solve_kernel<8><<<J, 32, 0, s>>>(sa); break;
       default: return cudaErrorInvalidValue;
     }
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    apply_kernel<<<apply_ctas, kApplyThreads, apply_smem, s>>>(
+        wd, Nw, static_cast<float*>(eps),
+        static_cast<const unsigned char*>(row_valid), rh, r, nr, J, B,
+        static_cast<const float*>(dsc), static_cast<const float*>(dms));
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  return 0;
+}
+
+// One horseshoe sweep: dot, hs_solve and apply per round, nr rounds, all
+// on `stream`.  Returns the first launch error (cudaGetLastError) or 0.
+int jacobi_t_hs_sweep(const void* words, int Nw, int nr, int J, int B,
+                      const void* gram, const void* xsq, const void* mean,
+                      const void* scale, void* eps, const void* row_valid,
+                      const void* beta_in, void* beta_out, const void* rho,
+                      const void* inner, const void* z, const void* lam,
+                      const void* tau, const void* c2, const void* sigmaE,
+                      const void* valid, void* partial, int nsplit, void* dsc,
+                      void* dms, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint32_t* wd = static_cast<const uint32_t*>(words);
+  const int* rh = static_cast<const int*>(rho);
+  HsSolveArgs sa{static_cast<const float*>(partial), nsplit, rh, 0, nr, J, B,
+                 static_cast<const float*>(gram),
+                 static_cast<const float*>(xsq),
+                 static_cast<const float*>(mean),
+                 static_cast<const float*>(scale),
+                 static_cast<const float*>(beta_in),
+                 static_cast<float*>(beta_out),
+                 static_cast<const int*>(inner), static_cast<const float*>(z),
+                 static_cast<const float*>(lam), static_cast<const float*>(tau),
+                 static_cast<const float*>(c2),
+                 static_cast<const float*>(sigmaE),
+                 static_cast<const unsigned char*>(valid),
+                 static_cast<float*>(dsc), static_cast<float*>(dms)};
+  const dim3 dot_grid(nsplit, J);
+  const int apply_ctas = (Nw + kApplyThreads / 4 - 1) / (kApplyThreads / 4);
+  const size_t apply_smem = (sizeof(float) + sizeof(int)) * J * B;
+  cudaError_t err;
+  for (int r = 0; r < nr; ++r) {
+    dot_kernel<<<dot_grid, kDotThreads, 0, s>>>(
+        wd, Nw, static_cast<const float*>(eps), rh, r, nr, J, B,
+        static_cast<float*>(partial));
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    sa.round = r;
+    hs_solve_kernel<<<J, 32, 0, s>>>(sa);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     apply_kernel<<<apply_ctas, kApplyThreads, apply_smem, s>>>(
         wd, Nw, static_cast<float*>(eps),

@@ -1,0 +1,220 @@
+"""Regularized-horseshoe Gibbs sampler (SURVEY C4).
+
+Counterpart of ``bayesrrcpp_tpu/models/horseshoe.py:HorseshoeSampler`` for
+one chain, on either
+
+- 2-bit packed genotypes with no missing calls, swept by the strided-rounds
+  block-Jacobi kernel (``ops/jacobi_t.horseshoe_jacobi_t``; the main path),
+  from host dosages or from pre-packed int32 words on the device; or
+- dense standardized X, swept by the plain Gram-blocked sweep
+  (``backend="blocked"``, ``ops/block_sweep.horseshoe_block_sweep``), as
+  the JAX package runs it in XLA.
+
+Per iteration, in the reference's order (src/HorseshoeR.cpp:210-253):
+
+1. intercept mu;
+2. global auxiliary eta ~ InvGamma(0.5+0.5*vT, 1/(sigmaE*A^2) + vT/tau);
+3. local auxiliaries v_j ~ InvGamma(0.5+0.5*vL, vL/lambda_j + 1);
+4. marker sweep with prior variance s_j = tau*c2*lambda_j/(tau*lambda_j+c2);
+5. lambda_j ~ InvGamma(0.5+0.5*vL, vL/v_j + beta_j^2/(2*tau)), with the
+   tau from before this step's draw;
+6. tau ~ InvGamma(0.5*(M+vT), vT/eta + 0.5*sum(beta^2/lambda)), the sum
+   over real markers;
+7. c2 ~ InvGamma(0.5*vC+0.5*M, 0.5*vC*sC + 0.5*|beta|^2);
+8. sigmaE ~ InvScaledChi2(v0E+N, (|eps|^2+v0E*s02E)/(v0E+N)).
+
+Every draw comes from the variates object the caller passes
+(``distributions.TorchVariates``), and the step enqueues device work only.
+What lies outside the slice raises ``NotImplementedError`` naming its
+ROADMAP entry: int8, missing calls, row-layout and J=1 plans for packed X,
+the scan backend and multi-chain runs.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .. import distributions as dist
+from ..config import HorseshoeConfig
+from ..ops import block_sweep as bs
+from ..ops.jacobi_t import horseshoe_jacobi_t
+from .sampler import Genotypes, MarkerSampler
+from .state import HorseshoeState
+
+# the horseshoe's static device data is the genotype layout alone (the JAX
+# HorseshoeData less n_perm: the port keeps individuals in natural order)
+HorseshoeData = Genotypes
+
+
+class HorseshoeSampler(MarkerSampler):
+    """Regularized-horseshoe sampler over a fixed dataset (X, Y).
+
+    Parameters as ``SpikeSlabSampler``'s, without cva, groups and fixed
+    effects: X as dosages, standardized values or pre-packed int32 words;
+    ``config`` a HorseshoeConfig; ``backend`` None, "blocked" (dense X) or
+    "pallas" (the strided Jacobi kernel; packed X only); ``device``
+    defaults to X's device for a tensor X, else the CPU.
+    """
+
+    def __init__(self, X, Y, config: HorseshoeConfig, *,
+                 backend: Optional[str] = None,
+                 permutation: Optional[str] = None, transposed: bool = False,
+                 x_dtype: str = "dense", x_stats=None,
+                 n_individuals: Optional[int] = None,
+                 n_markers: Optional[int] = None,
+                 jacobi_blocks: Optional[int] = None,
+                 jacobi_layout: str = "auto", device=None):
+        self.backend = self._storage(x_dtype, backend, permutation,
+                                     jacobi_layout, "Queue 2 entry 3")
+        self.config = config
+        X, prepacked, M, N = self._read_x(X, Y, transposed, x_stats,
+                                          n_individuals, n_markers, device)
+        self.data = self._lay_out(
+            X, Y, M, N, config.block_size, prepacked=prepacked,
+            transposed=transposed, x_stats=x_stats,
+            jacobi_blocks=jacobi_blocks, jacobi_layout=jacobi_layout)
+
+    # ------------------------------------------------------------------ init
+
+    def init(self, rng) -> HorseshoeState:
+        """Fresh-chain init (src/HorseshoeR.cpp:168-195): beta=0, mu=0,
+        lambda=v=1, sigmaE=|Y|^2/(2N), eta and tau from their priors."""
+        v = self.variates(rng)
+        cfg = self.config
+        dev, f32 = self.device, torch.float32
+        eps = self.Y.clone()     # packed: pad lanes of Y are exactly 0
+        sigmaE = torch.sum(eps * eps) / self.N * 0.5
+        g_eta, g_tau = v.init_gammas(0.5, 0.5 * cfg.vT)
+        eta = dist.inv_gamma(1.0 / (sigmaE * cfg.A ** 2), g_eta)
+        tau = (1.0 / eta) * dist.inv_gamma(cfg.vT, g_tau)
+        ones = torch.ones((self.Mpad,), dtype=f32, device=dev)
+        return HorseshoeState(
+            iteration=0,
+            mu=torch.zeros((), dtype=f32, device=dev),
+            beta=torch.zeros((self.Mpad,), dtype=f32, device=dev),
+            eps=eps, sigmaE=sigmaE, lam=ones, v=ones.clone(),
+            tau=tau.to(f32), eta=eta.to(f32),
+            c2=torch.tensor(cfg.c2, dtype=f32, device=dev))
+
+    def init_from(self, rng, mu, beta, sigmaE, tau, lam,
+                  epsilon) -> HorseshoeState:
+        """Warm restart from a previous chain's last emitted sample
+        (bayesrrcpp_tpu/models/horseshoe.py:307-360): the horseshoe CSV
+        schema carries mu, beta, sigmaE, tau, lambda and epsilon but not
+        eta, v or c2, which are drawn here from their full conditionals
+        given the supplied state.  ``epsilon`` is (N,) in individual
+        order."""
+        v = self.variates(rng)
+        cfg = self.config
+        dev, f32 = self.device, torch.float32
+        beta = np.asarray(beta, np.float64).reshape(-1)
+        lam = np.asarray(lam, np.float64).reshape(-1)
+        if beta.shape[0] != self.M or lam.shape[0] != self.M:
+            raise ValueError("beta/lambda must have length M")
+        pad = self.Mpad - self.M
+        beta_pad = torch.as_tensor(np.pad(beta, (0, pad)), dtype=f32,
+                                   device=dev)
+        # pad lambdas are 1 (an exact 0 would divide by zero in the v draw)
+        lam_pad = torch.as_tensor(np.pad(lam, (0, pad), constant_values=1.0),
+                                  dtype=f32, device=dev)
+        tau = torch.as_tensor(tau, dtype=f32, device=dev)
+        sigmaE = torch.as_tensor(sigmaE, dtype=f32, device=dev)
+        eps = np.asarray(epsilon, np.float64).reshape(-1)
+        if eps.shape[0] != self.N:
+            raise ValueError("epsilon must have length N")
+        g_eta, g_v, g_c2 = v.init_from_gammas(
+            0.5 + 0.5 * cfg.vT, 0.5 + 0.5 * cfg.vL, self.Mpad,
+            0.5 * cfg.vC + 0.5 * self.M)
+        # eta | tau, sigmaE (src/HorseshoeR.cpp:217); v | lambda (:218);
+        # c2 | beta (:248)
+        eta = dist.inv_gamma(1.0 / (sigmaE * cfg.A * cfg.A) + cfg.vT / tau,
+                             g_eta)
+        v_aux = (cfg.vL / lam_pad + 1.0) / g_v
+        c2 = dist.inv_gamma(
+            0.5 * cfg.vC * cfg.sC + 0.5 * torch.sum(beta_pad * beta_pad),
+            g_c2)
+        return HorseshoeState(
+            iteration=0,
+            mu=torch.as_tensor(mu, dtype=f32, device=dev),
+            beta=beta_pad,
+            eps=torch.as_tensor(np.pad(eps, (0, self.Npad - self.N)),
+                                dtype=f32, device=dev),
+            sigmaE=sigmaE, lam=lam_pad, v=v_aux.to(f32), tau=tau,
+            eta=eta.to(f32), c2=c2.to(f32))
+
+    # ------------------------------------------------------------------ step
+
+    def _pre_sweep(self, state: HorseshoeState, v):
+        """Intercept, then the eta and v auxiliary draws
+        (src/HorseshoeR.cpp:210-218)."""
+        cfg = self.config
+        mu, eps = self._intercept(state, v)
+        eta = dist.inv_gamma(
+            1.0 / (state.sigmaE * cfg.A * cfg.A) + cfg.vT / state.tau,
+            v.eta_gamma(0.5 + 0.5 * cfg.vT))
+        v_aux = (cfg.vL / state.lam + 1.0) / v.local_gamma(
+            0.5 + 0.5 * cfg.vL, self.Mpad)
+        return mu, eps, eta, v_aux
+
+    def _hyper_block(self, v, eta, v_aux, beta, eps, tau_old):
+        """Post-sweep lambda / tau / c2 / sigmaE draws
+        (src/HorseshoeR.cpp:242-253).  lambda is drawn with the tau from
+        before this step's draw; sum(beta^2/lambda) runs over the real
+        markers, |beta|^2 over all (padding betas are 0); the shapes use
+        the true M."""
+        cfg = self.config
+        N, M = self.N, self.M
+        lam = (cfg.vL / v_aux + 0.5 * beta * beta / tau_old) / v.local_gamma(
+            0.5 + 0.5 * cfg.vL, self.Mpad)
+        bl = torch.where(self.data.valid, beta * beta / lam, 0.0)
+        tau = dist.inv_gamma(cfg.vT / eta + 0.5 * torch.sum(bl),
+                             v.tau_gamma(0.5 * (M + cfg.vT)))
+        c2 = dist.inv_gamma(
+            0.5 * cfg.vC * cfg.sC + 0.5 * torch.sum(beta * beta),
+            v.c2_gamma(0.5 * cfg.vC + 0.5 * M))
+        dof_e = cfg.v0E + N
+        sigmaE = dist.inv_scaled_chisq(
+            dof_e, (torch.sum(eps * eps) + cfg.v0E * cfg.s02E) / dof_e,
+            v.sigmaE_gamma(0.5 * dof_e))
+        return lam, tau, c2, sigmaE
+
+    def step(self, state: HorseshoeState, rng) -> HorseshoeState:
+        """One Gibbs iteration; enqueues device work only."""
+        v = self.variates(rng)
+        v.begin_step()
+        mu, eps, eta, v_aux = self._pre_sweep(state, v)
+        d = self.data
+        Mpad, B, nb = self.Mpad, self.B, self.nb
+        if self.x_packed:
+            rho, inner = v.orders(nb, B, self.jacobi)
+            eps, beta = horseshoe_jacobi_t(
+                d.XT, d.gram, d.xsq, eps, state.beta, rho, inner, v.z(Mpad),
+                state.lam, state.tau, state.c2, state.sigmaE, d.valid,
+                J=self.jacobi, x_mean=d.x_mean, x_scale=d.x_scale,
+                x_xsum=d.x_colsum, fold_affine=True, row_valid=d.row_valid)
+        else:
+            border, inner = v.block_orders(nb, B)
+            eps, beta = bs.horseshoe_block_sweep(
+                d.XT, d.gram, d.xsq, eps, state.beta, border, inner,
+                v.z(Mpad), state.lam, state.tau, state.c2, state.sigmaE,
+                d.valid)
+        lam, tau, c2, sigmaE = self._hyper_block(v, eta, v_aux, beta, eps,
+                                                 state.tau)
+        return HorseshoeState(
+            iteration=state.iteration + 1, mu=mu, beta=beta, eps=eps,
+            sigmaE=sigmaE, lam=lam, v=v_aux, tau=tau, eta=eta, c2=c2)
+
+    # ------------------------------------------------------------------ run
+
+    def _emit_one(self, state: HorseshoeState):
+        M = self.M
+        return {
+            "mu": state.mu,
+            "beta": state.beta[:M],
+            "sigmaE": state.sigmaE,
+            "tau": state.tau,
+            "lambda": state.lam[:M],
+            "epsilon": self._emit_epsilon(state),
+        }

@@ -1,7 +1,7 @@
 """Sampler state.
 
-Counterpart of ``bayesrrcpp_tpu/models/state.py:SpikeSlabState``: the
-tensors of one BayesR chain.  The JAX state carries its PRNG key; here the
+Counterpart of ``bayesrrcpp_tpu/models/state.py``: the tensors of one
+BayesR or horseshoe chain.  The JAX state carries its PRNG key; here the
 randomness lives in the variates object the caller passes to each step
 (``distributions.TorchVariates``), and the iteration count is a host int,
 so reading it never waits for the device.
@@ -33,4 +33,24 @@ class SpikeSlabState:
     sigmaF: torch.Tensor    # scalar fixed-effect variance
 
     def replace(self, **changes) -> "SpikeSlabState":
+        return dataclasses.replace(self, **changes)
+
+
+@dataclasses.dataclass(frozen=True)
+class HorseshoeState:
+    """State of the regularized-horseshoe sampler (C4,
+    src/HorseshoeR.cpp:137-157); layout as ``SpikeSlabState``."""
+
+    iteration: int          # number of *completed* Gibbs iterations
+    mu: torch.Tensor        # scalar intercept
+    beta: torch.Tensor      # (Mpad,) marker effects
+    eps: torch.Tensor       # (N,) or (Npad,) residuals Y - mu - X beta
+    sigmaE: torch.Tensor    # scalar residual variance
+    lam: torch.Tensor       # (Mpad,) local scales lambda_j (1 on padding)
+    v: torch.Tensor         # (Mpad,) local auxiliaries
+    tau: torch.Tensor       # scalar global scale
+    eta: torch.Tensor       # scalar global auxiliary
+    c2: torch.Tensor        # scalar slab width^2
+
+    def replace(self, **changes) -> "HorseshoeState":
         return dataclasses.replace(self, **changes)

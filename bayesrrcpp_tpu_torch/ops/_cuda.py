@@ -37,6 +37,9 @@ SIGNATURES = {
         "jacobi_t_error_string": ([_INT], ctypes.c_char_p),
         "jacobi_t_sweep": ([_VOID_P, _INT, _INT, _INT, _INT, _INT, _INT]
                            + [_VOID_P] * 21 + [_INT] + [_VOID_P] * 5, _INT),
+        "jacobi_t_hs_sweep": ([_VOID_P, _INT, _INT, _INT, _INT]
+                              + [_VOID_P] * 17 + [_INT] + [_VOID_P] * 3,
+                              _INT),
     },
 }
 

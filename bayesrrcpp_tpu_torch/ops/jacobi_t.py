@@ -1,7 +1,9 @@
-"""Strided-rounds BayesR block-Jacobi sweep on 2-bit packed genotypes.
+"""Strided-rounds BayesR and horseshoe block-Jacobi sweeps on 2-bit packed
+genotypes.
 
 Counterpart of ``bayesrrcpp_tpu/ops/pallas_jacobi_t.py:bayesr_jacobi_t_pallas``
-in its fold-affine packed mode.  Semantics (the Markov kernel the port keeps):
+and ``horseshoe_jacobi_t_pallas`` in their fold-affine packed mode.
+Semantics (the Markov kernel the port keeps):
 
 - a sweep is nr = nb / J rounds; round r sweeps slab rho[r], the J blocks
   {j*nr + rho[r] : j < J}, every block against the round-start eps, and the
@@ -12,11 +14,11 @@ in its fold-affine packed mode.  Semantics (the Markov kernel the port keeps):
 - within a block, exact sequential Gibbs with the kernel's per-step algebra
   (``_tables`` below, pallas_jacobi_t.py:103-125 and :534-585).
 
-``bayesr_jacobi_t`` is the entry point: on CUDA tensors it launches the
-hand-written kernel of ``csrc/jacobi_t.cu`` (3 launches per round, counted
-in ``bayesr_jacobi_t.launches``) or raises; on CPU tensors it runs the plain
-version ``bayesr_jacobi_t_reference``.  eps is in natural individual order,
-padded with zeros to Npad = 16 * words.shape[1].
+``bayesr_jacobi_t`` and ``horseshoe_jacobi_t`` are the entry points: on
+CUDA tensors each launches its hand-written kernel of ``csrc/jacobi_t.cu``
+(3 launches per round, counted in ``<entry point>.launches``) or raises; on
+CPU tensors each runs its plain version (``*_reference``).  eps is in
+natural individual order, padded with zeros to Npad = 16 * words.shape[1].
 """
 from __future__ import annotations
 
@@ -38,18 +40,21 @@ class SweepResult(NamedTuple):
     beta_acum: torch.Tensor  # (G,) sum of beta^2 over slab hits
 
 
-def _check_mode(XT_pad, gram, J, x_mean, fold_affine, missing):
+def _check_mode(XT_pad, gram, J, x_mean, fold_affine, missing,
+                entry="Queue 2 entry 1"):
+    """Reject the modes of the TPU kernel that are not ported; ``entry``
+    is the ROADMAP entry of the sweep's kernel."""
     nb = gram.shape[0]
     if nb % J:
         raise ValueError(f"jacobi sweep needs J | nb (J={J}, nb={nb})")
     if x_mean is None or XT_pad.dtype != torch.int32:
         raise NotImplementedError(
             "the strided Jacobi sweep is ported for 2-bit packed words only; "
-            "its dense f32 and int8 modes are ROADMAP Queue 2 entry 1")
+            f"its dense f32 and int8 modes are ROADMAP {entry}")
     if missing:
         raise NotImplementedError(
             "packed genotypes with missing calls (the kernel's `miss` mode) "
-            "are ROADMAP Queue 2 entry 1 / Queue 1 item 7")
+            f"are ROADMAP {entry} / Queue 1 item 7")
     if not fold_affine:
         raise ValueError("packed jacobi sweep needs fold_affine=True "
                          "(missing-free codes)")
@@ -91,29 +96,10 @@ def bayesr_jacobi_t(XT_pad, gram, xsq_pad, eps, beta_pad, labels_pad,
 bayesr_jacobi_t.launches = 0
 
 
-def _sweep_cuda(words, gram, xsq, eps, beta, labels, rho, inner, p, z, pi,
-                cva, sigmaE, sigmaGG, gas, valid, J, mean, scale, row_valid):
-    from . import _cuda
-
-    lib = _cuda.library("jacobi_t")
-    dev = words.device
-    Mpad, Nw = words.shape
-    nb, B, _ = gram.shape
-    G, K = pi.shape
-    nr = nb // J
-    Npad = Nw * genotypes.WORDS
-    if nb * B != Mpad:
-        raise ValueError(f"gram has {nb}x{B} markers, words {Mpad}")
-    if not (2 <= B <= lib.lib.jacobi_t_max_block() and B % 2 == 0):
-        raise ValueError(f"jacobi_t kernel takes blocks of an even number "
-                         f"of markers <= 32 (B={B})")
-    if not 2 <= K <= lib.lib.jacobi_t_max_components():
-        raise ValueError(f"jacobi_t kernel takes 2 <= K <= 8 (K={K})")
-    if J * B > lib.lib.jacobi_t_max_round():
-        raise ValueError(f"jacobi_t kernel takes <= 4096 markers per round "
-                         f"(J*B={J * B})")
-    f32, i32 = torch.float32, torch.int32
-
+def _operands(dev):
+    """The checker of the CUDA sweeps' operands: each must lie on ``dev``
+    (nothing is moved) and have the kernel's shape; it comes back in the
+    kernel's dtype, contiguous."""
     def arg(t, dtype, shape, name):
         if isinstance(t, torch.Tensor) and t.device != dev:
             raise ValueError(f"{name} is on {t.device}, words on {dev}")
@@ -122,6 +108,39 @@ def _sweep_cuda(words, gram, xsq, eps, beta, labels, rho, inner, p, z, pi,
             raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                              f"expected {tuple(shape)}")
         return t.to(dtype).contiguous()
+
+    return arg
+
+
+def _round_plan(lib, words, gram, J):
+    """(Mpad, Nw, nb, B, nr) of a CUDA sweep, checked against what the
+    kernel takes."""
+    Mpad, Nw = words.shape
+    nb, B, _ = gram.shape
+    if nb * B != Mpad:
+        raise ValueError(f"gram has {nb}x{B} markers, words {Mpad}")
+    if not (2 <= B <= lib.lib.jacobi_t_max_block() and B % 2 == 0):
+        raise ValueError(f"jacobi_t kernel takes blocks of an even number "
+                         f"of markers <= 32 (B={B})")
+    if J * B > lib.lib.jacobi_t_max_round():
+        raise ValueError(f"jacobi_t kernel takes <= 4096 markers per round "
+                         f"(J*B={J * B})")
+    return Mpad, Nw, nb, B, nb // J
+
+
+def _sweep_cuda(words, gram, xsq, eps, beta, labels, rho, inner, p, z, pi,
+                cva, sigmaE, sigmaGG, gas, valid, J, mean, scale, row_valid):
+    from . import _cuda
+
+    lib = _cuda.library("jacobi_t")
+    dev = words.device
+    Mpad, Nw, nb, B, nr = _round_plan(lib, words, gram, J)
+    G, K = pi.shape
+    Npad = Nw * genotypes.WORDS
+    if not 2 <= K <= lib.lib.jacobi_t_max_components():
+        raise ValueError(f"jacobi_t kernel takes 2 <= K <= 8 (K={K})")
+    f32, i32 = torch.float32, torch.int32
+    arg = _operands(dev)
 
     words = arg(words, i32, (Mpad, Nw), "words")
     gram = arg(gram, f32, (nb, B, B), "gram")
@@ -285,3 +304,156 @@ def bayesr_jacobi_t_reference(XT_pad, gram, xsq_pad, eps, beta_pad,
                                    0.0).sum()
         eps = eps - d.reshape(-1) @ x
     return SweepResult(eps, beta, labels, v, bacc)
+
+
+# ---------------------------------------------------------------- horseshoe
+
+
+def horseshoe_jacobi_t(XT_pad, gram, xsq_pad, eps, beta_pad, rho, inner_perm,
+                       z_arr, lam_pad, tau, c2, sigmaE, valid_pad, *,
+                       J: int = 64, x_mean=None, x_scale=None, x_xsum=None,
+                       fold_affine: bool = False, row_valid=None,
+                       missing: bool = False):
+    """One strided-rounds horseshoe sweep (pallas_jacobi_t.py:
+    horseshoe_jacobi_t_pallas): the rounds, visit order and z indexing of
+    ``bayesr_jacobi_t``, with the conjugate normal draw of ``_hs_tables``
+    per step.  Returns (eps, beta).
+
+    lam_pad (Mpad,); tau, c2 and sigmaE scalars; the other operands as in
+    ``bayesr_jacobi_t``.  On CUDA tensors it launches ``csrc/jacobi_t.cu``'s
+    horseshoe sweep (3 launches per round, counted in
+    ``horseshoe_jacobi_t.launches``) or raises; on CPU tensors it runs
+    ``horseshoe_jacobi_t_reference``.
+    """
+    _check_mode(XT_pad, gram, J, x_mean, fold_affine, missing,
+                "Queue 2 entry 3")
+    if row_valid is None:
+        raise ValueError("packed jacobi sweep needs row_valid")
+    if XT_pad.device.type == "cpu":
+        return horseshoe_jacobi_t_reference(
+            XT_pad, gram, xsq_pad, eps, beta_pad, rho, inner_perm, z_arr,
+            lam_pad, tau, c2, sigmaE, valid_pad, J=J, x_mean=x_mean,
+            x_scale=x_scale, fold_affine=fold_affine, row_valid=row_valid)
+    if XT_pad.device.type != "cuda":
+        raise NotImplementedError(
+            f"no jacobi_t kernel for device {XT_pad.device}")
+    return _hs_sweep_cuda(XT_pad, gram, xsq_pad, eps, beta_pad, rho,
+                          inner_perm, z_arr, lam_pad, tau, c2, sigmaE,
+                          valid_pad, J, x_mean, x_scale, row_valid)
+
+
+horseshoe_jacobi_t.launches = 0
+
+
+def _hs_sweep_cuda(words, gram, xsq, eps, beta, rho, inner, z, lam, tau, c2,
+                   sigmaE, valid, J, mean, scale, row_valid):
+    from . import _cuda
+
+    lib = _cuda.library("jacobi_t")
+    dev = words.device
+    Mpad, Nw, nb, B, nr = _round_plan(lib, words, gram, J)
+    Npad = Nw * genotypes.WORDS
+    f32, i32 = torch.float32, torch.int32
+    arg = _operands(dev)
+
+    words = arg(words, i32, (Mpad, Nw), "words")
+    gram = arg(gram, f32, (nb, B, B), "gram")
+    xsq = arg(xsq, f32, (Mpad,), "xsq")
+    mean = arg(mean, f32, (Mpad,), "x_mean")
+    scale = arg(scale, f32, (Mpad,), "x_scale")
+    row_valid = arg(row_valid, torch.bool, (Npad,), "row_valid")
+    beta_in = arg(beta, f32, (Mpad,), "beta")
+    rho = arg(rho, i32, (nr,), "rho")
+    inner = arg(inner, i32, (nb, B), "inner_perm")
+    z = arg(z, f32, (Mpad,), "z")
+    lam = arg(lam, f32, (Mpad,), "lam")
+    tau = arg(tau, f32, (), "tau")
+    c2 = arg(c2, f32, (), "c2")
+    sigmaE = arg(sigmaE, f32, (), "sigmaE")
+    valid = arg(valid, torch.bool, (Mpad,), "valid")
+    eps_out = torch.empty((Npad,), dtype=f32, device=dev)
+    eps_out.copy_(arg(eps, f32, (Npad,), "eps"))
+
+    nsplit = lib.lib.jacobi_t_dot_splits(Nw)
+    beta_out = torch.empty((Mpad,), dtype=f32, device=dev)
+    partial = torch.empty(((J * B + 1) * nsplit,), dtype=f32, device=dev)
+    dsc = torch.empty((J * B,), dtype=f32, device=dev)
+    dms = torch.empty((J,), dtype=f32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.lib.jacobi_t_hs_sweep(
+        words.data_ptr(), Nw, nr, J, B, gram.data_ptr(), xsq.data_ptr(),
+        mean.data_ptr(), scale.data_ptr(), eps_out.data_ptr(),
+        row_valid.data_ptr(), beta_in.data_ptr(), beta_out.data_ptr(),
+        rho.data_ptr(), inner.data_ptr(), z.data_ptr(), lam.data_ptr(),
+        tau.data_ptr(), c2.data_ptr(), sigmaE.data_ptr(), valid.data_ptr(),
+        partial.data_ptr(), nsplit, dsc.data_ptr(), dms.data_ptr(), stream)
+    lib.check(rc, "jacobi_t_hs_sweep launch")
+    horseshoe_jacobi_t.launches += LAUNCHES_PER_ROUND * nr
+    return eps_out, beta_out
+
+
+def _hs_tables(xsq, lam, tau, c2, sigmaE):
+    """Per-marker 1/denom and sd of the horseshoe step, in the op order of
+    the TPU kernel's operand table (pallas_jacobi_t.py:
+    build_pkgT_hs_strided, src/HorseshoeR.cpp:224, 234)."""
+    f32 = torch.float32
+    dev = xsq.device
+    xsq, lam = xsq.to(f32), lam.to(f32)
+    tau, c2, sE = (torch.as_tensor(x, dtype=f32, device=dev)
+                   for x in (tau, c2, sigmaE))
+    s_j = tau * c2 * lam / (tau * lam + c2)
+    denom = xsq + sE / s_j
+    return 1.0 / denom, torch.sqrt(sE / denom)
+
+
+def horseshoe_jacobi_t_reference(XT_pad, gram, xsq_pad, eps, beta_pad, rho,
+                                 inner_perm, z_arr, lam_pad, tau, c2, sigmaE,
+                                 valid_pad, *, J: int, x_mean=None,
+                                 x_scale=None, x_xsum=None,
+                                 fold_affine: bool = False, row_valid=None,
+                                 missing: bool = False):
+    """The plain torch version of ``horseshoe_jacobi_t``: each round decodes
+    its J*B markers to standardized f32 rows and runs the J blocks'
+    sequential solves batched over the blocks, with the kernel's algebra
+    (beta_new = num*invd + sd*z, pallas_jacobi_t.py:748-750)."""
+    _check_mode(XT_pad, gram, J, x_mean, fold_affine, missing,
+                "Queue 2 entry 3")
+    f32 = torch.float32
+    dev = XT_pad.device
+    nb, B, _ = gram.shape
+    nr = nb // J
+    invd, sd = _hs_tables(xsq_pad, lam_pad, tau, c2, sigmaE)
+    xsq = xsq_pad.to(f32)
+    okf = valid_pad.to(f32)
+    mean, scale = x_mean.to(f32), x_scale.to(f32)
+    lane_ok = row_valid.to(torch.bool)
+    eps = eps.to(f32).clone()
+    beta = beta_pad.to(f32).clone()
+    jj = torch.arange(J, device=dev)
+    lanes = torch.arange(B, device=dev)
+    gram = gram.to(f32)
+    inner_perm = inner_perm.long()
+    for r in range(nr):
+        s = rho[r].long()
+        blk = jj * nr + s                                     # (J,)
+        rows = (blk[:, None] * B + lanes).reshape(-1)         # (J*B,)
+        x = genotypes.decode_rows(XT_pad[rows], mean[rows], scale[rows],
+                                  lane_ok)                    # (J*B, Npad)
+        rr = (x @ eps).view(J, B)
+        bold = beta[rows].view(J, B)
+        inn = inner_perm[blk]                                 # (J, B)
+        z_r = z_arr[(s * J + jj)[:, None] * B + lanes].to(f32)
+        G_r = gram[blk]                                       # (J, B, B)
+        d = torch.zeros((J, B), dtype=f32, device=dev)
+        for t in range(B):
+            m = inn[:, t]                                     # (J,)
+            mg = blk * B + m                                  # markers
+            b_old = bold[jj, m]
+            num = rr[jj, m] + b_old * xsq[mg]
+            beta_new = num * invd[mg] + sd[mg] * z_r[:, t]
+            dd = okf[mg] * (beta_new - b_old)
+            rr = rr - G_r[jj, m, :] * dd[:, None]
+            d[jj, m] = dd
+        beta[rows] = (bold + d).reshape(-1)
+        eps = eps - d.reshape(-1) @ x
+    return eps, beta

@@ -22,7 +22,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
    BayesRConfig(emit_epsilon=False), x_dtype="2bit", transposed=True,
    x_stats=...)`` then ``.run(generator, ChainConfig(30, 10, 10),
    sink=CSVSink(...))`` with the launch counter reset just before; checks
-   CSV widths, finiteness, tracked vs recomputed eps, and the launch count.
+   CSV widths, finiteness, tracked vs recomputed eps, and the launch count;
+5. the horseshoe kernel against its plain version, one sweep on the same
+   inputs and variates from a warm state: at N=4096 x M=8192 (plan J=32,
+   B=32) beta and eps to rtol 1e-4 / atol 1e-5; at the headline, on the
+   words of phase 2, |d eps| / |eps| and |d beta| / |beta| < 1e-4 (no label
+   can flip here, so the bound is tighter than BayesR's);
+6. horseshoe recovery: N=4096, M=2048, block_size 256, the
+   tests/test_horseshoe.py:15-19 hyperparameters, through the kernel,
+   posterior-mean corr > 0.8;
+7. the horseshoe main path, biobank-horseshoe: ``HorseshoeSampler(words,
+   Y, HorseshoeConfig(emit_epsilon=False), ...)`` then ``.run(generator,
+   ChainConfig(30, 10, 10), sink=CSVSink(..., "horseshoe", ...))`` with the
+   launch counter reset just before; checks CSV widths, finiteness, tau > 0,
+   tracked vs recomputed eps and the launch count, then profiles two more
+   steps for the dot / solve / apply split.
 
 The last two lines of standard output are the kernels' JSON record and the
 device JSON.  Nothing of JAX is imported.
@@ -36,6 +50,10 @@ import time
 
 CVA = [0.0001, 0.001, 0.01]
 HEADLINE_N, HEADLINE_M = 100_352, 503_808
+# (iterations, burn-in, thinning) of the horseshoe recovery chain: from its
+# prior init, tau starts near 1e-7 at this size and some chains take a few
+# hundred iterations to leave the collapsed mode (all signal in sigmaE)
+HS_RECOVERY_CHAIN = (600, 300, 1)
 
 
 def check(cond, msg):
@@ -45,6 +63,24 @@ def check(cond, msg):
 
 def log(msg):
     print(msg, flush=True)
+
+
+def hs_sweep_args(s, st, v):
+    """The horseshoe main path's sweep operands for state ``st`` with fresh
+    variates from ``v`` (models/horseshoe.py:HorseshoeSampler.step)."""
+    d = s.data
+    rho, inner = v.orders(s.nb, s.B, s.jacobi)
+    args = (d.XT, d.gram, d.xsq, st.eps, st.beta, rho, inner, v.z(s.Mpad),
+            st.lam, st.tau, st.c2, st.sigmaE, d.valid)
+    kw = dict(J=s.jacobi, x_mean=d.x_mean, x_scale=d.x_scale,
+              x_xsum=d.x_colsum, fold_affine=True, row_valid=d.row_valid)
+    return args, kw
+
+
+def rel_err(a, b):
+    import torch
+
+    return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
 
 
 def sweep_args(s, st, v):
@@ -82,9 +118,79 @@ def packed_sampler(torch, bt, g, N, M, cfg, signal=None):
             words, torch.as_tensor(means, dtype=f32, device="cuda"),
             torch.as_tensor(1.0 / sds, dtype=f32, device="cuda"), signal,
             256, N)
-    return bt.SpikeSlabSampler(words, Y, CVA, cfg, transposed=True,
-                               x_dtype="2bit", x_stats=(means, sds),
-                               device="cuda")
+    kw = dict(transposed=True, x_dtype="2bit", x_stats=(means, sds),
+              device="cuda")
+    if isinstance(cfg, bt.HorseshoeConfig):
+        return bt.HorseshoeSampler(words, Y, cfg, **kw)
+    return bt.SpikeSlabSampler(words, Y, CVA, cfg, **kw)
+
+
+def recovery_signal(torch, g, M, n_causal=32):
+    beta_true = torch.zeros(M, device="cuda")
+    beta_true[torch.randperm(M, generator=g, device="cuda")[:n_causal]] = 0.25
+    return beta_true
+
+
+def posterior_corr(torch, out, beta_true):
+    return float(torch.corrcoef(torch.stack([
+        torch.as_tensor(out["beta"].mean(axis=0), device="cuda"),
+        beta_true]))[0, 1])
+
+
+def main_path(torch, sampler, g, chain, schema, counter):
+    """``sampler.run`` into a CSV sink with ``counter``'s launch count set
+    to 0 just before; returns (state, rows, seconds, launches, peak GiB,
+    CSV header, CSV row widths)."""
+    from bayesrrcpp_tpu_torch.io.sink import CSVSink
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "chain.csv")
+        sink = CSVSink(path, schema, M=sampler.M, N=sampler.N,
+                       emit_epsilon=False)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counter.launches = 0
+        t0 = time.perf_counter()
+        try:
+            st, out = sampler.run(g, chain, sink=sink)
+            torch.cuda.synchronize()
+        finally:
+            sink.close()
+        wall = time.perf_counter() - t0
+        launches = counter.launches
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        with open(path) as f:
+            header = f.readline().rstrip("\n").split(",")
+            widths = [len(r.split(", ")) for r in f.read().split("\n") if r]
+    return st, out, wall, launches, peak_gb, header, widths
+
+
+def profile_split(torch, fn, names):
+    """Device time per launch (us) and launch count of the kernels whose
+    names contain each of ``names``, over one call of ``fn``, plus the
+    total device time and the wall time (ms) of the call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    time_us = dict.fromkeys(names, 0.0)
+    count = dict.fromkeys(names, 0)
+    total_us = 0.0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue                      # host ops: their kernels count
+        total_us += e.self_device_time_total
+        for n in names:
+            if n in e.key:
+                time_us[n] += e.self_device_time_total
+                count[n] += e.count
+    split = {n: (time_us[n] / max(count[n], 1), count[n]) for n in names}
+    return split, total_us / 1e3, wall_ms
 
 
 def main():
@@ -95,10 +201,10 @@ def main():
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import bayesrrcpp_tpu_torch as bt
-    from bayesrrcpp_tpu_torch.io.sink import CSVSink
     from bayesrrcpp_tpu_torch.ops import _cuda
     from bayesrrcpp_tpu_torch.ops.jacobi_t import (
-        LAUNCHES_PER_ROUND, bayesr_jacobi_t, bayesr_jacobi_t_reference)
+        LAUNCHES_PER_ROUND, bayesr_jacobi_t, bayesr_jacobi_t_reference,
+        horseshoe_jacobi_t, horseshoe_jacobi_t_reference)
 
     # ---- 1. the card and the build
     smi = subprocess.run(
@@ -169,47 +275,26 @@ def main():
 
     # ---- 3. recovery through the kernel
     gr = torch.Generator(device=dev).manual_seed(13)
-    beta_true = torch.zeros(2048, device=dev)
-    beta_true[torch.randperm(2048, generator=gr, device=dev)[:32]] = 0.25
+    beta_true = recovery_signal(torch, gr, 2048)
     sr = packed_sampler(torch, bt, gr, 4096, 2048,
                         bt.BayesRConfig(block_size=256), signal=beta_true)
     check((sr.jacobi, sr.B) == (8, 32), "recovery plan")
     _, out = sr.run(gr, bt.ChainConfig(100, 60, 1))
-    corr = float(torch.corrcoef(torch.stack([
-        torch.as_tensor(out["beta"].mean(axis=0), device=dev),
-        beta_true]))[0, 1])
+    corr = posterior_corr(torch, out, beta_true)
     log(f"[3] recovery corr {corr:.4f}")
     check(corr > 0.8, f"recovery corr {corr}")
     del sr, out
 
     # ---- 4. the main path
     chain = bt.ChainConfig(30, 10, 10)
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "chain.csv")
-        sink = CSVSink(path, "bayesr", M=s.M, N=s.N, emit_epsilon=False)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        bayesr_jacobi_t.launches = 0
-        t0 = time.perf_counter()
-        try:
-            st, out = s.run(g, chain, sink=sink)
-            torch.cuda.synchronize()
-        finally:
-            sink.close()
-        wall = time.perf_counter() - t0
-        launches = bayesr_jacobi_t.launches
-        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-        with open(path) as f:
-            header = f.readline().rstrip("\n").split(",")
-            widths = [len(r.split(", ")) for r in f.read().split("\n") if r]
+    st, out, wall, launches, peak_gb, header, widths = main_path(
+        torch, s, g, chain, "bayesr", bayesr_jacobi_t)
     check(len(header) == 2 + 2 * s.M + 2, f"header width {len(header)}")
     check(widths == [len(header)] * 2, f"row widths {widths}")
     check(list(out["iteration"]) == [10, 20], f"{out['iteration']}")
     check(np_finite(out["sigmaE"]) and np_finite(out["beta"]),
           "non-finite sigmaE or beta")
-    ex = s.refresh_eps(st)
-    rel = float(torch.linalg.norm(st.eps - ex.eps)
-                / torch.linalg.norm(ex.eps))
+    rel = rel_err(st.eps, s.refresh_eps(st).eps)
     want = LAUNCHES_PER_ROUND * nr * chain.max_iterations
     log(f"[4] main path: {wall / chain.max_iterations * 1e3:.2f} ms/iter "
         f"({wall:.2f} s for {chain.max_iterations} iterations incl. CSV), "
@@ -218,13 +303,117 @@ def main():
         f"sigmaE {float(st.sigmaE):.5f}")
     check(rel < 1e-4, f"tracked eps vs recompute {rel}")
     check(launches == want, f"launches {launches} != {want}")
+    bayesr_launches = launches
+    del st, out
 
-    print(json.dumps({"kernels": [{
-        "name": "jacobi_t_sweep", "route": "cuda",
-        "source": "bayesrrcpp_tpu_torch/csrc/jacobi_t.cu",
-        "replaces": "bayesrrcpp_tpu/ops/pallas_jacobi_t.py:405",
-        "launches": launches, "max_abs_err": max_err, "ms": ker_ms,
-        "plain_ms": plain_ms}]}))
+    # ---- 5a. horseshoe kernel vs plain, N=4096 x M=8192
+    g = torch.Generator(device=dev).manual_seed(2)
+    v = bt.TorchVariates(g)
+    h = packed_sampler(torch, bt, g, 4096, 8192, bt.HorseshoeConfig())
+    check((h.jacobi, h.B, h.jacobi_layout) == (32, 32, "t"),
+          f"horseshoe plan {(h.jacobi, h.B, h.jacobi_layout)} at M=8192")
+    st = h._run_steps(h.init(v), v, 3)
+    args, kw = hs_sweep_args(h, st, v)
+    (eps_k, beta_k), (eps_r, beta_r) = (horseshoe_jacobi_t(*args, **kw),
+                                        horseshoe_jacobi_t_reference(*args,
+                                                                     **kw))
+    torch.cuda.synchronize()
+    for name, a, b in (("beta", beta_k, beta_r), ("eps", eps_k, eps_r)):
+        check(torch.allclose(a, b, rtol=1e-4, atol=1e-5),
+              f"horseshoe {name} differs at M=8192: max |d| "
+              f"{float((a - b).abs().max())}")
+    log(f"[5a] horseshoe N=4096 M=8192: max|d beta| "
+        f"{float((beta_k - beta_r).abs().max()):.3g} max|d eps| "
+        f"{float((eps_k - eps_r).abs().max()):.3g}")
+    del h, st, args
+
+    # ---- 5b. the horseshoe at the headline, on phase 2's words
+    t0 = time.perf_counter()
+    hs = bt.HorseshoeSampler(
+        s.data.XT, s.Y[:s.N], bt.HorseshoeConfig(emit_epsilon=False),
+        transposed=True, x_dtype="2bit",
+        x_stats=bt.simulate.packed_word_stats(HEADLINE_M), device="cuda")
+    torch.cuda.synchronize()
+    hs_setup_s = time.perf_counter() - t0
+    check(hs.data.XT.data_ptr() == s.data.XT.data_ptr(), "words copied")
+    del s
+    check((hs.jacobi, hs.B, hs.jacobi_layout, hs.Mpad) ==
+          (128, 32, "t", HEADLINE_M), "horseshoe headline plan")
+    g = torch.Generator(device=dev).manual_seed(3)
+    v = bt.TorchVariates(g)
+    st = hs._run_steps(hs.init(v), v, 2)
+    args, kw = hs_sweep_args(hs, st, v)
+    (eps_k, beta_k), hs_ms = timed(
+        torch, lambda: horseshoe_jacobi_t(*args, **kw), 3)
+    (eps_r, beta_r), hs_plain_ms = timed(
+        torch, lambda: horseshoe_jacobi_t_reference(*args, **kw), 1)
+    rel_eps, rel_beta = rel_err(eps_k, eps_r), rel_err(beta_k, beta_r)
+    hs_err = max(float((eps_k - eps_r).abs().max()),
+                 float((beta_k - beta_r).abs().max()))
+    log(f"[5b] horseshoe headline: sampler on phase 2's words {hs_setup_s:.2f}"
+        f" s; sweep kernel {hs_ms:.3f} ms, plain {hs_plain_ms:.1f} ms; "
+        f"|d eps|/|eps| {rel_eps:.3g}, |d beta|/|beta| {rel_beta:.3g}, "
+        f"max abs err {hs_err:.3g}")
+    check(rel_eps < 1e-4, f"horseshoe headline eps rel diff {rel_eps}")
+    check(rel_beta < 1e-4, f"horseshoe headline beta rel diff {rel_beta}")
+    del st, args, eps_k, beta_k, eps_r, beta_r
+
+    # ---- 6. horseshoe recovery through the kernel
+    N6, M6, nc = 4096, 2048, 32
+    gr = torch.Generator(device=dev).manual_seed(13)
+    beta_true = recovery_signal(torch, gr, M6, nc)
+    A = (1.0 / N6 ** 0.5) * nc / (M6 - nc)
+    hr = packed_sampler(torch, bt, gr, N6, M6,
+                        bt.HorseshoeConfig(A=A, block_size=256),
+                        signal=beta_true)
+    check((hr.jacobi, hr.B) == (8, 32), "horseshoe recovery plan")
+    rchain = bt.ChainConfig(*HS_RECOVERY_CHAIN)
+    t0 = time.perf_counter()
+    _, out = hr.run(gr, rchain)
+    corr = posterior_corr(torch, out, beta_true)
+    log(f"[6] horseshoe recovery corr {corr:.4f} over {rchain} "
+        f"({(time.perf_counter() - t0) / rchain.max_iterations * 1e3:.2f} "
+        f"ms/iter), last tau {float(out['tau'][-1]):.3g}")
+    check(corr > 0.8, f"horseshoe recovery corr {corr}")
+    del hr, out
+
+    # ---- 7. the horseshoe main path
+    st, out, wall, hs_launches, hs_peak, header, widths = main_path(
+        torch, hs, g, chain, "horseshoe", horseshoe_jacobi_t)
+    check(len(header) == 2 + 2 * hs.M + 2, f"header width {len(header)}")
+    check(widths == [len(header)] * 2, f"row widths {widths}")
+    check(list(out["iteration"]) == [10, 20], f"{out['iteration']}")
+    check(all(np_finite(out[k]) for k in ("mu", "beta", "sigmaE", "tau",
+                                          "lambda")), "non-finite output")
+    check(bool((out["tau"] > 0).all()), f"tau {out['tau']}")
+    rel = rel_err(st.eps, hs.refresh_eps(st).eps)
+    want = LAUNCHES_PER_ROUND * nr * chain.max_iterations
+    log(f"[7] horseshoe main path: "
+        f"{wall / chain.max_iterations * 1e3:.2f} ms/iter ({wall:.2f} s for "
+        f"{chain.max_iterations} iterations incl. CSV), peak {hs_peak:.2f} "
+        f"GiB, launches {hs_launches} (want {want}), tracked-vs-exact eps "
+        f"{rel:.3g}, sigmaE {float(st.sigmaE):.5f}, tau {float(st.tau):.4g}")
+    check(rel < 1e-4, f"horseshoe tracked eps vs recompute {rel}")
+    check(hs_launches == want, f"horseshoe launches {hs_launches} != {want}")
+    names = ("dot_kernel", "hs_solve_kernel", "apply_kernel")
+    split, dev_ms, wall_ms = profile_split(
+        torch, lambda: hs._run_steps(st, bt.TorchVariates(g), 2), names)
+    check(all(c == 2 * nr and us > 0 for us, c in split.values()),
+          f"profiled launches {split}")
+    log("[7] profile of 2 steps: " + ", ".join(
+        f"{n} {us:.2f} us x {c}" for n, (us, c) in split.items())
+        + f"; device {dev_ms:.2f} ms of {wall_ms:.2f} ms wall")
+
+    src = "bayesrrcpp_tpu_torch/csrc/jacobi_t.cu"
+    print(json.dumps({"kernels": [
+        {"name": "jacobi_t_sweep", "route": "cuda", "source": src,
+         "replaces": "bayesrrcpp_tpu/ops/pallas_jacobi_t.py:405",
+         "launches": bayesr_launches, "max_abs_err": max_err, "ms": ker_ms,
+         "plain_ms": plain_ms},
+        {"name": "jacobi_t_hs_sweep", "route": "cuda", "source": src,
+         "replaces": "bayesrrcpp_tpu/ops/pallas_jacobi_t.py:650",
+         "launches": hs_launches, "max_abs_err": hs_err, "ms": hs_ms,
+         "plain_ms": hs_plain_ms}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -26,12 +26,11 @@ def test_csv_header_matches_jax(emit_epsilon):
 
 def test_other_schemas_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        csv_header("horseshoe", 3, 3)
+        csv_header("groups", 3, 3)
 
 
 @pytest.mark.parametrize("name,entry", [("BayesRSamplerV2Groups", "item 7"),
-                                        ("BRV2Grstart", "item 6"),
-                                        ("HorseshoeR", "item 8")])
+                                        ("BRV2Grstart", "item 6")])
 def test_entry_points_outside_the_slice_raise(name, entry):
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {entry}"):
         getattr(api, name)("unused.csv", 1, 10, 5, 1)

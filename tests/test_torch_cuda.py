@@ -1,5 +1,5 @@
-"""The CUDA kernel of bayesrrcpp_tpu_torch/csrc/jacobi_t.cu against its
-plain torch version, on the card.
+"""The CUDA kernels of bayesrrcpp_tpu_torch/csrc/jacobi_t.cu (the BayesR and
+horseshoe sweeps) against their plain torch versions, on the card.
 
 Marked ``cuda``: a CUDA kernel has no CPU mode, so these skip where
 ``torch.cuda.is_available()`` is false.  On the card:
@@ -16,8 +16,9 @@ import pytest
 import torch
 
 from bayesrrcpp_tpu_torch.ops import genotypes
-from bayesrrcpp_tpu_torch.ops.jacobi_t import (bayesr_jacobi_t,
-                                               bayesr_jacobi_t_reference)
+from bayesrrcpp_tpu_torch.ops.jacobi_t import (
+    bayesr_jacobi_t, bayesr_jacobi_t_reference, horseshoe_jacobi_t,
+    horseshoe_jacobi_t_reference)
 
 
 @pytest.fixture
@@ -91,3 +92,36 @@ def test_kernel_rejects_tensors_on_other_devices(cuda):
     args[8] = args[8].cpu()
     with pytest.raises(ValueError, match="p is on cpu"):
         bayesr_jacobi_t(*args, **kw)
+
+
+def _hs_case(seed, J, B, nr, N, dev, tau=0.05):
+    """The horseshoe sweep's operands: _case's data and state with lambda,
+    tau and c2 in place of the mixture's."""
+    args, kw = _case(seed, J, B, 1, 4, nr, N, dev)
+    rng = np.random.default_rng(seed + 1000)
+    M = args[1].shape[0] * B
+    lam = torch.as_tensor(rng.uniform(0.1, 2.0, M), dtype=torch.float32,
+                          device=dev)
+    t = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)  # noqa
+    # words, gram, xsq, eps, beta, rho, inner, z, lam, tau, c2, sigmaE, valid
+    return (args[:5] + args[6:8] + (args[9], lam, t(tau), t(1.5), args[12],
+                                    args[15])), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("J,B,N,tau", [(4, 16, 1500, 0.05),
+                                       (32, 32, 4096, 0.05),
+                                       (8, 32, 3000, 1e-30)])
+def test_horseshoe_kernel_matches_plain(cuda, J, B, N, tau):
+    args, kw = _hs_case(J + B, J, B, 4, N, cuda, tau)
+    before = horseshoe_jacobi_t.launches
+    eps_k, beta_k = horseshoe_jacobi_t(*args, **kw)
+    eps_r, beta_r = horseshoe_jacobi_t_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert horseshoe_jacobi_t.launches == before + 3 * 4
+    torch.testing.assert_close(beta_k, beta_r, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(eps_k, eps_r, rtol=1e-4, atol=1e-5)
+    assert (eps_k[N:] == 0).all()
+    # fixed-order reductions: a second launch is bitwise identical
+    eps_2, beta_2 = horseshoe_jacobi_t(*args, **kw)
+    assert torch.equal(eps_k, eps_2) and torch.equal(beta_k, beta_2)
