@@ -1,17 +1,20 @@
 """bayesrrcpp_tpu_torch -- the BayesR engine in PyTorch, for NVIDIA Hopper.
 
 A port of :mod:`bayesrrcpp_tpu` (JAX on a TPU, kept beside it as the
-reference).  This package covers one chain of two samplers on 2-bit packed
-genotypes with no missing calls, each swept by its strided-rounds
-block-Jacobi kernel in ``csrc/jacobi_t.cu``:
+reference).  This package covers two samplers on 2-bit packed genotypes
+with no missing calls, one chain or several fused (``run_chains``), each
+swept by its strided-rounds block-Jacobi kernels in ``csrc/``:
 
 - BayesR, the ``"bayesr"`` variant (SURVEY C1), the counterpart of
-  ``bayesrrcpp_tpu/ops/pallas_jacobi_t.py:_jacobi_t_kernel``;
+  ``bayesrrcpp_tpu/ops/pallas_jacobi_t.py:_jacobi_t_kernel`` and, for
+  several chains, ``_jacobi_t_mc_kernel`` / ``_jacobi_t_mc8_kernel``;
 - the regularized horseshoe (SURVEY C4), the counterpart of
-  ``_hs_jacobi_t_kernel``;
+  ``_hs_jacobi_t_kernel`` and ``_hs_jacobi_t_mc_kernel`` /
+  ``_hs_jacobi_t_mc8_kernel``;
 
 plus the plain Gram-blocked sweeps on dense X behind
-:func:`api.BayesRSamplerV2` and :func:`api.HorseshoeR`.  Whatever lies
+:func:`api.BayesRSamplerV2` and :func:`api.HorseshoeR`.  The samplers and
+the API run on the card unless ``device="cpu"`` is given.  Whatever lies
 outside that slice raises ``NotImplementedError`` naming its ROADMAP
 entry.
 

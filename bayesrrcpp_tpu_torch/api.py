@@ -3,8 +3,9 @@
 Counterpart of ``bayesrrcpp_tpu/api.py`` for ``BayesRSamplerV2``
 (src/BayesRv2.cpp:60, R/RcppExports.R:49) and ``HorseshoeR``
 (src/HorseshoeR.cpp:109, R/RcppExports.R:74), with the same positional
-signatures and defaults plus ``device``.  ``seed`` seeds a
-``torch.Generator`` on ``device``.  The dense blocked sweeps are plain
+signatures and defaults plus ``device``, which defaults to the card
+("cuda"; without one they raise: pass ``device="cpu"`` to run on the CPU).
+``seed`` seeds a ``torch.Generator`` on ``device``.  The dense blocked sweeps are plain
 torch, as the JAX package runs them in XLA with no kernel.  The grouped
 and warm-restart entry points keep their names and raise
 ``NotImplementedError`` until ROADMAP Queue 1 items 7 and 6 port them.
@@ -23,7 +24,7 @@ from .models.horseshoe import HorseshoeSampler
 def BayesRSamplerV2(outputFile, seed, max_iterations, burn_in, thinning,
                     X, Y, sigma0, v0E, s02E, v0G, s02G, cva,
                     *, backend="blocked", dtype=None, block_size=512,
-                    emit_epsilon=True, device="cpu"):
+                    emit_epsilon=True, device="cuda"):
     """BayesR sampler.  Streams post-burn-in thinned samples to
     ``outputFile`` in the reference CSV schema: iteration, mu, beta[1..M],
     sigmaE, sigmaG, comp[1..M], epsilon[1..N] (src/BayesRv2.cpp:16-37).
@@ -40,7 +41,7 @@ def BayesRSamplerV2(outputFile, seed, max_iterations, burn_in, thinning,
 def HorseshoeR(outputFile, seed, max_iterations, burn_in, thinning,
                X, Y, A, v0E, s02E, vL, vT, c2, vC, sC,
                *, backend="blocked", dtype=None, block_size=512,
-               emit_epsilon=True, device="cpu"):
+               emit_epsilon=True, device="cuda"):
     """Regularized-horseshoe sampler.  Streams post-burn-in thinned
     samples to ``outputFile`` in the horseshoe CSV schema: iteration, mu,
     beta[1..M], sigmaE, tau, lambda[1..M], epsilon[1..N]

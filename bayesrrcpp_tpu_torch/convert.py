@@ -10,7 +10,10 @@ needs no JAX.  Layout is free between the two packages, semantics are not:
   2k of word w) in both packages and pass through unchanged;
 - beta, labels, lambda and v keep the JAX Mpad, since both packages
   choose the same plan; the PRNG key is dropped (the port's randomness
-  lives in the variates object passed to each step).
+  lives in the variates object passed to each step);
+- a chain-batched JAX state (``jax.vmap(init)``, ``step_chains``) carries
+  across with its leading chain axis on every tensor and one host
+  iteration count.
 """
 from __future__ import annotations
 
@@ -28,14 +31,15 @@ def _t(x, device, dtype=torch.float32):
 
 
 def unpermute_eps(eps_packed, Npad) -> np.ndarray:
-    """JAX packed-order eps (Npad,) -> individual order (Npad,)."""
-    out = np.zeros(Npad, np.asarray(eps_packed).dtype)
-    out[genotypes.lane_perm(Npad)] = np.asarray(eps_packed)
+    """JAX packed-order eps (..., Npad) -> individual order (..., Npad)."""
+    eps_packed = np.asarray(eps_packed)
+    out = np.zeros(eps_packed.shape[:-1] + (Npad,), eps_packed.dtype)
+    out[..., genotypes.lane_perm(Npad)] = eps_packed
     return out
 
 
 def _eps_from_jax(state: dict, sampler) -> np.ndarray:
-    if tuple(np.shape(state["beta"])) != (sampler.Mpad,):
+    if np.shape(state["beta"])[-1:] != (sampler.Mpad,):
         raise ValueError(f"beta has shape {np.shape(state['beta'])}; the "
                          f"sampler plans Mpad={sampler.Mpad}")
     eps = np.asarray(state["eps"])
@@ -44,14 +48,22 @@ def _eps_from_jax(state: dict, sampler) -> np.ndarray:
     return eps
 
 
+def _iteration(state: dict) -> int:
+    """The one iteration count of a (chain-batched) JAX state."""
+    its = np.unique(np.asarray(state["iteration"]))
+    if its.size != 1:
+        raise ValueError(f"chains at different iterations: {its}")
+    return int(its[0])
+
+
 def state_from_jax(state: dict, sampler) -> SpikeSlabState:
     """The port's state from a JAX ``SpikeSlabState`` given as a dict of
     NumPy arrays (e.g. ``{k: np.asarray(v) for k, v in
-    jax_state._asdict().items()}``)."""
+    jax_state._asdict().items()}``), one chain or chain-batched."""
     dev = sampler.device
     eps = _eps_from_jax(state, sampler)
     return SpikeSlabState(
-        iteration=int(state["iteration"]),
+        iteration=_iteration(state),
         mu=_t(state["mu"], dev),
         beta=_t(state["beta"], dev),
         labels=_t(state["labels"], dev, torch.int32),
@@ -65,11 +77,11 @@ def state_from_jax(state: dict, sampler) -> SpikeSlabState:
 
 def horseshoe_state_from_jax(state: dict, sampler) -> HorseshoeState:
     """The port's state from a JAX ``HorseshoeState`` given as a dict of
-    NumPy arrays (as ``state_from_jax``)."""
+    NumPy arrays (as ``state_from_jax``), one chain or chain-batched."""
     dev = sampler.device
     eps = _eps_from_jax(state, sampler)
     return HorseshoeState(
-        iteration=int(state["iteration"]),
+        iteration=_iteration(state),
         eps=_t(eps, dev),
         **{k: _t(state[k], dev)
            for k in ("mu", "beta", "sigmaE", "lam", "v", "tau", "eta",

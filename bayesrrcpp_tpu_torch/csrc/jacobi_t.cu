@@ -9,6 +9,9 @@
 // in their fold-affine 2-bit mode.  Python wrappers and plain versions:
 // bayesrrcpp_tpu_torch/ops/jacobi_t.py.  The two sweeps share the dot and
 // apply launches and differ in the solve (solve_kernel, hs_solve_kernel).
+// The decode, the dot's per-word arithmetic and the solves' bodies live in
+// jacobi_t_common.cuh, shared with the fused multi-chain sweeps
+// (jacobi_t_mc.cu).
 //
 // One sweep is nr rounds.  Round r sweeps slab s = rho[r], the J blocks
 // {j*nr + s : j < J} of B markers each, in three launches:
@@ -59,62 +62,9 @@
 //   bacc sums beta_out^2 over slab hits.
 // - lanes n >= N are never written, so eps stays 0 there.
 
-#include <cuda_runtime.h>
-#include <float.h>
-#include <stdint.h>
+#include "jacobi_t_common.cuh"
 
 namespace {
-
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kMaxB = 32;           // markers per block: one lane each
-constexpr int kMaxK = 8;            // mixture components
-constexpr int kDotThreads = 128;    // words per dot CTA
-constexpr int kApplyThreads = 128;  // 4 threads per word: 32 words per CTA
-constexpr int kApplyWarps = kApplyThreads / 32;
-constexpr int kMaxRound = 4096;     // J*B markers per round
-constexpr int kPerLane = kMaxRound / kApplyThreads;
-constexpr float kMagic = 8388608.0f;        // 2^23
-constexpr uint32_t kMagicBits = 0x4B000000u;
-
-// Exact float of the 2-bit field k of w, for any k.
-__device__ __forceinline__ float code_f(uint32_t w, int k) {
-  return __uint_as_float(kMagicBits | ((w >> (2 * k)) & 3u)) - kMagic;
-}
-
-// c * 4^k for the field k <= 10 of w, exactly (3 * 4^10 < 2^23).
-__device__ __forceinline__ float code_scaled(uint32_t w, int k) {
-  return __uint_as_float(kMagicBits | (w & (3u << (2 * k)))) - kMagic;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int lg = 4; lg >= 0; --lg) v += __shfl_xor_sync(kFull, v, 1 << lg);
-  return v;
-}
-
-// One halving step of warp_transpose_sum: lanes with bit OFF set keep the
-// upper OFF values, the others the lower, each adding its partner's copy.
-template <int OFF>
-__device__ __forceinline__ void transpose_step(float (&v)[kMaxB], int lane) {
-  const bool upper = (lane & OFF) != 0;
-#pragma unroll
-  for (int i = 0; i < OFF; ++i) {
-    const float send = upper ? v[i] : v[i + OFF];
-    const float keep = upper ? v[i + OFF] : v[i];
-    v[i] = keep + __shfl_xor_sync(kFull, send, OFF);
-  }
-}
-
-// v[i] per lane -> lane l returns the warp's sum of v[l] (31 shuffles).
-__device__ __forceinline__ float warp_transpose_sum(float (&v)[kMaxB],
-                                                    int lane) {
-  transpose_step<16>(v, lane);
-  transpose_step<8>(v, lane);
-  transpose_step<4>(v, lane);
-  transpose_step<2>(v, lane);
-  transpose_step<1>(v, lane);
-  return v[0];
-}
 
 __global__ void __launch_bounds__(kDotThreads)
 dot_kernel(const uint32_t* __restrict__ words, int Nw,
@@ -127,45 +77,21 @@ dot_kernel(const uint32_t* __restrict__ words, int Nw,
   const long long row0 = (long long)(j * nr + rho[round]) * B;
   const int JB1 = J * B + 1;
 
-  float acc[kMaxB];
+  float acc[1][kMaxB];
 #pragma unroll
-  for (int i = 0; i < kMaxB; ++i) acc[i] = 0.f;
+  for (int i = 0; i < kMaxB; ++i) acc[0][i] = 0.f;
   float esum = 0.f;
   if (w < Nw) {
-    // eps of the word's 16 individuals, field k pre-scaled by 4^-k for
-    // k <= 10 and by 4^-(k-11) above (those fields are read from w >> 22)
-    float e[16];
-    const float4* e4 = reinterpret_cast<const float4*>(eps) + 4LL * w;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const float4 t = e4[q];
-      e[4 * q] = t.x; e[4 * q + 1] = t.y; e[4 * q + 2] = t.z; e[4 * q + 3] = t.w;
-    }
-#pragma unroll
-    for (int k = 0; k < 16; ++k) esum += e[k];
-#pragma unroll
-    for (int k = 0; k < 16; ++k)
-      e[k] *= __uint_as_float((127u - 2u * (k <= 10 ? k : k - 11)) << 23);
+    float e[1][16];
+    esum = load_eps16(reinterpret_cast<const float4*>(eps) + 4LL * w, e[0]);
     // all B loads first, so a warp keeps B lines in flight
-    const uint32_t* wp = words + row0 * Nw + w;
     uint32_t wds[kMaxB];
-#pragma unroll
-    for (int i = 0; i < kMaxB; ++i)
-      wds[i] = i < B ? __ldg(wp + (long long)i * Nw) : 0u;
-#pragma unroll
-    for (int i = 0; i < kMaxB; ++i) {
-      const uint32_t wd = wds[i], hi = wd >> 22;
-      float s = 0.f;
-#pragma unroll
-      for (int k = 0; k <= 10; ++k) s = fmaf(code_scaled(wd, k), e[k], s);
-#pragma unroll
-      for (int k = 0; k < 5; ++k) s = fmaf(code_scaled(hi, k), e[11 + k], s);
-      acc[i] = s;
-    }
+    load_words(words + row0 * Nw + w, Nw, B, wds);
+    dot_rows<1>(wds, e, acc);
   }
   __shared__ float red[kDotThreads / 32][32];
   __shared__ float red_e[kDotThreads / 32];
-  red[warp][lane] = warp_transpose_sum(acc, lane);
+  red[warp][lane] = warp_transpose_sum(acc[0], lane);
   esum = warp_sum(esum);
   if (lane == 0) red_e[warp] = esum;
   __syncthreads();
@@ -184,238 +110,14 @@ dot_kernel(const uint32_t* __restrict__ words, int Nw,
   }
 }
 
-struct SolveArgs {
-  const float* partial; int nsplit;
-  const int* rho; int round; int nr; int J; int B; int K; int G;
-  const float* gram; const float* xsq; const float* mean; const float* scale;
-  const float* beta_in; const int* labels_in;
-  float* beta_out; int* labels_out;
-  const int* inner; const float* p; const float* z;
-  const float* pi; const float* cva; const float* sigmaE;
-  const float* sigmaGG; const int* gas; const unsigned char* valid;
-  float* dsc; float* dms; float* vpart; float* bpart;
-};
-
-// K, the number of mixture components, is a template argument so the
-// selection below is straight-line code.
+// The solves: one warp per block of the round (jacobi_t_common.cuh).
 template <int K>
 __global__ void __launch_bounds__(32) solve_kernel(SolveArgs a) {
-  const int j = blockIdx.x;
-  const int lane = threadIdx.x;
-  const int B = a.B, G = a.G;
-  const int JB1 = a.J * B + 1;
-  const int slab = a.rho[a.round];
-  const long long blk = (long long)j * a.nr + slab;
-  const long long m = blk * B + lane;
-  const bool act = lane < B;
-
-  // the Gram block (B*B floats, B even: float4 copies)
-  __shared__ float4 gs4[kMaxB * kMaxB / 4];
-  const float* gs = reinterpret_cast<const float*>(gs4);
-  const float4* g4 = reinterpret_cast<const float4*>(a.gram + blk * B * B);
-#pragma unroll 8
-  for (int e = lane; e < B * B / 4; e += 32) gs4[e] = g4[e];
-
-  // partial sums in a fixed order: sum(eps) over the CTAs q = lane mod 32,
-  // then the warp; r of this lane's marker over q = 0, 1, ...
-  float esum = 0.f;
-  for (int q = lane; q < a.nsplit; q += 32)
-    esum += a.partial[(long long)q * JB1 + JB1 - 1];
-  esum = warp_sum(esum);
-  float rc = 0.f;
-  if (act) {
-    const float* pr = a.partial + j * B + lane;
-#pragma unroll 8
-    for (int q = 0; q < a.nsplit; ++q) rc += pr[(long long)q * JB1];
-  }
-  const float sE = *a.sigmaE;
-  const float half_invsE = 0.5f / sE;
-
-  float r = 0.f, sc = 0.f, ms = 0.f, xs = 0.f, bold = 0.f, okf = 0.f;
-  float pl = 0.f, zl = 0.f;
-  int lab = 0, g = 0, inn = 0;
-  float lp[K], invd[K], sd[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) { lp[k] = 0.f; invd[k] = 0.f; sd[k] = 0.f; }
-  if (act) {
-    sc = a.scale[m];
-    ms = a.mean[m] * sc;
-    r = rc * sc - ms * esum;
-    xs = a.xsq[m];
-    bold = a.beta_in[m];
-    lab = a.labels_in[m];
-    okf = a.valid[m] ? 1.f : 0.f;
-    g = a.gas[m];
-    inn = a.inner[blk * B + lane];
-    const long long q = ((long long)slab * a.J + j) * B + lane;
-    pl = a.p[q];
-    zl = a.z[q];
-    // per-marker constants (pallas_jacobi_t.py:_bayesr_tbl)
-    const float sG = a.sigmaGG[g];
-    lp[0] = logf(fmaxf(a.pi[g * K], FLT_MIN));
-#pragma unroll
-    for (int k = 1; k < K; ++k) {
-      const float c = a.cva[g * (K - 1) + k - 1];
-      const float denom = xs + (sE / sG) / c;
-      invd[k] = 1.f / denom;
-      sd[k] = sqrtf(sE / denom);
-      lp[k] = logf(fmaxf(a.pi[g * K + k], FLT_MIN)) -
-              0.5f * logf((sG / sE) * xs * c + 1.f);
-    }
-  }
-  __syncwarp();
-
-  float d_own = 0.f;
-  int krec = -1;
-  for (int t = 0; t < B; ++t) {
-    const int mk = __shfl_sync(kFull, inn, t);
-    const float pt = __shfl_sync(kFull, pl, t);
-    const float zt = __shfl_sync(kFull, zl, t);
-    float d = 0.f;
-    if (lane == mk) {
-      const float num = r + bold * xs;
-      float muk[K], logL[K];
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        muk[k] = num * invd[k];
-        logL[k] = lp[k] + (half_invsE * num) * muk[k];
-      }
-      int ksel = K;
-      float acum = 0.f;
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const float lk = logL[k];
-        float gmax = fabsf(logL[1] - lk);
-#pragma unroll
-        for (int kk = 2; kk < K; ++kk) gmax = fmaxf(gmax, fabsf(logL[kk] - lk));
-        float S = expf(logL[0] - lk);
-#pragma unroll
-        for (int kk = 1; kk < K; ++kk) S = S + expf(logL[kk] - lk);
-        const float wk = gmax > 700.f ? 0.f : 1.f / S;
-        acum = acum + wk;
-        ksel = (pt <= acum && ksel == K) ? k : ksel;
-      }
-      const bool hit = ksel < K;
-      float mu_sel = 0.f, sd_sel = 0.f;
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        mu_sel = k == ksel ? muk[k] : mu_sel;
-        sd_sel = k == ksel ? sd[k] : sd_sel;
-      }
-      const float beta_new = hit ? mu_sel + sd_sel * zt : bold;
-      d = okf * (beta_new - bold);
-      d_own = d;
-      krec = (okf > 0.f && hit) ? ksel : -1;
-    }
-    d = __shfl_sync(kFull, d, mk);
-    if (act) r = r - gs[mk * B + lane] * d;
-  }
-
-  const float bnew = bold + d_own;
-  if (act) {
-    a.beta_out[m] = bnew;
-    a.labels_out[m] = krec >= 0 ? krec : lab;
-    a.dsc[j * B + lane] = d_own * sc;
-  }
-  const float dms = warp_sum(act ? d_own * ms : 0.f);
-  if (lane == 0) a.dms[j] = dms;
-  for (int gg = 0; gg < G; ++gg) {
-    for (int k = 0; k < K; ++k) {
-      const unsigned hits = __ballot_sync(kFull, act && g == gg && krec == k);
-      if (lane == 0) a.vpart[(blk * G + gg) * K + k] = (float)__popc(hits);
-    }
-    const float b2 = warp_sum((act && g == gg && krec > 0) ? bnew * bnew : 0.f);
-    if (lane == 0) a.bpart[blk * G + gg] = b2;
-  }
+  solve_block<K>(a, blockIdx.x);
 }
 
-struct HsSolveArgs {
-  const float* partial; int nsplit;
-  const int* rho; int round; int nr; int J; int B;
-  const float* gram; const float* xsq; const float* mean; const float* scale;
-  const float* beta_in; float* beta_out;
-  const int* inner; const float* z;
-  const float* lam; const float* tau; const float* c2; const float* sigmaE;
-  const unsigned char* valid;
-  float* dsc; float* dms;
-};
-
-// The horseshoe's solve (pallas_jacobi_t.py:_hs_jacobi_t_kernel, :722-774):
-// solve_kernel's warp-per-block layout, fold algebra, broadcast of the
-// visited marker and canonical z index, with a conjugate normal draw in
-// place of the component selection.  Per-lane constants in the op order
-// of the TPU kernel's operand table (build_pkgT_hs_strided, :155-173):
-//   s_j = tau*c2*lam / (tau*lam + c2), denom = xsq + sE/s_j,
-//   invd = 1/denom, sd = sqrt(sE/denom);
-// per step beta_new = num*invd + sd*z with num = r + beta_old*xsq.
 __global__ void __launch_bounds__(32) hs_solve_kernel(HsSolveArgs a) {
-  const int j = blockIdx.x;
-  const int lane = threadIdx.x;
-  const int B = a.B;
-  const int JB1 = a.J * B + 1;
-  const int slab = a.rho[a.round];
-  const long long blk = (long long)j * a.nr + slab;
-  const long long m = blk * B + lane;
-  const bool act = lane < B;
-
-  __shared__ float4 gs4[kMaxB * kMaxB / 4];
-  const float* gs = reinterpret_cast<const float*>(gs4);
-  const float4* g4 = reinterpret_cast<const float4*>(a.gram + blk * B * B);
-#pragma unroll 8
-  for (int e = lane; e < B * B / 4; e += 32) gs4[e] = g4[e];
-
-  float esum = 0.f;
-  for (int q = lane; q < a.nsplit; q += 32)
-    esum += a.partial[(long long)q * JB1 + JB1 - 1];
-  esum = warp_sum(esum);
-  float rc = 0.f;
-  if (act) {
-    const float* pr = a.partial + j * B + lane;
-#pragma unroll 8
-    for (int q = 0; q < a.nsplit; ++q) rc += pr[(long long)q * JB1];
-  }
-
-  float r = 0.f, sc = 0.f, ms = 0.f, xs = 0.f, bold = 0.f, okf = 0.f;
-  float zl = 0.f, invd = 0.f, sd = 0.f;
-  int inn = 0;
-  if (act) {
-    sc = a.scale[m];
-    ms = a.mean[m] * sc;
-    r = rc * sc - ms * esum;
-    xs = a.xsq[m];
-    bold = a.beta_in[m];
-    okf = a.valid[m] ? 1.f : 0.f;
-    inn = a.inner[blk * B + lane];
-    zl = a.z[((long long)slab * a.J + j) * B + lane];
-    const float sE = *a.sigmaE, tau = *a.tau, c2 = *a.c2, lam = a.lam[m];
-    const float s_j = tau * c2 * lam / (tau * lam + c2);
-    const float denom = xs + sE / s_j;
-    invd = 1.f / denom;
-    sd = sqrtf(sE / denom);
-  }
-  __syncwarp();
-
-  float d_own = 0.f;
-  for (int t = 0; t < B; ++t) {
-    const int mk = __shfl_sync(kFull, inn, t);
-    const float zt = __shfl_sync(kFull, zl, t);
-    float d = 0.f;
-    if (lane == mk) {
-      const float num = r + bold * xs;
-      const float beta_new = num * invd + sd * zt;
-      d = okf * (beta_new - bold);
-      d_own = d;
-    }
-    d = __shfl_sync(kFull, d, mk);
-    if (act) r = r - gs[mk * B + lane] * d;
-  }
-
-  if (act) {
-    a.beta_out[m] = bold + d_own;
-    a.dsc[j * B + lane] = d_own * sc;
-  }
-  const float dms = warp_sum(act ? d_own * ms : 0.f);
-  if (lane == 0) a.dms[j] = dms;
+  hs_solve_block(a, blockIdx.x);
 }
 
 __global__ void __launch_bounds__(kApplyThreads)

@@ -1,0 +1,474 @@
+// Fused multi-chain strided-rounds BayesR and horseshoe sweeps on 2-bit
+// packed genotypes, written for Hopper (sm_90a): C <= 16 chains that share
+// the words, the Gram blocks and the visit order (rho, inner), each with
+// its own eps, state, hyperparameters and p/z variates.
+//
+// Replaces the TPU Pallas kernels
+//   bayesrrcpp_tpu/ops/pallas_jacobi_t.py:_jacobi_t_mc_kernel (C <= 4,
+//   wrapper bayesr_jacobi_t_pallas_mc, pallas_call at :1635) and
+//   _jacobi_t_mc8_kernel (4 < C <= 16, bayesr_jacobi_t_pallas_mc8, :2894),
+//   _hs_jacobi_t_mc_kernel (horseshoe_jacobi_t_pallas_mc, :2054) and
+//   _hs_jacobi_t_mc8_kernel (horseshoe_jacobi_t_pallas_mc8, :3263)
+// in their fold-affine 2-bit mode.  The TPU splits C <= 4 from 4 < C <= 16
+// because of VMEM (the wide kernel tiles eps through HBM); here one kernel
+// serves every C <= 16 and the C eps vectors (C*Npad*4 bytes, 3.2 MB at
+// N=100,352, C=8) stay in the 50 MB L2.  Python wrappers and plain
+// versions: bayesrrcpp_tpu_torch/ops/jacobi_t.py (bayesr_jacobi_t_mc,
+// horseshoe_jacobi_t_mc).
+//
+// One fused sweep is nr rounds of three launches, whatever C is:
+//
+//   dot_mc    r[c, m] = x_m . eps_c for the round's J*B markers and all C
+//             chains.  A thread loads its word column of the block (B words)
+//             into registers once, then takes the chains CP at a time: each
+//             code is decoded once per group of CP chains and multiplied by
+//             each one's eps.  The words are read from device memory once per
+//             round for all chains.  Each chain's sums run in the single-chain
+//             dot's order (the same FMA chain per row, warp_transpose_sum,
+//             the CTA's fixed-order sum into (C, nsplit, J*B + 1) partials).
+//   solve_mc  one warp per (block, chain), grid (J, C): the single-chain
+//             solve_block / hs_solve_block on the chain's operands.  v and
+//             bacc partials per (chain, block), reduced by the wrapper in a
+//             fixed order; no float atomics.
+//   apply_mc  eps_c -= sum_m d[c, m] * x_m.  The round's entries are taken
+//             in tiles of 512: a tile's rows where any chain moved (in the
+//             horseshoe, every valid row) are compacted in index order into
+//             shared memory with every chain's d*scale (0 where that chain
+//             did not move, which adds exactly nothing).  A warp covers 32
+//             consecutive words, so it reads one full 128-byte line per row;
+//             the CTA's 4 warps split each word's 16 eps lanes.  Each row is
+//             read and decoded once for all chains.
+//
+// So chain c of a fused sweep equals the single-chain sweep (jacobi_t.cu)
+// on chain c's operands bitwise: the same arithmetic in the same order,
+// compiled with the same -fmad=false.
+//
+// What bounds it on an H100: the dot's operations.  It multiplies every
+// code by every chain's eps, C * Mpad * Npad FMAs per sweep (4.05e11 at the
+// headline and C=8: 12.1 ms at 67 TFLOP/s FP32), plus the decode (an LOP3
+// and an FADD per code, shared by CP chains), against 3.8 ms for one read
+// of the 12.64 GB of words; the horseshoe's apply does as many FMAs again.
+// Design notes from the first runs on the card (PERF.md): with one chain per
+// pass the compiler hoisted the chain-invariant decode of all B*16 codes
+// out of the chain loop, ran out of registers and spilled (255 registers,
+// 1.9 KB of spills); an empty asm on the words at the top of each group
+// stops that, and CP=4 chains per group keeps 4*B accumulators in 255
+// registers without spilling.  The apply is latency-bound: one warp per 32
+// words and 4 warps per CTA leave ~6 warps per SM, each with 8 rows of
+// loads in flight; splitting the rows over more CTAs would need a
+// reduction across them, another summation order (ROADMAP Queue 1 item 14).
+
+#include "jacobi_t_common.cuh"
+
+namespace {
+
+constexpr int kMaxC = 16;   // chains per fused sweep
+
+// CP chains per pass over the words: each code decoded once per pass.
+template <int CP>
+__global__ void __launch_bounds__(kDotThreads)
+dot_mc_kernel(const uint32_t* __restrict__ words, int Nw,
+              const float* __restrict__ eps, int C,
+              const int* __restrict__ rho, int round, int nr, int J, int B,
+              float* __restrict__ partial, int nsplit) {
+  const int j = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int w = blockIdx.x * kDotThreads + threadIdx.x;
+  const long long row0 = (long long)(j * nr + rho[round]) * B;
+  const int JB1 = J * B + 1;
+  const long long Npad = 16LL * Nw;
+  __shared__ float red[kMaxC][kDotThreads / 32][32];
+  __shared__ float red_e[kMaxC][kDotThreads / 32];
+
+  uint32_t wds[kMaxB];
+  if (w < Nw) {
+    load_words(words + row0 * Nw + w, Nw, B, wds);
+  } else {
+#pragma unroll
+    for (int i = 0; i < kMaxB; ++i) wds[i] = 0u;
+  }
+#pragma unroll 1
+  for (int c0 = 0; c0 < C; c0 += CP) {
+    // the decode is the same for every pass: keep the compiler from
+    // hoisting all B*16 decoded codes out of this loop (they spill)
+#pragma unroll
+    for (int i = 0; i < kMaxB; ++i) asm volatile("" : "+r"(wds[i]));
+    float acc[CP][kMaxB], esum[CP];
+#pragma unroll
+    for (int p = 0; p < CP; ++p) {
+      esum[p] = 0.f;
+#pragma unroll
+      for (int i = 0; i < kMaxB; ++i) acc[p][i] = 0.f;
+    }
+    if (w < Nw) {
+      float e[CP][16];
+#pragma unroll
+      for (int p = 0; p < CP; ++p) {
+        if (c0 + p < C) {
+          esum[p] = load_eps16(
+              reinterpret_cast<const float4*>(eps + (c0 + p) * Npad) + 4LL * w,
+              e[p]);
+        } else {
+#pragma unroll
+          for (int k = 0; k < 16; ++k) e[p][k] = 0.f;
+        }
+      }
+      dot_rows<CP>(wds, e, acc);
+    }
+#pragma unroll
+    for (int p = 0; p < CP; ++p) {
+      const float r = warp_transpose_sum(acc[p], lane);
+      const float es = warp_sum(esum[p]);
+      if (c0 + p < C) {
+        red[c0 + p][warp][lane] = r;
+        if (lane == 0) red_e[c0 + p][warp] = es;
+      }
+    }
+  }
+  __syncthreads();
+  // output (c, l): the single-chain dot's fixed-order CTA sum
+  for (int o = threadIdx.x; o < C * 32; o += kDotThreads) {
+    const int c = o >> 5, l = o & 31;
+    float t = 0.f;
+#pragma unroll
+    for (int q = 0; q < kDotThreads / 32; ++q) t += red[c][q][l];
+    float* out = partial + ((long long)c * nsplit + blockIdx.x) * JB1;
+    if (l < B) out[j * B + l] = t;
+    if (j == 0 && l == 0) {
+      float te = 0.f;
+#pragma unroll
+      for (int q = 0; q < kDotThreads / 32; ++q) te += red_e[c][q];
+      out[J * B] = te;
+    }
+  }
+}
+
+cudaError_t launch_dot_mc(int C, int Nw, int nsplit, int J, cudaStream_t s,
+                          const uint32_t* words, const float* eps,
+                          const int* rho, int round, int nr, int B,
+                          float* partial) {
+  const dim3 grid(nsplit, J);
+#define JT_DOT(CP)                                                        \
+  dot_mc_kernel<CP><<<grid, kDotThreads, 0, s>>>(                         \
+      words, Nw, eps, C, rho, round, nr, J, B, partial, nsplit)
+  if (C == 1) JT_DOT(1);
+  else if (C == 2) JT_DOT(2);
+  else JT_DOT(4);
+#undef JT_DOT
+  return cudaGetLastError();
+}
+
+// solve_block on chain blockIdx.y's slice of every per-chain operand.
+template <int K>
+__global__ void __launch_bounds__(32) solve_mc_kernel(SolveArgs a) {
+  const long long c = blockIdx.y;
+  const long long JB = (long long)a.J * a.B;
+  const long long nb = (long long)a.J * a.nr;
+  const long long Mpad = nb * a.B;
+  SolveArgs b = a;
+  b.partial += c * a.nsplit * (JB + 1);
+  b.beta_in += c * Mpad;
+  b.labels_in += c * Mpad;
+  b.beta_out += c * Mpad;
+  b.labels_out += c * Mpad;
+  b.p += c * Mpad;
+  b.z += c * Mpad;
+  b.pi += c * a.G * K;
+  b.sigmaE += c;
+  b.sigmaGG += c * a.G;
+  b.dsc += c * JB;
+  b.dms += c * a.J;
+  b.vpart += c * nb * a.G * K;
+  b.bpart += c * nb * a.G;
+  solve_block<K>(b, blockIdx.x);
+}
+
+// hs_solve_block on chain blockIdx.y's slice of every per-chain operand.
+__global__ void __launch_bounds__(32) hs_solve_mc_kernel(HsSolveArgs a) {
+  const long long c = blockIdx.y;
+  const long long JB = (long long)a.J * a.B;
+  const long long Mpad = (long long)a.J * a.nr * a.B;
+  HsSolveArgs b = a;
+  b.partial += c * a.nsplit * (JB + 1);
+  b.beta_in += c * Mpad;
+  b.beta_out += c * Mpad;
+  b.z += c * Mpad;
+  b.lam += c * Mpad;
+  b.tau += c;
+  b.c2 += c;
+  b.sigmaE += c;
+  b.dsc += c * JB;
+  b.dms += c * a.J;
+  hs_solve_block(b, blockIdx.x);
+}
+
+constexpr int kApplyTile = 512;   // entries per compaction tile
+constexpr int kApplyWords = 32;   // words per apply CTA: one per lane
+constexpr int kApplySub = kApplyThreads / kApplyWords;   // warps per word
+constexpr int kApplyLanes = 16 / kApplySub;              // eps lanes / thread
+constexpr int kTilePerLane = kApplyTile / kApplyThreads;
+
+// CB >= C chains (a power of two, so the per-chain accumulators stay in
+// registers); dsc (C, J*B) and dms (C, J) as the solves write them.
+template <int CB>
+__global__ void __launch_bounds__(kApplyThreads)
+apply_mc_kernel(const uint32_t* __restrict__ words, int Nw,
+                float* __restrict__ eps, int C,
+                const unsigned char* __restrict__ row_valid,
+                const int* __restrict__ rho, int round, int nr, int J, int B,
+                const float* __restrict__ dsc, const float* __restrict__ dms) {
+  constexpr int CV = CB < 4 ? 4 : CB;   // chains per staged row (float4s)
+  constexpr int L = kApplyLanes;
+  __shared__ float4 vals4[kApplyTile * CV / 4];
+  __shared__ int rows[kApplyTile];
+  __shared__ int warp_cnt[kApplyWarps + 1];
+  __shared__ float dms_tot[CB];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int JB = J * B;
+  const int slab = rho[round];
+  const long long Npad = 16LL * Nw;
+  if (threadIdx.x < C) {
+    float t = 0.f;
+    for (int q = 0; q < J; ++q) t += dms[threadIdx.x * J + q];
+    dms_tot[threadIdx.x] = t;
+  }
+  // word w of this lane; warp `sub` owns its eps lanes 16w + L*sub .. +L-1
+  const int w = blockIdx.x * kApplyWords + lane;
+  const int sub = warp;
+  const bool live = w < Nw;
+  const uint32_t* wp = words + (live ? w : 0);
+  float acc[CB][L];
+#pragma unroll
+  for (int c = 0; c < CB; ++c)
+#pragma unroll
+    for (int k = 0; k < L; ++k) acc[c][k] = 0.f;
+
+  for (int tile0 = 0; tile0 < JB; tile0 += kApplyTile) {
+    // warp `warp` owns the tile's entries [lo, lo + 32*kTilePerLane)
+    const int lo = tile0 + warp * 32 * kTilePerLane;
+    bool nz[kTilePerLane];
+    int cnt = 0;
+#pragma unroll
+    for (int it = 0; it < kTilePerLane; ++it) {
+      const int e = lo + it * 32 + lane;
+      bool f = false;
+      if (e < JB) {
+#pragma unroll
+        for (int c = 0; c < CB; ++c)
+          if (c < C) f |= __ldg(dsc + (long long)c * JB + e) != 0.f;
+      }
+      nz[it] = f;
+      cnt += __popc(__ballot_sync(kFull, f));
+    }
+    if (lane == 0) warp_cnt[warp] = cnt;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      int run = 0;
+      for (int q = 0; q < kApplyWarps; ++q) {
+        const int c = warp_cnt[q];
+        warp_cnt[q] = run;
+        run += c;
+      }
+      warp_cnt[kApplyWarps] = run;
+    }
+    __syncthreads();
+    int pos = warp_cnt[warp];
+#pragma unroll
+    for (int it = 0; it < kTilePerLane; ++it) {
+      const unsigned mask = __ballot_sync(kFull, nz[it]);
+      if (nz[it]) {
+        const int at = pos + __popc(mask & ((1u << lane) - 1u));
+        const int e = lo + it * 32 + lane;
+        rows[at] = ((e / B) * nr + slab) * B + e % B;
+        float* v = reinterpret_cast<float*>(vals4) + at * CV;
+#pragma unroll
+        for (int c = 0; c < CV; ++c)
+          v[c] = c < C ? __ldg(dsc + (long long)c * JB + e) : 0.f;
+      }
+      pos += __popc(mask);
+    }
+    __syncthreads();
+    const int nnz = warp_cnt[kApplyWarps];
+    if (live) {
+#pragma unroll 8
+      for (int t = 0; t < nnz; ++t) {
+        const uint32_t wd =
+            __ldg(wp + (long long)rows[t] * Nw) >> (2 * L * sub);
+        float cf[L];
+#pragma unroll
+        for (int k = 0; k < L; ++k) cf[k] = code_f(wd, k);
+#pragma unroll
+        for (int q = 0; q < CV / 4; ++q) {
+          const float4 v = vals4[t * (CV / 4) + q];
+          const float vq[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            if (4 * q + i < CB) {
+#pragma unroll
+              for (int k = 0; k < L; ++k)
+                acc[4 * q + i][k] = fmaf(vq[i], cf[k], acc[4 * q + i][k]);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();   // the next tile overwrites rows and vals
+  }
+  if (!live) return;
+  const long long n0 = 16LL * w + L * sub;
+#pragma unroll
+  for (int c = 0; c < CB; ++c) {
+    if (c < C) {
+      float* ep = eps + c * Npad;
+      const float dt = dms_tot[c];
+#pragma unroll
+      for (int k = 0; k < L; ++k)
+        if (row_valid[n0 + k]) ep[n0 + k] = ep[n0 + k] - (acc[c][k] - dt);
+    }
+  }
+}
+
+cudaError_t launch_apply_mc(int C, int Nw, cudaStream_t s,
+                            const uint32_t* words, float* eps,
+                            const unsigned char* row_valid, const int* rho,
+                            int round, int nr, int J, int B, const float* dsc,
+                            const float* dms) {
+  const int ctas = (Nw + kApplyWords - 1) / kApplyWords;
+#define JT_APPLY(CB)                                                      \
+  apply_mc_kernel<CB><<<ctas, kApplyThreads, 0, s>>>(                     \
+      words, Nw, eps, C, row_valid, rho, round, nr, J, B, dsc, dms)
+  if (C <= 1) JT_APPLY(1);
+  else if (C <= 2) JT_APPLY(2);
+  else if (C <= 4) JT_APPLY(4);
+  else if (C <= 8) JT_APPLY(8);
+  else JT_APPLY(16);
+#undef JT_APPLY
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+int jacobi_t_mc_max_chains() { return kMaxC; }
+
+const char* jacobi_t_mc_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// One fused BayesR sweep of C chains: dot_mc, solve_mc and apply_mc per
+// round, nr rounds, all on `stream`.  Per-chain operands are stacked along
+// a leading chain axis: eps (C, Npad), beta/labels/p/z (C, Mpad), pi
+// (C, G, K), sigmaE (C,), sigmaGG (C, G); scratch partial
+// (C, nsplit, J*B + 1), dsc (C, J*B), dms (C, J), vpart (C, nb, G, K),
+// bpart (C, nb, G).  Returns the first launch error or 0.
+int jacobi_t_mc_sweep(int C, const void* words, int Nw, int nr, int J, int B,
+                      int K, int G, const void* gram, const void* xsq,
+                      const void* mean, const void* scale, void* eps,
+                      const void* row_valid, const void* beta_in,
+                      const void* labels_in, void* beta_out, void* labels_out,
+                      const void* rho, const void* inner, const void* p,
+                      const void* z, const void* pi, const void* cva,
+                      const void* sigmaE, const void* sigmaGG,
+                      const void* gas, const void* valid, void* partial,
+                      int nsplit, void* dsc, void* dms, void* vpart,
+                      void* bpart, void* stream) {
+  if (C < 1 || C > kMaxC) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint32_t* wd = static_cast<const uint32_t*>(words);
+  const int* rh = static_cast<const int*>(rho);
+  SolveArgs sa{static_cast<const float*>(partial), nsplit, rh, 0, nr, J, B,
+               K, G, static_cast<const float*>(gram),
+               static_cast<const float*>(xsq), static_cast<const float*>(mean),
+               static_cast<const float*>(scale),
+               static_cast<const float*>(beta_in),
+               static_cast<const int*>(labels_in),
+               static_cast<float*>(beta_out), static_cast<int*>(labels_out),
+               static_cast<const int*>(inner), static_cast<const float*>(p),
+               static_cast<const float*>(z), static_cast<const float*>(pi),
+               static_cast<const float*>(cva),
+               static_cast<const float*>(sigmaE),
+               static_cast<const float*>(sigmaGG),
+               static_cast<const int*>(gas),
+               static_cast<const unsigned char*>(valid),
+               static_cast<float*>(dsc), static_cast<float*>(dms),
+               static_cast<float*>(vpart), static_cast<float*>(bpart)};
+  const dim3 solve_grid(J, C);
+  cudaError_t err;
+  for (int r = 0; r < nr; ++r) {
+    err = launch_dot_mc(C, Nw, nsplit, J, s, wd,
+                        static_cast<const float*>(eps), rh, r, nr, B,
+                        static_cast<float*>(partial));
+    if (err != cudaSuccess) return err;
+    sa.round = r;
+    switch (K) {
+      case 2: solve_mc_kernel<2><<<solve_grid, 32, 0, s>>>(sa); break;
+      case 3: solve_mc_kernel<3><<<solve_grid, 32, 0, s>>>(sa); break;
+      case 4: solve_mc_kernel<4><<<solve_grid, 32, 0, s>>>(sa); break;
+      case 5: solve_mc_kernel<5><<<solve_grid, 32, 0, s>>>(sa); break;
+      case 6: solve_mc_kernel<6><<<solve_grid, 32, 0, s>>>(sa); break;
+      case 7: solve_mc_kernel<7><<<solve_grid, 32, 0, s>>>(sa); break;
+      case 8: solve_mc_kernel<8><<<solve_grid, 32, 0, s>>>(sa); break;
+      default: return cudaErrorInvalidValue;
+    }
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    err = launch_apply_mc(C, Nw, s, wd, static_cast<float*>(eps),
+                          static_cast<const unsigned char*>(row_valid), rh, r,
+                          nr, J, B, static_cast<const float*>(dsc),
+                          static_cast<const float*>(dms));
+    if (err != cudaSuccess) return err;
+  }
+  return 0;
+}
+
+// One fused horseshoe sweep of C chains: dot_mc, hs_solve_mc and apply_mc
+// per round.  eps (C, Npad), beta/z/lam (C, Mpad), tau/c2/sigmaE (C,);
+// scratch as jacobi_t_mc_sweep's.  Returns the first launch error or 0.
+int jacobi_t_hs_mc_sweep(int C, const void* words, int Nw, int nr, int J,
+                         int B, const void* gram, const void* xsq,
+                         const void* mean, const void* scale, void* eps,
+                         const void* row_valid, const void* beta_in,
+                         void* beta_out, const void* rho, const void* inner,
+                         const void* z, const void* lam, const void* tau,
+                         const void* c2, const void* sigmaE,
+                         const void* valid, void* partial, int nsplit,
+                         void* dsc, void* dms, void* stream) {
+  if (C < 1 || C > kMaxC) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint32_t* wd = static_cast<const uint32_t*>(words);
+  const int* rh = static_cast<const int*>(rho);
+  HsSolveArgs sa{static_cast<const float*>(partial), nsplit, rh, 0, nr, J, B,
+                 static_cast<const float*>(gram),
+                 static_cast<const float*>(xsq),
+                 static_cast<const float*>(mean),
+                 static_cast<const float*>(scale),
+                 static_cast<const float*>(beta_in),
+                 static_cast<float*>(beta_out),
+                 static_cast<const int*>(inner), static_cast<const float*>(z),
+                 static_cast<const float*>(lam), static_cast<const float*>(tau),
+                 static_cast<const float*>(c2),
+                 static_cast<const float*>(sigmaE),
+                 static_cast<const unsigned char*>(valid),
+                 static_cast<float*>(dsc), static_cast<float*>(dms)};
+  const dim3 solve_grid(J, C);
+  cudaError_t err;
+  for (int r = 0; r < nr; ++r) {
+    err = launch_dot_mc(C, Nw, nsplit, J, s, wd,
+                        static_cast<const float*>(eps), rh, r, nr, B,
+                        static_cast<float*>(partial));
+    if (err != cudaSuccess) return err;
+    sa.round = r;
+    hs_solve_mc_kernel<<<solve_grid, 32, 0, s>>>(sa);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    err = launch_apply_mc(C, Nw, s, wd, static_cast<float*>(eps),
+                          static_cast<const unsigned char*>(row_valid), rh, r,
+                          nr, J, B, static_cast<const float*>(dsc),
+                          static_cast<const float*>(dms));
+    if (err != cudaSuccess) return err;
+  }
+  return 0;
+}
+
+}  // extern "C"

@@ -21,6 +21,15 @@ its role in the step (``models/bayesr.py``, ``models/horseshoe.py``).
 object with the same methods that replays the JAX sampler's draws, which
 holds the port to the reference variate for variate.
 
+With ``chains=C`` a ``TorchVariates`` serves a fused multi-chain step
+(``step_chains``, bayesrrcpp_tpu/models/bayesr.py:672-731): every per-chain
+role draws a leading chain axis in one generator call (``mu_noise`` (C,),
+``p``/``z`` (C, n), the gammas (C, ...)), while ``orders`` is drawn once
+and shared by all chains, as JAX draws it from chain 0's key
+(``korder[0]``, bayesr.py:708, horseshoe.py:539).  ``for_chain(c)`` is the
+single-chain view a multi-chain run without the fused kernel steps chain c
+with, each chain drawing its own orders (JAX's vmapped fallback).
+
 BayesR (JAX source ``models/bayesr.py``):
 
 Role (method)          draw                                JAX source
@@ -81,10 +90,11 @@ def beta_rng(generator, a, b, size, *, device, dtype=torch.float32):
     return ga / (ga + gb)
 
 
-def gamma_shape_rng(generator, alpha, size: int, *, dtype=torch.float32):
-    """(size,) Gamma(alpha, 1) draws on the generator's device, exact and
-    rejection-free for integer and half-integer alpha (the horseshoe's
-    local shape (1 + vL)/2 is one for every integer dof vL):
+def gamma_shape_rng(generator, alpha, size, *, dtype=torch.float32):
+    """Gamma(alpha, 1) draws of shape ``size`` (an int or a tuple) on the
+    generator's device, exact and rejection-free for integer and
+    half-integer alpha (the horseshoe's local shape (1 + vL)/2 is one for
+    every integer dof vL):
 
     - alpha == 1: Exponential(1);
     - alpha = n or n + 1/2: the sum of n Exponential(1) draws, plus
@@ -93,24 +103,24 @@ def gamma_shape_rng(generator, alpha, size: int, *, dtype=torch.float32):
     """
     dev = generator.device
     a = float(alpha)
+    shape = (size,) if isinstance(size, int) else tuple(size)
 
     def expo(shape):
         return torch.empty(shape, dtype=dtype, device=dev).exponential_(
             generator=generator)
 
     if a == 1.0:
-        return expo((size,))
+        return expo(shape)
     if a > 0 and 2.0 * a == int(2.0 * a):
         n = int(a)
-        tot = (torch.sum(expo((n, size)), dim=0) if n > 0
-               else torch.zeros((size,), dtype=dtype, device=dev))
+        tot = (torch.sum(expo((n,) + shape), dim=0) if n > 0
+               else torch.zeros(shape, dtype=dtype, device=dev))
         if a - n == 0.5:
-            z = torch.randn((size,), generator=generator, dtype=dtype,
+            z = torch.randn(shape, generator=generator, dtype=dtype,
                             device=dev)
             tot = tot + 0.5 * z * z
         return tot
-    return gamma_rng(generator, torch.full((size,), a, dtype=dtype,
-                                           device=dev))
+    return gamma_rng(generator, torch.full(shape, a, dtype=dtype, device=dev))
 
 
 def inv_gamma(scale, gamma_draw):
@@ -135,14 +145,21 @@ class TorchVariates:
     """The step's draws from one ``torch.Generator`` (see the module table).
 
     The generator's device is where every draw lands, so a CUDA generator
-    keeps the step free of host round trips.
+    keeps the step free of host round trips.  ``chains=C`` gives every
+    per-chain draw a leading chain axis of C (see the module docstring).
     """
 
     def __init__(self, generator: torch.Generator,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, chains=None):
         self.generator = generator
         self.device = generator.device
         self.dtype = dtype
+        self.lead = () if chains is None else (int(chains),)
+
+    def for_chain(self, c: int) -> "TorchVariates":
+        """Single-chain draws on the same generator, for chain ``c`` of an
+        unfused multi-chain step."""
+        return TorchVariates(self.generator, self.dtype)
 
     def begin_step(self):
         pass
@@ -151,8 +168,8 @@ class TorchVariates:
         return torch.full(shape, value, dtype=self.dtype, device=self.device)
 
     def mu_noise(self):
-        return torch.randn((), generator=self.generator, dtype=self.dtype,
-                           device=self.device)
+        return torch.randn(self.lead, generator=self.generator,
+                           dtype=self.dtype, device=self.device)
 
     def orders(self, nb: int, B: int, J: int):
         return block_sweep.strided_orders(self.generator, nb, B, J)
@@ -161,31 +178,33 @@ class TorchVariates:
         return block_sweep.block_orders(self.generator, nb, B)
 
     def p(self, n: int):
-        return torch.rand((n,), generator=self.generator, dtype=self.dtype,
-                          device=self.device)
+        return torch.rand(self.lead + (n,), generator=self.generator,
+                          dtype=self.dtype, device=self.device)
 
     def z(self, n: int):
-        return torch.randn((n,), generator=self.generator, dtype=self.dtype,
-                           device=self.device)
+        return torch.randn(self.lead + (n,), generator=self.generator,
+                           dtype=self.dtype, device=self.device)
 
     def sigmaE_gamma(self, shape: float):
-        return gamma_rng(self.generator, self._full((), shape))
+        return gamma_rng(self.generator, self._full(self.lead, shape))
 
     # the horseshoe's scalar gammas: the same draw under their roles
     eta_gamma = tau_gamma = c2_gamma = sigmaE_gamma
 
     def sigmaG_gamma(self, shapes):
+        """shapes (..., G) -> Gamma draws of the same shape."""
         return gamma_rng(self.generator, shapes.to(self.dtype))
 
     def pi_gamma(self, alpha):
         return gamma_rng(self.generator, alpha.to(self.dtype))
 
     def init_sigmaGG(self, G: int):
-        return beta_rng(self.generator, 1.0, 1.0, (G,), device=self.device,
-                        dtype=self.dtype)
+        return beta_rng(self.generator, 1.0, 1.0, self.lead + (G,),
+                        device=self.device, dtype=self.dtype)
 
     def local_gamma(self, alpha: float, n: int):
-        return gamma_shape_rng(self.generator, alpha, n, dtype=self.dtype)
+        return gamma_shape_rng(self.generator, alpha, self.lead + (n,),
+                               dtype=self.dtype)
 
     def init_gammas(self, eta_shape: float, tau_shape: float):
         return self.eta_gamma(eta_shape), self.tau_gamma(tau_shape)

@@ -11,11 +11,13 @@ Counterpart of ``bayesrrcpp_tpu/io/sink.py`` for two schemas, rows
   reference's trailing comma, so the columns align with the rows.
 
 A background writer thread drains a bounded queue, so formatting overlaps
-the next chunk's device work.  The other schemas (groups, grstart) come
-with their samplers (ROADMAP Queue 1 items 6-7).
+the next chunk's device work.  ``ChainFanoutSink`` splits a multi-chain
+stream (``run_chains``) into one sink per chain.  The other schemas
+(groups, grstart) come with their samplers (ROADMAP Queue 1 items 6-7).
 """
 from __future__ import annotations
 
+import os
 import queue
 import threading
 from typing import Dict, List, Optional
@@ -131,3 +133,39 @@ class CSVSink(_AsyncWriterMixin):
             super().close()
         finally:
             self._fh.close()
+
+
+class ChainFanoutSink:
+    """Split a multi-chain sample stream (fields shaped (emits, chains,
+    ...)) into one sink per chain (bayesrrcpp_tpu/io/sink.py:238-271).
+
+    ``make_sink(c)`` builds the sink of chain c;
+    ``ChainFanoutSink.csv(path, n_chains, schema, **kw)`` writes one
+    ``CSVSink`` per chain at ``path`` with ``.chain{c}`` inserted before the
+    extension (``.csv`` when there is none).
+    """
+
+    def __init__(self, make_sink, n_chains: int):
+        self.sinks = [make_sink(c) for c in range(n_chains)]
+
+    @classmethod
+    def csv(cls, path, n_chains, schema, **kw):
+        root, ext = os.path.splitext(path)
+        return cls(lambda c: CSVSink(f"{root}.chain{c}{ext or '.csv'}",
+                                     schema, **kw), n_chains)
+
+    @property
+    def paths(self) -> List[str]:
+        return [s.path for s in self.sinks]
+
+    def write(self, rows: Dict[str, np.ndarray]):
+        for c, s in enumerate(self.sinks):
+            s.write({k: v[:, c] for k, v in rows.items()})
+
+    def flush(self):
+        for s in self.sinks:
+            s.flush()
+
+    def close(self):
+        for s in self.sinks:
+            s.close()

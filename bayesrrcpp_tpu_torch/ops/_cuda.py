@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain ``extern "C"`` interface; it is compiled
 by ``nvcc`` for ``sm_90a`` into ``build/lib<name>-<hash>.so`` on first use,
-keyed by a hash of the sources and flags, and loaded with ctypes.  Nothing
-is compiled or loaded when this module is imported.  A missing ``nvcc`` or
-a failed build raises: there is no fallback.
+keyed by a hash of the sources and flags, and loaded with ctypes.
+``libraries`` starts one ``nvcc`` per source, all at once, and waits for
+them together.  Nothing is compiled or loaded when this module is imported.
+A missing ``nvcc`` or a failed build raises: there is no fallback.
 """
 from __future__ import annotations
 
@@ -41,6 +42,18 @@ SIGNATURES = {
                               + [_VOID_P] * 17 + [_INT] + [_VOID_P] * 3,
                               _INT),
     },
+    # the fused multi-chain sweeps: the single-chain argument lists with
+    # the chain count C in front
+    "jacobi_t_mc": {
+        "jacobi_t_mc_max_chains": ([], _INT),
+        "jacobi_t_mc_error_string": ([_INT], ctypes.c_char_p),
+        "jacobi_t_mc_sweep": ([_INT, _VOID_P, _INT, _INT, _INT, _INT, _INT,
+                               _INT] + [_VOID_P] * 21 + [_INT]
+                              + [_VOID_P] * 5, _INT),
+        "jacobi_t_hs_mc_sweep": ([_INT, _VOID_P, _INT, _INT, _INT, _INT]
+                                 + [_VOID_P] * 17 + [_INT] + [_VOID_P] * 3,
+                                 _INT),
+    },
 }
 
 
@@ -61,7 +74,7 @@ class Library:
 
     def check(self, rc: int, what: str):
         if rc != 0:
-            msg = self.lib.jacobi_t_error_string(rc).decode()
+            msg = getattr(self.lib, f"{self.name}_error_string")(rc).decode()
             raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
 
 
@@ -77,32 +90,49 @@ def _nvcc() -> str:
     return path
 
 
-def library(name: str) -> Library:
-    """The built and loaded ``csrc/<name>.cu`` (built once per source
-    hash; later calls in the process reuse the handle)."""
+def _target(name: str):
+    """(source, shared library path) of ``csrc/<name>.cu``; the path is keyed
+    by a hash of the flags, the source and every header of ``csrc/``."""
+    src = os.path.join(CSRC, f"{name}.cu")
+    deps = sorted([src] + glob.glob(os.path.join(CSRC, "*.cuh")))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for d in deps:
+        with open(d, "rb") as f:
+            h.update(f.read())
+    return src, os.path.join(BUILD, f"lib{name}-{h.hexdigest()[:16]}.so")
+
+
+def libraries(*names: str) -> list:
+    """The built and loaded ``csrc/<name>.cu`` of each name (built once per
+    source hash, one ``nvcc`` per source started together; later calls in
+    the process reuse the handles)."""
     import time
 
     with _LOCK:
-        if name in _LOADED:
-            return _LOADED[name]
-        src = os.path.join(CSRC, f"{name}.cu")
-        deps = sorted([src] + glob.glob(os.path.join(CSRC, "*.cuh")))
-        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for d in deps:
-            with open(d, "rb") as f:
-                h.update(f.read())
-        so = os.path.join(BUILD, f"lib{name}-{h.hexdigest()[:16]}.so")
-        log, secs = "", 0.0
-        if not os.path.exists(so):
+        jobs = []
+        for name in dict.fromkeys(names):
+            if name in _LOADED:
+                continue
+            src, so = _target(name)
+            if os.path.exists(so):
+                _LOADED[name] = Library(name, so, "", 0.0)
+                continue
             os.makedirs(BUILD, exist_ok=True)
             tmp = f"{so}.{os.getpid()}.tmp"
-            t0 = time.perf_counter()
-            res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                                 capture_output=True, text=True)
-            secs = time.perf_counter() - t0
-            log = res.stdout + res.stderr
-            if res.returncode != 0:
+            proc = subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            jobs.append((name, src, so, tmp, proc, time.perf_counter()))
+        done = [(job, job[4].communicate()[0], time.perf_counter() - job[5])
+                for job in jobs]
+        for (name, src, so, tmp, proc, _), log, secs in done:
+            if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed on {src}:\n{log}")
             os.replace(tmp, so)
-        _LOADED[name] = Library(name, so, log, secs)
-        return _LOADED[name]
+            _LOADED[name] = Library(name, so, log, secs)
+        return [_LOADED[name] for name in names]
+
+
+def library(name: str) -> Library:
+    """The built and loaded ``csrc/<name>.cu`` (see ``libraries``)."""
+    return libraries(name)[0]

@@ -190,14 +190,15 @@ def _prepacked_words(words, x_stats, Mpad, N, Npad, device):
 
 
 def xbeta_packed(words, mean, scale, beta_pad, B, N):
-    """X @ beta for 2-bit packed storage, (N,) in individual order,
-    decoded in chunks of blocks."""
+    """X @ beta for 2-bit packed storage, (..., N) in individual order for
+    a (..., Mpad) beta, decoded in chunks of blocks."""
     Mpad, Nw = words.shape
     lane_ok = torch.arange(Nw * WORDS, device=words.device) < N
-    acc = torch.zeros((Nw * WORDS,), dtype=torch.float32, device=words.device)
+    acc = torch.zeros(beta_pad.shape[:-1] + (Nw * WORDS,),
+                      dtype=torch.float32, device=words.device)
     step = _chunk_blocks(B, Nw * WORDS) * B
     for a in range(0, Mpad, step):
         e = min(Mpad, a + step)
-        acc += beta_pad[a:e].to(torch.float32) @ decode_rows(
+        acc += beta_pad[..., a:e].to(torch.float32) @ decode_rows(
             words[a:e], mean[a:e], scale[a:e], lane_ok)
-    return acc[:N]
+    return acc[..., :N]

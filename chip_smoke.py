@@ -36,10 +36,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ChainConfig(30, 10, 10), sink=CSVSink(..., "horseshoe", ...))`` with the
    launch counter reset just before; checks CSV widths, finiteness, tau > 0,
    tracked vs recomputed eps and the launch count, then profiles two more
-   steps for the dot / solve / apply split.
+   steps for the dot / solve / apply split;
+8. the fused multi-chain BayesR kernel (csrc/jacobi_t_mc.cu), C=8 chains
+   from a warm 8-chain state: (a) at N=4096 x M=8192 against its plain
+   version (labels and v equal, floats to rtol 1e-4 / atol 1e-5) and, chain
+   by chain, against the single-chain kernel (every output bitwise
+   equal); (b) at the headline, on phase 2's words, against the plain
+   version (labels agreeing on >= 99.9 %, |d eps| / |eps| < 1e-3) and the
+   8 single-chain sweeps, all timed, plus ``torch.matmul`` of one round's
+   decoded rows against the 8 eps vectors as the dot's yardstick; (c) the
+   main path of biobank-packed-8chain: ``SpikeSlabSampler(...).run_chains(
+   generator, 8, ChainConfig(30, 10, 10), sink=ChainFanoutSink.csv(...))``
+   with the fused launch counter reset just before; checks the 8 CSVs'
+   widths, finite values, tracked vs recomputed eps per chain and the
+   launch count, then times 8 fused steps against 8 single-chain steps per
+   chain (printing split-R-hat of sigmaE over the 8 fused steps, for
+   information) and profiles 2 fused steps;
+9. the same three phases for the fused horseshoe kernel and
+   biobank-horseshoe-8chain, with phase 5b's bound at the headline
+   (|d eps| / |eps| and |d beta| / |beta| < 1e-4).
 
-The last two lines of standard output are the kernels' JSON record and the
-device JSON.  Nothing of JAX is imported.
+Both kernel libraries build at once (one nvcc per source).  The last two
+lines of standard output are the kernels' JSON record (with each sweep's
+bound: the larger of its bytes over 3.35 TB/s and its FP32 FMAs over 67
+TFLOP/s) and the device JSON.  Nothing of JAX is imported.
 """
 import json
 import os
@@ -54,6 +74,12 @@ HEADLINE_N, HEADLINE_M = 100_352, 503_808
 # prior init, tau starts near 1e-7 at this size and some chains take a few
 # hundred iterations to leave the collapsed mode (all signal in sigmaE)
 HS_RECOVERY_CHAIN = (600, 300, 1)
+CHAINS = 8                          # the 8-chain cells
+# NVIDIA H100 SXM data sheet: HBM3 rate and FP32 rate without tensor cores
+HBM_BYTES_PER_S, FP32_FLOPS = 3.35e12, 67e12
+# per-chain operands of the sweeps, by position (ops/jacobi_t.py)
+BAYESR_CHAIN_ARGS = (3, 4, 5, 8, 9, 10, 12, 13)
+HS_CHAIN_ARGS = (3, 4, 7, 8, 9, 10, 11)
 
 
 def check(cond, msg):
@@ -75,6 +101,28 @@ def hs_sweep_args(s, st, v):
     kw = dict(J=s.jacobi, x_mean=d.x_mean, x_scale=d.x_scale,
               x_xsum=d.x_colsum, fold_affine=True, row_valid=d.row_valid)
     return args, kw
+
+
+def chain_args(args, c, per_chain):
+    """Chain c's single-chain sweep operands from a fused sweep's."""
+    return tuple(a[c] if k in per_chain else a for k, a in enumerate(args))
+
+
+def sweep_bound(s, chains, moved, marker_arrays):
+    """(bound_ms, bound_by) of one sweep of ``chains`` chains on sampler
+    ``s``'s data: the larger of the bytes it must move (words, Gram blocks
+    and per-marker statistics read once; per chain eps read and written
+    and ``marker_arrays`` f32/int32 marker vectors) over the HBM rate, and
+    its FP32 FMAs (2 flops each: the dot multiplies every code by each
+    chain's eps, the apply the row of every marker that moved, ``moved``
+    summed over chains) over the FP32 rate."""
+    d = s.data
+    nbytes = (d.XT.numel() * 4 + d.gram.numel() * 4 + s.Mpad * 17 + s.Npad
+              + chains * (8 * s.Npad + 4 * marker_arrays * s.Mpad))
+    flops = 2.0 * s.Npad * (chains * s.Mpad + moved)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def rel_err(a, b):
@@ -137,32 +185,35 @@ def posterior_corr(torch, out, beta_true):
         beta_true]))[0, 1])
 
 
-def main_path(torch, sampler, g, chain, schema, counter):
-    """``sampler.run`` into a CSV sink with ``counter``'s launch count set
-    to 0 just before; returns (state, rows, seconds, launches, peak GiB,
-    CSV header, CSV row widths)."""
-    from bayesrrcpp_tpu_torch.io.sink import CSVSink
-
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "chain.csv")
-        sink = CSVSink(path, schema, M=sampler.M, N=sampler.N,
-                       emit_epsilon=False)
+def main_path(torch, run, sink, counter):
+    """``run(sink)`` (a sampler's ``run`` or ``run_chains`` into ``sink``)
+    with ``counter``'s launch count set to 0 just before; returns (state,
+    rows, seconds, launches, peak GiB).  The sink is closed, so its files
+    are complete, before the clock stops; the seconds of the run itself
+    and of the close are logged apart."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counter.launches = 0
+    t0 = time.perf_counter()
+    try:
+        st, out = run(sink)
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        counter.launches = 0
-        t0 = time.perf_counter()
-        try:
-            st, out = sampler.run(g, chain, sink=sink)
-            torch.cuda.synchronize()
-        finally:
-            sink.close()
-        wall = time.perf_counter() - t0
-        launches = counter.launches
-        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-        with open(path) as f:
-            header = f.readline().rstrip("\n").split(",")
-            widths = [len(r.split(", ")) for r in f.read().split("\n") if r]
-    return st, out, wall, launches, peak_gb, header, widths
+    finally:
+        t1 = time.perf_counter()
+        sink.close()
+    wall = time.perf_counter() - t0
+    log(f"    run {t1 - t0:.3f} s, sink close {wall - (t1 - t0):.3f} s")
+    return (st, out, wall, counter.launches,
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def read_csv(path):
+    """(header, row widths, whether any value is nan or inf) of a CSV."""
+    with open(path) as f:
+        header = f.readline().rstrip("\n").split(",")
+        rows = [r for r in f.read().split("\n") if r]
+    return (header, [len(r.split(", ")) for r in rows],
+            any("nan" in r or "inf" in r for r in rows))
 
 
 def profile_split(torch, fn, names):
@@ -174,6 +225,11 @@ def profile_split(torch, fn, names):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # the tracer can drop the first kernel records of a window: give it
+        # a small op and a moment before the profiled call
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        time.sleep(0.1)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -193,14 +249,29 @@ def profile_split(torch, fn, names):
     return split, total_us / 1e3, wall_ms
 
 
+def profiled(split, want):
+    """Every profiled kernel ran, with at least 95 % of its ``want``
+    launches recorded (the launch counters check the exact counts)."""
+    return all(0.95 * want <= c <= want and us > 0
+               for us, c in split.values())
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        return smoke(torch, tmp)
+
+
+def smoke(torch, tmp):
+    """Phases 1-9 (module docstring), their CSVs under ``tmp``; returns 0
+    or raises."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import bayesrrcpp_tpu_torch as bt
+    from bayesrrcpp_tpu_torch.io.sink import CSVSink
     from bayesrrcpp_tpu_torch.ops import _cuda
     from bayesrrcpp_tpu_torch.ops.jacobi_t import (
         LAUNCHES_PER_ROUND, bayesr_jacobi_t, bayesr_jacobi_t_reference,
@@ -213,10 +284,17 @@ def main():
     log(smi.stdout.strip().splitlines()[0])
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
-    lib = _cuda.library("jacobi_t")
-    log(f"[1] built {os.path.basename(lib.path)} in "
-        f"{lib.build_seconds:.1f} s")
-    log(lib.build_log.strip())
+    t0 = time.perf_counter()
+    libs = _cuda.libraries("jacobi_t", "jacobi_t_mc")
+    log(f"[1] built {', '.join(os.path.basename(b.path) for b in libs)} in "
+        f"{time.perf_counter() - t0:.1f} s ("
+        + ", ".join(f"{b.build_seconds:.1f}" for b in libs) + " s each)")
+    for b in libs:
+        log(b.build_log.strip())
+    from bayesrrcpp_tpu_torch.io.native import get_native_writer
+
+    log(f"[1] native CSV row formatter: "
+        f"{'loaded' if get_native_writer() is not None else 'absent'}")
     dev = torch.device("cuda")
 
     # ---- 2a. kernel vs plain, N=4096 x M=8192
@@ -271,6 +349,9 @@ def main():
         f"max abs err {max_err:.3g}")
     check(agree >= 0.999, f"headline label agreement {agree}")
     check(rel_eps < 1e-3, f"headline eps rel diff {rel_eps}")
+    bound_ms, bound_by = sweep_bound(s, 1, int((ker.beta != args[4]).sum()),
+                                     6)
+    log(f"[2b] bound {bound_ms:.3f} ms ({bound_by})")
     del args, ker, ref
 
     # ---- 3. recovery through the kernel
@@ -287,8 +368,12 @@ def main():
 
     # ---- 4. the main path
     chain = bt.ChainConfig(30, 10, 10)
-    st, out, wall, launches, peak_gb, header, widths = main_path(
-        torch, s, g, chain, "bayesr", bayesr_jacobi_t)
+    path = os.path.join(tmp, "chain.csv")
+    st, out, wall, launches, peak_gb = main_path(
+        torch, lambda sink: s.run(g, chain, sink=sink),
+        CSVSink(path, "bayesr", M=s.M, N=s.N, emit_epsilon=False),
+        bayesr_jacobi_t)
+    header, widths, _ = read_csv(path)
     check(len(header) == 2 + 2 * s.M + 2, f"header width {len(header)}")
     check(widths == [len(header)] * 2, f"row widths {widths}")
     check(list(out["iteration"]) == [10, 20], f"{out['iteration']}")
@@ -356,6 +441,8 @@ def main():
         f"max abs err {hs_err:.3g}")
     check(rel_eps < 1e-4, f"horseshoe headline eps rel diff {rel_eps}")
     check(rel_beta < 1e-4, f"horseshoe headline beta rel diff {rel_beta}")
+    hs_bound = sweep_bound(hs, 1, int((beta_k != args[4]).sum()), 4)
+    log(f"[5b] bound {hs_bound[0]:.3f} ms ({hs_bound[1]})")
     del st, args, eps_k, beta_k, eps_r, beta_r
 
     # ---- 6. horseshoe recovery through the kernel
@@ -378,8 +465,12 @@ def main():
     del hr, out
 
     # ---- 7. the horseshoe main path
-    st, out, wall, hs_launches, hs_peak, header, widths = main_path(
-        torch, hs, g, chain, "horseshoe", horseshoe_jacobi_t)
+    path = os.path.join(tmp, "hs_chain.csv")
+    st, out, wall, hs_launches, hs_peak = main_path(
+        torch, lambda sink: hs.run(g, chain, sink=sink),
+        CSVSink(path, "horseshoe", M=hs.M, N=hs.N, emit_epsilon=False),
+        horseshoe_jacobi_t)
+    header, widths, _ = read_csv(path)
     check(len(header) == 2 + 2 * hs.M + 2, f"header width {len(header)}")
     check(widths == [len(header)] * 2, f"row widths {widths}")
     check(list(out["iteration"]) == [10, 20], f"{out['iteration']}")
@@ -398,26 +489,243 @@ def main():
     names = ("dot_kernel", "hs_solve_kernel", "apply_kernel")
     split, dev_ms, wall_ms = profile_split(
         torch, lambda: hs._run_steps(st, bt.TorchVariates(g), 2), names)
-    check(all(c == 2 * nr and us > 0 for us, c in split.values()),
-          f"profiled launches {split}")
+    check(profiled(split, 2 * nr), f"profiled launches {split}")
     log("[7] profile of 2 steps: " + ", ".join(
         f"{n} {us:.2f} us x {c}" for n, (us, c) in split.items())
         + f"; device {dev_ms:.2f} ms of {wall_ms:.2f} ms wall")
 
+    del st, out
+
+    # ---- 8-9. the fused multi-chain kernels and the 8-chain cells
+    mc = {kind: fused_phases(torch, bt, kind, hs, tmp)
+          for kind in ("bayesr", "horseshoe")}
+
     src = "bayesrrcpp_tpu_torch/csrc/jacobi_t.cu"
-    print(json.dumps({"kernels": [
+    src_mc = "bayesrrcpp_tpu_torch/csrc/jacobi_t_mc.cu"
+    tpu = "bayesrrcpp_tpu/ops/pallas_jacobi_t.py"
+    kernels = [
         {"name": "jacobi_t_sweep", "route": "cuda", "source": src,
-         "replaces": "bayesrrcpp_tpu/ops/pallas_jacobi_t.py:405",
-         "launches": bayesr_launches, "max_abs_err": max_err, "ms": ker_ms,
-         "plain_ms": plain_ms},
+         "replaces": f"{tpu}:405", "launches": bayesr_launches,
+         "max_abs_err": max_err, "ms": ker_ms, "plain_ms": plain_ms,
+         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None},
         {"name": "jacobi_t_hs_sweep", "route": "cuda", "source": src,
-         "replaces": "bayesrrcpp_tpu/ops/pallas_jacobi_t.py:650",
-         "launches": hs_launches, "max_abs_err": hs_err, "ms": hs_ms,
-         "plain_ms": hs_plain_ms}]}))
+         "replaces": f"{tpu}:650", "launches": hs_launches,
+         "max_abs_err": hs_err, "ms": hs_ms, "plain_ms": hs_plain_ms,
+         "bound_ms": hs_bound[0], "bound_by": hs_bound[1],
+         "library_ms": None}]
+    for kind, name, where in (("bayesr", "jacobi_t_mc_sweep", "1199/:2416"),
+                              ("horseshoe", "jacobi_t_hs_mc_sweep",
+                               "1742/:2922")):
+        m = mc[kind]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src_mc,
+            "replaces": f"{tpu}:{where}", "launches": m["launches"],
+            "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+            "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "library_ms": None})
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def fused_phases(torch, bt, kind, hs, tmp):
+    """Phases 8 (kind "bayesr") and 9 ("horseshoe"): the fused kernel of
+    ``kind`` against its plain version and the single-chain kernel at
+    N=4096 x M=8192 and at the headline (on the words of ``hs``), then the
+    8-chain main path, its CSVs under ``tmp``.  Returns the kernel's JSON
+    numbers."""
+    from bayesrrcpp_tpu_torch.io.sink import ChainFanoutSink
+    from bayesrrcpp_tpu_torch.ops import jacobi_t as jt
+    from bayesrrcpp_tpu_torch.ops.genotypes import decode_rows
+    from bayesrrcpp_tpu_torch.utils.summary import split_rhat
+
+    hsk = kind == "horseshoe"
+    ph = "9" if hsk else "8"
+    C, dev = CHAINS, torch.device("cuda")
+    if hsk:
+        fused, plain, single = (jt.horseshoe_jacobi_t_mc,
+                                jt.horseshoe_jacobi_t_mc_reference,
+                                jt.horseshoe_jacobi_t)
+    else:
+        fused, plain, single = (jt.bayesr_jacobi_t_mc,
+                                jt.bayesr_jacobi_t_mc_reference,
+                                jt.bayesr_jacobi_t)
+    per_chain = HS_CHAIN_ARGS if hsk else BAYESR_CHAIN_ARGS
+    make_args = hs_sweep_args if hsk else sweep_args
+    cfg = bt.HorseshoeConfig if hsk else bt.BayesRConfig
+
+    def outputs(res):
+        # (eps, beta[, labels, v, beta_acum]): a sweep's result as a tuple
+        return tuple(res)
+
+    # ---- a. N=4096 x M=8192 from a warm 8-chain state
+    g = torch.Generator(device=dev).manual_seed(4)
+    v = bt.TorchVariates(g, chains=C)
+    s = packed_sampler(torch, bt, g, 4096, 8192, cfg())
+    st = s.init(v, chains=C)
+    for _ in range(3):
+        st = s.step_chains(st, v)
+    args, kw = make_args(s, st, v)
+    ker, ref = outputs(fused(*args, **kw)), outputs(plain(*args, **kw))
+    ones = [outputs(single(*chain_args(args, c, per_chain), **kw))
+            for c in range(C)]
+    torch.cuda.synchronize()
+    names = ("eps", "beta") + (() if hsk else ("labels", "v", "beta_acum"))
+    for name, a, b in zip(names, ker, ref):
+        if name in ("labels", "v"):
+            check(torch.equal(a, b), f"[{ph}a] {name} differ from plain")
+        else:
+            check(torch.allclose(a, b, rtol=1e-4, atol=1e-5),
+                  f"[{ph}a] {name} differs from plain: max |d| "
+                  f"{float((a - b).abs().max())}")
+    for c, one in enumerate(ones):
+        for name, a, b in zip(names, one, ker):
+            check(torch.equal(a, b[c]),
+                  f"[{ph}a] chain {c} {name} differs from the single-chain "
+                  f"kernel: max |d| {float((a - b[c]).abs().max())}")
+    log(f"[{ph}a] {kind} fused C={C} N=4096 M=8192: plain max|d beta| "
+        f"{float((ker[1] - ref[1]).abs().max()):.3g} max|d eps| "
+        f"{float((ker[0] - ref[0]).abs().max()):.3g}; every chain bitwise "
+        f"equal to the single-chain kernel")
+    del s, st, args, ker, ref, ones
+
+    # ---- b. the headline, on the words of phase 2
+    t0 = time.perf_counter()
+    common = dict(transposed=True, x_dtype="2bit", device="cuda",
+                  x_stats=bt.simulate.packed_word_stats(HEADLINE_M))
+    if hsk:
+        s = hs
+    else:
+        s = bt.SpikeSlabSampler(hs.data.XT, hs.Y[:hs.N], CVA,
+                                bt.BayesRConfig(emit_epsilon=False), **common)
+        torch.cuda.synchronize()
+        check(s.data.XT.data_ptr() == hs.data.XT.data_ptr(), "words copied")
+    setup_s = time.perf_counter() - t0
+    nr = s.nb // s.jacobi
+    g = torch.Generator(device=dev).manual_seed(5)
+    v = bt.TorchVariates(g, chains=C)
+    st = s.init(v, chains=C)
+    for _ in range(2):
+        st = s.step_chains(st, v)
+    args, kw = make_args(s, st, v)
+    ker, ms = timed(torch, lambda: outputs(fused(*args, **kw)), 3)
+    ones, singles_ms = timed(torch, lambda: [
+        outputs(single(*chain_args(args, c, per_chain), **kw))
+        for c in range(C)], 1)
+    ref, plain_ms = timed(torch, lambda: outputs(plain(*args, **kw)), 1)
+    bitwise = all(torch.equal(a, b[c]) for c, one in enumerate(ones)
+                  for a, b in zip(one, ker))
+    rel_eps, rel_beta = rel_err(ker[0], ref[0]), rel_err(ker[1], ref[1])
+    max_err = max(float((ker[0] - ref[0]).abs().max()),
+                  float((ker[1] - ref[1]).abs().max()))
+    moved = int((ker[1] != args[4]).sum())
+    bound_ms, bound_by = sweep_bound(s, C, moved, 4 if hsk else 6)
+    # the dot's yardstick: one round's rows decoded, times the C eps
+    d = s.data
+    rho = args[5 if hsk else 6]
+    rows = ((torch.arange(s.jacobi, device=dev) * nr + rho[0])[:, None]
+            * s.B + torch.arange(s.B, device=dev)).reshape(-1)
+    x = decode_rows(d.XT[rows], d.x_mean[rows], d.x_scale[rows],
+                    d.row_valid)
+    epsT = args[3].T.contiguous()
+    _, lib_ms = timed(torch, lambda: torch.matmul(x, epsT), 5)
+    del x
+    log(f"[{ph}b] {kind} fused C={C} headline (sampler {setup_s:.2f} s): "
+        f"sweep {ms:.3f} ms, {C} single-chain sweeps {singles_ms:.3f} ms, "
+        f"plain {plain_ms:.1f} ms, bound {bound_ms:.3f} ms ({bound_by}, "
+        f"{moved} markers moved); |d eps|/|eps| {rel_eps:.3g}, |d beta|/"
+        f"|beta| {rel_beta:.3g}, max abs err {max_err:.3g}; chains bitwise "
+        f"equal to the single-chain kernel: {bitwise}; dot yardstick "
+        f"torch.matmul ({s.jacobi * s.B} x {s.Npad}) @ ({s.Npad} x {C}) "
+        f"{lib_ms:.4f} ms per round, x {nr} rounds {lib_ms * nr:.3f} ms")
+    if hsk:
+        check(rel_eps < 1e-4, f"[9b] headline eps rel diff {rel_eps}")
+        check(rel_beta < 1e-4, f"[9b] headline beta rel diff {rel_beta}")
+    else:
+        agree = float((ker[2] == ref[2]).float().mean())
+        log(f"[8b] label agreement {agree:.6f}")
+        check(agree >= 0.999, f"[8b] headline label agreement {agree}")
+        check(rel_eps < 1e-3, f"[8b] headline eps rel diff {rel_eps}")
+    del st, args, ker, ref, ones
+
+    # ---- c. the 8-chain main path
+    chain = bt.ChainConfig(30, 10, 10)
+    schema = "horseshoe" if hsk else "bayesr"
+    stem = os.path.join(tmp, f"{schema}_8chain.csv")
+    sink = ChainFanoutSink.csv(stem, C, schema, M=s.M, N=s.N,
+                               emit_epsilon=False)
+    g = torch.Generator(device=dev).manual_seed(6)
+    marks = []
+    st, out, wall, launches, peak_gb = main_path(
+        torch, lambda sk: s.run_chains(
+            g, C, chain, sink=sk,
+            progress=lambda done, total: marks.append(time.perf_counter())),
+        sink, fused)
+    log(f"    chunks delivered at +" + ", +".join(
+        f"{m - marks[0]:.3f}" for m in marks) + " s after the first")
+    want = jt.LAUNCHES_PER_ROUND * nr * chain.max_iterations
+    check(launches == want, f"[{ph}c] launches {launches} != {want}")
+    for path in sink.paths:
+        header, widths, bad = read_csv(path)
+        check(len(header) == 2 + 2 * s.M + 2,
+              f"[{ph}c] {path} header width {len(header)}")
+        check(widths == [len(header)] * 2, f"[{ph}c] {path} rows {widths}")
+        check(not bad, f"[{ph}c] {path} has non-finite values")
+    check(out["iteration"].shape == (2, C)
+          and (out["iteration"] == [[10], [20]]).all(),
+          f"[{ph}c] iterations {out['iteration']}")
+    check(all(np_finite(v) for v in out.values()),
+          f"[{ph}c] non-finite output")
+    ex = s.refresh_eps(st).eps
+    rel = (torch.linalg.norm(st.eps - ex, dim=1)
+           / torch.linalg.norm(ex, dim=1))
+    check(float(rel.max()) < 1e-4, f"[{ph}c] tracked eps vs recompute {rel}")
+    log(f"[{ph}c] {schema}-8chain main path: "
+        f"{wall / chain.max_iterations * 1e3:.2f} ms/iter ({wall:.2f} s for "
+        f"{chain.max_iterations} iterations of {C} chains incl. {C} CSVs), "
+        f"peak {peak_gb:.2f} GiB, launches {launches} (want {want}), "
+        f"tracked-vs-exact eps max {float(rel.max()):.3g}, sigmaE "
+        + " ".join(f"{x:.5f}" for x in st.sigmaE.tolist()))
+
+    # 8 fused steps against 8 single-chain steps per chain, same state
+    vc = bt.TorchVariates(g, chains=C)
+    trace = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sf = st
+    for _ in range(8):
+        sf = s.step_chains(sf, vc)
+        trace.append(sf.sigmaE)
+    torch.cuda.synchronize()
+    fused_step_ms = (time.perf_counter() - t0) / 8 * 1e3
+    t0 = time.perf_counter()
+    su = st
+    for _ in range(2):
+        su = s._step_unfused(su, vc)
+    torch.cuda.synchronize()
+    unfused_step_ms = (time.perf_counter() - t0) / 2 * 1e3
+    rhat = float(split_rhat(torch.stack(trace).cpu().numpy()))
+    log(f"[{ph}c] one fused step of {C} chains {fused_step_ms:.2f} ms; "
+        f"{C} single-chain steps {unfused_step_ms:.2f} ms; split-R-hat of "
+        f"sigmaE over the 8 fused steps {rhat:.4f} (information only)")
+    names = (("dot_mc_kernel", "hs_solve_mc_kernel", "apply_mc_kernel")
+             if hsk else ("dot_mc_kernel", "solve_mc_kernel",
+                          "apply_mc_kernel"))
+
+    def two_steps():
+        x = sf
+        for _ in range(2):
+            x = s.step_chains(x, vc)
+
+    split, dev_ms, wall_ms = profile_split(torch, two_steps, names)
+    check(profiled(split, 2 * nr), f"[{ph}c] profiled launches {split}")
+    log(f"[{ph}c] profile of 2 fused steps: " + ", ".join(
+        f"{n} {us:.2f} us x {c}" for n, (us, c) in split.items())
+        + f"; device {dev_ms:.2f} ms of {wall_ms:.2f} ms wall")
+    return dict(launches=launches, max_abs_err=max_err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
 def np_finite(a):

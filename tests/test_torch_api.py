@@ -2,9 +2,12 @@
 io/sink.py) against the JAX package's schema, on the CPU."""
 import numpy as np
 import pytest
+import torch
 
 from bayesrrcpp_tpu.io.sink import csv_header as j_csv_header
-from bayesrrcpp_tpu_torch import BayesRConfig, SpikeSlabSampler, api, simulate
+from bayesrrcpp_tpu_torch import (BayesRConfig, HorseshoeConfig,
+                                  HorseshoeSampler, SpikeSlabSampler, api,
+                                  simulate)
 from bayesrrcpp_tpu_torch.config import ChainConfig
 from bayesrrcpp_tpu_torch.io.sink import csv_header
 
@@ -37,10 +40,35 @@ def test_entry_points_outside_the_slice_raise(name, entry):
 
 
 def test_run_chains_raises():
+    """Dense X has no fused multi-chain kernel: ``fused=True`` raises."""
     sim = simulate.simulate_bayesr(seed=1, N=40, M=16, n_causal=2)
-    s = SpikeSlabSampler(sim.X, sim.Y, CVA, BayesRConfig(block_size=16))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        s.run_chains(None, 4, ChainConfig(10, 5))
+    s = SpikeSlabSampler(sim.X, sim.Y, CVA, BayesRConfig(block_size=16),
+                         device="cpu")
+    assert not s.supports_fused_chains
+    with pytest.raises(ValueError, match="fused"):
+        s.run_chains(torch.Generator().manual_seed(0), 4,
+                     ChainConfig(10, 5), fused=True)
+
+
+def test_entry_points_without_a_card_raise(monkeypatch):
+    """No ``device`` and no card: the samplers and ``api`` functions raise
+    rather than run on the CPU; an explicit CPU device or a CPU tensor X
+    runs there."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    sim = simulate.simulate_bayesr(seed=1, N=40, M=16, n_causal=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SpikeSlabSampler(sim.X, sim.Y, CVA, BayesRConfig(block_size=16))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        HorseshoeSampler(sim.X, sim.Y, HorseshoeConfig(block_size=16))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        api.BayesRSamplerV2("unused.csv", 1, 4, 2, 1, sim.X, sim.Y, 0.01,
+                            0.001, 0.001, 0.001, 0.001, CVA, block_size=16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        api.HorseshoeR("unused.csv", 1, 4, 2, 1, sim.X, sim.Y, 1.0, 0.001,
+                       0.001, 1.0, 1.0, 1.0, 10.0, 10.0, block_size=16)
+    s = SpikeSlabSampler(torch.as_tensor(sim.X), sim.Y, CVA,
+                         BayesRConfig(block_size=16))
+    assert s.device.type == "cpu"
 
 
 @pytest.mark.parametrize("burn_in,thinning,emit_epsilon",
@@ -51,7 +79,7 @@ def test_rows_align_and_first_emission(tmp_path, burn_in, thinning,
     out = tmp_path / "c1.csv"
     api.BayesRSamplerV2(str(out), 2, 40, burn_in, thinning, sim.X, sim.Y,
                         0.01, 0.001, 0.001, 0.001, 0.001, CVA, block_size=16,
-                        emit_epsilon=emit_epsilon)
+                        emit_epsilon=emit_epsilon, device="cpu")
     header, rows = _read_csv(out)
     M, N = 48, 120
     assert len(header) == 2 + 2 * M + 2 + (N if emit_epsilon else 0)
@@ -73,7 +101,8 @@ def test_api_recovers_signal(tmp_path):
     out = tmp_path / "rec.csv"
     state = api.BayesRSamplerV2(str(out), 7, 150, 75, 5, sim.X, sim.Y, 0.01,
                                 0.001, 0.001, 0.001, 0.001, CVA,
-                                block_size=16, emit_epsilon=False)
+                                block_size=16, emit_epsilon=False,
+                                device="cpu")
     _, rows = _read_csv(out)
     vals = np.array(rows, float)
     bh = vals[:, 2:2 + 160].mean(axis=0)

@@ -124,7 +124,8 @@ def test_steps_match_jax_sampler_with_replayed_variates():
 
     js = jbr.SpikeSlabSampler(dosage, Y, CVA, jbr.BayesRConfig(),
                               x_dtype="2bit", dtype=jnp.float32)
-    ts = SpikeSlabSampler(dosage, Y, CVA, BayesRConfig(), x_dtype="2bit")
+    ts = SpikeSlabSampler(dosage, Y, CVA, BayesRConfig(), x_dtype="2bit",
+                          device="cpu")
     assert (js.jacobi, js.B, js.jacobi_layout) == (16, 32, "t")
     assert (ts.jacobi, ts.B, ts.jacobi_layout, ts.Mpad, ts.Npad) == \
         (16, 32, "t", js.Mpad, js.Npad)
@@ -167,7 +168,7 @@ def test_torch_variates_chain_recovers_signal():
     Y = signal + 0.7 * torch.randn(N, generator=g)
     s = SpikeSlabSampler(words, Y, CVA, BayesRConfig(block_size=256),
                          transposed=True, x_dtype="2bit",
-                         x_stats=(means, sds))
+                         x_stats=(means, sds), device="cpu")
     assert (s.jacobi, s.B, s.jacobi_layout) == (8, 32, "t")
     st, out = s.run(torch.Generator().manual_seed(6), ChainConfig(100, 60, 1))
     corr = np.corrcoef(out["beta"].mean(axis=0), bt.numpy())[0, 1]
@@ -186,7 +187,7 @@ def test_configurations_outside_the_slice_raise(case):
     N, M = 64, 96
     dosage = rng.binomial(2, 0.4, size=(N, M)).astype(float)
     Y = rng.normal(size=N)
-    kw = dict(x_dtype="2bit")
+    kw = dict(x_dtype="2bit", device="cpu")
     cva = CVA
     if case == "groups":
         cva = np.tile(CVA, (2, 1))
@@ -198,6 +199,6 @@ def test_configurations_outside_the_slice_raise(case):
         dosage[3, 5] = np.nan
         dosage = np.concatenate([dosage] * 40, axis=1)   # a "t" plan
     elif case == "scan":
-        kw = dict(backend="scan")
+        kw = dict(backend="scan", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SpikeSlabSampler(dosage, Y, cva, BayesRConfig(), **kw)

@@ -1,5 +1,8 @@
 """The CUDA kernels of bayesrrcpp_tpu_torch/csrc/jacobi_t.cu (the BayesR and
-horseshoe sweeps) against their plain torch versions, on the card.
+horseshoe sweeps) and csrc/jacobi_t_mc.cu (their fused multi-chain sweeps)
+against their plain torch versions, on the card; and each fused chain
+against the single-chain kernel on that chain's operands, bitwise (the
+same arithmetic in the same order).
 
 Marked ``cuda``: a CUDA kernel has no CPU mode, so these skip where
 ``torch.cuda.is_available()`` is false.  On the card:
@@ -17,8 +20,9 @@ import torch
 
 from bayesrrcpp_tpu_torch.ops import genotypes
 from bayesrrcpp_tpu_torch.ops.jacobi_t import (
-    bayesr_jacobi_t, bayesr_jacobi_t_reference, horseshoe_jacobi_t,
-    horseshoe_jacobi_t_reference)
+    bayesr_jacobi_t, bayesr_jacobi_t_mc, bayesr_jacobi_t_mc_reference,
+    bayesr_jacobi_t_reference, horseshoe_jacobi_t, horseshoe_jacobi_t_mc,
+    horseshoe_jacobi_t_mc_reference, horseshoe_jacobi_t_reference)
 
 
 @pytest.fixture
@@ -125,3 +129,90 @@ def test_horseshoe_kernel_matches_plain(cuda, J, B, N, tau):
     # fixed-order reductions: a second launch is bitwise identical
     eps_2, beta_2 = horseshoe_jacobi_t(*args, **kw)
     assert torch.equal(eps_k, eps_2) and torch.equal(beta_k, beta_2)
+
+
+def _mc_case(seed, J, B, G, K, nr, N, C, dev):
+    """_case's words, Gram blocks and orders with C chains' own warm states
+    and variates, in the fused sweep's argument order."""
+    args, kw = _case(seed, J, B, G, K, nr, N, dev)
+    words, gram, xsq, rho, inner, cva, gas, valid = (
+        args[0], args[1], args[2], args[6], args[7], args[11], args[14],
+        args[15])
+    rng = np.random.default_rng(seed + 2000)
+    M, Npad = xsq.shape[0], kw["row_valid"].shape[0]
+    t = lambda x, dt=torch.float32: torch.as_tensor(x, dtype=dt,  # noqa
+                                                    device=dev)
+    eps = np.zeros((C, Npad))
+    eps[:, :N] = rng.standard_normal((C, N))
+    beta = np.zeros((C, M))
+    labels = np.zeros((C, M), np.int32)
+    for c in range(C):
+        hot = rng.choice(M, M // 8, replace=False)
+        labels[c, hot] = rng.integers(1, K, hot.size)
+        beta[c, hot] = rng.normal(0, 0.05, hot.size)
+    mc = (words, gram, xsq, t(eps), t(beta), t(labels, torch.int32), rho,
+          inner, t(rng.random((C, M))), t(rng.standard_normal((C, M))),
+          t(rng.dirichlet(np.arange(K, 0, -1.0), (C, G))), cva,
+          t(rng.uniform(0.5, 1.0, C)), t(rng.uniform(0.03, 0.08, (C, G))),
+          gas, valid)
+    return mc, kw
+
+
+def _chain(args, c, per_chain):
+    return tuple(a[c] if k in per_chain else a for k, a in enumerate(args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,J,B,G,K,N", [(3, 4, 16, 3, 4, 1500),
+                                         (8, 32, 32, 1, 4, 4096),
+                                         (17, 8, 32, 1, 2, 3000)])
+def test_mc_kernel_matches_plain_and_single_chains(cuda, C, J, B, G, K, N):
+    """The fused BayesR sweep against its plain version (labels and v
+    exact, floats to f32 reassociation), and each chain bitwise against
+    the single-chain kernel; C=17 runs as groups of 16 and 1."""
+    args, kw = _mc_case(C + J + G, J, B, G, K, 4, N, C, cuda)
+    before = bayesr_jacobi_t_mc.launches
+    ker = bayesr_jacobi_t_mc(*args, **kw)
+    ref = bayesr_jacobi_t_mc_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert bayesr_jacobi_t_mc.launches == before + 3 * 4 * -(-C // 16)
+    assert torch.equal(ker.labels, ref.labels)
+    assert torch.equal(ker.v, ref.v)
+    torch.testing.assert_close(ker.beta, ref.beta, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(ker.eps, ref.eps, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(ker.beta_acum, ref.beta_acum, rtol=1e-4,
+                               atol=1e-6)
+    assert (ker.eps[:, N:] == 0).all()
+    for c in range(C):
+        one = bayesr_jacobi_t(*_chain(args, c, (3, 4, 5, 8, 9, 10, 12, 13)),
+                              **kw)
+        for name, a, b in zip(one._fields, one, ker):
+            assert torch.equal(a, b[c]), (c, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,J,B,N", [(3, 4, 16, 1500), (8, 32, 32, 4096),
+                                     (17, 8, 32, 3000)])
+def test_hs_mc_kernel_matches_plain_and_single_chains(cuda, C, J, B, N):
+    args, kw = _mc_case(C + J, J, B, 1, 4, 4, N, C, cuda)
+    rng = np.random.default_rng(C)
+    M = args[2].shape[0]
+    t = lambda x: torch.as_tensor(x, dtype=torch.float32,  # noqa: E731
+                                  device=cuda)
+    tau = rng.uniform(0.01, 0.1, C)
+    tau[-1] = 1e-30                       # invd and sd near 0
+    # words, gram, xsq, eps, beta, rho, inner, z, lam, tau, c2, sigmaE, valid
+    hs = (args[:5] + args[6:8] + (args[9], t(rng.uniform(0.1, 2.0, (C, M))),
+                                  t(tau), t(rng.uniform(1.0, 2.0, C)),
+                                  args[12], args[15]))
+    before = horseshoe_jacobi_t_mc.launches
+    eps_k, beta_k = horseshoe_jacobi_t_mc(*hs, **kw)
+    eps_r, beta_r = horseshoe_jacobi_t_mc_reference(*hs, **kw)
+    torch.cuda.synchronize()
+    assert horseshoe_jacobi_t_mc.launches == before + 3 * 4 * -(-C // 16)
+    torch.testing.assert_close(beta_k, beta_r, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(eps_k, eps_r, rtol=1e-4, atol=1e-5)
+    for c in range(C):
+        e1, b1 = horseshoe_jacobi_t(*_chain(hs, c, (3, 4, 7, 8, 9, 10, 11)),
+                                    **kw)
+        assert torch.equal(e1, eps_k[c]) and torch.equal(b1, beta_k[c]), c

@@ -139,7 +139,8 @@ def test_steps_match_jax_sampler_with_replayed_variates(storage):
         kw = dict(x_dtype="2bit", jacobi_blocks=8, jacobi_layout="t")
         js = jbr.HorseshoeSampler(dosage, Y, jbr.HorseshoeConfig(**cfg),
                                   dtype=jnp.float32, **kw)
-        ts = HorseshoeSampler(dosage, Y, HorseshoeConfig(**cfg), **kw)
+        ts = HorseshoeSampler(dosage, Y, HorseshoeConfig(**cfg), **kw,
+                              device="cpu")
         assert (ts.jacobi, ts.B, ts.jacobi_layout, ts.Mpad, ts.Npad) == \
             (8, 32, "t", js.Mpad, js.Npad) == (8, 32, "t", 1024, 2048)
         # the sweep inputs carried across exactly (the port's own stats are
@@ -150,7 +151,7 @@ def test_steps_match_jax_sampler_with_replayed_variates(storage):
     else:
         js = jbr.HorseshoeSampler(X, Y, jbr.HorseshoeConfig(**cfg),
                                   dtype=jnp.float32)
-        ts = HorseshoeSampler(X, Y, HorseshoeConfig(**cfg))
+        ts = HorseshoeSampler(X, Y, HorseshoeConfig(**cfg), device="cpu")
         assert (js.backend, ts.backend, ts.B, ts.Mpad) == \
             ("blocked", "blocked", 64, js.Mpad)
 
@@ -180,7 +181,7 @@ def test_init_from_matches_jax():
     cfg = _hs_config(N, M, 20, 64)
     js = jbr.HorseshoeSampler(X, Y, jbr.HorseshoeConfig(**cfg),
                               dtype=jnp.float32)
-    ts = HorseshoeSampler(X, Y, HorseshoeConfig(**cfg))
+    ts = HorseshoeSampler(X, Y, HorseshoeConfig(**cfg), device="cpu")
     rng = np.random.default_rng(1)
     prev = dict(mu=0.03, beta=rng.normal(0, 0.05, M), sigmaE=0.7, tau=0.002,
                 lam=rng.uniform(0.2, 3.0, M), epsilon=rng.normal(0, 1, N))
@@ -244,7 +245,7 @@ def test_api_horseshoe_end_to_end(tmp_path):
     out = tmp_path / "hs.csv"
     state = api.HorseshoeR(str(out), 7, 200, 100, 5, sim.X, sim.Y, c["A"],
                            c["v0E"], c["s02E"], c["vL"], c["vT"], c["c2"],
-                           c["vC"], c["sC"], block_size=32)
+                           c["vC"], c["sC"], block_size=32, device="cpu")
     with open(out) as f:
         header = f.readline().rstrip("\n").split(",")
         rows = [r.split(", ") for r in f.read().strip().split("\n")]
@@ -278,8 +279,17 @@ def test_configurations_outside_the_slice_raise(case):
     elif case == "dense_kernel":
         kw = dict(backend="pallas")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        HorseshoeSampler(dosage, Y, HorseshoeConfig(), **kw)
+        HorseshoeSampler(dosage, Y, HorseshoeConfig(), **kw, device="cpu")
     if case == "int8":
-        s = HorseshoeSampler(dosage, Y, HorseshoeConfig(block_size=32))
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-            s.run_chains(None, 4, ChainConfig(10, 5))
+        # dense X has no fused multi-chain kernel: fused=True raises, the
+        # default runs the chains through the single-chain step
+        s = HorseshoeSampler(dosage, Y, HorseshoeConfig(block_size=32),
+                             device="cpu")
+        assert not s.supports_fused_chains
+        with pytest.raises(ValueError, match="fused"):
+            s.run_chains(torch.Generator().manual_seed(0), 4,
+                         ChainConfig(10, 5), fused=True)
+        _, out = s.run_chains(torch.Generator().manual_seed(0), 2,
+                              ChainConfig(4, 2, 2))
+        assert out["beta"].shape == (1, 2, M) and np.isfinite(
+            out["beta"]).all()

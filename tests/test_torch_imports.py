@@ -26,8 +26,10 @@ def _sources():
 
 def test_the_package_has_sources():
     names = {p.relative_to(PKG).as_posix() for p in _sources()}
-    assert {"__init__.py", "ops/jacobi_t.py", "models/bayesr.py"} <= names
-    assert (PKG / "csrc" / "jacobi_t.cu").exists()
+    assert {"__init__.py", "ops/jacobi_t.py", "models/bayesr.py",
+            "models/horseshoe.py", "utils/summary.py"} <= names
+    for src in ("jacobi_t.cu", "jacobi_t_mc.cu", "jacobi_t_common.cuh"):
+        assert (PKG / "csrc" / src).exists(), src
 
 
 @pytest.mark.parametrize("path", _sources(),
