@@ -4,7 +4,8 @@
 // eps vector or several at once) and the per-block solves, which each
 // chain of a fused sweep runs on its own operands.  So a fused chain
 // equals the single-chain kernel bitwise.  See jacobi_t.cu for the sweep's
-// design and the TPU kernel semantics it keeps.
+// design and the TPU kernel semantics it keeps.  The serial sweeps
+// (serial.cu) use the decode, the dot and the BayesR categorical draw.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -120,6 +121,51 @@ __device__ __forceinline__ void dot_rows(const uint32_t (&wds)[kMaxB],
   }
 }
 
+// The BayesR categorical draw of one marker (pallas_sweep.py:246-264):
+// the K components' tables lp, invd and sd (spike first, lp the log-prior
+// term), num = r + beta_old*xsq.  The reference's overflow guard zeroes a
+// component's weight when any slab logL is more than 700 from its own;
+// the first k with p <= the cumulative weight wins, and no hit keeps
+// beta_old.  Returns d = ok*(beta_new - beta_old); krec is the hit's
+// component, or -1 (no hit, or an invalid marker).  Every solve calls
+// this one function, so they round alike.
+template <int K>
+__device__ __forceinline__ float categorical_draw(
+    const float* lp, const float* invd, const float* sd, float num,
+    float half_invsE, float p, float z, float bold, float okf, int& krec) {
+  float muk[K], logL[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    muk[k] = num * invd[k];
+    logL[k] = lp[k] + (half_invsE * num) * muk[k];
+  }
+  int ksel = K;
+  float acum = 0.f;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const float lk = logL[k];
+    float gmax = fabsf(logL[1] - lk);
+#pragma unroll
+    for (int kk = 2; kk < K; ++kk) gmax = fmaxf(gmax, fabsf(logL[kk] - lk));
+    float S = expf(logL[0] - lk);
+#pragma unroll
+    for (int kk = 1; kk < K; ++kk) S = S + expf(logL[kk] - lk);
+    const float wk = gmax > 700.f ? 0.f : 1.f / S;
+    acum = acum + wk;
+    ksel = (p <= acum && ksel == K) ? k : ksel;
+  }
+  const bool hit = ksel < K;
+  float mu_sel = 0.f, sd_sel = 0.f;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    mu_sel = k == ksel ? muk[k] : mu_sel;
+    sd_sel = k == ksel ? sd[k] : sd_sel;
+  }
+  const float beta_new = hit ? mu_sel + sd_sel * z : bold;
+  krec = (okf > 0.f && hit) ? ksel : -1;
+  return okf * (beta_new - bold);
+}
+
 struct SolveArgs {
   const float* partial; int nsplit;
   const int* rho; int round; int nr; int J; int B; int K; int G;
@@ -209,39 +255,9 @@ __device__ __forceinline__ void solve_block(const SolveArgs& a, int j) {
     const float zt = __shfl_sync(kFull, zl, t);
     float d = 0.f;
     if (lane == mk) {
-      const float num = r + bold * xs;
-      float muk[K], logL[K];
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        muk[k] = num * invd[k];
-        logL[k] = lp[k] + (half_invsE * num) * muk[k];
-      }
-      int ksel = K;
-      float acum = 0.f;
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const float lk = logL[k];
-        float gmax = fabsf(logL[1] - lk);
-#pragma unroll
-        for (int kk = 2; kk < K; ++kk) gmax = fmaxf(gmax, fabsf(logL[kk] - lk));
-        float S = expf(logL[0] - lk);
-#pragma unroll
-        for (int kk = 1; kk < K; ++kk) S = S + expf(logL[kk] - lk);
-        const float wk = gmax > 700.f ? 0.f : 1.f / S;
-        acum = acum + wk;
-        ksel = (pt <= acum && ksel == K) ? k : ksel;
-      }
-      const bool hit = ksel < K;
-      float mu_sel = 0.f, sd_sel = 0.f;
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        mu_sel = k == ksel ? muk[k] : mu_sel;
-        sd_sel = k == ksel ? sd[k] : sd_sel;
-      }
-      const float beta_new = hit ? mu_sel + sd_sel * zt : bold;
-      d = okf * (beta_new - bold);
+      d = categorical_draw<K>(lp, invd, sd, r + bold * xs, half_invsE, pt,
+                              zt, bold, okf, krec);
       d_own = d;
-      krec = (okf > 0.f && hit) ? ksel : -1;
     }
     d = __shfl_sync(kFull, d, mk);
     if (act) r = r - gs[mk * B + lane] * d;

@@ -1,0 +1,730 @@
+// The exact sequential (J=1) BayesR and horseshoe sweeps on 2-bit packed
+// genotypes, for one chain or C <= 16 fused chains, written for Hopper
+// (sm_90a).  One entry point serves both: a single-chain sweep is the
+// fused sweep with C=1 and p/z read by sweep position, so chain c of a
+// fused sweep equals the single-chain sweep on chain c's operands bitwise.
+//
+// Replaces the TPU Pallas kernels, in their fold-affine 2-bit mode,
+//   bayesrrcpp_tpu/ops/pallas_sweep.py:_sweep_kernel / _sweep_kernel_qf
+//     (wrapper bayesr_sweep_pallas, pallas_call at :431),
+//   bayesrrcpp_tpu/ops/pallas_sweep.py:_hs_kernel / _hs_kernel_qf
+//     (horseshoe_sweep_pallas, :824),
+//   bayesrrcpp_tpu/ops/pallas_multichain.py:_mc_kernel
+//     (bayesr_sweep_pallas_mc, :359) and _hs_mc_kernel
+//     (horseshoe_sweep_pallas_mc, :736).
+// Python wrappers and plain versions: bayesrrcpp_tpu_torch/ops/serial.py
+// and ops/multichain.py.
+//
+// A sweep visits the blocks in `border` order, one position at a time, in
+// three launches per position (no host sync inside the sweep):
+//
+//   dot    r[c, l] = code row l of the block . eps_c for the B markers of
+//          the block and every chain, in the code domain; the words are
+//          read once for all chains (jacobi_t_common.cuh:dot_rows, CP
+//          chains per decode) in CTAs of 128 words x 32 rows, partial sums
+//          to (C, nsplit, B + 1), the extra column sum(eps).  The CTAs also
+//          prefetch the block's Gram matrix into L2 for the solve.
+//   solve  one CTA of 256 threads per chain.  All threads turn the
+//          partials into r = s*(C.eps) - (m*s)*sum(eps) in shared memory
+//          and stage the block's per-marker tables; then one warp runs the
+//          B dependent Gibbs steps: every lane computes the visited
+//          marker's draw (the same operands, so the same bits; the
+//          marker's r by shuffle from the lane holding it), and each lane
+//          updates its B/32 entries of r, in registers, with the Gram row,
+//          which it loaded from global memory one step ahead (the Gram
+//          block, B*B*4 bytes, does not fit in shared memory at B=512); a
+//          step with d == 0 skips the update (r - G*0 is r).
+//          Then all threads write beta, labels, d*scale and the
+//          fixed-order sums:
+//          sum(eps) tracked as sum(eps) - sum(d*xsum) across the blocks of
+//          a chunk, d.(m*s), and the block's v / bacc partials.
+//   apply  eps_c -= (sum_m d*s[c, m] x_m - d.(m*s)) over the block's rows
+//          where any chain moved, compacted in index order in shared
+//          memory; a warp reads 32 consecutive words of a row.
+//
+// What bounds it on an H100: the dependency chain.  Block b+1's dot needs
+// block b's apply, and a block's solve is B dependent steps, each a K-way
+// categorical draw (K*K expf) and a rank-1 update: 503,808 dependent steps
+// per headline sweep on one warp per chain.  The bytes (one read of the
+// words, 12.6 GB at N=100,352 x M=503,808) would take 3.8 ms.  The design
+// keeps everything of a step but the draw and r's update off the dependent
+// path: the next step's operands and Gram row are loaded while this step
+// computes, and the loop has no warp barrier.  On the card (PERF.md §6)
+// a step still costs about 0.4-0.7 us; loading the Gram rows further ahead
+// did not shorten it, and the draw's arithmetic is the smaller part.
+//
+// Semantics kept from the TPU kernels (pallas_sweep.py:97-301):
+// - position s of the block at sweep position i visits marker
+//   inner[border[i], s]; single-chain p/z are read by sweep position
+//   i*B + s, fused p/z by marker (pallas_multichain.py:38-41);
+// - sum(eps) is recomputed from eps at each chunk start and tracked
+//   analytically inside a chunk (:289-290, :573); the chunks are those of
+//   the JAX wrapper, remainder first (:593-597);
+// - the per-marker tables (log-prior, 1/denom, slab sd; the horseshoe's
+//   1/denom and sd) are built by the wrapper in plain torch, in the op order
+//   of pallas_multichain.py:build_pkg / build_pkg_hs;
+// - per step jacobi_t_common.cuh:categorical_draw, the strided solves'
+//   draw (the 700 overflow guard on the slab logLs, first k with p <=
+//   cumulative weight wins, no hit keeps beta and the label), d =
+//   valid*(new - old); the horseshoe draws num*invd + sd*z;
+// - lanes n >= N are never written, so eps stays 0 there.
+
+#include "jacobi_t_common.cuh"
+
+namespace {
+
+constexpr int kSerialMaxB = 1024;    // markers per block: 32 per lane
+constexpr int kSerialMaxC = 16;      // chains per fused sweep
+constexpr int kSolveThreads = 256;
+constexpr int kSolveWarps = kSolveThreads / 32;
+constexpr int kSerialTile = 512;     // apply entries per compaction tile
+constexpr int kSerialApplyWords = 32;                    // one per lane
+constexpr int kSerialSub = kApplyThreads / kSerialApplyWords;   // warps
+constexpr int kSerialLanes = 16 / kSerialSub;            // eps lanes/thread
+constexpr int kSerialTilePerLane = kSerialTile / kApplyThreads;
+
+// ------------------------------------------------------------------ dot
+
+template <int CP>
+__global__ void __launch_bounds__(kDotThreads)
+serial_dot_kernel(const uint32_t* __restrict__ words, int Nw,
+                  const float* __restrict__ eps, int C,
+                  const int* __restrict__ border, int pos, int B,
+                  const float* __restrict__ gram,
+                  float* __restrict__ partial, int nsplit) {
+  const int grp = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int w = blockIdx.x * kDotThreads + threadIdx.x;
+  const long long blk = border[pos];
+  const int nrow = min(kMaxB, B - grp * kMaxB);
+  const int B1 = B + 1;
+  const long long Npad = 16LL * Nw;
+  __shared__ float red[kSerialMaxC][kDotThreads / 32][32];
+  __shared__ float red_e[kSerialMaxC][kDotThreads / 32];
+
+  // warm the L2 with the Gram block that the solve reads next
+  {
+    const float* gb = gram + blk * B * B;
+    const long long lines = ((long long)B * B + 31) / 32;
+    const long long nthr = (long long)gridDim.x * gridDim.y * kDotThreads;
+    for (long long ln = ((long long)grp * gridDim.x + blockIdx.x) *
+                            kDotThreads + threadIdx.x;
+         ln < lines; ln += nthr)
+      asm volatile("prefetch.global.L2 [%0];" ::"l"(gb + ln * 32));
+  }
+
+  uint32_t wds[kMaxB];
+  if (w < Nw) {
+    load_words(words + (blk * B + grp * kMaxB) * Nw + w, Nw, nrow, wds);
+  } else {
+#pragma unroll
+    for (int i = 0; i < kMaxB; ++i) wds[i] = 0u;
+  }
+#pragma unroll 1
+  for (int c0 = 0; c0 < C; c0 += CP) {
+    // the decode is the same for every pass: keep the compiler from
+    // hoisting all 32*16 decoded codes out of this loop (they spill)
+#pragma unroll
+    for (int i = 0; i < kMaxB; ++i) asm volatile("" : "+r"(wds[i]));
+    float acc[CP][kMaxB], esum[CP];
+#pragma unroll
+    for (int p = 0; p < CP; ++p) {
+      esum[p] = 0.f;
+#pragma unroll
+      for (int i = 0; i < kMaxB; ++i) acc[p][i] = 0.f;
+    }
+    if (w < Nw) {
+      float e[CP][16];
+#pragma unroll
+      for (int p = 0; p < CP; ++p) {
+        if (c0 + p < C) {
+          esum[p] = load_eps16(
+              reinterpret_cast<const float4*>(eps + (c0 + p) * Npad) + 4LL * w,
+              e[p]);
+        } else {
+#pragma unroll
+          for (int k = 0; k < 16; ++k) e[p][k] = 0.f;
+        }
+      }
+      dot_rows<CP>(wds, e, acc);
+    }
+#pragma unroll
+    for (int p = 0; p < CP; ++p) {
+      const float r = warp_transpose_sum(acc[p], lane);
+      const float es = warp_sum(esum[p]);
+      if (c0 + p < C) {
+        red[c0 + p][warp][lane] = r;
+        if (lane == 0) red_e[c0 + p][warp] = es;
+      }
+    }
+  }
+  __syncthreads();
+  for (int o = threadIdx.x; o < C * 32; o += kDotThreads) {
+    const int c = o >> 5, l = o & 31;
+    float t = 0.f;
+#pragma unroll
+    for (int q = 0; q < kDotThreads / 32; ++q) t += red[c][q][l];
+    float* out = partial + ((long long)c * nsplit + blockIdx.x) * B1;
+    if (l < nrow) out[grp * kMaxB + l] = t;
+    if (grp == 0 && l == 0) {
+      float te = 0.f;
+#pragma unroll
+      for (int q = 0; q < kDotThreads / 32; ++q) te += red_e[c][q];
+      out[B] = te;
+    }
+  }
+}
+
+// ---------------------------------------------------------------- solve
+
+struct SerialSolveArgs {
+  const float* partial; int nsplit;           // (C, nsplit, B + 1)
+  const int* border; const int* inner; int pos; int B; int G; int Mpad;
+  int chunk_start;
+  const float* tbl;                           // (C, Mpad, F)
+  const float* gram;                          // (nb, B, B)
+  const float* xsq; const float* mean; const float* scale;
+  const float* xsum; const unsigned char* valid; const int* gas;
+  float* beta; int* labels;                   // (C, Mpad), in place
+  const float* p; const float* z;             // see pz_by_marker
+  int pz_by_marker; long long pz_chain;       // chain stride of p/z
+  const float* sigmaE;                        // (C,)
+  float* esum; float* dsc; float* dms;        // (C,), (C, B), (C,)
+  float* vpart; float* bpart; int n_pos;      // (C, n, G, K), (C, n, G)
+};
+
+// The block's staged operands in dynamic shared memory: B*(9 + F) words.
+struct SolveSmem {
+  float *r, *dlt, *xs, *bo, *ok, *ps, *zs, *tb;
+  int *inn, *krec;
+};
+
+__device__ __forceinline__ SolveSmem carve(float* sm, int B, int F) {
+  SolveSmem s;
+  s.r = sm; s.dlt = sm + B; s.xs = sm + 2 * B; s.bo = sm + 3 * B;
+  s.ok = sm + 4 * B; s.ps = sm + 5 * B; s.zs = sm + 6 * B; s.tb = sm + 7 * B;
+  s.inn = reinterpret_cast<int*>(sm + (7 + F) * B);
+  s.krec = s.inn + B;
+  return s;
+}
+
+inline size_t solve_smem_bytes(int B, int F) {
+  return sizeof(float) * (size_t)B * (9 + F);
+}
+
+// Sum over the CTA in a fixed order (lanes, then warps 0..7); every
+// thread gets the total.
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  v = warp_sum(v);
+  __syncthreads();                    // red is free again
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float t = 0.f;
+#pragma unroll
+  for (int q = 0; q < kSolveWarps; ++q) t += red[q];
+  return t;
+}
+
+// Gram row entries lane + 32*i of one row, 0 beyond B.
+template <int NPL>
+__device__ __forceinline__ void load_gram_row(const float* row, int lane,
+                                              int B, float (&g)[NPL]) {
+#pragma unroll
+  for (int i = 0; i < NPL; ++i) {
+    const int idx = lane + 32 * i;
+    g[i] = idx < B ? __ldg(row + idx) : 0.f;
+  }
+}
+
+// One step's operands: the visited marker's table row and state, and the
+// position's variates.  K == 0 is the horseshoe (table: invd, sd).
+template <int K>
+struct StepOps {
+  static constexpr int F = K == 0 ? 2 : 3 * K;
+  float tb[F];
+  float xs, bo, ok, p, z;
+};
+
+template <int K>
+__device__ __forceinline__ void load_step(const SolveSmem& s, int t, int jl,
+                                          StepOps<K>& q) {
+  const float* row = s.tb + jl * StepOps<K>::F;
+#pragma unroll
+  for (int f = 0; f < StepOps<K>::F; ++f) q.tb[f] = row[f];
+  q.xs = s.xs[jl];
+  q.bo = s.bo[jl];
+  q.ok = s.ok[jl];
+  q.p = s.ps[t];
+  q.z = s.zs[t];
+}
+
+// The Gibbs draw of one step: (d, krec).  BayesR: categorical_draw on the
+// table row [lp, invd, sd]; horseshoe (K == 0): beta_new = num*invd + sd*z.
+template <int K>
+__device__ __forceinline__ float draw(const StepOps<K>& q, float num,
+                                      float half_invsE, int& krec) {
+  if constexpr (K == 0) {
+    const float beta_new = num * q.tb[0] + q.tb[1] * q.z;
+    krec = -1;
+    return q.ok * (beta_new - q.bo);
+  } else {
+    return categorical_draw<K>(q.tb, q.tb + K, q.tb + 2 * K, num,
+                               half_invsE, q.p, q.z, q.bo, q.ok, krec);
+  }
+}
+
+// v[i] for a warp-uniform i < NPL, with static register indices.
+template <int NPL>
+__device__ __forceinline__ float pick(const float (&v)[NPL], int i) {
+  float x = v[0];
+#pragma unroll
+  for (int k = 1; k < NPL; ++k) x = i == k ? v[k] : x;
+  return x;
+}
+
+// The B dependent steps of one block, run by one warp.  Lane l holds r's
+// entries l + 32*i in registers; the visited marker's entry comes from its
+// owner lane by shuffle, so a step needs no warp barrier (a barrier would
+// also wait for the Gram row in flight).  Each step loads the next step's
+// operands and Gram row before its own draw, so their latency overlaps the
+// draw; a step that moves nothing (d == 0, most BayesR steps after
+// burn-in) skips the rank-1 update: r - G*0 is r.
+template <int K, int NPL>
+__device__ __forceinline__ void block_steps(const SolveSmem& s,
+                                            const float* gb, int B,
+                                            float half_invsE) {
+  const int lane = threadIdx.x & 31;
+  float r[NPL], gcur[NPL], gnxt[NPL];
+#pragma unroll
+  for (int i = 0; i < NPL; ++i) {
+    const int idx = lane + 32 * i;
+    r[i] = idx < B ? s.r[idx] : 0.f;
+  }
+  StepOps<K> cur, nxt;
+  int jl = s.inn[0];
+  load_gram_row<NPL>(gb + (long long)jl * B, lane, B, gcur);
+  load_step<K>(s, 0, jl, cur);
+  for (int t = 0; t < B; ++t) {
+    const int tn = t + 1 < B ? t + 1 : t;
+    const int jn = s.inn[tn];
+    load_gram_row<NPL>(gb + (long long)jn * B, lane, B, gnxt);
+    load_step<K>(s, tn, jn, nxt);
+    const float rj = __shfl_sync(kFull, pick<NPL>(r, jl >> 5), jl & 31);
+    int krec;
+    const float d = draw<K>(cur, rj + cur.bo * cur.xs, half_invsE, krec);
+    if (d != 0.f) {
+#pragma unroll
+      for (int i = 0; i < NPL; ++i) r[i] = r[i] - gcur[i] * d;
+    }
+    if (lane == 0) {
+      s.dlt[jl] = d;
+      s.krec[jl] = krec;
+    }
+#pragma unroll
+    for (int i = 0; i < NPL; ++i) gcur[i] = gnxt[i];
+    cur = nxt;
+    jl = jn;
+  }
+}
+
+// One block of one chain (blockIdx.x); K == 0 is the horseshoe.
+template <int K, int NPL>
+__global__ void __launch_bounds__(kSolveThreads)
+serial_solve_kernel(SerialSolveArgs a) {
+  constexpr int F = StepOps<K>::F;
+  extern __shared__ float smem[];
+  __shared__ float red[kSolveWarps];
+  __shared__ float s_esum;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int B = a.B, B1 = B + 1;
+  const int c = blockIdx.x;
+  const long long blk = a.border[a.pos];
+  const long long m0 = blk * B;
+  const long long cm = (long long)c * a.Mpad;
+  const SolveSmem s = carve(smem, B, F);
+  const float* part = a.partial + (long long)c * a.nsplit * B1;
+
+  // sum(eps): afresh from the dot's column at a chunk start, else tracked
+  if (warp == 0) {
+    float e = 0.f;
+    if (a.chunk_start) {
+      for (int q = lane; q < a.nsplit; q += 32)
+        e += part[(long long)q * B1 + B];
+      e = warp_sum(e);
+    } else {
+      e = a.esum[c];
+    }
+    if (lane == 0) s_esum = e;
+  }
+  for (int l = tid; l < B; l += kSolveThreads) {
+    const long long m = m0 + l;
+    s.xs[l] = a.xsq[m];
+    s.bo[l] = a.beta[cm + m];
+    s.ok[l] = a.valid[m] ? 1.f : 0.f;
+    s.inn[l] = a.inner[m];
+    s.dlt[l] = 0.f;
+    s.krec[l] = -1;
+    const float* row = a.tbl + (cm + m) * F;
+#pragma unroll
+    for (int f = 0; f < F; ++f) s.tb[l * F + f] = row[f];
+  }
+  __syncthreads();
+  const float esum0 = s_esum;
+  for (int l = tid; l < B; l += kSolveThreads) {
+    float rc = 0.f;
+    for (int q = 0; q < a.nsplit; ++q) rc += part[(long long)q * B1 + l];
+    const float sc = a.scale[m0 + l];
+    const float ms = a.mean[m0 + l] * sc;
+    s.r[l] = rc * sc - ms * esum0;
+    // position l's variates: by sweep position, or by its marker
+    const long long at = (long long)c * a.pz_chain +
+                         (a.pz_by_marker ? m0 + s.inn[l]
+                                         : (long long)a.pos * B + l);
+    s.ps[l] = K == 0 ? 0.f : a.p[at];
+    s.zs[l] = a.z[at];
+  }
+  __syncthreads();
+
+  if (warp == 0) {
+    const float half_invsE = K == 0 ? 0.f : 0.5f / a.sigmaE[c];
+    block_steps<K, NPL>(s, a.gram + blk * B * B, B, half_invsE);
+  }
+  __syncthreads();
+
+  // the block's outputs, and its sums in a fixed order
+  float es = 0.f, dm = 0.f;
+  for (int l = tid; l < B; l += kSolveThreads) {
+    const long long m = m0 + l;
+    const float d = s.dlt[l];
+    const float sc = a.scale[m];
+    const float ms = a.mean[m] * sc;
+    a.beta[cm + m] = s.bo[l] + d;
+    if constexpr (K > 0) {
+      if (s.krec[l] >= 0) a.labels[cm + m] = s.krec[l];
+    }
+    a.dsc[(long long)c * B + l] = d * sc;
+    es += d * a.xsum[m];
+    dm += d * ms;
+  }
+  const float es_t = block_sum(es, red);
+  const float dm_t = block_sum(dm, red);
+  if (tid == 0) {
+    a.esum[c] = esum0 - es_t;
+    a.dms[c] = dm_t;
+  }
+  if constexpr (K > 0) {
+    // v (label counts of the hits) and bacc (beta_out^2 over slab hits)
+    const long long cp = (long long)c * a.n_pos + a.pos;
+    for (int g = 0; g < a.G; ++g) {
+      float cnt[K], b2 = 0.f;
+#pragma unroll
+      for (int k = 0; k < K; ++k) cnt[k] = 0.f;
+      for (int l = tid; l < B; l += kSolveThreads) {
+        if (a.gas[m0 + l] != g) continue;
+        const int kr = s.krec[l];
+#pragma unroll
+        for (int k = 0; k < K; ++k) cnt[k] += kr == k ? 1.f : 0.f;
+        const float bn = s.bo[l] + s.dlt[l];
+        if (kr > 0) b2 += bn * bn;
+      }
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const float t = block_sum(cnt[k], red);
+        if (tid == 0) a.vpart[(cp * a.G + g) * K + k] = t;
+      }
+      const float t = block_sum(b2, red);
+      if (tid == 0) a.bpart[cp * a.G + g] = t;
+    }
+  }
+}
+
+// ---------------------------------------------------------------- apply
+
+// CB >= C chains (a power of two: the per-chain accumulators stay in
+// registers); dsc (C, B) and dms (C,) as the solve writes them.
+template <int CB>
+__global__ void __launch_bounds__(kApplyThreads)
+serial_apply_kernel(const uint32_t* __restrict__ words, int Nw,
+                    float* __restrict__ eps, int C,
+                    const unsigned char* __restrict__ row_valid,
+                    const int* __restrict__ border, int pos, int B,
+                    const float* __restrict__ dsc,
+                    const float* __restrict__ dms) {
+  constexpr int CV = CB < 4 ? 4 : CB;   // chains per staged row (float4s)
+  constexpr int L = kSerialLanes;
+  __shared__ float4 vals4[kSerialTile * CV / 4];
+  __shared__ int rows[kSerialTile];
+  __shared__ int warp_cnt[kApplyWarps + 1];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long row0 = (long long)border[pos] * B;
+  const long long Npad = 16LL * Nw;
+  // word w of this lane; warp `sub` owns its eps lanes 16w + L*sub .. +L-1
+  const int w = blockIdx.x * kSerialApplyWords + lane;
+  const int sub = warp;
+  const bool live = w < Nw;
+  const uint32_t* wp = words + (live ? w : 0);
+  float acc[CB][L];
+#pragma unroll
+  for (int c = 0; c < CB; ++c)
+#pragma unroll
+    for (int k = 0; k < L; ++k) acc[c][k] = 0.f;
+
+  for (int tile0 = 0; tile0 < B; tile0 += kSerialTile) {
+    // warp `warp` owns the tile's entries [lo, lo + 32*kSerialTilePerLane)
+    const int lo = tile0 + warp * 32 * kSerialTilePerLane;
+    bool nz[kSerialTilePerLane];
+    int cnt = 0;
+#pragma unroll
+    for (int it = 0; it < kSerialTilePerLane; ++it) {
+      const int e = lo + it * 32 + lane;
+      bool f = false;
+      if (e < B) {
+#pragma unroll
+        for (int c = 0; c < CB; ++c)
+          if (c < C) f |= __ldg(dsc + (long long)c * B + e) != 0.f;
+      }
+      nz[it] = f;
+      cnt += __popc(__ballot_sync(kFull, f));
+    }
+    if (lane == 0) warp_cnt[warp] = cnt;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      int run = 0;
+      for (int q = 0; q < kApplyWarps; ++q) {
+        const int n = warp_cnt[q];
+        warp_cnt[q] = run;
+        run += n;
+      }
+      warp_cnt[kApplyWarps] = run;
+    }
+    __syncthreads();
+    int at0 = warp_cnt[warp];
+#pragma unroll
+    for (int it = 0; it < kSerialTilePerLane; ++it) {
+      const unsigned mask = __ballot_sync(kFull, nz[it]);
+      if (nz[it]) {
+        const int at = at0 + __popc(mask & ((1u << lane) - 1u));
+        const int e = lo + it * 32 + lane;
+        rows[at] = e;
+        float* v = reinterpret_cast<float*>(vals4) + at * CV;
+#pragma unroll
+        for (int c = 0; c < CV; ++c)
+          v[c] = c < C ? __ldg(dsc + (long long)c * B + e) : 0.f;
+      }
+      at0 += __popc(mask);
+    }
+    __syncthreads();
+    const int nnz = warp_cnt[kApplyWarps];
+    if (live) {
+#pragma unroll 8
+      for (int t = 0; t < nnz; ++t) {
+        const uint32_t wd =
+            __ldg(wp + (row0 + rows[t]) * Nw) >> (2 * L * sub);
+        float cf[L];
+#pragma unroll
+        for (int k = 0; k < L; ++k) cf[k] = code_f(wd, k);
+#pragma unroll
+        for (int q = 0; q < CV / 4; ++q) {
+          const float4 v = vals4[t * (CV / 4) + q];
+          const float vq[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            if (4 * q + i < CB) {
+#pragma unroll
+              for (int k = 0; k < L; ++k)
+                acc[4 * q + i][k] = fmaf(vq[i], cf[k], acc[4 * q + i][k]);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();   // the next tile overwrites rows and vals
+  }
+  if (!live) return;
+  const long long n0 = 16LL * w + L * sub;
+#pragma unroll
+  for (int c = 0; c < CB; ++c) {
+    if (c < C) {
+      float* ep = eps + c * Npad;
+      const float dt = dms[c];
+#pragma unroll
+      for (int k = 0; k < L; ++k)
+        if (row_valid[n0 + k]) ep[n0 + k] = ep[n0 + k] - (acc[c][k] - dt);
+    }
+  }
+}
+
+// --------------------------------------------------------------- launch
+
+// One sweep's operands (ops/serial.py:_sweep_cuda); K == 0 is the
+// horseshoe, whose labels, gas, p, sigmaE, vpart and bpart are null.
+struct SerialSweep {
+  int C, pz_by_marker, Nw, n_pos, chunk, B, K, G, Mpad, nsplit;
+  const uint32_t* words; const int* border; const int* inner;
+  const float* gram; const float* tbl; const float* xsq; const float* mean;
+  const float* scale; const float* xsum; const unsigned char* valid;
+  const int* gas; float* eps; const unsigned char* row_valid;
+  float* beta; int* labels; const float* p; const float* z;
+  const float* sigmaE; float* partial; float* esum; float* dsc; float* dms;
+  float* vpart; float* bpart;
+};
+
+using SolveFn = void (*)(SerialSolveArgs);
+
+// entries of r per lane: the power of two >= B/32
+inline int lanes_per_row(int B) {
+  int npl = 1;
+  while (32 * npl < B) npl *= 2;
+  return npl;
+}
+
+template <int K>
+SolveFn pick_npl(int npl) {
+  switch (npl) {
+    case 1: return serial_solve_kernel<K, 1>;
+    case 2: return serial_solve_kernel<K, 2>;
+    case 4: return serial_solve_kernel<K, 4>;
+    case 8: return serial_solve_kernel<K, 8>;
+    case 16: return serial_solve_kernel<K, 16>;
+    case 32: return serial_solve_kernel<K, 32>;
+    default: return nullptr;
+  }
+}
+
+inline SolveFn pick_solve(int K, int B) {
+  const int npl = lanes_per_row(B);
+  switch (K) {
+    case 0: return pick_npl<0>(npl);
+    case 2: return pick_npl<2>(npl);
+    case 3: return pick_npl<3>(npl);
+    case 4: return pick_npl<4>(npl);
+    case 5: return pick_npl<5>(npl);
+    case 6: return pick_npl<6>(npl);
+    case 7: return pick_npl<7>(npl);
+    case 8: return pick_npl<8>(npl);
+    default: return nullptr;
+  }
+}
+
+// The dot reads the words once for every CP chains (4 at most: more
+// spill); C == 1 takes the single-chain instance.
+cudaError_t launch_dot(const SerialSweep& o, int pos, cudaStream_t s) {
+  const dim3 grid(o.nsplit, (o.B + kMaxB - 1) / kMaxB);
+#define SERIAL_DOT(CP)                                                    \
+  serial_dot_kernel<CP><<<grid, kDotThreads, 0, s>>>(                     \
+      o.words, o.Nw, o.eps, o.C, o.border, pos, o.B, o.gram, o.partial,   \
+      o.nsplit)
+  if (o.C == 1) SERIAL_DOT(1);
+  else if (o.C == 2) SERIAL_DOT(2);
+  else SERIAL_DOT(4);
+#undef SERIAL_DOT
+  return cudaGetLastError();
+}
+
+cudaError_t launch_apply(const SerialSweep& o, int pos, cudaStream_t s) {
+  const int ctas = (o.Nw + kSerialApplyWords - 1) / kSerialApplyWords;
+#define SERIAL_APPLY(CB)                                                  \
+  serial_apply_kernel<CB><<<ctas, kApplyThreads, 0, s>>>(                 \
+      o.words, o.Nw, o.eps, o.C, o.row_valid, o.border, pos, o.B, o.dsc,  \
+      o.dms)
+  if (o.C <= 1) SERIAL_APPLY(1);
+  else if (o.C <= 2) SERIAL_APPLY(2);
+  else if (o.C <= 4) SERIAL_APPLY(4);
+  else if (o.C <= 8) SERIAL_APPLY(8);
+  else SERIAL_APPLY(16);
+#undef SERIAL_APPLY
+  return cudaGetLastError();
+}
+
+// The whole sweep: dot, solve and apply per position, all on `s`.
+// Returns the first launch error or 0.
+int serial_run(const SerialSweep& o, cudaStream_t s) {
+  if (o.C < 1 || o.C > kSerialMaxC || o.B < 1 || o.B > kSerialMaxB ||
+      o.chunk < 1 || (o.K != 0 && (o.K < 2 || o.K > kMaxK)))
+    return cudaErrorInvalidValue;
+  const SolveFn solve = pick_solve(o.K, o.B);
+  if (solve == nullptr) return cudaErrorInvalidValue;
+  const size_t smem = solve_smem_bytes(o.B, o.K == 0 ? 2 : 3 * o.K);
+  cudaError_t err = cudaFuncSetAttribute(
+      solve, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  SerialSolveArgs a{o.partial, o.nsplit, o.border, o.inner, 0, o.B, o.G,
+                    o.Mpad, 0, o.tbl, o.gram, o.xsq, o.mean, o.scale,
+                    o.xsum, o.valid, o.gas, o.beta, o.labels, o.p, o.z,
+                    o.pz_by_marker,
+                    o.pz_by_marker ? (long long)o.Mpad
+                                   : (long long)o.n_pos * o.B,
+                    o.sigmaE, o.esum, o.dsc, o.dms, o.vpart, o.bpart,
+                    o.n_pos};
+  // the JAX wrapper's chunks: the remainder first, then `chunk` positions
+  const int rem = o.n_pos % o.chunk;
+  for (int pos = 0; pos < o.n_pos; ++pos) {
+    if ((err = launch_dot(o, pos, s)) != cudaSuccess) return err;
+    a.pos = pos;
+    a.chunk_start = pos == 0 || (pos >= rem && (pos - rem) % o.chunk == 0);
+    solve<<<o.C, kSolveThreads, smem, s>>>(a);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    if ((err = launch_apply(o, pos, s)) != cudaSuccess) return err;
+  }
+  return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+int serial_max_block() { return kSerialMaxB; }
+
+int serial_max_chains() { return kSerialMaxC; }
+
+int serial_max_components() { return kMaxK; }
+
+int serial_dot_splits(int Nw) { return (Nw + kDotThreads - 1) / kDotThreads; }
+
+const char* serial_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// One sweep of C chains over n_pos block positions, 3 launches each, on
+// `stream`.  K == 0 is the horseshoe.  Per-chain operands have a leading
+// chain axis C: eps (C, Npad), beta/labels (C, Mpad), tbl (C, Mpad, F),
+// sigmaE (C,); p/z (C, Mpad) by marker if pz_by_marker (fused chains),
+// else (C, n_pos*B) by sweep position; scratch partial (C, nsplit, B + 1),
+// esum (C,), dsc (C, B), dms (C,), vpart (C, n_pos, G, K), bpart (C,
+// n_pos, G).  Returns the first launch error or 0.
+int serial_sweep(int C, int pz_by_marker, int Nw, int n_pos, int chunk,
+                 int B, int K, int G, int Mpad, int nsplit, const void* words,
+                 const void* border, const void* inner, const void* gram,
+                 const void* tbl, const void* xsq, const void* mean,
+                 const void* scale, const void* xsum, const void* valid,
+                 const void* gas, void* eps, const void* row_valid,
+                 void* beta, void* labels, const void* p, const void* z,
+                 const void* sigmaE, void* partial, void* esum, void* dsc,
+                 void* dms, void* vpart, void* bpart, void* stream) {
+  return serial_run(
+      SerialSweep{C, pz_by_marker, Nw, n_pos, chunk, B, K, G, Mpad, nsplit,
+                  static_cast<const uint32_t*>(words),
+                  static_cast<const int*>(border),
+                  static_cast<const int*>(inner),
+                  static_cast<const float*>(gram),
+                  static_cast<const float*>(tbl),
+                  static_cast<const float*>(xsq),
+                  static_cast<const float*>(mean),
+                  static_cast<const float*>(scale),
+                  static_cast<const float*>(xsum),
+                  static_cast<const unsigned char*>(valid),
+                  static_cast<const int*>(gas), static_cast<float*>(eps),
+                  static_cast<const unsigned char*>(row_valid),
+                  static_cast<float*>(beta), static_cast<int*>(labels),
+                  static_cast<const float*>(p), static_cast<const float*>(z),
+                  static_cast<const float*>(sigmaE),
+                  static_cast<float*>(partial), static_cast<float*>(esum),
+                  static_cast<float*>(dsc), static_cast<float*>(dms),
+                  static_cast<float*>(vpart), static_cast<float*>(bpart)},
+      static_cast<cudaStream_t>(stream));
+}
+
+}  // extern "C"

@@ -5,8 +5,10 @@ group (G=1) and no fixed effects (F=0), one chain or several
 (``run_chains``), on either
 
 - 2-bit packed genotypes with no missing calls, swept by the strided-rounds
-  block-Jacobi kernel (``ops/jacobi_t.py``; the main path), from host
-  dosages or from pre-packed int32 words on the device; or
+  block-Jacobi kernel (``ops/jacobi_t.py``; the main path) or, at J=1
+  (``jacobi_blocks=1``, or the auto plan for M < 2048), by the exact
+  serial sweep (``ops/serial.py``), from host dosages or from pre-packed
+  int32 words on the device; or
 - dense standardized X, swept by the plain Gram-blocked sweep
   (``backend="blocked"``, ``ops/block_sweep.py``), as the JAX package runs
   it in XLA.
@@ -17,11 +19,12 @@ caller passes (``distributions.TorchVariates``), and the step enqueues
 device work only: no host round trip, so a chain of steps runs ahead of
 the host.  ``step_chains`` is the fused multi-chain iteration
 (bayesr.py:672-731): per-chain intercept and hyperparameter draws around
-one ``bayesr_jacobi_t_mc`` sweep of all chains.
+one ``bayesr_jacobi_t_mc`` sweep of all chains (``bayesr_sweep_mc`` at
+J=1).
 
 What lies outside the slice raises ``NotImplementedError`` naming its
 ROADMAP entry: the groups variant and fixed effects, int8, missing calls,
-row-layout and J=1 plans for packed X, the scan backend, sharding,
+row-layout plans with J > 1 for packed X, the scan backend, sharding,
 checkpoint and resume.  What it shares with the horseshoe
 (storage, plan, intercept, residual recompute, chain driver) lives in
 ``models/sampler.py``.
@@ -37,6 +40,8 @@ from .. import distributions as dist
 from ..config import BayesRConfig
 from ..ops import block_sweep as bs
 from ..ops.jacobi_t import bayesr_jacobi_t, bayesr_jacobi_t_mc
+from ..ops.multichain import bayesr_sweep_mc
+from ..ops.serial import bayesr_sweep
 from .sampler import MarkerSampler, not_ported
 from .state import SpikeSlabState
 
@@ -78,8 +83,8 @@ class SpikeSlabSampler(MarkerSampler):
     cva : (K-1,) slab variances (spike prepended internally).
     config : BayesRConfig.
     backend : None, "blocked" (dense X, plain Gram-blocked sweep) or
-        "pallas" (the strided Jacobi kernel; packed X only).  None picks by
-        ``x_dtype``.
+        "pallas" (the packed sweep kernels: strided Jacobi, or serial at
+        J=1; packed X only).  None picks by ``x_dtype``.
     device : where the data and state live; defaults to X's device for a
         tensor X, else the card ("cuda"; raises without one: pass
         ``device="cpu"`` to run on the CPU).
@@ -184,29 +189,31 @@ class SpikeSlabSampler(MarkerSampler):
         mu, eps = self._intercept(state, v)
         d = self.data
         Mpad, B, nb = self.Mpad, self.B, self.nb
-        if self.x_packed:
+        if self.x_packed and self.jacobi > 1:
             rho, inner = v.orders(nb, B, self.jacobi)
             p, z = v.p(Mpad), v.z(Mpad)
             res = bayesr_jacobi_t(
                 d.XT, d.gram, d.xsq, eps, state.beta, state.labels, rho,
                 inner, p, z, state.pi, d.cva, state.sigmaE, state.sigmaGG,
-                d.g_assign, d.valid, J=self.jacobi, x_mean=d.x_mean,
-                x_scale=d.x_scale, x_xsum=d.x_colsum, fold_affine=True,
-                row_valid=d.row_valid)
+                d.g_assign, d.valid, J=self.jacobi, **self._packed_kw())
         else:
+            # the shuffled block order, p/z by sweep position
+            # (bayesr.py:619-645): the serial sweep, or dense X's
             border, inner = v.block_orders(nb, B)
             p, z = v.p(Mpad), v.z(Mpad)
-            res = bs.bayesr_block_sweep(
-                d.XT, d.gram, d.xsq, eps, state.beta, state.labels, border,
-                inner, p, z, state.pi, d.cva, state.sigmaE, state.sigmaGG,
-                d.g_assign, d.valid)
+            args = (d.XT, d.gram, d.xsq, eps, state.beta, state.labels,
+                    border, inner, p, z, state.pi, d.cva, state.sigmaE,
+                    state.sigmaGG, d.g_assign, d.valid)
+            res = (bayesr_sweep(*args, **self._packed_kw()) if self.x_packed
+                   else bs.bayesr_block_sweep(*args))
         return self._next(state, v, mu, res)
 
     def step_chains(self, state: SpikeSlabState, rng) -> SpikeSlabState:
         """One fused multi-chain Gibbs iteration of a chain-batched state
         (bayesrrcpp_tpu/models/bayesr.py:_mc_step_impl): per-chain
         intercept and p/z, one visit order shared by all chains, one
-        ``bayesr_jacobi_t_mc`` sweep, per-chain hyperparameter draws.
+        ``bayesr_jacobi_t_mc`` sweep (``bayesr_sweep_mc`` at J=1, p/z by
+        marker), per-chain hyperparameter draws.
         Packed X only (``supports_fused_chains``)."""
         if not self.supports_fused_chains:
             raise ValueError("fused multi-chain steps need 2-bit packed X")
@@ -214,13 +221,18 @@ class SpikeSlabSampler(MarkerSampler):
         v.begin_step()
         mu, eps = self._intercept(state, v)
         d = self.data
-        rho, inner = v.orders(self.nb, self.B, self.jacobi)
+        if self.jacobi > 1:
+            orders = v.orders(self.nb, self.B, self.jacobi)
+            sweep, kw = bayesr_jacobi_t_mc, dict(J=self.jacobi)
+        else:
+            # J=1: the shared block order, p/z by marker (bayesr.py:714-722)
+            orders = v.block_orders(self.nb, self.B)
+            sweep, kw = bayesr_sweep_mc, {}
         p, z = v.p(self.Mpad), v.z(self.Mpad)
-        res = bayesr_jacobi_t_mc(
-            d.XT, d.gram, d.xsq, eps, state.beta, state.labels, rho, inner,
-            p, z, state.pi, d.cva, state.sigmaE, state.sigmaGG, d.g_assign,
-            d.valid, J=self.jacobi, x_mean=d.x_mean, x_scale=d.x_scale,
-            x_xsum=d.x_colsum, fold_affine=True, row_valid=d.row_valid)
+        res = sweep(d.XT, d.gram, d.xsq, eps, state.beta, state.labels,
+                    *orders, p, z, state.pi, d.cva, state.sigmaE,
+                    state.sigmaGG, d.g_assign, d.valid, **kw,
+                    **self._packed_kw())
         return self._next(state, v, mu, res)
 
     def _next(self, state, v, mu, res) -> SpikeSlabState:

@@ -4,7 +4,8 @@ Counterpart of ``bayesrrcpp_tpu/models/horseshoe.py:HorseshoeSampler``, one
 chain or several (``run_chains``), on either
 
 - 2-bit packed genotypes with no missing calls, swept by the strided-rounds
-  block-Jacobi kernel (``ops/jacobi_t.horseshoe_jacobi_t``; the main path),
+  block-Jacobi kernel (``ops/jacobi_t.horseshoe_jacobi_t``; the main path)
+  or, at J=1, by the exact serial sweep (``ops/serial.horseshoe_sweep``),
   from host dosages or from pre-packed int32 words on the device; or
 - dense standardized X, swept by the plain Gram-blocked sweep
   (``backend="blocked"``, ``ops/block_sweep.horseshoe_block_sweep``), as
@@ -27,9 +28,9 @@ Every draw comes from the variates object the caller passes
 (``distributions.TorchVariates``), and the step enqueues device work only.
 ``step_chains`` is the fused multi-chain iteration (horseshoe.py:516-562):
 the same per-chain draws around one ``horseshoe_jacobi_t_mc`` sweep of all
-chains.  What lies outside the slice raises ``NotImplementedError`` naming
-its ROADMAP entry: int8, missing calls, row-layout and J=1 plans for
-packed X and the scan backend.
+chains (``horseshoe_sweep_mc`` at J=1).  What lies outside the slice raises
+``NotImplementedError`` naming its ROADMAP entry: int8, missing calls,
+row-layout plans with J > 1 for packed X and the scan backend.
 """
 from __future__ import annotations
 
@@ -42,6 +43,8 @@ from .. import distributions as dist
 from ..config import HorseshoeConfig
 from ..ops import block_sweep as bs
 from ..ops.jacobi_t import horseshoe_jacobi_t, horseshoe_jacobi_t_mc
+from ..ops.multichain import horseshoe_sweep_mc
+from ..ops.serial import horseshoe_sweep
 from .sampler import Genotypes, MarkerSampler
 from .state import HorseshoeState
 
@@ -56,9 +59,9 @@ class HorseshoeSampler(MarkerSampler):
     Parameters as ``SpikeSlabSampler``'s, without cva, groups and fixed
     effects: X as dosages, standardized values or pre-packed int32 words;
     ``config`` a HorseshoeConfig; ``backend`` None, "blocked" (dense X) or
-    "pallas" (the strided Jacobi kernel; packed X only); ``device``
-    defaults to X's device for a tensor X, else the card ("cuda"; raises
-    without one: pass ``device="cpu"`` to run on the CPU).
+    "pallas" (the packed sweep kernels, strided or serial; packed X only);
+    ``device`` defaults to X's device for a tensor X, else the card
+    ("cuda"; raises without one: pass ``device="cpu"`` to run on the CPU).
     """
 
     def __init__(self, X, Y, config: HorseshoeConfig, *,
@@ -194,26 +197,29 @@ class HorseshoeSampler(MarkerSampler):
         mu, eps, eta, v_aux = self._pre_sweep(state, v)
         d = self.data
         Mpad, B, nb = self.Mpad, self.B, self.nb
-        if self.x_packed:
+        if self.x_packed and self.jacobi > 1:
             rho, inner = v.orders(nb, B, self.jacobi)
             eps, beta = horseshoe_jacobi_t(
                 d.XT, d.gram, d.xsq, eps, state.beta, rho, inner, v.z(Mpad),
                 state.lam, state.tau, state.c2, state.sigmaE, d.valid,
-                J=self.jacobi, x_mean=d.x_mean, x_scale=d.x_scale,
-                x_xsum=d.x_colsum, fold_affine=True, row_valid=d.row_valid)
+                J=self.jacobi, **self._packed_kw())
         else:
+            # the shuffled block order, z by sweep position
+            # (horseshoe.py:464-485): the serial sweep, or dense X's
             border, inner = v.block_orders(nb, B)
-            eps, beta = bs.horseshoe_block_sweep(
-                d.XT, d.gram, d.xsq, eps, state.beta, border, inner,
-                v.z(Mpad), state.lam, state.tau, state.c2, state.sigmaE,
-                d.valid)
+            args = (d.XT, d.gram, d.xsq, eps, state.beta, border, inner,
+                    v.z(Mpad), state.lam, state.tau, state.c2, state.sigmaE,
+                    d.valid)
+            eps, beta = (horseshoe_sweep(*args, **self._packed_kw())
+                         if self.x_packed else bs.horseshoe_block_sweep(*args))
         return self._next(state, v, mu, eta, v_aux, eps, beta)
 
     def step_chains(self, state: HorseshoeState, rng) -> HorseshoeState:
         """One fused multi-chain Gibbs iteration of a chain-batched state
         (bayesrrcpp_tpu/models/horseshoe.py:_mc_step_impl): the single
         step's per-chain draws, one visit order shared by all chains, one
-        ``horseshoe_jacobi_t_mc`` sweep.  Packed X only
+        ``horseshoe_jacobi_t_mc`` sweep (``horseshoe_sweep_mc`` at J=1, z
+        by marker).  Packed X only
         (``supports_fused_chains``)."""
         if not self.supports_fused_chains:
             raise ValueError("fused multi-chain steps need 2-bit packed X")
@@ -221,12 +227,16 @@ class HorseshoeSampler(MarkerSampler):
         v.begin_step()
         mu, eps, eta, v_aux = self._pre_sweep(state, v)
         d = self.data
-        rho, inner = v.orders(self.nb, self.B, self.jacobi)
-        eps, beta = horseshoe_jacobi_t_mc(
-            d.XT, d.gram, d.xsq, eps, state.beta, rho, inner,
-            v.z(self.Mpad), state.lam, state.tau, state.c2, state.sigmaE,
-            d.valid, J=self.jacobi, x_mean=d.x_mean, x_scale=d.x_scale,
-            x_xsum=d.x_colsum, fold_affine=True, row_valid=d.row_valid)
+        if self.jacobi > 1:
+            orders = v.orders(self.nb, self.B, self.jacobi)
+            sweep, kw = horseshoe_jacobi_t_mc, dict(J=self.jacobi)
+        else:
+            # J=1: the shared block order, z by marker (horseshoe.py:546-549)
+            orders = v.block_orders(self.nb, self.B)
+            sweep, kw = horseshoe_sweep_mc, {}
+        eps, beta = sweep(d.XT, d.gram, d.xsq, eps, state.beta, *orders,
+                          v.z(self.Mpad), state.lam, state.tau, state.c2,
+                          state.sigmaE, d.valid, **kw, **self._packed_kw())
         return self._next(state, v, mu, eta, v_aux, eps, beta)
 
     def _next(self, state, v, mu, eta, v_aux, eps, beta) -> HorseshoeState:

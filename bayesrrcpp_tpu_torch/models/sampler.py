@@ -9,8 +9,9 @@ and steps (``init``, ``step``, ``step_chains``, ``_emit_one``).
 
 Several chains (``run_chains``) are one state whose tensors carry a
 leading chain axis C (``init(rng, chains=C)``).  With 2-bit packed X a
-fused step (``step_chains``) sweeps all chains with one kernel per round;
-with dense X each chain takes the single-chain step in turn.  The
+fused step (``step_chains``) sweeps all chains with one set of launches per
+round (strided plan) or per block (serial plan, J=1); with dense X each
+chain takes the single-chain step in turn.  The
 intercept, residual recompute and emission below serve both shapes.
 """
 from __future__ import annotations
@@ -56,9 +57,9 @@ class MarkerSampler:
     def _storage(self, x_dtype, backend, permutation, jacobi_layout,
                  dense_kernel_entry: str) -> str:
         """Check the storage and sweep options; sets ``x_packed`` and
-        returns the backend: the strided Jacobi kernel ("pallas") for
-        2-bit packed X, the plain Gram-blocked sweep ("blocked") for dense
-        X."""
+        returns the backend: the packed sweep kernels ("pallas": strided
+        Jacobi, or serial at J=1) for 2-bit packed X, the plain
+        Gram-blocked sweep ("blocked") for dense X."""
         if x_dtype not in ("dense", "int8", "2bit"):
             raise ValueError(f"unknown x_dtype {x_dtype!r}")
         if x_dtype == "int8":
@@ -179,7 +180,11 @@ class MarkerSampler:
     @staticmethod
     def _plan(M, B, jacobi_blocks, jacobi_layout):
         """(J, B, layout) of the packed sweep, chosen as the JAX samplers
-        choose it (bayesrrcpp_tpu/models/bayesr.py:194-220)."""
+        choose it (bayesrrcpp_tpu/models/bayesr.py:194-220).  J=1, in
+        either layout and from the auto plan for M < 2048 too, runs the
+        exact serial sweep (ops/serial.py), as any J=1 runs
+        ``bayesr_sweep_pallas`` in JAX (bayesr.py:587-645); J > 1 runs the
+        strided-rounds sweep in the "t" layout only."""
         if jacobi_blocks is None:
             if jacobi_layout == "row":
                 J, B = auto_jacobi(M, B)
@@ -196,12 +201,17 @@ class MarkerSampler:
             layout = "row" if jacobi_layout == "auto" else jacobi_layout
             if layout == "t" and J > 128:
                 raise ValueError("jacobi_layout='t' needs jacobi_blocks <= 128")
-        if layout != "t" or J == 1:
-            raise not_ported(
-                f"the packed {layout}-layout J={J} sweep "
-                f"(M={M} has no transposed plan)",
-                "Queue 1 item 7 and Queue 2 entries 2, 4, 10")
+        if layout != "t" and J > 1:
+            raise not_ported(f"the packed row-layout J={J} sweep",
+                             "Queue 2 entry 10")
         return J, B, layout
+
+    def _packed_kw(self):
+        """The packed sweeps' keyword arguments: the fold-affine decode of
+        ``self.data``'s words."""
+        d = self.data
+        return dict(x_mean=d.x_mean, x_scale=d.x_scale, x_xsum=d.x_colsum,
+                    fold_affine=True, row_valid=d.row_valid)
 
     # ------------------------------------------------------------ helpers
 
@@ -262,7 +272,8 @@ class MarkerSampler:
     @property
     def supports_fused_chains(self) -> bool:
         """Whether ``step_chains`` sweeps all chains with the fused kernel:
-        2-bit packed X (the strided Jacobi kernel).  Dense X runs its
+        2-bit packed X (the strided Jacobi kernel, or the serial one at
+        J=1).  Dense X runs its
         chains through the single-chain step (the JAX package fuses dense X
         too, through the dense mode of the kernel, ROADMAP Queue 2 entry
         1)."""
@@ -352,7 +363,7 @@ class MarkerSampler:
             fused = self.supports_fused_chains
         if fused and not self.supports_fused_chains:
             raise ValueError("fused multi-chain runs need 2-bit packed X "
-                             "(the strided Jacobi kernel); run dense X "
+                             "(the packed sweep kernels); run dense X "
                              "with fused=False")
         v = self.variates(rng, n_chains)
         state = self.init(v, chains=n_chains)

@@ -54,6 +54,17 @@ SIGNATURES = {
                                  + [_VOID_P] * 17 + [_INT] + [_VOID_P] * 3,
                                  _INT),
     },
+    # the serial (J=1) sweeps, one chain or fused: 10 ints (C,
+    # pz_by_marker, Nw, n_pos, chunk, B, K, G, Mpad, nsplit), then 24
+    # operand pointers and the stream
+    "serial": {
+        "serial_max_block": ([], _INT),
+        "serial_max_chains": ([], _INT),
+        "serial_max_components": ([], _INT),
+        "serial_dot_splits": ([_INT], _INT),
+        "serial_error_string": ([_INT], ctypes.c_char_p),
+        "serial_sweep": ([_INT] * 10 + [_VOID_P] * 25, _INT),
+    },
 }
 
 

@@ -236,6 +236,42 @@ def _tables(xsq, gas, pi, cva, sigmaE, sigmaGG):
     return lp, invd, sd
 
 
+def categorical_draw(lp, invd, sd, num, half_invsE, p, z, bold, okf):
+    """The BayesR categorical draw of a batch of markers, the plain version
+    of csrc/jacobi_t_common.cuh:categorical_draw (pallas_sweep.py:246-264),
+    shared by every plain BayesR sweep.  lp, invd and sd (..., K) are the
+    markers' component tables (spike first); num = r + beta_old*xsq, p, z,
+    bold and okf (...); half_invsE broadcasts to them.  The reference's
+    overflow guard zeroes a component's weight when any slab logL is more
+    than 700 from its own; the first k with p <= the cumulative weight
+    wins, and no hit keeps beta_old.  Returns (d, krec): d = okf*(beta_new
+    - beta_old) and the hit's component, or -1 (int32)."""
+    K = lp.shape[-1]
+    muk = num[..., None] * invd
+    logL = lp + (half_invsE * num)[..., None] * muk
+    ksel = torch.full(num.shape, K, dtype=torch.int64, device=num.device)
+    acum = torch.zeros_like(num)
+    for k in range(K):
+        lk = logL[..., k]
+        gmax = torch.abs(logL[..., 1] - lk)
+        for kk in range(2, K):
+            gmax = torch.maximum(gmax, torch.abs(logL[..., kk] - lk))
+        S = torch.exp(logL[..., 0] - lk)
+        for kk in range(1, K):
+            S = S + torch.exp(logL[..., kk] - lk)
+        w = torch.where(gmax > 700.0, torch.zeros_like(S), 1.0 / S)
+        acum = acum + w
+        hit = (p <= acum) & (ksel == K)
+        ksel = torch.where(hit, torch.full_like(ksel, k), ksel)
+    hitm = ksel < K
+    kc = torch.clamp_max(ksel, K - 1)[..., None]
+    mu_sel = torch.where(hitm, muk.gather(-1, kc)[..., 0], 0.0)
+    sd_sel = torch.where(hitm, sd.gather(-1, kc)[..., 0], 0.0)
+    beta_new = torch.where(hitm, mu_sel + sd_sel * z, bold)
+    krec = torch.where((okf > 0) & hitm, ksel.to(torch.int32), -1)
+    return okf * (beta_new - bold), krec
+
+
 def bayesr_jacobi_t_reference(XT_pad, gram, xsq_pad, eps, beta_pad,
                               labels_pad, rho, inner_perm, p_arr, z_arr,
                               pi, cva, sigmaE, sigmaGG, g_assign_pad,
@@ -287,34 +323,13 @@ def bayesr_jacobi_t_reference(XT_pad, gram, xsq_pad, eps, beta_pad,
         for t in range(B):
             m = inn[:, t]                                     # (J,)
             mg = blk * B + m                                  # markers
-            num = rr[jj, m] + bold[jj, m] * xsq[mg]
-            muk = num[:, None] * invd[mg]                     # (J, K)
-            logL = lp[mg] + (half_invsE * num)[:, None] * muk
-            ksel = torch.full((J,), K, dtype=torch.int64, device=dev)
-            acum = torch.zeros((J,), dtype=f32, device=dev)
-            for k in range(K):
-                lk = logL[:, k]
-                gmax = torch.abs(logL[:, 1] - lk)
-                for kk in range(2, K):
-                    gmax = torch.maximum(gmax, torch.abs(logL[:, kk] - lk))
-                S = torch.exp(logL[:, 0] - lk)
-                for kk in range(1, K):
-                    S = S + torch.exp(logL[:, kk] - lk)
-                w = torch.where(gmax > 700.0, torch.zeros_like(S), 1.0 / S)
-                acum = acum + w
-                hit = (p_r[:, t] <= acum) & (ksel == K)
-                ksel = torch.where(hit, torch.full_like(ksel, k), ksel)
-            hitm = ksel < K
-            kc = torch.clamp_max(ksel, K - 1)[:, None]
-            mu_sel = torch.where(hitm, muk.gather(1, kc)[:, 0], 0.0)
-            sd_sel = torch.where(hitm, sd[mg].gather(1, kc)[:, 0], 0.0)
             b_old = bold[jj, m]
-            beta_new = torch.where(hitm, mu_sel + sd_sel * z_r[:, t], b_old)
-            dd = okf[mg] * (beta_new - b_old)
+            num = rr[jj, m] + b_old * xsq[mg]
+            dd, krec[jj, m] = categorical_draw(
+                lp[mg], invd[mg], sd[mg], num, half_invsE, p_r[:, t],
+                z_r[:, t], b_old, okf[mg])
             rr = rr - G_r[jj, m, :] * dd[:, None]
             d[jj, m] = dd
-            krec[jj, m] = torch.where((okf[mg] > 0) & hitm,
-                                      ksel.to(torch.int32), -1)
         bnew = bold + d
         beta[rows] = bnew.reshape(-1)
         labels[rows] = torch.where(krec >= 0, krec,
@@ -664,32 +679,11 @@ def bayesr_jacobi_t_mc_reference(XT_pad, gram, xsq_pad, eps, beta_pad,
             mg = blk * B + m                                  # markers
             b_old = bold[:, jj, m]                            # (C, J)
             num = rr[:, jj, m] + b_old * xsq[mg]
-            muk = num[..., None] * invd[:, mg]                # (C, J, K)
-            logL = lp[:, mg] + (half_invsE * num)[..., None] * muk
-            ksel = torch.full((C, J), K, dtype=torch.int64, device=dev)
-            acum = torch.zeros((C, J), dtype=f32, device=dev)
-            for k in range(K):
-                lk = logL[..., k]
-                gmax = torch.abs(logL[..., 1] - lk)
-                for kk in range(2, K):
-                    gmax = torch.maximum(gmax, torch.abs(logL[..., kk] - lk))
-                S = torch.exp(logL[..., 0] - lk)
-                for kk in range(1, K):
-                    S = S + torch.exp(logL[..., kk] - lk)
-                w = torch.where(gmax > 700.0, torch.zeros_like(S), 1.0 / S)
-                acum = acum + w
-                hit = (p_r[..., t] <= acum) & (ksel == K)
-                ksel = torch.where(hit, torch.full_like(ksel, k), ksel)
-            hitm = ksel < K
-            kc = torch.clamp_max(ksel, K - 1)[..., None]
-            mu_sel = torch.where(hitm, muk.gather(-1, kc)[..., 0], 0.0)
-            sd_sel = torch.where(hitm, sd[:, mg].gather(-1, kc)[..., 0], 0.0)
-            beta_new = torch.where(hitm, mu_sel + sd_sel * z_r[..., t], b_old)
-            dd = okf[mg] * (beta_new - b_old)                 # (C, J)
+            dd, krec[:, jj, m] = categorical_draw(
+                lp[:, mg], invd[:, mg], sd[:, mg], num, half_invsE,
+                p_r[..., t], z_r[..., t], b_old, okf[mg])     # (C, J)
             rr = rr - G_r[jj, m, :] * dd[..., None]
             d[:, jj, m] = dd
-            krec[:, jj, m] = torch.where((okf[mg] > 0) & hitm,
-                                         ksel.to(torch.int32), -1)
         bnew = bold + d
         beta[:, rows] = bnew.reshape(C, -1)
         labels[:, rows] = torch.where(krec >= 0, krec,

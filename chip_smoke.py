@@ -54,12 +54,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
    information) and profiles 2 fused steps;
 9. the same three phases for the fused horseshoe kernel and
    biobank-horseshoe-8chain, with phase 5b's bound at the headline
-   (|d eps| / |eps| and |d beta| / |beta| < 1e-4).
+   (|d eps| / |eps| and |d beta| / |beta| < 1e-4);
+10. the serial (J=1) kernels of csrc/serial.cu, BayesR and horseshoe,
+   against their plain versions, one sweep from a warm state: at N=4096 x
+   M=8192 with B=512 and B=64 (labels and v equal, beta to rtol 1e-4 /
+   atol 1e-5, eps to 1e-4 of its norm and of its largest value); at the
+   headline with B=512 on a 16-block order (BayesR labels agreeing on >=
+   99.9 %, |d eps| / |eps| < 1e-3 for BayesR and < 1e-4 for the
+   horseshoe); the full headline sweep timed (mean of 3), with the dot
+   launch's torch.matmul yardstick;
+11. the same kernels fused at C=8 against their plain versions at both
+   sizes and, chain by chain, bitwise against the single-chain serial
+   kernel (on 16 blocks and on the full sweep); the full fused sweep timed
+   against 8 single-chain sweeps;
+12. the serial main paths with the launch counters reset just before:
+   biobank-packed-serial (``jacobi_blocks=1``, ``ChainConfig(10, 5, 5)``),
+   the horseshoe at J=1 and both samplers' ``run_chains`` of 8 chains
+   (CSV widths, finite values, tracked vs recomputed eps, launch counts,
+   one profiled step); recovery at J=1 for both samplers (N=4096, M=2048,
+   block_size 256, corr > 0.8); and the auto plan at M=1500 < 2048 markers
+   (no ``jacobi_blocks``: J=1), one chain and 8 fused chains of both
+   samplers, each with its launch count checked.
 
-Both kernel libraries build at once (one nvcc per source).  The last two
-lines of standard output are the kernels' JSON record (with each sweep's
-bound: the larger of its bytes over 3.35 TB/s and its FP32 FMAs over 67
-TFLOP/s) and the device JSON.  Nothing of JAX is imported.
+The three kernel libraries build at once (one nvcc per source).  The last
+two lines of standard output are the kernels' JSON record (with each
+sweep's bound: the larger of its bytes over 3.35 TB/s and its FP32 FMAs
+over 67 TFLOP/s) and the device JSON.  Nothing of JAX is imported.
 """
 import json
 import os
@@ -108,16 +128,20 @@ def chain_args(args, c, per_chain):
     return tuple(a[c] if k in per_chain else a for k, a in enumerate(args))
 
 
-def sweep_bound(s, chains, moved, marker_arrays):
+def sweep_bound(s, chains, moved, marker_arrays, gram_rows=None):
     """(bound_ms, bound_by) of one sweep of ``chains`` chains on sampler
     ``s``'s data: the larger of the bytes it must move (words, Gram blocks
     and per-marker statistics read once; per chain eps read and written
     and ``marker_arrays`` f32/int32 marker vectors) over the HBM rate, and
     its FP32 FMAs (2 flops each: the dot multiplies every code by each
     chain's eps, the apply the row of every marker that moved, ``moved``
-    summed over chains) over the FP32 rate."""
+    summed over chains) over the FP32 rate.  The Gram bytes are every
+    block's, or ``gram_rows`` rows of B floats when given: a serial sweep
+    needs the Gram row of a marker only where it moved (in any chain)."""
     d = s.data
-    nbytes = (d.XT.numel() * 4 + d.gram.numel() * 4 + s.Mpad * 17 + s.Npad
+    gram_bytes = (d.gram.numel() if gram_rows is None
+                  else gram_rows * s.B) * 4
+    nbytes = (d.XT.numel() * 4 + gram_bytes + s.Mpad * 17 + s.Npad
               + chains * (8 * s.Npad + 4 * marker_arrays * s.Mpad))
     flops = 2.0 * s.Npad * (chains * s.Mpad + moved)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
@@ -154,7 +178,27 @@ def timed(torch, fn, reps):
     return out, start.elapsed_time(end) / reps
 
 
-def packed_sampler(torch, bt, g, N, M, cfg, signal=None):
+def dot_yardstick(torch, s, rows, eps):
+    """ms of one ``torch.matmul`` of sampler ``s``'s decoded ``rows`` by
+    ``eps`` ((Npad,) or (C, Npad)): the PyTorch yardstick of one dot launch
+    (the decode is not timed).  Never called by the port."""
+    from bayesrrcpp_tpu_torch.ops.genotypes import decode_rows
+
+    d = s.data
+    x = decode_rows(d.XT[rows], d.x_mean[rows], d.x_scale[rows],
+                    d.row_valid)
+    rhs = eps.T.contiguous() if eps.dim() == 2 else eps
+    return timed(torch, lambda: torch.matmul(x, rhs), 5)[1]
+
+
+def round_rows(torch, s, rho):
+    """The markers of the strided plan's round ``rho``."""
+    j = torch.arange(s.jacobi, device=rho.device)
+    return ((j * (s.nb // s.jacobi) + rho)[:, None] * s.B
+            + torch.arange(s.B, device=rho.device)).reshape(-1)
+
+
+def packed_sampler(torch, bt, g, N, M, cfg, signal=None, **plan):
     words = bt.simulate.random_packed_words(g, M, N // 16, device="cuda")
     means, sds = bt.simulate.packed_word_stats(M)
     Y = torch.randn(N, generator=g, device="cuda")
@@ -167,7 +211,7 @@ def packed_sampler(torch, bt, g, N, M, cfg, signal=None):
             torch.as_tensor(1.0 / sds, dtype=f32, device="cuda"), signal,
             256, N)
     kw = dict(transposed=True, x_dtype="2bit", x_stats=(means, sds),
-              device="cuda")
+              device="cuda", **plan)
     if isinstance(cfg, bt.HorseshoeConfig):
         return bt.HorseshoeSampler(words, Y, cfg, **kw)
     return bt.SpikeSlabSampler(words, Y, CVA, cfg, **kw)
@@ -267,7 +311,7 @@ def main():
 
 
 def smoke(torch, tmp):
-    """Phases 1-9 (module docstring), their CSVs under ``tmp``; returns 0
+    """Phases 1-12 (module docstring), their CSVs under ``tmp``; returns 0
     or raises."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import bayesrrcpp_tpu_torch as bt
@@ -285,7 +329,7 @@ def smoke(torch, tmp):
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    libs = _cuda.libraries("jacobi_t", "jacobi_t_mc")
+    libs = _cuda.libraries("jacobi_t", "jacobi_t_mc", "serial")
     log(f"[1] built {', '.join(os.path.basename(b.path) for b in libs)} in "
         f"{time.perf_counter() - t0:.1f} s ("
         + ", ".join(f"{b.build_seconds:.1f}" for b in libs) + " s each)")
@@ -351,7 +395,11 @@ def smoke(torch, tmp):
     check(rel_eps < 1e-3, f"headline eps rel diff {rel_eps}")
     bound_ms, bound_by = sweep_bound(s, 1, int((ker.beta != args[4]).sum()),
                                      6)
-    log(f"[2b] bound {bound_ms:.3f} ms ({bound_by})")
+    lib_ms = dot_yardstick(torch, s, round_rows(torch, s, args[6][0]),
+                           args[3]) * nr
+    log(f"[2b] bound {bound_ms:.3f} ms ({bound_by}); dot yardstick "
+        f"torch.matmul ({s.jacobi * s.B} x {s.Npad}) @ ({s.Npad},) x {nr} "
+        f"rounds {lib_ms:.3f} ms")
     del args, ker, ref
 
     # ---- 3. recovery through the kernel
@@ -442,7 +490,10 @@ def smoke(torch, tmp):
     check(rel_eps < 1e-4, f"horseshoe headline eps rel diff {rel_eps}")
     check(rel_beta < 1e-4, f"horseshoe headline beta rel diff {rel_beta}")
     hs_bound = sweep_bound(hs, 1, int((beta_k != args[4]).sum()), 4)
-    log(f"[5b] bound {hs_bound[0]:.3f} ms ({hs_bound[1]})")
+    hs_lib_ms = dot_yardstick(torch, hs, round_rows(torch, hs, args[5][0]),
+                              args[3]) * nr
+    log(f"[5b] bound {hs_bound[0]:.3f} ms ({hs_bound[1]}); dot yardstick "
+        f"{hs_lib_ms:.3f} ms per sweep")
     del st, args, eps_k, beta_k, eps_r, beta_r
 
     # ---- 6. horseshoe recovery through the kernel
@@ -500,6 +551,9 @@ def smoke(torch, tmp):
     mc = {kind: fused_phases(torch, bt, kind, hs, tmp)
           for kind in ("bayesr", "horseshoe")}
 
+    # ---- 10-12. the serial (J=1) kernels and main paths
+    serial_kernels = serial_phases(torch, bt, hs, tmp)
+
     src = "bayesrrcpp_tpu_torch/csrc/jacobi_t.cu"
     src_mc = "bayesrrcpp_tpu_torch/csrc/jacobi_t_mc.cu"
     tpu = "bayesrrcpp_tpu/ops/pallas_jacobi_t.py"
@@ -507,12 +561,12 @@ def smoke(torch, tmp):
         {"name": "jacobi_t_sweep", "route": "cuda", "source": src,
          "replaces": f"{tpu}:405", "launches": bayesr_launches,
          "max_abs_err": max_err, "ms": ker_ms, "plain_ms": plain_ms,
-         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None},
+         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms},
         {"name": "jacobi_t_hs_sweep", "route": "cuda", "source": src,
          "replaces": f"{tpu}:650", "launches": hs_launches,
          "max_abs_err": hs_err, "ms": hs_ms, "plain_ms": hs_plain_ms,
          "bound_ms": hs_bound[0], "bound_by": hs_bound[1],
-         "library_ms": None}]
+         "library_ms": hs_lib_ms}]
     for kind, name, where in (("bayesr", "jacobi_t_mc_sweep", "1199/:2416"),
                               ("horseshoe", "jacobi_t_hs_mc_sweep",
                                "1742/:2922")):
@@ -522,8 +576,8 @@ def smoke(torch, tmp):
             "replaces": f"{tpu}:{where}", "launches": m["launches"],
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-            "bound_by": m["bound_by"], "library_ms": None})
-    print(json.dumps({"kernels": kernels}))
+            "bound_by": m["bound_by"], "library_ms": m["library_ms"]})
+    print(json.dumps({"kernels": kernels + serial_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -538,7 +592,6 @@ def fused_phases(torch, bt, kind, hs, tmp):
     numbers."""
     from bayesrrcpp_tpu_torch.io.sink import ChainFanoutSink
     from bayesrrcpp_tpu_torch.ops import jacobi_t as jt
-    from bayesrrcpp_tpu_torch.ops.genotypes import decode_rows
     from bayesrrcpp_tpu_torch.utils.summary import split_rhat
 
     hsk = kind == "horseshoe"
@@ -623,15 +676,8 @@ def fused_phases(torch, bt, kind, hs, tmp):
     moved = int((ker[1] != args[4]).sum())
     bound_ms, bound_by = sweep_bound(s, C, moved, 4 if hsk else 6)
     # the dot's yardstick: one round's rows decoded, times the C eps
-    d = s.data
-    rho = args[5 if hsk else 6]
-    rows = ((torch.arange(s.jacobi, device=dev) * nr + rho[0])[:, None]
-            * s.B + torch.arange(s.B, device=dev)).reshape(-1)
-    x = decode_rows(d.XT[rows], d.x_mean[rows], d.x_scale[rows],
-                    d.row_valid)
-    epsT = args[3].T.contiguous()
-    _, lib_ms = timed(torch, lambda: torch.matmul(x, epsT), 5)
-    del x
+    lib_ms = dot_yardstick(torch, s, round_rows(
+        torch, s, args[5 if hsk else 6][0]), args[3])
     log(f"[{ph}b] {kind} fused C={C} headline (sampler {setup_s:.2f} s): "
         f"sweep {ms:.3f} ms, {C} single-chain sweeps {singles_ms:.3f} ms, "
         f"plain {plain_ms:.1f} ms, bound {bound_ms:.3f} ms ({bound_by}, "
@@ -725,7 +771,359 @@ def fused_phases(torch, bt, kind, hs, tmp):
         f"{n} {us:.2f} us x {c}" for n, (us, c) in split.items())
         + f"; device {dev_ms:.2f} ms of {wall_ms:.2f} ms wall")
     return dict(launches=launches, max_abs_err=max_err, ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=lib_ms * nr)
+
+
+def serial_args(s, st, v, n=None):
+    """The serial sweep's operands for state ``st`` with fresh variates
+    from ``v`` (models/bayesr.py:SpikeSlabSampler.step at J=1): the block
+    order, and p/z by position (by marker for a chain-batched ``v``), cut
+    to the first ``n`` blocks when given."""
+    d = s.data
+    border, inner = v.block_orders(s.nb, s.B)
+    p, z = v.p(s.Mpad), v.z(s.Mpad)
+    if n is not None:
+        border = border[:n]
+        if p.dim() == 1:
+            p, z = p[:n * s.B], z[:n * s.B]
+    return (d.XT, d.gram, d.xsq, st.eps, st.beta, st.labels, border, inner,
+            p, z, st.pi, d.cva, st.sigmaE, st.sigmaGG, d.g_assign,
+            d.valid), s._packed_kw()
+
+
+def hs_serial_args(s, st, v, n=None):
+    """The horseshoe's serial sweep operands, as ``serial_args``."""
+    d = s.data
+    border, inner = v.block_orders(s.nb, s.B)
+    z = v.z(s.Mpad)
+    if n is not None:
+        border = border[:n]
+        if z.dim() == 1:
+            z = z[:n * s.B]
+    return (d.XT, d.gram, d.xsq, st.eps, st.beta, border, inner, z, st.lam,
+            st.tau, st.c2, st.sigmaE, d.valid), s._packed_kw()
+
+
+def check_sweeps(torch, tag, names, ker, ref):
+    """labels and v equal; beta and bacc to rtol 1e-4 / atol 1e-5; eps to
+    |d eps| / |eps| < 1e-4 and max |d eps| < 1e-4 max |eps|: a lane of eps
+    sums the updates of up to 512 moved rows per block (every row, for the
+    horseshoe) in another order than the plain matrix product, so its
+    rounding grows with those sums, not with the lane's value (the
+    horseshoe reads ~1e-5 relative at N=4096 x M=8192, B=512).  Returns
+    the largest |d| of the floats."""
+    worst = 0.0
+    for name, a, b in zip(names, ker, ref):
+        if name in ("labels", "v"):
+            check(torch.equal(a, b), f"{tag} {name} differ from plain")
+            continue
+        d = float((a - b).abs().max())
+        worst = max(worst, d)
+        if name == "eps":
+            rel = rel_err(a, b)
+            check(rel < 1e-4 and d < 1e-4 * float(b.abs().max()),
+                  f"{tag} eps differs from plain: |d|/|eps| {rel:.3g}, "
+                  f"max |d| {d:.3g}")
+        else:
+            check(torch.allclose(a, b, rtol=1e-4, atol=1e-5),
+                  f"{tag} {name} differs from plain: max |d| {d:.3g}")
+    return worst
+
+
+def single_chains(torch, args, kind, c):
+    """Chain c of a fused serial sweep's operands as a single-chain
+    sweep's: its p/z moved from marker to sweep-position order."""
+    from bayesrrcpp_tpu_torch.ops.serial import position_markers
+
+    hsk = kind == "horseshoe"
+    one = list(chain_args(args, c, HS_CHAIN_ARGS if hsk
+                          else BAYESR_CHAIN_ARGS))
+    border, inner = (args[5], args[6]) if hsk else (args[6], args[7])
+    at = position_markers(border, inner, args[1].shape[1])
+    for k in ((7,) if hsk else (8, 9)):
+        one[k] = one[k][at]
+    return one
+
+
+def serial_phases(torch, bt, hs, tmp):
+    """Phases 10-12 (module docstring): the serial kernels and their fused
+    versions against their plain versions at N=4096 x M=8192 and at the
+    headline (on the words of ``hs``), the serial main paths and recovery;
+    returns the four kernels' JSON records."""
+    from bayesrrcpp_tpu_torch.io.sink import ChainFanoutSink, CSVSink
+    from bayesrrcpp_tpu_torch.ops import multichain as mcs
+    from bayesrrcpp_tpu_torch.ops import serial as ser
+
+    dev = torch.device("cuda")
+    kinds = {
+        "bayesr": (ser.bayesr_sweep, ser.bayesr_sweep_reference,
+                   mcs.bayesr_sweep_mc, mcs.bayesr_sweep_mc_reference,
+                   bt.BayesRConfig, serial_args,
+                   ("eps", "beta", "labels", "v", "beta_acum"), 6),
+        "horseshoe": (ser.horseshoe_sweep, ser.horseshoe_sweep_reference,
+                      mcs.horseshoe_sweep_mc,
+                      mcs.horseshoe_sweep_mc_reference, bt.HorseshoeConfig,
+                      hs_serial_args, ("eps", "beta"), 4)}
+    records = {}
+
+    # ---- 10a / 11a. N=4096 x M=8192 at B=512 (16 blocks) and B=64 (128)
+    for kind, (single, plain, fused, fused_plain, cfg, make_args, names,
+               _) in kinds.items():
+        for B in (512, 64):
+            g = torch.Generator(device=dev).manual_seed(10 + B)
+            v = bt.TorchVariates(g)
+            s = packed_sampler(torch, bt, g, 4096, 8192, cfg(block_size=B),
+                               jacobi_blocks=1)
+            check((s.jacobi, s.B, s.nb) == (1, B, 8192 // B),
+                  f"serial plan {(s.jacobi, s.B, s.nb)}")
+            st = s._run_steps(s.init(v), v, 3)
+            args, kw = make_args(s, st, v)
+            ker = tuple(single(*args, **kw))
+            err = check_sweeps(torch, f"[10a] {kind} B={B}", names, ker,
+                               tuple(plain(*args, **kw)))
+            v8 = bt.TorchVariates(g, chains=CHAINS)
+            st8 = s.init(v8, chains=CHAINS)
+            for _ in range(3):
+                st8 = s.step_chains(st8, v8)
+            args, kw = make_args(s, st8, v8)
+            ker = tuple(fused(*args, **kw))
+            ferr = check_sweeps(torch, f"[11a] {kind} B={B}", names, ker,
+                                tuple(fused_plain(*args, **kw)))
+            for c in range(CHAINS):
+                one = single(*single_chains(torch, args, kind, c), **kw)
+                for name, a, b in zip(names, one, ker):
+                    check(torch.equal(a, b[c]),
+                          f"[11a] {kind} B={B} chain {c} {name} differs "
+                          f"from the single-chain serial kernel")
+            log(f"[10a/11a] {kind} serial N=4096 M=8192 B={B}: kernel vs "
+                f"plain labels/v equal, max |d| {err:.3g}; fused C={CHAINS} "
+                f"vs plain likewise, max |d| {ferr:.3g}; every chain bitwise "
+                f"equal to the single-chain serial kernel")
+            del s, st, st8, args, ker
+
+    # ---- 10b / 11b. the headline, on the words of phase 2
+    common = dict(transposed=True, x_dtype="2bit", device="cuda",
+                  x_stats=bt.simulate.packed_word_stats(HEADLINE_M),
+                  jacobi_blocks=1)
+    samplers = {}
+    for kind, (single, plain, fused, fused_plain, cfg, make_args, names,
+               arrays) in kinds.items():
+        t0 = time.perf_counter()
+        if kind == "bayesr":
+            s = bt.SpikeSlabSampler(hs.data.XT, hs.Y[:hs.N], CVA,
+                                    cfg(emit_epsilon=False), **common)
+        else:
+            s = bt.HorseshoeSampler(hs.data.XT, hs.Y[:hs.N],
+                                    cfg(emit_epsilon=False), **common)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        samplers[kind] = s
+        check(s.data.XT.data_ptr() == hs.data.XT.data_ptr(), "words copied")
+        check((s.jacobi, s.B, s.nb) == (1, 512, 984), "serial headline plan")
+        g = torch.Generator(device=dev).manual_seed(20)
+        v = bt.TorchVariates(g)
+        st = s._run_steps(s.init(v), v, 2)
+        args, kw = make_args(s, st, v, 16)
+        ker = tuple(single(*args, **kw))
+        ref, plain_ms = timed(torch, lambda: tuple(plain(*args, **kw)), 1)
+        rel_eps, rel_beta = rel_err(ker[0], ref[0]), rel_err(ker[1], ref[1])
+        max_err = max(float((a - b).abs().max())
+                      for a, b in zip(ker[:2], ref[:2]))
+        agree = (float((ker[2] == ref[2]).float().mean())
+                 if kind == "bayesr" else 1.0)
+        args, kw = make_args(s, st, v)
+        full, ms = timed(torch, lambda: tuple(single(*args, **kw)), 3)
+        moved = int((full[1] != args[4]).sum())
+        bound_ms, bound_by = sweep_bound(s, 1, moved, arrays, moved)
+        border = args[5 if kind == "horseshoe" else 6]
+        blk_rows = border[0] * s.B + torch.arange(s.B, device=dev)
+        lib_ms = dot_yardstick(torch, s, blk_rows, args[3]) * s.nb
+        log(f"[10b] {kind} serial headline (sampler on phase 2's words "
+            f"{setup_s:.2f} s): 16 blocks vs plain: label agreement "
+            f"{agree:.6f}, |d eps|/|eps| {rel_eps:.3g}, |d beta|/|beta| "
+            f"{rel_beta:.3g}, max abs err {max_err:.3g}, plain {plain_ms:.1f}"
+            f" ms; full sweep ({s.nb} blocks, {s.nb * s.B} dependent steps) "
+            f"{ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}, {moved} "
+            f"markers moved), dot yardstick torch.matmul ({s.B} x {s.Npad}) "
+            f"@ ({s.Npad},) x {s.nb} blocks {lib_ms:.3f} ms")
+        check(agree >= 0.999, f"[10b] label agreement {agree}")
+        check(rel_eps < (1e-3 if kind == "bayesr" else 1e-4),
+              f"[10b] {kind} eps rel diff {rel_eps}")
+        records[kind] = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                             plain_blocks=16, sweep_blocks=int(s.nb),
+                             dependent_steps=int(s.nb * s.B),
+                             bound_ms=bound_ms, bound_by=bound_by,
+                             library_ms=lib_ms)
+        del args, full, ker, ref
+
+        # 11b: C=8 fused chains from a warm 8-chain state
+        v8 = bt.TorchVariates(g, chains=CHAINS)
+        st8 = s.init(v8, chains=CHAINS)
+        for _ in range(2):
+            st8 = s.step_chains(st8, v8)
+        args, kw = make_args(s, st8, v8, 16)
+        ker = tuple(fused(*args, **kw))
+        ref, fplain_ms = timed(torch, lambda: tuple(fused_plain(*args, **kw)),
+                               1)
+        bitwise = all(torch.equal(a, b[c]) for c in range(CHAINS)
+                      for a, b in zip(single(*single_chains(
+                          torch, args, kind, c), **kw), ker))
+        frel = rel_err(ker[0], ref[0])
+        ferr = max(float((a - b).abs().max())
+                   for a, b in zip(ker[:2], ref[:2]))
+        fagree = (float((ker[2] == ref[2]).float().mean())
+                  if kind == "bayesr" else 1.0)
+        args, kw = make_args(s, st8, v8)
+        full, fms = timed(torch, lambda: tuple(fused(*args, **kw)), 3)
+        ones, singles_ms = timed(torch, lambda: [
+            tuple(single(*single_chains(torch, args, kind, c), **kw))
+            for c in range(CHAINS)], 1)
+        bitwise_full = all(torch.equal(a, b[c]) for c, one in enumerate(ones)
+                           for a, b in zip(one, full))
+        fmoved = int((full[1] != args[4]).sum())
+        fbound = sweep_bound(s, CHAINS, fmoved, arrays,
+                             int((full[1] != args[4]).any(dim=0).sum()))
+        flib_ms = dot_yardstick(torch, s, blk_rows, args[3]) * s.nb
+        log(f"[11b] {kind} fused C={CHAINS} serial headline: 16 blocks vs "
+            f"plain: label agreement {fagree:.6f}, |d eps|/|eps| {frel:.3g},"
+            f" max abs err {ferr:.3g}, plain {fplain_ms:.1f} ms; chains "
+            f"bitwise equal to the single-chain serial kernel: {bitwise} (16"
+            f" blocks), {bitwise_full} (full sweep); full sweep {fms:.3f} ms"
+            f", {CHAINS} single-chain sweeps {singles_ms:.3f} ms, bound "
+            f"{fbound[0]:.3f} ms ({fbound[1]}, {fmoved} moved), dot "
+            f"yardstick {flib_ms:.3f} ms")
+        check(bitwise and bitwise_full, f"[11b] {kind} chains not bitwise")
+        check(fagree >= 0.999, f"[11b] label agreement {fagree}")
+        check(frel < (1e-3 if kind == "bayesr" else 1e-4),
+              f"[11b] {kind} eps rel diff {frel}")
+        records[kind + "_mc"] = dict(
+            max_abs_err=ferr, ms=fms, plain_ms=fplain_ms, plain_blocks=16,
+            sweep_blocks=int(s.nb), dependent_steps=int(s.nb * s.B),
+            bound_ms=fbound[0], bound_by=fbound[1], library_ms=flib_ms)
+        del args, full, ker, ref, ones, st8
+
+    # ---- 12. the serial main paths, one chain and 8 fused chains
+    for kind, s in samplers.items():
+        single, fused = kinds[kind][0], kinds[kind][2]
+        schema = kind
+        for chains, counter in ((None, single), (CHAINS, fused)):
+            g = torch.Generator(device=dev).manual_seed(30)
+            if chains is None:
+                chain = (bt.ChainConfig(10, 5, 5) if kind == "bayesr"
+                         else bt.ChainConfig(5, 2, 2))
+                path = os.path.join(tmp, f"{schema}_serial.csv")
+                sink = CSVSink(path, schema, M=s.M, N=s.N, emit_epsilon=False)
+                st, out, wall, launches, peak = main_path(
+                    torch, lambda sk: s.run(g, chain, sink=sk), sink,
+                    counter)
+                paths = [path]
+                rel = rel_err(st.eps, s.refresh_eps(st).eps)
+                names = ("serial_dot_kernel", "serial_solve_kernel",
+                         "serial_apply_kernel")
+                split, dev_ms, wall_ms = profile_split(
+                    torch, lambda: s._run_steps(st, bt.TorchVariates(g), 1),
+                    names)
+                check(profiled(split, s.nb), f"[12] profiled launches {split}")
+                log(f"[12] {kind} serial profile of 1 step: " + ", ".join(
+                    f"{n} {us:.2f} us x {c}" for n, (us, c) in split.items())
+                    + f"; device {dev_ms:.2f} ms of {wall_ms:.2f} ms wall")
+            else:
+                chain = bt.ChainConfig(5, 2, 2)
+                sink = ChainFanoutSink.csv(
+                    os.path.join(tmp, f"{schema}_serial_8chain.csv"), chains,
+                    schema, M=s.M, N=s.N, emit_epsilon=False)
+                st, out, wall, launches, peak = main_path(
+                    torch, lambda sk: s.run_chains(g, chains, chain, sink=sk),
+                    sink, counter)
+                paths = sink.paths
+                ex = s.refresh_eps(st).eps
+                rel = float((torch.linalg.norm(st.eps - ex, dim=1)
+                             / torch.linalg.norm(ex, dim=1)).max())
+            n_rows = len(list(chain.emit_iterations()))
+            for path in paths:
+                header, widths, bad = read_csv(path)
+                check(len(header) == 2 + 2 * s.M + 2,
+                      f"[12] {path} header width {len(header)}")
+                check(widths == [len(header)] * n_rows,
+                      f"[12] {path} rows {widths}")
+                check(not bad, f"[12] {path} has non-finite values")
+            check(all(np_finite(x) for x in out.values()),
+                  f"[12] {kind} non-finite output")
+            want = 3 * s.nb * chain.max_iterations
+            cell = (f"biobank-{'packed' if kind == 'bayesr' else kind}-serial"
+                    + ("" if chains is None else f"-{chains}chain"))
+            log(f"[12] {cell} main path: "
+                f"{wall / chain.max_iterations * 1e3:.2f} ms/iter ({wall:.2f}"
+                f" s for {chain.max_iterations} iterations incl. CSV), peak "
+                f"{peak:.2f} GiB, launches {launches} (want {want}), "
+                f"tracked-vs-exact eps {rel:.3g}")
+            check(rel < 1e-4, f"[12] {cell} tracked eps vs recompute {rel}")
+            check(launches == want, f"[12] {cell} launches {launches}")
+            records[kind + ("" if chains is None else "_mc")][
+                "launches"] = launches
+        del st, out
+    del samplers, s
+
+    # ---- 12. recovery at J=1 (N=4096, M=2048, block_size 256)
+    for kind in kinds:
+        gr = torch.Generator(device=dev).manual_seed(13)
+        beta_true = recovery_signal(torch, gr, 2048)
+        if kind == "bayesr":
+            cfg, rchain = bt.BayesRConfig(block_size=256), (100, 60, 1)
+        else:
+            A = (1.0 / 4096 ** 0.5) * 32 / (2048 - 32)
+            cfg = bt.HorseshoeConfig(A=A, block_size=256)
+            rchain = HS_RECOVERY_CHAIN
+        sr = packed_sampler(torch, bt, gr, 4096, 2048, cfg, signal=beta_true,
+                            jacobi_blocks=1)
+        check((sr.jacobi, sr.B) == (1, 256), "serial recovery plan")
+        t0 = time.perf_counter()
+        _, out = sr.run(gr, bt.ChainConfig(*rchain))
+        corr = posterior_corr(torch, out, beta_true)
+        log(f"[12] {kind} serial recovery corr {corr:.4f} over "
+            f"{rchain} ({(time.perf_counter() - t0) / rchain[0] * 1e3:.2f} "
+            f"ms/iter)")
+        check(corr > 0.8, f"[12] {kind} serial recovery corr {corr}")
+
+    # ---- 12. the auto plan below 2048 markers (J=1, no jacobi_blocks):
+    # one chain and 8 fused chains through the serial kernels
+    for kind, (single, _, fused, _, cfg, _, _, _) in kinds.items():
+        gs = torch.Generator(device=dev).manual_seed(40)
+        s = packed_sampler(torch, bt, gs, 4096, 1500, cfg())
+        check((s.jacobi, s.jacobi_layout) == (1, "row"),
+              f"[12] M=1500 auto plan {(s.jacobi, s.B, s.jacobi_layout)}")
+        chain = bt.ChainConfig(10, 5, 5)
+        for chains, counter in ((None, single), (CHAINS, fused)):
+            path = os.path.join(tmp, f"{kind}_m1500.csv")
+            if chains is None:
+                sink = CSVSink(path, kind, M=s.M, N=s.N, emit_epsilon=False)
+                run = lambda sk: s.run(gs, chain, sink=sk)  # noqa: E731
+            else:
+                sink = ChainFanoutSink.csv(path, chains, kind, M=s.M, N=s.N,
+                                           emit_epsilon=False)
+                run = lambda sk: s.run_chains(  # noqa: E731
+                    gs, chains, chain, sink=sk)
+            st, out, wall, launches, _ = main_path(torch, run, sink, counter)
+            want = 3 * s.nb * chain.max_iterations
+            check(all(np_finite(x) for x in out.values()),
+                  f"[12] {kind} M=1500 non-finite output")
+            check(launches == want,
+                  f"[12] {kind} M=1500 launches {launches} != {want}")
+            log(f"[12] {kind} M=1500 auto plan (J={s.jacobi}, B={s.B}, "
+                f"nb={s.nb}), {chains or 1} chain(s): "
+                f"{wall / chain.max_iterations * 1e3:.2f} ms/iter, launches "
+                f"{launches} (want {want})")
+        del s, st, out
+
+    replaces = {"bayesr": "bayesrrcpp_tpu/ops/pallas_sweep.py:97",
+                "horseshoe": "bayesrrcpp_tpu/ops/pallas_sweep.py:622",
+                "bayesr_mc": "bayesrrcpp_tpu/ops/pallas_multichain.py:115",
+                "horseshoe_mc": "bayesrrcpp_tpu/ops/pallas_multichain.py:516"}
+    return [dict({"name": f"{key}_serial_sweep", "route": "cuda",
+                  "source": "bayesrrcpp_tpu_torch/csrc/serial.cu",
+                  "replaces": replaces[key]}, **records[key])
+            for key in ("bayesr", "horseshoe", "bayesr_mc", "horseshoe_mc")]
 
 
 def np_finite(a):

@@ -1,8 +1,9 @@
 """The CUDA kernels of bayesrrcpp_tpu_torch/csrc/jacobi_t.cu (the BayesR and
-horseshoe sweeps) and csrc/jacobi_t_mc.cu (their fused multi-chain sweeps)
-against their plain torch versions, on the card; and each fused chain
-against the single-chain kernel on that chain's operands, bitwise (the
-same arithmetic in the same order).
+horseshoe sweeps), csrc/jacobi_t_mc.cu (their fused multi-chain sweeps),
+csrc/serial.cu (the serial J=1 sweeps, one chain and fused) against their
+plain torch versions, on the card; and each fused
+chain against the single-chain kernel on that chain's operands, bitwise
+(the same arithmetic in the same order).
 
 Marked ``cuda``: a CUDA kernel has no CPU mode, so these skip where
 ``torch.cuda.is_available()`` is false.  On the card:
@@ -215,4 +216,160 @@ def test_hs_mc_kernel_matches_plain_and_single_chains(cuda, C, J, B, N):
     for c in range(C):
         e1, b1 = horseshoe_jacobi_t(*_chain(hs, c, (3, 4, 7, 8, 9, 10, 11)),
                                     **kw)
+        assert torch.equal(e1, eps_k[c]) and torch.equal(b1, beta_k[c]), c
+
+
+# ------------------------------------------------ the serial (J=1) sweeps
+
+
+def _assert_eps_close(a, b):
+    """eps of a serial sweep against its plain version: a lane sums one
+    update per moved row of every block (every row, for the horseshoe) in
+    another order than the plain matrix product, so its rounding grows with
+    those sums, not with the lane's value: |d eps| / |eps| < 1e-4 and
+    max |d eps| < 1e-4 max |eps| (chip_smoke.py phases 10-11)."""
+    rel = float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+    assert rel < 1e-4, rel
+    assert float((a - b).abs().max()) < 1e-4 * float(b.abs().max())
+
+
+def _serial_case(seed, B, G, K, nb, N, dev, chunk):
+    """_case's data, state and variates as a serial sweep's operands: the
+    block order is a permutation of the nb blocks (J=1), p/z by position."""
+    args, kw = _case(seed, 1, B, G, K, nb, N, dev)
+    del kw["J"]
+    return args, dict(kw, max_call_blocks=chunk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,G,K,nb,N,chunk", [(64, 2, 4, 8, 1500, 3),
+                                              (512, 1, 4, 4, 4096, None),
+                                              (200, 1, 3, 5, 3000, 2),
+                                              (1024, 1, 8, 2, 2048, None),
+                                              (8, 1, 2, 6, 2048, None)])
+def test_serial_kernel_matches_plain(cuda, B, G, K, nb, N, chunk):
+    """Blocks of every width the plans produce, powers of two or not, up to
+    the kernel's 1024, across chunk boundaries."""
+    from bayesrrcpp_tpu_torch.ops import serial
+
+    args, kw = _serial_case(B + K, B, G, K, nb, N, cuda, chunk)
+    before = serial.bayesr_sweep.launches
+    ker = serial.bayesr_sweep(*args, **kw)
+    ref = serial.bayesr_sweep_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert serial.bayesr_sweep.launches == before + 3 * nb
+    assert torch.equal(ker.labels, ref.labels)
+    assert torch.equal(ker.v, ref.v)
+    torch.testing.assert_close(ker.beta, ref.beta, rtol=1e-4, atol=1e-5)
+    _assert_eps_close(ker.eps, ref.eps)
+    torch.testing.assert_close(ker.beta_acum, ref.beta_acum, rtol=1e-4,
+                               atol=1e-6)
+    assert (ker.eps[N:] == 0).all()
+    again = serial.bayesr_sweep(*args, **kw)
+    for a, b in zip(ker, again):
+        assert torch.equal(a, b)
+
+
+def _serial_hs(args, lam, tau):
+    t = lambda x: torch.tensor(x, dtype=torch.float32,  # noqa: E731
+                               device=args[0].device)
+    # words, gram, xsq, eps, beta, border, inner, z, lam, tau, c2, sigmaE,
+    # valid
+    return args[:5] + args[6:8] + (args[9], lam, t(tau), t(1.5), args[12],
+                                   args[15])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,nb,N,tau,chunk", [(64, 8, 1500, 0.05, 3),
+                                              (512, 4, 4096, 0.05, None),
+                                              (96, 4, 3000, 1e-30, None)])
+def test_serial_horseshoe_kernel_matches_plain(cuda, B, nb, N, tau, chunk):
+    from bayesrrcpp_tpu_torch.ops import serial
+
+    args, kw = _serial_case(B + nb, B, 1, 4, nb, N, cuda, chunk)
+    lam = torch.rand(nb * B, device=cuda) * 1.9 + 0.1
+    hs = _serial_hs(args, lam, tau)
+    before = serial.horseshoe_sweep.launches
+    eps_k, beta_k = serial.horseshoe_sweep(*hs, **kw)
+    eps_r, beta_r = serial.horseshoe_sweep_reference(*hs, **kw)
+    torch.cuda.synchronize()
+    assert serial.horseshoe_sweep.launches == before + 3 * nb
+    torch.testing.assert_close(beta_k, beta_r, rtol=1e-4, atol=1e-5)
+    _assert_eps_close(eps_k, eps_r)
+    assert (eps_k[N:] == 0).all()
+
+
+def _serial_mc_case(seed, B, K, nb, N, C, dev, chunk):
+    """_mc_case's C chains on a serial plan: marker-indexed p/z (C, M)."""
+    args, kw = _mc_case(seed, 1, B, 1, K, nb, N, C, dev)
+    del kw["J"]
+    return args, dict(kw, max_call_blocks=chunk)
+
+
+def _position_order(args, c, B):
+    """Chain c's fused operands as a single-chain serial sweep's: p/z
+    moved from marker to sweep-position order."""
+    from bayesrrcpp_tpu_torch.ops.serial import position_markers
+
+    at = position_markers(args[6], args[7], B)
+    one = list(_chain(args, c, (3, 4, 5, 8, 9, 10, 12, 13)))
+    one[8], one[9] = one[8][at], one[9][at]
+    return one
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,B,K,nb,N,chunk", [(3, 64, 4, 8, 1500, 3),
+                                              (8, 512, 4, 4, 4096, None),
+                                              (17, 96, 2, 4, 3000, None)])
+def test_serial_mc_kernel_matches_plain_and_single_chains(cuda, C, B, K, nb,
+                                                          N, chunk):
+    """The fused serial BayesR sweep against its plain version, and each
+    chain bitwise against the single-chain serial kernel given its p/z in
+    position order; C=17 runs as groups of 16 and 1."""
+    from bayesrrcpp_tpu_torch.ops import multichain, serial
+
+    args, kw = _serial_mc_case(C + B, B, K, nb, N, C, cuda, chunk)
+    before = multichain.bayesr_sweep_mc.launches
+    ker = multichain.bayesr_sweep_mc(*args, **kw)
+    ref = multichain.bayesr_sweep_mc_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert multichain.bayesr_sweep_mc.launches == before + 3 * nb * -(-C // 16)
+    assert torch.equal(ker.labels, ref.labels)
+    assert torch.equal(ker.v, ref.v)
+    torch.testing.assert_close(ker.beta, ref.beta, rtol=1e-4, atol=1e-5)
+    _assert_eps_close(ker.eps, ref.eps)
+    for c in range(C):
+        one = serial.bayesr_sweep(*_position_order(args, c, B), **kw)
+        for name, a, b in zip(one._fields, one, ker):
+            assert torch.equal(a, b[c]), (c, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,B,nb,N", [(3, 64, 8, 1500), (8, 512, 4, 4096)])
+def test_serial_hs_mc_kernel_matches_plain_and_single_chains(cuda, C, B, nb,
+                                                             N):
+    from bayesrrcpp_tpu_torch.ops import multichain, serial
+
+    args, kw = _serial_mc_case(C + B, B, 4, nb, N, C, cuda, 3)
+    rng = np.random.default_rng(C)
+    t = lambda x: torch.as_tensor(x, dtype=torch.float32,  # noqa: E731
+                                  device=cuda)
+    tau = rng.uniform(0.01, 0.1, C)
+    tau[-1] = 1e-30
+    # words, gram, xsq, eps, beta, border, inner, z, lam, tau, c2, sigmaE,
+    # valid
+    hs = (args[:5] + args[6:8] + (args[9], t(rng.uniform(0.1, 2.0,
+                                                          (C, nb * B))),
+                                  t(tau), t(rng.uniform(1.0, 2.0, C)),
+                                  args[12], args[15]))
+    eps_k, beta_k = multichain.horseshoe_sweep_mc(*hs, **kw)
+    eps_r, beta_r = multichain.horseshoe_sweep_mc_reference(*hs, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(beta_k, beta_r, rtol=1e-4, atol=1e-5)
+    _assert_eps_close(eps_k, eps_r)
+    at = serial.position_markers(args[6], args[7], B)
+    for c in range(C):
+        one = list(_chain(hs, c, (3, 4, 7, 8, 9, 10, 11)))
+        one[7] = one[7][at]
+        e1, b1 = serial.horseshoe_sweep(*one, **kw)
         assert torch.equal(e1, eps_k[c]) and torch.equal(b1, beta_k[c]), c

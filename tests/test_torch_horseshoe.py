@@ -274,6 +274,10 @@ def test_configurations_outside_the_slice_raise(case):
     elif case == "missing":
         dosage[3, 5] = np.nan
         dosage = np.concatenate([dosage] * 40, axis=1)   # a "t" plan
+    elif case == "row_plan":
+        # row layout with J > 1 (Queue 2 entry 10); M=96's own J=1 plan
+        # runs the serial sweep
+        kw.update(jacobi_blocks=2, jacobi_layout="row")
     elif case == "scan":
         kw = dict(backend="scan")
     elif case == "dense_kernel":
