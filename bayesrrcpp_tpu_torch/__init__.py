@@ -1,9 +1,11 @@
 """bayesrrcpp_tpu_torch -- the BayesR engine in PyTorch, for NVIDIA Hopper.
 
 A port of :mod:`bayesrrcpp_tpu` (JAX on a TPU, kept beside it as the
-reference).  This package covers two samplers on 2-bit packed genotypes
-with no missing calls, one chain or several fused (``run_chains``), each
-swept by its strided-rounds block-Jacobi kernels in ``csrc/``:
+reference).  This package covers two samplers on 2-bit packed genotypes,
+with or without missing calls (a PLINK .bed read straight into packed
+words, ``io/bed.py``), one chain or several fused (``run_chains``), each
+swept by its strided-rounds block-Jacobi kernels in ``csrc/`` (or, at
+J=1, by the exact serial kernels):
 
 - BayesR, the ``"bayesr"`` variant (SURVEY C1), the counterpart of
   ``bayesrrcpp_tpu/ops/pallas_jacobi_t.py:_jacobi_t_kernel`` and, for
@@ -13,8 +15,10 @@ swept by its strided-rounds block-Jacobi kernels in ``csrc/``:
   ``_hs_jacobi_t_mc8_kernel``;
 
 plus the plain Gram-blocked sweeps on dense X behind
-:func:`api.BayesRSamplerV2` and :func:`api.HorseshoeR`.  The samplers and
-the API run on the card unless ``device="cpu"`` is given.  Whatever lies
+:func:`api.BayesRSamplerV2` and :func:`api.HorseshoeR`, and the command
+line ``python -m bayesrrcpp_tpu_torch bayesr|horseshoe`` (``cli.py``).
+The samplers, the API and the CLI run on the card unless ``device="cpu"``
+is given.  Whatever lies
 outside that slice raises ``NotImplementedError`` naming its ROADMAP
 entry.
 

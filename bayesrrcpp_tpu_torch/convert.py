@@ -7,7 +7,10 @@ needs no JAX.  Layout is free between the two packages, semantics are not:
   (``genotypes.lane_perm``); the port keeps natural individual order, so
   eps is un-permuted here;
 - packed words keep ``pack_codes_host``'s format (individual 16w+k at bits
-  2k of word w) in both packages and pass through unchanged;
+  2k of word w) in both packages and pass through unchanged, missing calls
+  and the pad codes with them (code 3 on the pad lanes and -1 pad markers
+  when the data has missing calls); whether it has is read off the words
+  (``has_missing_calls``), since the JAX data does not carry it;
 - beta, labels, lambda and v keep the JAX Mpad, since both packages
   choose the same plan; the PRNG key is dropped (the port's randomness
   lives in the variates object passed to each step);
@@ -88,6 +91,21 @@ def horseshoe_state_from_jax(state: dict, sampler) -> HorseshoeState:
                      "c2")})
 
 
+def has_missing_calls(words, N: int, valid) -> bool:
+    """Whether packed ``words`` (Mpad, Npad/16) hold a missing call (code
+    3) of a real individual (n < N) at a real marker (``valid``), as the
+    JAX package's ``has_missing`` counts them (bayesrrcpp_tpu/ops/
+    genotypes.py:259-262)."""
+    words = np.asarray(words)[np.asarray(valid, bool)]
+    miss = words & (words >> 1) & 0x55555555       # bit 2k: field k is 3
+    nw = words.shape[1]
+    lanes = (genotypes.WORDS * np.arange(nw)[:, None]
+             + np.arange(genotypes.WORDS)[None, :])              # (nw, 16)
+    real = np.where(lanes < N, 1 << (2 * np.arange(genotypes.WORDS)),
+                    0).sum(axis=1).astype(np.int64)              # (nw,)
+    return bool(np.any(miss.astype(np.int64) & real[None, :]))
+
+
 def horseshoe_data_from_jax(data: dict, *, N: int, device) -> HorseshoeData:
     """The port's packed ``HorseshoeData`` from a JAX packed
     ``HorseshoeData`` given as a dict of NumPy arrays (as
@@ -106,13 +124,15 @@ def horseshoe_data_from_jax(data: dict, *, N: int, device) -> HorseshoeData:
         x_mean=_t(data["x_mean"], device),
         x_scale=_t(data["x_scale"], device),
         row_valid=torch.arange(Npad, device=device) < N,
-        x_colsum=_t(data["x_colsum"], device))
+        x_colsum=_t(data["x_colsum"], device),
+        has_missing=has_missing_calls(words, N, data["valid"]))
 
 
 def data_from_jax(data: dict, *, N: int, device) -> MarkerData:
     """The port's packed ``MarkerData`` from a JAX packed ``MarkerData``
     given as a dict of NumPy arrays (words, xsq, Gram, mean, scale and
-    column sums pass through; row_valid is rebuilt in individual order)."""
+    column sums pass through; row_valid is rebuilt in individual order and
+    has_missing read off the words)."""
     geno = horseshoe_data_from_jax(data, N=N, device=device)
     return MarkerData(
         **geno._asdict(),

@@ -6,7 +6,8 @@
 //   (wrapper bayesr_jacobi_t_pallas, pallas_call at :1032) and
 //   bayesrrcpp_tpu/ops/pallas_jacobi_t.py:_hs_jacobi_t_kernel
 //   (wrapper horseshoe_jacobi_t_pallas, pallas_call at :1151)
-// in their fold-affine 2-bit mode.  Python wrappers and plain versions:
+// in their two 2-bit modes: fold-affine (no missing calls) and `miss`
+// (code 3 marks a missing call, which standardizes to 0).  Python wrappers and plain versions:
 // bayesrrcpp_tpu_torch/ops/jacobi_t.py.  The two sweeps share the dot and
 // apply launches and differ in the solve (solve_kernel, hs_solve_kernel).
 // The decode, the dot's per-word arithmetic and the solves' bodies live in
@@ -20,10 +21,15 @@
 //          (raw codes c in {0,1,2}); one thread per packed word loads the
 //          word's 16 eps values once and reuses them for the B rows of a
 //          block.  Per-CTA partial sums go to an (nsplit, J*B + 1) buffer
-//          (the extra column is sum(eps)); no float atomics.
+//          (the extra column is sum(eps)); no float atomics.  In the
+//          miss mode the same words, turned into their missing-call
+//          indicator (miss_bits), go through the same arithmetic a
+//          second time, into (nsplit, J*B) indicator partials.
 //   solve  one warp per block, lane l owning marker l of the block: the
 //          fold algebra r = s*(C.eps) - (m*s)*sum(eps) turns the partials
-//          into standardized r, then B exact sequential Gibbs steps visit
+//          into standardized r (miss mode: C.eps + (m - 3)*(I.eps) in
+//          place of C.eps, jacobi_t_common.cuh:code_dot), then B exact
+//          sequential Gibbs steps visit
 //          the block's markers in the order inner[b, :], each one a K-way
 //          component draw in the visited lane and a rank-1 update
 //          r -= G[m, :] * d over the warp with the Gram block in shared
@@ -35,13 +41,18 @@
 //          BayesR markers stay in the spike, d == 0 exactly): each CTA
 //          compacts the round's nonzero d*scale in index order into shared
 //          memory, then four threads share a word, each owning 4 of its 16
-//          eps lanes, and stream the nonzero rows branch-free.  In the
+//          eps lanes, and stream the nonzero rows branch-free (miss
+//          mode: each row also adds d*scale*(m - 3) on its missing
+//          calls, the indicator term of pallas_jacobi_t.py:_make_dots'
+//          dot_a).  In the
 //          horseshoe every valid marker moves, so the apply streams all
 //          J*B rows, as many bytes as the dot, at a few warps per SM.
 //
 // What bounds it on an H100: the dot reads all words once per sweep (12.6
 // GB at N=100,352 x M=503,808) and decodes every code, so it is bound by
-// HBM and by the decode's integer and FP32 instructions; the decode takes
+// HBM and by the decode's integer and FP32 instructions (the miss mode
+// doubles those: a second decode and FMA per code for the indicator, from
+// the words already in registers); the decode takes
 // a field in place, (w & 3<<2k) | 0x4B000000 read as a float is
 // 2^23 + c*4^k, and multiplies by eps pre-scaled by 4^-k (exact: powers
 // of two).  The 123 x 32 dependent solve steps of the headline plan are
@@ -66,10 +77,13 @@
 
 namespace {
 
+// MISS: the miss mode, which also writes the indicator partials `pind`.
+template <bool MISS>
 __global__ void __launch_bounds__(kDotThreads)
 dot_kernel(const uint32_t* __restrict__ words, int Nw,
            const float* __restrict__ eps, const int* __restrict__ rho,
-           int round, int nr, int J, int B, float* __restrict__ partial) {
+           int round, int nr, int J, int B, float* __restrict__ partial,
+           float* __restrict__ pind) {
   const int j = blockIdx.y;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -81,19 +95,32 @@ dot_kernel(const uint32_t* __restrict__ words, int Nw,
 #pragma unroll
   for (int i = 0; i < kMaxB; ++i) acc[0][i] = 0.f;
   float esum = 0.f;
+  float e[1][16];
+  uint32_t wds[kMaxB];
   if (w < Nw) {
-    float e[1][16];
     esum = load_eps16(reinterpret_cast<const float4*>(eps) + 4LL * w, e[0]);
     // all B loads first, so a warp keeps B lines in flight
-    uint32_t wds[kMaxB];
     load_words(words + row0 * Nw + w, Nw, B, wds);
     dot_rows<1>(wds, e, acc);
   }
   __shared__ float red[kDotThreads / 32][32];
   __shared__ float red_e[kDotThreads / 32];
+  __shared__ float red_i[MISS ? kDotThreads / 32 : 1][32];
   red[warp][lane] = warp_transpose_sum(acc[0], lane);
   esum = warp_sum(esum);
   if (lane == 0) red_e[warp] = esum;
+  if constexpr (MISS) {
+    // the indicator's dot: the same eps, the words turned into their
+    // missing-call bits
+#pragma unroll
+    for (int i = 0; i < kMaxB; ++i) acc[0][i] = 0.f;
+    if (w < Nw) {
+#pragma unroll
+      for (int i = 0; i < kMaxB; ++i) wds[i] = miss_bits(wds[i]);
+      dot_rows<1>(wds, e, acc);
+    }
+    red_i[warp][lane] = warp_transpose_sum(acc[0], lane);
+  }
   __syncthreads();
   if (warp == 0) {
     float t = 0.f;
@@ -106,6 +133,12 @@ dot_kernel(const uint32_t* __restrict__ words, int Nw,
 #pragma unroll
       for (int q = 0; q < kDotThreads / 32; ++q) te += red_e[q];
       out[J * B] = te;
+    }
+    if constexpr (MISS) {
+      float ti = 0.f;
+#pragma unroll
+      for (int q = 0; q < kDotThreads / 32; ++q) ti += red_i[q][lane];
+      if (lane < B) pind[(long long)blockIdx.x * (JB1 - 1) + j * B + lane] = ti;
     }
   }
 }
@@ -120,15 +153,20 @@ __global__ void __launch_bounds__(32) hs_solve_kernel(HsSolveArgs a) {
   hs_solve_block(a, blockIdx.x);
 }
 
+// MISS: the miss mode, whose rows also add their indicator term.
+template <bool MISS>
 __global__ void __launch_bounds__(kApplyThreads)
 apply_kernel(const uint32_t* __restrict__ words, int Nw,
              float* __restrict__ eps, const unsigned char* __restrict__ row_valid,
              const int* __restrict__ rho, int round, int nr, int J, int B,
-             const float* __restrict__ dsc, const float* __restrict__ dms) {
+             const float* __restrict__ dsc, const float* __restrict__ dms,
+             const float* __restrict__ mean) {
   // the round's nonzero d*scale, compacted in index order: rows, values
+  // and, in the miss mode, each row's mean - 3
   extern __shared__ float smem[];
   float* vals = smem;
   int* rows = reinterpret_cast<int*>(smem + J * B);
+  float* mrow = smem + 2 * J * B;
   __shared__ int warp_cnt[kApplyWarps + 1];
   __shared__ float dms_tot;
   const int lane = threadIdx.x & 31;
@@ -173,6 +211,7 @@ apply_kernel(const uint32_t* __restrict__ words, int Nw,
       const int at = pos + __popc(mask & ((1u << lane) - 1u));
       vals[at] = dv[it];
       rows[at] = ((e / B) * nr + slab) * B + e % B;
+      if constexpr (MISS) mrow[at] = __ldg(mean + rows[at]) - 3.f;
     }
     pos += __popc(mask);
   }
@@ -190,12 +229,56 @@ apply_kernel(const uint32_t* __restrict__ words, int Nw,
     const float dv = vals[t];
 #pragma unroll
     for (int k = 0; k < 4; ++k) acc[k] = fmaf(dv, code_f(wd, k), acc[k]);
+    if constexpr (MISS) apply_missing<4>(dv * mrow[t], wd, acc);
   }
   const long long n0 = 16LL * w + 4 * sub;
   const float dt = dms_tot;
 #pragma unroll
   for (int k = 0; k < 4; ++k)
     if (row_valid[n0 + k]) eps[n0 + k] = eps[n0 + k] - (acc[k] - dt);
+}
+
+// Dynamic shared memory of the apply: the compacted values and rows, and
+// in the miss mode each row's mean - 3.
+inline size_t apply_smem_bytes(bool miss, int JB) {
+  return (sizeof(float) + sizeof(int) + (miss ? sizeof(float) : 0)) * JB;
+}
+
+// The dot and the apply of a round, in the miss mode (pind not null) or
+// the fold mode, around the solve launched by `solve`.
+template <typename Solve>
+cudaError_t sweep_rounds(const uint32_t* wd, int Nw, int nr, int J, int B,
+                         const int* rh, float* eps,
+                         const unsigned char* row_valid, float* partial,
+                         int nsplit, float* pind, const float* dsc,
+                         const float* dms, const float* mean, cudaStream_t s,
+                         Solve solve) {
+  const dim3 dot_grid(nsplit, J);
+  const int apply_ctas = (Nw + kApplyThreads / 4 - 1) / (kApplyThreads / 4);
+  const bool miss = pind != nullptr;
+  const size_t smem = apply_smem_bytes(miss, J * B);
+  cudaError_t err = cudaFuncSetAttribute(
+      miss ? apply_kernel<true> : apply_kernel<false>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  for (int r = 0; r < nr; ++r) {
+    if (miss)
+      dot_kernel<true><<<dot_grid, kDotThreads, 0, s>>>(
+          wd, Nw, eps, rh, r, nr, J, B, partial, pind);
+    else
+      dot_kernel<false><<<dot_grid, kDotThreads, 0, s>>>(
+          wd, Nw, eps, rh, r, nr, J, B, partial, pind);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    if ((err = solve(r)) != cudaSuccess) return err;
+    if (miss)
+      apply_kernel<true><<<apply_ctas, kApplyThreads, smem, s>>>(
+          wd, Nw, eps, row_valid, rh, r, nr, J, B, dsc, dms, mean);
+    else
+      apply_kernel<false><<<apply_ctas, kApplyThreads, smem, s>>>(
+          wd, Nw, eps, row_valid, rh, r, nr, J, B, dsc, dms, mean);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -214,8 +297,9 @@ const char* jacobi_t_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// One sweep: 3 launches per round, nr rounds, all on `stream`.  Returns
-// the first launch error (cudaGetLastError) or 0.
+// One sweep: 3 launches per round, nr rounds, all on `stream`; `pind`
+// ((nsplit, J*B) floats) selects the miss mode, null the fold mode.
+// Returns the first launch error (cudaGetLastError) or 0.
 int jacobi_t_sweep(const void* words, int Nw, int nr, int J, int B, int K,
                    int G, const void* gram, const void* xsq, const void* mean,
                    const void* scale, void* eps, const void* row_valid,
@@ -225,9 +309,9 @@ int jacobi_t_sweep(const void* words, int Nw, int nr, int J, int B, int K,
                    const void* cva, const void* sigmaE, const void* sigmaGG,
                    const void* gas, const void* valid, void* partial,
                    int nsplit, void* dsc, void* dms, void* vpart, void* bpart,
-                   void* stream) {
+                   void* pind, void* stream) {
+  if (K < 2 || K > kMaxK) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uint32_t* wd = static_cast<const uint32_t*>(words);
   const int* rh = static_cast<const int*>(rho);
   SolveArgs sa{static_cast<const float*>(partial), nsplit, rh, 0, nr, J, B,
                K, G, static_cast<const float*>(gram),
@@ -244,16 +328,9 @@ int jacobi_t_sweep(const void* words, int Nw, int nr, int J, int B, int K,
                static_cast<const int*>(gas),
                static_cast<const unsigned char*>(valid),
                static_cast<float*>(dsc), static_cast<float*>(dms),
-               static_cast<float*>(vpart), static_cast<float*>(bpart)};
-  const dim3 dot_grid(nsplit, J);
-  const int apply_ctas = (Nw + kApplyThreads / 4 - 1) / (kApplyThreads / 4);
-  const size_t apply_smem = (sizeof(float) + sizeof(int)) * J * B;
-  cudaError_t err;
-  for (int r = 0; r < nr; ++r) {
-    dot_kernel<<<dot_grid, kDotThreads, 0, s>>>(
-        wd, Nw, static_cast<const float*>(eps), rh, r, nr, J, B,
-        static_cast<float*>(partial));
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+               static_cast<float*>(vpart), static_cast<float*>(bpart),
+               static_cast<const float*>(pind)};
+  auto solve = [&](int r) {
     sa.round = r;
     switch (K) {
       case 2: solve_kernel<2><<<J, 32, 0, s>>>(sa); break;
@@ -262,21 +339,23 @@ int jacobi_t_sweep(const void* words, int Nw, int nr, int J, int B, int K,
       case 5: solve_kernel<5><<<J, 32, 0, s>>>(sa); break;
       case 6: solve_kernel<6><<<J, 32, 0, s>>>(sa); break;
       case 7: solve_kernel<7><<<J, 32, 0, s>>>(sa); break;
-      case 8: solve_kernel<8><<<J, 32, 0, s>>>(sa); break;
-      default: return cudaErrorInvalidValue;
+      default: solve_kernel<8><<<J, 32, 0, s>>>(sa); break;
     }
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    apply_kernel<<<apply_ctas, kApplyThreads, apply_smem, s>>>(
-        wd, Nw, static_cast<float*>(eps),
-        static_cast<const unsigned char*>(row_valid), rh, r, nr, J, B,
-        static_cast<const float*>(dsc), static_cast<const float*>(dms));
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  }
-  return 0;
+    return cudaGetLastError();
+  };
+  return sweep_rounds(static_cast<const uint32_t*>(words), Nw, nr, J, B, rh,
+                      static_cast<float*>(eps),
+                      static_cast<const unsigned char*>(row_valid),
+                      static_cast<float*>(partial), nsplit,
+                      static_cast<float*>(pind),
+                      static_cast<const float*>(dsc),
+                      static_cast<const float*>(dms),
+                      static_cast<const float*>(mean), s, solve);
 }
 
 // One horseshoe sweep: dot, hs_solve and apply per round, nr rounds, all
-// on `stream`.  Returns the first launch error (cudaGetLastError) or 0.
+// on `stream`; `pind` as jacobi_t_sweep's.  Returns the first launch error
+// (cudaGetLastError) or 0.
 int jacobi_t_hs_sweep(const void* words, int Nw, int nr, int J, int B,
                       const void* gram, const void* xsq, const void* mean,
                       const void* scale, void* eps, const void* row_valid,
@@ -284,9 +363,8 @@ int jacobi_t_hs_sweep(const void* words, int Nw, int nr, int J, int B,
                       const void* inner, const void* z, const void* lam,
                       const void* tau, const void* c2, const void* sigmaE,
                       const void* valid, void* partial, int nsplit, void* dsc,
-                      void* dms, void* stream) {
+                      void* dms, void* pind, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uint32_t* wd = static_cast<const uint32_t*>(words);
   const int* rh = static_cast<const int*>(rho);
   HsSolveArgs sa{static_cast<const float*>(partial), nsplit, rh, 0, nr, J, B,
                  static_cast<const float*>(gram),
@@ -300,26 +378,21 @@ int jacobi_t_hs_sweep(const void* words, int Nw, int nr, int J, int B,
                  static_cast<const float*>(c2),
                  static_cast<const float*>(sigmaE),
                  static_cast<const unsigned char*>(valid),
-                 static_cast<float*>(dsc), static_cast<float*>(dms)};
-  const dim3 dot_grid(nsplit, J);
-  const int apply_ctas = (Nw + kApplyThreads / 4 - 1) / (kApplyThreads / 4);
-  const size_t apply_smem = (sizeof(float) + sizeof(int)) * J * B;
-  cudaError_t err;
-  for (int r = 0; r < nr; ++r) {
-    dot_kernel<<<dot_grid, kDotThreads, 0, s>>>(
-        wd, Nw, static_cast<const float*>(eps), rh, r, nr, J, B,
-        static_cast<float*>(partial));
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+                 static_cast<float*>(dsc), static_cast<float*>(dms),
+                 static_cast<const float*>(pind)};
+  auto solve = [&](int r) {
     sa.round = r;
     hs_solve_kernel<<<J, 32, 0, s>>>(sa);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    apply_kernel<<<apply_ctas, kApplyThreads, apply_smem, s>>>(
-        wd, Nw, static_cast<float*>(eps),
-        static_cast<const unsigned char*>(row_valid), rh, r, nr, J, B,
-        static_cast<const float*>(dsc), static_cast<const float*>(dms));
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  }
-  return 0;
+    return cudaGetLastError();
+  };
+  return sweep_rounds(static_cast<const uint32_t*>(words), Nw, nr, J, B, rh,
+                      static_cast<float*>(eps),
+                      static_cast<const unsigned char*>(row_valid),
+                      static_cast<float*>(partial), nsplit,
+                      static_cast<float*>(pind),
+                      static_cast<const float*>(dsc),
+                      static_cast<const float*>(dms),
+                      static_cast<const float*>(mean), s, solve);
 }
 
 }  // extern "C"

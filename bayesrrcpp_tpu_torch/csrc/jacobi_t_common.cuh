@@ -1,8 +1,9 @@
 // Device code shared by the single-chain sweeps (jacobi_t.cu) and the
-// fused multi-chain sweeps (jacobi_t_mc.cu): the 2-bit decode, the warp
-// reductions, the dot's loads and per-word arithmetic (dot_rows, for one
-// eps vector or several at once) and the per-block solves, which each
-// chain of a fused sweep runs on its own operands.  So a fused chain
+// fused multi-chain sweeps (jacobi_t_mc.cu): the 2-bit decode and the
+// missing-call indicator, the warp reductions, the dot's loads and
+// per-word arithmetic (dot_rows, for one eps vector or several at once)
+// and the per-block solves, which each chain of a fused sweep runs on its
+// own operands.  So a fused chain
 // equals the single-chain kernel bitwise.  See jacobi_t.cu for the sweep's
 // design and the TPU kernel semantics it keeps.  The serial sweeps
 // (serial.cu) use the decode, the dot and the BayesR categorical draw.
@@ -28,6 +29,26 @@ constexpr uint32_t kMagicBits = 0x4B000000u;
 // Exact float of the 2-bit field k of w, for any k.
 __device__ __forceinline__ float code_f(uint32_t w, int k) {
   return __uint_as_float(kMagicBits | ((w >> (2 * k)) & 3u)) - kMagic;
+}
+
+// The missing-call indicator of every field of w: bit 2k is set where
+// field k holds code 3, every other bit is 0.  Decoded by code_f /
+// code_scaled like a word of codes, so the indicator's dot takes the
+// code dot's instructions (pallas_jacobi_t.py:_decoders, :291-302).
+__device__ __forceinline__ uint32_t miss_bits(uint32_t w) {
+  return w & (w >> 1) & 0x55555555u;
+}
+
+// The miss mode's term of one row in an apply (pallas_jacobi_t.py:
+// _make_dots, dot_a): dm = d*scale*(mean - 3) added to the accumulator of
+// each of the L fields of wd that holds a missing call, after the row's
+// code term.  fmaf(dm, 0, acc) is acc, so the other fields keep theirs.
+template <int L>
+__device__ __forceinline__ void apply_missing(float dm, uint32_t wd,
+                                              float (&acc)[L]) {
+  const uint32_t wi = miss_bits(wd);
+#pragma unroll
+  for (int k = 0; k < L; ++k) acc[k] = fmaf(dm, code_f(wi, k), acc[k]);
 }
 
 // c * 4^k for the field k <= 10 of w, exactly (3 * 4^10 < 2^23).
@@ -176,7 +197,32 @@ struct SolveArgs {
   const float* pi; const float* cva; const float* sigmaE;
   const float* sigmaGG; const int* gas; const unsigned char* valid;
   float* dsc; float* dms; float* vpart; float* bpart;
+  const float* pind;   // the miss mode's indicator partials, else null
 };
+
+// r of marker `lane` of block j in the code domain: the per-CTA partials
+// of C.eps summed in a fixed order (q = 0, 1, ...) and, in the miss mode
+// (pind not null), the (mean - 3)-scaled dot of the missing indicator
+// added to it, dot_c + dot_ind*(m - 3) (pallas_jacobi_t.py:_make_dots,
+// :381-393): every missing call counts as the marker's mean, so the fold
+// algebra that follows standardizes it to 0.
+__device__ __forceinline__ float code_dot(const float* partial,
+                                          const float* pind, int nsplit,
+                                          int JB, int j, int B, int lane,
+                                          float mean) {
+  float rc = 0.f;
+  const float* pr = partial + j * B + lane;
+#pragma unroll 8
+  for (int q = 0; q < nsplit; ++q) rc += pr[(long long)q * (JB + 1)];
+  if (pind != nullptr) {
+    float ri = 0.f;
+    const float* pi = pind + j * B + lane;
+#pragma unroll 8
+    for (int q = 0; q < nsplit; ++q) ri += pi[(long long)q * JB];
+    rc = rc + ri * (mean - 3.f);
+  }
+  return rc;
+}
 
 // The BayesR solve of block j of the round, run by one warp (lane l owns
 // marker l).  K, the number of mixture components, is a template argument
@@ -204,12 +250,6 @@ __device__ __forceinline__ void solve_block(const SolveArgs& a, int j) {
   for (int q = lane; q < a.nsplit; q += 32)
     esum += a.partial[(long long)q * JB1 + JB1 - 1];
   esum = warp_sum(esum);
-  float rc = 0.f;
-  if (act) {
-    const float* pr = a.partial + j * B + lane;
-#pragma unroll 8
-    for (int q = 0; q < a.nsplit; ++q) rc += pr[(long long)q * JB1];
-  }
   const float sE = *a.sigmaE;
   const float half_invsE = 0.5f / sE;
 
@@ -220,6 +260,8 @@ __device__ __forceinline__ void solve_block(const SolveArgs& a, int j) {
 #pragma unroll
   for (int k = 0; k < K; ++k) { lp[k] = 0.f; invd[k] = 0.f; sd[k] = 0.f; }
   if (act) {
+    const float rc = code_dot(a.partial, a.pind, a.nsplit, a.J * B, j, B,
+                              lane, a.mean[m]);
     sc = a.scale[m];
     ms = a.mean[m] * sc;
     r = rc * sc - ms * esum;
@@ -290,6 +332,7 @@ struct HsSolveArgs {
   const float* lam; const float* tau; const float* c2; const float* sigmaE;
   const unsigned char* valid;
   float* dsc; float* dms;
+  const float* pind;   // the miss mode's indicator partials, else null
 };
 
 // The horseshoe's solve of block j (pallas_jacobi_t.py:_hs_jacobi_t_kernel,
@@ -319,17 +362,13 @@ __device__ __forceinline__ void hs_solve_block(const HsSolveArgs& a, int j) {
   for (int q = lane; q < a.nsplit; q += 32)
     esum += a.partial[(long long)q * JB1 + JB1 - 1];
   esum = warp_sum(esum);
-  float rc = 0.f;
-  if (act) {
-    const float* pr = a.partial + j * B + lane;
-#pragma unroll 8
-    for (int q = 0; q < a.nsplit; ++q) rc += pr[(long long)q * JB1];
-  }
 
   float r = 0.f, sc = 0.f, ms = 0.f, xs = 0.f, bold = 0.f, okf = 0.f;
   float zl = 0.f, invd = 0.f, sd = 0.f;
   int inn = 0;
   if (act) {
+    const float rc = code_dot(a.partial, a.pind, a.nsplit, a.J * B, j, B,
+                              lane, a.mean[m]);
     sc = a.scale[m];
     ms = a.mean[m] * sc;
     r = rc * sc - ms * esum;

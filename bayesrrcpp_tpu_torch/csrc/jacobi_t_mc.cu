@@ -9,7 +9,7 @@
 //   _jacobi_t_mc8_kernel (4 < C <= 16, bayesr_jacobi_t_pallas_mc8, :2894),
 //   _hs_jacobi_t_mc_kernel (horseshoe_jacobi_t_pallas_mc, :2054) and
 //   _hs_jacobi_t_mc8_kernel (horseshoe_jacobi_t_pallas_mc8, :3263)
-// in their fold-affine 2-bit mode.  The TPU splits C <= 4 from 4 < C <= 16
+// in their two 2-bit modes, fold-affine and `miss` (jacobi_t.cu).  The TPU splits C <= 4 from 4 < C <= 16
 // because of VMEM (the wide kernel tiles eps through HBM); here one kernel
 // serves every C <= 16 and the C eps vectors (C*Npad*4 bytes, 3.2 MB at
 // N=100,352, C=8) stay in the 50 MB L2.  Python wrappers and plain
@@ -26,6 +26,11 @@
 //             round for all chains.  Each chain's sums run in the single-chain
 //             dot's order (the same FMA chain per row, warp_transpose_sum,
 //             the CTA's fixed-order sum into (C, nsplit, J*B + 1) partials).
+//             In the miss mode a second pass over the chains takes the
+//             words' missing-call indicator (miss_bits) in their place,
+//             into (C, nsplit, J*B) indicator partials: a second
+//             accumulator per (marker, chain) would not fit the
+//             registers beside the first.
 //   solve_mc  one warp per (block, chain), grid (J, C): the single-chain
 //             solve_block / hs_solve_block on the chain's operands.  v and
 //             bacc partials per (chain, block), reduced by the wrapper in a
@@ -34,7 +39,9 @@
 //             in tiles of 512: a tile's rows where any chain moved (in the
 //             horseshoe, every valid row) are compacted in index order into
 //             shared memory with every chain's d*scale (0 where that chain
-//             did not move, which adds exactly nothing).  A warp covers 32
+//             did not move, which adds exactly nothing; in the miss mode
+//             each row also adds its indicator term, as jacobi_t.cu's
+//             apply does).  A warp covers 32
 //             consecutive words, so it reads one full 128-byte line per row;
 //             the CTA's 4 warps split each word's 16 eps lanes.  Each row is
 //             read and decoded once for all chains.
@@ -64,30 +71,15 @@ namespace {
 
 constexpr int kMaxC = 16;   // chains per fused sweep
 
-// CP chains per pass over the words: each code decoded once per pass.
+// One pass of the fused dot over the C chains, CP at a time, on the words
+// wds (codes, or their missing-call indicator): each chain's row sums into
+// red[c][warp][lane] and, where red_e is not null, its sum(eps) into
+// red_e[c][warp].
 template <int CP>
-__global__ void __launch_bounds__(kDotThreads)
-dot_mc_kernel(const uint32_t* __restrict__ words, int Nw,
-              const float* __restrict__ eps, int C,
-              const int* __restrict__ rho, int round, int nr, int J, int B,
-              float* __restrict__ partial, int nsplit) {
-  const int j = blockIdx.y;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int w = blockIdx.x * kDotThreads + threadIdx.x;
-  const long long row0 = (long long)(j * nr + rho[round]) * B;
-  const int JB1 = J * B + 1;
-  const long long Npad = 16LL * Nw;
-  __shared__ float red[kMaxC][kDotThreads / 32][32];
-  __shared__ float red_e[kMaxC][kDotThreads / 32];
-
-  uint32_t wds[kMaxB];
-  if (w < Nw) {
-    load_words(words + row0 * Nw + w, Nw, B, wds);
-  } else {
-#pragma unroll
-    for (int i = 0; i < kMaxB; ++i) wds[i] = 0u;
-  }
+__device__ __forceinline__ void dot_mc_pass(
+    uint32_t (&wds)[kMaxB], const float* __restrict__ eps, long long Npad,
+    int C, int w, int Nw, int lane, int warp,
+    float (*red)[kDotThreads / 32][32], float (*red_e)[kDotThreads / 32]) {
 #pragma unroll 1
   for (int c0 = 0; c0 < C; c0 += CP) {
     // the decode is the same for every pass: keep the compiler from
@@ -122,12 +114,47 @@ dot_mc_kernel(const uint32_t* __restrict__ words, int Nw,
       const float es = warp_sum(esum[p]);
       if (c0 + p < C) {
         red[c0 + p][warp][lane] = r;
-        if (lane == 0) red_e[c0 + p][warp] = es;
+        if (red_e != nullptr && lane == 0) red_e[c0 + p][warp] = es;
       }
     }
   }
+}
+
+// CP chains per pass over the words: each code decoded once per pass.
+// MISS: the miss mode, a second pass on the indicator into `pind`.
+template <int CP, bool MISS>
+__global__ void __launch_bounds__(kDotThreads)
+dot_mc_kernel(const uint32_t* __restrict__ words, int Nw,
+              const float* __restrict__ eps, int C,
+              const int* __restrict__ rho, int round, int nr, int J, int B,
+              float* __restrict__ partial, float* __restrict__ pind,
+              int nsplit) {
+  const int j = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int w = blockIdx.x * kDotThreads + threadIdx.x;
+  const long long row0 = (long long)(j * nr + rho[round]) * B;
+  const int JB1 = J * B + 1;
+  const long long Npad = 16LL * Nw;
+  __shared__ float red[kMaxC][kDotThreads / 32][32];
+  __shared__ float red_e[kMaxC][kDotThreads / 32];
+  __shared__ float red_i[MISS ? kMaxC : 1][kDotThreads / 32][32];
+
+  uint32_t wds[kMaxB];
+  if (w < Nw) {
+    load_words(words + row0 * Nw + w, Nw, B, wds);
+  } else {
+#pragma unroll
+    for (int i = 0; i < kMaxB; ++i) wds[i] = 0u;
+  }
+  dot_mc_pass<CP>(wds, eps, Npad, C, w, Nw, lane, warp, red, red_e);
+  if constexpr (MISS) {
+#pragma unroll
+    for (int i = 0; i < kMaxB; ++i) wds[i] = miss_bits(wds[i]);
+    dot_mc_pass<CP>(wds, eps, Npad, C, w, Nw, lane, warp, red_i, nullptr);
+  }
   __syncthreads();
-  // output (c, l): the single-chain dot's fixed-order CTA sum
+  // output (c, l): the single-chain dot's fixed-order CTA sums
   for (int o = threadIdx.x; o < C * 32; o += kDotThreads) {
     const int c = o >> 5, l = o & 31;
     float t = 0.f;
@@ -141,20 +168,34 @@ dot_mc_kernel(const uint32_t* __restrict__ words, int Nw,
       for (int q = 0; q < kDotThreads / 32; ++q) te += red_e[c][q];
       out[J * B] = te;
     }
+    if constexpr (MISS) {
+      float ti = 0.f;
+#pragma unroll
+      for (int q = 0; q < kDotThreads / 32; ++q) ti += red_i[c][q][l];
+      if (l < B)
+        pind[((long long)c * nsplit + blockIdx.x) * (JB1 - 1) + j * B + l] =
+            ti;
+    }
   }
 }
 
 cudaError_t launch_dot_mc(int C, int Nw, int nsplit, int J, cudaStream_t s,
                           const uint32_t* words, const float* eps,
                           const int* rho, int round, int nr, int B,
-                          float* partial) {
+                          float* partial, float* pind) {
   const dim3 grid(nsplit, J);
-#define JT_DOT(CP)                                                        \
-  dot_mc_kernel<CP><<<grid, kDotThreads, 0, s>>>(                         \
-      words, Nw, eps, C, rho, round, nr, J, B, partial, nsplit)
-  if (C == 1) JT_DOT(1);
-  else if (C == 2) JT_DOT(2);
-  else JT_DOT(4);
+#define JT_DOT(CP, MISS)                                                  \
+  dot_mc_kernel<CP, MISS><<<grid, kDotThreads, 0, s>>>(                   \
+      words, Nw, eps, C, rho, round, nr, J, B, partial, pind, nsplit)
+  if (pind != nullptr) {
+    if (C == 1) JT_DOT(1, true);
+    else if (C == 2) JT_DOT(2, true);
+    else JT_DOT(4, true);
+  } else {
+    if (C == 1) JT_DOT(1, false);
+    else if (C == 2) JT_DOT(2, false);
+    else JT_DOT(4, false);
+  }
 #undef JT_DOT
   return cudaGetLastError();
 }
@@ -181,6 +222,7 @@ __global__ void __launch_bounds__(32) solve_mc_kernel(SolveArgs a) {
   b.dms += c * a.J;
   b.vpart += c * nb * a.G * K;
   b.bpart += c * nb * a.G;
+  if (b.pind != nullptr) b.pind += c * a.nsplit * JB;
   solve_block<K>(b, blockIdx.x);
 }
 
@@ -200,6 +242,7 @@ __global__ void __launch_bounds__(32) hs_solve_mc_kernel(HsSolveArgs a) {
   b.sigmaE += c;
   b.dsc += c * JB;
   b.dms += c * a.J;
+  if (b.pind != nullptr) b.pind += c * a.nsplit * JB;
   hs_solve_block(b, blockIdx.x);
 }
 
@@ -211,17 +254,20 @@ constexpr int kTilePerLane = kApplyTile / kApplyThreads;
 
 // CB >= C chains (a power of two, so the per-chain accumulators stay in
 // registers); dsc (C, J*B) and dms (C, J) as the solves write them.
-template <int CB>
+// MISS: the miss mode, whose rows also add their indicator term.
+template <int CB, bool MISS>
 __global__ void __launch_bounds__(kApplyThreads)
 apply_mc_kernel(const uint32_t* __restrict__ words, int Nw,
                 float* __restrict__ eps, int C,
                 const unsigned char* __restrict__ row_valid,
                 const int* __restrict__ rho, int round, int nr, int J, int B,
-                const float* __restrict__ dsc, const float* __restrict__ dms) {
+                const float* __restrict__ dsc, const float* __restrict__ dms,
+                const float* __restrict__ mean) {
   constexpr int CV = CB < 4 ? 4 : CB;   // chains per staged row (float4s)
   constexpr int L = kApplyLanes;
   __shared__ float4 vals4[kApplyTile * CV / 4];
   __shared__ int rows[kApplyTile];
+  __shared__ float mrow[MISS ? kApplyTile : 1];   // each row's mean - 3
   __shared__ int warp_cnt[kApplyWarps + 1];
   __shared__ float dms_tot[CB];
   const int lane = threadIdx.x & 31;
@@ -282,6 +328,7 @@ apply_mc_kernel(const uint32_t* __restrict__ words, int Nw,
         const int at = pos + __popc(mask & ((1u << lane) - 1u));
         const int e = lo + it * 32 + lane;
         rows[at] = ((e / B) * nr + slab) * B + e % B;
+        if constexpr (MISS) mrow[at] = __ldg(mean + rows[at]) - 3.f;
         float* v = reinterpret_cast<float*>(vals4) + at * CV;
 #pragma unroll
         for (int c = 0; c < CV; ++c)
@@ -309,6 +356,8 @@ apply_mc_kernel(const uint32_t* __restrict__ words, int Nw,
 #pragma unroll
               for (int k = 0; k < L; ++k)
                 acc[4 * q + i][k] = fmaf(vq[i], cf[k], acc[4 * q + i][k]);
+              if constexpr (MISS)
+                apply_missing<L>(vq[i] * mrow[t], wd, acc[4 * q + i]);
             }
           }
         }
@@ -330,21 +379,35 @@ apply_mc_kernel(const uint32_t* __restrict__ words, int Nw,
   }
 }
 
-cudaError_t launch_apply_mc(int C, int Nw, cudaStream_t s,
-                            const uint32_t* words, float* eps,
-                            const unsigned char* row_valid, const int* rho,
-                            int round, int nr, int J, int B, const float* dsc,
-                            const float* dms) {
-  const int ctas = (Nw + kApplyWords - 1) / kApplyWords;
+template <bool MISS>
+void launch_apply_mc_mode(int C, int ctas, cudaStream_t s,
+                          const uint32_t* words, int Nw, float* eps,
+                          const unsigned char* row_valid, const int* rho,
+                          int round, int nr, int J, int B, const float* dsc,
+                          const float* dms, const float* mean) {
 #define JT_APPLY(CB)                                                      \
-  apply_mc_kernel<CB><<<ctas, kApplyThreads, 0, s>>>(                     \
-      words, Nw, eps, C, row_valid, rho, round, nr, J, B, dsc, dms)
+  apply_mc_kernel<CB, MISS><<<ctas, kApplyThreads, 0, s>>>(               \
+      words, Nw, eps, C, row_valid, rho, round, nr, J, B, dsc, dms, mean)
   if (C <= 1) JT_APPLY(1);
   else if (C <= 2) JT_APPLY(2);
   else if (C <= 4) JT_APPLY(4);
   else if (C <= 8) JT_APPLY(8);
   else JT_APPLY(16);
 #undef JT_APPLY
+}
+
+cudaError_t launch_apply_mc(int C, int Nw, cudaStream_t s,
+                            const uint32_t* words, float* eps,
+                            const unsigned char* row_valid, const int* rho,
+                            int round, int nr, int J, int B, const float* dsc,
+                            const float* dms, const float* mean, bool miss) {
+  const int ctas = (Nw + kApplyWords - 1) / kApplyWords;
+  if (miss)
+    launch_apply_mc_mode<true>(C, ctas, s, words, Nw, eps, row_valid, rho,
+                               round, nr, J, B, dsc, dms, mean);
+  else
+    launch_apply_mc_mode<false>(C, ctas, s, words, Nw, eps, row_valid, rho,
+                                round, nr, J, B, dsc, dms, mean);
   return cudaGetLastError();
 }
 
@@ -363,7 +426,8 @@ const char* jacobi_t_mc_error_string(int code) {
 // a leading chain axis: eps (C, Npad), beta/labels/p/z (C, Mpad), pi
 // (C, G, K), sigmaE (C,), sigmaGG (C, G); scratch partial
 // (C, nsplit, J*B + 1), dsc (C, J*B), dms (C, J), vpart (C, nb, G, K),
-// bpart (C, nb, G).  Returns the first launch error or 0.
+// bpart (C, nb, G); pind (C, nsplit, J*B) selects the miss mode, null the
+// fold mode.  Returns the first launch error or 0.
 int jacobi_t_mc_sweep(int C, const void* words, int Nw, int nr, int J, int B,
                       int K, int G, const void* gram, const void* xsq,
                       const void* mean, const void* scale, void* eps,
@@ -374,7 +438,7 @@ int jacobi_t_mc_sweep(int C, const void* words, int Nw, int nr, int J, int B,
                       const void* sigmaE, const void* sigmaGG,
                       const void* gas, const void* valid, void* partial,
                       int nsplit, void* dsc, void* dms, void* vpart,
-                      void* bpart, void* stream) {
+                      void* bpart, void* pind, void* stream) {
   if (C < 1 || C > kMaxC) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint32_t* wd = static_cast<const uint32_t*>(words);
@@ -394,13 +458,15 @@ int jacobi_t_mc_sweep(int C, const void* words, int Nw, int nr, int J, int B,
                static_cast<const int*>(gas),
                static_cast<const unsigned char*>(valid),
                static_cast<float*>(dsc), static_cast<float*>(dms),
-               static_cast<float*>(vpart), static_cast<float*>(bpart)};
+               static_cast<float*>(vpart), static_cast<float*>(bpart),
+               static_cast<const float*>(pind)};
   const dim3 solve_grid(J, C);
   cudaError_t err;
   for (int r = 0; r < nr; ++r) {
     err = launch_dot_mc(C, Nw, nsplit, J, s, wd,
                         static_cast<const float*>(eps), rh, r, nr, B,
-                        static_cast<float*>(partial));
+                        static_cast<float*>(partial),
+                        static_cast<float*>(pind));
     if (err != cudaSuccess) return err;
     sa.round = r;
     switch (K) {
@@ -417,7 +483,8 @@ int jacobi_t_mc_sweep(int C, const void* words, int Nw, int nr, int J, int B,
     err = launch_apply_mc(C, Nw, s, wd, static_cast<float*>(eps),
                           static_cast<const unsigned char*>(row_valid), rh, r,
                           nr, J, B, static_cast<const float*>(dsc),
-                          static_cast<const float*>(dms));
+                          static_cast<const float*>(dms),
+                          static_cast<const float*>(mean), pind != nullptr);
     if (err != cudaSuccess) return err;
   }
   return 0;
@@ -425,7 +492,8 @@ int jacobi_t_mc_sweep(int C, const void* words, int Nw, int nr, int J, int B,
 
 // One fused horseshoe sweep of C chains: dot_mc, hs_solve_mc and apply_mc
 // per round.  eps (C, Npad), beta/z/lam (C, Mpad), tau/c2/sigmaE (C,);
-// scratch as jacobi_t_mc_sweep's.  Returns the first launch error or 0.
+// scratch and pind as jacobi_t_mc_sweep's.  Returns the first launch
+// error or 0.
 int jacobi_t_hs_mc_sweep(int C, const void* words, int Nw, int nr, int J,
                          int B, const void* gram, const void* xsq,
                          const void* mean, const void* scale, void* eps,
@@ -434,7 +502,7 @@ int jacobi_t_hs_mc_sweep(int C, const void* words, int Nw, int nr, int J,
                          const void* z, const void* lam, const void* tau,
                          const void* c2, const void* sigmaE,
                          const void* valid, void* partial, int nsplit,
-                         void* dsc, void* dms, void* stream) {
+                         void* dsc, void* dms, void* pind, void* stream) {
   if (C < 1 || C > kMaxC) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint32_t* wd = static_cast<const uint32_t*>(words);
@@ -451,13 +519,15 @@ int jacobi_t_hs_mc_sweep(int C, const void* words, int Nw, int nr, int J,
                  static_cast<const float*>(c2),
                  static_cast<const float*>(sigmaE),
                  static_cast<const unsigned char*>(valid),
-                 static_cast<float*>(dsc), static_cast<float*>(dms)};
+                 static_cast<float*>(dsc), static_cast<float*>(dms),
+                 static_cast<const float*>(pind)};
   const dim3 solve_grid(J, C);
   cudaError_t err;
   for (int r = 0; r < nr; ++r) {
     err = launch_dot_mc(C, Nw, nsplit, J, s, wd,
                         static_cast<const float*>(eps), rh, r, nr, B,
-                        static_cast<float*>(partial));
+                        static_cast<float*>(partial),
+                        static_cast<float*>(pind));
     if (err != cudaSuccess) return err;
     sa.round = r;
     hs_solve_mc_kernel<<<solve_grid, 32, 0, s>>>(sa);
@@ -465,7 +535,8 @@ int jacobi_t_hs_mc_sweep(int C, const void* words, int Nw, int nr, int J,
     err = launch_apply_mc(C, Nw, s, wd, static_cast<float*>(eps),
                           static_cast<const unsigned char*>(row_valid), rh, r,
                           nr, J, B, static_cast<const float*>(dsc),
-                          static_cast<const float*>(dms));
+                          static_cast<const float*>(dms),
+                          static_cast<const float*>(mean), pind != nullptr);
     if (err != cudaSuccess) return err;
   }
   return 0;

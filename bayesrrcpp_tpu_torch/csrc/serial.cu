@@ -4,16 +4,23 @@
 // fused sweep with C=1 and p/z read by sweep position, so chain c of a
 // fused sweep equals the single-chain sweep on chain c's operands bitwise.
 //
-// Replaces the TPU Pallas kernels, in their fold-affine 2-bit mode,
-//   bayesrrcpp_tpu/ops/pallas_sweep.py:_sweep_kernel / _sweep_kernel_qf
-//     (wrapper bayesr_sweep_pallas, pallas_call at :431),
-//   bayesrrcpp_tpu/ops/pallas_sweep.py:_hs_kernel / _hs_kernel_qf
-//     (horseshoe_sweep_pallas, :824),
+// Replaces the TPU Pallas kernels, in their 2-bit modes,
+//   bayesrrcpp_tpu/ops/pallas_sweep.py:_sweep_kernel / _sweep_kernel_qf /
+//     _sweep_kernel_q (wrapper bayesr_sweep_pallas, pallas_call at :431),
+//   bayesrrcpp_tpu/ops/pallas_sweep.py:_hs_kernel / _hs_kernel_qf /
+//     _hs_kernel_q (horseshoe_sweep_pallas, :824),
 //   bayesrrcpp_tpu/ops/pallas_multichain.py:_mc_kernel
 //     (bayesr_sweep_pallas_mc, :359) and _hs_mc_kernel
 //     (horseshoe_sweep_pallas_mc, :736).
 // Python wrappers and plain versions: bayesrrcpp_tpu_torch/ops/serial.py
 // and ops/multichain.py.
+//
+// Two modes.  The fold mode (words with no missing call; _qf) dots the raw
+// codes and standardizes afterwards, as below.  The in-kernel decode mode
+// (q_mode; _q, one chain: the words hold missing calls, code 3) decodes
+// every code to x = (c - mean)*scale, 0 for code 3 and for lanes >= N,
+// before the dot and the apply (pallas_sweep.py:_decode_tile, :84-95), so
+// r = x.eps and eps -= d.x need no sum(eps) and no d.(m*s).
 //
 // A sweep visits the blocks in `border` order, one position at a time, in
 // three launches per position (no host sync inside the sweep):
@@ -85,13 +92,40 @@ constexpr int kSerialTilePerLane = kSerialTile / kApplyThreads;
 
 // ------------------------------------------------------------------ dot
 
-template <int CP>
+// The in-kernel decode's dot of one word column: acc[i] = x_i . e over the
+// 16 individuals of the word, x = (c - m[i])*s[i] and 0 for code 3
+// (pallas_sweep.py:_decode_tile); e is plain eps, 0 on lanes >= N.
+__device__ __forceinline__ void decode_dot_rows(const uint32_t (&wds)[kMaxB],
+                                                const float (&e)[16],
+                                                const float (&m)[kMaxB],
+                                                const float (&sc)[kMaxB],
+                                                float (&acc)[kMaxB]) {
+#pragma unroll
+  for (int i = 0; i < kMaxB; ++i) {
+    float a = 0.f;
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      const float c = code_f(wds[i], k);
+      const float x = c == 3.f ? 0.f : (c - m[i]) * sc[i];
+      a = fmaf(x, e[k], a);
+    }
+    acc[i] = a;
+  }
+}
+
+// CP chains per decode; Q: the in-kernel decode mode (CP == 1), which
+// reads mean, scale and row_valid and writes no sum(eps) column.
+template <int CP, bool Q>
 __global__ void __launch_bounds__(kDotThreads)
 serial_dot_kernel(const uint32_t* __restrict__ words, int Nw,
                   const float* __restrict__ eps, int C,
                   const int* __restrict__ border, int pos, int B,
                   const float* __restrict__ gram,
-                  float* __restrict__ partial, int nsplit) {
+                  float* __restrict__ partial, int nsplit,
+                  const float* __restrict__ mean,
+                  const float* __restrict__ scale,
+                  const unsigned char* __restrict__ row_valid) {
+  static_assert(!Q || CP == 1, "the in-kernel decode runs one chain");
   const int grp = blockIdx.y;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -121,6 +155,15 @@ serial_dot_kernel(const uint32_t* __restrict__ words, int Nw,
 #pragma unroll
     for (int i = 0; i < kMaxB; ++i) wds[i] = 0u;
   }
+  float xm[Q ? kMaxB : 1], xs[Q ? kMaxB : 1];
+  if constexpr (Q) {
+    const long long r0 = blk * B + grp * kMaxB;
+#pragma unroll
+    for (int i = 0; i < kMaxB; ++i) {
+      xm[i] = i < nrow ? __ldg(mean + r0 + i) : 0.f;
+      xs[i] = i < nrow ? __ldg(scale + r0 + i) : 0.f;
+    }
+  }
 #pragma unroll 1
   for (int c0 = 0; c0 < C; c0 += CP) {
     // the decode is the same for every pass: keep the compiler from
@@ -136,18 +179,34 @@ serial_dot_kernel(const uint32_t* __restrict__ words, int Nw,
     }
     if (w < Nw) {
       float e[CP][16];
+      if constexpr (Q) {
+        const float4* e4 = reinterpret_cast<const float4*>(eps) + 4LL * w;
+        const uchar4* v4 = reinterpret_cast<const uchar4*>(row_valid) + 4LL * w;
 #pragma unroll
-      for (int p = 0; p < CP; ++p) {
-        if (c0 + p < C) {
-          esum[p] = load_eps16(
-              reinterpret_cast<const float4*>(eps + (c0 + p) * Npad) + 4LL * w,
-              e[p]);
-        } else {
-#pragma unroll
-          for (int k = 0; k < 16; ++k) e[p][k] = 0.f;
+        for (int q = 0; q < 4; ++q) {
+          const float4 t = e4[q];
+          const uchar4 v = v4[q];
+          e[0][4 * q] = v.x ? t.x : 0.f;
+          e[0][4 * q + 1] = v.y ? t.y : 0.f;
+          e[0][4 * q + 2] = v.z ? t.z : 0.f;
+          e[0][4 * q + 3] = v.w ? t.w : 0.f;
         }
+        decode_dot_rows(wds, e[0], xm, xs, acc[0]);
+      } else {
+#pragma unroll
+        for (int p = 0; p < CP; ++p) {
+          if (c0 + p < C) {
+            esum[p] = load_eps16(
+                reinterpret_cast<const float4*>(eps + (c0 + p) * Npad) +
+                    4LL * w,
+                e[p]);
+          } else {
+#pragma unroll
+            for (int k = 0; k < 16; ++k) e[p][k] = 0.f;
+          }
+        }
+        dot_rows<CP>(wds, e, acc);
       }
-      dot_rows<CP>(wds, e, acc);
     }
 #pragma unroll
     for (int p = 0; p < CP; ++p) {
@@ -192,6 +251,7 @@ struct SerialSolveArgs {
   const float* sigmaE;                        // (C,)
   float* esum; float* dsc; float* dms;        // (C,), (C, B), (C,)
   float* vpart; float* bpart; int n_pos;      // (C, n, G, K), (C, n, G)
+  int q_mode;   // the in-kernel decode: r = x.eps, d unscaled, no sums
 };
 
 // The block's staged operands in dynamic shared memory: B*(9 + F) words.
@@ -347,7 +407,8 @@ serial_solve_kernel(SerialSolveArgs a) {
   const float* part = a.partial + (long long)c * a.nsplit * B1;
 
   // sum(eps): afresh from the dot's column at a chunk start, else tracked
-  if (warp == 0) {
+  // (the in-kernel decode reads none)
+  if (warp == 0 && !a.q_mode) {
     float e = 0.f;
     if (a.chunk_start) {
       for (int q = lane; q < a.nsplit; q += 32)
@@ -375,9 +436,13 @@ serial_solve_kernel(SerialSolveArgs a) {
   for (int l = tid; l < B; l += kSolveThreads) {
     float rc = 0.f;
     for (int q = 0; q < a.nsplit; ++q) rc += part[(long long)q * B1 + l];
-    const float sc = a.scale[m0 + l];
-    const float ms = a.mean[m0 + l] * sc;
-    s.r[l] = rc * sc - ms * esum0;
+    if (a.q_mode) {
+      s.r[l] = rc;
+    } else {
+      const float sc = a.scale[m0 + l];
+      const float ms = a.mean[m0 + l] * sc;
+      s.r[l] = rc * sc - ms * esum0;
+    }
     // position l's variates: by sweep position, or by its marker
     const long long at = (long long)c * a.pz_chain +
                          (a.pz_by_marker ? m0 + s.inn[l]
@@ -404,15 +469,17 @@ serial_solve_kernel(SerialSolveArgs a) {
     if constexpr (K > 0) {
       if (s.krec[l] >= 0) a.labels[cm + m] = s.krec[l];
     }
-    a.dsc[(long long)c * B + l] = d * sc;
+    a.dsc[(long long)c * B + l] = a.q_mode ? d : d * sc;
     es += d * a.xsum[m];
     dm += d * ms;
   }
-  const float es_t = block_sum(es, red);
-  const float dm_t = block_sum(dm, red);
-  if (tid == 0) {
-    a.esum[c] = esum0 - es_t;
-    a.dms[c] = dm_t;
+  if (!a.q_mode) {
+    const float es_t = block_sum(es, red);
+    const float dm_t = block_sum(dm, red);
+    if (tid == 0) {
+      a.esum[c] = esum0 - es_t;
+      a.dms[c] = dm_t;
+    }
   }
   if constexpr (K > 0) {
     // v (label counts of the hits) and bacc (beta_out^2 over slab hits)
@@ -443,19 +510,25 @@ serial_solve_kernel(SerialSolveArgs a) {
 // ---------------------------------------------------------------- apply
 
 // CB >= C chains (a power of two: the per-chain accumulators stay in
-// registers); dsc (C, B) and dms (C,) as the solve writes them.
-template <int CB>
+// registers); dsc (C, B) and dms (C,) as the solve writes them.  Q: the
+// in-kernel decode mode (CB == 1): each row is decoded with its mean and
+// scale, and d is unscaled.
+template <int CB, bool Q>
 __global__ void __launch_bounds__(kApplyThreads)
 serial_apply_kernel(const uint32_t* __restrict__ words, int Nw,
                     float* __restrict__ eps, int C,
                     const unsigned char* __restrict__ row_valid,
                     const int* __restrict__ border, int pos, int B,
                     const float* __restrict__ dsc,
-                    const float* __restrict__ dms) {
+                    const float* __restrict__ dms,
+                    const float* __restrict__ mean,
+                    const float* __restrict__ scale) {
+  static_assert(!Q || CB == 1, "the in-kernel decode runs one chain");
   constexpr int CV = CB < 4 ? 4 : CB;   // chains per staged row (float4s)
   constexpr int L = kSerialLanes;
   __shared__ float4 vals4[kSerialTile * CV / 4];
   __shared__ int rows[kSerialTile];
+  __shared__ float rmean[Q ? kSerialTile : 1], rscale[Q ? kSerialTile : 1];
   __shared__ int warp_cnt[kApplyWarps + 1];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -509,6 +582,10 @@ serial_apply_kernel(const uint32_t* __restrict__ words, int Nw,
         const int at = at0 + __popc(mask & ((1u << lane) - 1u));
         const int e = lo + it * 32 + lane;
         rows[at] = e;
+        if constexpr (Q) {
+          rmean[at] = __ldg(mean + row0 + e);
+          rscale[at] = __ldg(scale + row0 + e);
+        }
         float* v = reinterpret_cast<float*>(vals4) + at * CV;
 #pragma unroll
         for (int c = 0; c < CV; ++c)
@@ -526,6 +603,11 @@ serial_apply_kernel(const uint32_t* __restrict__ words, int Nw,
         float cf[L];
 #pragma unroll
         for (int k = 0; k < L; ++k) cf[k] = code_f(wd, k);
+        if constexpr (Q) {
+#pragma unroll
+          for (int k = 0; k < L; ++k)
+            cf[k] = cf[k] == 3.f ? 0.f : (cf[k] - rmean[t]) * rscale[t];
+        }
 #pragma unroll
         for (int q = 0; q < CV / 4; ++q) {
           const float4 v = vals4[t * (CV / 4) + q];
@@ -549,10 +631,13 @@ serial_apply_kernel(const uint32_t* __restrict__ words, int Nw,
   for (int c = 0; c < CB; ++c) {
     if (c < C) {
       float* ep = eps + c * Npad;
-      const float dt = dms[c];
+      const float dt = Q ? 0.f : dms[c];
 #pragma unroll
-      for (int k = 0; k < L; ++k)
-        if (row_valid[n0 + k]) ep[n0 + k] = ep[n0 + k] - (acc[c][k] - dt);
+      for (int k = 0; k < L; ++k) {
+        if (!row_valid[n0 + k]) continue;
+        ep[n0 + k] = Q ? ep[n0 + k] - acc[c][k]
+                       : ep[n0 + k] - (acc[c][k] - dt);
+      }
     }
   }
 }
@@ -562,7 +647,7 @@ serial_apply_kernel(const uint32_t* __restrict__ words, int Nw,
 // One sweep's operands (ops/serial.py:_sweep_cuda); K == 0 is the
 // horseshoe, whose labels, gas, p, sigmaE, vpart and bpart are null.
 struct SerialSweep {
-  int C, pz_by_marker, Nw, n_pos, chunk, B, K, G, Mpad, nsplit;
+  int C, pz_by_marker, Nw, n_pos, chunk, B, K, G, Mpad, nsplit, q_mode;
   const uint32_t* words; const int* border; const int* inner;
   const float* gram; const float* tbl; const float* xsq; const float* mean;
   const float* scale; const float* xsum; const unsigned char* valid;
@@ -610,31 +695,34 @@ inline SolveFn pick_solve(int K, int B) {
 }
 
 // The dot reads the words once for every CP chains (4 at most: more
-// spill); C == 1 takes the single-chain instance.
+// spill); C == 1 takes the single-chain instance, the in-kernel decode its
+// own.
 cudaError_t launch_dot(const SerialSweep& o, int pos, cudaStream_t s) {
   const dim3 grid(o.nsplit, (o.B + kMaxB - 1) / kMaxB);
-#define SERIAL_DOT(CP)                                                    \
-  serial_dot_kernel<CP><<<grid, kDotThreads, 0, s>>>(                     \
+#define SERIAL_DOT(CP, Q)                                                 \
+  serial_dot_kernel<CP, Q><<<grid, kDotThreads, 0, s>>>(                  \
       o.words, o.Nw, o.eps, o.C, o.border, pos, o.B, o.gram, o.partial,   \
-      o.nsplit)
-  if (o.C == 1) SERIAL_DOT(1);
-  else if (o.C == 2) SERIAL_DOT(2);
-  else SERIAL_DOT(4);
+      o.nsplit, o.mean, o.scale, o.row_valid)
+  if (o.q_mode) SERIAL_DOT(1, true);
+  else if (o.C == 1) SERIAL_DOT(1, false);
+  else if (o.C == 2) SERIAL_DOT(2, false);
+  else SERIAL_DOT(4, false);
 #undef SERIAL_DOT
   return cudaGetLastError();
 }
 
 cudaError_t launch_apply(const SerialSweep& o, int pos, cudaStream_t s) {
   const int ctas = (o.Nw + kSerialApplyWords - 1) / kSerialApplyWords;
-#define SERIAL_APPLY(CB)                                                  \
-  serial_apply_kernel<CB><<<ctas, kApplyThreads, 0, s>>>(                 \
+#define SERIAL_APPLY(CB, Q)                                               \
+  serial_apply_kernel<CB, Q><<<ctas, kApplyThreads, 0, s>>>(              \
       o.words, o.Nw, o.eps, o.C, o.row_valid, o.border, pos, o.B, o.dsc,  \
-      o.dms)
-  if (o.C <= 1) SERIAL_APPLY(1);
-  else if (o.C <= 2) SERIAL_APPLY(2);
-  else if (o.C <= 4) SERIAL_APPLY(4);
-  else if (o.C <= 8) SERIAL_APPLY(8);
-  else SERIAL_APPLY(16);
+      o.dms, o.mean, o.scale)
+  if (o.q_mode) SERIAL_APPLY(1, true);
+  else if (o.C <= 1) SERIAL_APPLY(1, false);
+  else if (o.C <= 2) SERIAL_APPLY(2, false);
+  else if (o.C <= 4) SERIAL_APPLY(4, false);
+  else if (o.C <= 8) SERIAL_APPLY(8, false);
+  else SERIAL_APPLY(16, false);
 #undef SERIAL_APPLY
   return cudaGetLastError();
 }
@@ -643,7 +731,8 @@ cudaError_t launch_apply(const SerialSweep& o, int pos, cudaStream_t s) {
 // Returns the first launch error or 0.
 int serial_run(const SerialSweep& o, cudaStream_t s) {
   if (o.C < 1 || o.C > kSerialMaxC || o.B < 1 || o.B > kSerialMaxB ||
-      o.chunk < 1 || (o.K != 0 && (o.K < 2 || o.K > kMaxK)))
+      o.chunk < 1 || (o.K != 0 && (o.K < 2 || o.K > kMaxK)) ||
+      (o.q_mode && o.C != 1))
     return cudaErrorInvalidValue;
   const SolveFn solve = pick_solve(o.K, o.B);
   if (solve == nullptr) return cudaErrorInvalidValue;
@@ -658,7 +747,7 @@ int serial_run(const SerialSweep& o, cudaStream_t s) {
                     o.pz_by_marker ? (long long)o.Mpad
                                    : (long long)o.n_pos * o.B,
                     o.sigmaE, o.esum, o.dsc, o.dms, o.vpart, o.bpart,
-                    o.n_pos};
+                    o.n_pos, o.q_mode};
   // the JAX wrapper's chunks: the remainder first, then `chunk` positions
   const int rem = o.n_pos % o.chunk;
   for (int pos = 0; pos < o.n_pos; ++pos) {
@@ -689,14 +778,16 @@ const char* serial_error_string(int code) {
 }
 
 // One sweep of C chains over n_pos block positions, 3 launches each, on
-// `stream`.  K == 0 is the horseshoe.  Per-chain operands have a leading
+// `stream`.  K == 0 is the horseshoe; q_mode selects the in-kernel decode
+// (one chain; words with missing calls), else the fold mode.  Per-chain operands have a leading
 // chain axis C: eps (C, Npad), beta/labels (C, Mpad), tbl (C, Mpad, F),
 // sigmaE (C,); p/z (C, Mpad) by marker if pz_by_marker (fused chains),
 // else (C, n_pos*B) by sweep position; scratch partial (C, nsplit, B + 1),
 // esum (C,), dsc (C, B), dms (C,), vpart (C, n_pos, G, K), bpart (C,
 // n_pos, G).  Returns the first launch error or 0.
 int serial_sweep(int C, int pz_by_marker, int Nw, int n_pos, int chunk,
-                 int B, int K, int G, int Mpad, int nsplit, const void* words,
+                 int B, int K, int G, int Mpad, int nsplit, int q_mode,
+                 const void* words,
                  const void* border, const void* inner, const void* gram,
                  const void* tbl, const void* xsq, const void* mean,
                  const void* scale, const void* xsum, const void* valid,
@@ -706,6 +797,7 @@ int serial_sweep(int C, int pz_by_marker, int Nw, int n_pos, int chunk,
                  void* dms, void* vpart, void* bpart, void* stream) {
   return serial_run(
       SerialSweep{C, pz_by_marker, Nw, n_pos, chunk, B, K, G, Mpad, nsplit,
+                  q_mode,
                   static_cast<const uint32_t*>(words),
                   static_cast<const int*>(border),
                   static_cast<const int*>(inner),

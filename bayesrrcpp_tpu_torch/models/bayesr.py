@@ -4,11 +4,13 @@ Counterpart of ``bayesrrcpp_tpu/models/bayesr.py:SpikeSlabSampler`` for one
 group (G=1) and no fixed effects (F=0), one chain or several
 (``run_chains``), on either
 
-- 2-bit packed genotypes with no missing calls, swept by the strided-rounds
-  block-Jacobi kernel (``ops/jacobi_t.py``; the main path) or, at J=1
-  (``jacobi_blocks=1``, or the auto plan for M < 2048), by the exact
-  serial sweep (``ops/serial.py``), from host dosages or from pre-packed
-  int32 words on the device; or
+- 2-bit packed genotypes, swept by the strided-rounds block-Jacobi kernel
+  (``ops/jacobi_t.py``; the main path) or, at J=1 (``jacobi_blocks=1``, or
+  the auto plan for M < 2048), by the exact serial sweep
+  (``ops/serial.py``), from host dosages, a PLINK .bed
+  (``io/bed.read_bed_packed``) or pre-packed int32 words on the device;
+  words with missing calls (code 3) take the kernels' missing-call modes
+  (``MarkerSampler._packed_kw``); or
 - dense standardized X, swept by the plain Gram-blocked sweep
   (``backend="blocked"``, ``ops/block_sweep.py``), as the JAX package runs
   it in XLA.
@@ -23,9 +25,9 @@ one ``bayesr_jacobi_t_mc`` sweep of all chains (``bayesr_sweep_mc`` at
 J=1).
 
 What lies outside the slice raises ``NotImplementedError`` naming its
-ROADMAP entry: the groups variant and fixed effects, int8, missing calls,
-row-layout plans with J > 1 for packed X, the scan backend, sharding,
-checkpoint and resume.  What it shares with the horseshoe
+ROADMAP entry: the groups variant and fixed effects, int8, row-layout
+plans with J > 1 for packed X with no missing call, the scan backend,
+sharding, checkpoint and resume.  What it shares with the horseshoe
 (storage, plan, intercept, residual recompute, chain driver) lives in
 ``models/sampler.py``.
 """
@@ -60,6 +62,7 @@ class MarkerData(NamedTuple):
     x_scale: torch.Tensor    # (Mpad,) 1/sd scales ((0,) when dense)
     row_valid: torch.Tensor  # (Npad,) bool, individual n < N ((0,) dense)
     x_colsum: torch.Tensor   # (Mpad,) decoded column sums ((0,) dense)
+    has_missing: bool = False  # packed words hold missing calls (code 3)
 
 
 def _as_2d_cva(cva) -> np.ndarray:
@@ -216,7 +219,8 @@ class SpikeSlabSampler(MarkerSampler):
         marker), per-chain hyperparameter draws.
         Packed X only (``supports_fused_chains``)."""
         if not self.supports_fused_chains:
-            raise ValueError("fused multi-chain steps need 2-bit packed X")
+            raise ValueError("fused multi-chain steps need 2-bit packed X, "
+                             "with no missing call at J=1")
         v = self.variates(rng, state.beta.shape[0])
         v.begin_step()
         mu, eps = self._intercept(state, v)

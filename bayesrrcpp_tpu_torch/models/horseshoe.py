@@ -3,10 +3,11 @@
 Counterpart of ``bayesrrcpp_tpu/models/horseshoe.py:HorseshoeSampler``, one
 chain or several (``run_chains``), on either
 
-- 2-bit packed genotypes with no missing calls, swept by the strided-rounds
-  block-Jacobi kernel (``ops/jacobi_t.horseshoe_jacobi_t``; the main path)
-  or, at J=1, by the exact serial sweep (``ops/serial.horseshoe_sweep``),
-  from host dosages or from pre-packed int32 words on the device; or
+- 2-bit packed genotypes, swept by the strided-rounds block-Jacobi kernel
+  (``ops/jacobi_t.horseshoe_jacobi_t``; the main path) or, at J=1, by the
+  exact serial sweep (``ops/serial.horseshoe_sweep``), from host dosages, a
+  PLINK .bed or pre-packed int32 words on the device, with or without
+  missing calls (as ``SpikeSlabSampler``); or
 - dense standardized X, swept by the plain Gram-blocked sweep
   (``backend="blocked"``, ``ops/block_sweep.horseshoe_block_sweep``), as
   the JAX package runs it in XLA.
@@ -29,8 +30,8 @@ Every draw comes from the variates object the caller passes
 ``step_chains`` is the fused multi-chain iteration (horseshoe.py:516-562):
 the same per-chain draws around one ``horseshoe_jacobi_t_mc`` sweep of all
 chains (``horseshoe_sweep_mc`` at J=1).  What lies outside the slice raises
-``NotImplementedError`` naming its ROADMAP entry: int8, missing calls,
-row-layout plans with J > 1 for packed X and the scan backend.
+``NotImplementedError`` naming its ROADMAP entry: int8, row-layout plans
+with J > 1 for packed X with no missing call and the scan backend.
 """
 from __future__ import annotations
 
@@ -222,7 +223,8 @@ class HorseshoeSampler(MarkerSampler):
         by marker).  Packed X only
         (``supports_fused_chains``)."""
         if not self.supports_fused_chains:
-            raise ValueError("fused multi-chain steps need 2-bit packed X")
+            raise ValueError("fused multi-chain steps need 2-bit packed X, "
+                             "with no missing call at J=1")
         v = self.variates(rng, state.beta.shape[0])
         v.begin_step()
         mu, eps, eta, v_aux = self._pre_sweep(state, v)

@@ -7,11 +7,16 @@ this code; here it lives once).  ``MarkerSampler`` holds it;
 ``models/bayesr.py`` and ``models/horseshoe.py`` add their priors, state
 and steps (``init``, ``step``, ``step_chains``, ``_emit_one``).
 
+Packed words with missing calls (code 3) take the sweeps' missing-call
+modes, routed as the JAX samplers route them (bayesrrcpp_tpu/models/
+bayesr.py:278-300): the strided kernels' ``miss`` mode at J > 1, the
+serial kernels' in-kernel decode at J=1 (``_packed_kw``).
+
 Several chains (``run_chains``) are one state whose tensors carry a
 leading chain axis C (``init(rng, chains=C)``).  With 2-bit packed X a
 fused step (``step_chains``) sweeps all chains with one set of launches per
-round (strided plan) or per block (serial plan, J=1); with dense X each
-chain takes the single-chain step in turn.  The
+round (strided plan) or per block (serial plan, J=1; words with no missing
+call only); otherwise each chain takes the single-chain step in turn.  The
 intercept, residual recompute and emission below serve both shapes.
 """
 from __future__ import annotations
@@ -40,6 +45,7 @@ class Genotypes(NamedTuple):
     x_scale: torch.Tensor    # (Mpad,) 1/sd scales ((0,) when dense)
     row_valid: torch.Tensor  # (Npad,) bool, individual n < N ((0,) dense)
     x_colsum: torch.Tensor   # (Mpad,) decoded column sums ((0,) dense)
+    has_missing: bool = False  # packed words hold missing calls (code 3)
 
 
 def not_ported(what: str, entry: str):
@@ -152,14 +158,12 @@ class MarkerSampler:
             q = genotypes.quantize_packed(X, transposed, x_stats, B, Mpad, N,
                                           prepacked=prepacked, device=dev,
                                           m_true=M)
-            if q.has_missing:
-                raise not_ported("packed genotypes with missing calls",
-                                 "Queue 1 item 7 / Queue 2 entry 1")
+            self._row_plan(q.has_missing, jacobi_blocks is None)
             self.Npad = q.Npad
             geno = Genotypes(
                 XT=q.words, xsq=q.xsq, gram=q.gram, valid=valid,
                 x_mean=q.x_mean, x_scale=q.x_scale, row_valid=q.row_valid,
-                x_colsum=q.x_colsum)
+                x_colsum=q.x_colsum, has_missing=q.has_missing)
         else:
             self.Npad = N
             XT = torch.as_tensor(X if transposed else X.T, dtype=f32,
@@ -184,7 +188,7 @@ class MarkerSampler:
         either layout and from the auto plan for M < 2048 too, runs the
         exact serial sweep (ops/serial.py), as any J=1 runs
         ``bayesr_sweep_pallas`` in JAX (bayesr.py:587-645); J > 1 runs the
-        strided-rounds sweep in the "t" layout only."""
+        strided-rounds sweep in the "t" layout only (``_row_plan``)."""
         if jacobi_blocks is None:
             if jacobi_layout == "row":
                 J, B = auto_jacobi(M, B)
@@ -201,17 +205,38 @@ class MarkerSampler:
             layout = "row" if jacobi_layout == "auto" else jacobi_layout
             if layout == "t" and J > 128:
                 raise ValueError("jacobi_layout='t' needs jacobi_blocks <= 128")
-        if layout != "t" and J > 1:
-            raise not_ported(f"the packed row-layout J={J} sweep",
-                             "Queue 2 entry 10")
         return J, B, layout
 
+    def _row_plan(self, has_missing, auto):
+        """A row-layout plan with J > 1 on the packed words: with missing
+        calls the auto plan falls back to J=1 and an explicit one is
+        refused, as in the JAX samplers (bayesr.py:290-300); without, it is
+        not ported (the row-layout kernels)."""
+        J = self.jacobi
+        if self.jacobi_layout == "t" or J == 1:
+            return
+        if has_missing and auto:
+            self.jacobi = 1
+        elif has_missing:
+            raise ValueError("jacobi_blocks > 1 supports dense, missing-free "
+                             "quantized, or packed-missing "
+                             "(jacobi_layout='t') X only")
+        else:
+            raise not_ported(f"the packed row-layout J={J} sweep",
+                             "Queue 2 entry 10")
+
     def _packed_kw(self):
-        """The packed sweeps' keyword arguments: the fold-affine decode of
-        ``self.data``'s words."""
+        """The packed sweeps' keyword arguments for ``self.data``'s words:
+        the fold-affine decode; with missing calls the strided kernels'
+        ``miss`` mode (J > 1) or the serial kernels' in-kernel decode
+        (J=1), as the JAX samplers pass them (bayesr.py:278-287, :590-607)."""
         d = self.data
-        return dict(x_mean=d.x_mean, x_scale=d.x_scale, x_xsum=d.x_colsum,
-                    fold_affine=True, row_valid=d.row_valid)
+        miss = bool(d.has_missing)
+        kw = dict(x_mean=d.x_mean, x_scale=d.x_scale, x_xsum=d.x_colsum,
+                  fold_affine=not miss, row_valid=d.row_valid)
+        if self.jacobi > 1:
+            kw["missing"] = miss
+        return kw
 
     # ------------------------------------------------------------ helpers
 
@@ -272,12 +297,14 @@ class MarkerSampler:
     @property
     def supports_fused_chains(self) -> bool:
         """Whether ``step_chains`` sweeps all chains with the fused kernel:
-        2-bit packed X (the strided Jacobi kernel, or the serial one at
-        J=1).  Dense X runs its
-        chains through the single-chain step (the JAX package fuses dense X
-        too, through the dense mode of the kernel, ROADMAP Queue 2 entry
-        1)."""
-        return self.x_packed
+        2-bit packed X through the strided Jacobi kernel, or through the
+        serial one at J=1 when the words hold no missing call (the fused
+        serial sweep has no in-kernel decode, in JAX neither: bayesr.py:
+        733-743).  Dense X runs its chains through the single-chain step
+        (the JAX package fuses dense X too, through the dense mode of the
+        kernel, ROADMAP Queue 2 entry 1)."""
+        return self.x_packed and (self.jacobi > 1
+                                  or not self.data.has_missing)
 
     def _run_steps(self, state, v, n):
         for _ in range(n):
@@ -352,7 +379,8 @@ class MarkerSampler:
         words are read once per round for all chains, which share the
         visit order and draw their own p/z.  ``fused=False`` steps each
         chain through the single-chain step with its own orders; it is the
-        only option on dense X, where ``fused=True`` raises ValueError.
+        only option on dense X and on words with missing calls at J=1,
+        where ``fused=True`` raises ValueError.
         ``rng`` is a ``torch.Generator`` on the sampler's device or a
         chain-batched variates object.  Collected arrays are (n_emits,
         n_chains, ...); a ``ChainFanoutSink`` writes one file per chain.
@@ -363,8 +391,8 @@ class MarkerSampler:
             fused = self.supports_fused_chains
         if fused and not self.supports_fused_chains:
             raise ValueError("fused multi-chain runs need 2-bit packed X "
-                             "(the packed sweep kernels); run dense X "
-                             "with fused=False")
+                             "(the packed sweep kernels), with no missing "
+                             "call at J=1; run these with fused=False")
         v = self.variates(rng, n_chains)
         state = self.init(v, chains=n_chains)
         if fused:

@@ -28,7 +28,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _VOID_P, _INT = ctypes.c_void_p, ctypes.c_int
 
 # argtypes of each library's entry points (ctypes would pass a bare Python
-# int as a 32-bit int and cut a pointer)
+# int as a 32-bit int and cut a pointer); the strided sweeps end with the
+# missing-call indicator's partials (null: the fold mode) and the stream
 SIGNATURES = {
     "jacobi_t": {
         "jacobi_t_dot_splits": ([_INT], _INT),
@@ -37,9 +38,9 @@ SIGNATURES = {
         "jacobi_t_max_components": ([], _INT),
         "jacobi_t_error_string": ([_INT], ctypes.c_char_p),
         "jacobi_t_sweep": ([_VOID_P, _INT, _INT, _INT, _INT, _INT, _INT]
-                           + [_VOID_P] * 21 + [_INT] + [_VOID_P] * 5, _INT),
+                           + [_VOID_P] * 21 + [_INT] + [_VOID_P] * 6, _INT),
         "jacobi_t_hs_sweep": ([_VOID_P, _INT, _INT, _INT, _INT]
-                              + [_VOID_P] * 17 + [_INT] + [_VOID_P] * 3,
+                              + [_VOID_P] * 17 + [_INT] + [_VOID_P] * 4,
                               _INT),
     },
     # the fused multi-chain sweeps: the single-chain argument lists with
@@ -49,21 +50,21 @@ SIGNATURES = {
         "jacobi_t_mc_error_string": ([_INT], ctypes.c_char_p),
         "jacobi_t_mc_sweep": ([_INT, _VOID_P, _INT, _INT, _INT, _INT, _INT,
                                _INT] + [_VOID_P] * 21 + [_INT]
-                              + [_VOID_P] * 5, _INT),
+                              + [_VOID_P] * 6, _INT),
         "jacobi_t_hs_mc_sweep": ([_INT, _VOID_P, _INT, _INT, _INT, _INT]
-                                 + [_VOID_P] * 17 + [_INT] + [_VOID_P] * 3,
+                                 + [_VOID_P] * 17 + [_INT] + [_VOID_P] * 4,
                                  _INT),
     },
-    # the serial (J=1) sweeps, one chain or fused: 10 ints (C,
-    # pz_by_marker, Nw, n_pos, chunk, B, K, G, Mpad, nsplit), then 24
-    # operand pointers and the stream
+    # the serial (J=1) sweeps, one chain or fused: 11 ints (C,
+    # pz_by_marker, Nw, n_pos, chunk, B, K, G, Mpad, nsplit, q_mode), then
+    # 24 operand pointers and the stream
     "serial": {
         "serial_max_block": ([], _INT),
         "serial_max_chains": ([], _INT),
         "serial_max_components": ([], _INT),
         "serial_dot_splits": ([_INT], _INT),
         "serial_error_string": ([_INT], ctypes.c_char_p),
-        "serial_sweep": ([_INT] * 10 + [_VOID_P] * 25, _INT),
+        "serial_sweep": ([_INT] * 11 + [_VOID_P] * 25, _INT),
     },
 }
 

@@ -2,8 +2,9 @@
 genotypes.
 
 Counterpart of ``bayesrrcpp_tpu/ops/pallas_jacobi_t.py:bayesr_jacobi_t_pallas``
-and ``horseshoe_jacobi_t_pallas`` in their fold-affine packed mode.
-Semantics (the Markov kernel the port keeps):
+and ``horseshoe_jacobi_t_pallas`` in their two packed modes: fold-affine
+(no missing calls) and ``missing`` (code 3 marks a missing call, which
+standardizes to 0).  Semantics (the Markov kernel the port keeps):
 
 - a sweep is nr = nb / J rounds; round r sweeps slab rho[r], the J blocks
   {j*nr + rho[r] : j < J}, every block against the round-start eps, and the
@@ -12,7 +13,12 @@ Semantics (the Markov kernel the port keeps):
   and reads p/z[(s*J + j)*B + t] -- the variates are indexed by canonical
   slab, not by visit order;
 - within a block, exact sequential Gibbs with the kernel's per-step algebra
-  (``_tables`` below, pallas_jacobi_t.py:103-125 and :534-585).
+  (``bayesr_tables`` below, pallas_jacobi_t.py:103-125 and :534-585);
+- with ``missing=True`` a round's dot and apply run the TPU kernel's
+  two-dot algebra (pallas_jacobi_t.py:_make_dots, :371-402): the raw-code
+  dot plus the (mean - 3)-scaled dot of the missing indicator 1[c == 3],
+  r = s*(C.eps + (m - 3)*(I.eps)) - (m*s)*sum(eps), and eps -= (d*s).C +
+  (d*s*(m - 3)).I - d.(m*s) on the individuals n < N (``_miss_round``).
 
 ``bayesr_jacobi_t`` and ``horseshoe_jacobi_t`` are the entry points: on
 CUDA tensors each launches its hand-written kernel of ``csrc/jacobi_t.cu``
@@ -66,7 +72,9 @@ class MCSweepResult(NamedTuple):
 def _check_mode(XT_pad, gram, J, x_mean, fold_affine, missing,
                 entry="Queue 2 entry 1"):
     """Reject the modes of the TPU kernel that are not ported; ``entry``
-    is the ROADMAP entry of the sweep's kernel."""
+    is the ROADMAP entry of the sweep's kernel.  As the TPU wrapper
+    (pallas_jacobi_t.py:_validate), ``missing=True`` runs the fold algebra
+    with its missing-call correction whatever ``fold_affine`` says."""
     nb = gram.shape[0]
     if nb % J:
         raise ValueError(f"jacobi sweep needs J | nb (J={J}, nb={nb})")
@@ -74,13 +82,34 @@ def _check_mode(XT_pad, gram, J, x_mean, fold_affine, missing,
         raise NotImplementedError(
             "the strided Jacobi sweep is ported for 2-bit packed words only; "
             f"its dense f32 and int8 modes are ROADMAP {entry}")
-    if missing:
-        raise NotImplementedError(
-            "packed genotypes with missing calls (the kernel's `miss` mode) "
-            f"are ROADMAP {entry} / Queue 1 item 7")
-    if not fold_affine:
+    if not (fold_affine or missing):
         raise ValueError("packed jacobi sweep needs fold_affine=True "
-                         "(missing-free codes)")
+                         "(missing-free codes) or missing=True")
+
+
+def _miss_round(words, mean, scale, lane_ok):
+    """(dot, apply) of one round's rows in the ``missing`` mode, the TPU
+    kernel's two-dot algebra (pallas_jacobi_t.py:_make_dots, :418-427,
+    :631-647): ``dot(eps)`` is r for eps (Npad,) or (C, Npad), ``apply(d,
+    eps)`` eps after the round's deltas d (rows,) or (C, rows), written on
+    the lanes where ``lane_ok`` only."""
+    f32 = torch.float32
+    c = genotypes.decode_codes(words).to(f32)               # (rows, Npad)
+    ind = (c == genotypes.MISSING_CODE).to(f32)
+    sc = scale
+    ms = mean * sc
+    mc = mean - float(genotypes.MISSING_CODE)
+
+    def dot(eps):
+        rc = eps @ c.T + (eps @ ind.T) * mc
+        return rc * sc - ms * eps.sum(dim=-1, keepdim=True)
+
+    def apply(d, eps):
+        v = d * sc
+        upd = v @ c + (v * mc) @ ind - (d * ms).sum(dim=-1, keepdim=True)
+        return torch.where(lane_ok, eps - upd, eps)
+
+    return dot, apply
 
 
 def bayesr_jacobi_t(XT_pad, gram, xsq_pad, eps, beta_pad, labels_pad,
@@ -96,7 +125,8 @@ def bayesr_jacobi_t(XT_pad, gram, xsq_pad, eps, beta_pad, labels_pad,
     (Mpad,); eps and row_valid (Npad,); rho (nr,); inner_perm (nb, B); pi
     (G, K); cva (G, K-1); sigmaE scalar; sigmaGG (G,).  ``x_xsum`` is
     accepted for signature parity with the JAX wrapper: the port sums eps
-    afresh each round instead of tracking it.
+    afresh each round instead of tracking it.  ``missing``: the words hold
+    missing calls (code 3), swept in the kernel's ``miss`` mode.
     """
     _check_mode(XT_pad, gram, J, x_mean, fold_affine, missing)
     if row_valid is None:
@@ -106,14 +136,14 @@ def bayesr_jacobi_t(XT_pad, gram, xsq_pad, eps, beta_pad, labels_pad,
             XT_pad, gram, xsq_pad, eps, beta_pad, labels_pad, rho,
             inner_perm, p_arr, z_arr, pi, cva, sigmaE, sigmaGG,
             g_assign_pad, valid_pad, J=J, x_mean=x_mean, x_scale=x_scale,
-            fold_affine=fold_affine, row_valid=row_valid)
+            fold_affine=fold_affine, row_valid=row_valid, missing=missing)
     if XT_pad.device.type != "cuda":
         raise NotImplementedError(
             f"no jacobi_t kernel for device {XT_pad.device}")
     return _sweep_cuda(XT_pad, gram, xsq_pad, eps, beta_pad, labels_pad,
                        rho, inner_perm, p_arr, z_arr, pi, cva, sigmaE,
                        sigmaGG, g_assign_pad, valid_pad, J, x_mean, x_scale,
-                       row_valid)
+                       row_valid, missing)
 
 
 bayesr_jacobi_t.launches = 0
@@ -151,8 +181,21 @@ def _round_plan(lib, words, gram, J):
     return Mpad, Nw, nb, B, nb // J
 
 
+def _miss_partials(missing, rows, dev):
+    """The missing indicator's dot partials of a CUDA sweep in ``missing``
+    mode, ``rows`` floats, else None (a null pointer: the fold mode)."""
+    if not missing:
+        return None
+    return torch.empty((rows,), dtype=torch.float32, device=dev)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def _sweep_cuda(words, gram, xsq, eps, beta, labels, rho, inner, p, z, pi,
-                cva, sigmaE, sigmaGG, gas, valid, J, mean, scale, row_valid):
+                cva, sigmaE, sigmaGG, gas, valid, J, mean, scale, row_valid,
+                missing):
     from . import _cuda
 
     lib = _cuda.library("jacobi_t")
@@ -190,6 +233,7 @@ def _sweep_cuda(words, gram, xsq, eps, beta, labels, rho, inner, p, z, pi,
     beta_out = torch.empty((Mpad,), dtype=f32, device=dev)
     labels_out = torch.empty((Mpad,), dtype=i32, device=dev)
     partial = torch.empty(((J * B + 1) * nsplit,), dtype=f32, device=dev)
+    pind = _miss_partials(missing, J * B * nsplit, dev)
     dsc = torch.empty((J * B,), dtype=f32, device=dev)
     dms = torch.empty((J,), dtype=f32, device=dev)
     vpart = torch.empty((nb * G * K,), dtype=f32, device=dev)
@@ -204,7 +248,7 @@ def _sweep_cuda(words, gram, xsq, eps, beta, labels, rho, inner, p, z, pi,
         cva.data_ptr(), sigmaE.data_ptr(), sigmaGG.data_ptr(),
         gas.data_ptr(), valid.data_ptr(), partial.data_ptr(), nsplit,
         dsc.data_ptr(), dms.data_ptr(), vpart.data_ptr(), bpart.data_ptr(),
-        stream)
+        _ptr(pind), stream)
     lib.check(rc, "jacobi_t_sweep launch")
     bayesr_jacobi_t.launches += LAUNCHES_PER_ROUND * nr
     return SweepResult(eps_out, beta_out, labels_out,
@@ -212,7 +256,7 @@ def _sweep_cuda(words, gram, xsq, eps, beta, labels, rho, inner, p, z, pi,
                        bpart.view(nb, G).sum(dim=0))
 
 
-def _tables(xsq, gas, pi, cva, sigmaE, sigmaGG):
+def bayesr_tables(xsq, gas, pi, cva, sigmaE, sigmaGG):
     """Per-marker step constants (..., Mpad, K) each: lp, 1/denom and the
     slab sd, with the spike in column 0 (pallas_jacobi_t.py:_bayesr_tbl).
     A leading chain axis of pi (C, G, K), sigmaE (C,) and sigmaGG (C, G)
@@ -236,21 +280,17 @@ def _tables(xsq, gas, pi, cva, sigmaE, sigmaGG):
     return lp, invd, sd
 
 
-def categorical_draw(lp, invd, sd, num, half_invsE, p, z, bold, okf):
-    """The BayesR categorical draw of a batch of markers, the plain version
-    of csrc/jacobi_t_common.cuh:categorical_draw (pallas_sweep.py:246-264),
-    shared by every plain BayesR sweep.  lp, invd and sd (..., K) are the
-    markers' component tables (spike first); num = r + beta_old*xsq, p, z,
-    bold and okf (...); half_invsE broadcasts to them.  The reference's
-    overflow guard zeroes a component's weight when any slab logL is more
-    than 700 from its own; the first k with p <= the cumulative weight
-    wins, and no hit keeps beta_old.  Returns (d, krec): d = okf*(beta_new
-    - beta_old) and the hit's component, or -1 (int32)."""
+def cumulative_weights(lp, invd, num, half_invsE):
+    """(muk, acum) of the BayesR draw (pallas_sweep.py:246-264): the slab
+    means muk (..., K) and the running sums acum (..., K) of the
+    components' weights, spike first, for numerators num (...).  The
+    reference's overflow guard zeroes a component's weight when any slab
+    logL is more than 700 from its own."""
     K = lp.shape[-1]
     muk = num[..., None] * invd
     logL = lp + (half_invsE * num)[..., None] * muk
-    ksel = torch.full(num.shape, K, dtype=torch.int64, device=num.device)
-    acum = torch.zeros_like(num)
+    acum = []
+    run = torch.zeros_like(num)
     for k in range(K):
         lk = logL[..., k]
         gmax = torch.abs(logL[..., 1] - lk)
@@ -259,9 +299,25 @@ def categorical_draw(lp, invd, sd, num, half_invsE, p, z, bold, okf):
         S = torch.exp(logL[..., 0] - lk)
         for kk in range(1, K):
             S = S + torch.exp(logL[..., kk] - lk)
-        w = torch.where(gmax > 700.0, torch.zeros_like(S), 1.0 / S)
-        acum = acum + w
-        hit = (p <= acum) & (ksel == K)
+        run = run + torch.where(gmax > 700.0, torch.zeros_like(S), 1.0 / S)
+        acum.append(run)
+    return muk, torch.stack(acum, dim=-1)
+
+
+def categorical_draw(lp, invd, sd, num, half_invsE, p, z, bold, okf):
+    """The BayesR categorical draw of a batch of markers, the plain version
+    of csrc/jacobi_t_common.cuh:categorical_draw (pallas_sweep.py:246-264),
+    shared by every plain BayesR sweep.  lp, invd and sd (..., K) are the
+    markers' component tables (spike first); num = r + beta_old*xsq, p, z,
+    bold and okf (...); half_invsE broadcasts to them.  The first k with p
+    <= the cumulative weight (``cumulative_weights``) wins, and no hit
+    keeps beta_old.  Returns (d, krec): d = okf*(beta_new - beta_old) and
+    the hit's component, or -1 (int32)."""
+    K = lp.shape[-1]
+    muk, acum = cumulative_weights(lp, invd, num, half_invsE)
+    ksel = torch.full(num.shape, K, dtype=torch.int64, device=num.device)
+    for k in range(K):
+        hit = (p <= acum[..., k]) & (ksel == K)
         ksel = torch.where(hit, torch.full_like(ksel, k), ksel)
     hitm = ksel < K
     kc = torch.clamp_max(ksel, K - 1)[..., None]
@@ -280,7 +336,8 @@ def bayesr_jacobi_t_reference(XT_pad, gram, xsq_pad, eps, beta_pad,
                               row_valid=None, missing: bool = False
                               ) -> SweepResult:
     """The plain torch version of ``bayesr_jacobi_t``: each round decodes its
-    J*B markers to standardized f32 rows and runs the J blocks' sequential
+    J*B markers to standardized f32 rows (``missing``: to codes and the
+    missing indicator, ``_miss_round``) and runs the J blocks' sequential
     solves batched over the blocks, with the kernel's algebra."""
     _check_mode(XT_pad, gram, J, x_mean, fold_affine, missing)
     f32 = torch.float32
@@ -289,7 +346,8 @@ def bayesr_jacobi_t_reference(XT_pad, gram, xsq_pad, eps, beta_pad,
     nr = nb // J
     G, K = pi.shape
     sigmaE = torch.as_tensor(sigmaE, dtype=f32, device=dev)
-    lp, invd, sd = _tables(xsq_pad, g_assign_pad, pi, cva, sigmaE, sigmaGG)
+    lp, invd, sd = bayesr_tables(xsq_pad, g_assign_pad, pi, cva, sigmaE,
+                                 sigmaGG)
     xsq = xsq_pad.to(f32)
     okf = valid_pad.to(f32)
     gas = g_assign_pad.long()
@@ -310,9 +368,14 @@ def bayesr_jacobi_t_reference(XT_pad, gram, xsq_pad, eps, beta_pad,
         s = rho[r].long()
         blk = jj * nr + s                                     # (J,)
         rows = (blk[:, None] * B + lanes).reshape(-1)         # (J*B,)
-        x = genotypes.decode_rows(XT_pad[rows], mean[rows], scale[rows],
-                                  lane_ok)                    # (J*B, Npad)
-        rr = (x @ eps).view(J, B)
+        if missing:
+            dot, apply = _miss_round(XT_pad[rows], mean[rows], scale[rows],
+                                     lane_ok)
+            rr = dot(eps).view(J, B)
+        else:
+            x = genotypes.decode_rows(XT_pad[rows], mean[rows], scale[rows],
+                                      lane_ok)                # (J*B, Npad)
+            rr = (x @ eps).view(J, B)
         bold = beta[rows].view(J, B)
         inn = inner_perm[blk]                                 # (J, B)
         pos = (s * J + jj)[:, None] * B + lanes
@@ -341,7 +404,8 @@ def bayesr_jacobi_t_reference(XT_pad, gram, xsq_pad, eps, beta_pad,
                 dim=(0, 1)).to(f32)
             bacc[g] += torch.where((krec > 0) & in_g, bnew * bnew,
                                    0.0).sum()
-        eps = eps - d.reshape(-1) @ x
+        eps = (apply(d.reshape(-1), eps) if missing
+               else eps - d.reshape(-1) @ x)
     return SweepResult(eps, beta, labels, v, bacc)
 
 
@@ -372,20 +436,21 @@ def horseshoe_jacobi_t(XT_pad, gram, xsq_pad, eps, beta_pad, rho, inner_perm,
         return horseshoe_jacobi_t_reference(
             XT_pad, gram, xsq_pad, eps, beta_pad, rho, inner_perm, z_arr,
             lam_pad, tau, c2, sigmaE, valid_pad, J=J, x_mean=x_mean,
-            x_scale=x_scale, fold_affine=fold_affine, row_valid=row_valid)
+            x_scale=x_scale, fold_affine=fold_affine, row_valid=row_valid,
+            missing=missing)
     if XT_pad.device.type != "cuda":
         raise NotImplementedError(
             f"no jacobi_t kernel for device {XT_pad.device}")
     return _hs_sweep_cuda(XT_pad, gram, xsq_pad, eps, beta_pad, rho,
                           inner_perm, z_arr, lam_pad, tau, c2, sigmaE,
-                          valid_pad, J, x_mean, x_scale, row_valid)
+                          valid_pad, J, x_mean, x_scale, row_valid, missing)
 
 
 horseshoe_jacobi_t.launches = 0
 
 
 def _hs_sweep_cuda(words, gram, xsq, eps, beta, rho, inner, z, lam, tau, c2,
-                   sigmaE, valid, J, mean, scale, row_valid):
+                   sigmaE, valid, J, mean, scale, row_valid, missing):
     from . import _cuda
 
     lib = _cuda.library("jacobi_t")
@@ -416,6 +481,7 @@ def _hs_sweep_cuda(words, gram, xsq, eps, beta, rho, inner, z, lam, tau, c2,
     nsplit = lib.lib.jacobi_t_dot_splits(Nw)
     beta_out = torch.empty((Mpad,), dtype=f32, device=dev)
     partial = torch.empty(((J * B + 1) * nsplit,), dtype=f32, device=dev)
+    pind = _miss_partials(missing, J * B * nsplit, dev)
     dsc = torch.empty((J * B,), dtype=f32, device=dev)
     dms = torch.empty((J,), dtype=f32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -425,7 +491,8 @@ def _hs_sweep_cuda(words, gram, xsq, eps, beta, rho, inner, z, lam, tau, c2,
         row_valid.data_ptr(), beta_in.data_ptr(), beta_out.data_ptr(),
         rho.data_ptr(), inner.data_ptr(), z.data_ptr(), lam.data_ptr(),
         tau.data_ptr(), c2.data_ptr(), sigmaE.data_ptr(), valid.data_ptr(),
-        partial.data_ptr(), nsplit, dsc.data_ptr(), dms.data_ptr(), stream)
+        partial.data_ptr(), nsplit, dsc.data_ptr(), dms.data_ptr(),
+        _ptr(pind), stream)
     lib.check(rc, "jacobi_t_hs_sweep launch")
     horseshoe_jacobi_t.launches += LAUNCHES_PER_ROUND * nr
     return eps_out, beta_out
@@ -453,9 +520,10 @@ def horseshoe_jacobi_t_reference(XT_pad, gram, xsq_pad, eps, beta_pad, rho,
                                  fold_affine: bool = False, row_valid=None,
                                  missing: bool = False):
     """The plain torch version of ``horseshoe_jacobi_t``: each round decodes
-    its J*B markers to standardized f32 rows and runs the J blocks'
-    sequential solves batched over the blocks, with the kernel's algebra
-    (beta_new = num*invd + sd*z, pallas_jacobi_t.py:748-750)."""
+    its J*B markers to standardized f32 rows (``missing``: to codes and the
+    missing indicator, ``_miss_round``) and runs the J blocks' sequential
+    solves batched over the blocks, with the kernel's algebra (beta_new =
+    num*invd + sd*z, pallas_jacobi_t.py:748-750)."""
     _check_mode(XT_pad, gram, J, x_mean, fold_affine, missing,
                 "Queue 2 entry 3")
     f32 = torch.float32
@@ -477,9 +545,14 @@ def horseshoe_jacobi_t_reference(XT_pad, gram, xsq_pad, eps, beta_pad, rho,
         s = rho[r].long()
         blk = jj * nr + s                                     # (J,)
         rows = (blk[:, None] * B + lanes).reshape(-1)         # (J*B,)
-        x = genotypes.decode_rows(XT_pad[rows], mean[rows], scale[rows],
-                                  lane_ok)                    # (J*B, Npad)
-        rr = (x @ eps).view(J, B)
+        if missing:
+            dot, apply = _miss_round(XT_pad[rows], mean[rows], scale[rows],
+                                     lane_ok)
+            rr = dot(eps).view(J, B)
+        else:
+            x = genotypes.decode_rows(XT_pad[rows], mean[rows], scale[rows],
+                                      lane_ok)                # (J*B, Npad)
+            rr = (x @ eps).view(J, B)
         bold = beta[rows].view(J, B)
         inn = inner_perm[blk]                                 # (J, B)
         z_r = z_arr[(s * J + jj)[:, None] * B + lanes].to(f32)
@@ -495,7 +568,8 @@ def horseshoe_jacobi_t_reference(XT_pad, gram, xsq_pad, eps, beta_pad, rho,
             rr = rr - G_r[jj, m, :] * dd[:, None]
             d[jj, m] = dd
         beta[rows] = (bold + d).reshape(-1)
-        eps = eps - d.reshape(-1) @ x
+        eps = (apply(d.reshape(-1), eps) if missing
+               else eps - d.reshape(-1) @ x)
     return eps, beta
 
 
@@ -535,7 +609,7 @@ def bayesr_jacobi_t_mc(XT_pad, gram, xsq_pad, eps, beta_pad, labels_pad,
             XT_pad, gram, xsq_pad, eps, beta_pad, labels_pad, rho,
             inner_perm, p_arr, z_arr, pi, cva, sigmaE, sigmaGG,
             g_assign_pad, valid_pad, J=J, x_mean=x_mean, x_scale=x_scale,
-            fold_affine=fold_affine, row_valid=row_valid)
+            fold_affine=fold_affine, row_valid=row_valid, missing=missing)
     if XT_pad.device.type != "cuda":
         raise NotImplementedError(
             f"no jacobi_t_mc kernel for device {XT_pad.device}")
@@ -543,7 +617,7 @@ def bayesr_jacobi_t_mc(XT_pad, gram, xsq_pad, eps, beta_pad, labels_pad,
                             labels_pad[g], rho, inner_perm, p_arr[g],
                             z_arr[g], pi[g], cva, sigmaE[g], sigmaGG[g],
                             g_assign_pad, valid_pad, J, x_mean, x_scale,
-                            row_valid)
+                            row_valid, missing)
              for g in _chain_groups(eps.shape[0])]
     if len(parts) == 1:
         return parts[0]
@@ -564,7 +638,7 @@ def _mc_libs():
 
 def _mc_sweep_cuda(words, gram, xsq, eps, beta, labels, rho, inner, p, z, pi,
                    cva, sigmaE, sigmaGG, gas, valid, J, mean, scale,
-                   row_valid):
+                   row_valid, missing):
     lib, mc = _mc_libs()
     dev = words.device
     Mpad, Nw, nb, B, nr = _round_plan(lib, words, gram, J)
@@ -600,6 +674,7 @@ def _mc_sweep_cuda(words, gram, xsq, eps, beta, labels, rho, inner, p, z, pi,
     beta_out = torch.empty((C, Mpad), dtype=f32, device=dev)
     labels_out = torch.empty((C, Mpad), dtype=i32, device=dev)
     partial = torch.empty((C * nsplit * (J * B + 1),), dtype=f32, device=dev)
+    pind = _miss_partials(missing, C * nsplit * J * B, dev)
     dsc = torch.empty((C * J * B,), dtype=f32, device=dev)
     dms = torch.empty((C * J,), dtype=f32, device=dev)
     vpart = torch.empty((C, nb, G, K), dtype=f32, device=dev)
@@ -614,7 +689,7 @@ def _mc_sweep_cuda(words, gram, xsq, eps, beta, labels, rho, inner, p, z, pi,
         cva.data_ptr(), sigmaE.data_ptr(), sigmaGG.data_ptr(),
         gas.data_ptr(), valid.data_ptr(), partial.data_ptr(), nsplit,
         dsc.data_ptr(), dms.data_ptr(), vpart.data_ptr(), bpart.data_ptr(),
-        stream)
+        _ptr(pind), stream)
     mc.check(rc, "jacobi_t_mc_sweep launch")
     bayesr_jacobi_t_mc.launches += LAUNCHES_PER_ROUND * nr
     # bacc chain by chain: the single-chain wrapper's reduction of the same
@@ -631,9 +706,9 @@ def bayesr_jacobi_t_mc_reference(XT_pad, gram, xsq_pad, eps, beta_pad,
                                  fold_affine: bool = False, row_valid=None,
                                  missing: bool = False) -> MCSweepResult:
     """The plain torch version of ``bayesr_jacobi_t_mc``: each round decodes
-    its J*B markers once, computes eps @ x.T for all chains and runs the
-    J x C blocks' sequential solves batched, with
-    ``bayesr_jacobi_t_reference``'s algebra."""
+    its J*B markers once, computes eps @ x.T for all chains (``missing``:
+    ``_miss_round``'s dot) and runs the J x C blocks' sequential solves
+    batched, with ``bayesr_jacobi_t_reference``'s algebra."""
     _check_mode(XT_pad, gram, J, x_mean, fold_affine, missing,
                 "Queue 2 entry 5")
     f32 = torch.float32
@@ -642,7 +717,8 @@ def bayesr_jacobi_t_mc_reference(XT_pad, gram, xsq_pad, eps, beta_pad,
     nr = nb // J
     C, G, K = pi.shape
     sigmaE = torch.as_tensor(sigmaE, dtype=f32, device=dev)
-    lp, invd, sd = _tables(xsq_pad, g_assign_pad, pi, cva, sigmaE, sigmaGG)
+    lp, invd, sd = bayesr_tables(xsq_pad, g_assign_pad, pi, cva, sigmaE,
+                                 sigmaGG)
     xsq = xsq_pad.to(f32)
     okf = valid_pad.to(f32)
     gas = g_assign_pad.long()
@@ -664,9 +740,14 @@ def bayesr_jacobi_t_mc_reference(XT_pad, gram, xsq_pad, eps, beta_pad,
         s = rho[r].long()
         blk = jj * nr + s                                     # (J,)
         rows = (blk[:, None] * B + lanes).reshape(-1)         # (J*B,)
-        x = genotypes.decode_rows(XT_pad[rows], mean[rows], scale[rows],
-                                  lane_ok)                    # (J*B, Npad)
-        rr = (eps @ x.T).view(C, J, B)
+        if missing:
+            dot, apply = _miss_round(XT_pad[rows], mean[rows], scale[rows],
+                                     lane_ok)
+            rr = dot(eps).view(C, J, B)
+        else:
+            x = genotypes.decode_rows(XT_pad[rows], mean[rows], scale[rows],
+                                      lane_ok)                # (J*B, Npad)
+            rr = (eps @ x.T).view(C, J, B)
         bold = beta[:, rows].view(C, J, B)
         inn = inner_perm[blk]                                 # (J, B)
         pos = ((s * J + jj)[:, None] * B + lanes).reshape(-1)
@@ -696,7 +777,8 @@ def bayesr_jacobi_t_mc_reference(XT_pad, gram, xsq_pad, eps, beta_pad,
                 dim=(1, 2)).to(f32)
             bacc[:, g] += torch.where((krec > 0) & in_g, bnew * bnew,
                                       0.0).sum(dim=(1, 2))
-        eps = eps - d.reshape(C, -1) @ x
+        eps = (apply(d.reshape(C, -1), eps) if missing
+               else eps - d.reshape(C, -1) @ x)
     return MCSweepResult(eps, beta, labels, v, bacc)
 
 
@@ -722,14 +804,15 @@ def horseshoe_jacobi_t_mc(XT_pad, gram, xsq_pad, eps, beta_pad, rho,
         return horseshoe_jacobi_t_mc_reference(
             XT_pad, gram, xsq_pad, eps, beta_pad, rho, inner_perm, z_arr,
             lam, tau, c2, sigmaE, valid_pad, J=J, x_mean=x_mean,
-            x_scale=x_scale, fold_affine=fold_affine, row_valid=row_valid)
+            x_scale=x_scale, fold_affine=fold_affine, row_valid=row_valid,
+            missing=missing)
     if XT_pad.device.type != "cuda":
         raise NotImplementedError(
             f"no jacobi_t_mc kernel for device {XT_pad.device}")
     parts = [_hs_mc_sweep_cuda(XT_pad, gram, xsq_pad, eps[g], beta_pad[g],
                                rho, inner_perm, z_arr[g], lam[g], tau[g],
                                c2[g], sigmaE[g], valid_pad, J, x_mean,
-                               x_scale, row_valid)
+                               x_scale, row_valid, missing)
              for g in _chain_groups(eps.shape[0])]
     if len(parts) == 1:
         return parts[0]
@@ -740,7 +823,7 @@ horseshoe_jacobi_t_mc.launches = 0
 
 
 def _hs_mc_sweep_cuda(words, gram, xsq, eps, beta, rho, inner, z, lam, tau,
-                      c2, sigmaE, valid, J, mean, scale, row_valid):
+                      c2, sigmaE, valid, J, mean, scale, row_valid, missing):
     lib, mc = _mc_libs()
     dev = words.device
     Mpad, Nw, nb, B, nr = _round_plan(lib, words, gram, J)
@@ -770,6 +853,7 @@ def _hs_mc_sweep_cuda(words, gram, xsq, eps, beta, rho, inner, z, lam, tau,
     nsplit = lib.lib.jacobi_t_dot_splits(Nw)
     beta_out = torch.empty((C, Mpad), dtype=f32, device=dev)
     partial = torch.empty((C * nsplit * (J * B + 1),), dtype=f32, device=dev)
+    pind = _miss_partials(missing, C * nsplit * J * B, dev)
     dsc = torch.empty((C * J * B,), dtype=f32, device=dev)
     dms = torch.empty((C * J,), dtype=f32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -779,7 +863,8 @@ def _hs_mc_sweep_cuda(words, gram, xsq, eps, beta, rho, inner, z, lam, tau,
         row_valid.data_ptr(), beta_in.data_ptr(), beta_out.data_ptr(),
         rho.data_ptr(), inner.data_ptr(), z.data_ptr(), lam.data_ptr(),
         tau.data_ptr(), c2.data_ptr(), sigmaE.data_ptr(), valid.data_ptr(),
-        partial.data_ptr(), nsplit, dsc.data_ptr(), dms.data_ptr(), stream)
+        partial.data_ptr(), nsplit, dsc.data_ptr(), dms.data_ptr(),
+        _ptr(pind), stream)
     mc.check(rc, "jacobi_t_hs_mc_sweep launch")
     horseshoe_jacobi_t_mc.launches += LAUNCHES_PER_ROUND * nr
     return eps_out, beta_out
@@ -792,8 +877,9 @@ def horseshoe_jacobi_t_mc_reference(XT_pad, gram, xsq_pad, eps, beta_pad,
                                     fold_affine: bool = False,
                                     row_valid=None, missing: bool = False):
     """The plain torch version of ``horseshoe_jacobi_t_mc``: each round
-    decodes its J*B markers once and runs the J x C blocks' sequential
-    solves batched, with ``horseshoe_jacobi_t_reference``'s algebra."""
+    decodes its J*B markers once (``missing``: ``_miss_round``) and runs the
+    J x C blocks' sequential solves batched, with
+    ``horseshoe_jacobi_t_reference``'s algebra."""
     _check_mode(XT_pad, gram, J, x_mean, fold_affine, missing,
                 "Queue 2 entry 6")
     f32 = torch.float32
@@ -817,9 +903,14 @@ def horseshoe_jacobi_t_mc_reference(XT_pad, gram, xsq_pad, eps, beta_pad,
         s = rho[r].long()
         blk = jj * nr + s                                     # (J,)
         rows = (blk[:, None] * B + lanes).reshape(-1)         # (J*B,)
-        x = genotypes.decode_rows(XT_pad[rows], mean[rows], scale[rows],
-                                  lane_ok)                    # (J*B, Npad)
-        rr = (eps @ x.T).view(C, J, B)
+        if missing:
+            dot, apply = _miss_round(XT_pad[rows], mean[rows], scale[rows],
+                                     lane_ok)
+            rr = dot(eps).view(C, J, B)
+        else:
+            x = genotypes.decode_rows(XT_pad[rows], mean[rows], scale[rows],
+                                      lane_ok)                # (J*B, Npad)
+            rr = (eps @ x.T).view(C, J, B)
         bold = beta[:, rows].view(C, J, B)
         inn = inner_perm[blk]                                 # (J, B)
         pos = ((s * J + jj)[:, None] * B + lanes).reshape(-1)
@@ -836,5 +927,6 @@ def horseshoe_jacobi_t_mc_reference(XT_pad, gram, xsq_pad, eps, beta_pad,
             rr = rr - G_r[jj, m, :] * dd[..., None]
             d[:, jj, m] = dd
         beta[:, rows] = (bold + d).reshape(C, -1)
-        eps = eps - d.reshape(C, -1) @ x
+        eps = (apply(d.reshape(C, -1), eps) if missing
+               else eps - d.reshape(C, -1) @ x)
     return eps, beta

@@ -31,7 +31,7 @@ def _bayesr_mc(plain, XT_pad, gram, xsq_pad, eps, beta_pad, labels_pad,
                sigmaGG, g_assign_pad, valid_pad, x_mean, x_scale, x_xsum,
                fold_affine, row_valid, max_call_blocks):
     serial.check_mode(XT_pad, x_mean, x_xsum, fold_affine, row_valid,
-                      "Queue 2 entry 7")
+                      "Queue 2 entry 7", fused=True)
     C, G, K = pi.shape
     Mpad = xsq_pad.shape[0]
     if tuple(p_arr.shape) != (C, Mpad) or tuple(z_arr.shape) != (C, Mpad):
@@ -94,7 +94,7 @@ def _horseshoe_mc(plain, XT_pad, gram, xsq_pad, eps, beta_pad, block_order,
                   inner_perm, z_arr, lam, tau, c2, sigmaE, valid_pad, x_mean,
                   x_scale, x_xsum, fold_affine, row_valid, max_call_blocks):
     serial.check_mode(XT_pad, x_mean, x_xsum, fold_affine, row_valid,
-                      "Queue 2 entry 7")
+                      "Queue 2 entry 7", fused=True)
     C, Mpad = lam.shape
     if tuple(z_arr.shape) != (C, Mpad):
         raise ValueError("multi-chain z must be (C, Mpad), marker-indexed")

@@ -2,9 +2,12 @@
 genotypes.
 
 Counterpart of ``bayesrrcpp_tpu/ops/pallas_sweep.py:bayesr_sweep_pallas``
-and ``horseshoe_sweep_pallas`` in their fold-affine packed mode, the
-semantics anchor of the JAX package: no Jacobi rounds, every marker update
-sees every earlier one.  Semantics (the Markov kernel the port keeps):
+and ``horseshoe_sweep_pallas`` in their two packed modes, the semantics
+anchor of the JAX package: no Jacobi rounds, every marker update sees
+every earlier one.  ``fold_affine=True`` (words with no missing call) is
+the ``_qf`` mode; ``fold_affine=False`` the in-kernel decode ``_q`` (the
+words hold missing calls, code 3), one chain only.  Semantics (the Markov
+kernel the port keeps):
 
 - the blocks run in ``block_order`` (which may be shorter than nb, a
   prefix of the sweep); position s of the block at sweep position i
@@ -12,12 +15,15 @@ sees every earlier one.  Semantics (the Markov kernel the port keeps):
   reads p/z[i*B + s], by sweep position (pallas_sweep.py:495-550);
 - per block: r = s*(C.eps) - (m*s)*sum(eps) from the raw codes C, B exact
   sequential Gibbs steps against r kept current by rank-1 Gram updates,
-  then eps -= (d*s).C - d.(m*s) (pallas_sweep.py:177-301);
-- sum(eps) is recomputed from eps at each chunk start and tracked as
-  sum(eps) - d.xsum inside a chunk; the chunks are the JAX wrapper's,
-  ``max_call_blocks`` or 65536 // B blocks each, the remainder first
-  (pallas_sweep.py:508, :573, :593-609), so the port's sums and labels
-  follow JAX's at near ties;
+  then eps -= (d*s).C - d.(m*s) (pallas_sweep.py:177-301); in the ``_q``
+  mode r = x.eps and eps -= d.x with x = (c - m)*s decoded in place, 0 for
+  code 3 and for the individuals n >= N (pallas_sweep.py:_decode_tile);
+- fold mode: sum(eps) is recomputed from eps at each chunk start and
+  tracked as sum(eps) - d.xsum inside a chunk; the chunks are the JAX
+  wrapper's, ``max_call_blocks`` or 65536 // B blocks each, the remainder
+  first (pallas_sweep.py:508, :573, :593-609), so the port's sums and
+  labels follow JAX's at near ties (the ``_q`` mode carries nothing from
+  one block to the next but eps, so its chunks change nothing);
 - the per-marker step constants are tables built here in plain torch
   (``build_pkg``, ``build_pkg_hs``; pallas_multichain.py:74, :497) and
   read by the step; the horseshoe draws num*(1/denom) + sd*z, as the
@@ -36,8 +42,8 @@ from __future__ import annotations
 import torch
 
 from . import genotypes
-from .jacobi_t import (SweepResult, _hs_tables, _operands, _tables,
-                       categorical_draw)
+from .jacobi_t import (SweepResult, _hs_tables, _operands, _ptr,
+                       bayesr_tables, categorical_draw)
 
 # launches per block position of the CUDA sweeps: dot, solve, apply
 LAUNCHES_PER_BLOCK = 3
@@ -54,7 +60,8 @@ def build_pkg(xsq, gas, pi, cva, sigmaE, sigmaGG):
     1/denom, slab sd], the spike in column 0 of each (pallas_multichain.py:
     build_pkg, less its p/z columns).  pi (C, G, K), sigmaE (C,), sigmaGG
     (C, G)."""
-    return torch.cat(_tables(xsq, gas, pi, cva, sigmaE, sigmaGG), dim=-1)
+    return torch.cat(bayesr_tables(xsq, gas, pi, cva, sigmaE, sigmaGG),
+                     dim=-1)
 
 
 def build_pkg_hs(xsq, lam, tau, c2, sigmaE):
@@ -64,20 +71,26 @@ def build_pkg_hs(xsq, lam, tau, c2, sigmaE):
     return torch.stack(_hs_tables(xsq, lam, tau, c2, sigmaE), dim=-1)
 
 
-def check_mode(XT_pad, x_mean, x_xsum, fold_affine, row_valid, entry):
+def check_mode(XT_pad, x_mean, x_xsum, fold_affine, row_valid, entry,
+               fused=False):
     """Reject the modes of the TPU kernel that are not ported; ``entry``
-    is the ROADMAP entry of the sweep's kernel."""
+    is the ROADMAP entry of the sweep's kernel.  The fused sweeps take no
+    in-kernel decode, as ``bayesr_sweep_pallas_mc`` takes none
+    (pallas_multichain.py:381-394)."""
     if x_mean is None or XT_pad.dtype != torch.int32:
         raise NotImplementedError(
             "the serial sweep is ported for 2-bit packed words only; its "
             f"dense f32 and int8 modes are ROADMAP {entry}")
-    if not fold_affine:
+    if row_valid is None:
+        raise ValueError("packed serial sweep needs row_valid")
+    if fold_affine:
+        if x_xsum is None:
+            raise ValueError("packed fold_affine sweep needs x_xsum")
+    elif fused:
         raise NotImplementedError(
-            "the in-kernel decode mode (`_q`, packed genotypes with missing "
-            f"calls) is ROADMAP {entry} / Queue 1 item 7")
-    if x_xsum is None or row_valid is None:
-        raise ValueError("packed fold_affine sweep needs x_xsum and "
-                         "row_valid")
+            "the fused multi-chain sweep takes packed X with fold_affine "
+            "only (no missing calls); the in-kernel decode is single-chain "
+            "only, as in the JAX package")
 
 
 def position_markers(block_order, inner_perm, B):
@@ -88,12 +101,13 @@ def position_markers(block_order, inner_perm, B):
 
 def run(plain, fused, K, G, chunk, words, gram, xsq, eps, beta, labels,
         border, inner, p, z, tbl, sigmaE, gas, valid, mean, scale, xsum,
-        row_valid):
+        row_valid, fold=True):
     """One sweep of C chains (every per-chain operand with a leading chain
     axis; p/z (C, n*B) by position, or (C, Mpad) by marker when
     ``fused``): the plain version if ``plain``, else the CUDA kernels.
-    K == 0 is the horseshoe.  Returns (eps, beta, labels, v, bacc), the
-    last three None for the horseshoe."""
+    K == 0 is the horseshoe; ``fold=False`` is the in-kernel decode mode
+    (C == 1).  Returns (eps, beta, labels, v, bacc), the last three None
+    for the horseshoe."""
     if plain:
         if fused:
             at = position_markers(border, inner, gram.shape[1])
@@ -101,18 +115,18 @@ def run(plain, fused, K, G, chunk, words, gram, xsq, eps, beta, labels,
             z = z[:, at]
         return _plain_sweep(K, G, chunk, words, gram, xsq, eps, beta, labels,
                             border, inner, p, z, tbl, sigmaE, gas, valid,
-                            mean, scale, xsum, row_valid)
+                            mean, scale, xsum, row_valid, fold)
     if words.device.type != "cuda":
         raise NotImplementedError(f"no serial kernel for device "
                                   f"{words.device}")
     return _sweep_cuda(fused, K, G, chunk, words, gram, xsq, eps, beta,
                        labels, border, inner, p, z, tbl, sigmaE, gas, valid,
-                       mean, scale, xsum, row_valid)
+                       mean, scale, xsum, row_valid, fold)
 
 
 def _plain_sweep(K, G, chunk, words, gram, xsq, eps, beta, labels, border,
                  inner, p, z, tbl, sigmaE, gas, valid, mean, scale, xsum,
-                 row_valid):
+                 row_valid, fold):
     """The plain torch version of a sweep of C chains, block by block with
     the kernels' algebra (p/z by position), in f32, or in float64 when eps
     is float64 (a yardstick for the f32 rounding; the step tables stay
@@ -125,7 +139,8 @@ def _plain_sweep(K, G, chunk, words, gram, xsq, eps, beta, labels, border,
     eps = eps.to(ft).clone()
     beta = beta.to(ft).clone()
     okf = valid.to(ft)
-    xsq, mean, scale, xsum = (x.to(ft) for x in (xsq, mean, scale, xsum))
+    xsq, mean, scale = (x.to(ft) for x in (xsq, mean, scale))
+    xsum = xsum.to(ft) if fold else None
     lane_ok = row_valid.to(torch.bool)
     if K:
         labels = labels.to(torch.int32).clone()
@@ -137,13 +152,18 @@ def _plain_sweep(K, G, chunk, words, gram, xsq, eps, beta, labels, border,
     z = z.to(ft)
     rem = n % chunk
     for i, blk in enumerate(border.tolist()):
-        if i == 0 or (i >= rem and (i - rem) % chunk == 0):
-            esum = eps.sum(dim=-1)                         # chunk start
         rows = slice(blk * B, blk * B + B)
-        codes = genotypes.decode_codes(words[rows]).to(ft)  # (B, Npad)
-        sc = scale[rows]
-        ms = mean[rows] * sc
-        r = (eps @ codes.T) * sc - ms * esum[:, None]      # (C, B)
+        if fold:
+            if i == 0 or (i >= rem and (i - rem) % chunk == 0):
+                esum = eps.sum(dim=-1)                     # chunk start
+            codes = genotypes.decode_codes(words[rows]).to(ft)  # (B, Npad)
+            sc = scale[rows]
+            ms = mean[rows] * sc
+            r = (eps @ codes.T) * sc - ms * esum[:, None]  # (C, B)
+        else:
+            x = genotypes.decode_rows(words[rows], mean[rows], scale[rows],
+                                      lane_ok)             # (B, Npad)
+            r = eps @ x.T
         bo, ok, xs = beta[:, rows], okf[rows], xsq[rows]
         tb = tbl[:, rows].to(ft)                          # (C, B, F)
         Gb = gram[blk].to(ft)
@@ -172,10 +192,13 @@ def _plain_sweep(K, G, chunk, words, gram, xsq, eps, beta, labels, border,
                     dim=1).to(ft)
                 bacc[:, g] += torch.where((krec > 0) & in_g, bnew * bnew,
                                           0.0).sum(dim=-1)
-        esum = esum - (d * xsum[rows]).sum(dim=-1)
-        dms = (d * ms).sum(dim=-1)
-        eps = torch.where(lane_ok, eps - ((d * sc) @ codes - dms[:, None]),
-                          eps)
+        if fold:
+            esum = esum - (d * xsum[rows]).sum(dim=-1)
+            dms = (d * ms).sum(dim=-1)
+            eps = torch.where(lane_ok,
+                              eps - ((d * sc) @ codes - dms[:, None]), eps)
+        else:
+            eps = torch.where(lane_ok, eps - d @ x, eps)
     if not K:
         return eps, beta, None, None, None
     return eps, beta, labels, v, bacc
@@ -183,7 +206,7 @@ def _plain_sweep(K, G, chunk, words, gram, xsq, eps, beta, labels, border,
 
 def _sweep_cuda(fused, K, G, chunk, words, gram, xsq, eps, beta, labels,
                 border, inner, p, z, tbl, sigmaE, gas, valid, mean, scale,
-                xsum, row_valid):
+                xsum, row_valid, fold):
     from . import _cuda
 
     lib = _cuda.library("serial")
@@ -205,13 +228,12 @@ def _sweep_cuda(fused, K, G, chunk, words, gram, xsq, eps, beta, labels,
         raise ValueError(f"block_order has {n} blocks, the data {nb}")
     if C > lib.lib.serial_max_chains():
         raise ValueError(f"{C} chains in one fused launch")
+    if not fold and C != 1:
+        raise ValueError("the in-kernel decode sweeps one chain")
     f32, i32 = torch.float32, torch.int32
     arg = _operands(dev)
     F = 3 * K if K else 2
     pz_shape = (C, Mpad) if fused else (C, n * B)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
 
     words = arg(words, i32, (Mpad, Nw), "words")
     ops = dict(
@@ -222,7 +244,8 @@ def _sweep_cuda(fused, K, G, chunk, words, gram, xsq, eps, beta, labels,
         xsq=arg(xsq, f32, (Mpad,), "xsq"),
         mean=arg(mean, f32, (Mpad,), "x_mean"),
         scale=arg(scale, f32, (Mpad,), "x_scale"),
-        xsum=arg(xsum, f32, (Mpad,), "x_xsum"),
+        xsum=(arg(xsum, f32, (Mpad,), "x_xsum") if fold
+              else torch.zeros((Mpad,), dtype=f32, device=dev)),
         valid=arg(valid, torch.bool, (Mpad,), "valid"),
         gas=arg(gas, i32, (Mpad,), "g_assign") if K else None)
     eps_out = torch.empty((C, Npad), dtype=f32, device=dev)
@@ -243,8 +266,9 @@ def _sweep_cuda(fused, K, G, chunk, words, gram, xsq, eps, beta, labels,
              else None)
     bpart = torch.empty((C, n, G), dtype=f32, device=dev) if K else None
     stream = torch.cuda.current_stream(dev).cuda_stream
-    ints = (C, int(fused), Nw, n, chunk, B, K, G if K else 0, Mpad, nsplit)
-    ptrs = [ptr(t) for t in (
+    ints = (C, int(fused), Nw, n, chunk, B, K, G if K else 0, Mpad, nsplit,
+            int(not fold))
+    ptrs = [_ptr(t) for t in (
         words, ops["border"], ops["inner"], ops["gram"], ops["tbl"],
         ops["xsq"], ops["mean"], ops["scale"], ops["xsum"], ops["valid"],
         ops["gas"], eps_out, row_valid, beta_out, labels_out, p, z, sigmaE,
@@ -281,7 +305,8 @@ def _bayesr(plain, XT_pad, gram, xsq_pad, eps, beta_pad, labels_pad,
     out = run(plain, False, K, G, call_blocks(n, B, max_call_blocks), XT_pad,
               gram, xsq_pad, eps[None], beta_pad[None], labels_pad[None],
               block_order, inner_perm, p_arr[None], z_arr[None], tbl, sigmaE,
-              g_assign_pad, valid_pad, x_mean, x_scale, x_xsum, row_valid)
+              g_assign_pad, valid_pad, x_mean, x_scale, x_xsum, row_valid,
+              fold_affine)
     return SweepResult(*(x[0] for x in out))
 
 
@@ -297,7 +322,9 @@ def bayesr_sweep(XT_pad, gram, xsq_pad, eps, beta_pad, labels_pad,
     labels_pad, g_assign_pad, valid_pad, x_mean, x_scale, x_xsum (Mpad,);
     eps and row_valid (Npad,); block_order (n,) with n <= nb, each block at
     most once; inner_perm (nb, B); p_arr, z_arr (n*B,) by sweep position;
-    pi (G, K); cva (G, K-1); sigmaE scalar; sigmaGG (G,).  On CUDA tensors
+    pi (G, K); cva (G, K-1); sigmaE scalar; sigmaGG (G,).
+    ``fold_affine=False``: the in-kernel decode mode, for words with
+    missing calls (``x_xsum`` is then not read).  On CUDA tensors
     it launches ``csrc/serial.cu`` (3 launches per block, counted in
     ``bayesr_sweep.launches``) or raises; on CPU tensors it runs
     ``bayesr_sweep_reference``.
@@ -347,7 +374,7 @@ def _horseshoe(plain, XT_pad, gram, xsq_pad, eps, beta_pad, block_order,
     out = run(plain, False, 0, 0, call_blocks(n, B, max_call_blocks), XT_pad,
               gram, xsq_pad, eps[None], beta_pad[None], None, block_order,
               inner_perm, None, z_arr[None], tbl, None, None, valid_pad,
-              x_mean, x_scale, x_xsum, row_valid)
+              x_mean, x_scale, x_xsum, row_valid, fold_affine)
     return out[0][0], out[1][0]
 
 

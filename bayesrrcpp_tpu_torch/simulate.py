@@ -2,8 +2,8 @@
 
 Counterpart of ``bayesrrcpp_tpu/simulate.py``: ``simulate_bayesr`` is the
 same NumPy recipe (the reference smoke script, src/BayesRv2.cpp:298-308);
-the packed-genotype generator draws from a ``torch.Generator`` on the
-device, in row chunks, so a biobank-sized word array never needs more
+the packed-genotype generators (without and with missing calls) draw
+from a ``torch.Generator`` on the device, in row chunks, so a biobank-sized word array never needs more
 than one chunk of temporaries beside itself.
 """
 from __future__ import annotations
@@ -88,6 +88,31 @@ def random_packed_words(generator, M, n_words, *, device,
         w &= _LO_MASK
         w &= ~(h >> 1)
         out[a:b] = w.bitwise_or_(h)
+    return out
+
+
+def random_packed_words_missing(generator, M, n_words, *, levels: int = 6,
+                                device, chunk_bytes: int = 1 << 28):
+    """``random_packed_words`` plus missing-at-random calls: each field
+    becomes the missing code 3 with probability 2**-levels (~1.6 % at the
+    default, a realistic non-imputed .bed; the JAX recipe,
+    bayesrrcpp_tpu/simulate.py:92-120, with its own random stream).
+    Missing at random leaves the other codes' distribution as it is, so
+    ``packed_word_stats`` still applies.  Generated on ``device`` in chunks
+    of about ``chunk_bytes`` of words."""
+    out = random_packed_words(generator, M, n_words, device=device,
+                              chunk_bytes=chunk_bytes)
+    rows = max(1, chunk_bytes // (4 * max(1, n_words)))
+    for a in range(0, M, rows):
+        b = min(M, a + rows)
+        m = torch.full((b - a, n_words), -1, dtype=torch.int32,
+                       device=device)
+        for _ in range(levels):
+            m &= torch.randint(-(2 ** 31), 2 ** 31 - 1, (b - a, n_words),
+                               generator=generator, dtype=torch.int32,
+                               device=device)
+        m &= _LO_MASK
+        out[a:b] |= m.bitwise_or_(m << 1)     # both bits set: code 3
     return out
 
 

@@ -1,0 +1,77 @@
+"""The least time an NVIDIA H100 could take for a sweep's work, computed
+from its shapes alone (no card needed).  ``sweep`` is the one count of a
+whole sweep's bytes and operations: ``chip_smoke.py`` calls it with the
+shapes and data of each sweep it runs, and this script with the headline
+constants for the TPU kernels that the port has not run yet:
+
+    python3 bayesrrcpp_tpu_torch/tools/kernel_bounds.py
+
+Each bound is the larger of the bytes the kernel must move (each input read
+once, each output written once) over 3.35 TB/s and its FP32 operations over
+67 TFLOP/s (NVIDIA H100 SXM data sheet, 700 W).  The script's rows are one
+whole sweep of M=503,808 markers at N=100,352 on one card, plan J=128,
+B=32, K=4, G=1, with the least that depends on the data: no marker moves.
+Prints one JSON line per pallas_call site.
+"""
+import json
+
+HBM_BYTES_PER_S, FP32_FLOPS = 3.35e12, 67e12
+N, M, B, J, K = 100_352, 503_808, 32, 128, 4
+NB = M // B
+GRAM_FLOATS = NB * B * B
+
+
+def bound(nbytes, flops):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def sweep(npad, mpad, gram_floats, chains, marker_arrays, moved=0,
+          extra_fmas=0):
+    """A whole sweep of ``chains`` chains over ``mpad`` markers of 2-bit
+    words at ``npad`` lanes.  Bytes: the words, ``gram_floats`` Gram floats
+    and the per-marker statistics (xsq, mean, scale, g_assign and a valid
+    byte) read once, the lane mask, and per chain eps read and written and
+    ``marker_arrays`` f32/int32 marker vectors.  FP32 FMAs (2 flops each):
+    the dot's one per code and chain, the apply's one per lane of every
+    row that moved (``moved``, summed over chains), and ``extra_fmas`` more
+    (the missing-call mode's indicator terms, one per missing call that a
+    dot or an apply touches)."""
+    nbytes = (mpad * npad // 4 + 4 * gram_floats + 17 * mpad + npad
+              + chains * (8 * npad + 4 * marker_arrays * mpad))
+    return bound(nbytes, 2.0 * (npad * (chains * mpad + moved) + extra_fmas))
+
+
+def round_solve(table_fields, step_flops):
+    """The solve phase alone over a sweep's rounds (sites #13, #14): the
+    Gram blocks, r and a per-marker table of ``table_fields`` floats read,
+    beta read and written, the deltas written; ``step_flops`` per marker
+    (the draw, and the rank-1 update of the block's r, 2B)."""
+    nbytes = 4 * GRAM_FLOATS + 4 * M * (1 + table_fields + 2 + 1)
+    return bound(nbytes, float(M * step_flops))
+
+
+SITES = [
+    ("5", "pallas_jacobi_t.py:2229 bayesr_jacobi_t_rounds",
+     sweep(N, M, GRAM_FLOATS, 1, 6)),
+    ("6", "pallas_jacobi_t.py:2403 bayesr_jacobi_t_mc_rounds (C=8)",
+     sweep(N, M, GRAM_FLOATS, 8, 6)),
+    # BayesR: the table [lp, invd, sd] x K, p, z, xsq, valid; labels read
+    # and written besides; per step 4K (mu, logL) + 2K^2 (the guarded
+    # weights) + 2B flops
+    ("13", "pallas_jacobi.py:704 bayesr_round_solve_pallas",
+     round_solve(3 * K + 4 + 2, 4 * K + 2 * K * K + 2 * B)),
+    # horseshoe: [invd, sd, z, xsq, valid]; per step 4 + 2B flops
+    ("14", "pallas_jacobi.py:833 horseshoe_round_solve_pallas",
+     round_solve(5, 4 + 2 * B)),
+    ("15", "pallas_jacobi.py:1153 horseshoe_jacobi_pallas",
+     sweep(N, M, GRAM_FLOATS, 1, 4)),
+    ("16", "pallas_jacobi.py:1299 bayesr_jacobi_pallas",
+     sweep(N, M, GRAM_FLOATS, 1, 6)),
+]
+
+if __name__ == "__main__":
+    for site, where, b in SITES:
+        print(json.dumps({"site": site, "tpu_kernel": where, **b}))

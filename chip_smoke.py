@@ -74,7 +74,37 @@ Phases, each of which fails the run (non-zero exit, no result line):
    one profiled step); recovery at J=1 for both samplers (N=4096, M=2048,
    block_size 256, corr > 0.8); and the auto plan at M=1500 < 2048 markers
    (no ``jacobi_blocks``: J=1), one chain and 8 fused chains of both
-   samplers, each with its launch count checked.
+   samplers, each with its launch count checked;
+13. the strided kernels' miss mode (words with ~1.6 % missing calls at
+   random, ``simulate.random_packed_words_missing``), BayesR and horseshoe,
+   one chain and fused at C=8, against their plain versions from a warm
+   state: at N=4096 x M=8192 labels and v equal, floats to rtol 1e-4 /
+   atol 1e-5, each fused chain bitwise equal to the single-chain kernel; at
+   the headline labels >= 99.9 % equal and, chain by chain, |d eps| / |eps|
+   < 1e-3 where all labels agree; a chain with a flipped label is replayed
+   up to the first round R0 with a flip (labels equal and |d eps| / |eps|
+   < 1e-3 after R0 rounds), the first flip of each block of round R0 must
+   be a near tie (its u within f32 rounding of a cumulative weight,
+   recomputed in f64; ``flip_replay`` prints each margin), and its eps is
+   held to its own eps_in - X dbeta to 1e-5 (the horseshoe: eps and beta <
+   1e-4); every sweep timed, with the dot's torch.matmul yardstick and a
+   bound that counts the indicator's FMAs on the missing calls only;
+14. the main path of biobank-packed-missing: ``SpikeSlabSampler`` on those
+   words ``.run(generator, ChainConfig(30, 10, 10), sink=CSVSink(...))``,
+   then the horseshoe, then 8 fused chains of each (``run_chains``), with
+   CSV widths, finite values, tracked vs recomputed eps and the launch
+   counts, and a profile of dot / solve / apply for each;
+15. the serial kernels' in-kernel decode (``fold_affine=False``) against
+   their plain versions: at N=4096 x M=8192 with B=512 and B=64 as phase
+   10, on 16 headline blocks (BayesR labels >= 99.9 %, |d eps| / |eps| <
+   1e-3, the horseshoe < 1e-4), the full headline sweep timed; then an
+   M=1500 auto-plan fit with missing calls (J=1) of both samplers, one
+   chain and 8 chains (unfused: each chain through the single-chain
+   kernel; ``fused=True`` raises), with their launch counts;
+16. the CLI in-process, ``python -m bayesrrcpp_tpu_torch bayesr|horseshoe
+   --bed ... --x-dtype 2bit`` on a .bed with missing calls at N=100,352 x
+   M=8,192 written by ``io/bed.write_bed`` into a temporary directory, on
+   the card: the CSV's widths and values and the launch counts.
 
 The three kernel libraries build at once (one nvcc per source).  The last
 two lines of standard output are the kernels' JSON record (with each
@@ -95,8 +125,6 @@ HEADLINE_N, HEADLINE_M = 100_352, 503_808
 # hundred iterations to leave the collapsed mode (all signal in sigmaE)
 HS_RECOVERY_CHAIN = (600, 300, 1)
 CHAINS = 8                          # the 8-chain cells
-# NVIDIA H100 SXM data sheet: HBM3 rate and FP32 rate without tensor cores
-HBM_BYTES_PER_S, FP32_FLOPS = 3.35e12, 67e12
 # per-chain operands of the sweeps, by position (ops/jacobi_t.py)
 BAYESR_CHAIN_ARGS = (3, 4, 5, 8, 9, 10, 12, 13)
 HS_CHAIN_ARGS = (3, 4, 7, 8, 9, 10, 11)
@@ -118,9 +146,7 @@ def hs_sweep_args(s, st, v):
     rho, inner = v.orders(s.nb, s.B, s.jacobi)
     args = (d.XT, d.gram, d.xsq, st.eps, st.beta, rho, inner, v.z(s.Mpad),
             st.lam, st.tau, st.c2, st.sigmaE, d.valid)
-    kw = dict(J=s.jacobi, x_mean=d.x_mean, x_scale=d.x_scale,
-              x_xsum=d.x_colsum, fold_affine=True, row_valid=d.row_valid)
-    return args, kw
+    return args, dict(J=s.jacobi, **s._packed_kw())
 
 
 def chain_args(args, c, per_chain):
@@ -128,25 +154,52 @@ def chain_args(args, c, per_chain):
     return tuple(a[c] if k in per_chain else a for k, a in enumerate(args))
 
 
-def sweep_bound(s, chains, moved, marker_arrays, gram_rows=None):
+def sweep_bound(s, chains, moved, marker_arrays, gram_rows=None,
+                extra_fmas=0):
     """(bound_ms, bound_by) of one sweep of ``chains`` chains on sampler
-    ``s``'s data: the larger of the bytes it must move (words, Gram blocks
-    and per-marker statistics read once; per chain eps read and written
-    and ``marker_arrays`` f32/int32 marker vectors) over the HBM rate, and
-    its FP32 FMAs (2 flops each: the dot multiplies every code by each
-    chain's eps, the apply the row of every marker that moved, ``moved``
-    summed over chains) over the FP32 rate.  The Gram bytes are every
-    block's, or ``gram_rows`` rows of B floats when given: a serial sweep
-    needs the Gram row of a marker only where it moved (in any chain)."""
+    ``s``'s data, by ``tools/kernel_bounds.sweep``: ``moved`` rows applied
+    (summed over chains), ``marker_arrays`` per-chain marker vectors, and
+    the Gram bytes of every block, or of ``gram_rows`` rows of B floats
+    when given (a serial sweep needs the Gram row of a marker only where it
+    moved, in any chain).  ``extra_fmas``: the missing-call mode's
+    indicator terms (``missing_fmas``)."""
+    from bayesrrcpp_tpu_torch.tools import kernel_bounds
+
     d = s.data
-    gram_bytes = (d.gram.numel() if gram_rows is None
-                  else gram_rows * s.B) * 4
-    nbytes = (d.XT.numel() * 4 + gram_bytes + s.Mpad * 17 + s.Npad
-              + chains * (8 * s.Npad + 4 * marker_arrays * s.Mpad))
-    flops = 2.0 * s.Npad * (chains * s.Mpad + moved)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+    gram_floats = d.gram.numel() if gram_rows is None else gram_rows * s.B
+    b = kernel_bounds.sweep(s.Npad, s.Mpad, gram_floats, chains,
+                            marker_arrays, moved, extra_fmas)
+    return b["bound_ms"], b["bound_by"]
+
+
+def missing_calls(torch, s, rows=4096):
+    """Missing calls (code 3) per marker (Mpad,) int64 in sampler ``s``'s
+    words, on real markers (< M) and lanes (< N) only, counted from the
+    words' indicator bits ``w & (w >> 1) & 0x55555555`` in chunks."""
+    d = s.data
+    dev = d.XT.device
+    lane_bits = (d.row_valid.view(-1, 16).to(torch.int64)
+                 << (2 * torch.arange(16, device=dev))).sum(dim=1)
+    lane_bits = lane_bits.to(torch.int32)       # bits 2k of the real lanes
+    count = torch.zeros(s.Mpad, dtype=torch.int64, device=dev)
+    for a in range(0, s.M, rows):
+        w = d.XT[a:min(a + rows, s.M)]
+        x = w & (w >> 1) & lane_bits            # one bit per missing call
+        x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+        x = (x + (x >> 4)) & 0x0F0F0F0F
+        x = (x & 0xFF) + ((x >> 8) & 0xFF) + ((x >> 16) & 0xFF) + (x >> 24)
+        count[a:a + w.shape[0]] = x.sum(dim=1)
+    return count
+
+
+def missing_fmas(miss, moved):
+    """The indicator terms of a ``miss`` sweep: each chain's dot adds one
+    per missing call, each moved row's apply one per missing call of the
+    row.  ``miss`` (Mpad,) from ``missing_calls``; ``moved`` (Mpad,) or
+    (C, Mpad) bool, the markers each chain moved."""
+    lead = moved if moved.dim() == 2 else moved[None]
+    return (lead.shape[0] * int(miss.sum())
+            + int((lead * miss).sum()))
 
 
 def rel_err(a, b):
@@ -163,9 +216,7 @@ def sweep_args(s, st, v):
     args = (d.XT, d.gram, d.xsq, st.eps, st.beta, st.labels, rho, inner,
             v.p(s.Mpad), v.z(s.Mpad), st.pi, d.cva, st.sigmaE, st.sigmaGG,
             d.g_assign, d.valid)
-    kw = dict(J=s.jacobi, x_mean=d.x_mean, x_scale=d.x_scale,
-              x_xsum=d.x_colsum, fold_affine=True, row_valid=d.row_valid)
-    return args, kw
+    return args, dict(J=s.jacobi, **s._packed_kw())
 
 
 def timed(torch, fn, reps):
@@ -198,8 +249,11 @@ def round_rows(torch, s, rho):
             + torch.arange(s.B, device=rho.device)).reshape(-1)
 
 
-def packed_sampler(torch, bt, g, N, M, cfg, signal=None, **plan):
-    words = bt.simulate.random_packed_words(g, M, N // 16, device="cuda")
+def packed_sampler(torch, bt, g, N, M, cfg, signal=None, missing=False,
+                   **plan):
+    make = (bt.simulate.random_packed_words_missing if missing
+            else bt.simulate.random_packed_words)
+    words = make(g, M, N // 16, device="cuda")
     means, sds = bt.simulate.packed_word_stats(M)
     Y = torch.randn(N, generator=g, device="cuda")
     if signal is not None:
@@ -311,7 +365,7 @@ def main():
 
 
 def smoke(torch, tmp):
-    """Phases 1-12 (module docstring), their CSVs under ``tmp``; returns 0
+    """Phases 1-16 (module docstring), their CSVs under ``tmp``; returns 0
     or raises."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import bayesrrcpp_tpu_torch as bt
@@ -553,6 +607,10 @@ def smoke(torch, tmp):
 
     # ---- 10-12. the serial (J=1) kernels and main paths
     serial_kernels = serial_phases(torch, bt, hs, tmp)
+    del hs
+
+    # ---- 13-16. words with missing calls
+    missing_kernels = missing_phases(torch, bt, tmp)
 
     src = "bayesrrcpp_tpu_torch/csrc/jacobi_t.cu"
     src_mc = "bayesrrcpp_tpu_torch/csrc/jacobi_t_mc.cu"
@@ -577,7 +635,8 @@ def smoke(torch, tmp):
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"]})
-    print(json.dumps({"kernels": kernels + serial_kernels}))
+    print(json.dumps({"kernels": kernels + serial_kernels
+                      + missing_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -1124,6 +1183,596 @@ def serial_phases(torch, bt, hs, tmp):
                   "source": "bayesrrcpp_tpu_torch/csrc/serial.cu",
                   "replaces": replaces[key]}, **records[key])
             for key in ("bayesr", "horseshoe", "bayesr_mc", "horseshoe_mc")]
+
+
+def check_against_plain(torch, tag, names, ker, ref):
+    """labels and v equal, the floats to rtol 1e-4 / atol 1e-5; returns the
+    largest |d| of the floats."""
+    worst = 0.0
+    for name, a, b in zip(names, ker, ref):
+        if name in ("labels", "v"):
+            check(torch.equal(a, b), f"{tag} {name} differ from plain")
+            continue
+        d = float((a - b).abs().max())
+        worst = max(worst, d)
+        check(torch.allclose(a, b, rtol=1e-4, atol=1e-5),
+              f"{tag} {name} differs from plain: max |d| {d:.3g}")
+    return worst
+
+
+def held_per_chain(torch, s, tag, args, kw, ker, ref, per_chain=None):
+    """BayesR at the headline against the plain version, chain by chain
+    (``args`` a sweep's operands, fused when ``per_chain`` names the
+    per-chain ones): a chain whose labels all equal the plain version's
+    holds eps to |d eps| / |eps| < 1e-3.  A chain with a flipped label is
+    replayed by ``flip_replay``: after R0 rounds, R0 the first round with a
+    flip, its labels must equal the plain version's and its eps be within
+    1e-3; each flip ``flip_replay`` recomputes must be a near tie (|u -
+    weight| within the reach of f32 rounding); and its eps must hold to its
+    own algebra, eps_in - X (beta_out - beta_in), to 1e-5.  Returns
+    [(chain, flip_replay's result)] of the flipped chains."""
+    from bayesrrcpp_tpu_torch.ops.genotypes import xbeta_packed
+
+    d = s.data
+    lead = (lambda x: x[None]) if ker[0].dim() == 1 else (lambda x: x)
+    k_eps, k_beta, k_lab = (lead(x) for x in ker[:3])
+    r_eps, r_beta, r_lab = (lead(x) for x in ref[:3])
+    eps_in, beta_in = lead(args[3]), lead(args[4])
+    flipped = []
+    for c in range(k_eps.shape[0]):
+        if torch.equal(k_lab[c], r_lab[c]):
+            rel = rel_err(k_eps[c], r_eps[c])
+            check(rel < 1e-3, f"{tag} chain {c} eps rel diff {rel}")
+            continue
+        one = args if per_chain is None else chain_args(args, c, per_chain)
+        rp = flip_replay(torch, s, one, kw, k_lab[c], r_lab[c], r_beta[c])
+        flipped.append((c, rp))
+        log(f"{tag} chain {c}: first label flip in round {rp['r0']} of "
+            f"{rp['rounds']}; after {rp['r0']} rounds labels equal: "
+            f"{rp['labels_equal']}, |d eps|/|eps| {rp['rel_eps']:.3g}; the "
+            f"round's first flips (marker, |u - cumulative weight|, reach "
+            f"of f32 rounding; num, its reach): " + ", ".join(
+                f"({t['marker']}, {t['margin']:.3g}, {t['reach']:.3g}; "
+                f"{t['num']:.6g}, {t['reach_num']:.3g})" for t in rp["near"]))
+        check(rp["labels_equal"] and rp["rel_eps"] < 1e-3,
+              f"{tag} chain {c}: state after {rp['r0']} rounds differs")
+        for t in rp["near"]:
+            check(t["margin"] <= t["reach"],
+                  f"{tag} chain {c}: marker {t['marker']} flipped with u "
+                  f"{t['margin']:.3g} from a cumulative weight, beyond f32 "
+                  f"rounding ({t['reach']:.3g})")
+        exact = eps_in[c][:s.N] - xbeta_packed(
+            d.XT, d.x_mean, d.x_scale, k_beta[c] - beta_in[c], s.B, s.N)
+        rel = rel_err(k_eps[c][:s.N], exact)
+        check(rel < 1e-5, f"{tag} chain {c} (a label flip) eps against "
+              f"eps_in - X dbeta: {rel}")
+    return flipped
+
+
+def flip_replay(torch, s, args, kw, k_lab, r_lab, r_beta):
+    """A BayesR sweep (single-chain operands ``args``) whose labels
+    ``k_lab`` differ from the plain version's ``r_lab``, replayed.  R0 is
+    the first round in which a label differs: each marker is drawn once a
+    sweep, in the round of its slab.  Kernel and plain version run again
+    with every marker of round R0 or later invalid, so that each returns
+    its state after R0 rounds.  Then the first flipped marker of each
+    block of round R0 (a later one follows a different draw) is drawn
+    again in f64 from the plain version's state after R0 rounds and its
+    deltas ``r_beta`` earlier in the block: its margin is |u - the nearest
+    cumulative weight|, and its reach how far that weight moves when num
+    moves by the f32 rounding of the sums that form it (2^-24 times the sum
+    of their terms' magnitudes) plus what the two states' difference gives
+    on the marker's row, with 2^-20 for the weights' own rounding.  Returns
+    a dict: r0, rounds, labels_equal and rel_eps (the states after R0
+    rounds), near (one dict per block: marker, u, k, margin, reach, num,
+    reach_num)."""
+    from bayesrrcpp_tpu_torch.ops import jacobi_t as jt
+    from bayesrrcpp_tpu_torch.ops.genotypes import MISSING_CODE, decode_codes
+
+    d = s.data
+    dev = d.XT.device
+    f64 = torch.float64
+    B, J = s.B, s.jacobi
+    rho = args[6].long()
+    nr = rho.numel()
+    round_of_slab = torch.empty_like(rho)
+    round_of_slab[rho] = torch.arange(nr, device=dev)
+    marker_round = round_of_slab[torch.arange(s.Mpad, device=dev) // B % nr]
+    flipped = k_lab != r_lab
+    r0 = int(marker_round[flipped].min())
+    pre = list(args)
+    pre[15] = args[15] & (marker_round < r0)
+    kp = jt.bayesr_jacobi_t(*pre, **kw)
+    rp = jt.bayesr_jacobi_t_reference(*pre, **kw)
+
+    slab = int(rho[r0])
+    eps, deps = rp.eps.to(f64), (kp.eps - rp.eps).to(f64)
+    lp, invd, _ = jt.bayesr_tables(args[2], args[14], args[10], args[11],
+                                   args[12], args[13])
+    half = 0.5 / torch.as_tensor(args[12], device=dev).to(f64)
+    lanes_ok = d.row_valid.to(torch.bool)
+    near = []
+    for j in range(J):
+        blk = j * nr + slab
+        rows = blk * B + torch.arange(B, device=dev)
+        inn = args[7][blk].tolist()
+        hit = flipped[rows].tolist()
+        steps = [t for t, lane in enumerate(inn) if hit[lane]]
+        if not steps:
+            continue
+        t = steps[0]
+        lane = inn[t]
+        m = blk * B + lane
+        c = decode_codes(d.XT[rows]).to(f64) * lanes_ok
+        mean = d.x_mean[rows].to(f64)[:, None]
+        sc = d.x_scale[rows].to(f64)[:, None]
+        x = torch.where((c != MISSING_CODE) & lanes_ok, (c - mean) * sc, 0.0)
+        rr = x @ eps
+        bold = args[4][rows].to(f64)
+        dd = r_beta[rows].to(f64) - bold
+        gram = args[1][blk].to(f64)
+        moved_terms = 0.0
+        for mt in inn[:t]:
+            rr = rr - gram[mt] * dd[mt]
+            moved_terms += abs(float(gram[mt, lane] * dd[mt]))
+        xsq = float(args[2][m])
+        num = rr[lane] + bold[lane] * xsq
+        # the magnitudes the f32 sums add up: the codes' dot, the
+        # indicator's (m - 3)-scaled dot, the fold's m * sum(eps)
+        e = eps.abs()
+        mi = float(mean[lane, 0])
+        ind = float((e * (c[lane] == MISSING_CODE)).sum())
+        sums = float(sc[lane, 0]) * (float((c[lane] * e).sum())
+                                     + abs(mi - MISSING_CODE) * ind
+                                     + abs(mi) * float(e.sum()))
+        reach_num = (2.0 ** -24 * (sums + moved_terms + abs(float(
+            bold[lane]) * xsq)) + abs(float(x[lane] @ deps)))
+        u = float(args[8][(slab * J + j) * B + t])
+
+        def weights(n):
+            return jt.cumulative_weights(lp[m].to(f64), invd[m].to(f64), n,
+                                         half)[1]
+
+        acum = weights(num)
+        gap = (u - acum).abs()
+        k = int(gap.argmin())
+        reach = max(abs(float(weights(num + reach_num)[k] - acum[k])),
+                    abs(float(weights(num - reach_num)[k] - acum[k])))
+        near.append(dict(marker=m, u=u, k=k, weight=float(acum[k]),
+                         margin=float(gap[k]), reach=reach + 2.0 ** -20,
+                         num=float(num), reach_num=reach_num))
+    return dict(r0=r0, rounds=nr, labels_equal=torch.equal(kp.labels,
+                                                           rp.labels),
+                rel_eps=rel_err(kp.eps, rp.eps), near=near)
+
+
+def missing_phases(torch, bt, tmp):
+    """Phases 13-16 (module docstring): words with ~1.6 % missing calls,
+    CSVs under ``tmp``.  Returns the six kernel records of the miss mode
+    (kernels A and B) and the in-kernel decode (kernel C)."""
+    import numpy as np
+
+    from bayesrrcpp_tpu_torch import cli
+    from bayesrrcpp_tpu_torch.io import bed
+    from bayesrrcpp_tpu_torch.io.native import get_native_bed
+    from bayesrrcpp_tpu_torch.io.sink import ChainFanoutSink, CSVSink
+    from bayesrrcpp_tpu_torch.ops import jacobi_t as jt
+    from bayesrrcpp_tpu_torch.ops import serial as ser
+
+    dev = torch.device("cuda")
+    bnames = ("eps", "beta", "labels", "v", "beta_acum")
+    strided = {
+        "bayesr": (jt.bayesr_jacobi_t, jt.bayesr_jacobi_t_reference,
+                   jt.bayesr_jacobi_t_mc, jt.bayesr_jacobi_t_mc_reference,
+                   bt.BayesRConfig, sweep_args, BAYESR_CHAIN_ARGS, bnames, 6,
+                   6),
+        "horseshoe": (jt.horseshoe_jacobi_t, jt.horseshoe_jacobi_t_reference,
+                      jt.horseshoe_jacobi_t_mc,
+                      jt.horseshoe_jacobi_t_mc_reference, bt.HorseshoeConfig,
+                      hs_sweep_args, HS_CHAIN_ARGS, ("eps", "beta"), 4, 5)}
+    records = {}
+
+    # ---- 13a. kernels A and B against their plain versions, N=4096 x
+    # M=8192, one chain and C=8 fused from warm states
+    for kind, (single, plain, fused, fused_plain, cfg, make_args, per_chain,
+               names, _, _) in strided.items():
+        g = torch.Generator(device=dev).manual_seed(50)
+        v = bt.TorchVariates(g)
+        s = packed_sampler(torch, bt, g, 4096, 8192, cfg(), missing=True)
+        check(s.data.has_missing and (s.jacobi, s.B) == (32, 32),
+              f"[13a] plan {(s.jacobi, s.B)}, missing {s.data.has_missing}")
+        st = s._run_steps(s.init(v), v, 3)
+        args, kw = make_args(s, st, v)
+        check(kw["missing"] and not kw["fold_affine"], f"[13a] mode {kw}")
+        err = check_against_plain(torch, f"[13a] {kind}", names,
+                                  tuple(single(*args, **kw)),
+                                  tuple(plain(*args, **kw)))
+        v8 = bt.TorchVariates(g, chains=CHAINS)
+        st8 = s.init(v8, chains=CHAINS)
+        for _ in range(3):
+            st8 = s.step_chains(st8, v8)
+        args, kw = make_args(s, st8, v8)
+        ker = tuple(fused(*args, **kw))
+        ferr = check_against_plain(torch, f"[13a] {kind} fused", names, ker,
+                                   tuple(fused_plain(*args, **kw)))
+        for c in range(CHAINS):
+            one = tuple(single(*chain_args(args, c, per_chain), **kw))
+            for name, a, b in zip(names, one, ker):
+                check(torch.equal(a, b[c]),
+                      f"[13a] {kind} chain {c} {name} differs from the "
+                      f"single-chain miss kernel")
+        frac = float(missing_calls(torch, s).sum()) / (s.M * s.N)
+        log(f"[13a] {kind} miss mode N=4096 M=8192 ({frac:.4f} missing): "
+            f"kernel vs plain max |d| {err:.3g}; fused C={CHAINS} vs plain "
+            f"max |d| {ferr:.3g}; every chain bitwise equal to the "
+            f"single-chain kernel")
+        del s, st, st8, args, ker
+
+    # ---- 13b. the headline
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(51)
+    s = packed_sampler(torch, bt, g, HEADLINE_N, HEADLINE_M,
+                       bt.BayesRConfig(emit_epsilon=False), missing=True)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    check((s.jacobi, s.B, s.jacobi_layout, s.Mpad) ==
+          (128, 32, "t", HEADLINE_M) and s.data.has_missing,
+          "[13b] headline plan")
+    t0 = time.perf_counter()
+    hs = bt.HorseshoeSampler(
+        s.data.XT, s.Y[:s.N], bt.HorseshoeConfig(emit_epsilon=False),
+        transposed=True, x_dtype="2bit",
+        x_stats=bt.simulate.packed_word_stats(HEADLINE_M), device="cuda")
+    torch.cuda.synchronize()
+    hs_setup_s = time.perf_counter() - t0
+    check(hs.data.XT.data_ptr() == s.data.XT.data_ptr(), "words copied")
+    nr = s.nb // s.jacobi
+    miss = missing_calls(torch, s)
+    log(f"[13b] headline words with missing calls: setup {setup_s:.2f} s "
+        f"(BayesR), {hs_setup_s:.2f} s (horseshoe on the same words); "
+        f"{int(miss.sum())} missing calls, a share of "
+        f"{float(miss.sum()) / (s.M * s.N):.6f}")
+    samplers = {"bayesr": s, "horseshoe": hs}
+    for kind, (single, plain, fused, fused_plain, _, make_args, per_chain,
+               names, arrays, rho_at) in strided.items():
+        ss = samplers[kind]
+        v = bt.TorchVariates(g)
+        st = ss._run_steps(ss.init(v), v, 2)
+        args, kw = make_args(ss, st, v)
+        ker, ms = timed(torch, lambda: tuple(single(*args, **kw)), 3)
+        ref, plain_ms = timed(torch, lambda: tuple(plain(*args, **kw)), 1)
+        rel_eps, rel_beta = rel_err(ker[0], ref[0]), rel_err(ker[1], ref[1])
+        max_err = max(float((a - b).abs().max())
+                      for a, b in zip(ker[:2], ref[:2]))
+        agree = (float((ker[2] == ref[2]).float().mean())
+                 if kind == "bayesr" else 1.0)
+        moved_at = ker[1] != args[4]
+        moved = int(moved_at.sum())
+        bound = sweep_bound(ss, 1, moved, arrays,
+                            extra_fmas=missing_fmas(miss, moved_at))
+        lib_ms = dot_yardstick(torch, ss, round_rows(torch, ss,
+                                                     args[rho_at][0]),
+                               args[3]) * nr
+        flips = (held_per_chain(torch, ss, "[13b]", args, kw, ker, ref)
+                 if kind == "bayesr" else [])
+        log(f"[13b] {kind} miss sweep at the headline: kernel {ms:.3f} ms, "
+            f"plain {plain_ms:.1f} ms, bound {bound[0]:.3f} ms ({bound[1]}, "
+            f"{moved} markers moved), dot yardstick {lib_ms:.3f} ms; label "
+            f"agreement {agree:.6f}, |d eps|/|eps| {rel_eps:.3g}, |d beta|/"
+            f"|beta| {rel_beta:.3g}, max abs err {max_err:.3g}; chains with "
+            f"a near-tie label flip {[c for c, _ in flips]}")
+        check(agree >= 0.999, f"[13b] {kind} label agreement {agree}")
+        if kind != "bayesr":
+            check(rel_eps < 1e-4 and rel_beta < 1e-4,
+                  f"[13b] horseshoe rel diffs {rel_eps} {rel_beta}")
+        records[kind] = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound[0], bound_by=bound[1],
+                             library_ms=lib_ms)
+        del args, ker, ref
+
+        v8 = bt.TorchVariates(g, chains=CHAINS)
+        st8 = ss.init(v8, chains=CHAINS)
+        for _ in range(2):
+            st8 = ss.step_chains(st8, v8)
+        args, kw = make_args(ss, st8, v8)
+        ker, fms = timed(torch, lambda: tuple(fused(*args, **kw)), 3)
+        ones, singles_ms = timed(torch, lambda: [
+            tuple(single(*chain_args(args, c, per_chain), **kw))
+            for c in range(CHAINS)], 1)
+        ref, fplain_ms = timed(torch, lambda: tuple(fused_plain(*args, **kw)),
+                               1)
+        bitwise = all(torch.equal(a, b[c]) for c, one in enumerate(ones)
+                      for a, b in zip(one, ker))
+        frel = rel_err(ker[0], ref[0])
+        frel_beta = rel_err(ker[1], ref[1])
+        ferr = max(float((a - b).abs().max())
+                   for a, b in zip(ker[:2], ref[:2]))
+        fagree = (float((ker[2] == ref[2]).float().mean())
+                  if kind == "bayesr" else 1.0)
+        fmoved_at = ker[1] != args[4]
+        fmoved = int(fmoved_at.sum())
+        fbound = sweep_bound(ss, CHAINS, fmoved, arrays,
+                             extra_fmas=missing_fmas(miss, fmoved_at))
+        flib_ms = dot_yardstick(torch, ss, round_rows(torch, ss,
+                                                      args[rho_at][0]),
+                                args[3]) * nr
+        fflips = (held_per_chain(torch, ss, "[13b] fused", args, kw, ker,
+                                 ref, per_chain)
+                  if kind == "bayesr" else [])
+        log(f"[13b] {kind} fused C={CHAINS} miss sweep at the headline: "
+            f"{fms:.3f} ms, {CHAINS} single-chain sweeps {singles_ms:.3f} "
+            f"ms, plain {fplain_ms:.1f} ms, bound {fbound[0]:.3f} ms "
+            f"({fbound[1]}), dot yardstick {flib_ms:.3f} ms; chains bitwise "
+            f"equal to the single-chain kernel: {bitwise}; label agreement "
+            f"{fagree:.6f}, |d eps|/|eps| {frel:.3g}, |d beta|/|beta| "
+            f"{frel_beta:.3g}, max abs err {ferr:.3g}; chains with a "
+            f"near-tie label flip {[c for c, _ in fflips]}")
+        check(bitwise, f"[13b] {kind} fused chains not bitwise")
+        check(fagree >= 0.999, f"[13b] {kind} fused label agreement")
+        if kind != "bayesr":
+            check(frel < 1e-4, f"[13b] {kind} fused eps rel diff {frel}")
+        records[kind + "_mc"] = dict(
+            max_abs_err=ferr, ms=fms, plain_ms=fplain_ms, bound_ms=fbound[0],
+            bound_by=fbound[1], library_ms=flib_ms)
+        del args, ker, ref, ones, st8
+
+    # ---- 14. the main path of biobank-packed-missing, the horseshoe and
+    # 8 fused chains of each, on the same words
+    chain = bt.ChainConfig(30, 10, 10)
+    for kind, (single, _, fused, _, _, _, _, _, _, _) in strided.items():
+        ss = samplers[kind]
+        g = torch.Generator(device=dev).manual_seed(52)
+        path = os.path.join(tmp, f"{kind}_missing.csv")
+        st, out, wall, launches, peak = main_path(
+            torch, lambda sk: ss.run(g, chain, sink=sk),
+            CSVSink(path, kind, M=ss.M, N=ss.N, emit_epsilon=False), single)
+        header, widths, bad = read_csv(path)
+        check(len(header) == 2 + 2 * ss.M + 2 and widths == [len(header)] * 2
+              and not bad, f"[14] {path}: {len(header)} {widths} {bad}")
+        check(all(np_finite(x) for x in out.values()), f"[14] {kind} output")
+        rel = rel_err(st.eps, ss.refresh_eps(st).eps)
+        want = jt.LAUNCHES_PER_ROUND * nr * chain.max_iterations
+        cell = ("biobank-packed-missing" if kind == "bayesr"
+                else "biobank-horseshoe-missing")
+        log(f"[14] {cell} main path: "
+            f"{wall / chain.max_iterations * 1e3:.2f} ms/iter ({wall:.2f} s "
+            f"for {chain.max_iterations} iterations incl. CSV), peak "
+            f"{peak:.2f} GiB, launches {launches} (want {want}), "
+            f"tracked-vs-exact eps {rel:.3g}, sigmaE {float(st.sigmaE):.5f}")
+        check(rel < 1e-4, f"[14] {cell} tracked eps vs recompute {rel}")
+        check(launches == want, f"[14] {cell} launches {launches}")
+        records[kind]["launches"] = launches
+        names = ("dot_kernel", "hs_solve_kernel" if kind == "horseshoe"
+                 else "solve_kernel", "apply_kernel")
+        split, dev_ms, wall_ms = profile_split(
+            torch, lambda: ss._run_steps(st, bt.TorchVariates(g), 2), names)
+        check(profiled(split, 2 * nr), f"[14] profiled launches {split}")
+        log(f"[14] {cell} profile of 2 steps: " + ", ".join(
+            f"{n} {us:.2f} us x {c}" for n, (us, c) in split.items())
+            + f"; device {dev_ms:.2f} ms of {wall_ms:.2f} ms wall")
+        del st, out
+
+        sink = ChainFanoutSink.csv(
+            os.path.join(tmp, f"{kind}_missing_8chain.csv"), CHAINS, kind,
+            M=ss.M, N=ss.N, emit_epsilon=False)
+        check(ss.supports_fused_chains, f"[14] {kind} fused at J={ss.jacobi}")
+        st, out, wall, launches, peak = main_path(
+            torch, lambda sk: ss.run_chains(g, CHAINS, chain, sink=sk), sink,
+            fused)
+        for path in sink.paths:
+            header, widths, bad = read_csv(path)
+            check(widths == [len(header)] * 2 and not bad,
+                  f"[14] {path} rows {widths}")
+        ex = ss.refresh_eps(st).eps
+        rel = float((torch.linalg.norm(st.eps - ex, dim=1)
+                     / torch.linalg.norm(ex, dim=1)).max())
+        log(f"[14] {cell}-8chain main path: "
+            f"{wall / chain.max_iterations * 1e3:.2f} ms/iter, peak "
+            f"{peak:.2f} GiB, launches {launches} (want {want}), "
+            f"tracked-vs-exact eps max {rel:.3g}")
+        check(rel < 1e-4, f"[14] {cell}-8chain tracked eps {rel}")
+        check(launches == want, f"[14] {cell}-8chain launches {launches}")
+        records[kind + "_mc"]["launches"] = launches
+        vc = bt.TorchVariates(g, chains=CHAINS)
+
+        def two_steps(st=st):
+            for _ in range(2):
+                st = ss.step_chains(st, vc)
+
+        names = ("dot_mc_kernel", "hs_solve_mc_kernel" if kind == "horseshoe"
+                 else "solve_mc_kernel", "apply_mc_kernel")
+        split, dev_ms, wall_ms = profile_split(torch, two_steps, names)
+        check(profiled(split, 2 * nr), f"[14] profiled launches {split}")
+        log(f"[14] {cell}-8chain profile of 2 fused steps: " + ", ".join(
+            f"{n} {us:.2f} us x {c}" for n, (us, c) in split.items())
+            + f"; device {dev_ms:.2f} ms of {wall_ms:.2f} ms wall")
+        del st, out
+
+    # ---- 15. kernel C: the serial in-kernel decode
+    serial = {"bayesr": (ser.bayesr_sweep, ser.bayesr_sweep_reference,
+                         bt.BayesRConfig, serial_args, bnames, 6),
+              "horseshoe": (ser.horseshoe_sweep,
+                            ser.horseshoe_sweep_reference, bt.HorseshoeConfig,
+                            hs_serial_args, ("eps", "beta"), 4)}
+    for kind, (single, plain, cfg, make_args, names, _) in serial.items():
+        for B in (512, 64):
+            g = torch.Generator(device=dev).manual_seed(60 + B)
+            v = bt.TorchVariates(g)
+            sb = packed_sampler(torch, bt, g, 4096, 8192, cfg(block_size=B),
+                                missing=True, jacobi_blocks=1)
+            check((sb.jacobi, sb.B) == (1, B) and sb.data.has_missing
+                  and not sb.supports_fused_chains, "[15a] serial plan")
+            st = sb._run_steps(sb.init(v), v, 3)
+            args, kw = make_args(sb, st, v)
+            check(not kw["fold_affine"], f"[15a] mode {kw}")
+            err = check_sweeps(torch, f"[15a] {kind} B={B}", names,
+                               tuple(single(*args, **kw)),
+                               tuple(plain(*args, **kw)))
+            log(f"[15a] {kind} in-kernel decode N=4096 M=8192 B={B}: kernel "
+                f"vs plain labels/v equal, max |d| {err:.3g}")
+            del sb, st, args
+
+    common = dict(transposed=True, x_dtype="2bit", device="cuda",
+                  x_stats=bt.simulate.packed_word_stats(HEADLINE_M),
+                  jacobi_blocks=1)
+    for kind, (single, plain, cfg, make_args, names, arrays) in \
+            serial.items():
+        t0 = time.perf_counter()
+        if kind == "bayesr":
+            sj = bt.SpikeSlabSampler(s.data.XT, s.Y[:s.N], CVA,
+                                     cfg(emit_epsilon=False), **common)
+        else:
+            sj = bt.HorseshoeSampler(s.data.XT, s.Y[:s.N],
+                                     cfg(emit_epsilon=False), **common)
+        torch.cuda.synchronize()
+        sj_setup = time.perf_counter() - t0
+        check((sj.jacobi, sj.B, sj.nb) == (1, 512, 984)
+              and sj.data.has_missing, "[15b] serial headline plan")
+        g = torch.Generator(device=dev).manual_seed(61)
+        v = bt.TorchVariates(g)
+        st = sj._run_steps(sj.init(v), v, 2)
+        args, kw = make_args(sj, st, v, 16)
+        ker = tuple(single(*args, **kw))
+        ref, plain_ms = timed(torch, lambda: tuple(plain(*args, **kw)), 1)
+        rel_eps = rel_err(ker[0], ref[0])
+        max_err = max(float((a - b).abs().max())
+                      for a, b in zip(ker[:2], ref[:2]))
+        agree = (float((ker[2] == ref[2]).float().mean())
+                 if kind == "bayesr" else 1.0)
+        args, kw = make_args(sj, st, v)
+        full, ms = timed(torch, lambda: tuple(single(*args, **kw)), 3)
+        moved = int((full[1] != args[4]).sum())
+        bound = sweep_bound(sj, 1, moved, arrays, moved)
+        border = args[5 if kind == "horseshoe" else 6]
+        blk_rows = border[0] * sj.B + torch.arange(sj.B, device=dev)
+        lib_ms = dot_yardstick(torch, sj, blk_rows, args[3]) * sj.nb
+        log(f"[15b] {kind} in-kernel decode at the headline (sampler "
+            f"{sj_setup:.2f} s): 16 blocks vs plain: label agreement "
+            f"{agree:.6f}, |d eps|/|eps| {rel_eps:.3g}, max abs err "
+            f"{max_err:.3g}, plain {plain_ms:.1f} ms; full sweep {ms:.3f} "
+            f"ms, bound {bound[0]:.3f} ms ({bound[1]}, {moved} moved), dot "
+            f"yardstick {lib_ms:.3f} ms")
+        check(agree >= 0.999, f"[15b] {kind} label agreement {agree}")
+        check(rel_eps < (1e-3 if kind == "bayesr" else 1e-4),
+              f"[15b] {kind} eps rel diff {rel_eps}")
+        records[kind + "_q"] = dict(
+            max_abs_err=max_err, ms=ms, plain_ms=plain_ms, plain_blocks=16,
+            sweep_blocks=int(sj.nb), dependent_steps=int(sj.nb * sj.B),
+            bound_ms=bound[0], bound_by=bound[1], library_ms=lib_ms)
+        del sj, st, args, full, ker, ref
+    del samplers, s, hs
+
+    # the auto plan below 2048 markers with missing calls: J=1, one chain,
+    # and 8 chains each through the single-chain kernel
+    for kind, (single, _, cfg, _, _, _) in serial.items():
+        gs = torch.Generator(device=dev).manual_seed(62)
+        sm = packed_sampler(torch, bt, gs, 4096, 1500, cfg(), missing=True)
+        check(sm.jacobi == 1 and sm.data.has_missing
+              and not sm.supports_fused_chains, "[15c] M=1500 plan")
+        chain = bt.ChainConfig(10, 5, 5)
+        want = 3 * sm.nb * chain.max_iterations
+        path = os.path.join(tmp, f"{kind}_m1500_missing.csv")
+        st, out, wall, launches, _ = main_path(
+            torch, lambda sk: sm.run(gs, chain, sink=sk),
+            CSVSink(path, kind, M=sm.M, N=sm.N, emit_epsilon=False), single)
+        check(all(np_finite(x) for x in out.values()), f"[15c] {kind} output")
+        check(launches == want, f"[15c] {kind} launches {launches} != {want}")
+        records[kind + "_q"]["launches"] = launches
+        sink = ChainFanoutSink.csv(path, CHAINS, kind, M=sm.M, N=sm.N,
+                                   emit_epsilon=False)
+        _, out8, wall8, launches8, _ = main_path(
+            torch, lambda sk: sm.run_chains(gs, CHAINS, chain, sink=sk), sink,
+            single)
+        check(all(np_finite(x) for x in out8.values()),
+              f"[15c] {kind} 8-chain output")
+        check(launches8 == CHAINS * want,
+              f"[15c] {kind} 8 chains launches {launches8}")
+        try:
+            sm.run_chains(gs, CHAINS, chain, fused=True)
+            refused = False
+        except ValueError:
+            refused = True
+        check(refused, f"[15c] {kind} fused=True ran on missing data at J=1")
+        log(f"[15c] {kind} M=1500 auto plan with missing calls (J=1, "
+            f"B={sm.B}, nb={sm.nb}): one chain "
+            f"{wall / chain.max_iterations * 1e3:.2f} ms/iter, launches "
+            f"{launches} (want {want}); 8 chains unfused "
+            f"{wall8 / chain.max_iterations * 1e3:.2f} ms/iter, launches "
+            f"{launches8}; fused=True refused")
+        del sm, st, out, out8
+
+    # ---- 16. the CLI on a .bed with missing calls
+    N16, M16 = HEADLINE_N, 8192
+    rng = np.random.default_rng(16)
+    t0 = time.perf_counter()
+    dos = rng.integers(0, 3, size=(N16, M16), dtype=np.int8).astype(
+        np.float32)
+    dos[rng.random((N16, M16), dtype=np.float32) < 1 / 64] = np.nan
+    gen_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(dir=tmp) as d16:
+        prefix = os.path.join(d16, "cohort")
+        t0 = time.perf_counter()
+        bed.write_bed(prefix, dos)
+        write_s = time.perf_counter() - t0
+        del dos
+        pheno = os.path.join(d16, "y.txt")
+        np.savetxt(pheno, rng.standard_normal(N16))
+        t0 = time.perf_counter()
+        pb = bed.read_bed_packed(prefix, mpad="auto")
+        read_s = time.perf_counter() - t0
+        check(pb.has_missing and pb.n == N16
+              and pb.words.shape == (M16, N16 // 16), "[16] packed .bed")
+        del pb
+        log(f"[16] .bed of N={N16} x M={M16}: "
+            f"{os.path.getsize(prefix + '.bed') / 1e6:.1f} MB, dosages "
+            f"{gen_s:.1f} s, write_bed {write_s:.1f} s, read_bed_packed "
+            f"{read_s:.2f} s (native decoder: "
+            f"{'loaded' if get_native_bed() is not None else 'absent'})")
+        nr16 = M16 // 32 // 32
+        for kind, counter in (("bayesr", jt.bayesr_jacobi_t),
+                              ("horseshoe", jt.horseshoe_jacobi_t)):
+            out = os.path.join(d16, f"{kind}.csv")
+            torch.cuda.synchronize()
+            counter.launches = 0
+            t0 = time.perf_counter()
+            rc = cli.main([kind, "--bed", prefix, "--pheno", pheno,
+                           "--x-dtype", "2bit", "--out", out,
+                           "--iterations", "10", "--burn-in", "2",
+                           "--thinning", "4", "--seed", "3"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            header, widths, bad = read_csv(out)
+            want = 3 * nr16 * 10
+            log(f"[16] python -m bayesrrcpp_tpu_torch {kind} --bed ... "
+                f"--x-dtype 2bit: rc {rc}, {wall:.2f} s, CSV {len(widths)} "
+                f"rows of {len(header)} columns, launches "
+                f"{counter.launches} (want {want})")
+            n_rows = len(list(bt.ChainConfig(10, 2, 4).emit_iterations()))
+            check(rc == 0 and len(header) == 2 + 2 * M16 + 2 + N16
+                  and widths == [len(header)] * n_rows and n_rows == 2
+                  and not bad,
+                  f"[16] {kind} CSV {len(header)} {widths} {bad}")
+            check(counter.launches == want,
+                  f"[16] {kind} launches {counter.launches}")
+
+    src = "bayesrrcpp_tpu_torch/csrc/"
+    tpu = "bayesrrcpp_tpu/ops/"
+    meta = {
+        "bayesr": ("jacobi_t_sweep_miss", "jacobi_t.cu",
+                   "pallas_jacobi_t.py:405"),
+        "horseshoe": ("jacobi_t_hs_sweep_miss", "jacobi_t.cu",
+                      "pallas_jacobi_t.py:650"),
+        "bayesr_mc": ("jacobi_t_mc_sweep_miss", "jacobi_t_mc.cu",
+                      "pallas_jacobi_t.py:1199/:2416"),
+        "horseshoe_mc": ("jacobi_t_hs_mc_sweep_miss", "jacobi_t_mc.cu",
+                         "pallas_jacobi_t.py:1742/:2922"),
+        "bayesr_q": ("bayesr_serial_sweep_q", "serial.cu",
+                     "pallas_sweep.py:304"),
+        "horseshoe_q": ("horseshoe_serial_sweep_q", "serial.cu",
+                        "pallas_sweep.py:732")}
+    return [dict({"name": name, "route": "cuda", "source": src + f,
+                  "replaces": tpu + where}, **records[key])
+            for key, (name, f, where) in meta.items()]
 
 
 def np_finite(a):

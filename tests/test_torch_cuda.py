@@ -12,8 +12,10 @@ Marked ``cuda``: a CUDA kernel has no CPU mode, so these skip where
 
 They cover what chip_smoke.py's shapes do not: blocks narrower than a warp
 (B=16), several groups (G=3), K=2, and individuals that do not fill the
-last word tile (pad lanes).  Tolerances: labels and v exact, floats to f32
-reassociation (the kernel sums the dot in another order).
+last word tile (pad lanes), each also on words with ~3 % missing calls
+(the strided kernels' ``miss`` mode, the serial kernel's in-kernel decode).
+Tolerances: labels and v exact, floats to f32 reassociation (the kernel
+sums the dot in another order).
 """
 import numpy as np
 import pytest
@@ -33,13 +35,18 @@ def cuda():
     return torch.device("cuda")
 
 
-def _case(seed, J, B, G, K, nr, N, dev):
+def _case(seed, J, B, G, K, nr, N, dev, missing=False):
+    """A strided sweep's operands; ``missing``: ~3 % of the calls missing,
+    swept in the kernel's miss mode."""
     rng = np.random.default_rng(seed)
     nb = J * nr
     M = nb * B
     dosage = rng.binomial(2, rng.uniform(0.1, 0.9, M), size=(N, M))
-    words, mean, scale, Npad, _ = genotypes.pack_codes_host(
+    if missing:
+        dosage = np.where(rng.random((N, M)) < 0.03, np.nan, dosage)
+    words, mean, scale, Npad, has_missing = genotypes.pack_codes_host(
         dosage.astype(float), False, None, M, N)
+    assert has_missing == missing
     t = lambda x, dt=None: torch.as_tensor(x, dtype=dt, device=dev)  # noqa
     row_valid = torch.arange(Npad, device=dev) < N
     q = genotypes.quantize_packed(dosage.astype(float), False, None, B, M,
@@ -62,7 +69,9 @@ def _case(seed, J, B, G, K, nr, N, dev):
             t(np.linspace(0.03, 0.08, G), torch.float32),
             t(np.arange(M) % G, torch.int32), t(np.arange(M) < M - 5))
     kw = dict(J=J, x_mean=t(mean), x_scale=t(scale), x_xsum=q.x_colsum,
-              fold_affine=True, row_valid=row_valid)
+              fold_affine=not missing, row_valid=row_valid)
+    if missing:
+        kw["missing"] = True
     return args, kw
 
 
@@ -99,10 +108,10 @@ def test_kernel_rejects_tensors_on_other_devices(cuda):
         bayesr_jacobi_t(*args, **kw)
 
 
-def _hs_case(seed, J, B, nr, N, dev, tau=0.05):
+def _hs_case(seed, J, B, nr, N, dev, tau=0.05, missing=False):
     """The horseshoe sweep's operands: _case's data and state with lambda,
     tau and c2 in place of the mixture's."""
-    args, kw = _case(seed, J, B, 1, 4, nr, N, dev)
+    args, kw = _case(seed, J, B, 1, 4, nr, N, dev, missing)
     rng = np.random.default_rng(seed + 1000)
     M = args[1].shape[0] * B
     lam = torch.as_tensor(rng.uniform(0.1, 2.0, M), dtype=torch.float32,
@@ -132,10 +141,10 @@ def test_horseshoe_kernel_matches_plain(cuda, J, B, N, tau):
     assert torch.equal(eps_k, eps_2) and torch.equal(beta_k, beta_2)
 
 
-def _mc_case(seed, J, B, G, K, nr, N, C, dev):
+def _mc_case(seed, J, B, G, K, nr, N, C, dev, missing=False):
     """_case's words, Gram blocks and orders with C chains' own warm states
     and variates, in the fused sweep's argument order."""
-    args, kw = _case(seed, J, B, G, K, nr, N, dev)
+    args, kw = _case(seed, J, B, G, K, nr, N, dev, missing)
     words, gram, xsq, rho, inner, cva, gas, valid = (
         args[0], args[1], args[2], args[6], args[7], args[11], args[14],
         args[15])
@@ -233,11 +242,13 @@ def _assert_eps_close(a, b):
     assert float((a - b).abs().max()) < 1e-4 * float(b.abs().max())
 
 
-def _serial_case(seed, B, G, K, nb, N, dev, chunk):
+def _serial_case(seed, B, G, K, nb, N, dev, chunk, missing=False):
     """_case's data, state and variates as a serial sweep's operands: the
-    block order is a permutation of the nb blocks (J=1), p/z by position."""
-    args, kw = _case(seed, 1, B, G, K, nb, N, dev)
+    block order is a permutation of the nb blocks (J=1), p/z by position;
+    ``missing``: the in-kernel decode (fold_affine=False)."""
+    args, kw = _case(seed, 1, B, G, K, nb, N, dev, missing)
     del kw["J"]
+    kw.pop("missing", None)
     return args, dict(kw, max_call_blocks=chunk)
 
 
@@ -373,3 +384,120 @@ def test_serial_hs_mc_kernel_matches_plain_and_single_chains(cuda, C, B, nb,
         one[7] = one[7][at]
         e1, b1 = serial.horseshoe_sweep(*one, **kw)
         assert torch.equal(e1, eps_k[c]) and torch.equal(b1, beta_k[c]), c
+
+
+# ------------------------------------- words with missing calls (code 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("J,B,G,K,N", [(4, 16, 3, 4, 1500),
+                                       (32, 32, 1, 4, 4096)])
+def test_miss_kernels_match_plain(cuda, J, B, G, K, N):
+    """The strided BayesR and horseshoe sweeps in the miss mode against
+    their plain versions (the TPU kernel's two-dot algebra); pad lanes stay
+    0 though they hold code 3."""
+    args, kw = _case(J + B + G + 7, J, B, G, K, 4, N, cuda, missing=True)
+    if N % 2048:                      # the last word holds pad lanes only
+        assert (args[0][:, -1] == -1).all()   # code 3 in every field
+    before = bayesr_jacobi_t.launches
+    ker = bayesr_jacobi_t(*args, **kw)
+    ref = bayesr_jacobi_t_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert bayesr_jacobi_t.launches == before + 3 * 4
+    assert torch.equal(ker.labels, ref.labels)
+    assert torch.equal(ker.v, ref.v)
+    torch.testing.assert_close(ker.beta, ref.beta, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(ker.eps, ref.eps, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(ker.beta_acum, ref.beta_acum, rtol=1e-4,
+                               atol=1e-6)
+    assert (ker.eps[N:] == 0).all()
+    again = bayesr_jacobi_t(*args, **kw)
+    for a, b in zip(ker, again):
+        assert torch.equal(a, b)
+
+    hs, kw = _hs_case(J + B + 9, J, B, 4, N, cuda, missing=True)
+    eps_k, beta_k = horseshoe_jacobi_t(*hs, **kw)
+    eps_r, beta_r = horseshoe_jacobi_t_reference(*hs, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(beta_k, beta_r, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(eps_k, eps_r, rtol=1e-4, atol=1e-5)
+    assert (eps_k[N:] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,J,B,N", [(3, 4, 16, 1500), (17, 8, 32, 3000)])
+def test_miss_mc_kernels_match_plain_and_single_chains(cuda, C, J, B, N):
+    """The fused miss-mode sweeps against their plain versions, and each
+    chain bitwise against the single-chain miss kernel."""
+    args, kw = _mc_case(C + J + 5, J, B, 1, 4, 4, N, C, cuda, missing=True)
+    ker = bayesr_jacobi_t_mc(*args, **kw)
+    ref = bayesr_jacobi_t_mc_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(ker.labels, ref.labels)
+    assert torch.equal(ker.v, ref.v)
+    torch.testing.assert_close(ker.beta, ref.beta, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(ker.eps, ref.eps, rtol=1e-4, atol=1e-5)
+    for c in range(C):
+        one = bayesr_jacobi_t(*_chain(args, c, (3, 4, 5, 8, 9, 10, 12, 13)),
+                              **kw)
+        for name, a, b in zip(one._fields, one, ker):
+            assert torch.equal(a, b[c]), (c, name)
+
+    rng = np.random.default_rng(C + 1)
+    M = args[2].shape[0]
+    t = lambda x: torch.as_tensor(x, dtype=torch.float32,  # noqa: E731
+                                  device=cuda)
+    hs = (args[:5] + args[6:8] + (args[9], t(rng.uniform(0.1, 2.0, (C, M))),
+                                  t(rng.uniform(0.01, 0.1, C)),
+                                  t(rng.uniform(1.0, 2.0, C)), args[12],
+                                  args[15]))
+    eps_k, beta_k = horseshoe_jacobi_t_mc(*hs, **kw)
+    eps_r, beta_r = horseshoe_jacobi_t_mc_reference(*hs, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(beta_k, beta_r, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(eps_k, eps_r, rtol=1e-4, atol=1e-5)
+    for c in range(C):
+        e1, b1 = horseshoe_jacobi_t(*_chain(hs, c, (3, 4, 7, 8, 9, 10, 11)),
+                                    **kw)
+        assert torch.equal(e1, eps_k[c]) and torch.equal(b1, beta_k[c]), c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,G,K,nb,N,chunk", [(64, 2, 4, 8, 1500, 3),
+                                              (512, 1, 4, 4, 4096, None),
+                                              (200, 1, 3, 5, 3000, 2)])
+def test_decode_serial_kernels_match_plain(cuda, B, G, K, nb, N, chunk):
+    """The serial BayesR and horseshoe sweeps in the in-kernel decode mode
+    (fold_affine=False, words with missing calls) against their plain
+    versions; a fused launch refuses that mode."""
+    from bayesrrcpp_tpu_torch.ops import multichain, serial
+
+    args, kw = _serial_case(B + K + 11, B, G, K, nb, N, cuda, chunk,
+                            missing=True)
+    assert not kw["fold_affine"]
+    before = serial.bayesr_sweep.launches
+    ker = serial.bayesr_sweep(*args, **kw)
+    ref = serial.bayesr_sweep_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert serial.bayesr_sweep.launches == before + 3 * nb
+    assert torch.equal(ker.labels, ref.labels)
+    assert torch.equal(ker.v, ref.v)
+    torch.testing.assert_close(ker.beta, ref.beta, rtol=1e-4, atol=1e-5)
+    _assert_eps_close(ker.eps, ref.eps)
+    assert (ker.eps[N:] == 0).all()
+    again = serial.bayesr_sweep(*args, **kw)
+    for a, b in zip(ker, again):
+        assert torch.equal(a, b)
+
+    lam = torch.rand(nb * B, device=cuda) * 1.9 + 0.1
+    hs = _serial_hs(args, lam, 0.05)
+    eps_k, beta_k = serial.horseshoe_sweep(*hs, **kw)
+    eps_r, beta_r = serial.horseshoe_sweep_reference(*hs, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(beta_k, beta_r, rtol=1e-4, atol=1e-5)
+    _assert_eps_close(eps_k, eps_r)
+    assert (eps_k[N:] == 0).all()
+
+    mc, _ = _serial_mc_case(B + 1, B, K, nb, N, 2, cuda, chunk)
+    with pytest.raises(NotImplementedError, match="single-chain"):
+        multichain.bayesr_sweep_mc(*mc, **kw)

@@ -141,7 +141,7 @@ def test_jacobi_oracle_with_one_block_per_round_is_the_blocked_sweep():
         assert torch.equal(x, y)
 
 
-@pytest.mark.parametrize("bad", ["dense", "missing", "no_fold"])
+@pytest.mark.parametrize("bad", ["dense", "no_fold"])
 def test_modes_outside_the_slice_raise(bad):
     c = _hs_case(5, 4, 16, 2)
     args = list(_torch_args(c))
@@ -150,9 +150,6 @@ def test_modes_outside_the_slice_raise(bad):
         args[0] = torch.as_tensor(_dense(c))
         with pytest.raises(NotImplementedError, match="Queue 2 entry 3"):
             horseshoe_jacobi_t(*args, **kw)
-    elif bad == "missing":
-        with pytest.raises(NotImplementedError, match="Queue 2 entry 3"):
-            horseshoe_jacobi_t(*args, **kw, missing=True)
     else:
         kw["fold_affine"] = False
         with pytest.raises(ValueError):

@@ -185,7 +185,7 @@ def test_strided_border_matches_jax():
     np.testing.assert_array_equal(ref, out)
 
 
-@pytest.mark.parametrize("bad", ["dense", "missing", "no_fold"])
+@pytest.mark.parametrize("bad", ["dense", "no_fold"])
 def test_modes_outside_the_slice_raise(bad):
     c = _case(5, 4, 16, 1, nr=2)
     args = list(_torch_args(c))
@@ -194,9 +194,6 @@ def test_modes_outside_the_slice_raise(bad):
         args[0] = torch.as_tensor(_dense(c))
         with pytest.raises(NotImplementedError, match="Queue 2 entry 1"):
             bayesr_jacobi_t(*args, **kw)
-    elif bad == "missing":
-        with pytest.raises(NotImplementedError, match="Queue 2 entry 1"):
-            bayesr_jacobi_t(*args, **kw, missing=True)
     else:
         kw["fold_affine"] = False
         with pytest.raises(ValueError):

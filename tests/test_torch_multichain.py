@@ -227,16 +227,13 @@ def test_horseshoe_mc_plain_matches_jax_kernel(C):
         torch.testing.assert_close(e1, eps[ch], rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("bad", ["dense", "missing"])
+@pytest.mark.parametrize("bad", ["dense"])
 def test_mc_modes_outside_the_slice_raise(bad):
     c = _sweep_case(3, 2)
     t = torch.as_tensor
     words, gram, xsq = _port_data(c)
     kw = _port_kw(c)
-    if bad == "dense":
-        words = torch.zeros((M, N))
-    else:
-        kw["missing"] = True
+    words = torch.zeros((M, N))
     with pytest.raises(NotImplementedError, match="Queue 2 entry 5"):
         bayesr_jacobi_t_mc(
             words, gram, xsq, t(c["eps"]), t(c["beta"]), t(c["labels"]),

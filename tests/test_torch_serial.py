@@ -243,16 +243,23 @@ def test_horseshoe_mc_plain_matches_jax_kernel_and_single_chains(chunk):
 
 @pytest.mark.parametrize("bad", ["dense", "no_fold"])
 def test_modes_outside_the_slice_raise(bad):
+    """Dense words (ROADMAP entries 2 and 4); and the in-kernel decode
+    (``fold_affine=False``, words with missing calls), which runs one chain
+    only (tests/test_torch_missing.py): the fused sweeps refuse it, as
+    JAX's ``bayesr_sweep_pallas_mc`` does."""
     c = _case(5, 1)
     words, gram, xsq = _data(c)
     kw = _kw(c)
     if bad == "dense":
         words = torch.zeros((M, N))
+        cases = ((serial.bayesr_sweep, "entry 2"),
+                 (serial.horseshoe_sweep, "entry 4"))
     else:
         kw["fold_affine"] = False
-    for fn, args, entry in (
-            (serial.bayesr_sweep, _bayesr_args(c, torch), "entry 2"),
-            (serial.horseshoe_sweep, _hs_args(c, torch), "entry 4")):
+        cases = ((multichain.bayesr_sweep_mc, "single-chain only"),
+                 (multichain.horseshoe_sweep_mc, "single-chain only"))
+    for (fn, entry), args in zip(cases, (_bayesr_args(c, torch),
+                                         _hs_args(c, torch))):
         with pytest.raises(NotImplementedError, match=entry):
             fn(words, gram, xsq, torch.as_tensor(c["eps"]), *args, **kw)
 
