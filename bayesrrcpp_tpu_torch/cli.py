@@ -11,7 +11,9 @@ the reference CSV schemas:
 With ``--x-dtype 2bit`` a .bed goes straight into packed words on the host
 (``io/bed.read_bed_packed``, padded to the planned marker count), missing
 calls included, and never into a dense matrix.  The run is on ``--device``,
-the card by default.  Hyperparameter flags carry the reference names.  The
+the card by default; ``--backend auto`` sweeps with the kernels there, the
+default dense storage included, and with the plain sweep for dense X on the
+CPU (``--backend pallas|blocked`` chooses; ``scan`` is not ported).  Hyperparameter flags carry the reference names.  The
 ``groups`` and ``resume`` subcommands and the checkpoint and .npz outputs
 are not ported yet: they raise ``NotImplementedError`` naming their ROADMAP
 entries.
@@ -48,6 +50,12 @@ def _add_common(p):
     p.add_argument("--burn-in", type=int, default=1000)
     p.add_argument("--thinning", type=int, default=5)
     p.add_argument("--block-size", type=int, default=512)
+    p.add_argument("--backend", choices=["auto", "pallas", "blocked", "scan"],
+                   default="auto",
+                   help="sweep: the kernels (pallas; auto on the card and "
+                        "for packed X), the plain Gram-blocked sweep "
+                        "(blocked; dense X only), or the literal scan (not "
+                        "ported)")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default: the card)")
     p.add_argument("--no-epsilon", action="store_true",
@@ -122,6 +130,10 @@ def _progress(done, total):
     # decile progress prints, like the reference (src/BayesRv2.cpp:173-175)
     if total and done % max(1, total // 10) == 0:
         print(f"emitted {done}/{total} samples", flush=True)
+
+
+def _backend(args):
+    return None if args.backend == "auto" else args.backend
 
 
 def _check_ported(args):
@@ -201,13 +213,15 @@ def main(argv=None):
         cfg = BayesRConfig(sigma0=args.sigma0, v0E=args.v0E, s02E=args.s02E,
                            v0G=args.v0G, s02G=args.s02G,
                            block_size=args.block_size, emit_epsilon=emit)
-        s = SpikeSlabSampler(X, Y, cva, cfg, device=args.device, **xkw)
+        s = SpikeSlabSampler(X, Y, cva, cfg, backend=_backend(args),
+                             device=args.device, **xkw)
     else:
         cfg = HorseshoeConfig(A=args.A, v0E=args.v0E, s02E=args.s02E,
                               vL=args.vL, vT=args.vT, c2=args.c2, vC=args.vC,
                               sC=args.sC, block_size=args.block_size,
                               emit_epsilon=emit)
-        s = HorseshoeSampler(X, Y, cfg, device=args.device, **xkw)
+        s = HorseshoeSampler(X, Y, cfg, backend=_backend(args),
+                             device=args.device, **xkw)
     _run(s, args, args.cmd)
     return 0
 

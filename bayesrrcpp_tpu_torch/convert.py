@@ -6,6 +6,9 @@ needs no JAX.  Layout is free between the two packages, semantics are not:
 - the JAX packed path stores eps/Y in a plane-major individual permutation
   (``genotypes.lane_perm``); the port keeps natural individual order, so
   eps is un-permuted here;
+- dense f32 data (XT (Mpad, N), xsq, Gram blocks, valid) carries across as
+  it is, individuals in natural order; its empty mean, scale, column sums,
+  row_valid and n_perm are not carried;
 - packed words keep ``pack_codes_host``'s format (individual 16w+k at bits
   2k of word w) in both packages and pass through unchanged, missing calls
   and the pad codes with them (code 3 on the pad lanes and -1 pad markers
@@ -107,14 +110,22 @@ def has_missing_calls(words, N: int, valid) -> bool:
 
 
 def horseshoe_data_from_jax(data: dict, *, N: int, device) -> HorseshoeData:
-    """The port's packed ``HorseshoeData`` from a JAX packed
+    """The port's ``HorseshoeData`` from a JAX dense or packed
     ``HorseshoeData`` given as a dict of NumPy arrays (as
     ``data_from_jax``; the JAX lane permutation n_perm is dropped)."""
     words = np.asarray(data["XT"])
+    if np.issubdtype(words.dtype, np.floating):
+        empty = torch.zeros((0,), dtype=torch.float32, device=device)
+        return HorseshoeData(
+            XT=_t(words, device), xsq=_t(data["xsq"], device),
+            gram=_t(data["gram"], device),
+            valid=_t(data["valid"], device, torch.bool),
+            x_mean=empty, x_scale=empty, x_colsum=empty,
+            row_valid=torch.zeros((0,), dtype=torch.bool, device=device))
     if words.dtype != np.int32:
         raise NotImplementedError(
-            "only 2-bit packed data carries across (dense and int8 storage: "
-            "ROADMAP Queue 1 item 7)")
+            "int8 data does not carry across: int8 storage is not ported "
+            "(ROADMAP Queue 1 item 4)")
     Npad = words.shape[1] * genotypes.WORDS
     return HorseshoeData(
         XT=torch.as_tensor(words, device=device),
@@ -129,10 +140,11 @@ def horseshoe_data_from_jax(data: dict, *, N: int, device) -> HorseshoeData:
 
 
 def data_from_jax(data: dict, *, N: int, device) -> MarkerData:
-    """The port's packed ``MarkerData`` from a JAX packed ``MarkerData``
-    given as a dict of NumPy arrays (words, xsq, Gram, mean, scale and
-    column sums pass through; row_valid is rebuilt in individual order and
-    has_missing read off the words)."""
+    """The port's ``MarkerData`` from a JAX dense or packed ``MarkerData``
+    given as a dict of NumPy arrays (dense rows, or words with their mean,
+    scale and column sums, pass through with xsq and the Gram blocks; for
+    words row_valid is rebuilt in individual order and has_missing read off
+    the words)."""
     geno = horseshoe_data_from_jax(data, N=N, device=device)
     return MarkerData(
         **geno._asdict(),

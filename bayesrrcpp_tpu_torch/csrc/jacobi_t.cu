@@ -6,8 +6,9 @@
 //   (wrapper bayesr_jacobi_t_pallas, pallas_call at :1032) and
 //   bayesrrcpp_tpu/ops/pallas_jacobi_t.py:_hs_jacobi_t_kernel
 //   (wrapper horseshoe_jacobi_t_pallas, pallas_call at :1151)
-// in their two 2-bit modes: fold-affine (no missing calls) and `miss`
-// (code 3 marks a missing call, which standardizes to 0).  Python wrappers and plain versions:
+// in their dense f32 mode and their two 2-bit modes: fold-affine (no
+// missing calls) and `miss` (code 3 marks a missing call, which
+// standardizes to 0).  Python wrappers and plain versions:
 // bayesrrcpp_tpu_torch/ops/jacobi_t.py.  The two sweeps share the dot and
 // apply launches and differ in the solve (solve_kernel, hs_solve_kernel).
 // The decode, the dot's per-word arithmetic and the solves' bodies live in
@@ -60,6 +61,18 @@
 // so a chain is bitwise reproducible from run to run on the card.  The
 // file is compiled with -fmad=false so the solve's arithmetic rounds like
 // the plain torch version op for op; the dot and apply use explicit fmaf.
+//
+// The dense mode (X (Mpad, N) f32 rows, already standardized; eps of
+// length N in natural order, no lane mask) keeps the rounds, the visit
+// order and the solves, and swaps the dot and the apply: dense_dot_kernel
+// reads each block's B rows once (a float4 per thread where N % 4 == 0,
+// else columns at a stride of 128, so any N runs) and sums as the packed
+// dot does, into the same (nsplit, J*B + 1) partials; the solve takes r
+// from them unfolded (scale 1, mean 0: jacobi_t_common.cuh:marker_r); the
+// apply streams the round's moved rows, one thread per individual.  It is
+// bound by HBM: the dot reads every row of X once per sweep (3.22 GB at
+// N=16,384 x M=49,152, 0.96 ms at 3.35 TB/s) at 2 flops per 4 bytes, and
+// the apply reads the moved rows again (the horseshoe's: all of them).
 //
 // Semantics kept from the TPU kernel (pallas_jacobi_t.py:534-631):
 // - every block of a round sees the round-start eps;
@@ -244,8 +257,34 @@ inline size_t apply_smem_bytes(bool miss, int JB) {
   return (sizeof(float) + sizeof(int) + (miss ? sizeof(float) : 0)) * JB;
 }
 
-// The dot and the apply of a round, in the miss mode (pind not null) or
-// the fold mode, around the solve launched by `solve`.
+// The dense mode's rounds: dense_dot_kernel, the solve launched by
+// `solve` and the dense apply (jacobi_t_common.cuh), on X (Mpad, N) f32.
+template <typename Solve>
+cudaError_t dense_rounds(const float* X, int N, int nr, int J, int B,
+                         const int* rh, float* eps, float* partial,
+                         int nsplit, const float* dsc, cudaStream_t s,
+                         Solve solve) {
+  const dim3 dot_grid(nsplit, J);
+  const bool v4 = dense_v4(X, eps, N);
+  cudaError_t err;
+  for (int r = 0; r < nr; ++r) {
+    if (v4)
+      dense_dot_kernel<true, 1><<<dot_grid, kDotThreads, 0, s>>>(
+          X, N, eps, 1, rh, r, nr, J, B, partial, nsplit);
+    else
+      dense_dot_kernel<false, 1><<<dot_grid, kDotThreads, 0, s>>>(
+          X, N, eps, 1, rh, r, nr, J, B, partial, nsplit);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    if ((err = solve(r)) != cudaSuccess) return err;
+    launch_dense_apply(1, s, X, N, eps, rh, r, nr, B, J * B, dsc);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+// The dot and the apply of a round, in the dense mode (mean null: wd is
+// X (Mpad, N) f32 and Nw is N), the miss mode (pind not null) or the fold
+// mode, around the solve launched by `solve`.
 template <typename Solve>
 cudaError_t sweep_rounds(const uint32_t* wd, int Nw, int nr, int J, int B,
                          const int* rh, float* eps,
@@ -253,6 +292,9 @@ cudaError_t sweep_rounds(const uint32_t* wd, int Nw, int nr, int J, int B,
                          int nsplit, float* pind, const float* dsc,
                          const float* dms, const float* mean, cudaStream_t s,
                          Solve solve) {
+  if (mean == nullptr)
+    return dense_rounds(reinterpret_cast<const float*>(wd), Nw, nr, J, B, rh,
+                        eps, partial, nsplit, dsc, s, solve);
   const dim3 dot_grid(nsplit, J);
   const int apply_ctas = (Nw + kApplyThreads / 4 - 1) / (kApplyThreads / 4);
   const bool miss = pind != nullptr;
@@ -287,6 +329,10 @@ extern "C" {
 
 int jacobi_t_dot_splits(int Nw) { return (Nw + kDotThreads - 1) / kDotThreads; }
 
+int jacobi_t_dense_dot_splits(int N) {
+  return (N + kDenseTile - 1) / kDenseTile;
+}
+
 int jacobi_t_max_block() { return kMaxB; }
 
 int jacobi_t_max_round() { return kMaxRound; }
@@ -297,9 +343,11 @@ const char* jacobi_t_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// One sweep: 3 launches per round, nr rounds, all on `stream`; `pind`
-// ((nsplit, J*B) floats) selects the miss mode, null the fold mode.
-// Returns the first launch error (cudaGetLastError) or 0.
+// One sweep: 3 launches per round, nr rounds, all on `stream`.  mean and
+// scale null select the dense mode: `words` is X (Mpad, N) f32, Nw is N,
+// row_valid and pind are null and nsplit is jacobi_t_dense_dot_splits(N).
+// Otherwise `pind` ((nsplit, J*B) floats) selects the miss mode, null the
+// fold mode.  Returns the first launch error (cudaGetLastError) or 0.
 int jacobi_t_sweep(const void* words, int Nw, int nr, int J, int B, int K,
                    int G, const void* gram, const void* xsq, const void* mean,
                    const void* scale, void* eps, const void* row_valid,
@@ -354,8 +402,9 @@ int jacobi_t_sweep(const void* words, int Nw, int nr, int J, int B, int K,
 }
 
 // One horseshoe sweep: dot, hs_solve and apply per round, nr rounds, all
-// on `stream`; `pind` as jacobi_t_sweep's.  Returns the first launch error
-// (cudaGetLastError) or 0.
+// on `stream`; the dense mode (mean and scale null) and `pind` as
+// jacobi_t_sweep's.  Returns the first launch error (cudaGetLastError) or
+// 0.
 int jacobi_t_hs_sweep(const void* words, int Nw, int nr, int J, int B,
                       const void* gram, const void* xsq, const void* mean,
                       const void* scale, void* eps, const void* row_valid,

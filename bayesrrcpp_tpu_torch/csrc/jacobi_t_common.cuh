@@ -1,12 +1,14 @@
 // Device code shared by the single-chain sweeps (jacobi_t.cu) and the
 // fused multi-chain sweeps (jacobi_t_mc.cu): the 2-bit decode and the
 // missing-call indicator, the warp reductions, the dot's loads and
-// per-word arithmetic (dot_rows, for one eps vector or several at once)
-// and the per-block solves, which each chain of a fused sweep runs on its
-// own operands.  So a fused chain
+// per-word arithmetic (dot_rows, for one eps vector or several at once),
+// the dense mode's dot and apply (dense_dot_tile, dense_apply_kernel) and
+// the per-block solves, which each chain of a fused sweep runs on its own
+// operands.  So a fused chain
 // equals the single-chain kernel bitwise.  See jacobi_t.cu for the sweep's
 // design and the TPU kernel semantics it keeps.  The serial sweeps
-// (serial.cu) use the decode, the dot and the BayesR categorical draw.
+// (serial.cu) use the decode, the dot, the dense dot and apply and the
+// BayesR categorical draw.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -142,6 +144,232 @@ __device__ __forceinline__ void dot_rows(const uint32_t (&wds)[kMaxB],
   }
 }
 
+// ---- the dense mode: f32 rows of X (Mpad, N), eps (C, N) in natural
+// individual order, no decode, no fold and no lane mask
+// (pallas_jacobi_t.py:_decoders' dense branch).  A dot CTA takes
+// kDenseTile columns of the rows of one block, kDenseCols per thread.
+
+constexpr int kDenseCols = 4;                         // columns per thread
+constexpr int kDenseTile = kDotThreads * kDenseCols;  // columns per dot CTA
+constexpr int kDenseApplyTile = 512;                  // apply entries/tile
+constexpr int kDenseTilePerLane = kDenseApplyTile / kApplyThreads;
+
+// The kDenseCols columns of this thread in the tile at column n0, 0 at
+// n >= N.  V4 (N % 4 == 0 and 16-byte aligned bases, so every row is
+// aligned): one float4, columns n0 + 4t .. +3.  Otherwise columns
+// n0 + t + 128k: each warp load is one 128-byte line at any alignment.
+template <bool V4>
+__device__ __forceinline__ void load_cols(const float* __restrict__ row,
+                                          long long n0, int N,
+                                          float (&v)[kDenseCols]) {
+  const int t = threadIdx.x;
+  if constexpr (V4) {
+    const long long n = n0 + 4 * t;
+    float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (n < N) q = __ldg(reinterpret_cast<const float4*>(row + n));
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < kDenseCols; ++k) {
+      const long long n = n0 + t + (long long)kDotThreads * k;
+      v[k] = n < N ? __ldg(row + n) : 0.f;
+    }
+  }
+}
+
+// The dense dot of one CTA: red[c][warp][lane] = the warp's share of row
+// `lane` . eps_c over tile blockIdx.x, for the nrow rows of X from row0
+// (rows >= nrow read as 0) and the C chains of eps.  The rows stay in
+// registers for all chains; each row's kDenseCols products sum by fmaf in
+// column order, then warp_transpose_sum, so every chain of a fused sweep
+// sums as a single chain does.
+template <bool V4>
+__device__ __forceinline__ void dense_dot_tile(
+    const float* __restrict__ X, int N, long long row0, int nrow,
+    const float* __restrict__ eps, int C,
+    float (*red)[kDotThreads / 32][32]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long n0 = (long long)blockIdx.x * kDenseTile;
+  float x[kMaxB][kDenseCols];
+#pragma unroll
+  for (int i = 0; i < kMaxB; ++i) {
+    if (i < nrow) {
+      load_cols<V4>(X + (row0 + i) * N, n0, N, x[i]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < kDenseCols; ++k) x[i][k] = 0.f;
+    }
+  }
+#pragma unroll 1
+  for (int c = 0; c < C; ++c) {
+    float e[kDenseCols], acc[kMaxB];
+    load_cols<V4>(eps + (long long)c * N, n0, N, e);
+#pragma unroll
+    for (int i = 0; i < kMaxB; ++i) {
+      float s = 0.f;
+#pragma unroll
+      for (int k = 0; k < kDenseCols; ++k) s = fmaf(x[i][k], e[k], s);
+      acc[i] = s;
+    }
+    red[c][warp][lane] = warp_transpose_sum(acc, lane);
+  }
+}
+
+// Each chain's CTA sum in the packed dots' fixed order (warps 0, 1, ...)
+// into partial[(c*nsplit + blockIdx.x)*width + col0 + l], l < nrow.
+__device__ __forceinline__ void dense_dot_store(
+    float (*red)[kDotThreads / 32][32], int C, float* __restrict__ partial,
+    int nsplit, int width, int col0, int nrow) {
+  __syncthreads();
+  for (int o = threadIdx.x; o < C * 32; o += kDotThreads) {
+    const int c = o >> 5, l = o & 31;
+    float t = 0.f;
+#pragma unroll
+    for (int q = 0; q < kDotThreads / 32; ++q) t += red[c][q][l];
+    if (l < nrow)
+      partial[((long long)c * nsplit + blockIdx.x) * width + col0 + l] = t;
+  }
+}
+
+// The strided sweeps' dense dot: CTA (tile, j) takes block j*nr +
+// rho[round] of the round for C <= CMAX chains, into (C, nsplit, J*B + 1)
+// partials (the fold's sum(eps) column is left unwritten: dense r needs
+// none).
+template <bool V4, int CMAX>
+__global__ void __launch_bounds__(kDotThreads)
+dense_dot_kernel(const float* __restrict__ X, int N,
+                 const float* __restrict__ eps, int C,
+                 const int* __restrict__ rho, int round, int nr, int J, int B,
+                 float* __restrict__ partial, int nsplit) {
+  __shared__ float red[CMAX][kDotThreads / 32][32];
+  const int j = blockIdx.y;
+  const long long row0 = (long long)(j * nr + rho[round]) * B;
+  dense_dot_tile<V4>(X, N, row0, B, eps, C, red);
+  dense_dot_store(red, C, partial, nsplit, J * B + 1, j * B, B);
+}
+
+// Whether the dense rows and eps allow float4 loads: N % 4 == 0 and both
+// bases 16-byte aligned.
+inline bool dense_v4(const void* X, const void* eps, int N) {
+  return N % 4 == 0 &&
+         ((reinterpret_cast<uintptr_t>(X) | reinterpret_cast<uintptr_t>(eps))
+          & 15u) == 0;
+}
+
+// The dense apply: eps_c -= sum_t d[c, t] * X[row_t, :] over the entries
+// e < JB of the (C, JB) deltas whose row moved in any chain, in index
+// order, row_t = ((e / B)*nr + slab)*B + e % B with slab = slab_at[at] (a
+// strided round's rows; a serial block's with JB = B).  One thread per
+// column, so each warp load is one 128-byte line of a row.  The moved
+// entries are compacted tile by tile into shared memory with every
+// chain's d (0 where that chain did not move, which adds exactly 0).  In
+// the horseshoe every valid row moves and the apply streams them all.
+// CB >= C, a power of two: the per-chain accumulators stay in registers.
+template <int CB>
+__global__ void __launch_bounds__(kApplyThreads)
+dense_apply_kernel(const float* __restrict__ X, int N,
+                   float* __restrict__ eps, int C,
+                   const int* __restrict__ slab_at, int at, int nr, int B,
+                   int JB, const float* __restrict__ dsc) {
+  constexpr int CV = CB < 4 ? 4 : CB;   // chains per staged row (float4s)
+  __shared__ float4 vals4[kDenseApplyTile * CV / 4];
+  __shared__ int rows[kDenseApplyTile];
+  __shared__ int warp_cnt[kApplyWarps + 1];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int slab = slab_at[at];
+  const long long n = (long long)blockIdx.x * kApplyThreads + threadIdx.x;
+  const bool live = n < N;
+  const float* xp = X + (live ? n : 0);
+  float acc[CB];
+#pragma unroll
+  for (int c = 0; c < CB; ++c) acc[c] = 0.f;
+
+  for (int tile0 = 0; tile0 < JB; tile0 += kDenseApplyTile) {
+    // warp `warp` owns the tile's entries [lo, lo + 32*kDenseTilePerLane)
+    const int lo = tile0 + warp * 32 * kDenseTilePerLane;
+    bool nz[kDenseTilePerLane];
+    int cnt = 0;
+#pragma unroll
+    for (int it = 0; it < kDenseTilePerLane; ++it) {
+      const int e = lo + it * 32 + lane;
+      bool f = false;
+      if (e < JB) {
+#pragma unroll
+        for (int c = 0; c < CB; ++c)
+          if (c < C) f |= __ldg(dsc + (long long)c * JB + e) != 0.f;
+      }
+      nz[it] = f;
+      cnt += __popc(__ballot_sync(kFull, f));
+    }
+    if (lane == 0) warp_cnt[warp] = cnt;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      int run = 0;
+      for (int q = 0; q < kApplyWarps; ++q) {
+        const int c = warp_cnt[q];
+        warp_cnt[q] = run;
+        run += c;
+      }
+      warp_cnt[kApplyWarps] = run;
+    }
+    __syncthreads();
+    int pos = warp_cnt[warp];
+#pragma unroll
+    for (int it = 0; it < kDenseTilePerLane; ++it) {
+      const unsigned mask = __ballot_sync(kFull, nz[it]);
+      if (nz[it]) {
+        const int to = pos + __popc(mask & ((1u << lane) - 1u));
+        const int e = lo + it * 32 + lane;
+        rows[to] = ((e / B) * nr + slab) * B + e % B;
+        float* v = reinterpret_cast<float*>(vals4) + to * CV;
+#pragma unroll
+        for (int c = 0; c < CV; ++c)
+          v[c] = c < C ? __ldg(dsc + (long long)c * JB + e) : 0.f;
+      }
+      pos += __popc(mask);
+    }
+    __syncthreads();
+    const int nnz = warp_cnt[kApplyWarps];
+    if (live) {
+#pragma unroll 16
+      for (int t = 0; t < nnz; ++t) {
+        const float xv = __ldg(xp + (long long)rows[t] * N);
+#pragma unroll
+        for (int q = 0; q < CV / 4; ++q) {
+          const float4 v = vals4[t * (CV / 4) + q];
+          const float vq[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            if (4 * q + i < CB) acc[4 * q + i] = fmaf(vq[i], xv, acc[4 * q + i]);
+        }
+      }
+    }
+    __syncthreads();   // the next tile overwrites rows and vals
+  }
+  if (!live) return;
+#pragma unroll
+  for (int c = 0; c < CB; ++c)
+    if (c < C) eps[c * (long long)N + n] = eps[c * (long long)N + n] - acc[c];
+}
+
+// Launch the dense apply for C chains with the smallest CB >= C, one
+// thread per column.
+inline void launch_dense_apply(int C, cudaStream_t s, const float* X, int N,
+                               float* eps, const int* slab_at, int at, int nr,
+                               int B, int JB, const float* dsc) {
+  const int ctas = (N + kApplyThreads - 1) / kApplyThreads;
+#define JT_DENSE_APPLY(CB)                                                \
+  dense_apply_kernel<CB><<<ctas, kApplyThreads, 0, s>>>(                  \
+      X, N, eps, C, slab_at, at, nr, B, JB, dsc)
+  if (C <= 1) JT_DENSE_APPLY(1);
+  else if (C <= 2) JT_DENSE_APPLY(2);
+  else if (C <= 4) JT_DENSE_APPLY(4);
+  else if (C <= 8) JT_DENSE_APPLY(8);
+  else JT_DENSE_APPLY(16);
+#undef JT_DENSE_APPLY
+}
+
 // The BayesR categorical draw of one marker (pallas_sweep.py:246-264):
 // the K components' tables lp, invd and sd (spike first, lp the log-prior
 // term), num = r + beta_old*xsq.  The reference's overflow guard zeroes a
@@ -224,6 +452,42 @@ __device__ __forceinline__ float code_dot(const float* partial,
   return rc;
 }
 
+// sum(eps) of a fold-mode round from the dot's last partial column, over
+// the CTAs q = lane mod 32, then the warp; 0 in the dense mode (scale
+// null), which reads no sum.
+__device__ __forceinline__ float fold_esum(const float* partial, int nsplit,
+                                           int JB1, const float* scale,
+                                           int lane) {
+  if (scale == nullptr) return 0.f;
+  float esum = 0.f;
+  for (int q = lane; q < nsplit; q += 32)
+    esum += partial[(long long)q * JB1 + JB1 - 1];
+  return warp_sum(esum);
+}
+
+// r of marker m (lane `lane` of block j) from the dot's partials, with
+// its scale sc and mean*scale ms (the apply's d*scale and d.(m*s) terms).
+// Fold modes: r = s*(code_dot) - (m*s)*sum(eps).  The dense mode (mean and
+// scale null): r is the dot itself, sc = 1 and ms = 0; the fold algebra
+// with scale 1 and mean 0 would give the same bits (rc*1 is rc, and
+// rc - 0*sum(eps) is rc), so it is skipped.
+__device__ __forceinline__ float marker_r(const float* partial,
+                                          const float* pind, int nsplit,
+                                          int JB, int j, int B, int lane,
+                                          const float* mean,
+                                          const float* scale, long long m,
+                                          float esum, float& sc, float& ms) {
+  if (scale == nullptr) {
+    sc = 1.f;
+    ms = 0.f;
+    return code_dot(partial, nullptr, nsplit, JB, j, B, lane, 0.f);
+  }
+  const float rc = code_dot(partial, pind, nsplit, JB, j, B, lane, mean[m]);
+  sc = scale[m];
+  ms = mean[m] * sc;
+  return rc * sc - ms * esum;
+}
+
 // The BayesR solve of block j of the round, run by one warp (lane l owns
 // marker l).  K, the number of mixture components, is a template argument
 // so the selection below is straight-line code.
@@ -246,10 +510,7 @@ __device__ __forceinline__ void solve_block(const SolveArgs& a, int j) {
 
   // partial sums in a fixed order: sum(eps) over the CTAs q = lane mod 32,
   // then the warp; r of this lane's marker over q = 0, 1, ...
-  float esum = 0.f;
-  for (int q = lane; q < a.nsplit; q += 32)
-    esum += a.partial[(long long)q * JB1 + JB1 - 1];
-  esum = warp_sum(esum);
+  const float esum = fold_esum(a.partial, a.nsplit, JB1, a.scale, lane);
   const float sE = *a.sigmaE;
   const float half_invsE = 0.5f / sE;
 
@@ -260,11 +521,8 @@ __device__ __forceinline__ void solve_block(const SolveArgs& a, int j) {
 #pragma unroll
   for (int k = 0; k < K; ++k) { lp[k] = 0.f; invd[k] = 0.f; sd[k] = 0.f; }
   if (act) {
-    const float rc = code_dot(a.partial, a.pind, a.nsplit, a.J * B, j, B,
-                              lane, a.mean[m]);
-    sc = a.scale[m];
-    ms = a.mean[m] * sc;
-    r = rc * sc - ms * esum;
+    r = marker_r(a.partial, a.pind, a.nsplit, a.J * B, j, B, lane, a.mean,
+                 a.scale, m, esum, sc, ms);
     xs = a.xsq[m];
     bold = a.beta_in[m];
     lab = a.labels_in[m];
@@ -358,20 +616,14 @@ __device__ __forceinline__ void hs_solve_block(const HsSolveArgs& a, int j) {
 #pragma unroll 8
   for (int e = lane; e < B * B / 4; e += 32) gs4[e] = g4[e];
 
-  float esum = 0.f;
-  for (int q = lane; q < a.nsplit; q += 32)
-    esum += a.partial[(long long)q * JB1 + JB1 - 1];
-  esum = warp_sum(esum);
+  const float esum = fold_esum(a.partial, a.nsplit, JB1, a.scale, lane);
 
   float r = 0.f, sc = 0.f, ms = 0.f, xs = 0.f, bold = 0.f, okf = 0.f;
   float zl = 0.f, invd = 0.f, sd = 0.f;
   int inn = 0;
   if (act) {
-    const float rc = code_dot(a.partial, a.pind, a.nsplit, a.J * B, j, B,
-                              lane, a.mean[m]);
-    sc = a.scale[m];
-    ms = a.mean[m] * sc;
-    r = rc * sc - ms * esum;
+    r = marker_r(a.partial, a.pind, a.nsplit, a.J * B, j, B, lane, a.mean,
+                 a.scale, m, esum, sc, ms);
     xs = a.xsq[m];
     bold = a.beta_in[m];
     okf = a.valid[m] ? 1.f : 0.f;

@@ -9,7 +9,8 @@
 //   _jacobi_t_mc8_kernel (4 < C <= 16, bayesr_jacobi_t_pallas_mc8, :2894),
 //   _hs_jacobi_t_mc_kernel (horseshoe_jacobi_t_pallas_mc, :2054) and
 //   _hs_jacobi_t_mc8_kernel (horseshoe_jacobi_t_pallas_mc8, :3263)
-// in their two 2-bit modes, fold-affine and `miss` (jacobi_t.cu).  The TPU splits C <= 4 from 4 < C <= 16
+// in their dense f32 mode and their two 2-bit modes, fold-affine and
+// `miss` (jacobi_t.cu).  The TPU splits C <= 4 from 4 < C <= 16
 // because of VMEM (the wide kernel tiles eps through HBM); here one kernel
 // serves every C <= 16 and the C eps vectors (C*Npad*4 bytes, 3.2 MB at
 // N=100,352, C=8) stay in the 50 MB L2.  Python wrappers and plain
@@ -45,6 +46,10 @@
 //             consecutive words, so it reads one full 128-byte line per row;
 //             the CTA's 4 warps split each word's 16 eps lanes.  Each row is
 //             read and decoded once for all chains.
+//
+// The dense mode runs jacobi_t_common.cuh's dense_dot_kernel (the rows of
+// a block in registers once, then each chain's eps in turn) and
+// dense_apply_kernel, the single-chain kernel's code with a chain count.
 //
 // So chain c of a fused sweep equals the single-chain sweep (jacobi_t.cu)
 // on chain c's operands bitwise: the same arithmetic in the same order,
@@ -179,11 +184,23 @@ dot_mc_kernel(const uint32_t* __restrict__ words, int Nw,
   }
 }
 
+// The dot of a round for C chains; mean null selects the dense mode
+// (words is X (Mpad, N) f32, Nw is N), pind the miss mode.
 cudaError_t launch_dot_mc(int C, int Nw, int nsplit, int J, cudaStream_t s,
                           const uint32_t* words, const float* eps,
                           const int* rho, int round, int nr, int B,
-                          float* partial, float* pind) {
+                          float* partial, float* pind, const float* mean) {
   const dim3 grid(nsplit, J);
+  if (mean == nullptr) {
+    const float* X = reinterpret_cast<const float*>(words);
+    if (dense_v4(X, eps, Nw))
+      dense_dot_kernel<true, kMaxC><<<grid, kDotThreads, 0, s>>>(
+          X, Nw, eps, C, rho, round, nr, J, B, partial, nsplit);
+    else
+      dense_dot_kernel<false, kMaxC><<<grid, kDotThreads, 0, s>>>(
+          X, Nw, eps, C, rho, round, nr, J, B, partial, nsplit);
+    return cudaGetLastError();
+  }
 #define JT_DOT(CP, MISS)                                                  \
   dot_mc_kernel<CP, MISS><<<grid, kDotThreads, 0, s>>>(                   \
       words, Nw, eps, C, rho, round, nr, J, B, partial, pind, nsplit)
@@ -396,13 +413,18 @@ void launch_apply_mc_mode(int C, int ctas, cudaStream_t s,
 #undef JT_APPLY
 }
 
+// The apply of a round for C chains; mean null selects the dense mode,
+// `miss` the miss mode.
 cudaError_t launch_apply_mc(int C, int Nw, cudaStream_t s,
                             const uint32_t* words, float* eps,
                             const unsigned char* row_valid, const int* rho,
                             int round, int nr, int J, int B, const float* dsc,
                             const float* dms, const float* mean, bool miss) {
   const int ctas = (Nw + kApplyWords - 1) / kApplyWords;
-  if (miss)
+  if (mean == nullptr)
+    launch_dense_apply(C, s, reinterpret_cast<const float*>(words), Nw, eps,
+                       rho, round, nr, B, J * B, dsc);
+  else if (miss)
     launch_apply_mc_mode<true>(C, ctas, s, words, Nw, eps, row_valid, rho,
                                round, nr, J, B, dsc, dms, mean);
   else
@@ -426,8 +448,11 @@ const char* jacobi_t_mc_error_string(int code) {
 // a leading chain axis: eps (C, Npad), beta/labels/p/z (C, Mpad), pi
 // (C, G, K), sigmaE (C,), sigmaGG (C, G); scratch partial
 // (C, nsplit, J*B + 1), dsc (C, J*B), dms (C, J), vpart (C, nb, G, K),
-// bpart (C, nb, G); pind (C, nsplit, J*B) selects the miss mode, null the
-// fold mode.  Returns the first launch error or 0.
+// bpart (C, nb, G); mean and scale null select the dense mode (`words`
+// X (Mpad, N) f32, Nw = N, eps (C, N), row_valid and pind null, nsplit
+// jacobi_t_dense_dot_splits(N)); otherwise pind (C, nsplit, J*B) selects
+// the miss mode, null the fold mode.  Returns the first launch error or
+// 0.
 int jacobi_t_mc_sweep(int C, const void* words, int Nw, int nr, int J, int B,
                       int K, int G, const void* gram, const void* xsq,
                       const void* mean, const void* scale, void* eps,
@@ -466,7 +491,8 @@ int jacobi_t_mc_sweep(int C, const void* words, int Nw, int nr, int J, int B,
     err = launch_dot_mc(C, Nw, nsplit, J, s, wd,
                         static_cast<const float*>(eps), rh, r, nr, B,
                         static_cast<float*>(partial),
-                        static_cast<float*>(pind));
+                        static_cast<float*>(pind),
+                        static_cast<const float*>(mean));
     if (err != cudaSuccess) return err;
     sa.round = r;
     switch (K) {
@@ -492,8 +518,8 @@ int jacobi_t_mc_sweep(int C, const void* words, int Nw, int nr, int J, int B,
 
 // One fused horseshoe sweep of C chains: dot_mc, hs_solve_mc and apply_mc
 // per round.  eps (C, Npad), beta/z/lam (C, Mpad), tau/c2/sigmaE (C,);
-// scratch and pind as jacobi_t_mc_sweep's.  Returns the first launch
-// error or 0.
+// scratch, the dense mode and pind as jacobi_t_mc_sweep's.  Returns the
+// first launch error or 0.
 int jacobi_t_hs_mc_sweep(int C, const void* words, int Nw, int nr, int J,
                          int B, const void* gram, const void* xsq,
                          const void* mean, const void* scale, void* eps,
@@ -527,7 +553,8 @@ int jacobi_t_hs_mc_sweep(int C, const void* words, int Nw, int nr, int J,
     err = launch_dot_mc(C, Nw, nsplit, J, s, wd,
                         static_cast<const float*>(eps), rh, r, nr, B,
                         static_cast<float*>(partial),
-                        static_cast<float*>(pind));
+                        static_cast<float*>(pind),
+                        static_cast<const float*>(mean));
     if (err != cudaSuccess) return err;
     sa.round = r;
     hs_solve_mc_kernel<<<solve_grid, 32, 0, s>>>(sa);

@@ -15,12 +15,18 @@
 // Python wrappers and plain versions: bayesrrcpp_tpu_torch/ops/serial.py
 // and ops/multichain.py.
 //
-// Two modes.  The fold mode (words with no missing call; _qf) dots the raw
-// codes and standardizes afterwards, as below.  The in-kernel decode mode
-// (q_mode; _q, one chain: the words hold missing calls, code 3) decodes
-// every code to x = (c - mean)*scale, 0 for code 3 and for lanes >= N,
-// before the dot and the apply (pallas_sweep.py:_decode_tile, :84-95), so
-// r = x.eps and eps -= d.x need no sum(eps) and no d.(m*s).
+// Three storage modes (`mode`).  The fold mode (kFold; words with no
+// missing call, _qf) dots the raw codes and standardizes afterwards, as
+// below.  The in-kernel decode mode (kDecode; _q, one chain: the words hold
+// missing calls, code 3) decodes every code to x = (c - mean)*scale, 0 for
+// code 3 and for lanes >= N, before the dot and the apply
+// (pallas_sweep.py:_decode_tile, :84-95), so r = x.eps and eps -= d.x need
+// no sum(eps) and no d.(m*s).  The dense mode (kDense; X (Mpad, N) f32,
+// eps (C, N), one chain or fused) has that algebra on plain f32 rows: the
+// dense dot and apply of jacobi_t_common.cuh (dense_dot_tile,
+// dense_apply_kernel) around the same solve, which reads r unfolded.  It is
+// bound by the dependency chain as the packed modes are; its bytes, one
+// read of X (3.22 GB at N=16,384 x M=49,152), would take 0.96 ms.
 //
 // A sweep visits the blocks in `border` order, one position at a time, in
 // three launches per position (no host sync inside the sweep):
@@ -90,6 +96,8 @@ constexpr int kSerialSub = kApplyThreads / kSerialApplyWords;   // warps
 constexpr int kSerialLanes = 16 / kSerialSub;            // eps lanes/thread
 constexpr int kSerialTilePerLane = kSerialTile / kApplyThreads;
 
+enum Storage { kFold = 0, kDecode = 1, kDense = 2 };   // `mode`
+
 // ------------------------------------------------------------------ dot
 
 // The in-kernel decode's dot of one word column: acc[i] = x_i . e over the
@@ -111,6 +119,38 @@ __device__ __forceinline__ void decode_dot_rows(const uint32_t (&wds)[kMaxB],
     }
     acc[i] = a;
   }
+}
+
+// Warm the L2 with the Gram block (blk) that the solve reads next, spread
+// over every thread of the dot's grid.
+__device__ __forceinline__ void prefetch_gram(const float* gram,
+                                              long long blk, int B) {
+  const float* gb = gram + blk * B * B;
+  const long long lines = ((long long)B * B + 31) / 32;
+  const long long nthr = (long long)gridDim.x * gridDim.y * kDotThreads;
+  for (long long ln = ((long long)blockIdx.y * gridDim.x + blockIdx.x) *
+                          kDotThreads + threadIdx.x;
+       ln < lines; ln += nthr)
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(gb + ln * 32));
+}
+
+// The dense mode's dot: CTA (tile, grp) takes rows grp*32 .. of the block
+// at sweep position `pos` for all C chains (jacobi_t_common.cuh:
+// dense_dot_tile), into (C, nsplit, B + 1) partials; no sum(eps) column.
+template <bool V4>
+__global__ void __launch_bounds__(kDotThreads)
+serial_dense_dot_kernel(const float* __restrict__ X, int N,
+                        const float* __restrict__ eps, int C,
+                        const int* __restrict__ border, int pos, int B,
+                        const float* __restrict__ gram,
+                        float* __restrict__ partial, int nsplit) {
+  __shared__ float red[kSerialMaxC][kDotThreads / 32][32];
+  const int grp = blockIdx.y;
+  const long long blk = border[pos];
+  const int nrow = min(kMaxB, B - grp * kMaxB);
+  prefetch_gram(gram, blk, B);
+  dense_dot_tile<V4>(X, N, blk * B + grp * kMaxB, nrow, eps, C, red);
+  dense_dot_store(red, C, partial, nsplit, B + 1, grp * kMaxB, nrow);
 }
 
 // CP chains per decode; Q: the in-kernel decode mode (CP == 1), which
@@ -136,17 +176,7 @@ serial_dot_kernel(const uint32_t* __restrict__ words, int Nw,
   const long long Npad = 16LL * Nw;
   __shared__ float red[kSerialMaxC][kDotThreads / 32][32];
   __shared__ float red_e[kSerialMaxC][kDotThreads / 32];
-
-  // warm the L2 with the Gram block that the solve reads next
-  {
-    const float* gb = gram + blk * B * B;
-    const long long lines = ((long long)B * B + 31) / 32;
-    const long long nthr = (long long)gridDim.x * gridDim.y * kDotThreads;
-    for (long long ln = ((long long)grp * gridDim.x + blockIdx.x) *
-                            kDotThreads + threadIdx.x;
-         ln < lines; ln += nthr)
-      asm volatile("prefetch.global.L2 [%0];" ::"l"(gb + ln * 32));
-  }
+  prefetch_gram(gram, blk, B);
 
   uint32_t wds[kMaxB];
   if (w < Nw) {
@@ -251,7 +281,7 @@ struct SerialSolveArgs {
   const float* sigmaE;                        // (C,)
   float* esum; float* dsc; float* dms;        // (C,), (C, B), (C,)
   float* vpart; float* bpart; int n_pos;      // (C, n, G, K), (C, n, G)
-  int q_mode;   // the in-kernel decode: r = x.eps, d unscaled, no sums
+  int fold;     // 0 (kDecode, kDense): r = x.eps, d unscaled, no sums
 };
 
 // The block's staged operands in dynamic shared memory: B*(9 + F) words.
@@ -407,8 +437,8 @@ serial_solve_kernel(SerialSolveArgs a) {
   const float* part = a.partial + (long long)c * a.nsplit * B1;
 
   // sum(eps): afresh from the dot's column at a chunk start, else tracked
-  // (the in-kernel decode reads none)
-  if (warp == 0 && !a.q_mode) {
+  // (the in-kernel decode and the dense mode read none)
+  if (warp == 0 && a.fold) {
     float e = 0.f;
     if (a.chunk_start) {
       for (int q = lane; q < a.nsplit; q += 32)
@@ -436,7 +466,7 @@ serial_solve_kernel(SerialSolveArgs a) {
   for (int l = tid; l < B; l += kSolveThreads) {
     float rc = 0.f;
     for (int q = 0; q < a.nsplit; ++q) rc += part[(long long)q * B1 + l];
-    if (a.q_mode) {
+    if (!a.fold) {
       s.r[l] = rc;
     } else {
       const float sc = a.scale[m0 + l];
@@ -463,17 +493,21 @@ serial_solve_kernel(SerialSolveArgs a) {
   for (int l = tid; l < B; l += kSolveThreads) {
     const long long m = m0 + l;
     const float d = s.dlt[l];
-    const float sc = a.scale[m];
-    const float ms = a.mean[m] * sc;
     a.beta[cm + m] = s.bo[l] + d;
     if constexpr (K > 0) {
       if (s.krec[l] >= 0) a.labels[cm + m] = s.krec[l];
     }
-    a.dsc[(long long)c * B + l] = a.q_mode ? d : d * sc;
-    es += d * a.xsum[m];
-    dm += d * ms;
+    if (a.fold) {
+      const float sc = a.scale[m];
+      const float ms = a.mean[m] * sc;
+      a.dsc[(long long)c * B + l] = d * sc;
+      es += d * a.xsum[m];
+      dm += d * ms;
+    } else {
+      a.dsc[(long long)c * B + l] = d;
+    }
   }
-  if (!a.q_mode) {
+  if (a.fold) {
     const float es_t = block_sum(es, red);
     const float dm_t = block_sum(dm, red);
     if (tid == 0) {
@@ -647,7 +681,7 @@ serial_apply_kernel(const uint32_t* __restrict__ words, int Nw,
 // One sweep's operands (ops/serial.py:_sweep_cuda); K == 0 is the
 // horseshoe, whose labels, gas, p, sigmaE, vpart and bpart are null.
 struct SerialSweep {
-  int C, pz_by_marker, Nw, n_pos, chunk, B, K, G, Mpad, nsplit, q_mode;
+  int C, pz_by_marker, Nw, n_pos, chunk, B, K, G, Mpad, nsplit, mode;
   const uint32_t* words; const int* border; const int* inner;
   const float* gram; const float* tbl; const float* xsq; const float* mean;
   const float* scale; const float* xsum; const unsigned char* valid;
@@ -696,14 +730,26 @@ inline SolveFn pick_solve(int K, int B) {
 
 // The dot reads the words once for every CP chains (4 at most: more
 // spill); C == 1 takes the single-chain instance, the in-kernel decode its
-// own.
+// own.  The dense mode reads the rows once for all chains.
 cudaError_t launch_dot(const SerialSweep& o, int pos, cudaStream_t s) {
   const dim3 grid(o.nsplit, (o.B + kMaxB - 1) / kMaxB);
+  if (o.mode == kDense) {
+    const float* X = reinterpret_cast<const float*>(o.words);
+    if (dense_v4(X, o.eps, o.Nw))
+      serial_dense_dot_kernel<true><<<grid, kDotThreads, 0, s>>>(
+          X, o.Nw, o.eps, o.C, o.border, pos, o.B, o.gram, o.partial,
+          o.nsplit);
+    else
+      serial_dense_dot_kernel<false><<<grid, kDotThreads, 0, s>>>(
+          X, o.Nw, o.eps, o.C, o.border, pos, o.B, o.gram, o.partial,
+          o.nsplit);
+    return cudaGetLastError();
+  }
 #define SERIAL_DOT(CP, Q)                                                 \
   serial_dot_kernel<CP, Q><<<grid, kDotThreads, 0, s>>>(                  \
       o.words, o.Nw, o.eps, o.C, o.border, pos, o.B, o.gram, o.partial,   \
       o.nsplit, o.mean, o.scale, o.row_valid)
-  if (o.q_mode) SERIAL_DOT(1, true);
+  if (o.mode == kDecode) SERIAL_DOT(1, true);
   else if (o.C == 1) SERIAL_DOT(1, false);
   else if (o.C == 2) SERIAL_DOT(2, false);
   else SERIAL_DOT(4, false);
@@ -712,12 +758,18 @@ cudaError_t launch_dot(const SerialSweep& o, int pos, cudaStream_t s) {
 }
 
 cudaError_t launch_apply(const SerialSweep& o, int pos, cudaStream_t s) {
+  if (o.mode == kDense) {
+    // the block's B rows: a round of one block (J = 1) at slab border[pos]
+    launch_dense_apply(o.C, s, reinterpret_cast<const float*>(o.words), o.Nw,
+                       o.eps, o.border, pos, 1, o.B, o.B, o.dsc);
+    return cudaGetLastError();
+  }
   const int ctas = (o.Nw + kSerialApplyWords - 1) / kSerialApplyWords;
 #define SERIAL_APPLY(CB, Q)                                               \
   serial_apply_kernel<CB, Q><<<ctas, kApplyThreads, 0, s>>>(              \
       o.words, o.Nw, o.eps, o.C, o.row_valid, o.border, pos, o.B, o.dsc,  \
       o.dms, o.mean, o.scale)
-  if (o.q_mode) SERIAL_APPLY(1, true);
+  if (o.mode == kDecode) SERIAL_APPLY(1, true);
   else if (o.C <= 1) SERIAL_APPLY(1, false);
   else if (o.C <= 2) SERIAL_APPLY(2, false);
   else if (o.C <= 4) SERIAL_APPLY(4, false);
@@ -732,7 +784,7 @@ cudaError_t launch_apply(const SerialSweep& o, int pos, cudaStream_t s) {
 int serial_run(const SerialSweep& o, cudaStream_t s) {
   if (o.C < 1 || o.C > kSerialMaxC || o.B < 1 || o.B > kSerialMaxB ||
       o.chunk < 1 || (o.K != 0 && (o.K < 2 || o.K > kMaxK)) ||
-      (o.q_mode && o.C != 1))
+      o.mode < kFold || o.mode > kDense || (o.mode == kDecode && o.C != 1))
     return cudaErrorInvalidValue;
   const SolveFn solve = pick_solve(o.K, o.B);
   if (solve == nullptr) return cudaErrorInvalidValue;
@@ -747,7 +799,7 @@ int serial_run(const SerialSweep& o, cudaStream_t s) {
                     o.pz_by_marker ? (long long)o.Mpad
                                    : (long long)o.n_pos * o.B,
                     o.sigmaE, o.esum, o.dsc, o.dms, o.vpart, o.bpart,
-                    o.n_pos, o.q_mode};
+                    o.n_pos, o.mode == kFold};
   // the JAX wrapper's chunks: the remainder first, then `chunk` positions
   const int rem = o.n_pos % o.chunk;
   for (int pos = 0; pos < o.n_pos; ++pos) {
@@ -773,20 +825,25 @@ int serial_max_components() { return kMaxK; }
 
 int serial_dot_splits(int Nw) { return (Nw + kDotThreads - 1) / kDotThreads; }
 
+int serial_dense_dot_splits(int N) { return (N + kDenseTile - 1) / kDenseTile; }
+
 const char* serial_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 // One sweep of C chains over n_pos block positions, 3 launches each, on
-// `stream`.  K == 0 is the horseshoe; q_mode selects the in-kernel decode
-// (one chain; words with missing calls), else the fold mode.  Per-chain operands have a leading
+// `stream`.  K == 0 is the horseshoe; `mode` the storage: 0 the fold mode,
+// 1 the in-kernel decode (one chain; words with missing calls), 2 the
+// dense mode (`words` X (Mpad, N) f32, Nw = N, eps (C, N); mean, scale,
+// xsum and row_valid null; nsplit serial_dense_dot_splits(N)).  Per-chain
+// operands have a leading
 // chain axis C: eps (C, Npad), beta/labels (C, Mpad), tbl (C, Mpad, F),
 // sigmaE (C,); p/z (C, Mpad) by marker if pz_by_marker (fused chains),
 // else (C, n_pos*B) by sweep position; scratch partial (C, nsplit, B + 1),
 // esum (C,), dsc (C, B), dms (C,), vpart (C, n_pos, G, K), bpart (C,
 // n_pos, G).  Returns the first launch error or 0.
 int serial_sweep(int C, int pz_by_marker, int Nw, int n_pos, int chunk,
-                 int B, int K, int G, int Mpad, int nsplit, int q_mode,
+                 int B, int K, int G, int Mpad, int nsplit, int mode,
                  const void* words,
                  const void* border, const void* inner, const void* gram,
                  const void* tbl, const void* xsq, const void* mean,
@@ -797,7 +854,7 @@ int serial_sweep(int C, int pz_by_marker, int Nw, int n_pos, int chunk,
                  void* dms, void* vpart, void* bpart, void* stream) {
   return serial_run(
       SerialSweep{C, pz_by_marker, Nw, n_pos, chunk, B, K, G, Mpad, nsplit,
-                  q_mode,
+                  mode,
                   static_cast<const uint32_t*>(words),
                   static_cast<const int*>(border),
                   static_cast<const int*>(inner),

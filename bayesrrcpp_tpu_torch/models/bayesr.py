@@ -4,16 +4,19 @@ Counterpart of ``bayesrrcpp_tpu/models/bayesr.py:SpikeSlabSampler`` for one
 group (G=1) and no fixed effects (F=0), one chain or several
 (``run_chains``), on either
 
-- 2-bit packed genotypes, swept by the strided-rounds block-Jacobi kernel
-  (``ops/jacobi_t.py``; the main path) or, at J=1 (``jacobi_blocks=1``, or
-  the auto plan for M < 2048), by the exact serial sweep
-  (``ops/serial.py``), from host dosages, a PLINK .bed
-  (``io/bed.read_bed_packed``) or pre-packed int32 words on the device;
-  words with missing calls (code 3) take the kernels' missing-call modes
-  (``MarkerSampler._packed_kw``); or
-- dense standardized X, swept by the plain Gram-blocked sweep
-  (``backend="blocked"``, ``ops/block_sweep.py``), as the JAX package runs
-  it in XLA.
+- 2-bit packed genotypes from host dosages, a PLINK .bed
+  (``io/bed.read_bed_packed``) or pre-packed int32 words on the device
+  (words with missing calls take the kernels' missing-call modes,
+  ``MarkerSampler._sweep_kw``), or
+- dense standardized f32 X,
+
+swept by the kernels ("pallas", the default for packed X and for dense X
+on the card): the strided-rounds block-Jacobi kernel (``ops/jacobi_t.py``;
+the main path) or, at J=1 (``jacobi_blocks=1``, or the auto plan for M <
+2048), the exact serial sweep (``ops/serial.py``).  Dense X on the CPU
+defaults to the plain Gram-blocked sweep (``backend="blocked"``,
+``ops/block_sweep.py``), as the JAX package runs it in XLA off its
+accelerator.
 
 Per iteration (src/BayesRv2.cpp:171-272): intercept -> marker sweep ->
 sigmaE / sigmaG / pi draws.  Every draw comes from the variates object the
@@ -26,7 +29,7 @@ J=1).
 
 What lies outside the slice raises ``NotImplementedError`` naming its
 ROADMAP entry: the groups variant and fixed effects, int8, row-layout
-plans with J > 1 for packed X with no missing call, the scan backend,
+plans with J > 1 (dense, or packed with no missing call), the scan backend,
 sharding, checkpoint and resume.  What it shares with the horseshoe
 (storage, plan, intercept, residual recompute, chain driver) lives in
 ``models/sampler.py``.
@@ -86,8 +89,9 @@ class SpikeSlabSampler(MarkerSampler):
     cva : (K-1,) slab variances (spike prepended internally).
     config : BayesRConfig.
     backend : None, "blocked" (dense X, plain Gram-blocked sweep) or
-        "pallas" (the packed sweep kernels: strided Jacobi, or serial at
-        J=1; packed X only).  None picks by ``x_dtype``.
+        "pallas" (the sweep kernels: strided Jacobi, or serial at J=1).
+        None picks "pallas" for packed X and for dense X on the card,
+        "blocked" for dense X on the CPU.
     device : where the data and state live; defaults to X's device for a
         tensor X, else the card ("cuda"; raises without one: pass
         ``device="cpu"`` to run on the CPU).
@@ -102,8 +106,7 @@ class SpikeSlabSampler(MarkerSampler):
                  n_markers: Optional[int] = None,
                  jacobi_blocks: Optional[int] = None,
                  jacobi_layout: str = "auto", device=None):
-        backend = self._storage(x_dtype, backend, permutation,
-                                jacobi_layout, "Queue 2 entry 1")
+        self._storage(x_dtype, backend, permutation, jacobi_layout)
         if not isinstance(config, BayesRConfig) or variant not in (None,
                                                                    "bayesr"):
             raise not_ported("the groups variant", "Queue 1 item 7")
@@ -118,7 +121,7 @@ class SpikeSlabSampler(MarkerSampler):
         if np.any(cva2 <= 0):
             raise ValueError("slab variances must be strictly positive")
         K = Km1 + 1
-        self.config, self.variant, self.backend = config, "bayesr", backend
+        self.config, self.variant = config, "bayesr"
         self.K, self.G, self.F = K, G, 0
         geno = self._lay_out(X, Y, M, N, config.block_size,
                              prepacked=prepacked, transposed=transposed,
@@ -192,22 +195,23 @@ class SpikeSlabSampler(MarkerSampler):
         mu, eps = self._intercept(state, v)
         d = self.data
         Mpad, B, nb = self.Mpad, self.B, self.nb
-        if self.x_packed and self.jacobi > 1:
+        kernels = self.backend == "pallas"
+        if kernels and self.jacobi > 1:
             rho, inner = v.orders(nb, B, self.jacobi)
             p, z = v.p(Mpad), v.z(Mpad)
             res = bayesr_jacobi_t(
                 d.XT, d.gram, d.xsq, eps, state.beta, state.labels, rho,
                 inner, p, z, state.pi, d.cva, state.sigmaE, state.sigmaGG,
-                d.g_assign, d.valid, J=self.jacobi, **self._packed_kw())
+                d.g_assign, d.valid, J=self.jacobi, **self._sweep_kw())
         else:
             # the shuffled block order, p/z by sweep position
-            # (bayesr.py:619-645): the serial sweep, or dense X's
+            # (bayesr.py:619-645): the serial sweep, or the plain one
             border, inner = v.block_orders(nb, B)
             p, z = v.p(Mpad), v.z(Mpad)
             args = (d.XT, d.gram, d.xsq, eps, state.beta, state.labels,
                     border, inner, p, z, state.pi, d.cva, state.sigmaE,
                     state.sigmaGG, d.g_assign, d.valid)
-            res = (bayesr_sweep(*args, **self._packed_kw()) if self.x_packed
+            res = (bayesr_sweep(*args, **self._sweep_kw()) if kernels
                    else bs.bayesr_block_sweep(*args))
         return self._next(state, v, mu, res)
 
@@ -217,9 +221,9 @@ class SpikeSlabSampler(MarkerSampler):
         intercept and p/z, one visit order shared by all chains, one
         ``bayesr_jacobi_t_mc`` sweep (``bayesr_sweep_mc`` at J=1, p/z by
         marker), per-chain hyperparameter draws.
-        Packed X only (``supports_fused_chains``)."""
+        The kernel backend only (``supports_fused_chains``)."""
         if not self.supports_fused_chains:
-            raise ValueError("fused multi-chain steps need 2-bit packed X, "
+            raise ValueError("fused multi-chain steps need the sweep kernels, "
                              "with no missing call at J=1")
         v = self.variates(rng, state.beta.shape[0])
         v.begin_step()
@@ -236,7 +240,7 @@ class SpikeSlabSampler(MarkerSampler):
         res = sweep(d.XT, d.gram, d.xsq, eps, state.beta, state.labels,
                     *orders, p, z, state.pi, d.cva, state.sigmaE,
                     state.sigmaGG, d.g_assign, d.valid, **kw,
-                    **self._packed_kw())
+                    **self._sweep_kw())
         return self._next(state, v, mu, res)
 
     def _next(self, state, v, mu, res) -> SpikeSlabState:

@@ -3,14 +3,15 @@
 Counterpart of ``bayesrrcpp_tpu/models/horseshoe.py:HorseshoeSampler``, one
 chain or several (``run_chains``), on either
 
-- 2-bit packed genotypes, swept by the strided-rounds block-Jacobi kernel
-  (``ops/jacobi_t.horseshoe_jacobi_t``; the main path) or, at J=1, by the
-  exact serial sweep (``ops/serial.horseshoe_sweep``), from host dosages, a
-  PLINK .bed or pre-packed int32 words on the device, with or without
-  missing calls (as ``SpikeSlabSampler``); or
-- dense standardized X, swept by the plain Gram-blocked sweep
-  (``backend="blocked"``, ``ops/block_sweep.horseshoe_block_sweep``), as
-  the JAX package runs it in XLA.
+- 2-bit packed genotypes from host dosages, a PLINK .bed or pre-packed
+  int32 words on the device, with or without missing calls, or
+- dense standardized f32 X,
+
+swept (as ``SpikeSlabSampler``'s) by the kernels: the strided-rounds
+block-Jacobi kernel (``ops/jacobi_t.horseshoe_jacobi_t``; the main path)
+or, at J=1, the exact serial sweep (``ops/serial.horseshoe_sweep``); dense
+X on the CPU defaults to the plain Gram-blocked sweep
+(``backend="blocked"``, ``ops/block_sweep.horseshoe_block_sweep``).
 
 Per iteration, in the reference's order (src/HorseshoeR.cpp:210-253):
 
@@ -31,7 +32,7 @@ Every draw comes from the variates object the caller passes
 the same per-chain draws around one ``horseshoe_jacobi_t_mc`` sweep of all
 chains (``horseshoe_sweep_mc`` at J=1).  What lies outside the slice raises
 ``NotImplementedError`` naming its ROADMAP entry: int8, row-layout plans
-with J > 1 for packed X with no missing call and the scan backend.
+with J > 1 (dense, or packed with no missing call) and the scan backend.
 """
 from __future__ import annotations
 
@@ -60,7 +61,8 @@ class HorseshoeSampler(MarkerSampler):
     Parameters as ``SpikeSlabSampler``'s, without cva, groups and fixed
     effects: X as dosages, standardized values or pre-packed int32 words;
     ``config`` a HorseshoeConfig; ``backend`` None, "blocked" (dense X) or
-    "pallas" (the packed sweep kernels, strided or serial; packed X only);
+    "pallas" (the sweep kernels, strided or serial; None picks them for
+    packed X and for dense X on the card);
     ``device`` defaults to X's device for a tensor X, else the card
     ("cuda"; raises without one: pass ``device="cpu"`` to run on the CPU).
     """
@@ -73,8 +75,7 @@ class HorseshoeSampler(MarkerSampler):
                  n_markers: Optional[int] = None,
                  jacobi_blocks: Optional[int] = None,
                  jacobi_layout: str = "auto", device=None):
-        self.backend = self._storage(x_dtype, backend, permutation,
-                                     jacobi_layout, "Queue 2 entry 3")
+        self._storage(x_dtype, backend, permutation, jacobi_layout)
         self.config = config
         X, prepacked, M, N = self._read_x(X, Y, transposed, x_stats,
                                           n_individuals, n_markers, device)
@@ -198,21 +199,22 @@ class HorseshoeSampler(MarkerSampler):
         mu, eps, eta, v_aux = self._pre_sweep(state, v)
         d = self.data
         Mpad, B, nb = self.Mpad, self.B, self.nb
-        if self.x_packed and self.jacobi > 1:
+        kernels = self.backend == "pallas"
+        if kernels and self.jacobi > 1:
             rho, inner = v.orders(nb, B, self.jacobi)
             eps, beta = horseshoe_jacobi_t(
                 d.XT, d.gram, d.xsq, eps, state.beta, rho, inner, v.z(Mpad),
                 state.lam, state.tau, state.c2, state.sigmaE, d.valid,
-                J=self.jacobi, **self._packed_kw())
+                J=self.jacobi, **self._sweep_kw())
         else:
             # the shuffled block order, z by sweep position
-            # (horseshoe.py:464-485): the serial sweep, or dense X's
+            # (horseshoe.py:464-485): the serial sweep, or the plain one
             border, inner = v.block_orders(nb, B)
             args = (d.XT, d.gram, d.xsq, eps, state.beta, border, inner,
                     v.z(Mpad), state.lam, state.tau, state.c2, state.sigmaE,
                     d.valid)
-            eps, beta = (horseshoe_sweep(*args, **self._packed_kw())
-                         if self.x_packed else bs.horseshoe_block_sweep(*args))
+            eps, beta = (horseshoe_sweep(*args, **self._sweep_kw())
+                         if kernels else bs.horseshoe_block_sweep(*args))
         return self._next(state, v, mu, eta, v_aux, eps, beta)
 
     def step_chains(self, state: HorseshoeState, rng) -> HorseshoeState:
@@ -220,10 +222,10 @@ class HorseshoeSampler(MarkerSampler):
         (bayesrrcpp_tpu/models/horseshoe.py:_mc_step_impl): the single
         step's per-chain draws, one visit order shared by all chains, one
         ``horseshoe_jacobi_t_mc`` sweep (``horseshoe_sweep_mc`` at J=1, z
-        by marker).  Packed X only
+        by marker).  The kernel backend only
         (``supports_fused_chains``)."""
         if not self.supports_fused_chains:
-            raise ValueError("fused multi-chain steps need 2-bit packed X, "
+            raise ValueError("fused multi-chain steps need the sweep kernels, "
                              "with no missing call at J=1")
         v = self.variates(rng, state.beta.shape[0])
         v.begin_step()
@@ -238,7 +240,7 @@ class HorseshoeSampler(MarkerSampler):
             sweep, kw = horseshoe_sweep_mc, {}
         eps, beta = sweep(d.XT, d.gram, d.xsq, eps, state.beta, *orders,
                           v.z(self.Mpad), state.lam, state.tau, state.c2,
-                          state.sigmaE, d.valid, **kw, **self._packed_kw())
+                          state.sigmaE, d.valid, **kw, **self._sweep_kw())
         return self._next(state, v, mu, eta, v_aux, eps, beta)
 
     def _next(self, state, v, mu, eta, v_aux, eps, beta) -> HorseshoeState:

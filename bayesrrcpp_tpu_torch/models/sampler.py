@@ -7,17 +7,20 @@ this code; here it lives once).  ``MarkerSampler`` holds it;
 ``models/bayesr.py`` and ``models/horseshoe.py`` add their priors, state
 and steps (``init``, ``step``, ``step_chains``, ``_emit_one``).
 
-Packed words with missing calls (code 3) take the sweeps' missing-call
-modes, routed as the JAX samplers route them (bayesrrcpp_tpu/models/
-bayesr.py:278-300): the strided kernels' ``miss`` mode at J > 1, the
-serial kernels' in-kernel decode at J=1 (``_packed_kw``).
+The sweep kernels ("pallas" backend) take 2-bit packed words and dense
+f32 rows alike, with the JAX samplers' plan; dense X on the CPU defaults
+to the plain Gram-blocked sweep ("blocked"), as JAX's does off its
+accelerator (bayesrrcpp_tpu/models/bayesr.py:121-128).  Packed words with
+missing calls (code 3) take the sweeps' missing-call modes, routed as the
+JAX samplers route them (bayesr.py:278-300): the strided kernels' ``miss``
+mode at J > 1, the serial kernels' in-kernel decode at J=1 (``_sweep_kw``).
 
 Several chains (``run_chains``) are one state whose tensors carry a
-leading chain axis C (``init(rng, chains=C)``).  With 2-bit packed X a
+leading chain axis C (``init(rng, chains=C)``).  On the kernel backend a
 fused step (``step_chains``) sweeps all chains with one set of launches per
-round (strided plan) or per block (serial plan, J=1; words with no missing
-call only); otherwise each chain takes the single-chain step in turn.  The
-intercept, residual recompute and emission below serve both shapes.
+round (strided plan) or per block (serial plan, J=1; not on words with
+missing calls); otherwise each chain takes the single-chain step in turn.
+The intercept, residual recompute and emission below serve both shapes.
 """
 from __future__ import annotations
 
@@ -60,18 +63,18 @@ class MarkerSampler:
     ``self.data`` (a NamedTuple with the fields of ``Genotypes``) and
     ``self.config``."""
 
-    def _storage(self, x_dtype, backend, permutation, jacobi_layout,
-                 dense_kernel_entry: str) -> str:
+    def _storage(self, x_dtype, backend, permutation, jacobi_layout):
         """Check the storage and sweep options; sets ``x_packed`` and
-        returns the backend: the packed sweep kernels ("pallas": strided
-        Jacobi, or serial at J=1) for 2-bit packed X, the plain
-        Gram-blocked sweep ("blocked") for dense X."""
+        ``backend``: the sweep kernels ("pallas": strided Jacobi, or serial
+        at J=1), which 2-bit packed X needs, or the plain Gram-blocked
+        sweep ("blocked", dense X only).  None for dense X is resolved by
+        the device in ``_read_x``."""
         if x_dtype not in ("dense", "int8", "2bit"):
             raise ValueError(f"unknown x_dtype {x_dtype!r}")
         if x_dtype == "int8":
             raise not_ported("int8 genotype storage", "Queue 1 item 7")
         if backend == "scan" or permutation == "full":
-            raise not_ported("the sequential scan sweep", "Queue 1 item 3")
+            raise not_ported("the sequential scan sweep", "Queue 1 item 8")
         if backend not in (None, "blocked", "pallas"):
             raise ValueError(f"unknown backend {backend!r}")
         if permutation not in (None, "blocked"):
@@ -79,14 +82,11 @@ class MarkerSampler:
         if jacobi_layout not in ("auto", "row", "t"):
             raise ValueError(f"unknown jacobi_layout {jacobi_layout!r}")
         self.x_packed = x_dtype == "2bit"
-        if backend is None:
-            backend = "pallas" if self.x_packed else "blocked"
+        if backend is None and self.x_packed:
+            backend = "pallas"
         if self.x_packed and backend != "pallas":
             raise ValueError("x_dtype='2bit' requires the pallas backend")
-        if not self.x_packed and backend == "pallas":
-            raise not_ported("the dense mode of the strided Jacobi kernel",
-                             dense_kernel_entry)
-        return backend
+        self.backend = backend
 
     def _read_x(self, X, Y, transposed, x_stats, n_individuals, n_markers,
                 device):
@@ -100,6 +100,9 @@ class MarkerSampler:
             raise RuntimeError(
                 "no CUDA device: the samplers run on the card; pass "
                 "device='cpu' to run on the CPU")
+        if self.backend is None:
+            # dense X: the kernels on the card, the plain sweep elsewhere
+            self.backend = "pallas" if self.device.type == "cuda" else "blocked"
         prepacked = (self.x_packed and isinstance(X, torch.Tensor)
                      and X.dtype == torch.int32)
         if prepacked:
@@ -129,7 +132,7 @@ class MarkerSampler:
         sets the layout attributes (N, M, Mpad, B, nb, jacobi,
         jacobi_layout, Npad, Y)."""
         B = max(8, min(block_size, 1 << max(1, (M - 1).bit_length())))
-        if self.x_packed:
+        if self.backend == "pallas":
             J, B, layout = self._plan(M, B, jacobi_blocks, jacobi_layout)
         else:
             if jacobi_blocks not in (None, 1):
@@ -165,9 +168,13 @@ class MarkerSampler:
                 x_mean=q.x_mean, x_scale=q.x_scale, row_valid=q.row_valid,
                 x_colsum=q.x_colsum, has_missing=q.has_missing)
         else:
+            self._row_plan(False, jacobi_blocks is None)
             self.Npad = N
-            XT = torch.as_tensor(X if transposed else X.T, dtype=f32,
-                                 device=dev).contiguous()
+            XT = X if transposed else X.T
+            if not isinstance(XT, torch.Tensor):
+                # marker-major f32 on the host, then one transfer
+                XT = np.ascontiguousarray(XT, dtype=np.float32)
+            XT = torch.as_tensor(XT, dtype=f32, device=dev).contiguous()
             xsq = torch.sum(XT * XT, dim=1)
             XT, xsq, _ = bs.pad_markers(XT, xsq, B, mpad=Mpad)
             geno = Genotypes(
@@ -183,7 +190,7 @@ class MarkerSampler:
 
     @staticmethod
     def _plan(M, B, jacobi_blocks, jacobi_layout):
-        """(J, B, layout) of the packed sweep, chosen as the JAX samplers
+        """(J, B, layout) of the kernels' sweep, chosen as the JAX samplers
         choose it (bayesrrcpp_tpu/models/bayesr.py:194-220).  J=1, in
         either layout and from the auto plan for M < 2048 too, runs the
         exact serial sweep (ops/serial.py), as any J=1 runs
@@ -208,10 +215,10 @@ class MarkerSampler:
         return J, B, layout
 
     def _row_plan(self, has_missing, auto):
-        """A row-layout plan with J > 1 on the packed words: with missing
-        calls the auto plan falls back to J=1 and an explicit one is
-        refused, as in the JAX samplers (bayesr.py:290-300); without, it is
-        not ported (the row-layout kernels)."""
+        """A row-layout plan with J > 1: on words with missing calls the
+        auto plan falls back to J=1 and an explicit one is refused, as in
+        the JAX samplers (bayesr.py:290-300); on dense X or words without,
+        it is not ported (the row-layout kernels)."""
         J = self.jacobi
         if self.jacobi_layout == "t" or J == 1:
             return
@@ -222,15 +229,17 @@ class MarkerSampler:
                              "quantized, or packed-missing "
                              "(jacobi_layout='t') X only")
         else:
-            raise not_ported(f"the packed row-layout J={J} sweep",
-                             "Queue 2 entry 10")
+            raise not_ported(f"the row-layout J={J} sweep", "Queue 2 entry 10")
 
-    def _packed_kw(self):
-        """The packed sweeps' keyword arguments for ``self.data``'s words:
-        the fold-affine decode; with missing calls the strided kernels'
-        ``miss`` mode (J > 1) or the serial kernels' in-kernel decode
-        (J=1), as the JAX samplers pass them (bayesr.py:278-287, :590-607)."""
+    def _sweep_kw(self):
+        """The kernel sweeps' storage keyword arguments for ``self.data``:
+        ``x_mean=None`` for dense rows; for words the fold-affine decode,
+        or with missing calls the strided kernels' ``miss`` mode (J > 1) or
+        the serial kernels' in-kernel decode (J=1), as the JAX samplers
+        pass them (bayesr.py:278-287, :590-607)."""
         d = self.data
+        if not self.x_packed:
+            return dict(x_mean=None)
         miss = bool(d.has_missing)
         kw = dict(x_mean=d.x_mean, x_scale=d.x_scale, x_xsum=d.x_colsum,
                   fold_affine=not miss, row_valid=d.row_valid)
@@ -297,14 +306,13 @@ class MarkerSampler:
     @property
     def supports_fused_chains(self) -> bool:
         """Whether ``step_chains`` sweeps all chains with the fused kernel:
-        2-bit packed X through the strided Jacobi kernel, or through the
-        serial one at J=1 when the words hold no missing call (the fused
-        serial sweep has no in-kernel decode, in JAX neither: bayesr.py:
-        733-743).  Dense X runs its chains through the single-chain step
-        (the JAX package fuses dense X too, through the dense mode of the
-        kernel, ROADMAP Queue 2 entry 1)."""
-        return self.x_packed and (self.jacobi > 1
-                                  or not self.data.has_missing)
+        on the kernel backend, dense or packed X through the strided Jacobi
+        kernel, or through the serial one at J=1 unless the words hold
+        missing calls (the fused serial sweep has no in-kernel decode, in
+        JAX neither: bayesr.py:733-743).  The plain backend runs its chains
+        through the single-chain step."""
+        return self.backend == "pallas" and (self.jacobi > 1
+                                             or not self.data.has_missing)
 
     def _run_steps(self, state, v, n):
         for _ in range(n):
@@ -379,8 +387,8 @@ class MarkerSampler:
         words are read once per round for all chains, which share the
         visit order and draw their own p/z.  ``fused=False`` steps each
         chain through the single-chain step with its own orders; it is the
-        only option on dense X and on words with missing calls at J=1,
-        where ``fused=True`` raises ValueError.
+        only option on the plain backend and on words with missing calls at
+        J=1, where ``fused=True`` raises ValueError.
         ``rng`` is a ``torch.Generator`` on the sampler's device or a
         chain-batched variates object.  Collected arrays are (n_emits,
         n_chains, ...); a ``ChainFanoutSink`` writes one file per chain.
@@ -390,9 +398,9 @@ class MarkerSampler:
         if fused is None:
             fused = self.supports_fused_chains
         if fused and not self.supports_fused_chains:
-            raise ValueError("fused multi-chain runs need 2-bit packed X "
-                             "(the packed sweep kernels), with no missing "
-                             "call at J=1; run these with fused=False")
+            raise ValueError("fused multi-chain runs need the sweep kernels "
+                             "(backend 'pallas'), with no missing call at "
+                             "J=1; run these with fused=False")
         v = self.variates(rng, n_chains)
         state = self.init(v, chains=n_chains)
         if fused:

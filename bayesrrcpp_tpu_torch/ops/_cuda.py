@@ -29,10 +29,12 @@ _VOID_P, _INT = ctypes.c_void_p, ctypes.c_int
 
 # argtypes of each library's entry points (ctypes would pass a bare Python
 # int as a 32-bit int and cut a pointer); the strided sweeps end with the
-# missing-call indicator's partials (null: the fold mode) and the stream
+# missing-call indicator's partials (null: the fold or dense mode) and the
+# stream
 SIGNATURES = {
     "jacobi_t": {
         "jacobi_t_dot_splits": ([_INT], _INT),
+        "jacobi_t_dense_dot_splits": ([_INT], _INT),
         "jacobi_t_max_block": ([], _INT),
         "jacobi_t_max_round": ([], _INT),
         "jacobi_t_max_components": ([], _INT),
@@ -56,13 +58,14 @@ SIGNATURES = {
                                  _INT),
     },
     # the serial (J=1) sweeps, one chain or fused: 11 ints (C,
-    # pz_by_marker, Nw, n_pos, chunk, B, K, G, Mpad, nsplit, q_mode), then
+    # pz_by_marker, Nw, n_pos, chunk, B, K, G, Mpad, nsplit, mode), then
     # 24 operand pointers and the stream
     "serial": {
         "serial_max_block": ([], _INT),
         "serial_max_chains": ([], _INT),
         "serial_max_components": ([], _INT),
         "serial_dot_splits": ([_INT], _INT),
+        "serial_dense_dot_splits": ([_INT], _INT),
         "serial_error_string": ([_INT], ctypes.c_char_p),
         "serial_sweep": ([_INT] * 11 + [_VOID_P] * 25, _INT),
     },

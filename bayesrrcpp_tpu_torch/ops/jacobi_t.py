@@ -1,10 +1,12 @@
-"""Strided-rounds BayesR and horseshoe block-Jacobi sweeps on 2-bit packed
-genotypes.
+"""Strided-rounds BayesR and horseshoe block-Jacobi sweeps on dense f32
+rows or 2-bit packed genotypes.
 
 Counterpart of ``bayesrrcpp_tpu/ops/pallas_jacobi_t.py:bayesr_jacobi_t_pallas``
-and ``horseshoe_jacobi_t_pallas`` in their two packed modes: fold-affine
-(no missing calls) and ``missing`` (code 3 marks a missing call, which
-standardizes to 0).  Semantics (the Markov kernel the port keeps):
+and ``horseshoe_jacobi_t_pallas`` in their dense f32 mode (``x_mean=None``:
+XT_pad (Mpad, N) standardized rows) and their two packed modes:
+fold-affine (no missing calls) and ``missing`` (code 3 marks a missing
+call, which standardizes to 0).  Semantics (the Markov kernel the port
+keeps):
 
 - a sweep is nr = nb / J rounds; round r sweeps slab rho[r], the J blocks
   {j*nr + rho[r] : j < J}, every block against the round-start eps, and the
@@ -14,6 +16,8 @@ standardizes to 0).  Semantics (the Markov kernel the port keeps):
   slab, not by visit order;
 - within a block, exact sequential Gibbs with the kernel's per-step algebra
   (``bayesr_tables`` below, pallas_jacobi_t.py:103-125 and :534-585);
+- dense: r = X_b.eps and eps -= d.X_b on the rows themselves, no fold
+  (pallas_jacobi_t.py:_decoders' dense branch, _dot2(exact=False));
 - with ``missing=True`` a round's dot and apply run the TPU kernel's
   two-dot algebra (pallas_jacobi_t.py:_make_dots, :371-402): the raw-code
   dot plus the (mean - 3)-scaled dot of the missing indicator 1[c == 3],
@@ -24,7 +28,8 @@ standardizes to 0).  Semantics (the Markov kernel the port keeps):
 CUDA tensors each launches its hand-written kernel of ``csrc/jacobi_t.cu``
 (3 launches per round, counted in ``<entry point>.launches``) or raises; on
 CPU tensors each runs its plain version (``*_reference``).  eps is in
-natural individual order, padded with zeros to Npad = 16 * words.shape[1].
+natural individual order: of length N for dense X, padded with zeros to
+Npad = 16 * words.shape[1] for packed words.
 
 ``bayesr_jacobi_t_mc`` and ``horseshoe_jacobi_t_mc`` are the fused
 multi-chain sweeps (``bayesr_jacobi_t_pallas_mc``/``_mc8`` and
@@ -70,21 +75,50 @@ class MCSweepResult(NamedTuple):
 
 
 def _check_mode(XT_pad, gram, J, x_mean, fold_affine, missing,
-                entry="Queue 2 entry 1"):
-    """Reject the modes of the TPU kernel that are not ported; ``entry``
-    is the ROADMAP entry of the sweep's kernel.  As the TPU wrapper
-    (pallas_jacobi_t.py:_validate), ``missing=True`` runs the fold algebra
-    with its missing-call correction whatever ``fold_affine`` says."""
+                entry="Queue 2 entry 1") -> bool:
+    """Whether X is dense f32 rows (``x_mean`` None) rather than 2-bit
+    words; rejects the modes of the TPU kernel that are not ported
+    (``entry`` is the ROADMAP entry of the sweep's kernel).  As the TPU
+    wrapper (pallas_jacobi_t.py:_validate), ``missing=True`` runs the fold
+    algebra with its missing-call correction whatever ``fold_affine``
+    says, and dense X takes no ``missing``."""
     nb = gram.shape[0]
     if nb % J:
         raise ValueError(f"jacobi sweep needs J | nb (J={J}, nb={nb})")
-    if x_mean is None or XT_pad.dtype != torch.int32:
+    if x_mean is None:
+        if missing:
+            raise NotImplementedError(
+                "missing=True needs 2-bit packed words (code 3): dense X "
+                "carries no missing calls, as in the JAX package")
+        if not XT_pad.dtype.is_floating_point:
+            raise ValueError(f"dense jacobi sweep needs float rows, not "
+                             f"{XT_pad.dtype}")
+        return True
+    if XT_pad.dtype != torch.int32:
         raise NotImplementedError(
-            "the strided Jacobi sweep is ported for 2-bit packed words only; "
-            f"its dense f32 and int8 modes are ROADMAP {entry}")
+            "the strided Jacobi sweep is ported for dense f32 rows and 2-bit "
+            f"packed words; its int8 mode is ROADMAP {entry}")
     if not (fold_affine or missing):
         raise ValueError("packed jacobi sweep needs fold_affine=True "
                          "(missing-free codes) or missing=True")
+    return False
+
+
+def _round_x(XT_pad, rows, mean, scale, lane_ok):
+    """A round's rows as standardized f32 (rows, lanes): dense X's own
+    (``mean`` None), or the 2-bit words decoded."""
+    if mean is None:
+        return XT_pad[rows].to(torch.float32)
+    return genotypes.decode_rows(XT_pad[rows], mean[rows], scale[rows],
+                                 lane_ok)
+
+
+def _plain_storage(dense, x_mean, x_scale, row_valid):
+    """(mean, scale, lane mask) of a plain sweep, all None for dense X."""
+    if dense:
+        return None, None, None
+    return (x_mean.to(torch.float32), x_scale.to(torch.float32),
+            row_valid.to(torch.bool))
 
 
 def _miss_round(words, mean, scale, lane_ok):
@@ -120,7 +154,9 @@ def bayesr_jacobi_t(XT_pad, gram, xsq_pad, eps, beta_pad, labels_pad,
                     missing: bool = False) -> SweepResult:
     """One strided-rounds BayesR sweep (see the module docstring).
 
-    XT_pad (Mpad, Npad/16) int32 words; gram (nb, B, B); xsq_pad, beta_pad,
+    XT_pad (Mpad, Npad/16) int32 words, or (Mpad, N) f32 standardized rows
+    with ``x_mean`` None (the dense mode: eps (N,), no x_scale, row_valid);
+    gram (nb, B, B); xsq_pad, beta_pad,
     labels_pad, g_assign_pad, valid_pad, p_arr, z_arr, x_mean, x_scale
     (Mpad,); eps and row_valid (Npad,); rho (nr,); inner_perm (nb, B); pi
     (G, K); cva (G, K-1); sigmaE scalar; sigmaGG (G,).  ``x_xsum`` is
@@ -128,8 +164,8 @@ def bayesr_jacobi_t(XT_pad, gram, xsq_pad, eps, beta_pad, labels_pad,
     afresh each round instead of tracking it.  ``missing``: the words hold
     missing calls (code 3), swept in the kernel's ``miss`` mode.
     """
-    _check_mode(XT_pad, gram, J, x_mean, fold_affine, missing)
-    if row_valid is None:
+    dense = _check_mode(XT_pad, gram, J, x_mean, fold_affine, missing)
+    if not dense and row_valid is None:
         raise ValueError("packed jacobi sweep needs row_valid")
     if XT_pad.device.type == "cpu":
         return bayesr_jacobi_t_reference(
@@ -181,6 +217,24 @@ def _round_plan(lib, words, gram, J):
     return Mpad, Nw, nb, B, nb // J
 
 
+def _storage_ops(lib, arg, X, mean, scale, row_valid):
+    """A CUDA strided sweep's storage operands: (X, ncol, lanes, mean,
+    scale, row_valid, nsplit).  Dense X (``mean`` None) is (Mpad, N) f32
+    with ncol = lanes = N and null mean, scale and row_valid (the kernels'
+    dense mode); packed words are (Mpad, Nw) int32 with 16 lanes a word."""
+    f32 = torch.float32
+    Mpad, ncol = X.shape
+    if mean is None:
+        return (arg(X, f32, (Mpad, ncol), "X"), ncol, ncol, None, None, None,
+                lib.lib.jacobi_t_dense_dot_splits(ncol))
+    lanes = ncol * genotypes.WORDS
+    return (arg(X, torch.int32, (Mpad, ncol), "words"), ncol, lanes,
+            arg(mean, f32, (Mpad,), "x_mean"),
+            arg(scale, f32, (Mpad,), "x_scale"),
+            arg(row_valid, torch.bool, (lanes,), "row_valid"),
+            lib.lib.jacobi_t_dot_splits(ncol))
+
+
 def _miss_partials(missing, rows, dev):
     """The missing indicator's dot partials of a CUDA sweep in ``missing``
     mode, ``rows`` floats, else None (a null pointer: the fold mode)."""
@@ -202,18 +256,15 @@ def _sweep_cuda(words, gram, xsq, eps, beta, labels, rho, inner, p, z, pi,
     dev = words.device
     Mpad, Nw, nb, B, nr = _round_plan(lib, words, gram, J)
     G, K = pi.shape
-    Npad = Nw * genotypes.WORDS
     if not 2 <= K <= lib.lib.jacobi_t_max_components():
         raise ValueError(f"jacobi_t kernel takes 2 <= K <= 8 (K={K})")
     f32, i32 = torch.float32, torch.int32
     arg = _operands(dev)
 
-    words = arg(words, i32, (Mpad, Nw), "words")
+    words, Nw, Npad, mean, scale, row_valid, nsplit = _storage_ops(
+        lib, arg, words, mean, scale, row_valid)
     gram = arg(gram, f32, (nb, B, B), "gram")
     xsq = arg(xsq, f32, (Mpad,), "xsq")
-    mean = arg(mean, f32, (Mpad,), "x_mean")
-    scale = arg(scale, f32, (Mpad,), "x_scale")
-    row_valid = arg(row_valid, torch.bool, (Npad,), "row_valid")
     beta_in = arg(beta, f32, (Mpad,), "beta")
     labels_in = arg(labels, i32, (Mpad,), "labels")
     rho = arg(rho, i32, (nr,), "rho")
@@ -229,7 +280,6 @@ def _sweep_cuda(words, gram, xsq, eps, beta, labels, rho, inner, p, z, pi,
     eps_out = torch.empty((Npad,), dtype=f32, device=dev)
     eps_out.copy_(arg(eps, f32, (Npad,), "eps"))
 
-    nsplit = lib.lib.jacobi_t_dot_splits(Nw)
     beta_out = torch.empty((Mpad,), dtype=f32, device=dev)
     labels_out = torch.empty((Mpad,), dtype=i32, device=dev)
     partial = torch.empty(((J * B + 1) * nsplit,), dtype=f32, device=dev)
@@ -241,8 +291,8 @@ def _sweep_cuda(words, gram, xsq, eps, beta, labels, rho, inner, p, z, pi,
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.lib.jacobi_t_sweep(
         words.data_ptr(), Nw, nr, J, B, K, G, gram.data_ptr(),
-        xsq.data_ptr(), mean.data_ptr(), scale.data_ptr(), eps_out.data_ptr(),
-        row_valid.data_ptr(), beta_in.data_ptr(), labels_in.data_ptr(),
+        xsq.data_ptr(), _ptr(mean), _ptr(scale), eps_out.data_ptr(),
+        _ptr(row_valid), beta_in.data_ptr(), labels_in.data_ptr(),
         beta_out.data_ptr(), labels_out.data_ptr(), rho.data_ptr(),
         inner.data_ptr(), p.data_ptr(), z.data_ptr(), pi.data_ptr(),
         cva.data_ptr(), sigmaE.data_ptr(), sigmaGG.data_ptr(),
@@ -335,11 +385,12 @@ def bayesr_jacobi_t_reference(XT_pad, gram, xsq_pad, eps, beta_pad,
                               x_xsum=None, fold_affine: bool = False,
                               row_valid=None, missing: bool = False
                               ) -> SweepResult:
-    """The plain torch version of ``bayesr_jacobi_t``: each round decodes its
-    J*B markers to standardized f32 rows (``missing``: to codes and the
-    missing indicator, ``_miss_round``) and runs the J blocks' sequential
+    """The plain torch version of ``bayesr_jacobi_t``: each round takes its
+    J*B markers' standardized f32 rows (dense X's own, or decoded; with
+    ``missing`` the codes and the missing indicator, ``_miss_round``) and
+    runs the J blocks' sequential
     solves batched over the blocks, with the kernel's algebra."""
-    _check_mode(XT_pad, gram, J, x_mean, fold_affine, missing)
+    dense = _check_mode(XT_pad, gram, J, x_mean, fold_affine, missing)
     f32 = torch.float32
     dev = XT_pad.device
     nb, B, _ = gram.shape
@@ -351,8 +402,7 @@ def bayesr_jacobi_t_reference(XT_pad, gram, xsq_pad, eps, beta_pad,
     xsq = xsq_pad.to(f32)
     okf = valid_pad.to(f32)
     gas = g_assign_pad.long()
-    mean, scale = x_mean.to(f32), x_scale.to(f32)
-    lane_ok = row_valid.to(torch.bool)
+    mean, scale, lane_ok = _plain_storage(dense, x_mean, x_scale, row_valid)
     eps = eps.to(f32).clone()
     beta = beta_pad.to(f32).clone()
     labels = labels_pad.to(torch.int32).clone()
@@ -373,8 +423,7 @@ def bayesr_jacobi_t_reference(XT_pad, gram, xsq_pad, eps, beta_pad,
                                      lane_ok)
             rr = dot(eps).view(J, B)
         else:
-            x = genotypes.decode_rows(XT_pad[rows], mean[rows], scale[rows],
-                                      lane_ok)                # (J*B, Npad)
+            x = _round_x(XT_pad, rows, mean, scale, lane_ok)  # (J*B, lanes)
             rr = (x @ eps).view(J, B)
         bold = beta[rows].view(J, B)
         inn = inner_perm[blk]                                 # (J, B)
@@ -428,9 +477,9 @@ def horseshoe_jacobi_t(XT_pad, gram, xsq_pad, eps, beta_pad, rho, inner_perm,
     ``horseshoe_jacobi_t.launches``) or raises; on CPU tensors it runs
     ``horseshoe_jacobi_t_reference``.
     """
-    _check_mode(XT_pad, gram, J, x_mean, fold_affine, missing,
-                "Queue 2 entry 3")
-    if row_valid is None:
+    dense = _check_mode(XT_pad, gram, J, x_mean, fold_affine, missing,
+                        "Queue 2 entry 3")
+    if not dense and row_valid is None:
         raise ValueError("packed jacobi sweep needs row_valid")
     if XT_pad.device.type == "cpu":
         return horseshoe_jacobi_t_reference(
@@ -456,16 +505,13 @@ def _hs_sweep_cuda(words, gram, xsq, eps, beta, rho, inner, z, lam, tau, c2,
     lib = _cuda.library("jacobi_t")
     dev = words.device
     Mpad, Nw, nb, B, nr = _round_plan(lib, words, gram, J)
-    Npad = Nw * genotypes.WORDS
     f32, i32 = torch.float32, torch.int32
     arg = _operands(dev)
 
-    words = arg(words, i32, (Mpad, Nw), "words")
+    words, Nw, Npad, mean, scale, row_valid, nsplit = _storage_ops(
+        lib, arg, words, mean, scale, row_valid)
     gram = arg(gram, f32, (nb, B, B), "gram")
     xsq = arg(xsq, f32, (Mpad,), "xsq")
-    mean = arg(mean, f32, (Mpad,), "x_mean")
-    scale = arg(scale, f32, (Mpad,), "x_scale")
-    row_valid = arg(row_valid, torch.bool, (Npad,), "row_valid")
     beta_in = arg(beta, f32, (Mpad,), "beta")
     rho = arg(rho, i32, (nr,), "rho")
     inner = arg(inner, i32, (nb, B), "inner_perm")
@@ -478,7 +524,6 @@ def _hs_sweep_cuda(words, gram, xsq, eps, beta, rho, inner, z, lam, tau, c2,
     eps_out = torch.empty((Npad,), dtype=f32, device=dev)
     eps_out.copy_(arg(eps, f32, (Npad,), "eps"))
 
-    nsplit = lib.lib.jacobi_t_dot_splits(Nw)
     beta_out = torch.empty((Mpad,), dtype=f32, device=dev)
     partial = torch.empty(((J * B + 1) * nsplit,), dtype=f32, device=dev)
     pind = _miss_partials(missing, J * B * nsplit, dev)
@@ -487,8 +532,8 @@ def _hs_sweep_cuda(words, gram, xsq, eps, beta, rho, inner, z, lam, tau, c2,
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.lib.jacobi_t_hs_sweep(
         words.data_ptr(), Nw, nr, J, B, gram.data_ptr(), xsq.data_ptr(),
-        mean.data_ptr(), scale.data_ptr(), eps_out.data_ptr(),
-        row_valid.data_ptr(), beta_in.data_ptr(), beta_out.data_ptr(),
+        _ptr(mean), _ptr(scale), eps_out.data_ptr(),
+        _ptr(row_valid), beta_in.data_ptr(), beta_out.data_ptr(),
         rho.data_ptr(), inner.data_ptr(), z.data_ptr(), lam.data_ptr(),
         tau.data_ptr(), c2.data_ptr(), sigmaE.data_ptr(), valid.data_ptr(),
         partial.data_ptr(), nsplit, dsc.data_ptr(), dms.data_ptr(),
@@ -519,13 +564,14 @@ def horseshoe_jacobi_t_reference(XT_pad, gram, xsq_pad, eps, beta_pad, rho,
                                  x_scale=None, x_xsum=None,
                                  fold_affine: bool = False, row_valid=None,
                                  missing: bool = False):
-    """The plain torch version of ``horseshoe_jacobi_t``: each round decodes
-    its J*B markers to standardized f32 rows (``missing``: to codes and the
-    missing indicator, ``_miss_round``) and runs the J blocks' sequential
+    """The plain torch version of ``horseshoe_jacobi_t``: each round takes
+    its J*B markers' standardized f32 rows (dense X's own, or decoded; with
+    ``missing`` the codes and the missing indicator, ``_miss_round``) and
+    runs the J blocks' sequential
     solves batched over the blocks, with the kernel's algebra (beta_new =
     num*invd + sd*z, pallas_jacobi_t.py:748-750)."""
-    _check_mode(XT_pad, gram, J, x_mean, fold_affine, missing,
-                "Queue 2 entry 3")
+    dense = _check_mode(XT_pad, gram, J, x_mean, fold_affine, missing,
+                        "Queue 2 entry 3")
     f32 = torch.float32
     dev = XT_pad.device
     nb, B, _ = gram.shape
@@ -533,8 +579,7 @@ def horseshoe_jacobi_t_reference(XT_pad, gram, xsq_pad, eps, beta_pad, rho,
     invd, sd = _hs_tables(xsq_pad, lam_pad, tau, c2, sigmaE)
     xsq = xsq_pad.to(f32)
     okf = valid_pad.to(f32)
-    mean, scale = x_mean.to(f32), x_scale.to(f32)
-    lane_ok = row_valid.to(torch.bool)
+    mean, scale, lane_ok = _plain_storage(dense, x_mean, x_scale, row_valid)
     eps = eps.to(f32).clone()
     beta = beta_pad.to(f32).clone()
     jj = torch.arange(J, device=dev)
@@ -550,8 +595,7 @@ def horseshoe_jacobi_t_reference(XT_pad, gram, xsq_pad, eps, beta_pad, rho,
                                      lane_ok)
             rr = dot(eps).view(J, B)
         else:
-            x = genotypes.decode_rows(XT_pad[rows], mean[rows], scale[rows],
-                                      lane_ok)                # (J*B, Npad)
+            x = _round_x(XT_pad, rows, mean, scale, lane_ok)  # (J*B, lanes)
             rr = (x @ eps).view(J, B)
         bold = beta[rows].view(J, B)
         inn = inner_perm[blk]                                 # (J, B)
@@ -590,8 +634,9 @@ def bayesr_jacobi_t_mc(XT_pad, gram, xsq_pad, eps, beta_pad, labels_pad,
     """One fused strided-rounds BayesR sweep of C chains (pallas_jacobi_t.py:
     bayesr_jacobi_t_pallas_mc and, for 4 < C <= 16, bayesr_jacobi_t_pallas_mc8).
 
-    The chains share the words, Gram blocks, rho and inner; per-chain
-    operands carry a leading chain axis: eps (C, Npad), beta_pad,
+    The chains share the words (or dense rows), Gram blocks, rho and inner;
+    per-chain operands carry a leading chain axis: eps (C, Npad) (dense:
+    (C, N)), beta_pad,
     labels_pad, p_arr and z_arr (C, Mpad), pi (C, G, K), sigmaE (C,),
     sigmaGG (C, G).  p/z are read by canonical slab position, as in
     ``bayesr_jacobi_t``.  On CUDA tensors it launches ``csrc/jacobi_t_mc.cu``
@@ -600,9 +645,9 @@ def bayesr_jacobi_t_mc(XT_pad, gram, xsq_pad, eps, beta_pad, labels_pad,
     ``bayesr_jacobi_t_mc_reference``.  Chains never interact given the
     shared orders, so the grouping does not change the result.
     """
-    _check_mode(XT_pad, gram, J, x_mean, fold_affine, missing,
-                "Queue 2 entry 5")
-    if row_valid is None:
+    dense = _check_mode(XT_pad, gram, J, x_mean, fold_affine, missing,
+                        "Queue 2 entry 5")
+    if not dense and row_valid is None:
         raise ValueError("packed jacobi sweep needs row_valid")
     if XT_pad.device.type == "cpu":
         return bayesr_jacobi_t_mc_reference(
@@ -643,18 +688,15 @@ def _mc_sweep_cuda(words, gram, xsq, eps, beta, labels, rho, inner, p, z, pi,
     dev = words.device
     Mpad, Nw, nb, B, nr = _round_plan(lib, words, gram, J)
     C, G, K = pi.shape
-    Npad = Nw * genotypes.WORDS
     if not 2 <= K <= lib.lib.jacobi_t_max_components():
         raise ValueError(f"jacobi_t kernel takes 2 <= K <= 8 (K={K})")
     f32, i32 = torch.float32, torch.int32
     arg = _operands(dev)
 
-    words = arg(words, i32, (Mpad, Nw), "words")
+    words, Nw, Npad, mean, scale, row_valid, nsplit = _storage_ops(
+        lib, arg, words, mean, scale, row_valid)
     gram = arg(gram, f32, (nb, B, B), "gram")
     xsq = arg(xsq, f32, (Mpad,), "xsq")
-    mean = arg(mean, f32, (Mpad,), "x_mean")
-    scale = arg(scale, f32, (Mpad,), "x_scale")
-    row_valid = arg(row_valid, torch.bool, (Npad,), "row_valid")
     beta_in = arg(beta, f32, (C, Mpad), "beta")
     labels_in = arg(labels, i32, (C, Mpad), "labels")
     rho = arg(rho, i32, (nr,), "rho")
@@ -670,7 +712,6 @@ def _mc_sweep_cuda(words, gram, xsq, eps, beta, labels, rho, inner, p, z, pi,
     eps_out = torch.empty((C, Npad), dtype=f32, device=dev)
     eps_out.copy_(arg(eps, f32, (C, Npad), "eps"))
 
-    nsplit = lib.lib.jacobi_t_dot_splits(Nw)
     beta_out = torch.empty((C, Mpad), dtype=f32, device=dev)
     labels_out = torch.empty((C, Mpad), dtype=i32, device=dev)
     partial = torch.empty((C * nsplit * (J * B + 1),), dtype=f32, device=dev)
@@ -682,8 +723,8 @@ def _mc_sweep_cuda(words, gram, xsq, eps, beta, labels, rho, inner, p, z, pi,
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = mc.lib.jacobi_t_mc_sweep(
         C, words.data_ptr(), Nw, nr, J, B, K, G, gram.data_ptr(),
-        xsq.data_ptr(), mean.data_ptr(), scale.data_ptr(), eps_out.data_ptr(),
-        row_valid.data_ptr(), beta_in.data_ptr(), labels_in.data_ptr(),
+        xsq.data_ptr(), _ptr(mean), _ptr(scale), eps_out.data_ptr(),
+        _ptr(row_valid), beta_in.data_ptr(), labels_in.data_ptr(),
         beta_out.data_ptr(), labels_out.data_ptr(), rho.data_ptr(),
         inner.data_ptr(), p.data_ptr(), z.data_ptr(), pi.data_ptr(),
         cva.data_ptr(), sigmaE.data_ptr(), sigmaGG.data_ptr(),
@@ -705,12 +746,13 @@ def bayesr_jacobi_t_mc_reference(XT_pad, gram, xsq_pad, eps, beta_pad,
                                  x_scale=None, x_xsum=None,
                                  fold_affine: bool = False, row_valid=None,
                                  missing: bool = False) -> MCSweepResult:
-    """The plain torch version of ``bayesr_jacobi_t_mc``: each round decodes
-    its J*B markers once, computes eps @ x.T for all chains (``missing``:
+    """The plain torch version of ``bayesr_jacobi_t_mc``: each round takes
+    its J*B markers' rows once (``_round_x``), computes eps @ x.T for all
+    chains (``missing``:
     ``_miss_round``'s dot) and runs the J x C blocks' sequential solves
     batched, with ``bayesr_jacobi_t_reference``'s algebra."""
-    _check_mode(XT_pad, gram, J, x_mean, fold_affine, missing,
-                "Queue 2 entry 5")
+    dense = _check_mode(XT_pad, gram, J, x_mean, fold_affine, missing,
+                        "Queue 2 entry 5")
     f32 = torch.float32
     dev = XT_pad.device
     nb, B, _ = gram.shape
@@ -722,8 +764,7 @@ def bayesr_jacobi_t_mc_reference(XT_pad, gram, xsq_pad, eps, beta_pad,
     xsq = xsq_pad.to(f32)
     okf = valid_pad.to(f32)
     gas = g_assign_pad.long()
-    mean, scale = x_mean.to(f32), x_scale.to(f32)
-    lane_ok = row_valid.to(torch.bool)
+    mean, scale, lane_ok = _plain_storage(dense, x_mean, x_scale, row_valid)
     eps = eps.to(f32).clone()
     beta = beta_pad.to(f32).clone()
     labels = labels_pad.to(torch.int32).clone()
@@ -745,8 +786,7 @@ def bayesr_jacobi_t_mc_reference(XT_pad, gram, xsq_pad, eps, beta_pad,
                                      lane_ok)
             rr = dot(eps).view(C, J, B)
         else:
-            x = genotypes.decode_rows(XT_pad[rows], mean[rows], scale[rows],
-                                      lane_ok)                # (J*B, Npad)
+            x = _round_x(XT_pad, rows, mean, scale, lane_ok)  # (J*B, lanes)
             rr = (eps @ x.T).view(C, J, B)
         bold = beta[:, rows].view(C, J, B)
         inn = inner_perm[blk]                                 # (J, B)
@@ -796,9 +836,9 @@ def horseshoe_jacobi_t_mc(XT_pad, gram, xsq_pad, eps, beta_pad, rho,
     group of at most 16 chains, counted in ``horseshoe_jacobi_t_mc.launches``)
     or raises; on CPU tensors it runs ``horseshoe_jacobi_t_mc_reference``.
     """
-    _check_mode(XT_pad, gram, J, x_mean, fold_affine, missing,
-                "Queue 2 entry 6")
-    if row_valid is None:
+    dense = _check_mode(XT_pad, gram, J, x_mean, fold_affine, missing,
+                        "Queue 2 entry 6")
+    if not dense and row_valid is None:
         raise ValueError("packed jacobi sweep needs row_valid")
     if XT_pad.device.type == "cpu":
         return horseshoe_jacobi_t_mc_reference(
@@ -828,16 +868,13 @@ def _hs_mc_sweep_cuda(words, gram, xsq, eps, beta, rho, inner, z, lam, tau,
     dev = words.device
     Mpad, Nw, nb, B, nr = _round_plan(lib, words, gram, J)
     C = eps.shape[0]
-    Npad = Nw * genotypes.WORDS
     f32, i32 = torch.float32, torch.int32
     arg = _operands(dev)
 
-    words = arg(words, i32, (Mpad, Nw), "words")
+    words, Nw, Npad, mean, scale, row_valid, nsplit = _storage_ops(
+        lib, arg, words, mean, scale, row_valid)
     gram = arg(gram, f32, (nb, B, B), "gram")
     xsq = arg(xsq, f32, (Mpad,), "xsq")
-    mean = arg(mean, f32, (Mpad,), "x_mean")
-    scale = arg(scale, f32, (Mpad,), "x_scale")
-    row_valid = arg(row_valid, torch.bool, (Npad,), "row_valid")
     beta_in = arg(beta, f32, (C, Mpad), "beta")
     rho = arg(rho, i32, (nr,), "rho")
     inner = arg(inner, i32, (nb, B), "inner_perm")
@@ -850,7 +887,6 @@ def _hs_mc_sweep_cuda(words, gram, xsq, eps, beta, rho, inner, z, lam, tau,
     eps_out = torch.empty((C, Npad), dtype=f32, device=dev)
     eps_out.copy_(arg(eps, f32, (C, Npad), "eps"))
 
-    nsplit = lib.lib.jacobi_t_dot_splits(Nw)
     beta_out = torch.empty((C, Mpad), dtype=f32, device=dev)
     partial = torch.empty((C * nsplit * (J * B + 1),), dtype=f32, device=dev)
     pind = _miss_partials(missing, C * nsplit * J * B, dev)
@@ -859,8 +895,8 @@ def _hs_mc_sweep_cuda(words, gram, xsq, eps, beta, rho, inner, z, lam, tau,
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = mc.lib.jacobi_t_hs_mc_sweep(
         C, words.data_ptr(), Nw, nr, J, B, gram.data_ptr(), xsq.data_ptr(),
-        mean.data_ptr(), scale.data_ptr(), eps_out.data_ptr(),
-        row_valid.data_ptr(), beta_in.data_ptr(), beta_out.data_ptr(),
+        _ptr(mean), _ptr(scale), eps_out.data_ptr(),
+        _ptr(row_valid), beta_in.data_ptr(), beta_out.data_ptr(),
         rho.data_ptr(), inner.data_ptr(), z.data_ptr(), lam.data_ptr(),
         tau.data_ptr(), c2.data_ptr(), sigmaE.data_ptr(), valid.data_ptr(),
         partial.data_ptr(), nsplit, dsc.data_ptr(), dms.data_ptr(),
@@ -877,11 +913,12 @@ def horseshoe_jacobi_t_mc_reference(XT_pad, gram, xsq_pad, eps, beta_pad,
                                     fold_affine: bool = False,
                                     row_valid=None, missing: bool = False):
     """The plain torch version of ``horseshoe_jacobi_t_mc``: each round
-    decodes its J*B markers once (``missing``: ``_miss_round``) and runs the
+    takes its J*B markers' rows once (``_round_x``; ``missing``:
+    ``_miss_round``) and runs the
     J x C blocks' sequential solves batched, with
     ``horseshoe_jacobi_t_reference``'s algebra."""
-    _check_mode(XT_pad, gram, J, x_mean, fold_affine, missing,
-                "Queue 2 entry 6")
+    dense = _check_mode(XT_pad, gram, J, x_mean, fold_affine, missing,
+                        "Queue 2 entry 6")
     f32 = torch.float32
     dev = XT_pad.device
     nb, B, _ = gram.shape
@@ -890,8 +927,7 @@ def horseshoe_jacobi_t_mc_reference(XT_pad, gram, xsq_pad, eps, beta_pad,
     invd, sd = _hs_tables(xsq_pad, lam, tau, c2, sigmaE)     # (C, Mpad)
     xsq = xsq_pad.to(f32)
     okf = valid_pad.to(f32)
-    mean, scale = x_mean.to(f32), x_scale.to(f32)
-    lane_ok = row_valid.to(torch.bool)
+    mean, scale, lane_ok = _plain_storage(dense, x_mean, x_scale, row_valid)
     eps = eps.to(f32).clone()
     beta = beta_pad.to(f32).clone()
     z_arr = z_arr.to(f32)
@@ -908,8 +944,7 @@ def horseshoe_jacobi_t_mc_reference(XT_pad, gram, xsq_pad, eps, beta_pad,
                                      lane_ok)
             rr = dot(eps).view(C, J, B)
         else:
-            x = genotypes.decode_rows(XT_pad[rows], mean[rows], scale[rows],
-                                      lane_ok)                # (J*B, Npad)
+            x = _round_x(XT_pad, rows, mean, scale, lane_ok)  # (J*B, lanes)
             rr = (eps @ x.T).view(C, J, B)
         bold = beta[:, rows].view(C, J, B)
         inn = inner_perm[blk]                                 # (J, B)

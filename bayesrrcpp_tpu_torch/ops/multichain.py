@@ -2,7 +2,8 @@
 
 Counterpart of ``bayesrrcpp_tpu/ops/pallas_multichain.py:
 bayesr_sweep_pallas_mc`` and ``horseshoe_sweep_pallas_mc`` in their
-fold-affine packed mode.  The chains share the words, the Gram blocks and
+dense f32 mode (``x_mean=None``: f32 rows, eps (C, N)) and their
+fold-affine packed mode.  The chains share X, the Gram blocks and
 the visit order (``block_order``, ``inner_perm``); every per-chain operand
 carries a leading chain axis, and p/z are indexed by MARKER, (C, Mpad),
 not by sweep position as in the single-chain sweep

@@ -1,13 +1,15 @@
-"""The exact sequential (J=1) BayesR and horseshoe sweeps on 2-bit packed
-genotypes.
+"""The exact sequential (J=1) BayesR and horseshoe sweeps on dense f32 rows
+or 2-bit packed genotypes.
 
 Counterpart of ``bayesrrcpp_tpu/ops/pallas_sweep.py:bayesr_sweep_pallas``
-and ``horseshoe_sweep_pallas`` in their two packed modes, the semantics
-anchor of the JAX package: no Jacobi rounds, every marker update sees
-every earlier one.  ``fold_affine=True`` (words with no missing call) is
-the ``_qf`` mode; ``fold_affine=False`` the in-kernel decode ``_q`` (the
-words hold missing calls, code 3), one chain only.  Semantics (the Markov
-kernel the port keeps):
+and ``horseshoe_sweep_pallas`` in their dense f32 mode and their two
+packed modes, the semantics anchor of the JAX package: no Jacobi rounds,
+every marker update sees every earlier one.  ``x_mean=None`` is the dense
+mode (XT_pad (Mpad, N) standardized f32 rows, eps (N,)); on words,
+``fold_affine=True`` (no missing call) is the ``_qf`` mode and
+``fold_affine=False`` the in-kernel decode ``_q`` (the words hold missing
+calls, code 3), one chain only.  Semantics (the Markov kernel the port
+keeps):
 
 - the blocks run in ``block_order`` (which may be shorter than nb, a
   prefix of the sweep); position s of the block at sweep position i
@@ -18,6 +20,7 @@ kernel the port keeps):
   then eps -= (d*s).C - d.(m*s) (pallas_sweep.py:177-301); in the ``_q``
   mode r = x.eps and eps -= d.x with x = (c - m)*s decoded in place, 0 for
   code 3 and for the individuals n >= N (pallas_sweep.py:_decode_tile);
+  dense X has that algebra on its own rows: r = x.eps, eps -= d.x;
 - fold mode: sum(eps) is recomputed from eps at each chunk start and
   tracked as sum(eps) - d.xsum inside a chunk; the chunks are the JAX
   wrapper's, ``max_call_blocks`` or 65536 // B blocks each, the remainder
@@ -33,9 +36,10 @@ kernel the port keeps):
 tensors each launches the hand-written kernels of ``csrc/serial.cu``
 (dot, solve and apply per block, counted in ``<entry point>.launches``) or
 raises; on CPU tensors each runs its plain version (``*_reference``).  eps
-is in natural individual order, padded with zeros to Npad = 16 *
-words.shape[1].  The fused multi-chain sweeps (``ops/multichain.py``) run
-the same kernels, through the same entry point, with a chain axis.
+is in natural individual order: of length N for dense X, padded with
+zeros to Npad = 16 * words.shape[1] for words.  The fused multi-chain
+sweeps (``ops/multichain.py``) run the same kernels, through the same
+entry point, with a chain axis.
 """
 from __future__ import annotations
 
@@ -73,14 +77,21 @@ def build_pkg_hs(xsq, lam, tau, c2, sigmaE):
 
 def check_mode(XT_pad, x_mean, x_xsum, fold_affine, row_valid, entry,
                fused=False):
-    """Reject the modes of the TPU kernel that are not ported; ``entry``
-    is the ROADMAP entry of the sweep's kernel.  The fused sweeps take no
+    """Reject the modes of the TPU kernel that are not ported (``entry`` is
+    the ROADMAP entry of the sweep's kernel).  Dense f32 rows (``x_mean``
+    None) read no ``fold_affine``, ``x_xsum`` or ``row_valid``.  The fused
+    sweeps take no
     in-kernel decode, as ``bayesr_sweep_pallas_mc`` takes none
     (pallas_multichain.py:381-394)."""
-    if x_mean is None or XT_pad.dtype != torch.int32:
+    if x_mean is None:
+        if not XT_pad.dtype.is_floating_point:
+            raise ValueError(f"dense serial sweep needs float rows, not "
+                             f"{XT_pad.dtype}")
+        return
+    if XT_pad.dtype != torch.int32:
         raise NotImplementedError(
-            "the serial sweep is ported for 2-bit packed words only; its "
-            f"dense f32 and int8 modes are ROADMAP {entry}")
+            "the serial sweep is ported for dense f32 rows and 2-bit packed "
+            f"words; its int8 modes are ROADMAP {entry}")
     if row_valid is None:
         raise ValueError("packed serial sweep needs row_valid")
     if fold_affine:
@@ -105,9 +116,10 @@ def run(plain, fused, K, G, chunk, words, gram, xsq, eps, beta, labels,
     """One sweep of C chains (every per-chain operand with a leading chain
     axis; p/z (C, n*B) by position, or (C, Mpad) by marker when
     ``fused``): the plain version if ``plain``, else the CUDA kernels.
-    K == 0 is the horseshoe; ``fold=False`` is the in-kernel decode mode
-    (C == 1).  Returns (eps, beta, labels, v, bacc), the last three None
-    for the horseshoe."""
+    K == 0 is the horseshoe; ``mean`` None is the dense mode, else
+    ``fold=False`` the in-kernel decode mode (C == 1).  Returns (eps, beta,
+    labels, v, bacc), the last three None for the horseshoe."""
+    fold = fold and mean is not None
     if plain:
         if fused:
             at = position_markers(border, inner, gram.shape[1])
@@ -130,18 +142,21 @@ def _plain_sweep(K, G, chunk, words, gram, xsq, eps, beta, labels, border,
     """The plain torch version of a sweep of C chains, block by block with
     the kernels' algebra (p/z by position), in f32, or in float64 when eps
     is float64 (a yardstick for the f32 rounding; the step tables stay
-    f32)."""
+    f32).  Dense X (``mean`` None) takes its rows as they are."""
     ft = torch.float64 if eps.dtype == torch.float64 else torch.float32
     dev = words.device
     B = gram.shape[1]
     C = eps.shape[0]
     n = border.shape[0]
+    dense = mean is None
     eps = eps.to(ft).clone()
     beta = beta.to(ft).clone()
     okf = valid.to(ft)
-    xsq, mean, scale = (x.to(ft) for x in (xsq, mean, scale))
+    xsq = xsq.to(ft)
+    if not dense:
+        mean, scale = mean.to(ft), scale.to(ft)
+        lane_ok = row_valid.to(torch.bool)
     xsum = xsum.to(ft) if fold else None
-    lane_ok = row_valid.to(torch.bool)
     if K:
         labels = labels.to(torch.int32).clone()
         v = torch.zeros((C, G, K), dtype=ft, device=dev)
@@ -161,8 +176,9 @@ def _plain_sweep(K, G, chunk, words, gram, xsq, eps, beta, labels, border,
             ms = mean[rows] * sc
             r = (eps @ codes.T) * sc - ms * esum[:, None]  # (C, B)
         else:
-            x = genotypes.decode_rows(words[rows], mean[rows], scale[rows],
-                                      lane_ok)             # (B, Npad)
+            x = (words[rows].to(ft) if dense
+                 else genotypes.decode_rows(words[rows], mean[rows],
+                                            scale[rows], lane_ok))  # (B, lanes)
             r = eps @ x.T
         bo, ok, xs = beta[:, rows], okf[rows], xsq[rows]
         tb = tbl[:, rows].to(ft)                          # (C, B, F)
@@ -197,6 +213,8 @@ def _plain_sweep(K, G, chunk, words, gram, xsq, eps, beta, labels, border,
             dms = (d * ms).sum(dim=-1)
             eps = torch.where(lane_ok,
                               eps - ((d * sc) @ codes - dms[:, None]), eps)
+        elif dense:
+            eps = eps - d @ x
         else:
             eps = torch.where(lane_ok, eps - d @ x, eps)
     if not K:
@@ -215,7 +233,8 @@ def _sweep_cuda(fused, K, G, chunk, words, gram, xsq, eps, beta, labels,
     nb, B, _ = gram.shape
     C = eps.shape[0]
     n = border.shape[0]
-    Npad = Nw * genotypes.WORDS
+    dense = mean is None
+    Npad = Nw if dense else Nw * genotypes.WORDS
     if nb * B != Mpad:
         raise ValueError(f"gram has {nb}x{B} markers, words {Mpad}")
     if not 1 <= B <= lib.lib.serial_max_block():
@@ -228,36 +247,41 @@ def _sweep_cuda(fused, K, G, chunk, words, gram, xsq, eps, beta, labels,
         raise ValueError(f"block_order has {n} blocks, the data {nb}")
     if C > lib.lib.serial_max_chains():
         raise ValueError(f"{C} chains in one fused launch")
-    if not fold and C != 1:
+    if not (fold or dense) and C != 1:
         raise ValueError("the in-kernel decode sweeps one chain")
     f32, i32 = torch.float32, torch.int32
     arg = _operands(dev)
     F = 3 * K if K else 2
     pz_shape = (C, Mpad) if fused else (C, n * B)
 
-    words = arg(words, i32, (Mpad, Nw), "words")
+    words = (arg(words, f32, (Mpad, Nw), "X") if dense
+             else arg(words, i32, (Mpad, Nw), "words"))
     ops = dict(
         border=arg(border, i32, (n,), "block_order"),
         inner=arg(inner, i32, (nb, B), "inner_perm"),
         gram=arg(gram, f32, (nb, B, B), "gram"),
         tbl=arg(tbl, f32, (C, Mpad, F), "table"),
         xsq=arg(xsq, f32, (Mpad,), "xsq"),
-        mean=arg(mean, f32, (Mpad,), "x_mean"),
-        scale=arg(scale, f32, (Mpad,), "x_scale"),
-        xsum=(arg(xsum, f32, (Mpad,), "x_xsum") if fold
-              else torch.zeros((Mpad,), dtype=f32, device=dev)),
         valid=arg(valid, torch.bool, (Mpad,), "valid"),
         gas=arg(gas, i32, (Mpad,), "g_assign") if K else None)
+    # the dense mode reads no mean, scale, column sums or lane mask
+    if not dense:
+        ops.update(
+            mean=arg(mean, f32, (Mpad,), "x_mean"),
+            scale=arg(scale, f32, (Mpad,), "x_scale"),
+            xsum=(arg(xsum, f32, (Mpad,), "x_xsum") if fold
+                  else torch.zeros((Mpad,), dtype=f32, device=dev)))
+        row_valid = arg(row_valid, torch.bool, (Npad,), "row_valid")
     eps_out = torch.empty((C, Npad), dtype=f32, device=dev)
     eps_out.copy_(arg(eps, f32, (C, Npad), "eps"))
-    row_valid = arg(row_valid, torch.bool, (Npad,), "row_valid")
     beta_out = arg(beta, f32, (C, Mpad), "beta").clone()
     labels_out = (arg(labels, i32, (C, Mpad), "labels").clone() if K
                   else None)
     p = arg(p, f32, pz_shape, "p") if K else None
     z = arg(z, f32, pz_shape, "z")
     sigmaE = arg(sigmaE, f32, (C,), "sigmaE") if K else None
-    nsplit = lib.lib.serial_dot_splits(Nw)
+    nsplit = (lib.lib.serial_dense_dot_splits(Nw) if dense
+              else lib.lib.serial_dot_splits(Nw))
     partial = torch.empty((C * nsplit * (B + 1),), dtype=f32, device=dev)
     esum = torch.empty((C,), dtype=f32, device=dev)
     dsc = torch.empty((C * B,), dtype=f32, device=dev)
@@ -266,12 +290,15 @@ def _sweep_cuda(fused, K, G, chunk, words, gram, xsq, eps, beta, labels,
              else None)
     bpart = torch.empty((C, n, G), dtype=f32, device=dev) if K else None
     stream = torch.cuda.current_stream(dev).cuda_stream
+    # the storage mode of csrc/serial.cu: 0 fold, 1 in-kernel decode, 2 dense
+    mode = 2 if dense else int(not fold)
     ints = (C, int(fused), Nw, n, chunk, B, K, G if K else 0, Mpad, nsplit,
-            int(not fold))
+            mode)
     ptrs = [_ptr(t) for t in (
         words, ops["border"], ops["inner"], ops["gram"], ops["tbl"],
-        ops["xsq"], ops["mean"], ops["scale"], ops["xsum"], ops["valid"],
-        ops["gas"], eps_out, row_valid, beta_out, labels_out, p, z, sigmaE,
+        ops["xsq"], ops.get("mean"), ops.get("scale"), ops.get("xsum"),
+        ops["valid"], ops["gas"], eps_out, None if dense else row_valid,
+        beta_out, labels_out, p, z, sigmaE,
         partial, esum, dsc, dms, vpart, bpart)] + [stream]
     lib.check(lib.lib.serial_sweep(*ints, *ptrs), "serial_sweep launch")
     if not K:
@@ -318,7 +345,9 @@ def bayesr_sweep(XT_pad, gram, xsq_pad, eps, beta_pad, labels_pad,
     """One serial BayesR sweep (see the module docstring), with the argument
     order and outputs of ``bayesr_sweep_pallas``.
 
-    XT_pad (Mpad, Npad/16) int32 words; gram (nb, B, B); xsq_pad, beta_pad,
+    XT_pad (Mpad, Npad/16) int32 words, or (Mpad, N) f32 standardized rows
+    with ``x_mean`` None (the dense mode: eps (N,), no x_scale, x_xsum,
+    row_valid); gram (nb, B, B); xsq_pad, beta_pad,
     labels_pad, g_assign_pad, valid_pad, x_mean, x_scale, x_xsum (Mpad,);
     eps and row_valid (Npad,); block_order (n,) with n <= nb, each block at
     most once; inner_perm (nb, B); p_arr, z_arr (n*B,) by sweep position;

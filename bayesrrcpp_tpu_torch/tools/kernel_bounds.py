@@ -1,8 +1,11 @@
 """The least time an NVIDIA H100 could take for a sweep's work, computed
 from its shapes alone (no card needed).  ``sweep`` is the one count of a
-whole sweep's bytes and operations: ``chip_smoke.py`` calls it with the
-shapes and data of each sweep it runs, and this script with the headline
-constants for the TPU kernels that the port has not run yet:
+whole sweep's bytes and operations on 2-bit words, ``dense_sweep`` on
+dense f32 rows: ``chip_smoke.py`` calls them with the shapes and data of
+each sweep it runs, and this script with the headline constants for the
+TPU kernels that the port has not run yet and, as ``dense`` rows, for the
+dense cell (N=16,384 x M=49,152, J=128, B=32) with no marker moving and
+with every marker moving (the horseshoe):
 
     python3 bayesrrcpp_tpu_torch/tools/kernel_bounds.py
 
@@ -44,6 +47,22 @@ def sweep(npad, mpad, gram_floats, chains, marker_arrays, moved=0,
     return bound(nbytes, 2.0 * (npad * (chains * mpad + moved) + extra_fmas))
 
 
+def dense_sweep(n, mpad, gram_floats, chains, marker_arrays, moved=0,
+                moved_rows=0):
+    """A whole sweep of ``chains`` chains over ``mpad`` dense f32 rows of
+    ``n`` individuals.  Bytes: X read once by the dots (4 bytes a value), and
+    again for each of the ``moved_rows`` rows that moved in any chain (a
+    round's apply follows its dot and solve, and a round's rows, 4*J*B*n
+    bytes, 268 MB at the dense cell, do not stay in the 50 MB L2), the Gram
+    floats, xsq and a valid byte per marker, and per chain eps read and
+    written and ``marker_arrays`` f32/int32 marker vectors.  FP32 FMAs (2
+    flops each): the dot's one per value and chain, the apply's one per
+    value of every row that moved (``moved``, summed over chains)."""
+    nbytes = (4 * n * (mpad + moved_rows) + 4 * gram_floats + 5 * mpad
+              + chains * (8 * n + 4 * marker_arrays * mpad))
+    return bound(nbytes, 2.0 * n * (chains * mpad + moved))
+
+
 def round_solve(table_fields, step_flops):
     """The solve phase alone over a sweep's rounds (sites #13, #14): the
     Gram blocks, r and a per-marker table of ``table_fields`` floats read,
@@ -72,6 +91,19 @@ SITES = [
      sweep(N, M, GRAM_FLOATS, 1, 6)),
 ]
 
+# the dense cell dense-16kx49k (bench.py:375-376): the least a sweep could
+# take with no marker moving (BayesR's floor) and with every one (the
+# horseshoe's), one chain and 8 fused
+DN, DM = 16_384, 49_152
+DENSE = [
+    (f"dense C={c} moved={moved}",
+     dense_sweep(DN, DM, (DM // B) * B * B, c, 6 if moved == "none" else 4,
+                 0 if moved == "none" else c * DM,
+                 0 if moved == "none" else DM))
+    for c in (1, 8) for moved in ("none", "all")]
+
 if __name__ == "__main__":
     for site, where, b in SITES:
         print(json.dumps({"site": site, "tpu_kernel": where, **b}))
+    for what, b in DENSE:
+        print(json.dumps({"dense": what, **b}))

@@ -104,9 +104,39 @@ Phases, each of which fails the run (non-zero exit, no result line):
 16. the CLI in-process, ``python -m bayesrrcpp_tpu_torch bayesr|horseshoe
    --bed ... --x-dtype 2bit`` on a .bed with missing calls at N=100,352 x
    M=8,192 written by ``io/bed.write_bed`` into a temporary directory, on
-   the card: the CSV's widths and values and the launch counts.
+   the card: the CSV's widths and values and the launch counts;
+17. dense X (``x_dtype="dense"``, standardized f32 rows built on the card
+   from a seed), the kernels' dense mode: (a) each of the eight dense
+   sweeps against its plain version at N=4001 (no multiple of 4 or 32) x
+   M=8192, strided J=128, B=32 and serial B=512, one chain and C=8 fused
+   from warm states (labels and v equal, beta and bacc to rtol 1e-4 / atol
+   1e-5, eps to 1e-4 of its norm and of its largest value as phase 10:
+   each lane sums up to 4096 moved rows a round), each fused chain bitwise
+   equal to the single-chain kernel; (b) the dense kernels against the fold kernels on
+   the same dosages, phase 2's first 8,192 markers and their standardized
+   rows (BayesR chain by chain as phase 13b: a flip replayed and judged a
+   near tie; the horseshoe to 1e-4); (c) at the dense cell dense-16kx49k
+   (N=16,384 x M=49,152, 3.22 GB of X; plan J=128, B=32, nr=12) one sweep
+   of each strided kernel, one chain and C=8 fused, against its plain
+   version (phase 13b's gates), timed, with its bound and the
+   ``torch.matmul`` of each round's strided view of X by eps;
+18. the dense cell's main paths with the launch counters reset just
+   before: BayesR and the horseshoe through ``.run(..., ChainConfig(10, 5,
+   5))`` into a ``CSVSink`` and 8 fused chains of each through
+   ``run_chains`` (5 iterations) into a ``ChainFanoutSink`` (CSV widths,
+   finite values, tracked vs recomputed eps < 1e-4, launch counts), each
+   with a profile of 2 steps (dot / solve / apply per launch);
+19. the serial dense kernels at the cell (``jacobi_blocks=1``, B=512, 96
+   blocks): 8 blocks against the plain versions (as phase 10b), full
+   sweeps timed with their bounds, C=8 fused bitwise against the single
+   chain, and the main paths (BayesR ``ChainConfig(10, 5, 5)``, the
+   horseshoe and 8 fused chains of each 5 iterations); recovery through
+   the dense kernels (phase 3's and 6's recipes, corr > 0.8);
+20. the CLI in-process on a dense .npy of N=4096 x M=8192 with ``--x-dtype
+   dense`` on the card: the CSV and the launch counts.
 
-The three kernel libraries build at once (one nvcc per source).  The last
+Phases 17-20 run after phase 12, on phase 2's words for 17b.  The three
+kernel libraries build at once (one nvcc per source).  The last
 two lines of standard output are the kernels' JSON record (with each
 sweep's bound: the larger of its bytes over 3.35 TB/s and its FP32 FMAs
 over 67 TFLOP/s) and the device JSON.  Nothing of JAX is imported.
@@ -146,7 +176,7 @@ def hs_sweep_args(s, st, v):
     rho, inner = v.orders(s.nb, s.B, s.jacobi)
     args = (d.XT, d.gram, d.xsq, st.eps, st.beta, rho, inner, v.z(s.Mpad),
             st.lam, st.tau, st.c2, st.sigmaE, d.valid)
-    return args, dict(J=s.jacobi, **s._packed_kw())
+    return args, dict(J=s.jacobi, **s._sweep_kw())
 
 
 def chain_args(args, c, per_chain):
@@ -216,7 +246,7 @@ def sweep_args(s, st, v):
     args = (d.XT, d.gram, d.xsq, st.eps, st.beta, st.labels, rho, inner,
             v.p(s.Mpad), v.z(s.Mpad), st.pi, d.cva, st.sigmaE, st.sigmaGG,
             d.g_assign, d.valid)
-    return args, dict(J=s.jacobi, **s._packed_kw())
+    return args, dict(J=s.jacobi, **s._sweep_kw())
 
 
 def timed(torch, fn, reps):
@@ -365,8 +395,8 @@ def main():
 
 
 def smoke(torch, tmp):
-    """Phases 1-16 (module docstring), their CSVs under ``tmp``; returns 0
-    or raises."""
+    """Phases 1-20 (module docstring; 17-20 run after 12), their CSVs under
+    ``tmp``; returns 0 or raises."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import bayesrrcpp_tpu_torch as bt
     from bayesrrcpp_tpu_torch.io.sink import CSVSink
@@ -607,6 +637,9 @@ def smoke(torch, tmp):
 
     # ---- 10-12. the serial (J=1) kernels and main paths
     serial_kernels = serial_phases(torch, bt, hs, tmp)
+
+    # ---- 17-20. dense X through the kernels' dense mode
+    dense_kernels = dense_phases(torch, bt, hs, tmp)
     del hs
 
     # ---- 13-16. words with missing calls
@@ -636,7 +669,7 @@ def smoke(torch, tmp):
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"]})
     print(json.dumps({"kernels": kernels + serial_kernels
-                      + missing_kernels}))
+                      + missing_kernels + dense_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -848,7 +881,7 @@ def serial_args(s, st, v, n=None):
             p, z = p[:n * s.B], z[:n * s.B]
     return (d.XT, d.gram, d.xsq, st.eps, st.beta, st.labels, border, inner,
             p, z, st.pi, d.cva, st.sigmaE, st.sigmaGG, d.g_assign,
-            d.valid), s._packed_kw()
+            d.valid), s._sweep_kw()
 
 
 def hs_serial_args(s, st, v, n=None):
@@ -861,7 +894,7 @@ def hs_serial_args(s, st, v, n=None):
         if z.dim() == 1:
             z = z[:n * s.B]
     return (d.XT, d.gram, d.xsq, st.eps, st.beta, border, inner, z, st.lam,
-            st.tau, st.c2, st.sigmaE, d.valid), s._packed_kw()
+            st.tau, st.c2, st.sigmaE, d.valid), s._sweep_kw()
 
 
 def check_sweeps(torch, tag, names, ker, ref):
@@ -1200,7 +1233,8 @@ def check_against_plain(torch, tag, names, ker, ref):
     return worst
 
 
-def held_per_chain(torch, s, tag, args, kw, ker, ref, per_chain=None):
+def held_per_chain(torch, s, tag, args, kw, ker, ref, per_chain=None,
+                   sweeps=None):
     """BayesR at the headline against the plain version, chain by chain
     (``args`` a sweep's operands, fused when ``per_chain`` names the
     per-chain ones): a chain whose labels all equal the plain version's
@@ -1209,11 +1243,9 @@ def held_per_chain(torch, s, tag, args, kw, ker, ref, per_chain=None):
     flip, its labels must equal the plain version's and its eps be within
     1e-3; each flip ``flip_replay`` recomputes must be a near tie (|u -
     weight| within the reach of f32 rounding); and its eps must hold to its
-    own algebra, eps_in - X (beta_out - beta_in), to 1e-5.  Returns
-    [(chain, flip_replay's result)] of the flipped chains."""
-    from bayesrrcpp_tpu_torch.ops.genotypes import xbeta_packed
-
-    d = s.data
+    own algebra, eps_in - X (beta_out - beta_in), to 1e-5.  ``sweeps``
+    (kernel, reference) as ``flip_replay``'s.  Returns [(chain,
+    flip_replay's result)] of the flipped chains."""
     lead = (lambda x: x[None]) if ker[0].dim() == 1 else (lambda x: x)
     k_eps, k_beta, k_lab = (lead(x) for x in ker[:3])
     r_eps, r_beta, r_lab = (lead(x) for x in ref[:3])
@@ -1225,7 +1257,8 @@ def held_per_chain(torch, s, tag, args, kw, ker, ref, per_chain=None):
             check(rel < 1e-3, f"{tag} chain {c} eps rel diff {rel}")
             continue
         one = args if per_chain is None else chain_args(args, c, per_chain)
-        rp = flip_replay(torch, s, one, kw, k_lab[c], r_lab[c], r_beta[c])
+        rp = flip_replay(torch, s, one, kw, k_lab[c], r_lab[c], r_beta[c],
+                         sweeps)
         flipped.append((c, rp))
         log(f"{tag} chain {c}: first label flip in round {rp['r0']} of "
             f"{rp['rounds']}; after {rp['r0']} rounds labels equal: "
@@ -1241,17 +1274,20 @@ def held_per_chain(torch, s, tag, args, kw, ker, ref, per_chain=None):
                   f"{tag} chain {c}: marker {t['marker']} flipped with u "
                   f"{t['margin']:.3g} from a cumulative weight, beyond f32 "
                   f"rounding ({t['reach']:.3g})")
-        exact = eps_in[c][:s.N] - xbeta_packed(
-            d.XT, d.x_mean, d.x_scale, k_beta[c] - beta_in[c], s.B, s.N)
+        exact = eps_in[c][:s.N] - s.xbeta(k_beta[c] - beta_in[c])
         rel = rel_err(k_eps[c][:s.N], exact)
         check(rel < 1e-5, f"{tag} chain {c} (a label flip) eps against "
               f"eps_in - X dbeta: {rel}")
     return flipped
 
 
-def flip_replay(torch, s, args, kw, k_lab, r_lab, r_beta):
+def flip_replay(torch, s, args, kw, k_lab, r_lab, r_beta, sweeps=None):
     """A BayesR sweep (single-chain operands ``args``) whose labels
-    ``k_lab`` differ from the plain version's ``r_lab``, replayed.  R0 is
+    ``k_lab`` differ from the plain version's ``r_lab``, replayed.
+    ``sweeps`` (kernel, reference): the two sweeps, each called as
+    ``fn(*args, **kw)``, by default the strided kernel and its plain
+    version; the f64 redraw takes the rows of ``s``'s data (decoded words,
+    or dense X's own).  R0 is
     the first round in which a label differs: each marker is drawn once a
     sweep, in the round of its slab.  Kernel and plain version run again
     with every marker of round R0 or later invalid, so that each returns
@@ -1282,15 +1318,16 @@ def flip_replay(torch, s, args, kw, k_lab, r_lab, r_beta):
     r0 = int(marker_round[flipped].min())
     pre = list(args)
     pre[15] = args[15] & (marker_round < r0)
-    kp = jt.bayesr_jacobi_t(*pre, **kw)
-    rp = jt.bayesr_jacobi_t_reference(*pre, **kw)
+    ker, ref = sweeps or (jt.bayesr_jacobi_t, jt.bayesr_jacobi_t_reference)
+    kp = ker(*pre, **kw)
+    rp = ref(*pre, **kw)
 
     slab = int(rho[r0])
     eps, deps = rp.eps.to(f64), (kp.eps - rp.eps).to(f64)
     lp, invd, _ = jt.bayesr_tables(args[2], args[14], args[10], args[11],
                                    args[12], args[13])
     half = 0.5 / torch.as_tensor(args[12], device=dev).to(f64)
-    lanes_ok = d.row_valid.to(torch.bool)
+    lanes_ok = d.row_valid.to(torch.bool) if s.x_packed else None
     near = []
     for j in range(J):
         blk = j * nr + slab
@@ -1303,10 +1340,14 @@ def flip_replay(torch, s, args, kw, k_lab, r_lab, r_beta):
         t = steps[0]
         lane = inn[t]
         m = blk * B + lane
-        c = decode_codes(d.XT[rows]).to(f64) * lanes_ok
-        mean = d.x_mean[rows].to(f64)[:, None]
-        sc = d.x_scale[rows].to(f64)[:, None]
-        x = torch.where((c != MISSING_CODE) & lanes_ok, (c - mean) * sc, 0.0)
+        if s.x_packed:
+            c = decode_codes(d.XT[rows]).to(f64) * lanes_ok
+            mean = d.x_mean[rows].to(f64)[:, None]
+            sc = d.x_scale[rows].to(f64)[:, None]
+            x = torch.where((c != MISSING_CODE) & lanes_ok, (c - mean) * sc,
+                            0.0)
+        else:
+            x = d.XT[rows].to(f64)
         rr = x @ eps
         bold = args[4][rows].to(f64)
         dd = r_beta[rows].to(f64) - bold
@@ -1318,13 +1359,17 @@ def flip_replay(torch, s, args, kw, k_lab, r_lab, r_beta):
         xsq = float(args[2][m])
         num = rr[lane] + bold[lane] * xsq
         # the magnitudes the f32 sums add up: the codes' dot, the
-        # indicator's (m - 3)-scaled dot, the fold's m * sum(eps)
+        # indicator's (m - 3)-scaled dot, the fold's m * sum(eps); dense
+        # rows' own dot
         e = eps.abs()
-        mi = float(mean[lane, 0])
-        ind = float((e * (c[lane] == MISSING_CODE)).sum())
-        sums = float(sc[lane, 0]) * (float((c[lane] * e).sum())
-                                     + abs(mi - MISSING_CODE) * ind
-                                     + abs(mi) * float(e.sum()))
+        if s.x_packed:
+            mi = float(mean[lane, 0])
+            ind = float((e * (c[lane] == MISSING_CODE)).sum())
+            sums = float(sc[lane, 0]) * (float((c[lane] * e).sum())
+                                         + abs(mi - MISSING_CODE) * ind
+                                         + abs(mi) * float(e.sum()))
+        else:
+            sums = float((x[lane].abs() * e).sum())
         reach_num = (2.0 ** -24 * (sums + moved_terms + abs(float(
             bold[lane]) * xsq)) + abs(float(x[lane] @ deps)))
         u = float(args[8][(slab * J + j) * B + t])
@@ -1770,6 +1815,589 @@ def missing_phases(torch, bt, tmp):
                      "pallas_sweep.py:304"),
         "horseshoe_q": ("horseshoe_serial_sweep_q", "serial.cu",
                         "pallas_sweep.py:732")}
+    return [dict({"name": name, "route": "cuda", "source": src + f,
+                  "replaces": tpu + where}, **records[key])
+            for key, (name, f, where) in meta.items()]
+
+
+DENSE_N, DENSE_M = 16_384, 49_152     # the dense cell, dense-16kx49k
+SERIAL_PLAIN_BLOCKS = 8   # blocks of a serial plain sweep at the dense cell
+
+
+def dense_sampler(torch, bt, g, N, M, cfg, signal=None, **plan):
+    """A sampler on dense X (M, N) f32 built on the card from generator
+    ``g`` (markers x individuals, ``transposed=True``): per marker a
+    frequency p ~ U(0.1, 0.9) and dosages Binomial(2, p), each row
+    standardized to mean 0 and sd 1 (ddof 1), built in chunks of rows; Y
+    is N(0, 1), times 0.7 plus X^T ``signal`` when given.  Dense X takes
+    the kernels on the card by default."""
+    X = torch.empty((M, N), device="cuda")
+    for a in range(0, M, 4096):
+        b = min(a + 4096, M)
+        p = 0.1 + 0.8 * torch.rand((b - a, 1), generator=g, device="cuda")
+        x = ((torch.rand((b - a, N), generator=g, device="cuda") < p).float()
+             + (torch.rand((b - a, N), generator=g, device="cuda") < p))
+        x -= x.mean(dim=1, keepdim=True)
+        x /= x.std(dim=1, keepdim=True).clamp_min(1e-12)
+        X[a:b] = x
+    Y = torch.randn(N, generator=g, device="cuda")
+    if signal is not None:
+        Y = 0.7 * Y + signal @ X
+    kw = dict(transposed=True, device="cuda", **plan)
+    if isinstance(cfg, bt.HorseshoeConfig):
+        return bt.HorseshoeSampler(X, Y, cfg, **kw)
+    return bt.SpikeSlabSampler(X, Y, CVA, cfg, **kw)
+
+
+def dense_bound(s, chains, moved, marker_arrays, moved_rows, gram_rows=None):
+    """(bound_ms, bound_by) of one dense sweep of ``chains`` chains on
+    sampler ``s``'s data, by ``tools/kernel_bounds.dense_sweep``: ``moved``
+    rows applied (summed over chains), ``moved_rows`` rows moved in any
+    chain (read again by the apply), the Gram blocks or ``gram_rows`` rows
+    of them (the serial sweep's moved markers)."""
+    from bayesrrcpp_tpu_torch.tools import kernel_bounds
+
+    gram = s.data.gram.numel() if gram_rows is None else gram_rows * s.B
+    b = kernel_bounds.dense_sweep(s.N, s.Mpad, gram, chains, marker_arrays,
+                                  moved, moved_rows)
+    return b["bound_ms"], b["bound_by"]
+
+
+def dense_yardstick(torch, s, slab, eps, strided=True):
+    """ms of one ``torch.matmul`` of the dense rows of one dot launch by
+    ``eps`` ((N,) or (C, N)): a strided round's (J, B, N) strided view of
+    X (slab ``slab``, no copy) or a serial block's (B, N) rows, a batched
+    GEMV on cuBLAS.  The PyTorch yardstick of the dense dot; never called
+    by the port."""
+    d = s.data
+    if strided:
+        x = d.XT.view(s.jacobi, s.nb // s.jacobi, s.B, s.N)[:, slab]
+    else:
+        x = d.XT.view(s.nb, s.B, s.N)[slab]
+    rhs = eps.T if eps.dim() == 2 else eps
+    return timed(torch, lambda: torch.matmul(x, rhs), 5)[1]
+
+
+def dense_gates(torch, s, tag, args, kw, ker, ref, hsk, per_chain=None,
+                sweeps=None):
+    """The kernel-vs-plain gates of a dense sweep at the cell: labels
+    agreeing on >= 99.9 %; the horseshoe's eps and beta to 1e-4 of their
+    norms; BayesR chain by chain by ``held_per_chain`` (eps to 1e-3 where
+    no label flipped, a flip replayed and judged a near tie).  Returns
+    (label agreement, the flipped chains)."""
+    agree = (1.0 if hsk else float((ker[2] == ref[2]).float().mean()))
+    check(agree >= 0.999, f"{tag} label agreement {agree}")
+    if hsk:
+        rel_eps, rel_beta = rel_err(ker[0], ref[0]), rel_err(ker[1], ref[1])
+        check(rel_eps < 1e-4 and rel_beta < 1e-4,
+              f"{tag} rel diffs eps {rel_eps}, beta {rel_beta}")
+        return agree, []
+    flips = held_per_chain(torch, s, tag, args, kw, ker, ref, per_chain,
+                           sweeps)
+    return agree, [c for c, _ in flips]
+
+
+def serial_gates(torch, tag, ker, ref, hsk):
+    """A serial sweep of a few blocks at the dense cell against its plain
+    version, as phase 10b holds the headline's: labels agreeing on >= 99.9
+    %, |d eps| / |eps| < 1e-3 (BayesR: a near-tie flip changes the later
+    steps of its block) or 1e-4 (the horseshoe).  Returns (max |d| of eps
+    and beta, the agreement, |d eps| / |eps|)."""
+    agree = 1.0 if hsk else float((ker[2] == ref[2]).float().mean())
+    rel = rel_err(ker[0], ref[0])
+    check(agree >= 0.999, f"{tag} label agreement {agree}")
+    check(rel < (1e-4 if hsk else 1e-3), f"{tag} eps rel diff {rel}")
+    return (max(float((a - b).abs().max()) for a, b in zip(ker[:2], ref[:2])),
+            agree, rel)
+
+
+def dense_phases(torch, bt, hs, tmp):
+    """Phases 17-20 (module docstring): the dense mode of every kernel
+    against its plain version, against the fold kernel on phase 2's
+    dosages (the words of ``hs``), the dense cell's main paths and the CLI
+    on a dense .npy, CSVs under ``tmp``.  Returns the eight dense kernel
+    records."""
+    import numpy as np
+
+    from bayesrrcpp_tpu_torch import cli
+    from bayesrrcpp_tpu_torch.io.sink import ChainFanoutSink, CSVSink
+    from bayesrrcpp_tpu_torch.ops import jacobi_t as jt
+    from bayesrrcpp_tpu_torch.ops import multichain as mcs
+    from bayesrrcpp_tpu_torch.ops import serial as ser
+    from bayesrrcpp_tpu_torch.ops.genotypes import decode_rows
+
+    dev = torch.device("cuda")
+    bnames = ("eps", "beta", "labels", "v", "beta_acum")
+    hnames = ("eps", "beta")
+    # kind -> (single, plain, fused, fused plain, config, operands, chain
+    # operands, outputs, marker arrays, the order's position in the args)
+    strided = {
+        "bayesr": (jt.bayesr_jacobi_t, jt.bayesr_jacobi_t_reference,
+                   jt.bayesr_jacobi_t_mc, jt.bayesr_jacobi_t_mc_reference,
+                   bt.BayesRConfig, sweep_args, BAYESR_CHAIN_ARGS, bnames, 6,
+                   6),
+        "horseshoe": (jt.horseshoe_jacobi_t, jt.horseshoe_jacobi_t_reference,
+                      jt.horseshoe_jacobi_t_mc,
+                      jt.horseshoe_jacobi_t_mc_reference, bt.HorseshoeConfig,
+                      hs_sweep_args, HS_CHAIN_ARGS, hnames, 4, 5)}
+    serial = {
+        "bayesr": (ser.bayesr_sweep, ser.bayesr_sweep_reference,
+                   mcs.bayesr_sweep_mc, mcs.bayesr_sweep_mc_reference,
+                   bt.BayesRConfig, serial_args, BAYESR_CHAIN_ARGS, bnames, 6,
+                   6),
+        "horseshoe": (ser.horseshoe_sweep, ser.horseshoe_sweep_reference,
+                      mcs.horseshoe_sweep_mc,
+                      mcs.horseshoe_sweep_mc_reference, bt.HorseshoeConfig,
+                      hs_serial_args, HS_CHAIN_ARGS, hnames, 4, 5)}
+    records = {}
+
+    # ---- 17a. every dense kernel against its plain version at N=4001 (no
+    # multiple of 4 or 32) x M=8192: strided J=128, B=32 and serial B=512,
+    # one chain and C=8 fused from warm states
+    for layout, kinds, plan in (
+            ("strided", strided, dict(jacobi_blocks=128, jacobi_layout="t")),
+            ("serial", serial, dict(jacobi_blocks=1))):
+        B = 32 if layout == "strided" else 512
+        for kind, (single, plain, fused, fused_plain, cfg, make_args,
+                   per_chain, names, _, _) in kinds.items():
+            g = torch.Generator(device=dev).manual_seed(70 + B)
+            v = bt.TorchVariates(g)
+            s = dense_sampler(torch, bt, g, 4001, 8192, cfg(block_size=B),
+                              **plan)
+            check((s.jacobi, s.B, s.Npad, s.backend) == (
+                plan["jacobi_blocks"], B, 4001, "pallas")
+                and not s.x_packed and s.supports_fused_chains,
+                f"[17a] plan {(s.jacobi, s.B, s.Npad, s.backend)}")
+            st = s._run_steps(s.init(v), v, 3)
+            args, kw = make_args(s, st, v)
+            # eps by its norm and largest value (check_sweeps): in the
+            # horseshoe a lane sums all J*B = 4096 rows of a round, in
+            # another order than the plain matrix product
+            gate = check_sweeps
+            err = gate(torch, f"[17a] {kind} {layout}", names,
+                       tuple(single(*args, **kw)), tuple(plain(*args, **kw)))
+            v8 = bt.TorchVariates(g, chains=CHAINS)
+            st8 = s.init(v8, chains=CHAINS)
+            for _ in range(3):
+                st8 = s.step_chains(st8, v8)
+            args, kw = make_args(s, st8, v8)
+            ker = tuple(fused(*args, **kw))
+            ferr = gate(torch, f"[17a] {kind} {layout} fused", names, ker,
+                        tuple(fused_plain(*args, **kw)))
+            for c in range(CHAINS):
+                one = (chain_args(args, c, per_chain) if layout == "strided"
+                       else single_chains(torch, args, kind, c))
+                for name, a, b in zip(names, single(*one, **kw), ker):
+                    check(torch.equal(a, b[c]),
+                          f"[17a] {kind} {layout} chain {c} {name} differs "
+                          f"from the single-chain dense kernel")
+            log(f"[17a] {kind} dense {layout} N=4001 M=8192 (J={s.jacobi}, "
+                f"B={s.B}): kernel vs plain labels/v equal, max |d| "
+                f"{err:.3g}; fused C={CHAINS} vs plain max |d| {ferr:.3g}; "
+                f"every chain bitwise equal to the single-chain kernel")
+            del s, st, st8, args, ker
+
+    # ---- 17b. dense against packed on the same dosages: phase 2's first
+    # 8192 markers, their words and their standardized rows
+    Mb = 8192
+    xs = bt.simulate.packed_word_stats(HEADLINE_M)
+    s_q = bt.SpikeSlabSampler(
+        hs.data.XT[:Mb], hs.Y[:hs.N], CVA, bt.BayesRConfig(), transposed=True,
+        x_dtype="2bit", x_stats=(xs[0][:Mb], xs[1][:Mb]), device="cuda")
+    check(s_q.Npad == s_q.N and s_q._sweep_kw()["fold_affine"],
+          "[17b] packed plan")
+    Xd = decode_rows(s_q.data.XT, s_q.data.x_mean, s_q.data.x_scale,
+                     s_q.data.row_valid)
+    s_d = bt.SpikeSlabSampler(Xd, s_q.Y, CVA, bt.BayesRConfig(),
+                              transposed=True, device="cuda")
+    h_q = bt.HorseshoeSampler(
+        s_q.data.XT, s_q.Y, bt.HorseshoeConfig(), transposed=True,
+        x_dtype="2bit", x_stats=(xs[0][:Mb], xs[1][:Mb]), device="cuda")
+    h_d = bt.HorseshoeSampler(Xd, s_q.Y, bt.HorseshoeConfig(),
+                              transposed=True, device="cuda")
+    del Xd
+    check((s_d.jacobi, s_d.B, s_d.nb) == (s_q.jacobi, s_q.B, s_q.nb)
+          and s_d.data.XT.dtype == torch.float32, "[17b] dense plan")
+    for kind, sq, sd in (("bayesr", s_q, s_d), ("horseshoe", h_q, h_d)):
+        hsk = kind == "horseshoe"
+        single, _, _, _, _, make_args = strided[kind][:6]
+        g = torch.Generator(device=dev).manual_seed(75)
+        v = bt.TorchVariates(g)
+        st = sq._run_steps(sq.init(v), v, 2)
+        args_q, kw_q = make_args(sq, st, v)
+        d = sd.data
+        kw_d = dict(J=sd.jacobi, **sd._sweep_kw())
+
+        def dense_sweep(*a, **k):
+            return single(d.XT, d.gram, d.xsq, *a[3:], **kw_d)
+
+        ker = tuple(dense_sweep(*args_q, **kw_q))
+        ref = tuple(single(*args_q, **kw_q))
+        agree, flips = dense_gates(torch, sq, f"[17b] {kind}", args_q, kw_q,
+                                   ker, ref, hsk,
+                                   sweeps=(dense_sweep, single))
+        log(f"[17b] {kind} dense vs packed fold on phase 2's dosages (N="
+            f"{sq.N}, M={Mb}, J={sq.jacobi}): label agreement {agree:.6f}, "
+            f"|d eps|/|eps| {rel_err(ker[0], ref[0]):.3g}, |d beta|/|beta| "
+            f"{rel_err(ker[1], ref[1]):.3g}, max |d beta| "
+            f"{float((ker[1] - ref[1]).abs().max()):.3g}; chains with a "
+            f"near-tie label flip {flips}")
+        del st, args_q, ker, ref
+    del s_q, s_d, h_q, h_d
+
+    # ---- 17c / 18 / 19. the dense cell dense-16kx49k at full width
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(80)
+    s = dense_sampler(torch, bt, g, DENSE_N, DENSE_M,
+                      bt.BayesRConfig(emit_epsilon=False))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    check((s.jacobi, s.B, s.jacobi_layout, s.nb, s.Mpad, s.Npad) ==
+          (128, 32, "t", 1536, DENSE_M, DENSE_N), "[17c] dense cell plan")
+    nr = s.nb // s.jacobi
+    t0 = time.perf_counter()
+    h = bt.HorseshoeSampler(s.data.XT, s.Y, bt.HorseshoeConfig(
+        emit_epsilon=False), transposed=True, device="cuda")
+    torch.cuda.synchronize()
+    h_setup_s = time.perf_counter() - t0
+    check(h.data.XT.data_ptr() == s.data.XT.data_ptr(), "[17c] X copied")
+    log(f"[17c] dense-16kx49k: X {s.data.XT.numel() * 4 / 1e9:.2f} GB on "
+        f"the card, sampler setup {setup_s:.2f} s (X built from the seed, "
+        f"xsq, Gram blocks), horseshoe {h_setup_s:.2f} s; plan J={s.jacobi} "
+        f"B={s.B} nb={s.nb} nr={nr}")
+    samplers = {"bayesr": s, "horseshoe": h}
+    for kind, (single, plain, fused, fused_plain, _, make_args, per_chain,
+               names, arrays, rho_at) in strided.items():
+        hsk = kind == "horseshoe"
+        ss = samplers[kind]
+        v = bt.TorchVariates(g)
+        st = ss._run_steps(ss.init(v), v, 2)
+        args, kw = make_args(ss, st, v)
+        ker, ms = timed(torch, lambda: tuple(single(*args, **kw)), 3)
+        ref, plain_ms = timed(torch, lambda: tuple(plain(*args, **kw)), 1)
+        agree, flips = dense_gates(torch, ss, f"[17c] {kind}", args, kw, ker,
+                                   ref, hsk)
+        max_err = max(float((a - b).abs().max())
+                      for a, b in zip(ker[:2], ref[:2]))
+        moved = int((ker[1] != args[4]).sum())
+        bound = dense_bound(ss, 1, moved, arrays, moved)
+        lib_ms = dense_yardstick(torch, ss, args[rho_at][0], args[3]) * nr
+        log(f"[17c] {kind} dense sweep: kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.1f} ms, bound {bound[0]:.3f} ms ({bound[1]}, "
+            f"{moved} markers moved), torch.matmul of each round's strided "
+            f"view by eps {lib_ms:.3f} ms per sweep; label agreement "
+            f"{agree:.6f}, |d eps|/|eps| {rel_err(ker[0], ref[0]):.3g}, "
+            f"max abs err {max_err:.3g}; chains with a near-tie flip {flips}")
+        records[kind] = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound[0], bound_by=bound[1],
+                             library_ms=lib_ms)
+        del args, ker, ref
+
+        v8 = bt.TorchVariates(g, chains=CHAINS)
+        st8 = ss.init(v8, chains=CHAINS)
+        for _ in range(2):
+            st8 = ss.step_chains(st8, v8)
+        args, kw = make_args(ss, st8, v8)
+        ker, fms = timed(torch, lambda: tuple(fused(*args, **kw)), 3)
+        ones, singles_ms = timed(torch, lambda: [
+            tuple(single(*chain_args(args, c, per_chain), **kw))
+            for c in range(CHAINS)], 1)
+        ref, fplain_ms = timed(torch, lambda: tuple(fused_plain(*args, **kw)),
+                               1)
+        bitwise = all(torch.equal(a, b[c]) for c, one in enumerate(ones)
+                      for a, b in zip(one, ker))
+        check(bitwise, f"[17c] {kind} fused chains not bitwise")
+        agree, flips = dense_gates(torch, ss, f"[17c] {kind} fused", args,
+                                   kw, ker, ref, hsk, per_chain)
+        ferr = max(float((a - b).abs().max())
+                   for a, b in zip(ker[:2], ref[:2]))
+        moved_at = ker[1] != args[4]
+        fbound = dense_bound(ss, CHAINS, int(moved_at.sum()), arrays,
+                             int(moved_at.any(dim=0).sum()))
+        flib_ms = dense_yardstick(torch, ss, args[rho_at][0], args[3]) * nr
+        log(f"[17c] {kind} dense fused C={CHAINS}: {fms:.3f} ms, {CHAINS} "
+            f"single-chain sweeps {singles_ms:.3f} ms, plain {fplain_ms:.1f}"
+            f" ms, bound {fbound[0]:.3f} ms ({fbound[1]}), torch.matmul "
+            f"yardstick {flib_ms:.3f} ms; chains bitwise equal to the "
+            f"single-chain kernel; label agreement {agree:.6f}, max abs err "
+            f"{ferr:.3g}; chains with a near-tie flip {flips}")
+        records[kind + "_mc"] = dict(
+            max_abs_err=ferr, ms=fms, plain_ms=fplain_ms, bound_ms=fbound[0],
+            bound_by=fbound[1], library_ms=flib_ms)
+        del args, ker, ref, ones, st8
+
+        # 18. the main paths: one chain into a CSVSink, 8 fused chains
+        # through run_chains into a ChainFanoutSink
+        for chains, counter in ((None, single), (CHAINS, fused)):
+            gm = torch.Generator(device=dev).manual_seed(81)
+            if chains is None:
+                chain = bt.ChainConfig(10, 5, 5)
+                path = os.path.join(tmp, f"dense_{kind}.csv")
+                sink = CSVSink(path, kind, M=ss.M, N=ss.N, emit_epsilon=False)
+                paths = [path]
+                run = lambda sk: ss.run(gm, chain, sink=sk)  # noqa: E731
+            else:
+                chain = bt.ChainConfig(5, 2, 2)
+                sink = ChainFanoutSink.csv(
+                    os.path.join(tmp, f"dense_{kind}_8chain.csv"), chains,
+                    kind, M=ss.M, N=ss.N, emit_epsilon=False)
+                paths = sink.paths
+                run = lambda sk: ss.run_chains(  # noqa: E731
+                    gm, chains, chain, sink=sk)
+            st, out, wall, launches, peak = main_path(torch, run, sink,
+                                                      counter)
+            n_rows = len(list(chain.emit_iterations()))
+            for path in paths:
+                header, widths, bad = read_csv(path)
+                check(len(header) == 2 + 2 * ss.M + 2
+                      and widths == [len(header)] * n_rows and not bad,
+                      f"[18] {path}: {len(header)} {widths} {bad}")
+            check(all(np_finite(x) for x in out.values()),
+                  f"[18] {kind} non-finite output")
+            ex = ss.refresh_eps(st).eps
+            rel = float((torch.linalg.norm(st.eps - ex, dim=-1)
+                         / torch.linalg.norm(ex, dim=-1)).max())
+            want = jt.LAUNCHES_PER_ROUND * nr * chain.max_iterations
+            cell = ("dense-16kx49k" if kind == "bayesr"
+                    else "dense-16kx49k-horseshoe") + (
+                "" if chains is None else f"-{chains}chain")
+            check(rel < 1e-4, f"[18] {cell} tracked eps vs recompute {rel}")
+            check(launches == want, f"[18] {cell} launches {launches}")
+            records[kind + ("" if chains is None else "_mc")][
+                "launches"] = launches
+            vp = bt.TorchVariates(gm, chains=chains)
+
+            def two_steps(st=st, vp=vp, chains=chains):
+                for _ in range(2):
+                    st = (ss.step(st, vp) if chains is None
+                          else ss.step_chains(st, vp))
+
+            pnames = ("dense_dot_kernel",
+                      ("hs_solve" if hsk else "solve")
+                      + ("_kernel" if chains is None else "_mc_kernel"),
+                      "dense_apply_kernel")
+            split, dev_ms, wall_ms = profile_split(torch, two_steps, pnames)
+            check(profiled(split, 2 * nr), f"[18] profiled launches {split}")
+            log(f"[18] {cell} main path: "
+                f"{wall / chain.max_iterations * 1e3:.2f} ms/iter ({wall:.2f}"
+                f" s for {chain.max_iterations} iterations incl. CSV), peak "
+                f"{peak:.2f} GiB, launches {launches} (want {want}), "
+                f"tracked-vs-exact eps {rel:.3g}; profile of 2 steps: "
+                + ", ".join(f"{n} {us:.2f} us x {c}"
+                            for n, (us, c) in split.items())
+                + f"; device {dev_ms:.2f} ms of {wall_ms:.2f} ms wall, "
+                f"{dev_ms / 2:.3f} ms per step")
+            del st, out
+    del samplers
+
+    # ---- 19. the serial dense kernels at the cell (jacobi_blocks=1, B=512)
+    for kind, (single, plain, fused, fused_plain, cfg, make_args, _, names,
+               arrays, _) in serial.items():
+        hsk = kind == "horseshoe"
+        kw1 = dict(transposed=True, device="cuda", jacobi_blocks=1)
+        ss = (bt.HorseshoeSampler(s.data.XT, s.Y, cfg(emit_epsilon=False),
+                                  **kw1) if hsk else
+              bt.SpikeSlabSampler(s.data.XT, s.Y, CVA, cfg(emit_epsilon=False),
+                                  **kw1))
+        check((ss.jacobi, ss.B, ss.nb) == (1, 512, 96)
+              and ss.data.XT.data_ptr() == s.data.XT.data_ptr(),
+              "[19] serial plan")
+        g1 = torch.Generator(device=dev).manual_seed(90)
+        v = bt.TorchVariates(g1)
+        st = ss._run_steps(ss.init(v), v, 2)
+        args, kw = make_args(ss, st, v, SERIAL_PLAIN_BLOCKS)
+        ker = tuple(single(*args, **kw))
+        ref, plain_ms = timed(torch, lambda: tuple(plain(*args, **kw)), 1)
+        err, agree, rel = serial_gates(torch, f"[19] {kind}", ker, ref, hsk)
+        args, kw = make_args(ss, st, v)
+        full, ms = timed(torch, lambda: tuple(single(*args, **kw)), 3)
+        moved = int((full[1] != args[4]).sum())
+        bound = dense_bound(ss, 1, moved, arrays, moved, moved)
+        border = args[5 if hsk else 6]
+        lib_ms = dense_yardstick(torch, ss, border[0], args[3],
+                                 strided=False) * ss.nb
+        log(f"[19] {kind} dense serial: {SERIAL_PLAIN_BLOCKS} blocks vs "
+            f"plain max |d| "
+            f"{err:.3g}, |d eps|/|eps| {rel:.3g}, label agreement "
+            f"{agree:.6f}, plain {plain_ms:.1f} "
+            f"ms; full sweep ({ss.nb} blocks, {ss.nb * ss.B} dependent "
+            f"steps) {ms:.3f} ms, bound {bound[0]:.3f} ms ({bound[1]}, "
+            f"{moved} moved), torch.matmul yardstick {lib_ms:.3f} ms")
+        records[kind + "_serial"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            plain_blocks=SERIAL_PLAIN_BLOCKS,
+            sweep_blocks=int(ss.nb), dependent_steps=int(ss.nb * ss.B),
+            bound_ms=bound[0], bound_by=bound[1], library_ms=lib_ms)
+        del args, full, ker, ref
+
+        v8 = bt.TorchVariates(g1, chains=CHAINS)
+        st8 = ss.init(v8, chains=CHAINS)
+        for _ in range(2):
+            st8 = ss.step_chains(st8, v8)
+        args, kw = make_args(ss, st8, v8, SERIAL_PLAIN_BLOCKS)
+        ker = tuple(fused(*args, **kw))
+        ref, fplain_ms = timed(torch, lambda: tuple(fused_plain(*args, **kw)),
+                               1)
+        ferr, fagree, frel = serial_gates(torch, f"[19] {kind} fused", ker,
+                                          ref, hsk)
+        args, kw = make_args(ss, st8, v8)
+        full, fms = timed(torch, lambda: tuple(fused(*args, **kw)), 3)
+        ones, singles_ms = timed(torch, lambda: [
+            tuple(single(*single_chains(torch, args, kind, c), **kw))
+            for c in range(CHAINS)], 1)
+        check(all(torch.equal(a, b[c]) for c, one in enumerate(ones)
+                  for a, b in zip(one, full)),
+              f"[19] {kind} fused serial chains not bitwise")
+        moved_at = full[1] != args[4]
+        fbound = dense_bound(ss, CHAINS, int(moved_at.sum()), arrays,
+                             int(moved_at.any(dim=0).sum()),
+                             int(moved_at.any(dim=0).sum()))
+        flib_ms = dense_yardstick(torch, ss, border[0], args[3],
+                                  strided=False) * ss.nb
+        log(f"[19] {kind} dense serial fused C={CHAINS}: "
+            f"{SERIAL_PLAIN_BLOCKS} blocks vs plain max |d| {ferr:.3g}, |d eps|/|eps| {frel:.3g}, label agreement "
+            f"{fagree:.6f}, plain {fplain_ms:.1f} ms; full sweep "
+            f"{fms:.3f} ms, {CHAINS} single-chain sweeps {singles_ms:.3f} "
+            f"ms, bound {fbound[0]:.3f} ms ({fbound[1]}), torch.matmul "
+            f"yardstick {flib_ms:.3f} ms; chains bitwise equal to the "
+            f"single-chain serial kernel")
+        records[kind + "_serial_mc"] = dict(
+            max_abs_err=ferr, ms=fms, plain_ms=fplain_ms,
+            plain_blocks=SERIAL_PLAIN_BLOCKS, sweep_blocks=int(ss.nb),
+            dependent_steps=int(ss.nb * ss.B), bound_ms=fbound[0],
+            bound_by=fbound[1], library_ms=flib_ms)
+        del args, full, ker, ref, ones, st8
+
+        # the serial main paths: one chain, then 8 fused chains
+        for chains, counter in ((None, single), (CHAINS, fused)):
+            gm = torch.Generator(device=dev).manual_seed(91)
+            if chains is None:
+                chain = (bt.ChainConfig(10, 5, 5) if not hsk
+                         else bt.ChainConfig(5, 2, 2))
+                path = os.path.join(tmp, f"dense_{kind}_serial.csv")
+                sink = CSVSink(path, kind, M=ss.M, N=ss.N, emit_epsilon=False)
+                paths = [path]
+                run = lambda sk: ss.run(gm, chain, sink=sk)  # noqa: E731
+            else:
+                chain = bt.ChainConfig(5, 2, 2)
+                sink = ChainFanoutSink.csv(
+                    os.path.join(tmp, f"dense_{kind}_serial_8chain.csv"),
+                    chains, kind, M=ss.M, N=ss.N, emit_epsilon=False)
+                paths = sink.paths
+                run = lambda sk: ss.run_chains(  # noqa: E731
+                    gm, chains, chain, sink=sk)
+            st, out, wall, launches, peak = main_path(torch, run, sink,
+                                                      counter)
+            n_rows = len(list(chain.emit_iterations()))
+            for path in paths:
+                header, widths, bad = read_csv(path)
+                check(widths == [len(header)] * n_rows and not bad,
+                      f"[19] {path}: {widths} {bad}")
+            ex = ss.refresh_eps(st).eps
+            rel = float((torch.linalg.norm(st.eps - ex, dim=-1)
+                         / torch.linalg.norm(ex, dim=-1)).max())
+            want = ser.LAUNCHES_PER_BLOCK * ss.nb * chain.max_iterations
+            cell = ("dense-16kx49k" + ("-horseshoe" if hsk else "")
+                    + "-serial" + ("" if chains is None else f"-{chains}chain"))
+            check(rel < 1e-4, f"[19] {cell} tracked eps vs recompute {rel}")
+            check(launches == want, f"[19] {cell} launches {launches}")
+            records[kind + "_serial" + ("" if chains is None else "_mc")][
+                "launches"] = launches
+            msg = ""
+            if chains is None:
+                vp = bt.TorchVariates(gm)
+                split, dev_ms, wall_ms = profile_split(
+                    torch, lambda: ss._run_steps(st, vp, 1),
+                    ("serial_dense_dot_kernel", "serial_solve_kernel",
+                     "dense_apply_kernel"))
+                check(profiled(split, ss.nb), f"[19] profiled {split}")
+                msg = "; profile of 1 step: " + ", ".join(
+                    f"{n} {us:.2f} us x {c}" for n, (us, c) in split.items()
+                ) + f"; device {dev_ms:.2f} ms of {wall_ms:.2f} ms wall"
+            log(f"[19] {cell} main path: "
+                f"{wall / chain.max_iterations * 1e3:.2f} ms/iter ({wall:.2f}"
+                f" s for {chain.max_iterations} iterations incl. CSV), peak "
+                f"{peak:.2f} GiB, launches {launches} (want {want}), "
+                f"tracked-vs-exact eps {rel:.3g}" + msg)
+            del st, out
+        del ss
+    del s, h
+
+    # ---- 19. recovery through the dense kernels (the phase 3 and 6
+    # recipes: N=4096, M=2048, block_size 256, J=8)
+    for kind in ("bayesr", "horseshoe"):
+        gr = torch.Generator(device=dev).manual_seed(13)
+        beta_true = recovery_signal(torch, gr, 2048)
+        if kind == "bayesr":
+            cfg, rchain = bt.BayesRConfig(block_size=256), (100, 60, 1)
+        else:
+            A = (1.0 / 4096 ** 0.5) * 32 / (2048 - 32)
+            cfg, rchain = (bt.HorseshoeConfig(A=A, block_size=256),
+                           HS_RECOVERY_CHAIN)
+        sr = dense_sampler(torch, bt, gr, 4096, 2048, cfg, signal=beta_true)
+        check((sr.jacobi, sr.B, sr.backend) == (8, 32, "pallas"),
+              "[19] dense recovery plan")
+        t0 = time.perf_counter()
+        _, out = sr.run(gr, bt.ChainConfig(*rchain))
+        corr = posterior_corr(torch, out, beta_true)
+        log(f"[19] {kind} dense recovery corr {corr:.4f} over {rchain} "
+            f"({(time.perf_counter() - t0) / rchain[0] * 1e3:.2f} ms/iter)")
+        check(corr > 0.8, f"[19] {kind} dense recovery corr {corr}")
+        del sr, out
+
+    # ---- 20. the CLI on a dense .npy (--x-dtype dense, the default), on
+    # the card: N=4096 x M=8192, plan J=32, B=32
+    N20, M20 = 4096, 8192
+    rng = np.random.default_rng(20)
+    with tempfile.TemporaryDirectory(dir=tmp) as d20:
+        xp, yp = os.path.join(d20, "x.npy"), os.path.join(d20, "y.npy")
+        np.save(xp, rng.binomial(2, rng.uniform(0.1, 0.9, M20),
+                                 size=(N20, M20)).astype(np.float32))
+        np.save(yp, rng.standard_normal(N20))
+        nr20 = M20 // 32 // 32
+        for kind, counter in (("bayesr", jt.bayesr_jacobi_t),
+                              ("horseshoe", jt.horseshoe_jacobi_t)):
+            out = os.path.join(d20, f"{kind}.csv")
+            torch.cuda.synchronize()
+            counter.launches = 0
+            t0 = time.perf_counter()
+            rc = cli.main([kind, "--x", xp, "--y", yp, "--x-dtype", "dense",
+                           "--out", out, "--iterations", "6", "--burn-in",
+                           "2", "--thinning", "2", "--seed", "5"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            header, widths, bad = read_csv(out)
+            want = 3 * nr20 * 6
+            n_rows = len(list(bt.ChainConfig(6, 2, 2).emit_iterations()))
+            log(f"[20] python -m bayesrrcpp_tpu_torch {kind} --x x.npy "
+                f"--x-dtype dense (N={N20}, M={M20}): rc {rc}, {wall:.2f} s, "
+                f"CSV {len(widths)} rows of {len(header)} columns, launches "
+                f"{counter.launches} (want {want})")
+            check(rc == 0 and len(header) == 2 + 2 * M20 + 2 + N20
+                  and widths == [len(header)] * n_rows and not bad,
+                  f"[20] {kind} CSV {len(header)} {widths} {bad}")
+            check(counter.launches == want,
+                  f"[20] {kind} launches {counter.launches}")
+
+    src = "bayesrrcpp_tpu_torch/csrc/"
+    tpu = "bayesrrcpp_tpu/ops/"
+    meta = {
+        "bayesr": ("jacobi_t_sweep_dense", "jacobi_t.cu",
+                   "pallas_jacobi_t.py:405"),
+        "horseshoe": ("jacobi_t_hs_sweep_dense", "jacobi_t.cu",
+                      "pallas_jacobi_t.py:650"),
+        "bayesr_mc": ("jacobi_t_mc_sweep_dense", "jacobi_t_mc.cu",
+                      "pallas_jacobi_t.py:1199/:2416"),
+        "horseshoe_mc": ("jacobi_t_hs_mc_sweep_dense", "jacobi_t_mc.cu",
+                         "pallas_jacobi_t.py:1742/:2922"),
+        "bayesr_serial": ("bayesr_serial_sweep_dense", "serial.cu",
+                          "pallas_sweep.py:97"),
+        "horseshoe_serial": ("horseshoe_serial_sweep_dense", "serial.cu",
+                             "pallas_sweep.py:622"),
+        "bayesr_serial_mc": ("bayesr_serial_sweep_mc_dense", "serial.cu",
+                             "pallas_multichain.py:115"),
+        "horseshoe_serial_mc": ("horseshoe_serial_sweep_mc_dense",
+                                "serial.cu", "pallas_multichain.py:516")}
     return [dict({"name": name, "route": "cuda", "source": src + f,
                   "replaces": tpu + where}, **records[key])
             for key, (name, f, where) in meta.items()]

@@ -40,7 +40,9 @@ def test_entry_points_outside_the_slice_raise(name, entry):
 
 
 def test_run_chains_raises():
-    """Dense X has no fused multi-chain kernel: ``fused=True`` raises."""
+    """Dense X on the plain Gram-blocked sweep (``api``'s backend, and the
+    samplers' default on the CPU) has no fused multi-chain kernel:
+    ``fused=True`` raises."""
     sim = simulate.simulate_bayesr(seed=1, N=40, M=16, n_causal=2)
     s = SpikeSlabSampler(sim.X, sim.Y, CVA, BayesRConfig(block_size=16),
                          device="cpu")

@@ -181,7 +181,7 @@ def test_torch_variates_chain_recovers_signal():
 
 
 @pytest.mark.parametrize("case", ["groups", "fixed", "int8", "row_plan",
-                                  "scan"])
+                                  "scan", "dense_row_plan"])
 def test_configurations_outside_the_slice_raise(case):
     rng = np.random.default_rng(0)
     N, M = 64, 96
@@ -201,5 +201,10 @@ def test_configurations_outside_the_slice_raise(case):
         kw.update(jacobi_blocks=2, jacobi_layout="row")
     elif case == "scan":
         kw = dict(backend="scan", device="cpu")
+    elif case == "dense_row_plan":
+        # dense X through the kernels, on a row-layout plan with J > 1
+        # (Queue 2 entry 10)
+        kw = dict(backend="pallas", jacobi_blocks=2, jacobi_layout="row",
+                  device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SpikeSlabSampler(dosage, Y, cva, BayesRConfig(), **kw)

@@ -13,7 +13,9 @@ Marked ``cuda``: a CUDA kernel has no CPU mode, so these skip where
 They cover what chip_smoke.py's shapes do not: blocks narrower than a warp
 (B=16), several groups (G=3), K=2, and individuals that do not fill the
 last word tile (pad lanes), each also on words with ~3 % missing calls
-(the strided kernels' ``miss`` mode, the serial kernel's in-kernel decode).
+(the strided kernels' ``miss`` mode, the serial kernel's in-kernel decode),
+and the dense mode of every kernel on f32 rows of an N that is or is not a
+multiple of 4.
 Tolerances: labels and v exact, floats to f32 reassociation (the kernel
 sums the dot in another order).
 """
@@ -501,3 +503,108 @@ def test_decode_serial_kernels_match_plain(cuda, B, G, K, nb, N, chunk):
     mc, _ = _serial_mc_case(B + 1, B, K, nb, N, 2, cuda, chunk)
     with pytest.raises(NotImplementedError, match="single-chain"):
         multichain.bayesr_sweep_mc(*mc, **kw)
+
+
+def _dense_case(seed, nb, B, N, C, G, dev):
+    """Dense standardized rows (nb*B, N) f32 with their Gram blocks, and a
+    warm state of C chains with variates."""
+    rng = np.random.default_rng(seed)
+    M = nb * B
+    dos = rng.binomial(2, rng.uniform(0.1, 0.9, (M, 1)), size=(M, N))
+    X = (dos - dos.mean(1, keepdims=True)) / dos.std(1, ddof=1, keepdims=True)
+    t = lambda x, dt=torch.float32: torch.as_tensor(  # noqa: E731
+        x, dtype=dt, device=dev)
+    X = t(X)
+    Xb = X.view(nb, B, N)
+    beta = np.zeros((C, M))
+    labels = np.zeros((C, M), np.int32)
+    for c in range(C):
+        hot = rng.choice(M, M // 8, replace=False)
+        labels[c, hot] = rng.integers(1, 4, hot.size)
+        beta[c, hot] = rng.normal(0, 0.05, hot.size)
+    return dict(
+        X=X, gram=torch.bmm(Xb, Xb.transpose(1, 2)), xsq=(X * X).sum(1),
+        eps=t(rng.standard_normal((C, N))), beta=t(beta),
+        labels=t(labels, torch.int32), p=t(rng.random((C, M))),
+        z=t(rng.standard_normal((C, M))),
+        pi=t(rng.dirichlet([5, 2, 2, 1], (C, G))),
+        cva=t(np.tile([1e-3, 1e-2, 1e-1], (G, 1))),
+        sigmaE=t(rng.uniform(0.5, 1.0, C)),
+        sigmaGG=t(rng.uniform(0.02, 0.08, (C, G))),
+        lam=t(rng.uniform(0.1, 2.0, (C, M))),
+        tau=t(rng.uniform(0.01, 0.1, C)), c2=t(rng.uniform(1.0, 2.0, C)),
+        gas=t(np.arange(M) % G, torch.int32), valid=t(np.arange(M) < M - 3,
+                                                      torch.bool),
+        inner=t(np.argsort(rng.random((nb, B)), axis=1), torch.int32),
+        order=t(rng.permutation(nb), torch.int32), M=M)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [150, 4001, 4096])
+@pytest.mark.parametrize("strided", [True, False])
+@pytest.mark.parametrize("hs", [False, True])
+def test_dense_kernels_match_plain_and_single_chains(cuda, hs, strided, N):
+    """The dense mode of the strided (J=4, B=32, nr=2) and serial (B=64,
+    8 blocks) kernels, one chain and C=3 fused, against their plain
+    versions (labels and v exact, eps as ``_assert_eps_close``, the other
+    floats to f32 reassociation), each fused chain bitwise equal to the
+    single-chain kernel; N=150 and 4001 take the unaligned loads, 4096 the
+    float4 ones."""
+    from bayesrrcpp_tpu_torch.ops import jacobi_t as jt
+    from bayesrrcpp_tpu_torch.ops import multichain, serial
+
+    C = 3
+    nb, B = (8, 32) if strided else (8, 64)
+    c = _dense_case(N + 7 * hs + strided, nb, B, N, C, 2, cuda)
+    if strided:
+        rho = torch.randperm(2, device=cuda).to(torch.int32)
+        kw = dict(J=4)
+        fns = ((jt.horseshoe_jacobi_t, jt.horseshoe_jacobi_t_reference,
+                jt.horseshoe_jacobi_t_mc, jt.horseshoe_jacobi_t_mc_reference)
+               if hs else
+               (jt.bayesr_jacobi_t, jt.bayesr_jacobi_t_reference,
+                jt.bayesr_jacobi_t_mc, jt.bayesr_jacobi_t_mc_reference))
+    else:
+        kw = {}
+        fns = ((serial.horseshoe_sweep, serial.horseshoe_sweep_reference,
+                multichain.horseshoe_sweep_mc,
+                multichain.horseshoe_sweep_mc_reference)
+               if hs else
+               (serial.bayesr_sweep, serial.bayesr_sweep_reference,
+                multichain.bayesr_sweep_mc,
+                multichain.bayesr_sweep_mc_reference))
+    single, plain, fused, fused_plain = fns
+    order = rho if strided else c["order"]
+    if not strided:
+        at = serial.position_markers(order, c["inner"], B)
+
+    def args(ch):
+        """Chain ``ch``'s operands, or all chains' (ch None)."""
+        one = (lambda x: x) if ch is None else (lambda x: x[ch])
+        p, z = one(c["p"]), one(c["z"])
+        if ch is not None and not strided:
+            p, z = p[at], z[at]           # by sweep position
+        head = (c["X"], c["gram"], c["xsq"], one(c["eps"]), one(c["beta"]))
+        if hs:
+            return head + (order, c["inner"], z, one(c["lam"]),
+                           one(c["tau"]), one(c["c2"]), one(c["sigmaE"]),
+                           c["valid"])
+        return head + (one(c["labels"]), order, c["inner"], p, z,
+                       one(c["pi"]), c["cva"], one(c["sigmaE"]),
+                       one(c["sigmaGG"]), c["gas"], c["valid"])
+
+    names = ("eps", "beta") + (() if hs else ("labels", "v", "beta_acum"))
+    for ker, ref in ((single(*args(0), **kw), plain(*args(0), **kw)),
+                     (fused(*args(None), **kw), fused_plain(*args(None),
+                                                            **kw))):
+        torch.cuda.synchronize()
+        for name, a, b in zip(names, ker, ref):
+            if name in ("labels", "v"):
+                assert torch.equal(a, b), name
+            elif name == "eps":
+                _assert_eps_close(a, b)
+            else:
+                torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    for ch in range(C):
+        for a, b in zip(single(*args(ch), **kw), ker):
+            assert torch.equal(a, b[ch]), ch

@@ -278,15 +278,23 @@ def test_configurations_outside_the_slice_raise(case):
     elif case == "scan":
         kw = dict(backend="scan")
     elif case == "dense_kernel":
-        kw = dict(backend="pallas")
+        # dense X runs the kernels, but not a row-layout plan with J > 1
+        # (Queue 2 entry 10)
+        kw = dict(backend="pallas", jacobi_blocks=2, jacobi_layout="row")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         HorseshoeSampler(dosage, Y, HorseshoeConfig(), **kw, device="cpu")
+    if case == "dense_kernel":
+        s = HorseshoeSampler(dosage, Y, HorseshoeConfig(), backend="pallas",
+                             device="cpu")
+        assert s.supports_fused_chains and (s.jacobi, s.backend) == (
+            1, "pallas")
     if case == "int8":
-        # dense X has no fused multi-chain kernel: fused=True raises, the
-        # default runs the chains through the single-chain step
+        # dense X on the CPU defaults to the plain sweep, which has no fused
+        # multi-chain kernel: fused=True raises, the default runs the
+        # chains through the single-chain step
         s = HorseshoeSampler(dosage, Y, HorseshoeConfig(block_size=32),
                              device="cpu")
-        assert not s.supports_fused_chains
+        assert s.backend == "blocked" and not s.supports_fused_chains
         with pytest.raises(ValueError, match="fused"):
             s.run_chains(torch.Generator().manual_seed(0), 4,
                          ChainConfig(10, 5), fused=True)

@@ -187,11 +187,19 @@ def test_strided_border_matches_jax():
 
 @pytest.mark.parametrize("bad", ["dense", "no_fold"])
 def test_modes_outside_the_slice_raise(bad):
+    """Dense rows run (tests/test_torch_dense.py) but take no missing calls;
+    int8 codes are not ported (ROADMAP Queue 2 entry 1); packed words need
+    the fold or the miss mode."""
     c = _case(5, 4, 16, 1, nr=2)
     args = list(_torch_args(c))
     kw = _torch_kw(c, 4)
     if bad == "dense":
-        args[0] = torch.as_tensor(_dense(c))
+        dense = list(args)
+        dense[0] = torch.as_tensor(_dense(c))
+        dense[3] = dense[3][:N]
+        with pytest.raises(NotImplementedError, match="missing"):
+            bayesr_jacobi_t(*dense, J=4, missing=True)
+        args[0] = torch.as_tensor(c["codes"][:, :N]).to(torch.int8)
         with pytest.raises(NotImplementedError, match="Queue 2 entry 1"):
             bayesr_jacobi_t(*args, **kw)
     else:

@@ -214,12 +214,14 @@ def test_miss_mc_sweep_matches_jax_kernel_and_single_chains(kind, C):
 
 
 def test_miss_mode_raises_on_dense_x():
+    """Dense rows carry no missing calls: the miss mode needs 2-bit words
+    (the JAX wrapper refuses it too, pallas_jacobi_t.py:_validate)."""
     c = _rounds(_case(5, 16, 8), 4)
     t = torch.as_tensor
-    with pytest.raises(NotImplementedError, match="Queue 2 entry 1"):
+    with pytest.raises(NotImplementedError, match="missing"):
         jacobi_t.bayesr_jacobi_t(torch.zeros((c["M"], N)), *_words(c)[1:],
-                                 t(c["eps"]), *_bayesr_args(c, t),
-                                 **_port_kw(c, 4))
+                                 t(c["eps"])[:N], *_bayesr_args(c, t),
+                                 J=4, missing=True)
 
 
 # ------------------------------------------- the serial in-kernel decode

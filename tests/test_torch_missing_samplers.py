@@ -105,8 +105,8 @@ def _assert_close(jst, tst, ts, l1):
 @pytest.mark.parametrize("kind", ["bayesr", "horseshoe"])
 def test_steps_on_missing_data_match_jax(kind, plan):
     js, ts, Replay = _samplers(kind, 7, plan)
-    assert ts._packed_kw()["fold_affine"] is False
-    assert ts._packed_kw().get("missing", False) is (plan == "t")
+    assert ts._sweep_kw()["fold_affine"] is False
+    assert ts._sweep_kw().get("missing", False) is (plan == "t")
     key = jax.random.PRNGKey(4)
     rv = Replay(key)
     jst, tst = js.init(key), ts.init(rv)
@@ -186,7 +186,7 @@ def test_row_plans_on_missing_data_follow_jax(auto):
                               **kw)
         assert (ts.jacobi, ts.jacobi_layout, ts.B, ts.Mpad) == \
             (js.jacobi, js.jacobi_layout, js.B, js.Mpad)
-        assert ts.jacobi == 1 and ts._packed_kw()["fold_affine"] is False
+        assert ts.jacobi == 1 and ts._sweep_kw()["fold_affine"] is False
     else:
         for make, cfg, extra in (
                 (jbr.SpikeSlabSampler, jbr.BayesRConfig(), {}),

@@ -229,11 +229,13 @@ def test_horseshoe_mc_plain_matches_jax_kernel(C):
 
 @pytest.mark.parametrize("bad", ["dense"])
 def test_mc_modes_outside_the_slice_raise(bad):
+    """Dense rows run fused (tests/test_torch_dense.py); int8 codes with
+    their statistics are not ported (ROADMAP Queue 2 entries 5 and 6)."""
     c = _sweep_case(3, 2)
     t = torch.as_tensor
     words, gram, xsq = _port_data(c)
     kw = _port_kw(c)
-    words = torch.zeros((M, N))
+    words = torch.zeros((M, N), dtype=torch.int8)
     with pytest.raises(NotImplementedError, match="Queue 2 entry 5"):
         bayesr_jacobi_t_mc(
             words, gram, xsq, t(c["eps"]), t(c["beta"]), t(c["labels"]),

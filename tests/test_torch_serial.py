@@ -243,7 +243,8 @@ def test_horseshoe_mc_plain_matches_jax_kernel_and_single_chains(chunk):
 
 @pytest.mark.parametrize("bad", ["dense", "no_fold"])
 def test_modes_outside_the_slice_raise(bad):
-    """Dense words (ROADMAP entries 2 and 4); and the in-kernel decode
+    """int8 codes (ROADMAP entries 2 and 4; dense f32 rows run, tests/
+    test_torch_dense.py); and the in-kernel decode
     (``fold_affine=False``, words with missing calls), which runs one chain
     only (tests/test_torch_missing.py): the fused sweeps refuse it, as
     JAX's ``bayesr_sweep_pallas_mc`` does."""
@@ -251,7 +252,7 @@ def test_modes_outside_the_slice_raise(bad):
     words, gram, xsq = _data(c)
     kw = _kw(c)
     if bad == "dense":
-        words = torch.zeros((M, N))
+        words = torch.zeros((M, N), dtype=torch.int8)
         cases = ((serial.bayesr_sweep, "entry 2"),
                  (serial.horseshoe_sweep, "entry 4"))
     else:
