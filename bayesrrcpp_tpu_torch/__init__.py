@@ -3,9 +3,10 @@
 A port of :mod:`bayesrrcpp_tpu` (JAX on a TPU, kept beside it as the
 reference).  This package covers two samplers on 2-bit packed genotypes,
 with or without missing calls (a PLINK .bed read straight into packed
-words, ``io/bed.py``), one chain or several fused (``run_chains``), each
-swept by its strided-rounds block-Jacobi kernels in ``csrc/`` (or, at
-J=1, by the exact serial kernels):
+words, ``io/bed.py``), and on dense f32 rows, one chain or several fused
+(``run_chains``), each swept by its strided-rounds block-Jacobi kernels in
+``csrc/`` (or, on a row-layout plan with J > 1, by the row-layout ones
+of ``csrc/serial.cu``; at J=1, by the exact serial kernels):
 
 - BayesR, the ``"bayesr"`` variant (SURVEY C1), the counterpart of
   ``bayesrrcpp_tpu/ops/pallas_jacobi_t.py:_jacobi_t_kernel`` and, for

@@ -8,7 +8,7 @@ signatures and defaults plus ``device``, which defaults to the card
 ``seed`` seeds a ``torch.Generator`` on ``device``.  The dense blocked sweeps are plain
 torch, as the JAX package runs them in XLA with no kernel.  The grouped
 and warm-restart entry points keep their names and raise
-``NotImplementedError`` until ROADMAP Queue 1 items 7 and 6 port them.
+``NotImplementedError`` until ROADMAP Queue 1 items 6 and 7 port them.
 """
 from __future__ import annotations
 
@@ -85,5 +85,5 @@ def _not_ported(name: str, entry: str):
     return entry_point
 
 
-BayesRSamplerV2Groups = _not_ported("BayesRSamplerV2Groups", "item 7")
-BRV2Grstart = _not_ported("BRV2Grstart", "item 6")
+BayesRSamplerV2Groups = _not_ported("BayesRSamplerV2Groups", "item 6")
+BRV2Grstart = _not_ported("BRV2Grstart", "item 7")

@@ -27,11 +27,11 @@ import numpy as np
 
 # the flags and subcommands outside the port, by ROADMAP entry
 _NOT_PORTED = {
-    "groups": "the groups subcommand (ROADMAP Queue 1 item 7)",
-    "resume": "the resume subcommand (ROADMAP Queue 1 item 6)",
-    "checkpoint_out": "--checkpoint-out (ROADMAP Queue 1 item 6)",
-    "checkpoint_every": "--checkpoint-every (ROADMAP Queue 1 item 6)",
-    "npz_out": "--npz-out (the NpzSink, ROADMAP Queue 1 item 2)",
+    "groups": "the groups subcommand (ROADMAP Queue 1 item 6)",
+    "resume": "the resume subcommand (ROADMAP Queue 1 item 7)",
+    "checkpoint_out": "--checkpoint-out (ROADMAP Queue 1 item 7)",
+    "checkpoint_every": "--checkpoint-every (ROADMAP Queue 1 item 7)",
+    "npz_out": "--npz-out (the NpzSink, ROADMAP Queue 1 item 9)",
 }
 
 

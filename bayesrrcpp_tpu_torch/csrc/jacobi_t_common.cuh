@@ -6,8 +6,8 @@
 // the per-block solves, which each chain of a fused sweep runs on its own
 // operands.  So a fused chain
 // equals the single-chain kernel bitwise.  See jacobi_t.cu for the sweep's
-// design and the TPU kernel semantics it keeps.  The serial sweeps
-// (serial.cu) use the decode, the dot, the dense dot and apply and the
+// design and the TPU kernel semantics it keeps.  The serial and row-layout
+// sweeps (serial.cu) use the decode, the dot, the dense dot and apply and the
 // BayesR categorical draw.
 #pragma once
 
@@ -259,7 +259,9 @@ inline bool dense_v4(const void* X, const void* eps, int N) {
 // The dense apply: eps_c -= sum_t d[c, t] * X[row_t, :] over the entries
 // e < JB of the (C, JB) deltas whose row moved in any chain, in index
 // order, row_t = ((e / B)*nr + slab)*B + e % B with slab = slab_at[at] (a
-// strided round's rows; a serial block's with JB = B).  One thread per
+// strided round's rows), or with nr == 0 row_t = slab_at[at + e / B]*B +
+// e % B (the blocks of a serial or row-layout round, listed from
+// slab_at[at]).  One thread per
 // column, so each warp load is one 128-byte line of a row.  The moved
 // entries are compacted tile by tile into shared memory with every
 // chain's d (0 where that chain did not move, which adds exactly 0).  In
@@ -277,7 +279,7 @@ dense_apply_kernel(const float* __restrict__ X, int N,
   __shared__ int warp_cnt[kApplyWarps + 1];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int slab = slab_at[at];
+  const int slab = nr > 0 ? slab_at[at] : 0;
   const long long n = (long long)blockIdx.x * kApplyThreads + threadIdx.x;
   const bool live = n < N;
   const float* xp = X + (live ? n : 0);
@@ -321,7 +323,8 @@ dense_apply_kernel(const float* __restrict__ X, int N,
       if (nz[it]) {
         const int to = pos + __popc(mask & ((1u << lane) - 1u));
         const int e = lo + it * 32 + lane;
-        rows[to] = ((e / B) * nr + slab) * B + e % B;
+        rows[to] = (nr > 0 ? (e / B) * nr + slab : slab_at[at + e / B]) * B
+                   + e % B;
         float* v = reinterpret_cast<float*>(vals4) + to * CV;
 #pragma unroll
         for (int c = 0; c < CV; ++c)

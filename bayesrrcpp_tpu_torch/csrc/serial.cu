@@ -1,78 +1,97 @@
-// The exact sequential (J=1) BayesR and horseshoe sweeps on 2-bit packed
-// genotypes, for one chain or C <= 16 fused chains, written for Hopper
-// (sm_90a).  One entry point serves both: a single-chain sweep is the
-// fused sweep with C=1 and p/z read by sweep position, so chain c of a
-// fused sweep equals the single-chain sweep on chain c's operands bitwise.
+// The exact sequential (J=1) BayesR and horseshoe sweeps and the row-layout
+// block-Jacobi sweeps (J > 1 blocks a round), on 2-bit packed genotypes or
+// dense f32 rows, for one chain or C <= 16 fused chains (J=1), written for
+// Hopper (sm_90a).  One entry point serves them all: a single-chain sweep
+// is the fused sweep with C=1 and p/z read by sweep position, so chain c
+// of a fused sweep equals the single-chain sweep on chain c's operands
+// bitwise; a row sweep is the single-chain serial sweep with J blocks of
+// the flat order per round, every block of a round against the
+// round-start eps, and J=1 is the serial sweep itself.
 //
-// Replaces the TPU Pallas kernels, in their 2-bit modes,
+// Replaces the TPU Pallas kernels, in their 2-bit and dense f32 modes,
 //   bayesrrcpp_tpu/ops/pallas_sweep.py:_sweep_kernel / _sweep_kernel_qf /
 //     _sweep_kernel_q (wrapper bayesr_sweep_pallas, pallas_call at :431),
 //   bayesrrcpp_tpu/ops/pallas_sweep.py:_hs_kernel / _hs_kernel_qf /
 //     _hs_kernel_q (horseshoe_sweep_pallas, :824),
 //   bayesrrcpp_tpu/ops/pallas_multichain.py:_mc_kernel
 //     (bayesr_sweep_pallas_mc, :359) and _hs_mc_kernel
-//     (horseshoe_sweep_pallas_mc, :736).
-// Python wrappers and plain versions: bayesrrcpp_tpu_torch/ops/serial.py
-// and ops/multichain.py.
+//     (horseshoe_sweep_pallas_mc, :736),
+//   bayesrrcpp_tpu/ops/pallas_jacobi.py:_jacobi_kernel / _jacobi_kernel_f
+//     (bayesr_jacobi_pallas, :1299) and _hs_jacobi_kernel /
+//     _hs_jacobi_kernel_f (horseshoe_jacobi_pallas, :1153), the row layout,
+//   bayesrrcpp_tpu/ops/pallas_jacobi.py:_round_solve_kernel
+//     (bayesr_round_solve_pallas, :704) and _hs_round_solve_kernel
+//     (horseshoe_round_solve_pallas, :833): the row sweep's solve launch
+//     alone, on r given (serial_round_solve).
+// Python wrappers and plain versions: bayesrrcpp_tpu_torch/ops/serial.py,
+// ops/multichain.py and ops/jacobi.py.
 //
 // Three storage modes (`mode`).  The fold mode (kFold; words with no
-// missing call, _qf) dots the raw codes and standardizes afterwards, as
-// below.  The in-kernel decode mode (kDecode; _q, one chain: the words hold
-// missing calls, code 3) decodes every code to x = (c - mean)*scale, 0 for
-// code 3 and for lanes >= N, before the dot and the apply
-// (pallas_sweep.py:_decode_tile, :84-95), so r = x.eps and eps -= d.x need
-// no sum(eps) and no d.(m*s).  The dense mode (kDense; X (Mpad, N) f32,
-// eps (C, N), one chain or fused) has that algebra on plain f32 rows: the
-// dense dot and apply of jacobi_t_common.cuh (dense_dot_tile,
-// dense_apply_kernel) around the same solve, which reads r unfolded.  It is
-// bound by the dependency chain as the packed modes are; its bytes, one
+// missing call, _qf and _jacobi_kernel_f) dots the raw codes and
+// standardizes afterwards, as below.  The in-kernel decode mode (kDecode;
+// _q, one chain, J=1: the words hold missing calls, code 3) decodes every
+// code to x = (c - mean)*scale, 0 for code 3 and for lanes >= N, before
+// the dot and the apply (pallas_sweep.py:_decode_tile, :84-95), so r =
+// x.eps and eps -= d.x need no sum(eps) and no d.(m*s).  The dense mode
+// (kDense; X (Mpad, N) f32, eps (C, N)) has that algebra on plain f32
+// rows: the dense dot and apply of jacobi_t_common.cuh (dense_dot_tile,
+// dense_apply_kernel) around the same solve, which reads r unfolded.  It
+// is bound by the dependency chain as the packed modes are; its bytes, one
 // read of X (3.22 GB at N=16,384 x M=49,152), would take 0.96 ms.
 //
-// A sweep visits the blocks in `border` order, one position at a time, in
-// three launches per position (no host sync inside the sweep):
+// A sweep visits the blocks in `border` order, J at a time: round r holds
+// the blocks at sweep positions r*J .. r*J + J-1 (J=1: one block), in
+// three launches per round (no host sync inside the sweep):
 //
-//   dot    r[c, l] = code row l of the block . eps_c for the B markers of
-//          the block and every chain, in the code domain; the words are
+//   dot    r[c, j, l] = code row l of block j . eps_c for the J*B markers
+//          of the round and every chain, in the code domain; the words are
 //          read once for all chains (jacobi_t_common.cuh:dot_rows, CP
-//          chains per decode) in CTAs of 128 words x 32 rows, partial sums
-//          to (C, nsplit, B + 1), the extra column sum(eps).  The CTAs also
-//          prefetch the block's Gram matrix into L2 for the solve.
-//   solve  one CTA of 256 threads per chain.  All threads turn the
-//          partials into r = s*(C.eps) - (m*s)*sum(eps) in shared memory
-//          and stage the block's per-marker tables; then one warp runs the
-//          B dependent Gibbs steps: every lane computes the visited
-//          marker's draw (the same operands, so the same bits; the
+//          chains per decode) in CTAs of 128 words x 32 rows of one block,
+//          partial sums to (C, nsplit, J*B + 1), the extra column sum(eps).
+//          The CTAs also prefetch the round's Gram matrices into L2 for
+//          the solve.
+//   solve  one CTA of 256 threads per (chain, block).  All threads turn
+//          the partials into r = s*(C.eps) - (m*s)*sum(eps) in shared
+//          memory and stage the block's per-marker tables; then one warp
+//          runs the B dependent Gibbs steps: every lane computes the
+//          visited marker's draw (the same operands, so the same bits; the
 //          marker's r by shuffle from the lane holding it), and each lane
 //          updates its B/32 entries of r, in registers, with the Gram row,
 //          which it loaded from global memory one step ahead (the Gram
 //          block, B*B*4 bytes, does not fit in shared memory at B=512); a
 //          step with d == 0 skips the update (r - G*0 is r).
-//          Then all threads write beta, labels, d*scale and the
-//          fixed-order sums:
-//          sum(eps) tracked as sum(eps) - sum(d*xsum) across the blocks of
-//          a chunk, d.(m*s), and the block's v / bacc partials.
-//   apply  eps_c -= (sum_m d*s[c, m] x_m - d.(m*s)) over the block's rows
-//          where any chain moved, compacted in index order in shared
-//          memory; a warp reads 32 consecutive words of a row.
+//          Then all threads write beta, labels, d*scale and the block's
+//          fixed-order sums: d.xsum, d.(m*s), and its v / bacc partials.
+//          Alone, on r given, this launch is the round solve.
+//   apply  eps_c -= (sum_m d*s[c, m] x_m - sum_j d.(m*s)) over the round's
+//          rows where any chain moved, compacted in (block, index) order in
+//          shared memory; a warp reads 32 consecutive words of a row.  CTA
+//          0 also carries sum(eps) to the next round: sum(eps) - sum over
+//          the blocks, in j order, of d.xsum.
 //
-// What bounds it on an H100: the dependency chain.  Block b+1's dot needs
-// block b's apply, and a block's solve is B dependent steps, each a K-way
+// What bounds it on an H100: the dependency chain.  Round r+1's dot needs
+// round r's apply, and a block's solve is B dependent steps, each a K-way
 // categorical draw (K*K expf) and a rank-1 update: 503,808 dependent steps
-// per headline sweep on one warp per chain.  The bytes (one read of the
-// words, 12.6 GB at N=100,352 x M=503,808) would take 3.8 ms.  The design
-// keeps everything of a step but the draw and r's update off the dependent
-// path: the next step's operands and Gram row are loaded while this step
-// computes, and the loop has no warp barrier.  On the card (PERF.md §6)
-// a step still costs about 0.4-0.7 us; loading the Gram rows further ahead
+// per headline serial sweep on one warp per chain; the row sweep runs J
+// blocks' steps side by side on J SMs, 15,744 dependent steps per
+// headline sweep at J=32, B=128.  The bytes (one read of the words, 12.6
+// GB at N=100,352 x M=503,808) would take 3.8 ms.  The design keeps
+// everything of a step but the draw and r's update off the dependent path:
+// the next step's operands and Gram row are loaded while this step
+// computes, and the loop has no warp barrier.  On the card (PERF.md §6) a
+// step still costs about 0.4-0.7 us; loading the Gram rows further ahead
 // did not shorten it, and the draw's arithmetic is the smaller part.
 //
-// Semantics kept from the TPU kernels (pallas_sweep.py:97-301):
+// Semantics kept from the TPU kernels (pallas_sweep.py:97-301,
+// pallas_jacobi.py:267-478):
 // - position s of the block at sweep position i visits marker
 //   inner[border[i], s]; single-chain p/z are read by sweep position
 //   i*B + s, fused p/z by marker (pallas_multichain.py:38-41);
 // - sum(eps) is recomputed from eps at each chunk start and tracked
-//   analytically inside a chunk (:289-290, :573); the chunks are those of
-//   the JAX wrapper, remainder first (:593-597);
+//   analytically inside a chunk (:289-290, :573); the serial chunks are
+//   those of the JAX wrapper, remainder first (:593-597); a row sweep is
+//   one chunk: sum(eps) read at its start and tracked over all its rounds
+//   (pallas_jacobi.py:1273, :428-433);
 // - the per-marker tables (log-prior, 1/denom, slab sd; the horseshoe's
 //   1/denom and sd) are built by the wrapper in plain torch, in the op order
 //   of pallas_multichain.py:build_pkg / build_pkg_hs;
@@ -80,6 +99,8 @@
 //   draw (the 700 overflow guard on the slab logLs, first k with p <=
 //   cumulative weight wins, no hit keeps beta and the label), d =
 //   valid*(new - old); the horseshoe draws num*invd + sd*z;
+// - v and bacc are kept per block position, summed by the wrapper in
+//   sweep order;
 // - lanes n >= N are never written, so eps stays 0 there.
 
 #include "jacobi_t_common.cuh"
@@ -87,6 +108,7 @@
 namespace {
 
 constexpr int kSerialMaxB = 1024;    // markers per block: 32 per lane
+constexpr int kRowMaxB = 512;        // the same with J > 1 blocks a round
 constexpr int kSerialMaxC = 16;      // chains per fused sweep
 constexpr int kSolveThreads = 256;
 constexpr int kSolveWarps = kSolveThreads / 32;
@@ -121,36 +143,55 @@ __device__ __forceinline__ void decode_dot_rows(const uint32_t (&wds)[kMaxB],
   }
 }
 
-// Warm the L2 with the Gram block (blk) that the solve reads next, spread
-// over every thread of the dot's grid.
+// The dot CTA's place in a round: grid.y runs over (block j, row group
+// grp) of 32 rows; r of the round goes to the partial columns j*B + l.
+struct DotTile {
+  int j, grp, ngrp, nrow;
+  long long blk;       // the block at sweep position q0 + j
+  long long row0;      // first row of the tile in X / the words
+};
+
+__device__ __forceinline__ DotTile dot_tile(const int* border, int q0,
+                                            int B) {
+  DotTile t;
+  t.ngrp = (B + kMaxB - 1) / kMaxB;
+  t.j = blockIdx.y / t.ngrp;
+  t.grp = blockIdx.y - t.j * t.ngrp;
+  t.nrow = min(kMaxB, B - t.grp * kMaxB);
+  t.blk = border[q0 + t.j];
+  t.row0 = t.blk * B + t.grp * kMaxB;
+  return t;
+}
+
+// Warm the L2 with the Gram block of the tile's block, which the solve
+// reads next, spread over the threads of the dot's CTAs of that block.
 __device__ __forceinline__ void prefetch_gram(const float* gram,
-                                              long long blk, int B) {
-  const float* gb = gram + blk * B * B;
+                                              const DotTile& t, int B) {
+  const float* gb = gram + t.blk * B * B;
   const long long lines = ((long long)B * B + 31) / 32;
-  const long long nthr = (long long)gridDim.x * gridDim.y * kDotThreads;
-  for (long long ln = ((long long)blockIdx.y * gridDim.x + blockIdx.x) *
+  const long long nthr = (long long)gridDim.x * t.ngrp * kDotThreads;
+  for (long long ln = ((long long)t.grp * gridDim.x + blockIdx.x) *
                           kDotThreads + threadIdx.x;
        ln < lines; ln += nthr)
     asm volatile("prefetch.global.L2 [%0];" ::"l"(gb + ln * 32));
 }
 
-// The dense mode's dot: CTA (tile, grp) takes rows grp*32 .. of the block
-// at sweep position `pos` for all C chains (jacobi_t_common.cuh:
-// dense_dot_tile), into (C, nsplit, B + 1) partials; no sum(eps) column.
+// The dense mode's dot: CTA (tile, (j, grp)) takes rows grp*32 .. of the
+// block at sweep position q0 + j for all C chains (jacobi_t_common.cuh:
+// dense_dot_tile), into (C, nsplit, J*B + 1) partials; no sum(eps) column.
 template <bool V4>
 __global__ void __launch_bounds__(kDotThreads)
 serial_dense_dot_kernel(const float* __restrict__ X, int N,
                         const float* __restrict__ eps, int C,
-                        const int* __restrict__ border, int pos, int B,
+                        const int* __restrict__ border, int q0, int J, int B,
                         const float* __restrict__ gram,
                         float* __restrict__ partial, int nsplit) {
   __shared__ float red[kSerialMaxC][kDotThreads / 32][32];
-  const int grp = blockIdx.y;
-  const long long blk = border[pos];
-  const int nrow = min(kMaxB, B - grp * kMaxB);
-  prefetch_gram(gram, blk, B);
-  dense_dot_tile<V4>(X, N, blk * B + grp * kMaxB, nrow, eps, C, red);
-  dense_dot_store(red, C, partial, nsplit, B + 1, grp * kMaxB, nrow);
+  const DotTile tl = dot_tile(border, q0, B);
+  prefetch_gram(gram, tl, B);
+  dense_dot_tile<V4>(X, N, tl.row0, tl.nrow, eps, C, red);
+  dense_dot_store(red, C, partial, nsplit, J * B + 1,
+                  tl.j * B + tl.grp * kMaxB, tl.nrow);
 }
 
 // CP chains per decode; Q: the in-kernel decode mode (CP == 1), which
@@ -159,35 +200,34 @@ template <int CP, bool Q>
 __global__ void __launch_bounds__(kDotThreads)
 serial_dot_kernel(const uint32_t* __restrict__ words, int Nw,
                   const float* __restrict__ eps, int C,
-                  const int* __restrict__ border, int pos, int B,
+                  const int* __restrict__ border, int q0, int J, int B,
                   const float* __restrict__ gram,
                   float* __restrict__ partial, int nsplit,
                   const float* __restrict__ mean,
                   const float* __restrict__ scale,
                   const unsigned char* __restrict__ row_valid) {
   static_assert(!Q || CP == 1, "the in-kernel decode runs one chain");
-  const int grp = blockIdx.y;
+  const DotTile tl = dot_tile(border, q0, B);
+  const int nrow = tl.nrow;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int w = blockIdx.x * kDotThreads + threadIdx.x;
-  const long long blk = border[pos];
-  const int nrow = min(kMaxB, B - grp * kMaxB);
-  const int B1 = B + 1;
+  const int JB = J * B, B1 = JB + 1;
   const long long Npad = 16LL * Nw;
   __shared__ float red[kSerialMaxC][kDotThreads / 32][32];
   __shared__ float red_e[kSerialMaxC][kDotThreads / 32];
-  prefetch_gram(gram, blk, B);
+  prefetch_gram(gram, tl, B);
 
   uint32_t wds[kMaxB];
   if (w < Nw) {
-    load_words(words + (blk * B + grp * kMaxB) * Nw + w, Nw, nrow, wds);
+    load_words(words + tl.row0 * Nw + w, Nw, nrow, wds);
   } else {
 #pragma unroll
     for (int i = 0; i < kMaxB; ++i) wds[i] = 0u;
   }
   float xm[Q ? kMaxB : 1], xs[Q ? kMaxB : 1];
   if constexpr (Q) {
-    const long long r0 = blk * B + grp * kMaxB;
+    const long long r0 = tl.row0;
 #pragma unroll
     for (int i = 0; i < kMaxB; ++i) {
       xm[i] = i < nrow ? __ldg(mean + r0 + i) : 0.f;
@@ -255,12 +295,12 @@ serial_dot_kernel(const uint32_t* __restrict__ words, int Nw,
 #pragma unroll
     for (int q = 0; q < kDotThreads / 32; ++q) t += red[c][q][l];
     float* out = partial + ((long long)c * nsplit + blockIdx.x) * B1;
-    if (l < nrow) out[grp * kMaxB + l] = t;
-    if (grp == 0 && l == 0) {
+    if (l < nrow) out[tl.j * B + tl.grp * kMaxB + l] = t;
+    if (blockIdx.y == 0 && l == 0) {
       float te = 0.f;
 #pragma unroll
       for (int q = 0; q < kDotThreads / 32; ++q) te += red_e[c][q];
-      out[B] = te;
+      out[JB] = te;
     }
   }
 }
@@ -268,9 +308,9 @@ serial_dot_kernel(const uint32_t* __restrict__ words, int Nw,
 // ---------------------------------------------------------------- solve
 
 struct SerialSolveArgs {
-  const float* partial; int nsplit;           // (C, nsplit, B + 1)
-  const int* border; const int* inner; int pos; int B; int G; int Mpad;
-  int chunk_start;
+  const float* partial; int nsplit;           // (C, nsplit, J*B + 1)
+  const int* border; const int* inner; int round; int J; int B; int G;
+  int Mpad; int chunk_start;
   const float* tbl;                           // (C, Mpad, F)
   const float* gram;                          // (nb, B, B)
   const float* xsq; const float* mean; const float* scale;
@@ -279,7 +319,8 @@ struct SerialSolveArgs {
   const float* p; const float* z;             // see pz_by_marker
   int pz_by_marker; long long pz_chain;       // chain stride of p/z
   const float* sigmaE;                        // (C,)
-  float* esum; float* dsc; float* dms;        // (C,), (C, B), (C,)
+  float* esum; float* dsc;                    // (C,), (C, J*B)
+  float* dms; float* espart;                  // (C, J) each
   float* vpart; float* bpart; int n_pos;      // (C, n, G, K), (C, n, G)
   int fold;     // 0 (kDecode, kDense): r = x.eps, d unscaled, no sums
 };
@@ -418,8 +459,10 @@ __device__ __forceinline__ void block_steps(const SolveSmem& s,
   }
 }
 
-// One block of one chain (blockIdx.x); K == 0 is the horseshoe.
-template <int K, int NPL>
+// Block j of the round of one chain c, blockIdx.x = c*J + j; K == 0 is
+// the horseshoe.  ROW: J > 1 blocks a round; the J=1 instance has J a
+// constant, so the serial sweep's solve keeps its own code.
+template <int K, int NPL, bool ROW>
 __global__ void __launch_bounds__(kSolveThreads)
 serial_solve_kernel(SerialSolveArgs a) {
   constexpr int F = StepOps<K>::F;
@@ -428,22 +471,28 @@ serial_solve_kernel(SerialSolveArgs a) {
   __shared__ float s_esum;
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  const int B = a.B, B1 = B + 1;
-  const int c = blockIdx.x;
-  const long long blk = a.border[a.pos];
+  const int J = ROW ? a.J : 1;
+  const int B = a.B, JB = J * B, B1 = JB + 1;
+  const int c = ROW ? blockIdx.x / J : blockIdx.x;
+  const int j = ROW ? blockIdx.x - c * J : 0;
+  const int pos = a.round * J + j;              // the block's sweep position
+  const long long blk = a.border[pos];
   const long long m0 = blk * B;
   const long long cm = (long long)c * a.Mpad;
   const SolveSmem s = carve(smem, B, F);
   const float* part = a.partial + (long long)c * a.nsplit * B1;
+  const int cj = c * J + j;
 
-  // sum(eps): afresh from the dot's column at a chunk start, else tracked
-  // (the in-kernel decode and the dense mode read none)
+  // sum(eps): afresh from the dot's column at a chunk start (block 0 keeps
+  // it for the apply to carry on), else tracked by the previous apply (the
+  // in-kernel decode and the dense mode read none)
   if (warp == 0 && a.fold) {
     float e = 0.f;
     if (a.chunk_start) {
       for (int q = lane; q < a.nsplit; q += 32)
-        e += part[(long long)q * B1 + B];
+        e += part[(long long)q * B1 + JB];
       e = warp_sum(e);
+      if (lane == 0 && j == 0) a.esum[c] = e;
     } else {
       e = a.esum[c];
     }
@@ -465,7 +514,8 @@ serial_solve_kernel(SerialSolveArgs a) {
   const float esum0 = s_esum;
   for (int l = tid; l < B; l += kSolveThreads) {
     float rc = 0.f;
-    for (int q = 0; q < a.nsplit; ++q) rc += part[(long long)q * B1 + l];
+    for (int q = 0; q < a.nsplit; ++q)
+      rc += part[(long long)q * B1 + j * B + l];
     if (!a.fold) {
       s.r[l] = rc;
     } else {
@@ -476,7 +526,7 @@ serial_solve_kernel(SerialSolveArgs a) {
     // position l's variates: by sweep position, or by its marker
     const long long at = (long long)c * a.pz_chain +
                          (a.pz_by_marker ? m0 + s.inn[l]
-                                         : (long long)a.pos * B + l);
+                                         : (long long)pos * B + l);
     s.ps[l] = K == 0 ? 0.f : a.p[at];
     s.zs[l] = a.z[at];
   }
@@ -500,24 +550,24 @@ serial_solve_kernel(SerialSolveArgs a) {
     if (a.fold) {
       const float sc = a.scale[m];
       const float ms = a.mean[m] * sc;
-      a.dsc[(long long)c * B + l] = d * sc;
+      a.dsc[(long long)cj * B + l] = d * sc;
       es += d * a.xsum[m];
       dm += d * ms;
     } else {
-      a.dsc[(long long)c * B + l] = d;
+      a.dsc[(long long)cj * B + l] = d;
     }
   }
   if (a.fold) {
     const float es_t = block_sum(es, red);
     const float dm_t = block_sum(dm, red);
     if (tid == 0) {
-      a.esum[c] = esum0 - es_t;
-      a.dms[c] = dm_t;
+      a.espart[cj] = es_t;
+      a.dms[cj] = dm_t;
     }
   }
   if constexpr (K > 0) {
     // v (label counts of the hits) and bacc (beta_out^2 over slab hits)
-    const long long cp = (long long)c * a.n_pos + a.pos;
+    const long long cp = (long long)c * a.n_pos + pos;
     for (int g = 0; g < a.G; ++g) {
       float cnt[K], b2 = 0.f;
 #pragma unroll
@@ -544,19 +594,23 @@ serial_solve_kernel(SerialSolveArgs a) {
 // ---------------------------------------------------------------- apply
 
 // CB >= C chains (a power of two: the per-chain accumulators stay in
-// registers); dsc (C, B) and dms (C,) as the solve writes them.  Q: the
-// in-kernel decode mode (CB == 1): each row is decoded with its mean and
-// scale, and d is unscaled.
+// registers); the round's J blocks at sweep positions q0 .., dsc (C, J*B),
+// dms and espart (C, J) as the solve writes them.  Q: the in-kernel decode
+// mode (CB == 1, J == 1): each row is decoded with its mean and scale, and
+// d is unscaled.  esum (C,), null outside the fold mode: CTA 0 carries it
+// to the next round, esum - sum_j espart in j order.
 template <int CB, bool Q>
 __global__ void __launch_bounds__(kApplyThreads)
 serial_apply_kernel(const uint32_t* __restrict__ words, int Nw,
                     float* __restrict__ eps, int C,
                     const unsigned char* __restrict__ row_valid,
-                    const int* __restrict__ border, int pos, int B,
+                    const int* __restrict__ border, int q0, int J, int B,
                     const float* __restrict__ dsc,
                     const float* __restrict__ dms,
                     const float* __restrict__ mean,
-                    const float* __restrict__ scale) {
+                    const float* __restrict__ scale,
+                    float* __restrict__ esum,
+                    const float* __restrict__ espart) {
   static_assert(!Q || CB == 1, "the in-kernel decode runs one chain");
   constexpr int CV = CB < 4 ? 4 : CB;   // chains per staged row (float4s)
   constexpr int L = kSerialLanes;
@@ -564,10 +618,23 @@ serial_apply_kernel(const uint32_t* __restrict__ words, int Nw,
   __shared__ int rows[kSerialTile];
   __shared__ float rmean[Q ? kSerialTile : 1], rscale[Q ? kSerialTile : 1];
   __shared__ int warp_cnt[kApplyWarps + 1];
+  __shared__ float dms_tot[CB];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const long long row0 = (long long)border[pos] * B;
+  const int JB = J * B;
   const long long Npad = 16LL * Nw;
+  if (!Q && threadIdx.x < C) {
+    // the round's sums over its blocks, in j order
+    const int c = threadIdx.x;
+    float t = dms[c * J];
+    for (int q = 1; q < J; ++q) t += dms[c * J + q];
+    dms_tot[c] = t;
+    if (esum != nullptr && blockIdx.x == 0) {
+      float e = espart[c * J];
+      for (int q = 1; q < J; ++q) e += espart[c * J + q];
+      esum[c] = esum[c] - e;
+    }
+  }
   // word w of this lane; warp `sub` owns its eps lanes 16w + L*sub .. +L-1
   const int w = blockIdx.x * kSerialApplyWords + lane;
   const int sub = warp;
@@ -579,7 +646,7 @@ serial_apply_kernel(const uint32_t* __restrict__ words, int Nw,
 #pragma unroll
     for (int k = 0; k < L; ++k) acc[c][k] = 0.f;
 
-  for (int tile0 = 0; tile0 < B; tile0 += kSerialTile) {
+  for (int tile0 = 0; tile0 < JB; tile0 += kSerialTile) {
     // warp `warp` owns the tile's entries [lo, lo + 32*kSerialTilePerLane)
     const int lo = tile0 + warp * 32 * kSerialTilePerLane;
     bool nz[kSerialTilePerLane];
@@ -588,10 +655,10 @@ serial_apply_kernel(const uint32_t* __restrict__ words, int Nw,
     for (int it = 0; it < kSerialTilePerLane; ++it) {
       const int e = lo + it * 32 + lane;
       bool f = false;
-      if (e < B) {
+      if (e < JB) {
 #pragma unroll
         for (int c = 0; c < CB; ++c)
-          if (c < C) f |= __ldg(dsc + (long long)c * B + e) != 0.f;
+          if (c < C) f |= __ldg(dsc + (long long)c * JB + e) != 0.f;
       }
       nz[it] = f;
       cnt += __popc(__ballot_sync(kFull, f));
@@ -615,15 +682,16 @@ serial_apply_kernel(const uint32_t* __restrict__ words, int Nw,
       if (nz[it]) {
         const int at = at0 + __popc(mask & ((1u << lane) - 1u));
         const int e = lo + it * 32 + lane;
-        rows[at] = e;
+        const int row = border[q0 + e / B] * B + e % B;
+        rows[at] = row;
         if constexpr (Q) {
-          rmean[at] = __ldg(mean + row0 + e);
-          rscale[at] = __ldg(scale + row0 + e);
+          rmean[at] = __ldg(mean + row);
+          rscale[at] = __ldg(scale + row);
         }
         float* v = reinterpret_cast<float*>(vals4) + at * CV;
 #pragma unroll
         for (int c = 0; c < CV; ++c)
-          v[c] = c < C ? __ldg(dsc + (long long)c * B + e) : 0.f;
+          v[c] = c < C ? __ldg(dsc + (long long)c * JB + e) : 0.f;
       }
       at0 += __popc(mask);
     }
@@ -633,7 +701,7 @@ serial_apply_kernel(const uint32_t* __restrict__ words, int Nw,
 #pragma unroll 8
       for (int t = 0; t < nnz; ++t) {
         const uint32_t wd =
-            __ldg(wp + (row0 + rows[t]) * Nw) >> (2 * L * sub);
+            __ldg(wp + (long long)rows[t] * Nw) >> (2 * L * sub);
         float cf[L];
 #pragma unroll
         for (int k = 0; k < L; ++k) cf[k] = code_f(wd, k);
@@ -665,7 +733,7 @@ serial_apply_kernel(const uint32_t* __restrict__ words, int Nw,
   for (int c = 0; c < CB; ++c) {
     if (c < C) {
       float* ep = eps + c * Npad;
-      const float dt = Q ? 0.f : dms[c];
+      const float dt = Q ? 0.f : dms_tot[c];
 #pragma unroll
       for (int k = 0; k < L; ++k) {
         if (!row_valid[n0 + k]) continue;
@@ -681,14 +749,14 @@ serial_apply_kernel(const uint32_t* __restrict__ words, int Nw,
 // One sweep's operands (ops/serial.py:_sweep_cuda); K == 0 is the
 // horseshoe, whose labels, gas, p, sigmaE, vpart and bpart are null.
 struct SerialSweep {
-  int C, pz_by_marker, Nw, n_pos, chunk, B, K, G, Mpad, nsplit, mode;
+  int C, pz_by_marker, Nw, n_pos, chunk, B, K, G, Mpad, nsplit, mode, J;
   const uint32_t* words; const int* border; const int* inner;
   const float* gram; const float* tbl; const float* xsq; const float* mean;
   const float* scale; const float* xsum; const unsigned char* valid;
   const int* gas; float* eps; const unsigned char* row_valid;
   float* beta; int* labels; const float* p; const float* z;
   const float* sigmaE; float* partial; float* esum; float* dsc; float* dms;
-  float* vpart; float* bpart;
+  float* espart; float* vpart; float* bpart;
 };
 
 using SolveFn = void (*)(SerialSolveArgs);
@@ -700,55 +768,73 @@ inline int lanes_per_row(int B) {
   return npl;
 }
 
-template <int K>
+// (the row layout stops at kRowMaxB = 512 markers a block, 16 entries of
+// r a lane: its plans go to B=512)
+template <int K, bool ROW>
 SolveFn pick_npl(int npl) {
   switch (npl) {
-    case 1: return serial_solve_kernel<K, 1>;
-    case 2: return serial_solve_kernel<K, 2>;
-    case 4: return serial_solve_kernel<K, 4>;
-    case 8: return serial_solve_kernel<K, 8>;
-    case 16: return serial_solve_kernel<K, 16>;
-    case 32: return serial_solve_kernel<K, 32>;
+    case 1: return serial_solve_kernel<K, 1, ROW>;
+    case 2: return serial_solve_kernel<K, 2, ROW>;
+    case 4: return serial_solve_kernel<K, 4, ROW>;
+    case 8: return serial_solve_kernel<K, 8, ROW>;
+    case 16: return serial_solve_kernel<K, 16, ROW>;
+    case 32:
+      if constexpr (ROW) return nullptr;
+      else return serial_solve_kernel<K, 32, ROW>;
     default: return nullptr;
   }
 }
 
-inline SolveFn pick_solve(int K, int B) {
-  const int npl = lanes_per_row(B);
+template <bool ROW>
+SolveFn pick_k(int K, int npl) {
   switch (K) {
-    case 0: return pick_npl<0>(npl);
-    case 2: return pick_npl<2>(npl);
-    case 3: return pick_npl<3>(npl);
-    case 4: return pick_npl<4>(npl);
-    case 5: return pick_npl<5>(npl);
-    case 6: return pick_npl<6>(npl);
-    case 7: return pick_npl<7>(npl);
-    case 8: return pick_npl<8>(npl);
+    case 0: return pick_npl<0, ROW>(npl);
+    case 2: return pick_npl<2, ROW>(npl);
+    case 3: return pick_npl<3, ROW>(npl);
+    case 4: return pick_npl<4, ROW>(npl);
+    case 5: return pick_npl<5, ROW>(npl);
+    case 6: return pick_npl<6, ROW>(npl);
+    case 7: return pick_npl<7, ROW>(npl);
+    case 8: return pick_npl<8, ROW>(npl);
     default: return nullptr;
   }
 }
 
-// The dot reads the words once for every CP chains (4 at most: more
-// spill); C == 1 takes the single-chain instance, the in-kernel decode its
-// own.  The dense mode reads the rows once for all chains.
-cudaError_t launch_dot(const SerialSweep& o, int pos, cudaStream_t s) {
-  const dim3 grid(o.nsplit, (o.B + kMaxB - 1) / kMaxB);
+// The solve for (K, B) and J blocks a round with its dynamic shared memory
+// allowed; null if the kernel takes no such K or B.
+SolveFn ready_solve(int K, int B, int J, size_t* smem, cudaError_t* err) {
+  const int npl = lanes_per_row(B);
+  const SolveFn solve = J > 1 ? pick_k<true>(K, npl) : pick_k<false>(K, npl);
+  *err = cudaErrorInvalidValue;
+  if (solve == nullptr) return nullptr;
+  *smem = solve_smem_bytes(B, K == 0 ? 2 : 3 * K);
+  *err = cudaFuncSetAttribute(
+      solve, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+  return *err == cudaSuccess ? solve : nullptr;
+}
+
+// The dot of round r reads the words once for every CP chains (4 at most:
+// more spill); C == 1 takes the single-chain instance, the in-kernel decode
+// its own.  The dense mode reads the rows once for all chains.
+cudaError_t launch_dot(const SerialSweep& o, int r, cudaStream_t s) {
+  const dim3 grid(o.nsplit, o.J * ((o.B + kMaxB - 1) / kMaxB));
+  const int q0 = r * o.J;
   if (o.mode == kDense) {
     const float* X = reinterpret_cast<const float*>(o.words);
     if (dense_v4(X, o.eps, o.Nw))
       serial_dense_dot_kernel<true><<<grid, kDotThreads, 0, s>>>(
-          X, o.Nw, o.eps, o.C, o.border, pos, o.B, o.gram, o.partial,
+          X, o.Nw, o.eps, o.C, o.border, q0, o.J, o.B, o.gram, o.partial,
           o.nsplit);
     else
       serial_dense_dot_kernel<false><<<grid, kDotThreads, 0, s>>>(
-          X, o.Nw, o.eps, o.C, o.border, pos, o.B, o.gram, o.partial,
+          X, o.Nw, o.eps, o.C, o.border, q0, o.J, o.B, o.gram, o.partial,
           o.nsplit);
     return cudaGetLastError();
   }
 #define SERIAL_DOT(CP, Q)                                                 \
   serial_dot_kernel<CP, Q><<<grid, kDotThreads, 0, s>>>(                  \
-      o.words, o.Nw, o.eps, o.C, o.border, pos, o.B, o.gram, o.partial,   \
-      o.nsplit, o.mean, o.scale, o.row_valid)
+      o.words, o.Nw, o.eps, o.C, o.border, q0, o.J, o.B, o.gram,          \
+      o.partial, o.nsplit, o.mean, o.scale, o.row_valid)
   if (o.mode == kDecode) SERIAL_DOT(1, true);
   else if (o.C == 1) SERIAL_DOT(1, false);
   else if (o.C == 2) SERIAL_DOT(2, false);
@@ -757,18 +843,20 @@ cudaError_t launch_dot(const SerialSweep& o, int pos, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-cudaError_t launch_apply(const SerialSweep& o, int pos, cudaStream_t s) {
+cudaError_t launch_apply(const SerialSweep& o, int r, cudaStream_t s) {
+  const int q0 = r * o.J;
   if (o.mode == kDense) {
-    // the block's B rows: a round of one block (J = 1) at slab border[pos]
+    // the round's J*B rows, block j at border[q0 + j] (nr = 0: a list)
     launch_dense_apply(o.C, s, reinterpret_cast<const float*>(o.words), o.Nw,
-                       o.eps, o.border, pos, 1, o.B, o.B, o.dsc);
+                       o.eps, o.border, q0, 0, o.B, o.J * o.B, o.dsc);
     return cudaGetLastError();
   }
   const int ctas = (o.Nw + kSerialApplyWords - 1) / kSerialApplyWords;
+  float* esum = o.mode == kFold ? o.esum : nullptr;
 #define SERIAL_APPLY(CB, Q)                                               \
   serial_apply_kernel<CB, Q><<<ctas, kApplyThreads, 0, s>>>(              \
-      o.words, o.Nw, o.eps, o.C, o.row_valid, o.border, pos, o.B, o.dsc,  \
-      o.dms, o.mean, o.scale)
+      o.words, o.Nw, o.eps, o.C, o.row_valid, o.border, q0, o.J, o.B,     \
+      o.dsc, o.dms, o.mean, o.scale, esum, o.espart)
   if (o.mode == kDecode) SERIAL_APPLY(1, true);
   else if (o.C <= 1) SERIAL_APPLY(1, false);
   else if (o.C <= 2) SERIAL_APPLY(2, false);
@@ -779,36 +867,39 @@ cudaError_t launch_apply(const SerialSweep& o, int pos, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-// The whole sweep: dot, solve and apply per position, all on `s`.
-// Returns the first launch error or 0.
+// The whole sweep: dot, solve and apply per round, all on `s`.  Returns
+// the first launch error or 0.
 int serial_run(const SerialSweep& o, cudaStream_t s) {
+  // several blocks a round (the row layout) for one chain, in the fold or
+  // dense mode only
   if (o.C < 1 || o.C > kSerialMaxC || o.B < 1 || o.B > kSerialMaxB ||
       o.chunk < 1 || (o.K != 0 && (o.K < 2 || o.K > kMaxK)) ||
-      o.mode < kFold || o.mode > kDense || (o.mode == kDecode && o.C != 1))
+      o.mode < kFold || o.mode > kDense || (o.mode == kDecode && o.C != 1) ||
+      o.J < 1 || o.n_pos % o.J != 0 ||
+      (o.J > 1 && (o.C != 1 || o.mode == kDecode || o.B > kRowMaxB)))
     return cudaErrorInvalidValue;
-  const SolveFn solve = pick_solve(o.K, o.B);
-  if (solve == nullptr) return cudaErrorInvalidValue;
-  const size_t smem = solve_smem_bytes(o.B, o.K == 0 ? 2 : 3 * o.K);
-  cudaError_t err = cudaFuncSetAttribute(
-      solve, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  SerialSolveArgs a{o.partial, o.nsplit, o.border, o.inner, 0, o.B, o.G,
-                    o.Mpad, 0, o.tbl, o.gram, o.xsq, o.mean, o.scale,
+  size_t smem = 0;
+  cudaError_t err;
+  const SolveFn solve = ready_solve(o.K, o.B, o.J, &smem, &err);
+  if (solve == nullptr) return err;
+  SerialSolveArgs a{o.partial, o.nsplit, o.border, o.inner, 0, o.J, o.B,
+                    o.G, o.Mpad, 0, o.tbl, o.gram, o.xsq, o.mean, o.scale,
                     o.xsum, o.valid, o.gas, o.beta, o.labels, o.p, o.z,
                     o.pz_by_marker,
                     o.pz_by_marker ? (long long)o.Mpad
                                    : (long long)o.n_pos * o.B,
-                    o.sigmaE, o.esum, o.dsc, o.dms, o.vpart, o.bpart,
-                    o.n_pos, o.mode == kFold};
-  // the JAX wrapper's chunks: the remainder first, then `chunk` positions
-  const int rem = o.n_pos % o.chunk;
-  for (int pos = 0; pos < o.n_pos; ++pos) {
-    if ((err = launch_dot(o, pos, s)) != cudaSuccess) return err;
-    a.pos = pos;
-    a.chunk_start = pos == 0 || (pos >= rem && (pos - rem) % o.chunk == 0);
-    solve<<<o.C, kSolveThreads, smem, s>>>(a);
+                    o.sigmaE, o.esum, o.dsc, o.dms, o.espart, o.vpart,
+                    o.bpart, o.n_pos, o.mode == kFold};
+  // the chunks of rounds: the remainder first, then `chunk` rounds
+  const int nr = o.n_pos / o.J;
+  const int rem = nr % o.chunk;
+  for (int r = 0; r < nr; ++r) {
+    if ((err = launch_dot(o, r, s)) != cudaSuccess) return err;
+    a.round = r;
+    a.chunk_start = r == 0 || (r >= rem && (r - rem) % o.chunk == 0);
+    solve<<<o.C * o.J, kSolveThreads, smem, s>>>(a);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    if ((err = launch_apply(o, pos, s)) != cudaSuccess) return err;
+    if ((err = launch_apply(o, r, s)) != cudaSuccess) return err;
   }
   return 0;
 }
@@ -818,6 +909,8 @@ int serial_run(const SerialSweep& o, cudaStream_t s) {
 extern "C" {
 
 int serial_max_block() { return kSerialMaxB; }
+
+int serial_max_row_block() { return kRowMaxB; }
 
 int serial_max_chains() { return kSerialMaxC; }
 
@@ -831,19 +924,21 @@ const char* serial_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// One sweep of C chains over n_pos block positions, 3 launches each, on
-// `stream`.  K == 0 is the horseshoe; `mode` the storage: 0 the fold mode,
-// 1 the in-kernel decode (one chain; words with missing calls), 2 the
-// dense mode (`words` X (Mpad, N) f32, Nw = N, eps (C, N); mean, scale,
-// xsum and row_valid null; nsplit serial_dense_dot_splits(N)).  Per-chain
-// operands have a leading
-// chain axis C: eps (C, Npad), beta/labels (C, Mpad), tbl (C, Mpad, F),
-// sigmaE (C,); p/z (C, Mpad) by marker if pz_by_marker (fused chains),
-// else (C, n_pos*B) by sweep position; scratch partial (C, nsplit, B + 1),
-// esum (C,), dsc (C, B), dms (C,), vpart (C, n_pos, G, K), bpart (C,
-// n_pos, G).  Returns the first launch error or 0.
+// One sweep of C chains over n_pos block positions in rounds of J (3
+// launches each), on `stream`.  K == 0 is the horseshoe; `mode` the
+// storage: 0 the fold mode, 1 the in-kernel decode (one chain, J=1; words
+// with missing calls), 2 the dense mode (`words` X (Mpad, N) f32, Nw = N,
+// eps (C, N); mean, scale, xsum and row_valid null; nsplit
+// serial_dense_dot_splits(N)).  J > 1 (the row layout) takes one chain,
+// n_pos % J == 0 and B <= serial_max_row_block(); `chunk` counts rounds.
+// Per-chain operands have a leading chain axis C: eps (C, Npad),
+// beta/labels (C, Mpad), tbl (C, Mpad, F), sigmaE (C,); p/z (C, Mpad) by
+// marker if pz_by_marker (fused chains), else (C, n_pos*B) by sweep
+// position; scratch partial (C, nsplit, J*B + 1), esum (C,), dsc (C, J*B),
+// dms and espart (C, J), vpart (C, n_pos, G, K), bpart (C, n_pos, G).
+// Returns the first launch error or 0.
 int serial_sweep(int C, int pz_by_marker, int Nw, int n_pos, int chunk,
-                 int B, int K, int G, int Mpad, int nsplit, int mode,
+                 int B, int K, int G, int Mpad, int nsplit, int mode, int J,
                  const void* words,
                  const void* border, const void* inner, const void* gram,
                  const void* tbl, const void* xsq, const void* mean,
@@ -851,10 +946,11 @@ int serial_sweep(int C, int pz_by_marker, int Nw, int n_pos, int chunk,
                  const void* gas, void* eps, const void* row_valid,
                  void* beta, void* labels, const void* p, const void* z,
                  const void* sigmaE, void* partial, void* esum, void* dsc,
-                 void* dms, void* vpart, void* bpart, void* stream) {
+                 void* dms, void* espart, void* vpart, void* bpart,
+                 void* stream) {
   return serial_run(
       SerialSweep{C, pz_by_marker, Nw, n_pos, chunk, B, K, G, Mpad, nsplit,
-                  mode,
+                  mode, J,
                   static_cast<const uint32_t*>(words),
                   static_cast<const int*>(border),
                   static_cast<const int*>(inner),
@@ -872,8 +968,49 @@ int serial_sweep(int C, int pz_by_marker, int Nw, int n_pos, int chunk,
                   static_cast<const float*>(sigmaE),
                   static_cast<float*>(partial), static_cast<float*>(esum),
                   static_cast<float*>(dsc), static_cast<float*>(dms),
-                  static_cast<float*>(vpart), static_cast<float*>(bpart)},
+                  static_cast<float*>(espart), static_cast<float*>(vpart),
+                  static_cast<float*>(bpart)},
       static_cast<cudaStream_t>(stream));
+}
+
+// The round solve alone (one launch, J CTAs): the solve of one round of J
+// blocks of B markers on r given in the standardized domain, r1 (J*B + 1)
+// floats with r of block j's marker l at j*B + l (the last unused), one
+// chain.  The round's markers are numbered j*B + l: gram (J, B, B), inner
+// (J, B), tbl (J*B, F), xsq, valid, gas, beta and labels (J*B,) by marker,
+// updated in place; p/z (J*B,) by position j*B + s.  Writes d (J*B,) and
+// the per-block vpart (J, G, K) and bpart (J, G).  K == 0 is the
+// horseshoe (labels, gas, p, sigmaE, vpart, bpart null).  Returns the
+// launch error or 0.
+int serial_round_solve(int J, int B, int K, int G, const void* border,
+                       const void* inner, const void* gram, const void* tbl,
+                       const void* xsq, const void* valid, const void* gas,
+                       void* beta, void* labels, const void* r1,
+                       const void* p, const void* z, const void* sigmaE,
+                       void* d, void* vpart, void* bpart, void* stream) {
+  if (J < 1 || B < 1 || B > (J > 1 ? kRowMaxB : kSerialMaxB) ||
+      (K != 0 && (K < 2 || K > kMaxK)))
+    return cudaErrorInvalidValue;
+  size_t smem = 0;
+  cudaError_t err;
+  const SolveFn solve = ready_solve(K, B, J, &smem, &err);
+  if (solve == nullptr) return err;
+  SerialSolveArgs a{static_cast<const float*>(r1), 1,
+                    static_cast<const int*>(border),
+                    static_cast<const int*>(inner), 0, J, B, G, J * B, 0,
+                    static_cast<const float*>(tbl),
+                    static_cast<const float*>(gram),
+                    static_cast<const float*>(xsq), nullptr, nullptr, nullptr,
+                    static_cast<const unsigned char*>(valid),
+                    static_cast<const int*>(gas), static_cast<float*>(beta),
+                    static_cast<int*>(labels), static_cast<const float*>(p),
+                    static_cast<const float*>(z), 0, (long long)J * B,
+                    static_cast<const float*>(sigmaE), nullptr,
+                    static_cast<float*>(d), nullptr, nullptr,
+                    static_cast<float*>(vpart), static_cast<float*>(bpart), J,
+                    0};
+  solve<<<J, kSolveThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  return cudaGetLastError();
 }
 
 }  // extern "C"

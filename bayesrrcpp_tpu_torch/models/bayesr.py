@@ -12,8 +12,11 @@ group (G=1) and no fixed effects (F=0), one chain or several
 
 swept by the kernels ("pallas", the default for packed X and for dense X
 on the card): the strided-rounds block-Jacobi kernel (``ops/jacobi_t.py``;
-the main path) or, at J=1 (``jacobi_blocks=1``, or the auto plan for M <
-2048), the exact serial sweep (``ops/serial.py``).  Dense X on the CPU
+the main path), the row-layout one on a "row" plan with J > 1
+(``ops/jacobi.py``: ``jacobi_layout="row"``, an explicit
+``jacobi_blocks``, or the auto plan at small ``block_size``) or, at J=1
+(``jacobi_blocks=1``, or the auto plan for M < 2048), the exact serial
+sweep (``ops/serial.py``).  Dense X on the CPU
 defaults to the plain Gram-blocked sweep (``backend="blocked"``,
 ``ops/block_sweep.py``), as the JAX package runs it in XLA off its
 accelerator.
@@ -25,12 +28,11 @@ device work only: no host round trip, so a chain of steps runs ahead of
 the host.  ``step_chains`` is the fused multi-chain iteration
 (bayesr.py:672-731): per-chain intercept and hyperparameter draws around
 one ``bayesr_jacobi_t_mc`` sweep of all chains (``bayesr_sweep_mc`` at
-J=1).
+J=1 and on a row plan, as JAX's ``_mc_step_impl``).
 
 What lies outside the slice raises ``NotImplementedError`` naming its
-ROADMAP entry: the groups variant and fixed effects, int8, row-layout
-plans with J > 1 (dense, or packed with no missing call), the scan backend,
-sharding, checkpoint and resume.  What it shares with the horseshoe
+ROADMAP entry: the groups variant and fixed effects, int8, the scan
+backend, sharding, checkpoint and resume.  What it shares with the horseshoe
 (storage, plan, intercept, residual recompute, chain driver) lives in
 ``models/sampler.py``.
 """
@@ -44,6 +46,7 @@ import torch
 from .. import distributions as dist
 from ..config import BayesRConfig
 from ..ops import block_sweep as bs
+from ..ops.jacobi import bayesr_jacobi
 from ..ops.jacobi_t import bayesr_jacobi_t, bayesr_jacobi_t_mc
 from ..ops.multichain import bayesr_sweep_mc
 from ..ops.serial import bayesr_sweep
@@ -89,7 +92,8 @@ class SpikeSlabSampler(MarkerSampler):
     cva : (K-1,) slab variances (spike prepended internally).
     config : BayesRConfig.
     backend : None, "blocked" (dense X, plain Gram-blocked sweep) or
-        "pallas" (the sweep kernels: strided Jacobi, or serial at J=1).
+        "pallas" (the sweep kernels: strided or row-layout Jacobi, or
+        serial at J=1).
         None picks "pallas" for packed X and for dense X on the card,
         "blocked" for dense X on the CPU.
     device : where the data and state live; defaults to X's device for a
@@ -109,15 +113,15 @@ class SpikeSlabSampler(MarkerSampler):
         self._storage(x_dtype, backend, permutation, jacobi_layout)
         if not isinstance(config, BayesRConfig) or variant not in (None,
                                                                    "bayesr"):
-            raise not_ported("the groups variant", "Queue 1 item 7")
+            raise not_ported("the groups variant", "Queue 1 item 6")
         if g_assign is not None or fixed is not None:
-            raise not_ported("groups and fixed effects", "Queue 1 item 7")
+            raise not_ported("groups and fixed effects", "Queue 1 item 6")
         X, prepacked, M, N = self._read_x(X, Y, transposed, x_stats,
                                           n_individuals, n_markers, device)
         cva2 = _as_2d_cva(cva)
         G, Km1 = cva2.shape
         if G != 1:
-            raise not_ported("per-group slab variances", "Queue 1 item 7")
+            raise not_ported("per-group slab variances", "Queue 1 item 6")
         if np.any(cva2 <= 0):
             raise ValueError("slab variances must be strictly positive")
         K = Km1 + 1
@@ -196,7 +200,7 @@ class SpikeSlabSampler(MarkerSampler):
         d = self.data
         Mpad, B, nb = self.Mpad, self.B, self.nb
         kernels = self.backend == "pallas"
-        if kernels and self.jacobi > 1:
+        if kernels and self.strided:
             rho, inner = v.orders(nb, B, self.jacobi)
             p, z = v.p(Mpad), v.z(Mpad)
             res = bayesr_jacobi_t(
@@ -205,22 +209,27 @@ class SpikeSlabSampler(MarkerSampler):
                 d.g_assign, d.valid, J=self.jacobi, **self._sweep_kw())
         else:
             # the shuffled block order, p/z by sweep position
-            # (bayesr.py:619-645): the serial sweep, or the plain one
+            # (bayesr.py:619-645): the row-layout sweep at J > 1, the
+            # serial sweep, or the plain one
             border, inner = v.block_orders(nb, B)
             p, z = v.p(Mpad), v.z(Mpad)
             args = (d.XT, d.gram, d.xsq, eps, state.beta, state.labels,
                     border, inner, p, z, state.pi, d.cva, state.sigmaE,
                     state.sigmaGG, d.g_assign, d.valid)
-            res = (bayesr_sweep(*args, **self._sweep_kw()) if kernels
-                   else bs.bayesr_block_sweep(*args))
+            if not kernels:
+                res = bs.bayesr_block_sweep(*args)
+            elif self.jacobi > 1:
+                res = bayesr_jacobi(*args, J=self.jacobi, **self._sweep_kw())
+            else:
+                res = bayesr_sweep(*args, **self._sweep_kw())
         return self._next(state, v, mu, res)
 
     def step_chains(self, state: SpikeSlabState, rng) -> SpikeSlabState:
         """One fused multi-chain Gibbs iteration of a chain-batched state
         (bayesrrcpp_tpu/models/bayesr.py:_mc_step_impl): per-chain
         intercept and p/z, one visit order shared by all chains, one
-        ``bayesr_jacobi_t_mc`` sweep (``bayesr_sweep_mc`` at J=1, p/z by
-        marker), per-chain hyperparameter draws.
+        ``bayesr_jacobi_t_mc`` sweep (``bayesr_sweep_mc`` at J=1 and on a
+        row plan, p/z by marker), per-chain hyperparameter draws.
         The kernel backend only (``supports_fused_chains``)."""
         if not self.supports_fused_chains:
             raise ValueError("fused multi-chain steps need the sweep kernels, "
@@ -229,11 +238,12 @@ class SpikeSlabSampler(MarkerSampler):
         v.begin_step()
         mu, eps = self._intercept(state, v)
         d = self.data
-        if self.jacobi > 1:
+        if self.strided:
             orders = v.orders(self.nb, self.B, self.jacobi)
             sweep, kw = bayesr_jacobi_t_mc, dict(J=self.jacobi)
         else:
-            # J=1: the shared block order, p/z by marker (bayesr.py:714-722)
+            # J=1 and the row plan: the shared block order, p/z by marker
+            # (bayesr.py:714-722)
             orders = v.block_orders(self.nb, self.B)
             sweep, kw = bayesr_sweep_mc, {}
         p, z = v.p(self.Mpad), v.z(self.Mpad)

@@ -8,10 +8,12 @@ chain or several (``run_chains``), on either
 - dense standardized f32 X,
 
 swept (as ``SpikeSlabSampler``'s) by the kernels: the strided-rounds
-block-Jacobi kernel (``ops/jacobi_t.horseshoe_jacobi_t``; the main path)
-or, at J=1, the exact serial sweep (``ops/serial.horseshoe_sweep``); dense
-X on the CPU defaults to the plain Gram-blocked sweep
-(``backend="blocked"``, ``ops/block_sweep.horseshoe_block_sweep``).
+block-Jacobi kernel (``ops/jacobi_t.horseshoe_jacobi_t``; the main path),
+the row-layout one on a "row" plan with J > 1
+(``ops/jacobi.horseshoe_jacobi``) or, at J=1, the exact serial sweep
+(``ops/serial.horseshoe_sweep``); dense X on the CPU defaults to the plain
+Gram-blocked sweep (``backend="blocked"``,
+``ops/block_sweep.horseshoe_block_sweep``).
 
 Per iteration, in the reference's order (src/HorseshoeR.cpp:210-253):
 
@@ -30,9 +32,10 @@ Every draw comes from the variates object the caller passes
 (``distributions.TorchVariates``), and the step enqueues device work only.
 ``step_chains`` is the fused multi-chain iteration (horseshoe.py:516-562):
 the same per-chain draws around one ``horseshoe_jacobi_t_mc`` sweep of all
-chains (``horseshoe_sweep_mc`` at J=1).  What lies outside the slice raises
-``NotImplementedError`` naming its ROADMAP entry: int8, row-layout plans
-with J > 1 (dense, or packed with no missing call) and the scan backend.
+chains (``horseshoe_sweep_mc`` at J=1 and on a row plan, as JAX's
+``_mc_step_impl``).  What lies outside the slice raises
+``NotImplementedError`` naming its ROADMAP entry: int8 and the scan
+backend.
 """
 from __future__ import annotations
 
@@ -44,6 +47,7 @@ import torch
 from .. import distributions as dist
 from ..config import HorseshoeConfig
 from ..ops import block_sweep as bs
+from ..ops.jacobi import horseshoe_jacobi
 from ..ops.jacobi_t import horseshoe_jacobi_t, horseshoe_jacobi_t_mc
 from ..ops.multichain import horseshoe_sweep_mc
 from ..ops.serial import horseshoe_sweep
@@ -200,7 +204,7 @@ class HorseshoeSampler(MarkerSampler):
         d = self.data
         Mpad, B, nb = self.Mpad, self.B, self.nb
         kernels = self.backend == "pallas"
-        if kernels and self.jacobi > 1:
+        if kernels and self.strided:
             rho, inner = v.orders(nb, B, self.jacobi)
             eps, beta = horseshoe_jacobi_t(
                 d.XT, d.gram, d.xsq, eps, state.beta, rho, inner, v.z(Mpad),
@@ -208,21 +212,27 @@ class HorseshoeSampler(MarkerSampler):
                 J=self.jacobi, **self._sweep_kw())
         else:
             # the shuffled block order, z by sweep position
-            # (horseshoe.py:464-485): the serial sweep, or the plain one
+            # (horseshoe.py:464-485): the row-layout sweep at J > 1, the
+            # serial sweep, or the plain one
             border, inner = v.block_orders(nb, B)
             args = (d.XT, d.gram, d.xsq, eps, state.beta, border, inner,
                     v.z(Mpad), state.lam, state.tau, state.c2, state.sigmaE,
                     d.valid)
-            eps, beta = (horseshoe_sweep(*args, **self._sweep_kw())
-                         if kernels else bs.horseshoe_block_sweep(*args))
+            if not kernels:
+                eps, beta = bs.horseshoe_block_sweep(*args)
+            elif self.jacobi > 1:
+                eps, beta = horseshoe_jacobi(*args, J=self.jacobi,
+                                             **self._sweep_kw())
+            else:
+                eps, beta = horseshoe_sweep(*args, **self._sweep_kw())
         return self._next(state, v, mu, eta, v_aux, eps, beta)
 
     def step_chains(self, state: HorseshoeState, rng) -> HorseshoeState:
         """One fused multi-chain Gibbs iteration of a chain-batched state
         (bayesrrcpp_tpu/models/horseshoe.py:_mc_step_impl): the single
         step's per-chain draws, one visit order shared by all chains, one
-        ``horseshoe_jacobi_t_mc`` sweep (``horseshoe_sweep_mc`` at J=1, z
-        by marker).  The kernel backend only
+        ``horseshoe_jacobi_t_mc`` sweep (``horseshoe_sweep_mc`` at J=1 and
+        on a row plan, z by marker).  The kernel backend only
         (``supports_fused_chains``)."""
         if not self.supports_fused_chains:
             raise ValueError("fused multi-chain steps need the sweep kernels, "
@@ -231,11 +241,12 @@ class HorseshoeSampler(MarkerSampler):
         v.begin_step()
         mu, eps, eta, v_aux = self._pre_sweep(state, v)
         d = self.data
-        if self.jacobi > 1:
+        if self.strided:
             orders = v.orders(self.nb, self.B, self.jacobi)
             sweep, kw = horseshoe_jacobi_t_mc, dict(J=self.jacobi)
         else:
-            # J=1: the shared block order, z by marker (horseshoe.py:546-549)
+            # J=1 and the row plan: the shared block order, z by marker
+            # (horseshoe.py:545-552)
             orders = v.block_orders(self.nb, self.B)
             sweep, kw = horseshoe_sweep_mc, {}
         eps, beta = sweep(d.XT, d.gram, d.xsq, eps, state.beta, *orders,

@@ -8,18 +8,22 @@ this code; here it lives once).  ``MarkerSampler`` holds it;
 and steps (``init``, ``step``, ``step_chains``, ``_emit_one``).
 
 The sweep kernels ("pallas" backend) take 2-bit packed words and dense
-f32 rows alike, with the JAX samplers' plan; dense X on the CPU defaults
-to the plain Gram-blocked sweep ("blocked"), as JAX's does off its
-accelerator (bayesrrcpp_tpu/models/bayesr.py:121-128).  Packed words with
-missing calls (code 3) take the sweeps' missing-call modes, routed as the
-JAX samplers route them (bayesr.py:278-300): the strided kernels' ``miss``
-mode at J > 1, the serial kernels' in-kernel decode at J=1 (``_sweep_kw``).
+f32 rows alike, with the JAX samplers' plan: the strided sweep in the "t"
+layout, the row-layout sweep at J > 1 in the "row" layout, the serial
+sweep at J=1.  Dense X on the CPU defaults to the plain Gram-blocked sweep
+("blocked"), as JAX's does off its accelerator
+(bayesrrcpp_tpu/models/bayesr.py:121-128).  Packed words with missing
+calls (code 3) take the sweeps' missing-call modes, routed as the JAX
+samplers route them (bayesr.py:278-300): the strided kernels' ``miss``
+mode at J > 1, the serial kernels' in-kernel decode at J=1 (``_sweep_kw``);
+a row plan has none (``_row_plan``).
 
 Several chains (``run_chains``) are one state whose tensors carry a
 leading chain axis C (``init(rng, chains=C)``).  On the kernel backend a
 fused step (``step_chains``) sweeps all chains with one set of launches per
-round (strided plan) or per block (serial plan, J=1; not on words with
-missing calls); otherwise each chain takes the single-chain step in turn.
+round (strided plan) or per block (the serial sweep, at J=1 and, as in
+JAX, on a row plan; not on words with missing calls); otherwise each chain
+takes the single-chain step in turn.
 The intercept, residual recompute and emission below serve both shapes.
 """
 from __future__ import annotations
@@ -65,14 +69,14 @@ class MarkerSampler:
 
     def _storage(self, x_dtype, backend, permutation, jacobi_layout):
         """Check the storage and sweep options; sets ``x_packed`` and
-        ``backend``: the sweep kernels ("pallas": strided Jacobi, or serial
-        at J=1), which 2-bit packed X needs, or the plain Gram-blocked
-        sweep ("blocked", dense X only).  None for dense X is resolved by
-        the device in ``_read_x``."""
+        ``backend``: the sweep kernels ("pallas": strided or row-layout
+        Jacobi, or serial at J=1), which 2-bit packed X needs, or the plain
+        Gram-blocked sweep ("blocked", dense X only).  None for dense X is
+        resolved by the device in ``_read_x``."""
         if x_dtype not in ("dense", "int8", "2bit"):
             raise ValueError(f"unknown x_dtype {x_dtype!r}")
         if x_dtype == "int8":
-            raise not_ported("int8 genotype storage", "Queue 1 item 7")
+            raise not_ported("int8 genotype storage", "Queue 1 item 4")
         if backend == "scan" or permutation == "full":
             raise not_ported("the sequential scan sweep", "Queue 1 item 8")
         if backend not in (None, "blocked", "pallas"):
@@ -195,7 +199,9 @@ class MarkerSampler:
         either layout and from the auto plan for M < 2048 too, runs the
         exact serial sweep (ops/serial.py), as any J=1 runs
         ``bayesr_sweep_pallas`` in JAX (bayesr.py:587-645); J > 1 runs the
-        strided-rounds sweep in the "t" layout only (``_row_plan``)."""
+        strided-rounds sweep (ops/jacobi_t.py) in the "t" layout and the
+        row-layout sweep (ops/jacobi.py) in the "row" layout, which an
+        explicit ``jacobi_blocks`` gets by default."""
         if jacobi_blocks is None:
             if jacobi_layout == "row":
                 J, B = auto_jacobi(M, B)
@@ -215,35 +221,39 @@ class MarkerSampler:
         return J, B, layout
 
     def _row_plan(self, has_missing, auto):
-        """A row-layout plan with J > 1: on words with missing calls the
-        auto plan falls back to J=1 and an explicit one is refused, as in
-        the JAX samplers (bayesr.py:290-300); on dense X or words without,
-        it is not ported (the row-layout kernels)."""
-        J = self.jacobi
-        if self.jacobi_layout == "t" or J == 1:
+        """A row-layout plan with J > 1 sweeps dense X or words without
+        missing calls; on words with missing calls the auto plan falls back
+        to J=1 and an explicit one is refused, as in the JAX samplers
+        (bayesr.py:290-300)."""
+        if self.jacobi_layout == "t" or self.jacobi == 1 or not has_missing:
             return
-        if has_missing and auto:
+        if auto:
             self.jacobi = 1
-        elif has_missing:
+        else:
             raise ValueError("jacobi_blocks > 1 supports dense, missing-free "
                              "quantized, or packed-missing "
                              "(jacobi_layout='t') X only")
-        else:
-            raise not_ported(f"the row-layout J={J} sweep", "Queue 2 entry 10")
+
+    @property
+    def strided(self) -> bool:
+        """Whether the plan sweeps strided rounds (the "t" layout, J > 1);
+        the row layout at J > 1 and every J=1 plan sweep the flat block
+        order."""
+        return self.jacobi > 1 and self.jacobi_layout == "t"
 
     def _sweep_kw(self):
         """The kernel sweeps' storage keyword arguments for ``self.data``:
         ``x_mean=None`` for dense rows; for words the fold-affine decode,
-        or with missing calls the strided kernels' ``miss`` mode (J > 1) or
-        the serial kernels' in-kernel decode (J=1), as the JAX samplers
-        pass them (bayesr.py:278-287, :590-607)."""
+        or with missing calls the strided kernels' ``miss`` mode or the
+        serial kernels' in-kernel decode (J=1), as the JAX samplers pass
+        them (bayesr.py:278-287, :590-607)."""
         d = self.data
         if not self.x_packed:
             return dict(x_mean=None)
         miss = bool(d.has_missing)
         kw = dict(x_mean=d.x_mean, x_scale=d.x_scale, x_xsum=d.x_colsum,
                   fold_affine=not miss, row_valid=d.row_valid)
-        if self.jacobi > 1:
+        if self.strided:
             kw["missing"] = miss
         return kw
 
@@ -307,10 +317,11 @@ class MarkerSampler:
     def supports_fused_chains(self) -> bool:
         """Whether ``step_chains`` sweeps all chains with the fused kernel:
         on the kernel backend, dense or packed X through the strided Jacobi
-        kernel, or through the serial one at J=1 unless the words hold
-        missing calls (the fused serial sweep has no in-kernel decode, in
-        JAX neither: bayesr.py:733-743).  The plain backend runs its chains
-        through the single-chain step."""
+        kernel, or through the serial one (at J=1 and on a row plan,
+        which holds no missing call) unless the words hold missing calls
+        (the fused serial sweep has no in-kernel decode, in JAX neither:
+        bayesr.py:733-743).  The plain backend runs its chains through the
+        single-chain step."""
         return self.backend == "pallas" and (self.jacobi > 1
                                              or not self.data.has_missing)
 

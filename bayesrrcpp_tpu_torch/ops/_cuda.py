@@ -57,17 +57,20 @@ SIGNATURES = {
                                  + [_VOID_P] * 17 + [_INT] + [_VOID_P] * 4,
                                  _INT),
     },
-    # the serial (J=1) sweeps, one chain or fused: 11 ints (C,
-    # pz_by_marker, Nw, n_pos, chunk, B, K, G, Mpad, nsplit, mode), then
-    # 24 operand pointers and the stream
+    # the serial (J=1) and row-layout (J > 1) sweeps, one chain or fused:
+    # 12 ints (C, pz_by_marker, Nw, n_pos, chunk, B, K, G, Mpad, nsplit,
+    # mode, J), then 25 operand pointers and the stream; the round solve:
+    # 4 ints (J, B, K, G), 16 operand pointers and the stream
     "serial": {
         "serial_max_block": ([], _INT),
+        "serial_max_row_block": ([], _INT),
         "serial_max_chains": ([], _INT),
         "serial_max_components": ([], _INT),
         "serial_dot_splits": ([_INT], _INT),
         "serial_dense_dot_splits": ([_INT], _INT),
         "serial_error_string": ([_INT], ctypes.c_char_p),
-        "serial_sweep": ([_INT] * 11 + [_VOID_P] * 25, _INT),
+        "serial_sweep": ([_INT] * 12 + [_VOID_P] * 26, _INT),
+        "serial_round_solve": ([_INT] * 4 + [_VOID_P] * 17, _INT),
     },
 }
 

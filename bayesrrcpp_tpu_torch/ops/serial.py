@@ -224,7 +224,10 @@ def _plain_sweep(K, G, chunk, words, gram, xsq, eps, beta, labels, border,
 
 def _sweep_cuda(fused, K, G, chunk, words, gram, xsq, eps, beta, labels,
                 border, inner, p, z, tbl, sigmaE, gas, valid, mean, scale,
-                xsum, row_valid, fold):
+                xsum, row_valid, fold, J=1):
+    """The CUDA sweep of ``run``; ``J`` > 1 sweeps J blocks of the order a
+    round, every block against the round-start eps (the row layout, one
+    chain: ``ops/jacobi.py``), and ``chunk`` then counts rounds."""
     from . import _cuda
 
     lib = _cuda.library("serial")
@@ -237,14 +240,20 @@ def _sweep_cuda(fused, K, G, chunk, words, gram, xsq, eps, beta, labels,
     Npad = Nw if dense else Nw * genotypes.WORDS
     if nb * B != Mpad:
         raise ValueError(f"gram has {nb}x{B} markers, words {Mpad}")
-    if not 1 <= B <= lib.lib.serial_max_block():
-        raise ValueError(f"serial kernel takes blocks of 1 to "
-                         f"{lib.lib.serial_max_block()} markers (B={B})")
+    max_b = (lib.lib.serial_max_block() if J == 1
+             else lib.lib.serial_max_row_block())
+    if not 1 <= B <= max_b:
+        raise ValueError(f"{'serial' if J == 1 else 'row-layout'} kernel "
+                         f"takes blocks of 1 to {max_b} markers (B={B})")
     if K and not 2 <= K <= lib.lib.serial_max_components():
         raise ValueError(f"serial kernel takes 2 <= K <= "
                          f"{lib.lib.serial_max_components()} (K={K})")
     if not 1 <= n <= nb:
         raise ValueError(f"block_order has {n} blocks, the data {nb}")
+    if n % J or (J > 1 and (C != 1 or not (fold or dense))):
+        raise ValueError(f"J={J} blocks a round need one chain, a block "
+                         f"count divisible by J ({n}), and no in-kernel "
+                         "decode")
     if C > lib.lib.serial_max_chains():
         raise ValueError(f"{C} chains in one fused launch")
     if not (fold or dense) and C != 1:
@@ -282,10 +291,11 @@ def _sweep_cuda(fused, K, G, chunk, words, gram, xsq, eps, beta, labels,
     sigmaE = arg(sigmaE, f32, (C,), "sigmaE") if K else None
     nsplit = (lib.lib.serial_dense_dot_splits(Nw) if dense
               else lib.lib.serial_dot_splits(Nw))
-    partial = torch.empty((C * nsplit * (B + 1),), dtype=f32, device=dev)
+    partial = torch.empty((C * nsplit * (J * B + 1),), dtype=f32, device=dev)
     esum = torch.empty((C,), dtype=f32, device=dev)
-    dsc = torch.empty((C * B,), dtype=f32, device=dev)
-    dms = torch.empty((C,), dtype=f32, device=dev)
+    dsc = torch.empty((C * J * B,), dtype=f32, device=dev)
+    dms = torch.empty((C * J,), dtype=f32, device=dev)
+    espart = torch.empty((C * J,), dtype=f32, device=dev)
     vpart = (torch.empty((C, n, G, K), dtype=f32, device=dev) if K
              else None)
     bpart = torch.empty((C, n, G), dtype=f32, device=dev) if K else None
@@ -293,13 +303,13 @@ def _sweep_cuda(fused, K, G, chunk, words, gram, xsq, eps, beta, labels,
     # the storage mode of csrc/serial.cu: 0 fold, 1 in-kernel decode, 2 dense
     mode = 2 if dense else int(not fold)
     ints = (C, int(fused), Nw, n, chunk, B, K, G if K else 0, Mpad, nsplit,
-            mode)
+            mode, J)
     ptrs = [_ptr(t) for t in (
         words, ops["border"], ops["inner"], ops["gram"], ops["tbl"],
         ops["xsq"], ops.get("mean"), ops.get("scale"), ops.get("xsum"),
         ops["valid"], ops["gas"], eps_out, None if dense else row_valid,
         beta_out, labels_out, p, z, sigmaE,
-        partial, esum, dsc, dms, vpart, bpart)] + [stream]
+        partial, esum, dsc, dms, espart, vpart, bpart)] + [stream]
     lib.check(lib.lib.serial_sweep(*ints, *ptrs), "serial_sweep launch")
     if not K:
         return eps_out, beta_out, None, None, None

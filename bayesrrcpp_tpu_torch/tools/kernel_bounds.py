@@ -1,11 +1,13 @@
 """The least time an NVIDIA H100 could take for a sweep's work, computed
 from its shapes alone (no card needed).  ``sweep`` is the one count of a
 whole sweep's bytes and operations on 2-bit words, ``dense_sweep`` on
-dense f32 rows: ``chip_smoke.py`` calls them with the shapes and data of
-each sweep it runs, and this script with the headline constants for the
-TPU kernels that the port has not run yet and, as ``dense`` rows, for the
-dense cell (N=16,384 x M=49,152, J=128, B=32) with no marker moving and
-with every marker moving (the horseshoe):
+dense f32 rows, for any plan (strided, row layout or serial: the Gram
+floats are the plan's), and ``round_solve`` the solve launches alone:
+``chip_smoke.py`` calls them with the shapes and data of each sweep it
+runs, and this script with the headline constants for the TPU kernels
+that the port has not run yet and, as ``dense`` rows, for the dense cell
+(N=16,384 x M=49,152, J=128, B=32) with no marker moving and with every
+marker moving (the horseshoe):
 
     python3 bayesrrcpp_tpu_torch/tools/kernel_bounds.py
 
@@ -63,13 +65,27 @@ def dense_sweep(n, mpad, gram_floats, chains, marker_arrays, moved=0,
     return bound(nbytes, 2.0 * n * (chains * mpad + moved))
 
 
-def round_solve(table_fields, step_flops):
-    """The solve phase alone over a sweep's rounds (sites #13, #14): the
-    Gram blocks, r and a per-marker table of ``table_fields`` floats read,
-    beta read and written, the deltas written; ``step_flops`` per marker
-    (the draw, and the rank-1 update of the block's r, 2B)."""
-    nbytes = 4 * GRAM_FLOATS + 4 * M * (1 + table_fields + 2 + 1)
-    return bound(nbytes, float(M * step_flops))
+def round_solve(markers, b, table_fields, step_flops):
+    """The solve alone (sites #13, #14) over ``markers`` markers in blocks
+    of ``b`` (one round: J*B; a sweep's rounds: Mpad): the Gram blocks, r
+    and a per-marker table of ``table_fields`` floats read, beta read and
+    written, the deltas written; ``step_flops`` per marker (the draw, and
+    the rank-1 update of the block's r, 2B)."""
+    nbytes = 4 * markers * b + 4 * markers * (1 + table_fields + 2 + 1)
+    return bound(nbytes, float(markers * step_flops))
+
+
+def bayesr_round_solve(markers, b, k=K):
+    """``round_solve`` of BayesR: the table [lp, invd, sd] x K, p, z, xsq,
+    valid, labels read and written besides; per step 4K (mu, logL) + 2K^2
+    (the guarded weights) + 2B flops."""
+    return round_solve(markers, b, 3 * k + 4 + 2, 4 * k + 2 * k * k + 2 * b)
+
+
+def horseshoe_round_solve(markers, b):
+    """``round_solve`` of the horseshoe: [invd, sd, z, xsq, valid]; per
+    step 4 + 2B flops."""
+    return round_solve(markers, b, 5, 4 + 2 * b)
 
 
 SITES = [
@@ -77,18 +93,16 @@ SITES = [
      sweep(N, M, GRAM_FLOATS, 1, 6)),
     ("6", "pallas_jacobi_t.py:2403 bayesr_jacobi_t_mc_rounds (C=8)",
      sweep(N, M, GRAM_FLOATS, 8, 6)),
-    # BayesR: the table [lp, invd, sd] x K, p, z, xsq, valid; labels read
-    # and written besides; per step 4K (mu, logL) + 2K^2 (the guarded
-    # weights) + 2B flops
-    ("13", "pallas_jacobi.py:704 bayesr_round_solve_pallas",
-     round_solve(3 * K + 4 + 2, 4 * K + 2 * K * K + 2 * B)),
-    # horseshoe: [invd, sd, z, xsq, valid]; per step 4 + 2B flops
-    ("14", "pallas_jacobi.py:833 horseshoe_round_solve_pallas",
-     round_solve(5, 4 + 2 * B)),
-    ("15", "pallas_jacobi.py:1153 horseshoe_jacobi_pallas",
-     sweep(N, M, GRAM_FLOATS, 1, 4)),
-    ("16", "pallas_jacobi.py:1299 bayesr_jacobi_pallas",
-     sweep(N, M, GRAM_FLOATS, 1, 6)),
+    # the round solves at the headline row plan (J=32, B=128): one round,
+    # and a sweep's 123 rounds
+    ("13", "pallas_jacobi.py:704 bayesr_round_solve_pallas (a round)",
+     bayesr_round_solve(32 * 128, 128)),
+    ("13", "pallas_jacobi.py:704 bayesr_round_solve_pallas (a sweep)",
+     bayesr_round_solve(M, 128)),
+    ("14", "pallas_jacobi.py:833 horseshoe_round_solve_pallas (a round)",
+     horseshoe_round_solve(32 * 128, 128)),
+    ("14", "pallas_jacobi.py:833 horseshoe_round_solve_pallas (a sweep)",
+     horseshoe_round_solve(M, 128)),
 ]
 
 # the dense cell dense-16kx49k (bench.py:375-376): the least a sweep could

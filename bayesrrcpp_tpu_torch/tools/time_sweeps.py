@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time the strided-rounds sweep kernels of one or more checkouts on one
-NVIDIA GPU, to compare two versions of the kernels in one call.
+"""Time the strided-rounds and serial sweep kernels of one or more
+checkouts on one NVIDIA GPU, to compare two versions of the kernels in one
+call.
 
-    python3 bayesrrcpp_tpu_torch/tools/time_strided.py ROOT [ROOT ...]
+    python3 bayesrrcpp_tpu_torch/tools/time_sweeps.py ROOT [ROOT ...]
 
 Each ROOT is the root of a checkout of this repository.  Each runs in a
 process of its own, in the order given (name each twice to interleave:
@@ -10,7 +11,9 @@ process of its own, in the order given (name each twice to interleave:
 and times, with CUDA events, the four strided sweeps at the headline shape
 N=100,352 x M=503,808 (plan J=128, B=32) from a state 2 steps warm:
 BayesR and the horseshoe, one chain (csrc/jacobi_t.cu) and 8 fused chains
-(csrc/jacobi_t_mc.cu).  Every process makes the same words and variates
+(csrc/jacobi_t_mc.cu); then the two serial sweeps (csrc/serial.cu,
+``jacobi_blocks=1``: B=512, 984 blocks) on the same words, one chain,
+from a state 2 steps warm.  Every process makes the same words and variates
 from the same seeds.  Each prints one JSON line with the milliseconds of
 each sweep (``reps`` calls after one warm call, each call timed on its
 own), preceded by the card's nvidia-smi name and power limit; the script
@@ -53,7 +56,9 @@ def run_one(root):
     check = os.path.dirname(os.path.abspath(bt.__file__))
     if check != os.path.join(os.path.abspath(root), "bayesrrcpp_tpu_torch"):
         raise RuntimeError(f"imported {check}, not {root}'s package")
-    _cuda.libraries("jacobi_t", "jacobi_t_mc")
+    from bayesrrcpp_tpu_torch.ops import serial
+
+    _cuda.libraries("jacobi_t", "jacobi_t_mc", "serial")
     g = torch.Generator(device="cuda").manual_seed(0)
     words = bt.simulate.random_packed_words(g, M, N // 16, device="cuda")
     stats = bt.simulate.packed_word_stats(M)
@@ -95,6 +100,30 @@ def run_one(root):
                                            REPS)
         del s
     samplers.clear()
+    kw["jacobi_blocks"] = 1
+    for kind in ("bayesr", "horseshoe"):
+        s = (bt.SpikeSlabSampler(words, Y, CVA, bt.BayesRConfig(), **kw)
+             if kind == "bayesr" else
+             bt.HorseshoeSampler(words, Y, bt.HorseshoeConfig(), **kw))
+        if (s.jacobi, s.B, s.nb) != (1, 512, 984):
+            raise RuntimeError(f"{kind} serial plan {(s.jacobi, s.B)}")
+        d = s.data
+        v = bt.TorchVariates(torch.Generator(device="cuda").manual_seed(2))
+        st = s._run_steps(s.init(v), v, 2)
+        border, inner = v.block_orders(s.nb, s.B)
+        z = v.z(s.Mpad)
+        if kind == "bayesr":
+            fn = serial.bayesr_sweep
+            args = (d.XT, d.gram, d.xsq, st.eps, st.beta, st.labels, border,
+                    inner, v.p(s.Mpad), z, st.pi, d.cva, st.sigmaE,
+                    st.sigmaGG, d.g_assign, d.valid)
+        else:
+            fn = serial.horseshoe_sweep
+            args = (d.XT, d.gram, d.xsq, st.eps, st.beta, border, inner, z,
+                    st.lam, st.tau, st.c2, st.sigmaE, d.valid)
+        out[kind + "_serial_ms"] = sweep_times(
+            torch, lambda: fn(*args, **s._sweep_kw()), REPS)
+        del s
     print(json.dumps(out), flush=True)
 
 
@@ -110,7 +139,7 @@ def main(roots):
         rc = subprocess.run([sys.executable, os.path.abspath(__file__),
                              "--one", root]).returncode
         if rc != 0:
-            print(f"time_strided: {root} failed ({rc})", file=sys.stderr)
+            print(f"time_sweeps: {root} failed ({rc})", file=sys.stderr)
             return 1
     return 0
 

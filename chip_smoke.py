@@ -133,10 +133,33 @@ Phases, each of which fails the run (non-zero exit, no result line):
    horseshoe and 8 fused chains of each 5 iterations); recovery through
    the dense kernels (phase 3's and 6's recipes, corr > 0.8);
 20. the CLI in-process on a dense .npy of N=4096 x M=8192 with ``--x-dtype
-   dense`` on the card: the CSV and the launch counts.
+   dense`` on the card: the CSV and the launch counts;
+21. the row-layout sweeps (csrc/serial.cu with J blocks a round) and their
+   round solves: (a) BayesR and the horseshoe against their plain versions
+   at N=4096 x M=8192 words and N=4001 x M=8192 dense rows from warm
+   states, plans (J, B) = (8, 512), (32, 128), (2, 64) and (16, 16) (labels
+   and v equal, beta and bacc to rtol 1e-4 / atol 1e-5, eps to 1e-4 of its
+   norm and of its largest value), and the round solves alone on one
+   round's r (labels and v equal, dlane and beta to 1e-5); (b) at the
+   headline with ``jacobi_layout="row"`` (J=32, B=128, nr=123, on phase
+   2's words) the first 8 rounds against the plain version under phase
+   13b's gates (``row_rounds`` for the replay), full sweeps timed (mean of
+   3) with their bounds and the ``torch.matmul`` of a round's decoded rows
+   by eps, the round solve alone timed, and one sweep at
+   ``jacobi_blocks=8`` (B=512); the same at dense-16kx49k-row (nr=12);
+22. the row plans' main paths with the launch counters reset just before:
+   biobank-packed-row and the horseshoe (``.run``, ``ChainConfig(10, 5,
+   5)``, 3 launches and one round solve a round), ``run_chains`` of 8 on
+   the same plans (5 iterations: the serial fused sweep, as JAX's fused
+   step on a row plan; the row sweep launched no time), the same on
+   dense-16kx49k-row and at the auto plan of M=1500 with ``block_size=64``
+   ((2, 64, "row")); CSV widths, finite values, tracked vs recomputed eps
+   < 1e-4, a profile of 2 steps of each; recovery through the row sweep
+   (phase 3's and 6's recipes at ``jacobi_blocks=4``, corr > 0.8).
 
-Phases 17-20 run after phase 12, on phase 2's words for 17b.  The three
-kernel libraries build at once (one nvcc per source).  The last
+Phases 17-22 run after phase 12, on phase 2's words for 17b and 21b.  The
+three kernel libraries build at once (one nvcc per source).  The script
+prints its total time before the last two lines.  The last
 two lines of standard output are the kernels' JSON record (with each
 sweep's bound: the larger of its bytes over 3.35 TB/s and its FP32 FMAs
 over 67 TFLOP/s) and the device JSON.  Nothing of JAX is imported.
@@ -148,6 +171,7 @@ import sys
 import tempfile
 import time
 
+START = time.perf_counter()
 CVA = [0.0001, 0.001, 0.01]
 HEADLINE_N, HEADLINE_M = 100_352, 503_808
 # (iterations, burn-in, thinning) of the horseshoe recovery chain: from its
@@ -395,7 +419,7 @@ def main():
 
 
 def smoke(torch, tmp):
-    """Phases 1-20 (module docstring; 17-20 run after 12), their CSVs under
+    """Phases 1-22 (module docstring; 17-22 run after 12), their CSVs under
     ``tmp``; returns 0 or raises."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import bayesrrcpp_tpu_torch as bt
@@ -640,6 +664,9 @@ def smoke(torch, tmp):
 
     # ---- 17-20. dense X through the kernels' dense mode
     dense_kernels = dense_phases(torch, bt, hs, tmp)
+
+    # ---- 21-22. the row-layout sweeps, their round solves and main paths
+    row_kernels = row_phases(torch, bt, hs, tmp)
     del hs
 
     # ---- 13-16. words with missing calls
@@ -668,8 +695,10 @@ def smoke(torch, tmp):
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"]})
+    log(f"[total] {time.perf_counter() - START:.1f} s since the script "
+        f"started")
     print(json.dumps({"kernels": kernels + serial_kernels
-                      + missing_kernels + dense_kernels}))
+                      + missing_kernels + dense_kernels + row_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -1218,6 +1247,39 @@ def serial_phases(torch, bt, hs, tmp):
             for key in ("bayesr", "horseshoe", "bayesr_mc", "horseshoe_mc")]
 
 
+def strided_rounds(torch, s, args, kw):
+    """The rounds of a strided sweep (operands ``args``): (the round of
+    each marker (Mpad,), the round count, and ``blocks(r)``: round r's
+    (block, sweep position of its first variate) for j < J)."""
+    rho = args[6].long()
+    nr, B, J = rho.numel(), s.B, kw["J"]
+    round_of_slab = torch.empty_like(rho)
+    round_of_slab[rho] = torch.arange(nr, device=rho.device)
+    marker = torch.arange(s.Mpad, device=rho.device)
+
+    def blocks(r):
+        slab = int(rho[r])
+        return [(j * nr + slab, (slab * J + j) * B) for j in range(J)]
+
+    return round_of_slab[marker // B % nr], nr, blocks
+
+
+def row_rounds(torch, s, args, kw):
+    """``strided_rounds`` of a row-layout sweep: round r holds the blocks
+    at sweep positions r*J .. of ``args[6]`` (a prefix of whole rounds may
+    leave markers unvisited: their round is past the last)."""
+    border = args[6].long()
+    n, B, J = border.numel(), s.B, kw["J"]
+    pos = torch.full((s.nb,), n, dtype=torch.long, device=border.device)
+    pos[border] = torch.arange(n, device=border.device)
+    marker = torch.arange(s.Mpad, device=border.device)
+
+    def blocks(r):
+        return [(int(border[r * J + j]), (r * J + j) * B) for j in range(J)]
+
+    return pos[marker // B] // J, n // J, blocks
+
+
 def check_against_plain(torch, tag, names, ker, ref):
     """labels and v equal, the floats to rtol 1e-4 / atol 1e-5; returns the
     largest |d| of the floats."""
@@ -1234,7 +1296,7 @@ def check_against_plain(torch, tag, names, ker, ref):
 
 
 def held_per_chain(torch, s, tag, args, kw, ker, ref, per_chain=None,
-                   sweeps=None):
+                   sweeps=None, rounds=strided_rounds):
     """BayesR at the headline against the plain version, chain by chain
     (``args`` a sweep's operands, fused when ``per_chain`` names the
     per-chain ones): a chain whose labels all equal the plain version's
@@ -1244,7 +1306,7 @@ def held_per_chain(torch, s, tag, args, kw, ker, ref, per_chain=None,
     1e-3; each flip ``flip_replay`` recomputes must be a near tie (|u -
     weight| within the reach of f32 rounding); and its eps must hold to its
     own algebra, eps_in - X (beta_out - beta_in), to 1e-5.  ``sweeps``
-    (kernel, reference) as ``flip_replay``'s.  Returns [(chain,
+    (kernel, reference) and ``rounds`` as ``flip_replay``'s.  Returns [(chain,
     flip_replay's result)] of the flipped chains."""
     lead = (lambda x: x[None]) if ker[0].dim() == 1 else (lambda x: x)
     k_eps, k_beta, k_lab = (lead(x) for x in ker[:3])
@@ -1258,7 +1320,7 @@ def held_per_chain(torch, s, tag, args, kw, ker, ref, per_chain=None,
             continue
         one = args if per_chain is None else chain_args(args, c, per_chain)
         rp = flip_replay(torch, s, one, kw, k_lab[c], r_lab[c], r_beta[c],
-                         sweeps)
+                         sweeps, rounds)
         flipped.append((c, rp))
         log(f"{tag} chain {c}: first label flip in round {rp['r0']} of "
             f"{rp['rounds']}; after {rp['r0']} rounds labels equal: "
@@ -1281,15 +1343,17 @@ def held_per_chain(torch, s, tag, args, kw, ker, ref, per_chain=None,
     return flipped
 
 
-def flip_replay(torch, s, args, kw, k_lab, r_lab, r_beta, sweeps=None):
+def flip_replay(torch, s, args, kw, k_lab, r_lab, r_beta, sweeps=None,
+                rounds=strided_rounds):
     """A BayesR sweep (single-chain operands ``args``) whose labels
     ``k_lab`` differ from the plain version's ``r_lab``, replayed.
     ``sweeps`` (kernel, reference): the two sweeps, each called as
     ``fn(*args, **kw)``, by default the strided kernel and its plain
-    version; the f64 redraw takes the rows of ``s``'s data (decoded words,
-    or dense X's own).  R0 is
+    version; ``rounds`` the plan's rounds (``strided_rounds``,
+    ``row_rounds``); the f64 redraw takes the rows of ``s``'s data (decoded
+    words, or dense X's own).  R0 is
     the first round in which a label differs: each marker is drawn once a
-    sweep, in the round of its slab.  Kernel and plain version run again
+    sweep, in the round of its block.  Kernel and plain version run again
     with every marker of round R0 or later invalid, so that each returns
     its state after R0 rounds.  Then the first flipped marker of each
     block of round R0 (a later one follows a different draw) is drawn
@@ -1308,12 +1372,8 @@ def flip_replay(torch, s, args, kw, k_lab, r_lab, r_beta, sweeps=None):
     d = s.data
     dev = d.XT.device
     f64 = torch.float64
-    B, J = s.B, s.jacobi
-    rho = args[6].long()
-    nr = rho.numel()
-    round_of_slab = torch.empty_like(rho)
-    round_of_slab[rho] = torch.arange(nr, device=dev)
-    marker_round = round_of_slab[torch.arange(s.Mpad, device=dev) // B % nr]
+    B = s.B
+    marker_round, nr, round_blocks = rounds(torch, s, args, kw)
     flipped = k_lab != r_lab
     r0 = int(marker_round[flipped].min())
     pre = list(args)
@@ -1322,15 +1382,13 @@ def flip_replay(torch, s, args, kw, k_lab, r_lab, r_beta, sweeps=None):
     kp = ker(*pre, **kw)
     rp = ref(*pre, **kw)
 
-    slab = int(rho[r0])
     eps, deps = rp.eps.to(f64), (kp.eps - rp.eps).to(f64)
     lp, invd, _ = jt.bayesr_tables(args[2], args[14], args[10], args[11],
                                    args[12], args[13])
     half = 0.5 / torch.as_tensor(args[12], device=dev).to(f64)
     lanes_ok = d.row_valid.to(torch.bool) if s.x_packed else None
     near = []
-    for j in range(J):
-        blk = j * nr + slab
+    for blk, at0 in round_blocks(r0):
         rows = blk * B + torch.arange(B, device=dev)
         inn = args[7][blk].tolist()
         hit = flipped[rows].tolist()
@@ -1372,7 +1430,7 @@ def flip_replay(torch, s, args, kw, k_lab, r_lab, r_beta, sweeps=None):
             sums = float((x[lane].abs() * e).sum())
         reach_num = (2.0 ** -24 * (sums + moved_terms + abs(float(
             bold[lane]) * xsq)) + abs(float(x[lane] @ deps)))
-        u = float(args[8][(slab * J + j) * B + t])
+        u = float(args[8][at0 + t])
 
         def weights(n):
             return jt.cumulative_weights(lp[m].to(f64), invd[m].to(f64), n,
@@ -1879,7 +1937,7 @@ def dense_yardstick(torch, s, slab, eps, strided=True):
 
 
 def dense_gates(torch, s, tag, args, kw, ker, ref, hsk, per_chain=None,
-                sweeps=None):
+                sweeps=None, rounds=strided_rounds):
     """The kernel-vs-plain gates of a dense sweep at the cell: labels
     agreeing on >= 99.9 %; the horseshoe's eps and beta to 1e-4 of their
     norms; BayesR chain by chain by ``held_per_chain`` (eps to 1e-3 where
@@ -1893,7 +1951,7 @@ def dense_gates(torch, s, tag, args, kw, ker, ref, hsk, per_chain=None,
               f"{tag} rel diffs eps {rel_eps}, beta {rel_beta}")
         return agree, []
     flips = held_per_chain(torch, s, tag, args, kw, ker, ref, per_chain,
-                           sweeps)
+                           sweeps, rounds)
     return agree, [c for c, _ in flips]
 
 
@@ -2401,6 +2459,434 @@ def dense_phases(torch, bt, hs, tmp):
     return [dict({"name": name, "route": "cuda", "source": src + f,
                   "replaces": tpu + where}, **records[key])
             for key, (name, f, where) in meta.items()]
+
+
+# (J, B) of the row-layout plans held exactly against their plain
+# versions at N=4096 x M=8192 (phase 21a), and the rounds of a row plain
+# sweep at the headline and the dense cell (21b)
+ROW_PLANS = ((8, 512), (32, 128), (2, 64), (16, 16))
+ROW_PLAIN_ROUNDS = 8
+
+
+def row_args(s, st, v, rounds=None):
+    """The row-layout sweep's operands for state ``st`` with fresh variates
+    from ``v`` (models/bayesr.py:SpikeSlabSampler.step on a row plan): the
+    serial sweep's, with J, cut to the first ``rounds`` rounds."""
+    args, kw = serial_args(s, st, v, rounds and rounds * s.jacobi)
+    return args, dict(kw, J=s.jacobi)
+
+
+def hs_row_args(s, st, v, rounds=None):
+    """The horseshoe's row-layout sweep operands, as ``row_args``."""
+    args, kw = hs_serial_args(s, st, v, rounds and rounds * s.jacobi)
+    return args, dict(kw, J=s.jacobi)
+
+
+def round_solve_case(torch, s, args, kind):
+    """The round solve's operands for round 0 of a row sweep's operands
+    ``args`` on sampler ``s``: r from the round's rows (dense, or decoded
+    words) against eps, the rounds' Gram blocks and state, and the
+    ``build_pkg_jacobi`` / ``build_pkg_hs_jacobi`` operand."""
+    from bayesrrcpp_tpu_torch.ops import jacobi as jr
+    from bayesrrcpp_tpu_torch.ops.genotypes import decode_rows
+
+    d = s.data
+    J, B = s.jacobi, s.B
+    order = args[6 if kind == "bayesr" else 5][:J]
+    inner_all = args[7 if kind == "bayesr" else 6]
+    blk = order.long()
+    rows = (blk[:, None] * B + torch.arange(B, device=blk.device)).reshape(-1)
+    x = (decode_rows(d.XT[rows], d.x_mean[rows], d.x_scale[rows],
+                     d.row_valid) if s.x_packed else d.XT[rows])
+    r = (x @ args[3]).view(J, B)
+    if kind == "bayesr":
+        pkg, inner = jr.build_pkg_jacobi(
+            d.xsq, d.g_assign, d.valid, args[8][:J * B], args[9][:J * B],
+            args[10], d.cva, args[12], args[13], order, inner_all, B=B, J=J)
+        return (r, d.gram[blk], args[4][rows].view(J, B),
+                args[5][rows].view(J, B), d.g_assign[rows].view(J, B),
+                inner[0], pkg[0], args[12])
+    pkg, inner = jr.build_pkg_hs_jacobi(
+        d.xsq, d.valid, args[7][:J * B], args[8], args[9], args[10],
+        args[11], order, inner_all, B=B, J=J)
+    return r, d.gram[blk], args[4][rows].view(J, B), inner[0], pkg[0]
+
+
+def check_round_solve(torch, tag, kind, ker, ref):
+    """A round solve against its plain version: labels and v equal, dlane,
+    beta and bacc to 1e-5 (relative and absolute).  Returns the largest
+    |d| of the floats."""
+    floats = (0, 1, 4) if kind == "bayesr" else (0, 1)
+    if kind == "bayesr":
+        check(torch.equal(ker[2], ref[2]) and torch.equal(ker[3], ref[3]),
+              f"{tag} labels or v differ from plain")
+    worst = 0.0
+    for i in floats:
+        d = float((ker[i] - ref[i]).abs().max())
+        worst = max(worst, d)
+        check(torch.allclose(ker[i], ref[i], rtol=1e-5, atol=1e-5),
+              f"{tag} output {i} differs from plain: max |d| {d:.3g}")
+    return worst
+
+
+def reset_counts(*fns):
+    for fn in fns:
+        fn.launches = 0
+
+
+def row_main_paths(torch, bt, s, tag, cell, tmp, counters, gen_seed,
+                   chain=None):
+    """Phase 22's main paths of a row-plan sampler ``s``: ``.run`` into a
+    CSVSink with the row sweep's and its round solve's counts reset just
+    before (3 launches and one solve a round), then 8 fused chains through
+    ``run_chains`` (the serial fused sweep, 3 launches a block; the row
+    sweep launched no time); CSV widths, finite values, tracked vs
+    recomputed eps < 1e-4, and a profile of 2 steps of each.  Returns the
+    one-chain run's (launches, solve launches, ms/iter)."""
+    from bayesrrcpp_tpu_torch.io.sink import ChainFanoutSink, CSVSink
+
+    single, solve, fused = counters
+    kind = "bayesr" if isinstance(s, bt.SpikeSlabSampler) else "horseshoe"
+    nr = s.nb // s.jacobi
+    dense = not s.x_packed
+    dot = "serial_dense_dot_kernel" if dense else "serial_dot_kernel"
+    apply = "dense_apply_kernel" if dense else "serial_apply_kernel"
+    out_rec = None
+    for chains in (None, CHAINS):
+        g = torch.Generator(device="cuda").manual_seed(gen_seed)
+        if chains is None:
+            ch = chain or bt.ChainConfig(10, 5, 5)
+            path = os.path.join(tmp, f"{cell}.csv")
+            sink = CSVSink(path, kind, M=s.M, N=s.N, emit_epsilon=False)
+            paths = [path]
+            reset_counts(single, solve, fused)
+            st, out, wall, launches, peak = main_path(
+                torch, lambda sk: s.run(g, ch, sink=sk), sink, single)
+            want, want_solve = 3 * nr * ch.max_iterations, nr * ch.max_iterations
+            solves, others = solve.launches, fused.launches
+            per = 2 * nr
+        else:
+            ch = bt.ChainConfig(5, 2, 2)
+            sink = ChainFanoutSink.csv(os.path.join(tmp, f"{cell}_8chain.csv"),
+                                       chains, kind, M=s.M, N=s.N,
+                                       emit_epsilon=False)
+            paths = sink.paths
+            reset_counts(single, solve, fused)
+            st, out, wall, launches, peak = main_path(
+                torch, lambda sk: s.run_chains(g, chains, ch, sink=sk), sink,
+                fused)
+            want, want_solve = 3 * s.nb * ch.max_iterations, 0
+            solves, others = solve.launches, single.launches
+            per = 2 * s.nb
+        n_rows = len(list(ch.emit_iterations()))
+        for p in paths:
+            header, widths, bad = read_csv(p)
+            check(len(header) == 2 + 2 * s.M + 2
+                  and widths == [len(header)] * n_rows and not bad,
+                  f"{tag} {p}: {len(header)} {widths} {bad}")
+        check(all(np_finite(x) for x in out.values()),
+              f"{tag} {cell} non-finite output")
+        ex = s.refresh_eps(st).eps
+        rel = float((torch.linalg.norm(st.eps - ex, dim=-1)
+                     / torch.linalg.norm(ex, dim=-1)).max())
+        name = cell + ("" if chains is None else f"-{chains}chain")
+        check(rel < 1e-4, f"{tag} {name} tracked eps vs recompute {rel}")
+        check(launches == want and solves == want_solve and others == 0,
+              f"{tag} {name} launches {launches} (want {want}), round "
+              f"solves {solves} (want {want_solve}), other sweep {others}")
+        vp = bt.TorchVariates(g, chains=chains)
+
+        def two_steps(st=st, vp=vp, chains=chains):
+            for _ in range(2):
+                st = (s.step(st, vp) if chains is None
+                      else s.step_chains(st, vp))
+
+        split, dev_ms, wall_ms = profile_split(
+            torch, two_steps, (dot, "serial_solve_kernel", apply))
+        check(profiled(split, per), f"{tag} {name} profiled {split}")
+        ms_iter = wall / ch.max_iterations * 1e3
+        log(f"{tag} {name} main path: {ms_iter:.2f} ms/iter ({wall:.2f} s "
+            f"for {ch.max_iterations} iterations incl. CSV), peak "
+            f"{peak:.2f} GiB, launches {launches} (want {want}), round "
+            f"solves {solves}, tracked-vs-exact eps {rel:.3g}; profile of 2 "
+            f"steps: " + ", ".join(f"{n} {us:.2f} us x {c}"
+                                   for n, (us, c) in split.items())
+            + f"; device {dev_ms:.2f} ms of {wall_ms:.2f} ms wall")
+        if chains is None:
+            out_rec = (launches, solves, ms_iter)
+        del st, out
+    return out_rec
+
+
+def row_phases(torch, bt, hs, tmp):
+    """Phases 21-22 (module docstring): the row-layout sweeps and round
+    solves against their plain versions at N=4096 x M=8192 (words) and
+    N=4001 x M=8192 (dense), at the headline (the words of ``hs``) and at
+    the dense cell, the main paths of the row plans and recovery through
+    the row sweep; CSVs under ``tmp``.  Returns the kernels' records."""
+    from bayesrrcpp_tpu_torch.ops import jacobi as jr
+    from bayesrrcpp_tpu_torch.ops import multichain as mcs
+    from bayesrrcpp_tpu_torch.tools import kernel_bounds
+
+    dev = torch.device("cuda")
+    bnames = ("eps", "beta", "labels", "v", "beta_acum")
+    kinds = {
+        "bayesr": (jr.bayesr_jacobi, jr.bayesr_jacobi_reference,
+                   jr.bayesr_round_solve, jr.bayesr_round_solve_reference,
+                   mcs.bayesr_sweep_mc, bt.BayesRConfig, row_args, bnames,
+                   6, kernel_bounds.bayesr_round_solve),
+        "horseshoe": (jr.horseshoe_jacobi, jr.horseshoe_jacobi_reference,
+                      jr.horseshoe_round_solve,
+                      jr.horseshoe_round_solve_reference,
+                      mcs.horseshoe_sweep_mc, bt.HorseshoeConfig,
+                      hs_row_args, ("eps", "beta"), 4,
+                      kernel_bounds.horseshoe_round_solve)}
+    solve_kw = {"bayesr": dict(K=4, G=1), "horseshoe": {}}
+    records = {}
+
+    # ---- 21a. every plan of ROW_PLANS, both samplers, words and dense rows
+    for storage in ("packed", "dense"):
+        for kind, (single, plain, solve, solve_plain, _, cfg, make_args,
+                   names, _, _) in kinds.items():
+            worst = 0.0
+            for J, B in ROW_PLANS:
+                g = torch.Generator(device=dev).manual_seed(100 + J + B)
+                v = bt.TorchVariates(g)
+                if storage == "packed":
+                    s = packed_sampler(torch, bt, g, 4096, 8192,
+                                       cfg(block_size=B), jacobi_blocks=J)
+                else:
+                    s = dense_sampler(torch, bt, g, 4001, 8192,
+                                      cfg(block_size=B), jacobi_blocks=J)
+                check((s.jacobi, s.B, s.jacobi_layout, s.Mpad) ==
+                      (J, B, "row", 8192), f"[21a] plan {(s.jacobi, s.B)}")
+                st = s._run_steps(s.init(v), v, 3)
+                args, kw = make_args(s, st, v)
+                tag = f"[21a] {kind} {storage} J={J} B={B}"
+                worst = max(worst, check_sweeps(
+                    torch, tag, names, tuple(single(*args, **kw)),
+                    tuple(plain(*args, **kw))))
+                if (J, B) == (32, 128):
+                    rs = round_solve_case(torch, s, args, kind)
+                    serr = check_round_solve(
+                        torch, f"{tag} round solve", kind,
+                        solve(*rs, **solve_kw[kind]),
+                        solve_plain(*rs, **solve_kw[kind]))
+                    log(f"{tag} round solve vs plain: max |d| {serr:.3g}")
+                del s, st, args
+            log(f"[21a] {kind} {storage} row sweeps at plans {ROW_PLANS} "
+                f"(N={4096 if storage == 'packed' else 4001}, M=8192): "
+                f"labels/v equal, max |d| {worst:.3g}")
+
+    # ---- 21b. the headline (the words of phase 2) with jacobi_layout="row"
+    common = dict(transposed=True, x_dtype="2bit", device="cuda",
+                  x_stats=bt.simulate.packed_word_stats(HEADLINE_M))
+    samplers = {}
+    for kind, (single, plain, solve, solve_plain, fused, cfg, make_args,
+               names, arrays, solve_bound) in kinds.items():
+        hsk = kind == "horseshoe"
+        t0 = time.perf_counter()
+        if hsk:
+            s = bt.HorseshoeSampler(hs.data.XT, hs.Y[:hs.N],
+                                    cfg(emit_epsilon=False),
+                                    jacobi_layout="row", **common)
+        else:
+            s = bt.SpikeSlabSampler(hs.data.XT, hs.Y[:hs.N], CVA,
+                                    cfg(emit_epsilon=False),
+                                    jacobi_layout="row", **common)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        nr = s.nb // s.jacobi
+        check((s.jacobi, s.B, s.nb, nr, s.Mpad) ==
+              (32, 128, 3936, 123, HEADLINE_M)
+              and s.data.XT.data_ptr() == hs.data.XT.data_ptr(),
+              f"[21b] headline row plan {(s.jacobi, s.B, s.nb)}")
+        samplers[kind] = s
+        g = torch.Generator(device=dev).manual_seed(110)
+        v = bt.TorchVariates(g)
+        st = s._run_steps(s.init(v), v, 2)
+        args, kw = make_args(s, st, v, ROW_PLAIN_ROUNDS)
+        ker = tuple(single(*args, **kw))
+        ref, plain_ms = timed(torch, lambda: tuple(plain(*args, **kw)), 1)
+        agree, flips = dense_gates(torch, s, f"[21b] {kind}", args, kw, ker,
+                                   ref, hsk, sweeps=(single, plain),
+                                   rounds=row_rounds)
+        max_err = max(float((a - b).abs().max())
+                      for a, b in zip(ker[:2], ref[:2]))
+        rel = rel_err(ker[0], ref[0])
+        rs = round_solve_case(torch, s, args, kind)
+        sk, solve_ms = timed(torch, lambda: solve(*rs, **solve_kw[kind]), 20)
+        sr, solve_plain_ms = timed(
+            torch, lambda: solve_plain(*rs, **solve_kw[kind]), 1)
+        serr = check_round_solve(torch, f"[21b] {kind} round solve", kind,
+                                 sk, sr)
+        sbound = solve_bound(s.jacobi * s.B, s.B)
+        args, kw = make_args(s, st, v)
+        full, ms = timed(torch, lambda: tuple(single(*args, **kw)), 3)
+        moved = int((full[1] != args[4]).sum())
+        bound = sweep_bound(s, 1, moved, arrays)
+        blk = args[6 if not hsk else 5][:s.jacobi].long()
+        rows = (blk[:, None] * s.B
+                + torch.arange(s.B, device=dev)).reshape(-1)
+        lib_ms = dot_yardstick(torch, s, rows, args[3]) * nr
+        log(f"[21b] {kind} headline row plan J={s.jacobi} B={s.B} nr={nr} "
+            f"(sampler on phase 2's words {setup_s:.2f} s): "
+            f"{ROW_PLAIN_ROUNDS} rounds vs plain: label agreement "
+            f"{agree:.6f}, |d eps|/|eps| {rel:.3g}, max abs err "
+            f"{max_err:.3g}, plain {plain_ms:.1f} ms, chains with a near-tie"
+            f" flip {flips}; full sweep {ms:.3f} ms, bound {bound[0]:.3f} ms "
+            f"({bound[1]}, {moved} markers moved), dot yardstick "
+            f"torch.matmul ({s.jacobi * s.B} x {s.Npad}) @ ({s.Npad},) x "
+            f"{nr} rounds {lib_ms:.3f} ms; round solve alone {solve_ms:.4f}"
+            f" ms a round (plain {solve_plain_ms:.1f} ms, bound "
+            f"{sbound['bound_ms']:.4f} ms, {sbound['bound_by']}), max |d| "
+            f"{serr:.3g}")
+        records[kind] = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                             plain_rounds=ROW_PLAIN_ROUNDS, rounds=int(nr),
+                             bound_ms=bound[0], bound_by=bound[1],
+                             library_ms=lib_ms)
+        records[kind + "_solve"] = dict(
+            max_abs_err=serr, ms=solve_ms, plain_ms=solve_plain_ms,
+            per="round", bound_ms=sbound["bound_ms"],
+            bound_by=sbound["bound_by"], library_ms=None)
+        del args, full, ker, ref, st
+
+        # one sweep at an explicit jacobi_blocks=8 (the default layout is
+        # "row"): B=512, nr=123
+        kw8 = dict(common, jacobi_blocks=8)
+        s8 = (bt.HorseshoeSampler(hs.data.XT, hs.Y[:hs.N],
+                                  cfg(emit_epsilon=False), **kw8) if hsk
+              else bt.SpikeSlabSampler(hs.data.XT, hs.Y[:hs.N], CVA,
+                                       cfg(emit_epsilon=False), **kw8))
+        check((s8.jacobi, s8.B, s8.jacobi_layout, s8.nb // s8.jacobi) ==
+              (8, 512, "row", 123), "[21b] jacobi_blocks=8 plan")
+        v8 = bt.TorchVariates(torch.Generator(device=dev).manual_seed(111))
+        st8 = s8._run_steps(s8.init(v8), v8, 2)
+        args, kw = make_args(s8, st8, v8)
+        full, ms8 = timed(torch, lambda: tuple(single(*args, **kw)), 3)
+        moved8 = int((full[1] != args[4]).sum())
+        bound8 = sweep_bound(s8, 1, moved8, arrays)
+        rel8 = rel_err(full[0][:s8.N],
+                       args[3][:s8.N] - s8.xbeta(full[1] - args[4]))
+        log(f"[21b] {kind} headline jacobi_blocks=8 (B=512, nr=123): sweep "
+            f"{ms8:.3f} ms, bound {bound8[0]:.3f} ms ({bound8[1]}, "
+            f"{moved8} moved), eps against eps_in - X dbeta {rel8:.3g}")
+        check(rel8 < 1e-4, f"[21b] {kind} jacobi_blocks=8 eps {rel8}")
+        del s8, st8, args, full
+
+    # ---- 22. the headline row plan's main paths
+    for kind, s in samplers.items():
+        single, solve, fused = (kinds[kind][0], kinds[kind][2],
+                                kinds[kind][4])
+        cell = "biobank-packed-row" if kind == "bayesr" else (
+            "biobank-horseshoe-row")
+        launches, solves, ms_iter = row_main_paths(
+            torch, bt, s, "[22]", cell, tmp, (single, solve, fused), 120)
+        records[kind]["launches"] = launches
+        records[kind + "_solve"]["launches"] = solves
+        records[kind]["ms_per_iter"] = ms_iter
+    del samplers, s
+
+    # ---- 21b / 22 at the dense cell dense-16kx49k with jacobi_layout="row"
+    g = torch.Generator(device=dev).manual_seed(130)
+    sd = dense_sampler(torch, bt, g, 16_384, 49_152,
+                       bt.BayesRConfig(emit_epsilon=False),
+                       jacobi_layout="row")
+    hd = bt.HorseshoeSampler(sd.data.XT, sd.Y,
+                             bt.HorseshoeConfig(emit_epsilon=False),
+                             transposed=True, device="cuda",
+                             jacobi_layout="row")
+    check((sd.jacobi, sd.B, sd.nb // sd.jacobi, hd.jacobi, hd.B) ==
+          (32, 128, 12, 32, 128) and not sd.x_packed
+          and hd.data.XT.data_ptr() == sd.data.XT.data_ptr(),
+          f"[21b] dense row plan {(sd.jacobi, sd.B, sd.nb)}")
+    for kind, s in (("bayesr", sd), ("horseshoe", hd)):
+        (single, plain, solve, _, fused, _, make_args, _, arrays,
+         _) = kinds[kind]
+        hsk = kind == "horseshoe"
+        nr = s.nb // s.jacobi
+        v = bt.TorchVariates(torch.Generator(device=dev).manual_seed(131))
+        st = s._run_steps(s.init(v), v, 2)
+        args, kw = make_args(s, st, v, ROW_PLAIN_ROUNDS)
+        ker = tuple(single(*args, **kw))
+        ref, plain_ms = timed(torch, lambda: tuple(plain(*args, **kw)), 1)
+        agree, flips = dense_gates(torch, s, f"[21b] dense {kind}", args, kw,
+                                   ker, ref, hsk, sweeps=(single, plain),
+                                   rounds=row_rounds)
+        max_err = max(float((a - b).abs().max())
+                      for a, b in zip(ker[:2], ref[:2]))
+        args, kw = make_args(s, st, v)
+        full, ms = timed(torch, lambda: tuple(single(*args, **kw)), 3)
+        moved = int((full[1] != args[4]).sum())
+        bound = dense_bound(s, 1, moved, arrays, moved)
+        blk = args[6 if not hsk else 5][:s.jacobi].long()
+        rows = (blk[:, None] * s.B
+                + torch.arange(s.B, device=dev)).reshape(-1)
+        x = s.data.XT[rows]
+        lib_ms = timed(torch, lambda: torch.matmul(x, args[3]), 5)[1] * nr
+        del x
+        log(f"[21b] dense-16kx49k-row {kind} (J={s.jacobi}, B={s.B}, "
+            f"nr={nr}): {ROW_PLAIN_ROUNDS} rounds vs plain: label agreement"
+            f" {agree:.6f}, |d eps|/|eps| {rel_err(ker[0], ref[0]):.3g}, "
+            f"max abs err {max_err:.3g}, plain {plain_ms:.1f} ms, chains "
+            f"with a near-tie flip {flips}; full sweep {ms:.3f} ms, bound "
+            f"{bound[0]:.3f} ms ({bound[1]}, {moved} moved), torch.matmul "
+            f"of each round's rows by eps {lib_ms:.3f} ms per sweep")
+        cell = "dense-16kx49k-row" + ("-horseshoe" if hsk else "")
+        launches, solves, ms_iter = row_main_paths(
+            torch, bt, s, "[22]", cell, tmp, (single, solve, fused), 132)
+        records[kind + "_dense"] = dict(
+            max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+            plain_rounds=ROW_PLAIN_ROUNDS, rounds=int(nr), bound_ms=bound[0],
+            bound_by=bound[1], library_ms=lib_ms, launches=launches,
+            ms_per_iter=ms_iter)
+        del args, full, ker, ref, st
+    del sd, hd
+
+    # ---- 22. the auto plan at M=1500, block_size=64: (2, 64, "row")
+    for kind, (single, _, solve, _, fused, cfg, _, _, _, _) in kinds.items():
+        g = torch.Generator(device=dev).manual_seed(140)
+        s = packed_sampler(torch, bt, g, 4096, 1500,
+                           cfg(block_size=64, emit_epsilon=False))
+        check((s.jacobi, s.B, s.jacobi_layout) == (2, 64, "row"),
+              f"[22] M=1500 auto plan {(s.jacobi, s.B, s.jacobi_layout)}")
+        row_main_paths(torch, bt, s, "[22]", f"{kind}-m1500-row", tmp,
+                       (single, solve, fused), 141)
+        del s
+
+    # ---- 22. recovery through the row sweep: the phase 3 and 6 recipes
+    # (N=4096, M=2048, block_size 256) at jacobi_blocks=4
+    for kind in kinds:
+        gr = torch.Generator(device=dev).manual_seed(13)
+        beta_true = recovery_signal(torch, gr, 2048)
+        if kind == "bayesr":
+            cfg, rchain = bt.BayesRConfig(block_size=256), (100, 60, 1)
+        else:
+            A = (1.0 / 4096 ** 0.5) * 32 / (2048 - 32)
+            cfg = bt.HorseshoeConfig(A=A, block_size=256)
+            rchain = HS_RECOVERY_CHAIN
+        sr = packed_sampler(torch, bt, gr, 4096, 2048, cfg, signal=beta_true,
+                            jacobi_blocks=4)
+        check((sr.jacobi, sr.B, sr.jacobi_layout) == (4, 256, "row"),
+              "[22] row recovery plan")
+        t0 = time.perf_counter()
+        _, out = sr.run(gr, bt.ChainConfig(*rchain))
+        corr = posterior_corr(torch, out, beta_true)
+        log(f"[22] {kind} row-layout recovery corr {corr:.4f} over {rchain}"
+            f" ({(time.perf_counter() - t0) / rchain[0] * 1e3:.2f} ms/iter)")
+        check(corr > 0.8, f"[22] {kind} row recovery corr {corr}")
+
+    tpu = "bayesrrcpp_tpu/ops/pallas_jacobi.py"
+    src = "bayesrrcpp_tpu_torch/csrc/serial.cu"
+    names = {"bayesr": ("bayesr_row_sweep", f"{tpu}:1299"),
+             "horseshoe": ("horseshoe_row_sweep", f"{tpu}:1153"),
+             "bayesr_solve": ("bayesr_round_solve", f"{tpu}:704"),
+             "horseshoe_solve": ("horseshoe_round_solve", f"{tpu}:833"),
+             "bayesr_dense": ("bayesr_row_sweep_dense", f"{tpu}:1299"),
+             "horseshoe_dense": ("horseshoe_row_sweep_dense", f"{tpu}:1153")}
+    return [dict({"name": name, "route": "cuda", "source": src,
+                  "replaces": where}, **records[key])
+            for key, (name, where) in names.items()]
 
 
 def np_finite(a):

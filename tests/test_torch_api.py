@@ -32,8 +32,8 @@ def test_other_schemas_raise():
         csv_header("groups", 3, 3)
 
 
-@pytest.mark.parametrize("name,entry", [("BayesRSamplerV2Groups", "item 7"),
-                                        ("BRV2Grstart", "item 6")])
+@pytest.mark.parametrize("name,entry", [("BayesRSamplerV2Groups", "item 6"),
+                                        ("BRV2Grstart", "item 7")])
 def test_entry_points_outside_the_slice_raise(name, entry):
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {entry}"):
         getattr(api, name)("unused.csv", 1, 10, 5, 1)

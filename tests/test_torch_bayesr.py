@@ -196,15 +196,21 @@ def test_configurations_outside_the_slice_raise(case):
     elif case == "int8":
         kw["x_dtype"] = "int8"
     elif case == "row_plan":
-        # row layout with J > 1 (Queue 2 entry 10); M=96's own J=1 plan
-        # runs the serial sweep
+        # row layout with J > 1: ported, the step equals JAX's on that plan
+        # (M=96's own J=1 plan runs the serial sweep)
         kw.update(jacobi_blocks=2, jacobi_layout="row")
     elif case == "scan":
         kw = dict(backend="scan", device="cpu")
     elif case == "dense_row_plan":
-        # dense X through the kernels, on a row-layout plan with J > 1
-        # (Queue 2 entry 10)
+        # dense X through the kernels, on a row-layout plan with J > 1:
+        # ported, as row_plan
         kw = dict(backend="pallas", jacobi_blocks=2, jacobi_layout="row",
                   device="cpu")
+    if case in ("row_plan", "dense_row_plan"):
+        # (imported here: that module imports this one's replay variates)
+        from tests.test_torch_row_samplers import assert_row_step_matches_jax
+
+        assert_row_step_matches_jax("bayesr", dosage, Y, cva, **kw)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SpikeSlabSampler(dosage, Y, cva, BayesRConfig(), **kw)

@@ -162,13 +162,13 @@ def test_cli_module_entry_point(cohort, tmp_path):
 
 
 @pytest.mark.parametrize("argv,entry", [
-    (["groups", "--bed", "x"], "Queue 1 item 7"),
-    (["resume", "--checkpoint", "ck.npz"], "Queue 1 item 6"),
+    (["groups", "--bed", "x"], "Queue 1 item 6"),
+    (["resume", "--checkpoint", "ck.npz"], "Queue 1 item 7"),
     (["bayesr", "--out", "o.csv", "--checkpoint-out", "ck"],
-     "Queue 1 item 6"),
+     "Queue 1 item 7"),
     (["horseshoe", "--out", "o.csv", "--checkpoint-every", "60"],
-     "Queue 1 item 6"),
-    (["bayesr", "--out", "o.csv", "--npz-out", "o.npz"], "Queue 1 item 2"),
+     "Queue 1 item 7"),
+    (["bayesr", "--out", "o.csv", "--npz-out", "o.npz"], "Queue 1 item 9"),
 ])
 def test_cli_outside_the_port_raises(argv, entry):
     with pytest.raises(NotImplementedError, match=entry):

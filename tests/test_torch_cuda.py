@@ -1,6 +1,7 @@
 """The CUDA kernels of bayesrrcpp_tpu_torch/csrc/jacobi_t.cu (the BayesR and
 horseshoe sweeps), csrc/jacobi_t_mc.cu (their fused multi-chain sweeps),
-csrc/serial.cu (the serial J=1 sweeps, one chain and fused) against their
+csrc/serial.cu (the serial J=1 sweeps, one chain and fused, the row-layout
+sweeps at J > 1 and their round solves) against their
 plain torch versions, on the card; and each fused
 chain against the single-chain kernel on that chain's operands, bitwise
 (the same arithmetic in the same order).
@@ -608,3 +609,137 @@ def test_dense_kernels_match_plain_and_single_chains(cuda, hs, strided, N):
     for ch in range(C):
         for a, b in zip(single(*args(ch), **kw), ker):
             assert torch.equal(a, b[ch]), ch
+
+
+# ---------------------------------- the row-layout (J > 1) sweeps, solves
+
+
+def _row_args(seed, J, B, nr, N, dev, dense, hs):
+    """A row sweep's operands (one chain): packed words in the fold mode
+    (``_serial_case``) or dense rows (``_dense_case``, chain 0), the block
+    order a permutation of the nb = J*nr blocks, p/z by position."""
+    nb = J * nr
+    if dense:
+        c = _dense_case(seed, nb, B, N, 1, 2, dev)
+        one = {k: (v[0] if k in ("eps", "beta", "labels", "p", "z", "pi",
+                                 "sigmaE", "sigmaGG", "lam", "tau", "c2")
+                   else v) for k, v in c.items()}
+        head = (one["X"], one["gram"], one["xsq"], one["eps"], one["beta"])
+        kw = dict(J=J)
+        if hs:
+            return head + (one["order"], one["inner"], one["z"], one["lam"],
+                           one["tau"], one["c2"], one["sigmaE"],
+                           one["valid"]), kw
+        return head + (one["labels"], one["order"], one["inner"], one["p"],
+                       one["z"], one["pi"], one["cva"], one["sigmaE"],
+                       one["sigmaGG"], one["gas"], one["valid"]), kw
+    args, kw = _serial_case(seed, B, 2, 4, nb, N, dev, None)
+    del kw["max_call_blocks"]
+    kw["J"] = J
+    if hs:
+        lam = torch.rand(nb * B, device=dev) * 1.9 + 0.1
+        return _serial_hs(args, lam, 0.05), kw
+    return args, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("J,B,nr,N", [(8, 64, 2, 1500), (2, 16, 4, 4001),
+                                      (16, 32, 2, 3000), (4, 200, 2, 2048)])
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("hs", [False, True])
+def test_row_kernels_match_plain(cuda, hs, dense, J, B, nr, N):
+    """The row-layout BayesR and horseshoe sweeps (csrc/serial.cu with J
+    blocks a round) against their plain versions, packed (fold mode) and
+    dense, blocks narrower than a warp, of 200 markers and several CTAs a
+    block: labels and v exact, eps as ``_assert_eps_close``, beta to f32
+    reassociation; 3 launches a round, one of them the round solve; a second
+    sweep bitwise equal."""
+    from bayesrrcpp_tpu_torch.ops import jacobi
+
+    args, kw = _row_args(J + B + N, J, B, nr, N, cuda, dense, hs)
+    fn, ref_fn = ((jacobi.horseshoe_jacobi, jacobi.horseshoe_jacobi_reference)
+                  if hs else (jacobi.bayesr_jacobi,
+                              jacobi.bayesr_jacobi_reference))
+    solve = jacobi.horseshoe_round_solve if hs else jacobi.bayesr_round_solve
+    before, before_s = fn.launches, solve.launches
+    ker = fn(*args, **kw)
+    ref = ref_fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 3 * nr
+    assert solve.launches == before_s + nr
+    names = ("eps", "beta") + (() if hs else ("labels", "v", "beta_acum"))
+    for name, a, b in zip(names, ker, ref):
+        if name in ("labels", "v"):
+            assert torch.equal(a, b), name
+        elif name == "eps":
+            _assert_eps_close(a, b)
+        else:
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    if not dense:
+        assert (ker[0][N:] == 0).all()
+    for a, b in zip(ker, fn(*args, **kw)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [False, True])
+def test_row_kernel_at_one_block_is_the_serial_kernel(cuda, dense):
+    """J=1 runs csrc/serial.cu as the serial sweep does (one chunk at this
+    size): every output bitwise equal."""
+    from bayesrrcpp_tpu_torch.ops import jacobi, serial
+
+    args, kw = _row_args(5, 1, 64, 6, 1500, cuda, dense, False)
+    kw.pop("J")
+    for a, b in zip(jacobi.bayesr_jacobi(*args, J=1, **kw),
+                    serial.bayesr_sweep(*args, **kw)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("J,B", [(8, 64), (3, 512), (16, 16)])
+def test_round_solves_match_plain(cuda, J, B):
+    """The round solves alone (one launch of the row sweep's solve on r
+    given) against their plain versions on one round of a dense case:
+    labels and v exact, dlane and beta to 1e-5."""
+    from bayesrrcpp_tpu_torch.ops import jacobi
+
+    c = _dense_case(J * B, 2 * J, B, 777, 1, 2, cuda)
+    rows = (c["order"][:J].long()[:, None] * B
+            + torch.arange(B, device=cuda)).reshape(-1)
+    r = (c["X"][rows] @ c["eps"][0]).view(J, B)
+    pkg, inner = jacobi.build_pkg_jacobi(
+        c["xsq"], c["gas"], c["valid"], c["p"][0], c["z"][0], c["pi"][0],
+        c["cva"], c["sigmaE"][0], c["sigmaGG"][0], c["order"], c["inner"],
+        B=B, J=J)
+    hpkg, _ = jacobi.build_pkg_hs_jacobi(
+        c["xsq"], c["valid"], c["z"][0], c["lam"][0], c["tau"][0],
+        c["c2"][0], c["sigmaE"][0], c["order"], c["inner"], B=B, J=J)
+    blk = c["order"][:J].long()
+    args = (r, c["gram"][blk], c["beta"][0][rows].view(J, B),
+            c["labels"][0][rows].view(J, B), c["gas"][rows].view(J, B),
+            inner[0], pkg[0], c["sigmaE"][0])
+    before = jacobi.bayesr_round_solve.launches
+    ker = jacobi.bayesr_round_solve(*args, K=4, G=2)
+    ref = jacobi.bayesr_round_solve_reference(*args, K=4, G=2)
+    torch.cuda.synchronize()
+    assert jacobi.bayesr_round_solve.launches == before + 1
+    assert torch.equal(ker[2], ref[2]) and torch.equal(ker[3], ref[3])
+    for a, b in zip((ker[0], ker[1], ker[4]), (ref[0], ref[1], ref[4])):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    hs = (r, args[1], args[2], inner[0], hpkg[0])
+    for a, b in zip(jacobi.horseshoe_round_solve(*hs),
+                    jacobi.horseshoe_round_solve_reference(*hs)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_row_kernel_refuses_blocks_over_512(cuda):
+    """The row layout's solve is built for blocks of at most 512 markers
+    (the plans' largest); a wider block is refused before any launch."""
+    from bayesrrcpp_tpu_torch.ops import jacobi
+
+    args, kw = _row_args(7, 2, 1024, 1, 2048, cuda, False, False)
+    before = jacobi.bayesr_jacobi.launches
+    with pytest.raises(ValueError, match="row-layout kernel takes blocks"):
+        jacobi.bayesr_jacobi(*args, **kw)
+    assert jacobi.bayesr_jacobi.launches == before

@@ -12,8 +12,8 @@
   the twin of tests/test_jacobi_t.py:150-220 (same variates seed, three
   steps; labels equal, beta to rtol 3e-4 / atol 3e-6, sigmaE to 2e-4).
 - The dense plan (J, B, layout) against JAX's at M = 96, 1,500 and 4,096
-  with ``block_size`` 512 and 64; the row plan with J > 1 (M=1,500 at 64)
-  raises ``NotImplementedError`` (ROADMAP Queue 2 entry 10).
+  with ``block_size`` 512 and 64; on the row plan with J > 1 (M=1,500 at
+  64) one replayed step equals JAX's.
 - ``convert.data_from_jax`` on JAX dense data: the same arrays and the same
   sweep as the port's own layout; int8 data is refused.
 - ``cli.py --backend``, and a dense CLI run on ``--device cpu``.
@@ -183,12 +183,14 @@ def test_dense_plan_matches_jax(block):
                                   backend="pallas", dtype=jnp.float32)
         jplan = (js.jacobi, js.B, js.jacobi_layout)
         if jplan[2] == "row" and jplan[0] > 1:
-            # JAX sweeps it with the row-layout kernel (site #16)
+            # both sweep it with the row-layout kernel (site #16)
             assert (m, block) == (1500, 64), jplan
-            with pytest.raises(NotImplementedError,
-                               match="Queue 2 entry 10"):
-                SpikeSlabSampler(X, Y, CVA, BayesRConfig(block_size=block),
-                                 backend="pallas", device="cpu")
+            from tests.test_torch_row_samplers import \
+                assert_row_step_matches_jax
+
+            assert_row_step_matches_jax("bayesr", X, Y, CVA,
+                                        cfg=dict(block_size=block),
+                                        backend="pallas")
             continue
         ts = SpikeSlabSampler(X, Y, CVA, BayesRConfig(block_size=block),
                               backend="pallas", device="cpu")

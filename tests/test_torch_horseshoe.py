@@ -272,17 +272,23 @@ def test_configurations_outside_the_slice_raise(case):
     if case == "int8":
         kw["x_dtype"] = "int8"
     elif case == "row_plan":
-        # row layout with J > 1 (Queue 2 entry 10); M=96's own J=1 plan
-        # runs the serial sweep
+        # row layout with J > 1: ported, the step equals JAX's on that plan
+        # (M=96's own J=1 plan runs the serial sweep)
         kw.update(jacobi_blocks=2, jacobi_layout="row")
     elif case == "scan":
         kw = dict(backend="scan")
     elif case == "dense_kernel":
-        # dense X runs the kernels, but not a row-layout plan with J > 1
-        # (Queue 2 entry 10)
+        # dense X runs the kernels, a row-layout plan with J > 1 too
         kw = dict(backend="pallas", jacobi_blocks=2, jacobi_layout="row")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        HorseshoeSampler(dosage, Y, HorseshoeConfig(), **kw, device="cpu")
+    if case in ("row_plan", "dense_kernel"):
+        # (imported here: that module imports this one's replay variates)
+        from tests.test_torch_row_samplers import assert_row_step_matches_jax
+
+        assert_row_step_matches_jax("horseshoe", dosage, Y, **kw)
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            HorseshoeSampler(dosage, Y, HorseshoeConfig(), **kw,
+                             device="cpu")
     if case == "dense_kernel":
         s = HorseshoeSampler(dosage, Y, HorseshoeConfig(), backend="pallas",
                              device="cpu")

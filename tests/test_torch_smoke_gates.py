@@ -4,11 +4,12 @@ replay that holds a BayesR chain whose labels differ from the plain
 version's (each first flip of a round must be a near tie).
 
 Data: dosages with ~3 % missing calls made with numpy from a seed, N=1500
-(pad lanes exist), M=1024, plan J=4, B=32 in the "t" layout.  On the CPU
-the sweep wrappers run their plain versions, so kernel and plain version
-agree and a flip is put on by hand: on a marker whose u lies far from every
-cumulative weight (refused), and on one whose u is set to a weight
-(accepted).
+(pad lanes exist), M=1024, plan J=4, B=32 in the "t" layout; and the same
+dosages without the missing calls on the row-layout plan J=4, B=32 (the
+replay's rounds by ``row_rounds``).  On the CPU the sweep wrappers run
+their plain versions, so kernel and plain version agree and a flip is put
+on by hand: on a marker whose u lies far from every cumulative weight
+(refused), and on one whose u is set to a weight (accepted).
 """
 import numpy as np
 import pytest
@@ -16,6 +17,7 @@ import torch
 
 import chip_smoke as cs
 from bayesrrcpp_tpu_torch import BayesRConfig, SpikeSlabSampler, TorchVariates
+from bayesrrcpp_tpu_torch.ops import jacobi
 from bayesrrcpp_tpu_torch.ops import jacobi_t as jt
 from bayesrrcpp_tpu_torch.ops.genotypes import MISSING_CODE, decode_codes
 from bayesrrcpp_tpu_torch.tools import kernel_bounds
@@ -23,30 +25,47 @@ from bayesrrcpp_tpu_torch.tools import kernel_bounds
 N, M, ROUND = 1500, 1024, 2
 
 
-@pytest.fixture(scope="module")
-def sweep():
+def _sampler(layout):
     rng = np.random.default_rng(0)
     dos = rng.binomial(2, rng.uniform(0.1, 0.9, M), size=(N, M)).astype(
         float)
-    dos[rng.random(dos.shape) < 0.03] = np.nan
+    missing = rng.random(dos.shape) < 0.03
+    if layout == "t":
+        dos[missing] = np.nan
     s = SpikeSlabSampler(dos, rng.normal(size=N), [1e-4, 1e-3, 1e-2],
                          BayesRConfig(block_size=32), x_dtype="2bit",
-                         jacobi_blocks=4, jacobi_layout="t", device="cpu")
-    assert s.data.has_missing and (s.jacobi, s.B, s.Npad) == (4, 32, 2048)
+                         jacobi_blocks=4, jacobi_layout=layout, device="cpu")
+    assert s.data.has_missing == (layout == "t")
+    assert (s.jacobi, s.B, s.Npad, s.jacobi_layout) == (4, 32, 2048, layout)
     v = TorchVariates(torch.Generator().manual_seed(3))
-    st = s._run_steps(s.init(v), v, 3)
+    return s, v, s._run_steps(s.init(v), v, 3)
+
+
+@pytest.fixture(scope="module")
+def sweep():
+    s, v, st = _sampler("t")
     args, kw = cs.sweep_args(s, st, v)
-    return s, args, kw, jt.bayesr_jacobi_t_reference(*args, **kw)
+    return (s, args, kw, jt.bayesr_jacobi_t_reference(*args, **kw),
+            jt.bayesr_jacobi_t_reference, cs.strided_rounds)
 
 
-def _flip(s, args, labels):
-    """(marker, labels with it changed): the first marker drawn in round
-    ROUND's first block, and the u position of its draw."""
-    blk = int(args[6][ROUND])
+@pytest.fixture(scope="module")
+def row_sweep():
+    s, v, st = _sampler("row")
+    args, kw = cs.serial_args(s, st, v)
+    kw["J"] = s.jacobi
+    return (s, args, kw, jacobi.bayesr_jacobi_reference(*args, **kw),
+            jacobi.bayesr_jacobi_reference, cs.row_rounds)
+
+
+def _flip(s, args, kw, labels, rounds):
+    """(marker, labels with it changed, the u position of its draw): the
+    first marker drawn in round ROUND's first block."""
+    blk, at0 = rounds(torch, s, args, kw)[2](ROUND)[0]
     m = blk * s.B + int(args[7][blk][0])
     out = labels.clone()
     out[m] = (out[m] + 1) % 4
-    return m, out, blk * s.jacobi * s.B
+    return m, out, at0
 
 
 def test_missing_calls_count_real_lanes_and_bound_their_fmas(sweep):
@@ -67,32 +86,38 @@ def test_missing_calls_count_real_lanes_and_bound_their_fmas(sweep):
     assert miss_mode["flops"] - fold["flops"] == 2000
 
 
-def test_flip_replay_refuses_a_flip_that_is_no_near_tie(sweep):
-    s, args, kw, ref = sweep
-    m, labels, _ = _flip(s, args, ref.labels)
-    rp = cs.flip_replay(torch, s, args, kw, labels, ref.labels, ref.beta)
+@pytest.mark.parametrize("layout", ["sweep", "row_sweep"])
+def test_flip_replay_refuses_a_flip_that_is_no_near_tie(layout, request):
+    s, args, kw, ref, plain, rounds = request.getfixturevalue(layout)
+    m, labels, _ = _flip(s, args, kw, ref.labels, rounds)
+    rp = cs.flip_replay(torch, s, args, kw, labels, ref.labels, ref.beta,
+                        (plain, plain), rounds)
     assert rp["r0"] == ROUND and rp["labels_equal"] and rp["rel_eps"] == 0
     (tie,) = rp["near"]
     assert tie["marker"] == m and tie["margin"] > 100 * tie["reach"]
     with pytest.raises(RuntimeError, match="beyond f32 rounding"):
         cs.held_per_chain(torch, s, "[test]", args, kw,
-                          (ref.eps, ref.beta, labels), ref)
+                          (ref.eps, ref.beta, labels), ref,
+                          sweeps=(plain, plain), rounds=rounds)
 
 
-def test_flip_replay_accepts_a_near_tie(sweep):
-    s, args, kw, ref = sweep
-    m, labels, pos = _flip(s, args, ref.labels)
+@pytest.mark.parametrize("layout", ["sweep", "row_sweep"])
+def test_flip_replay_accepts_a_near_tie(layout, request):
+    s, args, kw, ref, plain, rounds = request.getfixturevalue(layout)
+    m, labels, pos = _flip(s, args, kw, ref.labels, rounds)
     weight = cs.flip_replay(torch, s, args, kw, labels, ref.labels,
-                            ref.beta)["near"][0]["weight"]
+                            ref.beta, (plain, plain), rounds
+                            )["near"][0]["weight"]
     tied = list(args)
     tied[8] = args[8].clone()
     tied[8][pos] = weight                       # u on a cumulative weight
     tied = tuple(tied)
-    ref2 = jt.bayesr_jacobi_t_reference(*tied, **kw)
-    _, labels2, _ = _flip(s, tied, ref2.labels)
+    ref2 = plain(*tied, **kw)
+    _, labels2, _ = _flip(s, tied, kw, ref2.labels, rounds)
     (tie,) = cs.flip_replay(torch, s, tied, kw, labels2, ref2.labels,
-                            ref2.beta)["near"]
+                            ref2.beta, (plain, plain), rounds)["near"]
     assert tie["marker"] == m and tie["margin"] <= tie["reach"]
     flipped = cs.held_per_chain(torch, s, "[test]", tied, kw,
-                                (ref2.eps, ref2.beta, labels2), ref2)
+                                (ref2.eps, ref2.beta, labels2), ref2,
+                                sweeps=(plain, plain), rounds=rounds)
     assert [c for c, _ in flipped] == [0]
