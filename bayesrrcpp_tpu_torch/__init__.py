@@ -18,8 +18,10 @@ of ``csrc/serial.cu``; at J=1, by the exact serial kernels):
 plus the plain Gram-blocked sweeps on dense X behind
 :func:`api.BayesRSamplerV2` and :func:`api.HorseshoeR`, and the command
 line ``python -m bayesrrcpp_tpu_torch bayesr|horseshoe`` (``cli.py``).
-The samplers, the API and the CLI run on the card unless ``device="cpu"``
-is given.  Whatever lies
+The marker-sharded BayesR sampler (``ShardedSpikeSlabSampler`` on a
+``make_mesh(m, 1)`` of ``torch.distributed`` processes, one card each,
+``parallel/``) splits the markers over cards.  The samplers, the API and
+the CLI run on the card unless ``device="cpu"`` is given.  Whatever lies
 outside that slice raises ``NotImplementedError`` naming its ROADMAP
 entry.
 
@@ -41,12 +43,14 @@ from .distributions import TorchVariates  # noqa: E402
 from .models.bayesr import SpikeSlabSampler  # noqa: E402
 from .models.horseshoe import HorseshoeSampler  # noqa: E402
 from .models.state import HorseshoeState, SpikeSlabState  # noqa: E402
+from .parallel import ShardedSpikeSlabSampler, make_mesh  # noqa: E402
 from . import distributions, simulate  # noqa: E402
 
 __version__ = "0.1.0"
 
 __all__ = [
     "BayesRConfig", "ChainConfig", "HorseshoeConfig", "HorseshoeSampler",
-    "HorseshoeState", "SpikeSlabSampler", "SpikeSlabState", "TorchVariates",
-    "distributions", "simulate",
+    "HorseshoeState", "ShardedSpikeSlabSampler", "SpikeSlabSampler",
+    "SpikeSlabState", "TorchVariates", "distributions", "make_mesh",
+    "simulate",
 ]

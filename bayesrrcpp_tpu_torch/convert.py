@@ -19,7 +19,10 @@ needs no JAX.  Layout is free between the two packages, semantics are not:
   lives in the variates object passed to each step);
 - a chain-batched JAX state (``jax.vmap(init)``, ``step_chains``) carries
   across with its leading chain axis on every tensor and one host
-  iteration count.
+  iteration count;
+- a JAX ``ShardedSpikeSlabSampler``'s global data and state carry into
+  rank d's port sampler as their marker slice d (``sharded_data_from_jax``,
+  ``sharded_state_from_jax``), through the same functions.
 """
 from __future__ import annotations
 
@@ -152,3 +155,41 @@ def data_from_jax(data: dict, *, N: int, device) -> MarkerData:
         cva=_t(data["cva"], device),
         prior_pi=_t(data["prior_pi"], device))
 
+
+
+_MARKER_FIELDS = ("XT", "xsq", "g_assign", "valid", "x_mean", "x_scale",
+                  "x_colsum")
+
+
+def sharded_data_from_jax(data: dict, *, N: int, Dm: int, m_index: int,
+                          device) -> MarkerData:
+    """Slice ``m_index`` of ``Dm`` of a JAX ``ShardedMarkerData`` given as a
+    dict of NumPy arrays of its global arrays, as the port's ``MarkerData``
+    of that rank (``data_from_jax`` on the slice's rows and Gram blocks).
+    Whether the words hold missing calls is read off all of them, as every
+    rank of the port agrees on it."""
+    words = np.asarray(data["XT"])
+    mpad = words.shape[0]
+    lo, hi = m_index * mpad // Dm, (m_index + 1) * mpad // Dm
+    nb = np.shape(data["gram"])[0]
+    part = dict(data)
+    for k in _MARKER_FIELDS:
+        if np.size(data[k]):
+            part[k] = np.asarray(data[k])[lo:hi]
+    part["gram"] = np.asarray(data["gram"])[m_index * nb // Dm:
+                                            (m_index + 1) * nb // Dm]
+    out = data_from_jax(part, N=N, device=device)
+    if words.dtype == np.int32:
+        out = out._replace(has_missing=has_missing_calls(words, N,
+                                                         data["valid"]))
+    return out
+
+
+def sharded_state_from_jax(state: dict, sampler) -> SpikeSlabState:
+    """Rank ``sampler.mesh.m_index``'s port state from a JAX sharded
+    sampler's global state (``state_from_jax``, then the slice's beta and
+    labels), one chain or chain-batched."""
+    full = state_from_jax(state, sampler)
+    lo, hi = sampler.marker_range
+    return full.replace(beta=full.beta[..., lo:hi].contiguous(),
+                        labels=full.labels[..., lo:hi].contiguous())

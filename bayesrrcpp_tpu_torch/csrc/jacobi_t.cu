@@ -16,7 +16,15 @@
 // (jacobi_t_mc.cu).
 //
 // One sweep is nr rounds.  Round r sweeps slab s = rho[r], the J blocks
-// {j*nr + s : j < J} of B markers each, in three launches:
+// {j*nr + s : j < J} of B markers each, in three launches.  A call runs
+// the first n_rounds entries of rho: a whole sweep (n_rounds == nr), or
+// one chunk of a sweep's rounds, rho holding the chunk's global round
+// ids, the unit of work of the marker-sharded driver, which all-reduces
+// eps between chunks (parallel/sharded.py).  That chunked form replaces
+//   bayesrrcpp_tpu/ops/pallas_jacobi_t.py:bayesr_jacobi_t_rounds
+//   (pallas_call at :2229)
+// with the same launches; a chunk's solve writes only its own blocks'
+// beta, labels and v/bacc partials.  The three launches:
 //
 //   dot    r = X_b . eps for the round's J*B markers, in the code domain
 //          (raw codes c in {0,1,2}); one thread per packed word loads the
@@ -260,14 +268,14 @@ inline size_t apply_smem_bytes(bool miss, int JB) {
 // The dense mode's rounds: dense_dot_kernel, the solve launched by
 // `solve` and the dense apply (jacobi_t_common.cuh), on X (Mpad, N) f32.
 template <typename Solve>
-cudaError_t dense_rounds(const float* X, int N, int nr, int J, int B,
-                         const int* rh, float* eps, float* partial,
+cudaError_t dense_rounds(const float* X, int N, int nr, int n_rounds, int J,
+                         int B, const int* rh, float* eps, float* partial,
                          int nsplit, const float* dsc, cudaStream_t s,
                          Solve solve) {
   const dim3 dot_grid(nsplit, J);
   const bool v4 = dense_v4(X, eps, N);
   cudaError_t err;
-  for (int r = 0; r < nr; ++r) {
+  for (int r = 0; r < n_rounds; ++r) {
     if (v4)
       dense_dot_kernel<true, 1><<<dot_grid, kDotThreads, 0, s>>>(
           X, N, eps, 1, rh, r, nr, J, B, partial, nsplit);
@@ -284,17 +292,18 @@ cudaError_t dense_rounds(const float* X, int N, int nr, int J, int B,
 
 // The dot and the apply of a round, in the dense mode (mean null: wd is
 // X (Mpad, N) f32 and Nw is N), the miss mode (pind not null) or the fold
-// mode, around the solve launched by `solve`.
+// mode, around the solve launched by `solve`, for the first n_rounds
+// entries of rh.
 template <typename Solve>
-cudaError_t sweep_rounds(const uint32_t* wd, int Nw, int nr, int J, int B,
-                         const int* rh, float* eps,
+cudaError_t sweep_rounds(const uint32_t* wd, int Nw, int nr, int n_rounds,
+                         int J, int B, const int* rh, float* eps,
                          const unsigned char* row_valid, float* partial,
                          int nsplit, float* pind, const float* dsc,
                          const float* dms, const float* mean, cudaStream_t s,
                          Solve solve) {
   if (mean == nullptr)
-    return dense_rounds(reinterpret_cast<const float*>(wd), Nw, nr, J, B, rh,
-                        eps, partial, nsplit, dsc, s, solve);
+    return dense_rounds(reinterpret_cast<const float*>(wd), Nw, nr, n_rounds,
+                        J, B, rh, eps, partial, nsplit, dsc, s, solve);
   const dim3 dot_grid(nsplit, J);
   const int apply_ctas = (Nw + kApplyThreads / 4 - 1) / (kApplyThreads / 4);
   const bool miss = pind != nullptr;
@@ -303,7 +312,7 @@ cudaError_t sweep_rounds(const uint32_t* wd, int Nw, int nr, int J, int B,
       miss ? apply_kernel<true> : apply_kernel<false>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  for (int r = 0; r < nr; ++r) {
+  for (int r = 0; r < n_rounds; ++r) {
     if (miss)
       dot_kernel<true><<<dot_grid, kDotThreads, 0, s>>>(
           wd, Nw, eps, rh, r, nr, J, B, partial, pind);
@@ -343,22 +352,25 @@ const char* jacobi_t_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// One sweep: 3 launches per round, nr rounds, all on `stream`.  mean and
-// scale null select the dense mode: `words` is X (Mpad, N) f32, Nw is N,
+// One sweep: 3 launches per round, all on `stream`, for the n_rounds
+// rounds rho[0..n_rounds) of a sweep of nr (n_rounds == nr: the whole
+// sweep; less: one chunk, block j of round r being j*nr + rho[r]).  mean
+// and scale null select the dense mode: `words` is X (Mpad, N) f32, Nw is N,
 // row_valid and pind are null and nsplit is jacobi_t_dense_dot_splits(N).
 // Otherwise `pind` ((nsplit, J*B) floats) selects the miss mode, null the
 // fold mode.  Returns the first launch error (cudaGetLastError) or 0.
-int jacobi_t_sweep(const void* words, int Nw, int nr, int J, int B, int K,
-                   int G, const void* gram, const void* xsq, const void* mean,
-                   const void* scale, void* eps, const void* row_valid,
-                   const void* beta_in, const void* labels_in, void* beta_out,
+int jacobi_t_sweep(const void* words, int Nw, int nr, int n_rounds, int J,
+                   int B, int K, int G, const void* gram, const void* xsq,
+                   const void* mean, const void* scale, void* eps,
+                   const void* row_valid, const void* beta_in, const void* labels_in, void* beta_out,
                    void* labels_out, const void* rho, const void* inner,
                    const void* p, const void* z, const void* pi,
                    const void* cva, const void* sigmaE, const void* sigmaGG,
                    const void* gas, const void* valid, void* partial,
                    int nsplit, void* dsc, void* dms, void* vpart, void* bpart,
                    void* pind, void* stream) {
-  if (K < 2 || K > kMaxK) return cudaErrorInvalidValue;
+  if (K < 2 || K > kMaxK || n_rounds < 1 || n_rounds > nr)
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* rh = static_cast<const int*>(rho);
   SolveArgs sa{static_cast<const float*>(partial), nsplit, rh, 0, nr, J, B,
@@ -391,8 +403,8 @@ int jacobi_t_sweep(const void* words, int Nw, int nr, int J, int B, int K,
     }
     return cudaGetLastError();
   };
-  return sweep_rounds(static_cast<const uint32_t*>(words), Nw, nr, J, B, rh,
-                      static_cast<float*>(eps),
+  return sweep_rounds(static_cast<const uint32_t*>(words), Nw, nr, n_rounds,
+                      J, B, rh, static_cast<float*>(eps),
                       static_cast<const unsigned char*>(row_valid),
                       static_cast<float*>(partial), nsplit,
                       static_cast<float*>(pind),
@@ -434,8 +446,8 @@ int jacobi_t_hs_sweep(const void* words, int Nw, int nr, int J, int B,
     hs_solve_kernel<<<J, 32, 0, s>>>(sa);
     return cudaGetLastError();
   };
-  return sweep_rounds(static_cast<const uint32_t*>(words), Nw, nr, J, B, rh,
-                      static_cast<float*>(eps),
+  return sweep_rounds(static_cast<const uint32_t*>(words), Nw, nr, nr, J, B,
+                      rh, static_cast<float*>(eps),
                       static_cast<const unsigned char*>(row_valid),
                       static_cast<float*>(partial), nsplit,
                       static_cast<float*>(pind),

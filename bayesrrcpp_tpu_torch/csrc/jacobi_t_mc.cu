@@ -10,9 +10,13 @@
 //   _hs_jacobi_t_mc_kernel (horseshoe_jacobi_t_pallas_mc, :2054) and
 //   _hs_jacobi_t_mc8_kernel (horseshoe_jacobi_t_pallas_mc8, :3263)
 // in their dense f32 mode and their two 2-bit modes, fold-affine and
-// `miss` (jacobi_t.cu).  The TPU splits C <= 4 from 4 < C <= 16
-// because of VMEM (the wide kernel tiles eps through HBM); here one kernel
-// serves every C <= 16 and the C eps vectors (C*Npad*4 bytes, 3.2 MB at
+// `miss` (jacobi_t.cu).  jacobi_t_mc_sweep also runs one chunk of a
+// sweep's rounds, as jacobi_t_sweep does (n_rounds < nr), and so replaces
+//   bayesrrcpp_tpu/ops/pallas_jacobi_t.py:bayesr_jacobi_t_mc_rounds
+//   (pallas_call at :2403),
+// the marker-sharded driver's fused unit of work.  The TPU splits C <= 4
+// from 4 < C <= 16 because of VMEM (the wide kernel tiles eps through
+// HBM); here one kernel serves every C <= 16 and the C eps vectors (C*Npad*4 bytes, 3.2 MB at
 // N=100,352, C=8) stay in the 50 MB L2.  Python wrappers and plain
 // versions: bayesrrcpp_tpu_torch/ops/jacobi_t.py (bayesr_jacobi_t_mc,
 // horseshoe_jacobi_t_mc).
@@ -444,18 +448,20 @@ const char* jacobi_t_mc_error_string(int code) {
 }
 
 // One fused BayesR sweep of C chains: dot_mc, solve_mc and apply_mc per
-// round, nr rounds, all on `stream`.  Per-chain operands are stacked along
-// a leading chain axis: eps (C, Npad), beta/labels/p/z (C, Mpad), pi
-// (C, G, K), sigmaE (C,), sigmaGG (C, G); scratch partial
-// (C, nsplit, J*B + 1), dsc (C, J*B), dms (C, J), vpart (C, nb, G, K),
+// round, all on `stream`, for the n_rounds rounds rho[0..n_rounds) of a
+// sweep of nr (n_rounds < nr: one chunk, as jacobi_t_sweep's).  Per-chain
+// operands are stacked along a leading chain axis: eps (C, Npad),
+// beta/labels/p/z (C, Mpad), pi (C, G, K), sigmaE (C,), sigmaGG (C, G);
+// scratch partial (C, nsplit, J*B + 1), dsc (C, J*B), dms (C, J), vpart (C, nb, G, K),
 // bpart (C, nb, G); mean and scale null select the dense mode (`words`
 // X (Mpad, N) f32, Nw = N, eps (C, N), row_valid and pind null, nsplit
 // jacobi_t_dense_dot_splits(N)); otherwise pind (C, nsplit, J*B) selects
 // the miss mode, null the fold mode.  Returns the first launch error or
 // 0.
-int jacobi_t_mc_sweep(int C, const void* words, int Nw, int nr, int J, int B,
-                      int K, int G, const void* gram, const void* xsq,
-                      const void* mean, const void* scale, void* eps,
+int jacobi_t_mc_sweep(int C, const void* words, int Nw, int nr, int n_rounds,
+                      int J, int B, int K, int G, const void* gram,
+                      const void* xsq, const void* mean, const void* scale,
+                      void* eps,
                       const void* row_valid, const void* beta_in,
                       const void* labels_in, void* beta_out, void* labels_out,
                       const void* rho, const void* inner, const void* p,
@@ -464,7 +470,8 @@ int jacobi_t_mc_sweep(int C, const void* words, int Nw, int nr, int J, int B,
                       const void* gas, const void* valid, void* partial,
                       int nsplit, void* dsc, void* dms, void* vpart,
                       void* bpart, void* pind, void* stream) {
-  if (C < 1 || C > kMaxC) return cudaErrorInvalidValue;
+  if (C < 1 || C > kMaxC || n_rounds < 1 || n_rounds > nr)
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint32_t* wd = static_cast<const uint32_t*>(words);
   const int* rh = static_cast<const int*>(rho);
@@ -487,7 +494,7 @@ int jacobi_t_mc_sweep(int C, const void* words, int Nw, int nr, int J, int B,
                static_cast<const float*>(pind)};
   const dim3 solve_grid(J, C);
   cudaError_t err;
-  for (int r = 0; r < nr; ++r) {
+  for (int r = 0; r < n_rounds; ++r) {
     err = launch_dot_mc(C, Nw, nsplit, J, s, wd,
                         static_cast<const float*>(eps), rh, r, nr, B,
                         static_cast<float*>(partial),

@@ -80,6 +80,28 @@ def _as_2d_cva(cva) -> np.ndarray:
     return cva
 
 
+def hyper_draws(cfg, N, v, ss_eps, ss_beta, counts):
+    """sigmaE, sigmaGG and pi of a BayesR step (src/BayesRv2.cpp:247-255),
+    per chain, from sum(eps^2) and sum(beta^2) (...,) and the label counts
+    of the sweep's hits (..., G, K), with the draws of the variates ``v``.
+    """
+    dof_e = cfg.v0E + N
+    sigmaE = dist.inv_scaled_chisq(
+        dof_e, (ss_eps + cfg.v0E * cfg.s02E) / dof_e,
+        v.sigmaE_gamma(0.5 * dof_e))
+    m0 = torch.sum(counts, dim=-1) - counts[..., 0]        # (..., G)
+    ss = ss_beta[..., None].expand(m0.shape)
+    if cfg.reference_sigma_g_scaling:
+        scale_g = (ss * m0 + cfg.v0G * cfg.s02G) / (cfg.v0G + m0)
+    else:
+        scale_g = (ss + cfg.v0G * cfg.s02G) / (cfg.v0G + m0)
+    dof_g = cfg.v0G + m0
+    sigmaGG = dist.inv_scaled_chisq(dof_g, scale_g,
+                                    v.sigmaG_gamma(0.5 * dof_g))
+    pi = dist.dirichlet(v.pi_gamma(counts + 1.0))
+    return sigmaE.to(torch.float32), sigmaGG, pi
+
+
 class SpikeSlabSampler(MarkerSampler):
     """BayesR sampler over a fixed dataset (X, Y).
 
@@ -172,25 +194,11 @@ class SpikeSlabSampler(MarkerSampler):
     def _hyper_block(self, v, eps, beta, counts, bacc):
         """Post-sweep hyperparameter draws (src/BayesRv2.cpp:247-255), per
         chain: eps (..., Npad), beta (..., Mpad), counts (..., G, K)."""
-        cfg = self.config
-        N = self.N
-        dof_e = cfg.v0E + N
-        sigmaE = dist.inv_scaled_chisq(
-            dof_e, (torch.sum(eps * eps, dim=-1) + cfg.v0E * cfg.s02E) / dof_e,
-            v.sigmaE_gamma(0.5 * dof_e))
-        m0 = torch.sum(counts, dim=-1) - counts[..., 0]        # (..., G)
         # C1 uses the full |beta|^2, not the per-sweep accumulator
         # (src/BayesRv2.cpp:248); padding betas are identically 0
-        ss = torch.sum(beta * beta, dim=-1)[..., None].expand(m0.shape)
-        if cfg.reference_sigma_g_scaling:
-            scale_g = (ss * m0 + cfg.v0G * cfg.s02G) / (cfg.v0G + m0)
-        else:
-            scale_g = (ss + cfg.v0G * cfg.s02G) / (cfg.v0G + m0)
-        dof_g = cfg.v0G + m0
-        sigmaGG = dist.inv_scaled_chisq(dof_g, scale_g,
-                                        v.sigmaG_gamma(0.5 * dof_g))
-        pi = dist.dirichlet(v.pi_gamma(counts + 1.0))
-        return sigmaE.to(torch.float32), sigmaGG, pi
+        return hyper_draws(self.config, self.N, v,
+                           torch.sum(eps * eps, dim=-1),
+                           torch.sum(beta * beta, dim=-1), counts)
 
     def step(self, state: SpikeSlabState, rng) -> SpikeSlabState:
         """One Gibbs iteration; enqueues device work only."""

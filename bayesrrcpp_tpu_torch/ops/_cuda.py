@@ -28,9 +28,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _VOID_P, _INT = ctypes.c_void_p, ctypes.c_int
 
 # argtypes of each library's entry points (ctypes would pass a bare Python
-# int as a 32-bit int and cut a pointer); the strided sweeps end with the
-# missing-call indicator's partials (null: the fold or dense mode) and the
-# stream
+# int as a 32-bit int and cut a pointer); the strided BayesR sweeps take
+# (Nw, nr, n_rounds, J, B, K, G) after the words, and the strided sweeps
+# end with the missing-call indicator's partials (null: the fold or dense
+# mode) and the stream
 SIGNATURES = {
     "jacobi_t": {
         "jacobi_t_dot_splits": ([_INT], _INT),
@@ -39,8 +40,8 @@ SIGNATURES = {
         "jacobi_t_max_round": ([], _INT),
         "jacobi_t_max_components": ([], _INT),
         "jacobi_t_error_string": ([_INT], ctypes.c_char_p),
-        "jacobi_t_sweep": ([_VOID_P, _INT, _INT, _INT, _INT, _INT, _INT]
-                           + [_VOID_P] * 21 + [_INT] + [_VOID_P] * 6, _INT),
+        "jacobi_t_sweep": ([_VOID_P] + [_INT] * 7 + [_VOID_P] * 21 + [_INT]
+                           + [_VOID_P] * 6, _INT),
         "jacobi_t_hs_sweep": ([_VOID_P, _INT, _INT, _INT, _INT]
                               + [_VOID_P] * 17 + [_INT] + [_VOID_P] * 4,
                               _INT),
@@ -50,9 +51,8 @@ SIGNATURES = {
     "jacobi_t_mc": {
         "jacobi_t_mc_max_chains": ([], _INT),
         "jacobi_t_mc_error_string": ([_INT], ctypes.c_char_p),
-        "jacobi_t_mc_sweep": ([_INT, _VOID_P, _INT, _INT, _INT, _INT, _INT,
-                               _INT] + [_VOID_P] * 21 + [_INT]
-                              + [_VOID_P] * 6, _INT),
+        "jacobi_t_mc_sweep": ([_INT, _VOID_P] + [_INT] * 7 + [_VOID_P] * 21
+                              + [_INT] + [_VOID_P] * 6, _INT),
         "jacobi_t_hs_mc_sweep": ([_INT, _VOID_P, _INT, _INT, _INT, _INT]
                                  + [_VOID_P] * 17 + [_INT] + [_VOID_P] * 4,
                                  _INT),

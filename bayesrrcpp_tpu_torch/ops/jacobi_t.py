@@ -38,6 +38,17 @@ blocks and visit order, and every per-chain operand carries a leading
 chain axis.  On CUDA tensors each launches ``csrc/jacobi_t_mc.cu`` (the
 same three launches per round for up to 16 chains); on CPU tensors each
 runs its plain version.
+
+``bayesr_jacobi_t_rounds`` and ``bayesr_jacobi_t_mc_rounds`` sweep one
+chunk of a sweep's rounds (``pallas_jacobi_t.py:bayesr_jacobi_t_rounds``
+and ``bayesr_jacobi_t_mc_rounds``), the unit of work of the marker-sharded
+driver (``parallel/sharded.py``), which all-reduces eps between chunks:
+``rho_chunk`` holds the chunk's global round ids of a sweep of
+``nr_total`` rounds.  They launch the same round loop of ``csrc/`` with a
+round count; a chunk changes only its own markers' beta and labels, and v
+and bacc count its own blocks.  The TPU call takes sum(eps) once per
+chunk and tracks it; the port's dot sums eps afresh every round, so it
+needs none.  A chunk of every round is the whole sweep, launch for launch.
 """
 from __future__ import annotations
 
@@ -173,16 +184,95 @@ def bayesr_jacobi_t(XT_pad, gram, xsq_pad, eps, beta_pad, labels_pad,
             inner_perm, p_arr, z_arr, pi, cva, sigmaE, sigmaGG,
             g_assign_pad, valid_pad, J=J, x_mean=x_mean, x_scale=x_scale,
             fold_affine=fold_affine, row_valid=row_valid, missing=missing)
-    if XT_pad.device.type != "cuda":
-        raise NotImplementedError(
-            f"no jacobi_t kernel for device {XT_pad.device}")
-    return _sweep_cuda(XT_pad, gram, xsq_pad, eps, beta_pad, labels_pad,
-                       rho, inner_perm, p_arr, z_arr, pi, cva, sigmaE,
-                       sigmaGG, g_assign_pad, valid_pad, J, x_mean, x_scale,
-                       row_valid, missing)
+    _check_cuda(XT_pad, "jacobi_t")
+    res = _sweep_cuda(XT_pad, gram, xsq_pad, eps, beta_pad, labels_pad,
+                      rho, inner_perm, p_arr, z_arr, pi, cva, sigmaE,
+                      sigmaGG, g_assign_pad, valid_pad, J, x_mean, x_scale,
+                      row_valid, missing, gram.shape[0] // J)
+    bayesr_jacobi_t.launches += LAUNCHES_PER_ROUND * rho.shape[0]
+    return res
 
 
 bayesr_jacobi_t.launches = 0
+
+
+def _check_cuda(XT_pad, kernel):
+    if XT_pad.device.type != "cuda":
+        raise NotImplementedError(
+            f"no {kernel} kernel for device {XT_pad.device}")
+
+
+def _check_chunk(gram, J, rho_chunk, nr_total):
+    """A chunk of rounds: ``nr_total`` is the sweep's round count, nb / J,
+    and ``rho_chunk`` holds 1 to nr_total of its round ids."""
+    nb = gram.shape[0]
+    if nb % J or nr_total != nb // J:
+        raise ValueError(f"nr_total={nr_total}: the sweep has nb / J = "
+                         f"{nb} / {J} rounds")
+    if rho_chunk.dim() != 1 or not 1 <= rho_chunk.shape[0] <= nr_total:
+        raise ValueError(f"rho_chunk must hold 1 to {nr_total} round ids, "
+                         f"got shape {tuple(rho_chunk.shape)}")
+
+
+def bayesr_jacobi_t_rounds(XT_pad, gram, xsq_pad, eps, beta_pad, labels_pad,
+                           rho_chunk, inner_perm, p_arr, z_arr, pi, cva,
+                           sigmaE, sigmaGG, g_assign_pad, valid_pad, *,
+                           J: int, nr_total: int, x_mean=None, x_scale=None,
+                           x_xsum=None, fold_affine: bool = False,
+                           row_valid=None, missing: bool = False
+                           ) -> SweepResult:
+    """One chunk of a strided-rounds BayesR sweep (pallas_jacobi_t.py:
+    bayesr_jacobi_t_rounds): the rounds ``rho_chunk`` (nrc,) of a sweep of
+    ``nr_total`` = nb / J rounds, in that order, every round as in
+    ``bayesr_jacobi_t``, whose operands these are (inner_perm, p_arr and
+    z_arr of the whole sweep, by canonical slab).  Returns the
+    ``SweepResult`` of the chunk: eps after its rounds, beta and labels of
+    every marker (the others' unchanged), v and bacc over its blocks.
+    A chunk of all nr_total rounds is ``bayesr_jacobi_t`` launch for
+    launch.  On CUDA tensors it launches ``csrc/jacobi_t.cu`` (3 launches
+    per round, counted in ``bayesr_jacobi_t_rounds.launches``) or raises;
+    on CPU tensors it runs ``bayesr_jacobi_t_rounds_reference``.
+    """
+    _check_chunk(gram, J, rho_chunk, nr_total)
+    dense = _check_mode(XT_pad, gram, J, x_mean, fold_affine, missing,
+                        "Queue 2 entry 1")
+    if not dense and row_valid is None:
+        raise ValueError("packed jacobi sweep needs row_valid")
+    if XT_pad.device.type == "cpu":
+        return bayesr_jacobi_t_reference(
+            XT_pad, gram, xsq_pad, eps, beta_pad, labels_pad, rho_chunk,
+            inner_perm, p_arr, z_arr, pi, cva, sigmaE, sigmaGG,
+            g_assign_pad, valid_pad, J=J, x_mean=x_mean, x_scale=x_scale,
+            fold_affine=fold_affine, row_valid=row_valid, missing=missing)
+    _check_cuda(XT_pad, "jacobi_t")
+    res = _sweep_cuda(XT_pad, gram, xsq_pad, eps, beta_pad, labels_pad,
+                      rho_chunk, inner_perm, p_arr, z_arr, pi, cva, sigmaE,
+                      sigmaGG, g_assign_pad, valid_pad, J, x_mean, x_scale,
+                      row_valid, missing, rho_chunk.shape[0])
+    bayesr_jacobi_t_rounds.launches += LAUNCHES_PER_ROUND * rho_chunk.shape[0]
+    return res
+
+
+bayesr_jacobi_t_rounds.launches = 0
+
+
+def bayesr_jacobi_t_rounds_reference(XT_pad, gram, xsq_pad, eps, beta_pad,
+                                     labels_pad, rho_chunk, inner_perm,
+                                     p_arr, z_arr, pi, cva, sigmaE, sigmaGG,
+                                     g_assign_pad, valid_pad, *, J: int,
+                                     nr_total: int, x_mean=None,
+                                     x_scale=None, x_xsum=None,
+                                     fold_affine: bool = False,
+                                     row_valid=None, missing: bool = False
+                                     ) -> SweepResult:
+    """The plain torch version of ``bayesr_jacobi_t_rounds``:
+    ``bayesr_jacobi_t_reference``'s rounds for the chunk's round ids."""
+    _check_chunk(gram, J, rho_chunk, nr_total)
+    return bayesr_jacobi_t_reference(
+        XT_pad, gram, xsq_pad, eps, beta_pad, labels_pad, rho_chunk,
+        inner_perm, p_arr, z_arr, pi, cva, sigmaE, sigmaGG, g_assign_pad,
+        valid_pad, J=J, x_mean=x_mean, x_scale=x_scale,
+        fold_affine=fold_affine, row_valid=row_valid, missing=missing)
 
 
 def _operands(dev):
@@ -247,9 +337,26 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _chunk_outputs(beta_in, labels_in, nb, G, K, chunk, C=None):
+    """(beta_out, labels_out, vpart, bpart) of a CUDA BayesR sweep, with a
+    chain axis of C when given.  The solves write the blocks of the rounds
+    they run: a chunk's outputs start from the inputs and zero partials,
+    a whole sweep's from empty buffers that every block fills."""
+    lead = () if C is None else (C,)
+    if chunk:
+        return (beta_in.clone(), labels_in.clone(),
+                beta_in.new_zeros(lead + (nb, G, K)),
+                beta_in.new_zeros(lead + (nb, G)))
+    return (torch.empty_like(beta_in), torch.empty_like(labels_in),
+            beta_in.new_empty(lead + (nb, G, K)),
+            beta_in.new_empty(lead + (nb, G)))
+
+
 def _sweep_cuda(words, gram, xsq, eps, beta, labels, rho, inner, p, z, pi,
                 cva, sigmaE, sigmaGG, gas, valid, J, mean, scale, row_valid,
-                missing):
+                missing, n_rounds):
+    """The CUDA BayesR sweep of the n_rounds rounds ``rho`` (a whole sweep
+    when n_rounds == nb / J)."""
     from . import _cuda
 
     lib = _cuda.library("jacobi_t")
@@ -267,7 +374,7 @@ def _sweep_cuda(words, gram, xsq, eps, beta, labels, rho, inner, p, z, pi,
     xsq = arg(xsq, f32, (Mpad,), "xsq")
     beta_in = arg(beta, f32, (Mpad,), "beta")
     labels_in = arg(labels, i32, (Mpad,), "labels")
-    rho = arg(rho, i32, (nr,), "rho")
+    rho = arg(rho, i32, (n_rounds,), "rho")
     inner = arg(inner, i32, (nb, B), "inner_perm")
     p = arg(p, f32, (Mpad,), "p")
     z = arg(z, f32, (Mpad,), "z")
@@ -280,17 +387,15 @@ def _sweep_cuda(words, gram, xsq, eps, beta, labels, rho, inner, p, z, pi,
     eps_out = torch.empty((Npad,), dtype=f32, device=dev)
     eps_out.copy_(arg(eps, f32, (Npad,), "eps"))
 
-    beta_out = torch.empty((Mpad,), dtype=f32, device=dev)
-    labels_out = torch.empty((Mpad,), dtype=i32, device=dev)
+    beta_out, labels_out, vpart, bpart = _chunk_outputs(
+        beta_in, labels_in, nb, G, K, n_rounds < nr)
     partial = torch.empty(((J * B + 1) * nsplit,), dtype=f32, device=dev)
     pind = _miss_partials(missing, J * B * nsplit, dev)
     dsc = torch.empty((J * B,), dtype=f32, device=dev)
     dms = torch.empty((J,), dtype=f32, device=dev)
-    vpart = torch.empty((nb * G * K,), dtype=f32, device=dev)
-    bpart = torch.empty((nb * G,), dtype=f32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.lib.jacobi_t_sweep(
-        words.data_ptr(), Nw, nr, J, B, K, G, gram.data_ptr(),
+        words.data_ptr(), Nw, nr, n_rounds, J, B, K, G, gram.data_ptr(),
         xsq.data_ptr(), _ptr(mean), _ptr(scale), eps_out.data_ptr(),
         _ptr(row_valid), beta_in.data_ptr(), labels_in.data_ptr(),
         beta_out.data_ptr(), labels_out.data_ptr(), rho.data_ptr(),
@@ -300,10 +405,8 @@ def _sweep_cuda(words, gram, xsq, eps, beta, labels, rho, inner, p, z, pi,
         dsc.data_ptr(), dms.data_ptr(), vpart.data_ptr(), bpart.data_ptr(),
         _ptr(pind), stream)
     lib.check(rc, "jacobi_t_sweep launch")
-    bayesr_jacobi_t.launches += LAUNCHES_PER_ROUND * nr
-    return SweepResult(eps_out, beta_out, labels_out,
-                       vpart.view(nb, G, K).sum(dim=0),
-                       bpart.view(nb, G).sum(dim=0))
+    return SweepResult(eps_out, beta_out, labels_out, vpart.sum(dim=0),
+                       bpart.sum(dim=0))
 
 
 def bayesr_tables(xsq, gas, pi, cva, sigmaE, sigmaGG):
@@ -385,11 +488,11 @@ def bayesr_jacobi_t_reference(XT_pad, gram, xsq_pad, eps, beta_pad,
                               x_xsum=None, fold_affine: bool = False,
                               row_valid=None, missing: bool = False
                               ) -> SweepResult:
-    """The plain torch version of ``bayesr_jacobi_t``: each round takes its
-    J*B markers' standardized f32 rows (dense X's own, or decoded; with
-    ``missing`` the codes and the missing indicator, ``_miss_round``) and
-    runs the J blocks' sequential
-    solves batched over the blocks, with the kernel's algebra."""
+    """The plain torch version of ``bayesr_jacobi_t``: each round of
+    ``rho`` takes its J*B markers' standardized f32 rows (dense X's own, or
+    decoded; with ``missing`` the codes and the missing indicator,
+    ``_miss_round``) and runs the J blocks' sequential solves batched over
+    the blocks, with the kernel's algebra."""
     dense = _check_mode(XT_pad, gram, J, x_mean, fold_affine, missing)
     f32 = torch.float32
     dev = XT_pad.device
@@ -414,7 +517,7 @@ def bayesr_jacobi_t_reference(XT_pad, gram, xsq_pad, eps, beta_pad,
     kcol = torch.arange(K, device=dev)
     gram = gram.to(f32)
     inner_perm = inner_perm.long()
-    for r in range(nr):
+    for r in range(rho.shape[0]):
         s = rho[r].long()
         blk = jj * nr + s                                     # (J,)
         rows = (blk[:, None] * B + lanes).reshape(-1)         # (J*B,)
@@ -586,7 +689,7 @@ def horseshoe_jacobi_t_reference(XT_pad, gram, xsq_pad, eps, beta_pad, rho,
     lanes = torch.arange(B, device=dev)
     gram = gram.to(f32)
     inner_perm = inner_perm.long()
-    for r in range(nr):
+    for r in range(rho.shape[0]):
         s = rho[r].long()
         blk = jj * nr + s                                     # (J,)
         rows = (blk[:, None] * B + lanes).reshape(-1)         # (J*B,)
@@ -655,21 +758,95 @@ def bayesr_jacobi_t_mc(XT_pad, gram, xsq_pad, eps, beta_pad, labels_pad,
             inner_perm, p_arr, z_arr, pi, cva, sigmaE, sigmaGG,
             g_assign_pad, valid_pad, J=J, x_mean=x_mean, x_scale=x_scale,
             fold_affine=fold_affine, row_valid=row_valid, missing=missing)
-    if XT_pad.device.type != "cuda":
-        raise NotImplementedError(
-            f"no jacobi_t_mc kernel for device {XT_pad.device}")
+    _check_cuda(XT_pad, "jacobi_t_mc")
+    groups = _chain_groups(eps.shape[0])
+    res = _mc_groups(XT_pad, gram, xsq_pad, eps, beta_pad, labels_pad, rho,
+                     inner_perm, p_arr, z_arr, pi, cva, sigmaE, sigmaGG,
+                     g_assign_pad, valid_pad, J, x_mean, x_scale, row_valid,
+                     missing, groups)
+    bayesr_jacobi_t_mc.launches += (LAUNCHES_PER_ROUND * rho.shape[0]
+                                    * len(groups))
+    return res
+
+
+bayesr_jacobi_t_mc.launches = 0
+
+
+def _mc_groups(XT_pad, gram, xsq_pad, eps, beta_pad, labels_pad, rho,
+               inner_perm, p_arr, z_arr, pi, cva, sigmaE, sigmaGG,
+               g_assign_pad, valid_pad, J, x_mean, x_scale, row_valid,
+               missing, groups):
+    """The fused CUDA sweep of the rounds ``rho``, one launch sequence per
+    group of at most 16 chains."""
     parts = [_mc_sweep_cuda(XT_pad, gram, xsq_pad, eps[g], beta_pad[g],
                             labels_pad[g], rho, inner_perm, p_arr[g],
                             z_arr[g], pi[g], cva, sigmaE[g], sigmaGG[g],
                             g_assign_pad, valid_pad, J, x_mean, x_scale,
                             row_valid, missing)
-             for g in _chain_groups(eps.shape[0])]
+             for g in groups]
     if len(parts) == 1:
         return parts[0]
     return MCSweepResult(*(torch.cat(f) for f in zip(*parts)))
 
 
-bayesr_jacobi_t_mc.launches = 0
+def bayesr_jacobi_t_mc_rounds(XT_pad, gram, xsq_pad, eps, beta_pad,
+                              labels_pad, rho_chunk, inner_perm, p_arr,
+                              z_arr, pi, cva, sigmaE, sigmaGG, g_assign_pad,
+                              valid_pad, *, J: int, nr_total: int,
+                              x_mean=None, x_scale=None, x_xsum=None,
+                              fold_affine: bool = False, row_valid=None,
+                              missing: bool = False) -> MCSweepResult:
+    """One chunk of a fused strided-rounds BayesR sweep of C chains
+    (pallas_jacobi_t.py:bayesr_jacobi_t_mc_rounds): the rounds
+    ``rho_chunk`` of a sweep of ``nr_total`` rounds, on the operands of
+    ``bayesr_jacobi_t_mc``, with the outputs of ``bayesr_jacobi_t_rounds``
+    for every chain.  On CUDA tensors it launches ``csrc/jacobi_t_mc.cu``
+    (3 launches per round for each group of at most 16 chains, counted in
+    ``bayesr_jacobi_t_mc_rounds.launches``) or raises; on CPU tensors it
+    runs ``bayesr_jacobi_t_mc_rounds_reference``."""
+    _check_chunk(gram, J, rho_chunk, nr_total)
+    dense = _check_mode(XT_pad, gram, J, x_mean, fold_affine, missing,
+                        "Queue 2 entry 5")
+    if not dense and row_valid is None:
+        raise ValueError("packed jacobi sweep needs row_valid")
+    if XT_pad.device.type == "cpu":
+        return bayesr_jacobi_t_mc_reference(
+            XT_pad, gram, xsq_pad, eps, beta_pad, labels_pad, rho_chunk,
+            inner_perm, p_arr, z_arr, pi, cva, sigmaE, sigmaGG,
+            g_assign_pad, valid_pad, J=J, x_mean=x_mean, x_scale=x_scale,
+            fold_affine=fold_affine, row_valid=row_valid, missing=missing)
+    _check_cuda(XT_pad, "jacobi_t_mc")
+    groups = _chain_groups(eps.shape[0])
+    res = _mc_groups(XT_pad, gram, xsq_pad, eps, beta_pad, labels_pad,
+                     rho_chunk, inner_perm, p_arr, z_arr, pi, cva, sigmaE,
+                     sigmaGG, g_assign_pad, valid_pad, J, x_mean, x_scale,
+                     row_valid, missing, groups)
+    bayesr_jacobi_t_mc_rounds.launches += (LAUNCHES_PER_ROUND
+                                           * rho_chunk.shape[0] * len(groups))
+    return res
+
+
+bayesr_jacobi_t_mc_rounds.launches = 0
+
+
+def bayesr_jacobi_t_mc_rounds_reference(XT_pad, gram, xsq_pad, eps,
+                                        beta_pad, labels_pad, rho_chunk,
+                                        inner_perm, p_arr, z_arr, pi, cva,
+                                        sigmaE, sigmaGG, g_assign_pad,
+                                        valid_pad, *, J: int, nr_total: int,
+                                        x_mean=None, x_scale=None,
+                                        x_xsum=None,
+                                        fold_affine: bool = False,
+                                        row_valid=None, missing: bool = False
+                                        ) -> MCSweepResult:
+    """The plain torch version of ``bayesr_jacobi_t_mc_rounds``:
+    ``bayesr_jacobi_t_mc_reference``'s rounds for the chunk's round ids."""
+    _check_chunk(gram, J, rho_chunk, nr_total)
+    return bayesr_jacobi_t_mc_reference(
+        XT_pad, gram, xsq_pad, eps, beta_pad, labels_pad, rho_chunk,
+        inner_perm, p_arr, z_arr, pi, cva, sigmaE, sigmaGG, g_assign_pad,
+        valid_pad, J=J, x_mean=x_mean, x_scale=x_scale,
+        fold_affine=fold_affine, row_valid=row_valid, missing=missing)
 
 
 def _mc_libs():
@@ -687,6 +864,7 @@ def _mc_sweep_cuda(words, gram, xsq, eps, beta, labels, rho, inner, p, z, pi,
     lib, mc = _mc_libs()
     dev = words.device
     Mpad, Nw, nb, B, nr = _round_plan(lib, words, gram, J)
+    n_rounds = rho.shape[0]
     C, G, K = pi.shape
     if not 2 <= K <= lib.lib.jacobi_t_max_components():
         raise ValueError(f"jacobi_t kernel takes 2 <= K <= 8 (K={K})")
@@ -699,7 +877,7 @@ def _mc_sweep_cuda(words, gram, xsq, eps, beta, labels, rho, inner, p, z, pi,
     xsq = arg(xsq, f32, (Mpad,), "xsq")
     beta_in = arg(beta, f32, (C, Mpad), "beta")
     labels_in = arg(labels, i32, (C, Mpad), "labels")
-    rho = arg(rho, i32, (nr,), "rho")
+    rho = arg(rho, i32, (n_rounds,), "rho")
     inner = arg(inner, i32, (nb, B), "inner_perm")
     p = arg(p, f32, (C, Mpad), "p")
     z = arg(z, f32, (C, Mpad), "z")
@@ -712,17 +890,15 @@ def _mc_sweep_cuda(words, gram, xsq, eps, beta, labels, rho, inner, p, z, pi,
     eps_out = torch.empty((C, Npad), dtype=f32, device=dev)
     eps_out.copy_(arg(eps, f32, (C, Npad), "eps"))
 
-    beta_out = torch.empty((C, Mpad), dtype=f32, device=dev)
-    labels_out = torch.empty((C, Mpad), dtype=i32, device=dev)
+    beta_out, labels_out, vpart, bpart = _chunk_outputs(
+        beta_in, labels_in, nb, G, K, n_rounds < nr, C)
     partial = torch.empty((C * nsplit * (J * B + 1),), dtype=f32, device=dev)
     pind = _miss_partials(missing, C * nsplit * J * B, dev)
     dsc = torch.empty((C * J * B,), dtype=f32, device=dev)
     dms = torch.empty((C * J,), dtype=f32, device=dev)
-    vpart = torch.empty((C, nb, G, K), dtype=f32, device=dev)
-    bpart = torch.empty((C, nb, G), dtype=f32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = mc.lib.jacobi_t_mc_sweep(
-        C, words.data_ptr(), Nw, nr, J, B, K, G, gram.data_ptr(),
+        C, words.data_ptr(), Nw, nr, n_rounds, J, B, K, G, gram.data_ptr(),
         xsq.data_ptr(), _ptr(mean), _ptr(scale), eps_out.data_ptr(),
         _ptr(row_valid), beta_in.data_ptr(), labels_in.data_ptr(),
         beta_out.data_ptr(), labels_out.data_ptr(), rho.data_ptr(),
@@ -732,7 +908,6 @@ def _mc_sweep_cuda(words, gram, xsq, eps, beta, labels, rho, inner, p, z, pi,
         dsc.data_ptr(), dms.data_ptr(), vpart.data_ptr(), bpart.data_ptr(),
         _ptr(pind), stream)
     mc.check(rc, "jacobi_t_mc_sweep launch")
-    bayesr_jacobi_t_mc.launches += LAUNCHES_PER_ROUND * nr
     # bacc chain by chain: the single-chain wrapper's reduction of the same
     # (nb, G) partials, so a fused chain equals a single chain bitwise
     return MCSweepResult(eps_out, beta_out, labels_out, vpart.sum(dim=1),
@@ -777,7 +952,7 @@ def bayesr_jacobi_t_mc_reference(XT_pad, gram, xsq_pad, eps, beta_pad,
     kcol = torch.arange(K, device=dev)
     gram = gram.to(f32)
     inner_perm = inner_perm.long()
-    for r in range(nr):
+    for r in range(rho.shape[0]):
         s = rho[r].long()
         blk = jj * nr + s                                     # (J,)
         rows = (blk[:, None] * B + lanes).reshape(-1)         # (J*B,)

@@ -59,13 +59,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    against their plain versions, one sweep from a warm state: at N=4096 x
    M=8192 with B=512 and B=64 (labels and v equal, beta to rtol 1e-4 /
    atol 1e-5, eps to 1e-4 of its norm and of its largest value); at the
-   headline with B=512 on a 16-block order (BayesR labels agreeing on >=
+   headline with B=512 on a 4-block order (BayesR labels agreeing on >=
    99.9 %, |d eps| / |eps| < 1e-3 for BayesR and < 1e-4 for the
    horseshoe); the full headline sweep timed (mean of 3), with the dot
    launch's torch.matmul yardstick;
 11. the same kernels fused at C=8 against their plain versions at both
    sizes and, chain by chain, bitwise against the single-chain serial
-   kernel (on 16 blocks and on the full sweep); the full fused sweep timed
+   kernel (on 4 blocks and on the full sweep); the full fused sweep timed
    against 8 single-chain sweeps;
 12. the serial main paths with the launch counters reset just before:
    biobank-packed-serial (``jacobi_blocks=1``, ``ChainConfig(10, 5, 5)``),
@@ -96,7 +96,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    counts, and a profile of dot / solve / apply for each;
 15. the serial kernels' in-kernel decode (``fold_affine=False``) against
    their plain versions: at N=4096 x M=8192 with B=512 and B=64 as phase
-   10, on 16 headline blocks (BayesR labels >= 99.9 %, |d eps| / |eps| <
+   10, on 4 headline blocks (BayesR labels >= 99.9 %, |d eps| / |eps| <
    1e-3, the horseshoe < 1e-4), the full headline sweep timed; then an
    M=1500 auto-plan fit with missing calls (J=1) of both samplers, one
    chain and 8 chains (unfused: each chain through the single-chain
@@ -155,9 +155,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
    dense-16kx49k-row and at the auto plan of M=1500 with ``block_size=64``
    ((2, 64, "row")); CSV widths, finite values, tracked vs recomputed eps
    < 1e-4, a profile of 2 steps of each; recovery through the row sweep
-   (phase 3's and 6's recipes at ``jacobi_blocks=4``, corr > 0.8).
+   (phase 3's and 6's recipes at ``jacobi_blocks=4``, corr > 0.8);
+23. the marker-sharded BayesR driver (``parallel/``) and its chunked
+   strided sweeps, #5 ``bayesr_jacobi_t_rounds`` and #6
+   ``bayesr_jacobi_t_mc_rounds``: (a) each against its plain version at
+   N=4096 x M=8192 (2-bit fold and ``miss``) and N=4001 x M=8192 (dense),
+   one chain and C=8, for chunks of 1, 3 and all 8 rounds (labels and v
+   equal, eps and beta to 1e-4 of their norms), the chunk of every round
+   bitwise equal to #1 / #3, chunks of 3 run in turn bitwise equal to the
+   whole sweep, the fused chains bitwise equal to #5; at the headline (on
+   phase 2's words) all 123 rounds timed and bitwise equal to #1 / #3, and
+   the first 8 rounds as chunks of 2 against the plain version under
+   phase 13b's gates; (b) ``biobank-sharded-m1``: ``ShardedSpikeSlabSampler``
+   on phase 2's words on a (1, 1) mesh of a real one-rank NCCL group,
+   ``.run(generator, ChainConfig(30, 10, 10), sink=CSVSink(...))`` with the
+   counts reset just before, against phase 4's ms/iter, a profile of 2
+   steps (dot / solve / apply / NCCL, idle); (c) its ``run_chains`` of 8
+   into a ChainFanoutSink against phase 8c's; (d) Dm = 2 on the one card:
+   two spawned ranks of a gloo group (NCCL takes no two ranks on one
+   device) on N=4096 x M=16,384 words, ``chunk_blocks`` 128 and 32 (2 and
+   8 chunks a sweep), one chain and C=4, 3 steps: the replicated scalars
+   and eps bitwise equal on both ranks after every step, tracked vs
+   recomputed eps, each rank's first chunk against its plain version.
 
-Phases 17-22 run after phase 12, on phase 2's words for 17b and 21b.  The
+Phases 17-23 run after phase 12, on phase 2's words for 17b, 21b and 23.
+Each group of phases logs the seconds since the start.  The
 three kernel libraries build at once (one nvcc per source).  The script
 prints its total time before the last two lines.  The last
 two lines of standard output are the kernels' JSON record (with each
@@ -179,6 +201,9 @@ HEADLINE_N, HEADLINE_M = 100_352, 503_808
 # hundred iterations to leave the collapsed mode (all signal in sigmaE)
 HS_RECOVERY_CHAIN = (600, 300, 1)
 CHAINS = 8                          # the 8-chain cells
+# blocks of a serial headline sweep held against the plain version, whose
+# host loop takes ~1-1.6 s a block there
+HEADLINE_PLAIN_BLOCKS = 4
 # per-chain operands of the sweeps, by position (ops/jacobi_t.py)
 BAYESR_CHAIN_ARGS = (3, 4, 5, 8, 9, 10, 12, 13)
 HS_CHAIN_ARGS = (3, 4, 7, 8, 9, 10, 11)
@@ -191,6 +216,11 @@ def check(cond, msg):
 
 def log(msg):
     print(msg, flush=True)
+
+
+def elapsed(phases):
+    log(f"[t] phases {phases} done {time.perf_counter() - START:.1f} s "
+        f"after the start")
 
 
 def hs_sweep_args(s, st, v):
@@ -419,7 +449,7 @@ def main():
 
 
 def smoke(torch, tmp):
-    """Phases 1-22 (module docstring; 17-22 run after 12), their CSVs under
+    """Phases 1-23 (module docstring; 17-23 run after 12), their CSVs under
     ``tmp``; returns 0 or raises."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import bayesrrcpp_tpu_torch as bt
@@ -545,6 +575,7 @@ def smoke(torch, tmp):
     check(rel < 1e-4, f"tracked eps vs recompute {rel}")
     check(launches == want, f"launches {launches} != {want}")
     bayesr_launches = launches
+    ms_iter_4 = wall / chain.max_iterations * 1e3
     del st, out
 
     # ---- 5a. horseshoe kernel vs plain, N=4096 x M=8192
@@ -655,22 +686,34 @@ def smoke(torch, tmp):
 
     del st, out
 
+    elapsed("1-7")
+
     # ---- 8-9. the fused multi-chain kernels and the 8-chain cells
     mc = {kind: fused_phases(torch, bt, kind, hs, tmp)
           for kind in ("bayesr", "horseshoe")}
+    elapsed("8-9")
 
     # ---- 10-12. the serial (J=1) kernels and main paths
     serial_kernels = serial_phases(torch, bt, hs, tmp)
+    elapsed("10-12")
 
     # ---- 17-20. dense X through the kernels' dense mode
     dense_kernels = dense_phases(torch, bt, hs, tmp)
+    elapsed("17-20")
 
     # ---- 21-22. the row-layout sweeps, their round solves and main paths
     row_kernels = row_phases(torch, bt, hs, tmp)
+    elapsed("21-22")
+
+    # ---- 23. the marker-sharded driver and its chunked sweeps (#5, #6)
+    sharded_kernels = sharded_phases(torch, bt, hs, tmp, ms_iter_4,
+                                     mc["bayesr"]["ms_iter"])
+    elapsed("23")
     del hs
 
     # ---- 13-16. words with missing calls
     missing_kernels = missing_phases(torch, bt, tmp)
+    elapsed("13-16")
 
     src = "bayesrrcpp_tpu_torch/csrc/jacobi_t.cu"
     src_mc = "bayesrrcpp_tpu_torch/csrc/jacobi_t_mc.cu"
@@ -698,7 +741,8 @@ def smoke(torch, tmp):
     log(f"[total] {time.perf_counter() - START:.1f} s since the script "
         f"started")
     print(json.dumps({"kernels": kernels + serial_kernels
-                      + missing_kernels + dense_kernels + row_kernels}))
+                      + missing_kernels + dense_kernels + row_kernels
+                      + sharded_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -893,7 +937,8 @@ def fused_phases(torch, bt, kind, hs, tmp):
         + f"; device {dev_ms:.2f} ms of {wall_ms:.2f} ms wall")
     return dict(launches=launches, max_abs_err=max_err, ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=lib_ms * nr)
+                library_ms=lib_ms * nr,
+                ms_iter=wall / chain.max_iterations * 1e3)
 
 
 def serial_args(s, st, v, n=None):
@@ -1045,7 +1090,7 @@ def serial_phases(torch, bt, hs, tmp):
         g = torch.Generator(device=dev).manual_seed(20)
         v = bt.TorchVariates(g)
         st = s._run_steps(s.init(v), v, 2)
-        args, kw = make_args(s, st, v, 16)
+        args, kw = make_args(s, st, v, HEADLINE_PLAIN_BLOCKS)
         ker = tuple(single(*args, **kw))
         ref, plain_ms = timed(torch, lambda: tuple(plain(*args, **kw)), 1)
         rel_eps, rel_beta = rel_err(ker[0], ref[0]), rel_err(ker[1], ref[1])
@@ -1061,7 +1106,8 @@ def serial_phases(torch, bt, hs, tmp):
         blk_rows = border[0] * s.B + torch.arange(s.B, device=dev)
         lib_ms = dot_yardstick(torch, s, blk_rows, args[3]) * s.nb
         log(f"[10b] {kind} serial headline (sampler on phase 2's words "
-            f"{setup_s:.2f} s): 16 blocks vs plain: label agreement "
+            f"{setup_s:.2f} s): {HEADLINE_PLAIN_BLOCKS} blocks vs plain: "
+            f"label agreement "
             f"{agree:.6f}, |d eps|/|eps| {rel_eps:.3g}, |d beta|/|beta| "
             f"{rel_beta:.3g}, max abs err {max_err:.3g}, plain {plain_ms:.1f}"
             f" ms; full sweep ({s.nb} blocks, {s.nb * s.B} dependent steps) "
@@ -1072,7 +1118,8 @@ def serial_phases(torch, bt, hs, tmp):
         check(rel_eps < (1e-3 if kind == "bayesr" else 1e-4),
               f"[10b] {kind} eps rel diff {rel_eps}")
         records[kind] = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                             plain_blocks=16, sweep_blocks=int(s.nb),
+                             plain_blocks=HEADLINE_PLAIN_BLOCKS,
+                             sweep_blocks=int(s.nb),
                              dependent_steps=int(s.nb * s.B),
                              bound_ms=bound_ms, bound_by=bound_by,
                              library_ms=lib_ms)
@@ -1083,7 +1130,7 @@ def serial_phases(torch, bt, hs, tmp):
         st8 = s.init(v8, chains=CHAINS)
         for _ in range(2):
             st8 = s.step_chains(st8, v8)
-        args, kw = make_args(s, st8, v8, 16)
+        args, kw = make_args(s, st8, v8, HEADLINE_PLAIN_BLOCKS)
         ker = tuple(fused(*args, **kw))
         ref, fplain_ms = timed(torch, lambda: tuple(fused_plain(*args, **kw)),
                                1)
@@ -1106,11 +1153,13 @@ def serial_phases(torch, bt, hs, tmp):
         fbound = sweep_bound(s, CHAINS, fmoved, arrays,
                              int((full[1] != args[4]).any(dim=0).sum()))
         flib_ms = dot_yardstick(torch, s, blk_rows, args[3]) * s.nb
-        log(f"[11b] {kind} fused C={CHAINS} serial headline: 16 blocks vs "
-            f"plain: label agreement {fagree:.6f}, |d eps|/|eps| {frel:.3g},"
-            f" max abs err {ferr:.3g}, plain {fplain_ms:.1f} ms; chains "
-            f"bitwise equal to the single-chain serial kernel: {bitwise} (16"
-            f" blocks), {bitwise_full} (full sweep); full sweep {fms:.3f} ms"
+        log(f"[11b] {kind} fused C={CHAINS} serial headline: "
+            f"{HEADLINE_PLAIN_BLOCKS} blocks vs plain: label agreement "
+            f"{fagree:.6f}, |d eps|/|eps| {frel:.3g}, max abs err "
+            f"{ferr:.3g}, plain {fplain_ms:.1f} ms; chains bitwise equal to "
+            f"the single-chain serial kernel: {bitwise} "
+            f"({HEADLINE_PLAIN_BLOCKS} blocks), {bitwise_full} (full sweep); "
+            f"full sweep {fms:.3f} ms"
             f", {CHAINS} single-chain sweeps {singles_ms:.3f} ms, bound "
             f"{fbound[0]:.3f} ms ({fbound[1]}, {fmoved} moved), dot "
             f"yardstick {flib_ms:.3f} ms")
@@ -1119,7 +1168,8 @@ def serial_phases(torch, bt, hs, tmp):
         check(frel < (1e-3 if kind == "bayesr" else 1e-4),
               f"[11b] {kind} eps rel diff {frel}")
         records[kind + "_mc"] = dict(
-            max_abs_err=ferr, ms=fms, plain_ms=fplain_ms, plain_blocks=16,
+            max_abs_err=ferr, ms=fms, plain_ms=fplain_ms,
+            plain_blocks=HEADLINE_PLAIN_BLOCKS,
             sweep_blocks=int(s.nb), dependent_steps=int(s.nb * s.B),
             bound_ms=fbound[0], bound_by=fbound[1], library_ms=flib_ms)
         del args, full, ker, ref, ones, st8
@@ -1734,7 +1784,7 @@ def missing_phases(torch, bt, tmp):
         g = torch.Generator(device=dev).manual_seed(61)
         v = bt.TorchVariates(g)
         st = sj._run_steps(sj.init(v), v, 2)
-        args, kw = make_args(sj, st, v, 16)
+        args, kw = make_args(sj, st, v, HEADLINE_PLAIN_BLOCKS)
         ker = tuple(single(*args, **kw))
         ref, plain_ms = timed(torch, lambda: tuple(plain(*args, **kw)), 1)
         rel_eps = rel_err(ker[0], ref[0])
@@ -1750,7 +1800,8 @@ def missing_phases(torch, bt, tmp):
         blk_rows = border[0] * sj.B + torch.arange(sj.B, device=dev)
         lib_ms = dot_yardstick(torch, sj, blk_rows, args[3]) * sj.nb
         log(f"[15b] {kind} in-kernel decode at the headline (sampler "
-            f"{sj_setup:.2f} s): 16 blocks vs plain: label agreement "
+            f"{sj_setup:.2f} s): {HEADLINE_PLAIN_BLOCKS} blocks vs plain: "
+            f"label agreement "
             f"{agree:.6f}, |d eps|/|eps| {rel_eps:.3g}, max abs err "
             f"{max_err:.3g}, plain {plain_ms:.1f} ms; full sweep {ms:.3f} "
             f"ms, bound {bound[0]:.3f} ms ({bound[1]}, {moved} moved), dot "
@@ -1759,7 +1810,8 @@ def missing_phases(torch, bt, tmp):
         check(rel_eps < (1e-3 if kind == "bayesr" else 1e-4),
               f"[15b] {kind} eps rel diff {rel_eps}")
         records[kind + "_q"] = dict(
-            max_abs_err=max_err, ms=ms, plain_ms=plain_ms, plain_blocks=16,
+            max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+            plain_blocks=HEADLINE_PLAIN_BLOCKS,
             sweep_blocks=int(sj.nb), dependent_steps=int(sj.nb * sj.B),
             bound_ms=bound[0], bound_by=bound[1], library_ms=lib_ms)
         del sj, st, args, full, ker, ref
@@ -2887,6 +2939,482 @@ def row_phases(torch, bt, hs, tmp):
     return [dict({"name": name, "route": "cuda", "source": src,
                   "replaces": where}, **records[key])
             for key, (name, where) in names.items()]
+
+
+# ---------------------------------------------------------------- phase 23
+
+# the Dm = 2 check on one card (23d): N x M words, each of the two slices
+# 8,192 markers (the "t" plan J=32, B=32, nr=8), 3 steps
+DM2_N, DM2_M, DM2_STEPS = 4096, 16_384, 3
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def in_turn(fn, args, kw, size):
+    """The rounds ``args[6]`` of a sweep through ``fn`` (a rounds entry
+    point) in chunks of ``size``, one after the other, eps, beta and labels
+    handed on: the last chunk's result with v and bacc summed."""
+    a, rho = list(args), args[6]
+    v = bacc = 0
+    for c0 in range(0, rho.numel(), size):
+        a[6] = rho[c0:c0 + size]
+        res = fn(*a, **kw)
+        a[3], a[4], a[5] = res.eps, res.beta, res.labels
+        v, bacc = v + res.v, bacc + res.beta_acum
+    return res._replace(v=v, beta_acum=bacc)
+
+
+def chunk_rounds(torch, s, args, kw):
+    """``strided_rounds`` of a chunk of rounds: ``args[6]`` holds the chunk's
+    global round ids of a sweep of ``kw["nr_total"]``; markers outside the
+    chunk fall past its last round."""
+    rho = args[6].long()
+    nrc, B, J, nr = rho.numel(), s.B, kw["J"], kw["nr_total"]
+    round_of_slab = torch.full((nr,), nrc, dtype=torch.long,
+                               device=rho.device)
+    round_of_slab[rho] = torch.arange(nrc, device=rho.device)
+    marker = torch.arange(args[4].shape[-1], device=rho.device)
+
+    def blocks(r):
+        slab = int(rho[r])
+        return [(j * nr + slab, (slab * J + j) * B) for j in range(J)]
+
+    return round_of_slab[marker // B % nr], nrc, blocks
+
+
+def rounds_fns(jt, C):
+    """(the rounds kernel, its plain version, the whole-sweep kernel) of
+    one chain (``C`` None) or of fused chains."""
+    if C is None:
+        return (jt.bayesr_jacobi_t_rounds, jt.bayesr_jacobi_t_rounds_reference,
+                jt.bayesr_jacobi_t)
+    return (jt.bayesr_jacobi_t_mc_rounds,
+            jt.bayesr_jacobi_t_mc_rounds_reference, jt.bayesr_jacobi_t_mc)
+
+
+def rounds_gates(torch, tag, ker, ref):
+    """A chunk's kernel against its plain version: labels and v equal, eps
+    and beta to 1e-4 of their norms (phases 2a and 17a).  Returns the
+    largest |d| of eps and beta."""
+    check(torch.equal(ker.labels, ref.labels), f"{tag} labels differ")
+    check(torch.equal(ker.v, ref.v), f"{tag} v differ")
+    for name in ("eps", "beta"):
+        rel = rel_err(getattr(ker, name), getattr(ref, name))
+        check(rel < 1e-4, f"{tag} {name} rel diff {rel}")
+    return max(float((ker.eps - ref.eps).abs().max()),
+               float((ker.beta - ref.beta).abs().max()))
+
+
+def same_bits(torch, tag, a, b, names=("eps", "beta", "labels", "v",
+                                         "beta_acum")):
+    for name in names:
+        check(torch.equal(getattr(a, name), getattr(b, name)),
+              f"{tag} {name} not bitwise equal: max |d| "
+              f"{float((getattr(a, name) - getattr(b, name)).abs().max())}")
+
+
+def rounds_small(torch, bt, jt):
+    """23a at N=4096 x M=8192 (2-bit fold and ``miss``) and N=4001 x M=8192
+    (dense rows), plan J=32, B=32, nr=8: #5 and #6 (C=8) against their
+    plain versions for chunks of 1, 3 and 8 rounds; the chunk of every
+    round bitwise equal to ``bayesr_jacobi_t`` / ``_mc``; chunks of 3, 3
+    and 2 run in turn bitwise equal to the whole sweep in eps, beta and
+    labels (v equal, bacc to 1e-6 of itself: each chunk sums its own
+    blocks); each fused chain of a chunk bitwise equal to #5 on its
+    operands."""
+    dev = torch.device("cuda")
+    worst = 0.0
+    for i, mode in enumerate(("fold", "miss", "dense")):
+        g = torch.Generator(device=dev).manual_seed(230 + i)
+        if mode == "dense":
+            s = dense_sampler(torch, bt, g, 4001, 8192, bt.BayesRConfig())
+        else:
+            s = packed_sampler(torch, bt, g, 4096, 8192, bt.BayesRConfig(),
+                               missing=mode == "miss")
+        check((s.jacobi, s.B, s.jacobi_layout) == (32, 32, "t")
+              and s.data.has_missing == (mode == "miss"),
+              f"[23a] {mode} plan {(s.jacobi, s.B, s.jacobi_layout)}")
+        nr = s.nb // s.jacobi
+        for C in (None, CHAINS):
+            v = bt.TorchVariates(g, chains=C)
+            st = s.init(v, chains=C)
+            for _ in range(3):
+                st = s.step(st, v) if C is None else s.step_chains(st, v)
+            args, kw = sweep_args(s, st, v)
+            rkw = dict(kw, nr_total=nr)
+            rounds, plain, whole = rounds_fns(jt, C)
+            tag = f"[23a] {mode} C={C or 1}"
+            for nrc in (1, 3, nr):
+                a = list(args)
+                a[6] = args[6][:nrc]
+                worst = max(worst, rounds_gates(
+                    torch, f"{tag} nrc={nrc}", rounds(*a, **rkw),
+                    plain(*a, **rkw)))
+            full = whole(*args, **kw)
+            same_bits(torch, f"{tag} nrc=nr vs the whole-sweep kernel",
+                      rounds(*args, **rkw), full)
+            turn = in_turn(rounds, args, rkw, 3)
+            same_bits(torch, f"{tag} chunks in turn vs the whole sweep", turn,
+                      full, ("eps", "beta", "labels", "v"))
+            check(torch.allclose(turn.beta_acum, full.beta_acum, rtol=1e-6,
+                                 atol=0.0), f"{tag} chunks in turn: bacc")
+            if C is not None:
+                a = list(args)
+                a[6] = args[6][:3]
+                fused = rounds(*a, **rkw)
+                for c in range(C):
+                    one = jt.bayesr_jacobi_t_rounds(
+                        *chain_args(a, c, BAYESR_CHAIN_ARGS), **rkw)
+                    same_bits(torch, f"{tag} chain {c} vs #5",
+                              one, type(one)(*(x[c] for x in fused)))
+        log(f"[23a] {mode} N={s.N} M={s.M} (nr={nr}): #5 and #6 (C={CHAINS}) "
+            f"vs plain for 1, 3, {nr} rounds: labels and v equal; nrc=nr and "
+            f"chunks of 3 in turn bitwise equal to the whole sweep; fused "
+            f"chains bitwise equal to #5")
+        del s, st, args
+    return worst
+
+
+def sharded_sampler(torch, bt, hs, mesh):
+    """``biobank-sharded-m1``'s sampler: the headline words of ``hs`` (phase
+    2's) on the (1, 1) mesh ``mesh``, ``transposed=True, has_missing=False``
+    as bench.py:224-227; returns (sampler, setup seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sh = bt.ShardedSpikeSlabSampler(
+        hs.data.XT, hs.Y[:hs.N], CVA, bt.BayesRConfig(emit_epsilon=False),
+        mesh, backend="pallas", x_dtype="2bit", transposed=True,
+        x_stats=bt.simulate.packed_word_stats(HEADLINE_M), has_missing=False)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    check((sh.jacobi, sh.B, sh.Mpad, sh.Mloc, sh.strided) ==
+          (128, 32, HEADLINE_M, HEADLINE_M, True),
+          f"[23b] plan {(sh.jacobi, sh.B, sh.Mpad, sh.Mloc)}")
+    check(sh._nrc(sh.nb // sh.jacobi) == sh.nb // sh.jacobi,
+          "[23b] Dm = 1 sweeps in one chunk")
+    return sh, setup_s
+
+
+def rounds_headline(torch, bt, jt, sh):
+    """23a at the headline on the sharded sampler's data (phase 2's words):
+    #5 and #6 (C=8) over all 123 rounds timed (mean of 3) and bitwise equal
+    to #1 / #3, timed on the same inputs; their first 8 rounds as chunks of
+    2 in turn against the
+    plain version of those rounds, chain by chain under phase 13b's gates
+    (``held_per_chain``: a flip replayed by ``flip_replay`` and judged a
+    near tie).  Returns the two kernels' JSON numbers but launches."""
+    dev = torch.device("cuda")
+    d = sh.data
+    nr = sh.nb // sh.jacobi
+    records = {}
+    for C in (None, CHAINS):
+        g = torch.Generator(device=dev).manual_seed(233)
+        v = bt.TorchVariates(g, chains=C)
+        st = sh.init(v, chains=C)
+        for _ in range(2):
+            st = sh.step(st, v) if C is None else sh.step_chains(st, v)
+        rho, inner = v.orders(sh.nb, sh.B, sh.jacobi)
+        args = (d.XT, d.gram, d.xsq, st.eps, st.beta, st.labels, rho, inner,
+                v.p(sh.Mloc), v.z(sh.Mloc), st.pi, d.cva, st.sigmaE,
+                st.sigmaGG, d.g_assign, d.valid)
+        kw = dict(J=sh.jacobi, **sh._sweep_kw())
+        rkw = dict(kw, nr_total=nr)
+        rounds, plain, whole = rounds_fns(jt, C)
+        tag = f"[23a] headline C={C or 1}"
+        full, ms = timed(torch, lambda: rounds(*args, **rkw), 3)
+        ones, whole_ms = timed(torch, lambda: whole(*args, **kw), 3)
+        same_bits(torch, f"{tag} nrc=nr vs the whole-sweep kernel", full,
+                  ones)
+        a8 = list(args)
+        a8[6] = rho[:8]
+        ker = in_turn(rounds, a8, rkw, 2)
+        ref, plain_ms = timed(torch, lambda: plain(*a8, **rkw), 1)
+        agree = float((ker.labels == ref.labels).float().mean())
+        check(agree >= 0.999, f"{tag} label agreement {agree}")
+        single = (lambda *a, **k: in_turn(jt.bayesr_jacobi_t_rounds, a, k,
+                                          2),
+                  jt.bayesr_jacobi_t_rounds_reference)
+        flips = held_per_chain(torch, sh, tag, a8, rkw, ker, ref,
+                               None if C is None else BAYESR_CHAIN_ARGS,
+                               single, chunk_rounds)
+        max_err = max(float((ker.eps - ref.eps).abs().max()),
+                      float((ker.beta - ref.beta).abs().max()))
+        moved = int((full.beta != st.beta).sum())
+        bound_ms, bound_by = sweep_bound(sh, C or 1, moved, 6)
+        lib_ms = dot_yardstick(torch, sh, round_rows(torch, sh, rho[0]),
+                               st.eps) * nr
+        log(f"{tag}: all {nr} rounds {ms:.3f} ms, bitwise equal to the "
+            f"whole-sweep kernel on the same inputs, {whole_ms:.3f} ms "
+            f"({ms / whole_ms:.4f}x); bound {bound_ms:.3f} ms ({bound_by}, "
+            f"{moved} markers moved), dot yardstick {lib_ms:.3f} ms; 8 "
+            f"rounds as chunks of 2 vs plain ({plain_ms:.1f} ms): label "
+            f"agreement {agree:.6f}, |d eps|/|eps| "
+            f"{rel_err(ker.eps, ref.eps):.3g}, max abs err {max_err:.3g}, "
+            f"chains with a flip {[c for c, _ in flips]}")
+        records[C] = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                          plain_rounds=8, bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=lib_ms)
+        del st, args, a8, full, ker, ref
+    return records
+
+
+def sharded_main_paths(torch, bt, jt, sh, setup_s, tmp, ms_iter_4,
+                       ms_iter_8c):
+    """23b / 23c: ``biobank-sharded-m1`` through ``run`` (ChainConfig(30, 10,
+    10)) into a CSVSink and ``run_chains`` of 8 into a ChainFanoutSink,
+    the rounds kernels' counts set to 0 just before each; CSV widths,
+    finite values, tracked vs recomputed eps, launch counts; ms/iter
+    against phase 4's and 8c's from this run; a profile of 2 steps (dot /
+    solve / apply / the NCCL all-reduce, idle).  Returns the launches of
+    #5 and #6."""
+    from bayesrrcpp_tpu_torch.io.sink import ChainFanoutSink, CSVSink
+
+    nr = sh.nb // sh.jacobi
+    chain = bt.ChainConfig(30, 10, 10)
+    launches = {}
+    for C, counter in ((None, jt.bayesr_jacobi_t_rounds),
+                       (CHAINS, jt.bayesr_jacobi_t_mc_rounds)):
+        g = torch.Generator(device="cuda").manual_seed(234)
+        ph = "23b" if C is None else "23c"
+        other = jt.bayesr_jacobi_t if C is None else jt.bayesr_jacobi_t_mc
+        other.launches = 0
+        if C is None:
+            path = os.path.join(tmp, "sharded_m1.csv")
+            sink = CSVSink(path, "bayesr", M=sh.M, N=sh.N, emit_epsilon=False)
+            run = lambda sk: sh.run(g, chain, sink=sk)  # noqa: E731
+            paths = [path]
+        else:
+            sink = ChainFanoutSink.csv(os.path.join(tmp, "sharded_m1_8.csv"),
+                                       C, "bayesr", M=sh.M, N=sh.N,
+                                       emit_epsilon=False)
+            run = lambda sk: sh.run_chains(g, C, chain,  # noqa: E731
+                                           sink=sk)
+            paths = sink.paths
+        st, out, wall, n_launch, peak = main_path(torch, run, sink, counter)
+        want = jt.LAUNCHES_PER_ROUND * nr * chain.max_iterations
+        check(n_launch == want, f"[{ph}] launches {n_launch} != {want}")
+        check(other.launches == 0, f"[{ph}] the whole-sweep kernel ran")
+        for p in paths:
+            header, widths, bad = read_csv(p)
+            check(len(header) == 2 + 2 * sh.M + 2,
+                  f"[{ph}] header width {len(header)}")
+            check(widths == [len(header)] * 2 and not bad,
+                  f"[{ph}] rows {widths}, non-finite {bad}")
+        check(all(np_finite(x) for x in out.values()),
+              f"[{ph}] non-finite output")
+        ex = sh.refresh_eps(st).eps
+        rel = float((torch.linalg.norm(st.eps - ex, dim=-1)
+                     / torch.linalg.norm(ex, dim=-1)).max())
+        check(rel < 1e-4, f"[{ph}] tracked eps vs recompute {rel}")
+        ms_iter = wall / chain.max_iterations * 1e3
+        ref = ms_iter_4 if C is None else ms_iter_8c
+        cell = "biobank-sharded-m1" + ("" if C is None else f"-{C}chain")
+        log(f"[{ph}] {cell} main path: {ms_iter:.2f} ms/iter ({wall:.2f} s "
+            f"for {chain.max_iterations} iterations incl. CSV), setup "
+            f"{setup_s:.2f} s, peak {peak:.2f} GiB, launches {n_launch} "
+            f"(want {want}, {n_launch // chain.max_iterations} a step), "
+            f"tracked-vs-exact eps {rel:.3g}; against phase "
+            f"{'4' if C is None else '8c'}'s {ref:.2f} ms/iter: "
+            f"{ms_iter / ref:.4f}x")
+        names = (("dot_kernel", "solve_kernel", "apply_kernel")
+                 if C is None else ("dot_mc_kernel", "solve_mc_kernel",
+                                    "apply_mc_kernel"))
+        vv = sh.variates(g, C)
+
+        def two_steps(x=st):
+            for _ in range(2):
+                x = sh.step(x, vv) if C is None else sh.step_chains(x, vv)
+
+        split, dev_ms, wall_ms = profile_split(torch, two_steps,
+                                               names + ("nccl",))
+        check(profiled({n: split[n] for n in names}, 2 * nr),
+              f"[{ph}] profiled launches {split}")
+        log(f"[{ph}] profile of 2 steps: " + ", ".join(
+            f"{n} {us:.2f} us x {c}" for n, (us, c) in split.items())
+            + f"; device {dev_ms:.2f} ms of {wall_ms:.2f} ms wall, idle "
+            f"{1 - dev_ms / wall_ms:.3f}")
+        launches[C] = n_launch
+        del st, out
+    return launches
+
+
+def dm2_child(rank, port, out_path):
+    """One rank of 23d: a gloo group of two processes on the one card (NCCL
+    takes no two ranks on one device); every result or the error pickled
+    to ``out_path``."""
+    import pickle
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import bayesrrcpp_tpu_torch as bt
+    from bayesrrcpp_tpu_torch.ops import jacobi_t as jt
+    from bayesrrcpp_tpu_torch.parallel.distributed import initialize
+
+    res = {}
+    try:
+        initialize(f"tcp://127.0.0.1:{port}", 2, rank, backend="gloo")
+        mesh = bt.make_mesh(2, 1, device="cuda:0")
+        g = torch.Generator(device="cuda").manual_seed(23)
+        words = bt.simulate.random_packed_words(g, DM2_M, DM2_N // 16,
+                                                device="cuda")
+        Y = torch.randn(DM2_N, generator=g, device="cuda")
+        stats = bt.simulate.packed_word_stats(DM2_M)
+        for chunk in (None, 32):
+            s = bt.ShardedSpikeSlabSampler(
+                words, Y, CVA, bt.BayesRConfig(), mesh, backend="pallas",
+                x_dtype="2bit", transposed=True, x_stats=stats,
+                chunk_blocks=chunk)
+            nr = s.nb // s.jacobi
+            nrc = s._nrc(nr)
+            res[chunk, "plan"] = (s.jacobi, s.B, s.Mloc, nr, nrc)
+            for C in (None, 4):
+                gen = torch.Generator(device="cuda").manual_seed(7)
+                v = s.variates(gen, C)
+                st = s.init(v, chains=C)
+                # the first chunk call against its plain version
+                lv = v.loc
+                rho, inner = lv.orders(s.nb, s.B, s.jacobi)
+                d = s.data
+                args = (d.XT, d.gram, d.xsq, st.eps, st.beta, st.labels,
+                        rho[:nrc], inner, lv.p(s.Mloc), lv.z(s.Mloc), st.pi,
+                        d.cva, st.sigmaE, st.sigmaGG, d.g_assign, d.valid)
+                rounds, plain, _ = rounds_fns(jt, C)
+                rkw = dict(J=s.jacobi, nr_total=nr, **s._sweep_kw())
+                res[chunk, C, "max_err"] = rounds_gates(
+                    torch, f"[23d] rank {rank} chunk {chunk} C={C or 1}",
+                    rounds(*args, **rkw), plain(*args, **rkw))
+                rounds.launches = 0
+                steps = []
+                for _ in range(DM2_STEPS):
+                    st = s.step(st, v) if C is None else s.step_chains(st, v)
+                    steps.append({k: getattr(st, k).cpu().numpy() for k in
+                                  ("mu", "sigmaE", "sigmaGG", "pi", "eps")})
+                ex = s.refresh_eps(st).eps
+                res[chunk, C, "rel_eps"] = rel_err(st.eps, ex)
+                res[chunk, C, "steps"] = steps
+                res[chunk, C, "launches"] = rounds.launches
+        dist.barrier()
+    except Exception as e:  # noqa: BLE001 -- handed to the parent, which fails
+        res = {"error": f"rank {rank}: {e!r}\n{traceback.format_exc()}"}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    with open(out_path, "wb") as f:
+        pickle.dump(res, f)
+
+
+def dm2_phase(torch, tmp):
+    """23d: Dm = 2 on the one card, two spawned ranks of a gloo group over
+    CUDA tensors, N=4096 x M=16,384 words, chunk_blocks
+    128 (2 chunks of 4 rounds) and 32 (8 chunks of 1), one chain and C=4,
+    3 steps: the replicated scalars and eps bitwise equal on both ranks
+    after every step, tracked eps against ``refresh_eps`` < 1e-4, each
+    rank's first chunk call against its plain version, the launch counts.
+    A failure in a child fails the run."""
+    import multiprocessing as mp
+    import pickle
+
+    import numpy as np
+
+    from bayesrrcpp_tpu_torch.ops.jacobi_t import LAUNCHES_PER_ROUND
+
+    port = free_port()
+    outs = [os.path.join(tmp, f"dm2_rank{r}.pkl") for r in range(2)]
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=dm2_child, args=(r, port, outs[r]))
+             for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(600)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    wall = time.perf_counter() - t0
+    ranks = []
+    for r, path in enumerate(outs):
+        check(os.path.exists(path), f"[23d] rank {r} wrote no result (exit "
+              f"code {procs[r].exitcode})")
+        with open(path, "rb") as f:
+            ranks.append(pickle.load(f))
+        check("error" not in ranks[r], ranks[r].get("error", ""))
+    a, b = ranks
+    log(f"[23d] two ranks on one card, gloo all-reducing their CUDA "
+        f"tensors ({wall:.1f} s with start-up)")
+    for chunk in (None, 32):
+        J, B, Mloc, nr, nrc = a[chunk, "plan"]
+        check(a[chunk, "plan"] == b[chunk, "plan"] and (J, B, Mloc) ==
+              (32, 32, DM2_M // 2) and nrc < nr,
+              f"[23d] plan {a[chunk, 'plan']} / {b[chunk, 'plan']}")
+        for C in (None, 4):
+            for i, (x, y) in enumerate(zip(a[chunk, C, "steps"],
+                                           b[chunk, C, "steps"])):
+                for k in x:
+                    check(np.array_equal(x[k], y[k]),
+                          f"[23d] chunk_blocks {chunk} C={C or 1} step {i}: "
+                          f"{k} differs between the ranks")
+            rels = [r[chunk, C, "rel_eps"] for r in ranks]
+            check(max(rels) < 1e-4, f"[23d] tracked eps vs recompute {rels}")
+            want = LAUNCHES_PER_ROUND * nr * DM2_STEPS
+            got = [r[chunk, C, "launches"] for r in ranks]
+            check(got == [want, want], f"[23d] launches {got} != {want}")
+            log(f"[23d] chunk_blocks {chunk or 128} ({nr // nrc} chunks of "
+                f"{nrc} rounds), C={C or 1}: scalars and eps bitwise equal "
+                f"on both ranks after each of {DM2_STEPS} steps, tracked vs "
+                f"recomputed eps {max(rels):.3g}, launches {got}; first "
+                f"chunk vs plain max |d| "
+                + ", ".join(f"{r[chunk, C, 'max_err']:.3g}" for r in ranks))
+
+
+def sharded_phases(torch, bt, hs, tmp, ms_iter_4, ms_iter_8c):
+    """Phase 23 (module docstring): the chunked sweeps #5 and #6 and the
+    marker-sharded driver, on a real one-rank NCCL group for Dm = 1 (the
+    collectives are launched) and on two gloo ranks for Dm = 2.  Returns
+    the two kernels' JSON records."""
+    import torch.distributed as dist
+
+    from bayesrrcpp_tpu_torch.ops import jacobi_t as jt
+    from bayesrrcpp_tpu_torch.parallel.distributed import initialize
+
+    worst_small = rounds_small(torch, bt, jt)
+    log(f"[23a] N=4096/4001 x M=8192: max |d| vs plain {worst_small:.3g}")
+    initialize(f"tcp://127.0.0.1:{free_port()}", 1, 0, backend="nccl")
+    try:
+        mesh = bt.make_mesh(1, 1, device="cuda:0")
+        check(mesh.group is not None, "[23b] no process group")
+        sh, setup_s = sharded_sampler(torch, bt, hs, mesh)
+        check(sh.data.XT.data_ptr() == hs.data.XT.data_ptr(),
+              "[23b] words copied")
+        launches = sharded_main_paths(torch, bt, jt, sh, setup_s, tmp,
+                                      ms_iter_4, ms_iter_8c)
+        records = rounds_headline(torch, bt, jt, sh)
+        del sh
+    finally:
+        dist.destroy_process_group()
+    dm2_phase(torch, tmp)
+    tpu = "bayesrrcpp_tpu/ops/pallas_jacobi_t.py"
+    out = []
+    for C, name, src, where in (
+            (None, "jacobi_t_rounds", "jacobi_t.cu", 2229),
+            (CHAINS, "jacobi_t_mc_rounds", "jacobi_t_mc.cu", 2403)):
+        out.append(dict({"name": name, "route": "cuda",
+                         "source": f"bayesrrcpp_tpu_torch/csrc/{src}",
+                         "replaces": f"{tpu}:{where}",
+                         "launches": launches[C]}, **records[C]))
+    return out
 
 
 def np_finite(a):

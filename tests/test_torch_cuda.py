@@ -16,7 +16,8 @@ They cover what chip_smoke.py's shapes do not: blocks narrower than a warp
 last word tile (pad lanes), each also on words with ~3 % missing calls
 (the strided kernels' ``miss`` mode, the serial kernel's in-kernel decode),
 and the dense mode of every kernel on f32 rows of an N that is or is not a
-multiple of 4.
+multiple of 4; and the chunked forms of the strided BayesR sweeps (sites
+#5 and #6).
 Tolerances: labels and v exact, floats to f32 reassociation (the kernel
 sums the dot in another order).
 """
@@ -27,8 +28,11 @@ import torch
 from bayesrrcpp_tpu_torch.ops import genotypes
 from bayesrrcpp_tpu_torch.ops.jacobi_t import (
     bayesr_jacobi_t, bayesr_jacobi_t_mc, bayesr_jacobi_t_mc_reference,
-    bayesr_jacobi_t_reference, horseshoe_jacobi_t, horseshoe_jacobi_t_mc,
-    horseshoe_jacobi_t_mc_reference, horseshoe_jacobi_t_reference)
+    bayesr_jacobi_t_mc_rounds, bayesr_jacobi_t_mc_rounds_reference,
+    bayesr_jacobi_t_reference, bayesr_jacobi_t_rounds,
+    bayesr_jacobi_t_rounds_reference, horseshoe_jacobi_t,
+    horseshoe_jacobi_t_mc, horseshoe_jacobi_t_mc_reference,
+    horseshoe_jacobi_t_reference)
 
 
 @pytest.fixture
@@ -123,6 +127,52 @@ def _hs_case(seed, J, B, nr, N, dev, tau=0.05, missing=False):
     # words, gram, xsq, eps, beta, rho, inner, z, lam, tau, c2, sigmaE, valid
     return (args[:5] + args[6:8] + (args[9], lam, t(tau), t(1.5), args[12],
                                     args[15])), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [None, 3, 17])
+@pytest.mark.parametrize("missing", [False, True])
+def test_rounds_kernels_match_plain(cuda, missing, C):
+    """Sites #5 and #6: chunks of 1 and 3 of a sweep's 6 rounds against
+    their plain versions (labels and v exact, floats to f32
+    reassociation); the chunk of every round bitwise equal to the
+    whole-sweep kernel; chunks run in turn bitwise equal to it in eps,
+    beta and labels; C=17 runs as groups of 16 and 1."""
+    J, B, nr = 4, 16, 6
+    if C is None:
+        args, kw = _case(5 + missing, J, B, 2, 4, nr, 1500, cuda, missing)
+        fns = (bayesr_jacobi_t_rounds, bayesr_jacobi_t_rounds_reference,
+               bayesr_jacobi_t)
+    else:
+        args, kw = _mc_case(5 + C, J, B, 2, 4, nr, 1500, C, cuda, missing)
+        fns = (bayesr_jacobi_t_mc_rounds, bayesr_jacobi_t_mc_rounds_reference,
+               bayesr_jacobi_t_mc)
+    rounds, plain, whole = fns
+    rkw = dict(kw, nr_total=nr)
+    for nrc in (1, 3):
+        a = list(args)
+        a[6] = args[6][:nrc]
+        before = rounds.launches
+        ker, ref = rounds(*a, **rkw), plain(*a, **rkw)
+        torch.cuda.synchronize()
+        assert rounds.launches == before + 3 * nrc * -(-(C or 1) // 16)
+        assert torch.equal(ker.labels, ref.labels)
+        assert torch.equal(ker.v, ref.v)
+        torch.testing.assert_close(ker.beta, ref.beta, rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(ker.eps, ref.eps, rtol=1e-4, atol=1e-5)
+    full = whole(*args, **kw)
+    for a, b in zip(rounds(*args, **rkw), full):
+        assert torch.equal(a, b)
+    a = list(args)
+    v = 0
+    for c0 in range(0, nr, 4):
+        a[6] = args[6][c0:c0 + 4]
+        res = rounds(*a, **rkw)
+        a[3], a[4], a[5] = res.eps, res.beta, res.labels
+        v = v + res.v
+    for name in ("eps", "beta", "labels"):
+        assert torch.equal(getattr(res, name), getattr(full, name)), name
+    assert torch.equal(v, full.v)
 
 
 @pytest.mark.cuda

@@ -1,0 +1,278 @@
+"""Helpers of tests/test_torch_sharded*.py: the JAX sharded sampler's draws
+for one m-slice, and the child process of the two-rank (2, 1) mesh runs.
+
+``JaxSliceReplay`` re-derives, from the JAX sampler's key, every draw that
+``bayesrrcpp_tpu/parallel/sharded.py`` makes for slice ``m`` (init :480-482,
+``_pre_marker`` :506-513, the single-chain sweep keys :546-559, the fused
+ones :860-871, ``_hypers`` :816-836), under the roles of the port's
+``SliceVariates``, so that the port's sharded sampler steps with JAX's own
+variates.  ``child_main`` is one rank of a gloo group: it builds the port
+sampler on the case's data, carries JAX's data and init state across
+(``convert.sharded_data_from_jax`` / ``sharded_state_from_jax``), steps
+with the replay and writes its states to a file the parent compares with
+JAX's.  Not collected by pytest (no ``test_`` prefix).
+"""
+from __future__ import annotations
+
+import os
+import pickle
+
+import numpy as np
+
+
+def _jax():
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_enable_x64", True)
+    return jax
+
+
+class JaxSliceReplay:
+    """JAX's draws for m-slice ``m`` from ``key``; ``chains=C``: the fused
+    sampler's, chain c from ``jax.random.split(key, C)[c]`` (JAX's
+    ``init_chains``), the visit order from chain 0."""
+
+    def __init__(self, key, m: int, chains=None):
+        jax = _jax()
+        self.m = m
+        self.chains = chains
+        self.keys = ([key] if chains is None
+                     else list(jax.random.split(key, chains)))
+
+    @staticmethod
+    def _t(x):
+        import torch
+
+        return torch.as_tensor(np.array(x, np.float32))
+
+    def _stack(self, xs):
+        import torch
+
+        return xs[0] if self.chains is None else torch.stack(xs)
+
+    def init_sigmaGG(self, G):
+        jax = _jax()
+        import jax.numpy as jnp
+
+        from bayesrrcpp_tpu import distributions as jdist
+
+        out = []
+        for c, key in enumerate(self.keys):
+            self.keys[c], kG, _ = jax.random.split(key, 3)
+            out.append(self._t(jax.vmap(
+                lambda k: jdist.beta_rng(k, 1.0, 1.0, dtype=jnp.float32))(
+                    jax.random.split(kG, G))))
+        return self._stack(out)
+
+    def begin_step(self):
+        jax = _jax()
+        self.step_keys = []
+        for c, key in enumerate(self.keys):
+            ks = jax.random.split(key, 9)
+            self.keys[c] = ks[0]
+            self.step_keys.append(ks)
+        ksweep = [jax.random.fold_in(ks[4], self.m)
+                  for ks in self.step_keys]
+        if self.chains is None:
+            self.kb, self.ki, kp, kz = jax.random.split(ksweep[0], 4)
+            self.kp, self.kz = [kp], [kz]
+        else:
+            self.kb, self.ki = jax.random.split(ksweep[0], 2)
+            pz = [jax.random.split(k, 2) for k in ksweep]
+            self.kp, self.kz = [k[0] for k in pz], [k[1] for k in pz]
+
+    def mu_noise(self):
+        jax = _jax()
+        import jax.numpy as jnp
+
+        return self._stack([self._t(jax.random.normal(ks[1], (), jnp.float32))
+                            for ks in self.step_keys])
+
+    def orders(self, nb, B, J):
+        import torch
+
+        jax = _jax()
+        import jax.numpy as jnp
+
+        rho = jax.random.permutation(self.kb, nb // J)
+        inner = jnp.argsort(jax.random.uniform(self.ki, (nb, B)), axis=1)
+        return (torch.as_tensor(np.array(rho, np.int32)),
+                torch.as_tensor(np.array(inner, np.int32)))
+
+    def block_orders(self, nb, B):
+        import torch
+
+        jax = _jax()
+        border = jax.random.permutation(self.kb, nb)
+        inner = jax.vmap(lambda k: jax.random.permutation(k, B))(
+            jax.random.split(self.ki, nb))
+        return (torch.as_tensor(np.array(border, np.int32)),
+                torch.as_tensor(np.array(inner, np.int32)))
+
+    def p(self, n):
+        jax = _jax()
+        import jax.numpy as jnp
+
+        return self._stack([self._t(jax.random.uniform(k, (n,), jnp.float32))
+                            for k in self.kp])
+
+    def z(self, n):
+        jax = _jax()
+        import jax.numpy as jnp
+
+        return self._stack([self._t(jax.random.normal(k, (n,), jnp.float32))
+                            for k in self.kz])
+
+    def sigmaE_gamma(self, shape):
+        jax = _jax()
+        import jax.numpy as jnp
+
+        # f64 under x64: the JAX draw's dof is a python float
+        return self._stack([self._t(jax.random.gamma(
+            ks[5], jnp.asarray(shape, jnp.float64)))
+            for ks in self.step_keys])
+
+    def _per_group(self, idx, arr):
+        jax = _jax()
+        import jax.numpy as jnp
+
+        arr = arr.numpy()
+        out = []
+        for c, ks in enumerate(self.step_keys):
+            a = arr if self.chains is None else arr[c]
+            out.append(self._t(jax.vmap(jax.random.gamma)(
+                jax.random.split(ks[idx], a.shape[0]),
+                jnp.asarray(a, jnp.float32))))
+        return self._stack(out)
+
+    def sigmaG_gamma(self, shapes):
+        return self._per_group(7, shapes)
+
+    def pi_gamma(self, alpha):
+        return self._per_group(8, alpha)
+
+
+def np_state(st) -> dict:
+    """A port or JAX state as a dict of NumPy arrays."""
+    d = st._asdict() if hasattr(st, "_asdict") else vars(st)
+    return {k: np.array(v) for k, v in d.items()}
+
+
+def port_sampler(case: dict, mesh, device="cpu"):
+    """The port's sampler on the case's data, then JAX's slice data carried
+    across (the sweep inputs exactly; the port's own are checked by the
+    caller against them)."""
+    from bayesrrcpp_tpu_torch import BayesRConfig
+    from bayesrrcpp_tpu_torch.convert import sharded_data_from_jax
+    from bayesrrcpp_tpu_torch.parallel import ShardedSpikeSlabSampler
+
+    s = ShardedSpikeSlabSampler(
+        case["X"], case["Y"], case["cva"],
+        BayesRConfig(block_size=case["block_size"]), mesh,
+        backend=case["backend"], x_dtype=case["x_dtype"],
+        chunk_blocks=case["chunk_blocks"])
+    own = s.data
+    s.data = sharded_data_from_jax(case["jax_data"], N=s.N, Dm=mesh.Dm,
+                                   m_index=mesh.m_index, device=device)
+    return s, own
+
+
+def replay_steps(case: dict, s, steps: int):
+    """``steps`` steps of the port sampler ``s`` from JAX's init state with
+    JAX's draws for this slice (single chain or ``case["chains"]`` fused);
+    returns the states as NumPy dicts."""
+    import jax.numpy as jnp
+
+    from bayesrrcpp_tpu_torch.convert import sharded_state_from_jax
+
+    chains = case["chains"]
+    rv = JaxSliceReplay(jnp.asarray(case["key"]), s.mesh.m_index, chains)
+    s.init(rv, chains=chains)              # advances the keys as JAX's init
+    st = sharded_state_from_jax(case["jax_init"], s)
+    out = []
+    for _ in range(steps):
+        st = s.step(st, rv) if chains is None else s.step_chains(st, rv)
+        out.append(np_state(st))
+    return out
+
+
+def child_main(rank: int, world: int, port: int, case_file: str,
+               out_file: str):
+    """Rank ``rank`` of a gloo group of ``world``: every case of the pickled
+    list in ``case_file`` on its (world, 1) mesh, the results pickled to
+    ``out_file`` (an exception's text in their place when one is raised)."""
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(2)
+    _jax()
+    from bayesrrcpp_tpu_torch.parallel import make_mesh
+    from bayesrrcpp_tpu_torch.parallel.distributed import initialize
+
+    results = []
+    try:
+        initialize(f"tcp://127.0.0.1:{port}", world, rank, backend="gloo")
+        mesh = make_mesh(world, 1, device="cpu")
+        with open(case_file, "rb") as f:
+            cases = pickle.load(f)
+        for case in cases:
+            s, own = port_sampler(case, mesh)
+            results.append(dict(
+                states=replay_steps(case, s, case["steps"]),
+                own={k: np.array(getattr(own, k)) for k in
+                     ("XT", "xsq", "gram", "x_mean", "x_scale", "x_colsum")},
+                has_missing=own.has_missing,
+                layout=(s.jacobi, s.B, s.Mpad, s.Mloc)))
+        dist.barrier()
+    except Exception as e:  # noqa: BLE001 -- reported to the parent
+        import traceback
+
+        results = f"rank {rank}: {e!r}\n{traceback.format_exc()}"
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    with open(out_file + ".tmp", "wb") as f:
+        pickle.dump(results, f)
+    os.replace(out_file + ".tmp", out_file)
+
+
+def run_ranks(cases: list, tmp_path, world: int = 2, timeout: float = 300):
+    """Every case on a (world, 1) mesh of ``world`` spawned gloo processes;
+    returns each rank's results (a list per rank, cases in order)."""
+    import multiprocessing as mp
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    case_file = os.path.join(tmp_path, "cases.pkl")
+    with open(case_file, "wb") as f:
+        pickle.dump(cases, f)
+    ctx = mp.get_context("spawn")
+    outs = [os.path.join(tmp_path, f"rank{r}.pkl") for r in range(world)]
+    procs = [ctx.Process(target=child_main,
+                         args=(r, world, port, case_file, outs[r]))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout)
+    alive = [p for p in procs if p.is_alive()]
+    for p in alive:
+        p.kill()
+        p.join()
+    if alive:
+        raise RuntimeError(f"{len(alive)} rank(s) still running after "
+                           f"{timeout} s")
+    results = []
+    for r, path in enumerate(outs):
+        if not os.path.exists(path):
+            raise RuntimeError(f"rank {r} wrote no result (exit code "
+                               f"{procs[r].exitcode})")
+        with open(path, "rb") as f:
+            res = pickle.load(f)
+        if isinstance(res, str):
+            raise RuntimeError(res)
+        results.append(res)
+    return results
