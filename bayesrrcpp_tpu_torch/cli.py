@@ -10,7 +10,9 @@ the reference CSV schemas:
 
 With ``--x-dtype 2bit`` a .bed goes straight into packed words on the host
 (``io/bed.read_bed_packed``, padded to the planned marker count), missing
-calls included, and never into a dense matrix.  The run is on ``--device``,
+calls included, and never into a dense matrix; with ``--x-dtype int8`` a
+.bed is read with NaN for a missing call and not standardized, and a
+dosage .npy is taken as it is, both quantized to int8 codes.  The run is on ``--device``,
 the card by default; ``--backend auto`` sweeps with the kernels there, the
 default dense storage included, and with the plain sweep for dense X on the
 CPU (``--backend pallas|blocked`` chooses; ``scan`` is not ported).  Hyperparameter flags carry the reference names.  The
@@ -62,10 +64,11 @@ def _add_common(p):
                    help="omit the per-sample residual vector from the output")
     p.add_argument("--x-dtype", choices=["dense", "int8", "2bit"],
                    default="dense",
-                   help="genotype storage: dense f32, int8 codes (not "
-                        "ported), or 2-bit packed words (0.25 B/genotype). "
-                        "With --bed, 2bit decodes straight to the packed "
-                        "layout: no dense X on the host")
+                   help="genotype storage: dense f32, int8 codes (1 "
+                        "B/genotype, missing calls as code 3), or 2-bit "
+                        "packed words (0.25 B/genotype). With --bed, 2bit "
+                        "decodes straight to the packed layout: no dense X "
+                        "on the host")
     p.add_argument("--decode-threads", type=int, default=0,
                    help="threads for the native .bed decoder (0 = all)")
     p.add_argument("--chains", type=int, default=1,

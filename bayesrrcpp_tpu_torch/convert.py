@@ -14,6 +14,9 @@ needs no JAX.  Layout is free between the two packages, semantics are not:
   and the pad codes with them (code 3 on the pad lanes and -1 pad markers
   when the data has missing calls); whether it has is read off the words
   (``has_missing_calls``), since the JAX data does not carry it;
+- int8 codes (XT (Mpad, N), pad markers code 3) carry across as they are,
+  individuals in natural order, with their mean, scale and column sums;
+  whether they hold a missing call is read off the real markers' codes;
 - beta, labels, lambda and v keep the JAX Mpad, since both packages
   choose the same plan; the PRNG key is dropped (the port's randomness
   lives in the variates object passed to each step);
@@ -113,7 +116,7 @@ def has_missing_calls(words, N: int, valid) -> bool:
 
 
 def horseshoe_data_from_jax(data: dict, *, N: int, device) -> HorseshoeData:
-    """The port's ``HorseshoeData`` from a JAX dense or packed
+    """The port's ``HorseshoeData`` from a JAX dense, int8 or packed
     ``HorseshoeData`` given as a dict of NumPy arrays (as
     ``data_from_jax``; the JAX lane permutation n_perm is dropped)."""
     words = np.asarray(data["XT"])
@@ -125,10 +128,21 @@ def horseshoe_data_from_jax(data: dict, *, N: int, device) -> HorseshoeData:
             valid=_t(data["valid"], device, torch.bool),
             x_mean=empty, x_scale=empty, x_colsum=empty,
             row_valid=torch.zeros((0,), dtype=torch.bool, device=device))
+    if words.dtype == np.int8:
+        # int8 codes: individuals in their own order, no lane mask
+        return HorseshoeData(
+            XT=torch.as_tensor(words, device=device),
+            xsq=_t(data["xsq"], device), gram=_t(data["gram"], device),
+            valid=_t(data["valid"], device, torch.bool),
+            x_mean=_t(data["x_mean"], device),
+            x_scale=_t(data["x_scale"], device),
+            row_valid=torch.zeros((0,), dtype=torch.bool, device=device),
+            x_colsum=_t(data["x_colsum"], device),
+            has_missing=bool(np.any(
+                words[np.asarray(data["valid"], bool)]
+                == genotypes.MISSING_CODE)))
     if words.dtype != np.int32:
-        raise NotImplementedError(
-            "int8 data does not carry across: int8 storage is not ported "
-            "(ROADMAP Queue 1 item 4)")
+        raise ValueError(f"unknown genotype storage {words.dtype}")
     Npad = words.shape[1] * genotypes.WORDS
     return HorseshoeData(
         XT=torch.as_tensor(words, device=device),
@@ -143,11 +157,12 @@ def horseshoe_data_from_jax(data: dict, *, N: int, device) -> HorseshoeData:
 
 
 def data_from_jax(data: dict, *, N: int, device) -> MarkerData:
-    """The port's ``MarkerData`` from a JAX dense or packed ``MarkerData``
-    given as a dict of NumPy arrays (dense rows, or words with their mean,
-    scale and column sums, pass through with xsq and the Gram blocks; for
-    words row_valid is rebuilt in individual order and has_missing read off
-    the words)."""
+    """The port's ``MarkerData`` from a JAX dense, int8 or packed
+    ``MarkerData`` given as a dict of NumPy arrays (dense rows, or int8
+    codes or words with their mean, scale and column sums, pass through
+    with xsq and the Gram blocks; has_missing is read off the real markers'
+    codes or words, and for words row_valid is rebuilt in individual
+    order)."""
     geno = horseshoe_data_from_jax(data, N=N, device=device)
     return MarkerData(
         **geno._asdict(),
@@ -180,9 +195,11 @@ def sharded_data_from_jax(data: dict, *, N: int, Dm: int, m_index: int,
                                             (m_index + 1) * nb // Dm]
     out = data_from_jax(part, N=N, device=device)
     if words.dtype == np.int32:
-        out = out._replace(has_missing=has_missing_calls(words, N,
-                                                         data["valid"]))
-    return out
+        miss = has_missing_calls(words, N, data["valid"])
+    else:
+        miss = bool(np.any(words[np.asarray(data["valid"], bool)]
+                           == genotypes.MISSING_CODE))
+    return out._replace(has_missing=miss)
 
 
 def sharded_state_from_jax(state: dict, sampler) -> SpikeSlabState:

@@ -6,9 +6,10 @@
 //   (wrapper bayesr_jacobi_t_pallas, pallas_call at :1032) and
 //   bayesrrcpp_tpu/ops/pallas_jacobi_t.py:_hs_jacobi_t_kernel
 //   (wrapper horseshoe_jacobi_t_pallas, pallas_call at :1151)
-// in their dense f32 mode and their two 2-bit modes: fold-affine (no
-// missing calls) and `miss` (code 3 marks a missing call, which
-// standardizes to 0).  Python wrappers and plain versions:
+// in their dense f32 mode, their int8 mode (fold-affine codes, one byte a
+// genotype) and their two 2-bit modes: fold-affine (no missing calls) and
+// `miss` (code 3 marks a missing call, which standardizes to 0).  Python
+// wrappers and plain versions:
 // bayesrrcpp_tpu_torch/ops/jacobi_t.py.  The two sweeps share the dot and
 // apply launches and differ in the solve (solve_kernel, hs_solve_kernel).
 // The decode, the dot's per-word arithmetic and the solves' bodies live in
@@ -81,6 +82,19 @@
 // bound by HBM: the dot reads every row of X once per sweep (3.22 GB at
 // N=16,384 x M=49,152, 0.96 ms at 3.35 TB/s) at 2 flops per 4 bytes, and
 // the apply reads the moved rows again (the horseshoe's: all of them).
+//
+// The int8 mode (X (Mpad, N) int8 codes {0, 1, 2, 3}, pad markers code 3
+// with mean = scale = 0, so they add exactly 0; eps of length N, no lane
+// mask; pallas_jacobi_t.py:_decoders' int8 branch, :287-298) runs the
+// dense mode's launches on the codes: the dot (int8_dot_tile) loads 16
+// codes a thread a row, as the 2-bit dot loads a word, decodes each byte
+// exactly (jacobi_t_common.cuh:code8_f, a PRMT under the exponent of 2^23
+// and one FADD, in place of an I2F at a quarter of the FP32 rate) and
+// writes sum(eps) too; the solve folds r = s*(C.eps) - (m*s)*sum(eps) as for the
+// words; the apply adds d*s*c over the moved rows and takes off the
+// round's d.(m*s).  Bound: one byte per genotype, 50.56 GB a sweep at
+// N=100,352 x M=503,808, 15.09 ms at 3.35 TB/s; the decode (PRMT, FADD)
+// and FMA per code fit under it.
 //
 // Semantics kept from the TPU kernel (pallas_jacobi_t.py:534-631):
 // - every block of a round sees the round-start eps;
@@ -265,45 +279,49 @@ inline size_t apply_smem_bytes(bool miss, int JB) {
   return (sizeof(float) + sizeof(int) + (miss ? sizeof(float) : 0)) * JB;
 }
 
-// The dense mode's rounds: dense_dot_kernel, the solve launched by
-// `solve` and the dense apply (jacobi_t_common.cuh), on X (Mpad, N) f32.
-template <typename Solve>
-cudaError_t dense_rounds(const float* X, int N, int nr, int n_rounds, int J,
-                         int B, const int* rh, float* eps, float* partial,
-                         int nsplit, const float* dsc, cudaStream_t s,
-                         Solve solve) {
+// The row-major modes' rounds: dense_dot_kernel, the solve launched by
+// `solve` and the row apply (jacobi_t_common.cuh), on X (Mpad, N): dense
+// f32 rows, or int8 codes in the fold mode (T int8_t: the dot also writes
+// sum(eps), and the apply takes off the round's d.(m*s) in dms).
+template <typename T, typename Solve>
+cudaError_t row_rounds(const T* X, int N, int nr, int n_rounds, int J, int B,
+                       const int* rh, float* eps, float* partial, int nsplit,
+                       const float* dsc, const float* dms, cudaStream_t s,
+                       Solve solve) {
   const dim3 dot_grid(nsplit, J);
-  const bool v4 = dense_v4(X, eps, N);
+  RowApply ap{X, N, eps, 1, rh, 0, nr, B, J * B, dsc, dms,
+              nullptr, nullptr, nullptr, nullptr};
   cudaError_t err;
   for (int r = 0; r < n_rounds; ++r) {
-    if (v4)
-      dense_dot_kernel<true, 1><<<dot_grid, kDotThreads, 0, s>>>(
-          X, N, eps, 1, rh, r, nr, J, B, partial, nsplit);
-    else
-      dense_dot_kernel<false, 1><<<dot_grid, kDotThreads, 0, s>>>(
-          X, N, eps, 1, rh, r, nr, J, B, partial, nsplit);
+    launch_row_dot<1>(dot_grid, s, X, N, eps, 1, rh, r, nr, J, B, partial,
+                      nsplit);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     if ((err = solve(r)) != cudaSuccess) return err;
-    launch_dense_apply(1, s, X, N, eps, rh, r, nr, B, J * B, dsc);
+    ap.at = r;
+    launch_row_apply<T>(ap, s);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   return cudaSuccess;
 }
 
 // The dot and the apply of a round, in the dense mode (mean null: wd is
-// X (Mpad, N) f32 and Nw is N), the miss mode (pind not null) or the fold
-// mode, around the solve launched by `solve`, for the first n_rounds
-// entries of rh.
+// X (Mpad, N) f32 and Nw is N), the int8 mode (x_int8: wd is (Mpad, N)
+// int8 codes, Nw is N), the miss mode (pind not null) or the fold mode,
+// around the solve launched by `solve`, for the first n_rounds entries of
+// rh.
 template <typename Solve>
-cudaError_t sweep_rounds(const uint32_t* wd, int Nw, int nr, int n_rounds,
-                         int J, int B, const int* rh, float* eps,
-                         const unsigned char* row_valid, float* partial,
-                         int nsplit, float* pind, const float* dsc,
-                         const float* dms, const float* mean, cudaStream_t s,
-                         Solve solve) {
+cudaError_t sweep_rounds(const uint32_t* wd, int Nw, int x_int8, int nr,
+                         int n_rounds, int J, int B, const int* rh,
+                         float* eps, const unsigned char* row_valid,
+                         float* partial, int nsplit, float* pind,
+                         const float* dsc, const float* dms,
+                         const float* mean, cudaStream_t s, Solve solve) {
   if (mean == nullptr)
-    return dense_rounds(reinterpret_cast<const float*>(wd), Nw, nr, n_rounds,
-                        J, B, rh, eps, partial, nsplit, dsc, s, solve);
+    return row_rounds(reinterpret_cast<const float*>(wd), Nw, nr, n_rounds,
+                      J, B, rh, eps, partial, nsplit, dsc, dms, s, solve);
+  if (x_int8)
+    return row_rounds(reinterpret_cast<const int8_t*>(wd), Nw, nr, n_rounds,
+                      J, B, rh, eps, partial, nsplit, dsc, dms, s, solve);
   const dim3 dot_grid(nsplit, J);
   const int apply_ctas = (Nw + kApplyThreads / 4 - 1) / (kApplyThreads / 4);
   const bool miss = pind != nullptr;
@@ -342,6 +360,10 @@ int jacobi_t_dense_dot_splits(int N) {
   return (N + kDenseTile - 1) / kDenseTile;
 }
 
+int jacobi_t_int8_dot_splits(int N) {
+  return (N + kInt8Tile - 1) / kInt8Tile;
+}
+
 int jacobi_t_max_block() { return kMaxB; }
 
 int jacobi_t_max_round() { return kMaxRound; }
@@ -357,9 +379,13 @@ const char* jacobi_t_error_string(int code) {
 // sweep; less: one chunk, block j of round r being j*nr + rho[r]).  mean
 // and scale null select the dense mode: `words` is X (Mpad, N) f32, Nw is N,
 // row_valid and pind are null and nsplit is jacobi_t_dense_dot_splits(N).
-// Otherwise `pind` ((nsplit, J*B) floats) selects the miss mode, null the
-// fold mode.  Returns the first launch error (cudaGetLastError) or 0.
-int jacobi_t_sweep(const void* words, int Nw, int nr, int n_rounds, int J,
+// x_int8 selects the int8 mode: `words` is (Mpad, N) int8 codes, Nw is N,
+// mean and scale are given, row_valid and pind null, nsplit
+// jacobi_t_int8_dot_splits(N).  Otherwise `pind` ((nsplit, J*B) floats)
+// selects the miss mode, null the fold mode.  Returns the first launch
+// error (cudaGetLastError) or 0.
+int jacobi_t_sweep(const void* words, int Nw, int x_int8, int nr,
+                   int n_rounds, int J,
                    int B, int K, int G, const void* gram, const void* xsq,
                    const void* mean, const void* scale, void* eps,
                    const void* row_valid, const void* beta_in, const void* labels_in, void* beta_out,
@@ -403,8 +429,8 @@ int jacobi_t_sweep(const void* words, int Nw, int nr, int n_rounds, int J,
     }
     return cudaGetLastError();
   };
-  return sweep_rounds(static_cast<const uint32_t*>(words), Nw, nr, n_rounds,
-                      J, B, rh, static_cast<float*>(eps),
+  return sweep_rounds(static_cast<const uint32_t*>(words), Nw, x_int8, nr,
+                      n_rounds, J, B, rh, static_cast<float*>(eps),
                       static_cast<const unsigned char*>(row_valid),
                       static_cast<float*>(partial), nsplit,
                       static_cast<float*>(pind),
@@ -414,10 +440,11 @@ int jacobi_t_sweep(const void* words, int Nw, int nr, int n_rounds, int J,
 }
 
 // One horseshoe sweep: dot, hs_solve and apply per round, nr rounds, all
-// on `stream`; the dense mode (mean and scale null) and `pind` as
+// on `stream`; the dense mode (mean and scale null), x_int8 and `pind` as
 // jacobi_t_sweep's.  Returns the first launch error (cudaGetLastError) or
 // 0.
-int jacobi_t_hs_sweep(const void* words, int Nw, int nr, int J, int B,
+int jacobi_t_hs_sweep(const void* words, int Nw, int x_int8, int nr, int J,
+                      int B,
                       const void* gram, const void* xsq, const void* mean,
                       const void* scale, void* eps, const void* row_valid,
                       const void* beta_in, void* beta_out, const void* rho,
@@ -446,8 +473,8 @@ int jacobi_t_hs_sweep(const void* words, int Nw, int nr, int J, int B,
     hs_solve_kernel<<<J, 32, 0, s>>>(sa);
     return cudaGetLastError();
   };
-  return sweep_rounds(static_cast<const uint32_t*>(words), Nw, nr, nr, J, B,
-                      rh, static_cast<float*>(eps),
+  return sweep_rounds(static_cast<const uint32_t*>(words), Nw, x_int8, nr, nr,
+                      J, B, rh, static_cast<float*>(eps),
                       static_cast<const unsigned char*>(row_valid),
                       static_cast<float*>(partial), nsplit,
                       static_cast<float*>(pind),

@@ -2,13 +2,14 @@
 // fused multi-chain sweeps (jacobi_t_mc.cu): the 2-bit decode and the
 // missing-call indicator, the warp reductions, the dot's loads and
 // per-word arithmetic (dot_rows, for one eps vector or several at once),
-// the dense mode's dot and apply (dense_dot_tile, dense_apply_kernel) and
+// the row-major modes' dot and apply on dense f32 rows or int8 codes
+// (dense_dot_tile, row_apply_kernel) and
 // the per-block solves, which each chain of a fused sweep runs on its own
 // operands.  So a fused chain
 // equals the single-chain kernel bitwise.  See jacobi_t.cu for the sweep's
 // design and the TPU kernel semantics it keeps.  The serial and row-layout
-// sweeps (serial.cu) use the decode, the dot, the dense dot and apply and the
-// BayesR categorical draw.
+// sweeps (serial.cu) use the decode, the dot, the row-major dot and apply
+// and the BayesR categorical draw.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -144,15 +145,36 @@ __device__ __forceinline__ void dot_rows(const uint32_t (&wds)[kMaxB],
   }
 }
 
-// ---- the dense mode: f32 rows of X (Mpad, N), eps (C, N) in natural
-// individual order, no decode, no fold and no lane mask
-// (pallas_jacobi_t.py:_decoders' dense branch).  A dot CTA takes
-// kDenseTile columns of the rows of one block, kDenseCols per thread.
+// ---- the row-major modes: X (Mpad, N) in natural individual order, eps
+// (C, N), no lane mask.  Two element types: dense f32 rows, already
+// standardized (pallas_jacobi_t.py:_decoders' dense branch: no decode, no
+// fold), and int8 genotype codes {0, 1, 2, 3} (the int8 branch,
+// pallas_jacobi_t.py:287-298), one byte per genotype, whose dot runs in
+// the code domain and is folded by the solve like the 2-bit words'
+// (marker_r), or, in the serial in-kernel decode (Q), is decoded to
+// x = (c - mean)*scale, 0 for code 3, before the dot and the apply
+// (pallas_sweep.py:_decode_tile).  A dot CTA takes the rows of one block
+// over kDenseTile columns of f32 (kDenseCols a thread) or kInt8Tile of
+// codes (kInt8Cols a thread).
 
 constexpr int kDenseCols = 4;                         // columns per thread
 constexpr int kDenseTile = kDotThreads * kDenseCols;  // columns per dot CTA
 constexpr int kDenseApplyTile = 512;                  // apply entries/tile
+constexpr int kApplyBatch = 32;   // int8 apply: rows of loads in flight
 constexpr int kDenseTilePerLane = kDenseApplyTile / kApplyThreads;
+
+// Exact float of the int8 code in byte k of w (codes 0..3, any byte
+// 0..255): PRMT puts the byte under the exponent of 2^23, one FADD takes
+// 2^23 off -- in place of an I2F, which issues at a quarter of the FP32
+// rate on sm_90.
+__device__ __forceinline__ float code8_f(uint32_t w, int k) {
+  return __uint_as_float(__byte_perm(w, kMagicBits, 0x7440u | k)) - kMagic;
+}
+
+__device__ __forceinline__ float elem_f(float v) { return v; }
+__device__ __forceinline__ float elem_f(int8_t v) {
+  return code8_f((uint8_t)v, 0);
+}
 
 // The kDenseCols columns of this thread in the tile at column n0, 0 at
 // n >= N.  V4 (N % 4 == 0 and 16-byte aligned bases, so every row is
@@ -175,6 +197,76 @@ __device__ __forceinline__ void load_cols(const float* __restrict__ row,
       v[k] = n < N ? __ldg(row + n) : 0.f;
     }
   }
+}
+
+// ---- the int8 dot: 16 codes of a row a thread (one 16-byte load), so a
+// dot CTA takes kInt8Tile columns of the rows of one block, as the 2-bit
+// dot takes 16 codes a word: the same loads a thread and the same decode
+// and FMA a code, at four times the bytes.
+
+constexpr int kInt8Cols = 16;                         // codes per thread
+constexpr int kInt8Tile = kDotThreads * kInt8Cols;    // columns per dot CTA
+
+// The 16 codes of this thread in a row of the tile at column n0 (0 at
+// n >= N), byte k of word q the column of e[4q + k] (load_eps_int8).  V
+// (N % 16 == 0 and 16-byte aligned bases): one uint4, columns n0 + 16t ..
+// +15.  Otherwise columns n0 + t + 128(4q + k), a byte load each.
+template <bool V>
+__device__ __forceinline__ uint4 load_codes16(const int8_t* __restrict__ row,
+                                              long long n0, int N) {
+  const int t = threadIdx.x;
+  if constexpr (V) {
+    const long long n = n0 + 16 * t;
+    uint4 q = make_uint4(0u, 0u, 0u, 0u);
+    if (n < N) q = __ldg(reinterpret_cast<const uint4*>(row + n));
+    return q;
+  } else {
+    uint32_t w[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      w[q] = 0u;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const long long n = n0 + t + (long long)kDotThreads * (4 * q + k);
+        const uint32_t b = n < N ? (uint8_t)__ldg(row + n) : 0u;
+        w[q] |= b << (8 * k);
+      }
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// The eps of the same 16 columns, 0 at n >= N.
+template <bool V>
+__device__ __forceinline__ void load_eps_int8(const float* __restrict__ e,
+                                              long long n0, int N,
+                                              float (&v)[kInt8Cols]) {
+  const int t = threadIdx.x;
+  if constexpr (V) {
+    const long long n = n0 + 16 * t;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (n < N) f = __ldg(reinterpret_cast<const float4*>(e + n) + q);
+      v[4 * q] = f.x; v[4 * q + 1] = f.y; v[4 * q + 2] = f.z;
+      v[4 * q + 3] = f.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kInt8Cols; ++j) {
+      const long long n = n0 + t + (long long)kDotThreads * j;
+      v[j] = n < N ? __ldg(e + n) : 0.f;
+    }
+  }
+}
+
+// Whether the rows and eps allow vector loads: 16-byte aligned bases and
+// rows (N a multiple of 4 f32 values or 16 int8 codes).
+template <typename T>
+inline bool rows_v4(const T* X, const void* eps, int N) {
+  return N % (16 / sizeof(T)) == 0 &&
+         ((reinterpret_cast<uintptr_t>(X) | reinterpret_cast<uintptr_t>(eps))
+          & 15u) == 0;
 }
 
 // The dense dot of one CTA: red[c][warp][lane] = the warp's share of row
@@ -215,77 +307,234 @@ __device__ __forceinline__ void dense_dot_tile(
   }
 }
 
-// Each chain's CTA sum in the packed dots' fixed order (warps 0, 1, ...)
-// into partial[(c*nsplit + blockIdx.x)*width + col0 + l], l < nrow.
-__device__ __forceinline__ void dense_dot_store(
-    float (*red)[kDotThreads / 32][32], int C, float* __restrict__ partial,
-    int nsplit, int width, int col0, int nrow) {
-  __syncthreads();
-  for (int o = threadIdx.x; o < C * 32; o += kDotThreads) {
-    const int c = o >> 5, l = o & 31;
-    float t = 0.f;
+// The int8 dot of one CTA: red[c][warp][lane] = the warp's share of code
+// row `lane` . eps_c over tile blockIdx.x (kInt8Tile columns), for the nrow
+// rows from row0 and the C chains of eps, and with red_e (the fold mode)
+// red_e[c][warp] = the warp's share of sum(eps_c).  The rows stay in
+// registers as codes, 16 a thread; each chain decodes them again
+// (code8_f), the same instructions for every chain, and each row's 16
+// products sum by fmaf in column order, then warp_transpose_sum, so every
+// chain of a fused sweep sums as a single chain does.  Q (the serial
+// in-kernel decode, one chain): each code becomes (c - mean)*scale, 0 for
+// code 3, with its row's qmean / qscale.
+template <bool V, bool Q>
+__device__ __forceinline__ void int8_dot_tile(
+    const int8_t* __restrict__ X, int N, long long row0, int nrow,
+    const float* __restrict__ eps, int C,
+    float (*red)[kDotThreads / 32][32], float (*red_e)[kDotThreads / 32],
+    const float* __restrict__ qmean, const float* __restrict__ qscale) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long n0 = (long long)blockIdx.x * kInt8Tile;
+  uint4 w[kMaxB];
 #pragma unroll
-    for (int q = 0; q < kDotThreads / 32; ++q) t += red[c][q][l];
-    if (l < nrow)
-      partial[((long long)c * nsplit + blockIdx.x) * width + col0 + l] = t;
+  for (int i = 0; i < kMaxB; ++i)
+    w[i] = i < nrow ? load_codes16<V>(X + (row0 + i) * N, n0, N)
+                    : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll 1
+  for (int c = 0; c < C; ++c) {
+    // the decode is the same for every chain: keep the compiler from
+    // hoisting all 32*16 decoded codes out of this loop (they spill)
+#pragma unroll
+    for (int i = 0; i < kMaxB; ++i)
+      asm volatile("" : "+r"(w[i].x), "+r"(w[i].y), "+r"(w[i].z),
+                   "+r"(w[i].w));
+    float e[kInt8Cols], acc[kMaxB];
+    load_eps_int8<V>(eps + (long long)c * N, n0, N, e);
+#pragma unroll
+    for (int i = 0; i < kMaxB; ++i) {
+      const uint32_t wq[4] = {w[i].x, w[i].y, w[i].z, w[i].w};
+      float m = 0.f, sc = 0.f;
+      if constexpr (Q) {
+        // loaded row by row: hoisted, the 64 values spill
+        asm volatile("" ::: "memory");
+        m = i < nrow ? __ldg(qmean + row0 + i) : 0.f;
+        sc = i < nrow ? __ldg(qscale + row0 + i) : 0.f;
+      }
+      float s = 0.f;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          float x = code8_f(wq[q], k);
+          if constexpr (Q) x = x == 3.f ? 0.f : (x - m) * sc;
+          s = fmaf(x, e[4 * q + k], s);
+        }
+      }
+      acc[i] = s;
+    }
+    red[c][warp][lane] = warp_transpose_sum(acc, lane);
+    if (red_e != nullptr) {
+      float es = e[0];
+#pragma unroll
+      for (int k = 1; k < kInt8Cols; ++k) es += e[k];
+      es = warp_sum(es);
+      if (lane == 0) red_e[c][warp] = es;
+    }
   }
 }
 
-// The strided sweeps' dense dot: CTA (tile, j) takes block j*nr +
+// Each chain's CTA sum in the packed dots' fixed order (warps 0, 1, ...)
+// into partial[(c*nsplit + blockIdx.x)*width + col0 + l], l < nrow; with
+// red_e, also its sum(eps) into the last column, width - 1.
+__device__ __forceinline__ void dense_dot_store(
+    float (*red)[kDotThreads / 32][32], float (*red_e)[kDotThreads / 32],
+    int C, float* __restrict__ partial, int nsplit, int width, int col0,
+    int nrow) {
+  __syncthreads();
+  for (int o = threadIdx.x; o < C * 32; o += kDotThreads) {
+    const int c = o >> 5, l = o & 31;
+    float* out = partial + ((long long)c * nsplit + blockIdx.x) * width;
+    float t = 0.f;
+#pragma unroll
+    for (int q = 0; q < kDotThreads / 32; ++q) t += red[c][q][l];
+    if (l < nrow) out[col0 + l] = t;
+    if (red_e != nullptr && l == 0) {
+      float te = 0.f;
+#pragma unroll
+      for (int q = 0; q < kDotThreads / 32; ++q) te += red_e[c][q];
+      out[width - 1] = te;
+    }
+  }
+}
+
+// The strided sweeps' row dot: CTA (tile, j) takes block j*nr +
 // rho[round] of the round for C <= CMAX chains, into (C, nsplit, J*B + 1)
-// partials (the fold's sum(eps) column is left unwritten: dense r needs
-// none).
-template <bool V4, int CMAX>
+// partials: dense f32 rows (dense_dot_tile) leave the sum(eps) column
+// unwritten (dense r needs none); int8 codes (int8_dot_tile) are folded by
+// the solve, and the CTAs of j = 0 write it.  V: vector loads (rows_v4).
+template <bool V, int CMAX, typename T>
 __global__ void __launch_bounds__(kDotThreads)
-dense_dot_kernel(const float* __restrict__ X, int N,
+dense_dot_kernel(const T* __restrict__ X, int N,
                  const float* __restrict__ eps, int C,
                  const int* __restrict__ rho, int round, int nr, int J, int B,
                  float* __restrict__ partial, int nsplit) {
   __shared__ float red[CMAX][kDotThreads / 32][32];
   const int j = blockIdx.y;
   const long long row0 = (long long)(j * nr + rho[round]) * B;
-  dense_dot_tile<V4>(X, N, row0, B, eps, C, red);
-  dense_dot_store(red, C, partial, nsplit, J * B + 1, j * B, B);
+  if constexpr (sizeof(T) == 1) {
+    __shared__ float red_e[CMAX][kDotThreads / 32];
+    int8_dot_tile<V, false>(X, N, row0, B, eps, C, red, red_e, nullptr,
+                            nullptr);
+    dense_dot_store(red, j == 0 ? red_e : nullptr, C, partial, nsplit,
+                    J * B + 1, j * B, B);
+  } else {
+    dense_dot_tile<V>(X, N, row0, B, eps, C, red);
+    dense_dot_store(red, nullptr, C, partial, nsplit, J * B + 1, j * B, B);
+  }
 }
 
-// Whether the dense rows and eps allow float4 loads: N % 4 == 0 and both
-// bases 16-byte aligned.
-inline bool dense_v4(const void* X, const void* eps, int N) {
-  return N % 4 == 0 &&
-         ((reinterpret_cast<uintptr_t>(X) | reinterpret_cast<uintptr_t>(eps))
-          & 15u) == 0;
+// Launch dense_dot_kernel with vector loads where rows_v4 allows them.
+template <int CMAX, typename T>
+inline void launch_row_dot(dim3 grid, cudaStream_t s, const T* X, int N,
+                           const float* eps, int C, const int* rho, int round,
+                           int nr, int J, int B, float* partial, int nsplit) {
+  if (rows_v4(X, eps, N))
+    dense_dot_kernel<true, CMAX, T><<<grid, kDotThreads, 0, s>>>(
+        X, N, eps, C, rho, round, nr, J, B, partial, nsplit);
+  else
+    dense_dot_kernel<false, CMAX, T><<<grid, kDotThreads, 0, s>>>(
+        X, N, eps, C, rho, round, nr, J, B, partial, nsplit);
 }
 
-// The dense apply: eps_c -= sum_t d[c, t] * X[row_t, :] over the entries
-// e < JB of the (C, JB) deltas whose row moved in any chain, in index
-// order, row_t = ((e / B)*nr + slab)*B + e % B with slab = slab_at[at] (a
-// strided round's rows), or with nr == 0 row_t = slab_at[at + e / B]*B +
-// e % B (the blocks of a serial or row-layout round, listed from
-// slab_at[at]).  One thread per
-// column, so each warp load is one 128-byte line of a row.  The moved
-// entries are compacted tile by tile into shared memory with every
-// chain's d (0 where that chain did not move, which adds exactly 0).  In
-// the horseshoe every valid row moves and the apply streams them all.
-// CB >= C, a power of two: the per-chain accumulators stay in registers.
-template <int CB>
+// The operands of a row apply (row_apply_kernel).  eps_c -= sum_t d[c, t]
+// * x_t over the entries e < JB of the (C, JB) deltas dsc whose row moved
+// in any chain, in index order, row_t = ((e / B)*nr + slab)*B + e % B with
+// slab = slab_at[at] (a strided round's rows), or with nr == 0 row_t =
+// slab_at[at + e / B]*B + e % B (the blocks of a serial or row-layout
+// round, listed from slab_at[at]).  The int8 fold mode also takes off each
+// chain's d.(m*s) of the round, the sum of dms (C, JB / B) in block order,
+// and with esum (C,) not null (the serial sweeps' tracked sum(eps)) CTA 0
+// carries it to the next round: esum - the sum of espart (C, JB / B) in
+// block order.  The in-kernel decode (Q) decodes each row with its mean
+// and scale.
+struct RowApply {
+  const void* X; int N; float* eps; int C;
+  const int* slab_at; int at; int nr; int B; int JB;
+  const float* dsc; const float* dms;
+  const float* mean; const float* scale;
+  float* esum; const float* espart;
+};
+
+// One staged row's products into a row apply's accumulators: xv its L
+// values (decoded with the row's mean and scale in the in-kernel decode,
+// Q), vals4 the staged rows' d of every chain.
+template <int CB, int CV, bool Q, int L>
+__device__ __forceinline__ void apply_row(float (&acc)[CB][L],
+                                          float (&xv)[L],
+                                          const float4* vals4, int t,
+                                          const float* rmean,
+                                          const float* rscale) {
+  if constexpr (Q) {
+#pragma unroll
+    for (int k = 0; k < L; ++k)
+      xv[k] = xv[k] == 3.f ? 0.f : (xv[k] - rmean[t]) * rscale[t];
+  }
+#pragma unroll
+  for (int q = 0; q < CV / 4; ++q) {
+    const float4 v = vals4[t * (CV / 4) + q];
+    const float vq[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (4 * q + i < CB) {
+#pragma unroll
+        for (int k = 0; k < L; ++k)
+          acc[4 * q + i][k] = fmaf(vq[i], xv[k], acc[4 * q + i][k]);
+      }
+    }
+  }
+}
+
+// The row apply: a thread takes L columns, so each warp load is one
+// 128-byte line of an f32 row (L = 1) or of int8 codes (L = 4, one 32-bit
+// word of codes a thread, where N % 4 == 0; else L = 1, 32 bytes a warp
+// load).  The moved entries are compacted tile by tile into shared memory
+// with every chain's d (0 where that chain did not move, which adds
+// exactly 0).  In the horseshoe every valid row moves and the apply
+// streams them all.  Every column sums its rows in the same order
+// whatever L, CB and C.  CB >= C, a power of two: the per-chain
+// accumulators stay in registers.
+template <int CB, typename T, bool Q, int L>
 __global__ void __launch_bounds__(kApplyThreads)
-dense_apply_kernel(const float* __restrict__ X, int N,
-                   float* __restrict__ eps, int C,
-                   const int* __restrict__ slab_at, int at, int nr, int B,
-                   int JB, const float* __restrict__ dsc) {
+row_apply_kernel(RowApply a) {
+  static_assert(!Q || CB == 1, "the in-kernel decode runs one chain");
+  static_assert(L == 1 || sizeof(T) == 1, "several columns: int8 codes");
+  constexpr bool kFold = sizeof(T) == 1 && !Q;
   constexpr int CV = CB < 4 ? 4 : CB;   // chains per staged row (float4s)
   __shared__ float4 vals4[kDenseApplyTile * CV / 4];
   __shared__ int rows[kDenseApplyTile];
+  __shared__ float rmean[Q ? kDenseApplyTile : 1];
+  __shared__ float rscale[Q ? kDenseApplyTile : 1];
   __shared__ int warp_cnt[kApplyWarps + 1];
+  __shared__ float dms_tot[kFold ? CB : 1];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int slab = nr > 0 ? slab_at[at] : 0;
-  const long long n = (long long)blockIdx.x * kApplyThreads + threadIdx.x;
+  const int C = a.C, N = a.N, B = a.B, JB = a.JB, nr = a.nr;
+  const int nblk = JB / B;
+  const T* X = static_cast<const T*>(a.X);
+  if constexpr (kFold) {
+    if (threadIdx.x < C) {
+      // the round's sums over its blocks, in block order
+      const int c = threadIdx.x;
+      float t = a.dms[c * nblk];
+      for (int q = 1; q < nblk; ++q) t += a.dms[c * nblk + q];
+      dms_tot[c] = t;
+      if (a.esum != nullptr && blockIdx.x == 0) {
+        float e = a.espart[c * nblk];
+        for (int q = 1; q < nblk; ++q) e += a.espart[c * nblk + q];
+        a.esum[c] = a.esum[c] - e;
+      }
+    }
+  }
+  const int slab = nr > 0 ? a.slab_at[a.at] : 0;
+  const long long n =
+      ((long long)blockIdx.x * kApplyThreads + threadIdx.x) * L;
   const bool live = n < N;
-  const float* xp = X + (live ? n : 0);
-  float acc[CB];
+  const T* xp = X + (live ? n : 0);
+  float acc[CB][L];
 #pragma unroll
-  for (int c = 0; c < CB; ++c) acc[c] = 0.f;
+  for (int c = 0; c < CB; ++c)
+#pragma unroll
+    for (int k = 0; k < L; ++k) acc[c][k] = 0.f;
 
   for (int tile0 = 0; tile0 < JB; tile0 += kDenseApplyTile) {
     // warp `warp` owns the tile's entries [lo, lo + 32*kDenseTilePerLane)
@@ -299,7 +548,7 @@ dense_apply_kernel(const float* __restrict__ X, int N,
       if (e < JB) {
 #pragma unroll
         for (int c = 0; c < CB; ++c)
-          if (c < C) f |= __ldg(dsc + (long long)c * JB + e) != 0.f;
+          if (c < C) f |= __ldg(a.dsc + (long long)c * JB + e) != 0.f;
       }
       nz[it] = f;
       cnt += __popc(__ballot_sync(kFull, f));
@@ -323,28 +572,51 @@ dense_apply_kernel(const float* __restrict__ X, int N,
       if (nz[it]) {
         const int to = pos + __popc(mask & ((1u << lane) - 1u));
         const int e = lo + it * 32 + lane;
-        rows[to] = (nr > 0 ? (e / B) * nr + slab : slab_at[at + e / B]) * B
-                   + e % B;
+        const int row =
+            (nr > 0 ? (e / B) * nr + slab : a.slab_at[a.at + e / B]) * B +
+            e % B;
+        rows[to] = row;
+        if constexpr (Q) {
+          rmean[to] = __ldg(a.mean + row);
+          rscale[to] = __ldg(a.scale + row);
+        }
         float* v = reinterpret_cast<float*>(vals4) + to * CV;
 #pragma unroll
         for (int c = 0; c < CV; ++c)
-          v[c] = c < C ? __ldg(dsc + (long long)c * JB + e) : 0.f;
+          v[c] = c < C ? __ldg(a.dsc + (long long)c * JB + e) : 0.f;
       }
       pos += __popc(mask);
     }
     __syncthreads();
     const int nnz = warp_cnt[kApplyWarps];
     if (live) {
+      if constexpr (L == 1) {
 #pragma unroll 16
-      for (int t = 0; t < nnz; ++t) {
-        const float xv = __ldg(xp + (long long)rows[t] * N);
+        for (int t = 0; t < nnz; ++t) {
+          float xv[1] = {elem_f(__ldg(xp + (long long)rows[t] * N))};
+          apply_row<CB, CV, Q>(acc, xv, vals4, t, rmean, rscale);
+        }
+      } else {
+        // codes: kApplyBatch rows' words loaded before any is used, so a
+        // thread keeps that many loads in flight (the apply is bound by
+        // the latency of its loads)
+        for (int t0 = 0; t0 < nnz; t0 += kApplyBatch) {
+          uint32_t w[kApplyBatch];
 #pragma unroll
-        for (int q = 0; q < CV / 4; ++q) {
-          const float4 v = vals4[t * (CV / 4) + q];
-          const float vq[4] = {v.x, v.y, v.z, v.w};
+          for (int j = 0; j < kApplyBatch; ++j)
+            w[j] = t0 + j < nnz
+                       ? __ldg(reinterpret_cast<const unsigned int*>(
+                             xp + (long long)rows[t0 + j] * N))
+                       : 0u;
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
-            if (4 * q + i < CB) acc[4 * q + i] = fmaf(vq[i], xv, acc[4 * q + i]);
+          for (int j = 0; j < kApplyBatch; ++j) {
+            if (t0 + j < nnz) {
+              float xv[L];
+#pragma unroll
+              for (int k = 0; k < L; ++k) xv[k] = code8_f(w[j], k);
+              apply_row<CB, CV, Q>(acc, xv, vals4, t0 + j, rmean, rscale);
+            }
+          }
         }
       }
     }
@@ -352,25 +624,51 @@ dense_apply_kernel(const float* __restrict__ X, int N,
   }
   if (!live) return;
 #pragma unroll
-  for (int c = 0; c < CB; ++c)
-    if (c < C) eps[c * (long long)N + n] = eps[c * (long long)N + n] - acc[c];
+  for (int c = 0; c < CB; ++c) {
+    if (c < C) {
+      float* ep = a.eps + c * (long long)N + n;
+#pragma unroll
+      for (int k = 0; k < L; ++k) {
+        if constexpr (kFold) ep[k] = ep[k] - (acc[c][k] - dms_tot[c]);
+        else ep[k] = ep[k] - acc[c][k];
+      }
+    }
+  }
 }
 
-// Launch the dense apply for C chains with the smallest CB >= C, one
-// thread per column.
-inline void launch_dense_apply(int C, cudaStream_t s, const float* X, int N,
-                               float* eps, const int* slab_at, int at, int nr,
-                               int B, int JB, const float* dsc) {
-  const int ctas = (N + kApplyThreads - 1) / kApplyThreads;
-#define JT_DENSE_APPLY(CB)                                                \
-  dense_apply_kernel<CB><<<ctas, kApplyThreads, 0, s>>>(                  \
-      X, N, eps, C, slab_at, at, nr, B, JB, dsc)
-  if (C <= 1) JT_DENSE_APPLY(1);
-  else if (C <= 2) JT_DENSE_APPLY(2);
-  else if (C <= 4) JT_DENSE_APPLY(4);
-  else if (C <= 8) JT_DENSE_APPLY(8);
-  else JT_DENSE_APPLY(16);
-#undef JT_DENSE_APPLY
+// Launch the row apply of columns L a thread for a.C chains with the
+// smallest CB >= C.
+template <typename T, bool Q, int L>
+inline void launch_row_apply_cols(const RowApply& a, cudaStream_t s) {
+  const int per = kApplyThreads * L;
+  const int ctas = (a.N + per - 1) / per;
+#define JT_ROW_APPLY(CB) \
+  row_apply_kernel<CB, T, Q, L><<<ctas, kApplyThreads, 0, s>>>(a)
+  if constexpr (Q) {
+    JT_ROW_APPLY(1);
+  } else {
+    if (a.C <= 1) JT_ROW_APPLY(1);
+    else if (a.C <= 2) JT_ROW_APPLY(2);
+    else if (a.C <= 4) JT_ROW_APPLY(4);
+    else if (a.C <= 8) JT_ROW_APPLY(8);
+    else JT_ROW_APPLY(16);
+  }
+#undef JT_ROW_APPLY
+}
+
+// Launch the row apply for a.C chains: dense f32 rows (T float, a column a
+// thread), int8 codes in the fold mode, or with Q the in-kernel decode
+// (one chain); int8 codes take 4 columns a thread where N % 4 == 0 and
+// the codes are 4-byte aligned.
+template <typename T, bool Q = false>
+inline void launch_row_apply(const RowApply& a, cudaStream_t s) {
+  if constexpr (sizeof(T) == 1) {
+    if (a.N % 4 == 0 && reinterpret_cast<uintptr_t>(a.X) % 4 == 0) {
+      launch_row_apply_cols<T, Q, 4>(a, s);
+      return;
+    }
+  }
+  launch_row_apply_cols<T, Q, 1>(a, s);
 }
 
 // The BayesR categorical draw of one marker (pallas_sweep.py:246-264):

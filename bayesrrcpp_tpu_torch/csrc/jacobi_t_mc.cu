@@ -9,8 +9,8 @@
 //   _jacobi_t_mc8_kernel (4 < C <= 16, bayesr_jacobi_t_pallas_mc8, :2894),
 //   _hs_jacobi_t_mc_kernel (horseshoe_jacobi_t_pallas_mc, :2054) and
 //   _hs_jacobi_t_mc8_kernel (horseshoe_jacobi_t_pallas_mc8, :3263)
-// in their dense f32 mode and their two 2-bit modes, fold-affine and
-// `miss` (jacobi_t.cu).  jacobi_t_mc_sweep also runs one chunk of a
+// in their dense f32 mode, their int8 mode and their two 2-bit modes,
+// fold-affine and `miss` (jacobi_t.cu).  jacobi_t_mc_sweep also runs one chunk of a
 // sweep's rounds, as jacobi_t_sweep does (n_rounds < nr), and so replaces
 //   bayesrrcpp_tpu/ops/pallas_jacobi_t.py:bayesr_jacobi_t_mc_rounds
 //   (pallas_call at :2403),
@@ -51,9 +51,10 @@
 //             the CTA's 4 warps split each word's 16 eps lanes.  Each row is
 //             read and decoded once for all chains.
 //
-// The dense mode runs jacobi_t_common.cuh's dense_dot_kernel (the rows of
-// a block in registers once, then each chain's eps in turn) and
-// dense_apply_kernel, the single-chain kernel's code with a chain count.
+// The dense and int8 modes run jacobi_t_common.cuh's dense_dot_kernel (the
+// rows of a block in registers once, decoded for int8 codes, then each
+// chain's eps in turn) and row_apply_kernel, the single-chain kernel's code
+// with a chain count.
 //
 // So chain c of a fused sweep equals the single-chain sweep (jacobi_t.cu)
 // on chain c's operands bitwise: the same arithmetic in the same order,
@@ -189,20 +190,23 @@ dot_mc_kernel(const uint32_t* __restrict__ words, int Nw,
 }
 
 // The dot of a round for C chains; mean null selects the dense mode
-// (words is X (Mpad, N) f32, Nw is N), pind the miss mode.
-cudaError_t launch_dot_mc(int C, int Nw, int nsplit, int J, cudaStream_t s,
-                          const uint32_t* words, const float* eps,
-                          const int* rho, int round, int nr, int B,
-                          float* partial, float* pind, const float* mean) {
+// (words is X (Mpad, N) f32, Nw is N), x_int8 the int8 mode (words is
+// (Mpad, N) int8 codes, Nw is N), pind the miss mode.
+cudaError_t launch_dot_mc(int C, int Nw, int x_int8, int nsplit, int J,
+                          cudaStream_t s, const uint32_t* words,
+                          const float* eps, const int* rho, int round, int nr,
+                          int B, float* partial, float* pind,
+                          const float* mean) {
   const dim3 grid(nsplit, J);
-  if (mean == nullptr) {
-    const float* X = reinterpret_cast<const float*>(words);
-    if (dense_v4(X, eps, Nw))
-      dense_dot_kernel<true, kMaxC><<<grid, kDotThreads, 0, s>>>(
-          X, Nw, eps, C, rho, round, nr, J, B, partial, nsplit);
+  if (mean == nullptr || x_int8) {
+    if (mean == nullptr)
+      launch_row_dot<kMaxC>(grid, s, reinterpret_cast<const float*>(words),
+                            Nw, eps, C, rho, round, nr, J, B, partial,
+                            nsplit);
     else
-      dense_dot_kernel<false, kMaxC><<<grid, kDotThreads, 0, s>>>(
-          X, Nw, eps, C, rho, round, nr, J, B, partial, nsplit);
+      launch_row_dot<kMaxC>(grid, s, reinterpret_cast<const int8_t*>(words),
+                            Nw, eps, C, rho, round, nr, J, B, partial,
+                            nsplit);
     return cudaGetLastError();
   }
 #define JT_DOT(CP, MISS)                                                  \
@@ -418,16 +422,20 @@ void launch_apply_mc_mode(int C, int ctas, cudaStream_t s,
 }
 
 // The apply of a round for C chains; mean null selects the dense mode,
-// `miss` the miss mode.
-cudaError_t launch_apply_mc(int C, int Nw, cudaStream_t s,
+// x_int8 the int8 mode (the row apply, jacobi_t_common.cuh), `miss` the
+// miss mode.
+cudaError_t launch_apply_mc(int C, int Nw, int x_int8, cudaStream_t s,
                             const uint32_t* words, float* eps,
                             const unsigned char* row_valid, const int* rho,
                             int round, int nr, int J, int B, const float* dsc,
                             const float* dms, const float* mean, bool miss) {
   const int ctas = (Nw + kApplyWords - 1) / kApplyWords;
+  const RowApply ap{words, Nw, eps, C, rho, round, nr, B, J * B, dsc, dms,
+                    nullptr, nullptr, nullptr, nullptr};
   if (mean == nullptr)
-    launch_dense_apply(C, s, reinterpret_cast<const float*>(words), Nw, eps,
-                       rho, round, nr, B, J * B, dsc);
+    launch_row_apply<float>(ap, s);
+  else if (x_int8)
+    launch_row_apply<int8_t>(ap, s);
   else if (miss)
     launch_apply_mc_mode<true>(C, ctas, s, words, Nw, eps, row_valid, rho,
                                round, nr, J, B, dsc, dms, mean);
@@ -455,10 +463,13 @@ const char* jacobi_t_mc_error_string(int code) {
 // scratch partial (C, nsplit, J*B + 1), dsc (C, J*B), dms (C, J), vpart (C, nb, G, K),
 // bpart (C, nb, G); mean and scale null select the dense mode (`words`
 // X (Mpad, N) f32, Nw = N, eps (C, N), row_valid and pind null, nsplit
-// jacobi_t_dense_dot_splits(N)); otherwise pind (C, nsplit, J*B) selects
-// the miss mode, null the fold mode.  Returns the first launch error or
+// jacobi_t_dense_dot_splits(N)); x_int8 the int8 mode (`words` (Mpad, N)
+// int8 codes, Nw = N, eps (C, N), mean and scale given, row_valid and pind
+// null, nsplit jacobi_t_int8_dot_splits(N)); otherwise pind (C, nsplit,
+// J*B) selects the miss mode, null the fold mode.  Returns the first launch error or
 // 0.
-int jacobi_t_mc_sweep(int C, const void* words, int Nw, int nr, int n_rounds,
+int jacobi_t_mc_sweep(int C, const void* words, int Nw, int x_int8, int nr,
+                      int n_rounds,
                       int J, int B, int K, int G, const void* gram,
                       const void* xsq, const void* mean, const void* scale,
                       void* eps,
@@ -495,7 +506,7 @@ int jacobi_t_mc_sweep(int C, const void* words, int Nw, int nr, int n_rounds,
   const dim3 solve_grid(J, C);
   cudaError_t err;
   for (int r = 0; r < n_rounds; ++r) {
-    err = launch_dot_mc(C, Nw, nsplit, J, s, wd,
+    err = launch_dot_mc(C, Nw, x_int8, nsplit, J, s, wd,
                         static_cast<const float*>(eps), rh, r, nr, B,
                         static_cast<float*>(partial),
                         static_cast<float*>(pind),
@@ -513,7 +524,7 @@ int jacobi_t_mc_sweep(int C, const void* words, int Nw, int nr, int n_rounds,
       default: return cudaErrorInvalidValue;
     }
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    err = launch_apply_mc(C, Nw, s, wd, static_cast<float*>(eps),
+    err = launch_apply_mc(C, Nw, x_int8, s, wd, static_cast<float*>(eps),
                           static_cast<const unsigned char*>(row_valid), rh, r,
                           nr, J, B, static_cast<const float*>(dsc),
                           static_cast<const float*>(dms),
@@ -525,9 +536,10 @@ int jacobi_t_mc_sweep(int C, const void* words, int Nw, int nr, int n_rounds,
 
 // One fused horseshoe sweep of C chains: dot_mc, hs_solve_mc and apply_mc
 // per round.  eps (C, Npad), beta/z/lam (C, Mpad), tau/c2/sigmaE (C,);
-// scratch, the dense mode and pind as jacobi_t_mc_sweep's.  Returns the
+// scratch, the dense mode, x_int8 and pind as jacobi_t_mc_sweep's.  Returns the
 // first launch error or 0.
-int jacobi_t_hs_mc_sweep(int C, const void* words, int Nw, int nr, int J,
+int jacobi_t_hs_mc_sweep(int C, const void* words, int Nw, int x_int8,
+                         int nr, int J,
                          int B, const void* gram, const void* xsq,
                          const void* mean, const void* scale, void* eps,
                          const void* row_valid, const void* beta_in,
@@ -557,7 +569,7 @@ int jacobi_t_hs_mc_sweep(int C, const void* words, int Nw, int nr, int J,
   const dim3 solve_grid(J, C);
   cudaError_t err;
   for (int r = 0; r < nr; ++r) {
-    err = launch_dot_mc(C, Nw, nsplit, J, s, wd,
+    err = launch_dot_mc(C, Nw, x_int8, nsplit, J, s, wd,
                         static_cast<const float*>(eps), rh, r, nr, B,
                         static_cast<float*>(partial),
                         static_cast<float*>(pind),
@@ -566,7 +578,7 @@ int jacobi_t_hs_mc_sweep(int C, const void* words, int Nw, int nr, int J,
     sa.round = r;
     hs_solve_mc_kernel<<<solve_grid, 32, 0, s>>>(sa);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    err = launch_apply_mc(C, Nw, s, wd, static_cast<float*>(eps),
+    err = launch_apply_mc(C, Nw, x_int8, s, wd, static_cast<float*>(eps),
                           static_cast<const unsigned char*>(row_valid), rh, r,
                           nr, J, B, static_cast<const float*>(dsc),
                           static_cast<const float*>(dms),

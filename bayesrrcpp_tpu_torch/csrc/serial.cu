@@ -8,7 +8,8 @@
 // the flat order per round, every block of a round against the
 // round-start eps, and J=1 is the serial sweep itself.
 //
-// Replaces the TPU Pallas kernels, in their 2-bit and dense f32 modes,
+// Replaces the TPU Pallas kernels, in their 2-bit, int8 and dense f32
+// modes,
 //   bayesrrcpp_tpu/ops/pallas_sweep.py:_sweep_kernel / _sweep_kernel_qf /
 //     _sweep_kernel_q (wrapper bayesr_sweep_pallas, pallas_call at :431),
 //   bayesrrcpp_tpu/ops/pallas_sweep.py:_hs_kernel / _hs_kernel_qf /
@@ -26,7 +27,7 @@
 // Python wrappers and plain versions: bayesrrcpp_tpu_torch/ops/serial.py,
 // ops/multichain.py and ops/jacobi.py.
 //
-// Three storage modes (`mode`).  The fold mode (kFold; words with no
+// Five storage modes (`mode`).  The fold mode (kFold; words with no
 // missing call, _qf and _jacobi_kernel_f) dots the raw codes and
 // standardizes afterwards, as below.  The in-kernel decode mode (kDecode;
 // _q, one chain, J=1: the words hold missing calls, code 3) decodes every
@@ -34,10 +35,19 @@
 // the dot and the apply (pallas_sweep.py:_decode_tile, :84-95), so r =
 // x.eps and eps -= d.x need no sum(eps) and no d.(m*s).  The dense mode
 // (kDense; X (Mpad, N) f32, eps (C, N)) has that algebra on plain f32
-// rows: the dense dot and apply of jacobi_t_common.cuh (dense_dot_tile,
-// dense_apply_kernel) around the same solve, which reads r unfolded.  It
-// is bound by the dependency chain as the packed modes are; its bytes, one
-// read of X (3.22 GB at N=16,384 x M=49,152), would take 0.96 ms.
+// rows: the row-major dot and apply of jacobi_t_common.cuh
+// (dense_dot_tile, row_apply_kernel) around the same solve, which reads r
+// unfolded.  It is bound by the dependency chain as the packed modes are;
+// its bytes, one read of X (3.22 GB at N=16,384 x M=49,152), would take
+// 0.96 ms.  int8 codes (X (Mpad, N) int8, pad markers code 3 with mean =
+// scale = 0) run the same row-major launches in two modes: the int8 fold
+// (kInt8; codes with no missing call, _qf and _jacobi_kernel_f's int8
+// operand, pallas_sweep.py:486-493, pallas_multichain.py:412-413,
+// pallas_jacobi.py:299-305), each byte decoded exactly (code8_f) and
+// folded as the words are, with sum(eps) tracked; and the int8 in-kernel
+// decode (kInt8Decode; _q on codes with missing calls, one chain, J=1),
+// x = (c - mean)*scale and 0 for code 3, as kDecode.  Their bytes, one byte
+// a genotype (50.56 GB at the headline), would take 15.09 ms.
 //
 // A sweep visits the blocks in `border` order, J at a time: round r holds
 // the blocks at sweep positions r*J .. r*J + J-1 (J=1: one block), in
@@ -118,7 +128,10 @@ constexpr int kSerialSub = kApplyThreads / kSerialApplyWords;   // warps
 constexpr int kSerialLanes = 16 / kSerialSub;            // eps lanes/thread
 constexpr int kSerialTilePerLane = kSerialTile / kApplyThreads;
 
-enum Storage { kFold = 0, kDecode = 1, kDense = 2 };   // `mode`
+// `mode`: the 2-bit fold and in-kernel decode, dense f32 rows, and int8
+// codes in the fold and in-kernel decode modes
+enum Storage { kFold = 0, kDecode = 1, kDense = 2, kInt8 = 3,
+               kInt8Decode = 4 };
 
 // ------------------------------------------------------------------ dot
 
@@ -176,22 +189,50 @@ __device__ __forceinline__ void prefetch_gram(const float* gram,
     asm volatile("prefetch.global.L2 [%0];" ::"l"(gb + ln * 32));
 }
 
-// The dense mode's dot: CTA (tile, (j, grp)) takes rows grp*32 .. of the
-// block at sweep position q0 + j for all C chains (jacobi_t_common.cuh:
-// dense_dot_tile), into (C, nsplit, J*B + 1) partials; no sum(eps) column.
-template <bool V4>
+// The row-major modes' dot: CTA (tile, (j, grp)) takes rows grp*32 .. of
+// the block at sweep position q0 + j for all C chains (jacobi_t_common.cuh:
+// dense_dot_tile), into (C, nsplit, J*B + 1) partials: dense f32 rows
+// (no sum(eps) column), int8 codes in the fold mode (CTAs of blockIdx.y 0
+// write sum(eps)), or with Q the int8 in-kernel decode (one chain, no
+// sum(eps)).
+template <bool V, typename T, bool Q>
 __global__ void __launch_bounds__(kDotThreads)
-serial_dense_dot_kernel(const float* __restrict__ X, int N,
+serial_dense_dot_kernel(const T* __restrict__ X, int N,
                         const float* __restrict__ eps, int C,
                         const int* __restrict__ border, int q0, int J, int B,
                         const float* __restrict__ gram,
-                        float* __restrict__ partial, int nsplit) {
+                        float* __restrict__ partial, int nsplit,
+                        const float* __restrict__ mean,
+                        const float* __restrict__ scale) {
   __shared__ float red[kSerialMaxC][kDotThreads / 32][32];
   const DotTile tl = dot_tile(border, q0, B);
   prefetch_gram(gram, tl, B);
-  dense_dot_tile<V4>(X, N, tl.row0, tl.nrow, eps, C, red);
-  dense_dot_store(red, C, partial, nsplit, J * B + 1,
-                  tl.j * B + tl.grp * kMaxB, tl.nrow);
+  const int col0 = tl.j * B + tl.grp * kMaxB;
+  if constexpr (sizeof(T) == 1) {
+    __shared__ float red_e[Q ? 1 : kSerialMaxC][kDotThreads / 32];
+    int8_dot_tile<V, Q>(X, N, tl.row0, tl.nrow, eps, C, red,
+                        Q ? nullptr : red_e, mean, scale);
+    dense_dot_store(red, !Q && blockIdx.y == 0 ? red_e : nullptr, C,
+                    partial, nsplit, J * B + 1, col0, tl.nrow);
+  } else {
+    dense_dot_tile<V>(X, N, tl.row0, tl.nrow, eps, C, red);
+    dense_dot_store(red, nullptr, C, partial, nsplit, J * B + 1, col0,
+                    tl.nrow);
+  }
+}
+
+// Launch serial_dense_dot_kernel with vector loads where rows_v4 allows.
+template <typename T, bool Q>
+void launch_serial_row_dot(dim3 grid, cudaStream_t s, const T* X, int N,
+                           const float* eps, int C, const int* border, int q0,
+                           int J, int B, const float* gram, float* partial,
+                           int nsplit, const float* mean, const float* scale) {
+  if (rows_v4(X, eps, N))
+    serial_dense_dot_kernel<true, T, Q><<<grid, kDotThreads, 0, s>>>(
+        X, N, eps, C, border, q0, J, B, gram, partial, nsplit, mean, scale);
+  else
+    serial_dense_dot_kernel<false, T, Q><<<grid, kDotThreads, 0, s>>>(
+        X, N, eps, C, border, q0, J, B, gram, partial, nsplit, mean, scale);
 }
 
 // CP chains per decode; Q: the in-kernel decode mode (CP == 1), which
@@ -322,7 +363,7 @@ struct SerialSolveArgs {
   float* esum; float* dsc;                    // (C,), (C, J*B)
   float* dms; float* espart;                  // (C, J) each
   float* vpart; float* bpart; int n_pos;      // (C, n, G, K), (C, n, G)
-  int fold;     // 0 (kDecode, kDense): r = x.eps, d unscaled, no sums
+  int fold;     // 0 (the decodes, kDense): r = x.eps, d unscaled, no sums
 };
 
 // The block's staged operands in dynamic shared memory: B*(9 + F) words.
@@ -820,15 +861,22 @@ cudaError_t launch_dot(const SerialSweep& o, int r, cudaStream_t s) {
   const dim3 grid(o.nsplit, o.J * ((o.B + kMaxB - 1) / kMaxB));
   const int q0 = r * o.J;
   if (o.mode == kDense) {
-    const float* X = reinterpret_cast<const float*>(o.words);
-    if (dense_v4(X, o.eps, o.Nw))
-      serial_dense_dot_kernel<true><<<grid, kDotThreads, 0, s>>>(
-          X, o.Nw, o.eps, o.C, o.border, q0, o.J, o.B, o.gram, o.partial,
-          o.nsplit);
+    launch_serial_row_dot<float, false>(
+        grid, s, reinterpret_cast<const float*>(o.words), o.Nw, o.eps, o.C,
+        o.border, q0, o.J, o.B, o.gram, o.partial, o.nsplit, nullptr,
+        nullptr);
+    return cudaGetLastError();
+  }
+  if (o.mode == kInt8 || o.mode == kInt8Decode) {
+    const int8_t* X = reinterpret_cast<const int8_t*>(o.words);
+    if (o.mode == kInt8)
+      launch_serial_row_dot<int8_t, false>(
+          grid, s, X, o.Nw, o.eps, o.C, o.border, q0, o.J, o.B, o.gram,
+          o.partial, o.nsplit, nullptr, nullptr);
     else
-      serial_dense_dot_kernel<false><<<grid, kDotThreads, 0, s>>>(
-          X, o.Nw, o.eps, o.C, o.border, q0, o.J, o.B, o.gram, o.partial,
-          o.nsplit);
+      launch_serial_row_dot<int8_t, true>(
+          grid, s, X, o.Nw, o.eps, o.C, o.border, q0, o.J, o.B, o.gram,
+          o.partial, o.nsplit, o.mean, o.scale);
     return cudaGetLastError();
   }
 #define SERIAL_DOT(CP, Q)                                                 \
@@ -845,10 +893,14 @@ cudaError_t launch_dot(const SerialSweep& o, int r, cudaStream_t s) {
 
 cudaError_t launch_apply(const SerialSweep& o, int r, cudaStream_t s) {
   const int q0 = r * o.J;
-  if (o.mode == kDense) {
+  if (o.mode == kDense || o.mode == kInt8 || o.mode == kInt8Decode) {
     // the round's J*B rows, block j at border[q0 + j] (nr = 0: a list)
-    launch_dense_apply(o.C, s, reinterpret_cast<const float*>(o.words), o.Nw,
-                       o.eps, o.border, q0, 0, o.B, o.J * o.B, o.dsc);
+    const RowApply ap{o.words, o.Nw, o.eps, o.C, o.border, q0, 0, o.B,
+                      o.J * o.B, o.dsc, o.dms, o.mean, o.scale, o.esum,
+                      o.espart};
+    if (o.mode == kDense) launch_row_apply<float>(ap, s);
+    else if (o.mode == kInt8) launch_row_apply<int8_t>(ap, s);
+    else launch_row_apply<int8_t, true>(ap, s);
     return cudaGetLastError();
   }
   const int ctas = (o.Nw + kSerialApplyWords - 1) / kSerialApplyWords;
@@ -871,12 +923,13 @@ cudaError_t launch_apply(const SerialSweep& o, int r, cudaStream_t s) {
 // the first launch error or 0.
 int serial_run(const SerialSweep& o, cudaStream_t s) {
   // several blocks a round (the row layout) for one chain, in the fold or
-  // dense mode only
+  // dense modes only; the in-kernel decodes run one chain
+  const bool decode = o.mode == kDecode || o.mode == kInt8Decode;
   if (o.C < 1 || o.C > kSerialMaxC || o.B < 1 || o.B > kSerialMaxB ||
       o.chunk < 1 || (o.K != 0 && (o.K < 2 || o.K > kMaxK)) ||
-      o.mode < kFold || o.mode > kDense || (o.mode == kDecode && o.C != 1) ||
-      o.J < 1 || o.n_pos % o.J != 0 ||
-      (o.J > 1 && (o.C != 1 || o.mode == kDecode || o.B > kRowMaxB)))
+      o.mode < kFold || o.mode > kInt8Decode ||
+      (decode && o.C != 1) || o.J < 1 || o.n_pos % o.J != 0 ||
+      (o.J > 1 && (o.C != 1 || decode || o.B > kRowMaxB)))
     return cudaErrorInvalidValue;
   size_t smem = 0;
   cudaError_t err;
@@ -889,7 +942,7 @@ int serial_run(const SerialSweep& o, cudaStream_t s) {
                     o.pz_by_marker ? (long long)o.Mpad
                                    : (long long)o.n_pos * o.B,
                     o.sigmaE, o.esum, o.dsc, o.dms, o.espart, o.vpart,
-                    o.bpart, o.n_pos, o.mode == kFold};
+                    o.bpart, o.n_pos, o.mode == kFold || o.mode == kInt8};
   // the chunks of rounds: the remainder first, then `chunk` rounds
   const int nr = o.n_pos / o.J;
   const int rem = nr % o.chunk;
@@ -920,6 +973,8 @@ int serial_dot_splits(int Nw) { return (Nw + kDotThreads - 1) / kDotThreads; }
 
 int serial_dense_dot_splits(int N) { return (N + kDenseTile - 1) / kDenseTile; }
 
+int serial_int8_dot_splits(int N) { return (N + kInt8Tile - 1) / kInt8Tile; }
+
 const char* serial_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
@@ -929,7 +984,10 @@ const char* serial_error_string(int code) {
 // storage: 0 the fold mode, 1 the in-kernel decode (one chain, J=1; words
 // with missing calls), 2 the dense mode (`words` X (Mpad, N) f32, Nw = N,
 // eps (C, N); mean, scale, xsum and row_valid null; nsplit
-// serial_dense_dot_splits(N)).  J > 1 (the row layout) takes one chain,
+// serial_dense_dot_splits(N)), 3 and 4 int8 codes (`words` (Mpad, N) int8,
+// Nw = N, eps (C, N), row_valid null, nsplit serial_int8_dot_splits(N))
+// in the fold mode and in the in-kernel decode (one chain, J=1; codes with
+// missing calls).  J > 1 (the row layout) takes one chain,
 // n_pos % J == 0 and B <= serial_max_row_block(); `chunk` counts rounds.
 // Per-chain operands have a leading chain axis C: eps (C, Npad),
 // beta/labels (C, Mpad), tbl (C, Mpad, F), sigmaE (C,); p/z (C, Mpad) by

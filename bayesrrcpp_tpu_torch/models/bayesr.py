@@ -7,7 +7,11 @@ group (G=1) and no fixed effects (F=0), one chain or several
 - 2-bit packed genotypes from host dosages, a PLINK .bed
   (``io/bed.read_bed_packed``) or pre-packed int32 words on the device
   (words with missing calls take the kernels' missing-call modes,
-  ``MarkerSampler._sweep_kw``), or
+  ``MarkerSampler._sweep_kw``),
+- int8 genotype codes {0, 1, 2, 3 = missing} from host dosages or an int8
+  tensor of codes on the device (``x_dtype="int8"``, one byte a genotype,
+  individuals in their natural order; codes with missing calls sweep at
+  J=1 through the serial kernels' in-kernel decode), or
 - dense standardized f32 X,
 
 swept by the kernels ("pallas", the default for packed X and for dense X
@@ -31,8 +35,8 @@ one ``bayesr_jacobi_t_mc`` sweep of all chains (``bayesr_sweep_mc`` at
 J=1 and on a row plan, as JAX's ``_mc_step_impl``).
 
 What lies outside the slice raises ``NotImplementedError`` naming its
-ROADMAP entry: the groups variant and fixed effects, int8, the scan
-backend, sharding, checkpoint and resume.  What it shares with the horseshoe
+ROADMAP entry: the groups variant and fixed effects, the scan backend,
+checkpoint and resume.  What it shares with the horseshoe
 (storage, plan, intercept, residual recompute, chain driver) lives in
 ``models/sampler.py``.
 """
@@ -57,7 +61,8 @@ from .state import SpikeSlabState
 class MarkerData(NamedTuple):
     """Static per-chain device data."""
 
-    XT: torch.Tensor         # (Mpad, Npad/16) int32 words, or (Mpad, N) f32
+    XT: torch.Tensor         # (Mpad, Npad/16) int32 words, (Mpad, N) int8
+    #                          codes or (Mpad, N) f32 rows
     xsq: torch.Tensor        # (Mpad,) per-marker squared norms
     gram: torch.Tensor       # (nb, B, B) block Gram matrices
     g_assign: torch.Tensor   # (Mpad,) int32 marker -> group map (all 0)
@@ -66,9 +71,10 @@ class MarkerData(NamedTuple):
     prior_pi: torch.Tensor   # (G, K) initial mixture probabilities
     x_mean: torch.Tensor     # (Mpad,) dosage means ((0,) when dense)
     x_scale: torch.Tensor    # (Mpad,) 1/sd scales ((0,) when dense)
-    row_valid: torch.Tensor  # (Npad,) bool, individual n < N ((0,) dense)
+    row_valid: torch.Tensor  # (Npad,) bool, individual n < N ((0,) dense
+    #                          or int8)
     x_colsum: torch.Tensor   # (Mpad,) decoded column sums ((0,) dense)
-    has_missing: bool = False  # packed words hold missing calls (code 3)
+    has_missing: bool = False  # quantized X holds missing calls (code 3)
 
 
 def _as_2d_cva(cva) -> np.ndarray:
@@ -109,14 +115,17 @@ class SpikeSlabSampler(MarkerSampler):
     ----------
     X : (N, M) dosages or standardized values, (M, N) with
         ``transposed=True``, or (M or Mpad, Npad/16) int32 packed words as a
-        torch tensor (``x_dtype="2bit"``, ``transposed=True``, ``x_stats``).
+        torch tensor (``x_dtype="2bit"``, ``transposed=True``, ``x_stats``),
+        or (M or Mpad, N) int8 codes as a torch tensor (``x_dtype="int8"``,
+        ``transposed=True``, ``x_stats``: used as given, no copy, when on
+        the device with Mpad rows).
     Y : (N,) response.
     cva : (K-1,) slab variances (spike prepended internally).
     config : BayesRConfig.
     backend : None, "blocked" (dense X, plain Gram-blocked sweep) or
         "pallas" (the sweep kernels: strided or row-layout Jacobi, or
         serial at J=1).
-        None picks "pallas" for packed X and for dense X on the card,
+        None picks "pallas" for quantized X and for dense X on the card,
         "blocked" for dense X on the CPU.
     device : where the data and state live; defaults to X's device for a
         tensor X, else the card ("cuda"; raises without one: pass

@@ -4,7 +4,10 @@ Counterpart of ``bayesrrcpp_tpu/models/horseshoe.py:HorseshoeSampler``, one
 chain or several (``run_chains``), on either
 
 - 2-bit packed genotypes from host dosages, a PLINK .bed or pre-packed
-  int32 words on the device, with or without missing calls, or
+  int32 words on the device, with or without missing calls,
+- int8 genotype codes from host dosages or an int8 tensor on the device
+  (``x_dtype="int8"``; with missing calls at J=1, the serial in-kernel
+  decode), or
 - dense standardized f32 X,
 
 swept (as ``SpikeSlabSampler``'s) by the kernels: the strided-rounds
@@ -34,8 +37,7 @@ Every draw comes from the variates object the caller passes
 the same per-chain draws around one ``horseshoe_jacobi_t_mc`` sweep of all
 chains (``horseshoe_sweep_mc`` at J=1 and on a row plan, as JAX's
 ``_mc_step_impl``).  What lies outside the slice raises
-``NotImplementedError`` naming its ROADMAP entry: int8 and the scan
-backend.
+``NotImplementedError`` naming its ROADMAP entry: the scan backend.
 """
 from __future__ import annotations
 
@@ -63,10 +65,10 @@ class HorseshoeSampler(MarkerSampler):
     """Regularized-horseshoe sampler over a fixed dataset (X, Y).
 
     Parameters as ``SpikeSlabSampler``'s, without cva, groups and fixed
-    effects: X as dosages, standardized values or pre-packed int32 words;
-    ``config`` a HorseshoeConfig; ``backend`` None, "blocked" (dense X) or
-    "pallas" (the sweep kernels, strided or serial; None picks them for
-    packed X and for dense X on the card);
+    effects: X as dosages, standardized values, pre-packed int32 words or
+    int8 codes; ``config`` a HorseshoeConfig; ``backend`` None, "blocked"
+    (dense X) or "pallas" (the sweep kernels, strided or serial; None picks
+    them for quantized X and for dense X on the card);
     ``device`` defaults to X's device for a tensor X, else the card
     ("cuda"; raises without one: pass ``device="cpu"`` to run on the CPU).
     """

@@ -7,16 +7,19 @@ this code; here it lives once).  ``MarkerSampler`` holds it;
 ``models/bayesr.py`` and ``models/horseshoe.py`` add their priors, state
 and steps (``init``, ``step``, ``step_chains``, ``_emit_one``).
 
-The sweep kernels ("pallas" backend) take 2-bit packed words and dense
-f32 rows alike, with the JAX samplers' plan: the strided sweep in the "t"
-layout, the row-layout sweep at J > 1 in the "row" layout, the serial
-sweep at J=1.  Dense X on the CPU defaults to the plain Gram-blocked sweep
-("blocked"), as JAX's does off its accelerator
-(bayesrrcpp_tpu/models/bayesr.py:121-128).  Packed words with missing
-calls (code 3) take the sweeps' missing-call modes, routed as the JAX
-samplers route them (bayesr.py:278-300): the strided kernels' ``miss``
-mode at J > 1, the serial kernels' in-kernel decode at J=1 (``_sweep_kw``);
-a row plan has none (``_row_plan``).
+The sweep kernels ("pallas" backend) take 2-bit packed words, int8 codes
+and dense f32 rows alike, with the JAX samplers' plan: the strided sweep in
+the "t" layout, the row-layout sweep at J > 1 in the "row" layout, the
+serial sweep at J=1.  Dense X on the CPU defaults to the plain Gram-blocked
+sweep ("blocked"), as JAX's does off its accelerator
+(bayesrrcpp_tpu/models/bayesr.py:121-128).  Quantized X with missing
+calls (code 3) takes the sweeps' missing-call modes, routed as the JAX
+samplers route them (bayesr.py:278-300): on words the strided kernels'
+``miss`` mode at J > 1, on words and int8 codes the serial kernels'
+in-kernel decode at J=1 (``_sweep_kw``); a row plan has none, and int8
+codes have no strided one (``_row_plan``).  int8 codes keep eps and Y in
+individual order with no pad lanes (Npad == N, no ``row_valid``), as
+dense X does.
 
 Several chains (``run_chains``) are one state whose tensors carry a
 leading chain axis C (``init(rng, chains=C)``).  On the kernel backend a
@@ -44,15 +47,17 @@ from ..ops.jacobi import auto_jacobi, auto_jacobi_plan
 class Genotypes(NamedTuple):
     """X on the sampler's device with the statistics the sweeps read."""
 
-    XT: torch.Tensor         # (Mpad, Npad/16) int32 words, or (Mpad, N) f32
+    XT: torch.Tensor         # (Mpad, Npad/16) int32 words, (Mpad, N) int8
+    #                          codes or (Mpad, N) f32 rows
     xsq: torch.Tensor        # (Mpad,) per-marker squared norms
     gram: torch.Tensor       # (nb, B, B) block Gram matrices
     valid: torch.Tensor      # (Mpad,) bool, False on padding markers
     x_mean: torch.Tensor     # (Mpad,) dosage means ((0,) when dense)
     x_scale: torch.Tensor    # (Mpad,) 1/sd scales ((0,) when dense)
-    row_valid: torch.Tensor  # (Npad,) bool, individual n < N ((0,) dense)
+    row_valid: torch.Tensor  # (Npad,) bool, individual n < N ((0,) dense
+    #                          or int8)
     x_colsum: torch.Tensor   # (Mpad,) decoded column sums ((0,) dense)
-    has_missing: bool = False  # packed words hold missing calls (code 3)
+    has_missing: bool = False  # quantized X holds missing calls (code 3)
 
 
 def not_ported(what: str, entry: str):
@@ -68,15 +73,14 @@ class MarkerSampler:
     ``self.config``."""
 
     def _storage(self, x_dtype, backend, permutation, jacobi_layout):
-        """Check the storage and sweep options; sets ``x_packed`` and
-        ``backend``: the sweep kernels ("pallas": strided or row-layout
-        Jacobi, or serial at J=1), which 2-bit packed X needs, or the plain
-        Gram-blocked sweep ("blocked", dense X only).  None for dense X is
-        resolved by the device in ``_read_x``."""
+        """Check the storage and sweep options; sets ``x_packed``,
+        ``x_int8`` and ``backend``: the sweep kernels ("pallas": strided or
+        row-layout Jacobi, or serial at J=1), which quantized X (2-bit
+        words, int8 codes) needs, or the plain Gram-blocked sweep
+        ("blocked", dense X only).  None for dense X is resolved by the
+        device in ``_read_x``."""
         if x_dtype not in ("dense", "int8", "2bit"):
             raise ValueError(f"unknown x_dtype {x_dtype!r}")
-        if x_dtype == "int8":
-            raise not_ported("int8 genotype storage", "Queue 1 item 4")
         if backend == "scan" or permutation == "full":
             raise not_ported("the sequential scan sweep", "Queue 1 item 8")
         if backend not in (None, "blocked", "pallas"):
@@ -86,10 +90,12 @@ class MarkerSampler:
         if jacobi_layout not in ("auto", "row", "t"):
             raise ValueError(f"unknown jacobi_layout {jacobi_layout!r}")
         self.x_packed = x_dtype == "2bit"
-        if backend is None and self.x_packed:
+        self.x_int8 = x_dtype == "int8"
+        if backend is None and x_dtype != "dense":
             backend = "pallas"
-        if self.x_packed and backend != "pallas":
-            raise ValueError("x_dtype='2bit' requires the pallas backend")
+        if x_dtype != "dense" and backend != "pallas":
+            raise ValueError(f"x_dtype={x_dtype!r} requires the pallas "
+                             "backend")
         self.backend = backend
 
     def _read_x(self, X, Y, transposed, x_stats, n_individuals, n_markers,
@@ -171,6 +177,18 @@ class MarkerSampler:
                 XT=q.words, xsq=q.xsq, gram=q.gram, valid=valid,
                 x_mean=q.x_mean, x_scale=q.x_scale, row_valid=q.row_valid,
                 x_colsum=q.x_colsum, has_missing=q.has_missing)
+        elif self.x_int8:
+            # the codes as given when they are a marker-major int8 tensor
+            # of Mpad rows on the device (no copy), else cast and padded
+            q = genotypes.quantize_int8(X, transposed, x_stats, B, Mpad,
+                                        device=dev)
+            self._row_plan(q.has_missing, jacobi_blocks is None)
+            self.Npad = N
+            geno = Genotypes(
+                XT=q.codes, xsq=q.xsq, gram=q.gram, valid=valid,
+                x_mean=q.x_mean, x_scale=q.x_scale, x_colsum=q.x_colsum,
+                row_valid=torch.zeros((0,), dtype=torch.bool, device=dev),
+                has_missing=q.has_missing)
         else:
             self._row_plan(False, jacobi_blocks is None)
             self.Npad = N
@@ -221,11 +239,14 @@ class MarkerSampler:
         return J, B, layout
 
     def _row_plan(self, has_missing, auto):
-        """A row-layout plan with J > 1 sweeps dense X or words without
-        missing calls; on words with missing calls the auto plan falls back
-        to J=1 and an explicit one is refused, as in the JAX samplers
+        """A plan with J > 1 sweeps dense X or quantized X without missing
+        calls, and words with missing calls in the "t" layout (the strided
+        kernels' ``miss`` mode); otherwise, on quantized X with missing
+        calls (int8 codes in either layout), the auto plan falls back to
+        J=1 and an explicit one is refused, as in the JAX samplers
         (bayesr.py:290-300)."""
-        if self.jacobi_layout == "t" or self.jacobi == 1 or not has_missing:
+        if (self.jacobi == 1 or not has_missing
+                or (self.jacobi_layout == "t" and self.x_packed)):
             return
         if auto:
             self.jacobi = 1
@@ -243,18 +264,21 @@ class MarkerSampler:
 
     def _sweep_kw(self):
         """The kernel sweeps' storage keyword arguments for ``self.data``:
-        ``x_mean=None`` for dense rows; for words the fold-affine decode,
-        or with missing calls the strided kernels' ``miss`` mode or the
-        serial kernels' in-kernel decode (J=1), as the JAX samplers pass
-        them (bayesr.py:278-287, :590-607)."""
+        ``x_mean=None`` for dense rows; for words and int8 codes the
+        fold-affine mode, or with missing calls the strided kernels'
+        ``miss`` mode (words only) or the serial kernels' in-kernel decode
+        (J=1), as the JAX samplers pass them (bayesr.py:278-287,
+        :590-607).  Words also take their lane mask."""
         d = self.data
-        if not self.x_packed:
+        if not (self.x_packed or self.x_int8):
             return dict(x_mean=None)
         miss = bool(d.has_missing)
         kw = dict(x_mean=d.x_mean, x_scale=d.x_scale, x_xsum=d.x_colsum,
-                  fold_affine=not miss, row_valid=d.row_valid)
-        if self.strided:
-            kw["missing"] = miss
+                  fold_affine=not miss)
+        if self.x_packed:
+            kw["row_valid"] = d.row_valid
+            if self.strided:
+                kw["missing"] = miss
         return kw
 
     # ------------------------------------------------------------ helpers
@@ -275,7 +299,7 @@ class MarkerSampler:
         """X @ beta, (..., N) in individual order, for a (..., Mpad) beta
         tensor (one chain or a leading chain axis)."""
         beta = beta.to(torch.float32)
-        if self.x_packed:
+        if self.x_packed or self.x_int8:
             d = self.data
             return genotypes.xbeta_packed(d.XT, d.x_mean, d.x_scale, beta,
                                           self.B, self.N)
@@ -316,11 +340,12 @@ class MarkerSampler:
     @property
     def supports_fused_chains(self) -> bool:
         """Whether ``step_chains`` sweeps all chains with the fused kernel:
-        on the kernel backend, dense or packed X through the strided Jacobi
-        kernel, or through the serial one (at J=1 and on a row plan,
-        which holds no missing call) unless the words hold missing calls
-        (the fused serial sweep has no in-kernel decode, in JAX neither:
-        bayesr.py:733-743).  The plain backend runs its chains through the
+        on the kernel backend, dense or quantized X through the strided
+        Jacobi kernel, or through the serial one (at J=1 and on a row plan,
+        which holds no missing call) unless the codes or words hold missing
+        calls (the fused serial sweep has no in-kernel decode, in JAX
+        neither: bayesr.py:733-743; int8 codes with missing calls always
+        run at J=1).  The plain backend runs its chains through the
         single-chain step."""
         return self.backend == "pallas" and (self.jacobi > 1
                                              or not self.data.has_missing)
@@ -398,8 +423,8 @@ class MarkerSampler:
         words are read once per round for all chains, which share the
         visit order and draw their own p/z.  ``fused=False`` steps each
         chain through the single-chain step with its own orders; it is the
-        only option on the plain backend and on words with missing calls at
-        J=1, where ``fused=True`` raises ValueError.
+        only option on the plain backend and on quantized X with missing
+        calls at J=1, where ``fused=True`` raises ValueError.
         ``rng`` is a ``torch.Generator`` on the sampler's device or a
         chain-batched variates object.  Collected arrays are (n_emits,
         n_chains, ...); a ``ChainFanoutSink`` writes one file per chain.

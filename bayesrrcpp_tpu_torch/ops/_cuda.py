@@ -29,37 +29,38 @@ _VOID_P, _INT = ctypes.c_void_p, ctypes.c_int
 
 # argtypes of each library's entry points (ctypes would pass a bare Python
 # int as a 32-bit int and cut a pointer); the strided BayesR sweeps take
-# (Nw, nr, n_rounds, J, B, K, G) after the words, and the strided sweeps
-# end with the missing-call indicator's partials (null: the fold or dense
-# mode) and the stream
+# (Nw, x_int8, nr, n_rounds, J, B, K, G) after the words, and the strided
+# sweeps end with the missing-call indicator's partials (null: the fold,
+# int8 or dense mode) and the stream
 SIGNATURES = {
     "jacobi_t": {
         "jacobi_t_dot_splits": ([_INT], _INT),
         "jacobi_t_dense_dot_splits": ([_INT], _INT),
+        "jacobi_t_int8_dot_splits": ([_INT], _INT),
         "jacobi_t_max_block": ([], _INT),
         "jacobi_t_max_round": ([], _INT),
         "jacobi_t_max_components": ([], _INT),
         "jacobi_t_error_string": ([_INT], ctypes.c_char_p),
-        "jacobi_t_sweep": ([_VOID_P] + [_INT] * 7 + [_VOID_P] * 21 + [_INT]
+        "jacobi_t_sweep": ([_VOID_P] + [_INT] * 8 + [_VOID_P] * 21 + [_INT]
                            + [_VOID_P] * 6, _INT),
-        "jacobi_t_hs_sweep": ([_VOID_P, _INT, _INT, _INT, _INT]
-                              + [_VOID_P] * 17 + [_INT] + [_VOID_P] * 4,
-                              _INT),
+        "jacobi_t_hs_sweep": ([_VOID_P] + [_INT] * 5 + [_VOID_P] * 17
+                              + [_INT] + [_VOID_P] * 4, _INT),
     },
     # the fused multi-chain sweeps: the single-chain argument lists with
     # the chain count C in front
     "jacobi_t_mc": {
         "jacobi_t_mc_max_chains": ([], _INT),
         "jacobi_t_mc_error_string": ([_INT], ctypes.c_char_p),
-        "jacobi_t_mc_sweep": ([_INT, _VOID_P] + [_INT] * 7 + [_VOID_P] * 21
+        "jacobi_t_mc_sweep": ([_INT, _VOID_P] + [_INT] * 8 + [_VOID_P] * 21
                               + [_INT] + [_VOID_P] * 6, _INT),
-        "jacobi_t_hs_mc_sweep": ([_INT, _VOID_P, _INT, _INT, _INT, _INT]
+        "jacobi_t_hs_mc_sweep": ([_INT, _VOID_P] + [_INT] * 5
                                  + [_VOID_P] * 17 + [_INT] + [_VOID_P] * 4,
                                  _INT),
     },
     # the serial (J=1) and row-layout (J > 1) sweeps, one chain or fused:
     # 12 ints (C, pz_by_marker, Nw, n_pos, chunk, B, K, G, Mpad, nsplit,
-    # mode, J), then 25 operand pointers and the stream; the round solve:
+    # mode, J; mode 0 fold, 1 in-kernel decode, 2 dense, 3 int8 fold, 4
+    # int8 in-kernel decode), then 25 operand pointers and the stream; the round solve:
     # 4 ints (J, B, K, G), 16 operand pointers and the stream
     "serial": {
         "serial_max_block": ([], _INT),
@@ -68,6 +69,7 @@ SIGNATURES = {
         "serial_max_components": ([], _INT),
         "serial_dot_splits": ([_INT], _INT),
         "serial_dense_dot_splits": ([_INT], _INT),
+        "serial_int8_dot_splits": ([_INT], _INT),
         "serial_error_string": ([_INT], ctypes.c_char_p),
         "serial_sweep": ([_INT] * 12 + [_VOID_P] * 26, _INT),
         "serial_round_solve": ([_INT] * 4 + [_VOID_P] * 17, _INT),

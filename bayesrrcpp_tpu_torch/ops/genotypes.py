@@ -1,12 +1,20 @@
-"""2-bit packed genotype storage and the sweep's precomputed statistics.
+"""Quantized genotype storage and the sweep's precomputed statistics.
 
-Counterpart of the packed half of ``bayesrrcpp_tpu/ops/genotypes.py``.
-Genotypes are stored as 16 two-bit codes per int32 word along the
-individual axis (0.25 bytes per genotype): individual 16*w + k sits at
-bits 2k of word w, exactly ``pack_codes_host``'s format.  Codes are
-dosages {0, 1, 2}; 3 is a missing call.  The standardized value of code c
-of marker j is (c - mean_j) * scale_j, with a missing call and any lane
-n >= N decoding to exactly 0.
+Counterpart of the quantized half of ``bayesrrcpp_tpu/ops/genotypes.py``,
+in its two storage modes:
+
+- 2-bit packed: 16 two-bit codes per int32 word along the individual axis
+  (0.25 bytes per genotype): individual 16*w + k sits at bits 2k of word
+  w, exactly ``pack_codes_host``'s format;
+- int8 codes (``quantize_int8``): one byte per genotype, (Mpad, N) marker
+  major, individuals in their natural order with no lane padding; pad
+  markers hold code 3 with mean = scale = 0 (genotypes.py:431-434).
+
+Codes are dosages {0, 1, 2}; 3 is a missing call.  The standardized value
+of code c of marker j is (c - mean_j) * scale_j, with a missing call and
+any lane n >= N decoding to exactly 0.  ``decode_codes``, ``decode_rows``,
+the statistics and ``xbeta_*`` take either storage: int8 codes are told
+apart by their dtype.
 
 Unlike the JAX package, which stores eps/Y in a plane-major individual
 permutation for its TPU tiles (``lane_perm``), the port keeps individuals
@@ -90,18 +98,34 @@ def pack_codes_host(X, transposed, x_stats, Mpad, N):
     return words, mean, scale, Npad, has_missing
 
 
+def is_int8(X) -> bool:
+    """Whether X holds int8 codes (one per genotype) rather than words."""
+    return X.dtype in (torch.int8, np.int8)
+
+
+def lanes(X) -> int:
+    """Individuals a row of X spans: N for int8 codes, 16 a word."""
+    return X.shape[1] if is_int8(X) else X.shape[1] * WORDS
+
+
 def decode_codes(words):
-    """(R, Nw) int32 words -> (R, Nw*16) int32 codes in individual order."""
+    """(R, Nw) int32 words -> (R, Nw*16) int32 codes in individual order;
+    (R, N) int8 codes -> the same codes as int32."""
+    if is_int8(words):
+        return words.to(torch.int32)
     shifts = 2 * torch.arange(WORDS, dtype=torch.int32, device=words.device)
     return ((words[:, :, None] >> shifts) & 3).reshape(words.shape[0], -1)
 
 
-def decode_rows(words, mean, scale, lane_ok):
-    """(R, Nw) int32 words -> (R, Npad) standardized f32 rows; missing
-    calls and lanes where ``lane_ok`` (Npad,) is False decode to 0."""
+def decode_rows(words, mean, scale, lane_ok=None):
+    """(R, Nw) int32 words or (R, N) int8 codes -> (R, lanes) standardized
+    f32 rows; missing calls and lanes where ``lane_ok`` (lanes,) is False
+    (None: every lane) decode to 0."""
     c = decode_codes(words)
     x = (c.to(torch.float32) - mean[:, None]) * scale[:, None]
-    keep = (c != MISSING_CODE) & lane_ok[None, :]
+    keep = c != MISSING_CODE
+    if lane_ok is not None:
+        keep = keep & lane_ok[None, :]
     return torch.where(keep, x, torch.zeros((), dtype=x.dtype,
                                             device=x.device))
 
@@ -115,15 +139,16 @@ def _chunk_blocks(B, Npad, budget_elems=1 << 27):
 def packed_stats(words, mean, scale, lane_ok, B, m_true):
     """xsq (Mpad,), Gram blocks (nb, B, B), decoded column sums (Mpad,) and
     whether any real marker (< m_true) has a missing call, built from the
-    words in chunks of blocks -- X is never densified whole."""
-    Mpad, Nw = words.shape
+    words or int8 codes in chunks of blocks -- X is never densified whole.
+    ``lane_ok`` None: every lane counts (int8 codes)."""
+    Mpad = words.shape[0]
     nb = Mpad // B
     dev = words.device
     xsq = torch.empty((Mpad,), dtype=torch.float32, device=dev)
     xsum = torch.empty((Mpad,), dtype=torch.float32, device=dev)
     gram = torch.empty((nb, B, B), dtype=torch.float32, device=dev)
     missing = torch.zeros((), dtype=torch.bool, device=dev)
-    step = _chunk_blocks(B, Nw * WORDS)
+    step = _chunk_blocks(B, lanes(words))
     for b0 in range(0, nb, step):
         b1 = min(nb, b0 + step)
         a, e = b0 * B, b1 * B
@@ -133,9 +158,18 @@ def packed_stats(words, mean, scale, lane_ok, B, m_true):
         xb = x.view(b1 - b0, B, -1)
         gram[b0:b1] = torch.bmm(xb, xb.transpose(1, 2))
         if a < m_true:
-            c = decode_codes(words[a:min(e, m_true)])
-            missing |= torch.any((c == MISSING_CODE) & lane_ok[None, :])
+            miss = decode_codes(words[a:min(e, m_true)]) == MISSING_CODE
+            if lane_ok is not None:
+                miss = miss & lane_ok[None, :]
+            missing |= torch.any(miss)
     return xsq, gram, xsum, bool(missing)
+
+
+def int8_stats_local(codes, mean, scale, *, B):
+    """xsq (Mloc,), Gram blocks (nb_loc, B, B) and decoded column sums
+    (Mloc,) of a slice of int8 codes (Mloc, N), one marker slice of the
+    sharded driver (genotypes.py:int8_stats_local), in chunks of blocks."""
+    return packed_stats(codes, mean, scale, None, B, 0)[:3]
 
 
 def quantize_packed(X, transposed, x_stats, B, Mpad, N, *, prepacked: bool,
@@ -190,15 +224,79 @@ def _prepacked_words(words, x_stats, Mpad, N, Npad, device):
 
 
 def xbeta_packed(words, mean, scale, beta_pad, B, N):
-    """X @ beta for 2-bit packed storage, (..., N) in individual order for
-    a (..., Mpad) beta, decoded in chunks of blocks."""
-    Mpad, Nw = words.shape
-    lane_ok = torch.arange(Nw * WORDS, device=words.device) < N
-    acc = torch.zeros(beta_pad.shape[:-1] + (Nw * WORDS,),
+    """X @ beta for 2-bit packed storage or int8 codes, (..., N) in
+    individual order for a (..., Mpad) beta, decoded in chunks of blocks."""
+    Mpad = words.shape[0]
+    n_lanes = lanes(words)
+    lane_ok = torch.arange(n_lanes, device=words.device) < N
+    acc = torch.zeros(beta_pad.shape[:-1] + (n_lanes,),
                       dtype=torch.float32, device=words.device)
-    step = _chunk_blocks(B, Nw * WORDS) * B
+    step = _chunk_blocks(B, n_lanes) * B
     for a in range(0, Mpad, step):
         e = min(Mpad, a + step)
         acc += beta_pad[..., a:e].to(torch.float32) @ decode_rows(
             words[a:e], mean[a:e], scale[a:e], lane_ok)
     return acc[..., :N]
+
+
+def xbeta_int8(codes, mean, scale, beta_pad, B):
+    """X @ beta for int8 codes (Mpad, N) (genotypes.py:xbeta_int8), (..., N)
+    for a (..., Mpad) beta, decoded in chunks of blocks."""
+    return xbeta_packed(codes, mean, scale, beta_pad, B, codes.shape[1])
+
+
+class Int8Genotypes(NamedTuple):
+    codes: torch.Tensor      # (Mpad, N) int8 codes, pad markers code 3
+    xsq: torch.Tensor        # (Mpad,) standardized column sum-of-squares
+    gram: torch.Tensor       # (nb, B, B) standardized Gram blocks
+    x_mean: torch.Tensor     # (Mpad,) per-marker dosage means (0 on pads)
+    x_scale: torch.Tensor    # (Mpad,) per-marker 1/sd (0 on pads)
+    x_colsum: torch.Tensor   # (Mpad,) decoded column sums
+    has_missing: bool        # a real marker holds a missing call
+
+
+def quantize_int8(X, transposed, x_stats, B, Mpad, *,
+                  device) -> Int8Genotypes:
+    """int8 codes {0, 1, 2, 3 = missing} on ``device`` with their sweep
+    statistics (genotypes.py:quantize_int8).
+
+    With ``x_stats`` = (means, sds), X holds the codes already: an int8
+    tensor (used as it is, no copy, when it is marker major on ``device``
+    with Mpad rows) or any array cast to int8.  Without, X is a dosage
+    matrix in {0, 1, 2} with NaN for a missing call, standardized by its
+    own column means and sds (ddof=1).  ``has_missing`` is read before the
+    pad markers (code 3) are added; xsq, Gram and column sums are built in
+    chunks of blocks.
+    """
+    if x_stats is not None:
+        means = np.asarray(x_stats[0], np.float64)
+        sds = np.asarray(x_stats[1], np.float64)
+        if isinstance(X, torch.Tensor) and X.dtype == torch.int8:
+            codes = (X if transposed else X.t()).to(device).contiguous()
+        else:
+            Xh = np.asarray(X)
+            codes = torch.as_tensor(np.ascontiguousarray(
+                Xh if transposed else Xh.T, np.int8), device=device)
+    else:
+        Xh = np.asarray(X, np.float64)
+        XTh = Xh if transposed else Xh.T
+        means = np.nanmean(XTh, axis=1)
+        sds = np.nanstd(XTh, axis=1, ddof=1)
+        ch = np.where(np.isnan(XTh), float(MISSING_CODE), XTh)
+        if not np.isin(np.unique(ch), [0.0, 1.0, 2.0, 3.0]).all():
+            raise ValueError(
+                "x_dtype='int8' expects raw dosages in {0,1,2} (+NaN)")
+        codes = torch.as_tensor(np.ascontiguousarray(ch, np.int8),
+                                device=device)
+    M = codes.shape[0]
+    scales = np.where(sds > 0, 1.0 / np.where(sds > 0, sds, 1.0), 0.0)
+    if Mpad != M:
+        codes = torch.cat([codes, codes.new_full((Mpad - M, codes.shape[1]),
+                                                 MISSING_CODE)])
+    mean = torch.as_tensor(np.pad(means, (0, Mpad - M)), dtype=torch.float32,
+                           device=device)
+    scale = torch.as_tensor(np.pad(scales, (0, Mpad - M)),
+                            dtype=torch.float32, device=device)
+    xsq, gram, xsum, has_missing = packed_stats(codes, mean, scale, None, B,
+                                                M)
+    return Int8Genotypes(codes, xsq, gram, mean, scale, xsum, has_missing)

@@ -10,9 +10,10 @@ pins the two against each other.
 
 The sweeps are the counterparts of ``pallas_jacobi.py:bayesr_jacobi_pallas``
 and ``horseshoe_jacobi_pallas`` in their dense f32 mode (``x_mean=None``:
-XT_pad (Mpad, N) standardized rows, eps (N,)) and their fold-affine 2-bit
-mode (words with no missing call, eps (Npad,) in natural individual
-order).  Semantics (the Markov kernel the port keeps):
+XT_pad (Mpad, N) standardized rows, eps (N,)) and their fold-affine
+quantized modes: int8 codes with no missing call (XT_pad (Mpad, N) int8,
+eps (N,); the int8 fold cast of pallas_jacobi.py:299-305) and 2-bit words
+with no missing call (eps (Npad,) in natural individual order).  Semantics (the Markov kernel the port keeps):
 
 - the blocks come in the flat shuffled order ``block_order`` (the serial
   sweep's, ``block_orders``), J at a time: round r holds the blocks at
@@ -28,7 +29,8 @@ order).  Semantics (the Markov kernel the port keeps):
   (``build_pkg_jacobi``, ``build_pkg_hs_jacobi``: the plain versions);
 - fold mode: sum(eps) is read once, at the sweep start, and tracked as
   sum(eps) - d.xsum over every round (:1273, :428-433); eps -= (d*s).C -
-  sum_j d.(m*s) on the individuals n < N; dense X: r = X_b.eps and eps -=
+  sum_j d.(m*s) on the individuals n < N (every individual for int8
+  codes); dense X: r = X_b.eps and eps -=
   d.X_b on the rows themselves;
 - v and bacc accumulate block by block in sweep order (:440-468).
 
@@ -182,10 +184,9 @@ def planned_mpad(M: int, block_size: int = 512) -> int:
 
 
 def _check_mode(XT_pad, gram, J, block_order, x_mean, x_xsum, fold_affine,
-                row_valid, p, z, entry):
-    """Rejects what the TPU wrapper rejects (pallas_jacobi.py:1187-1195)
-    and the int8 mode, not ported (``entry``: its ROADMAP item); dense f32
-    rows have ``x_mean`` None.  ``block_order`` may be a prefix of the
+                row_valid, p, z):
+    """Rejects what the TPU wrapper rejects (pallas_jacobi.py:1187-1195);
+    dense f32 rows have ``x_mean`` None, int8 codes no ``row_valid``.  ``block_order`` may be a prefix of the
     sweep, whole rounds, with p/z (p None: the horseshoe) one per position
     of those rounds."""
     nb, B, _ = gram.shape
@@ -200,16 +201,16 @@ def _check_mode(XT_pad, gram, J, block_order, x_mean, x_xsum, fold_affine,
             raise ValueError(f"dense jacobi sweep needs float rows, not "
                              f"{XT_pad.dtype}")
         return
-    if XT_pad.dtype != torch.int32:
-        raise NotImplementedError(
-            "the row-layout Jacobi sweep is ported for dense f32 rows and "
-            f"2-bit packed words; its int8 mode is ROADMAP {entry}")
+    if XT_pad.dtype not in (torch.int8, torch.int32):
+        raise ValueError("quantized jacobi sweep needs int8 codes or int32 "
+                         f"words, not {XT_pad.dtype}")
     if not fold_affine:
         raise ValueError("jacobi sweep supports dense or fold-affine "
                          "quantized X only (missing calls: use the "
                          "single-chain kernel)")
-    if row_valid is None or x_xsum is None:
-        raise ValueError("packed fold_affine needs row_valid and x_xsum")
+    if x_xsum is None or (XT_pad.dtype == torch.int32 and row_valid is None):
+        raise ValueError("quantized fold_affine needs x_xsum (and row_valid "
+                         "for packed words)")
 
 
 def _row_plain(K, G, J, words, gram, eps, beta, labels, border, pkg,
@@ -232,7 +233,7 @@ def _row_plain(K, G, J, words, gram, eps, beta, labels, border, pkg,
     beta = beta.to(f32).clone()
     if not dense:
         mean, scale, xsum = (t.to(f32) for t in (mean, scale, xsum))
-        lane_ok = row_valid.to(torch.bool)
+        lane_ok = None if row_valid is None else row_valid.to(torch.bool)
         esum = eps.sum(dim=-1)                            # once, at the start
     if K:
         labels = labels.to(torch.int32).clone()
@@ -274,9 +275,8 @@ def _row_plain(K, G, J, words, gram, eps, beta, labels, border, pkg,
         else:
             esum = esum - (dflat * xsum[rows]).sum(dim=-1)
             dms = (dflat * ms).sum(dim=-1)
-            eps = torch.where(lane_ok,
-                              eps - ((dflat * sc) @ codes - dms[:, None]),
-                              eps)
+            eps = serial.on_lanes(
+                lane_ok, eps - ((dflat * sc) @ codes - dms[:, None]), eps)
     if not K:
         return eps[0], beta, None, None, None
     return eps[0], beta, labels, v, bacc
@@ -304,7 +304,7 @@ def _bayesr(plain, XT_pad, gram, xsq_pad, eps, beta_pad, labels_pad,
             g_assign_pad, valid_pad, J, x_mean, x_scale, x_xsum, fold_affine,
             row_valid):
     _check_mode(XT_pad, gram, J, block_order, x_mean, x_xsum, fold_affine,
-                row_valid, p_arr, z_arr, "Queue 1 item 4")
+                row_valid, p_arr, z_arr)
     dev = XT_pad.device
     B = gram.shape[1]
     G, K = pi.shape
@@ -334,9 +334,9 @@ def bayesr_jacobi(XT_pad, gram, xsq_pad, eps, beta_pad, labels_pad,
     """One row-layout BayesR sweep (see the module docstring), with the
     argument order and outputs of ``bayesr_jacobi_pallas``.
 
-    XT_pad (Mpad, Npad/16) int32 words with ``fold_affine=True``, or (Mpad,
-    N) f32 standardized rows with ``x_mean`` None (eps (N,), no x_scale,
-    x_xsum, row_valid); gram (nb, B, B) with J | nb (on the card B <= 512
+    XT_pad (Mpad, Npad/16) int32 words or (Mpad, N) int8 codes (eps (N,),
+    no row_valid) with ``fold_affine=True``, or (Mpad, N) f32 standardized
+    rows with ``x_mean`` None (eps (N,), no x_scale, x_xsum, row_valid); gram (nb, B, B) with J | nb (on the card B <= 512
     when J > 1); block_order (n,), n a
     multiple of J (nb for a whole sweep); p_arr, z_arr (n*B,) by sweep
     position; the rest as ``serial.bayesr_sweep``.  On CUDA tensors it
@@ -377,7 +377,7 @@ def _horseshoe(plain, XT_pad, gram, xsq_pad, eps, beta_pad, block_order,
                inner_perm, z_arr, lam_pad, tau, c2, sigmaE, valid_pad, J,
                x_mean, x_scale, x_xsum, fold_affine, row_valid):
     _check_mode(XT_pad, gram, J, block_order, x_mean, x_xsum, fold_affine,
-                row_valid, None, z_arr, "Queue 1 item 4")
+                row_valid, None, z_arr)
     dev = XT_pad.device
     if plain:
         pkg, inner_sel = build_pkg_hs_jacobi(

@@ -1,12 +1,13 @@
 """Strided-rounds BayesR and horseshoe block-Jacobi sweeps on dense f32
-rows or 2-bit packed genotypes.
+rows, int8 genotype codes or 2-bit packed genotypes.
 
 Counterpart of ``bayesrrcpp_tpu/ops/pallas_jacobi_t.py:bayesr_jacobi_t_pallas``
 and ``horseshoe_jacobi_t_pallas`` in their dense f32 mode (``x_mean=None``:
-XT_pad (Mpad, N) standardized rows) and their two packed modes:
-fold-affine (no missing calls) and ``missing`` (code 3 marks a missing
-call, which standardizes to 0).  Semantics (the Markov kernel the port
-keeps):
+XT_pad (Mpad, N) standardized rows), their int8 mode (XT_pad (Mpad, N)
+int8 codes, fold-affine: no missing calls, pallas_jacobi_t.py:287-298) and
+their two packed modes: fold-affine (no missing calls) and ``missing``
+(code 3 marks a missing call, which standardizes to 0).  Semantics (the
+Markov kernel the port keeps):
 
 - a sweep is nr = nb / J rounds; round r sweeps slab rho[r], the J blocks
   {j*nr + rho[r] : j < J}, every block against the round-start eps, and the
@@ -18,6 +19,9 @@ keeps):
   (``bayesr_tables`` below, pallas_jacobi_t.py:103-125 and :534-585);
 - dense: r = X_b.eps and eps -= d.X_b on the rows themselves, no fold
   (pallas_jacobi_t.py:_decoders' dense branch, _dot2(exact=False));
+- int8 and fold-affine words: the kernels dot the raw codes C, r =
+  s*(C.eps) - (m*s)*sum(eps), and apply eps -= (d*s).C - d.(m*s); the
+  plain versions dot the decoded rows (the same r up to f32 rounding);
 - with ``missing=True`` a round's dot and apply run the TPU kernel's
   two-dot algebra (pallas_jacobi_t.py:_make_dots, :371-402): the raw-code
   dot plus the (mean - 3)-scaled dot of the missing indicator 1[c == 3],
@@ -28,8 +32,8 @@ keeps):
 CUDA tensors each launches its hand-written kernel of ``csrc/jacobi_t.cu``
 (3 launches per round, counted in ``<entry point>.launches``) or raises; on
 CPU tensors each runs its plain version (``*_reference``).  eps is in
-natural individual order: of length N for dense X, padded with zeros to
-Npad = 16 * words.shape[1] for packed words.
+natural individual order: of length N for dense X and int8 codes, padded
+with zeros to Npad = 16 * words.shape[1] for packed words.
 
 ``bayesr_jacobi_t_mc`` and ``horseshoe_jacobi_t_mc`` are the fused
 multi-chain sweeps (``bayesr_jacobi_t_pallas_mc``/``_mc8`` and
@@ -86,13 +90,12 @@ class MCSweepResult(NamedTuple):
 
 
 def _check_mode(XT_pad, gram, J, x_mean, fold_affine, missing,
-                entry="Queue 2 entry 1") -> bool:
-    """Whether X is dense f32 rows (``x_mean`` None) rather than 2-bit
-    words; rejects the modes of the TPU kernel that are not ported
-    (``entry`` is the ROADMAP entry of the sweep's kernel).  As the TPU
-    wrapper (pallas_jacobi_t.py:_validate), ``missing=True`` runs the fold
-    algebra with its missing-call correction whatever ``fold_affine``
-    says, and dense X takes no ``missing``."""
+                row_valid=None) -> str:
+    """X's storage: "dense" (f32 rows, ``x_mean`` None), "int8" (codes) or
+    "words" (2-bit packed, which need ``row_valid``).  As the TPU wrapper
+    (pallas_jacobi_t.py:_validate), ``missing=True`` runs the fold algebra
+    with its missing-call correction whatever ``fold_affine`` says, only
+    words take it, and quantized X needs the fold or the miss mode."""
     nb = gram.shape[0]
     if nb % J:
         raise ValueError(f"jacobi sweep needs J | nb (J={J}, nb={nb})")
@@ -104,32 +107,42 @@ def _check_mode(XT_pad, gram, J, x_mean, fold_affine, missing,
         if not XT_pad.dtype.is_floating_point:
             raise ValueError(f"dense jacobi sweep needs float rows, not "
                              f"{XT_pad.dtype}")
-        return True
-    if XT_pad.dtype != torch.int32:
-        raise NotImplementedError(
-            "the strided Jacobi sweep is ported for dense f32 rows and 2-bit "
-            f"packed words; its int8 mode is ROADMAP {entry}")
+        return "dense"
+    if XT_pad.dtype == torch.int8:
+        if missing:
+            raise ValueError("the missing fast path needs 2-bit packed X "
+                             "(int8 with missing calls: use the "
+                             "single-chain kernel)")
+        storage = "int8"
+    elif XT_pad.dtype == torch.int32:
+        storage = "words"
+    else:
+        raise ValueError(f"quantized jacobi sweep needs int8 codes or int32 "
+                         f"words, not {XT_pad.dtype}")
     if not (fold_affine or missing):
-        raise ValueError("packed jacobi sweep needs fold_affine=True "
+        raise ValueError("quantized jacobi sweep needs fold_affine=True "
                          "(missing-free codes) or missing=True")
-    return False
+    if storage == "words" and row_valid is None:
+        raise ValueError("packed jacobi sweep needs row_valid")
+    return storage
 
 
 def _round_x(XT_pad, rows, mean, scale, lane_ok):
     """A round's rows as standardized f32 (rows, lanes): dense X's own
-    (``mean`` None), or the 2-bit words decoded."""
+    (``mean`` None), or the int8 codes or 2-bit words decoded."""
     if mean is None:
         return XT_pad[rows].to(torch.float32)
     return genotypes.decode_rows(XT_pad[rows], mean[rows], scale[rows],
                                  lane_ok)
 
 
-def _plain_storage(dense, x_mean, x_scale, row_valid):
-    """(mean, scale, lane mask) of a plain sweep, all None for dense X."""
-    if dense:
+def _plain_storage(storage, x_mean, x_scale, row_valid):
+    """(mean, scale, lane mask) of a plain sweep: all None for dense X, no
+    lane mask for int8 codes (no pad lanes)."""
+    if storage == "dense":
         return None, None, None
     return (x_mean.to(torch.float32), x_scale.to(torch.float32),
-            row_valid.to(torch.bool))
+            row_valid.to(torch.bool) if storage == "words" else None)
 
 
 def _miss_round(words, mean, scale, lane_ok):
@@ -175,9 +188,7 @@ def bayesr_jacobi_t(XT_pad, gram, xsq_pad, eps, beta_pad, labels_pad,
     afresh each round instead of tracking it.  ``missing``: the words hold
     missing calls (code 3), swept in the kernel's ``miss`` mode.
     """
-    dense = _check_mode(XT_pad, gram, J, x_mean, fold_affine, missing)
-    if not dense and row_valid is None:
-        raise ValueError("packed jacobi sweep needs row_valid")
+    _check_mode(XT_pad, gram, J, x_mean, fold_affine, missing, row_valid)
     if XT_pad.device.type == "cpu":
         return bayesr_jacobi_t_reference(
             XT_pad, gram, xsq_pad, eps, beta_pad, labels_pad, rho,
@@ -234,10 +245,7 @@ def bayesr_jacobi_t_rounds(XT_pad, gram, xsq_pad, eps, beta_pad, labels_pad,
     on CPU tensors it runs ``bayesr_jacobi_t_rounds_reference``.
     """
     _check_chunk(gram, J, rho_chunk, nr_total)
-    dense = _check_mode(XT_pad, gram, J, x_mean, fold_affine, missing,
-                        "Queue 2 entry 1")
-    if not dense and row_valid is None:
-        raise ValueError("packed jacobi sweep needs row_valid")
+    _check_mode(XT_pad, gram, J, x_mean, fold_affine, missing, row_valid)
     if XT_pad.device.type == "cpu":
         return bayesr_jacobi_t_reference(
             XT_pad, gram, xsq_pad, eps, beta_pad, labels_pad, rho_chunk,
@@ -309,20 +317,25 @@ def _round_plan(lib, words, gram, J):
 
 def _storage_ops(lib, arg, X, mean, scale, row_valid):
     """A CUDA strided sweep's storage operands: (X, ncol, lanes, mean,
-    scale, row_valid, nsplit).  Dense X (``mean`` None) is (Mpad, N) f32
-    with ncol = lanes = N and null mean, scale and row_valid (the kernels'
-    dense mode); packed words are (Mpad, Nw) int32 with 16 lanes a word."""
+    scale, row_valid, nsplit, x_int8).  Dense X (``mean`` None) is (Mpad, N)
+    f32 with ncol = lanes = N and null mean, scale and row_valid (the
+    kernels' dense mode); int8 codes are (Mpad, N) int8 with ncol = lanes =
+    N and a null row_valid (x_int8 = 1: the int8 mode); packed words are
+    (Mpad, Nw) int32 with 16 lanes a word."""
     f32 = torch.float32
     Mpad, ncol = X.shape
     if mean is None:
         return (arg(X, f32, (Mpad, ncol), "X"), ncol, ncol, None, None, None,
-                lib.lib.jacobi_t_dense_dot_splits(ncol))
+                lib.lib.jacobi_t_dense_dot_splits(ncol), 0)
+    mean = arg(mean, f32, (Mpad,), "x_mean")
+    scale = arg(scale, f32, (Mpad,), "x_scale")
+    if X.dtype == torch.int8:
+        return (arg(X, torch.int8, (Mpad, ncol), "codes"), ncol, ncol, mean,
+                scale, None, lib.lib.jacobi_t_int8_dot_splits(ncol), 1)
     lanes = ncol * genotypes.WORDS
-    return (arg(X, torch.int32, (Mpad, ncol), "words"), ncol, lanes,
-            arg(mean, f32, (Mpad,), "x_mean"),
-            arg(scale, f32, (Mpad,), "x_scale"),
-            arg(row_valid, torch.bool, (lanes,), "row_valid"),
-            lib.lib.jacobi_t_dot_splits(ncol))
+    return (arg(X, torch.int32, (Mpad, ncol), "words"), ncol, lanes, mean,
+            scale, arg(row_valid, torch.bool, (lanes,), "row_valid"),
+            lib.lib.jacobi_t_dot_splits(ncol), 0)
 
 
 def _miss_partials(missing, rows, dev):
@@ -368,7 +381,7 @@ def _sweep_cuda(words, gram, xsq, eps, beta, labels, rho, inner, p, z, pi,
     f32, i32 = torch.float32, torch.int32
     arg = _operands(dev)
 
-    words, Nw, Npad, mean, scale, row_valid, nsplit = _storage_ops(
+    words, Nw, Npad, mean, scale, row_valid, nsplit, x_int8 = _storage_ops(
         lib, arg, words, mean, scale, row_valid)
     gram = arg(gram, f32, (nb, B, B), "gram")
     xsq = arg(xsq, f32, (Mpad,), "xsq")
@@ -395,8 +408,9 @@ def _sweep_cuda(words, gram, xsq, eps, beta, labels, rho, inner, p, z, pi,
     dms = torch.empty((J,), dtype=f32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.lib.jacobi_t_sweep(
-        words.data_ptr(), Nw, nr, n_rounds, J, B, K, G, gram.data_ptr(),
-        xsq.data_ptr(), _ptr(mean), _ptr(scale), eps_out.data_ptr(),
+        words.data_ptr(), Nw, x_int8, nr, n_rounds, J, B, K, G,
+        gram.data_ptr(), xsq.data_ptr(), _ptr(mean), _ptr(scale),
+        eps_out.data_ptr(),
         _ptr(row_valid), beta_in.data_ptr(), labels_in.data_ptr(),
         beta_out.data_ptr(), labels_out.data_ptr(), rho.data_ptr(),
         inner.data_ptr(), p.data_ptr(), z.data_ptr(), pi.data_ptr(),
@@ -493,7 +507,8 @@ def bayesr_jacobi_t_reference(XT_pad, gram, xsq_pad, eps, beta_pad,
     decoded; with ``missing`` the codes and the missing indicator,
     ``_miss_round``) and runs the J blocks' sequential solves batched over
     the blocks, with the kernel's algebra."""
-    dense = _check_mode(XT_pad, gram, J, x_mean, fold_affine, missing)
+    storage = _check_mode(XT_pad, gram, J, x_mean, fold_affine, missing,
+                          row_valid)
     f32 = torch.float32
     dev = XT_pad.device
     nb, B, _ = gram.shape
@@ -505,7 +520,8 @@ def bayesr_jacobi_t_reference(XT_pad, gram, xsq_pad, eps, beta_pad,
     xsq = xsq_pad.to(f32)
     okf = valid_pad.to(f32)
     gas = g_assign_pad.long()
-    mean, scale, lane_ok = _plain_storage(dense, x_mean, x_scale, row_valid)
+    mean, scale, lane_ok = _plain_storage(storage, x_mean, x_scale,
+                                          row_valid)
     eps = eps.to(f32).clone()
     beta = beta_pad.to(f32).clone()
     labels = labels_pad.to(torch.int32).clone()
@@ -580,10 +596,7 @@ def horseshoe_jacobi_t(XT_pad, gram, xsq_pad, eps, beta_pad, rho, inner_perm,
     ``horseshoe_jacobi_t.launches``) or raises; on CPU tensors it runs
     ``horseshoe_jacobi_t_reference``.
     """
-    dense = _check_mode(XT_pad, gram, J, x_mean, fold_affine, missing,
-                        "Queue 2 entry 3")
-    if not dense and row_valid is None:
-        raise ValueError("packed jacobi sweep needs row_valid")
+    _check_mode(XT_pad, gram, J, x_mean, fold_affine, missing, row_valid)
     if XT_pad.device.type == "cpu":
         return horseshoe_jacobi_t_reference(
             XT_pad, gram, xsq_pad, eps, beta_pad, rho, inner_perm, z_arr,
@@ -611,7 +624,7 @@ def _hs_sweep_cuda(words, gram, xsq, eps, beta, rho, inner, z, lam, tau, c2,
     f32, i32 = torch.float32, torch.int32
     arg = _operands(dev)
 
-    words, Nw, Npad, mean, scale, row_valid, nsplit = _storage_ops(
+    words, Nw, Npad, mean, scale, row_valid, nsplit, x_int8 = _storage_ops(
         lib, arg, words, mean, scale, row_valid)
     gram = arg(gram, f32, (nb, B, B), "gram")
     xsq = arg(xsq, f32, (Mpad,), "xsq")
@@ -634,7 +647,8 @@ def _hs_sweep_cuda(words, gram, xsq, eps, beta, rho, inner, z, lam, tau, c2,
     dms = torch.empty((J,), dtype=f32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.lib.jacobi_t_hs_sweep(
-        words.data_ptr(), Nw, nr, J, B, gram.data_ptr(), xsq.data_ptr(),
+        words.data_ptr(), Nw, x_int8, nr, J, B, gram.data_ptr(),
+        xsq.data_ptr(),
         _ptr(mean), _ptr(scale), eps_out.data_ptr(),
         _ptr(row_valid), beta_in.data_ptr(), beta_out.data_ptr(),
         rho.data_ptr(), inner.data_ptr(), z.data_ptr(), lam.data_ptr(),
@@ -673,8 +687,8 @@ def horseshoe_jacobi_t_reference(XT_pad, gram, xsq_pad, eps, beta_pad, rho,
     runs the J blocks' sequential
     solves batched over the blocks, with the kernel's algebra (beta_new =
     num*invd + sd*z, pallas_jacobi_t.py:748-750)."""
-    dense = _check_mode(XT_pad, gram, J, x_mean, fold_affine, missing,
-                        "Queue 2 entry 3")
+    storage = _check_mode(XT_pad, gram, J, x_mean, fold_affine, missing,
+                          row_valid)
     f32 = torch.float32
     dev = XT_pad.device
     nb, B, _ = gram.shape
@@ -682,7 +696,8 @@ def horseshoe_jacobi_t_reference(XT_pad, gram, xsq_pad, eps, beta_pad, rho,
     invd, sd = _hs_tables(xsq_pad, lam_pad, tau, c2, sigmaE)
     xsq = xsq_pad.to(f32)
     okf = valid_pad.to(f32)
-    mean, scale, lane_ok = _plain_storage(dense, x_mean, x_scale, row_valid)
+    mean, scale, lane_ok = _plain_storage(storage, x_mean, x_scale,
+                                          row_valid)
     eps = eps.to(f32).clone()
     beta = beta_pad.to(f32).clone()
     jj = torch.arange(J, device=dev)
@@ -748,10 +763,7 @@ def bayesr_jacobi_t_mc(XT_pad, gram, xsq_pad, eps, beta_pad, labels_pad,
     ``bayesr_jacobi_t_mc_reference``.  Chains never interact given the
     shared orders, so the grouping does not change the result.
     """
-    dense = _check_mode(XT_pad, gram, J, x_mean, fold_affine, missing,
-                        "Queue 2 entry 5")
-    if not dense and row_valid is None:
-        raise ValueError("packed jacobi sweep needs row_valid")
+    _check_mode(XT_pad, gram, J, x_mean, fold_affine, missing, row_valid)
     if XT_pad.device.type == "cpu":
         return bayesr_jacobi_t_mc_reference(
             XT_pad, gram, xsq_pad, eps, beta_pad, labels_pad, rho,
@@ -805,10 +817,7 @@ def bayesr_jacobi_t_mc_rounds(XT_pad, gram, xsq_pad, eps, beta_pad,
     ``bayesr_jacobi_t_mc_rounds.launches``) or raises; on CPU tensors it
     runs ``bayesr_jacobi_t_mc_rounds_reference``."""
     _check_chunk(gram, J, rho_chunk, nr_total)
-    dense = _check_mode(XT_pad, gram, J, x_mean, fold_affine, missing,
-                        "Queue 2 entry 5")
-    if not dense and row_valid is None:
-        raise ValueError("packed jacobi sweep needs row_valid")
+    _check_mode(XT_pad, gram, J, x_mean, fold_affine, missing, row_valid)
     if XT_pad.device.type == "cpu":
         return bayesr_jacobi_t_mc_reference(
             XT_pad, gram, xsq_pad, eps, beta_pad, labels_pad, rho_chunk,
@@ -871,7 +880,7 @@ def _mc_sweep_cuda(words, gram, xsq, eps, beta, labels, rho, inner, p, z, pi,
     f32, i32 = torch.float32, torch.int32
     arg = _operands(dev)
 
-    words, Nw, Npad, mean, scale, row_valid, nsplit = _storage_ops(
+    words, Nw, Npad, mean, scale, row_valid, nsplit, x_int8 = _storage_ops(
         lib, arg, words, mean, scale, row_valid)
     gram = arg(gram, f32, (nb, B, B), "gram")
     xsq = arg(xsq, f32, (Mpad,), "xsq")
@@ -898,8 +907,9 @@ def _mc_sweep_cuda(words, gram, xsq, eps, beta, labels, rho, inner, p, z, pi,
     dms = torch.empty((C * J,), dtype=f32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = mc.lib.jacobi_t_mc_sweep(
-        C, words.data_ptr(), Nw, nr, n_rounds, J, B, K, G, gram.data_ptr(),
-        xsq.data_ptr(), _ptr(mean), _ptr(scale), eps_out.data_ptr(),
+        C, words.data_ptr(), Nw, x_int8, nr, n_rounds, J, B, K, G,
+        gram.data_ptr(), xsq.data_ptr(), _ptr(mean), _ptr(scale),
+        eps_out.data_ptr(),
         _ptr(row_valid), beta_in.data_ptr(), labels_in.data_ptr(),
         beta_out.data_ptr(), labels_out.data_ptr(), rho.data_ptr(),
         inner.data_ptr(), p.data_ptr(), z.data_ptr(), pi.data_ptr(),
@@ -926,8 +936,8 @@ def bayesr_jacobi_t_mc_reference(XT_pad, gram, xsq_pad, eps, beta_pad,
     chains (``missing``:
     ``_miss_round``'s dot) and runs the J x C blocks' sequential solves
     batched, with ``bayesr_jacobi_t_reference``'s algebra."""
-    dense = _check_mode(XT_pad, gram, J, x_mean, fold_affine, missing,
-                        "Queue 2 entry 5")
+    storage = _check_mode(XT_pad, gram, J, x_mean, fold_affine, missing,
+                          row_valid)
     f32 = torch.float32
     dev = XT_pad.device
     nb, B, _ = gram.shape
@@ -939,7 +949,8 @@ def bayesr_jacobi_t_mc_reference(XT_pad, gram, xsq_pad, eps, beta_pad,
     xsq = xsq_pad.to(f32)
     okf = valid_pad.to(f32)
     gas = g_assign_pad.long()
-    mean, scale, lane_ok = _plain_storage(dense, x_mean, x_scale, row_valid)
+    mean, scale, lane_ok = _plain_storage(storage, x_mean, x_scale,
+                                          row_valid)
     eps = eps.to(f32).clone()
     beta = beta_pad.to(f32).clone()
     labels = labels_pad.to(torch.int32).clone()
@@ -1011,10 +1022,7 @@ def horseshoe_jacobi_t_mc(XT_pad, gram, xsq_pad, eps, beta_pad, rho,
     group of at most 16 chains, counted in ``horseshoe_jacobi_t_mc.launches``)
     or raises; on CPU tensors it runs ``horseshoe_jacobi_t_mc_reference``.
     """
-    dense = _check_mode(XT_pad, gram, J, x_mean, fold_affine, missing,
-                        "Queue 2 entry 6")
-    if not dense and row_valid is None:
-        raise ValueError("packed jacobi sweep needs row_valid")
+    _check_mode(XT_pad, gram, J, x_mean, fold_affine, missing, row_valid)
     if XT_pad.device.type == "cpu":
         return horseshoe_jacobi_t_mc_reference(
             XT_pad, gram, xsq_pad, eps, beta_pad, rho, inner_perm, z_arr,
@@ -1046,7 +1054,7 @@ def _hs_mc_sweep_cuda(words, gram, xsq, eps, beta, rho, inner, z, lam, tau,
     f32, i32 = torch.float32, torch.int32
     arg = _operands(dev)
 
-    words, Nw, Npad, mean, scale, row_valid, nsplit = _storage_ops(
+    words, Nw, Npad, mean, scale, row_valid, nsplit, x_int8 = _storage_ops(
         lib, arg, words, mean, scale, row_valid)
     gram = arg(gram, f32, (nb, B, B), "gram")
     xsq = arg(xsq, f32, (Mpad,), "xsq")
@@ -1069,7 +1077,8 @@ def _hs_mc_sweep_cuda(words, gram, xsq, eps, beta, rho, inner, z, lam, tau,
     dms = torch.empty((C * J,), dtype=f32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = mc.lib.jacobi_t_hs_mc_sweep(
-        C, words.data_ptr(), Nw, nr, J, B, gram.data_ptr(), xsq.data_ptr(),
+        C, words.data_ptr(), Nw, x_int8, nr, J, B, gram.data_ptr(),
+        xsq.data_ptr(),
         _ptr(mean), _ptr(scale), eps_out.data_ptr(),
         _ptr(row_valid), beta_in.data_ptr(), beta_out.data_ptr(),
         rho.data_ptr(), inner.data_ptr(), z.data_ptr(), lam.data_ptr(),
@@ -1092,8 +1101,8 @@ def horseshoe_jacobi_t_mc_reference(XT_pad, gram, xsq_pad, eps, beta_pad,
     ``_miss_round``) and runs the
     J x C blocks' sequential solves batched, with
     ``horseshoe_jacobi_t_reference``'s algebra."""
-    dense = _check_mode(XT_pad, gram, J, x_mean, fold_affine, missing,
-                        "Queue 2 entry 6")
+    storage = _check_mode(XT_pad, gram, J, x_mean, fold_affine, missing,
+                          row_valid)
     f32 = torch.float32
     dev = XT_pad.device
     nb, B, _ = gram.shape
@@ -1102,7 +1111,8 @@ def horseshoe_jacobi_t_mc_reference(XT_pad, gram, xsq_pad, eps, beta_pad,
     invd, sd = _hs_tables(xsq_pad, lam, tau, c2, sigmaE)     # (C, Mpad)
     xsq = xsq_pad.to(f32)
     okf = valid_pad.to(f32)
-    mean, scale, lane_ok = _plain_storage(dense, x_mean, x_scale, row_valid)
+    mean, scale, lane_ok = _plain_storage(storage, x_mean, x_scale,
+                                          row_valid)
     eps = eps.to(f32).clone()
     beta = beta_pad.to(f32).clone()
     z_arr = z_arr.to(f32)

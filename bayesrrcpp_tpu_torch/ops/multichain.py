@@ -3,7 +3,8 @@
 Counterpart of ``bayesrrcpp_tpu/ops/pallas_multichain.py:
 bayesr_sweep_pallas_mc`` and ``horseshoe_sweep_pallas_mc`` in their
 dense f32 mode (``x_mean=None``: f32 rows, eps (C, N)) and their
-fold-affine packed mode.  The chains share X, the Gram blocks and
+fold-affine quantized modes, on int8 codes (eps (C, N), the int8 fold
+operand of pallas_multichain.py:412-413, :647-648) and on 2-bit words.  The chains share X, the Gram blocks and
 the visit order (``block_order``, ``inner_perm``); every per-chain operand
 carries a leading chain axis, and p/z are indexed by MARKER, (C, Mpad),
 not by sweep position as in the single-chain sweep
@@ -32,7 +33,7 @@ def _bayesr_mc(plain, XT_pad, gram, xsq_pad, eps, beta_pad, labels_pad,
                sigmaGG, g_assign_pad, valid_pad, x_mean, x_scale, x_xsum,
                fold_affine, row_valid, max_call_blocks):
     serial.check_mode(XT_pad, x_mean, x_xsum, fold_affine, row_valid,
-                      "Queue 2 entry 7", fused=True)
+                      fused=True)
     C, G, K = pi.shape
     Mpad = xsq_pad.shape[0]
     if tuple(p_arr.shape) != (C, Mpad) or tuple(z_arr.shape) != (C, Mpad):
@@ -95,7 +96,7 @@ def _horseshoe_mc(plain, XT_pad, gram, xsq_pad, eps, beta_pad, block_order,
                   inner_perm, z_arr, lam, tau, c2, sigmaE, valid_pad, x_mean,
                   x_scale, x_xsum, fold_affine, row_valid, max_call_blocks):
     serial.check_mode(XT_pad, x_mean, x_xsum, fold_affine, row_valid,
-                      "Queue 2 entry 7", fused=True)
+                      fused=True)
     C, Mpad = lam.shape
     if tuple(z_arr.shape) != (C, Mpad):
         raise ValueError("multi-chain z must be (C, Mpad), marker-indexed")

@@ -1,14 +1,15 @@
-"""The exact sequential (J=1) BayesR and horseshoe sweeps on dense f32 rows
-or 2-bit packed genotypes.
+"""The exact sequential (J=1) BayesR and horseshoe sweeps on dense f32 rows,
+int8 genotype codes or 2-bit packed genotypes.
 
 Counterpart of ``bayesrrcpp_tpu/ops/pallas_sweep.py:bayesr_sweep_pallas``
 and ``horseshoe_sweep_pallas`` in their dense f32 mode and their two
-packed modes, the semantics anchor of the JAX package: no Jacobi rounds,
-every marker update sees every earlier one.  ``x_mean=None`` is the dense
-mode (XT_pad (Mpad, N) standardized f32 rows, eps (N,)); on words,
-``fold_affine=True`` (no missing call) is the ``_qf`` mode and
-``fold_affine=False`` the in-kernel decode ``_q`` (the words hold missing
-calls, code 3), one chain only.  Semantics (the Markov kernel the port
+quantized modes, on int8 codes and on 2-bit words, the semantics anchor of
+the JAX package: no Jacobi rounds, every marker update sees every earlier
+one.  ``x_mean=None`` is the dense mode (XT_pad (Mpad, N) standardized f32
+rows, eps (N,)); on codes (XT_pad (Mpad, N) int8, eps (N,), no
+``row_valid``) or words, ``fold_affine=True`` (no missing call) is the
+``_qf`` mode and ``fold_affine=False`` the in-kernel decode ``_q`` (the
+codes hold missing calls, code 3), one chain only.  Semantics (the Markov kernel the port
 keeps):
 
 - the blocks run in ``block_order`` (which may be shorter than nb, a
@@ -36,8 +37,8 @@ keeps):
 tensors each launches the hand-written kernels of ``csrc/serial.cu``
 (dot, solve and apply per block, counted in ``<entry point>.launches``) or
 raises; on CPU tensors each runs its plain version (``*_reference``).  eps
-is in natural individual order: of length N for dense X, padded with
-zeros to Npad = 16 * words.shape[1] for words.  The fused multi-chain
+is in natural individual order: of length N for dense X and int8 codes,
+padded with zeros to Npad = 16 * words.shape[1] for words.  The fused multi-chain
 sweeps (``ops/multichain.py``) run the same kernels, through the same
 entry point, with a chain axis.
 """
@@ -75,33 +76,35 @@ def build_pkg_hs(xsq, lam, tau, c2, sigmaE):
     return torch.stack(_hs_tables(xsq, lam, tau, c2, sigmaE), dim=-1)
 
 
-def check_mode(XT_pad, x_mean, x_xsum, fold_affine, row_valid, entry,
-               fused=False):
-    """Reject the modes of the TPU kernel that are not ported (``entry`` is
-    the ROADMAP entry of the sweep's kernel).  Dense f32 rows (``x_mean``
-    None) read no ``fold_affine``, ``x_xsum`` or ``row_valid``.  The fused
-    sweeps take no
-    in-kernel decode, as ``bayesr_sweep_pallas_mc`` takes none
-    (pallas_multichain.py:381-394)."""
+def check_mode(XT_pad, x_mean, x_xsum, fold_affine, row_valid, fused=False):
+    """Reject what the TPU wrappers reject.  Dense f32 rows (``x_mean``
+    None) read no ``fold_affine``, ``x_xsum`` or ``row_valid``; int8 codes
+    read no ``row_valid``.  The fused sweeps take no in-kernel decode, as
+    ``bayesr_sweep_pallas_mc`` takes none (pallas_multichain.py:381-394)."""
     if x_mean is None:
         if not XT_pad.dtype.is_floating_point:
             raise ValueError(f"dense serial sweep needs float rows, not "
                              f"{XT_pad.dtype}")
         return
-    if XT_pad.dtype != torch.int32:
-        raise NotImplementedError(
-            "the serial sweep is ported for dense f32 rows and 2-bit packed "
-            f"words; its int8 modes are ROADMAP {entry}")
-    if row_valid is None:
+    if XT_pad.dtype not in (torch.int8, torch.int32):
+        raise ValueError("quantized serial sweep needs int8 codes or int32 "
+                         f"words, not {XT_pad.dtype}")
+    if XT_pad.dtype == torch.int32 and row_valid is None:
         raise ValueError("packed serial sweep needs row_valid")
     if fold_affine:
         if x_xsum is None:
-            raise ValueError("packed fold_affine sweep needs x_xsum")
+            raise ValueError("quantized fold_affine sweep needs x_xsum")
     elif fused:
         raise NotImplementedError(
-            "the fused multi-chain sweep takes packed X with fold_affine "
+            "the fused multi-chain sweep takes quantized X with fold_affine "
             "only (no missing calls); the in-kernel decode is single-chain "
             "only, as in the JAX package")
+
+
+def on_lanes(lane_ok, new, old):
+    """``new`` on the lanes where ``lane_ok``, ``old`` elsewhere; None (int8
+    codes and dense rows have no pad lanes): ``new`` everywhere."""
+    return new if lane_ok is None else torch.where(lane_ok, new, old)
 
 
 def position_markers(block_order, inner_perm, B):
@@ -117,7 +120,8 @@ def run(plain, fused, K, G, chunk, words, gram, xsq, eps, beta, labels,
     axis; p/z (C, n*B) by position, or (C, Mpad) by marker when
     ``fused``): the plain version if ``plain``, else the CUDA kernels.
     K == 0 is the horseshoe; ``mean`` None is the dense mode, else
-    ``fold=False`` the in-kernel decode mode (C == 1).  Returns (eps, beta,
+    ``fold=False`` the in-kernel decode mode (C == 1); ``words`` int8 are
+    codes (no ``row_valid``).  Returns (eps, beta,
     labels, v, bacc), the last three None for the horseshoe."""
     fold = fold and mean is not None
     if plain:
@@ -153,9 +157,9 @@ def _plain_sweep(K, G, chunk, words, gram, xsq, eps, beta, labels, border,
     beta = beta.to(ft).clone()
     okf = valid.to(ft)
     xsq = xsq.to(ft)
+    lane_ok = None if row_valid is None else row_valid.to(torch.bool)
     if not dense:
         mean, scale = mean.to(ft), scale.to(ft)
-        lane_ok = row_valid.to(torch.bool)
     xsum = xsum.to(ft) if fold else None
     if K:
         labels = labels.to(torch.int32).clone()
@@ -171,7 +175,7 @@ def _plain_sweep(K, G, chunk, words, gram, xsq, eps, beta, labels, border,
         if fold:
             if i == 0 or (i >= rem and (i - rem) % chunk == 0):
                 esum = eps.sum(dim=-1)                     # chunk start
-            codes = genotypes.decode_codes(words[rows]).to(ft)  # (B, Npad)
+            codes = genotypes.decode_codes(words[rows]).to(ft)  # (B, lanes)
             sc = scale[rows]
             ms = mean[rows] * sc
             r = (eps @ codes.T) * sc - ms * esum[:, None]  # (C, B)
@@ -211,12 +215,10 @@ def _plain_sweep(K, G, chunk, words, gram, xsq, eps, beta, labels, border,
         if fold:
             esum = esum - (d * xsum[rows]).sum(dim=-1)
             dms = (d * ms).sum(dim=-1)
-            eps = torch.where(lane_ok,
-                              eps - ((d * sc) @ codes - dms[:, None]), eps)
-        elif dense:
-            eps = eps - d @ x
+            eps = on_lanes(lane_ok, eps - ((d * sc) @ codes - dms[:, None]),
+                           eps)
         else:
-            eps = torch.where(lane_ok, eps - d @ x, eps)
+            eps = on_lanes(lane_ok, eps - d @ x, eps)
     if not K:
         return eps, beta, None, None, None
     return eps, beta, labels, v, bacc
@@ -237,7 +239,8 @@ def _sweep_cuda(fused, K, G, chunk, words, gram, xsq, eps, beta, labels,
     C = eps.shape[0]
     n = border.shape[0]
     dense = mean is None
-    Npad = Nw if dense else Nw * genotypes.WORDS
+    int8 = words.dtype == torch.int8
+    Npad = Nw if dense or int8 else Nw * genotypes.WORDS
     if nb * B != Mpad:
         raise ValueError(f"gram has {nb}x{B} markers, words {Mpad}")
     max_b = (lib.lib.serial_max_block() if J == 1
@@ -263,8 +266,8 @@ def _sweep_cuda(fused, K, G, chunk, words, gram, xsq, eps, beta, labels,
     F = 3 * K if K else 2
     pz_shape = (C, Mpad) if fused else (C, n * B)
 
-    words = (arg(words, f32, (Mpad, Nw), "X") if dense
-             else arg(words, i32, (Mpad, Nw), "words"))
+    words = arg(words, f32 if dense else torch.int8 if int8 else i32,
+                (Mpad, Nw), "X" if dense else "codes" if int8 else "words")
     ops = dict(
         border=arg(border, i32, (n,), "block_order"),
         inner=arg(inner, i32, (nb, B), "inner_perm"),
@@ -273,14 +276,16 @@ def _sweep_cuda(fused, K, G, chunk, words, gram, xsq, eps, beta, labels,
         xsq=arg(xsq, f32, (Mpad,), "xsq"),
         valid=arg(valid, torch.bool, (Mpad,), "valid"),
         gas=arg(gas, i32, (Mpad,), "g_assign") if K else None)
-    # the dense mode reads no mean, scale, column sums or lane mask
+    # the dense mode reads no mean, scale, column sums or lane mask, int8
+    # codes no lane mask
     if not dense:
         ops.update(
             mean=arg(mean, f32, (Mpad,), "x_mean"),
             scale=arg(scale, f32, (Mpad,), "x_scale"),
             xsum=(arg(xsum, f32, (Mpad,), "x_xsum") if fold
                   else torch.zeros((Mpad,), dtype=f32, device=dev)))
-        row_valid = arg(row_valid, torch.bool, (Npad,), "row_valid")
+    row_valid = (None if dense or int8
+                 else arg(row_valid, torch.bool, (Npad,), "row_valid"))
     eps_out = torch.empty((C, Npad), dtype=f32, device=dev)
     eps_out.copy_(arg(eps, f32, (C, Npad), "eps"))
     beta_out = arg(beta, f32, (C, Mpad), "beta").clone()
@@ -290,6 +295,7 @@ def _sweep_cuda(fused, K, G, chunk, words, gram, xsq, eps, beta, labels,
     z = arg(z, f32, pz_shape, "z")
     sigmaE = arg(sigmaE, f32, (C,), "sigmaE") if K else None
     nsplit = (lib.lib.serial_dense_dot_splits(Nw) if dense
+              else lib.lib.serial_int8_dot_splits(Nw) if int8
               else lib.lib.serial_dot_splits(Nw))
     partial = torch.empty((C * nsplit * (J * B + 1),), dtype=f32, device=dev)
     esum = torch.empty((C,), dtype=f32, device=dev)
@@ -300,14 +306,15 @@ def _sweep_cuda(fused, K, G, chunk, words, gram, xsq, eps, beta, labels,
              else None)
     bpart = torch.empty((C, n, G), dtype=f32, device=dev) if K else None
     stream = torch.cuda.current_stream(dev).cuda_stream
-    # the storage mode of csrc/serial.cu: 0 fold, 1 in-kernel decode, 2 dense
-    mode = 2 if dense else int(not fold)
+    # the storage mode of csrc/serial.cu: 0 fold, 1 in-kernel decode, 2
+    # dense, 3 int8 fold, 4 int8 in-kernel decode
+    mode = 2 if dense else int(not fold) + (3 if int8 else 0)
     ints = (C, int(fused), Nw, n, chunk, B, K, G if K else 0, Mpad, nsplit,
             mode, J)
     ptrs = [_ptr(t) for t in (
         words, ops["border"], ops["inner"], ops["gram"], ops["tbl"],
         ops["xsq"], ops.get("mean"), ops.get("scale"), ops.get("xsum"),
-        ops["valid"], ops["gas"], eps_out, None if dense else row_valid,
+        ops["valid"], ops["gas"], eps_out, row_valid,
         beta_out, labels_out, p, z, sigmaE,
         partial, esum, dsc, dms, espart, vpart, bpart)] + [stream]
     lib.check(lib.lib.serial_sweep(*ints, *ptrs), "serial_sweep launch")
@@ -328,8 +335,7 @@ def _bayesr(plain, XT_pad, gram, xsq_pad, eps, beta_pad, labels_pad,
             block_order, inner_perm, p_arr, z_arr, pi, cva, sigmaE, sigmaGG,
             g_assign_pad, valid_pad, x_mean, x_scale, x_xsum, fold_affine,
             row_valid, max_call_blocks):
-    check_mode(XT_pad, x_mean, x_xsum, fold_affine, row_valid,
-               "Queue 2 entry 2")
+    check_mode(XT_pad, x_mean, x_xsum, fold_affine, row_valid)
     dev = XT_pad.device
     B = gram.shape[1]
     n = block_order.shape[0]
@@ -355,15 +361,16 @@ def bayesr_sweep(XT_pad, gram, xsq_pad, eps, beta_pad, labels_pad,
     """One serial BayesR sweep (see the module docstring), with the argument
     order and outputs of ``bayesr_sweep_pallas``.
 
-    XT_pad (Mpad, Npad/16) int32 words, or (Mpad, N) f32 standardized rows
-    with ``x_mean`` None (the dense mode: eps (N,), no x_scale, x_xsum,
-    row_valid); gram (nb, B, B); xsq_pad, beta_pad,
+    XT_pad (Mpad, Npad/16) int32 words, (Mpad, N) int8 codes (eps (N,), no
+    row_valid), or (Mpad, N) f32 standardized rows with ``x_mean`` None
+    (the dense mode: eps (N,), no x_scale, x_xsum, row_valid); gram (nb, B,
+    B); xsq_pad, beta_pad,
     labels_pad, g_assign_pad, valid_pad, x_mean, x_scale, x_xsum (Mpad,);
     eps and row_valid (Npad,); block_order (n,) with n <= nb, each block at
     most once; inner_perm (nb, B); p_arr, z_arr (n*B,) by sweep position;
     pi (G, K); cva (G, K-1); sigmaE scalar; sigmaGG (G,).
-    ``fold_affine=False``: the in-kernel decode mode, for words with
-    missing calls (``x_xsum`` is then not read).  On CUDA tensors
+    ``fold_affine=False``: the in-kernel decode mode, for codes or words
+    with missing calls (``x_xsum`` is then not read).  On CUDA tensors
     it launches ``csrc/serial.cu`` (3 launches per block, counted in
     ``bayesr_sweep.launches``) or raises; on CPU tensors it runs
     ``bayesr_sweep_reference``.
@@ -401,8 +408,7 @@ def bayesr_sweep_reference(XT_pad, gram, xsq_pad, eps, beta_pad, labels_pad,
 def _horseshoe(plain, XT_pad, gram, xsq_pad, eps, beta_pad, block_order,
                inner_perm, z_arr, lam_pad, tau, c2, sigmaE, valid_pad, x_mean,
                x_scale, x_xsum, fold_affine, row_valid, max_call_blocks):
-    check_mode(XT_pad, x_mean, x_xsum, fold_affine, row_valid,
-               "Queue 2 entry 4")
+    check_mode(XT_pad, x_mean, x_xsum, fold_affine, row_valid)
     dev = XT_pad.device
     B = gram.shape[1]
     n = block_order.shape[0]

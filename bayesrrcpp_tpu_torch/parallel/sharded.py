@@ -30,9 +30,16 @@ replicated: every rank holds them whole.
 - **Output.**  beta and labels are gathered over "m" for emission; only
   rank 0 writes to a sink.
 
+- **int8 codes** (``x_dtype="int8"``, sharded.py:164-200): each rank takes
+  its marker slice of the full code matrix (no ``x_process_shard``, as in
+  JAX) and builds its own statistics (``genotypes.int8_stats_local``);
+  missing-free codes sweep through the strided kernels' int8 mode, codes
+  with missing calls through the serial in-kernel decode (:391-394,
+  :552-555), and ``xbeta`` all-reduces the slices' products (:933).
+
 Not ported, and raising ``NotImplementedError`` with their ROADMAP entry:
-the "n" axis (Dn > 1, the split sweep, :741-800), int8 codes, groups and
-fixed effects, the sharded horseshoe and ``parallel/chains.py``.
+the "n" axis (Dn > 1, the split sweep, :741-800), groups and fixed
+effects, the sharded horseshoe and ``parallel/chains.py``.
 """
 from __future__ import annotations
 
@@ -126,13 +133,15 @@ class ShardedSpikeSlabSampler(MarkerSampler):
 
     Parameters as ``bayesrrcpp_tpu.parallel.ShardedSpikeSlabSampler``: X
     (N, M) dosages or standardized values, (M, N) with
-    ``transposed=True``, or int32 packed words as a torch tensor
-    (``x_dtype="2bit"``, ``transposed=True``, ``x_stats``); ``backend``
+    ``transposed=True``, int32 packed words as a torch tensor
+    (``x_dtype="2bit"``, ``transposed=True``, ``x_stats``), or int8 codes
+    (``x_dtype="int8"``: dosages with NaN for a missing call, or codes
+    with ``x_stats``, e.g. an int8 tensor on the device); ``backend``
     "xla" (the default, dense X only) or "pallas" (the kernels);
     ``chunk_blocks``: blocks each slice sweeps between all-reduces of eps
     (default 128; Dm = 1 sweeps everything in one chunk); ``has_missing``:
-    whether packed words hold missing calls, read off the words (and
-    agreed over the mesh) when None, checked against them when given.
+    whether packed words or int8 codes hold missing calls, read off them
+    (and agreed over the mesh) when None, checked against them when given.
     The device is the mesh's.
     """
 
@@ -149,14 +158,16 @@ class ShardedSpikeSlabSampler(MarkerSampler):
         if mesh.Dn != 1 or split_sweep:
             raise not_ported("the sharded sampler's individual axis (Dn > 1, "
                              "the split sweep)", "Queue 1 item 5")
-        if x_dtype == "int8":
-            raise not_ported("int8 genotype storage", "Queue 1 item 4")
-        if x_dtype not in ("dense", "2bit"):
+        if x_dtype not in ("dense", "int8", "2bit"):
             raise ValueError(f"unknown x_dtype {x_dtype!r}")
         if backend not in ("xla", "pallas"):
             raise ValueError(f"unknown backend {backend!r}")
-        if x_dtype == "2bit" and backend != "pallas":
-            raise ValueError("x_dtype='2bit' requires backend='pallas'")
+        if x_dtype != "dense" and backend != "pallas":
+            raise ValueError(f"x_dtype={x_dtype!r} requires "
+                             "backend='pallas'")
+        if x_process_shard and x_dtype == "int8":
+            raise ValueError("x_process_shard supports dense and pre-packed "
+                             "2-bit input (int8: pass the full code matrix)")
         if not isinstance(config, BayesRConfig) or variant not in (None,
                                                                    "bayesr"):
             raise not_ported("the groups variant", "Queue 1 item 6")
@@ -171,6 +182,7 @@ class ShardedSpikeSlabSampler(MarkerSampler):
         self.chunk_blocks = chunk_blocks
         self.config, self.variant = config, "bayesr"
         self.x_packed = x_dtype == "2bit"
+        self.x_int8 = x_dtype == "int8"
         self.x_process_shard = bool(x_process_shard)
         self.dtype = torch.float32
 
@@ -196,6 +208,13 @@ class ShardedSpikeSlabSampler(MarkerSampler):
         if self.x_packed:
             geno = self._packed_slice(X, prepacked, transposed, x_stats,
                                       has_missing, lo, hi, m_real)
+        elif self.x_int8:
+            geno = self._int8_slice(X, transposed, x_stats, has_missing, lo,
+                                    m_real)
+            if geno["has_missing"]:
+                # int8 codes with missing calls: the serial in-kernel decode
+                # (JAX's use_t is False there, sharded.py:552-555)
+                self.jacobi, self.jacobi_layout = 1, "row"
         else:
             geno = self._dense_slice(X, transposed, lo, hi, m_real)
         prior_pi = np.empty((G, self.K))
@@ -316,13 +335,42 @@ class ShardedSpikeSlabSampler(MarkerSampler):
         row_valid = torch.arange(Npad, device=dev) < self.N
         xsq, gram, xsum, miss = genotypes.packed_stats(
             words, mean, scale, row_valid, self.B, m_real)
-        flag = torch.tensor([int(miss)], dtype=torch.int32, device=dev)
-        miss = bool(self.mesh.all_reduce(flag).item())
-        if has_missing is not None and bool(has_missing) != miss:
-            raise ValueError(f"has_missing={has_missing}, but the words "
-                             f"{'hold' if miss else 'hold no'} missing calls")
+        miss = self._agreed_missing(miss, has_missing)
         return dict(XT=words, xsq=xsq, gram=gram, x_mean=mean, x_scale=scale,
                     row_valid=row_valid, x_colsum=xsum, has_missing=miss)
+
+    def _agreed_missing(self, miss, has_missing):
+        """Whether any slice holds a missing call, agreed over the mesh so
+        that every rank sweeps in the same mode; checked against
+        ``has_missing`` when given."""
+        flag = torch.tensor([int(miss)], dtype=torch.int32,
+                            device=self.device)
+        miss = bool(self.mesh.all_reduce(flag).item())
+        if has_missing is not None and bool(has_missing) != miss:
+            raise ValueError(f"has_missing={has_missing}, but the data "
+                             f"{'holds' if miss else 'holds no'} missing "
+                             "calls")
+        return miss
+
+    def _int8_slice(self, X, transposed, x_stats, has_missing, lo, m_real):
+        """This slice's int8 codes (Mloc, N), pad markers code 3, with their
+        means and scales (``x_stats``, or this slice's own dosages') and
+        statistics (sharded.py:_int8_shard_setup): the slice's rows of a
+        device tensor are used as they are when they fill it."""
+        rows = (X[lo:lo + m_real] if transposed
+                else X[:, lo:lo + m_real].T)
+        stats = None
+        if x_stats is not None:
+            stats = tuple(np.asarray(a, np.float64)[lo:lo + m_real]
+                          for a in x_stats[:2])
+        q = genotypes.quantize_int8(rows, True, stats, self.B, self.Mloc,
+                                    device=self.device)
+        return dict(XT=q.codes, xsq=q.xsq, gram=q.gram, x_mean=q.x_mean,
+                    x_scale=q.x_scale, x_colsum=q.x_colsum,
+                    row_valid=torch.zeros((0,), dtype=torch.bool,
+                                          device=self.device),
+                    has_missing=self._agreed_missing(q.has_missing,
+                                                     has_missing))
 
     def _dense_slice(self, X, transposed, lo, hi, m_real):
         """This slice's standardized f32 rows (Mloc, N), zero on padding

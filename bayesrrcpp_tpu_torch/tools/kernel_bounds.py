@@ -1,13 +1,15 @@
 """The least time an NVIDIA H100 could take for a sweep's work, computed
 from its shapes alone (no card needed).  ``sweep`` is the one count of a
 whole sweep's bytes and operations on 2-bit words, ``dense_sweep`` on
-dense f32 rows, for any plan (strided, row layout or serial: the Gram
-floats are the plan's), and ``round_solve`` the solve launches alone:
-``chip_smoke.py`` calls them with the shapes and data of each sweep it
-runs, and this script with the headline constants for the TPU kernels
-that the port has not run yet and, as ``dense`` rows, for the dense cell
-(N=16,384 x M=49,152, J=128, B=32) with no marker moving and with every
-marker moving (the horseshoe):
+dense f32 rows, ``int8_sweep`` on int8 codes (the fold mode, or with
+``decode`` the serial in-kernel decode), for any plan (strided, row layout
+or serial: the Gram floats are the plan's), and ``round_solve`` the solve
+launches alone: ``chip_smoke.py`` calls them with the shapes and data of
+each sweep it runs, and this script with the headline constants for the
+TPU kernels that the port has not run yet, as ``dense`` rows for the dense
+cell (N=16,384 x M=49,152, J=128, B=32) and as ``int8`` rows for int8
+codes at the headline, with no marker moving and with every marker moving
+(the horseshoe):
 
     python3 bayesrrcpp_tpu_torch/tools/kernel_bounds.py
 
@@ -65,6 +67,27 @@ def dense_sweep(n, mpad, gram_floats, chains, marker_arrays, moved=0,
     return bound(nbytes, 2.0 * n * (chains * mpad + moved))
 
 
+def int8_sweep(n, mpad, gram_floats, chains, marker_arrays, moved=0,
+               moved_rows=0, decode=False):
+    """A whole sweep of ``chains`` chains over ``mpad`` markers of int8
+    codes at ``n`` individuals (no pad lanes).  Bytes: the codes read once
+    by the dots (1 byte a genotype) and again for each of the
+    ``moved_rows`` rows that moved in any chain (a round's rows, J*B*n
+    bytes, 411 MB at the headline, do not stay in the 50 MB L2), the Gram
+    floats, the per-marker statistics (xsq, mean, scale, g_assign and a
+    valid byte) and per chain eps read and written and ``marker_arrays``
+    f32/int32 marker vectors.  FP32 operations: an FMA (2 flops) per code
+    and chain in the dot and per code of every moved row and chain in the
+    apply (``moved``, summed over chains); ``decode`` (the in-kernel decode,
+    one chain) adds (c - mean)*scale, 2 flops, per code read."""
+    nbytes = (n * (mpad + moved_rows) + 4 * gram_floats + 17 * mpad
+              + chains * (8 * n + 4 * marker_arrays * mpad))
+    flops = 2.0 * n * (chains * mpad + moved)
+    if decode:
+        flops += 2.0 * n * (mpad + moved_rows)
+    return bound(nbytes, flops)
+
+
 def round_solve(markers, b, table_fields, step_flops):
     """The solve alone (sites #13, #14) over ``markers`` markers in blocks
     of ``b`` (one round: J*B; a sweep's rounds: Mpad): the Gram blocks, r
@@ -116,8 +139,23 @@ DENSE = [
                  0 if moved == "none" else DM))
     for c in (1, 8) for moved in ("none", "all")]
 
+# int8 codes at the headline (biobank-int8-*): the strided plan (J=128,
+# B=32) with no marker moving and every one moving (the horseshoe), one
+# chain and 8 fused, and the serial in-kernel decode (J=1, B=512) of one
+# chain with no marker moving
+INT8 = [
+    (f"int8 C={c} moved={moved}",
+     int8_sweep(N, M, GRAM_FLOATS, c, 6 if moved == "none" else 4,
+                0 if moved == "none" else c * M,
+                0 if moved == "none" else M))
+    for c in (1, 8) for moved in ("none", "all")] + [
+    ("int8_q C=1 moved=none J=1 B=512",
+     int8_sweep(N, M, M * 512, 1, 6, decode=True))]
+
 if __name__ == "__main__":
     for site, where, b in SITES:
         print(json.dumps({"site": site, "tpu_kernel": where, **b}))
     for what, b in DENSE:
         print(json.dumps({"dense": what, **b}))
+    for what, b in INT8:
+        print(json.dumps({"int8": what, **b}))

@@ -178,7 +178,46 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and eps bitwise equal on both ranks after every step, tracked vs
    recomputed eps, each rank's first chunk against its plain version.
 
-Phases 17-23 run after phase 12, on phase 2's words for 17b, 21b and 23.
+24. int8 codes (``x_dtype="int8"``, one byte a genotype), decoded from
+   phase 2's words (individual order already: the port's words carry no
+   lane permutation), through the int8 mode of every sweep kernel: (a)
+   each int8 entry point against its plain version at N=4096 and N=4001 x
+   M=8192 (M=2048 for the serial sweeps at N=4001), one sweep from a warm
+   state (the strided kernels J=32, B=32 one
+   chain and C=8 fused, their chunks of rounds #5/#6, the serial fold
+   B=512 one chain and C=8, the row sweep J=8, B=128, the serial in-kernel
+   decode on codes with missing calls): labels and v equal, floats as phase
+   10, fused chains bitwise equal to the single-chain kernel, #5/#6 over
+   every round bitwise #1/#3; (b) int8 against the 2-bit fold kernels on
+   phase 2's first 8,192 markers (BayesR by ``flip_replay`` as 17b, the
+   horseshoe to 1e-4); (c) biobank-int8-auto, N=100,352 x M=503,808 (47.09
+   GiB of codes, used without a copy), auto plan J=128, B=32:
+   ``SpikeSlabSampler(codes, Y, cva, BayesRConfig(emit_epsilon=False),
+   x_dtype="int8", transposed=True, x_stats=...).run(generator,
+   ChainConfig(30, 10, 10), sink=CSVSink(...))`` with the launch counter
+   reset just before (CSV widths, finite values, tracked vs recomputed
+   eps, launches, peak memory < 75 GiB), a profile of 2 steps, the sweep
+   timed (mean of 3) with its bound and ``torch.matmul`` yardstick, 8
+   rounds against the plain version (labels >= 99.9 %, |d eps| / |eps| <
+   1e-3); (d) biobank-int8-horseshoe (``ChainConfig(10, 5, 5)``, the sweep
+   against plain under phase 5b's 1e-4 bounds), biobank-int8-8chain and its
+   horseshoe (``run_chains`` of 8, fused, 5 iterations), the row plan J=32,
+   B=128 of both samplers (2 iterations, 8 fused chains through the serial
+   fused sweep, 8 rounds against plain), the serial int8 fold at the
+   headline (J=1, B=512: one sweep of each kernel timed, 2 blocks against
+   plain) with its main paths at the auto plan of M=1500; (e)
+   biobank-int8-missing: code 3 written in place at probability 2^-6, the
+   auto plan falling to J=1 (B=32) through the in-kernel decode, BayesR
+   ``ChainConfig(10, 5, 5)`` and the horseshoe 3 iterations, one sweep
+   timed and ``HEADLINE_PLAIN_BLOCKS`` blocks against plain; (f) the
+   sharded driver on int8 codes on a (1, 1) NCCL mesh at N=4096 x
+   M=16,384: the same device codes, #5/#6 over every round bitwise #1/#3,
+   5 iterations of one chain and of 8 fused chains with their launch
+   counts; (g) the CLI with ``--x-dtype int8`` on a .bed with missing
+   calls (N=8,192 x M=4,096).  It logs its seconds.
+
+Phases 17-24 run after phase 12, on phase 2's words for 17b, 21b, 23 and
+24.
 Each group of phases logs the seconds since the start.  The
 three kernel libraries build at once (one nvcc per source).  The script
 prints its total time before the last two lines.  The last
@@ -314,14 +353,15 @@ def timed(torch, fn, reps):
 
 
 def dot_yardstick(torch, s, rows, eps):
-    """ms of one ``torch.matmul`` of sampler ``s``'s decoded ``rows`` by
-    ``eps`` ((Npad,) or (C, Npad)): the PyTorch yardstick of one dot launch
-    (the decode is not timed).  Never called by the port."""
+    """ms of one ``torch.matmul`` of sampler ``s``'s decoded ``rows`` (2-bit
+    words or int8 codes) by ``eps`` ((Npad,) or (C, Npad)): the PyTorch
+    yardstick of one dot launch (the decode is not timed).  Never called by
+    the port."""
     from bayesrrcpp_tpu_torch.ops.genotypes import decode_rows
 
     d = s.data
     x = decode_rows(d.XT[rows], d.x_mean[rows], d.x_scale[rows],
-                    d.row_valid)
+                    d.row_valid if s.x_packed else None)
     rhs = eps.T.contiguous() if eps.dim() == 2 else eps
     return timed(torch, lambda: torch.matmul(x, rhs), 5)[1]
 
@@ -449,7 +489,7 @@ def main():
 
 
 def smoke(torch, tmp):
-    """Phases 1-23 (module docstring; 17-23 run after 12), their CSVs under
+    """Phases 1-24 (module docstring; 17-24 run after 12), their CSVs under
     ``tmp``; returns 0 or raises."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import bayesrrcpp_tpu_torch as bt
@@ -709,6 +749,10 @@ def smoke(torch, tmp):
     sharded_kernels = sharded_phases(torch, bt, hs, tmp, ms_iter_4,
                                      mc["bayesr"]["ms_iter"])
     elapsed("23")
+
+    # ---- 24. int8 codes, decoded from phase 2's words
+    int8_kernels = int8_phases(torch, bt, hs, tmp)
+    elapsed("24")
     del hs
 
     # ---- 13-16. words with missing calls
@@ -742,7 +786,7 @@ def smoke(torch, tmp):
         f"started")
     print(json.dumps({"kernels": kernels + serial_kernels
                       + missing_kernels + dense_kernels + row_kernels
-                      + sharded_kernels}))
+                      + sharded_kernels + int8_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -1415,7 +1459,7 @@ def flip_replay(torch, s, args, kw, k_lab, r_lab, r_beta, sweeps=None,
     on the marker's row, with 2^-20 for the weights' own rounding.  Returns
     a dict: r0, rounds, labels_equal and rel_eps (the states after R0
     rounds), near (one dict per block: marker, u, k, margin, reach, num,
-    reach_num)."""
+    reach_num).  ``s`` holds 2-bit words, int8 codes or dense rows."""
     from bayesrrcpp_tpu_torch.ops import jacobi_t as jt
     from bayesrrcpp_tpu_torch.ops.genotypes import MISSING_CODE, decode_codes
 
@@ -1436,6 +1480,7 @@ def flip_replay(torch, s, args, kw, k_lab, r_lab, r_beta, sweeps=None,
     lp, invd, _ = jt.bayesr_tables(args[2], args[14], args[10], args[11],
                                    args[12], args[13])
     half = 0.5 / torch.as_tensor(args[12], device=dev).to(f64)
+    codes = s.x_packed or s.x_int8       # words or int8 codes, else dense
     lanes_ok = d.row_valid.to(torch.bool) if s.x_packed else None
     near = []
     for blk, at0 in round_blocks(r0):
@@ -1448,12 +1493,14 @@ def flip_replay(torch, s, args, kw, k_lab, r_lab, r_beta, sweeps=None,
         t = steps[0]
         lane = inn[t]
         m = blk * B + lane
-        if s.x_packed:
-            c = decode_codes(d.XT[rows]).to(f64) * lanes_ok
+        if codes:
+            c = decode_codes(d.XT[rows]).to(f64)
+            keep = c != MISSING_CODE
+            if lanes_ok is not None:
+                c, keep = c * lanes_ok, keep & lanes_ok
             mean = d.x_mean[rows].to(f64)[:, None]
             sc = d.x_scale[rows].to(f64)[:, None]
-            x = torch.where((c != MISSING_CODE) & lanes_ok, (c - mean) * sc,
-                            0.0)
+            x = torch.where(keep, (c - mean) * sc, 0.0)
         else:
             x = d.XT[rows].to(f64)
         rr = x @ eps
@@ -1470,7 +1517,7 @@ def flip_replay(torch, s, args, kw, k_lab, r_lab, r_beta, sweeps=None,
         # indicator's (m - 3)-scaled dot, the fold's m * sum(eps); dense
         # rows' own dot
         e = eps.abs()
-        if s.x_packed:
+        if codes:
             mi = float(mean[lane, 0])
             ind = float((e * (c[lane] == MISSING_CODE)).sum())
             sums = float(sc[lane, 0]) * (float((c[lane] * e).sum())
@@ -2285,7 +2332,7 @@ def dense_phases(torch, bt, hs, tmp):
             pnames = ("dense_dot_kernel",
                       ("hs_solve" if hsk else "solve")
                       + ("_kernel" if chains is None else "_mc_kernel"),
-                      "dense_apply_kernel")
+                      "row_apply_kernel")
             split, dev_ms, wall_ms = profile_split(torch, two_steps, pnames)
             check(profiled(split, 2 * nr), f"[18] profiled launches {split}")
             log(f"[18] {cell} main path: "
@@ -2419,7 +2466,7 @@ def dense_phases(torch, bt, hs, tmp):
                 split, dev_ms, wall_ms = profile_split(
                     torch, lambda: ss._run_steps(st, vp, 1),
                     ("serial_dense_dot_kernel", "serial_solve_kernel",
-                     "dense_apply_kernel"))
+                     "row_apply_kernel"))
                 check(profiled(split, ss.nb), f"[19] profiled {split}")
                 msg = "; profile of 1 step: " + ", ".join(
                     f"{n} {us:.2f} us x {c}" for n, (us, c) in split.items()
@@ -2602,7 +2649,7 @@ def row_main_paths(torch, bt, s, tag, cell, tmp, counters, gen_seed,
     nr = s.nb // s.jacobi
     dense = not s.x_packed
     dot = "serial_dense_dot_kernel" if dense else "serial_dot_kernel"
-    apply = "dense_apply_kernel" if dense else "serial_apply_kernel"
+    apply = "row_apply_kernel" if dense else "serial_apply_kernel"
     out_rec = None
     for chains in (None, CHAINS):
         g = torch.Generator(device="cuda").manual_seed(gen_seed)
@@ -3415,6 +3462,800 @@ def sharded_phases(torch, bt, hs, tmp, ms_iter_4, ms_iter_8c):
                          "replaces": f"{tpu}:{where}",
                          "launches": launches[C]}, **records[C]))
     return out
+
+
+# ---------------------------------------------------------------- phase 24
+
+INT8_PLAIN_ROUNDS = 8     # rounds of an int8 strided plain sweep held at
+#                           the headline (24c)
+
+
+def int8_codes(torch, words, N, rows=2048):
+    """(M, N) int8 codes of the 2-bit ``words`` (M, Npad/16), decoded in
+    chunks of rows.  The port's words hold individual 16w + k at bits 2k
+    of word w (no lane permutation), so the codes come out in individual
+    order: int8 and 2-bit storage hold the same dosages."""
+    from bayesrrcpp_tpu_torch.ops.genotypes import decode_codes
+
+    M = words.shape[0]
+    out = torch.empty((M, N), dtype=torch.int8, device=words.device)
+    for a in range(0, M, rows):
+        b = min(M, a + rows)
+        out[a:b] = decode_codes(words[a:b])[:, :N]
+    return out
+
+
+def int8_sampler(torch, bt, g, N, M, cfg, missing=False, codes=None, Y=None,
+                 **plan):
+    """A sampler on int8 codes (M, N) on the card (``x_dtype="int8"``,
+    ``transposed=True``, ``x_stats`` those of the codes' distribution):
+    ``codes`` as given, or the decoded codes of random words from ``g``
+    (P = 1/4, 1/4, 1/2 and, with ``missing``, code 3 at 2^-6); Y from
+    ``g`` unless given."""
+    if codes is None:
+        make = (bt.simulate.random_packed_words_missing if missing
+                else bt.simulate.random_packed_words)
+        codes = int8_codes(torch, make(g, M, -(-N // 16), device="cuda"), N)
+    if Y is None:
+        Y = torch.randn(N, generator=g, device="cuda")
+    kw = dict(transposed=True, x_dtype="int8",
+              x_stats=bt.simulate.packed_word_stats(M), device="cuda",
+              **plan)
+    if isinstance(cfg, bt.HorseshoeConfig):
+        return bt.HorseshoeSampler(codes, Y, cfg, **kw)
+    return bt.SpikeSlabSampler(codes, Y, CVA, cfg, **kw)
+
+
+def int8_bound(s, chains, moved, marker_arrays, moved_rows, gram_rows=None,
+               decode=False):
+    """(bound_ms, bound_by) of one int8 sweep of ``chains`` chains on
+    sampler ``s``'s codes, by ``tools/kernel_bounds.int8_sweep``: ``moved``
+    rows applied (summed over chains), ``moved_rows`` rows moved in any
+    chain (read again by the apply), the Gram blocks or ``gram_rows`` rows
+    of them; ``decode`` the in-kernel decode."""
+    from bayesrrcpp_tpu_torch.tools import kernel_bounds
+
+    gram = s.data.gram.numel() if gram_rows is None else gram_rows * s.B
+    b = kernel_bounds.int8_sweep(s.N, s.Mpad, gram, chains, marker_arrays,
+                                 moved, moved_rows, decode)
+    return b["bound_ms"], b["bound_by"]
+
+
+def moved_of(beta_out, beta_in):
+    """(rows moved summed over chains, rows moved in any chain)."""
+    moved = beta_out != beta_in
+    any_chain = moved if moved.dim() == 1 else moved.any(dim=0)
+    return int(moved.sum()), int(any_chain.sum())
+
+
+def int8_layouts(jt, jr, ser, mcs):
+    """layout -> (plan keywords, missing calls, kind -> (single, plain,
+    fused, fused plain, operands, outputs)) of phase 24a."""
+    bn = ("eps", "beta", "labels", "v", "beta_acum")
+    hn = ("eps", "beta")
+    return {
+        "strided": (dict(), False, {
+            "bayesr": (jt.bayesr_jacobi_t, jt.bayesr_jacobi_t_reference,
+                       jt.bayesr_jacobi_t_mc, jt.bayesr_jacobi_t_mc_reference,
+                       sweep_args, bn),
+            "horseshoe": (jt.horseshoe_jacobi_t,
+                          jt.horseshoe_jacobi_t_reference,
+                          jt.horseshoe_jacobi_t_mc,
+                          jt.horseshoe_jacobi_t_mc_reference, hs_sweep_args,
+                          hn)}),
+        "serial": (dict(jacobi_blocks=1), False, {
+            "bayesr": (ser.bayesr_sweep, ser.bayesr_sweep_reference,
+                       mcs.bayesr_sweep_mc, mcs.bayesr_sweep_mc_reference,
+                       serial_args, bn),
+            "horseshoe": (ser.horseshoe_sweep, ser.horseshoe_sweep_reference,
+                          mcs.horseshoe_sweep_mc,
+                          mcs.horseshoe_sweep_mc_reference, hs_serial_args,
+                          hn)}),
+        "row": (dict(jacobi_blocks=8, jacobi_layout="row"), False, {
+            "bayesr": (jr.bayesr_jacobi, jr.bayesr_jacobi_reference, None,
+                       None, row_args, bn),
+            "horseshoe": (jr.horseshoe_jacobi, jr.horseshoe_jacobi_reference,
+                          None, None, hs_row_args, hn)}),
+        "q": (dict(jacobi_blocks=1), True, {
+            "bayesr": (ser.bayesr_sweep, ser.bayesr_sweep_reference, None,
+                       None, serial_args, bn),
+            "horseshoe": (ser.horseshoe_sweep, ser.horseshoe_sweep_reference,
+                          None, None, hs_serial_args, hn)})}
+
+
+def int8_small(torch, bt, jt, layouts):
+    """24a: every int8 entry point against its plain version at N=4096 x
+    M=8192 (vector loads) and N=4001 (byte loads; M=2048 for the serial
+    sweeps, whose plain versions step marker by marker), one sweep from a
+    warm state: the strided kernels (plan J=32, B=32; #1-#4, #7, #8) one chain
+    and C=8 fused, their chunks of rounds (#5, #6: 3 rounds against the
+    plain version, every round bitwise the whole sweep), the serial fold
+    (B=512; #9-#12) one chain and C=8 fused, the row sweep (J=8, B=128;
+    #15, #16) and the serial in-kernel decode on codes with missing calls
+    (B=512; #9, #10 ``_q``): labels and v equal, the floats as phase 10
+    (``check_sweeps``), each fused chain bitwise equal to the single-chain
+    kernel.  Returns the largest |d| against plain."""
+    dev = torch.device("cuda")
+    worst = 0.0
+    for N in (4096, 4001):
+        for layout, (plan, missing, kinds) in layouts.items():
+            B = {"strided": 512, "serial": 512, "row": 128, "q": 512}[layout]
+            for kind, (single, plain, fused, fused_plain, make_args,
+                       names) in kinds.items():
+                cfg = (bt.HorseshoeConfig if kind == "horseshoe"
+                       else bt.BayesRConfig)(block_size=B)
+                g = torch.Generator(device=dev).manual_seed(240 + N % 7)
+                v = bt.TorchVariates(g)
+                # the serial plain sweeps' host loop takes a step a marker:
+                # at N=4001 they run 4 blocks of 512, not 16
+                M = 8192 if N == 4096 or layout in ("strided", "row") else 2048
+                s = int8_sampler(torch, bt, g, N, M, cfg, missing, **plan)
+                want = {"strided": (32, 32, "t"), "serial": (1, 512, "row"),
+                        "row": (8, 128, "row"), "q": (1, 512, "row")}[layout]
+                check((s.jacobi, s.B, s.jacobi_layout) == want
+                      and s.data.has_missing == missing
+                      and s.data.XT.dtype == torch.int8,
+                      f"[24a] {layout} plan "
+                      f"{(s.jacobi, s.B, s.jacobi_layout)}")
+                st = s._run_steps(s.init(v), v, 3)
+                args, kw = make_args(s, st, v)
+                check(kw["fold_affine"] is not missing
+                      and "row_valid" not in kw,
+                      f"[24a] {layout} mode {kw.keys()}")
+                tag = f"[24a] N={N} {kind} {layout}"
+                ker = tuple(single(*args, **kw))
+                worst = max(worst, check_sweeps(torch, tag, names, ker,
+                                                tuple(plain(*args, **kw))))
+                if layout == "strided" and kind == "bayesr":
+                    nr = s.nb // s.jacobi
+                    rkw = dict(kw, nr_total=nr)
+                    a3 = list(args)
+                    a3[6] = args[6][:3]
+                    worst = max(worst, rounds_gates(
+                        torch, f"{tag} #5 3 rounds",
+                        jt.bayesr_jacobi_t_rounds(*a3, **rkw),
+                        jt.bayesr_jacobi_t_rounds_reference(*a3, **rkw)))
+                    same_bits(torch, f"{tag} #5 every round vs #1",
+                              jt.bayesr_jacobi_t_rounds(*args, **rkw),
+                              jt.SweepResult(*ker))
+                if fused is None:
+                    del s, st, args, ker
+                    continue
+                v8 = bt.TorchVariates(g, chains=CHAINS)
+                st8 = s.init(v8, chains=CHAINS)
+                for _ in range(3):
+                    st8 = s.step_chains(st8, v8)
+                args, kw = make_args(s, st8, v8)
+                fk = tuple(fused(*args, **kw))
+                worst = max(worst, check_sweeps(
+                    torch, f"{tag} fused", names, fk,
+                    tuple(fused_plain(*args, **kw))))
+                for c in range(CHAINS):
+                    one = (chain_args(args, c, BAYESR_CHAIN_ARGS
+                                      if kind == "bayesr" else HS_CHAIN_ARGS)
+                           if layout == "strided"
+                           else single_chains(torch, args, kind, c))
+                    for name, a, b in zip(names, single(*one, **kw), fk):
+                        check(torch.equal(a, b[c]),
+                              f"{tag} chain {c} {name} differs from the "
+                              f"single-chain int8 kernel")
+                if layout == "strided" and kind == "bayesr":
+                    rkw = dict(kw, nr_total=s.nb // s.jacobi)
+                    a3 = list(args)
+                    a3[6] = args[6][:3]
+                    worst = max(worst, rounds_gates(
+                        torch, f"{tag} #6 3 rounds",
+                        jt.bayesr_jacobi_t_mc_rounds(*a3, **rkw),
+                        jt.bayesr_jacobi_t_mc_rounds_reference(*a3, **rkw)))
+                    same_bits(torch, f"{tag} #6 every round vs #3",
+                              jt.bayesr_jacobi_t_mc_rounds(*args, **rkw),
+                              jt.MCSweepResult(*fk))
+                del s, st, st8, args, ker, fk
+        log(f"[24a] N={N} x M=8192 (serial and _q at N=4001: M=2048): every "
+            f"int8 kernel against its plain "
+            f"version (labels and v equal), fused chains bitwise equal to "
+            f"the single-chain kernel, #5/#6 over every round bitwise #1/#3")
+    return worst
+
+
+def int8_vs_packed(torch, bt, hs, strided):
+    """24b: the int8 strided kernels against the 2-bit fold kernels on the
+    same dosages, phase 2's first 8,192 markers (the words of ``hs`` and
+    their decoded codes), BayesR and the horseshoe, one sweep from a warm
+    state: the horseshoe's eps and beta to 1e-4 of their norms, BayesR
+    chain by chain as phase 17b (a flip replayed and judged a near tie)."""
+    dev = torch.device("cuda")
+    Mb = 8192
+    xs = bt.simulate.packed_word_stats(HEADLINE_M)
+    stats = (xs[0][:Mb], xs[1][:Mb])
+    codes = int8_codes(torch, hs.data.XT[:Mb], hs.N)
+    for kind in ("bayesr", "horseshoe"):
+        hsk = kind == "horseshoe"
+        cfg = bt.HorseshoeConfig() if hsk else bt.BayesRConfig()
+        make = bt.HorseshoeSampler if hsk else bt.SpikeSlabSampler
+        pre = () if hsk else (CVA,)
+        sq = make(hs.data.XT[:Mb], hs.Y[:hs.N], *pre, cfg, transposed=True,
+                  x_dtype="2bit", x_stats=stats, device="cuda")
+        s8 = make(codes, hs.Y[:hs.N], *pre, cfg, transposed=True,
+                  x_dtype="int8", x_stats=stats, device="cuda")
+        check((s8.jacobi, s8.B, s8.nb, s8.Npad) ==
+              (sq.jacobi, sq.B, sq.nb, sq.Npad) and sq.Npad == sq.N,
+              "[24b] plans")
+        single, make_args = strided[kind][0], strided[kind][4]
+        g = torch.Generator(device=dev).manual_seed(245)
+        v = bt.TorchVariates(g)
+        st = sq._run_steps(sq.init(v), v, 2)
+        args_q, kw_q = make_args(sq, st, v)
+        d = s8.data
+        kw_8 = dict(J=s8.jacobi, **s8._sweep_kw())
+
+        def int8_sweep(*a, **k):
+            return single(d.XT, d.gram, d.xsq, *a[3:], **kw_8)
+
+        ker = tuple(int8_sweep(*args_q, **kw_q))
+        ref = tuple(single(*args_q, **kw_q))
+        agree, flips = dense_gates(torch, sq, f"[24b] {kind}", args_q, kw_q,
+                                   ker, ref, hsk,
+                                   sweeps=(int8_sweep, single))
+        log(f"[24b] {kind} int8 vs 2-bit fold on phase 2's dosages (N="
+            f"{sq.N}, M={Mb}, J={sq.jacobi}): label agreement {agree:.6f}, "
+            f"|d eps|/|eps| {rel_err(ker[0], ref[0]):.3g}, |d beta|/|beta| "
+            f"{rel_err(ker[1], ref[1]):.3g}; chains with a near-tie label "
+            f"flip {flips}")
+        del sq, s8, st, args_q, ker, ref
+    del codes
+
+
+def int8_strided_headline(torch, bt, jt, s, kind, make_args, fused, tag):
+    """One strided int8 sweep at the headline on sampler ``s`` from a warm
+    state (``fused``: C=8 fused chains), timed (mean of 3), and its first
+    ``INT8_PLAIN_ROUNDS`` rounds held against the plain version (labels on
+    >= 99.9 % of markers; eps to 1e-3 of its norm for BayesR, eps and beta
+    to 1e-4 for the horseshoe, phase 5b's bounds), with its bound and the
+    ``torch.matmul`` yardstick.  Returns the kernel's JSON numbers."""
+    hsk = kind == "horseshoe"
+    fns = {("bayesr", False): (jt.bayesr_jacobi_t, jt.bayesr_jacobi_t_rounds,
+                               jt.bayesr_jacobi_t_rounds_reference),
+           ("bayesr", True): (jt.bayesr_jacobi_t_mc,
+                              jt.bayesr_jacobi_t_mc_rounds,
+                              jt.bayesr_jacobi_t_mc_rounds_reference),
+           ("horseshoe", False): (jt.horseshoe_jacobi_t, None,
+                                  jt.horseshoe_jacobi_t_reference),
+           ("horseshoe", True): (jt.horseshoe_jacobi_t_mc, None,
+                                 jt.horseshoe_jacobi_t_mc_reference)}
+    sweep, rounds, plain = fns[(kind, fused)]
+    g = torch.Generator(device="cuda").manual_seed(246)
+    C = CHAINS if fused else None
+    v = bt.TorchVariates(g, chains=C)
+    st = s.init(v, chains=C)
+    for _ in range(2):
+        st = s.step(st, v) if C is None else s.step_chains(st, v)
+    args, kw = make_args(s, st, v)
+    nr = s.nb // s.jacobi
+    rho_at = 5 if hsk else 6
+    ker, ms = timed(torch, lambda: tuple(sweep(*args, **kw)), 3)
+    moved, moved_rows = moved_of(ker[1], args[4])
+    bound = int8_bound(s, C or 1, moved, 4 if hsk else 6, moved_rows)
+    lib_ms = dot_yardstick(torch, s, round_rows(torch, s, args[rho_at][0]),
+                           args[3]) * nr
+    # the first rounds: BayesR through the rounds entry point, the
+    # horseshoe (no rounds entry) by leaving the markers of later rounds
+    # invalid in both the kernel and the plain version
+    a = list(args)
+    if hsk:
+        marker_round = strided_rounds(torch, s, (None,) * 6 + (args[5],),
+                                      kw)[0]
+        a[12] = args[12] & (marker_round < INT8_PLAIN_ROUNDS)
+        k8 = tuple(sweep(*a, **kw))
+        r8, plain_ms = timed(torch, lambda: tuple(plain(*a, **kw)), 1)
+    else:
+        a[6] = args[6][:INT8_PLAIN_ROUNDS]
+        rkw = dict(kw, nr_total=nr)
+        k8 = tuple(rounds(*a, **rkw))
+        r8, plain_ms = timed(torch, lambda: tuple(plain(*a, **rkw)), 1)
+    rel_eps, rel_beta = rel_err(k8[0], r8[0]), rel_err(k8[1], r8[1])
+    max_err = max(float((x - y).abs().max()) for x, y in zip(k8[:2], r8[:2]))
+    agree = 1.0 if hsk else float((k8[2] == r8[2]).float().mean())
+    log(f"{tag} sweep at the headline: {ms:.3f} ms (mean of 3), bound "
+        f"{bound[0]:.3f} ms ({bound[1]}; {moved} rows applied, {moved_rows} "
+        f"moved), dot yardstick {lib_ms:.3f} ms; {INT8_PLAIN_ROUNDS} rounds "
+        f"vs plain ({plain_ms:.1f} ms): label agreement {agree:.6f}, "
+        f"|d eps|/|eps| {rel_eps:.3g}, |d beta|/|beta| {rel_beta:.3g}, max "
+        f"abs err {max_err:.3g}")
+    check(agree >= 0.999, f"{tag} label agreement {agree}")
+    check(rel_eps < (1e-4 if hsk else 1e-3), f"{tag} eps rel diff {rel_eps}")
+    if hsk:
+        check(rel_beta < 1e-4, f"{tag} beta rel diff {rel_beta}")
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound[0], bound_by=bound[1], library_ms=lib_ms)
+
+
+def int8_main_path(torch, bt, s, tag, cell, tmp, counter, chain, chains=None,
+                   want=None):
+    """A main path on int8 codes: ``run`` (or ``run_chains`` of ``chains``)
+    into a CSV sink with ``counter``'s launches set to 0 just before; CSV
+    widths, finite values, tracked vs recomputed eps < 1e-4 and the launch
+    count (``want``, by default 3 a round).  Returns (state, launches,
+    ms/iter, peak GiB)."""
+    from bayesrrcpp_tpu_torch.io.sink import ChainFanoutSink, CSVSink
+
+    kind = "horseshoe" if isinstance(s, bt.HorseshoeSampler) else "bayesr"
+    g = torch.Generator(device="cuda").manual_seed(247)
+    if chains is None:
+        path = os.path.join(tmp, f"{cell}.csv")
+        sink = CSVSink(path, kind, M=s.M, N=s.N, emit_epsilon=False)
+        run = lambda sk: s.run(g, chain, sink=sk)  # noqa: E731
+        paths = [path]
+    else:
+        sink = ChainFanoutSink.csv(os.path.join(tmp, f"{cell}.csv"), chains,
+                                   kind, M=s.M, N=s.N, emit_epsilon=False)
+        run = lambda sk: s.run_chains(g, chains, chain,  # noqa: E731
+                                      sink=sk)
+        paths = sink.paths
+    st, out, wall, launches, peak = main_path(torch, run, sink, counter)
+    n_rows = len(list(chain.emit_iterations()))
+    for p in paths:
+        header, widths, bad = read_csv(p)
+        check(len(header) == 2 + 2 * s.M + 2
+              and widths == [len(header)] * n_rows and not bad,
+              f"{tag} {p}: {len(header)} {widths} {bad}")
+    check(all(np_finite(x) for x in out.values()), f"{tag} non-finite output")
+    ex = s.refresh_eps(st).eps
+    rel = float((torch.linalg.norm(st.eps - ex, dim=-1)
+                 / torch.linalg.norm(ex, dim=-1)).max())
+    if want is None:
+        want = 3 * (s.nb // s.jacobi) * chain.max_iterations
+    ms_iter = wall / chain.max_iterations * 1e3
+    log(f"{tag} {cell} main path: {ms_iter:.2f} ms/iter ({wall:.2f} s for "
+        f"{chain.max_iterations} iterations incl. CSV), peak {peak:.2f} GiB, "
+        f"launches {launches} (want {want}), tracked-vs-exact eps {rel:.3g}")
+    check(rel < 1e-4, f"{tag} {cell} tracked eps vs recompute {rel}")
+    check(launches == want, f"{tag} {cell} launches {launches} != {want}")
+    return st, launches, ms_iter, peak
+
+
+def int8_profile(torch, bt, s, st, tag, names, per, steps=2):
+    """A profile of ``steps`` steps from ``st``: device time per launch of
+    ``names``, device and wall ms, idle."""
+    g = torch.Generator(device="cuda").manual_seed(248)
+    v = bt.TorchVariates(g, chains=None if st.eps.dim() == 1
+                         else st.eps.shape[0])
+
+    def run(st=st):
+        for _ in range(steps):
+            st = s.step(st, v) if st.eps.dim() == 1 else s.step_chains(st, v)
+
+    split, dev_ms, wall_ms = profile_split(torch, run, names)
+    check(profiled(split, per), f"{tag} profiled launches {split}")
+    log(f"{tag} profile of {steps} steps: " + ", ".join(
+        f"{n} {us:.2f} us x {c}" for n, (us, c) in split.items())
+        + f"; device {dev_ms:.2f} ms of {wall_ms:.2f} ms wall, idle "
+        f"{1 - dev_ms / wall_ms:.3f}")
+
+
+def int8_serial_headline(torch, bt, s, kind, fns, tag, blocks, fused, q):
+    """One serial int8 sweep at the headline (the fold at J=1 B=512, or the
+    ``_q`` mode), timed once, and its first ``blocks`` blocks against the
+    plain version under phase 10b's gates (``serial_gates``); ``fused``:
+    C=8 fused chains, each also bitwise equal to the single-chain kernel
+    on those blocks.  Returns the kernel's JSON numbers."""
+    single, plain, fsweep, fplain, make_args, _ = fns
+    hsk = kind == "horseshoe"
+    g = torch.Generator(device="cuda").manual_seed(249)
+    C = CHAINS if fused else None
+    v = bt.TorchVariates(g, chains=C)
+    st = s.init(v, chains=C)
+    sweep = fsweep if fused else single
+    ref_fn = fplain if fused else plain
+    args, kw = make_args(s, st, v)
+    ker, ms = timed(torch, lambda: tuple(sweep(*args, **kw)), 1)
+    moved, moved_rows = moved_of(ker[1], args[4])
+    bound = int8_bound(s, C or 1, moved, 4 if hsk else 6, moved_rows,
+                       gram_rows=moved_rows, decode=q)
+    order = args[5] if hsk else args[6]
+    lib_ms = dot_yardstick(torch, s, order[0] * s.B + torch.arange(
+        s.B, device="cuda"), args[3]) * s.nb
+    args, kw = make_args(s, st, v, blocks)
+    kb = tuple(sweep(*args, **kw))
+    rb, plain_ms = timed(torch, lambda: tuple(ref_fn(*args, **kw)), 1)
+    max_err, agree, rel = serial_gates(torch, tag, kb, rb, hsk)
+    if fused:
+        for c in range(CHAINS):
+            one = single_chains(torch, args, kind, c)
+            for a, b in zip(single(*one, **kw), kb):
+                check(torch.equal(a, b[c]),
+                      f"{tag} chain {c} differs from the single-chain kernel")
+    log(f"{tag} sweep at the headline: {ms:.3f} ms, bound {bound[0]:.3f} ms "
+        f"({bound[1]}), dot yardstick {lib_ms:.3f} ms; {blocks} blocks vs "
+        f"plain ({plain_ms:.1f} ms): label agreement {agree:.6f}, |d eps|/"
+        f"|eps| {rel:.3g}, max abs err {max_err:.3g}"
+        + ("; fused chains bitwise equal to the single-chain kernel"
+           if fused else ""))
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound[0], bound_by=bound[1], library_ms=lib_ms)
+
+
+def int8_sharded(torch, bt, jt):
+    """24f: the marker-sharded driver on int8 codes on a (1, 1) mesh of a
+    one-rank NCCL group, N=4096 x M=16,384 (the "t" plan J=64, B=32): the
+    sharded sampler takes the same device codes as the unsharded one (no
+    copy); #5 / #6 over every round bitwise equal to #1 / #3 on the same
+    inputs; ``run`` (ChainConfig(5, 2, 2)) and ``run_chains`` of 8 with the
+    rounds kernels' counts set to 0 just before, their launch counts, CSV
+    and tracked eps.  Returns the launches of #5 and #6."""
+    import tempfile as tf
+
+    import torch.distributed as dist
+
+    from bayesrrcpp_tpu_torch.parallel.distributed import initialize
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(250)
+    s = int8_sampler(torch, bt, g, 4096, 16384, bt.BayesRConfig())
+    launches = {}
+    initialize(f"tcp://127.0.0.1:{free_port()}", 1, 0, backend="nccl")
+    try:
+        mesh = bt.make_mesh(1, 1, device="cuda:0")
+        sh = bt.ShardedSpikeSlabSampler(
+            s.data.XT, s.Y, CVA, bt.BayesRConfig(emit_epsilon=False), mesh,
+            backend="pallas", x_dtype="int8", transposed=True,
+            x_stats=bt.simulate.packed_word_stats(s.M))
+        check((sh.jacobi, sh.B, sh.Mpad, sh.strided) ==
+              (s.jacobi, s.B, s.Mpad, True)
+              and sh.data.XT.data_ptr() == s.data.XT.data_ptr(),
+              f"[24f] sharded plan {(sh.jacobi, sh.B, sh.Mpad)}")
+        nr = sh.nb // sh.jacobi
+        for C in (None, CHAINS):
+            v = bt.TorchVariates(g, chains=C)
+            st = s.init(v, chains=C)
+            for _ in range(2):
+                st = s.step(st, v) if C is None else s.step_chains(st, v)
+            args, kw = sweep_args(s, st, v)
+            rounds, _, whole = rounds_fns(jt, C)
+            d = sh.data
+            same_bits(torch, f"[24f] C={C or 1} #5/#6 on the sharded "
+                      f"sampler's data vs #1/#3 on the unsharded one's",
+                      rounds(d.XT, d.gram, d.xsq, *args[3:], nr_total=nr,
+                             **kw),
+                      whole(*args, **kw))
+        with tf.TemporaryDirectory() as d:
+            for C, counter in ((None, jt.bayesr_jacobi_t_rounds),
+                               (CHAINS, jt.bayesr_jacobi_t_mc_rounds)):
+                _, n, ms_iter, _ = int8_main_path(
+                    torch, bt, sh, "[24f]", "int8-sharded-m1"
+                    + ("" if C is None else "-8chain"), d, counter,
+                    bt.ChainConfig(5, 2, 2), C)
+                launches[C] = n
+        del sh
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
+def int8_cli(torch, bt, ser, tmp):
+    """24g: ``python -m bayesrrcpp_tpu_torch bayesr|horseshoe --bed ...
+    --x-dtype int8`` in-process on the card, on a .bed with missing calls
+    (N=8,192 x M=4,096, written by ``io/bed.write_bed``): the .bed read with
+    NaN for a missing call, quantized to int8 codes, the auto plan's J=1
+    in-kernel decode; the CSV's widths and values and the launch counts."""
+    import numpy as np
+
+    from bayesrrcpp_tpu_torch import cli
+    from bayesrrcpp_tpu_torch.io import bed
+
+    N, M = 8192, 4096
+    rng = np.random.default_rng(24)
+    dos = rng.integers(0, 3, size=(N, M), dtype=np.int8).astype(np.float32)
+    dos[rng.random((N, M), dtype=np.float32) < 1 / 64] = np.nan
+    with tempfile.TemporaryDirectory(dir=tmp) as d:
+        prefix = os.path.join(d, "cohort")
+        bed.write_bed(prefix, dos)
+        pheno = os.path.join(d, "y.txt")
+        np.savetxt(pheno, rng.standard_normal(N))
+        for kind, counter in (("bayesr", ser.bayesr_sweep),
+                              ("horseshoe", ser.horseshoe_sweep)):
+            out = os.path.join(d, f"{kind}.csv")
+            torch.cuda.synchronize()
+            counter.launches = 0
+            t0 = time.perf_counter()
+            rc = cli.main([kind, "--bed", prefix, "--pheno", pheno,
+                           "--x-dtype", "int8", "--out", out,
+                           "--iterations", "6", "--burn-in", "2",
+                           "--thinning", "2", "--seed", "3"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            header, widths, bad = read_csv(out)
+            want = 3 * (M // 32) * 6
+            log(f"[24g] python -m bayesrrcpp_tpu_torch {kind} --bed ... "
+                f"--x-dtype int8: rc {rc}, {wall:.2f} s, CSV {len(widths)} "
+                f"rows of {len(header)} columns, launches {counter.launches} "
+                f"(want {want}: the serial in-kernel decode at J=1, B=32)")
+            check(rc == 0 and len(header) == 2 + 2 * M + 2 + N
+                  and widths == [len(header)] * 2 and not bad,
+                  f"[24g] {kind} CSV {len(header)} {widths} {bad}")
+            check(counter.launches == want,
+                  f"[24g] {kind} launches {counter.launches}")
+
+
+def int8_phases(torch, bt, hs, tmp):
+    """Phase 24 (module docstring): int8 codes through every sweep kernel's
+    int8 mode, the codes decoded from phase 2's words (those of ``hs``),
+    CSVs under ``tmp``.  Returns the int8 kernels' JSON records."""
+    from bayesrrcpp_tpu_torch.ops import jacobi as jr
+    from bayesrrcpp_tpu_torch.ops import jacobi_t as jt
+    from bayesrrcpp_tpu_torch.ops import multichain as mcs
+    from bayesrrcpp_tpu_torch.ops import serial as ser
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    layouts = int8_layouts(jt, jr, ser, mcs)
+    rec = {}
+
+    # ---- 24a / 24b
+    worst = int8_small(torch, bt, jt, layouts)
+    log(f"[24a] max |d| vs plain {worst:.3g}")
+    int8_vs_packed(torch, bt, hs, layouts["strided"][2])
+
+    # ---- 24c. biobank-int8-auto: the headline codes from phase 2's words
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    codes = int8_codes(torch, hs.data.XT, hs.N)
+    torch.cuda.synchronize()
+    codes_s = time.perf_counter() - t0
+    Y = hs.Y[:hs.N]
+    t0 = time.perf_counter()
+    s = int8_sampler(torch, bt, None, HEADLINE_N, HEADLINE_M,
+                     bt.BayesRConfig(emit_epsilon=False), codes=codes, Y=Y)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    check((s.jacobi, s.B, s.jacobi_layout, s.Mpad) ==
+          (128, 32, "t", HEADLINE_M) and not s.data.has_missing
+          and s.data.XT.data_ptr() == codes.data_ptr(),
+          f"[24c] headline plan {(s.jacobi, s.B, s.Mpad)} or codes copied")
+    nr = s.nb // s.jacobi
+    log(f"[24c] headline int8 codes ({codes.numel()} B, "
+        f"{codes.numel() / 2 ** 30:.2f} GiB) decoded from phase 2's words in "
+        f"{codes_s:.2f} s; sampler setup (xsq, Gram, column sums; no copy of "
+        f"the codes) {setup_s:.2f} s; peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    names = ("dense_dot_kernel", "solve_kernel", "row_apply_kernel")
+    st, n, ms_iter, peak = int8_main_path(
+        torch, bt, s, "[24c]", "biobank-int8-auto", tmp, jt.bayesr_jacobi_t,
+        bt.ChainConfig(30, 10, 10))
+    rec["bayesr"] = dict(launches=n, ms_iter=ms_iter)
+    check(peak < 75, f"[24c] peak {peak:.2f} GiB")
+    int8_profile(torch, bt, s, st, "[24c] biobank-int8-auto", names, 2 * nr)
+    del st
+    rec["bayesr"].update(int8_strided_headline(
+        torch, bt, jt, s, "bayesr", sweep_args, False, "[24c] BayesR int8"))
+    # #5 over every round: #1's launches, bitwise (phase 23a's check)
+    g = torch.Generator(device=dev).manual_seed(251)
+    v = bt.TorchVariates(g)
+    st = s._run_steps(s.init(v), v, 1)
+    args, kw = sweep_args(s, st, v)
+    full, rounds_ms = timed(torch, lambda: jt.bayesr_jacobi_t_rounds(
+        *args, nr_total=nr, **kw), 1)
+    same_bits(torch, "[24c] #5 over every round vs #1", full,
+              jt.bayesr_jacobi_t(*args, **kw))
+    rec["rounds"] = dict(rec["bayesr"], ms=rounds_ms)
+    del st, args, full
+    elapsed("24a-24c")
+
+    # ---- 24d. biobank-int8-horseshoe, biobank-int8-8chain, a row plan
+    h = int8_sampler(torch, bt, None, HEADLINE_N, HEADLINE_M,
+                     bt.HorseshoeConfig(emit_epsilon=False), codes=codes, Y=Y)
+    check(h.data.XT.data_ptr() == codes.data_ptr(), "[24d] codes copied")
+    st, n, ms_iter, _ = int8_main_path(
+        torch, bt, h, "[24d]", "biobank-int8-horseshoe", tmp,
+        jt.horseshoe_jacobi_t, bt.ChainConfig(10, 5, 5))
+    int8_profile(torch, bt, h, st, "[24d] biobank-int8-horseshoe",
+                 ("dense_dot_kernel", "hs_solve_kernel", "row_apply_kernel"),
+                 2 * nr)
+    del st
+    rec["horseshoe"] = dict(launches=n, ms_iter=ms_iter,
+                            **int8_strided_headline(
+                                torch, bt, jt, h, "horseshoe", hs_sweep_args,
+                                False, "[24d] horseshoe int8"))
+    for kind, sm, counter in (("bayesr", s, jt.bayesr_jacobi_t_mc),
+                              ("horseshoe", h, jt.horseshoe_jacobi_t_mc)):
+        cell = ("biobank-int8-8chain" if kind == "bayesr"
+                else "biobank-int8-horseshoe-8chain")
+        st, n, ms_iter, _ = int8_main_path(
+            torch, bt, sm, "[24d]", cell, tmp, counter,
+            bt.ChainConfig(5, 2, 2), CHAINS)
+        if kind == "bayesr":
+            int8_profile(torch, bt, sm, st, f"[24d] {cell}",
+                         ("dense_dot_kernel", "solve_mc_kernel",
+                          "row_apply_kernel"), 2 * nr)
+        del st
+        rec[kind + "_mc"] = dict(launches=n, ms_iter=ms_iter,
+                                 **int8_strided_headline(
+                                     torch, bt, jt, sm, kind,
+                                     sweep_args if kind == "bayesr"
+                                     else hs_sweep_args, True,
+                                     f"[24d] {kind} int8 C={CHAINS}"))
+        if kind == "bayesr":
+            g = torch.Generator(device=dev).manual_seed(252)
+            v8 = bt.TorchVariates(g, chains=CHAINS)
+            st = sm.init(v8, chains=CHAINS)
+            args, kw = sweep_args(sm, st, v8)
+            full, rounds_ms = timed(
+                torch, lambda: jt.bayesr_jacobi_t_mc_rounds(
+                    *args, nr_total=nr, **kw), 1)
+            same_bits(torch, "[24d] #6 over every round vs #3", full,
+                      jt.bayesr_jacobi_t_mc(*args, **kw))
+            rec["rounds_mc"] = dict(rec["bayesr_mc"], ms=rounds_ms)
+            del st, args, full
+    del s, h
+    # the row plan (J=32, B=128): 2 iterations of each sampler, 8 fused
+    # chains through the serial fused sweep (#11, #12)
+    for kind in ("bayesr", "horseshoe"):
+        cfg = (bt.HorseshoeConfig if kind == "horseshoe" else bt.BayesRConfig)(
+            emit_epsilon=False, block_size=128)
+        sr = int8_sampler(torch, bt, None, HEADLINE_N, HEADLINE_M, cfg,
+                          codes=codes, Y=Y, jacobi_blocks=32,
+                          jacobi_layout="row")
+        check((sr.jacobi, sr.B, sr.jacobi_layout) == (32, 128, "row")
+              and sr.data.XT.data_ptr() == codes.data_ptr(), "[24d] row plan")
+        single, plain, _, _, make_args, bn = layouts["row"][2][kind]
+        fsweep = (mcs.bayesr_sweep_mc if kind == "bayesr"
+                  else mcs.horseshoe_sweep_mc)
+        solve = (jr.bayesr_round_solve if kind == "bayesr"
+                 else jr.horseshoe_round_solve)
+        n, solves, ms_iter = row_main_paths(
+            torch, bt, sr, "[24d]", f"biobank-int8-{kind}-row", tmp,
+            (single, solve, fsweep), 253, bt.ChainConfig(2, 1, 1))
+        g = torch.Generator(device=dev).manual_seed(254)
+        v = bt.TorchVariates(g)
+        st = sr.init(v)
+        args, kw = make_args(sr, st, v)
+        ker, ms = timed(torch, lambda: tuple(single(*args, **kw)), 1)
+        moved, moved_rows = moved_of(ker[1], args[4])
+        bound = int8_bound(sr, 1, moved, 4 if kind == "horseshoe" else 6,
+                           moved_rows)
+        order = args[5] if kind == "horseshoe" else args[6]
+        rows = (order[:sr.jacobi].long()[:, None] * sr.B
+                + torch.arange(sr.B, device=dev)).reshape(-1)
+        lib_ms = dot_yardstick(torch, sr, rows, args[3]) * (sr.nb // sr.jacobi)
+        args, kw = make_args(sr, st, v, ROW_PLAIN_ROUNDS)
+        kr = tuple(single(*args, **kw))
+        rr, plain_ms = timed(torch, lambda: tuple(plain(*args, **kw)), 1)
+        hsk = kind == "horseshoe"
+        agree, flips = dense_gates(torch, sr, f"[24d] {kind} row", args, kw,
+                                   kr, rr, hsk, sweeps=(single, plain),
+                                   rounds=row_rounds)
+        max_err = max(float((a - b).abs().max())
+                      for a, b in zip(kr[:2], rr[:2]))
+        log(f"[24d] {kind} int8 row sweep (J=32, B=128) at the headline: "
+            f"{ms:.3f} ms, bound {bound[0]:.3f} ms ({bound[1]}), dot "
+            f"yardstick {lib_ms:.3f} ms; {ROW_PLAIN_ROUNDS} rounds vs plain "
+            f"({plain_ms:.1f} ms): label agreement {agree:.6f}, |d eps|/|eps| "
+            f"{rel_err(kr[0], rr[0]):.3g}, chains with a flip {flips}")
+        rec[kind + "_row"] = dict(launches=n, max_abs_err=max_err, ms=ms,
+                                  plain_ms=plain_ms, bound_ms=bound[0],
+                                  bound_by=bound[1], library_ms=lib_ms)
+        del sr, st, args, ker, kr, rr
+    elapsed("24d")
+
+    # ---- the serial int8 fold at the headline (J=1, B=512; #9-#12): one
+    # sweep of each timed, 2 blocks against the plain version; their main
+    # paths at the auto plan of M=1500 (J=1)
+    for kind in ("bayesr", "horseshoe"):
+        cfg = (bt.HorseshoeConfig if kind == "horseshoe" else bt.BayesRConfig)(
+            emit_epsilon=False, block_size=512)
+        ss = int8_sampler(torch, bt, None, HEADLINE_N, HEADLINE_M, cfg,
+                          codes=codes, Y=Y, jacobi_blocks=1)
+        check((ss.jacobi, ss.B) == (1, 512) and ss.supports_fused_chains,
+              "[24] serial plan")
+        fns = layouts["serial"][2][kind]
+        for fused in (False, True):
+            key = kind + ("_serial_mc" if fused else "_serial")
+            rec[key] = int8_serial_headline(
+                torch, bt, ss, kind, fns, f"[24] {kind} serial int8"
+                + (f" C={CHAINS}" if fused else ""), 2, fused, False)
+        del ss
+        gs = torch.Generator(device=dev).manual_seed(255)
+        sm = int8_sampler(torch, bt, gs, 4096, 1500, cfg)
+        check((sm.jacobi, sm.jacobi_layout) == (1, "row"), "[24] M=1500 plan")
+        for fused, counter in ((False, fns[0]), (True, fns[2])):
+            key = kind + ("_serial_mc" if fused else "_serial")
+            _, n, _, _ = int8_main_path(
+                torch, bt, sm, "[24]", f"int8-m1500-{kind}"
+                + ("-8chain" if fused else ""), tmp, counter,
+                bt.ChainConfig(10, 5, 5), CHAINS if fused else None,
+                want=3 * sm.nb * 10)
+            rec[key]["launches"] = n
+        del sm
+
+    # ---- 24e. biobank-int8-missing: code 3 written in place at 2^-6
+    g = torch.Generator(device=dev).manual_seed(256)
+    for a in range(0, HEADLINE_M, 4096):
+        b = min(HEADLINE_M, a + 4096)
+        hit = torch.randint(0, 64, (b - a, HEADLINE_N), generator=g,
+                            device=dev, dtype=torch.uint8) == 0
+        codes[a:b].masked_fill_(hit, 3)
+    del hit
+    share = 0.0
+    for a in range(0, HEADLINE_M, 4096):
+        share += float((codes[a:a + 4096] == 3).sum())
+    share /= codes.numel()
+    for kind in ("bayesr", "horseshoe"):
+        cfg = (bt.HorseshoeConfig if kind == "horseshoe" else bt.BayesRConfig)(
+            emit_epsilon=False)
+        sq = int8_sampler(torch, bt, None, HEADLINE_N, HEADLINE_M, cfg,
+                          codes=codes, Y=Y)
+        check((sq.jacobi, sq.B) == (1, 32) and sq.data.has_missing
+              and not sq.supports_fused_chains
+              and sq._sweep_kw()["fold_affine"] is False,
+              f"[24e] auto plan with missing calls {(sq.jacobi, sq.B)}")
+        fns = layouts["q"][2][kind]
+        cell = ("biobank-int8-missing" if kind == "bayesr"
+                else "biobank-int8-horseshoe-missing")
+        chain = bt.ChainConfig(10, 5, 5) if kind == "bayesr" else \
+            bt.ChainConfig(3, 1, 1)
+        st, n, ms_iter, _ = int8_main_path(
+            torch, bt, sq, "[24e]", cell, tmp, fns[0], chain,
+            want=3 * sq.nb * chain.max_iterations)
+        if kind == "bayesr":
+            int8_profile(torch, bt, sq, st, f"[24e] {cell}",
+                         ("serial_dense_dot_kernel", "serial_solve_kernel",
+                          "row_apply_kernel"), sq.nb, steps=1)
+        del st
+        rec[kind + "_q"] = dict(launches=n, ms_iter=ms_iter,
+                                **int8_serial_headline(
+                                    torch, bt, sq, kind, fns,
+                                    f"[24e] {kind} int8 _q",
+                                    HEADLINE_PLAIN_BLOCKS, False, True))
+        log(f"[24e] {cell}: {share:.6f} of the calls missing")
+        del sq
+    del codes
+    elapsed("24e")
+
+    # ---- 24f, 24g
+    launches = int8_sharded(torch, bt, jt)
+    rec["rounds"]["launches"] = launches[None]
+    rec["rounds_mc"]["launches"] = launches[CHAINS]
+    int8_cli(torch, bt, ser, tmp)
+    log(f"[24] phase 24 took {time.perf_counter() - t_start:.1f} s")
+
+    src = "bayesrrcpp_tpu_torch/csrc/"
+    tpu = "bayesrrcpp_tpu/ops/"
+    meta = (
+        ("bayesr", "jacobi_t_sweep_int8", "jacobi_t.cu",
+         "pallas_jacobi_t.py:1032", "int8"),
+        ("horseshoe", "jacobi_t_hs_sweep_int8", "jacobi_t.cu",
+         "pallas_jacobi_t.py:1151", "int8"),
+        ("bayesr_mc", "jacobi_t_mc_sweep_int8", "jacobi_t_mc.cu",
+         "pallas_jacobi_t.py:1635/:2894", "int8"),
+        ("horseshoe_mc", "jacobi_t_hs_mc_sweep_int8", "jacobi_t_mc.cu",
+         "pallas_jacobi_t.py:2054/:3263", "int8"),
+        ("rounds", "jacobi_t_rounds_int8", "jacobi_t.cu",
+         "pallas_jacobi_t.py:2229", "int8"),
+        ("rounds_mc", "jacobi_t_mc_rounds_int8", "jacobi_t_mc.cu",
+         "pallas_jacobi_t.py:2403", "int8"),
+        ("bayesr_serial", "bayesr_serial_sweep_int8", "serial.cu",
+         "pallas_sweep.py:431", "int8"),
+        ("horseshoe_serial", "horseshoe_serial_sweep_int8", "serial.cu",
+         "pallas_sweep.py:824", "int8"),
+        ("bayesr_serial_mc", "bayesr_serial_mc_sweep_int8", "serial.cu",
+         "pallas_multichain.py:359", "int8"),
+        ("horseshoe_serial_mc", "horseshoe_serial_mc_sweep_int8",
+         "serial.cu", "pallas_multichain.py:736", "int8"),
+        ("bayesr_q", "bayesr_serial_sweep_int8_q", "serial.cu",
+         "pallas_sweep.py:431", "int8_q"),
+        ("horseshoe_q", "horseshoe_serial_sweep_int8_q", "serial.cu",
+         "pallas_sweep.py:824", "int8_q"),
+        ("horseshoe_row", "horseshoe_row_sweep_int8", "serial.cu",
+         "pallas_jacobi.py:1153", "int8"),
+        ("bayesr_row", "bayesr_row_sweep_int8", "serial.cu",
+         "pallas_jacobi.py:1299", "int8"))
+    keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
+    return [dict({"name": name, "route": "cuda", "source": src + f,
+                  "replaces": tpu + where, "mode": mode},
+                 **{k: rec[key][k] for k in keys})
+            for key, name, f, where, mode in meta]
 
 
 def np_finite(a):

@@ -193,8 +193,6 @@ def test_configurations_outside_the_slice_raise(case):
         cva = np.tile(CVA, (2, 1))
     elif case == "fixed":
         kw["fixed"] = rng.normal(size=(N, 2))
-    elif case == "int8":
-        kw["x_dtype"] = "int8"
     elif case == "row_plan":
         # row layout with J > 1: ported, the step equals JAX's on that plan
         # (M=96's own J=1 plan runs the serial sweep)
@@ -211,6 +209,14 @@ def test_configurations_outside_the_slice_raise(case):
         from tests.test_torch_row_samplers import assert_row_step_matches_jax
 
         assert_row_step_matches_jax("bayesr", dosage, Y, cva, **kw)
+        return
+    if case == "int8":
+        # int8 codes: ported, a replayed step equals JAX's (both at the
+        # J=1 plan of M=96: the serial int8 fold sweep)
+        from tests.test_torch_int8_samplers import \
+            assert_int8_step_matches_jax
+
+        assert_int8_step_matches_jax("bayesr", dosage, Y, cva)
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SpikeSlabSampler(dosage, Y, cva, BayesRConfig(), **kw)

@@ -16,8 +16,10 @@ They cover what chip_smoke.py's shapes do not: blocks narrower than a warp
 last word tile (pad lanes), each also on words with ~3 % missing calls
 (the strided kernels' ``miss`` mode, the serial kernel's in-kernel decode),
 and the dense mode of every kernel on f32 rows of an N that is or is not a
-multiple of 4; and the chunked forms of the strided BayesR sweeps (sites
-#5 and #6).
+multiple of 4; the chunked forms of the strided BayesR sweeps (sites
+#5 and #6); and the int8 modes of every sweep (families A-D: the strided
+kernels one chain and fused, the serial and row sweeps' fold mode, the
+serial in-kernel decode) on int8 codes at N=4096 and N=4001.
 Tolerances: labels and v exact, floats to f32 reassociation (the kernel
 sums the dot in another order).
 """
@@ -793,3 +795,185 @@ def test_row_kernel_refuses_blocks_over_512(cuda):
     with pytest.raises(ValueError, match="row-layout kernel takes blocks"):
         jacobi.bayesr_jacobi(*args, **kw)
     assert jacobi.bayesr_jacobi.launches == before
+
+
+# ------------------------------------------------ int8 codes (families A-D)
+
+
+def _int8_case(seed, nb, B, N, C, G, dev, missing=False):
+    """int8 codes (nb*B, N) with ``genotypes.quantize_int8``'s statistics
+    on the card and a warm state of C chains with variates (the dense
+    case's, on these codes); ``missing``: ~3 % of the calls are code 3."""
+    rng = np.random.default_rng(seed)
+    M = nb * B
+    dos = rng.binomial(2, rng.uniform(0.1, 0.9, (M, 1)), size=(M, N))
+    dos = dos.astype(float)
+    if missing:
+        dos[rng.random((M, N)) < 0.03] = np.nan
+    q = genotypes.quantize_int8(dos, True, None, B, M, device=dev)
+    assert q.has_missing == missing
+    c = _dense_case(seed, nb, B, N, C, G, dev)
+    c.update(X=q.codes, gram=q.gram, xsq=q.xsq)
+    kw = dict(x_mean=q.x_mean, x_scale=q.x_scale, x_xsum=q.x_colsum,
+              fold_affine=not missing)
+    return c, kw
+
+
+def _int8_args(c, hs, kind, order, ch, B):
+    """Chain ``ch``'s operands of an int8 sweep of ``kind`` ("t", "serial",
+    "row"), or all chains' (ch None, p/z by marker)."""
+    from bayesrrcpp_tpu_torch.ops import serial
+
+    one = (lambda x: x) if ch is None else (lambda x: x[ch])
+    p, z = one(c["p"]), one(c["z"])
+    if ch is not None and kind != "t":
+        at = serial.position_markers(order, c["inner"], B)
+        p, z = p[at], z[at]               # by sweep position
+    head = (c["X"], c["gram"], c["xsq"], one(c["eps"]), one(c["beta"]))
+    if hs:
+        return head + (order, c["inner"], z, one(c["lam"]), one(c["tau"]),
+                       one(c["c2"]), one(c["sigmaE"]), c["valid"])
+    return head + (one(c["labels"]), order, c["inner"], p, z, one(c["pi"]),
+                   c["cva"], one(c["sigmaE"]), one(c["sigmaGG"]), c["gas"],
+                   c["valid"])
+
+
+def _int8_fns(kind, hs):
+    """(single, its plain version, fused, its plain version) of a kind."""
+    from bayesrrcpp_tpu_torch.ops import jacobi, multichain, serial
+    from bayesrrcpp_tpu_torch.ops import jacobi_t as jt
+
+    if kind == "t":
+        return ((jt.horseshoe_jacobi_t, jt.horseshoe_jacobi_t_reference,
+                 jt.horseshoe_jacobi_t_mc, jt.horseshoe_jacobi_t_mc_reference)
+                if hs else
+                (jt.bayesr_jacobi_t, jt.bayesr_jacobi_t_reference,
+                 jt.bayesr_jacobi_t_mc, jt.bayesr_jacobi_t_mc_reference))
+    if kind == "row":
+        return ((jacobi.horseshoe_jacobi, jacobi.horseshoe_jacobi_reference,
+                 None, None) if hs else
+                (jacobi.bayesr_jacobi, jacobi.bayesr_jacobi_reference, None,
+                 None))
+    return ((serial.horseshoe_sweep, serial.horseshoe_sweep_reference,
+             multichain.horseshoe_sweep_mc,
+             multichain.horseshoe_sweep_mc_reference)
+            if hs else
+            (serial.bayesr_sweep, serial.bayesr_sweep_reference,
+             multichain.bayesr_sweep_mc, multichain.bayesr_sweep_mc_reference))
+
+
+def _assert_int8_close(names, ker, ref):
+    torch.cuda.synchronize()
+    for name, a, b in zip(names, ker, ref):
+        if name in ("labels", "v"):
+            assert torch.equal(a, b), name
+        elif name == "eps":
+            _assert_eps_close(a, b)
+        else:
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [4001, 4096])
+@pytest.mark.parametrize("kind", ["t", "serial", "row"])
+@pytest.mark.parametrize("hs", [False, True])
+def test_int8_kernels_match_plain_and_single_chains(cuda, hs, kind, N):
+    """Families A-C, the int8 fold mode: the strided kernels (J=8, B=32,
+    nr=2; A one chain, B fused), the serial ones (B=64, 8 blocks; C, one
+    chain and fused) and the row sweep (J=4, B=64, 2 rounds; C) against
+    their plain versions at N=4096 (vector loads) and 4001 (byte loads):
+    labels and v exact, eps as ``_assert_eps_close``, the other floats to
+    f32 reassociation; fused C=8 (C=17 on the strided kernels: groups of 16
+    and 1) each chain bitwise equal to the single-chain kernel; a second
+    launch bitwise equal (fixed-order sums); pad markers (code 3, scale 0)
+    add exactly nothing."""
+    single, plain, fused, fused_plain = _int8_fns(kind, hs)
+    C = 17 if kind == "t" else 8
+    J, nb, B = {"t": (8, 16, 32), "serial": (1, 8, 64), "row": (4, 8, 64)}[
+        kind]
+    c, skw = _int8_case(N + 7 * hs + len(kind), nb, B, N, C, 2, cuda)
+    order = (torch.randperm(nb // J, device=cuda).to(torch.int32)
+             if kind == "t" else c["order"])
+    kw = dict(skw, **({} if kind == "serial" else dict(J=J)))
+    names = ("eps", "beta") + (() if hs else ("labels", "v", "beta_acum"))
+    before = single.launches
+    ker = single(*_int8_args(c, hs, kind, order, 0, B), **kw)
+    _assert_int8_close(names, ker,
+                       plain(*_int8_args(c, hs, kind, order, 0, B), **kw))
+    assert single.launches == before + 3 * (nb // J)
+    for a, b in zip(ker, single(*_int8_args(c, hs, kind, order, 0, B),
+                                **kw)):
+        assert torch.equal(a, b)
+    if fused is None:
+        return
+    fk = fused(*_int8_args(c, hs, kind, order, None, B), **kw)
+    _assert_int8_close(names, fk, fused_plain(
+        *_int8_args(c, hs, kind, order, None, B), **kw))
+    for ch in (0, 5, C - 1):
+        for a, b in zip(single(*_int8_args(c, hs, kind, order, ch, B), **kw),
+                        fk):
+            assert torch.equal(a, b[ch]), ch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [None, 3])
+def test_int8_rounds_kernels_match_plain(cuda, C):
+    """Sites #5 and #6 on int8 codes: chunks of 1 and 3 of a sweep's 4
+    rounds against their plain versions, the chunk of every round bitwise
+    equal to the whole-sweep kernel, chunks of 2 in turn bitwise equal to
+    it in eps, beta and labels."""
+    from bayesrrcpp_tpu_torch.ops import jacobi_t as jt
+
+    J, nb, B, N, nr = 8, 32, 32, 4096, 4
+    c, skw = _int8_case(11 + (C or 0), nb, B, N, C or 1, 2, cuda)
+    rho = torch.randperm(nr, device=cuda).to(torch.int32)
+    args = _int8_args(c, False, "t", rho, 0 if C is None else None, B)
+    if C is None:
+        rounds, plain, whole = (jt.bayesr_jacobi_t_rounds,
+                                jt.bayesr_jacobi_t_rounds_reference,
+                                jt.bayesr_jacobi_t)
+    else:
+        rounds, plain, whole = (jt.bayesr_jacobi_t_mc_rounds,
+                                jt.bayesr_jacobi_t_mc_rounds_reference,
+                                jt.bayesr_jacobi_t_mc)
+    kw = dict(skw, J=J)
+    rkw = dict(kw, nr_total=nr)
+    for nrc in (1, 3):
+        a = list(args)
+        a[6] = rho[:nrc]
+        _assert_int8_close(("eps", "beta", "labels", "v"),
+                           rounds(*a, **rkw), plain(*a, **rkw))
+    full = whole(*args, **kw)
+    for a, b in zip(rounds(*args, **rkw), full):
+        assert torch.equal(a, b)
+    a = list(args)
+    for c0 in range(0, nr, 2):
+        a[6] = rho[c0:c0 + 2]
+        res = rounds(*a, **rkw)
+        a[3], a[4], a[5] = res.eps, res.beta, res.labels
+    for name in ("eps", "beta", "labels"):
+        assert torch.equal(getattr(res, name), getattr(full, name)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [4001, 4096])
+@pytest.mark.parametrize("hs", [False, True])
+def test_int8_decode_kernels_match_plain(cuda, hs, N):
+    """Family D, the int8 in-kernel decode (codes with ~3 % missing calls,
+    ``fold_affine=False``, one chain, J=1; B=64, 8 blocks): labels and v
+    exact, eps as ``_assert_eps_close``, beta to f32 reassociation; the
+    fused sweep refuses it, as in JAX."""
+    from bayesrrcpp_tpu_torch.ops import multichain
+
+    single, plain, _, _ = _int8_fns("serial", hs)
+    c, kw = _int8_case(N + hs, 8, 64, N, 1, 2, cuda, missing=True)
+    names = ("eps", "beta") + (() if hs else ("labels", "v", "beta_acum"))
+    args = _int8_args(c, hs, "serial", c["order"], 0, 64)
+    ker = single(*args, **kw)
+    _assert_int8_close(names, ker, plain(*args, **kw))
+    for a, b in zip(ker, single(*args, **kw)):
+        assert torch.equal(a, b)
+    if not hs:
+        with pytest.raises(NotImplementedError, match="single-chain"):
+            multichain.bayesr_sweep_mc(
+                *_int8_args(c, hs, "serial", c["order"], None, 64), **kw)

@@ -19,8 +19,10 @@ N=150 individuals (JAX's dense-vs-packed cases, tests/test_jacobi_t.py:
 153), not a multiple of any tile: eps has length N, with no padding and
 no lane mask.  Tolerances: labels exact, eps, beta, v and beta_acum to
 rtol 2e-5 / atol 2e-6 (f32 reassociation: JAX sums each dot over its
-lane tile, the port in one matrix product).  Also the refusals that still
-stand: ``missing=True`` on dense rows, and int8 codes (ROADMAP Queue 2).
+lane tile, the port in one matrix product).  Also the refusal that still
+stands, ``missing=True`` on dense rows; and the int8 codes of the same
+dosages, which now run (tests/test_torch_int8_kernels.py holds them
+against JAX) and give the dense sweep's result.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -66,6 +68,7 @@ def dense_case(seed, J, B, G):
     dosage = rng.binomial(2, rng.uniform(0.1, 0.9, M), size=(N, M))
     X = ((dosage - dosage.mean(0)) / dosage.std(0, ddof=1)).T
     X = X.astype(np.float32)                                   # (M, N)
+    codes = np.ascontiguousarray(dosage.T, np.int8)            # (M, N)
     Xb = X.reshape(nb, B, N).astype(np.float64)
     beta = np.zeros((C, M), np.float32)
     labels = np.zeros((C, M), np.int32)
@@ -74,7 +77,9 @@ def dense_case(seed, J, B, G):
         labels[c, hot] = rng.integers(1, 4, hot.size)
         beta[c, hot] = rng.normal(0, 0.05, hot.size)
     return dict(
-        J=J, B=B, M=M, nb=nb, X=X,
+        J=J, B=B, M=M, nb=nb, X=X, codes=codes,
+        mean=dosage.mean(0).astype(np.float32),
+        scale=(1.0 / dosage.std(0, ddof=1)).astype(np.float32),
         gram=(Xb @ Xb.transpose(0, 2, 1)).astype(np.float32),
         xsq=(X * X).sum(axis=1, dtype=np.float32),
         eps=rng.standard_normal((C, N)).astype(np.float32),
@@ -159,17 +164,24 @@ def test_dense_strided_refuses_missing(entry):
 
 @pytest.mark.parametrize("entry", list(ENTRIES))
 def test_int8_codes_still_raise(entry):
-    """int8 codes with their statistics: not ported (ROADMAP Queue 2)."""
+    """int8 codes of the same dosages with their means and 1/sd (the int8
+    fold mode, ported): the sweep equals the dense sweep of the
+    standardized rows (labels and v exact, floats to the 2-bit fold mode's
+    rtol 2e-4 / atol 2e-5: the codes decode to the rows up to f32
+    rounding)."""
     port, _, hs, strided, fused = ENTRIES[entry]
     c = dense_case(4, 4, 16, 1)
     args = [torch.as_tensor(np.asarray(a))
             for a in sweep_args(c, hs, strided, fused)]
-    args[0] = args[0].to(torch.int8)
-    M = c["M"]
-    kw = dict(x_mean=torch.zeros(M), x_scale=torch.ones(M),
-              x_xsum=torch.zeros(M), fold_affine=True,
-              row_valid=torch.ones(N, dtype=torch.bool))
-    if strided:
-        kw["J"] = 4
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 entry"):
-        port(*args, **kw)
+    kw = dict(J=4) if strided else {}
+    ref = port(*args, **kw)
+    args[0] = torch.as_tensor(c["codes"])
+    out = port(*args, x_mean=torch.as_tensor(c["mean"]),
+               x_scale=torch.as_tensor(c["scale"]),
+               x_xsum=torch.as_tensor(c["X"].sum(axis=1)), fold_affine=True,
+               **kw)
+    for a, b in zip(ref, out):
+        if not a.dtype.is_floating_point or a.shape[-1:] == (4,):
+            assert torch.equal(a, b)
+        else:
+            torch.testing.assert_close(b, a, rtol=2e-4, atol=2e-5)

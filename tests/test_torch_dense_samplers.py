@@ -15,7 +15,7 @@
   with ``block_size`` 512 and 64; on the row plan with J > 1 (M=1,500 at
   64) one replayed step equals JAX's.
 - ``convert.data_from_jax`` on JAX dense data: the same arrays and the same
-  sweep as the port's own layout; int8 data is refused.
+  sweep as the port's own layout; JAX int8 data carries across.
 - ``cli.py --backend``, and a dense CLI run on ``--device cpu``.
 
 Data: standardized dosages made with numpy from a seed, N=150, M=96 in
@@ -207,7 +207,8 @@ def test_dense_plan_matches_jax(block):
 def test_convert_carries_dense_data(kind):
     """JAX dense data carried across equals the port's own layout of the
     same X (rows bitwise, statistics to f32 reassociation), and a sweep of
-    each gives the same state; int8 data is refused."""
+    each gives the same state; JAX int8 data of the same dosages carries
+    across too (its codes unchanged, tests/test_torch_int8_io.py)."""
     js, ts, Replay = samplers(kind, 11, "t")
     carried = ts.data
     dosage, X, Y = dense_data(11)
@@ -232,9 +233,10 @@ def test_convert_carries_dense_data(kind):
     torch.testing.assert_close(st1.eps, st2.eps, rtol=2e-5, atol=2e-6)
     j8 = jbr.SpikeSlabSampler(dosage, Y, CVA, jbr.BayesRConfig(block_size=B),
                               x_dtype="int8", dtype=jnp.float32)
-    with pytest.raises(NotImplementedError, match="int8"):
-        data_from_jax({k: np.array(v) for k, v in j8.data._asdict().items()},
-                      N=N, device="cpu")
+    d8 = data_from_jax({k: np.array(v) for k, v in j8.data._asdict().items()},
+                       N=N, device="cpu")
+    assert d8.XT.dtype == torch.int8 and not d8.has_missing
+    np.testing.assert_array_equal(d8.XT.numpy(), np.asarray(j8.data.XT))
 
 
 def test_cli_backend_flag(tmp_path):

@@ -269,9 +269,7 @@ def test_configurations_outside_the_slice_raise(case):
     dosage = rng.binomial(2, 0.4, size=(N, M)).astype(float)
     Y = rng.normal(size=N)
     kw = dict(x_dtype="2bit")
-    if case == "int8":
-        kw["x_dtype"] = "int8"
-    elif case == "row_plan":
+    if case == "row_plan":
         # row layout with J > 1: ported, the step equals JAX's on that plan
         # (M=96's own J=1 plan runs the serial sweep)
         kw.update(jacobi_blocks=2, jacobi_layout="row")
@@ -285,6 +283,13 @@ def test_configurations_outside_the_slice_raise(case):
         from tests.test_torch_row_samplers import assert_row_step_matches_jax
 
         assert_row_step_matches_jax("horseshoe", dosage, Y, **kw)
+    elif case == "int8":
+        # int8 codes: ported, a replayed step equals JAX's (the J=1 plan of
+        # M=96: the serial int8 fold sweep)
+        from tests.test_torch_int8_samplers import \
+            assert_int8_step_matches_jax
+
+        assert_int8_step_matches_jax("horseshoe", dosage, Y)
     else:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             HorseshoeSampler(dosage, Y, HorseshoeConfig(), **kw,

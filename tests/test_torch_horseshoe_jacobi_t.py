@@ -144,8 +144,9 @@ def test_jacobi_oracle_with_one_block_per_round_is_the_blocked_sweep():
 @pytest.mark.parametrize("bad", ["dense", "no_fold"])
 def test_modes_outside_the_slice_raise(bad):
     """Dense rows run (tests/test_torch_dense.py) but take no missing calls;
-    int8 codes are not ported (ROADMAP Queue 2 entry 3); packed words need
-    the fold or the miss mode."""
+    int8 codes of the same dosages run (site #2's int8 mode, ported) and
+    equal the packed sweep (``_assert_close``'s tolerances); packed words
+    need the fold or the miss mode."""
     c = _hs_case(5, 4, 16, 2)
     args = list(_torch_args(c))
     kw = _torch_kw(c, 4)
@@ -155,9 +156,12 @@ def test_modes_outside_the_slice_raise(bad):
         dense[3] = dense[3][:N]
         with pytest.raises(NotImplementedError, match="missing"):
             horseshoe_jacobi_t(*dense, J=4, missing=True)
+        eps_r, beta_r = horseshoe_jacobi_t(*args, **kw)
         args[0] = torch.as_tensor(c["codes"][:, :N]).to(torch.int8)
-        with pytest.raises(NotImplementedError, match="Queue 2 entry 3"):
-            horseshoe_jacobi_t(*args, **kw)
+        args[3] = args[3][:N]
+        eps_o, beta_o = horseshoe_jacobi_t(
+            *args, **{k: v for k, v in kw.items() if k != "row_valid"})
+        _assert_close(beta_r, beta_o, eps_r[:N], eps_o)
     else:
         kw["fold_affine"] = False
         with pytest.raises(ValueError):

@@ -253,7 +253,10 @@ def test_row_sweep_at_one_block_is_the_serial_sweep(packed):
 
 
 def test_row_sweep_refusals():
-    """What the TPU wrapper refuses, and the int8 mode (not ported)."""
+    """What the TPU wrapper refuses; and the int8 mode (sites #15/#16,
+    ported): int8 codes of the same dosages run and equal the packed row
+    sweep (labels and v exact, beta to rtol 2e-4 / atol 2e-6, eps to rtol
+    2e-4 / atol 2e-5: the packed dots also run over the pad lanes)."""
     c = _packed_case(91)
     kw = _kw(c, torch, 4)
     args = _args(c, BAYESR, torch)
@@ -261,5 +264,14 @@ def test_row_sweep_refusals():
         jacobi.bayesr_jacobi(*args, **dict(kw, J=3))
     with pytest.raises(ValueError, match="fold-affine"):
         jacobi.bayesr_jacobi(*args, **dict(kw, fold_affine=False))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        jacobi.bayesr_jacobi(args[0].to(torch.int8), *args[1:], **kw)
+    from bayesrrcpp_tpu_torch.ops import genotypes
+
+    N = c["N"]
+    ref = jacobi.bayesr_jacobi(*args, **kw)
+    codes = genotypes.decode_codes(args[0])[:, :N].to(torch.int8)
+    out = jacobi.bayesr_jacobi(codes, *args[1:3], args[3][:N], *args[4:],
+                               **{k: v for k, v in kw.items()
+                                  if k != "row_valid"})
+    assert torch.equal(ref.labels, out.labels) and torch.equal(ref.v, out.v)
+    torch.testing.assert_close(out.beta, ref.beta, rtol=2e-4, atol=2e-6)
+    torch.testing.assert_close(out.eps, ref.eps[:N], rtol=2e-4, atol=2e-5)

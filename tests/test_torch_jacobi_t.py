@@ -188,8 +188,10 @@ def test_strided_border_matches_jax():
 @pytest.mark.parametrize("bad", ["dense", "no_fold"])
 def test_modes_outside_the_slice_raise(bad):
     """Dense rows run (tests/test_torch_dense.py) but take no missing calls;
-    int8 codes are not ported (ROADMAP Queue 2 entry 1); packed words need
-    the fold or the miss mode."""
+    int8 codes of the same dosages run (site #1's int8 mode, ported) and
+    equal the packed sweep (tolerances of ``_assert_sweeps_equal``: the
+    packed dots also run over the pad lanes); packed words need the fold or
+    the miss mode."""
     c = _case(5, 4, 16, 1, nr=2)
     args = list(_torch_args(c))
     kw = _torch_kw(c, 4)
@@ -199,9 +201,13 @@ def test_modes_outside_the_slice_raise(bad):
         dense[3] = dense[3][:N]
         with pytest.raises(NotImplementedError, match="missing"):
             bayesr_jacobi_t(*dense, J=4, missing=True)
+        ref = bayesr_jacobi_t(*args, **kw)
         args[0] = torch.as_tensor(c["codes"][:, :N]).to(torch.int8)
-        with pytest.raises(NotImplementedError, match="Queue 2 entry 1"):
-            bayesr_jacobi_t(*args, **kw)
+        args[3] = args[3][:N]
+        out = bayesr_jacobi_t(*args, **{k: v for k, v in kw.items()
+                                        if k != "row_valid"})
+        _assert_sweeps_equal(ref, out, eps_ref=ref.eps[:N].numpy(),
+                             eps_out=out.eps.numpy())
     else:
         kw["fold_affine"] = False
         with pytest.raises(ValueError):

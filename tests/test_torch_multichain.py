@@ -229,24 +229,35 @@ def test_horseshoe_mc_plain_matches_jax_kernel(C):
 
 @pytest.mark.parametrize("bad", ["dense"])
 def test_mc_modes_outside_the_slice_raise(bad):
-    """Dense rows run fused (tests/test_torch_dense.py); int8 codes with
-    their statistics are not ported (ROADMAP Queue 2 entries 5 and 6)."""
+    """Dense rows run fused (tests/test_torch_dense.py); int8 codes of the
+    same dosages run fused too (sites #3/#4, ported) and equal the packed
+    fused sweep: labels and v exact, floats to rtol 3e-4 / atol 3e-5 as
+    the packed tests here (the packed sums run over the pad lanes too)."""
+    from bayesrrcpp_tpu_torch.ops import genotypes
+
     c = _sweep_case(3, 2)
     t = torch.as_tensor
     words, gram, xsq = _port_data(c)
     kw = _port_kw(c)
-    words = torch.zeros((M, N), dtype=torch.int8)
-    with pytest.raises(NotImplementedError, match="Queue 2 entry 5"):
-        bayesr_jacobi_t_mc(
-            words, gram, xsq, t(c["eps"]), t(c["beta"]), t(c["labels"]),
-            t(c["rho"]), t(c["inner"]), t(c["p"]), t(c["z"]), t(c["pi"]),
-            t(c["cva"]), t(c["sigmaE"]), t(c["sigmaGG"]), t(c["gas"]),
-            t(c["valid"]), **kw)
-    with pytest.raises(NotImplementedError, match="Queue 2 entry 6"):
-        horseshoe_jacobi_t_mc(
-            words, gram, xsq, t(c["eps"]), t(c["beta"]), t(c["rho"]),
-            t(c["inner"]), t(c["z"]), t(c["lam"]), t(c["tau"]), t(c["c2"]),
-            t(c["sigmaE"]), t(c["valid"]), **kw)
+    codes = genotypes.decode_codes(words)[:, :N].to(torch.int8)
+    kw8 = {k: v for k, v in kw.items() if k != "row_valid"}
+    eps, eps8 = t(c["eps"]), t(c["eps"])[:, :N].contiguous()
+    bayesr = (t(c["beta"]), t(c["labels"]), t(c["rho"]), t(c["inner"]),
+              t(c["p"]), t(c["z"]), t(c["pi"]), t(c["cva"]), t(c["sigmaE"]),
+              t(c["sigmaGG"]), t(c["gas"]), t(c["valid"]))
+    hs = (t(c["beta"]), t(c["rho"]), t(c["inner"]), t(c["z"]), t(c["lam"]),
+          t(c["tau"]), t(c["c2"]), t(c["sigmaE"]), t(c["valid"]))
+    for fn, args in ((bayesr_jacobi_t_mc, bayesr),
+                     (horseshoe_jacobi_t_mc, hs)):
+        ref = fn(words, gram, xsq, eps, *args, **kw)
+        out = fn(codes, gram, xsq, eps8, *args, **kw8)
+        for i, (a, b) in enumerate(zip(ref, out)):
+            if i == 0:
+                a = a[:, :N]
+            if a.dtype == torch.int32 or i == 3 and fn is bayesr_jacobi_t_mc:
+                assert torch.equal(a, b)
+            else:
+                torch.testing.assert_close(b, a, rtol=3e-4, atol=3e-5)
 
 
 # ------------------------------------------------------------ the samplers

@@ -2,8 +2,8 @@
 (bayesrrcpp_tpu_torch/ops/jacobi_t.py: ``bayesr_jacobi_t_rounds``,
 ``bayesr_jacobi_t_mc_rounds``), against the JAX package on the CPU.
 
-The same data (2-bit words without and with missing calls, or dense f32
-rows), warm state and variates, made with numpy from a seed at
+The same data (2-bit words without and with missing calls, int8 codes
+without missing calls, or dense f32 rows), warm state and variates, made with numpy from a seed at
 tests/test_sharded.py:458-511's size (N=96, M=256, B=8, J=4, G=2, C=3;
 words take N=2000, since their lanes pad to 2048 whatever N is, and at
 N=96 JAX's ``miss`` mode adds f32 noise of its 1,952 pad lanes, whose
@@ -41,7 +41,7 @@ NB = M // B
 NR = NB // J
 CHUNK = np.array([5, 2, 7], np.int32)        # 3 of the 8 round ids
 CVA = np.array([0.001, 0.01, 0.1], np.float32)
-MODES = ("fold", "miss", "dense")
+MODES = ("fold", "miss", "dense", "int8")
 
 
 def _case(mode, chains=None, seed=91):
@@ -51,7 +51,15 @@ def _case(mode, chains=None, seed=91):
     lead = () if chains is None else (chains,)
     N = 96 if mode == "dense" else 2000
     c = dict(mode=mode)
-    if mode == "dense":
+    if mode == "int8":
+        dosage = rng.binomial(2, rng.uniform(0.1, 0.9, M),
+                              size=(N, M)).astype(float)
+        q = jgen.quantize_int8(dosage, False, None, B, M)
+        c.update(XT=np.array(q.XT), Npad=N, xsq=np.array(q.xsq),
+                 gram=np.array(q.gram), mean=np.array(q.x_mean),
+                 scale=np.array(q.x_scale), colsum=np.array(q.x_colsum),
+                 row_valid=np.ones(N, bool), perm=np.arange(N))
+    elif mode == "dense":
         XT = rng.standard_normal((M, N)).astype(np.float32)
         blocks = XT.reshape(NB, B, N)
         c.update(XT=XT, Npad=N, xsq=(XT * XT).sum(axis=1),
@@ -105,9 +113,11 @@ def _port_kw(c):
         return dict(J=J, x_mean=None)
     t = torch.as_tensor
     miss = c["mode"] == "miss"
-    return dict(J=J, x_mean=t(c["mean"]), x_scale=t(c["scale"]),
-                x_xsum=t(c["colsum"]), fold_affine=not miss,
-                row_valid=t(c["row_valid"]), missing=miss)
+    kw = dict(J=J, x_mean=t(c["mean"]), x_scale=t(c["scale"]),
+              x_xsum=t(c["colsum"]), fold_affine=not miss, missing=miss)
+    if c["mode"] != "int8":
+        kw["row_valid"] = t(c["row_valid"])
+    return kw
 
 
 def _jax(c, rho, mc):
@@ -117,6 +127,7 @@ def _jax(c, rho, mc):
     a = jnp.asarray
     dense = c["mode"] == "dense"
     fold, miss = not dense, c["mode"] == "miss"
+    packed = c["mode"] in ("fold", "miss")
     kw = {} if dense else dict(x_mean=a(c["mean"]), x_scale=a(c["scale"]),
                                x_xsum=a(c["colsum"]))
     common = (a(c["gram"]), a(c["xsq"]), a(c["gas"]), a(c["valid"]),
@@ -129,7 +140,7 @@ def _jax(c, rho, mc):
                                         fold=fold, missing=miss, **kw)
         out = bayesr_jacobi_t_mc_rounds(
             a(c["XT"]), ops, a(rho), a(eps), J=J, B=B, K=K, G=G, C=C,
-            nr_total=NR, packed=not dense, fold=fold, missing=miss,
+            nr_total=NR, packed=packed, fold=fold, missing=miss,
             interpret=True)
         # (nrc, C*J, B) chain bands -> (C, nrc, J, B)
         sl = [np.asarray(x).reshape(rho.shape[0], C, J, B).transpose(
@@ -139,7 +150,7 @@ def _jax(c, rho, mc):
                                      B=B, J=J, fold=fold, missing=miss, **kw)
         out = bayesr_jacobi_t_rounds(
             a(c["XT"]), ops, a(rho), a(eps[None]), jnp.float32(c["sigmaE"]),
-            J=J, B=B, K=K, G=G, nr_total=NR, packed=not dense, fold=fold,
+            J=J, B=B, K=K, G=G, nr_total=NR, packed=packed, fold=fold,
             missing=miss, interpret=True, visit_out=not whole)
         sl = [np.asarray(x) for x in out[1:3]]
     beta, labels = c["beta"].copy(), c["labels"].copy()
@@ -153,7 +164,7 @@ def _jax(c, rho, mc):
     labels[..., rows] = np.where(kv >= 0, kv.astype(np.int32),
                                  labels[..., rows])
     eps_out = np.asarray(out[0]) * c["row_valid"][c["perm"]]
-    if not dense:
+    if packed:
         eps_out = unpermute_eps(eps_out, c["Npad"])
     lead = (C,) if mc else ()
     return (eps_out.reshape(lead + (-1,)), beta, labels,

@@ -243,26 +243,30 @@ def test_horseshoe_mc_plain_matches_jax_kernel_and_single_chains(chunk):
 
 @pytest.mark.parametrize("bad", ["dense", "no_fold"])
 def test_modes_outside_the_slice_raise(bad):
-    """int8 codes (ROADMAP entries 2 and 4; dense f32 rows run, tests/
-    test_torch_dense.py); and the in-kernel decode
+    """int8 codes (sites #9/#10: ported, the ``dense`` case) run and equal
+    the packed sweep of the same dosages bitwise (N = Npad here: the same
+    codes, the same plain algebra); and the in-kernel decode
     (``fold_affine=False``, words with missing calls), which runs one chain
     only (tests/test_torch_missing.py): the fused sweeps refuse it, as
     JAX's ``bayesr_sweep_pallas_mc`` does."""
     c = _case(5, 1)
     words, gram, xsq = _data(c)
     kw = _kw(c)
+    eps = torch.as_tensor(c["eps"])
     if bad == "dense":
-        words = torch.zeros((M, N), dtype=torch.int8)
-        cases = ((serial.bayesr_sweep, "entry 2"),
-                 (serial.horseshoe_sweep, "entry 4"))
-    else:
-        kw["fold_affine"] = False
-        cases = ((multichain.bayesr_sweep_mc, "single-chain only"),
-                 (multichain.horseshoe_sweep_mc, "single-chain only"))
-    for (fn, entry), args in zip(cases, (_bayesr_args(c, torch),
-                                         _hs_args(c, torch))):
-        with pytest.raises(NotImplementedError, match=entry):
-            fn(words, gram, xsq, torch.as_tensor(c["eps"]), *args, **kw)
+        codes = genotypes.decode_codes(words)[:, :N].to(torch.int8)
+        kw8 = {k: v for k, v in kw.items() if k != "row_valid"}
+        for fn, args in ((serial.bayesr_sweep, _bayesr_args(c, torch)),
+                         (serial.horseshoe_sweep, _hs_args(c, torch))):
+            for a, b in zip(fn(codes, gram, xsq, eps, *args, **kw8),
+                            fn(words, gram, xsq, eps, *args, **kw)):
+                assert torch.equal(a, b)
+        return
+    kw["fold_affine"] = False
+    for fn, args in ((multichain.bayesr_sweep_mc, _bayesr_args(c, torch)),
+                     (multichain.horseshoe_sweep_mc, _hs_args(c, torch))):
+        with pytest.raises(NotImplementedError, match="single-chain only"):
+            fn(words, gram, xsq, eps, *args, **kw)
 
 
 # ------------------------------------------------------------ the samplers

@@ -40,8 +40,8 @@ STEPS = 3
 
 
 def _data(kind, M, seed=93):
-    """(X, Y, x_dtype, backend) of a case: dosages for the words (NaN for a
-    missing call), standardized rows for dense X."""
+    """(X, Y, x_dtype, backend) of a case: dosages for the words and the
+    int8 codes (NaN for a missing call), standardized rows for dense X."""
     rng = np.random.default_rng(seed)
     dosage = rng.binomial(2, rng.uniform(0.2, 0.8, M), size=(N, M)).astype(
         float)
@@ -49,12 +49,12 @@ def _data(kind, M, seed=93):
     bt = np.zeros(M)
     bt[rng.choice(M, 40, replace=False)] = rng.normal(0, 0.25, 40)
     Y = dense @ bt + rng.normal(0, 0.7, N)
-    if kind == "miss":
+    if kind in ("miss", "int8-miss"):
         dosage[rng.random(dosage.shape) < 0.02] = np.nan
     if kind in ("dense", "xla"):
         return dense.astype(np.float32), Y, "dense", (
             "xla" if kind == "xla" else "pallas")
-    return dosage, Y, "2bit", "pallas"
+    return dosage, Y, "int8" if kind.startswith("int8") else "2bit", "pallas"
 
 
 def jax_case(kind, M, Dm, *, chains=None, chunk_blocks=None, steps=STEPS,
@@ -102,12 +102,21 @@ def assert_state_close(js, ts, lo, hi, packed, Npad):
 
 
 def assert_own_data(case, own, has_missing, lo, hi):
-    """The port's own slice data against JAX's: the same words (or rows),
-    means and scales, xsq / Gram blocks / column sums to f32 sums."""
+    """The port's own slice data against JAX's: the same words or int8
+    codes (or rows), means and scales, xsq / Gram blocks / column sums to
+    f32 sums."""
     d = case["jax_data"]
     nb = d["gram"].shape[0] * (hi - lo) // d["XT"].shape[0]
     blo = lo // (hi - lo) * nb
-    if case["x_dtype"] == "2bit":
+    if case["x_dtype"] == "int8":
+        np.testing.assert_array_equal(d["XT"][lo:hi], own["XT"])
+        for k in ("x_mean", "x_scale"):
+            np.testing.assert_allclose(d[k][lo:hi], own[k], rtol=1e-6)
+        np.testing.assert_allclose(d["x_colsum"][lo:hi], own["x_colsum"],
+                                   rtol=1e-4, atol=1e-3)
+        valid = np.asarray(d["valid"], bool)
+        assert has_missing == bool((d["XT"][valid] == 3).any())
+    elif case["x_dtype"] == "2bit":
         np.testing.assert_array_equal(d["XT"][lo:hi], own["XT"])
         np.testing.assert_allclose(d["x_mean"][lo:hi], own["x_mean"],
                                    rtol=1e-6)
@@ -183,10 +192,27 @@ def test_configurations_outside_the_slice_raise(case):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make_mesh(1, 1)
         return
+    if case == "int8":
+        # int8 codes run (tests/test_torch_int8_sharded.py); what the JAX
+        # sampler refuses on them, the port refuses: a rank's own slice of
+        # codes (x_process_shard) and the xla backend
+        s = ShardedSpikeSlabSampler(X, Y, cva, BayesRConfig(), mesh(),
+                                    backend="pallas", x_dtype="int8")
+        assert s.x_int8 and s.data.XT.dtype == torch.int8
+        st = s.step(s.init(torch.Generator().manual_seed(0)),
+                    torch.Generator().manual_seed(1))
+        assert bool(torch.isfinite(st.eps).all())
+        with pytest.raises(ValueError, match="x_process_shard"):
+            ShardedSpikeSlabSampler(X.T, Y, cva, BayesRConfig(), mesh(),
+                                    backend="pallas", x_dtype="int8",
+                                    transposed=True, x_process_shard=True,
+                                    n_markers=X.shape[1])
+        with pytest.raises(ValueError, match="pallas"):
+            ShardedSpikeSlabSampler(X, Y, cva, BayesRConfig(), mesh(),
+                                    x_dtype="int8")
+        return
     if case == "split":
         kw["split_sweep"] = True
-    elif case == "int8":
-        kw["x_dtype"] = "int8"
     elif case == "groups":
         cva = np.tile(CVA, (2, 1))
     elif case == "fixed":
