@@ -59,6 +59,62 @@ __device__ __forceinline__ float code_scaled(uint32_t w, int k) {
   return __uint_as_float(kMagicBits | (w & (3u << (2 * k)))) - kMagic;
 }
 
+// ---- rings in shared memory, filled by the copy engine (cp.async.bulk,
+// the TMA's plain bulk copy) and paced by mbarriers: a stage's `full`
+// barrier completes when its bytes have landed, its `empty` barrier when
+// every consumer has let it go.  Waits are on the parity of the phase.
+
+// The address of a shared-memory object in the shared window.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
+                   smem_addr(bar)), "r"(count) : "memory");
+}
+
+// Make the barriers of the CTA's thread 0 visible to the copy engine; a
+// __syncthreads() after it makes them visible to the other threads.
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_addr(bar)) : "memory");
+}
+
+// One arrival that also expects `bytes` of bulk copies on the barrier.
+__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar,
+                                                   uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
+                   "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// Wait until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_addr(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(a), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from global
+// to shared memory by the copy engine, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)), "l"(src), "r"(bytes),
+      "r"(smem_addr(bar)) : "memory");
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int lg = 4; lg >= 0; --lg) v += __shfl_xor_sync(kFull, v, 1 << lg);

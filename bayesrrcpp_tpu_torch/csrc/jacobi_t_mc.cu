@@ -40,17 +40,21 @@
 //             solve_block / hs_solve_block on the chain's operands.  v and
 //             bacc partials per (chain, block), reduced by the wrapper in a
 //             fixed order; no float atomics.
-//   apply_mc  eps_c -= sum_m d[c, m] * x_m.  The round's entries are taken
-//             in tiles of 512: a tile's rows where any chain moved (in the
-//             horseshoe, every valid row) are compacted in index order into
-//             shared memory with every chain's d*scale (0 where that chain
-//             did not move, which adds exactly nothing; in the miss mode
-//             each row also adds its indicator term, as jacobi_t.cu's
-//             apply does).  A warp covers 32
-//             consecutive words, so it reads one full 128-byte line per row;
-//             the CTA's 4 warps split each word's 16 eps lanes.  Each row is
-//             read and decoded once for all chains.
-//
+//   apply_mc  eps_c -= sum_m d[c, m] * x_m.  A CTA covers 16 words of
+//             every row; its producer warp compacts the round's entries a
+//             tile of 512 at a time, in index order, into one of two
+//             buffers in shared memory: the rows where any chain moved (in
+//             the horseshoe, every valid row), every chain's d*scale (0
+//             where that chain did not move, which adds exactly nothing)
+//             and, in the miss mode, each row's mean - 3.  It then streams
+//             those rows' 64-byte segments into a ring of 8 stages of 32
+//             rows by cp.async.bulk, one mbarrier a stage, while it
+//             compacts the next tile.  Four consumer warps decode each
+//             word from shared memory (a word's 16 eps lanes over 8
+//             threads) and add every chain's term, in row order, with the
+//             miss mode's indicator term after each row, as jacobi_t.cu's
+//             apply does.  Each row is read from device memory once per
+//             CTA and decoded once for all chains.
 // The dense and int8 modes run jacobi_t_common.cuh's dense_dot_kernel (the
 // rows of a block in registers once, decoded for int8 codes, then each
 // chain's eps in turn) and row_apply_kernel, the single-chain kernel's code
@@ -70,10 +74,13 @@
 // out of the chain loop, ran out of registers and spilled (255 registers,
 // 1.9 KB of spills); an empty asm on the words at the top of each group
 // stops that, and CP=4 chains per group keeps 4*B accumulators in 255
-// registers without spilling.  The apply is latency-bound: one warp per 32
-// words and 4 warps per CTA leave ~6 warps per SM, each with 8 rows of
-// loads in flight; splitting the rows over more CTAs would need a
-// reduction across them, another summation order (ROADMAP Queue 1 item 14).
+// registers without spilling.  The apply was latency-bound with each lane
+// loading its own word of each row (4 warps a CTA, 8 rows of loads in
+// flight: ~1.5 KB of distinct bytes in flight per SM, where 3.35 TB/s at
+// ~1 us of latency needs ~25 KB); the ring keeps 8 stages of 2 KB in
+// flight per CTA, ~3 CTAs per SM, so the FMAs (C of them per lane of
+// every moved row) and the decode set its pace.  Splitting a word's rows
+// over CTAs would need a reduction across them, another summation order.
 
 #include "jacobi_t_common.cuh"
 
@@ -271,17 +278,43 @@ __global__ void __launch_bounds__(32) hs_solve_mc_kernel(HsSolveArgs a) {
   hs_solve_block(b, blockIdx.x);
 }
 
-constexpr int kApplyTile = 512;   // entries per compaction tile
-constexpr int kApplyWords = 32;   // words per apply CTA: one per lane
-constexpr int kApplySub = kApplyThreads / kApplyWords;   // warps per word
-constexpr int kApplyLanes = 16 / kApplySub;              // eps lanes / thread
-constexpr int kTilePerLane = kApplyTile / kApplyThreads;
+// The apply of the 2-bit modes.  A CTA covers kMcWords words of every row:
+// warps 0..3 consume, warp 4 produces.  The producer compacts the round's
+// entries a tile of kMcTile at a time, in index order, into one of two
+// buffers (the rows where any chain moved, every chain's d*scale and, in
+// the miss mode, each row's mean - 3), then streams those rows' segments
+// of the CTA's words, kMcRows rows a stage, into a ring of kMcStages
+// stages in shared memory by cp.async.bulk, one mbarrier a stage (the
+// words are 16-byte aligned: Nw is a multiple of 128).  Consumer thread
+// (word wi, part sub) decodes its kMcLanes eps lanes of each row from
+// shared memory and adds every chain's term in row order, as the
+// single-chain apply does.
+constexpr int kMcWords = 16;                       // words a CTA
+constexpr int kMcConsumers = 128;                  // consumer threads
+constexpr int kMcWarps = kMcConsumers / 32;        // consumer warps
+constexpr int kMcThreads = kMcConsumers + 32;      // and the producer warp
+constexpr int kMcParts = kMcConsumers / kMcWords;  // threads a word
+constexpr int kMcLanes = 16 / kMcParts;            // eps lanes a thread
+constexpr int kMcTile = 512;                       // entries a tile
+constexpr int kMcRows = 32;                        // rows a stage: a lane each
+constexpr int kMcStages = 8;                       // stages of the ring
+static_assert(kMcConsumers % kMcWords == 0 && 16 % kMcParts == 0,
+              "a word's 16 lanes split evenly over its threads");
+
+// Dynamic shared memory of apply_mc_kernel: the ring, then two tiles of
+// compacted entries (values of CV chains, rows, and the miss mode's
+// mean - 3).
+inline size_t apply_mc_smem(int CV, bool miss) {
+  const size_t ring = sizeof(uint32_t) * kMcStages * kMcRows * kMcWords;
+  return ring + 2 * kMcTile * (sizeof(float) * CV + sizeof(int) +
+                               (miss ? sizeof(float) : 0));
+}
 
 // CB >= C chains (a power of two, so the per-chain accumulators stay in
 // registers); dsc (C, J*B) and dms (C, J) as the solves write them.
 // MISS: the miss mode, whose rows also add their indicator term.
 template <int CB, bool MISS>
-__global__ void __launch_bounds__(kApplyThreads)
+__global__ void __launch_bounds__(kMcThreads)
 apply_mc_kernel(const uint32_t* __restrict__ words, int Nw,
                 float* __restrict__ eps, int C,
                 const unsigned char* __restrict__ row_valid,
@@ -289,108 +322,142 @@ apply_mc_kernel(const uint32_t* __restrict__ words, int Nw,
                 const float* __restrict__ dsc, const float* __restrict__ dms,
                 const float* __restrict__ mean) {
   constexpr int CV = CB < 4 ? 4 : CB;   // chains per staged row (float4s)
-  constexpr int L = kApplyLanes;
-  __shared__ float4 vals4[kApplyTile * CV / 4];
-  __shared__ int rows[kApplyTile];
-  __shared__ float mrow[MISS ? kApplyTile : 1];   // each row's mean - 3
-  __shared__ int warp_cnt[kApplyWarps + 1];
+  constexpr int L = kMcLanes;
+  extern __shared__ __align__(128) uint32_t dyn[];
+  uint32_t* ring = dyn;
+  float4* vals4 = reinterpret_cast<float4*>(dyn + kMcStages * kMcRows *
+                                                      kMcWords);
+  int* rows = reinterpret_cast<int*>(vals4 + 2 * kMcTile * CV / 4);
+  float* mrow = reinterpret_cast<float*>(rows + 2 * kMcTile);
+  __shared__ uint64_t full[kMcStages], empty[kMcStages];
+  __shared__ uint64_t ready[2], freed[2];   // a tile's buffer filled / read
+  __shared__ int nnz[2];
   __shared__ float dms_tot[CB];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int JB = J * B;
-  const int slab = rho[round];
-  const long long Npad = 16LL * Nw;
+  const int ntiles = (JB + kMcTile - 1) / kMcTile;
+  const int w0 = blockIdx.x * kMcWords;
+  const int nw = min(kMcWords, Nw - w0);   // words of this CTA
   if (threadIdx.x < C) {
     float t = 0.f;
     for (int q = 0; q < J; ++q) t += dms[threadIdx.x * J + q];
     dms_tot[threadIdx.x] = t;
   }
-  // word w of this lane; warp `sub` owns its eps lanes 16w + L*sub .. +L-1
-  const int w = blockIdx.x * kApplyWords + lane;
-  const int sub = warp;
-  const bool live = w < Nw;
-  const uint32_t* wp = words + (live ? w : 0);
+  if (threadIdx.x == 0) {
+    for (int q = 0; q < kMcStages; ++q) {
+      mbar_init(&full[q], 1);
+      mbar_init(&empty[q], kMcWarps);
+    }
+    for (int q = 0; q < 2; ++q) {
+      mbar_init(&ready[q], 1);
+      mbar_init(&freed[q], kMcWarps);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == kMcWarps) {
+    // ---- the producer: compact a tile, then stream its rows
+    const int slab = rho[round];
+    int stage = 0;
+    for (int t = 0; t < ntiles; ++t) {
+      const int b = t & 1;
+      if (t >= 2) mbar_wait(&freed[b], ((t >> 1) - 1) & 1);
+      int* rw = rows + b * kMcTile;
+      float* vl = reinterpret_cast<float*>(vals4) + b * kMcTile * CV;
+      int n = 0;
+      for (int it = 0; it < kMcTile / 32; ++it) {
+        const int e = t * kMcTile + it * 32 + lane;
+        float v[CV];
+        bool f = false;
+#pragma unroll
+        for (int c = 0; c < CV; ++c) {
+          v[c] = c < C && e < JB ? __ldg(dsc + (long long)c * JB + e) : 0.f;
+          f |= v[c] != 0.f;
+        }
+        const unsigned mask = __ballot_sync(kFull, f);
+        if (f) {
+          const int at = n + __popc(mask & ((1u << lane) - 1u));
+          const int row = ((e / B) * nr + slab) * B + e % B;
+          rw[at] = row;
+          if constexpr (MISS) mrow[b * kMcTile + at] = __ldg(mean + row) - 3.f;
+#pragma unroll
+          for (int c = 0; c < CV; ++c) vl[at * CV + c] = v[c];
+        }
+        n += __popc(mask);
+      }
+      if (lane == 0) nnz[b] = n;
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&ready[b]);
+      for (int r0 = 0; r0 < n; r0 += kMcRows, ++stage) {
+        const int slot = stage % kMcStages;
+        if (stage >= kMcStages)
+          mbar_wait(&empty[slot], (stage / kMcStages - 1) & 1);
+        const int nrow = min(kMcRows, n - r0);
+        uint32_t* dst = ring + slot * kMcRows * kMcWords;
+        if (lane == 0) mbar_arrive_expect(&full[slot], 4u * nrow * nw);
+        __syncwarp();
+        if (lane < nrow)
+          bulk_load(dst + lane * kMcWords,
+                    words + (long long)rw[r0 + lane] * Nw + w0, 4u * nw,
+                    &full[slot]);
+      }
+    }
+    return;
+  }
+
+  // ---- the consumers: thread (wi, sub) owns eps lanes 16w + L*sub ..
+  const int wi = threadIdx.x % kMcWords;
+  const int sub = threadIdx.x / kMcWords;
+  const int w = w0 + wi;
   float acc[CB][L];
 #pragma unroll
   for (int c = 0; c < CB; ++c)
 #pragma unroll
     for (int k = 0; k < L; ++k) acc[c][k] = 0.f;
-
-  for (int tile0 = 0; tile0 < JB; tile0 += kApplyTile) {
-    // warp `warp` owns the tile's entries [lo, lo + 32*kTilePerLane)
-    const int lo = tile0 + warp * 32 * kTilePerLane;
-    bool nz[kTilePerLane];
-    int cnt = 0;
-#pragma unroll
-    for (int it = 0; it < kTilePerLane; ++it) {
-      const int e = lo + it * 32 + lane;
-      bool f = false;
-      if (e < JB) {
-#pragma unroll
-        for (int c = 0; c < CB; ++c)
-          if (c < C) f |= __ldg(dsc + (long long)c * JB + e) != 0.f;
-      }
-      nz[it] = f;
-      cnt += __popc(__ballot_sync(kFull, f));
-    }
-    if (lane == 0) warp_cnt[warp] = cnt;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      int run = 0;
-      for (int q = 0; q < kApplyWarps; ++q) {
-        const int c = warp_cnt[q];
-        warp_cnt[q] = run;
-        run += c;
-      }
-      warp_cnt[kApplyWarps] = run;
-    }
-    __syncthreads();
-    int pos = warp_cnt[warp];
-#pragma unroll
-    for (int it = 0; it < kTilePerLane; ++it) {
-      const unsigned mask = __ballot_sync(kFull, nz[it]);
-      if (nz[it]) {
-        const int at = pos + __popc(mask & ((1u << lane) - 1u));
-        const int e = lo + it * 32 + lane;
-        rows[at] = ((e / B) * nr + slab) * B + e % B;
-        if constexpr (MISS) mrow[at] = __ldg(mean + rows[at]) - 3.f;
-        float* v = reinterpret_cast<float*>(vals4) + at * CV;
-#pragma unroll
-        for (int c = 0; c < CV; ++c)
-          v[c] = c < C ? __ldg(dsc + (long long)c * JB + e) : 0.f;
-      }
-      pos += __popc(mask);
-    }
-    __syncthreads();
-    const int nnz = warp_cnt[kApplyWarps];
-    if (live) {
-#pragma unroll 8
-      for (int t = 0; t < nnz; ++t) {
-        const uint32_t wd =
-            __ldg(wp + (long long)rows[t] * Nw) >> (2 * L * sub);
+  int stage = 0;
+  for (int t = 0; t < ntiles; ++t) {
+    const int b = t & 1;
+    mbar_wait(&ready[b], (t >> 1) & 1);
+    const int n = nnz[b];
+    const float4* vt = vals4 + b * kMcTile * (CV / 4);
+    const float* mt = mrow + b * kMcTile;
+    for (int r0 = 0; r0 < n; r0 += kMcRows, ++stage) {
+      const int slot = stage % kMcStages;
+      mbar_wait(&full[slot], (stage / kMcStages) & 1);
+      const uint32_t* sw = ring + slot * kMcRows * kMcWords + wi;
+      const int nrow = min(kMcRows, n - r0);
+#pragma unroll 4
+      for (int q = 0; q < nrow; ++q) {
+        const uint32_t wd = sw[q * kMcWords] >> (2 * L * sub);
         float cf[L];
 #pragma unroll
         for (int k = 0; k < L; ++k) cf[k] = code_f(wd, k);
 #pragma unroll
-        for (int q = 0; q < CV / 4; ++q) {
-          const float4 v = vals4[t * (CV / 4) + q];
+        for (int h = 0; h < CV / 4; ++h) {
+          const float4 v = vt[(r0 + q) * (CV / 4) + h];
           const float vq[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
-            if (4 * q + i < CB) {
+            if (4 * h + i < CB) {
 #pragma unroll
               for (int k = 0; k < L; ++k)
-                acc[4 * q + i][k] = fmaf(vq[i], cf[k], acc[4 * q + i][k]);
+                acc[4 * h + i][k] = fmaf(vq[i], cf[k], acc[4 * h + i][k]);
               if constexpr (MISS)
-                apply_missing<L>(vq[i] * mrow[t], wd, acc[4 * q + i]);
+                apply_missing<L>(vq[i] * mt[r0 + q], wd, acc[4 * h + i]);
             }
           }
         }
       }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[slot]);
     }
-    __syncthreads();   // the next tile overwrites rows and vals
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&freed[b]);
   }
-  if (!live) return;
+  if (wi >= nw) return;
+  const long long Npad = 16LL * Nw;
   const long long n0 = 16LL * w + L * sub;
 #pragma unroll
   for (int c = 0; c < CB; ++c) {
@@ -404,20 +471,43 @@ apply_mc_kernel(const uint32_t* __restrict__ words, int Nw,
   }
 }
 
+template <int CB, bool MISS>
+cudaError_t launch_apply_mc_cb(int C, cudaStream_t s, const uint32_t* words,
+                               int Nw, float* eps,
+                               const unsigned char* row_valid, const int* rho,
+                               int round, int nr, int J, int B,
+                               const float* dsc, const float* dms,
+                               const float* mean) {
+  constexpr int CV = CB < 4 ? 4 : CB;
+  // the copy engine's 16-byte rule (Nw is a multiple of 128 in the port)
+  if (Nw % 4 != 0 || reinterpret_cast<uintptr_t>(words) % 16 != 0)
+    return cudaErrorInvalidValue;
+  const size_t smem = apply_mc_smem(CV, MISS);
+  const cudaError_t attr = cudaFuncSetAttribute(
+      apply_mc_kernel<CB, MISS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (attr != cudaSuccess) return attr;
+  const int ctas = (Nw + kMcWords - 1) / kMcWords;
+  apply_mc_kernel<CB, MISS><<<ctas, kMcThreads, smem, s>>>(
+      words, Nw, eps, C, row_valid, rho, round, nr, J, B, dsc, dms, mean);
+  return cudaGetLastError();
+}
+
 template <bool MISS>
-void launch_apply_mc_mode(int C, int ctas, cudaStream_t s,
-                          const uint32_t* words, int Nw, float* eps,
-                          const unsigned char* row_valid, const int* rho,
-                          int round, int nr, int J, int B, const float* dsc,
-                          const float* dms, const float* mean) {
+cudaError_t launch_apply_mc_mode(int C, cudaStream_t s, const uint32_t* words,
+                                 int Nw, float* eps,
+                                 const unsigned char* row_valid,
+                                 const int* rho, int round, int nr, int J,
+                                 int B, const float* dsc, const float* dms,
+                                 const float* mean) {
 #define JT_APPLY(CB)                                                      \
-  apply_mc_kernel<CB, MISS><<<ctas, kApplyThreads, 0, s>>>(               \
-      words, Nw, eps, C, row_valid, rho, round, nr, J, B, dsc, dms, mean)
-  if (C <= 1) JT_APPLY(1);
-  else if (C <= 2) JT_APPLY(2);
-  else if (C <= 4) JT_APPLY(4);
-  else if (C <= 8) JT_APPLY(8);
-  else JT_APPLY(16);
+  launch_apply_mc_cb<CB, MISS>(C, s, words, Nw, eps, row_valid, rho, round, \
+                               nr, J, B, dsc, dms, mean)
+  if (C <= 1) return JT_APPLY(1);
+  if (C <= 2) return JT_APPLY(2);
+  if (C <= 4) return JT_APPLY(4);
+  if (C <= 8) return JT_APPLY(8);
+  return JT_APPLY(16);
 #undef JT_APPLY
 }
 
@@ -429,19 +519,20 @@ cudaError_t launch_apply_mc(int C, int Nw, int x_int8, cudaStream_t s,
                             const unsigned char* row_valid, const int* rho,
                             int round, int nr, int J, int B, const float* dsc,
                             const float* dms, const float* mean, bool miss) {
-  const int ctas = (Nw + kApplyWords - 1) / kApplyWords;
   const RowApply ap{words, Nw, eps, C, rho, round, nr, B, J * B, dsc, dms,
                     nullptr, nullptr, nullptr, nullptr};
-  if (mean == nullptr)
+  if (mean == nullptr) {
     launch_row_apply<float>(ap, s);
-  else if (x_int8)
+  } else if (x_int8) {
     launch_row_apply<int8_t>(ap, s);
-  else if (miss)
-    launch_apply_mc_mode<true>(C, ctas, s, words, Nw, eps, row_valid, rho,
-                               round, nr, J, B, dsc, dms, mean);
-  else
-    launch_apply_mc_mode<false>(C, ctas, s, words, Nw, eps, row_valid, rho,
-                                round, nr, J, B, dsc, dms, mean);
+  } else {
+    return miss ? launch_apply_mc_mode<true>(C, s, words, Nw, eps, row_valid,
+                                             rho, round, nr, J, B, dsc, dms,
+                                             mean)
+                : launch_apply_mc_mode<false>(C, s, words, Nw, eps, row_valid,
+                                              rho, round, nr, J, B, dsc, dms,
+                                              mean);
+  }
   return cudaGetLastError();
 }
 

@@ -62,14 +62,19 @@
 //          the solve.
 //   solve  one CTA of 256 threads per (chain, block).  All threads turn
 //          the partials into r = s*(C.eps) - (m*s)*sum(eps) in shared
-//          memory and stage the block's per-marker tables; then one warp
-//          runs the B dependent Gibbs steps: every lane computes the
-//          visited marker's draw (the same operands, so the same bits; the
-//          marker's r by shuffle from the lane holding it), and each lane
-//          updates its B/32 entries of r, in registers, with the Gram row,
-//          which it loaded from global memory one step ahead (the Gram
-//          block, B*B*4 bytes, does not fit in shared memory at B=512); a
-//          step with d == 0 skips the update (r - G*0 is r).
+//          memory and stage the block's per-marker tables.  Warp 1 streams
+//          the block's Gram rows in visit order into a ring of stages in
+//          shared memory (cp.async.bulk, an mbarrier pair a stage; plain
+//          loads where B % 4 != 0), and warp 0 runs the B dependent Gibbs
+//          steps.  BayesR as windows: its lanes draw the next W steps (W <=
+//          32) on the current r at once, a ballot finds the first that
+//          moves (d != 0; most BayesR steps after burn-in move nothing, and
+//          r - G*0 is r), every step up to it is committed, and the
+//          mover's Gram row, read from the ring, updates r: warps 2-7 write
+//          the update as the next of three versions of r in shared memory,
+//          off warp 0's path.  The horseshoe moves on every valid step: one
+//          step at a time, r in registers, the next row read from the ring
+//          one step ahead.
 //          Then all threads write beta, labels, d*scale and the block's
 //          fixed-order sums: d.xsum, d.(m*s), and its v / bacc partials.
 //          Alone, on r given, this launch is the round solve.
@@ -85,12 +90,19 @@
 // per headline serial sweep on one warp per chain; the row sweep runs J
 // blocks' steps side by side on J SMs, 15,744 dependent steps per
 // headline sweep at J=32, B=128.  The bytes (one read of the words, 12.6
-// GB at N=100,352 x M=503,808) would take 3.8 ms.  The design keeps
-// everything of a step but the draw and r's update off the dependent path:
-// the next step's operands and Gram row are loaded while this step
-// computes, and the loop has no warp barrier.  On the card (PERF.md §6) a
-// step still costs about 0.4-0.7 us; loading the Gram rows further ahead
-// did not shorten it, and the draw's arithmetic is the smaller part.
+// GB at N=100,352 x M=503,808) would take 3.8 ms.  One step at a time, a
+// step cost 0.70-0.73 us (BayesR) and 0.35-0.51 us (horseshoe) on the card
+// (PERF.md section 5): a single warp's latency, the draw's arithmetic
+// setting the pace (loading the Gram rows further ahead did not shorten
+// it).  So the design takes steps off the dependent path: a window draws
+// W steps in one draw's time and commits all of them up to the first
+// mover, so a BayesR block costs (moving steps) + (still steps)/W
+// windows; the Gram rows wait in the ring, so no step waits on memory;
+// and what a window or step needs besides its draw (the rank-1 update,
+// the ring's bookkeeping, the next operands) is kept off the chain from
+// one draw to the next.  The window's draws are the one-step loop's draws
+// on the same r (d == 0 leaves r bitwise as it was), so the bits are the
+// same.
 //
 // Semantics kept from the TPU kernels (pallas_sweep.py:97-301,
 // pallas_jacobi.py:267-478):
@@ -113,11 +125,13 @@
 //   sweep order;
 // - lanes n >= N are never written, so eps stays 0 there.
 
+#include <algorithm>
+
 #include "jacobi_t_common.cuh"
 
 namespace {
 
-constexpr int kSerialMaxB = 1024;    // markers per block: 32 per lane
+constexpr int kSerialMaxB = 1024;    // markers per block (shared memory)
 constexpr int kRowMaxB = 512;        // the same with J > 1 blocks a round
 constexpr int kSerialMaxC = 16;      // chains per fused sweep
 constexpr int kSolveThreads = 256;
@@ -364,12 +378,21 @@ struct SerialSolveArgs {
   float* dms; float* espart;                  // (C, J) each
   float* vpart; float* bpart; int n_pos;      // (C, n, G, K), (C, n, G)
   int fold;     // 0 (the decodes, kDense): r = x.eps, d unscaled, no sums
+  // the Gram ring (plan_ring): rows a stage, stages, the window, whether
+  // the copy engine fills it, and the byte offsets in dynamic shared
+  // memory of its stages' barriers and of the ring
+  int ring_rows, ring_stages, window, bulk;
+  int bar_off, ring_off;
 };
 
-// The block's staged operands in dynamic shared memory: B*(9 + F) words.
+// The block's staged operands in dynamic shared memory: B*(11 + F) words,
+// then two barriers for each stage of the Gram ring, then the ring.
+// r is kept in three versions (v: after the block's first v movers, in
+// rv[v % 3]); rv[0] is r.
 struct SolveSmem {
   float *r, *dlt, *xs, *bo, *ok, *ps, *zs, *tb;
   int *inn, *krec;
+  float* rv[3];
 };
 
 __device__ __forceinline__ SolveSmem carve(float* sm, int B, int F) {
@@ -378,11 +401,54 @@ __device__ __forceinline__ SolveSmem carve(float* sm, int B, int F) {
   s.ok = sm + 4 * B; s.ps = sm + 5 * B; s.zs = sm + 6 * B; s.tb = sm + 7 * B;
   s.inn = reinterpret_cast<int*>(sm + (7 + F) * B);
   s.krec = s.inn + B;
+  s.rv[0] = s.r;
+  s.rv[1] = sm + (9 + F) * B;
+  s.rv[2] = sm + (10 + F) * B;
   return s;
 }
 
-inline size_t solve_smem_bytes(int B, int F) {
-  return sizeof(float) * (size_t)B * (9 + F);
+// The ring's layout for blocks of B markers and F table fields: the most
+// steps a window (W <= 32) that the shared memory left beside the
+// operands allows, with rows a stage and stages powers of two.  The
+// stages of a window, positions s0 .. s0 + W-1, must all fit in the ring
+// with s0's stage and the stage before it (held while an update reads its
+// row), so W <= (stages - 2)*rows + 1 (any W once the whole block fits).
+struct RingPlan {
+  int rows, stages, window, bar_off, ring_off;
+  size_t smem;                       // dynamic shared memory of the CTA
+};
+
+constexpr int kRingStages = 8;       // most stages of the ring
+constexpr int kRingRows = 8;         // most Gram rows a stage
+constexpr int kWindow = 32;          // most steps a window: one a lane
+constexpr int kSmemMax = 232448;     // shared memory a CTA may have
+constexpr int kSmemStatic = 1024;    // kept for the static shared memory
+
+inline RingPlan plan_ring(int B, int F) {
+  RingPlan p{0, 0, 0, 0, 0, 0};
+  const size_t ops = sizeof(float) * (size_t)B * (11 + F);
+  const size_t row = sizeof(float) * (size_t)B;
+  p.bar_off = (int)((ops + 7) / 8 * 8);
+  for (int R = kRingRows; R >= 1; R /= 2) {
+    const int nst = (B + R - 1) / R;
+    const int off = (int)((p.bar_off + 16 * nst + 127) / 128 * 128);
+    const long long fit =
+        ((long long)kSmemMax - kSmemStatic - off) / (long long)row;
+    int ns = (int)std::min<long long>(
+        std::min<long long>(kRingStages, fit / R), nst);
+    if (ns < 1) continue;
+    while (ns & (ns - 1)) ns &= ns - 1;          // a power of two
+    const int w = ns == nst ? kWindow : std::min(kWindow, (ns - 2) * R + 1);
+    if (w < 1) continue;
+    if (w > p.window) {
+      p.rows = R;
+      p.stages = ns;
+      p.window = w;
+      p.ring_off = off;
+    }
+  }
+  p.smem = p.ring_off + (size_t)p.stages * p.rows * row;
+  return p;
 }
 
 // Sum over the CTA in a fixed order (lanes, then warps 0..7); every
@@ -396,17 +462,6 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
 #pragma unroll
   for (int q = 0; q < kSolveWarps; ++q) t += red[q];
   return t;
-}
-
-// Gram row entries lane + 32*i of one row, 0 beyond B.
-template <int NPL>
-__device__ __forceinline__ void load_gram_row(const float* row, int lane,
-                                              int B, float (&g)[NPL]) {
-#pragma unroll
-  for (int i = 0; i < NPL; ++i) {
-    const int idx = lane + 32 * i;
-    g[i] = idx < B ? __ldg(row + idx) : 0.f;
-  }
 }
 
 // One step's operands: the visited marker's table row and state, and the
@@ -446,7 +501,62 @@ __device__ __forceinline__ float draw(const StepOps<K>& q, float num,
   }
 }
 
-// v[i] for a warp-uniform i < NPL, with static register indices.
+// The block's Gram rows in visit order (row inner[t] at position t),
+// streamed through a ring of `stages` stages of `rows` rows in shared
+// memory (both powers of two): stage k holds positions k*rows .. and lives
+// in slot k % stages.  Stage k has its own two barriers, full[k] (its
+// copies have landed) and empty[k] (the stepping warp has let it go), each
+// with one phase a block, so no wait can mistake another stage's phase for
+// its own.  `bulk`: the copy engine fills a stage (B % 4 == 0 and the Gram
+// 16-byte aligned); else the filling warp loads and stores the rows
+// itself.
+struct GramRing {
+  float* buf;
+  uint64_t* full;
+  uint64_t* empty;
+  int rows, stages, bulk;
+};
+
+// Fill stages k0 .. k1-1 (one warp); a stage past the first `stages` waits
+// until the stepping warp has let the slot's last stage go and that
+// stage's copies have landed.  With k1 == nst it then waits until every
+// copy has landed: none may land after the block is done.
+__device__ __forceinline__ void ring_fill(const GramRing& g, const int* inn,
+                                          const float* gb, int B, int k0,
+                                          int k1, int nst) {
+  const int lane = threadIdx.x & 31;
+  for (int k = k0; k < k1; ++k) {
+    const int slot = k & (g.stages - 1);
+    if (k >= g.stages) {
+      mbar_wait(&g.empty[k - g.stages], 0);
+      mbar_wait(&g.full[k - g.stages], 0);
+    }
+    const int t0 = k * g.rows;
+    const int nr = min(g.rows, B - t0);
+    float* dst = g.buf + (size_t)slot * g.rows * B;
+    if (g.bulk) {
+      if (lane == 0) mbar_arrive_expect(&g.full[k], 4u * nr * B);
+      __syncwarp();
+      if (lane < nr)
+        bulk_load(dst + (size_t)lane * B, gb + (long long)inn[t0 + lane] * B,
+                  4u * B, &g.full[k]);
+    } else {
+      for (int q = 0; q < nr; ++q) {
+        const float* src = gb + (long long)inn[t0 + q] * B;
+        for (int i = lane; i < B; i += 32)
+          dst[(size_t)q * B + i] = __ldg(src + i);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&g.full[k]);
+    }
+  }
+  if (k1 == nst)
+    for (int k = max(0, nst - g.stages); k < nst; ++k)
+      mbar_wait(&g.full[k], 0);
+}
+
+// v[i] for a warp-uniform or per-lane i < NPL, with static register
+// indices.
 template <int NPL>
 __device__ __forceinline__ float pick(const float (&v)[NPL], int i) {
   float x = v[0];
@@ -455,61 +565,244 @@ __device__ __forceinline__ float pick(const float (&v)[NPL], int i) {
   return x;
 }
 
-// The B dependent steps of one block, run by one warp.  Lane l holds r's
-// entries l + 32*i in registers; the visited marker's entry comes from its
-// owner lane by shuffle, so a step needs no warp barrier (a barrier would
-// also wait for the Gram row in flight).  Each step loads the next step's
-// operands and Gram row before its own draw, so their latency overlaps the
-// draw; a step that moves nothing (d == 0, most BayesR steps after
-// burn-in) skips the rank-1 update: r - G*0 is r.
-template <int K, int NPL>
-__device__ __forceinline__ void block_steps(const SolveSmem& s,
-                                            const float* gb, int B,
-                                            float half_invsE) {
+// The horseshoe's B dependent steps (K == 0), run by warp 0.  Every valid
+// step moves, so there is nothing for a window to skip: one step at a
+// time, r in registers (lane l holds entries l + 32 i), each step's Gram
+// row read from the ring one step ahead.  On the dependent path: d -> the
+// visited entry's update (the same r - G*d, by the lane that holds it,
+// from selects made before d was known) -> a shuffle -> the draw.  Off
+// it: the next step's operands and row, and the update of every other
+// entry.  As the plain version does, every step applies its update (a pad
+// marker's d is 0: r - G*0).  The ring's bookkeeping is done once a
+// stage, so a step has no branch: the next stage is waited for at the
+// start of a stage, when the last row of the stage before is in
+// registers and that stage can go.
+template <int NPL>
+__device__ __forceinline__ void block_steps_hs(const SolveSmem& s,
+                                               const GramRing& g, int B) {
   const int lane = threadIdx.x & 31;
-  float r[NPL], gcur[NPL], gnxt[NPL];
+  const int lr = __ffs(g.rows) - 1;
+  const int nst = (B + g.rows - 1) >> lr;
+  float r[NPL], gc[NPL], gn[NPL];
 #pragma unroll
   for (int i = 0; i < NPL; ++i) {
     const int idx = lane + 32 * i;
     r[i] = idx < B ? s.r[idx] : 0.f;
   }
-  StepOps<K> cur, nxt;
-  int jl = s.inn[0];
-  load_gram_row<NPL>(gb + (long long)jl * B, lane, B, gcur);
-  load_step<K>(s, 0, jl, cur);
-  for (int t = 0; t < B; ++t) {
-    const int tn = t + 1 < B ? t + 1 : t;
-    const int jn = s.inn[tn];
-    load_gram_row<NPL>(gb + (long long)jn * B, lane, B, gnxt);
-    load_step<K>(s, tn, jn, nxt);
-    const float rj = __shfl_sync(kFull, pick<NPL>(r, jl >> 5), jl & 31);
-    int krec;
-    const float d = draw<K>(cur, rj + cur.bo * cur.xs, half_invsE, krec);
-    if (d != 0.f) {
+  mbar_wait(&g.full[0], 0);
 #pragma unroll
-      for (int i = 0; i < NPL; ++i) r[i] = r[i] - gcur[i] * d;
+  for (int i = 0; i < NPL; ++i) {
+    const int idx = lane + 32 * i;
+    gc[i] = idx < B ? g.buf[idx] : 0.f;
+  }
+  int jl = s.inn[0];
+  StepOps<0> q;
+  load_step<0>(s, 0, jl, q);
+  float rj = __shfl_sync(kFull, pick<NPL>(r, jl >> 5), jl & 31);
+  for (int k = 0; k < nst; ++k) {
+    for (int f = max(0, k - 1); f < k; ++f)
+      if (lane == 0) mbar_arrive(&g.empty[f]);
+    if (k + 1 < nst) mbar_wait(&g.full[k + 1], 0);
+    const int t1 = min(B, (k + 1) << lr);
+    for (int t = k << lr; t < t1; ++t) {
+      int krec;
+      const float d = draw<0>(q, rj + q.bo * q.xs, 0.f, krec);
+      if (lane == 0) s.dlt[jl] = d;
+      const int tn = min(t + 1, B - 1);   // (past the end: read, unused)
+      const float* rn =
+          g.buf + ((size_t)((tn >> lr) & (g.stages - 1)) * g.rows +
+                   (tn & (g.rows - 1))) * B;
+#pragma unroll
+      for (int i = 0; i < NPL; ++i) {
+        const int idx = lane + 32 * i;
+        gn[i] = idx < B ? rn[idx] : 0.f;
+      }
+      const int jn = s.inn[tn];
+      load_step<0>(s, tn, jn, q);
+      const float sr = pick<NPL>(r, jn >> 5), sg = pick<NPL>(gc, jn >> 5);
+      rj = __shfl_sync(kFull, sr - sg * d, jn & 31);
+#pragma unroll
+      for (int i = 0; i < NPL; ++i) {
+        r[i] = r[i] - gc[i] * d;
+        gc[i] = gn[i];
+      }
+      jl = jn;
     }
-    if (lane == 0) {
+  }
+  if (lane == 0 && nst > 0) mbar_arrive(&g.empty[nst - 1]);
+}
+
+// Named barriers between the stepping warp (warp 0) and the updating
+// warps (2 .. 7): a mover handed over (A) and its update applied (D), two
+// of each, taken by the parity of the mover's number so that no barrier
+// is reused before its last use has completed.
+constexpr int kUpdaters = kSolveThreads - 64;
+constexpr int kStepAndUpdate = kUpdaters + 32;
+constexpr int kBarHanded = 1, kBarApplied = 3;
+
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(kStepAndUpdate)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(int id) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(kStepAndUpdate) : "memory");
+}
+
+__device__ __forceinline__ int next3(int v) { return v == 2 ? 0 : v + 1; }
+
+// A mover handed to the updating warps: its Gram row's float offset in the
+// ring (-1: the block is done) and its d.
+struct Handover {
+  int row[2];
+  float d[2];
+};
+
+// The B dependent steps of one block, run by warp 0 as windows of W steps.
+// A step that moves nothing (d == 0: a marker that stays in the spike, a
+// draw with no hit, a pad marker) leaves r bitwise as it was (r - G*0 is
+// r), so the W lanes draw the next W steps at once, lane i step s0 + i,
+// all on the current r; every step up to and including the first that
+// moves (a ballot) is exactly the draw the one-step-at-a-time loop would
+// make, and is committed; the mover's Gram row, already in the ring,
+// updates r (r[m] - G[m]*d as the loop did), and the next window starts
+// after it.  The dependent path of a block is so (moving steps) + (still
+// steps)/W windows; the horseshoe moves on every valid step, one step a
+// window.  Off that path: the next window's operands are loaded as soon
+// as the ballot has placed it; the updating warps (block_updates) write
+// each mover's update as the next version of r; and the next window's
+// lanes read the newest version that is surely complete, then apply to
+// their own entries, in order, the one or two movers it lacks (the same
+// r - G*d).  A stage of the ring is let go once the window has passed it
+// and no update still reads it; the filling warp waits for a slot's last
+// copy to land before it reuses the slot.
+template <int K>
+__device__ __forceinline__ void block_windows(const SolveSmem& s,
+                                              const GramRing& g,
+                                              Handover& ho, int B, int W,
+                                              float half_invsE) {
+  const int lane = threadIdx.x & 31;
+  const int lr = __ffs(g.rows) - 1;
+  const int nst = (B + g.rows - 1) >> lr;
+  int s0 = 0;
+  int freed = 0, landed = 0;     // stages let go / seen to have landed
+  int handed = 0, applied = 0;   // movers handed over / known applied
+  int vb = 0;                    // handed % 3: the newest version's buffer
+  int poff = 0;                  // the last mover handed over: its row
+  float pd = 0.f;                // and d
+  int stage[2] = {0, 0};         // the stages of the last two movers
+  bool act = lane < W && lane < B;
+  int jl = s.inn[act ? lane : 0];
+  StepOps<K> q;
+  load_step<K>(s, act ? lane : 0, jl, q);
+  float rj = s.r[jl];
+  for (;;) {
+    int krec;
+    const float dl = draw<K>(q, rj + q.bo * q.xs, half_invsE, krec);
+    const float d = act ? dl : 0.f;
+    const unsigned moved = __ballot_sync(kFull, d != 0.f);
+    const int last = moved ? __ffs(moved) - 1 : 31;
+    if (act && lane <= last) {
       s.dlt[jl] = d;
       s.krec[jl] = krec;
     }
-#pragma unroll
-    for (int i = 0; i < NPL; ++i) gcur[i] = gnxt[i];
-    cur = nxt;
+    const int s1 = moved ? s0 + last + 1 : s0 + W;
+    if (s1 >= B) break;            // r is not needed past the block's end
+    // the version of r to read: after a moving window the one before the
+    // last mover (its update may still be under way), else the newest
+    const bool lag = moved && applied < handed;
+    for (const int need = lag ? handed - 1 : handed; applied < need;
+         ++applied)
+      bar_wait(kBarApplied + (applied & 1));
+    // let go of the stages wholly before s1 that no update or fix-up still
+    // reads before waiting on the mover's stage, which the filling warp
+    // may fill only then
+    int done = s1 >> lr;
+    if (applied < handed) done = min(done, stage[applied & 1]);
+    if (moved) done = min(done, (s1 - 1) >> lr);
+    for (; freed < done; ++freed)
+      if (lane == 0) mbar_arrive(&g.empty[freed]);
+    float dm = 0.f;
+    int off = 0, k = 0;
+    if (moved) {
+      dm = __shfl_sync(kFull, d, last);
+      const int tm = s1 - 1;
+      k = tm >> lr;
+      // (a stage let go is the filling warp's to wait for)
+      for (landed = max(landed, freed); landed <= k; ++landed)
+        mbar_wait(&g.full[landed], 0);
+      off = ((k & (g.stages - 1)) * g.rows + (tm & (g.rows - 1))) * B;
+    }
+    const float* rv = s.rv[lag ? (vb == 0 ? 2 : vb - 1) : vb];
+    const int t = s1 + lane;
+    act = lane < W && t < B;
+    const int tl = act ? t : s1;
+    const int jn = s.inn[tl];
+    load_step<K>(s, tl, jn, q);
+    rj = rv[jn];
+    if (lag) rj = rj - g.buf[poff + jn] * pd;
+    if (moved) {
+      rj = rj - g.buf[off + jn] * dm;
+      if (lane == 0) {
+        ho.row[handed & 1] = off;
+        ho.d[handed & 1] = dm;
+      }
+      __syncwarp();
+      bar_arrive(kBarHanded + (handed & 1));
+      stage[handed & 1] = k;
+      ++handed;
+      vb = next3(vb);
+      poff = off;
+      pd = dm;
+    }
+    s0 = s1;
     jl = jn;
+  }
+  // the updating warps finish and stop; then the rest of the ring is let
+  // go, so the filling warp can fill its last stages
+  for (; applied < handed; ++applied) bar_wait(kBarApplied + (applied & 1));
+  if (lane == 0) ho.row[handed & 1] = -1;
+  __syncwarp();
+  bar_arrive(kBarHanded + (handed & 1));
+  for (; freed < nst; ++freed)
+    if (lane == 0) mbar_arrive(&g.empty[freed]);
+}
+
+// The updating warps (2 .. 7): mover u's rank-1 update, in the order
+// handed over, from version u of r into version u + 1, r[m] - G[m]*d as
+// the one-step loop computes it.
+__device__ __forceinline__ void block_updates(const SolveSmem& s,
+                                              const GramRing& g,
+                                              const Handover& ho, int B) {
+  const int h = threadIdx.x - 64;
+  int v = 0;                       // u % 3
+  for (int u = 0;; ++u) {
+    bar_wait(kBarHanded + (u & 1));
+    const int off = ho.row[u & 1];
+    if (off < 0) return;
+    const float dm = ho.d[u & 1];
+    const float* gr = g.buf + off;
+    const float* src = s.rv[v];
+    v = next3(v);
+    float* dst = s.rv[v];
+    for (int i = h; i < B; i += kUpdaters) dst[i] = src[i] - gr[i] * dm;
+    bar_arrive(kBarApplied + (u & 1));
   }
 }
 
 // Block j of the round of one chain c, blockIdx.x = c*J + j; K == 0 is
 // the horseshoe.  ROW: J > 1 blocks a round; the J=1 instance has J a
 // constant, so the serial sweep's solve keeps its own code.
+// (a minimum of one CTA per SM: without it ptxas kept some instances to
+// 40 registers and spilled across the division's slow-path call)
 template <int K, int NPL, bool ROW>
-__global__ void __launch_bounds__(kSolveThreads)
+__global__ void __launch_bounds__(kSolveThreads, 1)
 serial_solve_kernel(SerialSolveArgs a) {
   constexpr int F = StepOps<K>::F;
-  extern __shared__ float smem[];
+  extern __shared__ __align__(128) float smem[];
   __shared__ float red[kSolveWarps];
   __shared__ float s_esum;
+  __shared__ Handover ho;
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int J = ROW ? a.J : 1;
@@ -523,6 +816,14 @@ serial_solve_kernel(SerialSolveArgs a) {
   const SolveSmem s = carve(smem, B, F);
   const float* part = a.partial + (long long)c * a.nsplit * B1;
   const int cj = c * J + j;
+  char* dyn = reinterpret_cast<char*>(smem);
+  const int nst = (B + a.ring_rows - 1) / a.ring_rows;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(dyn + a.bar_off);
+  const GramRing ring{reinterpret_cast<float*>(dyn + a.ring_off), bars,
+                      bars + nst, a.ring_rows, a.ring_stages, a.bulk};
+  const float* gb = a.gram + blk * B * B;
+  for (int q = tid; q < 2 * nst; q += kSolveThreads) mbar_init(&bars[q], 1);
+  mbar_fence_init();
 
   // sum(eps): afresh from the dot's column at a chunk start (block 0 keeps
   // it for the apply to carry on), else tracked by the previous apply (the
@@ -552,6 +853,8 @@ serial_solve_kernel(SerialSolveArgs a) {
     for (int f = 0; f < F; ++f) s.tb[l * F + f] = row[f];
   }
   __syncthreads();
+  // warp 1 starts the Gram ring now, while r is assembled
+  if (warp == 1) ring_fill(ring, s.inn, gb, B, 0, ring.stages, -1);
   const float esum0 = s_esum;
   for (int l = tid; l < B; l += kSolveThreads) {
     float rc = 0.f;
@@ -573,9 +876,14 @@ serial_solve_kernel(SerialSolveArgs a) {
   }
   __syncthreads();
 
-  if (warp == 0) {
-    const float half_invsE = K == 0 ? 0.f : 0.5f / a.sigmaE[c];
-    block_steps<K, NPL>(s, a.gram + blk * B * B, B, half_invsE);
+  if (warp == 1) {
+    ring_fill(ring, s.inn, gb, B, ring.stages, nst, nst);
+  } else if constexpr (K == 0) {
+    if (warp == 0) block_steps_hs<NPL>(s, ring, B);
+  } else if (warp == 0) {
+    block_windows<K>(s, ring, ho, B, a.window, 0.5f / a.sigmaE[c]);
+  } else {
+    block_updates(s, ring, ho, B);
   }
   __syncthreads();
 
@@ -802,53 +1110,59 @@ struct SerialSweep {
 
 using SolveFn = void (*)(SerialSolveArgs);
 
-// entries of r per lane: the power of two >= B/32
-inline int lanes_per_row(int B) {
+// The horseshoe's solve keeps r in registers: NPL entries a lane, the
+// power of two >= B/32 (the row layout stops at kRowMaxB = 512, 16 a
+// lane).
+template <bool ROW>
+SolveFn pick_hs(int B) {
   int npl = 1;
   while (32 * npl < B) npl *= 2;
-  return npl;
-}
-
-// (the row layout stops at kRowMaxB = 512 markers a block, 16 entries of
-// r a lane: its plans go to B=512)
-template <int K, bool ROW>
-SolveFn pick_npl(int npl) {
   switch (npl) {
-    case 1: return serial_solve_kernel<K, 1, ROW>;
-    case 2: return serial_solve_kernel<K, 2, ROW>;
-    case 4: return serial_solve_kernel<K, 4, ROW>;
-    case 8: return serial_solve_kernel<K, 8, ROW>;
-    case 16: return serial_solve_kernel<K, 16, ROW>;
+    case 1: return serial_solve_kernel<0, 1, ROW>;
+    case 2: return serial_solve_kernel<0, 2, ROW>;
+    case 4: return serial_solve_kernel<0, 4, ROW>;
+    case 8: return serial_solve_kernel<0, 8, ROW>;
+    case 16: return serial_solve_kernel<0, 16, ROW>;
     case 32:
       if constexpr (ROW) return nullptr;
-      else return serial_solve_kernel<K, 32, ROW>;
+      else return serial_solve_kernel<0, 32, ROW>;
     default: return nullptr;
   }
 }
 
 template <bool ROW>
-SolveFn pick_k(int K, int npl) {
+SolveFn pick_k(int K, int B) {
   switch (K) {
-    case 0: return pick_npl<0, ROW>(npl);
-    case 2: return pick_npl<2, ROW>(npl);
-    case 3: return pick_npl<3, ROW>(npl);
-    case 4: return pick_npl<4, ROW>(npl);
-    case 5: return pick_npl<5, ROW>(npl);
-    case 6: return pick_npl<6, ROW>(npl);
-    case 7: return pick_npl<7, ROW>(npl);
-    case 8: return pick_npl<8, ROW>(npl);
+    case 0: return pick_hs<ROW>(B);
+    case 2: return serial_solve_kernel<2, 1, ROW>;
+    case 3: return serial_solve_kernel<3, 1, ROW>;
+    case 4: return serial_solve_kernel<4, 1, ROW>;
+    case 5: return serial_solve_kernel<5, 1, ROW>;
+    case 6: return serial_solve_kernel<6, 1, ROW>;
+    case 7: return serial_solve_kernel<7, 1, ROW>;
+    case 8: return serial_solve_kernel<8, 1, ROW>;
     default: return nullptr;
   }
 }
 
 // The solve for (K, B) and J blocks a round with its dynamic shared memory
-// allowed; null if the kernel takes no such K or B.
-SolveFn ready_solve(int K, int B, int J, size_t* smem, cudaError_t* err) {
-  const int npl = lanes_per_row(B);
-  const SolveFn solve = J > 1 ? pick_k<true>(K, npl) : pick_k<false>(K, npl);
+// allowed, and its Gram ring planned into `a` (the copy engine fills it
+// where B % 4 == 0 and the Gram is 16-byte aligned); null if the kernel
+// takes no such K or B.
+SolveFn ready_solve(int K, int B, int J, SerialSolveArgs& a, size_t* smem,
+                    cudaError_t* err) {
+  const SolveFn solve = J > 1 ? pick_k<true>(K, B) : pick_k<false>(K, B);
   *err = cudaErrorInvalidValue;
   if (solve == nullptr) return nullptr;
-  *smem = solve_smem_bytes(B, K == 0 ? 2 : 3 * K);
+  const RingPlan p = plan_ring(B, K == 0 ? 2 : 3 * K);
+  if (p.window < 1) return nullptr;
+  a.ring_rows = p.rows;
+  a.ring_stages = p.stages;
+  a.window = p.window;
+  a.bar_off = p.bar_off;
+  a.ring_off = p.ring_off;
+  a.bulk = B % 4 == 0 && reinterpret_cast<uintptr_t>(a.gram) % 16 == 0;
+  *smem = p.smem;
   *err = cudaFuncSetAttribute(
       solve, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
   return *err == cudaSuccess ? solve : nullptr;
@@ -931,10 +1245,6 @@ int serial_run(const SerialSweep& o, cudaStream_t s) {
       (decode && o.C != 1) || o.J < 1 || o.n_pos % o.J != 0 ||
       (o.J > 1 && (o.C != 1 || decode || o.B > kRowMaxB)))
     return cudaErrorInvalidValue;
-  size_t smem = 0;
-  cudaError_t err;
-  const SolveFn solve = ready_solve(o.K, o.B, o.J, &smem, &err);
-  if (solve == nullptr) return err;
   SerialSolveArgs a{o.partial, o.nsplit, o.border, o.inner, 0, o.J, o.B,
                     o.G, o.Mpad, 0, o.tbl, o.gram, o.xsq, o.mean, o.scale,
                     o.xsum, o.valid, o.gas, o.beta, o.labels, o.p, o.z,
@@ -943,6 +1253,10 @@ int serial_run(const SerialSweep& o, cudaStream_t s) {
                                    : (long long)o.n_pos * o.B,
                     o.sigmaE, o.esum, o.dsc, o.dms, o.espart, o.vpart,
                     o.bpart, o.n_pos, o.mode == kFold || o.mode == kInt8};
+  size_t smem = 0;
+  cudaError_t err;
+  const SolveFn solve = ready_solve(o.K, o.B, o.J, a, &smem, &err);
+  if (solve == nullptr) return err;
   // the chunks of rounds: the remainder first, then `chunk` rounds
   const int nr = o.n_pos / o.J;
   const int rem = nr % o.chunk;
@@ -968,6 +1282,13 @@ int serial_max_row_block() { return kRowMaxB; }
 int serial_max_chains() { return kSerialMaxC; }
 
 int serial_max_components() { return kMaxK; }
+
+// The steps a window of the BayesR solve draws at once for blocks of B
+// markers and K components, 0 where none fits; the horseshoe (K == 0)
+// takes one step at a time.
+int serial_window(int B, int K) {
+  return B < 1 ? 0 : K == 0 ? 1 : plan_ring(B, 3 * K).window;
+}
 
 int serial_dot_splits(int Nw) { return (Nw + kDotThreads - 1) / kDotThreads; }
 
@@ -1049,10 +1370,6 @@ int serial_round_solve(int J, int B, int K, int G, const void* border,
   if (J < 1 || B < 1 || B > (J > 1 ? kRowMaxB : kSerialMaxB) ||
       (K != 0 && (K < 2 || K > kMaxK)))
     return cudaErrorInvalidValue;
-  size_t smem = 0;
-  cudaError_t err;
-  const SolveFn solve = ready_solve(K, B, J, &smem, &err);
-  if (solve == nullptr) return err;
   SerialSolveArgs a{static_cast<const float*>(r1), 1,
                     static_cast<const int*>(border),
                     static_cast<const int*>(inner), 0, J, B, G, J * B, 0,
@@ -1067,6 +1384,10 @@ int serial_round_solve(int J, int B, int K, int G, const void* border,
                     static_cast<float*>(d), nullptr, nullptr,
                     static_cast<float*>(vpart), static_cast<float*>(bpart), J,
                     0};
+  size_t smem = 0;
+  cudaError_t err;
+  const SolveFn solve = ready_solve(K, B, J, a, &smem, &err);
+  if (solve == nullptr) return err;
   solve<<<J, kSolveThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return cudaGetLastError();
 }

@@ -67,6 +67,7 @@ SIGNATURES = {
         "serial_max_row_block": ([], _INT),
         "serial_max_chains": ([], _INT),
         "serial_max_components": ([], _INT),
+        "serial_window": ([_INT, _INT], _INT),
         "serial_dot_splits": ([_INT], _INT),
         "serial_dense_dot_splits": ([_INT], _INT),
         "serial_int8_dot_splits": ([_INT], _INT),

@@ -102,6 +102,81 @@ def spike_slab_inner_solve(r, Gb, beta_b, labels_b, xsq_b, gas_b, valid_b,
     return r, beta_b, labels_b, delta, v, bacc
 
 
+def windowed_inner_solve(r, Gb, beta_b, labels_b, xsq_b, gas_b, valid_b,
+                         inner, p_b, z_b, pi, cva, sigmaE, sigmaGG, v, bacc,
+                         *, W: int):
+    """``spike_slab_inner_solve`` on the serial kernel's schedule
+    (csrc/serial.cu:block_windows): draw the next W steps all on the current
+    r, commit every step up to and including the first that moves (d != 0),
+    apply that one rank-1 update, and start the next window after it.  A
+    step that moves nothing leaves r as it was, so the committed draws are
+    the one-step loop's.  Each draw is the loop's own per-step torch ops on
+    the same shapes; only which r a draw reads, and when the update lands,
+    differ.  For the tests: no sweep calls it."""
+    B = beta_b.shape[0]
+    beta_b, labels_b = beta_b.clone(), labels_b.clone()
+    v, bacc = v.clone(), bacc.clone()
+    delta = torch.zeros_like(r)
+    s0 = 0
+    while s0 < B:
+        window = []
+        for t in range(s0, min(s0 + W, B)):
+            jl = inner[t]
+            g = gas_b[jl]
+            ok = valid_b[jl]
+            num = r[jl] + beta_b[jl] * xsq_b[jl]
+            res = select_component(p_b[t], z_b[t], num, xsq_b[jl], pi[g],
+                                   cva[g], sigmaE, sigmaGG[g], beta_b[jl],
+                                   labels_b[jl])
+            d = torch.where(ok, res.delta, torch.zeros_like(res.delta))
+            window.append((t, jl, g, ok, res, d))
+        s0 += len(window)
+        for t, jl, g, ok, res, d in window:
+            beta_b[jl] = torch.where(ok, res.beta_new, beta_b[jl])
+            labels_b[jl] = torch.where(ok, res.label_new, labels_b[jl])
+            delta[jl] = d
+            v[g] += torch.where(ok, res.count_onehot,
+                                torch.zeros_like(res.count_onehot))
+            slab = torch.sum(res.count_onehot[1:])
+            bacc[g] += torch.where(ok, slab * res.beta_new * res.beta_new,
+                                   torch.zeros_like(res.beta_new))
+            if d != 0:
+                r = r - Gb[jl] * d
+                s0 = t + 1
+                break
+    return r, beta_b, labels_b, delta, v, bacc
+
+
+def dependent_windows(d_in_visit_order, W: int) -> int:
+    """Windows of at most W steps that the serial kernel's solve takes for
+    blocks whose steps give ``d_in_visit_order`` ((B,) for one block, or
+    (nb, B), each row a block in visit order; nonzero where a step moved):
+    a window ends at its first mover, else after W still steps, and never
+    spans two blocks.  Summed over the blocks."""
+    moved = torch.as_tensor(d_in_visit_order) != 0
+    if moved.dim() == 1:
+        moved = moved[None]
+    nb, B = moved.shape
+    pos = torch.arange(B, device=moved.device)
+    # the first mover at or after each position (B: none)
+    first = torch.where(moved, pos, torch.full_like(pos, B))
+    first = torch.flip(torch.cummin(torch.flip(first, [1]), dim=1).values,
+                       [1])
+    first = torch.cat([first, torch.full((nb, 1), B, dtype=first.dtype,
+                                         device=first.device)], dim=1)
+    s0 = torch.zeros(nb, dtype=torch.int64, device=moved.device)
+    rows = torch.arange(nb, device=moved.device)
+    windows = 0
+    while True:
+        live = s0 < B
+        n_live = int(live.sum())
+        if n_live == 0:
+            return windows
+        windows += n_live
+        f = first[rows, s0.clamp(max=B)]
+        s0 = torch.where(live, torch.where(f < s0 + W, f + 1, s0 + W), s0)
+
+
 def bayesr_block_sweep(XT_pad, gram, xsq_pad, eps, beta_pad, labels_pad,
                        block_order, inner_perm, p_arr, z_arr,
                        pi, cva, sigmaE, sigmaGG, g_assign_pad, valid_pad):

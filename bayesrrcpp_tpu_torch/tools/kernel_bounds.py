@@ -15,7 +15,8 @@ codes at the headline, with no marker moving and with every marker moving
 
 Each bound is the larger of the bytes the kernel must move (each input read
 once, each output written once) over 3.35 TB/s and its FP32 operations over
-67 TFLOP/s (NVIDIA H100 SXM data sheet, 700 W).  The script's rows are one
+67 TFLOP/s (NVIDIA H100 SXM data sheet, 700 W).  ``apply_round`` is one
+apply launch of the strided 2-bit modes.  The script's rows are one
 whole sweep of M=503,808 markers at N=100,352 on one card, plan J=128,
 B=32, K=4, G=1, with the least that depends on the data: no marker moves.
 Prints one JSON line per pallas_call site.
@@ -88,6 +89,18 @@ def int8_sweep(n, mpad, gram_floats, chains, marker_arrays, moved=0,
     return bound(nbytes, flops)
 
 
+def apply_round(npad, rows, chains, miss=0):
+    """One apply launch of the strided 2-bit modes (fold and ``miss``):
+    ``rows`` moved rows (in any chain) of ``npad`` lanes.  Bytes: the moved
+    rows' words read once (npad/4 bytes a row) and each chain's eps read
+    and written once.  FP32 FMAs (2 flops each): one per lane of every
+    moved row and chain, and in the ``miss`` mode one per chain for each of
+    the ``miss`` missing calls in the moved rows (their indicator terms,
+    as chip_smoke.py:missing_fmas counts them)."""
+    nbytes = rows * npad // 4 + chains * 8 * npad
+    return bound(nbytes, 2.0 * chains * (rows * npad + miss))
+
+
 def round_solve(markers, b, table_fields, step_flops):
     """The solve alone (sites #13, #14) over ``markers`` markers in blocks
     of ``b`` (one round: J*B; a sweep's rounds: Mpad): the Gram blocks, r
@@ -126,6 +139,10 @@ SITES = [
      horseshoe_round_solve(32 * 128, 128)),
     ("14", "pallas_jacobi.py:833 horseshoe_round_solve_pallas (a sweep)",
      horseshoe_round_solve(M, 128)),
+    # the fused horseshoe's apply of one round at C=8 (fold): every row of
+    # the round's J*B moves
+    ("4", "pallas_jacobi_t.py:2054 horseshoe_jacobi_t_pallas_mc apply "
+     "(a round, C=8)", apply_round(N, J * B, 8)),
 ]
 
 # the dense cell dense-16kx49k (bench.py:375-376): the least a sweep could

@@ -182,8 +182,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    phase 2's words (individual order already: the port's words carry no
    lane permutation), through the int8 mode of every sweep kernel: (a)
    each int8 entry point against its plain version at N=4096 and N=4001 x
-   M=8192 (M=2048 for the serial sweeps at N=4001), one sweep from a warm
-   state (the strided kernels J=32, B=32 one
+   M=8192 (M=2048 for the serial, row and ``_q`` sweeps), one sweep from
+   a warm state (the strided kernels J=32, B=32 one
    chain and C=8 fused, their chunks of rounds #5/#6, the serial fold
    B=512 one chain and C=8, the row sweep J=8, B=128, the serial in-kernel
    decode on codes with missing calls): labels and v equal, floats as phase
@@ -204,7 +204,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    horseshoe (``run_chains`` of 8, fused, 5 iterations), the row plan J=32,
    B=128 of both samplers (2 iterations, 8 fused chains through the serial
    fused sweep, 8 rounds against plain), the serial int8 fold at the
-   headline (J=1, B=512: one sweep of each kernel timed, 2 blocks against
+   headline (J=1, B=512: one sweep of each kernel timed, 1 block against
    plain) with its main paths at the auto plan of M=1500; (e)
    biobank-int8-missing: code 3 written in place at probability 2^-6, the
    auto plan falling to J=1 (B=32) through the in-kernel decode, BayesR
@@ -215,6 +215,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    5 iterations of one chain and of 8 fused chains with their launch
    counts; (g) the CLI with ``--x-dtype int8`` on a .bed with missing
    calls (N=8,192 x M=4,096).  It logs its seconds.
+
+Phases 8b, 9b and 13b also profile one more fused strided sweep and log
+the apply's device us a round against ``tools/kernel_bounds.apply_round``
+(the round's moved rows and, in the miss mode, their missing calls);
+phases 10b, 11b and 24e profile one more serial sweep and log the share
+of steps that moved, the windowed solve's dependent windows
+(``ops/block_sweep.dependent_windows`` at the kernel's W) and its us a
+window.  Each such line ends with the card's nvidia-smi name and power
+limit.
 
 Phases 17-24 run after phase 12, on phase 2's words for 17b, 21b, 23 and
 24.
@@ -246,6 +255,9 @@ HEADLINE_PLAIN_BLOCKS = 4
 # per-chain operands of the sweeps, by position (ops/jacobi_t.py)
 BAYESR_CHAIN_ARGS = (3, 4, 5, 8, 9, 10, 12, 13)
 HS_CHAIN_ARGS = (3, 4, 7, 8, 9, 10, 11)
+
+
+CARD = "not read"                   # nvidia-smi name, power limit (phase 1)
 
 
 def check(cond, msg):
@@ -438,10 +450,32 @@ def read_csv(path):
             any("nan" in r or "inf" in r for r in rows))
 
 
-def profile_split(torch, fn, names):
+def profile_split(torch, fn, names, want=None, counted=None):
     """Device time per launch (us) and launch count of the kernels whose
     names contain each of ``names``, over one call of ``fn``, plus the
-    total device time and the wall time (ms) of the call."""
+    total device time and the wall time (ms) of the call.
+
+    With ``want``, a window in which the tracer recorded fewer than 95 % of
+    ``want`` launches of a kernel in ``counted`` (default: all of ``names``)
+    is logged and profiled again, up to three windows: under load on the
+    host the tracer can lose a stretch of a window's kernel records (every
+    kernel short by the same count), while the launch counters show that
+    the launches were made. The last window is returned; ``profiled``
+    still holds it."""
+    counted = names if counted is None else counted
+    for _ in range(3):
+        split, dev_ms, wall_ms = profile_once(torch, fn, names)
+        short = {n: split[n][1] for n in counted
+                 if split[n][1] < 0.95 * want} if want else {}
+        if not short:
+            break
+        log(f"profiler recorded {short} of {want} launches; profiling the "
+            f"window again")
+    return split, dev_ms, wall_ms
+
+
+def profile_once(torch, fn, names):
+    """One profiled call of ``fn``: ``profile_split`` without the retry."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -469,6 +503,63 @@ def profile_split(torch, fn, names):
                 count[n] += e.count
     split = {n: (time_us[n] / max(count[n], 1), count[n]) for n in names}
     return split, total_us / 1e3, wall_ms
+
+
+def apply_report(torch, tag, s, fn, args, kw, moved_any, miss=None):
+    """One more call of the fused strided sweep ``fn(*args, **kw)`` under
+    the profiler: apply_mc_kernel's device us a round against
+    ``tools/kernel_bounds.apply_round`` over the round's mean moved rows
+    (``moved_any`` (Mpad,) bool: moved in any chain) and, in the miss mode,
+    their missing calls (``miss`` (Mpad,), ``missing_calls``); logged with
+    the card."""
+    from bayesrrcpp_tpu_torch.tools import kernel_bounds
+
+    split, _, _ = profile_split(torch, lambda: fn(*args, **kw),
+                                ("apply_mc_kernel",))
+    us, n = split["apply_mc_kernel"]
+    nr = s.nb // s.jacobi
+    rows = int(moved_any.sum()) / nr
+    nmiss = 0 if miss is None else int((miss * moved_any).sum()) / nr
+    b = kernel_bounds.apply_round(s.Npad, rows, args[3].shape[0], nmiss)
+    bound_us = b["bound_ms"] * 1e3
+    log(f"{tag} apply_mc_kernel {us:.2f} us a round (x {n}); apply_round "
+        f"{bound_us:.2f} us ({b['bound_by']}) for {rows:.1f} moved rows"
+        + (f" and {nmiss:.1f} missing calls" if miss is not None else "")
+        + f" a round: {us / bound_us:.2f}x the bound; {CARD}")
+    return us
+
+
+def window_report(torch, tag, s, fn, args, kw, K):
+    """One more call of the serial sweep ``fn(*args, **kw)`` (one chain or
+    fused, J=1; over the blocks of its order, which may be a cut of the
+    sweep's) under the profiler: the solve's device us a block, the share
+    of steps that moved (beta changed), the dependent windows of the
+    windowed solve at the kernel's W for (B, K) (per chain, by
+    ``ops/block_sweep.dependent_windows``) and the us a window; logged
+    with the card.  K == 0: the horseshoe."""
+    from bayesrrcpp_tpu_torch.ops import _cuda
+    from bayesrrcpp_tpu_torch.ops.block_sweep import dependent_windows
+
+    W = _cuda.library("serial").lib.serial_window(s.B, K)
+    res = []
+    split, _, _ = profile_split(
+        torch, lambda: res.append(tuple(fn(*args, **kw))),
+        ("serial_solve_kernel",))
+    us, n = split["serial_solve_kernel"]
+    beta_in = args[4] if args[4].dim() == 2 else args[4][None]
+    beta_out = res[0][1] if res[0][1].dim() == 2 else res[0][1][None]
+    border, inner = (args[5], args[6]) if K == 0 else (args[6], args[7])
+    b, inn = border.long(), inner[border.long()].long()
+    share = windows = 0.0
+    for bo, bi in zip(beta_out, beta_in):
+        moved = torch.gather((bo != bi).reshape(-1, s.B)[b], 1, inn)
+        share += float(moved.float().mean()) / len(beta_in)
+        windows += dependent_windows(moved, W) / len(beta_in)
+    log(f"{tag} windowed solve (W={W}): moving share {share:.4f}, "
+        f"{windows:.0f} dependent windows a chain for {b.numel() * s.B} "
+        f"steps, solve {us:.2f} us a block (x {n}), "
+        f"{us * n / windows:.4f} us a window; {CARD}")
+    return share, windows, us
 
 
 def profiled(split, want):
@@ -500,10 +591,12 @@ def smoke(torch, tmp):
         horseshoe_jacobi_t, horseshoe_jacobi_t_reference)
 
     # ---- 1. the card and the build
+    global CARD
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    log(smi.stdout.strip().splitlines()[0])
+    CARD = smi.stdout.strip().splitlines()[0]
+    log(CARD)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
@@ -718,7 +811,8 @@ def smoke(torch, tmp):
     check(hs_launches == want, f"horseshoe launches {hs_launches} != {want}")
     names = ("dot_kernel", "hs_solve_kernel", "apply_kernel")
     split, dev_ms, wall_ms = profile_split(
-        torch, lambda: hs._run_steps(st, bt.TorchVariates(g), 2), names)
+        torch, lambda: hs._run_steps(st, bt.TorchVariates(g), 2), names,
+        want=2 * nr)
     check(profiled(split, 2 * nr), f"profiled launches {split}")
     log("[7] profile of 2 steps: " + ", ".join(
         f"{n} {us:.2f} us x {c}" for n, (us, c) in split.items())
@@ -895,6 +989,9 @@ def fused_phases(torch, bt, kind, hs, tmp):
         f"equal to the single-chain kernel: {bitwise}; dot yardstick "
         f"torch.matmul ({s.jacobi * s.B} x {s.Npad}) @ ({s.Npad} x {C}) "
         f"{lib_ms:.4f} ms per round, x {nr} rounds {lib_ms * nr:.3f} ms")
+    apply_report(torch, f"[{ph}b] {kind} fused C={C}", s,
+                 lambda *a, **k: outputs(fused(*a, **k)), args, kw,
+                 (ker[1] != args[4]).any(dim=0))
     if hsk:
         check(rel_eps < 1e-4, f"[9b] headline eps rel diff {rel_eps}")
         check(rel_beta < 1e-4, f"[9b] headline beta rel diff {rel_beta}")
@@ -974,7 +1071,8 @@ def fused_phases(torch, bt, kind, hs, tmp):
         for _ in range(2):
             x = s.step_chains(x, vc)
 
-    split, dev_ms, wall_ms = profile_split(torch, two_steps, names)
+    split, dev_ms, wall_ms = profile_split(torch, two_steps, names,
+                                           want=2 * nr)
     check(profiled(split, 2 * nr), f"[{ph}c] profiled launches {split}")
     log(f"[{ph}c] profile of 2 fused steps: " + ", ".join(
         f"{n} {us:.2f} us x {c}" for n, (us, c) in split.items())
@@ -1158,6 +1256,9 @@ def serial_phases(torch, bt, hs, tmp):
             f"{ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}, {moved} "
             f"markers moved), dot yardstick torch.matmul ({s.B} x {s.Npad}) "
             f"@ ({s.Npad},) x {s.nb} blocks {lib_ms:.3f} ms")
+        window_report(torch, f"[10b] {kind} serial headline", s, single,
+                      args, kw, 0 if kind == "horseshoe" else
+                      args[10].shape[-1])
         check(agree >= 0.999, f"[10b] label agreement {agree}")
         check(rel_eps < (1e-3 if kind == "bayesr" else 1e-4),
               f"[10b] {kind} eps rel diff {rel_eps}")
@@ -1207,6 +1308,9 @@ def serial_phases(torch, bt, hs, tmp):
             f", {CHAINS} single-chain sweeps {singles_ms:.3f} ms, bound "
             f"{fbound[0]:.3f} ms ({fbound[1]}, {fmoved} moved), dot "
             f"yardstick {flib_ms:.3f} ms")
+        window_report(torch, f"[11b] {kind} fused C={CHAINS} serial "
+                      "headline", s, fused, args, kw,
+                      0 if kind == "horseshoe" else args[10].shape[-1])
         check(bitwise and bitwise_full, f"[11b] {kind} chains not bitwise")
         check(fagree >= 0.999, f"[11b] label agreement {fagree}")
         check(frel < (1e-3 if kind == "bayesr" else 1e-4),
@@ -1238,7 +1342,7 @@ def serial_phases(torch, bt, hs, tmp):
                          "serial_apply_kernel")
                 split, dev_ms, wall_ms = profile_split(
                     torch, lambda: s._run_steps(st, bt.TorchVariates(g), 1),
-                    names)
+                    names, want=s.nb)
                 check(profiled(split, s.nb), f"[12] profiled launches {split}")
                 log(f"[12] {kind} serial profile of 1 step: " + ", ".join(
                     f"{n} {us:.2f} us x {c}" for n, (us, c) in split.items())
@@ -1696,6 +1800,9 @@ def missing_phases(torch, bt, tmp):
         flib_ms = dot_yardstick(torch, ss, round_rows(torch, ss,
                                                       args[rho_at][0]),
                                 args[3]) * nr
+        apply_report(torch, f"[13b] {kind} fused C={CHAINS} miss", ss,
+                     lambda *a, **k: tuple(fused(*a, **k)), args, kw,
+                     fmoved_at.any(dim=0), miss)
         fflips = (held_per_chain(torch, ss, "[13b] fused", args, kw, ker,
                                  ref, per_chain)
                   if kind == "bayesr" else [])
@@ -1745,7 +1852,8 @@ def missing_phases(torch, bt, tmp):
         names = ("dot_kernel", "hs_solve_kernel" if kind == "horseshoe"
                  else "solve_kernel", "apply_kernel")
         split, dev_ms, wall_ms = profile_split(
-            torch, lambda: ss._run_steps(st, bt.TorchVariates(g), 2), names)
+            torch, lambda: ss._run_steps(st, bt.TorchVariates(g), 2), names,
+            want=2 * nr)
         check(profiled(split, 2 * nr), f"[14] profiled launches {split}")
         log(f"[14] {cell} profile of 2 steps: " + ", ".join(
             f"{n} {us:.2f} us x {c}" for n, (us, c) in split.items())
@@ -1781,7 +1889,8 @@ def missing_phases(torch, bt, tmp):
 
         names = ("dot_mc_kernel", "hs_solve_mc_kernel" if kind == "horseshoe"
                  else "solve_mc_kernel", "apply_mc_kernel")
-        split, dev_ms, wall_ms = profile_split(torch, two_steps, names)
+        split, dev_ms, wall_ms = profile_split(torch, two_steps, names,
+                                               want=2 * nr)
         check(profiled(split, 2 * nr), f"[14] profiled launches {split}")
         log(f"[14] {cell}-8chain profile of 2 fused steps: " + ", ".join(
             f"{n} {us:.2f} us x {c}" for n, (us, c) in split.items())
@@ -2333,7 +2442,8 @@ def dense_phases(torch, bt, hs, tmp):
                       ("hs_solve" if hsk else "solve")
                       + ("_kernel" if chains is None else "_mc_kernel"),
                       "row_apply_kernel")
-            split, dev_ms, wall_ms = profile_split(torch, two_steps, pnames)
+            split, dev_ms, wall_ms = profile_split(torch, two_steps, pnames,
+                                                   want=2 * nr)
             check(profiled(split, 2 * nr), f"[18] profiled launches {split}")
             log(f"[18] {cell} main path: "
                 f"{wall / chain.max_iterations * 1e3:.2f} ms/iter ({wall:.2f}"
@@ -2466,7 +2576,7 @@ def dense_phases(torch, bt, hs, tmp):
                 split, dev_ms, wall_ms = profile_split(
                     torch, lambda: ss._run_steps(st, vp, 1),
                     ("serial_dense_dot_kernel", "serial_solve_kernel",
-                     "row_apply_kernel"))
+                     "row_apply_kernel"), want=ss.nb)
                 check(profiled(split, ss.nb), f"[19] profiled {split}")
                 msg = "; profile of 1 step: " + ", ".join(
                     f"{n} {us:.2f} us x {c}" for n, (us, c) in split.items()
@@ -2701,7 +2811,7 @@ def row_main_paths(torch, bt, s, tag, cell, tmp, counters, gen_seed,
                       else s.step_chains(st, vp))
 
         split, dev_ms, wall_ms = profile_split(
-            torch, two_steps, (dot, "serial_solve_kernel", apply))
+            torch, two_steps, (dot, "serial_solve_kernel", apply), want=per)
         check(profiled(split, per), f"{tag} {name} profiled {split}")
         ms_iter = wall / ch.max_iterations * 1e3
         log(f"{tag} {name} main path: {ms_iter:.2f} ms/iter ({wall:.2f} s "
@@ -3279,7 +3389,8 @@ def sharded_main_paths(torch, bt, jt, sh, setup_s, tmp, ms_iter_4,
                 x = sh.step(x, vv) if C is None else sh.step_chains(x, vv)
 
         split, dev_ms, wall_ms = profile_split(torch, two_steps,
-                                               names + ("nccl",))
+                                               names + ("nccl",),
+                                               want=2 * nr, counted=names)
         check(profiled({n: split[n] for n in names}, 2 * nr),
               f"[{ph}] profiled launches {split}")
         log(f"[{ph}] profile of 2 steps: " + ", ".join(
@@ -3565,8 +3676,9 @@ def int8_layouts(jt, jr, ser, mcs):
 
 def int8_small(torch, bt, jt, layouts):
     """24a: every int8 entry point against its plain version at N=4096 x
-    M=8192 (vector loads) and N=4001 (byte loads; M=2048 for the serial
-    sweeps, whose plain versions step marker by marker), one sweep from a
+    M=8192 (vector loads) and N=4001 (byte loads), M=2048 for the serial,
+    row and ``_q`` sweeps (their plain versions step marker by marker),
+    one sweep from a
     warm state: the strided kernels (plan J=32, B=32; #1-#4, #7, #8) one chain
     and C=8 fused, their chunks of rounds (#5, #6: 3 rounds against the
     plain version, every round bitwise the whole sweep), the serial fold
@@ -3586,9 +3698,9 @@ def int8_small(torch, bt, jt, layouts):
                        else bt.BayesRConfig)(block_size=B)
                 g = torch.Generator(device=dev).manual_seed(240 + N % 7)
                 v = bt.TorchVariates(g)
-                # the serial plain sweeps' host loop takes a step a marker:
-                # at N=4001 they run 4 blocks of 512, not 16
-                M = 8192 if N == 4096 or layout in ("strided", "row") else 2048
+                # the plain serial, row and _q sweeps' host loop takes a step
+                # a marker: they run 4 blocks of 512 (16 of 128), not 16
+                M = 8192 if layout == "strided" else 2048
                 s = int8_sampler(torch, bt, g, N, M, cfg, missing, **plan)
                 want = {"strided": (32, 32, "t"), "serial": (1, 512, "row"),
                         "row": (8, 128, "row"), "q": (1, 512, "row")}[layout]
@@ -3651,7 +3763,7 @@ def int8_small(torch, bt, jt, layouts):
                               jt.bayesr_jacobi_t_mc_rounds(*args, **rkw),
                               jt.MCSweepResult(*fk))
                 del s, st, st8, args, ker, fk
-        log(f"[24a] N={N} x M=8192 (serial and _q at N=4001: M=2048): every "
+        log(f"[24a] N={N} x M=8192 (serial, row and _q: M=2048): every "
             f"int8 kernel against its plain "
             f"version (labels and v equal), fused chains bitwise equal to "
             f"the single-chain kernel, #5/#6 over every round bitwise #1/#3")
@@ -3825,7 +3937,7 @@ def int8_profile(torch, bt, s, st, tag, names, per, steps=2):
         for _ in range(steps):
             st = s.step(st, v) if st.eps.dim() == 1 else s.step_chains(st, v)
 
-    split, dev_ms, wall_ms = profile_split(torch, run, names)
+    split, dev_ms, wall_ms = profile_split(torch, run, names, want=per)
     check(profiled(split, per), f"{tag} profiled launches {split}")
     log(f"{tag} profile of {steps} steps: " + ", ".join(
         f"{n} {us:.2f} us x {c}" for n, (us, c) in split.items())
@@ -3849,6 +3961,11 @@ def int8_serial_headline(torch, bt, s, kind, fns, tag, blocks, fused, q):
     ref_fn = fplain if fused else plain
     args, kw = make_args(s, st, v)
     ker, ms = timed(torch, lambda: tuple(sweep(*args, **kw)), 1)
+    if q:   # (profiling all 47,232 launches of a sweep takes too long)
+        wargs, wkw = make_args(s, st, v, 1024)
+        window_report(torch, f"{tag} (1,024 blocks)", s, sweep, wargs, wkw,
+                      0 if hsk else args[10].shape[-1])
+        del wargs
     moved, moved_rows = moved_of(ker[1], args[4])
     bound = int8_bound(s, C or 1, moved, 4 if hsk else 6, moved_rows,
                        gram_rows=moved_rows, decode=q)
@@ -4139,7 +4256,7 @@ def int8_phases(torch, bt, hs, tmp):
     elapsed("24d")
 
     # ---- the serial int8 fold at the headline (J=1, B=512; #9-#12): one
-    # sweep of each timed, 2 blocks against the plain version; their main
+    # sweep of each timed, 1 block against the plain version; their main
     # paths at the auto plan of M=1500 (J=1)
     for kind in ("bayesr", "horseshoe"):
         cfg = (bt.HorseshoeConfig if kind == "horseshoe" else bt.BayesRConfig)(
@@ -4153,7 +4270,7 @@ def int8_phases(torch, bt, hs, tmp):
             key = kind + ("_serial_mc" if fused else "_serial")
             rec[key] = int8_serial_headline(
                 torch, bt, ss, kind, fns, f"[24] {kind} serial int8"
-                + (f" C={CHAINS}" if fused else ""), 2, fused, False)
+                + (f" C={CHAINS}" if fused else ""), 1, fused, False)
         del ss
         gs = torch.Generator(device=dev).manual_seed(255)
         sm = int8_sampler(torch, bt, gs, 4096, 1500, cfg)

@@ -312,10 +312,12 @@ def _serial_case(seed, B, G, K, nb, N, dev, chunk, missing=False):
                                               (512, 1, 4, 4, 4096, None),
                                               (200, 1, 3, 5, 3000, 2),
                                               (1024, 1, 8, 2, 2048, None),
-                                              (8, 1, 2, 6, 2048, None)])
+                                              (8, 1, 2, 6, 2048, None),
+                                              (150, 1, 3, 3, 2048, None)])
 def test_serial_kernel_matches_plain(cuda, B, G, K, nb, N, chunk):
     """Blocks of every width the plans produce, powers of two or not, up to
-    the kernel's 1024, across chunk boundaries."""
+    the kernel's 1024, across chunk boundaries (B=150: B % 4 != 0, the
+    Gram ring filled by plain loads)."""
     from bayesrrcpp_tpu_torch.ops import serial
 
     args, kw = _serial_case(B + K, B, G, K, nb, N, cuda, chunk)
@@ -346,9 +348,39 @@ def _serial_hs(args, lam, tau):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,K,nb", [(512, 4, 4), (1024, 8, 2), (200, 3, 5)])
+def test_serial_kernel_long_windows_match_plain(cuda, B, K, nb):
+    """Few movers (1 % of the markers in a slab, pi[0] = 0.999): the
+    windowed solve's windows run long over still steps, and the Gram ring's
+    stages are let go far behind the movers."""
+    from bayesrrcpp_tpu_torch.ops import serial
+
+    args, kw = _serial_case(B + 7 * K, B, 1, K, nb, 2048, cuda, None)
+    args = list(args)
+    M = nb * B
+    rng = np.random.default_rng(B)
+    hot = torch.as_tensor(rng.choice(M, M // 100, replace=False),
+                          device=cuda)
+    args[4] = torch.zeros(M, device=cuda).index_fill_(0, hot, 0.05)
+    args[5] = torch.zeros(M, dtype=torch.int32,
+                          device=cuda).index_fill_(0, hot, 1)
+    args[10] = torch.full((1, K), 0.001 / (K - 1), device=cuda)
+    args[10][:, 0] = 0.999
+    ker = serial.bayesr_sweep(*args, **kw)
+    ref = serial.bayesr_sweep_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert float((ker.beta != args[4]).float().mean()) < 0.05
+    assert torch.equal(ker.labels, ref.labels)
+    assert torch.equal(ker.v, ref.v)
+    torch.testing.assert_close(ker.beta, ref.beta, rtol=1e-4, atol=1e-5)
+    _assert_eps_close(ker.eps, ref.eps)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B,nb,N,tau,chunk", [(64, 8, 1500, 0.05, 3),
                                               (512, 4, 4096, 0.05, None),
-                                              (96, 4, 3000, 1e-30, None)])
+                                              (96, 4, 3000, 1e-30, None),
+                                              (150, 3, 2048, 0.05, None)])
 def test_serial_horseshoe_kernel_matches_plain(cuda, B, nb, N, tau, chunk):
     from bayesrrcpp_tpu_torch.ops import serial
 

@@ -121,3 +121,43 @@ def test_flip_replay_accepts_a_near_tie(layout, request):
                                 (ref2.eps, ref2.beta, labels2), ref2,
                                 sweeps=(plain, plain), rounds=rounds)
     assert [c for c, _ in flipped] == [0]
+
+
+def test_apply_round_bound_at_the_headline():
+    """The fused horseshoe's apply of one headline round at C=8 (fold),
+    worked out by hand: 4,096 rows of 100,352 lanes are 102.8 MB of words,
+    8 chains' eps read and written 6.4 MB, together 32.6 us at 3.35 TB/s;
+    8 x 4,096 x 100,352 FMAs are 6.58 GFLOP, 98.2 us at 67 TFLOP/s, so FP32
+    bounds it.  The miss mode adds one FMA per chain and missing call."""
+    fold = kernel_bounds.apply_round(100_352, 4096, 8)
+    assert fold["bytes"] == 4096 * 100_352 // 4 + 8 * 100_352 * 8
+    assert abs(fold["bytes"] / 3.35e12 * 1e6 - 32.6) < 0.05
+    assert abs(fold["flops"] - 6.58e9) < 0.005e9
+    assert fold["bound_by"] == "operations"
+    assert abs(fold["bound_ms"] * 1e3 - 98.2) < 0.05
+    miss = kernel_bounds.apply_round(100_352, 4096, 8, miss=10_000)
+    assert miss["bytes"] == fold["bytes"]
+    assert miss["flops"] - fold["flops"] == 2 * 8 * 10_000
+
+
+@pytest.mark.parametrize("counts, windows", [
+    ([246], 1),                 # complete at once
+    ([180, 246], 2),            # a stretch of records lost, then complete
+    ([180, 200, 210], 3),       # short in every window: the last is held
+])
+def test_profile_split_profiles_a_short_window_again(monkeypatch, counts,
+                                                     windows):
+    """A window whose records fall below 95 % of ``want`` is profiled again,
+    at most three windows in all, and ``profiled`` holds the last one."""
+    seen = []
+
+    def once(torch, fn, names):
+        c = counts[len(seen)]
+        seen.append(c)
+        return {n: (1.0, c) for n in names}, 1.0, 1.0
+
+    monkeypatch.setattr(cs, "profile_once", once)
+    monkeypatch.setattr(cs, "log", lambda msg: None)
+    split, _, _ = cs.profile_split(torch, None, ("a", "b"), want=246)
+    assert len(seen) == windows
+    assert cs.profiled(split, 246) == (counts[-1] >= 0.95 * 246)
