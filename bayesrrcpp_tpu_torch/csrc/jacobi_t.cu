@@ -78,10 +78,13 @@
 // else columns at a stride of 128, so any N runs) and sums as the packed
 // dot does, into the same (nsplit, J*B + 1) partials; the solve takes r
 // from them unfolded (scale 1, mean 0: jacobi_t_common.cuh:marker_r); the
-// apply streams the round's moved rows, one thread per individual.  It is
-// bound by HBM: the dot reads every row of X once per sweep (3.22 GB at
-// N=16,384 x M=49,152, 0.96 ms at 3.35 TB/s) at 2 flops per 4 bytes, and
-// the apply reads the moved rows again (the horseshoe's: all of them).
+// apply (row_apply_kernel) streams the round's moved rows: a CTA takes a
+// 256-byte segment of every row, and a producer warp copies the moved
+// rows' segments into a ring in shared memory (cp.async.bulk) while two
+// consumer warps add them up, one thread per individual.  It is bound by
+// HBM: the dot reads every row of X once per sweep (3.22 GB at N=16,384 x
+// M=49,152, 0.96 ms at 3.35 TB/s) at 2 flops per 4 bytes, and the apply
+// reads the moved rows again (the horseshoe's: all of them).
 //
 // The int8 mode (X (Mpad, N) int8 codes {0, 1, 2, 3}, pad markers code 3
 // with mean = scale = 0, so they add exactly 0; eps of length N, no lane
@@ -353,6 +356,11 @@ cudaError_t sweep_rounds(const uint32_t* wd, int Nw, int x_int8, int nr,
 }  // namespace
 
 extern "C" {
+
+// The smallest round (J*B entries) whose row apply takes the ring, and
+// not the direct path (jacobi_t_common.cuh:launch_row_apply; rows < 0:
+// unchanged); returns the previous value.  Both paths give the same bits.
+int jacobi_t_row_apply_ring_rows(int rows) { return set_ring_rows(rows); }
 
 int jacobi_t_dot_splits(int Nw) { return (Nw + kDotThreads - 1) / kDotThreads; }
 

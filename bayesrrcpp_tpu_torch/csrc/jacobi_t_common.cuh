@@ -540,36 +540,22 @@ __device__ __forceinline__ void apply_row(float (&acc)[CB][L],
   }
 }
 
-// The row apply: a thread takes L columns, so each warp load is one
-// 128-byte line of an f32 row (L = 1) or of int8 codes (L = 4, one 32-bit
-// word of codes a thread, where N % 4 == 0; else L = 1, 32 bytes a warp
-// load).  The moved entries are compacted tile by tile into shared memory
-// with every chain's d (0 where that chain did not move, which adds
-// exactly 0).  In the horseshoe every valid row moves and the apply
-// streams them all.  Every column sums its rows in the same order
-// whatever L, CB and C.  CB >= C, a power of two: the per-chain
-// accumulators stay in registers.
-template <int CB, typename T, bool Q, int L>
-__global__ void __launch_bounds__(kApplyThreads)
-row_apply_kernel(RowApply a) {
-  static_assert(!Q || CB == 1, "the in-kernel decode runs one chain");
-  static_assert(L == 1 || sizeof(T) == 1, "several columns: int8 codes");
-  constexpr bool kFold = sizeof(T) == 1 && !Q;
-  constexpr int CV = CB < 4 ? 4 : CB;   // chains per staged row (float4s)
-  __shared__ float4 vals4[kDenseApplyTile * CV / 4];
-  __shared__ int rows[kDenseApplyTile];
-  __shared__ float rmean[Q ? kDenseApplyTile : 1];
-  __shared__ float rscale[Q ? kDenseApplyTile : 1];
-  __shared__ int warp_cnt[kApplyWarps + 1];
-  __shared__ float dms_tot[kFold ? CB : 1];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int C = a.C, N = a.N, B = a.B, JB = a.JB, nr = a.nr;
-  const int nblk = JB / B;
-  const T* X = static_cast<const T*>(a.X);
+// Row t of a row apply's entry e (RowApply's two layouts).
+__device__ __forceinline__ int apply_row_index(const RowApply& a, int e,
+                                               int slab) {
+  return (a.nr > 0 ? (e / a.B) * a.nr + slab : a.slab_at[a.at + e / a.B]) *
+             a.B + e % a.B;
+}
+
+// The sums a row apply takes before its rows: the int8 fold mode's round
+// sums of dms over its blocks, in block order, into dms_tot, and CTA 0's
+// carry of esum (threads c < C).
+template <int CB, bool kFold>
+__device__ __forceinline__ void row_apply_sums(const RowApply& a,
+                                               float* dms_tot) {
   if constexpr (kFold) {
+    const int C = a.C, nblk = a.JB / a.B;
     if (threadIdx.x < C) {
-      // the round's sums over its blocks, in block order
       const int c = threadIdx.x;
       float t = a.dms[c * nblk];
       for (int q = 1; q < nblk; ++q) t += a.dms[c * nblk + q];
@@ -581,7 +567,34 @@ row_apply_kernel(RowApply a) {
       }
     }
   }
-  const int slab = nr > 0 ? a.slab_at[a.at] : 0;
+}
+
+// The direct row apply: a thread takes L columns, so each warp load is one
+// 128-byte line of an f32 row (L = 1) or of int8 codes (L = 4, one 32-bit
+// word of codes a thread, where N % 4 == 0; else L = 1, 32 bytes a warp
+// load).  The moved entries are compacted tile by tile into shared memory
+// with every chain's d (0 where that chain did not move, which adds
+// exactly 0); then each thread loads its columns of the tile's rows
+// itself.  It serves the small rounds (JB < g_ring_rows: a serial block
+// of up to 512 rows), where the ring's set-up costs more than it saves,
+// the in-kernel decode (Q: the int8 `_q` apply's 32 rows) and rows that
+// the copy engine cannot take (not 16-byte aligned).
+template <int CB, typename T, bool Q, int L>
+__device__ __forceinline__ void row_apply_direct(const RowApply& a) {
+  constexpr bool kFold = sizeof(T) == 1 && !Q;
+  constexpr int CV = CB < 4 ? 4 : CB;   // chains per staged row (float4s)
+  __shared__ float4 vals4[kDenseApplyTile * CV / 4];
+  __shared__ int rows[kDenseApplyTile];
+  __shared__ float rmean[Q ? kDenseApplyTile : 1];
+  __shared__ float rscale[Q ? kDenseApplyTile : 1];
+  __shared__ int warp_cnt[kApplyWarps + 1];
+  __shared__ float dms_tot[kFold ? CB : 1];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int C = a.C, N = a.N, JB = a.JB;
+  const T* X = static_cast<const T*>(a.X);
+  row_apply_sums<CB, kFold>(a, dms_tot);
+  const int slab = a.nr > 0 ? a.slab_at[a.at] : 0;
   const long long n =
       ((long long)blockIdx.x * kApplyThreads + threadIdx.x) * L;
   const bool live = n < N;
@@ -628,9 +641,7 @@ row_apply_kernel(RowApply a) {
       if (nz[it]) {
         const int to = pos + __popc(mask & ((1u << lane) - 1u));
         const int e = lo + it * 32 + lane;
-        const int row =
-            (nr > 0 ? (e / B) * nr + slab : a.slab_at[a.at + e / B]) * B +
-            e % B;
+        const int row = apply_row_index(a, e, slab);
         rows[to] = row;
         if constexpr (Q) {
           rmean[to] = __ldg(a.mean + row);
@@ -654,8 +665,7 @@ row_apply_kernel(RowApply a) {
         }
       } else {
         // codes: kApplyBatch rows' words loaded before any is used, so a
-        // thread keeps that many loads in flight (the apply is bound by
-        // the latency of its loads)
+        // thread keeps that many loads in flight
         for (int t0 = 0; t0 < nnz; t0 += kApplyBatch) {
           uint32_t w[kApplyBatch];
 #pragma unroll
@@ -692,14 +702,279 @@ row_apply_kernel(RowApply a) {
   }
 }
 
-// Launch the row apply of columns L a thread for a.C chains with the
-// smallest CB >= C.
-template <typename T, bool Q, int L>
+// ---- the ring row apply (row_apply_ring): a CTA takes one 256-byte
+// segment of every row, kRowRingWords 4-byte words (64 f32 columns, or 256
+// int8 codes at L = 4), a consumer thread a word.  Every warp first marks
+// the round's moved entries in a bitmask; then its compactor warp
+// compacts them a tile of kRowRingTile at a time, in index order, into
+// one of two buffers (the moved rows and every chain's d) while the
+// consumers work through the other; kRowRingIssuers issuer warps stream
+// the moved rows' segments into a ring of kRowRingStages stages of
+// kRowRingRows rows by cp.async.bulk, stage s issued by warp s mod
+// kRowRingIssuers, one full / empty mbarrier pair a stage.  So the loads
+// never wait for a compaction, and the copies do not queue behind one
+// warp: a warp's cp.async.bulk of 32 lanes issues its copies one after
+// another, and one issuer warp held a CTA to one 256-byte row about
+// every 75 cycles (1.6 TB/s at the dense cell on an NVIDIA H100 80GB
+// HBM3, 700 W, PERF.md §6).
+constexpr int kRowRingWords = 64;                   // words of a row a CTA
+constexpr int kRowRingWarps = kRowRingWords / 32;   // consumer warps
+constexpr int kRowRingIssuers = 4;                  // warps issuing copies
+constexpr int kRowRingThreads =                     // and the compactor
+    kRowRingWords + 32 * (1 + kRowRingIssuers);
+constexpr int kRowRingRows = 32;                    // rows a stage: a lane each
+constexpr int kRowRingStages = 6;                   // stages of the ring
+constexpr int kRowRingTile = 256;                   // entries a compacted tile
+constexpr int kRowRingMinRows = 1024;               // JB below it: direct
+constexpr int kRowRingMaxRows = 16384;              // JB above it: direct
+
+// The smallest round (JB entries) that takes the ring; the C interface of
+// each library sets it (<lib>_row_apply_ring_rows), so that a test can
+// hold the two paths against each other.
+int g_ring_rows = kRowRingMinRows;
+
+// Set g_ring_rows to `rows` (rows < 0: leave it); returns the old value.
+inline int set_ring_rows(int rows) {
+  const int old = g_ring_rows;
+  if (rows >= 0) g_ring_rows = rows;
+  return old;
+}
+
+// Dynamic shared memory of the ring apply for CV staged chains: the ring,
+// then two tiles of rows and values.
+inline size_t row_ring_smem(int CV) {
+  return sizeof(uint32_t) * kRowRingStages * kRowRingRows * kRowRingWords +
+         2 * kRowRingTile * (sizeof(float) * CV + sizeof(int));
+}
+
+template <int CB, typename T, bool Q, int L>
+__device__ __forceinline__ void row_apply_ring(const RowApply& a) {
+  static_assert(L * sizeof(T) == 4, "a consumer thread takes a 4-byte word");
+  static_assert(!Q, "the in-kernel decode takes the direct path");
+  constexpr bool kFold = sizeof(T) == 1;
+  constexpr int CV = CB < 4 ? 4 : CB;   // chains per staged row (float4s)
+  constexpr int kTileLane = kRowRingTile / 32;   // entries a lane a tile
+  extern __shared__ __align__(128) uint32_t dyn[];
+  uint32_t* ring = dyn;
+  float4* vals4 =
+      reinterpret_cast<float4*>(dyn + kRowRingStages * kRowRingRows *
+                                          kRowRingWords);
+  int* rows = reinterpret_cast<int*>(vals4 + 2 * kRowRingTile * CV / 4);
+  __shared__ uint64_t full[kRowRingStages], empty[kRowRingStages];
+  __shared__ uint64_t ready[2], freed[2];   // a tile's buffer filled / done
+  __shared__ int nnz[2];
+  __shared__ float dms_tot[kFold ? CB : 1];
+  __shared__ uint32_t moved[kRowRingMaxRows / 32];   // bit: entry moved
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int C = a.C, N = a.N, JB = a.JB;
+  const int ntiles = (JB + kRowRingTile - 1) / kRowRingTile;
+  const long long n0 = (long long)blockIdx.x * kRowRingWords * L;
+  row_apply_sums<CB, kFold>(a, dms_tot);
+  // which entries moved in some chain, by every warp at once (8 loads a
+  // chain in flight a thread), so that the compactor's tiles load only
+  // the d of the rows that moved: one warp alone paid a load latency a
+  // tile, which a round with few moved rows (BayesR) could not hide
+  for (int base = 0; base < JB; base += 8 * kRowRingThreads) {
+    bool f[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int e = base + k * kRowRingThreads + threadIdx.x;
+      f[k] = false;
+      if (e < JB) {
+#pragma unroll
+        for (int c = 0; c < CB; ++c)
+          if (c < C) f[k] |= __ldg(a.dsc + (long long)c * JB + e) != 0.f;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const unsigned b = __ballot_sync(kFull, f[k]);
+      const int e0 = base + k * kRowRingThreads + warp * 32;
+      if (lane == 0 && e0 < JB) moved[e0 / 32] = b;
+    }
+  }
+  if (threadIdx.x == 0) {
+    for (int q = 0; q < kRowRingStages; ++q) {
+      mbar_init(&full[q], 1);
+      mbar_init(&empty[q], kRowRingWarps);
+    }
+    for (int q = 0; q < 2; ++q) {
+      mbar_init(&ready[q], 1);
+      mbar_init(&freed[q], kRowRingWarps + kRowRingIssuers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp > kRowRingWarps) {
+    // ---- an issuer: the copies of its stages, tile by tile
+    const int me = warp - kRowRingWarps - 1;
+    const T* X = static_cast<const T*>(a.X);
+    const uint32_t bytes = static_cast<uint32_t>(
+        min((long long)kRowRingWords * L, N - n0) * sizeof(T));
+    int stage = 0;
+    for (int t = 0; t < ntiles; ++t) {
+      const int b = t & 1;
+      mbar_wait(&ready[b], (t >> 1) & 1);
+      const int n = nnz[b];
+      const int* rw = rows + b * kRowRingTile;
+      for (int r0 = 0; r0 < n; r0 += kRowRingRows, ++stage) {
+        if (stage % kRowRingIssuers != me) continue;
+        const int slot = stage % kRowRingStages;
+        if (stage >= kRowRingStages)
+          mbar_wait(&empty[slot], (stage / kRowRingStages - 1) & 1);
+        const int nrow = min(kRowRingRows, n - r0);
+        if (lane == 0) mbar_arrive_expect(&full[slot], bytes * nrow);
+        __syncwarp();
+        if (lane < nrow)
+          bulk_load(ring + (slot * kRowRingRows + lane) * kRowRingWords,
+                    X + (long long)rw[r0 + lane] * N + n0, bytes,
+                    &full[slot]);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&freed[b]);
+    }
+    return;
+  }
+  if (warp == kRowRingWarps) {
+    // ---- the compactor
+    const int slab = a.nr > 0 ? a.slab_at[a.at] : 0;
+    for (int t = 0; t < ntiles; ++t) {
+      const int b = t & 1;
+      if (t >= 2) mbar_wait(&freed[b], ((t >> 1) - 1) & 1);
+      int* rw = rows + b * kRowRingTile;
+      float* vl = reinterpret_cast<float*>(vals4) + b * kRowRingTile * CV;
+      int n = 0;
+#pragma unroll
+      for (int it = 0; it < kTileLane; ++it) {
+        const int w = t * kTileLane + it;
+        const unsigned mask = w * 32 < JB ? moved[w] : 0u;
+        if ((mask >> lane) & 1u) {
+          const int to = n + __popc(mask & ((1u << lane) - 1u));
+          const int e = t * kRowRingTile + it * 32 + lane;
+          const int row = apply_row_index(a, e, slab);
+          rw[to] = row;
+#pragma unroll
+          for (int c = 0; c < CV; ++c)
+            vl[to * CV + c] =
+                c < C ? __ldg(a.dsc + (long long)c * JB + e) : 0.f;
+        }
+        n += __popc(mask);
+      }
+      if (lane == 0) nnz[b] = n;
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&ready[b]);
+    }
+    return;
+  }
+
+  // ---- the consumers: thread i owns word i of the segment, columns
+  // n .. n + L - 1; its eps are read before the first row lands
+  const long long n = n0 + (long long)threadIdx.x * L;
+  const bool live = n < N;
+  constexpr bool kPre = CB * L <= 8;
+  float acc[CB][L], ev[kPre ? CB : 1][L];
+#pragma unroll
+  for (int c = 0; c < CB; ++c)
+#pragma unroll
+    for (int k = 0; k < L; ++k) acc[c][k] = 0.f;
+  if constexpr (kPre) {
+#pragma unroll
+    for (int c = 0; c < CB; ++c)
+#pragma unroll
+      for (int k = 0; k < L; ++k)
+        ev[c][k] = live && c < C ? a.eps[c * (long long)N + n + k] : 0.f;
+  }
+  int stage = 0;
+  for (int t = 0; t < ntiles; ++t) {
+    const int b = t & 1;
+    mbar_wait(&ready[b], (t >> 1) & 1);
+    const int cnt = nnz[b];
+    const float4* vt = vals4 + b * kRowRingTile * (CV / 4);
+    for (int r0 = 0; r0 < cnt; r0 += kRowRingRows, ++stage) {
+      const int slot = stage % kRowRingStages;
+      mbar_wait(&full[slot], (stage / kRowRingStages) & 1);
+      const uint32_t* sw =
+          ring + slot * kRowRingRows * kRowRingWords + threadIdx.x;
+      const int nrow = min(kRowRingRows, cnt - r0);
+      const auto row = [&](int q) {
+        const uint32_t w = sw[q * kRowRingWords];
+        float xv[L];
+        if constexpr (sizeof(T) == 1) {
+#pragma unroll
+          for (int k = 0; k < L; ++k) xv[k] = code8_f(w, k);
+        } else {
+          xv[0] = __uint_as_float(w);
+        }
+        apply_row<CB, CV, false>(acc, xv, vt, r0 + q, nullptr, nullptr);
+      };
+      if (sizeof(T) == 4 && CB <= 2 && nrow == kRowRingRows) {
+        // a full stage of f32 rows for one or two chains: unrolled, the
+        // rows' loads are issued ahead of the FMA chains (int8 codes and
+        // more chains have the work a row to hide them)
+#pragma unroll
+        for (int q = 0; q < kRowRingRows; ++q) row(q);
+      } else {
+#pragma unroll 4
+        for (int q = 0; q < nrow; ++q) row(q);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[slot]);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&freed[b]);
+  }
+  if (!live) return;
+#pragma unroll
+  for (int c = 0; c < CB; ++c) {
+    if (c < C) {
+      float* ep = a.eps + c * (long long)N + n;
+#pragma unroll
+      for (int k = 0; k < L; ++k) {
+        float e0;
+        if constexpr (kPre) e0 = ev[c][k];
+        else e0 = ep[k];
+        if constexpr (kFold) ep[k] = e0 - (acc[c][k] - dms_tot[c]);
+        else ep[k] = e0 - acc[c][k];
+      }
+    }
+  }
+}
+
+// The row apply, one launch a round: the ring (RING) or the direct path.
+// Every column sums its rows in the same order on either path, whatever
+// L, CB and C, so the two give the same bits.  CB >= C, a power of two:
+// the per-chain accumulators stay in registers.
+template <int CB, typename T, bool Q, int L, bool RING>
+__global__ void __launch_bounds__(RING ? kRowRingThreads : kApplyThreads)
+row_apply_kernel(RowApply a) {
+  static_assert(!Q || CB == 1, "the in-kernel decode runs one chain");
+  static_assert(L == 1 || sizeof(T) == 1, "several columns: int8 codes");
+  if constexpr (RING) row_apply_ring<CB, T, Q, L>(a);
+  else row_apply_direct<CB, T, Q, L>(a);
+}
+
+// Launch the row apply of columns L a thread (the ring's words: L f32
+// columns or codes) for a.C chains with the smallest CB >= C.
+template <typename T, bool Q, int L, bool RING>
 inline void launch_row_apply_cols(const RowApply& a, cudaStream_t s) {
-  const int per = kApplyThreads * L;
+  const int per = (RING ? kRowRingWords : kApplyThreads) * L;
   const int ctas = (a.N + per - 1) / per;
-#define JT_ROW_APPLY(CB) \
-  row_apply_kernel<CB, T, Q, L><<<ctas, kApplyThreads, 0, s>>>(a)
+#define JT_ROW_APPLY(CB)                                                  \
+  do {                                                                    \
+    if constexpr (RING) {                                                 \
+      const size_t smem = row_ring_smem(CB < 4 ? 4 : CB);                \
+      cudaFuncSetAttribute(row_apply_kernel<CB, T, Q, L, true>,           \
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,   \
+                           (int)smem);                                    \
+      row_apply_kernel<CB, T, Q, L, true><<<ctas, kRowRingThreads, smem, s>>>( \
+          a);                                                             \
+    } else {                                                              \
+      row_apply_kernel<CB, T, Q, L, false><<<ctas, kApplyThreads, 0, s>>>( \
+          a);                                                             \
+    }                                                                     \
+  } while (0)
   if constexpr (Q) {
     JT_ROW_APPLY(1);
   } else {
@@ -712,19 +987,33 @@ inline void launch_row_apply_cols(const RowApply& a, cudaStream_t s) {
 #undef JT_ROW_APPLY
 }
 
-// Launch the row apply for a.C chains: dense f32 rows (T float, a column a
-// thread), int8 codes in the fold mode, or with Q the in-kernel decode
-// (one chain); int8 codes take 4 columns a thread where N % 4 == 0 and
-// the codes are 4-byte aligned.
+// Launch the row apply for a.C chains: dense f32 rows (T float), int8
+// codes in the fold mode, or with Q the in-kernel decode (one chain).  The
+// ring takes the fold and dense rounds of g_ring_rows to kRowRingMaxRows
+// entries whose rows the copy engine can take (16-byte aligned: N a
+// multiple of 4 f32 values or 16 codes); the direct path the others (the
+// in-kernel decode's rounds: its blocks are small, B = 32 at the auto
+// plan), int8 codes 4 columns a thread where N % 4 == 0 and the codes are
+// 4-byte aligned, else 1.
 template <typename T, bool Q = false>
 inline void launch_row_apply(const RowApply& a, cudaStream_t s) {
+  const uintptr_t base = reinterpret_cast<uintptr_t>(a.X);
+  const bool ring = !Q && a.JB >= g_ring_rows && a.JB <= kRowRingMaxRows &&
+                    a.N % (16 / sizeof(T)) == 0 && base % 16 == 0;
   if constexpr (sizeof(T) == 1) {
-    if (a.N % 4 == 0 && reinterpret_cast<uintptr_t>(a.X) % 4 == 0) {
-      launch_row_apply_cols<T, Q, 4>(a, s);
-      return;
+    if constexpr (!Q) {
+      if (ring) {
+        launch_row_apply_cols<T, Q, 4, true>(a, s);
+        return;
+      }
     }
+    if (a.N % 4 == 0 && base % 4 == 0)
+      launch_row_apply_cols<T, Q, 4, false>(a, s);
+    else launch_row_apply_cols<T, Q, 1, false>(a, s);
+  } else {
+    if (ring) launch_row_apply_cols<T, Q, 1, true>(a, s);
+    else launch_row_apply_cols<T, Q, 1, false>(a, s);
   }
-  launch_row_apply_cols<T, Q, 1>(a, s);
 }
 
 // The BayesR categorical draw of one marker (pallas_sweep.py:246-264):

@@ -31,11 +31,13 @@
 //             round for all chains.  Each chain's sums run in the single-chain
 //             dot's order (the same FMA chain per row, warp_transpose_sum,
 //             the CTA's fixed-order sum into (C, nsplit, J*B + 1) partials).
-//             In the miss mode a second pass over the chains takes the
-//             words' missing-call indicator (miss_bits) in their place,
-//             into (C, nsplit, J*B) indicator partials: a second
-//             accumulator per (marker, chain) would not fit the
-//             registers beside the first.
+//             In the miss mode each group of chains then takes the words'
+//             missing-call indicator into (C, nsplit, J*B) indicator
+//             partials, paying only for the missing calls (miss_rows: a
+//             thread stages its chains' scaled eps in shared memory and
+//             adds, row by row, the eps of the fields whose call is
+//             missing, in field order), bit for bit the 16-FMA dense form
+//             that the single-chain dot (jacobi_t.cu) runs.
 //   solve_mc  one warp per (block, chain), grid (J, C): the single-chain
 //             solve_block / hs_solve_block on the chain's operands.  v and
 //             bacc partials per (chain, block), reduced by the wrapper in a
@@ -57,8 +59,9 @@
 //             CTA and decoded once for all chains.
 // The dense and int8 modes run jacobi_t_common.cuh's dense_dot_kernel (the
 // rows of a block in registers once, decoded for int8 codes, then each
-// chain's eps in turn) and row_apply_kernel, the single-chain kernel's code
-// with a chain count.
+// chain's eps in turn) and row_apply_kernel (a ring of the moved rows'
+// segments, or the direct path for small rounds), the single-chain
+// kernel's code with a chain count.
 //
 // So chain c of a fused sweep equals the single-chain sweep (jacobi_t.cu)
 // on chain c's operands bitwise: the same arithmetic in the same order,
@@ -88,15 +91,73 @@ namespace {
 
 constexpr int kMaxC = 16;   // chains per fused sweep
 
-// One pass of the fused dot over the C chains, CP at a time, on the words
-// wds (codes, or their missing-call indicator): each chain's row sums into
-// red[c][warp][lane] and, where red_e is not null, its sum(eps) into
-// red_e[c][warp].
+// The CP chains' e' of one field of a thread, staged together.
 template <int CP>
+struct alignas(4 * CP) EsVec {
+  float e[CP];
+};
+
+// The indicator of one word column's B rows for CP chains, only where a
+// call is missing: acc[p][i] = the sum over the fields k of row i whose
+// call is missing, in ascending k, of e'_p[k], from +0.  e'_p[k] =
+// (e_p[k]*4^-k')*4^k' is the product the dense form (dot_rows on
+// miss_bits) takes at that field, exactly, so each add rounds as its FMA
+// does; at every other field the dense form adds a zero product, which
+// leaves a sum that is never -0 unchanged.  So acc equals dot_rows on the
+// indicator bit for bit (for finite eps), at a few adds a row where the
+// dense form takes 16 FMAs.
+// Ascending bit position is ascending k: field k is bit 2k of miss_bits
+// (11-15 from w >> 22 in dot_rows).  es holds a field's CP values
+// together (one 16-byte load for CP = 4), at es[k*kDotThreads].
+template <int CP>
+__device__ __forceinline__ void miss_rows(const uint32_t (&wds)[kMaxB],
+                                          const EsVec<CP>* es,
+                                          float (&acc)[CP][kMaxB]) {
+  // each row's first missing call, branch-free, so that the loads of 8
+  // rows are issued together (8, not 32: the registers of the loaded
+  // values): a row without one loads field 0 and adds +0, which leaves
+  // acc (+0) as it is
+#pragma unroll
+  for (int i0 = 0; i0 < kMaxB; i0 += 8) {
+    asm volatile("" ::: "memory");
+#pragma unroll
+    for (int i = i0; i < i0 + 8; ++i) {
+      const uint32_t m = miss_bits(wds[i]);
+      const EsVec<CP> v =
+          es[(m != 0u ? (__ffs(m) - 1) >> 1 : 0) * kDotThreads];
+#pragma unroll
+      for (int p = 0; p < CP; ++p)
+        acc[p][i] = 0.f + (m != 0u ? v.e[p] : 0.f);
+    }
+  }
+  // the rest, in field order (most rows of a warp have none); the word
+  // is read afresh, so that the first pass's 32 masks are not kept
+#pragma unroll
+  for (int i = 0; i < kMaxB; ++i) {
+    uint32_t w = wds[i];
+    asm volatile("" : "+r"(w));
+    uint32_t m = miss_bits(w);
+    m &= m - 1u;
+    while (m != 0u) {
+      const EsVec<CP> v = es[((__ffs(m) - 1) >> 1) * kDotThreads];
+      m &= m - 1u;
+#pragma unroll
+      for (int p = 0; p < CP; ++p) acc[p][i] = acc[p][i] + v.e[p];
+    }
+  }
+}
+
+// One pass of the fused dot over the C chains, CP at a time, on the words
+// wds: each chain's code row sums into red[c][warp][lane] and its sum(eps)
+// into red_e[c][warp].  IND (the miss mode): each group of chains then
+// takes the words' missing-call indicator (miss_rows, on its e' staged in
+// es) into red_i[c][warp][lane], through the same warp_transpose_sum.
+template <int CP, bool IND>
 __device__ __forceinline__ void dot_mc_pass(
     uint32_t (&wds)[kMaxB], const float* __restrict__ eps, long long Npad,
     int C, int w, int Nw, int lane, int warp,
-    float (*red)[kDotThreads / 32][32], float (*red_e)[kDotThreads / 32]) {
+    float (*red)[kDotThreads / 32][32], float (*red_e)[kDotThreads / 32],
+    float (*red_i)[kDotThreads / 32][32], EsVec<CP>* es) {
 #pragma unroll 1
   for (int c0 = 0; c0 < C; c0 += CP) {
     // the decode is the same for every pass: keep the compiler from
@@ -124,21 +185,53 @@ __device__ __forceinline__ void dot_mc_pass(
         }
       }
       dot_rows<CP>(wds, e, acc);
+      if constexpr (IND) {
+#pragma unroll
+        for (int k = 0; k < 16; ++k) {
+          const float up =
+              __uint_as_float((127u + 2u * (k <= 10 ? k : k - 11)) << 23);
+          EsVec<CP> v;
+#pragma unroll
+          for (int p = 0; p < CP; ++p) v.e[p] = e[p][k] * up;
+          es[k * kDotThreads] = v;
+        }
+      }
     }
 #pragma unroll
     for (int p = 0; p < CP; ++p) {
       const float r = warp_transpose_sum(acc[p], lane);
-      const float es = warp_sum(esum[p]);
+      const float esw = warp_sum(esum[p]);
       if (c0 + p < C) {
         red[c0 + p][warp][lane] = r;
-        if (red_e != nullptr && lane == 0) red_e[c0 + p][warp] = es;
+        if (red_e != nullptr && lane == 0) red_e[c0 + p][warp] = esw;
+      }
+    }
+    if constexpr (IND) {
+      if (w < Nw) {
+        miss_rows<CP>(wds, es, acc);
+      } else {
+#pragma unroll
+        for (int p = 0; p < CP; ++p)
+#pragma unroll
+          for (int i = 0; i < kMaxB; ++i) acc[p][i] = 0.f;
+      }
+#pragma unroll
+      for (int p = 0; p < CP; ++p) {
+        const float r = warp_transpose_sum(acc[p], lane);
+        if (c0 + p < C) red_i[c0 + p][warp][lane] = r;
       }
     }
   }
 }
 
+// Dynamic shared memory of dot_mc_kernel: the miss mode's e' of CP chains
+// a thread (miss_rows).
+constexpr size_t dot_mc_smem(int CP, bool miss) {
+  return miss ? sizeof(float) * 16 * CP * kDotThreads : 0;
+}
+
 // CP chains per pass over the words: each code decoded once per pass.
-// MISS: the miss mode, a second pass on the indicator into `pind`.
+// MISS: the miss mode, whose indicator partials go to `pind`.
 template <int CP, bool MISS>
 __global__ void __launch_bounds__(kDotThreads)
 dot_mc_kernel(const uint32_t* __restrict__ words, int Nw,
@@ -156,6 +249,7 @@ dot_mc_kernel(const uint32_t* __restrict__ words, int Nw,
   __shared__ float red[kMaxC][kDotThreads / 32][32];
   __shared__ float red_e[kMaxC][kDotThreads / 32];
   __shared__ float red_i[MISS ? kMaxC : 1][kDotThreads / 32][32];
+  extern __shared__ float es_dyn[];   // MISS: e' staged, [k][thread][p]
 
   uint32_t wds[kMaxB];
   if (w < Nw) {
@@ -164,12 +258,9 @@ dot_mc_kernel(const uint32_t* __restrict__ words, int Nw,
 #pragma unroll
     for (int i = 0; i < kMaxB; ++i) wds[i] = 0u;
   }
-  dot_mc_pass<CP>(wds, eps, Npad, C, w, Nw, lane, warp, red, red_e);
-  if constexpr (MISS) {
-#pragma unroll
-    for (int i = 0; i < kMaxB; ++i) wds[i] = miss_bits(wds[i]);
-    dot_mc_pass<CP>(wds, eps, Npad, C, w, Nw, lane, warp, red_i, nullptr);
-  }
+  dot_mc_pass<CP, MISS>(wds, eps, Npad, C, w, Nw, lane, warp, red, red_e,
+                        red_i,
+                        reinterpret_cast<EsVec<CP>*>(es_dyn) + threadIdx.x);
   __syncthreads();
   // output (c, l): the single-chain dot's fixed-order CTA sums
   for (int o = threadIdx.x; o < C * 32; o += kDotThreads) {
@@ -217,8 +308,17 @@ cudaError_t launch_dot_mc(int C, int Nw, int x_int8, int nsplit, int J,
     return cudaGetLastError();
   }
 #define JT_DOT(CP, MISS)                                                  \
-  dot_mc_kernel<CP, MISS><<<grid, kDotThreads, 0, s>>>(                   \
-      words, Nw, eps, C, rho, round, nr, J, B, partial, pind, nsplit)
+  do {                                                                    \
+    constexpr size_t smem = dot_mc_smem(CP, MISS);                        \
+    if (MISS) {                                                           \
+      const cudaError_t attr = cudaFuncSetAttribute(                      \
+          dot_mc_kernel<CP, MISS>,                                        \
+          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);        \
+      if (attr != cudaSuccess) return attr;                               \
+    }                                                                     \
+    dot_mc_kernel<CP, MISS><<<grid, kDotThreads, smem, s>>>(              \
+        words, Nw, eps, C, rho, round, nr, J, B, partial, pind, nsplit);  \
+  } while (0)
   if (pind != nullptr) {
     if (C == 1) JT_DOT(1, true);
     else if (C == 2) JT_DOT(2, true);
@@ -539,6 +639,11 @@ cudaError_t launch_apply_mc(int C, int Nw, int x_int8, cudaStream_t s,
 }  // namespace
 
 extern "C" {
+
+// The smallest round (J*B entries) whose row apply takes the ring, and
+// not the direct path (jacobi_t_common.cuh:launch_row_apply; rows < 0:
+// unchanged); returns the previous value.  Both paths give the same bits.
+int jacobi_t_mc_row_apply_ring_rows(int rows) { return set_ring_rows(rows); }
 
 int jacobi_t_mc_max_chains() { return kMaxC; }
 

@@ -1275,6 +1275,11 @@ int serial_run(const SerialSweep& o, cudaStream_t s) {
 
 extern "C" {
 
+// The smallest round (J*B entries) whose row apply takes the ring, and
+// not the direct path (jacobi_t_common.cuh:launch_row_apply; rows < 0:
+// unchanged); returns the previous value.  Both paths give the same bits.
+int serial_row_apply_ring_rows(int rows) { return set_ring_rows(rows); }
+
 int serial_max_block() { return kSerialMaxB; }
 
 int serial_max_row_block() { return kRowMaxB; }

@@ -41,6 +41,7 @@ SIGNATURES = {
         "jacobi_t_max_round": ([], _INT),
         "jacobi_t_max_components": ([], _INT),
         "jacobi_t_error_string": ([_INT], ctypes.c_char_p),
+        "jacobi_t_row_apply_ring_rows": ([_INT], _INT),
         "jacobi_t_sweep": ([_VOID_P] + [_INT] * 8 + [_VOID_P] * 21 + [_INT]
                            + [_VOID_P] * 6, _INT),
         "jacobi_t_hs_sweep": ([_VOID_P] + [_INT] * 5 + [_VOID_P] * 17
@@ -51,6 +52,7 @@ SIGNATURES = {
     "jacobi_t_mc": {
         "jacobi_t_mc_max_chains": ([], _INT),
         "jacobi_t_mc_error_string": ([_INT], ctypes.c_char_p),
+        "jacobi_t_mc_row_apply_ring_rows": ([_INT], _INT),
         "jacobi_t_mc_sweep": ([_INT, _VOID_P] + [_INT] * 8 + [_VOID_P] * 21
                               + [_INT] + [_VOID_P] * 6, _INT),
         "jacobi_t_hs_mc_sweep": ([_INT, _VOID_P] + [_INT] * 5
@@ -72,6 +74,7 @@ SIGNATURES = {
         "serial_dense_dot_splits": ([_INT], _INT),
         "serial_int8_dot_splits": ([_INT], _INT),
         "serial_error_string": ([_INT], ctypes.c_char_p),
+        "serial_row_apply_ring_rows": ([_INT], _INT),
         "serial_sweep": ([_INT] * 12 + [_VOID_P] * 26, _INT),
         "serial_round_solve": ([_INT] * 4 + [_VOID_P] * 17, _INT),
     },
@@ -157,3 +160,14 @@ def libraries(*names: str) -> list:
 def library(name: str) -> Library:
     """The built and loaded ``csrc/<name>.cu`` (see ``libraries``)."""
     return libraries(name)[0]
+
+
+def row_apply_ring_rows(rows: int) -> int:
+    """Set, in every kernel library, the smallest round (J*B entries) whose
+    row apply (dense and int8 rows) takes the ring and not the direct path;
+    ``rows < 0`` leaves it.  Returns the previous value.  Both paths give
+    the same bits; the tests hold them against each other."""
+    old = None
+    for lib in libraries("jacobi_t", "jacobi_t_mc", "serial"):
+        old = getattr(lib.lib, f"{lib.name}_row_apply_ring_rows")(rows)
+    return old

@@ -16,9 +16,11 @@ codes at the headline, with no marker moving and with every marker moving
 Each bound is the larger of the bytes the kernel must move (each input read
 once, each output written once) over 3.35 TB/s and its FP32 operations over
 67 TFLOP/s (NVIDIA H100 SXM data sheet, 700 W).  ``apply_round`` is one
-apply launch of the strided 2-bit modes.  The script's rows are one
-whole sweep of M=503,808 markers at N=100,352 on one card, plan J=128,
-B=32, K=4, G=1, with the least that depends on the data: no marker moves.
+apply launch of the strided 2-bit modes, ``row_apply_round`` one of the
+dense and int8 row apply, ``dot_round`` one dot launch of any storage.
+The script's rows are one whole sweep of M=503,808 markers at N=100,352
+on one card, plan J=128, B=32, K=4, G=1, with the least that depends on
+the data: no marker moves.
 Prints one JSON line per pallas_call site.
 """
 import json
@@ -99,6 +101,25 @@ def apply_round(npad, rows, chains, miss=0):
     as chip_smoke.py:missing_fmas counts them)."""
     nbytes = rows * npad // 4 + chains * 8 * npad
     return bound(nbytes, 2.0 * chains * (rows * npad + miss))
+
+
+def dot_round(n, rows, chains, elem_bytes, extra_fmas=0):
+    """One dot launch: ``rows`` rows of ``n`` values (``elem_bytes`` bytes a
+    value: 4 dense f32, 1 an int8 code, 0.25 a 2-bit code) read once and
+    each chain's eps read once.  FP32 FMAs (2 flops each): one per value and
+    chain, and ``extra_fmas`` more (the ``miss`` mode's indicator: one per
+    missing call of the rows and chain)."""
+    nbytes = int(rows * n * elem_bytes) + chains * 4 * n
+    return bound(nbytes, 2.0 * (chains * rows * n + extra_fmas))
+
+
+def row_apply_round(n, rows, chains, elem_bytes):
+    """One row apply launch (row_apply_kernel): ``rows`` moved rows (in any
+    chain) of ``n`` values (``elem_bytes`` bytes a value: 4 dense f32, 1
+    an int8 code) read once, each chain's eps read and written once.  FP32
+    FMAs (2 flops each): one per value of every moved row and chain."""
+    nbytes = int(rows * n * elem_bytes) + chains * 8 * n
+    return bound(nbytes, 2.0 * chains * rows * n)
 
 
 def round_solve(markers, b, table_fields, step_flops):

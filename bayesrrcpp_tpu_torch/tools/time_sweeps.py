@@ -18,8 +18,15 @@ the same outputs: each case prints a hash of its outputs.
 - ``s1_*``: the serial sweeps (csrc/serial.cu, ``jacobi_blocks=1``: B=512,
   984 blocks, #9/#10), one chain; ``s8_*`` 8 fused chains (#11/#12);
 - ``row_*``: the row layout (``jacobi_layout="row"``: J=32, B=128, #16/#15);
-- ``t8miss_*``: the fused strided sweeps on words with missing calls at
-  2^-6 (their ``miss`` mode);
+- ``d1_*``, ``d8_*``, ``ds1_*``, ``drow_*``: the same sweeps on dense f32
+  rows at the dense cell's shape N=16,384 x M=49,152 (X built on the card
+  from a seed, as chip_smoke.py's ``dense_sampler``): strided one chain
+  (J=128, B=32) and 8 fused, serial (``jacobi_blocks=1``) and row;
+- ``i1_*``, ``i8_*``, ``irow_*``: int8 codes of the headline words (no
+  missing calls; 47 GiB on the card, no copy) through the strided sweeps,
+  one chain and 8 fused, and the row layout;
+- ``t1miss_*`` / ``t8miss_*``: the strided sweeps, one chain and 8 fused,
+  on words with missing calls at 2^-6 (their ``miss`` mode);
 - ``q_bayesr``: int8 codes of those words through the serial in-kernel
   decode (``_q``: the auto plan J=1, B=32), one chain.
 
@@ -31,7 +38,15 @@ and row sweeps, the share of steps that moved (beta changed) and the
 dependent windows of the serial kernel's solve for those moves
 (``ops/block_sweep.dependent_windows``, where the root has it: at most
 W=32 steps a window for BayesR, one step a window for the horseshoe; a
-root that keeps the bits moves the same steps).  ``--only P,Q`` runs only
+root that keeps the bits moves the same steps).  The dense cases also give
+``library_us``, one PyTorch call computing a round's apply on the same
+rows and d (``torch.addmv``, ``torch.addmm`` for 8 chains: eps - d.X over
+the round's rows gathered once, never called by the port), and the
+``miss`` cases ``miss_div``: the iterations a row a warp of the fused
+dot's indicator pass (the most set fields among the warp's 32 words of
+the row), mean and worst over the warps of 512 blocks, against the mean
+set fields, at the words' 2^-6 and at 2^-5 (~3 %, the tests').
+``--only P,Q`` runs only
 the cases whose keys start with P or Q.  Each root prints one JSON line,
 preceded by the card's nvidia-smi name and power limit; the script exits
 non-zero if any process fails.  Imports torch only.
@@ -43,6 +58,7 @@ import subprocess
 import sys
 
 N, M, CHAINS, REPS, W = 100_352, 503_808, 8, 3, 32
+DENSE_N, DENSE_M = 16_384, 49_152   # the dense cell, dense-16kx49k
 CVA = [0.0001, 0.001, 0.01]
 
 
@@ -83,6 +99,74 @@ def split(torch, fn):
     return {n: [t / max(c, 1), c] for n, (t, c) in us.items()}
 
 
+def call_us(torch, fn, reps=20):
+    """Device us of one call of ``fn``, over ``reps`` calls after a warm
+    one, by CUDA events."""
+    fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) * 1e3 / reps
+
+
+def apply_yardstick(torch, X, rows, d, eps):
+    """us of one PyTorch call computing a round's apply, eps - d.X[rows]
+    (``torch.addmv``; ``torch.addmm`` for a chain axis), on the round's f32
+    rows gathered once beforehand."""
+    R = X[rows].contiguous()
+    if d.dim() == 1:
+        return call_us(torch, lambda: torch.addmv(eps, R.t(), d, alpha=-1))
+    return call_us(torch, lambda: torch.addmm(eps, d, R, alpha=-1))
+
+
+def popcount16(torch, m):
+    """Set fields of each word's miss bits (bit 2k for field k)."""
+    m = m.to(torch.int64) & 0xFFFFFFFF
+    n = torch.zeros_like(m)
+    for k in range(16):
+        n += (m >> (2 * k)) & 1
+    return n
+
+
+def miss_divergence(torch, words, B, nblocks=512):
+    """The fused miss dot's indicator pass on the first ``nblocks`` blocks
+    of B rows of ``words``: per (warp of 32 words, row) the iterations of
+    the slowest lane (its set fields), per warp their mean over the rows;
+    returns the mean and the worst warp's, and the mean set fields of a
+    (word, row) (what a warp would take with no divergence)."""
+    it, ideal = [], []
+    for b0 in range(0, nblocks, 64):
+        w = words[b0 * B:(b0 + 64) * B]
+        w = w[:, :w.shape[1] // 32 * 32]
+        cnt = popcount16(torch, w & (w >> 1) & 0x55555555)
+        cnt = cnt.view(-1, B, w.shape[1] // 32, 32)     # block, row, warp, lane
+        it.append(cnt.amax(-1).float().mean(1).flatten())
+        ideal.append(cnt.float().mean())
+    it = torch.cat(it)
+    return {"iter_row_mean": float(it.mean()), "iter_row_worst":
+            float(it.max()), "set_fields_mean": float(torch.stack(
+                ideal).mean())}
+
+
+def dense_words(torch, g, N, M):
+    """Dense X (M, N) f32 on the card from generator ``g``, as chip_smoke.py's
+    ``dense_sampler``: per marker p ~ U(0.1, 0.9), dosages Binomial(2, p),
+    each row standardized (ddof 1); and Y ~ N(0, 1)."""
+    X = torch.empty((M, N), device="cuda")
+    for a in range(0, M, 4096):
+        b = min(a + 4096, M)
+        p = 0.1 + 0.8 * torch.rand((b - a, 1), generator=g, device="cuda")
+        x = ((torch.rand((b - a, N), generator=g, device="cuda") < p).float()
+             + (torch.rand((b - a, N), generator=g, device="cuda") < p))
+        x -= x.mean(dim=1, keepdim=True)
+        x /= x.std(dim=1, keepdim=True).clamp_min(1e-12)
+        X[a:b] = x
+    return X, torch.randn(N, generator=g, device="cuda")
+
+
 def digest(out):
     h = hashlib.sha256()
     for t in out:
@@ -103,11 +187,14 @@ def wanted(*keys):
     return not ONLY or any(k.startswith(ONLY) for k in keys)
 
 
-def run_case(torch, out, key, fn, serial=None):
+def run_case(torch, out, key, fn, serial=None, extra=None):
+    """Time case ``key``; ``extra(res)`` adds entries from its outputs."""
     if not wanted(key):
         return
     times, res = sweep_times(torch, fn, REPS)
     rec = {"ms": times, "split": split(torch, fn), "hash": digest(res)}
+    if extra is not None:
+        rec.update(extra(res))
     if serial is not None:
         beta_in, border, inner, B = serial
         beta_out = res[1]
@@ -156,11 +243,21 @@ def run_one(root):
     Y = torch.randn(N, generator=g, device="cuda")
     kw = dict(transposed=True, x_dtype="2bit", x_stats=stats, device="cuda")
 
-    def make(kind, X, **plan):
+    def make(kind, X, y=Y, skw=kw, **plan):
         if kind == "bayesr":
-            return bt.SpikeSlabSampler(X, Y, CVA, bt.BayesRConfig(), **kw,
+            return bt.SpikeSlabSampler(X, y, CVA, bt.BayesRConfig(), **skw,
                                        **plan)
-        return bt.HorseshoeSampler(X, Y, bt.HorseshoeConfig(), **kw, **plan)
+        return bt.HorseshoeSampler(X, y, bt.HorseshoeConfig(), **skw,
+                                   **plan)
+
+    def yard(s, rows, beta_in):
+        """``extra`` of a dense case: the apply's library call on the rows
+        of its first round, d from the case's own beta."""
+        if s.x_packed or s.x_int8:
+            return None
+        return lambda res: {"library_us": apply_yardstick(
+            torch, s.data.XT, rows, (res[1] - beta_in)[..., rows],
+            res[0].clone())}
 
     def strided(kind, s, chains, tag):
         d = s.data
@@ -183,8 +280,12 @@ def run_one(root):
             args = (d.XT, d.gram, d.xsq, st.eps, st.beta, rho, inner, z,
                     st.lam, st.tau, st.c2, st.sigmaE, d.valid)
         skw = dict(s._sweep_kw(), J=s.jacobi)
+        nr = s.nb // s.jacobi
+        rows = (((torch.arange(s.jacobi, device="cuda") * nr + rho[0]) *
+                 s.B)[:, None] + torch.arange(s.B, device="cuda")).flatten()
         run_case(torch, out, f"{tag}_{kind}",
-                 lambda: tuple(fn(*args, **skw)))
+                 lambda: tuple(fn(*args, **skw)),
+                 extra=yard(s, rows, st.beta))
 
     def serial(kind, s, chains, tag, fns, J=None):
         d = s.data
@@ -204,10 +305,37 @@ def run_one(root):
             args = (d.XT, d.gram, d.xsq, st.eps, st.beta, border, inner, z,
                     st.lam, st.tau, st.c2, st.sigmaE, d.valid)
         skw = s._sweep_kw() if J is None else dict(s._sweep_kw(), J=J)
+        rows = ((border[:J or 1].long() * s.B)[:, None] +
+                torch.arange(s.B, device="cuda")).flatten()
         run_case(torch, out, f"{tag}_{kind}",
                  lambda: tuple(fn(*args, **skw)),
-                 serial=(st.beta, border, inner, s.B))
+                 serial=(st.beta, border, inner, s.B),
+                 extra=yard(s, rows, st.beta))
 
+    def plans(kind, X, pre, **mk):
+        """The strided cases of X (one chain, 8 fused), its serial one
+        (dense only) and its row one, keys prefixed ``pre``."""
+        if wanted(f"{pre}1_{kind}", f"{pre}8_{kind}"):
+            s = make(kind, X, **mk)
+            assert (s.jacobi, s.B) == (128, 32), (s.jacobi, s.B)
+            strided(kind, s, None, f"{pre}1")
+            strided(kind, s, CHAINS, f"{pre}8")
+            del s
+        if pre == "d" and wanted(f"ds1_{kind}"):
+            s = make(kind, X, jacobi_blocks=1, **mk)
+            assert s.jacobi == 1
+            serial(kind, s, None, f"{pre}s1", {
+                "bayesr": ser.bayesr_sweep, "horseshoe": ser.horseshoe_sweep})
+            del s
+        if wanted(f"{pre}row_{kind}"):
+            s = make(kind, X, jacobi_layout="row", **mk)
+            assert (s.jacobi, s.B) == (32, 128), (s.jacobi, s.B)
+            serial(kind, s, None, f"{pre}row",
+                   {"bayesr": jr.bayesr_jacobi,
+                    "horseshoe": jr.horseshoe_jacobi}, J=s.jacobi)
+            del s
+
+    # the 2-bit words
     for kind in ("bayesr", "horseshoe"):
         if wanted(f"t1_{kind}", f"t8_{kind}"):
             s = make(kind, words)
@@ -231,19 +359,57 @@ def run_one(root):
                                           "horseshoe": jr.horseshoe_jacobi},
                    J=s.jacobi)
             del s
-    del words
+
+    # dense f32 rows at the dense cell's shape
+    dkeys = [f"{p}_{k}" for p in ("d1", "d8", "ds1", "drow")
+             for k in ("bayesr", "horseshoe")]
+    if wanted(*dkeys):
+        X, Yd = dense_words(torch, torch.Generator(
+            device="cuda").manual_seed(4), DENSE_N, DENSE_M)
+        for kind in ("bayesr", "horseshoe"):
+            plans(kind, X, "d", y=Yd, skw=dict(transposed=True,
+                                                device="cuda"))
+        del X
+        torch.cuda.empty_cache()
+
+    # int8 codes of the same words, without missing calls
+    ikeys = [f"{p}_{k}" for p in ("i1", "i8", "irow")
+             for k in ("bayesr", "horseshoe")]
+    if wanted(*ikeys):
+        codes = torch.empty((M, N), dtype=torch.int8, device="cuda")
+        for a in range(0, M, 2048):
+            codes[a:a + 2048] = decode_codes(words[a:a + 2048])[:, :N]
+        del words
+        torch.cuda.empty_cache()
+        ikw = dict(kw, x_dtype="int8")
+        for kind in ("bayesr", "horseshoe"):
+            plans(kind, codes, "i", skw=ikw)
+        del codes
+    else:
+        del words
     torch.cuda.empty_cache()
-    if not wanted("t8miss_bayesr", "t8miss_horseshoe", "q_bayesr"):
+    if not wanted("t1miss_bayesr", "t1miss_horseshoe", "t8miss_bayesr",
+                  "t8miss_horseshoe", "q_bayesr"):
         print(json.dumps(out), flush=True)
         return
 
     g = torch.Generator(device="cuda").manual_seed(3)
     words = bt.simulate.random_packed_words_missing(g, M, N // 16,
                                                     device="cuda")
+    if wanted("t8miss"):
+        g5 = torch.Generator(device="cuda").manual_seed(5)
+        words5 = bt.simulate.random_packed_words_missing(
+            g5, 512 * 32, N // 16, levels=5, device="cuda")
+        out["miss_div"] = {"2^-6": miss_divergence(torch, words, 32),
+                           "2^-5": miss_divergence(torch, words5, 32)}
+        del words5
+        print(json.dumps({"miss_div": out["miss_div"]}), file=sys.stderr,
+              flush=True)
     for kind in ("bayesr", "horseshoe"):
-        if wanted(f"t8miss_{kind}"):
+        if wanted(f"t1miss_{kind}", f"t8miss_{kind}"):
             s = make(kind, words)
             assert (s.jacobi, s.B, s.data.has_missing) == (128, 32, True)
+            strided(kind, s, None, "t1miss")
             strided(kind, s, CHAINS, "t8miss")
             del s
     if not wanted("q_bayesr"):
@@ -254,8 +420,7 @@ def run_one(root):
         codes[a:a + 2048] = decode_codes(words[a:a + 2048])[:, :N]
     del words
     torch.cuda.empty_cache()
-    kw["x_dtype"] = "int8"
-    s = make("bayesr", codes)
+    s = make("bayesr", codes, skw=dict(kw, x_dtype="int8"))
     assert (s.jacobi, s.B, s.data.has_missing) == (1, 32, True)
     serial("bayesr", s, None, "q", {"bayesr": ser.bayesr_sweep})
     print(json.dumps(out), flush=True)

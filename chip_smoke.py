@@ -222,8 +222,13 @@ the apply's device us a round against ``tools/kernel_bounds.apply_round``
 phases 10b, 11b and 24e profile one more serial sweep and log the share
 of steps that moved, the windowed solve's dependent windows
 (``ops/block_sweep.dependent_windows`` at the kernel's W) and its us a
-window.  Each such line ends with the card's nvidia-smi name and power
-limit.
+window.  Phases 14 (the fused ``miss`` cells), 18, 19, 22 (the dense
+and int8 row plans) and 24c-24d log each profiled dot and apply launch
+beside its bound (``tools/kernel_bounds.dot_round``, ``apply_round``,
+``row_apply_round`` over the window's moved rows and, in the miss mode,
+missing calls), the dense phases also one ``torch.addmv`` (``addmm`` for
+8 chains) computing the apply on a launch's rows, its PyTorch yardstick.
+Each such line ends with the card's nvidia-smi name and power limit.
 
 Phases 17-24 run after phase 12, on phase 2's words for 17b, 21b, 23 and
 24.
@@ -527,6 +532,67 @@ def apply_report(torch, tag, s, fn, args, kw, moved_any, miss=None):
         + (f" and {nmiss:.1f} missing calls" if miss is not None else "")
         + f" a round: {us / bound_us:.2f}x the bound; {CARD}")
     return us
+
+
+class Steps:
+    """``steps`` steps of sampler ``s`` from ``st`` (one chain, or fused
+    chains: ``st.eps`` (C, N)), a window for ``profile_split``; each step's
+    state is kept, so that the markers moved in the last window (beta
+    changed, in any chain) are counted after it, outside the window."""
+
+    def __init__(self, s, st, v, steps=2):
+        self.s, self.st, self.v, self.steps = s, st, v, steps
+        self.states = []
+
+    def __call__(self):
+        st = self.st
+        self.states = [st]
+        for _ in range(self.steps):
+            st = (self.s.step(st, self.v) if st.eps.dim() == 1
+                  else self.s.step_chains(st, self.v))
+            self.states.append(st)
+
+    def moved(self):
+        """Markers moved a step, in any chain (mean over the window)."""
+        n = 0
+        for a, b in zip(self.states, self.states[1:]):
+            m = a.beta != b.beta
+            n += int((m.any(dim=0) if m.dim() == 2 else m).sum())
+        return n / self.steps
+
+
+def round_report(torch, tag, split, dot, apply, dot_b, apply_b, x=None,
+                 chains=None):
+    """Log the dot's and the apply's device us a launch in ``split`` (a
+    round, or a serial block) beside their bounds ``dot_b`` and ``apply_b``
+    (``tools/kernel_bounds`` dicts of one launch); with ``x``, one launch's
+    dense f32 rows (rows, N), also one ``torch.addmv`` (``torch.addmm`` for
+    ``chains`` chains) computing the apply on them, eps - d.x: the apply's
+    PyTorch yardstick, never called by the port.  Returns the yardstick's
+    us (None without ``x``)."""
+    lib = None
+    if x is not None:
+        g = torch.Generator(device="cuda").manual_seed(7)
+        if chains is None:
+            d = torch.randn(x.shape[0], generator=g, device="cuda")
+            e = torch.zeros(x.shape[1], device="cuda")
+            fn = lambda: torch.addmv(e, x.t(), d, alpha=-1)  # noqa: E731
+        else:
+            d = torch.randn((chains, x.shape[0]), generator=g, device="cuda")
+            e = torch.zeros((chains, x.shape[1]), device="cuda")
+            fn = lambda: torch.addmm(e, d, x, alpha=-1)  # noqa: E731
+        fn()
+        lib = timed(torch, fn, 10)[1] * 1e3
+    dus, aus = split[dot][0], split[apply][0]
+    dbu, abu = dot_b["bound_ms"] * 1e3, apply_b["bound_ms"] * 1e3
+    log(f"{tag} a launch: {dot} {dus:.2f} us, bound {dbu:.2f} us "
+        f"({dot_b['bound_by']}, {dus / dbu:.2f}x); {apply} {aus:.2f} us, "
+        f"bound {abu:.2f} us ({apply_b['bound_by']}, {aus / abu:.2f}x)"
+        + ("" if lib is None else
+           f"; torch.{'addmv' if chains is None else 'addmm'} of the "
+           f"launch's {x.shape[0]} rows {lib:.2f} us")
+        + f"; {CARD}")
+    return lib
 
 
 def window_report(torch, tag, s, fn, args, kw, K):
@@ -1662,6 +1728,7 @@ def missing_phases(torch, bt, tmp):
     from bayesrrcpp_tpu_torch.io.sink import ChainFanoutSink, CSVSink
     from bayesrrcpp_tpu_torch.ops import jacobi_t as jt
     from bayesrrcpp_tpu_torch.ops import serial as ser
+    from bayesrrcpp_tpu_torch.tools import kernel_bounds
 
     dev = torch.device("cuda")
     bnames = ("eps", "beta", "labels", "v", "beta_acum")
@@ -1881,12 +1948,7 @@ def missing_phases(torch, bt, tmp):
         check(rel < 1e-4, f"[14] {cell}-8chain tracked eps {rel}")
         check(launches == want, f"[14] {cell}-8chain launches {launches}")
         records[kind + "_mc"]["launches"] = launches
-        vc = bt.TorchVariates(g, chains=CHAINS)
-
-        def two_steps(st=st):
-            for _ in range(2):
-                st = ss.step_chains(st, vc)
-
+        two_steps = Steps(ss, st, bt.TorchVariates(g, chains=CHAINS))
         names = ("dot_mc_kernel", "hs_solve_mc_kernel" if kind == "horseshoe"
                  else "solve_mc_kernel", "apply_mc_kernel")
         split, dev_ms, wall_ms = profile_split(torch, two_steps, names,
@@ -1895,7 +1957,15 @@ def missing_phases(torch, bt, tmp):
         log(f"[14] {cell}-8chain profile of 2 fused steps: " + ", ".join(
             f"{n} {us:.2f} us x {c}" for n, (us, c) in split.items())
             + f"; device {dev_ms:.2f} ms of {wall_ms:.2f} ms wall")
-        del st, out
+        # the dot's indicator pass adds one FMA per missing call and chain
+        rows, per_row = two_steps.moved() / nr, float(miss.sum()) / ss.M
+        round_report(
+            torch, f"[14] {cell}-8chain", split, "dot_mc_kernel",
+            "apply_mc_kernel", kernel_bounds.dot_round(
+                ss.Npad, ss.jacobi * ss.B, CHAINS, 0.25,
+                CHAINS * per_row * ss.jacobi * ss.B),
+            kernel_bounds.apply_round(ss.Npad, rows, CHAINS, rows * per_row))
+        del st, out, two_steps
 
     # ---- 15. kernel C: the serial in-kernel decode
     serial = {"bayesr": (ser.bayesr_sweep, ser.bayesr_sweep_reference,
@@ -2191,6 +2261,7 @@ def dense_phases(torch, bt, hs, tmp):
     from bayesrrcpp_tpu_torch.ops import multichain as mcs
     from bayesrrcpp_tpu_torch.ops import serial as ser
     from bayesrrcpp_tpu_torch.ops.genotypes import decode_rows
+    from bayesrrcpp_tpu_torch.tools import kernel_bounds
 
     dev = torch.device("cuda")
     bnames = ("eps", "beta", "labels", "v", "beta_acum")
@@ -2431,13 +2502,7 @@ def dense_phases(torch, bt, hs, tmp):
             check(launches == want, f"[18] {cell} launches {launches}")
             records[kind + ("" if chains is None else "_mc")][
                 "launches"] = launches
-            vp = bt.TorchVariates(gm, chains=chains)
-
-            def two_steps(st=st, vp=vp, chains=chains):
-                for _ in range(2):
-                    st = (ss.step(st, vp) if chains is None
-                          else ss.step_chains(st, vp))
-
+            two_steps = Steps(ss, st, bt.TorchVariates(gm, chains=chains))
             pnames = ("dense_dot_kernel",
                       ("hs_solve" if hsk else "solve")
                       + ("_kernel" if chains is None else "_mc_kernel"),
@@ -2454,7 +2519,16 @@ def dense_phases(torch, bt, hs, tmp):
                             for n, (us, c) in split.items())
                 + f"; device {dev_ms:.2f} ms of {wall_ms:.2f} ms wall, "
                 f"{dev_ms / 2:.3f} ms per step")
-            del st, out
+            c = chains or 1
+            x = ss.data.XT[round_rows(torch, ss, torch.zeros(
+                (), dtype=torch.long, device=dev))]
+            round_report(
+                torch, f"[18] {cell}", split, "dense_dot_kernel",
+                "row_apply_kernel", kernel_bounds.dot_round(
+                    ss.N, x.shape[0], c, 4),
+                kernel_bounds.row_apply_round(ss.N, two_steps.moved() / nr,
+                                              c, 4), x, chains)
+            del st, out, two_steps, x
     del samplers
 
     # ---- 19. the serial dense kernels at the cell (jacobi_blocks=1, B=512)
@@ -2572,9 +2646,9 @@ def dense_phases(torch, bt, hs, tmp):
                 "launches"] = launches
             msg = ""
             if chains is None:
-                vp = bt.TorchVariates(gm)
+                one_step = Steps(ss, st, bt.TorchVariates(gm), 1)
                 split, dev_ms, wall_ms = profile_split(
-                    torch, lambda: ss._run_steps(st, vp, 1),
+                    torch, one_step,
                     ("serial_dense_dot_kernel", "serial_solve_kernel",
                      "row_apply_kernel"), want=ss.nb)
                 check(profiled(split, ss.nb), f"[19] profiled {split}")
@@ -2586,6 +2660,17 @@ def dense_phases(torch, bt, hs, tmp):
                 f" s for {chain.max_iterations} iterations incl. CSV), peak "
                 f"{peak:.2f} GiB, launches {launches} (want {want}), "
                 f"tracked-vs-exact eps {rel:.3g}" + msg)
+            if chains is None:
+                # a block's rows (33.5 MB) fit the 50 MB L2: the addmv
+                # yardstick reads them from it after its first call
+                x = ss.data.XT[:ss.B]
+                round_report(
+                    torch, f"[19] {cell}", split, "serial_dense_dot_kernel",
+                    "row_apply_kernel", kernel_bounds.dot_round(
+                        ss.N, ss.B, 1, 4),
+                    kernel_bounds.row_apply_round(
+                        ss.N, one_step.moved() / ss.nb, 1, 4), x)
+                del one_step, x
             del st, out
         del ss
     del s, h
@@ -2753,6 +2838,7 @@ def row_main_paths(torch, bt, s, tag, cell, tmp, counters, gen_seed,
     recomputed eps < 1e-4, and a profile of 2 steps of each.  Returns the
     one-chain run's (launches, solve launches, ms/iter)."""
     from bayesrrcpp_tpu_torch.io.sink import ChainFanoutSink, CSVSink
+    from bayesrrcpp_tpu_torch.tools import kernel_bounds
 
     single, solve, fused = counters
     kind = "bayesr" if isinstance(s, bt.SpikeSlabSampler) else "horseshoe"
@@ -2803,13 +2889,7 @@ def row_main_paths(torch, bt, s, tag, cell, tmp, counters, gen_seed,
         check(launches == want and solves == want_solve and others == 0,
               f"{tag} {name} launches {launches} (want {want}), round "
               f"solves {solves} (want {want_solve}), other sweep {others}")
-        vp = bt.TorchVariates(g, chains=chains)
-
-        def two_steps(st=st, vp=vp, chains=chains):
-            for _ in range(2):
-                st = (s.step(st, vp) if chains is None
-                      else s.step_chains(st, vp))
-
+        two_steps = Steps(s, st, bt.TorchVariates(g, chains=chains))
         split, dev_ms, wall_ms = profile_split(
             torch, two_steps, (dot, "serial_solve_kernel", apply), want=per)
         check(profiled(split, per), f"{tag} {name} profiled {split}")
@@ -2821,9 +2901,20 @@ def row_main_paths(torch, bt, s, tag, cell, tmp, counters, gen_seed,
             f"steps: " + ", ".join(f"{n} {us:.2f} us x {c}"
                                    for n, (us, c) in split.items())
             + f"; device {dev_ms:.2f} ms of {wall_ms:.2f} ms wall")
+        if dense:
+            # a launch: a round of J blocks (one chain), a block (fused)
+            c, nblk = chains or 1, s.jacobi if chains is None else 1
+            eb = 1 if s.x_int8 else 4
+            x = None if s.x_int8 else s.data.XT[:nblk * s.B]
+            round_report(
+                torch, f"{tag} {name}", split, dot, apply,
+                kernel_bounds.dot_round(s.N, nblk * s.B, c, eb),
+                kernel_bounds.row_apply_round(
+                    s.N, two_steps.moved() * nblk / s.nb, c, eb), x, chains)
+            del x
         if chains is None:
             out_rec = (launches, solves, ms_iter)
-        del st, out
+        del st, out, two_steps
     return out_rec
 
 
@@ -3928,21 +4019,26 @@ def int8_main_path(torch, bt, s, tag, cell, tmp, counter, chain, chains=None,
 
 def int8_profile(torch, bt, s, st, tag, names, per, steps=2):
     """A profile of ``steps`` steps from ``st``: device time per launch of
-    ``names``, device and wall ms, idle."""
+    ``names``, device and wall ms, idle; with the strided plan's launches
+    (a round), the dot and the apply a round beside their bounds
+    (``round_report``)."""
+    from bayesrrcpp_tpu_torch.tools import kernel_bounds
+
     g = torch.Generator(device="cuda").manual_seed(248)
-    v = bt.TorchVariates(g, chains=None if st.eps.dim() == 1
-                         else st.eps.shape[0])
-
-    def run(st=st):
-        for _ in range(steps):
-            st = s.step(st, v) if st.eps.dim() == 1 else s.step_chains(st, v)
-
+    chains = None if st.eps.dim() == 1 else st.eps.shape[0]
+    run = Steps(s, st, bt.TorchVariates(g, chains=chains), steps)
     split, dev_ms, wall_ms = profile_split(torch, run, names, want=per)
     check(profiled(split, per), f"{tag} profiled launches {split}")
     log(f"{tag} profile of {steps} steps: " + ", ".join(
         f"{n} {us:.2f} us x {c}" for n, (us, c) in split.items())
         + f"; device {dev_ms:.2f} ms of {wall_ms:.2f} ms wall, idle "
         f"{1 - dev_ms / wall_ms:.3f}")
+    if s.jacobi > 1 and s.jacobi_layout == "t":
+        nr, c = s.nb // s.jacobi, chains or 1
+        round_report(
+            torch, tag, split, names[0], names[2],
+            kernel_bounds.dot_round(s.N, s.jacobi * s.B, c, 1),
+            kernel_bounds.row_apply_round(s.N, run.moved() / nr, c, 1))
 
 
 def int8_serial_headline(torch, bt, s, kind, fns, tag, blocks, fused, q):
@@ -4181,10 +4277,10 @@ def int8_phases(torch, bt, hs, tmp):
         st, n, ms_iter, _ = int8_main_path(
             torch, bt, sm, "[24d]", cell, tmp, counter,
             bt.ChainConfig(5, 2, 2), CHAINS)
-        if kind == "bayesr":
-            int8_profile(torch, bt, sm, st, f"[24d] {cell}",
-                         ("dense_dot_kernel", "solve_mc_kernel",
-                          "row_apply_kernel"), 2 * nr)
+        int8_profile(torch, bt, sm, st, f"[24d] {cell}",
+                     ("dense_dot_kernel", "solve_mc_kernel" if kind ==
+                      "bayesr" else "hs_solve_mc_kernel",
+                      "row_apply_kernel"), 2 * nr)
         del st
         rec[kind + "_mc"] = dict(launches=n, ms_iter=ms_iter,
                                  **int8_strided_headline(

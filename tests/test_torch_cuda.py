@@ -549,6 +549,62 @@ def test_miss_mc_kernels_match_plain_and_single_chains(cuda, C, J, B, N):
         assert torch.equal(e1, eps_k[c]) and torch.equal(b1, beta_k[c]), c
 
 
+def _or_bits(words, bits):
+    """words | bits as int32 (the bit pattern of the uint32 words)."""
+    w = (words.to(torch.int64) & 0xFFFFFFFF) | bits
+    return torch.where(w >= 2 ** 31, w - 2 ** 32, w).to(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 2.0 ** -6, 0.03, 1.0])
+def test_miss_mc_dot_at_missing_rates(cuda, rate):
+    """The fused miss sweeps (C=8; the dot's indicator pass adds only the
+    missing calls' eps) on words with no, 2^-6, 3 % and only missing calls:
+    each chain bitwise equal to the single-chain miss kernel (whose
+    indicator takes all 16 FMAs a word) in every output; against the plain
+    versions as the other miss tests where calls are not all missing (at
+    100 % r is a rounding residue, so labels are not compared there)."""
+    C, J, B, N = 8, 8, 32, 3000
+    args, kw = _mc_case(int(rate * 1000) + 3, J, B, 1, 4, 4, N, C, cuda)
+    args = (_or_bits(args[0], _miss_bits(args[0], rate, N, 7)),) + args[1:]
+    kw = dict(kw, fold_affine=False, missing=True)
+    ker = bayesr_jacobi_t_mc(*args, **kw)
+    if rate < 1:
+        ref = bayesr_jacobi_t_mc_reference(*args, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(ker.labels, ref.labels)
+        torch.testing.assert_close(ker.eps, ref.eps, rtol=1e-4, atol=1e-5)
+    assert torch.isfinite(ker.eps).all() and torch.isfinite(ker.beta).all()
+    for c in range(C):
+        one = bayesr_jacobi_t(*_chain(args, c, (3, 4, 5, 8, 9, 10, 12, 13)),
+                              **kw)
+        for name, a, b in zip(one._fields, one, ker):
+            assert torch.equal(a, b[c]), (c, name)
+    M = args[2].shape[0]
+    hs = (args[:5] + args[6:8] + (
+        args[9], torch.rand((C, M), device=cuda) * 1.9 + 0.1,
+        torch.rand(C, device=cuda) * 0.09 + 0.01,
+        torch.rand(C, device=cuda) + 1.0, args[12], args[15]))
+    eps_k, beta_k = horseshoe_jacobi_t_mc(*hs, **kw)
+    for c in range(C):
+        e1, b1 = horseshoe_jacobi_t(*_chain(hs, c, (3, 4, 7, 8, 9, 10, 11)),
+                                    **kw)
+        assert torch.equal(e1, eps_k[c]) and torch.equal(b1, beta_k[c]), c
+
+
+def _miss_bits(words, rate, N, seed):
+    """The bits that turn each call of the first N individuals of ``words``
+    (M, Nw) into a missing call (code 3) at ``rate``, as int64."""
+    g = torch.Generator(device=words.device).manual_seed(seed)
+    M, Nw = words.shape
+    lane = torch.arange(16 * Nw, device=words.device).view(Nw, 16)
+    hit = torch.rand((M, Nw, 16), generator=g, device=words.device) < rate
+    hit &= (lane < N)[None]
+    shift = 3 << (2 * torch.arange(16, device=words.device,
+                                   dtype=torch.int64))
+    return (hit.to(torch.int64) * shift).sum(-1)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,G,K,nb,N,chunk", [(64, 2, 4, 8, 1500, 3),
                                               (512, 1, 4, 4, 4096, None),
@@ -1009,3 +1065,82 @@ def test_int8_decode_kernels_match_plain(cuda, hs, N):
         with pytest.raises(NotImplementedError, match="single-chain"):
             multichain.bayesr_sweep_mc(
                 *_int8_args(c, hs, "serial", c["order"], None, 64), **kw)
+
+
+# ------------------------------- the row apply: ring against direct path
+
+
+def _ring_and_direct(fn, *args, **kw):
+    """``fn``'s outputs with every row apply on its ring and on its direct
+    path (by default rounds of 1,024 entries and more take the ring)."""
+    from bayesrrcpp_tpu_torch.ops import _cuda
+
+    old = _cuda.row_apply_ring_rows(0)
+    try:
+        ring = fn(*args, **kw)
+        _cuda.row_apply_ring_rows(1 << 30)
+        direct = fn(*args, **kw)
+    finally:
+        _cuda.row_apply_ring_rows(old)
+    torch.cuda.synchronize()
+    return ring, direct
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 3, 8, 16])
+@pytest.mark.parametrize("storage,N", [("dense", 4100), ("int8", 4112),
+                                       ("int8", 4001)])
+@pytest.mark.parametrize("hs", [False, True])
+def test_row_apply_ring_matches_direct_and_plain(cuda, hs, storage, N, C):
+    """The strided sweeps' dense and int8 row apply (J=8, B=32: 256 entries
+    a round) on its ring against its direct path, bitwise in every output,
+    at an N that does not fill the last CTA's columns (64 f32 or 256 codes)
+    and at an int8 N with N % 4 != 0 (both runs take the direct path, one
+    column a thread); C chains fused (C=1: the single-chain sweep), each
+    fused chain bitwise the single-chain sweep; the horseshoe moves every
+    row.  Against the plain versions as the other dense and int8 tests."""
+    from bayesrrcpp_tpu_torch.ops import jacobi_t as jt
+
+    J, nb, B = 8, 16, 32
+    seed = N + C + 7 * hs
+    if storage == "dense":
+        c, skw = _dense_case(seed, nb, B, N, C, 2, cuda), {}
+    else:
+        c, skw = _int8_case(seed, nb, B, N, C, 2, cuda)
+    rho = torch.randperm(nb // J, device=cuda).to(torch.int32)
+    kw = dict(skw, J=J)
+    single, plain, fused, fused_plain = _int8_fns("t", hs)
+    names = ("eps", "beta") + (() if hs else ("labels", "v", "beta_acum"))
+    ch = 0 if C == 1 else None
+    args = _int8_args(c, hs, "t", rho, ch, B)
+    fn, ref = (single, plain) if C == 1 else (fused, fused_plain)
+    ring, direct = _ring_and_direct(fn, *args, **kw)
+    for name, a, b in zip(names, ring, direct):
+        assert torch.equal(a, b), name
+    _assert_int8_close(names, ring, ref(*args, **kw))
+    if C > 1:
+        for k in (0, C - 1):
+            one = single(*_int8_args(c, hs, "t", rho, k, B), **kw)
+            for a, b in zip(one, ring):
+                assert torch.equal(a, b[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["serial", "row"])
+def test_row_apply_ring_with_no_moves(cuda, kind):
+    """The int8 fold apply of rounds in which no row moves (every marker
+    invalid: eps comes back unchanged, bitwise) on its ring against its
+    direct path, bitwise: the serial sweep (B=64) and the row sweep (J=4,
+    B=64).  The in-kernel decode always takes the direct path
+    (test_int8_decode_kernels_match_plain)."""
+    single, _, _, _ = _int8_fns(kind, False)
+    kw_j = {} if kind == "serial" else dict(J=4)
+    names = ("eps", "beta", "labels", "v", "beta_acum")
+    c, kw = _int8_case(22, 8, 64, 4096, 1, 2, cuda)
+    c["valid"] = torch.zeros_like(c["valid"])
+    kw = dict(kw, **kw_j)
+    args = _int8_args(c, False, kind, c["order"], 0, 64)
+    ring, direct = _ring_and_direct(single, *args, **kw)
+    for name, a, b in zip(names, ring, direct):
+        assert torch.equal(a, b), name
+    assert torch.equal(ring.eps, c["eps"][0])
