@@ -48,15 +48,17 @@
 //          horseshoe's hs_solve_kernel has the same layout, with a
 //          conjugate normal draw per step and no labels.
 //   apply  eps -= sum_m d_m * x_m over the round's rows with d != 0 (most
-//          BayesR markers stay in the spike, d == 0 exactly): each CTA
-//          compacts the round's nonzero d*scale in index order into shared
-//          memory, then four threads share a word, each owning 4 of its 16
-//          eps lanes, and stream the nonzero rows branch-free (miss
-//          mode: each row also adds d*scale*(m - 3) on its missing
-//          calls, the indicator term of pallas_jacobi_t.py:_make_dots'
-//          dot_a).  In the
-//          horseshoe every valid marker moves, so the apply streams all
-//          J*B rows, as many bytes as the dot, at a few warps per SM.
+//          BayesR markers stay in the spike, d == 0 exactly): a CTA takes
+//          48 words of every row (one CTA an SM at the headline); all its
+//          threads compact the round's nonzero d*scale into one list in
+//          index order, then a producer warp streams the listed rows'
+//          segments into a ring of stages in shared memory (cp.async,
+//          an mbarrier a stage) while consumer threads, four a word, add
+//          them up (miss mode: each row also adds d*scale*(m - 3) on its
+//          missing calls, the indicator term of pallas_jacobi_t.py:
+//          _make_dots' dot_a).  In the horseshoe every valid marker
+//          moves, so the apply streams all J*B rows, as many bytes as the
+//          dot.
 //
 // What bounds it on an H100: the dot reads all words once per sweep (12.6
 // GB at N=100,352 x M=503,808) and decodes every code, so it is bound by
@@ -191,95 +193,238 @@ __global__ void __launch_bounds__(32) hs_solve_kernel(HsSolveArgs a) {
   hs_solve_block(a, blockIdx.x);
 }
 
-// MISS: the miss mode, whose rows also add their indicator term.
+// ---- the apply of the 2-bit modes (apply_kernel), one chain.  A CTA
+// covers kPkWords words of every row (131 CTAs at Nw = 6,272: one an SM),
+// kPkParts consumer threads a word, each owning kPkLanes of its eps
+// lanes.  First every thread loads its share of the round's d*scale (and,
+// in the miss mode, each row's mean), marks the moved entries (d != 0) in
+// a bitmask and, after one prefix sum over the mask's words, writes its
+// moved entries' rows and values to their places in one compacted list,
+// in index order: the compaction is spread over every thread, not run
+// whole by each.  Then kPkIssuers issuer warps stream the listed rows'
+// segments, kPkRows rows a stage, into a ring of kPkStages stages in
+// shared memory (stage s by warp s mod kPkIssuers, a bulk copy a row, one
+// full / empty mbarrier pair a stage), while the consumers add the staged
+// rows in list order: ~48 KB in flight an SM where each lane loading its
+// own rows kept ~3 KB.  The consumers are bound by their integer
+// instructions (NVIDIA H100 80GB HBM3, 700 W, PERF.md §6): a code is one
+// LOP3 (code_exact, its exponent bits held in a register) and one FADD,
+// then the FFMA.
+constexpr int kPkWords = 48;                         // words of a row a CTA
+constexpr int kPkLanes = 4;                          // eps lanes a thread
+constexpr int kPkParts = 16 / kPkLanes;              // threads a word
+constexpr int kPkConsumers = kPkParts * kPkWords;
+constexpr int kPkWarps = kPkConsumers / 32;          // consumer warps
+constexpr int kPkIssuers = 4;                        // warps issuing copies
+constexpr int kPkThreads = kPkConsumers + 32 * kPkIssuers;
+constexpr int kPkRows = 32;                          // rows a stage
+constexpr int kPkStages = 8;                         // stages of the ring
+constexpr int kPkPer =                               // pre-pass entries a
+    (kMaxRound + kPkThreads - 1) / kPkThreads;       // thread
+static_assert(kPkConsumers % 32 == 0, "whole consumer warps");
+static_assert(kPkLanes <= kMagicAt, "a lane's exponent bits in kDecodeBits");
+
+// Dynamic shared memory of the apply: the ring, then the compacted list
+// (rows, d*scale and, in the miss mode, d*scale*(mean - 3)) and the
+// round's J dms.
+inline size_t apply_smem_bytes(bool miss, int J, int B) {
+  return sizeof(uint32_t) * kPkStages * kPkRows * kPkWords +
+         (sizeof(int) + sizeof(float) * (miss ? 2 : 1)) * J * B +
+         sizeof(float) * J;
+}
+
+// Per eps lane n with row_valid[n]: acc from +0 over the round's moved
+// rows in index order, fmaf(d*s, c, acc) for the lane's code c (miss mode:
+// then d*s*(m - 3) added where the call is missing, which is
+// fmaf(d*s*(m - 3), 1, acc): where it is not, the indicator's
+// fmaf(., 0, acc) leaves acc, never -0, as it is, for finite d), and
+// eps <- eps - (acc - dms_tot), dms_tot = 0 + dms[0] + ... + dms[J-1]:
+// the bits of the apply that looped over the compacted rows itself.  The
+// bulk copies take Nw % 4 == 0 and 16-byte aligned words (the port's
+// words: Nw is a multiple of 128).
 template <bool MISS>
-__global__ void __launch_bounds__(kApplyThreads)
+__global__ void __launch_bounds__(kPkThreads)
 apply_kernel(const uint32_t* __restrict__ words, int Nw,
              float* __restrict__ eps, const unsigned char* __restrict__ row_valid,
              const int* __restrict__ rho, int round, int nr, int J, int B,
              const float* __restrict__ dsc, const float* __restrict__ dms,
              const float* __restrict__ mean) {
-  // the round's nonzero d*scale, compacted in index order: rows, values
-  // and, in the miss mode, each row's mean - 3
-  extern __shared__ float smem[];
-  float* vals = smem;
-  int* rows = reinterpret_cast<int*>(smem + J * B);
-  float* mrow = smem + 2 * J * B;
-  __shared__ int warp_cnt[kApplyWarps + 1];
-  __shared__ float dms_tot;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  extern __shared__ __align__(128) uint32_t pdyn[];
   const int JB = J * B;
+  uint32_t* ring = pdyn;
+  int* lrow = reinterpret_cast<int*>(ring + kPkStages * kPkRows * kPkWords);
+  float* ld = reinterpret_cast<float*>(lrow + JB);   // d*scale
+  float* ldm = ld + JB;                              // miss: d*s*(m - 3)
+  float* dmsv = ld + (MISS ? 2 : 1) * JB;
+  __shared__ uint64_t full[kPkStages], empty[kPkStages], dms_bar;
+  __shared__ uint32_t moved[kMaxRound / 32];
+  __shared__ int prefix[kMaxRound / 32];
+  __shared__ int nnz_s;
+  __shared__ float dms_tot;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int slab = rho[round];
-  // warp `warp` owns entries [lo, lo + 32*kPerLane); lane holds every 32nd
-  const int lo = warp * 32 * kPerLane;
-  float dv[kPerLane];
-  int cnt = 0;
-#pragma unroll
-  for (int it = 0; it < kPerLane; ++it) {
-    const int e = lo + it * 32 + lane;
-    dv[it] = e < JB ? dsc[e] : 0.f;
-  }
-#pragma unroll
-  for (int it = 0; it < kPerLane; ++it)
-    cnt += __popc(__ballot_sync(kFull, dv[it] != 0.f));
-  if (lane == 0) warp_cnt[warp] = cnt;
-  if (threadIdx.x == 0) {
-    float t = 0.f;
-    for (int q = 0; q < J; ++q) t += dms[q];
-    dms_tot = t;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int run = 0;
-    for (int q = 0; q < kApplyWarps; ++q) {
-      const int c = warp_cnt[q];
-      warp_cnt[q] = run;
-      run += c;
-    }
-    warp_cnt[kApplyWarps] = run;
-  }
-  __syncthreads();
-  int pos = warp_cnt[warp];
-#pragma unroll
-  for (int it = 0; it < kPerLane; ++it) {
-    const unsigned mask = __ballot_sync(kFull, dv[it] != 0.f);
-    if (dv[it] != 0.f) {
-      const int e = lo + it * 32 + lane;
-      const int at = pos + __popc(mask & ((1u << lane) - 1u));
-      vals[at] = dv[it];
-      rows[at] = ((e / B) * nr + slab) * B + e % B;
-      if constexpr (MISS) mrow[at] = __ldg(mean + rows[at]) - 3.f;
-    }
-    pos += __popc(mask);
-  }
-  __syncthreads();
-  const int nnz = warp_cnt[kApplyWarps];
+  const int w0 = blockIdx.x * kPkWords;
+  const int nw = min(kPkWords, Nw - w0);
+  const auto row_of = [&](int e) { return ((e / B) * nr + slab) * B + e % B; };
 
-  const int w = blockIdx.x * (kApplyThreads / 4) + (threadIdx.x >> 2);
-  const int sub = threadIdx.x & 3;   // eps lanes 16w + 4*sub .. +3
-  if (w >= Nw) return;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  const uint32_t* wp = words + w;
-#pragma unroll 16
-  for (int t = 0; t < nnz; ++t) {
-    const uint32_t wd = __ldg(wp + (long long)rows[t] * Nw) >> (8 * sub);
-    const float dv = vals[t];
+  // a consumer's word, lanes and their eps, read before anything waits
+  const int wi = tid / kPkParts, sub = tid % kPkParts;
+  const bool live = warp < kPkWarps && wi < nw;
+  const long long n0 = 16LL * (w0 + wi) + kPkLanes * sub;
+  float ev[kPkLanes];
+  bool rv[kPkLanes];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) acc[k] = fmaf(dv, code_f(wd, k), acc[k]);
-    if constexpr (MISS) apply_missing<4>(dv * mrow[t], wd, acc);
+  for (int k = 0; k < kPkLanes; ++k) {
+    rv[k] = live && row_valid[n0 + k];
+    ev[k] = rv[k] ? eps[n0 + k] : 0.f;
   }
-  const long long n0 = 16LL * w + 4 * sub;
+
+  // ---- the moved entries, by every thread: entry e = k*kPkThreads + tid
+  float dv[kPkPer], mv[MISS ? kPkPer : 1];
+#pragma unroll
+  for (int k = 0; k < kPkPer; ++k) {
+    const int e = k * kPkThreads + tid;
+    dv[k] = e < JB ? __ldg(dsc + e) : 0.f;
+    if constexpr (MISS) mv[k] = e < JB ? __ldg(mean + row_of(e)) : 0.f;
+  }
+  for (int q = tid; q < J; q += kPkThreads) dmsv[q] = __ldg(dms + q);
+  if (tid == 0) {
+    for (int q = 0; q < kPkStages; ++q) {
+      mbar_init(&full[q], 1);
+      mbar_init(&empty[q], kPkWarps);
+    }
+    mbar_init(&dms_bar, 1);
+    mbar_fence_init();
+  }
+  // mask word k*(kPkThreads/32) + warp holds entries k*kPkThreads + 32*warp
+  // and up, a bit a lane
+#pragma unroll
+  for (int k = 0; k < kPkPer; ++k) {
+    const unsigned b = __ballot_sync(kFull, dv[k] != 0.f);
+    if (lane == 0 && k * kPkThreads + 32 * warp < JB)
+      moved[k * (kPkThreads / 32) + warp] = b;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    // the mask words' exclusive prefix counts, 4 words a lane
+    const int nmw = (JB + 31) / 32;
+    int c[4], tot = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int m = 4 * lane + i;
+      c[i] = m < nmw ? __popc(moved[m]) : 0;
+      tot += c[i];
+    }
+    int incl = tot;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int v = __shfl_up_sync(kFull, incl, off);
+      if (lane >= off) incl += v;
+    }
+    int run = incl - tot;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int m = 4 * lane + i;
+      if (m < nmw) prefix[m] = run;
+      run += c[i];
+    }
+    if (lane == 31) nnz_s = incl;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < kPkPer; ++k) {
+    if (dv[k] != 0.f) {
+      const int m = k * (kPkThreads / 32) + warp;
+      const int at = prefix[m] + __popc(moved[m] & ((1u << lane) - 1u));
+      lrow[at] = row_of(k * kPkThreads + tid);
+      ld[at] = dv[k];
+      if constexpr (MISS) ldm[at] = dv[k] * (mv[k] - 3.f);
+    }
+  }
+  __syncthreads();
+  const int nnz = nnz_s;
+  const int nst = (nnz + kPkRows - 1) / kPkRows;
+
+  if (warp >= kPkWarps) {
+    // ---- an issuer: stage st (list rows st*kPkRows ..) when st % kPkIssuers
+    // is its number; the last issuer also sums the round's dms_tot once
+    // its first stage is in flight
+    const int me = warp - kPkWarps;
+    bool summed = me != kPkIssuers - 1;
+    const auto sum_dms = [&]() {
+      if (lane == 0) {
+        float t = 0.f;
+        for (int q = 0; q < J; ++q) t += dmsv[q];
+        dms_tot = t;
+        mbar_arrive(&dms_bar);
+      }
+      summed = true;
+    };
+    const uint32_t bytes = 4u * nw;
+    for (int st = me; st < nst; st += kPkIssuers) {
+      const int slot = st % kPkStages;
+      if (st >= kPkStages)
+        mbar_wait(&empty[slot], (st / kPkStages - 1) & 1);
+      const int nrow = min(kPkRows, nnz - st * kPkRows);
+      uint32_t* dst = ring + slot * kPkRows * kPkWords;
+      const int* rw = lrow + st * kPkRows;
+      // a lane a row: one bulk copy of its nw words
+      if (lane == 0) mbar_arrive_expect(&full[slot], bytes * nrow);
+      __syncwarp();
+      if (lane < nrow)
+        bulk_load(dst + lane * kPkWords, words + (long long)rw[lane] * Nw + w0,
+                  bytes, &full[slot]);
+      if (!summed) sum_dms();
+    }
+    if (!summed) sum_dms();
+    return;
+  }
+
+  // ---- the consumers: thread (wi, sub) adds its 4 lanes of each row
+  float acc[kPkLanes];
+  uint32_t ex[kPkLanes];
+#pragma unroll
+  for (int k = 0; k < kPkLanes; ++k) {
+    acc[k] = 0.f;
+    ex[k] = kDecodeBits[k];
+  }
+  for (int st = 0; st < nst; ++st) {
+    const int slot = st % kPkStages;
+    mbar_wait(&full[slot], (st / kPkStages) & 1);
+    const uint32_t* sw = ring + slot * kPkRows * kPkWords + wi;
+    const float* dl = ld + st * kPkRows;
+    const float* ml = ldm + st * kPkRows;
+    const int nrow = min(kPkRows, nnz - st * kPkRows);
+    const auto row = [&](int q) {
+      const uint32_t wd = sw[q * kPkWords] >> (2 * kPkLanes * sub);
+      const float d = dl[q];
+#pragma unroll
+      for (int k = 0; k < kPkLanes; ++k)
+        acc[k] = fmaf(d, code_exact(wd, k, ex[k]), acc[k]);
+      if constexpr (MISS) {
+        const float dm = ml[q];
+        const uint32_t mi = miss_bits(wd);
+#pragma unroll
+        for (int k = 0; k < kPkLanes; ++k)
+          if (mi & (1u << (2 * k))) acc[k] = acc[k] + dm;
+      }
+    };
+    if (nrow == kPkRows) {
+#pragma unroll 8
+      for (int q = 0; q < kPkRows; ++q) row(q);
+    } else {
+#pragma unroll 4
+      for (int q = 0; q < nrow; ++q) row(q);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[slot]);
+  }
+  if (!live) return;
+  mbar_wait(&dms_bar, 0);
   const float dt = dms_tot;
 #pragma unroll
-  for (int k = 0; k < 4; ++k)
-    if (row_valid[n0 + k]) eps[n0 + k] = eps[n0 + k] - (acc[k] - dt);
-}
-
-// Dynamic shared memory of the apply: the compacted values and rows, and
-// in the miss mode each row's mean - 3.
-inline size_t apply_smem_bytes(bool miss, int JB) {
-  return (sizeof(float) + sizeof(int) + (miss ? sizeof(float) : 0)) * JB;
+  for (int k = 0; k < kPkLanes; ++k)
+    if (rv[k]) eps[n0 + k] = ev[k] - (acc[k] - dt);
 }
 
 // The row-major modes' rounds: dense_dot_kernel, the solve launched by
@@ -325,13 +470,16 @@ cudaError_t sweep_rounds(const uint32_t* wd, int Nw, int x_int8, int nr,
   if (x_int8)
     return row_rounds(reinterpret_cast<const int8_t*>(wd), Nw, nr, n_rounds,
                       J, B, rh, eps, partial, nsplit, dsc, dms, s, solve);
+  // the copy engine's 16-byte rule (Nw is a multiple of 128 in the port)
+  if (Nw % 4 != 0 || reinterpret_cast<uintptr_t>(wd) % 16 != 0)
+    return cudaErrorInvalidValue;
   const dim3 dot_grid(nsplit, J);
-  const int apply_ctas = (Nw + kApplyThreads / 4 - 1) / (kApplyThreads / 4);
   const bool miss = pind != nullptr;
-  const size_t smem = apply_smem_bytes(miss, J * B);
+  const auto apply = miss ? apply_kernel<true> : apply_kernel<false>;
+  const int apply_ctas = (Nw + kPkWords - 1) / kPkWords;
+  const size_t smem = apply_smem_bytes(miss, J, B);
   cudaError_t err = cudaFuncSetAttribute(
-      miss ? apply_kernel<true> : apply_kernel<false>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      apply, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   for (int r = 0; r < n_rounds; ++r) {
     if (miss)
@@ -342,12 +490,8 @@ cudaError_t sweep_rounds(const uint32_t* wd, int Nw, int x_int8, int nr,
           wd, Nw, eps, rh, r, nr, J, B, partial, pind);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     if ((err = solve(r)) != cudaSuccess) return err;
-    if (miss)
-      apply_kernel<true><<<apply_ctas, kApplyThreads, smem, s>>>(
-          wd, Nw, eps, row_valid, rh, r, nr, J, B, dsc, dms, mean);
-    else
-      apply_kernel<false><<<apply_ctas, kApplyThreads, smem, s>>>(
-          wd, Nw, eps, row_valid, rh, r, nr, J, B, dsc, dms, mean);
+    apply<<<apply_ctas, kPkThreads, smem, s>>>(
+        wd, Nw, eps, row_valid, rh, r, nr, J, B, dsc, dms, mean);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   return cudaSuccess;

@@ -22,10 +22,9 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxB = 32;           // markers per block: one lane each
 constexpr int kMaxK = 8;            // mixture components
 constexpr int kDotThreads = 128;    // words per dot CTA
-constexpr int kApplyThreads = 128;  // 4 threads per word: 32 words per CTA
+constexpr int kApplyThreads = 128;  // threads of a direct row or serial apply
 constexpr int kApplyWarps = kApplyThreads / 32;
 constexpr int kMaxRound = 4096;     // J*B markers per round
-constexpr int kPerLane = kMaxRound / kApplyThreads;
 constexpr float kMagic = 8388608.0f;        // 2^23
 constexpr uint32_t kMagicBits = 0x4B000000u;
 
@@ -54,9 +53,36 @@ __device__ __forceinline__ void apply_missing(float dm, uint32_t wd,
   for (int k = 0; k < L; ++k) acc[k] = fmaf(dm, code_f(wi, k), acc[k]);
 }
 
-// c * 4^k for the field k <= 10 of w, exactly (3 * 4^10 < 2^23).
-__device__ __forceinline__ float code_scaled(uint32_t w, int k) {
-  return __uint_as_float(kMagicBits | (w & (3u << (2 * k)))) - kMagic;
+// c * 4^k for the field k <= 10 of w, exactly (3 * 4^10 < 2^23); magic
+// is kMagicBits (read from kDecodeBits: one LOP3, not two).
+__device__ __forceinline__ float code_scaled(uint32_t w, int k,
+                                             uint32_t magic = kMagicBits) {
+  return __uint_as_float(magic | (w & (3u << (2 * k)))) - kMagic;
+}
+
+// The exponent bits of 2^(23 - 2k): code_exact's ex for field k.
+__host__ __device__ constexpr uint32_t exact_bits(int k) {
+  return (150u - 2u * k) << 23;
+}
+
+// The decodes' constant bits, read from constant memory by the fused fold
+// dot and the 2-bit apply: the compiler folds a constant it knows into an
+// immediate, and a LOP3 takes one 32-bit immediate, so (w & mask) | bits
+// with both known takes two LOP3s, with bits read from here one (PERF.md
+// §6).  kDecodeBits[k] = exact_bits(k) for the fields k < 4 of a
+// byte, kDecodeBits[kMagicAt] = kMagicBits.
+constexpr int kMagicAt = 4;
+__constant__ uint32_t kDecodeBits[kMagicAt + 1] = {
+    exact_bits(0), exact_bits(1), exact_bits(2), exact_bits(3), kMagicBits};
+
+// Exact float of the field k <= 10 of w in one LOP3 and one FADD, as
+// code_f in three: the field stays in place under the exponent of
+// 2^(23 - 2k) (ex, kDecodeBits[k]), where its lowest bit is worth 1, so
+// the float read is 2^(23 - 2k) + c and the FADD takes 2^(23 - 2k) off
+// exactly.
+__device__ __forceinline__ float code_exact(uint32_t w, int k, uint32_t ex) {
+  return __uint_as_float(ex | (w & (3u << (2 * k)))) -
+         __uint_as_float(exact_bits(k));
 }
 
 // ---- rings in shared memory, filled by the copy engine (cp.async.bulk,
@@ -115,6 +141,27 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       "r"(smem_addr(bar)) : "memory");
 }
 
+// ---- a thread's own asynchronous copies from global to shared memory
+// (cp.async, LDGSTS: no registers held while they fly), completing in
+// commit groups.
+
+// 4 bytes, or 4 zero bytes where !valid (src is then not read).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(
+                   smem_addr(dst)), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Wait until at most N of this thread's commit groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int lg = 4; lg >= 0; --lg) v += __shfl_xor_sync(kFull, v, 1 << lg);
@@ -171,31 +218,42 @@ __device__ __forceinline__ void load_words(const uint32_t* wp, int Nw, int B,
     wds[i] = i < B ? __ldg(wp + (long long)i * Nw) : 0u;
 }
 
-// acc[p][i] = code row i of the word . e[p] for CP eps vectors (each
-// pre-scaled by load_eps16): each code is decoded once and multiplied by
-// every e[p], each p in the same FMA order.
+// s[p] = the codes of word wd . e[p] for CP eps vectors (each pre-scaled
+// by load_eps16): its 16 fields in order, each decoded once (code_scaled,
+// magic as there) and multiplied by every e[p], s[p] from +0 by fmaf.  The
+// dot of every 2-bit mode sums a word's codes so.
+template <int CP>
+__device__ __forceinline__ void dot_word(uint32_t wd,
+                                         const float (&e)[CP][16],
+                                         float (&s)[CP],
+                                         uint32_t magic = kMagicBits) {
+  const uint32_t hi = wd >> 22;
+#pragma unroll
+  for (int p = 0; p < CP; ++p) s[p] = 0.f;
+#pragma unroll
+  for (int k = 0; k <= 10; ++k) {
+    const float cf = code_scaled(wd, k, magic);
+#pragma unroll
+    for (int p = 0; p < CP; ++p) s[p] = fmaf(cf, e[p][k], s[p]);
+  }
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    const float cf = code_scaled(hi, k, magic);
+#pragma unroll
+    for (int p = 0; p < CP; ++p) s[p] = fmaf(cf, e[p][11 + k], s[p]);
+  }
+}
+
+// acc[p][i] = code row i of the word . e[p] (dot_word on each of the B
+// words of a column).
 template <int CP>
 __device__ __forceinline__ void dot_rows(const uint32_t (&wds)[kMaxB],
                                          const float (&e)[CP][16],
                                          float (&acc)[CP][kMaxB]) {
 #pragma unroll
   for (int i = 0; i < kMaxB; ++i) {
-    const uint32_t wd = wds[i], hi = wd >> 22;
     float s[CP];
-#pragma unroll
-    for (int p = 0; p < CP; ++p) s[p] = 0.f;
-#pragma unroll
-    for (int k = 0; k <= 10; ++k) {
-      const float cf = code_scaled(wd, k);
-#pragma unroll
-      for (int p = 0; p < CP; ++p) s[p] = fmaf(cf, e[p][k], s[p]);
-    }
-#pragma unroll
-    for (int k = 0; k < 5; ++k) {
-      const float cf = code_scaled(hi, k);
-#pragma unroll
-      for (int p = 0; p < CP; ++p) s[p] = fmaf(cf, e[p][11 + k], s[p]);
-    }
+    dot_word<CP>(wds[i], e, s);
 #pragma unroll
     for (int p = 0; p < CP; ++p) acc[p][i] = s[p];
   }

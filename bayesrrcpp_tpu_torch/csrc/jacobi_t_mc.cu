@@ -24,12 +24,17 @@
 // One fused sweep is nr rounds of three launches, whatever C is:
 //
 //   dot_mc    r[c, m] = x_m . eps_c for the round's J*B markers and all C
-//             chains.  A thread loads its word column of the block (B words)
-//             into registers once, then takes the chains CP at a time: each
-//             code is decoded once per group of CP chains and multiplied by
-//             each one's eps.  The words are read from device memory once per
-//             round for all chains.  Each chain's sums run in the single-chain
-//             dot's order (the same FMA chain per row, warp_transpose_sum,
+//             chains.  The fold mode (fold_dot_mc_kernel): a CTA takes one
+//             split of 128 words through several blocks of the round, holds
+//             8 chains' eps (CP = 1, 2, 4 below 5 chains) in registers and
+//             decodes each code once for them; the next block's words
+//             stream into shared memory (cp.async) while each row's sums
+//             are staged and added up.  The miss mode (dot_mc_kernel): a
+//             thread loads its word column of the block (B words) into
+//             registers once, then takes the chains CP at a time.  The
+//             words are read from device memory once per round for all
+//             chains.  Each chain's sums run in the single-chain dot's
+//             order (the same FMA chain per row, warp_transpose_sum's tree,
 //             the CTA's fixed-order sum into (C, nsplit, J*B + 1) partials).
 //             In the miss mode each group of chains then takes the words'
 //             missing-call indicator into (C, nsplit, J*B) indicator
@@ -147,12 +152,12 @@ __device__ __forceinline__ void miss_rows(const uint32_t (&wds)[kMaxB],
   }
 }
 
-// One pass of the fused dot over the C chains, CP at a time, on the words
+// The miss mode's fused dot over the C chains, CP at a time, on the words
 // wds: each chain's code row sums into red[c][warp][lane] and its sum(eps)
-// into red_e[c][warp].  IND (the miss mode): each group of chains then
-// takes the words' missing-call indicator (miss_rows, on its e' staged in
-// es) into red_i[c][warp][lane], through the same warp_transpose_sum.
-template <int CP, bool IND>
+// into red_e[c][warp]; then each group of chains takes the words'
+// missing-call indicator (miss_rows, on its e' staged in es) into
+// red_i[c][warp][lane], through the same warp_transpose_sum.
+template <int CP>
 __device__ __forceinline__ void dot_mc_pass(
     uint32_t (&wds)[kMaxB], const float* __restrict__ eps, long long Npad,
     int C, int w, int Nw, int lane, int warp,
@@ -185,16 +190,14 @@ __device__ __forceinline__ void dot_mc_pass(
         }
       }
       dot_rows<CP>(wds, e, acc);
-      if constexpr (IND) {
 #pragma unroll
-        for (int k = 0; k < 16; ++k) {
-          const float up =
-              __uint_as_float((127u + 2u * (k <= 10 ? k : k - 11)) << 23);
-          EsVec<CP> v;
+      for (int k = 0; k < 16; ++k) {
+        const float up =
+            __uint_as_float((127u + 2u * (k <= 10 ? k : k - 11)) << 23);
+        EsVec<CP> v;
 #pragma unroll
-          for (int p = 0; p < CP; ++p) v.e[p] = e[p][k] * up;
-          es[k * kDotThreads] = v;
-        }
+        for (int p = 0; p < CP; ++p) v.e[p] = e[p][k] * up;
+        es[k * kDotThreads] = v;
       }
     }
 #pragma unroll
@@ -203,36 +206,34 @@ __device__ __forceinline__ void dot_mc_pass(
       const float esw = warp_sum(esum[p]);
       if (c0 + p < C) {
         red[c0 + p][warp][lane] = r;
-        if (red_e != nullptr && lane == 0) red_e[c0 + p][warp] = esw;
+        if (lane == 0) red_e[c0 + p][warp] = esw;
       }
     }
-    if constexpr (IND) {
-      if (w < Nw) {
-        miss_rows<CP>(wds, es, acc);
-      } else {
+    if (w < Nw) {
+      miss_rows<CP>(wds, es, acc);
+    } else {
 #pragma unroll
-        for (int p = 0; p < CP; ++p)
+      for (int p = 0; p < CP; ++p)
 #pragma unroll
-          for (int i = 0; i < kMaxB; ++i) acc[p][i] = 0.f;
-      }
+        for (int i = 0; i < kMaxB; ++i) acc[p][i] = 0.f;
+    }
 #pragma unroll
-      for (int p = 0; p < CP; ++p) {
-        const float r = warp_transpose_sum(acc[p], lane);
-        if (c0 + p < C) red_i[c0 + p][warp][lane] = r;
-      }
+    for (int p = 0; p < CP; ++p) {
+      const float r = warp_transpose_sum(acc[p], lane);
+      if (c0 + p < C) red_i[c0 + p][warp][lane] = r;
     }
   }
 }
 
-// Dynamic shared memory of dot_mc_kernel: the miss mode's e' of CP chains
-// a thread (miss_rows).
-constexpr size_t dot_mc_smem(int CP, bool miss) {
-  return miss ? sizeof(float) * 16 * CP * kDotThreads : 0;
+// Dynamic shared memory of dot_mc_kernel: the e' of CP chains a thread
+// (miss_rows).
+constexpr size_t dot_mc_smem(int CP) {
+  return sizeof(float) * 16 * CP * kDotThreads;
 }
 
-// CP chains per pass over the words: each code decoded once per pass.
-// MISS: the miss mode, whose indicator partials go to `pind`.
-template <int CP, bool MISS>
+// The miss mode's fused dot, CP chains per pass over the words: each code
+// decoded once per pass; the indicator partials go to `pind`.
+template <int CP>
 __global__ void __launch_bounds__(kDotThreads)
 dot_mc_kernel(const uint32_t* __restrict__ words, int Nw,
               const float* __restrict__ eps, int C,
@@ -248,8 +249,8 @@ dot_mc_kernel(const uint32_t* __restrict__ words, int Nw,
   const long long Npad = 16LL * Nw;
   __shared__ float red[kMaxC][kDotThreads / 32][32];
   __shared__ float red_e[kMaxC][kDotThreads / 32];
-  __shared__ float red_i[MISS ? kMaxC : 1][kDotThreads / 32][32];
-  extern __shared__ float es_dyn[];   // MISS: e' staged, [k][thread][p]
+  __shared__ float red_i[kMaxC][kDotThreads / 32][32];
+  extern __shared__ float es_dyn[];   // e' staged, [k][thread][p]
 
   uint32_t wds[kMaxB];
   if (w < Nw) {
@@ -258,9 +259,8 @@ dot_mc_kernel(const uint32_t* __restrict__ words, int Nw,
 #pragma unroll
     for (int i = 0; i < kMaxB; ++i) wds[i] = 0u;
   }
-  dot_mc_pass<CP, MISS>(wds, eps, Npad, C, w, Nw, lane, warp, red, red_e,
-                        red_i,
-                        reinterpret_cast<EsVec<CP>*>(es_dyn) + threadIdx.x);
+  dot_mc_pass<CP>(wds, eps, Npad, C, w, Nw, lane, warp, red, red_e, red_i,
+                  reinterpret_cast<EsVec<CP>*>(es_dyn) + threadIdx.x);
   __syncthreads();
   // output (c, l): the single-chain dot's fixed-order CTA sums
   for (int o = threadIdx.x; o < C * 32; o += kDotThreads) {
@@ -276,15 +276,200 @@ dot_mc_kernel(const uint32_t* __restrict__ words, int Nw,
       for (int q = 0; q < kDotThreads / 32; ++q) te += red_e[c][q];
       out[J * B] = te;
     }
-    if constexpr (MISS) {
-      float ti = 0.f;
+    float ti = 0.f;
 #pragma unroll
-      for (int q = 0; q < kDotThreads / 32; ++q) ti += red_i[c][q][l];
-      if (l < B)
-        pind[((long long)c * nsplit + blockIdx.x) * (JB1 - 1) + j * B + l] =
-            ti;
-    }
+    for (int q = 0; q < kDotThreads / 32; ++q) ti += red_i[c][q][l];
+    if (l < B)
+      pind[((long long)c * nsplit + blockIdx.x) * (JB1 - 1) + j * B + l] = ti;
   }
+}
+
+// ---- the fold mode's fused dot (fold_dot_mc_kernel).  A CTA takes one
+// split of kDotThreads words (a thread a word, as dot_mc_kernel) and walks
+// several blocks j of the round: blockIdx.y, + gridDim.y, ..., so each
+// chain's eps is read once a CTA and not once a block.  A thread holds the
+// eps of CP chains (CP = 8 for C > 4, two passes over the blocks at C > 8)
+// and decodes each code once for all of them.  The next block's words come
+// into shared memory by cp.async (a thread its own column, so no barrier)
+// while the current block is summed.  Each row's CP sums are staged in
+// shared memory, a warp's 32 words of a (chain, row) side by side, and lane
+// l of the warp then adds pair l's 32 values in warp_transpose_sum's tree
+// (lanes a and a + 16 first, then + 8, + 4, + 2, + 1): the transpose's
+// 31 shuffles, 62 selects and 31 adds a chain become 32 stores, 8 loads
+// and 31 adds.  A chain's sum of a (row, word) is dot_word's 16 fmaf in
+// field order, from +0; then the same tree over the warp's words and the
+// same sum over warps 0..3, from 0, into the same partials: the bits of
+// dot_mc_kernel and of the single-chain dot_kernel<false>.  The decode's
+// magic comes from kDecodeBits (one LOP3 a field, not two).  At C=8 the
+// FFMAs run at ~40 % of the FP32 pipe's rate; eps read once a CTA, the
+// prefetch and the magic were worth 37, 6 and 15 us of a ~250 us round
+// (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6).
+constexpr int kFoldSlots = 2;   // word buffers: the block summed, the next
+constexpr int kFoldPad = 36;    // floats a staged (chain, row): 32 and a pad
+constexpr int kFoldCtas8 = 3;   // CTAs an SM at CP = 8 (168 registers)
+
+// Dynamic shared memory of fold_dot_mc_kernel<CP>: the word buffers (a
+// column a thread), each warp's staged sums, the warps' tree sums of CP
+// chains' rows, and their sums of eps.
+constexpr size_t fold_dot_smem(int CP) {
+  return sizeof(uint32_t) * kFoldSlots * kMaxB * kDotThreads +
+         sizeof(float) * (kDotThreads / 32) *
+             (32 * kFoldPad + CP * 32 + CP);
+}
+
+template <int CP>
+__global__ void __launch_bounds__(kDotThreads, CP >= 8 ? kFoldCtas8 : 4)
+fold_dot_mc_kernel(const uint32_t* __restrict__ words, int Nw,
+                   const float* __restrict__ eps, int C,
+                   const int* __restrict__ rho, int round, int nr, int J,
+                   int B, float* __restrict__ partial, int nsplit) {
+  constexpr int kWarps = kDotThreads / 32;
+  constexpr int R = 32 / CP;   // rows a staged chunk: a lane a (chain, row)
+  extern __shared__ __align__(16) uint32_t fdyn[];
+  uint32_t* wbuf = fdyn;                             // [slot][row][thread]
+  float* staged = reinterpret_cast<float*>(wbuf + kFoldSlots * kMaxB *
+                                                      kDotThreads);
+  float* wsum = staged + kWarps * 32 * kFoldPad;     // [p][warp][row]
+  float* esw = wsum + CP * kWarps * 32;              // [p][warp]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int w = blockIdx.x * kDotThreads + tid;
+  const bool live = w < Nw;
+  const long long Npad = 16LL * Nw;
+  const int JB1 = J * B + 1;
+  const int slab = rho[round];
+  const int G = gridDim.y;
+  const int nj = (J - blockIdx.y + G - 1) / G;   // blocks of this CTA
+  const int items = (C + CP - 1) / CP * nj;      // (chain group, block)
+  float* mine = staged + warp * 32 * kFoldPad;
+
+  // this thread's column of the B rows of item it's block
+  const auto fetch = [&](int it) {
+    const int j = blockIdx.y + G * (it % nj);
+    const uint32_t* src = words + (long long)(j * nr + slab) * B * Nw + w;
+    uint32_t* dst = wbuf + (it % kFoldSlots) * kMaxB * kDotThreads + tid;
+#pragma unroll
+    for (int i = 0; i < kMaxB; ++i)
+      if (i < B)
+        cp_async4(dst + i * kDotThreads,
+                  live ? src + (long long)i * Nw : words, live);
+    cp_async_commit();
+  };
+
+  float e[CP][16];
+  int c0 = -CP;
+  const uint32_t magic = kDecodeBits[kMagicAt];
+  if (items > 0) fetch(0);
+#pragma unroll 1
+  for (int it = 0; it < items; ++it) {
+    const int j = blockIdx.y + G * (it % nj);
+    if (it % nj == 0) {
+      // the next group of chains: its eps, and each warp's sum(eps)
+      c0 += CP;
+      float es[CP];
+#pragma unroll
+      for (int p = 0; p < CP; ++p) {
+        es[p] = 0.f;
+        if (live && c0 + p < C) {
+          es[p] = load_eps16(
+              reinterpret_cast<const float4*>(eps + (c0 + p) * Npad) + 4LL * w,
+              e[p]);
+        } else {
+#pragma unroll
+          for (int k = 0; k < 16; ++k) e[p][k] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int p = 0; p < CP; ++p) {
+        const float t = warp_sum(es[p]);
+        if (lane == 0) esw[p * kWarps + warp] = t;
+      }
+    }
+    if (it + 1 < items) fetch(it + 1);
+    else cp_async_commit();   // an empty group: the wait below stays right
+    cp_async_wait<1>();
+    const uint32_t* wb = wbuf + (it % kFoldSlots) * kMaxB * kDotThreads + tid;
+#pragma unroll 1
+    for (int r0 = 0; r0 < B; r0 += R) {
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int row = r0 + i;
+        float s[CP];
+        dot_word<CP>(row < B ? wb[row * kDotThreads] : 0u, e, s, magic);
+#pragma unroll
+        for (int p = 0; p < CP; ++p) mine[(p * R + i) * kFoldPad + lane] = s[p];
+      }
+      __syncwarp();
+      // pair (p, i) = (lane / R, lane % R): the tree of its 32 words
+      const float4* x4 =
+          reinterpret_cast<const float4*>(mine + lane * kFoldPad);
+      float y[16];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float4 a = x4[q], b = x4[q + 4];
+        y[4 * q] = a.x + b.x;
+        y[4 * q + 1] = a.y + b.y;
+        y[4 * q + 2] = a.z + b.z;
+        y[4 * q + 3] = a.w + b.w;
+      }
+#pragma unroll
+      for (int a = 0; a < 8; ++a) y[a] = y[a] + y[a + 8];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) y[a] = y[a] + y[a + 4];
+      y[0] = y[0] + y[2];
+      y[1] = y[1] + y[3];
+      const int p = lane / R, i = lane % R;
+      wsum[(p * kWarps + warp) * 32 + r0 + i] = y[0] + y[1];
+      __syncwarp();
+    }
+    __syncthreads();
+    // output (c, l): the single-chain dot's fixed-order CTA sums
+    for (int o = tid; o < CP * 32; o += kDotThreads) {
+      const int p = o >> 5, l = o & 31, c = c0 + p;
+      if (c >= C || l >= B) continue;
+      float t = 0.f;
+#pragma unroll
+      for (int q = 0; q < kWarps; ++q) t += wsum[(p * kWarps + q) * 32 + l];
+      float* out = partial + ((long long)c * nsplit + blockIdx.x) * JB1;
+      out[j * B + l] = t;
+      if (j == 0 && l == 0) {
+        float te = 0.f;
+#pragma unroll
+        for (int q = 0; q < kWarps; ++q) te += esw[p * kWarps + q];
+        out[J * B] = te;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// Launch fold_dot_mc_kernel<CP>: as many CTAs as fit on the card at once,
+// nsplit x G, G <= J blocks a split.
+template <int CP>
+cudaError_t launch_fold_dot(int C, int Nw, int nsplit, int J, cudaStream_t s,
+                            const uint32_t* words, const float* eps,
+                            const int* rho, int round, int nr, int B,
+                            float* partial) {
+  constexpr size_t smem = fold_dot_smem(CP);
+  static int ctas = 0;   // resident CTAs on the card
+  if (ctas == 0) {
+    int per_sm = 0, sms = 0, dev = 0;
+    cudaError_t err = cudaFuncSetAttribute(
+        fold_dot_mc_kernel<CP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, fold_dot_mc_kernel<CP>, kDotThreads, smem);
+    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    ctas = per_sm * sms > 0 ? per_sm * sms : 1;
+  }
+  const int G = ctas / nsplit;   // blocks of a split at once: 1 to J
+  const dim3 grid(nsplit, G < 1 ? 1 : G > J ? J : G);
+  fold_dot_mc_kernel<CP><<<grid, kDotThreads, smem, s>>>(
+      words, Nw, eps, C, rho, round, nr, J, B, partial, nsplit);
+  return cudaGetLastError();
 }
 
 // The dot of a round for C chains; mean null selects the dense mode
@@ -307,27 +492,29 @@ cudaError_t launch_dot_mc(int C, int Nw, int x_int8, int nsplit, int J,
                             nsplit);
     return cudaGetLastError();
   }
-#define JT_DOT(CP, MISS)                                                  \
+  if (pind == nullptr) {
+    if (C == 1) return launch_fold_dot<1>(C, Nw, nsplit, J, s, words, eps,
+                                          rho, round, nr, B, partial);
+    if (C == 2) return launch_fold_dot<2>(C, Nw, nsplit, J, s, words, eps,
+                                          rho, round, nr, B, partial);
+    if (C <= 4) return launch_fold_dot<4>(C, Nw, nsplit, J, s, words, eps,
+                                          rho, round, nr, B, partial);
+    return launch_fold_dot<8>(C, Nw, nsplit, J, s, words, eps, rho, round,
+                              nr, B, partial);
+  }
+#define JT_DOT(CP)                                                        \
   do {                                                                    \
-    constexpr size_t smem = dot_mc_smem(CP, MISS);                        \
-    if (MISS) {                                                           \
-      const cudaError_t attr = cudaFuncSetAttribute(                      \
-          dot_mc_kernel<CP, MISS>,                                        \
-          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);        \
-      if (attr != cudaSuccess) return attr;                               \
-    }                                                                     \
-    dot_mc_kernel<CP, MISS><<<grid, kDotThreads, smem, s>>>(              \
+    constexpr size_t smem = dot_mc_smem(CP);                              \
+    const cudaError_t attr = cudaFuncSetAttribute(                        \
+        dot_mc_kernel<CP>, cudaFuncAttributeMaxDynamicSharedMemorySize,   \
+        (int)smem);                                                       \
+    if (attr != cudaSuccess) return attr;                                 \
+    dot_mc_kernel<CP><<<grid, kDotThreads, smem, s>>>(                    \
         words, Nw, eps, C, rho, round, nr, J, B, partial, pind, nsplit);  \
   } while (0)
-  if (pind != nullptr) {
-    if (C == 1) JT_DOT(1, true);
-    else if (C == 2) JT_DOT(2, true);
-    else JT_DOT(4, true);
-  } else {
-    if (C == 1) JT_DOT(1, false);
-    else if (C == 2) JT_DOT(2, false);
-    else JT_DOT(4, false);
-  }
+  if (C == 1) JT_DOT(1);
+  else if (C == 2) JT_DOT(2);
+  else JT_DOT(4);
 #undef JT_DOT
   return cudaGetLastError();
 }

@@ -38,11 +38,14 @@ and row sweeps, the share of steps that moved (beta changed) and the
 dependent windows of the serial kernel's solve for those moves
 (``ops/block_sweep.dependent_windows``, where the root has it: at most
 W=32 steps a window for BayesR, one step a window for the horseshoe; a
-root that keeps the bits moves the same steps).  The dense cases also give
+root that keeps the bits moves the same steps).  Every case gives
+``bound_us``, the dot's and the apply's bound a launch (a round; a block
+at J=1; ``tools/kernel_bounds``, the apply over the rows that moved in the
+case's call).  The dense cases and ``t1_horseshoe`` also give
 ``library_us``, one PyTorch call computing a round's apply on the same
 rows and d (``torch.addmv``, ``torch.addmm`` for 8 chains: eps - d.X over
-the round's rows gathered once, never called by the port), and the
-``miss`` cases ``miss_div``: the iterations a row a warp of the fused
+the round's rows gathered once, 2-bit codes decoded to f32 first, never
+called by the port), and the ``miss`` cases ``miss_div``: the iterations a row a warp of the fused
 dot's indicator pass (the most set fields among the warp's 32 words of
 the row), mean and worst over the warps of 512 blocks, against the mean
 set fields, at the words' 2^-6 and at 2^-5 (~3 %, the tests').
@@ -250,16 +253,47 @@ def run_one(root):
         return bt.HorseshoeSampler(X, y, bt.HorseshoeConfig(), **skw,
                                    **plan)
 
-    def yard(s, rows, beta_in):
-        """``extra`` of a dense case: the apply's library call on the rows
-        of its first round, d from the case's own beta."""
-        if s.x_packed or s.x_int8:
-            return None
-        return lambda res: {"library_us": apply_yardstick(
-            torch, s.data.XT, rows, (res[1] - beta_in)[..., rows],
-            res[0].clone())}
+    def yard(kind, s, rows, beta_in, miss_per_row=0.0):
+        """``extra`` of a case: the dot's and the apply's bounds a round (a
+        block at J=1; ``tools/kernel_bounds``: the apply over the rows
+        moved a round in any chain and, in the miss mode, their missing
+        calls, ``miss_per_row`` a row) and, for dense rows and the
+        single-chain 2-bit horseshoe, the apply's library call on the
+        ``rows`` of its first round, d from the case's own beta (2-bit
+        codes decoded to f32 first)."""
+        from bayesrrcpp_tpu_torch.tools import kernel_bounds as kb
 
-    def strided(kind, s, chains, tag):
+        nr, jb = s.nb // s.jacobi, s.jacobi * s.B
+
+        def extra(res):
+            moved = res[1] != beta_in
+            chains = 1 if moved.dim() == 1 else moved.shape[0]
+            moved_rows = float((moved if chains == 1 else moved.any(0)).sum())
+            per_round = moved_rows / nr
+            if s.x_packed:
+                dot = kb.dot_round(s.Npad, jb, chains, 0.25,
+                                   chains * miss_per_row * jb)
+                apply = kb.apply_round(s.Npad, per_round, chains,
+                                       per_round * miss_per_row)
+            else:
+                eb = 1 if s.x_int8 else 4
+                dot = kb.dot_round(s.N, jb, chains, eb)
+                apply = kb.row_apply_round(s.N, per_round, chains, eb)
+            rec = {"bound_us": {"dot": dot["bound_ms"] * 1e3,
+                                "apply": apply["bound_ms"] * 1e3}}
+            d = (res[1] - beta_in)[..., rows]
+            if not (s.x_packed or s.x_int8):
+                rec["library_us"] = apply_yardstick(
+                    torch, s.data.XT, rows, d, res[0].clone())
+            elif s.x_packed and chains == 1 and kind == "horseshoe":
+                rec["library_us"] = apply_yardstick(
+                    torch, decode_codes(s.data.XT[rows]).float(),
+                    slice(None), d, res[0].clone())
+            return rec
+
+        return extra
+
+    def strided(kind, s, chains, tag, miss_per_row=0.0):
         d = s.data
         gs = torch.Generator(device="cuda").manual_seed(1)
         v = bt.TorchVariates(gs, chains=chains)
@@ -285,7 +319,7 @@ def run_one(root):
                  s.B)[:, None] + torch.arange(s.B, device="cuda")).flatten()
         run_case(torch, out, f"{tag}_{kind}",
                  lambda: tuple(fn(*args, **skw)),
-                 extra=yard(s, rows, st.beta))
+                 extra=yard(kind, s, rows, st.beta, miss_per_row))
 
     def serial(kind, s, chains, tag, fns, J=None):
         d = s.data
@@ -310,7 +344,7 @@ def run_one(root):
         run_case(torch, out, f"{tag}_{kind}",
                  lambda: tuple(fn(*args, **skw)),
                  serial=(st.beta, border, inner, s.B),
-                 extra=yard(s, rows, st.beta))
+                 extra=yard(kind, s, rows, st.beta))
 
     def plans(kind, X, pre, **mk):
         """The strided cases of X (one chain, 8 fused), its serial one
@@ -405,12 +439,15 @@ def run_one(root):
         del words5
         print(json.dumps({"miss_div": out["miss_div"]}), file=sys.stderr,
               flush=True)
+    # missing calls a row, from the first 512 blocks' words
+    per_row = float(popcount16(torch, words[:512 * 32] & (
+        words[:512 * 32] >> 1) & 0x55555555).sum()) / (512 * 32)
     for kind in ("bayesr", "horseshoe"):
         if wanted(f"t1miss_{kind}", f"t8miss_{kind}"):
             s = make(kind, words)
             assert (s.jacobi, s.B, s.data.has_missing) == (128, 32, True)
-            strided(kind, s, None, "t1miss")
-            strided(kind, s, CHAINS, "t8miss")
+            strided(kind, s, None, "t1miss", per_row)
+            strided(kind, s, CHAINS, "t8miss", per_row)
             del s
     if not wanted("q_bayesr"):
         print(json.dumps(out), flush=True)

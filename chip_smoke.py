@@ -222,8 +222,9 @@ the apply's device us a round against ``tools/kernel_bounds.apply_round``
 phases 10b, 11b and 24e profile one more serial sweep and log the share
 of steps that moved, the windowed solve's dependent windows
 (``ops/block_sweep.dependent_windows`` at the kernel's W) and its us a
-window.  Phases 14 (the fused ``miss`` cells), 18, 19, 22 (the dense
-and int8 row plans) and 24c-24d log each profiled dot and apply launch
+window.  Phases 7, 8c, 9c, 14 and 23b-23c (the strided 2-bit cells, one
+chain and fused, fold and ``miss``), 18, 19, 22 (the dense and int8 row
+plans) and 24c-24d log each profiled dot and apply launch
 beside its bound (``tools/kernel_bounds.dot_round``, ``apply_round``,
 ``row_apply_round`` over the window's moved rows and, in the miss mode,
 missing calls), the dense phases also one ``torch.addmv`` (``addmm`` for
@@ -595,6 +596,24 @@ def round_report(torch, tag, split, dot, apply, dot_b, apply_b, x=None,
     return lib
 
 
+def packed_report(torch, tag, split, names, s, chains, window,
+                  miss_per_row=None):
+    """``round_report`` of a strided 2-bit sweep's dot and apply (``names``:
+    dot, solve, apply) in ``split``, against the bounds of one launch
+    (``tools/kernel_bounds``): the dot over the round's J*B rows for
+    ``chains`` chains, the apply over the rows moved a round in the
+    profiled ``window`` (a ``Steps``) and, in the miss mode, their missing
+    calls (``miss_per_row`` a row, mean over the markers)."""
+    from bayesrrcpp_tpu_torch.tools import kernel_bounds
+
+    rows = window.moved() / (s.nb // s.jacobi)
+    jb, per = s.jacobi * s.B, miss_per_row or 0.0
+    round_report(
+        torch, tag, split, names[0], names[2],
+        kernel_bounds.dot_round(s.Npad, jb, chains, 0.25, chains * per * jb),
+        kernel_bounds.apply_round(s.Npad, rows, chains, rows * per))
+
+
 def window_report(torch, tag, s, fn, args, kw, K):
     """One more call of the serial sweep ``fn(*args, **kw)`` (one chain or
     fused, J=1; over the blocks of its order, which may be a cut of the
@@ -876,13 +895,13 @@ def smoke(torch, tmp):
     check(rel < 1e-4, f"horseshoe tracked eps vs recompute {rel}")
     check(hs_launches == want, f"horseshoe launches {hs_launches} != {want}")
     names = ("dot_kernel", "hs_solve_kernel", "apply_kernel")
-    split, dev_ms, wall_ms = profile_split(
-        torch, lambda: hs._run_steps(st, bt.TorchVariates(g), 2), names,
-        want=2 * nr)
+    window = Steps(hs, st, bt.TorchVariates(g))
+    split, dev_ms, wall_ms = profile_split(torch, window, names, want=2 * nr)
     check(profiled(split, 2 * nr), f"profiled launches {split}")
     log("[7] profile of 2 steps: " + ", ".join(
         f"{n} {us:.2f} us x {c}" for n, (us, c) in split.items())
         + f"; device {dev_ms:.2f} ms of {wall_ms:.2f} ms wall")
+    packed_report(torch, "[7] biobank-horseshoe", split, names, hs, 1, window)
 
     del st, out
 
@@ -1132,17 +1151,14 @@ def fused_phases(torch, bt, kind, hs, tmp):
              if hsk else ("dot_mc_kernel", "solve_mc_kernel",
                           "apply_mc_kernel"))
 
-    def two_steps():
-        x = sf
-        for _ in range(2):
-            x = s.step_chains(x, vc)
-
-    split, dev_ms, wall_ms = profile_split(torch, two_steps, names,
-                                           want=2 * nr)
+    window = Steps(s, sf, vc)
+    split, dev_ms, wall_ms = profile_split(torch, window, names, want=2 * nr)
     check(profiled(split, 2 * nr), f"[{ph}c] profiled launches {split}")
     log(f"[{ph}c] profile of 2 fused steps: " + ", ".join(
         f"{n} {us:.2f} us x {c}" for n, (us, c) in split.items())
         + f"; device {dev_ms:.2f} ms of {wall_ms:.2f} ms wall")
+    packed_report(torch, f"[{ph}c] {schema}-8chain", split, names, s, C,
+                  window)
     return dict(launches=launches, max_abs_err=max_err, ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=lib_ms * nr,
@@ -1728,7 +1744,6 @@ def missing_phases(torch, bt, tmp):
     from bayesrrcpp_tpu_torch.io.sink import ChainFanoutSink, CSVSink
     from bayesrrcpp_tpu_torch.ops import jacobi_t as jt
     from bayesrrcpp_tpu_torch.ops import serial as ser
-    from bayesrrcpp_tpu_torch.tools import kernel_bounds
 
     dev = torch.device("cuda")
     bnames = ("eps", "beta", "labels", "v", "beta_acum")
@@ -1918,13 +1933,17 @@ def missing_phases(torch, bt, tmp):
         records[kind]["launches"] = launches
         names = ("dot_kernel", "hs_solve_kernel" if kind == "horseshoe"
                  else "solve_kernel", "apply_kernel")
-        split, dev_ms, wall_ms = profile_split(
-            torch, lambda: ss._run_steps(st, bt.TorchVariates(g), 2), names,
-            want=2 * nr)
+        window = Steps(ss, st, bt.TorchVariates(g))
+        split, dev_ms, wall_ms = profile_split(torch, window, names,
+                                               want=2 * nr)
         check(profiled(split, 2 * nr), f"[14] profiled launches {split}")
         log(f"[14] {cell} profile of 2 steps: " + ", ".join(
             f"{n} {us:.2f} us x {c}" for n, (us, c) in split.items())
             + f"; device {dev_ms:.2f} ms of {wall_ms:.2f} ms wall")
+        # the dots' indicator pass adds one FMA per missing call and chain
+        per_row = float(miss.sum()) / ss.M
+        packed_report(torch, f"[14] {cell}", split, names, ss, 1, window,
+                      per_row)
         del st, out
 
         sink = ChainFanoutSink.csv(
@@ -1957,14 +1976,8 @@ def missing_phases(torch, bt, tmp):
         log(f"[14] {cell}-8chain profile of 2 fused steps: " + ", ".join(
             f"{n} {us:.2f} us x {c}" for n, (us, c) in split.items())
             + f"; device {dev_ms:.2f} ms of {wall_ms:.2f} ms wall")
-        # the dot's indicator pass adds one FMA per missing call and chain
-        rows, per_row = two_steps.moved() / nr, float(miss.sum()) / ss.M
-        round_report(
-            torch, f"[14] {cell}-8chain", split, "dot_mc_kernel",
-            "apply_mc_kernel", kernel_bounds.dot_round(
-                ss.Npad, ss.jacobi * ss.B, CHAINS, 0.25,
-                CHAINS * per_row * ss.jacobi * ss.B),
-            kernel_bounds.apply_round(ss.Npad, rows, CHAINS, rows * per_row))
+        packed_report(torch, f"[14] {cell}-8chain", split, names, ss, CHAINS,
+                      two_steps, per_row)
         del st, out, two_steps
 
     # ---- 15. kernel C: the serial in-kernel decode
@@ -3475,11 +3488,8 @@ def sharded_main_paths(torch, bt, jt, sh, setup_s, tmp, ms_iter_4,
                                     "apply_mc_kernel"))
         vv = sh.variates(g, C)
 
-        def two_steps(x=st):
-            for _ in range(2):
-                x = sh.step(x, vv) if C is None else sh.step_chains(x, vv)
-
-        split, dev_ms, wall_ms = profile_split(torch, two_steps,
+        window = Steps(sh, st, vv)
+        split, dev_ms, wall_ms = profile_split(torch, window,
                                                names + ("nccl",),
                                                want=2 * nr, counted=names)
         check(profiled({n: split[n] for n in names}, 2 * nr),
@@ -3488,6 +3498,8 @@ def sharded_main_paths(torch, bt, jt, sh, setup_s, tmp, ms_iter_4,
             f"{n} {us:.2f} us x {c}" for n, (us, c) in split.items())
             + f"; device {dev_ms:.2f} ms of {wall_ms:.2f} ms wall, idle "
             f"{1 - dev_ms / wall_ms:.3f}")
+        packed_report(torch, f"[{ph}] {cell}", split, names, sh, C or 1,
+                      window)
         launches[C] = n_launch
         del st, out
     return launches

@@ -1144,3 +1144,98 @@ def test_row_apply_ring_with_no_moves(cuda, kind):
     for name, a, b in zip(names, ring, direct):
         assert torch.equal(a, b), name
     assert torch.equal(ring.eps, c["eps"][0])
+
+
+# ------------------- the fused fold dot and the single-chain 2-bit apply
+
+
+def _narrow(args, kw, Nw):
+    """A strided sweep's operands with the words cut to their first Nw
+    words a row (16 * Nw lanes; eps, at position 3, cut alike)."""
+    lanes = 16 * Nw
+    a = list(args)
+    a[0] = a[0][:, :Nw].contiguous()
+    a[3] = a[3][..., :lanes].contiguous()
+    return tuple(a), dict(kw, row_valid=kw["row_valid"][:lanes].contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("missing", [False, True])
+@pytest.mark.parametrize("C", [2, 3, 8, 16])
+def test_fused_dot_on_words_not_a_multiple_of_128(cuda, C, missing):
+    """The fused BayesR sweep on 100 words a row (1,600 lanes for N=1,500:
+    the dot's one split holds 28 words past Nw), whose dot is
+    fold_dot_mc_kernel (CP = 2, 4, 8 and two passes of 8) or, on words
+    with missing calls, dot_mc_kernel: against the plain version and each
+    chain bitwise against the single-chain kernel."""
+    args, kw = _mc_case(C + 31 + missing, 8, 32, 1, 4, 4, 1500, C, cuda,
+                        missing=missing)
+    args, kw = _narrow(args, kw, 100)
+    ker = bayesr_jacobi_t_mc(*args, **kw)
+    ref = bayesr_jacobi_t_mc_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(ker.labels, ref.labels)
+    assert torch.equal(ker.v, ref.v)
+    torch.testing.assert_close(ker.beta, ref.beta, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(ker.eps, ref.eps, rtol=1e-4, atol=1e-5)
+    assert (ker.eps[:, 1500:] == 0).all()
+    for c in range(C):
+        one = bayesr_jacobi_t(*_chain(args, c, (3, 4, 5, 8, 9, 10, 12, 13)),
+                              **kw)
+        for name, a, b in zip(one._fields, one, ker):
+            assert torch.equal(a, b[c]), (c, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Nw", [128, 100])
+@pytest.mark.parametrize("moving", ["none", "few", "all"])
+@pytest.mark.parametrize("missing", [False, True])
+def test_packed_apply_with_none_few_or_all_rows_moving(cuda, missing, moving,
+                                                       Nw):
+    """The single-chain 2-bit apply (apply_kernel, fold and miss modes)
+    with no row moving (every marker invalid), a few (BayesR at
+    pi[0] = 0.98 from beta = 0) and every valid row (the horseshoe), at
+    N=1,500 (row_valid lanes) and Nw = 128 or 100 (a last CTA of 4 words):
+    against the plain version, and every output bitwise equal to the fused
+    sweep of that one chain (fold_dot_mc_kernel<1> or dot_mc_kernel<1>,
+    and apply_mc_kernel<1>)."""
+    J, B, N = 8, 32, 1500
+    seed = 61 + missing + 2 * Nw
+    if moving == "all":
+        args, kw = _hs_case(seed, J, B, 4, N, cuda, missing=missing)
+        single, plain, fused = (horseshoe_jacobi_t,
+                                horseshoe_jacobi_t_reference,
+                                horseshoe_jacobi_t_mc)
+        per_chain = (3, 4, 7, 8, 9, 10, 11)
+    else:
+        args, kw = _case(seed, J, B, 1, 4, 4, N, cuda, missing=missing)
+        a = list(args)
+        a[4] = torch.zeros_like(a[4])
+        a[5] = torch.zeros_like(a[5])
+        if moving == "none":
+            a[15] = torch.zeros_like(a[15])
+        else:
+            a[10] = torch.tensor([[0.98, 0.01, 0.005, 0.005]], device=cuda)
+        args = tuple(a)
+        single, plain, fused = (bayesr_jacobi_t, bayesr_jacobi_t_reference,
+                                bayesr_jacobi_t_mc)
+        per_chain = (3, 4, 5, 8, 9, 10, 12, 13)
+    args, kw = _narrow(args, kw, Nw)
+    ker, ref = tuple(single(*args, **kw)), tuple(plain(*args, **kw))
+    torch.cuda.synchronize()
+    valid = int(args[-1].sum())
+    moved = int((ker[1] != args[4]).sum())
+    want = {"none": moved == 0, "few": 0 < moved < valid // 10,
+            "all": moved >= 0.99 * valid}
+    assert want[moving], (moving, moved, valid)
+    if moving == "none":
+        assert torch.equal(ker[0], args[3])
+    if moving != "all":
+        assert torch.equal(ker[2], ref[2])        # labels
+    for a, b in zip(ker[:2], ref[:2]):            # eps, beta
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    assert (ker[0][N:] == 0).all()
+    one = tuple(a[None] if k in per_chain else a for k, a in enumerate(args))
+    out = tuple(fused(*one, **kw))
+    for k, (a, b) in enumerate(zip(ker, out)):
+        assert torch.equal(a, b[0]), k
