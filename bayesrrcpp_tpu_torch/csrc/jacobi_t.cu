@@ -28,13 +28,18 @@
 // beta, labels and v/bacc partials.  The three launches:
 //
 //   dot    r = X_b . eps for the round's J*B markers, in the code domain
-//          (raw codes c in {0,1,2}); one thread per packed word loads the
-//          word's 16 eps values once and reuses them for the B rows of a
-//          block.  Per-CTA partial sums go to an (nsplit, J*B + 1) buffer
-//          (the extra column is sum(eps)); no float atomics.  In the
-//          miss mode the same words, turned into their missing-call
-//          indicator (miss_bits), go through the same arithmetic a
-//          second time, into (nsplit, J*B) indicator partials.
+//          (raw codes c in {0,1,2}): jacobi_t_common.cuh's dot_kernel, a
+//          CTA a (split of 128 words, block), a thread a word, which
+//          loads its word's B rows and 16 eps once and sums each row in
+//          field order; the warp's 32 sums of a row are staged in shared
+//          memory and added in warp_transpose_sum's tree.  Per-CTA
+//          partial sums go to an (nsplit, J*B + 1) buffer (the extra
+//          column is sum(eps)); no float atomics.  In the miss mode the
+//          same words' missing-call indicator (miss_bits) goes into
+//          (nsplit, J*B) indicator partials, summing only the eps of the
+//          missing calls, bit for bit the dense form of the code dot's
+//          arithmetic on the indicator.  The fused sweeps run this kernel
+//          for one chain.
 //   solve  one warp per block, lane l owning marker l of the block: the
 //          fold algebra r = s*(C.eps) - (m*s)*sum(eps) turns the partials
 //          into standardized r (miss mode: C.eps + (m - 3)*(I.eps) in
@@ -61,17 +66,18 @@
 //          dot.
 //
 // What bounds it on an H100: the dot reads all words once per sweep (12.6
-// GB at N=100,352 x M=503,808) and decodes every code, so it is bound by
-// HBM and by the decode's integer and FP32 instructions (the miss mode
-// doubles those: a second decode and FMA per code for the indicator, from
-// the words already in registers); the decode takes
-// a field in place, (w & 3<<2k) | 0x4B000000 read as a float is
-// 2^23 + c*4^k, and multiplies by eps pre-scaled by 4^-k (exact: powers
-// of two).  The 123 x 32 dependent solve steps of the headline plan are
-// latency-bound: one warp per SM.  Every reduction runs in a fixed order,
-// so a chain is bitwise reproducible from run to run on the card.  The
-// file is compiled with -fmad=false so the solve's arithmetic rounds like
-// the plain torch version op for op; the dot and apply use explicit fmaf.
+// GB at N=100,352 x M=503,808, 3.8 ms at 3.35 TB/s) and decodes every
+// code: a code takes one LOP3, one FADD and one FFMA, 411 M codes a round
+// at the headline, so the one-chain dot is bound by the SMs' issue of
+// those instructions (~37 us a round at 1.98 GHz) more than by the bytes
+// (31 us).  The decode takes a field in place: (w & 3<<2k) | 0x4B000000
+// read as a float is 2^23 + c*4^k, and multiplies by eps pre-scaled by
+// 4^-k (exact: powers of two).  The 123 x 32 dependent solve steps of the
+// headline plan are latency-bound: one warp per SM.  Every reduction runs
+// in a fixed order, so a chain is bitwise reproducible from run to run on
+// the card.  The file is compiled with -fmad=false so the solve's
+// arithmetic rounds like the plain torch version op for op; the dot and
+// apply use explicit fmaf.
 //
 // The dense mode (X (Mpad, N) f32 rows, already standardized; eps of
 // length N in natural order, no lane mask) keeps the rounds, the visit
@@ -116,72 +122,6 @@
 #include "jacobi_t_common.cuh"
 
 namespace {
-
-// MISS: the miss mode, which also writes the indicator partials `pind`.
-template <bool MISS>
-__global__ void __launch_bounds__(kDotThreads)
-dot_kernel(const uint32_t* __restrict__ words, int Nw,
-           const float* __restrict__ eps, const int* __restrict__ rho,
-           int round, int nr, int J, int B, float* __restrict__ partial,
-           float* __restrict__ pind) {
-  const int j = blockIdx.y;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int w = blockIdx.x * kDotThreads + threadIdx.x;
-  const long long row0 = (long long)(j * nr + rho[round]) * B;
-  const int JB1 = J * B + 1;
-
-  float acc[1][kMaxB];
-#pragma unroll
-  for (int i = 0; i < kMaxB; ++i) acc[0][i] = 0.f;
-  float esum = 0.f;
-  float e[1][16];
-  uint32_t wds[kMaxB];
-  if (w < Nw) {
-    esum = load_eps16(reinterpret_cast<const float4*>(eps) + 4LL * w, e[0]);
-    // all B loads first, so a warp keeps B lines in flight
-    load_words(words + row0 * Nw + w, Nw, B, wds);
-    dot_rows<1>(wds, e, acc);
-  }
-  __shared__ float red[kDotThreads / 32][32];
-  __shared__ float red_e[kDotThreads / 32];
-  __shared__ float red_i[MISS ? kDotThreads / 32 : 1][32];
-  red[warp][lane] = warp_transpose_sum(acc[0], lane);
-  esum = warp_sum(esum);
-  if (lane == 0) red_e[warp] = esum;
-  if constexpr (MISS) {
-    // the indicator's dot: the same eps, the words turned into their
-    // missing-call bits
-#pragma unroll
-    for (int i = 0; i < kMaxB; ++i) acc[0][i] = 0.f;
-    if (w < Nw) {
-#pragma unroll
-      for (int i = 0; i < kMaxB; ++i) wds[i] = miss_bits(wds[i]);
-      dot_rows<1>(wds, e, acc);
-    }
-    red_i[warp][lane] = warp_transpose_sum(acc[0], lane);
-  }
-  __syncthreads();
-  if (warp == 0) {
-    float t = 0.f;
-#pragma unroll
-    for (int q = 0; q < kDotThreads / 32; ++q) t += red[q][lane];
-    float* out = partial + (long long)blockIdx.x * JB1;
-    if (lane < B) out[j * B + lane] = t;
-    if (j == 0 && lane == 0) {
-      float te = 0.f;
-#pragma unroll
-      for (int q = 0; q < kDotThreads / 32; ++q) te += red_e[q];
-      out[J * B] = te;
-    }
-    if constexpr (MISS) {
-      float ti = 0.f;
-#pragma unroll
-      for (int q = 0; q < kDotThreads / 32; ++q) ti += red_i[q][lane];
-      if (lane < B) pind[(long long)blockIdx.x * (JB1 - 1) + j * B + lane] = ti;
-    }
-  }
-}
 
 // The solves: one warp per block of the round (jacobi_t_common.cuh).
 template <int K>
@@ -473,7 +413,6 @@ cudaError_t sweep_rounds(const uint32_t* wd, int Nw, int x_int8, int nr,
   // the copy engine's 16-byte rule (Nw is a multiple of 128 in the port)
   if (Nw % 4 != 0 || reinterpret_cast<uintptr_t>(wd) % 16 != 0)
     return cudaErrorInvalidValue;
-  const dim3 dot_grid(nsplit, J);
   const bool miss = pind != nullptr;
   const auto apply = miss ? apply_kernel<true> : apply_kernel<false>;
   const int apply_ctas = (Nw + kPkWords - 1) / kPkWords;
@@ -482,13 +421,9 @@ cudaError_t sweep_rounds(const uint32_t* wd, int Nw, int x_int8, int nr,
       apply, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   for (int r = 0; r < n_rounds; ++r) {
-    if (miss)
-      dot_kernel<true><<<dot_grid, kDotThreads, 0, s>>>(
-          wd, Nw, eps, rh, r, nr, J, B, partial, pind);
-    else
-      dot_kernel<false><<<dot_grid, kDotThreads, 0, s>>>(
-          wd, Nw, eps, rh, r, nr, J, B, partial, pind);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    err = launch_one_chain_dot(Nw, nsplit, J, s, wd, eps, rh, r, nr, B,
+                               partial, pind);
+    if (err != cudaSuccess) return err;
     if ((err = solve(r)) != cudaSuccess) return err;
     apply<<<apply_ctas, kPkThreads, smem, s>>>(
         wd, Nw, eps, row_valid, rh, r, nr, J, B, dsc, dms, mean);

@@ -2,6 +2,8 @@
 // fused multi-chain sweeps (jacobi_t_mc.cu): the 2-bit decode and the
 // missing-call indicator, the warp reductions, the dot's loads and
 // per-word arithmetic (dot_rows, for one eps vector or several at once),
+// the strided sweeps' one-chain 2-bit dot (dot_kernel) and the staged
+// tree and sparse missing-call indicator it shares with the fused dots,
 // the row-major modes' dot and apply on dense f32 rows or int8 codes
 // (dense_dot_tile, row_apply_kernel) and
 // the per-block solves, which each chain of a fused sweep runs on its own
@@ -210,12 +212,24 @@ __device__ __forceinline__ float load_eps16(const float4* e4, float (&e)[16]) {
   return esum;
 }
 
-// The B words of one packed column (stride Nw), zero above B.
+// The B words of one packed column (stride Nw), zero above B.  Each row
+// is a 32-bit byte offset from wp (one IMAD.WIDE a load), and a full
+// block's loads are not predicated: 64-bit row arithmetic and a predicate
+// a row took ~10 instructions a load (the SASS of dot_kernel).
 __device__ __forceinline__ void load_words(const uint32_t* wp, int Nw, int B,
                                            uint32_t (&wds)[kMaxB]) {
+  const char* base = reinterpret_cast<const char*>(wp);
+  const unsigned stride = 4u * static_cast<unsigned>(Nw);
+  const auto at = [&](int i) {
+    return __ldg(reinterpret_cast<const uint32_t*>(base + i * stride));
+  };
+  if (B == kMaxB) {
 #pragma unroll
-  for (int i = 0; i < kMaxB; ++i)
-    wds[i] = i < B ? __ldg(wp + (long long)i * Nw) : 0u;
+    for (int i = 0; i < kMaxB; ++i) wds[i] = at(i);
+  } else {
+#pragma unroll
+    for (int i = 0; i < kMaxB; ++i) wds[i] = i < B ? at(i) : 0u;
+  }
 }
 
 // s[p] = the codes of word wd . e[p] for CP eps vectors (each pre-scaled
@@ -257,6 +271,213 @@ __device__ __forceinline__ void dot_rows(const uint32_t (&wds)[kMaxB],
 #pragma unroll
     for (int p = 0; p < CP; ++p) acc[p][i] = s[p];
   }
+}
+
+// The CP chains' e' of one field of a thread, staged together.
+template <int CP>
+struct alignas(4 * CP) EsVec {
+  float e[CP];
+};
+
+// The indicator of one word column's B rows for CP chains, only where a
+// call is missing: acc[p][i] = the sum over the fields k of row i whose
+// call is missing, in ascending k, of e'_p[k], from +0.  e'_p[k] =
+// (e_p[k]*4^-k')*4^k' is the product the dense form (dot_rows on
+// miss_bits) takes at that field, exactly, so each add rounds as its FMA
+// does; at every other field the dense form adds a zero product, which
+// leaves a sum that is never -0 unchanged.  So acc equals dot_rows on the
+// indicator bit for bit (for finite eps), at a few adds a row where the
+// dense form takes 16 FMAs.
+// Ascending bit position is ascending k: field k is bit 2k of miss_bits
+// (11-15 from w >> 22 in dot_rows).  es holds a field's CP values
+// together (one 16-byte load for CP = 4), at es[k*kDotThreads].
+template <int CP>
+__device__ __forceinline__ void miss_rows(const uint32_t (&wds)[kMaxB],
+                                          const EsVec<CP>* es,
+                                          float (&acc)[CP][kMaxB]) {
+  // each row's first missing call, branch-free, so that the loads of 8
+  // rows are issued together (8, not 32: the registers of the loaded
+  // values): a row without one loads field 0 and adds +0, which leaves
+  // acc (+0) as it is
+#pragma unroll
+  for (int i0 = 0; i0 < kMaxB; i0 += 8) {
+    asm volatile("" ::: "memory");
+#pragma unroll
+    for (int i = i0; i < i0 + 8; ++i) {
+      const uint32_t m = miss_bits(wds[i]);
+      const EsVec<CP> v =
+          es[(m != 0u ? (__ffs(m) - 1) >> 1 : 0) * kDotThreads];
+#pragma unroll
+      for (int p = 0; p < CP; ++p)
+        acc[p][i] = 0.f + (m != 0u ? v.e[p] : 0.f);
+    }
+  }
+  // the rest, in field order (most rows of a warp have none); the word
+  // is read afresh, so that the first pass's 32 masks are not kept
+#pragma unroll
+  for (int i = 0; i < kMaxB; ++i) {
+    uint32_t w = wds[i];
+    asm volatile("" : "+r"(w));
+    uint32_t m = miss_bits(w);
+    m &= m - 1u;
+    while (m != 0u) {
+      const EsVec<CP> v = es[((__ffs(m) - 1) >> 1) * kDotThreads];
+      m &= m - 1u;
+#pragma unroll
+      for (int p = 0; p < CP; ++p) acc[p][i] = acc[p][i] + v.e[p];
+    }
+  }
+}
+
+// Floats a staged row of a warp's 32 sums: the pad keeps staged_tree's
+// 16-byte loads of 8 lanes' rows on distinct banks.
+constexpr int kStagePad = 36;
+
+// The sum of 32 staged floats x (16-byte aligned) in warp_transpose_sum's
+// tree: x[a] + x[a + 16] first, then + 8, + 4, + 2, + 1.  A warp's 32
+// values of a row staged side by side and summed so by one lane give the
+// row's warp_transpose_sum bit for bit, in 8 loads and 31 adds where the
+// transpose takes 31 shuffles, 62 selects and 31 adds a lane.
+__device__ __forceinline__ float staged_tree(const float* x) {
+  const float4* x4 = reinterpret_cast<const float4*>(x);
+  float y[16];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float4 a = x4[q], b = x4[q + 4];
+    y[4 * q] = a.x + b.x;
+    y[4 * q + 1] = a.y + b.y;
+    y[4 * q + 2] = a.z + b.z;
+    y[4 * q + 3] = a.w + b.w;
+  }
+#pragma unroll
+  for (int a = 0; a < 8; ++a) y[a] = y[a] + y[a + 8];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) y[a] = y[a] + y[a + 4];
+  y[0] = y[0] + y[2];
+  y[1] = y[1] + y[3];
+  return y[0] + y[1];
+}
+
+// ---- the strided sweeps' one-chain 2-bit dot (dot_kernel; jacobi_t.cu,
+// and jacobi_t_mc.cu at C = 1), fold and miss modes: a CTA a (split,
+// block) of the round, grid (nsplit, J), a thread a word.  A thread issues
+// the loads of its word's B rows and its 16 eps first, then sums each row
+// with dot_word (16 fmaf in field order from +0), staging the warp's 32
+// sums of a row side by side in shared memory; lane l adds row l's 32 in
+// warp_transpose_sum's tree (staged_tree) and warps 0..3 add from 0 into
+// the (nsplit, J*B + 1) partials, block 0's CTAs also the sum(eps)
+// column.  MISS: then the words' missing-call indicator, only where a
+// call is missing (miss_rows on the thread's e', staged in shared
+// memory), through the same staged tree into (nsplit, J*B) indicator
+// partials.  The bits of the dot it replaced (a thread's B rows through
+// warp_transpose_sum, the indicator in the dense 16-FMA form on miss_bits;
+// tests/test_torch_fold_dot_order.py).  What bounds it: issue.  At the
+// headline a round is 411 M codes (25.7 M rows x words) against 103 MB of
+// words (31 us at 3.35 TB/s); a code takes one LOP3 (the magic from
+// kDecodeBits: ptxas folds two known constants into two LOP3s), one FADD
+// and one FFMA, and the SMs issue ~2.5 instructions a cycle whatever the
+// mix, so every instruction a code or row costs time: the two-LOP3 decode
+// took 84.7 us a round, the one-LOP3 decode 65.4, and the loads' row
+// addresses in 32 bits (load_words) 57 (NVIDIA H100 80GB HBM3, 700 W;
+// PERF.md §6).  Walking several blocks a CTA with the eps read once (the
+// fused fold dot's design, 4 CTAs an SM) took 97-100 us at one chain; 8
+// CTAs an SM in place of 7 changed nothing.
+template <bool MISS>
+__global__ void __launch_bounds__(kDotThreads)
+dot_kernel(const uint32_t* __restrict__ words, int Nw,
+           const float* __restrict__ eps, const int* __restrict__ rho,
+           int round, int nr, int J, int B, float* __restrict__ partial,
+           float* __restrict__ pind) {
+  constexpr int kWarps = kDotThreads / 32;
+  __shared__ __align__(16) float staged[kWarps][kMaxB][kStagePad];
+  __shared__ float wsum[kWarps][32];
+  __shared__ float wsum_i[MISS ? kWarps : 1][32];
+  __shared__ float red_e[kWarps];
+  __shared__ EsVec<1> es[MISS ? 16 * kDotThreads : 1];
+  const int j = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int w = blockIdx.x * kDotThreads + tid;
+  const long long row0 = (long long)(j * nr + rho[round]) * B;
+  const int JB1 = J * B + 1;
+  uint32_t wds[kMaxB];
+  float e[1][16];
+  float esum = 0.f;
+  if (w < Nw) {
+    // all B loads first, so a warp keeps B lines in flight
+    load_words(words + row0 * Nw + w, Nw, B, wds);
+    esum = load_eps16(reinterpret_cast<const float4*>(eps) + 4LL * w, e[0]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < kMaxB; ++i) wds[i] = 0u;
+#pragma unroll
+    for (int k = 0; k < 16; ++k) e[0][k] = 0.f;
+  }
+  const uint32_t magic = kDecodeBits[kMagicAt];
+  float* mine = &staged[warp][0][0];
+#pragma unroll
+  for (int i = 0; i < kMaxB; ++i) {
+    float s[1];
+    dot_word<1>(wds[i], e, s, magic);
+    mine[i * kStagePad + lane] = s[0];
+  }
+  __syncwarp();
+  wsum[warp][lane] = staged_tree(mine + lane * kStagePad);
+  esum = warp_sum(esum);
+  if (lane == 0) red_e[warp] = esum;
+  if constexpr (MISS) {
+    // e' = (e*4^-k')*4^k', the product the dense form takes at a missing
+    // call of field k; read by this thread alone
+#pragma unroll
+    for (int k = 0; k < 16; ++k)
+      es[k * kDotThreads + tid].e[0] =
+          e[0][k] *
+          __uint_as_float((127u + 2u * (k <= 10 ? k : k - 11)) << 23);
+    float acc[1][kMaxB];
+    miss_rows<1>(wds, es + tid, acc);
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < kMaxB; ++i) mine[i * kStagePad + lane] = acc[0][i];
+    __syncwarp();
+    wsum_i[warp][lane] = staged_tree(mine + lane * kStagePad);
+  }
+  __syncthreads();
+  if (warp == 0) {
+    float t = 0.f;
+#pragma unroll
+    for (int q = 0; q < kWarps; ++q) t += wsum[q][lane];
+    float* out = partial + (long long)blockIdx.x * JB1;
+    if (lane < B) out[j * B + lane] = t;
+    if (j == 0 && lane == 0) {
+      float te = 0.f;
+#pragma unroll
+      for (int q = 0; q < kWarps; ++q) te += red_e[q];
+      out[J * B] = te;
+    }
+    if constexpr (MISS) {
+      float ti = 0.f;
+#pragma unroll
+      for (int q = 0; q < kWarps; ++q) ti += wsum_i[q][lane];
+      if (lane < B)
+        pind[(long long)blockIdx.x * (JB1 - 1) + j * B + lane] = ti;
+    }
+  }
+}
+
+// The one-chain 2-bit dot of a strided round (pind not null: the miss
+// mode).
+inline cudaError_t launch_one_chain_dot(int Nw, int nsplit, int J,
+                                        cudaStream_t s, const uint32_t* words,
+                                        const float* eps, const int* rho,
+                                        int round, int nr, int B,
+                                        float* partial, float* pind) {
+  const dim3 grid(nsplit, J);
+  if (pind != nullptr)
+    dot_kernel<true><<<grid, kDotThreads, 0, s>>>(words, Nw, eps, rho, round,
+                                                  nr, J, B, partial, pind);
+  else
+    dot_kernel<false><<<grid, kDotThreads, 0, s>>>(words, Nw, eps, rho, round,
+                                                   nr, J, B, partial, pind);
+  return cudaGetLastError();
 }
 
 // ---- the row-major modes: X (Mpad, N) in natural individual order, eps
@@ -428,15 +649,12 @@ __device__ __forceinline__ void dense_dot_tile(
 // registers as codes, 16 a thread; each chain decodes them again
 // (code8_f), the same instructions for every chain, and each row's 16
 // products sum by fmaf in column order, then warp_transpose_sum, so every
-// chain of a fused sweep sums as a single chain does.  Q (the serial
-// in-kernel decode, one chain): each code becomes (c - mean)*scale, 0 for
-// code 3, with its row's qmean / qscale.
-template <bool V, bool Q>
+// chain of a fused sweep sums as a single chain does.
+template <bool V>
 __device__ __forceinline__ void int8_dot_tile(
     const int8_t* __restrict__ X, int N, long long row0, int nrow,
     const float* __restrict__ eps, int C,
-    float (*red)[kDotThreads / 32][32], float (*red_e)[kDotThreads / 32],
-    const float* __restrict__ qmean, const float* __restrict__ qscale) {
+    float (*red)[kDotThreads / 32][32], float (*red_e)[kDotThreads / 32]) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long long n0 = (long long)blockIdx.x * kInt8Tile;
   uint4 w[kMaxB];
@@ -457,22 +675,12 @@ __device__ __forceinline__ void int8_dot_tile(
 #pragma unroll
     for (int i = 0; i < kMaxB; ++i) {
       const uint32_t wq[4] = {w[i].x, w[i].y, w[i].z, w[i].w};
-      float m = 0.f, sc = 0.f;
-      if constexpr (Q) {
-        // loaded row by row: hoisted, the 64 values spill
-        asm volatile("" ::: "memory");
-        m = i < nrow ? __ldg(qmean + row0 + i) : 0.f;
-        sc = i < nrow ? __ldg(qscale + row0 + i) : 0.f;
-      }
       float s = 0.f;
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          float x = code8_f(wq[q], k);
-          if constexpr (Q) x = x == 3.f ? 0.f : (x - m) * sc;
-          s = fmaf(x, e[4 * q + k], s);
-        }
+        for (int k = 0; k < 4; ++k)
+          s = fmaf(code8_f(wq[q], k), e[4 * q + k], s);
       }
       acc[i] = s;
     }
@@ -527,8 +735,7 @@ dense_dot_kernel(const T* __restrict__ X, int N,
   const long long row0 = (long long)(j * nr + rho[round]) * B;
   if constexpr (sizeof(T) == 1) {
     __shared__ float red_e[CMAX][kDotThreads / 32];
-    int8_dot_tile<V, false>(X, N, row0, B, eps, C, red, red_e, nullptr,
-                            nullptr);
+    int8_dot_tile<V>(X, N, row0, B, eps, C, red, red_e);
     dense_dot_store(red, j == 0 ? red_e : nullptr, C, partial, nsplit,
                     J * B + 1, j * B, B);
   } else {

@@ -24,9 +24,11 @@
 // One fused sweep is nr rounds of three launches, whatever C is:
 //
 //   dot_mc    r[c, m] = x_m . eps_c for the round's J*B markers and all C
-//             chains.  The fold mode (fold_dot_mc_kernel): a CTA takes one
+//             chains.  C = 1, in either mode, runs the single-chain
+//             dot_kernel (jacobi_t_common.cuh).  The fold mode
+//             (fold_dot_mc_kernel): a CTA takes one
 //             split of 128 words through several blocks of the round, holds
-//             8 chains' eps (CP = 1, 2, 4 below 5 chains) in registers and
+//             8 chains' eps (CP = 2, 4 below 5 chains) in registers and
 //             decodes each code once for them; the next block's words
 //             stream into shared memory (cp.async) while each row's sums
 //             are staged and added up.  The miss mode (dot_mc_kernel): a
@@ -42,7 +44,7 @@
 //             thread stages its chains' scaled eps in shared memory and
 //             adds, row by row, the eps of the fields whose call is
 //             missing, in field order), bit for bit the 16-FMA dense form
-//             that the single-chain dot (jacobi_t.cu) runs.
+//             on the indicator bits.
 //   solve_mc  one warp per (block, chain), grid (J, C): the single-chain
 //             solve_block / hs_solve_block on the chain's operands.  v and
 //             bacc partials per (chain, block), reduced by the wrapper in a
@@ -95,62 +97,6 @@
 namespace {
 
 constexpr int kMaxC = 16;   // chains per fused sweep
-
-// The CP chains' e' of one field of a thread, staged together.
-template <int CP>
-struct alignas(4 * CP) EsVec {
-  float e[CP];
-};
-
-// The indicator of one word column's B rows for CP chains, only where a
-// call is missing: acc[p][i] = the sum over the fields k of row i whose
-// call is missing, in ascending k, of e'_p[k], from +0.  e'_p[k] =
-// (e_p[k]*4^-k')*4^k' is the product the dense form (dot_rows on
-// miss_bits) takes at that field, exactly, so each add rounds as its FMA
-// does; at every other field the dense form adds a zero product, which
-// leaves a sum that is never -0 unchanged.  So acc equals dot_rows on the
-// indicator bit for bit (for finite eps), at a few adds a row where the
-// dense form takes 16 FMAs.
-// Ascending bit position is ascending k: field k is bit 2k of miss_bits
-// (11-15 from w >> 22 in dot_rows).  es holds a field's CP values
-// together (one 16-byte load for CP = 4), at es[k*kDotThreads].
-template <int CP>
-__device__ __forceinline__ void miss_rows(const uint32_t (&wds)[kMaxB],
-                                          const EsVec<CP>* es,
-                                          float (&acc)[CP][kMaxB]) {
-  // each row's first missing call, branch-free, so that the loads of 8
-  // rows are issued together (8, not 32: the registers of the loaded
-  // values): a row without one loads field 0 and adds +0, which leaves
-  // acc (+0) as it is
-#pragma unroll
-  for (int i0 = 0; i0 < kMaxB; i0 += 8) {
-    asm volatile("" ::: "memory");
-#pragma unroll
-    for (int i = i0; i < i0 + 8; ++i) {
-      const uint32_t m = miss_bits(wds[i]);
-      const EsVec<CP> v =
-          es[(m != 0u ? (__ffs(m) - 1) >> 1 : 0) * kDotThreads];
-#pragma unroll
-      for (int p = 0; p < CP; ++p)
-        acc[p][i] = 0.f + (m != 0u ? v.e[p] : 0.f);
-    }
-  }
-  // the rest, in field order (most rows of a warp have none); the word
-  // is read afresh, so that the first pass's 32 masks are not kept
-#pragma unroll
-  for (int i = 0; i < kMaxB; ++i) {
-    uint32_t w = wds[i];
-    asm volatile("" : "+r"(w));
-    uint32_t m = miss_bits(w);
-    m &= m - 1u;
-    while (m != 0u) {
-      const EsVec<CP> v = es[((__ffs(m) - 1) >> 1) * kDotThreads];
-      m &= m - 1u;
-#pragma unroll
-      for (int p = 0; p < CP; ++p) acc[p][i] = acc[p][i] + v.e[p];
-    }
-  }
-}
 
 // The miss mode's fused dot over the C chains, CP at a time, on the words
 // wds: each chain's code row sums into red[c][warp][lane] and its sum(eps)
@@ -284,28 +230,28 @@ dot_mc_kernel(const uint32_t* __restrict__ words, int Nw,
   }
 }
 
-// ---- the fold mode's fused dot (fold_dot_mc_kernel).  A CTA takes one
-// split of kDotThreads words (a thread a word, as dot_mc_kernel) and walks
-// several blocks j of the round: blockIdx.y, + gridDim.y, ..., so each
-// chain's eps is read once a CTA and not once a block.  A thread holds the
-// eps of CP chains (CP = 8 for C > 4, two passes over the blocks at C > 8)
+// ---- the fold mode's fused dot (fold_dot_mc_kernel).  A CTA takes one split
+// of kDotThreads words (a thread a word, as dot_mc_kernel) and walks several
+// blocks j of the round: blockIdx.y, + gridDim.y, ..., so each chain's eps is
+// read once a CTA and not once a block.  A thread holds the eps of CP chains
+// (CP = 2, 4 below 5 chains, 8 above, two passes over the blocks at C > 8)
 // and decodes each code once for all of them.  The next block's words come
 // into shared memory by cp.async (a thread its own column, so no barrier)
-// while the current block is summed.  Each row's CP sums are staged in
-// shared memory, a warp's 32 words of a (chain, row) side by side, and lane
-// l of the warp then adds pair l's 32 values in warp_transpose_sum's tree
-// (lanes a and a + 16 first, then + 8, + 4, + 2, + 1): the transpose's
-// 31 shuffles, 62 selects and 31 adds a chain become 32 stores, 8 loads
-// and 31 adds.  A chain's sum of a (row, word) is dot_word's 16 fmaf in
-// field order, from +0; then the same tree over the warp's words and the
-// same sum over warps 0..3, from 0, into the same partials: the bits of
-// dot_mc_kernel and of the single-chain dot_kernel<false>.  The decode's
-// magic comes from kDecodeBits (one LOP3 a field, not two).  At C=8 the
-// FFMAs run at ~40 % of the FP32 pipe's rate; eps read once a CTA, the
+// while the current block is summed.  Each row's CP sums are staged in shared
+// memory, a warp's 32 words of a (chain, row) side by side, and lane l of the
+// warp then adds pair l's 32 values in warp_transpose_sum's tree
+// (staged_tree: lanes a and a + 16 first, then + 8, + 4, + 2, + 1): the
+// transpose's 31 shuffles, 62 selects and 31 adds a chain become 32 stores, 8
+// loads and 31 adds.  A chain's sum of a (row, word) is dot_word's 16 fmaf in
+// field order, from +0; then the same tree over the warp's words and the same
+// sum over warps 0..3, from 0, into the same partials: the bits of
+// dot_mc_kernel and of the single-chain dot_kernel (C = 1 runs that kernel: a
+// walk of the blocks with one chain's eps loses to it, PERF.md §6).  The
+// decode's magic comes from kDecodeBits (one LOP3 a field, not two).  At C=8
+// the FFMAs run at ~40 % of the FP32 pipe's rate; eps read once a CTA, the
 // prefetch and the magic were worth 37, 6 and 15 us of a ~250 us round
 // (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6).
 constexpr int kFoldSlots = 2;   // word buffers: the block summed, the next
-constexpr int kFoldPad = 36;    // floats a staged (chain, row): 32 and a pad
 constexpr int kFoldCtas8 = 3;   // CTAs an SM at CP = 8 (168 registers)
 
 // Dynamic shared memory of fold_dot_mc_kernel<CP>: the word buffers (a
@@ -314,7 +260,7 @@ constexpr int kFoldCtas8 = 3;   // CTAs an SM at CP = 8 (168 registers)
 constexpr size_t fold_dot_smem(int CP) {
   return sizeof(uint32_t) * kFoldSlots * kMaxB * kDotThreads +
          sizeof(float) * (kDotThreads / 32) *
-             (32 * kFoldPad + CP * 32 + CP);
+             (32 * kStagePad + CP * 32 + CP);
 }
 
 template <int CP>
@@ -329,7 +275,7 @@ fold_dot_mc_kernel(const uint32_t* __restrict__ words, int Nw,
   uint32_t* wbuf = fdyn;                             // [slot][row][thread]
   float* staged = reinterpret_cast<float*>(wbuf + kFoldSlots * kMaxB *
                                                       kDotThreads);
-  float* wsum = staged + kWarps * 32 * kFoldPad;     // [p][warp][row]
+  float* wsum = staged + kWarps * 32 * kStagePad;    // [p][warp][row]
   float* esw = wsum + CP * kWarps * 32;              // [p][warp]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int w = blockIdx.x * kDotThreads + tid;
@@ -340,7 +286,7 @@ fold_dot_mc_kernel(const uint32_t* __restrict__ words, int Nw,
   const int G = gridDim.y;
   const int nj = (J - blockIdx.y + G - 1) / G;   // blocks of this CTA
   const int items = (C + CP - 1) / CP * nj;      // (chain group, block)
-  float* mine = staged + warp * 32 * kFoldPad;
+  float* mine = staged + warp * 32 * kStagePad;
 
   // this thread's column of the B rows of item it's block
   const auto fetch = [&](int it) {
@@ -396,29 +342,14 @@ fold_dot_mc_kernel(const uint32_t* __restrict__ words, int Nw,
         float s[CP];
         dot_word<CP>(row < B ? wb[row * kDotThreads] : 0u, e, s, magic);
 #pragma unroll
-        for (int p = 0; p < CP; ++p) mine[(p * R + i) * kFoldPad + lane] = s[p];
+        for (int p = 0; p < CP; ++p)
+          mine[(p * R + i) * kStagePad + lane] = s[p];
       }
       __syncwarp();
       // pair (p, i) = (lane / R, lane % R): the tree of its 32 words
-      const float4* x4 =
-          reinterpret_cast<const float4*>(mine + lane * kFoldPad);
-      float y[16];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float4 a = x4[q], b = x4[q + 4];
-        y[4 * q] = a.x + b.x;
-        y[4 * q + 1] = a.y + b.y;
-        y[4 * q + 2] = a.z + b.z;
-        y[4 * q + 3] = a.w + b.w;
-      }
-#pragma unroll
-      for (int a = 0; a < 8; ++a) y[a] = y[a] + y[a + 8];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) y[a] = y[a] + y[a + 4];
-      y[0] = y[0] + y[2];
-      y[1] = y[1] + y[3];
       const int p = lane / R, i = lane % R;
-      wsum[(p * kWarps + warp) * 32 + r0 + i] = y[0] + y[1];
+      wsum[(p * kWarps + warp) * 32 + r0 + i] =
+          staged_tree(mine + lane * kStagePad);
       __syncwarp();
     }
     __syncthreads();
@@ -492,9 +423,11 @@ cudaError_t launch_dot_mc(int C, int Nw, int x_int8, int nsplit, int J,
                             nsplit);
     return cudaGetLastError();
   }
+  // the 2-bit words: one chain in either mode (jacobi_t_common.cuh)
+  if (C == 1)
+    return launch_one_chain_dot(Nw, nsplit, J, s, words, eps, rho, round,
+                                nr, B, partial, pind);
   if (pind == nullptr) {
-    if (C == 1) return launch_fold_dot<1>(C, Nw, nsplit, J, s, words, eps,
-                                          rho, round, nr, B, partial);
     if (C == 2) return launch_fold_dot<2>(C, Nw, nsplit, J, s, words, eps,
                                           rho, round, nr, B, partial);
     if (C <= 4) return launch_fold_dot<4>(C, Nw, nsplit, J, s, words, eps,
@@ -512,8 +445,7 @@ cudaError_t launch_dot_mc(int C, int Nw, int x_int8, int nsplit, int J,
     dot_mc_kernel<CP><<<grid, kDotThreads, smem, s>>>(                    \
         words, Nw, eps, C, rho, round, nr, J, B, partial, pind, nsplit);  \
   } while (0)
-  if (C == 1) JT_DOT(1);
-  else if (C == 2) JT_DOT(2);
+  if (C == 2) JT_DOT(2);
   else JT_DOT(4);
 #undef JT_DOT
   return cudaGetLastError();

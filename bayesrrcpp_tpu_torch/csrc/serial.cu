@@ -57,7 +57,8 @@
 //          of the round and every chain, in the code domain; the words are
 //          read once for all chains (jacobi_t_common.cuh:dot_rows, CP
 //          chains per decode) in CTAs of 128 words x 32 rows of one block,
-//          partial sums to (C, nsplit, J*B + 1), the extra column sum(eps).
+//          partial sums to (C, nsplit, J*B + 1), the extra column sum(eps)
+//          (the int8 in-kernel decode: 4 rows a CTA, serial_q8_dot_kernel).
 //          The CTAs also prefetch the round's Gram matrices into L2 for
 //          the solve.
 //   solve  one CTA of 256 threads per (chain, block).  All threads turn
@@ -206,28 +207,24 @@ __device__ __forceinline__ void prefetch_gram(const float* gram,
 // The row-major modes' dot: CTA (tile, (j, grp)) takes rows grp*32 .. of
 // the block at sweep position q0 + j for all C chains (jacobi_t_common.cuh:
 // dense_dot_tile), into (C, nsplit, J*B + 1) partials: dense f32 rows
-// (no sum(eps) column), int8 codes in the fold mode (CTAs of blockIdx.y 0
-// write sum(eps)), or with Q the int8 in-kernel decode (one chain, no
-// sum(eps)).
-template <bool V, typename T, bool Q>
+// (no sum(eps) column) or int8 codes in the fold mode (CTAs of blockIdx.y
+// 0 write sum(eps)).
+template <bool V, typename T>
 __global__ void __launch_bounds__(kDotThreads)
 serial_dense_dot_kernel(const T* __restrict__ X, int N,
                         const float* __restrict__ eps, int C,
                         const int* __restrict__ border, int q0, int J, int B,
                         const float* __restrict__ gram,
-                        float* __restrict__ partial, int nsplit,
-                        const float* __restrict__ mean,
-                        const float* __restrict__ scale) {
+                        float* __restrict__ partial, int nsplit) {
   __shared__ float red[kSerialMaxC][kDotThreads / 32][32];
   const DotTile tl = dot_tile(border, q0, B);
   prefetch_gram(gram, tl, B);
   const int col0 = tl.j * B + tl.grp * kMaxB;
   if constexpr (sizeof(T) == 1) {
-    __shared__ float red_e[Q ? 1 : kSerialMaxC][kDotThreads / 32];
-    int8_dot_tile<V, Q>(X, N, tl.row0, tl.nrow, eps, C, red,
-                        Q ? nullptr : red_e, mean, scale);
-    dense_dot_store(red, !Q && blockIdx.y == 0 ? red_e : nullptr, C,
-                    partial, nsplit, J * B + 1, col0, tl.nrow);
+    __shared__ float red_e[kSerialMaxC][kDotThreads / 32];
+    int8_dot_tile<V>(X, N, tl.row0, tl.nrow, eps, C, red, red_e);
+    dense_dot_store(red, blockIdx.y == 0 ? red_e : nullptr, C, partial,
+                    nsplit, J * B + 1, col0, tl.nrow);
   } else {
     dense_dot_tile<V>(X, N, tl.row0, tl.nrow, eps, C, red);
     dense_dot_store(red, nullptr, C, partial, nsplit, J * B + 1, col0,
@@ -236,17 +233,97 @@ serial_dense_dot_kernel(const T* __restrict__ X, int N,
 }
 
 // Launch serial_dense_dot_kernel with vector loads where rows_v4 allows.
-template <typename T, bool Q>
+template <typename T>
 void launch_serial_row_dot(dim3 grid, cudaStream_t s, const T* X, int N,
                            const float* eps, int C, const int* border, int q0,
                            int J, int B, const float* gram, float* partial,
-                           int nsplit, const float* mean, const float* scale) {
+                           int nsplit) {
   if (rows_v4(X, eps, N))
-    serial_dense_dot_kernel<true, T, Q><<<grid, kDotThreads, 0, s>>>(
-        X, N, eps, C, border, q0, J, B, gram, partial, nsplit, mean, scale);
+    serial_dense_dot_kernel<true, T><<<grid, kDotThreads, 0, s>>>(
+        X, N, eps, C, border, q0, J, B, gram, partial, nsplit);
   else
-    serial_dense_dot_kernel<false, T, Q><<<grid, kDotThreads, 0, s>>>(
-        X, N, eps, C, border, q0, J, B, gram, partial, nsplit, mean, scale);
+    serial_dense_dot_kernel<false, T><<<grid, kDotThreads, 0, s>>>(
+        X, N, eps, C, border, q0, J, B, gram, partial, nsplit);
+}
+
+// ---- the int8 in-kernel decode's dot (serial_q8_dot_kernel: J=1, one chain,
+// codes with missing calls).  CTA (split, g) takes the kQ8Rows rows g*kQ8Rows
+// .. of the block over split blockIdx.x's kInt8Tile columns (128 threads x 16
+// codes, the fold mode's mapping), so a block's rows spread over the SMs: 392
+// CTAs of 128 threads at the headline (B=32, N=100,352).  A thread issues the
+// loads of its 16 codes of every row of the CTA, of their rows' means and
+// scales and of its eps first, all together, and only then decodes each code
+// op for op as the TPU's _decode_tile does, x = code8_f, then x == 3 ? 0 : (x
+// - mean)*scale, and sums a row's 16 products by fmaf in column order from
+// +0.  The warp's 32 sums of a row are staged in shared memory and added in
+// warp_transpose_sum's tree (staged_tree), then warps 0..3 from 0: each row's
+// partial has the bits of a dot that holds all 32 rows of a split in a
+// thread, since a row's sum reads no other row.  Bound: the block's codes and
+// eps, 3.6 MB at the headline (1.08 us at 3.35 TB/s); the decode (7
+// instructions a code) needs ~0.7 us of the card's issue.  Rows a CTA against
+// us a block on the card (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6): 1 row
+// 4.35, 2 rows 4.00, 4 rows 4.00-4.03, 8 rows 4.51, 16 rows 6.34, 32 rows (49
+// CTAs, a warp a scheduler, the rows' means and scales loaded one after
+// another) 12.62.
+constexpr int kQ8Rows = 4;   // rows of a block a CTA
+
+template <bool V>
+__global__ void __launch_bounds__(kDotThreads)
+serial_q8_dot_kernel(const int8_t* __restrict__ X, int N,
+                     const float* __restrict__ eps,
+                     const int* __restrict__ border, int q0, int B,
+                     const float* __restrict__ gram,
+                     float* __restrict__ partial,
+                     const float* __restrict__ mean,
+                     const float* __restrict__ scale) {
+  constexpr int R = kQ8Rows, kWarps = kDotThreads / 32;
+  __shared__ __align__(16) float staged[kWarps][R][kStagePad];
+  __shared__ float wsum[kWarps][R];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  DotTile tl;
+  tl.j = 0;
+  tl.grp = blockIdx.y;
+  tl.ngrp = gridDim.y;
+  tl.nrow = min(R, B - tl.grp * R);
+  tl.blk = border[q0];
+  tl.row0 = tl.blk * B + tl.grp * R;
+  prefetch_gram(gram, tl, B);
+  const long long n0 = (long long)blockIdx.x * kInt8Tile;
+  uint4 w[R];
+  float m[R], sc[R], e[kInt8Cols];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const bool in = i < tl.nrow;
+    w[i] = in ? load_codes16<V>(X + (tl.row0 + i) * N, n0, N)
+              : make_uint4(0u, 0u, 0u, 0u);
+    m[i] = in ? __ldg(mean + tl.row0 + i) : 0.f;
+    sc[i] = in ? __ldg(scale + tl.row0 + i) : 0.f;
+  }
+  load_eps_int8<V>(eps, n0, N, e);
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const uint32_t wq[4] = {w[i].x, w[i].y, w[i].z, w[i].w};
+    float s = 0.f;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        float x = code8_f(wq[q], k);
+        x = x == 3.f ? 0.f : (x - m[i]) * sc[i];
+        s = fmaf(x, e[4 * q + k], s);
+      }
+    }
+    staged[warp][i][lane] = s;
+  }
+  __syncwarp();
+  if (lane < R) wsum[warp][lane] = staged_tree(&staged[warp][lane][0]);
+  __syncthreads();
+  if (threadIdx.x < tl.nrow) {
+    float t = 0.f;
+#pragma unroll
+    for (int q = 0; q < kWarps; ++q) t += wsum[q][threadIdx.x];
+    partial[(long long)blockIdx.x * (B + 1) + tl.grp * R + threadIdx.x] = t;
+  }
 }
 
 // CP chains per decode; Q: the in-kernel decode mode (CP == 1), which
@@ -1175,22 +1252,29 @@ cudaError_t launch_dot(const SerialSweep& o, int r, cudaStream_t s) {
   const dim3 grid(o.nsplit, o.J * ((o.B + kMaxB - 1) / kMaxB));
   const int q0 = r * o.J;
   if (o.mode == kDense) {
-    launch_serial_row_dot<float, false>(
+    launch_serial_row_dot<float>(
         grid, s, reinterpret_cast<const float*>(o.words), o.Nw, o.eps, o.C,
-        o.border, q0, o.J, o.B, o.gram, o.partial, o.nsplit, nullptr,
-        nullptr);
+        o.border, q0, o.J, o.B, o.gram, o.partial, o.nsplit);
     return cudaGetLastError();
   }
-  if (o.mode == kInt8 || o.mode == kInt8Decode) {
+  if (o.mode == kInt8) {
+    launch_serial_row_dot<int8_t>(
+        grid, s, reinterpret_cast<const int8_t*>(o.words), o.Nw, o.eps, o.C,
+        o.border, q0, o.J, o.B, o.gram, o.partial, o.nsplit);
+    return cudaGetLastError();
+  }
+  if (o.mode == kInt8Decode) {
+    // J = 1: kQ8Rows rows of the block a CTA
+    const dim3 qgrid(o.nsplit, (o.B + kQ8Rows - 1) / kQ8Rows);
     const int8_t* X = reinterpret_cast<const int8_t*>(o.words);
-    if (o.mode == kInt8)
-      launch_serial_row_dot<int8_t, false>(
-          grid, s, X, o.Nw, o.eps, o.C, o.border, q0, o.J, o.B, o.gram,
-          o.partial, o.nsplit, nullptr, nullptr);
+    if (rows_v4(X, o.eps, o.Nw))
+      serial_q8_dot_kernel<true><<<qgrid, kDotThreads, 0, s>>>(
+          X, o.Nw, o.eps, o.border, q0, o.B, o.gram, o.partial, o.mean,
+          o.scale);
     else
-      launch_serial_row_dot<int8_t, true>(
-          grid, s, X, o.Nw, o.eps, o.C, o.border, q0, o.J, o.B, o.gram,
-          o.partial, o.nsplit, o.mean, o.scale);
+      serial_q8_dot_kernel<false><<<qgrid, kDotThreads, 0, s>>>(
+          X, o.Nw, o.eps, o.border, q0, o.B, o.gram, o.partial, o.mean,
+          o.scale);
     return cudaGetLastError();
   }
 #define SERIAL_DOT(CP, Q)                                                 \

@@ -27,8 +27,13 @@ the same outputs: each case prints a hash of its outputs.
   one chain and 8 fused, and the row layout;
 - ``t1miss_*`` / ``t8miss_*``: the strided sweeps, one chain and 8 fused,
   on words with missing calls at 2^-6 (their ``miss`` mode);
-- ``q_bayesr``: int8 codes of those words through the serial in-kernel
-  decode (``_q``: the auto plan J=1, B=32), one chain.
+- ``c1_bayesr`` / ``c1miss_bayesr``: one chain through the fused BayesR
+  sweep (csrc/jacobi_t_mc.cu at C=1), on the words without and with
+  missing calls: whatever dot the fused sweep runs for one chain, beside
+  ``t1_*``'s;
+- ``q_bayesr`` / ``q_horseshoe``: int8 codes of those words through the
+  serial in-kernel decode (``_q``: the auto plan J=1, B=32, #9 / #10), one
+  chain.
 
 Each case gives the milliseconds of ``REPS`` calls after one warm call (each
 timed with CUDA events), then, from torch.profiler over one more call, the
@@ -371,11 +376,13 @@ def run_one(root):
 
     # the 2-bit words
     for kind in ("bayesr", "horseshoe"):
-        if wanted(f"t1_{kind}", f"t8_{kind}"):
+        if wanted(f"t1_{kind}", f"t8_{kind}", f"c1_{kind}"):
             s = make(kind, words)
             assert (s.jacobi, s.B) == (128, 32), (s.jacobi, s.B)
             strided(kind, s, None, "t1")
             strided(kind, s, CHAINS, "t8")
+            if kind == "bayesr":
+                strided(kind, s, 1, "c1")
             del s
         if wanted(f"s1_{kind}", f"s8_{kind}"):
             s = make(kind, words, jacobi_blocks=1)
@@ -423,7 +430,8 @@ def run_one(root):
         del words
     torch.cuda.empty_cache()
     if not wanted("t1miss_bayesr", "t1miss_horseshoe", "t8miss_bayesr",
-                  "t8miss_horseshoe", "q_bayesr"):
+                  "t8miss_horseshoe", "c1miss_bayesr", "q_bayesr",
+                  "q_horseshoe"):
         print(json.dumps(out), flush=True)
         return
 
@@ -443,13 +451,15 @@ def run_one(root):
     per_row = float(popcount16(torch, words[:512 * 32] & (
         words[:512 * 32] >> 1) & 0x55555555).sum()) / (512 * 32)
     for kind in ("bayesr", "horseshoe"):
-        if wanted(f"t1miss_{kind}", f"t8miss_{kind}"):
+        if wanted(f"t1miss_{kind}", f"t8miss_{kind}", f"c1miss_{kind}"):
             s = make(kind, words)
             assert (s.jacobi, s.B, s.data.has_missing) == (128, 32, True)
             strided(kind, s, None, "t1miss", per_row)
             strided(kind, s, CHAINS, "t8miss", per_row)
+            if kind == "bayesr":
+                strided(kind, s, 1, "c1miss", per_row)
             del s
-    if not wanted("q_bayesr"):
+    if not wanted("q_bayesr", "q_horseshoe"):
         print(json.dumps(out), flush=True)
         return
     codes = torch.empty((M, N), dtype=torch.int8, device="cuda")
@@ -457,9 +467,15 @@ def run_one(root):
         codes[a:a + 2048] = decode_codes(words[a:a + 2048])[:, :N]
     del words
     torch.cuda.empty_cache()
-    s = make("bayesr", codes, skw=dict(kw, x_dtype="int8"))
-    assert (s.jacobi, s.B, s.data.has_missing) == (1, 32, True)
-    serial("bayesr", s, None, "q", {"bayesr": ser.bayesr_sweep})
+    for kind in ("bayesr", "horseshoe"):
+        if not wanted(f"q_{kind}"):
+            continue
+        s = make(kind, codes, skw=dict(kw, x_dtype="int8"))
+        assert (s.jacobi, s.B, s.data.has_missing) == (1, 32, True)
+        assert s._sweep_kw()["fold_affine"] is False
+        serial(kind, s, None, "q", {"bayesr": ser.bayesr_sweep,
+                                    "horseshoe": ser.horseshoe_sweep})
+        del s
     print(json.dumps(out), flush=True)
 
 

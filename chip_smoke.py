@@ -103,7 +103,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    kernel; ``fused=True`` raises), with their launch counts;
 16. the CLI in-process, ``python -m bayesrrcpp_tpu_torch bayesr|horseshoe
    --bed ... --x-dtype 2bit`` on a .bed with missing calls at N=100,352 x
-   M=8,192 written by ``io/bed.write_bed`` into a temporary directory, on
+   M=4,096 written by ``io/bed.write_bed`` into a temporary directory, on
    the card: the CSV's widths and values and the launch counts;
 17. dense X (``x_dtype="dense"``, standardized f32 rows built on the card
    from a seed), the kernels' dense mode: (a) each of the eight dense
@@ -1744,6 +1744,7 @@ def missing_phases(torch, bt, tmp):
     from bayesrrcpp_tpu_torch.io.sink import ChainFanoutSink, CSVSink
     from bayesrrcpp_tpu_torch.ops import jacobi_t as jt
     from bayesrrcpp_tpu_torch.ops import serial as ser
+    from bayesrrcpp_tpu_torch.ops.jacobi import auto_jacobi_plan
 
     dev = torch.device("cuda")
     bnames = ("eps", "beta", "labels", "v", "beta_acum")
@@ -2095,8 +2096,9 @@ def missing_phases(torch, bt, tmp):
             f"{launches8}; fused=True refused")
         del sm, st, out, out8
 
-    # ---- 16. the CLI on a .bed with missing calls
-    N16, M16 = HEADLINE_N, 8192
+    # ---- 16. the CLI on a .bed with missing calls (4,096 markers: making
+    # and writing the .bed takes the host 5-6.5 s a 1,024)
+    N16, M16 = HEADLINE_N, 4096
     rng = np.random.default_rng(16)
     t0 = time.perf_counter()
     dos = rng.integers(0, 3, size=(N16, M16), dtype=np.int8).astype(
@@ -2122,7 +2124,8 @@ def missing_phases(torch, bt, tmp):
             f"{gen_s:.1f} s, write_bed {write_s:.1f} s, read_bed_packed "
             f"{read_s:.2f} s (native decoder: "
             f"{'loaded' if get_native_bed() is not None else 'absent'})")
-        nr16 = M16 // 32 // 32
+        J16, B16, _ = auto_jacobi_plan(M16, bt.BayesRConfig().block_size)
+        nr16 = M16 // B16 // J16
         for kind, counter in (("bayesr", jt.bayesr_jacobi_t),
                               ("horseshoe", jt.horseshoe_jacobi_t)):
             out = os.path.join(d16, f"{kind}.csv")
@@ -4424,7 +4427,7 @@ def int8_phases(torch, bt, hs, tmp):
             want=3 * sq.nb * chain.max_iterations)
         if kind == "bayesr":
             int8_profile(torch, bt, sq, st, f"[24e] {cell}",
-                         ("serial_dense_dot_kernel", "serial_solve_kernel",
+                         ("serial_q8_dot_kernel", "serial_solve_kernel",
                           "row_apply_kernel"), sq.nb, steps=1)
         del st
         rec[kind + "_q"] = dict(launches=n, ms_iter=ms_iter,

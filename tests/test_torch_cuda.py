@@ -1197,8 +1197,8 @@ def test_packed_apply_with_none_few_or_all_rows_moving(cuda, missing, moving,
     pi[0] = 0.98 from beta = 0) and every valid row (the horseshoe), at
     N=1,500 (row_valid lanes) and Nw = 128 or 100 (a last CTA of 4 words):
     against the plain version, and every output bitwise equal to the fused
-    sweep of that one chain (fold_dot_mc_kernel<1> or dot_mc_kernel<1>,
-    and apply_mc_kernel<1>)."""
+    sweep of that one chain (the same dot_kernel, and
+    apply_mc_kernel<1>)."""
     J, B, N = 8, 32, 1500
     seed = 61 + missing + 2 * Nw
     if moving == "all":
@@ -1239,3 +1239,71 @@ def test_packed_apply_with_none_few_or_all_rows_moving(cuda, missing, moving,
     out = tuple(fused(*one, **kw))
     for k, (a, b) in enumerate(zip(ker, out)):
         assert torch.equal(a, b[0]), k
+
+
+# ------------- the one-chain strided dot and the int8 in-kernel decode dot
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Nw", [128, 100])
+@pytest.mark.parametrize("B", [32, 30])
+@pytest.mark.parametrize("missing", [False, True])
+def test_single_chain_dot_matches_plain_and_the_fused_chain(cuda, missing,
+                                                           B, Nw):
+    """The single-chain strided sweep, whose dot is dot_kernel<MISS> (fold
+    and miss modes), at N=1,500 (row_valid lanes) with Nw = 128
+    or 100 words a row (a split with 28 words past Nw) and B = 32 or 30:
+    against the plain version (labels and v exact, floats to f32
+    reassociation); every output bitwise equal to the fused sweep of that
+    one chain; and a chunk of 3 of the sweep's 4 rounds (#5, rho holding
+    global round ids) against its plain version and, run with the last
+    round's chunk, bitwise equal to the whole sweep."""
+    J, nr, N = 8, 4, 1500
+    args, kw = _case(71 + missing + B + Nw, J, B, 1, 4, nr, N, cuda,
+                     missing=missing)
+    args, kw = _narrow(args, kw, Nw)
+    ker = bayesr_jacobi_t(*args, **kw)
+    ref = bayesr_jacobi_t_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(ker.labels, ref.labels)
+    assert torch.equal(ker.v, ref.v)
+    torch.testing.assert_close(ker.beta, ref.beta, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(ker.eps, ref.eps, rtol=1e-4, atol=1e-5)
+    assert (ker.eps[N:] == 0).all()
+    per_chain = (3, 4, 5, 8, 9, 10, 12, 13)
+    one = tuple(a[None] if k in per_chain else a for k, a in enumerate(args))
+    for name, a, b in zip(ker._fields, ker, bayesr_jacobi_t_mc(*one, **kw)):
+        assert torch.equal(a, b[0]), name
+    rkw = dict(kw, nr_total=nr)
+    a = list(args)
+    a[6] = args[6][:3]
+    part, part_ref = (bayesr_jacobi_t_rounds(*a, **rkw),
+                      bayesr_jacobi_t_rounds_reference(*a, **rkw))
+    torch.cuda.synchronize()
+    assert torch.equal(part.labels, part_ref.labels)
+    torch.testing.assert_close(part.eps, part_ref.eps, rtol=1e-4, atol=1e-5)
+    a[3], a[4], a[5] = part.eps, part.beta, part.labels
+    a[6] = args[6][3:]
+    last = bayesr_jacobi_t_rounds(*a, **rkw)
+    for name in ("eps", "beta", "labels"):
+        assert torch.equal(getattr(last, name), getattr(ker, name)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hs", [False, True])
+def test_int8_decode_kernels_at_narrow_rows_and_wide_blocks(cuda, hs):
+    """The serial `_q` sweeps #9 / #10 on int8 codes with ~3 % missing
+    calls (serial_q8_dot_kernel: 4 rows of a block a CTA, 128 CTAs a split
+    at B=512) at N=150 (byte loads, a split mostly past N): against the
+    plain version (labels and v exact, eps as ``_assert_eps_close``, beta
+    to f32 reassociation) and a second launch bitwise equal."""
+    single, plain, _, _ = _int8_fns("serial", hs)
+    c, kw = _int8_case(150 + hs, 4, 512, 150, 1, 2, cuda, missing=True)
+    names = ("eps", "beta") + (() if hs else ("labels", "v", "beta_acum"))
+    args = _int8_args(c, hs, "serial", c["order"], 0, 512)
+    before = single.launches
+    ker = single(*args, **kw)
+    _assert_int8_close(names, ker, plain(*args, **kw))
+    assert single.launches == before + 3 * 4
+    for a, b in zip(ker, single(*args, **kw)):
+        assert torch.equal(a, b)
