@@ -67,15 +67,17 @@ __host__ __device__ constexpr uint32_t exact_bits(int k) {
   return (150u - 2u * k) << 23;
 }
 
-// The decodes' constant bits, read from constant memory by the fused fold
-// dot and the 2-bit apply: the compiler folds a constant it knows into an
-// immediate, and a LOP3 takes one 32-bit immediate, so (w & mask) | bits
-// with both known takes two LOP3s, with bits read from here one (PERF.md
-// §6).  kDecodeBits[k] = exact_bits(k) for the fields k < 4 of a
-// byte, kDecodeBits[kMagicAt] = kMagicBits.
-constexpr int kMagicAt = 4;
+// The decodes' constant bits, read from constant memory by the 2-bit dots
+// and applies: the compiler folds a constant it knows into an immediate, and
+// a LOP3 takes one 32-bit immediate, so (w & mask) | bits with both known
+// takes two LOP3s, with bits read from here one (PERF.md §6).
+// kDecodeBits[k] = exact_bits(k) for the fields k <= 10 that code_exact
+// decodes in place, kDecodeBits[kMagicAt] = kMagicBits.
+constexpr int kMagicAt = 11;
 __constant__ uint32_t kDecodeBits[kMagicAt + 1] = {
-    exact_bits(0), exact_bits(1), exact_bits(2), exact_bits(3), kMagicBits};
+    exact_bits(0), exact_bits(1), exact_bits(2), exact_bits(3),
+    exact_bits(4), exact_bits(5), exact_bits(6), exact_bits(7),
+    exact_bits(8), exact_bits(9), exact_bits(10), kMagicBits};
 
 // Exact float of the field k <= 10 of w in one LOP3 and one FADD, as
 // code_f in three: the field stays in place under the exponent of
@@ -212,23 +214,24 @@ __device__ __forceinline__ float load_eps16(const float4* e4, float (&e)[16]) {
   return esum;
 }
 
-// The B words of one packed column (stride Nw), zero above B.  Each row
-// is a 32-bit byte offset from wp (one IMAD.WIDE a load), and a full
+// The B <= R words of one packed column (stride Nw), zero above B.  Each
+// row is a 32-bit byte offset from wp (one IMAD.WIDE a load), and a full
 // block's loads are not predicated: 64-bit row arithmetic and a predicate
 // a row took ~10 instructions a load (the SASS of dot_kernel).
+template <int R>
 __device__ __forceinline__ void load_words(const uint32_t* wp, int Nw, int B,
-                                           uint32_t (&wds)[kMaxB]) {
+                                           uint32_t (&wds)[R]) {
   const char* base = reinterpret_cast<const char*>(wp);
   const unsigned stride = 4u * static_cast<unsigned>(Nw);
   const auto at = [&](int i) {
     return __ldg(reinterpret_cast<const uint32_t*>(base + i * stride));
   };
-  if (B == kMaxB) {
+  if (B == R) {
 #pragma unroll
-    for (int i = 0; i < kMaxB; ++i) wds[i] = at(i);
+    for (int i = 0; i < R; ++i) wds[i] = at(i);
   } else {
 #pragma unroll
-    for (int i = 0; i < kMaxB; ++i) wds[i] = i < B ? at(i) : 0u;
+    for (int i = 0; i < R; ++i) wds[i] = i < B ? at(i) : 0u;
   }
 }
 

@@ -55,12 +55,13 @@
 //
 //   dot    r[c, j, l] = code row l of block j . eps_c for the J*B markers
 //          of the round and every chain, in the code domain; the words are
-//          read once for all chains (jacobi_t_common.cuh:dot_rows, CP
-//          chains per decode) in CTAs of 128 words x 32 rows of one block,
-//          partial sums to (C, nsplit, J*B + 1), the extra column sum(eps)
-//          (the int8 in-kernel decode: 4 rows a CTA, serial_q8_dot_kernel).
-//          The CTAs also prefetch the round's Gram matrices into L2 for
-//          the solve.
+//          read once for all chains, each code decoded once for up to 8
+//          (serial_dot_kernel), in CTAs of 128 words x 32 rows of one
+//          block (16 where 32 leave the card short of CTAs), partial sums
+//          to (C, nsplit, J*B + 1), the extra column sum(eps) (the int8
+//          in-kernel decode: 4 rows a CTA, serial_q8_dot_kernel).  The
+//          CTAs also prefetch the round's Gram matrices into L2 for the
+//          solve.
 //   solve  one CTA of 256 threads per (chain, block).  All threads turn
 //          the partials into r = s*(C.eps) - (m*s)*sum(eps) in shared
 //          memory and stage the block's per-marker tables.  Warp 1 streams
@@ -80,10 +81,12 @@
 //          fixed-order sums: d.xsum, d.(m*s), and its v / bacc partials.
 //          Alone, on r given, this launch is the round solve.
 //   apply  eps_c -= (sum_m d*s[c, m] x_m - sum_j d.(m*s)) over the round's
-//          rows where any chain moved, compacted in (block, index) order in
-//          shared memory; a warp reads 32 consecutive words of a row.  CTA
-//          0 also carries sum(eps) to the next round: sum(eps) - sum over
-//          the blocks, in j order, of d.xsum.
+//          rows where any chain moved, compacted by every thread into one
+//          list in (block, index) order, the listed rows streamed by bulk
+//          copies through a ring in shared memory (serial_apply_kernel; the
+//          dense and int8 modes: jacobi_t_common.cuh:row_apply_kernel).
+//          CTA 0 also carries sum(eps) to the next round: sum(eps) - sum
+//          over the blocks, in j order, of d.xsum.
 //
 // What bounds it on an H100: the dependency chain.  Round r+1's dot needs
 // round r's apply, and a block's solve is B dependent steps, each a K-way
@@ -137,11 +140,7 @@ constexpr int kRowMaxB = 512;        // the same with J > 1 blocks a round
 constexpr int kSerialMaxC = 16;      // chains per fused sweep
 constexpr int kSolveThreads = 256;
 constexpr int kSolveWarps = kSolveThreads / 32;
-constexpr int kSerialTile = 512;     // apply entries per compaction tile
-constexpr int kSerialApplyWords = 32;                    // one per lane
-constexpr int kSerialSub = kApplyThreads / kSerialApplyWords;   // warps
-constexpr int kSerialLanes = 16 / kSerialSub;            // eps lanes/thread
-constexpr int kSerialTilePerLane = kSerialTile / kApplyThreads;
+constexpr int kDotWarps = kDotThreads / 32;
 
 // `mode`: the 2-bit fold and in-kernel decode, dense f32 rows, and int8
 // codes in the fold and in-kernel decode modes
@@ -150,56 +149,36 @@ enum Storage { kFold = 0, kDecode = 1, kDense = 2, kInt8 = 3,
 
 // ------------------------------------------------------------------ dot
 
-// The in-kernel decode's dot of one word column: acc[i] = x_i . e over the
-// 16 individuals of the word, x = (c - m[i])*s[i] and 0 for code 3
-// (pallas_sweep.py:_decode_tile); e is plain eps, 0 on lanes >= N.
-__device__ __forceinline__ void decode_dot_rows(const uint32_t (&wds)[kMaxB],
-                                                const float (&e)[16],
-                                                const float (&m)[kMaxB],
-                                                const float (&sc)[kMaxB],
-                                                float (&acc)[kMaxB]) {
-#pragma unroll
-  for (int i = 0; i < kMaxB; ++i) {
-    float a = 0.f;
-#pragma unroll
-    for (int k = 0; k < 16; ++k) {
-      const float c = code_f(wds[i], k);
-      const float x = c == 3.f ? 0.f : (c - m[i]) * sc[i];
-      a = fmaf(x, e[k], a);
-    }
-    acc[i] = a;
-  }
-}
-
-// The dot CTA's place in a round: grid.y runs over (block j, row group
-// grp) of 32 rows; r of the round goes to the partial columns j*B + l.
+// The dot CTA's place in a round: grid.y runs over (block j, row group grp)
+// of R rows; r of the round goes to the partial columns j*B + grp*R + l.
 struct DotTile {
   int j, grp, ngrp, nrow;
   long long blk;       // the block at sweep position q0 + j
   long long row0;      // first row of the tile in X / the words
 };
 
-__device__ __forceinline__ DotTile dot_tile(const int* border, int q0,
-                                            int B) {
+__device__ __forceinline__ DotTile dot_tile(const int* border, int q0, int B,
+                                            int R = kMaxB) {
   DotTile t;
-  t.ngrp = (B + kMaxB - 1) / kMaxB;
+  t.ngrp = (B + R - 1) / R;
   t.j = blockIdx.y / t.ngrp;
   t.grp = blockIdx.y - t.j * t.ngrp;
-  t.nrow = min(kMaxB, B - t.grp * kMaxB);
+  t.nrow = min(R, B - t.grp * R);
   t.blk = border[q0 + t.j];
-  t.row0 = t.blk * B + t.grp * kMaxB;
+  t.row0 = t.blk * B + t.grp * R;
   return t;
 }
 
 // Warm the L2 with the Gram block of the tile's block, which the solve
-// reads next, spread over the threads of the dot's CTAs of that block.
+// reads next: its 128-byte lines spread over the threads of the dot's CTAs
+// of that block (a line or none a thread at the headline), counted in 32
+// bits.
 __device__ __forceinline__ void prefetch_gram(const float* gram,
                                               const DotTile& t, int B) {
   const float* gb = gram + t.blk * B * B;
-  const long long lines = ((long long)B * B + 31) / 32;
-  const long long nthr = (long long)gridDim.x * t.ngrp * kDotThreads;
-  for (long long ln = ((long long)t.grp * gridDim.x + blockIdx.x) *
-                          kDotThreads + threadIdx.x;
+  const int lines = (B * B + 31) / 32;
+  const int nthr = gridDim.x * t.ngrp * kDotThreads;
+  for (int ln = (t.grp * gridDim.x + blockIdx.x) * kDotThreads + threadIdx.x;
        ln < lines; ln += nthr)
     asm volatile("prefetch.global.L2 [%0];" ::"l"(gb + ln * 32));
 }
@@ -326,10 +305,57 @@ serial_q8_dot_kernel(const int8_t* __restrict__ X, int N,
   }
 }
 
-// CP chains per decode; Q: the in-kernel decode mode (CP == 1), which
-// reads mean, scale and row_valid and writes no sum(eps) column.
-template <int CP, bool Q>
-__global__ void __launch_bounds__(kDotThreads)
+// ---- the 2-bit dots (serial_dot_kernel): the fold mode for one chain or CP
+// fused chains (CP = 2, 4, 8; two passes over the chains above 8), and the
+// in-kernel decode (Q: one chain, J=1).  CTA (split, (j, grp)) takes the R
+// rows grp*R .. of the block at sweep position q0 + j over split
+// blockIdx.x's 128 words, a thread a word.  A thread issues its loads first:
+// its word's R rows (load_words: 32-bit row offsets), its eps and (Q) the
+// rows' means and scales, into shared memory.  Then it sums each row: the
+// fold mode with dot_word, the word's 16 fields in order from +0, each code
+// decoded once (one LOP3: the magic from kDecodeBits) for the CP chains whose
+// eps it holds in registers; the decode mode as the TPU's _decode_tile, x =
+// c == 3 ? 0 : (c - mean)*scale, fmaf(x, eps, s) in field order from +0 on
+// row_valid-masked eps (c by code_exact, its exponent bits from kDecodeBits).
+// A chunk of 32 / CP rows' sums is staged in shared memory, a warp's 32
+// words of a (chain, row) side by side, and lane l adds pair l's 32 values in
+// warp_transpose_sum's tree (staged_tree); warps 0..3 then add from 0 into
+// the (C, nsplit, J*B + 1) partials, the CTAs of blockIdx.y 0 also the
+// sum(eps) column.  The bits of the dot it replaced (32 rows a CTA, at most 4
+// chains a decode, warp_transpose_sum; tests/test_torch_serial_dot_order.py).
+// A row's partial reads no other row, so the rows a CTA are free: R = 32, or
+// 16 at 8 chains a decode (their eps take 128 registers) and where 32 would
+// give fewer than two CTAs an SM (the row plans' fused chains at B = 128: 392
+// CTAs where 196 ran; 8 rows, 784 CTAs, took 16.6 us a block against 13.7).
+// Bound: the SMs' issue, as jacobi_t_common.cuh:dot_kernel's (a code takes
+// a LOP3, a FADD and a FFMA a chain), over the bytes (a J=1 block of 512
+// rows: 12.8 MB of words, 3.8 us at 3.35 TB/s); one chain at 80 registers (6
+// CTAs an SM, a J=1 block's 784 CTAs in one wave) took 12.0 us a block and
+// 62.1-64.1 a row round, at 128 registers 13.0-13.1 and 64.5-65.3 (NVIDIA
+// H100 80GB HBM3, 700 W; PERF.md §6).
+
+// The in-kernel decode's sum of one word: x . e over its 16 individuals, x =
+// (c - m)*sc and 0 for code 3 (pallas_sweep.py:_decode_tile), fmaf in field
+// order from +0; e is plain eps, 0 on lanes >= N.
+__device__ __forceinline__ float decode_dot_word(uint32_t wd,
+                                                 const float (&e)[16],
+                                                 float m, float sc,
+                                                 const uint32_t (&ex)[11]) {
+  const uint32_t hi = wd >> 22;
+  float a = 0.f;
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    const float c = k <= 10 ? code_exact(wd, k, ex[k])
+                            : code_exact(hi, k - 11, ex[k - 11]);
+    const float x = c == 3.f ? 0.f : (c - m) * sc;
+    a = fmaf(x, e[k], a);
+  }
+  return a;
+}
+
+template <int CP, int R, bool Q>
+__global__ void __launch_bounds__(kDotThreads,
+                                  Q ? 2 : CP == 1 ? 6 : CP >= 8 ? 3 : 4)
 serial_dot_kernel(const uint32_t* __restrict__ words, int Nw,
                   const float* __restrict__ eps, int C,
                   const int* __restrict__ border, int q0, int J, int B,
@@ -339,51 +365,65 @@ serial_dot_kernel(const uint32_t* __restrict__ words, int Nw,
                   const float* __restrict__ scale,
                   const unsigned char* __restrict__ row_valid) {
   static_assert(!Q || CP == 1, "the in-kernel decode runs one chain");
-  const DotTile tl = dot_tile(border, q0, B);
-  const int nrow = tl.nrow;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int w = blockIdx.x * kDotThreads + threadIdx.x;
-  const int JB = J * B, B1 = JB + 1;
+  constexpr int RC = R < 32 / CP ? R : 32 / CP;   // rows a staged chunk
+  __shared__ __align__(16) float staged[kDotWarps][32][kStagePad];
+  __shared__ float wsum[CP][kDotWarps][R];
+  __shared__ float esw[CP][kDotWarps];
+  __shared__ float qms[Q ? 2 : 1][Q ? R : 1];   // Q: the rows' mean, scale
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const DotTile tl = dot_tile(border, q0, B, R);
+  const int w = blockIdx.x * kDotThreads + tid;
+  const bool live = w < Nw;
   const long long Npad = 16LL * Nw;
-  __shared__ float red[kSerialMaxC][kDotThreads / 32][32];
-  __shared__ float red_e[kSerialMaxC][kDotThreads / 32];
-  prefetch_gram(gram, tl, B);
+  const int B1 = J * B + 1;
+  float* mine = &staged[warp][0][0];
 
-  uint32_t wds[kMaxB];
-  if (w < Nw) {
-    load_words(words + tl.row0 * Nw + w, Nw, nrow, wds);
+  // every load first: the words of the R rows, their means and scales
+  // (staged in shared memory), the eps
+  uint32_t wds[R];
+  if (live) {
+    load_words(words + tl.row0 * Nw + w, Nw, tl.nrow, wds);
   } else {
 #pragma unroll
-    for (int i = 0; i < kMaxB; ++i) wds[i] = 0u;
+    for (int i = 0; i < R; ++i) wds[i] = 0u;
   }
-  float xm[Q ? kMaxB : 1], xs[Q ? kMaxB : 1];
+  uint32_t ex[Q ? 11 : 1];
   if constexpr (Q) {
-    const long long r0 = tl.row0;
-#pragma unroll
-    for (int i = 0; i < kMaxB; ++i) {
-      xm[i] = i < nrow ? __ldg(mean + r0 + i) : 0.f;
-      xs[i] = i < nrow ? __ldg(scale + r0 + i) : 0.f;
+    if (tid < R) {
+      const bool in = tid < tl.nrow;
+      qms[0][tid] = in ? __ldg(mean + tl.row0 + tid) : 0.f;
+      qms[1][tid] = in ? __ldg(scale + tl.row0 + tid) : 0.f;
     }
-  }
-#pragma unroll 1
-  for (int c0 = 0; c0 < C; c0 += CP) {
-    // the decode is the same for every pass: keep the compiler from
-    // hoisting all 32*16 decoded codes out of this loop (they spill)
 #pragma unroll
-    for (int i = 0; i < kMaxB; ++i) asm volatile("" : "+r"(wds[i]));
-    float acc[CP][kMaxB], esum[CP];
+    for (int k = 0; k < 11; ++k) ex[k] = kDecodeBits[k];
+  }
+  const uint32_t magic = kDecodeBits[kMagicAt];
+  prefetch_gram(gram, tl, B);
+  // one pass over the words below 8 chains (CP >= C), two above
+  const int passes = CP < 8 ? 1 : (C + CP - 1) / CP;
+#pragma unroll 1
+  for (int pass = 0; pass < passes; ++pass) {
+    const int c0 = pass * CP;
+    if (pass > 0) {
+      // the decode is the same for every pass: keep the compiler from
+      // hoisting the decoded codes out of this loop (they spill); not
+      // before the first pass, whose eps loads would then wait for the
+      // words
+#pragma unroll
+      for (int i = 0; i < R; ++i) asm volatile("" : "+r"(wds[i]));
+    }
+    float e[CP][16], es[CP];
 #pragma unroll
     for (int p = 0; p < CP; ++p) {
-      esum[p] = 0.f;
+      es[p] = 0.f;
 #pragma unroll
-      for (int i = 0; i < kMaxB; ++i) acc[p][i] = 0.f;
+      for (int k = 0; k < 16; ++k) e[p][k] = 0.f;
     }
-    if (w < Nw) {
-      float e[CP][16];
+    if (live) {
       if constexpr (Q) {
         const float4* e4 = reinterpret_cast<const float4*>(eps) + 4LL * w;
-        const uchar4* v4 = reinterpret_cast<const uchar4*>(row_valid) + 4LL * w;
+        const uchar4* v4 =
+            reinterpret_cast<const uchar4*>(row_valid) + 4LL * w;
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const float4 t = e4[q];
@@ -393,47 +433,61 @@ serial_dot_kernel(const uint32_t* __restrict__ words, int Nw,
           e[0][4 * q + 2] = v.z ? t.z : 0.f;
           e[0][4 * q + 3] = v.w ? t.w : 0.f;
         }
-        decode_dot_rows(wds, e[0], xm, xs, acc[0]);
       } else {
 #pragma unroll
-        for (int p = 0; p < CP; ++p) {
-          if (c0 + p < C) {
-            esum[p] = load_eps16(
+        for (int p = 0; p < CP; ++p)
+          if (c0 + p < C)
+            es[p] = load_eps16(
                 reinterpret_cast<const float4*>(eps + (c0 + p) * Npad) +
                     4LL * w,
                 e[p]);
-          } else {
-#pragma unroll
-            for (int k = 0; k < 16; ++k) e[p][k] = 0.f;
-          }
-        }
-        dot_rows<CP>(wds, e, acc);
       }
     }
+    if constexpr (Q) __syncthreads();   // qms (one pass)
 #pragma unroll
     for (int p = 0; p < CP; ++p) {
-      const float r = warp_transpose_sum(acc[p], lane);
-      const float es = warp_sum(esum[p]);
-      if (c0 + p < C) {
-        red[c0 + p][warp][lane] = r;
-        if (lane == 0) red_e[c0 + p][warp] = es;
+      const float t = warp_sum(es[p]);
+      if (lane == 0) esw[p][warp] = t;
+    }
+#pragma unroll
+    for (int r0 = 0; r0 < R; r0 += RC) {
+#pragma unroll
+      for (int i = 0; i < RC; ++i) {
+        float s[CP];
+        if constexpr (Q)
+          s[0] = decode_dot_word(wds[r0 + i], e[0], qms[0][r0 + i],
+                                 qms[1][r0 + i], ex);
+        else
+          dot_word<CP>(wds[r0 + i], e, s, magic);
+#pragma unroll
+        for (int p = 0; p < CP; ++p)
+          mine[(p * RC + i) * kStagePad + lane] = s[p];
+      }
+      __syncwarp();
+      // pair (p, i) = (lane / RC, lane % RC): the tree of its 32 words
+      if (lane < CP * RC)
+        wsum[lane / RC][warp][r0 + lane % RC] =
+            staged_tree(mine + lane * kStagePad);
+      __syncwarp();
+    }
+    __syncthreads();
+    // output (c, l): the fixed-order CTA sums
+    for (int o = tid; o < CP * R; o += kDotThreads) {
+      const int p = o / R, l = o % R, c = c0 + p;
+      if (c >= C || l >= tl.nrow) continue;
+      float t = 0.f;
+#pragma unroll
+      for (int q = 0; q < kDotWarps; ++q) t += wsum[p][q][l];
+      float* out = partial + ((long long)c * nsplit + blockIdx.x) * B1;
+      out[tl.j * B + tl.grp * R + l] = t;
+      if (blockIdx.y == 0 && l == 0) {
+        float te = 0.f;
+#pragma unroll
+        for (int q = 0; q < kDotWarps; ++q) te += esw[p][q];
+        out[J * B] = te;
       }
     }
-  }
-  __syncthreads();
-  for (int o = threadIdx.x; o < C * 32; o += kDotThreads) {
-    const int c = o >> 5, l = o & 31;
-    float t = 0.f;
-#pragma unroll
-    for (int q = 0; q < kDotThreads / 32; ++q) t += red[c][q][l];
-    float* out = partial + ((long long)c * nsplit + blockIdx.x) * B1;
-    if (l < nrow) out[tl.j * B + tl.grp * kMaxB + l] = t;
-    if (blockIdx.y == 0 && l == 0) {
-      float te = 0.f;
-#pragma unroll
-      for (int q = 0; q < kDotThreads / 32; ++q) te += red_e[c][q];
-      out[JB] = te;
-    }
+    if (pass + 1 < passes) __syncthreads();   // the next rewrites wsum, esw
   }
 }
 
@@ -1019,14 +1073,98 @@ serial_solve_kernel(SerialSolveArgs a) {
 
 // ---------------------------------------------------------------- apply
 
-// CB >= C chains (a power of two: the per-chain accumulators stay in
-// registers); the round's J blocks at sweep positions q0 .., dsc (C, J*B),
-// dms and espart (C, J) as the solve writes them.  Q: the in-kernel decode
-// mode (CB == 1, J == 1): each row is decoded with its mean and scale, and
-// d is unscaled.  esum (C,), null outside the fold mode: CTA 0 carries it
-// to the next round, esum - sum_j espart in j order.
-template <int CB, bool Q>
-__global__ void __launch_bounds__(kApplyThreads)
+// ---- the 2-bit apply (serial_apply_kernel): one chain or CB >= C fused
+// chains (a power of two: the per-chain accumulators stay in registers), in
+// the fold mode and the in-kernel decode (Q: CB == 1, J == 1); the round's J
+// blocks at sweep positions q0 .., dsc (C, J*B), dms and espart (C, J) as the
+// solve writes them.  The design of jacobi_t.cu:apply_kernel with the serial
+// row order and a chain axis.  Each of kSaConsumers consumer threads owns L
+// eps lanes of a word (their lane mask read, and their eps copied into
+// shared memory by cp.async, before anything waits), 16 / L threads a word,
+// so a CTA covers sa_words(L) words of every row: at L = 4 (one chain) 48
+// words, 131 CTAs at Nw = 6,272, one an SM; at L = 2 (fused chains) 24, two
+// an SM, so that twice the warps issue the chains' FFMAs (8 chains, every
+// row moving: 38.6-39.0 us a J=1 block against 44.2 at L = 4; one chain at
+// L = 2: 108.1 us a row round against 97.4-98.0; NVIDIA H100 80GB HBM3, 700
+// W; PERF.md §6).  Every thread loads its share of the round's d, every chain's (a row
+// moves where d != 0 in any chain), a ballot a warp marks the moved entries
+// in a bitmask, one warp's prefix over the mask's words places them, and
+// each moved entry is written at its place in one list in (block, index)
+// order: its row, border[q0 + e / B]*B + e % B, its CB d and, in Q, the
+// row's mean and scale.  Then kSaIssuers issuer warps stream the listed
+// rows' segments, kSaRows rows a stage, into a ring of kSaStages stages in
+// shared memory (stage s by warp s mod kSaIssuers, a cp.async.bulk a row, a
+// full / empty mbarrier pair a stage), while the consumers add the staged
+// rows in list order, each code decoded in one LOP3 and one FADD
+// (code_exact).  A round of more entries than a list holds (sa_tile: the row
+// layout beyond 4,096) runs as several lists, one after the other, through
+// the same ring.  Bound: the moved rows' words and each chain's eps, read
+// once (the row horseshoe's 4,096 rows of 25 KB a round: 30.9 us at 3.35
+// TB/s), or at 8 chains their FFMAs.
+constexpr int kSaConsumers = 192;                  // consumer threads
+constexpr int kSaWarps = kSaConsumers / 32;        // consumer warps
+constexpr int kSaIssuers = 4;                      // warps issuing copies
+constexpr int kSaThreads = kSaConsumers + 32 * kSaIssuers;
+constexpr int kSaRows = 32;                        // rows a stage
+constexpr int kSaStages = 8;                       // stages of the ring
+static_assert(kSaConsumers % 32 == 0, "whole consumer warps");
+
+// Words of a row a CTA at L eps lanes a consumer thread.
+__host__ __device__ constexpr int sa_words(int L) {
+  return kSaConsumers * L / 16;
+}
+
+// Eps lanes a consumer thread of CB chains.
+__host__ __device__ constexpr int sa_lanes(int CB) { return CB == 1 ? 4 : 2; }
+
+// Entries a list of CB chains: a row round's (one chain), a J=1 block's.
+__host__ __device__ constexpr int sa_tile(int CB) {
+  return CB == 1 ? kMaxRound : kSerialMaxB;
+}
+
+// Dynamic shared memory of serial_apply_kernel<CB, Q, L> for lists of
+// `tile` entries and a round of CJ = C*J blocks' sums: the ring, the
+// consumers' eps (CB*L floats a thread), the list (each entry's CB d, its
+// row and, in Q, its mean and scale) and the round's dms and espart.
+inline size_t serial_apply_smem(int CB, bool Q, int L, int tile, int CJ) {
+  return sizeof(uint32_t) * kSaStages * kSaRows * sa_words(L) +
+         sizeof(float) * L * CB * kSaConsumers +
+         (sizeof(float) * (CB + (Q ? 2 : 0)) + sizeof(int)) * tile +
+         sizeof(float) * 2 * CJ;
+}
+
+// The CB chains' d of one listed entry (16-byte loads from CB = 4 on).
+template <int CB>
+__device__ __forceinline__ void list_d(const float* v, float (&d)[CB]) {
+  if constexpr (CB >= 4) {
+#pragma unroll
+    for (int h = 0; h < CB / 4; ++h) {
+      const float4 t = reinterpret_cast<const float4*>(v)[h];
+      d[4 * h] = t.x;
+      d[4 * h + 1] = t.y;
+      d[4 * h + 2] = t.z;
+      d[4 * h + 3] = t.w;
+    }
+  } else if constexpr (CB == 2) {
+    const float2 t = reinterpret_cast<const float2*>(v)[0];
+    d[0] = t.x;
+    d[1] = t.y;
+  } else {
+    d[0] = v[0];
+  }
+}
+
+// Per chain c and eps lane n with row_valid[n]: acc from +0 over the round's
+// moved rows in (block, index) order, fmaf(d_c, x, acc) with x the lane's
+// code (Q: x = c == 3 ? 0 : (c - mean)*scale, op for op), then eps <- eps -
+// (acc - dms_tot), dms_tot = dms[0] + ... + dms[J-1] in j order (Q: eps -
+// acc); CTA 0 carries esum <- esum - (espart[0] + ... + espart[J-1]) (esum
+// null outside the fold mode).  The bits of the apply that looped over
+// compacted tiles of 512 entries itself (tests/test_torch_serial_apply_order
+// .py).  The bulk copies take Nw % 4 == 0 and 16-byte aligned words (the
+// port's words: Nw is a multiple of 128).
+template <int CB, bool Q, int L>
+__global__ void __launch_bounds__(kSaThreads, L == 4 || CB > 8 ? 1 : 2)
 serial_apply_kernel(const uint32_t* __restrict__ words, int Nw,
                     float* __restrict__ eps, int C,
                     const unsigned char* __restrict__ row_valid,
@@ -1036,135 +1174,237 @@ serial_apply_kernel(const uint32_t* __restrict__ words, int Nw,
                     const float* __restrict__ mean,
                     const float* __restrict__ scale,
                     float* __restrict__ esum,
-                    const float* __restrict__ espart) {
+                    const float* __restrict__ espart, int tile) {
   static_assert(!Q || CB == 1, "the in-kernel decode runs one chain");
-  constexpr int CV = CB < 4 ? 4 : CB;   // chains per staged row (float4s)
-  constexpr int L = kSerialLanes;
-  __shared__ float4 vals4[kSerialTile * CV / 4];
-  __shared__ int rows[kSerialTile];
-  __shared__ float rmean[Q ? kSerialTile : 1], rscale[Q ? kSerialTile : 1];
-  __shared__ int warp_cnt[kApplyWarps + 1];
+  static_assert(L <= kMagicAt, "a lane's exponent bits in kDecodeBits");
+  constexpr int T = kSaThreads;
+  constexpr int W = sa_words(L);                    // words of a row a CTA
+  constexpr int kPer = (sa_tile(CB) + T - 1) / T;   // list entries a thread
+  constexpr int kMask = sa_tile(CB) / 32;           // mask words of a list
+  static_assert(kMask % 32 == 0, "whole mask words a lane");
+  extern __shared__ __align__(128) uint32_t sadyn[];
+  uint32_t* ring = sadyn;
+  float* eps_s = reinterpret_cast<float*>(ring + kSaStages * kSaRows * W);
+  float* lval = eps_s + L * CB * kSaConsumers;
+  int* lrow = reinterpret_cast<int*>(lval + CB * tile);
+  float* lmean = reinterpret_cast<float*>(lrow + tile);
+  float* lscale = lmean + (Q ? tile : 0);
+  float* dmsv = lscale + (Q ? tile : 0);
+  float* espv = dmsv + C * J;
+  __shared__ uint64_t full[kSaStages], empty[kSaStages];
+  __shared__ uint32_t moved[kMask];
+  __shared__ int prefix[kMask];
+  __shared__ int nnz_s;
   __shared__ float dms_tot[CB];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int JB = J * B;
+  const int w0 = blockIdx.x * W;
+  const int nw = min(W, Nw - w0);
   const long long Npad = 16LL * Nw;
-  if (!Q && threadIdx.x < C) {
-    // the round's sums over its blocks, in j order
-    const int c = threadIdx.x;
-    float t = dms[c * J];
-    for (int q = 1; q < J; ++q) t += dms[c * J + q];
-    dms_tot[c] = t;
-    if (esum != nullptr && blockIdx.x == 0) {
-      float e = espart[c * J];
-      for (int q = 1; q < J; ++q) e += espart[c * J + q];
-      esum[c] = esum[c] - e;
+
+  // a consumer's word and lanes, their mask and eps, read before anything
+  // waits
+  const int wi = tid / (16 / L), sub = tid % (16 / L);
+  const bool live = warp < kSaWarps && wi < nw;
+  const long long n0 = 16LL * (w0 + wi) + L * sub;
+  bool rv[L];
+#pragma unroll
+  for (int k = 0; k < L; ++k) rv[k] = live && row_valid[n0 + k];
+  if (live) {
+#pragma unroll
+    for (int c = 0; c < CB; ++c)
+#pragma unroll
+      for (int k = 0; k < L; ++k)
+        if (c < C)
+          cp_async4(&eps_s[(c * L + k) * kSaConsumers + tid],
+                    eps + c * Npad + n0 + k, true);
+  }
+  cp_async_commit();
+  if (tid == 0) {
+    for (int q = 0; q < kSaStages; ++q) {
+      mbar_init(&full[q], 1);
+      mbar_init(&empty[q], kSaWarps);
+    }
+    mbar_fence_init();
+  }
+  if constexpr (!Q) {
+    for (int q = tid; q < C * J; q += T) {
+      dmsv[q] = __ldg(dms + q);
+      if (esum != nullptr) espv[q] = __ldg(espart + q);
     }
   }
-  // word w of this lane; warp `sub` owns its eps lanes 16w + L*sub .. +L-1
-  const int w = blockIdx.x * kSerialApplyWords + lane;
-  const int sub = warp;
-  const bool live = w < Nw;
-  const uint32_t* wp = words + (live ? w : 0);
+  uint32_t ex[L];
   float acc[CB][L];
 #pragma unroll
-  for (int c = 0; c < CB; ++c)
+  for (int k = 0; k < L; ++k) {
+    ex[k] = kDecodeBits[k];
 #pragma unroll
-    for (int k = 0; k < L; ++k) acc[c][k] = 0.f;
+    for (int c = 0; c < CB; ++c) acc[c][k] = 0.f;
+  }
 
-  for (int tile0 = 0; tile0 < JB; tile0 += kSerialTile) {
-    // warp `warp` owns the tile's entries [lo, lo + 32*kSerialTilePerLane)
-    const int lo = tile0 + warp * 32 * kSerialTilePerLane;
-    bool nz[kSerialTilePerLane];
-    int cnt = 0;
+  int base = 0;   // ring stages of the lists before this one
+  for (int t0 = 0; t0 < JB; t0 += tile) {
+    const int n = min(tile, JB - t0);
+    // ---- the list's moved entries, by every thread: entry e = k*T + tid
+    float dv[kPer][CB], mv[Q ? kPer : 1], sv[Q ? kPer : 1];
+    int row[kPer];
 #pragma unroll
-    for (int it = 0; it < kSerialTilePerLane; ++it) {
-      const int e = lo + it * 32 + lane;
+    for (int k = 0; k < kPer; ++k) {
+      const int e = k * T + tid;
+      const bool in = e < n;
+      const int g = t0 + e;                 // the entry of the round
+      row[k] = in ? __ldg(border + q0 + g / B) * B + g % B : 0;
+#pragma unroll
+      for (int c = 0; c < CB; ++c)
+        dv[k][c] = in && c < C ? __ldg(dsc + (long long)c * JB + g) : 0.f;
+      if constexpr (Q) {
+        mv[k] = in ? __ldg(mean + row[k]) : 0.f;
+        sv[k] = in ? __ldg(scale + row[k]) : 0.f;
+      }
+    }
+    // mask word k*(T/32) + warp holds entries 32 of them from k*T + 32*warp
+    bool mvd[kPer];
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
       bool f = false;
-      if (e < JB) {
 #pragma unroll
-        for (int c = 0; c < CB; ++c)
-          if (c < C) f |= __ldg(dsc + (long long)c * JB + e) != 0.f;
-      }
-      nz[it] = f;
-      cnt += __popc(__ballot_sync(kFull, f));
-    }
-    if (lane == 0) warp_cnt[warp] = cnt;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      int run = 0;
-      for (int q = 0; q < kApplyWarps; ++q) {
-        const int n = warp_cnt[q];
-        warp_cnt[q] = run;
-        run += n;
-      }
-      warp_cnt[kApplyWarps] = run;
+      for (int c = 0; c < CB; ++c) f |= dv[k][c] != 0.f;
+      mvd[k] = f;
+      const unsigned b = __ballot_sync(kFull, f);
+      if (lane == 0 && k * T + 32 * warp < n) moved[k * (T / 32) + warp] = b;
     }
     __syncthreads();
-    int at0 = warp_cnt[warp];
+    if (warp == 0) {
+      // the mask words' exclusive prefix counts, PL words a lane
+      constexpr int PL = kMask / 32;
+      const int nmw = (n + 31) / 32;
+      int cnt[PL], tot = 0;
 #pragma unroll
-    for (int it = 0; it < kSerialTilePerLane; ++it) {
-      const unsigned mask = __ballot_sync(kFull, nz[it]);
-      if (nz[it]) {
-        const int at = at0 + __popc(mask & ((1u << lane) - 1u));
-        const int e = lo + it * 32 + lane;
-        const int row = border[q0 + e / B] * B + e % B;
-        rows[at] = row;
+      for (int i = 0; i < PL; ++i) {
+        const int m = PL * lane + i;
+        cnt[i] = m < nmw ? __popc(moved[m]) : 0;
+        tot += cnt[i];
+      }
+      int incl = tot;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int v = __shfl_up_sync(kFull, incl, off);
+        if (lane >= off) incl += v;
+      }
+      int run = incl - tot;
+#pragma unroll
+      for (int i = 0; i < PL; ++i) {
+        const int m = PL * lane + i;
+        if (m < nmw) prefix[m] = run;
+        run += cnt[i];
+      }
+      if (lane == 31) nnz_s = incl;
+    } else if (!Q && warp == 1 && t0 == 0 && lane < C) {
+      // the round's sums over its blocks, in j order
+      const int c = lane;
+      float t = dmsv[c * J];
+      for (int q = 1; q < J; ++q) t += dmsv[c * J + q];
+      dms_tot[c] = t;
+      if (esum != nullptr && blockIdx.x == 0) {
+        float e = espv[c * J];
+        for (int q = 1; q < J; ++q) e += espv[c * J + q];
+        esum[c] = esum[c] - e;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      if (mvd[k]) {
+        const int m = k * (T / 32) + warp;
+        const int at = prefix[m] + __popc(moved[m] & ((1u << lane) - 1u));
+        lrow[at] = row[k];
+#pragma unroll
+        for (int c = 0; c < CB; ++c) lval[at * CB + c] = dv[k][c];
         if constexpr (Q) {
-          rmean[at] = __ldg(mean + row);
-          rscale[at] = __ldg(scale + row);
+          lmean[at] = mv[k];
+          lscale[at] = sv[k];
         }
-        float* v = reinterpret_cast<float*>(vals4) + at * CV;
-#pragma unroll
-        for (int c = 0; c < CV; ++c)
-          v[c] = c < C ? __ldg(dsc + (long long)c * JB + e) : 0.f;
       }
-      at0 += __popc(mask);
     }
     __syncthreads();
-    const int nnz = warp_cnt[kApplyWarps];
-    if (live) {
-#pragma unroll 8
-      for (int t = 0; t < nnz; ++t) {
-        const uint32_t wd =
-            __ldg(wp + (long long)rows[t] * Nw) >> (2 * L * sub);
-        float cf[L];
+    const int nnz = nnz_s;
+    const int nst = (nnz + kSaRows - 1) / kSaRows;
+
+    if (warp >= kSaWarps) {
+      // ---- an issuer: stage st (list rows st*kSaRows ..) when st %
+      // kSaIssuers is its number; ring stage base + st
+      const int me = warp - kSaWarps;
+      const uint32_t bytes = 4u * nw;
+      for (int st = me; st < nst; st += kSaIssuers) {
+        const int g = base + st, slot = g % kSaStages;
+        if (g >= kSaStages)
+          mbar_wait(&empty[slot], (g / kSaStages - 1) & 1);
+        const int nrow = min(kSaRows, nnz - st * kSaRows);
+        uint32_t* dst = ring + slot * kSaRows * W;
+        // a lane a row: one bulk copy of its nw words
+        if (lane == 0) mbar_arrive_expect(&full[slot], bytes * nrow);
+        __syncwarp();
+        if (lane < nrow)
+          bulk_load(dst + lane * W,
+                    words + (long long)lrow[st * kSaRows + lane] * Nw + w0,
+                    bytes, &full[slot]);
+      }
+    } else {
+      // ---- the consumers: thread (wi, sub) adds its L lanes of each row
+      for (int st = 0; st < nst; ++st) {
+        const int g = base + st, slot = g % kSaStages;
+        mbar_wait(&full[slot], (g / kSaStages) & 1);
+        const uint32_t* sw = ring + slot * kSaRows * W + wi;
+        const int r0 = st * kSaRows;
+        const int nrow = min(kSaRows, nnz - r0);
+        const auto add = [&](int q) {
+          const uint32_t wd = sw[q * W] >> (2 * L * sub);
+          float x[L], d[CB];
 #pragma unroll
-        for (int k = 0; k < L; ++k) cf[k] = code_f(wd, k);
-        if constexpr (Q) {
+          for (int k = 0; k < L; ++k) x[k] = code_exact(wd, k, ex[k]);
+          if constexpr (Q) {
+            const float m = lmean[r0 + q], s = lscale[r0 + q];
 #pragma unroll
-          for (int k = 0; k < L; ++k)
-            cf[k] = cf[k] == 3.f ? 0.f : (cf[k] - rmean[t]) * rscale[t];
-        }
-#pragma unroll
-        for (int q = 0; q < CV / 4; ++q) {
-          const float4 v = vals4[t * (CV / 4) + q];
-          const float vq[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            if (4 * q + i < CB) {
-#pragma unroll
-              for (int k = 0; k < L; ++k)
-                acc[4 * q + i][k] = fmaf(vq[i], cf[k], acc[4 * q + i][k]);
-            }
+            for (int k = 0; k < L; ++k)
+              x[k] = x[k] == 3.f ? 0.f : (x[k] - m) * s;
           }
+          list_d<CB>(lval + (r0 + q) * CB, d);
+#pragma unroll
+          for (int c = 0; c < CB; ++c)
+#pragma unroll
+            for (int k = 0; k < L; ++k)
+              acc[c][k] = fmaf(d[c], x[k], acc[c][k]);
+        };
+        if (nrow == kSaRows) {
+          if constexpr (CB >= 8) {
+#pragma unroll 2
+            for (int q = 0; q < kSaRows; ++q) add(q);
+          } else {
+#pragma unroll 8
+            for (int q = 0; q < kSaRows; ++q) add(q);
+          }
+        } else {
+#pragma unroll 2
+          for (int q = 0; q < nrow; ++q) add(q);
         }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[slot]);
       }
     }
-    __syncthreads();   // the next tile overwrites rows and vals
+    base += nst;
+    if (t0 + tile < JB) __syncthreads();   // the next list overwrites this
   }
   if (!live) return;
-  const long long n0 = 16LL * w + L * sub;
+  cp_async_wait<0>();   // this thread's own copies: no barrier
 #pragma unroll
   for (int c = 0; c < CB; ++c) {
     if (c < C) {
-      float* ep = eps + c * Npad;
+      float* ep = eps + c * Npad + n0;
       const float dt = Q ? 0.f : dms_tot[c];
 #pragma unroll
       for (int k = 0; k < L; ++k) {
-        if (!row_valid[n0 + k]) continue;
-        ep[n0 + k] = Q ? ep[n0 + k] - acc[c][k]
-                       : ep[n0 + k] - (acc[c][k] - dt);
+        const float e = eps_s[(c * L + k) * kSaConsumers + tid];
+        if (rv[k]) ep[k] = Q ? e - acc[c][k] : e - (acc[c][k] - dt);
       }
     }
   }
@@ -1245,10 +1485,61 @@ SolveFn ready_solve(int K, int B, int J, SerialSolveArgs& a, size_t* smem,
   return *err == cudaSuccess ? solve : nullptr;
 }
 
-// The dot of round r reads the words once for every CP chains (4 at most:
-// more spill); C == 1 takes the single-chain instance, the in-kernel decode
-// its own.  The dense mode reads the rows once for all chains.
-cudaError_t launch_dot(const SerialSweep& o, int r, cudaStream_t s) {
+// The 2-bit apply of a sweep: its instance, list entries and dynamic shared
+// memory (ready_apply), the same for every round.
+using ApplyFn = void (*)(const uint32_t*, int, float*, int,
+                         const unsigned char*, const int*, int, int, int,
+                         const float*, const float*, const float*,
+                         const float*, float*, const float*, int);
+
+struct ApplyPlan {
+  ApplyFn fn;
+  int words;   // of a row a CTA
+  int tile;
+  size_t smem;
+};
+
+template <int CB, bool Q>
+ApplyPlan apply_plan(int C, int J, int B) {
+  constexpr int L = sa_lanes(CB);
+  const int tile = std::min(J * B, sa_tile(CB));
+  return {serial_apply_kernel<CB, Q, L>, sa_words(L), tile,
+          serial_apply_smem(CB, Q, L, tile, C * J)};
+}
+
+// The 2-bit modes' plan: the dot's rows a CTA (32, or 16 at 8 chains a
+// decode and where 32 would give fewer than two CTAs an SM) and the apply's
+// instance (CB >= C chains)
+// with its shared memory allowed.  The bulk copies take Nw % 4 == 0 and
+// 16-byte aligned words: any other shape is cudaErrorInvalidValue.
+cudaError_t ready_packed(const SerialSweep& o, int* dot_rows, ApplyPlan* p) {
+  if (o.Nw % 4 != 0 || reinterpret_cast<uintptr_t>(o.words) % 16 != 0)
+    return cudaErrorInvalidValue;
+  static int sms = 0;   // SMs of the card
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  const long long ctas = (long long)o.nsplit * o.J * ((o.B + 31) / 32);
+  *dot_rows = o.C > 4 || ctas < 2LL * sms ? 16 : 32;
+  if (o.mode == kDecode) *p = apply_plan<1, true>(o.C, o.J, o.B);
+  else if (o.C <= 1) *p = apply_plan<1, false>(o.C, o.J, o.B);
+  else if (o.C <= 2) *p = apply_plan<2, false>(o.C, o.J, o.B);
+  else if (o.C <= 4) *p = apply_plan<4, false>(o.C, o.J, o.B);
+  else if (o.C <= 8) *p = apply_plan<8, false>(o.C, o.J, o.B);
+  else *p = apply_plan<16, false>(o.C, o.J, o.B);
+  return cudaFuncSetAttribute(
+      p->fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p->smem);
+}
+
+// The dot of round r.  The 2-bit modes read the words once for every CP
+// chains (8 at most, two passes above 8), dot_rows rows of a block a CTA;
+// the dense mode reads the rows once for all chains.
+cudaError_t launch_dot(const SerialSweep& o, int r, int dot_rows,
+                       cudaStream_t s) {
   const dim3 grid(o.nsplit, o.J * ((o.B + kMaxB - 1) / kMaxB));
   const int q0 = r * o.J;
   if (o.mode == kDense) {
@@ -1277,19 +1568,35 @@ cudaError_t launch_dot(const SerialSweep& o, int r, cudaStream_t s) {
           o.scale);
     return cudaGetLastError();
   }
-#define SERIAL_DOT(CP, Q)                                                 \
-  serial_dot_kernel<CP, Q><<<grid, kDotThreads, 0, s>>>(                  \
+  const dim3 pgrid(o.nsplit, o.J * ((o.B + dot_rows - 1) / dot_rows));
+#define SERIAL_DOT(CP, R, Q)                                              \
+  serial_dot_kernel<CP, R, Q><<<pgrid, kDotThreads, 0, s>>>(              \
       o.words, o.Nw, o.eps, o.C, o.border, q0, o.J, o.B, o.gram,          \
       o.partial, o.nsplit, o.mean, o.scale, o.row_valid)
-  if (o.mode == kDecode) SERIAL_DOT(1, true);
-  else if (o.C == 1) SERIAL_DOT(1, false);
-  else if (o.C == 2) SERIAL_DOT(2, false);
-  else SERIAL_DOT(4, false);
+#define SERIAL_DOTS(R)                                                    \
+  if (o.mode == kDecode) SERIAL_DOT(1, R, true);                          \
+  else if (o.C == 1) SERIAL_DOT(1, R, false);                             \
+  else if (o.C == 2) SERIAL_DOT(2, R, false);                             \
+  else if (o.C <= 4) SERIAL_DOT(4, R, false);                             \
+  else SERIAL_DOT(8, R, false)
+  if (dot_rows == 16) {
+    SERIAL_DOTS(16);
+  } else if (o.mode == kDecode) {
+    SERIAL_DOT(1, 32, true);
+  } else if (o.C == 1) {
+    SERIAL_DOT(1, 32, false);
+  } else if (o.C == 2) {
+    SERIAL_DOT(2, 32, false);
+  } else {
+    SERIAL_DOT(4, 32, false);
+  }
+#undef SERIAL_DOTS
 #undef SERIAL_DOT
   return cudaGetLastError();
 }
 
-cudaError_t launch_apply(const SerialSweep& o, int r, cudaStream_t s) {
+cudaError_t launch_apply(const SerialSweep& o, int r, const ApplyPlan& p,
+                         cudaStream_t s) {
   const int q0 = r * o.J;
   if (o.mode == kDense || o.mode == kInt8 || o.mode == kInt8Decode) {
     // the round's J*B rows, block j at border[q0 + j] (nr = 0: a list)
@@ -1301,19 +1608,11 @@ cudaError_t launch_apply(const SerialSweep& o, int r, cudaStream_t s) {
     else launch_row_apply<int8_t, true>(ap, s);
     return cudaGetLastError();
   }
-  const int ctas = (o.Nw + kSerialApplyWords - 1) / kSerialApplyWords;
-  float* esum = o.mode == kFold ? o.esum : nullptr;
-#define SERIAL_APPLY(CB, Q)                                               \
-  serial_apply_kernel<CB, Q><<<ctas, kApplyThreads, 0, s>>>(              \
-      o.words, o.Nw, o.eps, o.C, o.row_valid, o.border, q0, o.J, o.B,     \
-      o.dsc, o.dms, o.mean, o.scale, esum, o.espart)
-  if (o.mode == kDecode) SERIAL_APPLY(1, true);
-  else if (o.C <= 1) SERIAL_APPLY(1, false);
-  else if (o.C <= 2) SERIAL_APPLY(2, false);
-  else if (o.C <= 4) SERIAL_APPLY(4, false);
-  else if (o.C <= 8) SERIAL_APPLY(8, false);
-  else SERIAL_APPLY(16, false);
-#undef SERIAL_APPLY
+  const int ctas = (o.Nw + p.words - 1) / p.words;
+  p.fn<<<ctas, kSaThreads, p.smem, s>>>(
+      o.words, o.Nw, o.eps, o.C, o.row_valid, o.border, q0, o.J, o.B, o.dsc,
+      o.dms, o.mean, o.scale, o.mode == kFold ? o.esum : nullptr, o.espart,
+      p.tile);
   return cudaGetLastError();
 }
 
@@ -1341,16 +1640,21 @@ int serial_run(const SerialSweep& o, cudaStream_t s) {
   cudaError_t err;
   const SolveFn solve = ready_solve(o.K, o.B, o.J, a, &smem, &err);
   if (solve == nullptr) return err;
+  int dot_rows = kMaxB;
+  ApplyPlan ap{nullptr, 0, 0, 0};
+  if ((o.mode == kFold || o.mode == kDecode) &&
+      (err = ready_packed(o, &dot_rows, &ap)) != cudaSuccess)
+    return err;
   // the chunks of rounds: the remainder first, then `chunk` rounds
   const int nr = o.n_pos / o.J;
   const int rem = nr % o.chunk;
   for (int r = 0; r < nr; ++r) {
-    if ((err = launch_dot(o, r, s)) != cudaSuccess) return err;
+    if ((err = launch_dot(o, r, dot_rows, s)) != cudaSuccess) return err;
     a.round = r;
     a.chunk_start = r == 0 || (r >= rem && (r - rem) % o.chunk == 0);
     solve<<<o.C * o.J, kSolveThreads, smem, s>>>(a);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    if ((err = launch_apply(o, r, s)) != cudaSuccess) return err;
+    if ((err = launch_apply(o, r, ap, s)) != cudaSuccess) return err;
   }
   return 0;
 }

@@ -91,26 +91,34 @@ def int8_sweep(n, mpad, gram_floats, chains, marker_arrays, moved=0,
     return bound(nbytes, flops)
 
 
-def apply_round(npad, rows, chains, miss=0):
-    """One apply launch of the strided 2-bit modes (fold and ``miss``):
-    ``rows`` moved rows (in any chain) of ``npad`` lanes.  Bytes: the moved
-    rows' words read once (npad/4 bytes a row) and each chain's eps read
-    and written once.  FP32 FMAs (2 flops each): one per lane of every
-    moved row and chain, and in the ``miss`` mode one per chain for each of
-    the ``miss`` missing calls in the moved rows (their indicator terms,
-    as chip_smoke.py:missing_fmas counts them)."""
+def apply_round(npad, rows, chains, miss=0, decode=False):
+    """One apply launch of the 2-bit modes (fold, ``miss`` and the serial
+    in-kernel decode): ``rows`` moved rows (in any chain) of ``npad``
+    lanes.  Bytes: the moved rows' words read once (npad/4 bytes a row) and
+    each chain's eps read and written once.  FP32 FMAs (2 flops each): one
+    per lane of every moved row and chain, and in the ``miss`` mode one per
+    chain for each of the ``miss`` missing calls in the moved rows (their
+    indicator terms, as chip_smoke.py:missing_fmas counts them);
+    ``decode`` (one chain) adds (c - mean)*scale, 2 flops, per code read."""
     nbytes = rows * npad // 4 + chains * 8 * npad
-    return bound(nbytes, 2.0 * chains * (rows * npad + miss))
+    flops = 2.0 * chains * (rows * npad + miss)
+    if decode:
+        flops += 2.0 * rows * npad
+    return bound(nbytes, flops)
 
 
-def dot_round(n, rows, chains, elem_bytes, extra_fmas=0):
+def dot_round(n, rows, chains, elem_bytes, extra_fmas=0, decode=False):
     """One dot launch: ``rows`` rows of ``n`` values (``elem_bytes`` bytes a
     value: 4 dense f32, 1 an int8 code, 0.25 a 2-bit code) read once and
     each chain's eps read once.  FP32 FMAs (2 flops each): one per value and
     chain, and ``extra_fmas`` more (the ``miss`` mode's indicator: one per
-    missing call of the rows and chain)."""
+    missing call of the rows and chain); ``decode`` (the serial in-kernel
+    decode, one chain) adds (c - mean)*scale, 2 flops, per value."""
     nbytes = int(rows * n * elem_bytes) + chains * 4 * n
-    return bound(nbytes, 2.0 * (chains * rows * n + extra_fmas))
+    flops = 2.0 * (chains * rows * n + extra_fmas)
+    if decode:
+        flops += 2.0 * rows * n
+    return bound(nbytes, flops)
 
 
 def row_apply_round(n, rows, chains, elem_bytes):

@@ -18,6 +18,8 @@ the same outputs: each case prints a hash of its outputs.
 - ``s1_*``: the serial sweeps (csrc/serial.cu, ``jacobi_blocks=1``: B=512,
   984 blocks, #9/#10), one chain; ``s8_*`` 8 fused chains (#11/#12);
 - ``row_*``: the row layout (``jacobi_layout="row"``: J=32, B=128, #16/#15);
+  ``srow8_*``: 8 fused chains of that row plan, the path of its
+  ``run_chains``: the serial fused sweep (#11/#12) at B=128, 3,936 blocks;
 - ``d1_*``, ``d8_*``, ``ds1_*``, ``drow_*``: the same sweeps on dense f32
   rows at the dense cell's shape N=16,384 x M=49,152 (X built on the card
   from a seed, as chip_smoke.py's ``dense_sampler``): strided one chain
@@ -33,7 +35,9 @@ the same outputs: each case prints a hash of its outputs.
   ``t1_*``'s;
 - ``q_bayesr`` / ``q_horseshoe``: int8 codes of those words through the
   serial in-kernel decode (``_q``: the auto plan J=1, B=32, #9 / #10), one
-  chain.
+  chain;
+- ``s1q_*``: those words through the serial 2-bit in-kernel decode
+  (``jacobi_blocks=1``: B=512, 984 blocks, #9 / #10 ``_q``), one chain.
 
 Each case gives the milliseconds of ``REPS`` calls after one warm call (each
 timed with CUDA events), then, from torch.profiler over one more call, the
@@ -188,6 +192,19 @@ def visit_moves(torch, beta_out, beta_in, border, inner, B):
     return torch.gather(moved[border.long()], 1, inner[border.long()].long())
 
 
+def own_bounds():
+    """tools/kernel_bounds.py beside this script (every root's cases get
+    the same bounds, whatever its own copy holds)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "kernel_bounds", os.path.join(os.path.dirname(os.path.abspath(
+            __file__)), "kernel_bounds.py"))
+    kb = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(kb)
+    return kb
+
+
 ONLY = ()   # key prefixes to run (--only); empty: every case
 
 
@@ -258,17 +275,19 @@ def run_one(root):
         return bt.HorseshoeSampler(X, y, bt.HorseshoeConfig(), **skw,
                                    **plan)
 
-    def yard(kind, s, rows, beta_in, miss_per_row=0.0):
-        """``extra`` of a case: the dot's and the apply's bounds a round (a
-        block at J=1; ``tools/kernel_bounds``: the apply over the rows
-        moved a round in any chain and, in the miss mode, their missing
-        calls, ``miss_per_row`` a row) and, for dense rows and the
-        single-chain 2-bit horseshoe, the apply's library call on the
-        ``rows`` of its first round, d from the case's own beta (2-bit
+    def yard(kind, s, rows, beta_in, miss_per_row=0.0, J=None):
+        """``extra`` of a case: the dot's and the apply's bounds a round of
+        J blocks (s.jacobi; a block at J=1; ``tools/kernel_bounds``: the
+        apply over the rows moved a round in any chain and, in the miss
+        mode, their missing calls, ``miss_per_row`` a row; the in-kernel
+        decode's (c - mean)*scale on every code read) and, for dense rows
+        and the single-chain 2-bit horseshoe, the apply's library call on
+        the ``rows`` of its first round, d from the case's own beta (2-bit
         codes decoded to f32 first)."""
-        from bayesrrcpp_tpu_torch.tools import kernel_bounds as kb
-
-        nr, jb = s.nb // s.jacobi, s.jacobi * s.B
+        kb = own_bounds()
+        J = s.jacobi if J is None else J
+        nr, jb = s.nb // J, J * s.B
+        decode = s._sweep_kw().get("fold_affine") is False and s.jacobi == 1
 
         def extra(res):
             moved = res[1] != beta_in
@@ -277,9 +296,10 @@ def run_one(root):
             per_round = moved_rows / nr
             if s.x_packed:
                 dot = kb.dot_round(s.Npad, jb, chains, 0.25,
-                                   chains * miss_per_row * jb)
+                                   chains * miss_per_row * jb, decode=decode)
                 apply = kb.apply_round(s.Npad, per_round, chains,
-                                       per_round * miss_per_row)
+                                       per_round * miss_per_row,
+                                       decode=decode)
             else:
                 eb = 1 if s.x_int8 else 4
                 dot = kb.dot_round(s.N, jb, chains, eb)
@@ -349,7 +369,7 @@ def run_one(root):
         run_case(torch, out, f"{tag}_{kind}",
                  lambda: tuple(fn(*args, **skw)),
                  serial=(st.beta, border, inner, s.B),
-                 extra=yard(kind, s, rows, st.beta))
+                 extra=yard(kind, s, rows, st.beta, J=J or 1))
 
     def plans(kind, X, pre, **mk):
         """The strided cases of X (one chain, 8 fused), its serial one
@@ -393,12 +413,15 @@ def run_one(root):
                    {"bayesr": mcs.bayesr_sweep_mc,
                     "horseshoe": mcs.horseshoe_sweep_mc})
             del s
-        if wanted(f"row_{kind}"):
+        if wanted(f"row_{kind}", f"srow8_{kind}"):
             s = make(kind, words, jacobi_layout="row")
             assert (s.jacobi, s.B) == (32, 128), (s.jacobi, s.B)
             serial(kind, s, None, "row", {"bayesr": jr.bayesr_jacobi,
                                           "horseshoe": jr.horseshoe_jacobi},
                    J=s.jacobi)
+            serial(kind, s, CHAINS, "srow8",
+                   {"bayesr": mcs.bayesr_sweep_mc,
+                    "horseshoe": mcs.horseshoe_sweep_mc})
             del s
 
     # dense f32 rows at the dense cell's shape
@@ -430,8 +453,8 @@ def run_one(root):
         del words
     torch.cuda.empty_cache()
     if not wanted("t1miss_bayesr", "t1miss_horseshoe", "t8miss_bayesr",
-                  "t8miss_horseshoe", "c1miss_bayesr", "q_bayesr",
-                  "q_horseshoe"):
+                  "t8miss_horseshoe", "c1miss_bayesr", "s1q_bayesr",
+                  "s1q_horseshoe", "q_bayesr", "q_horseshoe"):
         print(json.dumps(out), flush=True)
         return
 
@@ -458,6 +481,14 @@ def run_one(root):
             strided(kind, s, CHAINS, "t8miss", per_row)
             if kind == "bayesr":
                 strided(kind, s, 1, "c1miss", per_row)
+            del s
+        if wanted(f"s1q_{kind}"):
+            s = make(kind, words, jacobi_blocks=1)
+            assert (s.jacobi, s.B, s.nb, s.data.has_missing) == (1, 512, 984,
+                                                                 True)
+            assert s._sweep_kw()["fold_affine"] is False
+            serial(kind, s, None, "s1q", {"bayesr": ser.bayesr_sweep,
+                                          "horseshoe": ser.horseshoe_sweep})
             del s
     if not wanted("q_bayesr", "q_horseshoe"):
         print(json.dumps(out), flush=True)

@@ -57,16 +57,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (|d eps| / |eps| and |d beta| / |beta| < 1e-4);
 10. the serial (J=1) kernels of csrc/serial.cu, BayesR and horseshoe,
    against their plain versions, one sweep from a warm state: at N=4096 x
-   M=8192 with B=512 and B=64 (labels and v equal, beta to rtol 1e-4 /
-   atol 1e-5, eps to 1e-4 of its norm and of its largest value); at the
-   headline with B=512 on a 4-block order (BayesR labels agreeing on >=
-   99.9 %, |d eps| / |eps| < 1e-3 for BayesR and < 1e-4 for the
-   horseshoe); the full headline sweep timed (mean of 3), with the dot
-   launch's torch.matmul yardstick;
-11. the same kernels fused at C=8 against their plain versions at both
-   sizes and, chain by chain, bitwise against the single-chain serial
-   kernel (on 4 blocks and on the full sweep); the full fused sweep timed
-   against 8 single-chain sweeps;
+   M=8192 with B=512, B=64, B=1024 and B=100 on the first 2,048 steps of
+   the order (4 of 16, 32 of 128, 2 of 8 and 20 of 88 blocks, the markers
+   padded at B=100; labels and v equal, beta to rtol 1e-4 / atol 1e-5, eps
+   to 1e-4 of its norm and of its largest value); at the headline with
+   B=512 on a 4-block order (BayesR labels agreeing on >= 99.9 %, |d eps|
+   / |eps| < 1e-3 for BayesR and < 1e-4 for the horseshoe); the full
+   headline sweep timed (mean of 3), with the dot launch's torch.matmul
+   yardstick;
+11. the same kernels fused at C=8 (C=16 at B=1024) against their plain
+   versions at both sizes and, chain by chain, bitwise against the
+   single-chain serial kernel (on 4 blocks and on the full sweep); the
+   full fused sweep timed against 8 single-chain sweeps;
 12. the serial main paths with the launch counters reset just before:
    biobank-packed-serial (``jacobi_blocks=1``, ``ChainConfig(10, 5, 5)``),
    the horseshoe at J=1 and both samplers' ``run_chains`` of 8 chains
@@ -96,14 +98,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    counts, and a profile of dot / solve / apply for each;
 15. the serial kernels' in-kernel decode (``fold_affine=False``) against
    their plain versions: at N=4096 x M=8192 with B=512 and B=64 as phase
-   10, on 4 headline blocks (BayesR labels >= 99.9 %, |d eps| / |eps| <
+   10 on the first 2,048 steps of the order (4 and 32 blocks), on 4
+   headline blocks (BayesR labels >= 99.9 %, |d eps| / |eps| <
    1e-3, the horseshoe < 1e-4), the full headline sweep timed; then an
    M=1500 auto-plan fit with missing calls (J=1) of both samplers, one
    chain and 8 chains (unfused: each chain through the single-chain
    kernel; ``fused=True`` raises), with their launch counts;
 16. the CLI in-process, ``python -m bayesrrcpp_tpu_torch bayesr|horseshoe
    --bed ... --x-dtype 2bit`` on a .bed with missing calls at N=100,352 x
-   M=4,096 written by ``io/bed.write_bed`` into a temporary directory, on
+   M=2,048 written by ``io/bed.write_bed`` into a temporary directory, on
    the card: the CSV's widths and values and the launch counts;
 17. dense X (``x_dtype="dense"``, standardized f32 rows built on the card
    from a seed), the kernels' dense mode: (a) each of the eight dense
@@ -487,11 +490,14 @@ def profile_once(torch, fn, names):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        # the tracer can drop the first kernel records of a window: give it
-        # a small op and a moment before the profiled call
-        torch.ones(1, device="cuda").add_(1)
+        # the tracer can drop the first kernel records of a window (the
+        # first 4 of 24, every window, behind one small op and 0.1 s): give
+        # it 64 small launches and a moment before the profiled call
+        x = torch.ones(1, device="cuda")
+        for _ in range(64):
+            x.add_(1)
         torch.cuda.synchronize()
-        time.sleep(0.1)
+        time.sleep(0.3)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1257,37 +1263,43 @@ def serial_phases(torch, bt, hs, tmp):
                       hs_serial_args, ("eps", "beta"), 4)}
     records = {}
 
-    # ---- 10a / 11a. N=4096 x M=8192 at B=512 (16 blocks) and B=64 (128)
+    # ---- 10a / 11a. N=4096 x M=8192 at B=512 (16 blocks), B=64 (128),
+    # B=1024 (8; 16 fused chains: the 2-bit apply's largest list) and B=100
+    # (88: padded markers, a dot CTA's rows past the block), each swept over
+    # the first ~2,048 steps of the order (the plain BayesR sweep takes the
+    # host 2.6-3.6 ms a step); (B, fused chains, blocks, blocks swept)
     for kind, (single, plain, fused, fused_plain, cfg, make_args, names,
                _) in kinds.items():
-        for B in (512, 64):
+        for B, C, nb, n in ((512, CHAINS, 16, 4), (64, CHAINS, 128, 32),
+                            (1024, 16, 8, 2), (100, CHAINS, 88, 20)):
             g = torch.Generator(device=dev).manual_seed(10 + B)
             v = bt.TorchVariates(g)
             s = packed_sampler(torch, bt, g, 4096, 8192, cfg(block_size=B),
                                jacobi_blocks=1)
-            check((s.jacobi, s.B, s.nb) == (1, B, 8192 // B),
+            check((s.jacobi, s.B, s.nb) == (1, B, nb),
                   f"serial plan {(s.jacobi, s.B, s.nb)}")
             st = s._run_steps(s.init(v), v, 3)
-            args, kw = make_args(s, st, v)
+            args, kw = make_args(s, st, v, n)
             ker = tuple(single(*args, **kw))
             err = check_sweeps(torch, f"[10a] {kind} B={B}", names, ker,
                                tuple(plain(*args, **kw)))
-            v8 = bt.TorchVariates(g, chains=CHAINS)
-            st8 = s.init(v8, chains=CHAINS)
+            v8 = bt.TorchVariates(g, chains=C)
+            st8 = s.init(v8, chains=C)
             for _ in range(3):
                 st8 = s.step_chains(st8, v8)
-            args, kw = make_args(s, st8, v8)
+            args, kw = make_args(s, st8, v8, n)
             ker = tuple(fused(*args, **kw))
             ferr = check_sweeps(torch, f"[11a] {kind} B={B}", names, ker,
                                 tuple(fused_plain(*args, **kw)))
-            for c in range(CHAINS):
+            for c in range(C):
                 one = single(*single_chains(torch, args, kind, c), **kw)
                 for name, a, b in zip(names, one, ker):
                     check(torch.equal(a, b[c]),
                           f"[11a] {kind} B={B} chain {c} {name} differs "
                           f"from the single-chain serial kernel")
-            log(f"[10a/11a] {kind} serial N=4096 M=8192 B={B}: kernel vs "
-                f"plain labels/v equal, max |d| {err:.3g}; fused C={CHAINS} "
+            log(f"[10a/11a] {kind} serial N=4096 M=8192 B={B} ({n} of {nb} "
+                f"blocks): kernel vs "
+                f"plain labels/v equal, max |d| {err:.3g}; fused C={C} "
                 f"vs plain likewise, max |d| {ferr:.3g}; every chain bitwise "
                 f"equal to the single-chain serial kernel")
             del s, st, st8, args, ker
@@ -1988,7 +2000,8 @@ def missing_phases(torch, bt, tmp):
                             ser.horseshoe_sweep_reference, bt.HorseshoeConfig,
                             hs_serial_args, ("eps", "beta"), 4)}
     for kind, (single, plain, cfg, make_args, names, _) in serial.items():
-        for B in (512, 64):
+        # the first 2,048 steps of the order, as phase 10a
+        for B, n in ((512, 4), (64, 32)):
             g = torch.Generator(device=dev).manual_seed(60 + B)
             v = bt.TorchVariates(g)
             sb = packed_sampler(torch, bt, g, 4096, 8192, cfg(block_size=B),
@@ -1996,13 +2009,14 @@ def missing_phases(torch, bt, tmp):
             check((sb.jacobi, sb.B) == (1, B) and sb.data.has_missing
                   and not sb.supports_fused_chains, "[15a] serial plan")
             st = sb._run_steps(sb.init(v), v, 3)
-            args, kw = make_args(sb, st, v)
+            args, kw = make_args(sb, st, v, n)
             check(not kw["fold_affine"], f"[15a] mode {kw}")
             err = check_sweeps(torch, f"[15a] {kind} B={B}", names,
                                tuple(single(*args, **kw)),
                                tuple(plain(*args, **kw)))
-            log(f"[15a] {kind} in-kernel decode N=4096 M=8192 B={B}: kernel "
-                f"vs plain labels/v equal, max |d| {err:.3g}")
+            log(f"[15a] {kind} in-kernel decode N=4096 M=8192 B={B} ({n} of "
+                f"{sb.nb} blocks): kernel vs plain labels/v equal, max |d| "
+                f"{err:.3g}")
             del sb, st, args
 
     common = dict(transposed=True, x_dtype="2bit", device="cuda",
@@ -2096,9 +2110,9 @@ def missing_phases(torch, bt, tmp):
             f"{launches8}; fused=True refused")
         del sm, st, out, out8
 
-    # ---- 16. the CLI on a .bed with missing calls (4,096 markers: making
+    # ---- 16. the CLI on a .bed with missing calls (2,048 markers: making
     # and writing the .bed takes the host 5-6.5 s a 1,024)
-    N16, M16 = HEADLINE_N, 4096
+    N16, M16 = HEADLINE_N, 2048
     rng = np.random.default_rng(16)
     t0 = time.perf_counter()
     dos = rng.integers(0, 3, size=(N16, M16), dtype=np.int8).astype(

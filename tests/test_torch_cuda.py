@@ -313,11 +313,14 @@ def _serial_case(seed, B, G, K, nb, N, dev, chunk, missing=False):
                                               (200, 1, 3, 5, 3000, 2),
                                               (1024, 1, 8, 2, 2048, None),
                                               (8, 1, 2, 6, 2048, None),
-                                              (150, 1, 3, 3, 2048, None)])
+                                              (150, 1, 3, 3, 2048, None),
+                                              (30, 1, 4, 5, 1500, 2)])
 def test_serial_kernel_matches_plain(cuda, B, G, K, nb, N, chunk):
     """Blocks of every width the plans produce, powers of two or not, up to
     the kernel's 1024, across chunk boundaries (B=150: B % 4 != 0, the
-    Gram ring filled by plain loads)."""
+    Gram ring filled by plain loads; B=30: a dot CTA's rows past the
+    block); the apply's last CTA covers a partial segment of the words
+    (Nw = 128 or 256 words, 48 a CTA)."""
     from bayesrrcpp_tpu_torch.ops import serial
 
     args, kw = _serial_case(B + K, B, G, K, nb, N, cuda, chunk)
@@ -418,12 +421,15 @@ def _position_order(args, c, B):
 @pytest.mark.cuda
 @pytest.mark.parametrize("C,B,K,nb,N,chunk", [(3, 64, 4, 8, 1500, 3),
                                               (8, 512, 4, 4, 4096, None),
-                                              (17, 96, 2, 4, 3000, None)])
+                                              (17, 96, 2, 4, 3000, None),
+                                              (16, 1024, 4, 2, 4096, None)])
 def test_serial_mc_kernel_matches_plain_and_single_chains(cuda, C, B, K, nb,
                                                           N, chunk):
     """The fused serial BayesR sweep against its plain version, and each
     chain bitwise against the single-chain serial kernel given its p/z in
-    position order; C=17 runs as groups of 16 and 1."""
+    position order; C=17 runs as groups of 16 and 1; (B, C) = (1024, 16)
+    is the apply's largest list (16 chains' d of 1,024 entries in shared
+    memory) and the dot's two passes of 8 chains."""
     from bayesrrcpp_tpu_torch.ops import multichain, serial
 
     args, kw = _serial_mc_case(C + B, B, K, nb, N, C, cuda, chunk)
@@ -443,9 +449,14 @@ def test_serial_mc_kernel_matches_plain_and_single_chains(cuda, C, B, K, nb,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("C,B,nb,N", [(3, 64, 8, 1500), (8, 512, 4, 4096)])
+@pytest.mark.parametrize("C,B,nb,N", [(3, 64, 8, 1500), (8, 512, 4, 4096),
+                                      (16, 1024, 2, 6144)])
 def test_serial_hs_mc_kernel_matches_plain_and_single_chains(cuda, C, B, nb,
                                                              N):
+    """The fused serial horseshoe sweep (every valid row moves) against its
+    plain version and each chain bitwise against the single-chain kernel;
+    at (B, C) = (1024, 16) the apply streams 32 stages of 32 rows through
+    its ring of 8, over whole segments of the words (Nw = 384 = 8 x 48)."""
     from bayesrrcpp_tpu_torch.ops import multichain, serial
 
     args, kw = _serial_mc_case(C + B, B, 4, nb, N, C, cuda, 3)
@@ -608,11 +619,14 @@ def _miss_bits(words, rate, N, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,G,K,nb,N,chunk", [(64, 2, 4, 8, 1500, 3),
                                               (512, 1, 4, 4, 4096, None),
-                                              (200, 1, 3, 5, 3000, 2)])
+                                              (200, 1, 3, 5, 3000, 2),
+                                              (1024, 1, 4, 2, 2048, None),
+                                              (30, 1, 4, 5, 1500, None)])
 def test_decode_serial_kernels_match_plain(cuda, B, G, K, nb, N, chunk):
     """The serial BayesR and horseshoe sweeps in the in-kernel decode mode
     (fold_affine=False, words with missing calls) against their plain
-    versions; a fused launch refuses that mode."""
+    versions, at blocks of 1,024 and 30 markers; a fused launch refuses
+    that mode."""
     from bayesrrcpp_tpu_torch.ops import multichain, serial
 
     args, kw = _serial_case(B + K + 11, B, G, K, nb, N, cuda, chunk,
@@ -784,14 +798,16 @@ def _row_args(seed, J, B, nr, N, dev, dense, hs):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("J,B,nr,N", [(8, 64, 2, 1500), (2, 16, 4, 4001),
-                                      (16, 32, 2, 3000), (4, 200, 2, 2048)])
+                                      (16, 32, 2, 3000), (4, 200, 2, 2048),
+                                      (16, 512, 2, 4096)])
 @pytest.mark.parametrize("dense", [False, True])
 @pytest.mark.parametrize("hs", [False, True])
 def test_row_kernels_match_plain(cuda, hs, dense, J, B, nr, N):
     """The row-layout BayesR and horseshoe sweeps (csrc/serial.cu with J
     blocks a round) against their plain versions, packed (fold mode) and
     dense, blocks narrower than a warp, of 200 markers and several CTAs a
-    block: labels and v exact, eps as ``_assert_eps_close``, beta to f32
+    block, rounds of 8,192 entries (the 2-bit apply's two lists of 4,096):
+    labels and v exact, eps as ``_assert_eps_close``, beta to f32
     reassociation; 3 launches a round, one of them the round solve; a second
     sweep bitwise equal."""
     from bayesrrcpp_tpu_torch.ops import jacobi
