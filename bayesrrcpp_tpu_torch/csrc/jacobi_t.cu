@@ -40,18 +40,26 @@
 //          missing calls, bit for bit the dense form of the code dot's
 //          arithmetic on the indicator.  The fused sweeps run this kernel
 //          for one chain.
-//   solve  one warp per block, lane l owning marker l of the block: the
-//          fold algebra r = s*(C.eps) - (m*s)*sum(eps) turns the partials
-//          into standardized r (miss mode: C.eps + (m - 3)*(I.eps) in
-//          place of C.eps, jacobi_t_common.cuh:code_dot), then B exact
-//          sequential Gibbs steps visit
-//          the block's markers in the order inner[b, :], each one a K-way
-//          component draw in the visited lane and a rank-1 update
-//          r -= G[m, :] * d over the warp with the Gram block in shared
-//          memory.  Writes beta, labels, d*scale, and per-block v/bacc
-//          partials (reduced in a fixed order by the wrapper).  The
-//          horseshoe's hs_solve_kernel has the same layout, with a
-//          conjugate normal draw per step and no labels.
+//   solve  one warp per block, lane l owning marker l of the block.  It
+//          issues all of the block's loads before its first wait (the
+//          Gram block and the partials by cp.async into shared memory,
+//          the per-marker operands beside them), then the fold algebra
+//          r = s*(C.eps) - (m*s)*sum(eps) turns the partials, summed in a
+//          fixed order, into standardized r (miss mode: C.eps + (m - 3)*
+//          (I.eps) in place of C.eps; jacobi_t_common.cuh:fold_r).  The
+//          B exact sequential Gibbs steps visit the block's markers in
+//          the order inner[b, :], each a K-way component draw and a
+//          rank-1 update r -= G[m, :] * d with the Gram block in shared
+//          memory.  A step that moves nothing (d == 0) leaves r as it
+//          was, so the steps run as passes: every lane draws its own
+//          marker's step at once, every step up to the first mover is
+//          committed and the mover's update lands; a block costs
+//          (movers + 1) draws.  Writes beta, labels, d*scale, and
+//          per-block v/bacc partials (reduced in a fixed order by the
+//          wrapper).  The horseshoe's hs_solve_kernel stages alike and
+//          runs its conjugate normal draws (every valid step moves) one
+//          step at a time, with all that does not depend on r read or
+//          computed ahead; no labels.
 //   apply  eps -= sum_m d_m * x_m over the round's rows with d != 0 (most
 //          BayesR markers stay in the spike, d == 0 exactly): a CTA takes
 //          48 words of every row (one CTA an SM at the headline); all its
@@ -72,12 +80,13 @@
 // those instructions (~37 us a round at 1.98 GHz) more than by the bytes
 // (31 us).  The decode takes a field in place: (w & 3<<2k) | 0x4B000000
 // read as a float is 2^23 + c*4^k, and multiplies by eps pre-scaled by
-// 4^-k (exact: powers of two).  The 123 x 32 dependent solve steps of the
-// headline plan are latency-bound: one warp per SM.  Every reduction runs
-// in a fixed order, so a chain is bitwise reproducible from run to run on
-// the card.  The file is compiled with -fmad=false so the solve's
-// arithmetic rounds like the plain torch version op for op; the dot and
-// apply use explicit fmaf.
+// 4^-k (exact: powers of two).  The solve is latency-bound (one warp per
+// SM, 0.5 us a round's bytes): its load round trips and its dependent
+// draws, (movers + 1) a block, about 2.2 after burn-in at the headline.
+// Every reduction runs in a fixed order, so a chain is bitwise
+// reproducible from run to run on the card.  The file is compiled with
+// -fmad=false so the solve's arithmetic rounds like the plain torch
+// version op for op; the dot and apply use explicit fmaf.
 //
 // The dense mode (X (Mpad, N) f32 rows, already standardized; eps of
 // length N in natural order, no lane mask) keeps the rounds, the visit
@@ -436,6 +445,12 @@ cudaError_t sweep_rounds(const uint32_t* wd, int Nw, int x_int8, int nr,
 
 extern "C" {
 
+#ifdef JT_SOLVE_CLOCKS
+// The strided solves' clock stamps since the last call, then zeroed
+// (jacobi_t_common.cuh:read_solve_clocks; a -DJT_SOLVE_CLOCKS build).
+int jacobi_t_solve_clocks(void* out) { return read_solve_clocks(out); }
+#endif
+
 // The smallest round (J*B entries) whose row apply takes the ring, and
 // not the direct path (jacobi_t_common.cuh:launch_row_apply; rows < 0:
 // unchanged); returns the previous value.  Both paths give the same bits.
@@ -503,16 +518,17 @@ int jacobi_t_sweep(const void* words, int Nw, int x_int8, int nr,
                static_cast<float*>(dsc), static_cast<float*>(dms),
                static_cast<float*>(vpart), static_cast<float*>(bpart),
                static_cast<const float*>(pind)};
+  const size_t ssm = solve_smem_bytes(B, nsplit, pind != nullptr);
   auto solve = [&](int r) {
     sa.round = r;
     switch (K) {
-      case 2: solve_kernel<2><<<J, 32, 0, s>>>(sa); break;
-      case 3: solve_kernel<3><<<J, 32, 0, s>>>(sa); break;
-      case 4: solve_kernel<4><<<J, 32, 0, s>>>(sa); break;
-      case 5: solve_kernel<5><<<J, 32, 0, s>>>(sa); break;
-      case 6: solve_kernel<6><<<J, 32, 0, s>>>(sa); break;
-      case 7: solve_kernel<7><<<J, 32, 0, s>>>(sa); break;
-      default: solve_kernel<8><<<J, 32, 0, s>>>(sa); break;
+      case 2: solve_kernel<2><<<J, 32, ssm, s>>>(sa); break;
+      case 3: solve_kernel<3><<<J, 32, ssm, s>>>(sa); break;
+      case 4: solve_kernel<4><<<J, 32, ssm, s>>>(sa); break;
+      case 5: solve_kernel<5><<<J, 32, ssm, s>>>(sa); break;
+      case 6: solve_kernel<6><<<J, 32, ssm, s>>>(sa); break;
+      case 7: solve_kernel<7><<<J, 32, ssm, s>>>(sa); break;
+      default: solve_kernel<8><<<J, 32, ssm, s>>>(sa); break;
     }
     return cudaGetLastError();
   };
@@ -555,9 +571,10 @@ int jacobi_t_hs_sweep(const void* words, int Nw, int x_int8, int nr, int J,
                  static_cast<const unsigned char*>(valid),
                  static_cast<float*>(dsc), static_cast<float*>(dms),
                  static_cast<const float*>(pind)};
+  const size_t ssm = solve_smem_bytes(B, nsplit, pind != nullptr);
   auto solve = [&](int r) {
     sa.round = r;
-    hs_solve_kernel<<<J, 32, 0, s>>>(sa);
+    hs_solve_kernel<<<J, 32, ssm, s>>>(sa);
     return cudaGetLastError();
   };
   return sweep_rounds(static_cast<const uint32_t*>(words), Nw, x_int8, nr, nr,

@@ -489,7 +489,7 @@ inline cudaError_t launch_one_chain_dot(int Nw, int nsplit, int J,
 // fold), and int8 genotype codes {0, 1, 2, 3} (the int8 branch,
 // pallas_jacobi_t.py:287-298), one byte per genotype, whose dot runs in
 // the code domain and is folded by the solve like the 2-bit words'
-// (marker_r), or, in the serial in-kernel decode (Q), is decoded to
+// (fold_r), or, in the serial in-kernel decode (Q), is decoded to
 // x = (c - mean)*scale, 0 for code 3, before the dot and the apply
 // (pallas_sweep.py:_decode_tile).  A dot CTA takes the rows of one block
 // over kDenseTile columns of f32 (kDenseCols a thread) or kInt8Tile of
@@ -1329,6 +1329,54 @@ __device__ __forceinline__ float categorical_draw(
   return okf * (beta_new - bold);
 }
 
+// ---- clock64 stamps of the strided solves' phases, compiled only with
+// -DJT_SOLVE_CLOCKS (tools/time_sweeps.py --clocks): per solve (0 BayesR,
+// 1 the horseshoe), lane 0 of every warp adds the cycles of its loads,
+// table build, steps and epilogue, and its total, and counts itself.  A
+// stamp waits for `dep` (a store of it) and for the whole warp.
+#ifdef JT_SOLVE_CLOCKS
+constexpr int kClockSlots = 6;
+__device__ unsigned long long jt_solve_clk[2][kClockSlots];
+
+__device__ __forceinline__ long long clock_after(float dep) {
+  __shared__ volatile float sink;
+  sink = dep;
+  __syncwarp();
+  long long t;
+  asm volatile("mov.u64 %0, %%clock64;" : "=l"(t)::"memory");
+  return t;
+}
+
+__device__ __forceinline__ void clock_report(int kind, long long t0,
+                                             long long t1, long long t2,
+                                             long long t3, long long t4) {
+  if (threadIdx.x != 0) return;
+  unsigned long long* c = jt_solve_clk[kind];
+  atomicAdd(c + 0, (unsigned long long)(t1 - t0));
+  atomicAdd(c + 1, (unsigned long long)(t2 - t1));
+  atomicAdd(c + 2, (unsigned long long)(t3 - t2));
+  atomicAdd(c + 3, (unsigned long long)(t4 - t3));
+  atomicAdd(c + 4, (unsigned long long)(t4 - t0));
+  atomicAdd(c + 5, 1ull);
+}
+// The stamps summed since the last call, copied to `out` (2 x 6 uint64:
+// BayesR, the horseshoe), then zeroed.
+inline int read_solve_clocks(void* out) {
+  static const unsigned long long zero[2][kClockSlots] = {};
+  cudaError_t err = cudaMemcpyFromSymbol(out, jt_solve_clk,
+                                         sizeof(jt_solve_clk));
+  if (err == cudaSuccess)
+    err = cudaMemcpyToSymbol(jt_solve_clk, zero, sizeof(zero));
+  return err;
+}
+#define JT_CLOCK(t, dep) const long long t = clock_after(dep)
+#define JT_CLOCK_REPORT(kind, t0, t1, t2, t3, t4) \
+  clock_report(kind, t0, t1, t2, t3, t4)
+#else
+#define JT_CLOCK(t, dep)
+#define JT_CLOCK_REPORT(kind, t0, t1, t2, t3, t4)
+#endif
+
 struct SolveArgs {
   const float* partial; int nsplit;
   const int* rho; int round; int nr; int J; int B; int K; int G;
@@ -1342,140 +1390,296 @@ struct SolveArgs {
   const float* pind;   // the miss mode's indicator partials, else null
 };
 
-// r of marker `lane` of block j in the code domain: the per-CTA partials
-// of C.eps summed in a fixed order (q = 0, 1, ...) and, in the miss mode
-// (pind not null), the (mean - 3)-scaled dot of the missing indicator
-// added to it, dot_c + dot_ind*(m - 3) (pallas_jacobi_t.py:_make_dots,
-// :381-393): every missing call counts as the marker's mean, so the fold
-// algebra that follows standardizes it to 0.
-__device__ __forceinline__ float code_dot(const float* partial,
-                                          const float* pind, int nsplit,
-                                          int JB, int j, int B, int lane,
-                                          float mean) {
-  float rc = 0.f;
-  const float* pr = partial + j * B + lane;
-#pragma unroll 8
-  for (int q = 0; q < nsplit; ++q) rc += pr[(long long)q * (JB + 1)];
+struct HsSolveArgs {
+  const float* partial; int nsplit;
+  const int* rho; int round; int nr; int J; int B;
+  const float* gram; const float* xsq; const float* mean; const float* scale;
+  const float* beta_in; float* beta_out;
+  const int* inner; const float* z;
+  const float* lam; const float* tau; const float* c2; const float* sigmaE;
+  const unsigned char* valid;
+  float* dsc; float* dms;
+  const float* pind;   // the miss mode's indicator partials, else null
+};
+
+// ---- the strided solves (solve_block, hs_solve_block): one warp a block
+// of the round, lane l owning marker l of block j.  A solve starts with a
+// chain of loads (the Gram block, the dot's nsplit partial sums of each
+// marker and their sum(eps) column, the per-marker operands); issued one
+// after another they cost several round trips to L2 before the first
+// step.  So, once the round's slab is read, every load of the block is
+// issued before the first wait: the Gram block by 16-byte cp.async, the
+// per-marker operands by plain loads (the only ones a cold block reads
+// from HBM), then the partials (whose rows of J*B + 1 floats start at any
+// float offset) by 4-byte cp.async into a stage in shared memory.  The
+// per-marker tables are built as the operands land, while the partials
+// may still fly; then the partials are summed in the fixed order from
+// shared memory.  (Issuing the partials first, before the slab is read,
+// measured slower: the slab's load waited behind them.)
+//
+// Dynamic shared memory (solve_smem_bytes): the Gram block (B*B floats),
+// a stage of up to kSolveStage partial rows q at the block's columns
+// (q*32 + lane), as many indicator rows in the miss mode, and the stage's
+// sum(eps) entries.
+constexpr int kSolveStage = 128;
+
+__host__ __device__ inline int solve_stage(int nsplit) {
+  return nsplit < kSolveStage ? nsplit : kSolveStage;
+}
+
+inline size_t solve_smem_bytes(int B, int nsplit, bool miss) {
+  return sizeof(float) * ((size_t)B * B +
+                          (size_t)solve_stage(nsplit) * (miss ? 65 : 33));
+}
+
+// A 16-byte asynchronous copy from global to shared memory (both 16-byte
+// aligned).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   smem_addr(dst)), "l"(src) : "memory");
+}
+
+// A strided solve's shared memory (solve_smem_bytes).
+struct BlockStage {
+  float* gs;      // the Gram block in shared memory, row mk at gs + mk*B
+  float* part;    // the partials' stage
+  float* ind;     // the indicator partials' stage (miss mode)
+  float* es;      // the stage's sum(eps) entries
+  int qs;         // partial rows a stage
+};
+
+__device__ __forceinline__ BlockStage solve_smem(int B, int nsplit,
+                                                 bool miss) {
+  extern __shared__ __align__(16) float solve_dyn[];
+  BlockStage st;
+  st.qs = solve_stage(nsplit);
+  st.gs = solve_dyn;
+  st.part = solve_dyn + B * B;
+  st.ind = st.part + st.qs * kMaxB;
+  st.es = miss ? st.ind + st.qs * kMaxB : st.ind;
+  return st;
+}
+
+// Issue the copies of partial rows q0 .. q0+n-1 of block j (lanes >= B
+// copy zeros) and, where a sum(eps) is read (`esum`), their last column,
+// entry q by lane q mod 32; one commit group.
+__device__ __forceinline__ void stage_partials(
+    const BlockStage& st, const float* partial, const float* pind, int JB,
+    int j, int B, int q0, int n, bool esum, int lane, bool act) {
+  const long long JB1 = JB + 1;
+  const float* pr = partial + (long long)q0 * JB1 + j * B + lane;
+  for (int q = 0; q < n; ++q)
+    cp_async4(st.part + q * kMaxB + lane, pr + q * JB1, act);
   if (pind != nullptr) {
-    float ri = 0.f;
-    const float* pi = pind + j * B + lane;
-#pragma unroll 8
-    for (int q = 0; q < nsplit; ++q) ri += pi[(long long)q * JB];
-    rc = rc + ri * (mean - 3.f);
+    const float* pi = pind + (long long)q0 * JB + j * B + lane;
+    for (int q = 0; q < n; ++q)
+      cp_async4(st.ind + q * kMaxB + lane, pi + (long long)q * JB, act);
   }
-  return rc;
+  if (esum)
+    for (int q = lane; q < n; q += 32)
+      cp_async4(st.es + q, partial + (q0 + q) * JB1 + JB, true);
+  cp_async_commit();
 }
 
-// sum(eps) of a fold-mode round from the dot's last partial column, over
-// the CTAs q = lane mod 32, then the warp; 0 in the dense mode (scale
-// null), which reads no sum.
-__device__ __forceinline__ float fold_esum(const float* partial, int nsplit,
-                                           int JB1, const float* scale,
-                                           int lane) {
-  if (scale == nullptr) return 0.f;
-  float esum = 0.f;
-  for (int q = lane; q < nsplit; q += 32)
-    esum += partial[(long long)q * JB1 + JB1 - 1];
-  return warp_sum(esum);
+// Add a landed stage of n rows to the running sums in the fixed order q =
+// 0, 1, ...: the code dot rc, the indicator dot ri, and this lane's share
+// of sum(eps) (q = lane mod 32).
+__device__ __forceinline__ void sum_stage(const BlockStage& st, int n,
+                                          bool miss, bool esum, int lane,
+                                          float& rc, float& ri, float& es) {
+#pragma unroll 16
+  for (int q = 0; q < n; ++q) rc += st.part[q * kMaxB + lane];
+  if (miss) {
+#pragma unroll 16
+    for (int q = 0; q < n; ++q) ri += st.ind[q * kMaxB + lane];
+  }
+  if (esum)
+    for (int q = lane; q < n; q += 32) es += st.es[q];
 }
 
-// r of marker m (lane `lane` of block j) from the dot's partials, with
-// its scale sc and mean*scale ms (the apply's d*scale and d.(m*s) terms).
-// Fold modes: r = s*(code_dot) - (m*s)*sum(eps).  The dense mode (mean and
-// scale null): r is the dot itself, sc = 1 and ms = 0; the fold algebra
-// with scale 1 and mean 0 would give the same bits (rc*1 is rc, and
-// rc - 0*sum(eps) is rc), so it is skipped.
-__device__ __forceinline__ float marker_r(const float* partial,
-                                          const float* pind, int nsplit,
-                                          int JB, int j, int B, int lane,
-                                          const float* mean,
-                                          const float* scale, long long m,
-                                          float esum, float& sc, float& ms) {
-  if (scale == nullptr) {
+// Copy block blk's Gram block (one commit group).
+__device__ __forceinline__ void stage_gram(const BlockStage& st,
+                                           const float* gram, long long blk,
+                                           int B, int lane) {
+  const float4* g4 = reinterpret_cast<const float4*>(gram + blk * B * B);
+  for (int e = lane; e < B * B / 4; e += 32)
+    cp_async16(reinterpret_cast<float4*>(st.gs) + e, g4 + e);
+  cp_async_commit();
+}
+
+// This lane's running sums of the partials: the code dot, the indicator
+// dot and its share of sum(eps).
+struct PartialSums {
+  float rc = 0.f, ri = 0.f, es = 0.f;
+};
+
+// r of this lane's marker from its partial sums: in the code domain, in
+// the miss mode plus the (mean - 3)-scaled dot of the missing indicator,
+// dot_c + dot_ind*(m - 3) (pallas_jacobi_t.py:_make_dots, :381-393: every
+// missing call counts as the marker's mean, so the fold algebra
+// standardizes it to 0); then folded, r = s*(code dot) - (m*s)*sum(eps)
+// with sum(eps) over the CTAs q = lane mod 32, then the warp.  The dense
+// mode (mean and scale null): r is the dot itself, sc = 1 and ms = 0 (the
+// fold with scale 1 and mean 0 would give the same bits).  mn and sc are
+// the marker's mean and scale; sc returns the scale, ms mean*scale (the
+// apply's d*scale and d.(m*s) terms).
+__device__ __forceinline__ float fold_r(PartialSums ps, bool miss, bool fold,
+                                        float mn, float& sc, float& ms) {
+  if (!fold) {
     sc = 1.f;
     ms = 0.f;
-    return code_dot(partial, nullptr, nsplit, JB, j, B, lane, 0.f);
+    return ps.rc;
   }
-  const float rc = code_dot(partial, pind, nsplit, JB, j, B, lane, mean[m]);
-  sc = scale[m];
-  ms = mean[m] * sc;
-  return rc * sc - ms * esum;
+  const float esum = warp_sum(ps.es);
+  if (miss) ps.rc = ps.rc + ps.ri * (mn - 3.f);
+  ms = mn * sc;
+  return ps.rc * sc - ms * esum;
+}
+
+// The partials summed in the fixed order q = 0, 1, ...: waits for every
+// copy (the Gram block's too), then stages and sums the rest, if any, a
+// stage at a time.
+__device__ __forceinline__ PartialSums sum_partials(
+    const BlockStage& st, const float* partial, const float* pind,
+    int nsplit, int JB, int j, int B, bool fold, int lane, bool act) {
+  const bool miss = pind != nullptr;
+  PartialSums ps;
+  cp_async_wait<0>();
+  sum_stage(st, st.qs, miss, fold, lane, ps.rc, ps.ri, ps.es);
+  for (int q0 = st.qs; q0 < nsplit; q0 += st.qs) {
+    const int n = min(st.qs, nsplit - q0);
+    stage_partials(st, partial, pind, JB, j, B, q0, n, fold, lane, act);
+    cp_async_wait<0>();
+    sum_stage(st, n, miss, fold, lane, ps.rc, ps.ri, ps.es);
+  }
+  return ps;
+}
+
+// The Gram block's copy has landed, for the whole warp.
+__device__ __forceinline__ void gram_landed() {
+  cp_async_wait<0>();
+  __syncwarp();
 }
 
 // The BayesR solve of block j of the round, run by one warp (lane l owns
-// marker l).  K, the number of mixture components, is a template argument
-// so the selection below is straight-line code.
+// marker l; K, the number of mixture components, is a template argument
+// so the selection is straight-line code).  Semantics: the B exact
+// sequential Gibbs steps of the TPU kernel, position t visiting marker
+// inner[blk, t] with p/z[(s*J + j)*B + t].  Schedule: most BayesR steps
+// move nothing (d == 0 exactly: a marker that stays in the spike, no hit,
+// an invalid marker), and such a step leaves r bitwise as it was (r - G*0
+// is r), so a block runs as passes: every lane draws its own marker's
+// step at once on the current r (lane l at its visit position pos[l]),
+// the first position c <= f that moves is found (a ballot's minimum),
+// every step up to f is committed (the draws after it are dropped), the
+// mover's rank-1 update lands, and the next pass starts at f + 1.  Each
+// committed draw reads the r the one-step loop's would, so the bits are
+// the same; a block costs (movers + 1) draws where it cost B.
 template <int K>
 __device__ __forceinline__ void solve_block(const SolveArgs& a, int j) {
   const int lane = threadIdx.x;
-  const int B = a.B, G = a.G;
-  const int JB1 = a.J * B + 1;
+  const int B = a.B, G = a.G, JB = a.J * a.B;
+  const bool act = lane < B;
+  const bool fold = a.scale != nullptr, miss = a.pind != nullptr;
+  JT_CLOCK(ck0, 0.f);
+
+  const BlockStage st = solve_smem(B, a.nsplit, miss);
   const int slab = a.rho[a.round];
   const long long blk = (long long)j * a.nr + slab;
   const long long m = blk * B + lane;
-  const bool act = lane < B;
-
-  // the Gram block (B*B floats, B even: float4 copies)
-  __shared__ float4 gs4[kMaxB * kMaxB / 4];
-  const float* gs = reinterpret_cast<const float*>(gs4);
-  const float4* g4 = reinterpret_cast<const float4*>(a.gram + blk * B * B);
-#pragma unroll 8
-  for (int e = lane; e < B * B / 4; e += 32) gs4[e] = g4[e];
-
-  // partial sums in a fixed order: sum(eps) over the CTAs q = lane mod 32,
-  // then the warp; r of this lane's marker over q = 0, 1, ...
-  const float esum = fold_esum(a.partial, a.nsplit, JB1, a.scale, lane);
-  const float sE = *a.sigmaE;
-  const float half_invsE = 0.5f / sE;
-
-  float r = 0.f, sc = 0.f, ms = 0.f, xs = 0.f, bold = 0.f, okf = 0.f;
-  float pl = 0.f, zl = 0.f;
-  int lab = 0, g = 0, inn = 0;
-  float lp[K], invd[K], sd[K];
+  stage_gram(st, a.gram, blk, B, lane);
+  // the per-marker operands; p and z by visit position t = lane
+  // (pallas_jacobi_t.py: p/z[(s*J + j)*B + t])
+  float xs = 0.f, bold = 0.f, okf = 0.f, mn = 0.f, sc = 0.f, pt = 0.f,
+        zt = 0.f, sG = 1.f;
+  float piv[K], cvv[K];
 #pragma unroll
-  for (int k = 0; k < K; ++k) { lp[k] = 0.f; invd[k] = 0.f; sd[k] = 0.f; }
+  for (int k = 0; k < K; ++k) { piv[k] = 1.f; cvv[k] = 1.f; }
+  int lab = 0, g = 0, inn = 0;
+  const float sE = *a.sigmaE;
   if (act) {
-    r = marker_r(a.partial, a.pind, a.nsplit, a.J * B, j, B, lane, a.mean,
-                 a.scale, m, esum, sc, ms);
     xs = a.xsq[m];
     bold = a.beta_in[m];
     lab = a.labels_in[m];
     okf = a.valid[m] ? 1.f : 0.f;
-    g = a.gas[m];
+    g = G == 1 ? 0 : a.gas[m];
     inn = a.inner[blk * B + lane];
     const long long q = ((long long)slab * a.J + j) * B + lane;
-    pl = a.p[q];
-    zl = a.z[q];
-    // per-marker constants (pallas_jacobi_t.py:_bayesr_tbl)
-    const float sG = a.sigmaGG[g];
-    lp[0] = logf(fmaxf(a.pi[g * K], FLT_MIN));
+    pt = a.p[q];
+    zt = a.z[q];
+    if (fold) {
+      mn = a.mean[m];
+      sc = a.scale[m];
+    }
+    sG = a.sigmaGG[g];
+#pragma unroll
+    for (int k = 0; k < K; ++k) piv[k] = a.pi[g * K + k];
+#pragma unroll
+    for (int k = 1; k < K; ++k) cvv[k] = a.cva[g * (K - 1) + k - 1];
+  }
+  stage_partials(st, a.partial, a.pind, JB, j, B, 0, st.qs, fold, lane, act);
+  // each marker's visit position and its p and z
+  __shared__ int s_pos[kMaxB];
+  __shared__ float s_p[kMaxB], s_z[kMaxB];
+  if (act) {
+    s_pos[inn] = lane;
+    s_p[inn] = pt;
+    s_z[inn] = zt;
+  }
+  __syncwarp();
+  const int pos = act ? s_pos[lane] : kMaxB;   // pad lanes: never visited
+  const float pl = act ? s_p[lane] : 0.f, zl = act ? s_z[lane] : 0.f;
+  JT_CLOCK(ck1, xs + bold + okf + pl + zl + mn +
+                    sc + sG + piv[K - 1] + cvv[K - 1] +
+                    (float)(lab + g + pos));
+
+  // per-marker constants (pallas_jacobi_t.py:_bayesr_tbl)
+  const float half_invsE = 0.5f / sE;
+  float lp[K], invd[K], sd[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) { lp[k] = 0.f; invd[k] = 0.f; sd[k] = 0.f; }
+  if (act) {
+    lp[0] = logf(fmaxf(piv[0], FLT_MIN));
 #pragma unroll
     for (int k = 1; k < K; ++k) {
-      const float c = a.cva[g * (K - 1) + k - 1];
+      const float c = cvv[k];
       const float denom = xs + (sE / sG) / c;
       invd[k] = 1.f / denom;
       sd[k] = sqrtf(sE / denom);
-      lp[k] = logf(fmaxf(a.pi[g * K + k], FLT_MIN)) -
+      lp[k] = logf(fmaxf(piv[k], FLT_MIN)) -
               0.5f * logf((sG / sE) * xs * c + 1.f);
     }
   }
-  __syncwarp();
+  const float bx = bold * xs;
+  float ms = 0.f;
+  const PartialSums ps = sum_partials(st, a.partial, a.pind, a.nsplit, JB,
+                                     j, B, fold, lane, act);
+  float r = fold_r(ps, miss, fold, mn, sc, ms);
+  gram_landed();
+  JT_CLOCK(ck2, lp[K - 1] + invd[K - 1] + sd[K - 1] + bx + r + st.gs[lane]);
 
   float d_own = 0.f;
   int krec = -1;
-  for (int t = 0; t < B; ++t) {
-    const int mk = __shfl_sync(kFull, inn, t);
-    const float pt = __shfl_sync(kFull, pl, t);
-    const float zt = __shfl_sync(kFull, zl, t);
-    float d = 0.f;
-    if (lane == mk) {
-      d = categorical_draw<K>(lp, invd, sd, r + bold * xs, half_invsE, pt,
-                              zt, bold, okf, krec);
+  for (int c = 0;;) {
+    int kr;
+    const float d = categorical_draw<K>(lp, invd, sd, r + bx, half_invsE,
+                                        pl, zl, bold, okf, kr);
+    const bool open = act && pos >= c;
+    // the first mover's position and lane, in one reduce
+    const unsigned fm = __reduce_min_sync(
+        kFull, open && d != 0.f ? (unsigned)(pos * 32 + lane) : 32u * 32u);
+    const int f = (int)(fm >> 5);
+    if (open && pos <= f) {
       d_own = d;
+      krec = kr;
     }
-    d = __shfl_sync(kFull, d, mk);
-    if (act) r = r - gs[mk * B + lane] * d;
+    if (f >= B - 1) break;   // no mover, or the last step: r is done
+    const int mk = (int)(fm & 31u);
+    const float dm = __shfl_sync(kFull, d, mk);
+    if (act) r = r - st.gs[mk * B + lane] * dm;
+    c = f + 1;
   }
+  JT_CLOCK(ck3, r + d_own + (float)krec);
 
   const float bnew = bold + d_own;
   if (act) {
@@ -1493,78 +1697,90 @@ __device__ __forceinline__ void solve_block(const SolveArgs& a, int j) {
     const float b2 = warp_sum((act && g == gg && krec > 0) ? bnew * bnew : 0.f);
     if (lane == 0) a.bpart[blk * G + gg] = b2;
   }
+  JT_CLOCK(ck4, dms);
+  JT_CLOCK_REPORT(0, ck0, ck1, ck2, ck3, ck4);
 }
 
-struct HsSolveArgs {
-  const float* partial; int nsplit;
-  const int* rho; int round; int nr; int J; int B;
-  const float* gram; const float* xsq; const float* mean; const float* scale;
-  const float* beta_in; float* beta_out;
-  const int* inner; const float* z;
-  const float* lam; const float* tau; const float* c2; const float* sigmaE;
-  const unsigned char* valid;
-  float* dsc; float* dms;
-  const float* pind;   // the miss mode's indicator partials, else null
-};
-
 // The horseshoe's solve of block j (pallas_jacobi_t.py:_hs_jacobi_t_kernel,
-// :722-774): solve_block's warp-per-block layout, fold algebra, broadcast of
-// the visited marker and canonical z index, with a conjugate normal draw in
-// place of the component selection.  Per-lane constants in the op order of
-// the TPU kernel's operand table (build_pkgT_hs_strided, :155-173):
+// :722-774): solve_block's layout, staging and fold algebra, with a
+// conjugate normal draw in place of the component selection.  Per-lane
+// constants in the op order of the TPU kernel's operand table
+// (build_pkgT_hs_strided, :155-173):
 //   s_j = tau*c2*lam / (tau*lam + c2), denom = xsq + sE/s_j,
 //   invd = 1/denom, sd = sqrt(sE/denom);
-// per step beta_new = num*invd + sd*z with num = r + beta_old*xsq.
+// per step beta_new = num*invd + sd*z with num = r + beta_old*xsq.  Every
+// valid step moves, so the B steps run one at a time; all that does not
+// depend on r is off the chain from one step to the next: every lane
+// computes its own draw (beta_old*xsq and sd*z ahead of the loop) and the
+// visited lane's d is broadcast, and the next step's lane and Gram entry
+// are read a step ahead.
 __device__ __forceinline__ void hs_solve_block(const HsSolveArgs& a, int j) {
   const int lane = threadIdx.x;
-  const int B = a.B;
-  const int JB1 = a.J * B + 1;
+  const int B = a.B, JB = a.J * a.B;
+  const bool act = lane < B;
+  const bool fold = a.scale != nullptr, miss = a.pind != nullptr;
+  JT_CLOCK(ck0, 0.f);
+
+  const BlockStage st = solve_smem(B, a.nsplit, miss);
   const int slab = a.rho[a.round];
   const long long blk = (long long)j * a.nr + slab;
   const long long m = blk * B + lane;
-  const bool act = lane < B;
-
-  __shared__ float4 gs4[kMaxB * kMaxB / 4];
-  const float* gs = reinterpret_cast<const float*>(gs4);
-  const float4* g4 = reinterpret_cast<const float4*>(a.gram + blk * B * B);
-#pragma unroll 8
-  for (int e = lane; e < B * B / 4; e += 32) gs4[e] = g4[e];
-
-  const float esum = fold_esum(a.partial, a.nsplit, JB1, a.scale, lane);
-
-  float r = 0.f, sc = 0.f, ms = 0.f, xs = 0.f, bold = 0.f, okf = 0.f;
-  float zl = 0.f, invd = 0.f, sd = 0.f;
+  stage_gram(st, a.gram, blk, B, lane);
+  float xs = 0.f, bold = 0.f, okf = 0.f, mn = 0.f, sc = 0.f, zt = 0.f,
+        lam = 1.f;
   int inn = 0;
+  const float sE = *a.sigmaE, tau = *a.tau, c2 = *a.c2;
   if (act) {
-    r = marker_r(a.partial, a.pind, a.nsplit, a.J * B, j, B, lane, a.mean,
-                 a.scale, m, esum, sc, ms);
     xs = a.xsq[m];
     bold = a.beta_in[m];
     okf = a.valid[m] ? 1.f : 0.f;
+    lam = a.lam[m];
     inn = a.inner[blk * B + lane];
-    zl = a.z[((long long)slab * a.J + j) * B + lane];
-    const float sE = *a.sigmaE, tau = *a.tau, c2 = *a.c2, lam = a.lam[m];
+    zt = a.z[((long long)slab * a.J + j) * B + lane];
+    if (fold) {
+      mn = a.mean[m];
+      sc = a.scale[m];
+    }
+  }
+  stage_partials(st, a.partial, a.pind, JB, j, B, 0, st.qs, fold, lane, act);
+  __shared__ float s_z[kMaxB];
+  if (act) s_z[inn] = zt;
+  __syncwarp();
+  const float zl = act ? s_z[lane] : 0.f;
+  JT_CLOCK(ck1, xs + bold + okf + zl + lam + mn +
+                    sc + (float)inn);
+
+  float invd = 0.f, sd = 0.f;
+  if (act) {
     const float s_j = tau * c2 * lam / (tau * lam + c2);
     const float denom = xs + sE / s_j;
     invd = 1.f / denom;
     sd = sqrtf(sE / denom);
   }
-  __syncwarp();
+  const float bx = bold * xs, szl = sd * zl;
+  float ms = 0.f;
+  const PartialSums ps = sum_partials(st, a.partial, a.pind, a.nsplit, JB,
+                                     j, B, fold, lane, act);
+  float r = fold_r(ps, miss, fold, mn, sc, ms);
+  gram_landed();
+  JT_CLOCK(ck2, invd + szl + bx + r + st.gs[lane]);
 
   float d_own = 0.f;
+  int mk = __shfl_sync(kFull, inn, 0);
+  float gm = act ? st.gs[mk * B + lane] : 0.f;
+#pragma unroll 4
   for (int t = 0; t < B; ++t) {
-    const int mk = __shfl_sync(kFull, inn, t);
-    const float zt = __shfl_sync(kFull, zl, t);
-    float d = 0.f;
-    if (lane == mk) {
-      const float num = r + bold * xs;
-      const float beta_new = num * invd + sd * zt;
-      d = okf * (beta_new - bold);
-      d_own = d;
-    }
-    d = __shfl_sync(kFull, d, mk);
-    if (act) r = r - gs[mk * B + lane] * d;
+    const int mk1 = __shfl_sync(kFull, inn, t + 1 < B ? t + 1 : 0);
+    const float gn = act ? st.gs[mk1 * B + lane] : 0.f;
+    const float num = r + bx;
+    const float beta_new = num * invd + szl;
+    const float d = __shfl_sync(kFull, okf * (beta_new - bold), mk);
+    if (lane == mk) d_own = d;
+    if (act) r = r - gm * d;
+    mk = mk1;
+    gm = gn;
   }
+  JT_CLOCK(ck3, r + d_own);
 
   if (act) {
     a.beta_out[m] = bold + d_own;
@@ -1572,6 +1788,8 @@ __device__ __forceinline__ void hs_solve_block(const HsSolveArgs& a, int j) {
   }
   const float dms = warp_sum(act ? d_own * ms : 0.f);
   if (lane == 0) a.dms[j] = dms;
+  JT_CLOCK(ck4, dms);
+  JT_CLOCK_REPORT(1, ck0, ck1, ck2, ck3, ck4);
 }
 
 }  // namespace

@@ -759,6 +759,12 @@ cudaError_t launch_apply_mc(int C, int Nw, int x_int8, cudaStream_t s,
 
 extern "C" {
 
+#ifdef JT_SOLVE_CLOCKS
+// The strided solves' clock stamps since the last call, then zeroed
+// (jacobi_t_common.cuh:read_solve_clocks; a -DJT_SOLVE_CLOCKS build).
+int jacobi_t_mc_solve_clocks(void* out) { return read_solve_clocks(out); }
+#endif
+
 // The smallest round (J*B entries) whose row apply takes the ring, and
 // not the direct path (jacobi_t_common.cuh:launch_row_apply; rows < 0:
 // unchanged); returns the previous value.  Both paths give the same bits.
@@ -819,6 +825,7 @@ int jacobi_t_mc_sweep(int C, const void* words, int Nw, int x_int8, int nr,
                static_cast<float*>(vpart), static_cast<float*>(bpart),
                static_cast<const float*>(pind)};
   const dim3 solve_grid(J, C);
+  const size_t ssm = solve_smem_bytes(B, nsplit, pind != nullptr);
   cudaError_t err;
   for (int r = 0; r < n_rounds; ++r) {
     err = launch_dot_mc(C, Nw, x_int8, nsplit, J, s, wd,
@@ -829,13 +836,13 @@ int jacobi_t_mc_sweep(int C, const void* words, int Nw, int x_int8, int nr,
     if (err != cudaSuccess) return err;
     sa.round = r;
     switch (K) {
-      case 2: solve_mc_kernel<2><<<solve_grid, 32, 0, s>>>(sa); break;
-      case 3: solve_mc_kernel<3><<<solve_grid, 32, 0, s>>>(sa); break;
-      case 4: solve_mc_kernel<4><<<solve_grid, 32, 0, s>>>(sa); break;
-      case 5: solve_mc_kernel<5><<<solve_grid, 32, 0, s>>>(sa); break;
-      case 6: solve_mc_kernel<6><<<solve_grid, 32, 0, s>>>(sa); break;
-      case 7: solve_mc_kernel<7><<<solve_grid, 32, 0, s>>>(sa); break;
-      case 8: solve_mc_kernel<8><<<solve_grid, 32, 0, s>>>(sa); break;
+      case 2: solve_mc_kernel<2><<<solve_grid, 32, ssm, s>>>(sa); break;
+      case 3: solve_mc_kernel<3><<<solve_grid, 32, ssm, s>>>(sa); break;
+      case 4: solve_mc_kernel<4><<<solve_grid, 32, ssm, s>>>(sa); break;
+      case 5: solve_mc_kernel<5><<<solve_grid, 32, ssm, s>>>(sa); break;
+      case 6: solve_mc_kernel<6><<<solve_grid, 32, ssm, s>>>(sa); break;
+      case 7: solve_mc_kernel<7><<<solve_grid, 32, ssm, s>>>(sa); break;
+      case 8: solve_mc_kernel<8><<<solve_grid, 32, ssm, s>>>(sa); break;
       default: return cudaErrorInvalidValue;
     }
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
@@ -882,6 +889,7 @@ int jacobi_t_hs_mc_sweep(int C, const void* words, int Nw, int x_int8,
                  static_cast<float*>(dsc), static_cast<float*>(dms),
                  static_cast<const float*>(pind)};
   const dim3 solve_grid(J, C);
+  const size_t ssm = solve_smem_bytes(B, nsplit, pind != nullptr);
   cudaError_t err;
   for (int r = 0; r < nr; ++r) {
     err = launch_dot_mc(C, Nw, x_int8, nsplit, J, s, wd,
@@ -891,7 +899,7 @@ int jacobi_t_hs_mc_sweep(int C, const void* words, int Nw, int x_int8,
                         static_cast<const float*>(mean));
     if (err != cudaSuccess) return err;
     sa.round = r;
-    hs_solve_mc_kernel<<<solve_grid, 32, 0, s>>>(sa);
+    hs_solve_mc_kernel<<<solve_grid, 32, ssm, s>>>(sa);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     err = launch_apply_mc(C, Nw, x_int8, s, wd, static_cast<float*>(eps),
                           static_cast<const unsigned char*>(row_valid), rh, r,

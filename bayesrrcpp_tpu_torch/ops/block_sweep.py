@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from .jacobi_t import SweepResult
+from .jacobi_t import SweepResult, categorical_draw
 from .selection import select_component
 
 
@@ -145,6 +145,58 @@ def windowed_inner_solve(r, Gb, beta_b, labels_b, xsq_b, gas_b, valid_b,
                 s0 = t + 1
                 break
     return r, beta_b, labels_b, delta, v, bacc
+
+
+def strided_pass_solve(rr, G_r, bold, inn, blk, p_r, z_r, lp, invd, sd,
+                       xsq, okf, half_invsE):
+    """``ops/jacobi_t.strided_steps`` (same arguments and outputs) on the
+    strided kernel's schedule (csrc/jacobi_t_common.cuh:solve_block): from a
+    cursor c = 0, each pass draws every position t >= c of a block at once
+    on the block's current r, commits every position up to and including
+    the first that moves (d != 0), applies that one rank-1 update, and
+    starts the next pass after it; with no mover the rest is committed and
+    the block is done.  A step that moves nothing leaves r as it was, so
+    the committed draws are the one-step loop's.  Each draw is the loop's
+    own call on the same shapes (position t of every block at once), so it
+    rounds alike; only which r a draw reads, and when the update lands,
+    differ.  For the tests: no sweep calls it."""
+    J, B = inn.shape
+    dev = rr.device
+    jj = torch.arange(J, device=dev)
+    t_all = torch.arange(B, device=dev)
+    lead = rr.shape[:-2]
+    dpos = torch.zeros_like(rr)                       # by visit position
+    kpos = torch.full(rr.shape, -1, dtype=torch.int32, device=dev)
+    c = torch.zeros(lead + (J,), dtype=torch.long, device=dev)
+    while bool((c < B).any()):
+        draws = []
+        for t in range(B):
+            m = inn[:, t]
+            mg = blk * B + m
+            b_old = bold[..., jj, m]
+            num = rr[..., jj, m] + b_old * xsq[mg]
+            draws.append(categorical_draw(
+                lp[..., mg, :], invd[..., mg, :], sd[..., mg, :], num,
+                half_invsE, p_r[..., t], z_r[..., t], b_old, okf[mg]))
+        d = torch.stack([x for x, _ in draws], dim=-1)
+        kr = torch.stack([k for _, k in draws], dim=-1)
+        open_ = t_all >= c[..., None]
+        moves = open_ & (d != 0)
+        has = moves.any(dim=-1)
+        f = torch.where(has, moves.to(torch.int8).argmax(dim=-1), B)
+        commit = open_ & (t_all <= f[..., None])
+        dpos = torch.where(commit, d, dpos)
+        kpos = torch.where(commit, kr, kpos)
+        fm = f.clamp_max(B - 1)
+        mover = inn[jj, fm]                           # (..., J) markers
+        dm = torch.gather(d, -1, fm[..., None])
+        rr = torch.where(has[..., None], rr - G_r[jj, mover, :] * dm, rr)
+        c = torch.where(has, f + 1, B)
+    d = torch.zeros_like(rr)
+    krec = torch.full(rr.shape, -1, dtype=torch.int32, device=dev)
+    d[..., jj[:, None], inn] = dpos
+    krec[..., jj[:, None], inn] = kpos
+    return d, krec
 
 
 def dependent_windows(d_in_visit_order, W: int) -> int:

@@ -495,6 +495,33 @@ def categorical_draw(lp, invd, sd, num, half_invsE, p, z, bold, okf):
     return okf * (beta_new - bold), krec
 
 
+def strided_steps(rr, G_r, bold, inn, blk, p_r, z_r, lp, invd, sd, xsq, okf,
+                  half_invsE):
+    """The B sequential BayesR steps of a round's J blocks, batched over the
+    blocks and any leading chain axis: step t of block j visits marker
+    inn[j, t] with p/z_r[..., j, t], draws on the current r (rr, (..., J,
+    B) by marker) and updates r by the visited marker's Gram row.  bold
+    (..., J, B); lp, invd, sd (..., Mpad, K); xsq and okf (Mpad,).
+    Returns d and krec (..., J, B) by marker: the plain one-step loop of
+    every strided BayesR sweep (csrc/jacobi_t_common.cuh:solve_block runs
+    the same draws as passes)."""
+    J, B = inn.shape
+    jj = torch.arange(J, device=rr.device)
+    d = torch.zeros_like(rr)
+    krec = torch.full(rr.shape, -1, dtype=torch.int32, device=rr.device)
+    for t in range(B):
+        m = inn[:, t]                                         # (J,)
+        mg = blk * B + m                                      # markers
+        b_old = bold[..., jj, m]
+        num = rr[..., jj, m] + b_old * xsq[mg]
+        dd, krec[..., jj, m] = categorical_draw(
+            lp[..., mg, :], invd[..., mg, :], sd[..., mg, :], num,
+            half_invsE, p_r[..., t], z_r[..., t], b_old, okf[mg])
+        rr = rr - G_r[jj, m, :] * dd[..., None]
+        d[..., jj, m] = dd
+    return d, krec
+
+
 def bayesr_jacobi_t_reference(XT_pad, gram, xsq_pad, eps, beta_pad,
                               labels_pad, rho, inner_perm, p_arr, z_arr,
                               pi, cva, sigmaE, sigmaGG, g_assign_pad,
@@ -548,19 +575,8 @@ def bayesr_jacobi_t_reference(XT_pad, gram, xsq_pad, eps, beta_pad,
         inn = inner_perm[blk]                                 # (J, B)
         pos = (s * J + jj)[:, None] * B + lanes
         p_r, z_r = p_arr[pos].to(f32), z_arr[pos].to(f32)
-        G_r = gram[blk]                                       # (J, B, B)
-        d = torch.zeros((J, B), dtype=f32, device=dev)
-        krec = torch.full((J, B), -1, dtype=torch.int32, device=dev)
-        for t in range(B):
-            m = inn[:, t]                                     # (J,)
-            mg = blk * B + m                                  # markers
-            b_old = bold[jj, m]
-            num = rr[jj, m] + b_old * xsq[mg]
-            dd, krec[jj, m] = categorical_draw(
-                lp[mg], invd[mg], sd[mg], num, half_invsE, p_r[:, t],
-                z_r[:, t], b_old, okf[mg])
-            rr = rr - G_r[jj, m, :] * dd[:, None]
-            d[jj, m] = dd
+        d, krec = strided_steps(rr, gram[blk], bold, inn, blk, p_r, z_r,
+                                lp, invd, sd, xsq, okf, half_invsE)
         bnew = bold + d
         beta[rows] = bnew.reshape(-1)
         labels[rows] = torch.where(krec >= 0, krec,
@@ -978,19 +994,8 @@ def bayesr_jacobi_t_mc_reference(XT_pad, gram, xsq_pad, eps, beta_pad,
         inn = inner_perm[blk]                                 # (J, B)
         pos = ((s * J + jj)[:, None] * B + lanes).reshape(-1)
         p_r, z_r = p_arr[:, pos].view(C, J, B), z_arr[:, pos].view(C, J, B)
-        G_r = gram[blk]                                       # (J, B, B)
-        d = torch.zeros((C, J, B), dtype=f32, device=dev)
-        krec = torch.full((C, J, B), -1, dtype=torch.int32, device=dev)
-        for t in range(B):
-            m = inn[:, t]                                     # (J,)
-            mg = blk * B + m                                  # markers
-            b_old = bold[:, jj, m]                            # (C, J)
-            num = rr[:, jj, m] + b_old * xsq[mg]
-            dd, krec[:, jj, m] = categorical_draw(
-                lp[:, mg], invd[:, mg], sd[:, mg], num, half_invsE,
-                p_r[..., t], z_r[..., t], b_old, okf[mg])     # (C, J)
-            rr = rr - G_r[jj, m, :] * dd[..., None]
-            d[:, jj, m] = dd
+        d, krec = strided_steps(rr, gram[blk], bold, inn, blk, p_r, z_r,
+                                lp, invd, sd, xsq, okf, half_invsE)
         bnew = bold + d
         beta[:, rows] = bnew.reshape(C, -1)
         labels[:, rows] = torch.where(krec >= 0, krec,

@@ -17,7 +17,8 @@ Each bound is the larger of the bytes the kernel must move (each input read
 once, each output written once) over 3.35 TB/s and its FP32 operations over
 67 TFLOP/s (NVIDIA H100 SXM data sheet, 700 W).  ``apply_round`` is one
 apply launch of the strided 2-bit modes, ``row_apply_round`` one of the
-dense and int8 row apply, ``dot_round`` one dot launch of any storage.
+dense and int8 row apply, ``dot_round`` one dot launch of any storage,
+``strided_solve_round`` one strided solve launch.
 The script's rows are one whole sweep of M=503,808 markers at N=100,352
 on one card, plan J=128, B=32, K=4, G=1, with the least that depends on
 the data: no marker moves.
@@ -153,6 +154,32 @@ def horseshoe_round_solve(markers, b):
     return round_solve(markers, b, 5, 4 + 2 * b)
 
 
+def strided_solve_round(J, B, nsplit, K, chains, miss, movers=None):
+    """One strided solve launch (solve_kernel / hs_solve_kernel, fused:
+    solve_mc_kernel / hs_solve_mc_kernel) over a round's J blocks of B
+    markers for ``chains`` chains, K components (K = 0: the horseshoe).
+    Bytes: per chain the dot's partials of the round's J*B markers
+    (``nsplit`` floats each, the ``miss`` mode's indicator partials as many
+    again) and its sum(eps) column, beta in and out, z, d*scale written and
+    a block's d.(m*s) (BayesR: labels in and out, p, and the block's v and
+    bacc partials at G=1; the horseshoe: lambda); the J
+    Gram blocks and the per-marker xsq, mean, scale, visit order, a valid
+    byte and (BayesR) the group, read once for all chains.  FP32 operations:
+    each marker's draw once (BayesR: 4K + 2K^2, the horseshoe 6) and each
+    mover's rank-1 update (2B), ``movers`` of them a block and chain
+    (default: none for BayesR, every marker for the horseshoe)."""
+    jb = J * B
+    hs = K == 0
+    if movers is None:
+        movers = B if hs else 0
+    per_chain = 4 * (jb * nsplit * (2 if miss else 1) + nsplit
+                     + jb * (5 if hs else 7) + J * (1 if hs else K + 2))
+    shared = 4 * J * B * B + jb * (4 * 3 + 4 + 1 + (0 if hs else 4))
+    draw = 6 if hs else 4 * K + 2 * K * K
+    flops = chains * J * (B * draw + movers * 2 * B)
+    return bound(chains * per_chain + shared, float(flops))
+
+
 SITES = [
     ("5", "pallas_jacobi_t.py:2229 bayesr_jacobi_t_rounds",
      sweep(N, M, GRAM_FLOATS, 1, 6)),
@@ -168,6 +195,16 @@ SITES = [
      horseshoe_round_solve(32 * 128, 128)),
     ("14", "pallas_jacobi.py:833 horseshoe_round_solve_pallas (a sweep)",
      horseshoe_round_solve(M, 128)),
+    # the strided solves of one headline round (49 partial rows), one
+    # chain and 8 fused: BayesR with no mover, the horseshoe's all moving
+    ("1", "pallas_jacobi_t.py:1032 bayesr_jacobi_t_pallas solve (a round)",
+     strided_solve_round(J, B, 49, K, 1, False)),
+    ("2", "pallas_jacobi_t.py:1151 horseshoe_jacobi_t_pallas solve "
+     "(a round)", strided_solve_round(J, B, 49, 0, 1, False)),
+    ("3", "pallas_jacobi_t.py:1635 bayesr_jacobi_t_pallas_mc solve "
+     "(a round, C=8)", strided_solve_round(J, B, 49, K, 8, False)),
+    ("4", "pallas_jacobi_t.py:2054 horseshoe_jacobi_t_pallas_mc solve "
+     "(a round, C=8)", strided_solve_round(J, B, 49, 0, 8, False)),
     # the fused horseshoe's apply of one round at C=8 (fold): every row of
     # the round's J*B moves
     ("4", "pallas_jacobi_t.py:2054 horseshoe_jacobi_t_pallas_mc apply "

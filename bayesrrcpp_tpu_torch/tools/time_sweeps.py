@@ -2,7 +2,8 @@
 """Time the sweep kernels of one or more checkouts on one NVIDIA GPU, to
 compare two versions of the kernels in one call.
 
-    python3 bayesrrcpp_tpu_torch/tools/time_sweeps.py ROOT [ROOT ...]
+    python3 bayesrrcpp_tpu_torch/tools/time_sweeps.py [--only P,Q] \
+        [--clocks] ROOT [ROOT ...]
 
 Each ROOT is the root of a checkout of this repository.  Each runs in a
 process of its own, in the order given (name each twice to interleave:
@@ -58,6 +59,16 @@ called by the port), and the ``miss`` cases ``miss_div``: the iterations a row a
 dot's indicator pass (the most set fields among the warp's 32 words of
 the row), mean and worst over the warps of 512 blocks, against the mean
 set fields, at the words' 2^-6 and at 2^-5 (~3 %, the tests').
+The strided cases also give ``bound_us["solve"]`` (the solve's bound a
+round at the case's movers, ``kernel_bounds.strided_solve_round``),
+``moved_share`` and ``passes_per_block``: the strided BayesR solve's
+passes (a pass a mover, and one more where steps follow the last mover),
+per chain, and ``passes_max``: the most passes of a round's J blocks (a
+launch waits for its slowest block), mean over the rounds.  ``--clocks``
+builds every root's kernels with ``-DJT_SOLVE_CLOCKS`` (a root whose
+csrc/ has the stamps) and adds to each strided case ``solve_clocks``: the
+mean cycles a warp of the solves' loads, table build, steps and epilogue
+over the profiled call (times of such a build carry the stamps' cost).
 ``--only P,Q`` runs only
 the cases whose keys start with P or Q.  Each root prints one JSON line,
 preceded by the card's nvidia-smi name and power limit; the script exits
@@ -192,6 +203,16 @@ def visit_moves(torch, beta_out, beta_in, border, inner, B):
     return torch.gather(moved[border.long()], 1, inner[border.long()].long())
 
 
+def block_passes(torch, moved):
+    """The strided BayesR solve's passes of each block, from its (nb, B)
+    moved flags in visit order: one a mover, and one more where steps
+    follow the last mover (or none moves)."""
+    B = moved.shape[1]
+    at = torch.arange(B, device=moved.device)
+    last = torch.where(moved, at, -1).amax(1)
+    return moved.sum(1) + (last < B - 1)
+
+
 def own_bounds():
     """tools/kernel_bounds.py beside this script (every root's cases get
     the same bounds, whatever its own copy holds)."""
@@ -206,6 +227,37 @@ def own_bounds():
 
 
 ONLY = ()   # key prefixes to run (--only); empty: every case
+CLOCKS = False   # --clocks: the strided solves' clock64 stamps
+
+
+def solve_clocks(torch):
+    """The strided solves' phase cycles since the last call, from a build
+    with -DJT_SOLVE_CLOCKS (csrc/jacobi_t_common.cuh:clock_report), both
+    libraries summed: per solve that ran, the mean cycles a warp of its
+    loads, table build, steps, epilogue and total, and the warps; None for
+    a root whose kernels have no stamps."""
+    import ctypes
+
+    from bayesrrcpp_tpu_torch.ops import _cuda
+
+    torch.cuda.synchronize()
+    tot = [0] * 12
+    for name in ("jacobi_t", "jacobi_t_mc"):
+        lib = _cuda.library(name)
+        fn = getattr(lib.lib, f"{name}_solve_clocks", None)
+        if fn is None:
+            return None
+        fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+        buf = (ctypes.c_uint64 * 12)()
+        lib.check(fn(ctypes.addressof(buf)), "solve clocks")
+        tot = [a + b for a, b in zip(tot, buf)]
+    res = {}
+    for kind, c in (("bayesr", tot[:6]), ("horseshoe", tot[6:])):
+        if c[5]:
+            res[kind] = {**{p: c[i] / c[5] for i, p in enumerate(
+                ("loads", "table", "steps", "epilogue", "total"))},
+                "warps": c[5]}
+    return res
 
 
 def wanted(*keys):
@@ -217,7 +269,11 @@ def run_case(torch, out, key, fn, serial=None, extra=None):
     if not wanted(key):
         return
     times, res = sweep_times(torch, fn, REPS)
+    if CLOCKS:
+        solve_clocks(torch)
     rec = {"ms": times, "split": split(torch, fn), "hash": digest(res)}
+    if CLOCKS:
+        rec["solve_clocks"] = solve_clocks(torch)
     if extra is not None:
         rec.update(extra(res))
     if serial is not None:
@@ -260,6 +316,8 @@ def run_one(root):
     check = os.path.dirname(os.path.abspath(bt.__file__))
     if check != os.path.join(os.path.abspath(root), "bayesrrcpp_tpu_torch"):
         raise RuntimeError(f"imported {check}, not {root}'s package")
+    if CLOCKS:
+        _cuda.NVCC_FLAGS = [*_cuda.NVCC_FLAGS, "-DJT_SOLVE_CLOCKS"]
     _cuda.libraries("jacobi_t", "jacobi_t_mc", "serial")
     out = {"root": root}
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -342,9 +400,38 @@ def run_one(root):
         nr = s.nb // s.jacobi
         rows = (((torch.arange(s.jacobi, device="cuda") * nr + rho[0]) *
                  s.B)[:, None] + torch.arange(s.B, device="cuda")).flatten()
+        lib = _cuda.library("jacobi_t").lib
+        nsplit = (lib.jacobi_t_dot_splits(d.XT.shape[1]) if s.x_packed else
+                  lib.jacobi_t_int8_dot_splits(s.N) if s.x_int8 else
+                  lib.jacobi_t_dense_dot_splits(s.N))
+        base = yard(kind, s, rows, st.beta, miss_per_row)
+
+        def extra(res):
+            """yard's, the solve's bound a round at the case's movers
+            (``kernel_bounds.strided_solve_round``), the share of steps
+            that moved and the solve's passes a block (``block_passes``),
+            mean and a round's most, over the chains."""
+            rec = base(res)
+            kb = own_bounds()
+            moved = res[1] != st.beta
+            lead = moved if moved.dim() == 2 else moved[None]
+            vis = [torch.gather(m.reshape(-1, s.B), 1, inner.long())
+                   for m in lead]
+            share = sum(float(v.float().mean()) for v in vis) / len(vis)
+            rec["bound_us"]["solve"] = kb.strided_solve_round(
+                s.jacobi, s.B, nsplit, len(CVA) + 1 if kind == "bayesr"
+                else 0, len(vis), skw.get("missing", False),
+                share * s.B)["bound_ms"] * 1e3
+            rec["moved_share"] = share
+            passes = [block_passes(torch, v).view(s.jacobi, -1) for v in vis]
+            rec["passes_per_block"] = sum(
+                float(p.float().mean()) for p in passes) / len(vis)
+            rec["passes_max"] = sum(
+                float(p.amax(0).float().mean()) for p in passes) / len(vis)
+            return rec
+
         run_case(torch, out, f"{tag}_{kind}",
-                 lambda: tuple(fn(*args, **skw)),
-                 extra=yard(kind, s, rows, st.beta, miss_per_row))
+                 lambda: tuple(fn(*args, **skw)), extra=extra)
 
     def serial(kind, s, chains, tag, fns, J=None):
         d = s.data
@@ -512,8 +599,11 @@ def run_one(root):
 
 def main(roots):
     only = []
-    if roots[:1] == ["--only"]:
-        only, roots = ["--only", roots[1]], roots[2:]
+    while roots[:1] in (["--only"], ["--clocks"]):
+        if roots[0] == "--clocks":
+            only, roots = [*only, "--clocks"], roots[1:]
+        else:
+            only, roots = [*only, "--only", roots[1]], roots[2:]
     if not roots:
         print(__doc__, file=sys.stderr)
         return 2
@@ -532,8 +622,10 @@ def main(roots):
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--one"]:
-        if sys.argv[3:4] == ["--only"]:
-            ONLY = tuple(sys.argv[4].split(","))
+        flags = sys.argv[3:]
+        CLOCKS = "--clocks" in flags
+        if "--only" in flags:
+            ONLY = tuple(flags[flags.index("--only") + 1].split(","))
         run_one(sys.argv[2])
         sys.exit(0)
     sys.exit(main(sys.argv[1:]))

@@ -653,6 +653,34 @@ def window_report(torch, tag, s, fn, args, kw, K):
     return share, windows, us
 
 
+def strided_solve_report(torch, tag, s, fn, args, kw, kernel):
+    """One more strided BayesR sweep ``fn(*args, **kw)`` (one chain or
+    fused) under the profiler: the solve's device us a launch (``kernel``),
+    the share of steps that moved (beta changed), the solve's passes a
+    block (one a mover and one more where steps follow the last mover:
+    ``ops/block_sweep.dependent_windows`` at W = B, mean over the blocks
+    and chains) and the us a pass (a launch's us over the passes a block);
+    logged with the card."""
+    from bayesrrcpp_tpu_torch.ops.block_sweep import dependent_windows
+
+    res = []
+    split, _, _ = profile_split(
+        torch, lambda: res.append(fn(*args, **kw)), (kernel,))
+    us, n = split[kernel]
+    lead = (lambda x: x if x.dim() == 2 else x[None])
+    beta_in, beta_out = lead(args[4]), lead(res[0].beta)
+    inner = args[7].long()
+    share = passes = 0.0
+    for bo, bi in zip(beta_out, beta_in):
+        moved = torch.gather((bo != bi).reshape(-1, s.B), 1, inner)
+        share += float(moved.float().mean()) / len(beta_in)
+        passes += dependent_windows(moved, s.B) / (s.nb * len(beta_in))
+    log(f"{tag} strided solve by passes: moving share {share:.4f}, "
+        f"{passes:.3f} passes a block of {s.B} steps, solve {us:.2f} us a "
+        f"launch (x {n}), {us / passes:.3f} us a pass; {CARD}")
+    return share, passes, us
+
+
 def profiled(split, want):
     """Every profiled kernel ran, with at least 95 % of its ``want``
     launches recorded (the launch counters check the exact counts)."""
@@ -800,6 +828,9 @@ def smoke(torch, tmp):
     check(launches == want, f"launches {launches} != {want}")
     bayesr_launches = launches
     ms_iter_4 = wall / chain.max_iterations * 1e3
+    strided_solve_report(torch, "[4]", s, bayesr_jacobi_t,
+                         *sweep_args(s, st, bt.TorchVariates(g)),
+                         "solve_kernel")
     del st, out
 
     # ---- 5a. horseshoe kernel vs plain, N=4096 x M=8192
@@ -1083,6 +1114,9 @@ def fused_phases(torch, bt, kind, hs, tmp):
     apply_report(torch, f"[{ph}b] {kind} fused C={C}", s,
                  lambda *a, **k: outputs(fused(*a, **k)), args, kw,
                  (ker[1] != args[4]).any(dim=0))
+    if not hsk:
+        strided_solve_report(torch, f"[{ph}b] {kind} fused C={C}", s, fused,
+                             args, kw, "solve_mc_kernel")
     if hsk:
         check(rel_eps < 1e-4, f"[9b] headline eps rel diff {rel_eps}")
         check(rel_beta < 1e-4, f"[9b] headline beta rel diff {rel_beta}")

@@ -19,7 +19,9 @@ and the dense mode of every kernel on f32 rows of an N that is or is not a
 multiple of 4; the chunked forms of the strided BayesR sweeps (sites
 #5 and #6); and the int8 modes of every sweep (families A-D: the strided
 kernels one chain and fused, the serial and row sweeps' fold mode, the
-serial in-kernel decode) on int8 codes at N=4096 and N=4001.
+serial in-kernel decode) on int8 codes at N=4096 and N=4001; and the
+strided solves at 0 to ~100 % moving steps and with more partial rows a
+block than one stage holds.
 Tolerances: labels and v exact, floats to f32 reassociation (the kernel
 sums the dot in another order).
 """
@@ -1323,3 +1325,144 @@ def test_int8_decode_kernels_at_narrow_rows_and_wide_blocks(cuda, hs):
     assert single.launches == before + 3 * 4
     for a, b in zip(ker, single(*args, **kw)):
         assert torch.equal(a, b)
+
+
+# ------------------------------------ the strided solves at move shares
+
+BAYESR_PI0 = {"none": 1.0, "few": 0.97, "half": 0.5, "all": 0.0}
+BAYESR_SHARE = {"none": (0.0, 0.0), "few": (0.005, 0.08),
+                "half": (0.3, 0.7), "all": (0.95, 1.0)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("share", ["none", "few", "half", "all"])
+@pytest.mark.parametrize("C", [None, 8])
+@pytest.mark.parametrize("B,K,G", [(32, 4, 1), (30, 8, 2)])
+def test_strided_solve_at_move_shares(cuda, B, K, G, C, share):
+    """The strided BayesR solve (every remaining step of a block drawn at
+    once, committed up to the first mover) from beta = 0 at 0, ~3, ~50
+    and ~100 % moving steps (the spike's prior 1, 0.97, 0.5, 0), B=30 with
+    pad lanes and K=8, G=2 beside the headline's B=32, K=4: against the
+    plain one-step loop (labels and v exact, floats to f32
+    reassociation), one chain and 8 fused, each fused chain bitwise the
+    single-chain kernel."""
+    J, nr, N = 16, 3, 4096
+    seed = B + K + (C or 1) + len(share)
+    args, kw = (_case(seed, J, B, G, K, nr, N, cuda) if C is None else
+                _mc_case(seed, J, B, G, K, nr, N, C, cuda))
+    a = list(args)
+    a[4], a[5] = torch.zeros_like(a[4]), torch.zeros_like(a[5])
+    pi0 = BAYESR_PI0[share]
+    pi = torch.full(((C,) if C else ()) + (G, K), (1.0 - pi0) / (K - 1),
+                    device=cuda)
+    pi[..., 0] = pi0
+    a[10] = pi
+    fn, plain = ((bayesr_jacobi_t, bayesr_jacobi_t_reference) if C is None
+                 else (bayesr_jacobi_t_mc, bayesr_jacobi_t_mc_reference))
+    ker = fn(*a, **kw)
+    ref = plain(*a, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(ker.labels, ref.labels)
+    assert torch.equal(ker.v, ref.v)
+    torch.testing.assert_close(ker.beta, ref.beta, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(ker.eps, ref.eps, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(ker.beta_acum, ref.beta_acum, rtol=1e-4,
+                               atol=1e-6)
+    moved = float((ker.beta != 0).float().mean())
+    lo, hi = BAYESR_SHARE[share]
+    assert lo <= moved <= hi, moved
+    for c in range(C or 0):
+        one = bayesr_jacobi_t(*_chain(a, c, (3, 4, 5, 8, 9, 10, 12, 13)),
+                              **kw)
+        for name, x, y in zip(one._fields, one, ker):
+            assert torch.equal(x, y[c]), (c, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("share", [0.0, 0.03, 0.5, 1.0])
+@pytest.mark.parametrize("C", [None, 8])
+def test_strided_hs_solve_at_move_shares(cuda, C, share):
+    """The strided horseshoe solve (one step at a time, every operand but r
+    read ahead) with 0, 3, 50 and 100 % of the markers valid (only a valid
+    marker moves), B=30 (pad lanes): against the plain version (floats to
+    f32 reassociation), one chain and 8 fused, each fused chain bitwise
+    the single-chain kernel."""
+    J, B, nr, N = 16, 30, 3, 4096
+    rng = np.random.default_rng(int(share * 100) + (C or 1))
+    args, kw = _mc_case(7 + (C or 1), J, B, 1, 4, nr, N, C or 1, cuda)
+    M = args[2].shape[0]
+    t = lambda x: torch.as_tensor(x, dtype=torch.float32,  # noqa: E731
+                                  device=cuda)
+    valid = torch.as_tensor(rng.random(M) < share, device=cuda)
+    # words, gram, xsq, eps, beta, rho, inner, z, lam, tau, c2, sigmaE, valid
+    hs = list(args[:5] + args[6:8] + (args[9],
+                                      t(rng.uniform(0.1, 2.0, (C or 1, M))),
+                                      t(rng.uniform(0.01, 0.1, C or 1)),
+                                      t(rng.uniform(1.0, 2.0, C or 1)),
+                                      args[12], valid))
+    per_chain = (3, 4, 7, 8, 9, 10, 11)
+    if C is None:
+        hs = list(_chain(hs, 0, per_chain))
+    fn, plain = ((horseshoe_jacobi_t, horseshoe_jacobi_t_reference)
+                 if C is None else
+                 (horseshoe_jacobi_t_mc, horseshoe_jacobi_t_mc_reference))
+    eps_k, beta_k = fn(*hs, **kw)
+    eps_r, beta_r = plain(*hs, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(beta_k, beta_r, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(eps_k, eps_r, rtol=1e-4, atol=1e-5)
+    moved = float((beta_k != hs[4]).float().mean())
+    assert abs(moved - float(valid.float().mean())) < 1e-3, moved
+    for c in range(C or 0):
+        e1, b1 = horseshoe_jacobi_t(*_chain(hs, c, per_chain), **kw)
+        assert torch.equal(e1, eps_k[c]) and torch.equal(b1, beta_k[c]), c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["dense", "fold", "miss"])
+def test_strided_solves_with_partials_over_one_stage(cuda, storage):
+    """More than kSolveStage = 128 partial rows a block (129 splits: dense
+    rows of N=66,000, 2-bit words of N=263,000 individuals), so the solves
+    stage and sum their partials in two steps: BayesR and the horseshoe
+    against their plain versions (labels and v exact, floats to f32
+    reassociation), and 3 fused BayesR chains each bitwise the
+    single-chain kernel."""
+    J, B, nr, C = 4, 32, 2, 3
+    if storage == "dense":
+        c = _dense_case(5, J * nr, B, 66_000, C, 1, cuda)
+        rho = torch.tensor([1, 0], dtype=torch.int32, device=cuda)
+        mc = (c["X"], c["gram"], c["xsq"], c["eps"], c["beta"], c["labels"],
+              rho, c["inner"], c["p"], c["z"], c["pi"], c["cva"],
+              c["sigmaE"], c["sigmaGG"], c["gas"], c["valid"])
+        kw = dict(J=J, x_mean=None)
+        hs = (mc[:5] + (rho, c["inner"], c["z"], c["lam"], c["tau"],
+                        c["c2"], c["sigmaE"], c["valid"]))
+        args, hs = _chain(mc, 0, BAYESR_CHAIN), _chain(hs, 0, HS_CHAIN)
+    else:
+        args, kw = _case(9, J, B, 1, 4, nr, 263_000, cuda,
+                         missing=storage == "miss")
+        mc, _ = _mc_case(9, J, B, 1, 4, nr, 263_000, C, cuda,
+                         missing=storage == "miss")
+        hs, _ = _hs_case(9, J, B, nr, 263_000, cuda,
+                         missing=storage == "miss")
+    ker = bayesr_jacobi_t(*args, **kw)
+    ref = bayesr_jacobi_t_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(ker.labels, ref.labels)
+    assert torch.equal(ker.v, ref.v)
+    for name in ("beta", "eps"):
+        torch.testing.assert_close(getattr(ker, name), getattr(ref, name),
+                                   rtol=1e-4, atol=1e-5)
+    eps_k, beta_k = horseshoe_jacobi_t(*hs, **kw)
+    eps_r, beta_r = horseshoe_jacobi_t_reference(*hs, **kw)
+    torch.testing.assert_close(beta_k, beta_r, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(eps_k, eps_r, rtol=1e-4, atol=1e-5)
+    fused = bayesr_jacobi_t_mc(*mc, **kw)
+    for c in range(C):
+        one = bayesr_jacobi_t(*_chain(mc, c, BAYESR_CHAIN), **kw)
+        for name, x, y in zip(one._fields, one, fused):
+            assert torch.equal(x, y[c]), (c, name)
+
+
+BAYESR_CHAIN = (3, 4, 5, 8, 9, 10, 12, 13)     # per-chain operands
+HS_CHAIN = (3, 4, 7, 8, 9, 10, 11)

@@ -140,6 +140,36 @@ def test_apply_round_bound_at_the_headline():
     assert miss["flops"] - fold["flops"] == 2 * 8 * 10_000
 
 
+@pytest.mark.parametrize("K,per_marker,tables,draw,want_bytes", [
+    (4, 7, 6, 48, 1_531_076), (0, 5, 1, 6, 1_479_364)])
+def test_strided_solve_round_bound_at_the_headline(K, per_marker, tables,
+                                                   draw, want_bytes):
+    """One strided solve launch of a headline round (J=128 blocks of B=32,
+    49 partial rows), worked out by hand: per chain the round's 4,096 x 49
+    partials and their 49 sum(eps) entries, BayesR's beta, labels (in and
+    out), p, z and d*scale (7 floats a marker) and a block's d.(m*s), v
+    and bacc (K + 2), the horseshoe's beta (in and out), z, lambda and
+    d*scale (5) and d.(m*s); shared, the 128 Gram blocks (524,288 bytes)
+    and xsq, mean, scale, the visit order, a valid byte (and BayesR's
+    group); 1.5 MB, 0.46 us at 3.35 TB/s, far above the draws' FP32
+    time.  The miss mode adds the indicator partials, and every chain its
+    own share."""
+    J, B, ns = 128, 32, 49
+    one = kernel_bounds.strided_solve_round(J, B, ns, K, 1, False)
+    per_chain = 4 * (J * B * ns + ns + J * B * per_marker + J * tables)
+    shared = 4 * J * B * B + J * B * (17 + (4 if K else 0))
+    assert one["bytes"] == per_chain + shared == want_bytes
+    assert one["bound_by"] == "bytes"
+    assert abs(one["bound_ms"] * 1e3 - want_bytes / 3.35e12 * 1e6) < 1e-9
+    assert 0.44 < one["bound_ms"] * 1e3 < 0.46
+    # BayesR: no mover by default; the horseshoe: every marker moves
+    assert one["flops"] == J * (B * draw + (B * 2 * B if K == 0 else 0))
+    miss8 = kernel_bounds.strided_solve_round(J, B, ns, K, 8, True,
+                                              movers=3)
+    assert miss8["bytes"] == 8 * (per_chain + 4 * J * B * ns) + shared
+    assert miss8["flops"] == 8 * J * (B * draw + 3 * 2 * B)
+
+
 @pytest.mark.parametrize("counts, windows", [
     ([246], 1),                 # complete at once
     ([180, 246], 2),            # a stretch of records lost, then complete
