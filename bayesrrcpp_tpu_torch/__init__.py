@@ -18,9 +18,11 @@ of ``csrc/serial.cu``; at J=1, by the exact serial kernels):
 plus the plain Gram-blocked sweeps on dense X behind
 :func:`api.BayesRSamplerV2` and :func:`api.HorseshoeR`, and the command
 line ``python -m bayesrrcpp_tpu_torch bayesr|horseshoe`` (``cli.py``).
-The marker-sharded BayesR sampler (``ShardedSpikeSlabSampler`` on a
-``make_mesh(m, 1)`` of ``torch.distributed`` processes, one card each,
-``parallel/``) splits the markers over cards.  The samplers, the API and
+The sharded samplers (``ShardedSpikeSlabSampler``,
+``ShardedHorseshoeSampler`` on a ``make_mesh(m, n)`` of
+``torch.distributed`` processes, one card each, ``parallel/``) split the
+markers and, for dense X, the individuals over cards, and
+``ChainParallelRunner`` on a ``chain_mesh()`` splits fused chains.  The samplers, the API and
 the CLI run on the card unless ``device="cpu"`` is given.  Whatever lies
 outside that slice raises ``NotImplementedError`` naming its ROADMAP
 entry.
@@ -43,14 +45,16 @@ from .distributions import TorchVariates  # noqa: E402
 from .models.bayesr import SpikeSlabSampler  # noqa: E402
 from .models.horseshoe import HorseshoeSampler  # noqa: E402
 from .models.state import HorseshoeState, SpikeSlabState  # noqa: E402
-from .parallel import ShardedSpikeSlabSampler, make_mesh  # noqa: E402
+from .parallel import (ChainParallelRunner, ShardedHorseshoeSampler,  # noqa: E402
+                       ShardedSpikeSlabSampler, chain_mesh, make_mesh)
 from . import distributions, simulate  # noqa: E402
 
 __version__ = "0.1.0"
 
 __all__ = [
-    "BayesRConfig", "ChainConfig", "HorseshoeConfig", "HorseshoeSampler",
-    "HorseshoeState", "ShardedSpikeSlabSampler", "SpikeSlabSampler",
-    "SpikeSlabState", "TorchVariates", "distributions", "make_mesh",
+    "BayesRConfig", "ChainConfig", "ChainParallelRunner", "HorseshoeConfig",
+    "HorseshoeSampler", "HorseshoeState", "ShardedHorseshoeSampler",
+    "ShardedSpikeSlabSampler", "SpikeSlabSampler", "SpikeSlabState",
+    "TorchVariates", "chain_mesh", "distributions", "make_mesh",
     "simulate",
 ]

@@ -23,9 +23,11 @@ needs no JAX.  Layout is free between the two packages, semantics are not:
 - a chain-batched JAX state (``jax.vmap(init)``, ``step_chains``) carries
   across with its leading chain axis on every tensor and one host
   iteration count;
-- a JAX ``ShardedSpikeSlabSampler``'s global data and state carry into
-  rank d's port sampler as their marker slice d (``sharded_data_from_jax``,
-  ``sharded_state_from_jax``), through the same functions.
+- a JAX ``ShardedSpikeSlabSampler``'s or ``ShardedHorseshoeSampler``'s
+  global data and state carry into rank (m, n)'s port sampler as their
+  marker slice m and, for dense X and eps, individual slice n
+  (``sharded_data_from_jax``, ``sharded_state_from_jax`` and their
+  ``sharded_horseshoe_*`` forms), through the same functions.
 """
 from __future__ import annotations
 
@@ -171,42 +173,84 @@ def data_from_jax(data: dict, *, N: int, device) -> MarkerData:
         prior_pi=_t(data["prior_pi"], device))
 
 
-
 _MARKER_FIELDS = ("XT", "xsq", "g_assign", "valid", "x_mean", "x_scale",
                   "x_colsum")
 
 
-def sharded_data_from_jax(data: dict, *, N: int, Dm: int, m_index: int,
-                          device) -> MarkerData:
-    """Slice ``m_index`` of ``Dm`` of a JAX ``ShardedMarkerData`` given as a
-    dict of NumPy arrays of its global arrays, as the port's ``MarkerData``
-    of that rank (``data_from_jax`` on the slice's rows and Gram blocks).
-    Whether the words hold missing calls is read off all of them, as every
-    rank of the port agrees on it."""
-    words = np.asarray(data["XT"])
-    mpad = words.shape[0]
+def _slice_data(data: dict, *, Dm: int, m_index: int, Dn: int,
+                n_index: int) -> dict:
+    """Slice (m_index, n_index) of a JAX sharded sampler's global data: the
+    marker fields' rows and the Gram blocks of m-slice m_index, and dense
+    X's columns of n-slice n_index."""
+    mpad = np.shape(data["XT"])[0]
     lo, hi = m_index * mpad // Dm, (m_index + 1) * mpad // Dm
     nb = np.shape(data["gram"])[0]
     part = dict(data)
     for k in _MARKER_FIELDS:
-        if np.size(data[k]):
+        if k in data and np.size(data[k]):
             part[k] = np.asarray(data[k])[lo:hi]
     part["gram"] = np.asarray(data["gram"])[m_index * nb // Dm:
                                             (m_index + 1) * nb // Dm]
-    out = data_from_jax(part, N=N, device=device)
+    if Dn > 1:
+        nloc = np.shape(data["XT"])[1] // Dn
+        part["XT"] = part["XT"][:, n_index * nloc:(n_index + 1) * nloc]
+    return part
+
+
+def _any_missing(data: dict, N: int) -> bool:
+    """Whether the real markers of a JAX sampler's words or int8 codes hold
+    a missing call, as every rank of the port agrees on it."""
+    words = np.asarray(data["XT"])
     if words.dtype == np.int32:
-        miss = has_missing_calls(words, N, data["valid"])
-    else:
-        miss = bool(np.any(words[np.asarray(data["valid"], bool)]
-                           == genotypes.MISSING_CODE))
-    return out._replace(has_missing=miss)
+        return has_missing_calls(words, N, data["valid"])
+    return bool(np.any(words[np.asarray(data["valid"], bool)]
+                       == genotypes.MISSING_CODE))
+
+
+def sharded_data_from_jax(data: dict, *, N: int, Dm: int, m_index: int,
+                          device, Dn: int = 1, n_index: int = 0
+                          ) -> MarkerData:
+    """Slice (m_index, n_index) of a (Dm, Dn) JAX ``ShardedMarkerData``
+    given as a dict of NumPy arrays of its global arrays, as the port's
+    ``MarkerData`` of that rank (``data_from_jax`` on the slice's rows,
+    Gram blocks and, for dense X, columns).  Whether the words hold
+    missing calls is read off all of them, as every rank of the port
+    agrees on it."""
+    out = data_from_jax(_slice_data(data, Dm=Dm, m_index=m_index, Dn=Dn,
+                                    n_index=n_index), N=N, device=device)
+    return out._replace(has_missing=_any_missing(data, N))
+
+
+def sharded_horseshoe_data_from_jax(data: dict, *, N: int, Dm: int,
+                                    m_index: int, device, Dn: int = 1,
+                                    n_index: int = 0) -> HorseshoeData:
+    """``sharded_data_from_jax`` for a JAX ``ShardedHorseshoeSampler``'s
+    data dict."""
+    out = horseshoe_data_from_jax(
+        _slice_data(data, Dm=Dm, m_index=m_index, Dn=Dn, n_index=n_index),
+        N=N, device=device)
+    return out._replace(has_missing=_any_missing(data, N))
+
+
+def _slice_state(full, sampler, marker_fields):
+    lo, hi = sampler.marker_range
+    n0, n1 = sampler.n_range
+    return full.replace(
+        eps=full.eps[..., n0:n1].contiguous(),
+        **{k: getattr(full, k)[..., lo:hi].contiguous()
+           for k in marker_fields})
 
 
 def sharded_state_from_jax(state: dict, sampler) -> SpikeSlabState:
-    """Rank ``sampler.mesh.m_index``'s port state from a JAX sharded
-    sampler's global state (``state_from_jax``, then the slice's beta and
-    labels), one chain or chain-batched."""
-    full = state_from_jax(state, sampler)
-    lo, hi = sampler.marker_range
-    return full.replace(beta=full.beta[..., lo:hi].contiguous(),
-                        labels=full.labels[..., lo:hi].contiguous())
+    """Rank (m, n)'s port state from a JAX sharded sampler's global state
+    (``state_from_jax``, then the slice's beta and labels and eps),
+    one chain or chain-batched."""
+    return _slice_state(state_from_jax(state, sampler), sampler,
+                        ("beta", "labels"))
+
+
+def sharded_horseshoe_state_from_jax(state: dict, sampler) -> HorseshoeState:
+    """Rank (m, n)'s port state from a JAX ``ShardedHorseshoeSampler``'s
+    global state: the slice's beta, lambda, v and eps."""
+    return _slice_state(horseshoe_state_from_jax(state, sampler), sampler,
+                        ("beta", "lam", "v"))

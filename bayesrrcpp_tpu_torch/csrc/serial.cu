@@ -1096,11 +1096,13 @@ serial_solve_kernel(SerialSolveArgs a) {
 // shared memory (stage s by warp s mod kSaIssuers, a cp.async.bulk a row, a
 // full / empty mbarrier pair a stage), while the consumers add the staged
 // rows in list order, each code decoded in one LOP3 and one FADD
-// (code_exact).  A round of more entries than a list holds (sa_tile: the row
-// layout beyond 4,096) runs as several lists, one after the other, through
-// the same ring.  Bound: the moved rows' words and each chain's eps, read
-// once (the row horseshoe's 4,096 rows of 25 KB a round: 30.9 us at 3.35
-// TB/s), or at 8 chains their FFMAs.
+// (code_exact), in runs of one block: where a block's rows end (bfirst, its
+// first place in the list) its sum goes, less its mean term, into the
+// lane's total in shared memory.  A round of more entries than a list holds
+// (sa_tile: the row layout beyond 4,096) runs as several lists, one after
+// the other, through the same ring.  Bound: the moved rows' words and each
+// chain's eps, read once (the row horseshoe's 4,096 rows of 25 KB a round:
+// 30.9 us at 3.35 TB/s), or at 8 chains their FFMAs.
 constexpr int kSaConsumers = 192;                  // consumer threads
 constexpr int kSaWarps = kSaConsumers / 32;        // consumer warps
 constexpr int kSaIssuers = 4;                      // warps issuing copies
@@ -1124,13 +1126,15 @@ __host__ __device__ constexpr int sa_tile(int CB) {
 
 // Dynamic shared memory of serial_apply_kernel<CB, Q, L> for lists of
 // `tile` entries and a round of CJ = C*J blocks' sums: the ring, the
-// consumers' eps (CB*L floats a thread), the list (each entry's CB d, its
-// row and, in Q, its mean and scale) and the round's dms and espart.
+// consumers' eps and their blocks' updates summed (CB*L floats a thread
+// each), the list (each entry's CB d, its row and, in Q, its mean and
+// scale), the round's dms and espart and where each block's entries start
+// in the list (J + 1 <= CJ + 1 ints).
 inline size_t serial_apply_smem(int CB, bool Q, int L, int tile, int CJ) {
   return sizeof(uint32_t) * kSaStages * kSaRows * sa_words(L) +
-         sizeof(float) * L * CB * kSaConsumers +
+         sizeof(float) * 2 * L * CB * kSaConsumers +
          (sizeof(float) * (CB + (Q ? 2 : 0)) + sizeof(int)) * tile +
-         sizeof(float) * 2 * CJ;
+         sizeof(float) * 2 * CJ + sizeof(int) * (CJ + 1);
 }
 
 // The CB chains' d of one listed entry (16-byte loads from CB = 4 on).
@@ -1154,14 +1158,17 @@ __device__ __forceinline__ void list_d(const float* v, float (&d)[CB]) {
   }
 }
 
-// Per chain c and eps lane n with row_valid[n]: acc from +0 over the round's
-// moved rows in (block, index) order, fmaf(d_c, x, acc) with x the lane's
-// code (Q: x = c == 3 ? 0 : (c - mean)*scale, op for op), then eps <- eps -
-// (acc - dms_tot), dms_tot = dms[0] + ... + dms[J-1] in j order (Q: eps -
-// acc); CTA 0 carries esum <- esum - (espart[0] + ... + espart[J-1]) (esum
-// null outside the fold mode).  The bits of the apply that looped over
-// compacted tiles of 512 entries itself (tests/test_torch_serial_apply_order
-// .py).  The bulk copies take Nw % 4 == 0 and 16-byte aligned words (the
+// Per chain c and eps lane n with row_valid[n]: for each block j of the
+// round in turn, acc from +0 over its moved rows in index order, fmaf(d_c,
+// x, acc) with x the lane's code, and tot <- tot + (acc - dms[j]) from tot
+// = +0; then eps <- eps - tot.  Q (J = 1): x = c == 3 ? 0 : (c -
+// mean)*scale, op for op, and eps <- eps - acc.  CTA 0 carries esum <- esum
+// - (espart[0] + ... + espart[J-1]) (esum null outside the fold mode).  A
+// lane's sum is taken a block at a time, its mean term off with it, so
+// that a row round's J*B updates (8,192 at J=16, B=512) do not pile up in
+// one f32 sum; at J = 1 the bits are those of eps - (acc - dms[0]), the
+// apply that looped over compacted tiles of 512 entries itself
+// (tests/test_torch_serial_apply_order.py).  The bulk copies take Nw % 4 == 0 and 16-byte aligned words (the
 // port's words: Nw is a multiple of 128).
 template <int CB, bool Q, int L>
 __global__ void __launch_bounds__(kSaThreads, L == 4 || CB > 8 ? 1 : 2)
@@ -1191,11 +1198,12 @@ serial_apply_kernel(const uint32_t* __restrict__ words, int Nw,
   float* lscale = lmean + (Q ? tile : 0);
   float* dmsv = lscale + (Q ? tile : 0);
   float* espv = dmsv + C * J;
+  float* tot_s = espv + C * J;
+  int* bfirst = reinterpret_cast<int*>(tot_s + L * CB * kSaConsumers);
   __shared__ uint64_t full[kSaStages], empty[kSaStages];
   __shared__ uint32_t moved[kMask];
   __shared__ int prefix[kMask];
   __shared__ int nnz_s;
-  __shared__ float dms_tot[CB];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int JB = J * B;
   const int w0 = blockIdx.x * W;
@@ -1239,8 +1247,29 @@ serial_apply_kernel(const uint32_t* __restrict__ words, int Nw,
   for (int k = 0; k < L; ++k) {
     ex[k] = kDecodeBits[k];
 #pragma unroll
-    for (int c = 0; c < CB; ++c) acc[c][k] = 0.f;
+    for (int c = 0; c < CB; ++c) {
+      acc[c][k] = 0.f;
+      if (!Q && warp < kSaWarps)
+        tot_s[(c * L + k) * kSaConsumers + tid] = 0.f;
+    }
   }
+  // a consumer's block sums: the blocks before `cur` are in tot_s, acc
+  // holds block cur's so far; close the blocks before block b
+  int cur = 0;
+  const auto close_to = [&](int b) {
+    for (; cur < b; ++cur) {
+#pragma unroll
+      for (int c = 0; c < CB; ++c) {
+        const float dm = c < C ? dmsv[c * J + cur] : 0.f;
+#pragma unroll
+        for (int k = 0; k < L; ++k) {
+          float& t = tot_s[(c * L + k) * kSaConsumers + tid];
+          t = t + (acc[c][k] - dm);
+          acc[c][k] = 0.f;
+        }
+      }
+    }
+  };
 
   int base = 0;   // ring stages of the lists before this one
   for (int t0 = 0; t0 < JB; t0 += tile) {
@@ -1299,17 +1328,13 @@ serial_apply_kernel(const uint32_t* __restrict__ words, int Nw,
         run += cnt[i];
       }
       if (lane == 31) nnz_s = incl;
-    } else if (!Q && warp == 1 && t0 == 0 && lane < C) {
-      // the round's sums over its blocks, in j order
+    } else if (!Q && warp == 1 && t0 == 0 && lane < C && esum != nullptr &&
+               blockIdx.x == 0) {
+      // the round's sum(eps) update over its blocks, in j order
       const int c = lane;
-      float t = dmsv[c * J];
-      for (int q = 1; q < J; ++q) t += dmsv[c * J + q];
-      dms_tot[c] = t;
-      if (esum != nullptr && blockIdx.x == 0) {
-        float e = espv[c * J];
-        for (int q = 1; q < J; ++q) e += espv[c * J + q];
-        esum[c] = esum[c] - e;
-      }
+      float e = espv[c * J];
+      for (int q = 1; q < J; ++q) e += espv[c * J + q];
+      esum[c] = esum[c] - e;
     }
     __syncthreads();
 #pragma unroll
@@ -1324,6 +1349,15 @@ serial_apply_kernel(const uint32_t* __restrict__ words, int Nw,
           lmean[at] = mv[k];
           lscale[at] = sv[k];
         }
+      }
+    }
+    if constexpr (!Q) {
+      // block j's first place in the list: its moved entries before it
+      for (int j = tid; j <= J; j += T) {
+        const int e = j * B - t0;
+        bfirst[j] = e <= 0 ? 0 : e >= n ? nnz_s
+                  : prefix[e >> 5] +
+                        __popc(moved[e >> 5] & ((1u << (e & 31)) - 1u));
       }
     }
     __syncthreads();
@@ -1375,17 +1409,29 @@ serial_apply_kernel(const uint32_t* __restrict__ words, int Nw,
             for (int k = 0; k < L; ++k)
               acc[c][k] = fmaf(d[c], x[k], acc[c][k]);
         };
-        if (nrow == kSaRows) {
-          if constexpr (CB >= 8) {
-#pragma unroll 2
-            for (int q = 0; q < kSaRows; ++q) add(q);
-          } else {
-#pragma unroll 8
-            for (int q = 0; q < kSaRows; ++q) add(q);
+        // the stage's rows in runs of one block, each block closed before
+        // the next block's first row (Q: J = 1, one run)
+        for (int q = 0; q < nrow;) {
+          int stop = nrow;
+          if constexpr (!Q) {
+            int b = cur;
+            while (b + 1 < J && bfirst[b + 1] <= r0 + q) ++b;
+            if (b != cur) close_to(b);
+            if (b + 1 < J) stop = min(nrow, bfirst[b + 1] - r0);
           }
-        } else {
+          if (q == 0 && stop == kSaRows) {
+            if constexpr (CB >= 8) {
 #pragma unroll 2
-          for (int q = 0; q < nrow; ++q) add(q);
+              for (int i = 0; i < kSaRows; ++i) add(i);
+            } else {
+#pragma unroll 8
+              for (int i = 0; i < kSaRows; ++i) add(i);
+            }
+          } else {
+#pragma unroll 2
+            for (int i = q; i < stop; ++i) add(i);
+          }
+          q = stop;
         }
         __syncwarp();
         if (lane == 0) mbar_arrive(&empty[slot]);
@@ -1395,16 +1441,16 @@ serial_apply_kernel(const uint32_t* __restrict__ words, int Nw,
     if (t0 + tile < JB) __syncthreads();   // the next list overwrites this
   }
   if (!live) return;
+  if constexpr (!Q) close_to(J);
   cp_async_wait<0>();   // this thread's own copies: no barrier
 #pragma unroll
   for (int c = 0; c < CB; ++c) {
     if (c < C) {
       float* ep = eps + c * Npad + n0;
-      const float dt = Q ? 0.f : dms_tot[c];
 #pragma unroll
       for (int k = 0; k < L; ++k) {
-        const float e = eps_s[(c * L + k) * kSaConsumers + tid];
-        if (rv[k]) ep[k] = Q ? e - acc[c][k] : e - (acc[c][k] - dt);
+        const int at = (c * L + k) * kSaConsumers + tid;
+        if (rv[k]) ep[k] = eps_s[at] - (Q ? acc[c][k] : tot_s[at]);
       }
     }
   }

@@ -309,30 +309,38 @@ class MarkerSampler:
         """Recompute eps = Y - mu - X beta with one fresh pass over X
         (ChainConfig.eps_refresh_every; bounds the f32 drift of the rank-1
         residual updates); one chain or a leading chain axis."""
-        xb = torch.nn.functional.pad(self.xbeta(state.beta),
-                                     (0, self.Npad - self.N))
+        xb = self.xbeta(state.beta)
+        xb = torch.nn.functional.pad(xb, (0, self.Y.shape[-1] - xb.shape[-1]))
         eps = self.Y - xb - state.mu[..., None]
-        if self.x_packed:
-            eps = torch.where(self.data.row_valid, eps, 0.0)
+        mask = self._lane_mask()
+        if mask is not None:
+            eps = torch.where(mask, eps, 0.0)
         return state.replace(eps=eps)
+
+    def _lane_mask(self):
+        """The lanes of eps that hold an individual (the packed layout's
+        row_valid), or None where every lane does."""
+        return self.data.row_valid if self.x_packed else None
+
+    def _psum(self, t, axis: str):
+        """``t`` summed over the mesh axis ``axis`` ("m": the markers, "n":
+        the individuals) of a sharded sampler; here the whole of both."""
+        return t
 
     def _intercept(self, state, v):
         """Intercept update (src/BayesRv2.cpp:177-179,
         src/HorseshoeR.cpp:210-212): (mu, eps), per chain.  The mean runs
-        over the N real individuals only; pad lanes of the packed layout
-        stay 0."""
+        over the N real individuals only; pad lanes stay 0."""
         N = self.N
-        if self.x_packed:
-            rv = self.data.row_valid
-            eps = torch.where(rv, state.eps + state.mu[..., None], 0.0)
-            mu = dist.norm(torch.sum(eps, dim=-1) / N, state.sigmaE / N,
-                           v.mu_noise())
-            eps = torch.where(rv, eps - mu[..., None], 0.0)
-        else:
-            eps = state.eps + state.mu[..., None]
-            mu = dist.norm(torch.sum(eps, dim=-1) / N, state.sigmaE / N,
-                           v.mu_noise())
-            eps = eps - mu[..., None]
+        mask = self._lane_mask()
+        eps = state.eps + state.mu[..., None]
+        if mask is not None:
+            eps = torch.where(mask, eps, 0.0)
+        mu = dist.norm(self._psum(torch.sum(eps, dim=-1), "n") / N,
+                       state.sigmaE / N, v.mu_noise())
+        eps = eps - mu[..., None]
+        if mask is not None:
+            eps = torch.where(mask, eps, 0.0)
         return mu, eps
 
     # ------------------------------------------------------------------ run

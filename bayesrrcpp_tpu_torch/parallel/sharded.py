@@ -1,45 +1,66 @@
-"""Marker-sharded BayesR sampler on an (m, 1) mesh of processes.
+"""The sharded BayesR and horseshoe samplers on an (m, n) mesh of processes.
 
-Counterpart of ``bayesrrcpp_tpu/parallel/sharded.py:ShardedSpikeSlabSampler``
-on an (m, 1) mesh, for one chain and fused chains.  One process drives
-one card and holds one m-slice: Mloc = Mpad / Dm contiguous markers, their
-words (or dense rows), Gram blocks and statistics, and their beta and
-labels.  eps (all individuals, natural order) and the scalars are
+Counterpart of ``bayesrrcpp_tpu/parallel/sharded.py``
+(``ShardedSpikeSlabSampler``, ``ShardedHorseshoeSampler``).  One process
+drives one card and holds one (m, n) slice: Mloc = Mpad / Dm contiguous
+markers (their words, codes or dense rows, Gram blocks and statistics,
+and their beta and labels, or lambda and v) and, on the "n" axis, Nloc =
+Npad / Dn contiguous individuals of dense X, eps and Y (individuals in
+natural order; JAX's P("n") slices, sharded.py:343-349).  The scalars are
 replicated: every rank holds them whole.
 
-- **The sweep.**  Each slice sweeps its own blocks.  With the kernels
-  ("pallas") it runs the strided-rounds sweep of its own plan
-  (``auto_jacobi_plan(ceil(M/Dm), B)``, "t" layouts only) in chunks of
-  rounds, ``bayesr_jacobi_t_rounds`` (csrc/jacobi_t.cu), with one
-  all-reduce of the chunk's eps update over "m" after each chunk
-  (sharded.py:656-739): across slices the chunk is block-Jacobi, each
-  slice seeing eps as of the chunk's start.  A slice whose plan is not
-  "t" runs the serial kernel (``ops/serial.bayesr_sweep``) on chunks of
-  ``chunk_blocks`` blocks (:615-654).  ``backend="xla"``, JAX's default,
-  sweeps one block a round in plain torch with an all-reduce per block
-  (:570-605).  At Dm = 1 the whole sweep is one chunk.
-- **Fused chains** (``step_chains``, ``run_chains``) run the same chunks
-  through ``bayesr_jacobi_t_mc_rounds`` (csrc/jacobi_t_mc.cu), all chains
-  sharing the visit order (:840-1043), or the fused serial sweep.
-- **Randomness.**  Every hyperparameter draw is the same on every rank,
+- **The sweep.**  Each m-slice sweeps its own blocks.
+  - BayesR with the kernels ("pallas") on Dn = 1 runs the strided-rounds
+    sweep of its own plan (``auto_jacobi_plan(ceil(M/Dm), B)``, "t"
+    layouts only) in chunks of rounds, ``bayesr_jacobi_t_rounds``
+    (csrc/jacobi_t.cu), with one all-reduce of the chunk's eps update over
+    "m" after each chunk (sharded.py:656-739): across slices the chunk is
+    block-Jacobi, each slice seeing eps as of the chunk's start.  A slice
+    whose plan is not "t" runs the serial kernel (``ops/serial
+    .bayesr_sweep``) on chunks of ``chunk_blocks`` blocks (:615-654).
+  - The horseshoe with the kernels on Dn = 1 runs the serial kernel
+    (``ops/serial.horseshoe_sweep``, site #10) on chunks of
+    ``chunk_blocks`` (default 128) blocks, one all-reduce of eps over "m"
+    after each (:1499-1519): the fold mode on missing-free codes, the
+    in-kernel decode ``_q`` where there are missing calls (:1383).
+  - **The split sweep** (the kernels on Dn > 1, or ``split_sweep=True``;
+    :741-800, :1565-1605): rounds of J blocks (the largest divisor of the
+    slice's block count up to ``chunk_blocks or 8``); per round r =
+    all_reduce_n(X_c eps) by ``torch.mv`` on the round's rows in place,
+    the round's batched solve alone (``ops/jacobi.bayesr_round_solve`` /
+    ``horseshoe_round_solve``, csrc/serial.cu ``serial_round_solve``,
+    sites #13 / #14), then eps -= all_reduce_m(d X_c): exact within a
+    block, block-Jacobi across the Dm*J blocks of a round.
+  - ``backend="xla"``, JAX's default, sweeps one block a round in plain
+    torch on the sampler's device: r = all_reduce_n(X_b eps), the
+    block's exact solve, eps minus the all-reduced update of every
+    slice's block (:570-605, :1521-1541).
+  At Dm = 1 the whole sweep of the (m, 1) kernels is one chunk.
+- **Fused chains** (BayesR's ``step_chains``, ``run_chains``; (m, 1)
+  meshes only, as in JAX, :1074-1080) run the same chunks through
+  ``bayesr_jacobi_t_mc_rounds`` (csrc/jacobi_t_mc.cu), all chains sharing
+  the visit order (:840-1043), or the fused serial sweep.  The sharded
+  horseshoe has none, as JAX's has none.
+- **Randomness.**  Every replicated draw is the same on every rank,
   because every rank holds a generator in the same state, so no broadcast
-  is needed (as in JAX, :23-24).  A slice's own variates (its visit order,
-  p and z) come from a second generator seeded from that stream and the
-  slice's m index (JAX folds the m index into the sweep key, :547-550):
-  ``SliceVariates``.
-- **Output.**  beta and labels are gathered over "m" for emission; only
-  rank 0 writes to a sink.
+  is needed (as in JAX, :21-24).  A slice's own variates (its visit
+  order, p and z; the horseshoe's v and lambda gammas) come from a second
+  generator seeded from that stream and the slice's m index (JAX folds
+  the m index into the keys, :547-550, :1482-1489, :1544):
+  ``SliceVariates``.  The ranks of one m-slice draw alike.
+- **Output.**  eps is gathered over "n", beta and labels (lambda) over
+  "m" for emission; only rank (0, 0) writes to a sink.
+- **Storage.**  2-bit words and int8 codes (``x_dtype="int8"``,
+  sharded.py:164-200) on (m, 1) meshes: each rank takes its marker slice
+  (int8: of the full code matrix, no ``x_process_shard``, as in JAX) and
+  builds its own statistics; missing-free codes sweep through the
+  strided kernels' int8 mode, codes with missing calls through the serial
+  in-kernel decode (:391-394, :552-555), and ``xbeta`` all-reduces the
+  slices' products (:933).  Dn > 1 takes dense X only, as JAX
+  (:242-245); so does the split sweep.
 
-- **int8 codes** (``x_dtype="int8"``, sharded.py:164-200): each rank takes
-  its marker slice of the full code matrix (no ``x_process_shard``, as in
-  JAX) and builds its own statistics (``genotypes.int8_stats_local``);
-  missing-free codes sweep through the strided kernels' int8 mode, codes
-  with missing calls through the serial in-kernel decode (:391-394,
-  :552-555), and ``xbeta`` all-reduces the slices' products (:933).
-
-Not ported, and raising ``NotImplementedError`` with their ROADMAP entry:
-the "n" axis (Dn > 1, the split sweep, :741-800), groups and fixed
-effects, the sharded horseshoe and ``parallel/chains.py``.
+Groups and fixed effects raise ``NotImplementedError`` with their ROADMAP
+entry (Queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -49,19 +70,23 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..config import BayesRConfig, ChainConfig
+from .. import distributions as dist
+from ..config import BayesRConfig, ChainConfig, HorseshoeConfig
 from ..distributions import TorchVariates
 from ..models.bayesr import MarkerData, _as_2d_cva, hyper_draws
+from ..models.horseshoe import HorseshoeData, HorseshoeSampler
 from ..models.sampler import MarkerSampler, not_ported
-from ..models.state import SpikeSlabState
+from ..models.state import HorseshoeState, SpikeSlabState
 from ..ops import block_sweep as bs
 from ..ops import genotypes
-from ..ops.jacobi import auto_jacobi_plan
+from ..ops.jacobi import (auto_jacobi_plan, bayesr_round_solve,
+                          build_pkg_hs_jacobi, build_pkg_jacobi,
+                          horseshoe_round_solve)
 from ..ops.jacobi_t import bayesr_jacobi_t_mc_rounds, bayesr_jacobi_t_rounds
 from ..ops.multichain import bayesr_sweep_mc
-from ..ops.serial import bayesr_sweep
+from ..ops.serial import bayesr_sweep, horseshoe_sweep
 from .distributed import process_marker_range, put_global
-from .mesh import Mesh
+from .mesh import AXIS_M, AXIS_N, Mesh
 
 _MASK64 = (1 << 64) - 1
 
@@ -74,21 +99,28 @@ def _mix(seed: int, index: int) -> int:
     return (x ^ (x >> 31)) >> 1
 
 
+def derived_generator(generator: torch.Generator,
+                      index: int) -> torch.Generator:
+    """A generator on ``generator``'s device seeded from one number read
+    from ``generator`` (on the host) and ``index``: every rank that reads
+    a generator in the same state derives the same stream for an index."""
+    dev = generator.device
+    seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator,
+                             device=dev).item())
+    return torch.Generator(device=dev).manual_seed(_mix(seed, index))
+
+
 class SliceVariates:
     """The draws of a sharded step.  The replicated ones (intercept,
     hyperparameters, init) come from ``generator``, which every rank holds
-    in the same state; the slice's own (visit orders, p, z) from a
-    generator seeded from ``generator`` and the slice index ``m_index``.
-    ``chains=C`` gives every per-chain draw a leading chain axis, the
-    visit order being shared (``distributions.TorchVariates``).  Seeding
-    the slice stream reads one number from ``generator`` on the host."""
+    in the same state; the slice's own (visit orders, p, z, the
+    horseshoe's local gammas) from ``derived_generator(generator,
+    m_index)``.  ``chains=C`` gives every per-chain draw a leading chain
+    axis, the visit order being shared (``distributions.TorchVariates``)."""
 
     def __init__(self, generator: torch.Generator, m_index: int,
                  chains: Optional[int] = None):
-        dev = generator.device
-        seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator,
-                                 device=dev).item())
-        local = torch.Generator(device=dev).manual_seed(_mix(seed, m_index))
+        local = derived_generator(generator, m_index)
         self.rep = TorchVariates(generator, chains=chains)
         self.loc = TorchVariates(local, chains=chains)
 
@@ -110,8 +142,14 @@ class SliceVariates:
     def z(self, n: int):
         return self.loc.z(n)
 
+    def local_gamma(self, alpha: float, n: int):
+        return self.loc.local_gamma(alpha, n)
+
     def sigmaE_gamma(self, shape):
         return self.rep.sigmaE_gamma(shape)
+
+    # the horseshoe's replicated scalar gammas
+    eta_gamma = tau_gamma = c2_gamma = sigmaE_gamma
 
     def sigmaG_gamma(self, shapes):
         return self.rep.sigmaG_gamma(shapes)
@@ -122,42 +160,17 @@ class SliceVariates:
     def init_sigmaGG(self, G: int):
         return self.rep.init_sigmaGG(G)
 
+    def init_gammas(self, eta_shape: float, tau_shape: float):
+        return self.rep.init_gammas(eta_shape, tau_shape)
 
-class ShardedSpikeSlabSampler(MarkerSampler):
-    """BayesR sampler with its markers split over the "m" axis of ``mesh``
-    (``parallel.make_mesh(m, 1)``): every rank constructs it with the same
-    arguments, except that with ``x_process_shard=True`` each passes only
-    its own marker slice of X (rows ``process_marker_range(mesh, Mpad)``
-    clipped to M, marker major) and of ``x_stats``, with the global marker
-    count in ``n_markers``.
 
-    Parameters as ``bayesrrcpp_tpu.parallel.ShardedSpikeSlabSampler``: X
-    (N, M) dosages or standardized values, (M, N) with
-    ``transposed=True``, int32 packed words as a torch tensor
-    (``x_dtype="2bit"``, ``transposed=True``, ``x_stats``), or int8 codes
-    (``x_dtype="int8"``: dosages with NaN for a missing call, or codes
-    with ``x_stats``, e.g. an int8 tensor on the device); ``backend``
-    "xla" (the default, dense X only) or "pallas" (the kernels);
-    ``chunk_blocks``: blocks each slice sweeps between all-reduces of eps
-    (default 128; Dm = 1 sweeps everything in one chunk); ``has_missing``:
-    whether packed words or int8 codes hold missing calls, read off them
-    (and agreed over the mesh) when None, checked against them when given.
-    The device is the mesh's.
-    """
+class _ShardedMarkers(MarkerSampler):
+    """What both sharded samplers share: the mesh, the slice's layout and
+    storage, the collectives of the step, the chunks of the (m, 1) kernel
+    sweeps, the split sweep's rounds, and emission."""
 
-    def __init__(self, X, Y, cva, config, mesh: Mesh, *, g_assign=None,
-                 fixed=None, dtype=None, variant: Optional[str] = None,
-                 backend: str = "xla", chunk_blocks: Optional[int] = None,
-                 x_dtype: str = "dense", x_stats=None,
-                 transposed: bool = False,
-                 n_individuals: Optional[int] = None,
-                 has_missing: Optional[bool] = None,
-                 x_process_shard: bool = False,
-                 n_markers: Optional[int] = None,
-                 split_sweep: Optional[bool] = None):
-        if mesh.Dn != 1 or split_sweep:
-            raise not_ported("the sharded sampler's individual axis (Dn > 1, "
-                             "the split sweep)", "Queue 1 item 5")
+    def _setup(self, mesh: Mesh, backend, x_dtype, x_process_shard,
+               chunk_blocks, split_sweep, dtype):
         if x_dtype not in ("dense", "int8", "2bit"):
             raise ValueError(f"unknown x_dtype {x_dtype!r}")
         if backend not in ("xla", "pallas"):
@@ -165,73 +178,27 @@ class ShardedSpikeSlabSampler(MarkerSampler):
         if x_dtype != "dense" and backend != "pallas":
             raise ValueError(f"x_dtype={x_dtype!r} requires "
                              "backend='pallas'")
+        if x_dtype != "dense" and (mesh.Dn != 1 or split_sweep):
+            # sharded.py:242-245: code rows do not split over individuals
+            raise ValueError("Dn > 1 and the split sweep take dense f32 X "
+                             "only (quantized codes: use an (m, 1) mesh)")
         if x_process_shard and x_dtype == "int8":
             raise ValueError("x_process_shard supports dense and pre-packed "
                              "2-bit input (int8: pass the full code matrix)")
-        if not isinstance(config, BayesRConfig) or variant not in (None,
-                                                                   "bayesr"):
-            raise not_ported("the groups variant", "Queue 1 item 6")
-        if g_assign is not None or fixed is not None:
-            raise not_ported("groups and fixed effects", "Queue 1 item 6")
         if dtype not in (None, torch.float32, np.float32, "float32"):
             raise ValueError("the port's samplers run in float32")
         self.mesh = mesh
-        self.Dm = mesh.Dm
+        self.Dm, self.Dn = mesh.Dm, mesh.Dn
         self.device = mesh.device
         self.backend = backend
         self.chunk_blocks = chunk_blocks
-        self.config, self.variant = config, "bayesr"
+        # sharded.py:239-241: the kernels on Dn > 1 run the split sweep
+        self._split = backend == "pallas" and (
+            mesh.Dn > 1 if split_sweep is None else bool(split_sweep))
         self.x_packed = x_dtype == "2bit"
         self.x_int8 = x_dtype == "int8"
         self.x_process_shard = bool(x_process_shard)
         self.dtype = torch.float32
-
-        prepacked = (self.x_packed and isinstance(X, torch.Tensor)
-                     and X.dtype == torch.int32)
-        if not isinstance(X, torch.Tensor):
-            X = np.asarray(X)
-        M, N = self._sizes(X, prepacked, transposed, x_stats, n_individuals,
-                           n_markers)
-        cva2 = _as_2d_cva(cva)
-        G, Km1 = cva2.shape
-        if G != 1:
-            raise not_ported("per-group slab variances", "Queue 1 item 6")
-        if np.any(cva2 <= 0):
-            raise ValueError("slab variances must be strictly positive")
-        self.K, self.G, self.F = Km1 + 1, G, 0
-        self._plan(M, N, config.block_size)
-        lo, hi = process_marker_range(mesh, self.Mpad)
-        self.marker_range = (lo, hi)
-        m_real = max(0, min(hi, M) - lo)        # real markers of the slice
-
-        dev, f32 = self.device, torch.float32
-        if self.x_packed:
-            geno = self._packed_slice(X, prepacked, transposed, x_stats,
-                                      has_missing, lo, hi, m_real)
-        elif self.x_int8:
-            geno = self._int8_slice(X, transposed, x_stats, has_missing, lo,
-                                    m_real)
-            if geno["has_missing"]:
-                # int8 codes with missing calls: the serial in-kernel decode
-                # (JAX's use_t is False there, sharded.py:552-555)
-                self.jacobi, self.jacobi_layout = 1, "row"
-        else:
-            geno = self._dense_slice(X, transposed, lo, hi, m_real)
-        prior_pi = np.empty((G, self.K))
-        prior_pi[:, 0] = 0.5
-        prior_pi[:, 1:] = 0.5 * cva2 / cva2.sum(axis=1, keepdims=True)
-        self.data = MarkerData(
-            **geno,
-            valid=torch.arange(lo, hi, device=dev) < M,
-            g_assign=torch.zeros((self.Mloc,), dtype=torch.int32,
-                                 device=dev),
-            cva=torch.as_tensor(cva2, dtype=f32, device=dev),
-            prior_pi=torch.as_tensor(prior_pi, dtype=f32, device=dev))
-        Yt = torch.as_tensor(np.asarray(Y) if not isinstance(Y, torch.Tensor)
-                             else Y, dtype=f32, device=dev)
-        if tuple(Yt.shape) != (N,):
-            raise ValueError("Y must have the same number of rows as X")
-        self.Y = torch.nn.functional.pad(Yt, (0, self.Npad - N))
 
     # ------------------------------------------------------------ layout
 
@@ -268,15 +235,16 @@ class ShardedSpikeSlabSampler(MarkerSampler):
             N = X.shape[1] if transposed else X.shape[0]
         return M, N
 
-    def _plan(self, M, N, block_size):
-        """The slices' plan, as JAX's (sharded.py:345-383): the kernels take
-        the "t" plan of a slice's ceil(M/Dm) markers where there is one;
-        the marker axis pads to a multiple of B*J*Dm (8-aligned block
-        counts per slice at scale)."""
+    def _plan(self, M, N, block_size, strided: bool):
+        """The slices' plan, as JAX's (sharded.py:317-349, :1329-1341):
+        with ``strided`` the kernels take the "t" plan of a slice's
+        ceil(M/Dm) markers where there is one; the marker axis pads to a
+        multiple of B*J*Dm (8-aligned block counts per slice at scale), the
+        individuals to the word tile (2-bit) or to a multiple of Dn."""
         Dm = self.Dm
         B = max(8, min(block_size, 1 << max(1, (M - 1).bit_length())))
         J = 1
-        if self.backend == "pallas":
+        if strided:
             jt, bt, lay = auto_jacobi_plan(-(-M // Dm), B)
             if lay == "t":
                 B, J = bt, jt
@@ -291,7 +259,47 @@ class ShardedSpikeSlabSampler(MarkerSampler):
         self.jacobi = J
         self.jacobi_layout = "t" if J > 1 else "row"
         self.Npad = (genotypes.padded_individuals(N) if self.x_packed
-                     else N)
+                     else -(-N // self.Dn) * self.Dn)
+        self.Nloc = self.Npad // self.Dn
+        n0 = self.mesh.n_index * self.Nloc
+        self.n_range = (n0, n0 + self.Nloc)
+
+    def _lay_out_slice(self, X, Y, transposed, x_stats, n_individuals,
+                       n_markers, has_missing, block_size, strided):
+        """Plan, then this rank's slice of X (a dict of ``Genotypes``
+        fields) and of Y; sets ``marker_range`` and ``Y``."""
+        prepacked = (self.x_packed and isinstance(X, torch.Tensor)
+                     and X.dtype == torch.int32)
+        if not isinstance(X, torch.Tensor):
+            X = np.asarray(X)
+        M, N = self._sizes(X, prepacked, transposed, x_stats, n_individuals,
+                           n_markers)
+        self._plan(M, N, block_size, strided)
+        lo, hi = process_marker_range(self.mesh, self.Mpad)
+        self.marker_range = (lo, hi)
+        m_real = max(0, min(hi, M) - lo)        # real markers of the slice
+        if self.x_packed:
+            geno = self._packed_slice(X, prepacked, transposed, x_stats,
+                                      has_missing, lo, hi, m_real)
+        elif self.x_int8:
+            geno = self._int8_slice(X, transposed, x_stats, has_missing, lo,
+                                    m_real)
+        else:
+            geno = self._dense_slice(X, transposed, lo, m_real)
+        Yt = torch.as_tensor(np.asarray(Y) if not isinstance(Y, torch.Tensor)
+                             else Y, dtype=torch.float32, device=self.device)
+        if tuple(Yt.shape) != (N,):
+            raise ValueError("Y must have the same number of rows as X")
+        n0, n1 = self.n_range
+        self.Y = put_global(self.mesh,
+                            torch.nn.functional.pad(Yt, (0, self.Npad - N)),
+                            spec=(AXIS_N,))
+        # the lanes of eps that hold an individual: the words' row_valid,
+        # or this n-slice's individuals n < N where the slices pad N
+        self._mask = (geno["row_valid"] if self.x_packed
+                      else None if self.Npad == N
+                      else torch.arange(n0, n1, device=self.device) < N)
+        return geno
 
     def _packed_slice(self, X, prepacked, transposed, x_stats, has_missing,
                       lo, hi, m_real):
@@ -372,24 +380,32 @@ class ShardedSpikeSlabSampler(MarkerSampler):
                     has_missing=self._agreed_missing(q.has_missing,
                                                      has_missing))
 
-    def _dense_slice(self, X, transposed, lo, hi, m_real):
-        """This slice's standardized f32 rows (Mloc, N), zero on padding
-        markers, with xsq and the Gram blocks."""
+    def _dense_slice(self, X, transposed, lo, m_real):
+        """This slice's standardized f32 rows (Mloc, Nloc), zero on padding
+        markers and individuals, with xsq and the Gram blocks summed over
+        the n-slices (sharded.py:438-455)."""
         dev, f32 = self.device, torch.float32
         if self.x_process_shard:
             rows = X[:m_real]
         else:
             rows = (X[lo:lo + m_real] if transposed
                     else X[:, lo:lo + m_real].T)
+        n0 = self.n_range[0]
+        n_real = max(0, min(self.n_range[1], self.N) - n0)
+        rows = rows[:, n0:n0 + n_real]
         if not isinstance(rows, torch.Tensor):
             rows = np.ascontiguousarray(rows, dtype=np.float32)
-        XT = torch.zeros((self.Mloc, self.N), dtype=f32, device=dev)
-        XT[:m_real] = torch.as_tensor(rows, dtype=f32, device=dev)
+        XT = torch.zeros((self.Mloc, self.Nloc), dtype=f32, device=dev)
+        XT[:m_real, :n_real] = torch.as_tensor(rows, dtype=f32, device=dev)
         empty = torch.zeros((0,), dtype=f32, device=dev)
-        return dict(XT=XT, xsq=torch.sum(XT * XT, dim=1),
-                    gram=bs.gram_blocks(XT, self.B), x_mean=empty,
-                    x_scale=empty, x_colsum=empty,
+        return dict(XT=XT, xsq=self._psum(torch.sum(XT * XT, dim=1), AXIS_N),
+                    gram=self._psum(bs.gram_blocks(XT, self.B), AXIS_N),
+                    x_mean=empty, x_scale=empty, x_colsum=empty,
                     row_valid=torch.zeros((0,), dtype=torch.bool, device=dev))
+
+    def _valid(self):
+        lo, hi = self.marker_range
+        return torch.arange(lo, hi, device=self.device) < self.M
 
     # ------------------------------------------------------------ helpers
 
@@ -405,10 +421,17 @@ class ShardedSpikeSlabSampler(MarkerSampler):
             return SliceVariates(rng, self.mesh.m_index, chains)
         return rng
 
+    def _psum(self, t, axis: str):
+        return self.mesh.all_reduce(t.contiguous(), axis)
+
+    def _lane_mask(self):
+        return self._mask
+
     def xbeta(self, beta) -> torch.Tensor:
-        """X @ beta over every slice, (..., N), for this slice's (..., Mloc)
-        beta: the slice's product all-reduced over "m"."""
-        return self.mesh.all_reduce(super().xbeta(beta).contiguous())
+        """X @ beta over every m-slice, (..., N) (dense X: this n-slice's
+        Nloc), for this slice's (..., Mloc) beta: the slice's product
+        all-reduced over "m"."""
+        return self._psum(super().xbeta(beta), AXIS_M)
 
     def _nrc(self, nr: int) -> int:
         """Rounds per chunk of a slice's strided sweep (sharded.py:696-702):
@@ -425,6 +448,14 @@ class ShardedSpikeSlabSampler(MarkerSampler):
     def _serial_chunk(self) -> int:
         return min(self.chunk_blocks or 128, self.nb_loc)
 
+    def split_blocks(self) -> int:
+        """J of the split sweep: the largest divisor of the slice's block
+        count up to ``chunk_blocks or 8`` (sharded.py:756-759)."""
+        J = min(self.chunk_blocks or 8, self.nb_loc)
+        while self.nb_loc % J:
+            J -= 1
+        return J
+
     def _reduce_eps(self, eps, eps_new, mask):
         """eps + (the chunk's updates of every slice), the all-reduce of
         the slice's delta (sharded.py:716-719); ``mask``: zero the pad lanes
@@ -434,11 +465,166 @@ class ShardedSpikeSlabSampler(MarkerSampler):
             eps = eps * self.data.row_valid.to(eps.dtype)
         return eps
 
+    def _serial_chunks(self, sweep, eps, border, inner, *streams):
+        """The slice's serial sweep on chunks of ``chunk_blocks`` blocks of
+        the flat order ``border``, its within-block orders ``inner`` by
+        sweep position (the kernel takes them by block) and the per-position
+        ``streams`` (p, z) cut from the slice's by position, one
+        all-reduce of eps after each chunk (sharded.py:615-654,
+        :1499-1519).  ``sweep(eps, blocks, by_block, *chunk_streams)``
+        returns (eps, ...) of a chunk; yields each chunk's result with
+        eps replaced by the reduced one.  ``border`` may be a prefix of the
+        sweep."""
+        B, C = self.B, self._serial_chunk()
+        n = border.shape[0]
+        for c0 in range(0, n, C):
+            cb = min(C, n - c0)
+            blocks = border[c0:c0 + cb]
+            by_block = inner.new_zeros((self.nb_loc, B))
+            by_block[blocks.long()] = inner[c0:c0 + cb]
+            res = sweep(eps, blocks, by_block,
+                        *(x[c0 * B:(c0 + cb) * B] for x in streams))
+            eps = self._reduce_eps(eps, res[0], mask=False)
+            yield (eps,) + tuple(res[1:])
+
+    def _split_rounds(self, eps, border, solve):
+        """The split sweep's rounds (sharded.py:775-800): for the J blocks
+        of each round, r = all_reduce_n(X_c eps) (one ``torch.mv`` a block
+        on its rows in place), ``solve(round, r, blocks, idx)`` -> the
+        round's deltas (J, B), and eps -= all_reduce_m(d X_c).  ``border``
+        may be a prefix of whole rounds."""
+        B = self.B
+        J = self.split_blocks()
+        XTb = self.data.XT.view(self.nb_loc, B, -1)
+        bsel = border.long().view(-1, J)
+        lanes = torch.arange(B, device=eps.device)
+        for i, blk in enumerate(bsel.tolist()):
+            r = eps.new_empty((J, B))
+            for j, b in enumerate(blk):
+                torch.mv(XTb[b], eps, out=r[j])
+            idx = (bsel[i][:, None] * B + lanes).reshape(-1)
+            d = solve(i, self._psum(r, AXIS_N), bsel[i], idx)
+            upd = torch.zeros_like(eps)
+            for j, b in enumerate(blk):
+                upd.addmv_(XTb[b].t(), d[j])
+            eps = eps - self._psum(upd, AXIS_M)
+        return eps
+
+    def _xla_blocks(self, eps, border, solve):
+        """The plain sweep of ``backend="xla"``: for each block b of
+        ``border``, r = all_reduce_n(X_b eps) on the sampler's device,
+        ``solve(i, b, r)`` -> the block's deltas (B,), and eps -=
+        all_reduce_m(delta X_b), all on the sampler's device."""
+        B = self.B
+        for i, b in enumerate(border.tolist()):
+            Xb = self.data.XT[b * B:(b + 1) * B]
+            delta = solve(i, b, self._psum(Xb @ eps, AXIS_N))
+            eps = eps - self._psum(delta @ Xb, AXIS_M)
+        return eps
+
+    def _emit_epsilon(self, state) -> torch.Tensor:
+        eps = state.eps
+        if not self.config.emit_epsilon:
+            return eps.new_zeros(eps.shape[:-1] + (0,))
+        return self.mesh.all_gather(eps, AXIS_N)[..., :self.N]
+
+    def _gathered(self, t) -> torch.Tensor:
+        """A marker-axis tensor of this slice gathered over "m", cut to M."""
+        return self.mesh.all_gather(t, AXIS_M)[..., :self.M]
+
+    @property
+    def _writer(self) -> bool:
+        return self.mesh.m_index == 0 and self.mesh.n_index == 0
+
+    def run(self, rng, chain: ChainConfig, *, state=None, sink=None,
+            collect: bool = True, emit_chunk: int = 32, progress=None):
+        """``MarkerSampler.run`` on every rank together; only rank (0, 0)
+        writes to ``sink`` (the others' is ignored)."""
+        return super().run(rng, chain, state=state,
+                           sink=sink if self._writer else None,
+                           collect=collect, emit_chunk=emit_chunk,
+                           progress=progress)
+
+
+class ShardedSpikeSlabSampler(_ShardedMarkers):
+    """BayesR sampler with its markers split over the "m" axis and, for
+    dense X, its individuals over the "n" axis of ``mesh``
+    (``parallel.make_mesh(m, n)``): every rank constructs it with the same
+    arguments, except that with ``x_process_shard=True`` each passes only
+    its own marker slice of X (rows ``process_marker_range(mesh, Mpad)``
+    clipped to M, marker major, every individual) and of ``x_stats``, with
+    the global marker count in ``n_markers``.
+
+    Parameters as ``bayesrrcpp_tpu.parallel.ShardedSpikeSlabSampler``: X
+    (N, M) dosages or standardized values, (M, N) with
+    ``transposed=True``, int32 packed words as a torch tensor
+    (``x_dtype="2bit"``, ``transposed=True``, ``x_stats``), or int8 codes
+    (``x_dtype="int8"``: dosages with NaN for a missing call, or codes
+    with ``x_stats``, e.g. an int8 tensor on the device); ``backend``
+    "xla" (the default, dense X only) or "pallas" (the kernels);
+    ``chunk_blocks``: blocks each slice sweeps between all-reduces of eps
+    (default 128; Dm = 1 sweeps everything in one chunk), or the split
+    sweep's J bound (default 8); ``split_sweep``: None runs the split sweep
+    on Dn > 1 with the kernels, True also on Dn = 1 (dense X);
+    ``has_missing``: whether packed words or int8 codes hold missing
+    calls, read off them (and agreed over the mesh) when None, checked
+    against them when given.  The device is the mesh's.
+    """
+
+    def __init__(self, X, Y, cva, config, mesh: Mesh, *, g_assign=None,
+                 fixed=None, dtype=None, variant: Optional[str] = None,
+                 backend: str = "xla", chunk_blocks: Optional[int] = None,
+                 x_dtype: str = "dense", x_stats=None,
+                 transposed: bool = False,
+                 n_individuals: Optional[int] = None,
+                 has_missing: Optional[bool] = None,
+                 x_process_shard: bool = False,
+                 n_markers: Optional[int] = None,
+                 split_sweep: Optional[bool] = None):
+        if not isinstance(config, BayesRConfig) or variant not in (None,
+                                                                   "bayesr"):
+            raise not_ported("the groups variant", "Queue 1 item 6")
+        if g_assign is not None or fixed is not None:
+            raise not_ported("groups and fixed effects", "Queue 1 item 6")
+        self._setup(mesh, backend, x_dtype, x_process_shard, chunk_blocks,
+                    split_sweep, dtype)
+        self.config, self.variant = config, "bayesr"
+        cva2 = _as_2d_cva(cva)
+        G, Km1 = cva2.shape
+        if G != 1:
+            raise not_ported("per-group slab variances", "Queue 1 item 6")
+        if np.any(cva2 <= 0):
+            raise ValueError("slab variances must be strictly positive")
+        self.K, self.G, self.F = Km1 + 1, G, 0
+        geno = self._lay_out_slice(
+            X, Y, transposed, x_stats, n_individuals, n_markers, has_missing,
+            config.block_size, backend == "pallas" and not self._split)
+        if self.x_int8 and geno["has_missing"]:
+            # int8 codes with missing calls: the serial in-kernel decode
+            # (JAX's use_t is False there, sharded.py:552-555)
+            self.jacobi, self.jacobi_layout = 1, "row"
+        dev, f32 = self.device, torch.float32
+        prior_pi = np.empty((G, self.K))
+        prior_pi[:, 0] = 0.5
+        prior_pi[:, 1:] = 0.5 * cva2 / cva2.sum(axis=1, keepdims=True)
+        self.data = MarkerData(
+            **geno, valid=self._valid(),
+            g_assign=torch.zeros((self.Mloc,), dtype=torch.int32,
+                                 device=dev),
+            cva=torch.as_tensor(cva2, dtype=f32, device=dev),
+            prior_pi=torch.as_tensor(prior_pi, dtype=f32, device=dev))
+
+    @property
+    def supports_fused_chains(self) -> bool:
+        """Fused chains run on (m, 1) meshes only (sharded.py:1074-1080)."""
+        return self.Dn == 1 and super().supports_fused_chains
+
     # ------------------------------------------------------------ init
 
     def init(self, rng, chains: Optional[int] = None) -> SpikeSlabState:
-        """Fresh-chain init (sharded.py:438-499): beta and labels of this
-        slice zero, eps = Y; with ``chains=C`` a leading chain axis."""
+        """Fresh-chain init (sharded.py:480-497): beta and labels of this
+        slice zero, eps = Y (this n-slice); with ``chains=C`` a leading
+        chain axis."""
         v = self.variates(rng, chains)
         dev, f32 = self.device, torch.float32
         lead = () if chains is None else (chains,)
@@ -450,7 +636,8 @@ class ShardedSpikeSlabSampler(MarkerSampler):
             labels=torch.zeros(lead + (self.Mloc,), dtype=torch.int32,
                                device=dev),
             eps=eps,
-            sigmaE=torch.sum(eps * eps, dim=-1) / self.N * 0.5,
+            sigmaE=self._psum(torch.sum(eps * eps, dim=-1), AXIS_N)
+            / self.N * 0.5,
             sigmaGG=v.init_sigmaGG(self.G).to(f32),
             pi=self.data.prior_pi.expand(lead + self.data.prior_pi.shape
                                          ).clone(),
@@ -474,15 +661,20 @@ class ShardedSpikeSlabSampler(MarkerSampler):
         else:
             border, inner = v.block_orders(nb, B)
             p, z = v.p(Mloc), v.z(Mloc)
-            sweep = (self._sweep_serial if self.backend == "pallas"
-                     else self._sweep_xla)
+            sweep = (self._sweep_xla if self.backend != "pallas"
+                     else self._sweep_split if self._split
+                     else self._sweep_serial)
             res = sweep(state, eps, border, inner, p, z)
         return self._next(state, v, mu, *res)
 
     def step_chains(self, state: SpikeSlabState, rng) -> SpikeSlabState:
         """One fused iteration of every chain of a chain-batched state
         (sharded.py:_mc_step_local): per-chain intercept, p/z and
-        hyperparameters, one visit order for all chains."""
+        hyperparameters, one visit order for all chains.  (m, 1) meshes
+        and the kernels only."""
+        if self.Dn != 1:
+            raise ValueError("step_chains runs on an (m, 1) mesh only "
+                             "(sharded.py:1074-1080)")
         if not self.supports_fused_chains:
             raise ValueError("fused multi-chain steps need backend='pallas', "
                              "with no missing call at J=1")
@@ -522,27 +714,21 @@ class ShardedSpikeSlabSampler(MarkerSampler):
 
     def _sweep_serial(self, state, eps, border, inner, p, z):
         """A slice whose plan is not "t" (sharded.py:615-654): the serial
-        kernel on each chunk of ``chunk_blocks`` blocks of the flat order
-        ``border``, its within-block orders ``inner`` by sweep position
-        (the kernel takes them by block) and p/z cut from the slice's
-        stream by position, one all-reduce of eps after each chunk."""
+        kernel on each chunk of ``chunk_blocks`` blocks
+        (``_serial_chunks``)."""
         d = self.data
         beta, labels = state.beta, state.labels
         v = bacc = 0.0
-        B, nb, C = self.B, self.nb_loc, self._serial_chunk()
-        for c0 in range(0, nb, C):
-            cb = min(C, nb - c0)
-            blocks = border[c0:c0 + cb]
-            by_block = inner.new_zeros((nb, B))
-            by_block[blocks.long()] = inner[c0:c0 + cb]
-            res = bayesr_sweep(d.XT, d.gram, d.xsq, eps, beta, labels,
-                               blocks, by_block, p[c0 * B:(c0 + cb) * B],
-                               z[c0 * B:(c0 + cb) * B], state.pi, d.cva,
-                               state.sigmaE, state.sigmaGG, d.g_assign,
-                               d.valid, **self._sweep_kw())
-            eps = self._reduce_eps(eps, res.eps, mask=False)
-            beta, labels = res.beta, res.labels
-            v, bacc = v + res.v, bacc + res.beta_acum
+
+        def sweep(eps, blocks, by_block, p_c, z_c):
+            return bayesr_sweep(d.XT, d.gram, d.xsq, eps, beta, labels,
+                                blocks, by_block, p_c, z_c, state.pi, d.cva,
+                                state.sigmaE, state.sigmaGG, d.g_assign,
+                                d.valid, **self._sweep_kw())
+
+        for eps, beta, labels, v_c, bacc_c in self._serial_chunks(
+                sweep, eps, border, inner, p, z):
+            v, bacc = v + v_c, bacc + bacc_c
         return eps, beta, labels, v, bacc
 
     def _sweep_serial_mc(self, state, eps, border, inner, p, z):
@@ -569,38 +755,68 @@ class ShardedSpikeSlabSampler(MarkerSampler):
             v, bacc = v + res.v, bacc + res.beta_acum
         return eps, beta, labels, v, bacc
 
+    def _sweep_split(self, state, eps, border, inner, p, z):
+        """The split sweep (sharded.py:741-800): the round solves #13 on
+        ``build_pkg_jacobi``'s operands, the inner orders re-keyed by
+        block (:760-762)."""
+        d = self.data
+        B, G, K = self.B, self.G, self.K
+        J = self.split_blocks()
+        by_block = torch.zeros_like(inner)
+        by_block[border.long()] = inner
+        pkg, inner_sel = build_pkg_jacobi(
+            d.xsq, d.g_assign, d.valid, p, z, state.pi, d.cva, state.sigmaE,
+            state.sigmaGG, border, by_block, B=B, J=J)
+        beta, labels = state.beta.clone(), state.labels.clone()
+        acc = [0.0, 0.0]
+
+        def solve(i, r, blk, idx):
+            dl, beta_new, labels_new, v_r, bacc_r = bayesr_round_solve(
+                r, d.gram[blk], beta[idx].view(J, B),
+                labels[idx].view(J, B), d.g_assign[idx].view(J, B),
+                inner_sel[i], pkg[i], state.sigmaE, K=K, G=G)
+            beta[idx] = beta_new.reshape(-1)
+            labels[idx] = labels_new.reshape(-1)
+            acc[0], acc[1] = acc[0] + v_r, acc[1] + bacc_r
+            return dl
+
+        eps = self._split_rounds(eps, border, solve)
+        return eps, beta, labels, acc[0], acc[1]
+
     def _sweep_xla(self, state, eps, border, inner, p, z):
         """``backend="xla"`` (sharded.py:570-605): one block a round in
-        plain torch, r = X_b.eps, the block's exact solve, and eps minus
-        the all-reduced update of every slice's block."""
+        plain torch (``_xla_blocks``), the block's exact solve
+        ``spike_slab_inner_solve``."""
         d = self.data
         B, G, K = self.B, self.G, self.K
         beta, labels = state.beta.clone(), state.labels.clone()
         v = torch.zeros((G, K), dtype=eps.dtype, device=eps.device)
         bacc = torch.zeros((G,), dtype=eps.dtype, device=eps.device)
         p, z = p.view(-1, B), z.view(-1, B)
-        lanes = torch.arange(B, device=eps.device)
-        for i, b in enumerate(border.tolist()):
-            rows = b * B + lanes
-            Xb = d.XT[rows]
-            _, beta_b, labels_b, delta, v, bacc = bs.spike_slab_inner_solve(
-                Xb @ eps, d.gram[b], beta[rows], labels[rows], d.xsq[rows],
-                d.g_assign[rows], d.valid[rows], inner[i].long(), p[i], z[i],
-                state.pi, d.cva, state.sigmaE, state.sigmaGG, v, bacc)
-            eps = eps - self.mesh.all_reduce(delta @ Xb)
-            beta[rows] = beta_b
-            labels[rows] = labels_b
+
+        def solve(i, b, r):
+            nonlocal v, bacc
+            rows = slice(b * B, (b + 1) * B)
+            _, beta[rows], labels[rows], delta, v, bacc = \
+                bs.spike_slab_inner_solve(
+                    r, d.gram[b], beta[rows], labels[rows], d.xsq[rows],
+                    d.g_assign[rows], d.valid[rows], inner[i].long(), p[i],
+                    z[i], state.pi, d.cva, state.sigmaE, state.sigmaGG, v,
+                    bacc)
+            return delta
+
+        eps = self._xla_blocks(eps, border, solve)
         return eps, beta, labels, v, bacc
 
     def _next(self, state, v, mu, eps, beta, labels, counts, bacc):
         """The hyperparameter draws after the sweep (sharded.py:802-838):
-        the counts and sum(beta^2) all-reduced over "m", the draws the same
-        on every rank."""
-        counts = self.mesh.all_reduce(counts.contiguous())
-        ss_beta = self.mesh.all_reduce(torch.sum(beta * beta, dim=-1))
+        the counts and sum(beta^2) all-reduced over "m", sum(eps^2) over
+        "n", the draws the same on every rank."""
+        counts = self._psum(counts, AXIS_M)
+        ss_beta = self._psum(torch.sum(beta * beta, dim=-1), AXIS_M)
         sigmaE, sigmaGG, pi = hyper_draws(
-            self.config, self.N, v, torch.sum(eps * eps, dim=-1), ss_beta,
-            counts)
+            self.config, self.N, v,
+            self._psum(torch.sum(eps * eps, dim=-1), AXIS_N), ss_beta, counts)
         return SpikeSlabState(
             iteration=state.iteration + 1, mu=mu, beta=beta, labels=labels,
             eps=eps, sigmaE=sigmaE, sigmaGG=sigmaGG, pi=pi,
@@ -609,48 +825,185 @@ class ShardedSpikeSlabSampler(MarkerSampler):
     # ------------------------------------------------------------ run
 
     def _emit_one(self, state: SpikeSlabState):
-        """One emission row, beta and labels gathered over "m"."""
-        M = self.M
+        """One emission row, beta and labels gathered over "m", eps over
+        "n"."""
         return {
             "mu": state.mu,
-            "beta": self.mesh.all_gather(state.beta)[..., :M],
+            "beta": self._gathered(state.beta),
             "sigmaE": state.sigmaE,
             "sigmaG": state.sigmaGG,
-            "comp": self.mesh.all_gather(state.labels)[..., :M].to(
-                torch.int8),
+            "comp": self._gathered(state.labels).to(torch.int8),
             "epsilon": self._emit_epsilon(state),
             "alpha": state.alpha,
             "sigmaF": state.sigmaF,
         }
 
-    def run(self, rng, chain: ChainConfig, *, state=None, sink=None,
-            collect: bool = True, emit_chunk: int = 32, progress=None):
-        """``MarkerSampler.run`` on every rank together; only rank 0 writes
-        to ``sink`` (the others' is ignored)."""
-        return super().run(rng, chain, state=state,
-                           sink=sink if self.mesh.m_index == 0 else None,
-                           collect=collect, emit_chunk=emit_chunk,
-                           progress=progress)
-
     def run_chains(self, rng, n_chains: int, chain: ChainConfig, *,
                    fused: Optional[bool] = None, sink=None,
                    collect: bool = True, emit_chunk: int = 32,
                    progress=None):
-        """``n_chains`` fused chains (sharded.py:1126-1189), the kernels'
-        backend only; only rank 0 writes to ``sink`` (a
+        """``n_chains`` fused chains (sharded.py:1082-1152), the kernels'
+        backend on an (m, 1) mesh only; only rank 0 writes to ``sink`` (a
         ``ChainFanoutSink``)."""
         if fused is False or not self.supports_fused_chains:
             raise ValueError("the sharded run_chains runs fused chains: "
-                             "backend='pallas', no missing call at J=1")
+                             "backend='pallas' on an (m, 1) mesh, no "
+                             "missing call at J=1")
         return super().run_chains(
             rng, n_chains, chain, fused=True,
-            sink=sink if self.mesh.m_index == 0 else None, collect=collect,
+            sink=sink if self._writer else None, collect=collect,
             emit_chunk=emit_chunk, progress=progress)
 
 
-class ShardedHorseshoeSampler:
-    """The sharded horseshoe (bayesrrcpp_tpu/parallel/sharded.py:1255) is
-    not ported: constructing one raises ``NotImplementedError``."""
+class ShardedHorseshoeSampler(_ShardedMarkers, HorseshoeSampler):
+    """Regularized-horseshoe sampler with its markers (and their lambda
+    and v) split over the "m" axis and, for dense X, its individuals over
+    the "n" axis of ``mesh`` (bayesrrcpp_tpu/parallel/sharded.py:
+    1254-1739).  Parameters as ``ShardedSpikeSlabSampler``'s without cva,
+    groups and fixed effects; ``config`` a HorseshoeConfig.  The kernels
+    ("pallas") sweep every storage mode on (m, 1) meshes through the
+    serial kernel in chunks (site #10) and dense X on Dn > 1 (or with
+    ``split_sweep=True``) through the split sweep (site #14); "xla" is the
+    plain sweep on dense X.  One chain: as in JAX there is no
+    ``step_chains``, ``run_chains`` or ``init_from``."""
 
-    def __init__(self, *args, **kwargs):
-        raise not_ported("the sharded horseshoe sampler", "Queue 1 item 5")
+    def __init__(self, X, Y, config: HorseshoeConfig, mesh: Mesh, *,
+                 dtype=None, backend: str = "xla",
+                 chunk_blocks: Optional[int] = None, x_dtype: str = "dense",
+                 x_stats=None, transposed: bool = False,
+                 n_individuals: Optional[int] = None,
+                 has_missing: Optional[bool] = None,
+                 x_process_shard: bool = False,
+                 n_markers: Optional[int] = None,
+                 split_sweep: Optional[bool] = None):
+        if not isinstance(config, HorseshoeConfig):
+            raise ValueError("config must be a HorseshoeConfig")
+        self._setup(mesh, backend, x_dtype, x_process_shard, chunk_blocks,
+                    split_sweep, dtype)
+        self.config = config
+        geno = self._lay_out_slice(
+            X, Y, transposed, x_stats, n_individuals, n_markers, has_missing,
+            config.block_size, False)
+        self.data = HorseshoeData(**geno, valid=self._valid())
+
+    supports_fused_chains = False
+
+    def init(self, rng, chains: Optional[int] = None) -> HorseshoeState:
+        """Fresh-chain init (sharded.py:1439-1456): beta = 0 and lambda = v
+        = 1 on this slice, eps = Y (this n-slice), eta and tau from their
+        priors (the same draws on every rank)."""
+        if chains is not None:
+            raise ValueError("the sharded horseshoe runs one chain "
+                             "(sharded.py has no fused horseshoe)")
+        v = self.variates(rng)
+        cfg = self.config
+        dev, f32 = self.device, torch.float32
+        eps = self.Y.clone()
+        sigmaE = self._psum(torch.sum(eps * eps), AXIS_N) / self.N * 0.5
+        g_eta, g_tau = v.init_gammas(0.5, 0.5 * cfg.vT)
+        eta = dist.inv_gamma(1.0 / (sigmaE * cfg.A ** 2), g_eta)
+        tau = (1.0 / eta) * dist.inv_gamma(cfg.vT, g_tau)
+        ones = torch.ones((self.Mloc,), dtype=f32, device=dev)
+        return HorseshoeState(
+            iteration=0, mu=torch.zeros((), dtype=f32, device=dev),
+            beta=torch.zeros((self.Mloc,), dtype=f32, device=dev),
+            eps=eps, sigmaE=sigmaE, lam=ones, v=ones.clone(),
+            tau=tau.to(f32), eta=eta.to(f32),
+            c2=torch.full((), cfg.c2, dtype=f32, device=dev))
+
+    def init_from(self, *args, **kwargs):
+        raise ValueError("the sharded horseshoe has no warm restart "
+                         "(bayesrrcpp_tpu/parallel/sharded.py has none)")
+
+    def step(self, state: HorseshoeState, rng) -> HorseshoeState:
+        """One Gibbs iteration of this slice (sharded.py:1460-1563): the
+        intercept, eta and this slice's v, the sweep, then lambda, tau, c2
+        and sigmaE with their sums all-reduced."""
+        v = self.variates(rng)
+        v.begin_step()
+        mu, eps, eta, v_aux = self._pre_sweep(state, v)
+        border, inner = v.block_orders(self.nb_loc, self.B)
+        z = v.z(self.Mloc)
+        sweep = (self._sweep_xla if self.backend != "pallas"
+                 else self._sweep_split if self._split
+                 else self._sweep_serial)
+        eps, beta = sweep(state, eps, border, inner, z)
+        return self._next(state, v, mu, eta, v_aux, eps, beta)
+
+    def step_chains(self, state, rng):
+        raise ValueError("the sharded horseshoe has no fused chains "
+                         "(bayesrrcpp_tpu/parallel/sharded.py has none)")
+
+    def _sweep_serial(self, state, eps, border, inner, z):
+        """Site #10 (sharded.py:1498-1519): ``horseshoe_sweep`` on chunks
+        of ``chunk_blocks`` (default 128) blocks, one all-reduce of eps
+        over "m" after each."""
+        d = self.data
+        beta = state.beta
+
+        def sweep(eps, blocks, by_block, z_c):
+            return horseshoe_sweep(d.XT, d.gram, d.xsq, eps, beta, blocks,
+                                   by_block, z_c, state.lam, state.tau,
+                                   state.c2, state.sigmaE, d.valid,
+                                   **self._sweep_kw())
+
+        for eps, beta in self._serial_chunks(sweep, eps, border, inner, z):
+            pass
+        return eps, beta
+
+    def _sweep_split(self, state, eps, border, inner, z):
+        """The split sweep (sharded.py:1565-1605): the round solves #14 on
+        ``build_pkg_hs_jacobi``'s operands."""
+        d = self.data
+        B = self.B
+        J = self.split_blocks()
+        by_block = torch.zeros_like(inner)
+        by_block[border.long()] = inner
+        pkg, inner_sel = build_pkg_hs_jacobi(
+            d.xsq, d.valid, z, state.lam, state.tau, state.c2, state.sigmaE,
+            border, by_block, B=B, J=J)
+        beta = state.beta.clone()
+
+        def solve(i, r, blk, idx):
+            dl, beta_new = horseshoe_round_solve(
+                r, d.gram[blk], beta[idx].view(J, B), inner_sel[i], pkg[i])
+            beta[idx] = beta_new.reshape(-1)
+            return dl
+
+        return self._split_rounds(eps, border, solve), beta
+
+    def _sweep_xla(self, state, eps, border, inner, z):
+        """``backend="xla"`` (sharded.py:1521-1541): one block a round in
+        plain torch (``_xla_blocks``), the block's exact solve
+        ``horseshoe_inner_solve``."""
+        d = self.data
+        B = self.B
+        beta = state.beta.clone()
+        z = z.view(-1, B)
+
+        def solve(i, b, r):
+            rows = slice(b * B, (b + 1) * B)
+            _, beta[rows], delta = bs.horseshoe_inner_solve(
+                r, d.gram[b], beta[rows], d.xsq[rows], state.lam[rows],
+                d.valid[rows], inner[i].long(), z[i], state.tau, state.c2,
+                state.sigmaE)
+            return delta
+
+        return self._xla_blocks(eps, border, solve), beta
+
+    def _emit_one(self, state: HorseshoeState):
+        """One emission row, beta and lambda gathered over "m", eps over
+        "n"."""
+        return {
+            "mu": state.mu,
+            "beta": self._gathered(state.beta),
+            "sigmaE": state.sigmaE,
+            "tau": state.tau,
+            "lambda": self._gathered(state.lam),
+            "epsilon": self._emit_epsilon(state),
+        }
+
+    def run_chains(self, *args, **kwargs):
+        raise ValueError("the sharded horseshoe runs one chain "
+                         "(bayesrrcpp_tpu/parallel/sharded.py has no fused "
+                         "horseshoe)")

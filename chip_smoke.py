@@ -13,9 +13,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
 2. the kernel against its plain torch version, one sweep on the same inputs
    and variates from a warm state: at N=4096 x M=8192 (plan J=32, B=32)
    labels and v equal, beta and eps to rtol 1e-4 / atol 1e-5; at the
-   headline N=100,352 x M=503,808 (plan J=128, B=32) labels agreeing on
-   >= 99.9% of markers and |d eps| / |eps| < 1e-3 (a near-tie label flip
-   from another summation order changes later steps of its block);
+   headline N=100,352 x M=503,808 (plan J=128, B=32), over its first 16
+   rounds through #5 (the sweep's kernel with a round count), labels
+   agreeing on >= 99.9% of markers and |d eps| / |eps| < 1e-3 (a
+   near-tie label flip from another summation order changes later steps
+   of its block), and the timed whole sweep bitwise equal to its rounds
+   run through #5 in chunks of 16 (so too 8b and 13b);
 3. recovery: the tests/test_layout.py:134-152 recipe (N=4096, M=2048,
    block_size 256) through the kernel, posterior-mean corr > 0.8;
 4. the main path, biobank-packed-auto: ``SpikeSlabSampler(words, Y, cva,
@@ -41,8 +44,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    from a warm 8-chain state: (a) at N=4096 x M=8192 against its plain
    version (labels and v equal, floats to rtol 1e-4 / atol 1e-5) and, chain
    by chain, against the single-chain kernel (every output bitwise
-   equal); (b) at the headline, on phase 2's words, against the plain
-   version (labels agreeing on >= 99.9 %, |d eps| / |eps| < 1e-3) and the
+   equal); (b) at the headline, on phase 2's words, its first 16 rounds
+   through #6 against the plain version (labels agreeing on >= 99.9 %,
+   |d eps| / |eps| < 1e-3) and the whole sweep beside the
    8 single-chain sweeps, all timed, plus ``torch.matmul`` of one round's
    decoded rows against the 8 eps vectors as the dot's yardstick; (c) the
    main path of biobank-packed-8chain: ``SpikeSlabSampler(...).run_chains(
@@ -57,17 +61,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (|d eps| / |eps| and |d beta| / |beta| < 1e-4);
 10. the serial (J=1) kernels of csrc/serial.cu, BayesR and horseshoe,
    against their plain versions, one sweep from a warm state: at N=4096 x
-   M=8192 with B=512, B=64, B=1024 and B=100 on the first 2,048 steps of
-   the order (4 of 16, 32 of 128, 2 of 8 and 20 of 88 blocks, the markers
+   M=8192 with B=512, B=64, B=1024 and B=100 on the first ~1,024 steps of
+   the order (2 of 16, 16 of 128, 1 of 8 and 10 of 88 blocks, the markers
    padded at B=100; labels and v equal, beta to rtol 1e-4 / atol 1e-5, eps
    to 1e-4 of its norm and of its largest value); at the headline with
-   B=512 on a 4-block order (BayesR labels agreeing on >= 99.9 %, |d eps|
+   B=512 on a 2-block order (BayesR labels agreeing on >= 99.9 %, |d eps|
    / |eps| < 1e-3 for BayesR and < 1e-4 for the horseshoe); the full
    headline sweep timed (mean of 3), with the dot launch's torch.matmul
    yardstick;
 11. the same kernels fused at C=8 (C=16 at B=1024) against their plain
    versions at both sizes and, chain by chain, bitwise against the
-   single-chain serial kernel (on 4 blocks and on the full sweep); the
+   single-chain serial kernel (on 2 blocks and on the full sweep); the
    full fused sweep timed against 8 single-chain sweeps;
 12. the serial main paths with the launch counters reset just before:
    biobank-packed-serial (``jacobi_blocks=1``, ``ChainConfig(10, 5, 5)``),
@@ -82,7 +86,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    one chain and fused at C=8, against their plain versions from a warm
    state: at N=4096 x M=8192 labels and v equal, floats to rtol 1e-4 /
    atol 1e-5, each fused chain bitwise equal to the single-chain kernel; at
-   the headline labels >= 99.9 % equal and, chain by chain, |d eps| / |eps|
+   the headline (BayesR: its first 16 rounds through #5 / #6, the sweep's
+   kernel with a round count, against their plain versions; the horseshoe
+   the whole sweep) labels >= 99.9 % equal and, chain by chain, |d eps| / |eps|
    < 1e-3 where all labels agree; a chain with a flipped label is replayed
    up to the first round R0 with a flip (labels equal and |d eps| / |eps|
    < 1e-3 after R0 rounds), the first flip of each block of round R0 must
@@ -98,7 +104,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    counts, and a profile of dot / solve / apply for each;
 15. the serial kernels' in-kernel decode (``fold_affine=False``) against
    their plain versions: at N=4096 x M=8192 with B=512 and B=64 as phase
-   10 on the first 2,048 steps of the order (4 and 32 blocks), on 4
+   10 on the first 1,024 steps of the order (2 and 16 blocks), on 2
    headline blocks (BayesR labels >= 99.9 %, |d eps| / |eps| <
    1e-3, the horseshoe < 1e-4), the full headline sweep timed; then an
    M=1500 auto-plan fit with missing calls (J=1) of both samplers, one
@@ -111,7 +117,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
 17. dense X (``x_dtype="dense"``, standardized f32 rows built on the card
    from a seed), the kernels' dense mode: (a) each of the eight dense
    sweeps against its plain version at N=4001 (no multiple of 4 or 32) x
-   M=8192, strided J=128, B=32 and serial B=512, one chain and C=8 fused
+   M=8192, strided J=128, B=32 and serial B=512 (its first 2 blocks), one
+   chain and C=8 fused
    from warm states (labels and v equal, beta and bacc to rtol 1e-4 / atol
    1e-5, eps to 1e-4 of its norm and of its largest value as phase 10:
    each lane sums up to 4096 moved rows a round), each fused chain bitwise
@@ -130,7 +137,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    finite values, tracked vs recomputed eps < 1e-4, launch counts), each
    with a profile of 2 steps (dot / solve / apply per launch);
 19. the serial dense kernels at the cell (``jacobi_blocks=1``, B=512, 96
-   blocks): 8 blocks against the plain versions (as phase 10b), full
+   blocks): 2 blocks against the plain versions (as phase 10b), full
    sweeps timed with their bounds, C=8 fused bitwise against the single
    chain, and the main paths (BayesR ``ChainConfig(10, 5, 5)``, the
    horseshoe and 8 fused chains of each 5 iterations); recovery through
@@ -140,12 +147,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
 21. the row-layout sweeps (csrc/serial.cu with J blocks a round) and their
    round solves: (a) BayesR and the horseshoe against their plain versions
    at N=4096 x M=8192 words and N=4001 x M=8192 dense rows from warm
-   states, plans (J, B) = (8, 512), (32, 128), (2, 64) and (16, 16) (labels
+   states over their first 16 rounds (all of them at J=8 and J=32),
+   plans (J, B) = (8, 512), (32, 128), (2, 64) and (16, 16) (labels
    and v equal, beta and bacc to rtol 1e-4 / atol 1e-5, eps to 1e-4 of its
    norm and of its largest value), and the round solves alone on one
    round's r (labels and v equal, dlane and beta to 1e-5); (b) at the
    headline with ``jacobi_layout="row"`` (J=32, B=128, nr=123, on phase
-   2's words) the first 8 rounds against the plain version under phase
+   2's words) the first 4 rounds against the plain version under phase
    13b's gates (``row_rounds`` for the replay), full sweeps timed (mean of
    3) with their bounds and the ``torch.matmul`` of a round's decoded rows
    by eps, the round solve alone timed, and one sweep at
@@ -185,7 +193,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    phase 2's words (individual order already: the port's words carry no
    lane permutation), through the int8 mode of every sweep kernel: (a)
    each int8 entry point against its plain version at N=4096 and N=4001 x
-   M=8192 (M=2048 for the serial, row and ``_q`` sweeps), one sweep from
+   M=8192 (M=2048 for the serial, row and ``_q`` sweeps, the serial and
+   ``_q`` ones over 2 of their 4 blocks), one sweep from
    a warm state (the strided kernels J=32, B=32 one
    chain and C=8 fused, their chunks of rounds #5/#6, the serial fold
    B=512 one chain and C=8, the row sweep J=8, B=128, the serial in-kernel
@@ -219,6 +228,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
    counts; (g) the CLI with ``--x-dtype int8`` on a .bed with missing
    calls (N=8,192 x M=4,096).  It logs its seconds.
 
+25. the sharded horseshoe and the split sweep (``parallel/``), the last
+   callers of #10, #13 and #14: (a) #10 through
+   ``ShardedHorseshoeSampler``'s chunked call on a one-rank NCCL mesh at
+   N=4096 x M=8192 (B=512) in each storage mode (2-bit fold, 2-bit with
+   missing calls through ``_q``, int8, dense), ``chunk_blocks`` 3 and the
+   default: the first 4 blocks against the plain versions under phase
+   10a's gates, a sweep's launches; (b) biobank-horseshoe-sharded-m1, the
+   sampler on phase 2's words (not copied), ``.run(generator,
+   ChainConfig(5, 2, 2), sink=CSVSink(...))`` with #10's count reset just
+   before (3 x 984 launches a step), beside biobank-horseshoe-serial's
+   ms/iter (phase 12), a profile of one step; (c) dense-16kx49k (X built
+   on the card) through the split sweep (``split_sweep=True``, J=8, B=512,
+   nr=12) on the one-rank mesh, both samplers: the first two rounds'
+   solves against their plain versions, ``.run(..., ChainConfig(4, 2,
+   2))`` with one #13 / #14 launch a round, beside phase 18's ms/iter,
+   and a round's split into mv's, solve, all-reduces and the rest; (d)
+   four spawned gloo ranks on the card: dense N=4096 x M=8192 on (1, 2)
+   (each half of them) and (2, 2) meshes, both samplers, the split sweep
+   and ``backend="xla"`` (on the first 512 markers), 3 steps: the
+   replicated scalars bitwise equal on every rank, eps on each "m"
+   group, tracked vs recomputed eps, the round solves' launches; (e)
+   chains over devices on each half: 4 fused chains a rank (2-bit words
+   at N=4096 x M=8192, both samplers), every rank's chains bitwise a
+   one-rank ``run_chains`` of its streams.
+
 Phases 8b, 9b and 13b also profile one more fused strided sweep and log
 the apply's device us a round against ``tools/kernel_bounds.apply_round``
 (the round's moved rows and, in the miss mode, their missing calls);
@@ -234,8 +268,8 @@ missing calls), the dense phases also one ``torch.addmv`` (``addmm`` for
 8 chains) computing the apply on a launch's rows, its PyTorch yardstick.
 Each such line ends with the card's nvidia-smi name and power limit.
 
-Phases 17-24 run after phase 12, on phase 2's words for 17b, 21b, 23 and
-24.
+Phases 17-25 run after phase 12, on phase 2's words for 17b, 21b, 23,
+24 and 25b.
 Each group of phases logs the seconds since the start.  The
 three kernel libraries build at once (one nvcc per source).  The script
 prints its total time before the last two lines.  The last
@@ -260,13 +294,23 @@ HS_RECOVERY_CHAIN = (600, 300, 1)
 CHAINS = 8                          # the 8-chain cells
 # blocks of a serial headline sweep held against the plain version, whose
 # host loop takes ~1-1.6 s a block there
-HEADLINE_PLAIN_BLOCKS = 4
+HEADLINE_PLAIN_BLOCKS = 2
+# rounds of a BayesR strided sweep at the headline held against the plain
+# version (2b, 8b, 13b: #5 / #6 over them; the plain step takes ~0.6 ms)
+HEADLINE_PLAIN_ROUNDS = 16
+# blocks of a serial sweep of 512 markers at N=4096 / 4001 held against the
+# plain version (17a, 24a: ~1,024 steps; the plain BayesR step takes ~3 ms)
+SMALL_SERIAL_BLOCKS = 2
+# rounds of a row-layout sweep at N=4096 / 4001 held against the plain
+# version (21a)
+SMALL_ROW_ROUNDS = 16
 # per-chain operands of the sweeps, by position (ops/jacobi_t.py)
 BAYESR_CHAIN_ARGS = (3, 4, 5, 8, 9, 10, 12, 13)
 HS_CHAIN_ARGS = (3, 4, 7, 8, 9, 10, 11)
 
 
 CARD = "not read"                   # nvidia-smi name, power limit (phase 1)
+CELL_MS = {}                        # ms/iter of main paths, by cell name
 
 
 def check(cond, msg):
@@ -455,7 +499,7 @@ def read_csv(path):
     with open(path) as f:
         header = f.readline().rstrip("\n").split(",")
         rows = [r for r in f.read().split("\n") if r]
-    return (header, [len(r.split(", ")) for r in rows],
+    return (header, [r.count(", ") + 1 for r in rows],
             any("nan" in r or "inf" in r for r in rows))
 
 
@@ -699,12 +743,13 @@ def main():
 
 
 def smoke(torch, tmp):
-    """Phases 1-24 (module docstring; 17-24 run after 12), their CSVs under
+    """Phases 1-25 (module docstring; 17-25 run after 12), their CSVs under
     ``tmp``; returns 0 or raises."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import bayesrrcpp_tpu_torch as bt
     from bayesrrcpp_tpu_torch.io.sink import CSVSink
     from bayesrrcpp_tpu_torch.ops import _cuda
+    from bayesrrcpp_tpu_torch.ops import jacobi_t as jt
     from bayesrrcpp_tpu_torch.ops.jacobi_t import (
         LAUNCHES_PER_ROUND, bayesr_jacobi_t, bayesr_jacobi_t_reference,
         horseshoe_jacobi_t, horseshoe_jacobi_t_reference)
@@ -771,18 +816,22 @@ def smoke(torch, tmp):
     st = s._run_steps(s.init(v), v, 2)
     args, kw = sweep_args(s, st, v)
     ker, ker_ms = timed(torch, lambda: bayesr_jacobi_t(*args, **kw), 3)
-    ref, plain_ms = timed(torch,
-                          lambda: bayesr_jacobi_t_reference(*args, **kw), 1)
-    agree = float((ker.labels == ref.labels).float().mean())
-    rel_eps = float(torch.linalg.norm(ker.eps - ref.eps)
+    pa, pkw, pfns = headline_plain_rounds(jt, args, kw, nr, "bayesr", None,
+                                          None)
+    pk = pfns[0](*pa, **pkw)
+    ref, plain_ms = timed(torch, lambda: pfns[1](*pa, **pkw), 1)
+    agree = float((pk.labels == ref.labels).float().mean())
+    rel_eps = float(torch.linalg.norm(pk.eps - ref.eps)
                     / torch.linalg.norm(ref.eps))
-    max_err = max(float((ker.eps - ref.eps).abs().max()),
-                  float((ker.beta - ref.beta).abs().max()))
+    max_err = max(float((pk.eps - ref.eps).abs().max()),
+                  float((pk.beta - ref.beta).abs().max()))
     log(f"[2b] headline sweep: kernel {ker_ms:.3f} ms, plain {plain_ms:.1f} "
-        f"ms; label agreement {agree:.6f}, |d eps|/|eps| {rel_eps:.3g}, "
-        f"max abs err {max_err:.3g}")
+        f"ms ({HEADLINE_PLAIN_ROUNDS} rounds through #5); label agreement "
+        f"{agree:.6f}, |d eps|/|eps| {rel_eps:.3g}, max abs err "
+        f"{max_err:.3g}")
     check(agree >= 0.999, f"headline label agreement {agree}")
     check(rel_eps < 1e-3, f"headline eps rel diff {rel_eps}")
+    whole_in_chunks(torch, "[2b]", pfns, args, pkw, ker)
     bound_ms, bound_by = sweep_bound(s, 1, int((ker.beta != args[4]).sum()),
                                      6)
     lib_ms = dot_yardstick(torch, s, round_rows(torch, s, args[6][0]),
@@ -790,7 +839,7 @@ def smoke(torch, tmp):
     log(f"[2b] bound {bound_ms:.3f} ms ({bound_by}); dot yardstick "
         f"torch.matmul ({s.jacobi * s.B} x {s.Npad}) @ ({s.Npad},) x {nr} "
         f"rounds {lib_ms:.3f} ms")
-    del args, ker, ref
+    del args, ker, ref, pa, pk
 
     # ---- 3. recovery through the kernel
     gr = torch.Generator(device=dev).manual_seed(13)
@@ -969,6 +1018,11 @@ def smoke(torch, tmp):
     # ---- 24. int8 codes, decoded from phase 2's words
     int8_kernels = int8_phases(torch, bt, hs, tmp)
     elapsed("24")
+
+    # ---- 25. the sharded horseshoe (#10), the split sweep (#13, #14), the
+    # (1, 2) / (2, 2) meshes and chains over devices
+    sharded_callers = split_phases(torch, bt, hs, tmp)
+    elapsed("25")
     del hs
 
     # ---- 13-16. words with missing calls
@@ -982,6 +1036,7 @@ def smoke(torch, tmp):
         {"name": "jacobi_t_sweep", "route": "cuda", "source": src,
          "replaces": f"{tpu}:405", "launches": bayesr_launches,
          "max_abs_err": max_err, "ms": ker_ms, "plain_ms": plain_ms,
+         "plain_rounds": HEADLINE_PLAIN_ROUNDS,
          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms},
         {"name": "jacobi_t_hs_sweep", "route": "cuda", "source": src,
          "replaces": f"{tpu}:650", "launches": hs_launches,
@@ -998,11 +1053,20 @@ def smoke(torch, tmp):
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"]})
+    kernels += (serial_kernels + missing_kernels + dense_kernels
+                + row_kernels + sharded_kernels + int8_kernels)
+    # the sites whose last callers are the sharded samplers (phase 25)
+    callers = {"horseshoe_serial_sweep":
+               "ShardedHorseshoeSampler (m, 1) chunked sweep",
+               "bayesr_round_solve": "ShardedSpikeSlabSampler split sweep",
+               "horseshoe_round_solve": "ShardedHorseshoeSampler split sweep"}
+    for k in kernels:
+        if k["name"] in callers:
+            k["sharded_caller"] = callers[k["name"]]
+            k["sharded_launches"] = sharded_callers[k["name"]]
     log(f"[total] {time.perf_counter() - START:.1f} s since the script "
         f"started")
-    print(json.dumps({"kernels": kernels + serial_kernels
-                      + missing_kernels + dense_kernels + row_kernels
-                      + sharded_kernels + int8_kernels}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -1092,12 +1156,15 @@ def fused_phases(torch, bt, kind, hs, tmp):
     ones, singles_ms = timed(torch, lambda: [
         outputs(single(*chain_args(args, c, per_chain), **kw))
         for c in range(C)], 1)
-    ref, plain_ms = timed(torch, lambda: outputs(plain(*args, **kw)), 1)
+    pa, pkw, pfns = headline_plain_rounds(jt, args, kw, nr, kind, C,
+                                          (fused, plain))
+    pk = outputs(pfns[0](*pa, **pkw))
+    ref, plain_ms = timed(torch, lambda: outputs(pfns[1](*pa, **pkw)), 1)
     bitwise = all(torch.equal(a, b[c]) for c, one in enumerate(ones)
                   for a, b in zip(one, ker))
-    rel_eps, rel_beta = rel_err(ker[0], ref[0]), rel_err(ker[1], ref[1])
-    max_err = max(float((ker[0] - ref[0]).abs().max()),
-                  float((ker[1] - ref[1]).abs().max()))
+    rel_eps, rel_beta = rel_err(pk[0], ref[0]), rel_err(pk[1], ref[1])
+    max_err = max(float((pk[0] - ref[0]).abs().max()),
+                  float((pk[1] - ref[1]).abs().max()))
     moved = int((ker[1] != args[4]).sum())
     bound_ms, bound_by = sweep_bound(s, C, moved, 4 if hsk else 6)
     # the dot's yardstick: one round's rows decoded, times the C eps
@@ -1105,7 +1172,8 @@ def fused_phases(torch, bt, kind, hs, tmp):
         torch, s, args[5 if hsk else 6][0]), args[3])
     log(f"[{ph}b] {kind} fused C={C} headline (sampler {setup_s:.2f} s): "
         f"sweep {ms:.3f} ms, {C} single-chain sweeps {singles_ms:.3f} ms, "
-        f"plain {plain_ms:.1f} ms, bound {bound_ms:.3f} ms ({bound_by}, "
+        f"plain {plain_ms:.1f} ms ({len(pa[6])} rounds), bound "
+        f"{bound_ms:.3f} ms ({bound_by}, "
         f"{moved} markers moved); |d eps|/|eps| {rel_eps:.3g}, |d beta|/"
         f"|beta| {rel_beta:.3g}, max abs err {max_err:.3g}; chains bitwise "
         f"equal to the single-chain kernel: {bitwise}; dot yardstick "
@@ -1121,11 +1189,12 @@ def fused_phases(torch, bt, kind, hs, tmp):
         check(rel_eps < 1e-4, f"[9b] headline eps rel diff {rel_eps}")
         check(rel_beta < 1e-4, f"[9b] headline beta rel diff {rel_beta}")
     else:
-        agree = float((ker[2] == ref[2]).float().mean())
+        agree = float((pk[2] == ref[2]).float().mean())
         log(f"[8b] label agreement {agree:.6f}")
         check(agree >= 0.999, f"[8b] headline label agreement {agree}")
         check(rel_eps < 1e-3, f"[8b] headline eps rel diff {rel_eps}")
-    del st, args, ker, ref, ones
+        whole_in_chunks(torch, "[8b]", pfns, args, pkw, ker)
+    del st, args, ker, ref, ones, pa, pk
 
     # ---- c. the 8-chain main path
     chain = bt.ChainConfig(30, 10, 10)
@@ -1300,12 +1369,12 @@ def serial_phases(torch, bt, hs, tmp):
     # ---- 10a / 11a. N=4096 x M=8192 at B=512 (16 blocks), B=64 (128),
     # B=1024 (8; 16 fused chains: the 2-bit apply's largest list) and B=100
     # (88: padded markers, a dot CTA's rows past the block), each swept over
-    # the first ~2,048 steps of the order (the plain BayesR sweep takes the
+    # the first ~1,024 steps of the order (the plain BayesR sweep takes the
     # host 2.6-3.6 ms a step); (B, fused chains, blocks, blocks swept)
     for kind, (single, plain, fused, fused_plain, cfg, make_args, names,
                _) in kinds.items():
-        for B, C, nb, n in ((512, CHAINS, 16, 4), (64, CHAINS, 128, 32),
-                            (1024, 16, 8, 2), (100, CHAINS, 88, 20)):
+        for B, C, nb, n in ((512, CHAINS, 16, 2), (64, CHAINS, 128, 16),
+                            (1024, 16, 8, 1), (100, CHAINS, 88, 10)):
             g = torch.Generator(device=dev).manual_seed(10 + B)
             v = bt.TorchVariates(g)
             s = packed_sampler(torch, bt, g, 4096, 8192, cfg(block_size=B),
@@ -1500,6 +1569,7 @@ def serial_phases(torch, bt, hs, tmp):
             want = 3 * s.nb * chain.max_iterations
             cell = (f"biobank-{'packed' if kind == 'bayesr' else kind}-serial"
                     + ("" if chains is None else f"-{chains}chain"))
+            CELL_MS[cell] = wall / chain.max_iterations * 1e3
             log(f"[12] {cell} main path: "
                 f"{wall / chain.max_iterations * 1e3:.2f} ms/iter ({wall:.2f}"
                 f" s for {chain.max_iterations} iterations incl. CSV), peak "
@@ -1873,35 +1943,44 @@ def missing_phases(torch, bt, tmp):
         st = ss._run_steps(ss.init(v), v, 2)
         args, kw = make_args(ss, st, v)
         ker, ms = timed(torch, lambda: tuple(single(*args, **kw)), 3)
-        ref, plain_ms = timed(torch, lambda: tuple(plain(*args, **kw)), 1)
-        rel_eps, rel_beta = rel_err(ker[0], ref[0]), rel_err(ker[1], ref[1])
-        max_err = max(float((a - b).abs().max())
-                      for a, b in zip(ker[:2], ref[:2]))
-        agree = (float((ker[2] == ref[2]).float().mean())
-                 if kind == "bayesr" else 1.0)
         moved_at = ker[1] != args[4]
+        # BayesR's plain version over the first rounds (#5, the whole-sweep
+        # kernel with a round count: 23a holds the two bitwise)
+        pa, pkw, pfns = headline_plain_rounds(jt, args, kw, nr, kind, None,
+                                          (single, plain))
+        pk = tuple(pfns[0](*pa, **pkw))
+        ref, plain_ms = timed(torch, lambda: tuple(pfns[1](*pa, **pkw)), 1)
+        rel_eps, rel_beta = rel_err(pk[0], ref[0]), rel_err(pk[1], ref[1])
+        max_err = max(float((a - b).abs().max())
+                      for a, b in zip(pk[:2], ref[:2]))
+        agree = (float((pk[2] == ref[2]).float().mean())
+                 if kind == "bayesr" else 1.0)
         moved = int(moved_at.sum())
         bound = sweep_bound(ss, 1, moved, arrays,
                             extra_fmas=missing_fmas(miss, moved_at))
         lib_ms = dot_yardstick(torch, ss, round_rows(torch, ss,
                                                      args[rho_at][0]),
                                args[3]) * nr
-        flips = (held_per_chain(torch, ss, "[13b]", args, kw, ker, ref)
+        flips = (held_per_chain(torch, ss, "[13b]", pa, pkw, pk, ref, None,
+                                pfns, chunk_rounds)
                  if kind == "bayesr" else [])
         log(f"[13b] {kind} miss sweep at the headline: kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.1f} ms, bound {bound[0]:.3f} ms ({bound[1]}, "
+            f"plain {plain_ms:.1f} ms ({len(pa[6])} rounds), bound "
+            f"{bound[0]:.3f} ms ({bound[1]}, "
             f"{moved} markers moved), dot yardstick {lib_ms:.3f} ms; label "
             f"agreement {agree:.6f}, |d eps|/|eps| {rel_eps:.3g}, |d beta|/"
             f"|beta| {rel_beta:.3g}, max abs err {max_err:.3g}; chains with "
             f"a near-tie label flip {[c for c, _ in flips]}")
         check(agree >= 0.999, f"[13b] {kind} label agreement {agree}")
+        if kind == "bayesr":
+            whole_in_chunks(torch, "[13b] bayesr", pfns, args, pkw, ker)
         if kind != "bayesr":
             check(rel_eps < 1e-4 and rel_beta < 1e-4,
                   f"[13b] horseshoe rel diffs {rel_eps} {rel_beta}")
         records[kind] = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                             bound_ms=bound[0], bound_by=bound[1],
-                             library_ms=lib_ms)
-        del args, ker, ref
+                             plain_rounds=len(pa[6]), bound_ms=bound[0],
+                             bound_by=bound[1], library_ms=lib_ms)
+        del args, ker, ref, pa, pk
 
         v8 = bt.TorchVariates(g, chains=CHAINS)
         st8 = ss.init(v8, chains=CHAINS)
@@ -1912,15 +1991,17 @@ def missing_phases(torch, bt, tmp):
         ones, singles_ms = timed(torch, lambda: [
             tuple(single(*chain_args(args, c, per_chain), **kw))
             for c in range(CHAINS)], 1)
-        ref, fplain_ms = timed(torch, lambda: tuple(fused_plain(*args, **kw)),
-                               1)
         bitwise = all(torch.equal(a, b[c]) for c, one in enumerate(ones)
                       for a, b in zip(one, ker))
-        frel = rel_err(ker[0], ref[0])
-        frel_beta = rel_err(ker[1], ref[1])
+        pa, pkw, pfns = headline_plain_rounds(jt, args, kw, nr, kind, CHAINS,
+                                          (fused, fused_plain))
+        pk = tuple(pfns[0](*pa, **pkw))
+        ref, fplain_ms = timed(torch, lambda: tuple(pfns[1](*pa, **pkw)), 1)
+        frel = rel_err(pk[0], ref[0])
+        frel_beta = rel_err(pk[1], ref[1])
         ferr = max(float((a - b).abs().max())
-                   for a, b in zip(ker[:2], ref[:2]))
-        fagree = (float((ker[2] == ref[2]).float().mean())
+                   for a, b in zip(pk[:2], ref[:2]))
+        fagree = (float((pk[2] == ref[2]).float().mean())
                   if kind == "bayesr" else 1.0)
         fmoved_at = ker[1] != args[4]
         fmoved = int(fmoved_at.sum())
@@ -1932,12 +2013,15 @@ def missing_phases(torch, bt, tmp):
         apply_report(torch, f"[13b] {kind} fused C={CHAINS} miss", ss,
                      lambda *a, **k: tuple(fused(*a, **k)), args, kw,
                      fmoved_at.any(dim=0), miss)
-        fflips = (held_per_chain(torch, ss, "[13b] fused", args, kw, ker,
-                                 ref, per_chain)
+        fflips = (held_per_chain(
+            torch, ss, "[13b] fused", pa, pkw, pk, ref, per_chain,
+            headline_plain_rounds(jt, args, kw, nr, kind, None,
+                              (single, plain))[2], chunk_rounds)
                   if kind == "bayesr" else [])
         log(f"[13b] {kind} fused C={CHAINS} miss sweep at the headline: "
             f"{fms:.3f} ms, {CHAINS} single-chain sweeps {singles_ms:.3f} "
-            f"ms, plain {fplain_ms:.1f} ms, bound {fbound[0]:.3f} ms "
+            f"ms, plain {fplain_ms:.1f} ms ({len(pa[6])} rounds), bound "
+            f"{fbound[0]:.3f} ms "
             f"({fbound[1]}), dot yardstick {flib_ms:.3f} ms; chains bitwise "
             f"equal to the single-chain kernel: {bitwise}; label agreement "
             f"{fagree:.6f}, |d eps|/|eps| {frel:.3g}, |d beta|/|beta| "
@@ -1945,12 +2029,16 @@ def missing_phases(torch, bt, tmp):
             f"near-tie label flip {[c for c, _ in fflips]}")
         check(bitwise, f"[13b] {kind} fused chains not bitwise")
         check(fagree >= 0.999, f"[13b] {kind} fused label agreement")
+        if kind == "bayesr":
+            whole_in_chunks(torch, "[13b] bayesr fused", pfns, args, pkw,
+                            ker)
         if kind != "bayesr":
             check(frel < 1e-4, f"[13b] {kind} fused eps rel diff {frel}")
         records[kind + "_mc"] = dict(
-            max_abs_err=ferr, ms=fms, plain_ms=fplain_ms, bound_ms=fbound[0],
-            bound_by=fbound[1], library_ms=flib_ms)
-        del args, ker, ref, ones, st8
+            max_abs_err=ferr, ms=fms, plain_ms=fplain_ms,
+            plain_rounds=len(pa[6]), bound_ms=fbound[0], bound_by=fbound[1],
+            library_ms=flib_ms)
+        del args, ker, ref, ones, st8, pa, pk
 
     # ---- 14. the main path of biobank-packed-missing, the horseshoe and
     # 8 fused chains of each, on the same words
@@ -2034,8 +2122,8 @@ def missing_phases(torch, bt, tmp):
                             ser.horseshoe_sweep_reference, bt.HorseshoeConfig,
                             hs_serial_args, ("eps", "beta"), 4)}
     for kind, (single, plain, cfg, make_args, names, _) in serial.items():
-        # the first 2,048 steps of the order, as phase 10a
-        for B, n in ((512, 4), (64, 32)):
+        # the first 1,024 steps of the order, as phase 10a
+        for B, n in ((512, 2), (64, 16)):
             g = torch.Generator(device=dev).manual_seed(60 + B)
             v = bt.TorchVariates(g)
             sb = packed_sampler(torch, bt, g, 4096, 8192, cfg(block_size=B),
@@ -2221,16 +2309,14 @@ def missing_phases(torch, bt, tmp):
 
 
 DENSE_N, DENSE_M = 16_384, 49_152     # the dense cell, dense-16kx49k
-SERIAL_PLAIN_BLOCKS = 8   # blocks of a serial plain sweep at the dense cell
+SERIAL_PLAIN_BLOCKS = 2   # blocks of a serial plain sweep at the dense cell
 
 
-def dense_sampler(torch, bt, g, N, M, cfg, signal=None, **plan):
-    """A sampler on dense X (M, N) f32 built on the card from generator
-    ``g`` (markers x individuals, ``transposed=True``): per marker a
-    frequency p ~ U(0.1, 0.9) and dosages Binomial(2, p), each row
-    standardized to mean 0 and sd 1 (ddof 1), built in chunks of rows; Y
-    is N(0, 1), times 0.7 plus X^T ``signal`` when given.  Dense X takes
-    the kernels on the card by default."""
+def dense_x(torch, g, N, M):
+    """Dense X (M, N) f32 built on the card from generator ``g`` (markers x
+    individuals): per marker a frequency p ~ U(0.1, 0.9) and dosages
+    Binomial(2, p), each row standardized to mean 0 and sd 1 (ddof 1),
+    built in chunks of rows."""
     X = torch.empty((M, N), device="cuda")
     for a in range(0, M, 4096):
         b = min(a + 4096, M)
@@ -2240,6 +2326,15 @@ def dense_sampler(torch, bt, g, N, M, cfg, signal=None, **plan):
         x -= x.mean(dim=1, keepdim=True)
         x /= x.std(dim=1, keepdim=True).clamp_min(1e-12)
         X[a:b] = x
+    return X
+
+
+def dense_sampler(torch, bt, g, N, M, cfg, signal=None, **plan):
+    """A sampler on dense X (M, N) f32 built on the card from generator
+    ``g`` (``dense_x``, ``transposed=True``); Y is N(0, 1), times 0.7 plus
+    X^T ``signal`` when given.  Dense X takes
+    the kernels on the card by default."""
+    X = dense_x(torch, g, N, M)
     Y = torch.randn(N, generator=g, device="cuda")
     if signal is not None:
         Y = 0.7 * Y + signal @ X
@@ -2370,7 +2465,8 @@ def dense_phases(torch, bt, hs, tmp):
                 and not s.x_packed and s.supports_fused_chains,
                 f"[17a] plan {(s.jacobi, s.B, s.Npad, s.backend)}")
             st = s._run_steps(s.init(v), v, 3)
-            args, kw = make_args(s, st, v)
+            cut = () if layout == "strided" else (SMALL_SERIAL_BLOCKS,)
+            args, kw = make_args(s, st, v, *cut)
             # eps by its norm and largest value (check_sweeps): in the
             # horseshoe a lane sums all J*B = 4096 rows of a round, in
             # another order than the plain matrix product
@@ -2381,7 +2477,7 @@ def dense_phases(torch, bt, hs, tmp):
             st8 = s.init(v8, chains=CHAINS)
             for _ in range(3):
                 st8 = s.step_chains(st8, v8)
-            args, kw = make_args(s, st8, v8)
+            args, kw = make_args(s, st8, v8, *cut)
             ker = tuple(fused(*args, **kw))
             ferr = gate(torch, f"[17a] {kind} {layout} fused", names, ker,
                         tuple(fused_plain(*args, **kw)))
@@ -2562,6 +2658,7 @@ def dense_phases(torch, bt, hs, tmp):
             cell = ("dense-16kx49k" if kind == "bayesr"
                     else "dense-16kx49k-horseshoe") + (
                 "" if chains is None else f"-{chains}chain")
+            CELL_MS[cell] = wall / chain.max_iterations * 1e3
             check(rel < 1e-4, f"[18] {cell} tracked eps vs recompute {rel}")
             check(launches == want, f"[18] {cell} launches {launches}")
             records[kind + ("" if chains is None else "_mc")][
@@ -2823,7 +2920,7 @@ def dense_phases(torch, bt, hs, tmp):
 # versions at N=4096 x M=8192 (phase 21a), and the rounds of a row plain
 # sweep at the headline and the dense cell (21b)
 ROW_PLANS = ((8, 512), (32, 128), (2, 64), (16, 16))
-ROW_PLAIN_ROUNDS = 8
+ROW_PLAIN_ROUNDS = 4
 
 
 def row_args(s, st, v, rounds=None):
@@ -3025,7 +3122,7 @@ def row_phases(torch, bt, hs, tmp):
                 check((s.jacobi, s.B, s.jacobi_layout, s.Mpad) ==
                       (J, B, "row", 8192), f"[21a] plan {(s.jacobi, s.B)}")
                 st = s._run_steps(s.init(v), v, 3)
-                args, kw = make_args(s, st, v)
+                args, kw = make_args(s, st, v, SMALL_ROW_ROUNDS)
                 tag = f"[21a] {kind} {storage} J={J} B={B}"
                 worst = max(worst, check_sweeps(
                     torch, tag, names, tuple(single(*args, **kw)),
@@ -3298,6 +3395,35 @@ def chunk_rounds(torch, s, args, kw):
         return [(j * nr + slab, (slab * J + j) * B) for j in range(J)]
 
     return round_of_slab[marker // B % nr], nrc, blocks
+
+
+def headline_plain_rounds(jt, args, kw, nr, kind, C, whole):
+    """The plain comparison of a strided sweep at the headline (2b, 8b,
+    13b): BayesR's first ``HEADLINE_PLAIN_ROUNDS`` rounds through #5 / #6
+    (the sweep's kernel with a round count; one chain, or ``C`` fused) and
+    their plain versions, as (operands, keywords, (kernel, plain)); the
+    horseshoe's whole sweep through ``whole`` (its plain step is cheap)."""
+    if kind != "bayesr":
+        return args, kw, whole
+    a = list(args)
+    a[6] = args[6][:HEADLINE_PLAIN_ROUNDS]
+    return a, dict(kw, nr_total=nr), rounds_fns(jt, C)[:2]
+
+
+def whole_in_chunks(torch, tag, pfns, args, pkw, ker):
+    """The headline's timed whole sweep ``ker`` (eps, beta and labels first)
+    bitwise equal to all of its rounds run in turn through ``pfns[0]`` (#5
+    / #6) in chunks of ``HEADLINE_PLAIN_ROUNDS``, the first of which is the
+    chunk held against the plain version: so ``ms`` and ``plain_ms`` /
+    ``max_abs_err`` speak of the same kernel (23a holds the two at every
+    chunk size on a smaller shape)."""
+    turn = in_turn(pfns[0], args, pkw, HEADLINE_PLAIN_ROUNDS)
+    for i, name in enumerate(("eps", "beta", "labels")):
+        a, b = getattr(turn, name), ker[i]
+        check(torch.equal(a, b), f"{tag} {name}: the whole sweep differs "
+              f"from its chunks of {HEADLINE_PLAIN_ROUNDS} rounds: max |d| "
+              f"{float((a.float() - b.float()).abs().max())}")
+    del turn
 
 
 def rounds_fns(jt, C):
@@ -3864,7 +3990,9 @@ def int8_small(torch, bt, jt, layouts):
                       f"[24a] {layout} plan "
                       f"{(s.jacobi, s.B, s.jacobi_layout)}")
                 st = s._run_steps(s.init(v), v, 3)
-                args, kw = make_args(s, st, v)
+                cut = ((SMALL_SERIAL_BLOCKS,) if layout in ("serial", "q")
+                       else ())
+                args, kw = make_args(s, st, v, *cut)
                 check(kw["fold_affine"] is not missing
                       and "row_valid" not in kw,
                       f"[24a] {layout} mode {kw.keys()}")
@@ -3891,7 +4019,7 @@ def int8_small(torch, bt, jt, layouts):
                 st8 = s.init(v8, chains=CHAINS)
                 for _ in range(3):
                     st8 = s.step_chains(st8, v8)
-                args, kw = make_args(s, st8, v8)
+                args, kw = make_args(s, st8, v8, *cut)
                 fk = tuple(fused(*args, **kw))
                 worst = max(worst, check_sweeps(
                     torch, f"{tag} fused", names, fk,
@@ -4532,6 +4660,511 @@ def int8_phases(torch, bt, hs, tmp):
                   "replaces": tpu + where, "mode": mode},
                  **{k: rec[key][k] for k in keys})
             for key, name, f, where, mode in meta]
+
+
+# ---------------------------------------------------------------- phase 25
+
+# 25a's shape (N x M, B=512: 16 blocks) and the blocks of its sweeps held
+# against the plain versions (the plain serial step takes the host ~3 ms)
+SH25_N, SH25_M, SH25_BLOCKS = 4096, 8192, 4
+# 25d / 25e: dense N x M on (1, 2) and (2, 2) meshes of gloo ranks on the
+# one card, and chains over two of them (4 fused chains a rank); the xla
+# cases on the first MESH25_XLA_M markers (their per-marker solve is tens
+# of tiny launches a marker, from four processes time-sharing the card)
+MESH25_N, MESH25_M, MESH25_STEPS, CHAINS25 = 4096, 8192, 3, 4
+MESH25_XLA_M = 512
+
+
+def hs25_sweep(s, st, eps, border, inner, z, fn):
+    """The sharded horseshoe's chunked sweep of ``s`` (``_serial_chunks``:
+    chunks of ``chunk_blocks`` blocks, one all-reduce of eps after each)
+    through ``fn``: ``ops/serial.horseshoe_sweep`` or its plain version."""
+    d = s.data
+    beta = st.beta
+
+    def sweep(eps, blocks, by_block, z_c):
+        return fn(d.XT, d.gram, d.xsq, eps, beta, blocks, by_block, z_c,
+                  st.lam, st.tau, st.c2, st.sigmaE, d.valid,
+                  **s._sweep_kw())
+
+    for eps, beta in s._serial_chunks(sweep, eps, border, inner, z):
+        pass
+    return eps, beta
+
+
+def sharded_hs_small(torch, bt, mesh):
+    """25a: site #10 through the sharded horseshoe's chunked call at
+    N=4096 x M=8192 (B=512, 16 blocks) in each storage mode, chunks of 3
+    blocks and the default (one chunk): the first ``SH25_BLOCKS`` blocks
+    of a warm state's sweep against the plain versions under phase 10a's
+    gates (``check_sweeps``), the whole sweep's launches counted."""
+    from bayesrrcpp_tpu_torch.ops import serial as ser
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(25)
+    words = bt.simulate.random_packed_words(g, SH25_M, SH25_N // 16,
+                                            device="cuda")
+    missing = bt.simulate.random_packed_words_missing(
+        g, SH25_M, SH25_N // 16, device="cuda")
+    stats = bt.simulate.packed_word_stats(SH25_M)
+    Y = torch.randn(SH25_N, generator=g, device="cuda")
+    X = dense_x(torch, g, SH25_N, SH25_M)
+    modes = {"2-bit fold": dict(X=words, x_dtype="2bit", x_stats=stats),
+             "2-bit _q": dict(X=missing, x_dtype="2bit", x_stats=stats),
+             "int8": dict(X=int8_codes(torch, words, SH25_N), x_dtype="int8",
+                          x_stats=stats),
+             "dense": dict(X=X, x_dtype="dense")}
+    worst = 0.0
+    for mode, kw in modes.items():
+        for chunk in (3, None):
+            s = bt.ShardedHorseshoeSampler(
+                kw["X"], Y, bt.HorseshoeConfig(), mesh, backend="pallas",
+                x_dtype=kw["x_dtype"], x_stats=kw.get("x_stats"),
+                transposed=True, chunk_blocks=chunk)
+            check((s.jacobi, s.B, s.nb_loc) == (1, 512, 16)
+                  and s.data.has_missing == (mode == "2-bit _q"),
+                  f"[25a] {mode} plan {(s.jacobi, s.B, s.nb_loc)}")
+            gs = torch.Generator(device=dev).manual_seed(7)
+            v = s.variates(gs)
+            st = s.init(v)
+            for _ in range(2):
+                st = s.step(st, v)
+            border, inner = v.loc.block_orders(s.nb_loc, s.B)
+            z = v.loc.z(s.Mloc)
+            n = SH25_BLOCKS
+            part = (st.eps, border[:n], inner[:n], z[:n * s.B])
+            ker = hs25_sweep(s, st, *part, ser.horseshoe_sweep)
+            ref = hs25_sweep(s, st, *part, ser.horseshoe_sweep_reference)
+            worst = max(worst, check_sweeps(
+                torch, f"[25a] {mode} chunk_blocks {chunk}", ("eps", "beta"),
+                ker, ref))
+            ser.horseshoe_sweep.launches = 0
+            full = s._sweep_serial(st, st.eps, border, inner, z)
+            torch.cuda.synchronize()
+            want = 3 * s.nb_loc
+            check(ser.horseshoe_sweep.launches == want,
+                  f"[25a] {mode} launches {ser.horseshoe_sweep.launches}")
+            check(np_finite(full[1].cpu()), f"[25a] {mode} non-finite beta")
+            log(f"[25a] sharded horseshoe {mode}, chunk_blocks "
+                f"{chunk or 128} ({-(-s.nb_loc // s._serial_chunk())} "
+                f"chunks): first {n} blocks vs plain under 10a's gates; a "
+                f"sweep {want} launches")
+            del s, st, ker, ref, full
+    return worst
+
+
+def sharded_hs_headline(torch, bt, hs, mesh, tmp):
+    """25b: biobank-horseshoe-sharded-m1, ``ShardedHorseshoeSampler`` on
+    the headline words of ``hs`` (phase 2's, not copied) on the one-rank
+    NCCL mesh: ``.run`` into a CSVSink with #10's count reset just before,
+    beside biobank-horseshoe-serial's ms/iter (phase 12); a profile of one
+    step."""
+    from bayesrrcpp_tpu_torch.io.sink import CSVSink
+    from bayesrrcpp_tpu_torch.ops import serial as ser
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sh = bt.ShardedHorseshoeSampler(
+        hs.data.XT, hs.Y[:hs.N], bt.HorseshoeConfig(emit_epsilon=False),
+        mesh, backend="pallas", x_dtype="2bit", transposed=True,
+        x_stats=bt.simulate.packed_word_stats(HEADLINE_M), has_missing=False)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    check(sh.data.XT.data_ptr() == hs.data.XT.data_ptr(), "[25b] words "
+          "copied")
+    check((sh.jacobi, sh.B, sh.Mpad, sh.nb_loc, sh._serial_chunk()) ==
+          (1, 512, HEADLINE_M, 984, 128), f"[25b] plan {(sh.B, sh.nb_loc)}")
+    g = torch.Generator(device="cuda").manual_seed(26)
+    chain = bt.ChainConfig(5, 2, 2)
+    path = os.path.join(tmp, "hs_sharded.csv")
+    st, out, wall, launches, peak = main_path(
+        torch, lambda sk: sh.run(g, chain, sink=sk),
+        CSVSink(path, "horseshoe", M=sh.M, N=sh.N, emit_epsilon=False),
+        ser.horseshoe_sweep)
+    header, widths, bad = read_csv(path)
+    n_rows = len(list(chain.emit_iterations()))
+    check(len(header) == 2 + 2 * sh.M + 2 and widths == [len(header)] *
+          n_rows and not bad, f"[25b] {path}: {len(header)} {widths} {bad}")
+    check(all(np_finite(x) for x in out.values()), "[25b] non-finite output")
+    rel = rel_err(st.eps, sh.refresh_eps(st).eps)
+    want = 3 * sh.nb_loc * chain.max_iterations
+    check(rel < 1e-4, f"[25b] tracked eps vs recompute {rel}")
+    check(launches == want, f"[25b] launches {launches} != {want}")
+    names = ("serial_dot_kernel", "serial_solve_kernel",
+             "serial_apply_kernel")
+    one = Steps(sh, st, sh.variates(g), 1)
+    split, dev_ms, wall_ms = profile_split(torch, one, names, want=sh.nb_loc)
+    check(profiled(split, sh.nb_loc), f"[25b] profiled launches {split}")
+    ms_iter = wall / chain.max_iterations * 1e3
+    log(f"[25b] biobank-horseshoe-sharded-m1 main path (setup {setup_s:.2f} "
+        f"s): {ms_iter:.2f} ms/iter ({wall:.2f} s for "
+        f"{chain.max_iterations} iterations incl. CSV), peak {peak:.2f} GiB, "
+        f"launches {launches} (want {want}), tracked-vs-exact eps {rel:.3g}; "
+        + beside("biobank-horseshoe-serial", ms_iter)
+        + "; profile of 1 step: " + ", ".join(
+            f"{n} {us:.2f} us x {c}" for n, (us, c) in split.items())
+        + f"; device {dev_ms:.2f} ms of {wall_ms:.2f} ms wall "
+        f"({1 - dev_ms / wall_ms:.1%} idle); {CARD}")
+    return launches
+
+
+def beside(cell, ms_iter):
+    """``cell``'s ms/iter from this run (``CELL_MS``) beside ``ms_iter``."""
+    twin = CELL_MS.get(cell)
+    if twin is None:
+        return f"{cell} not run in this run"
+    return f"{cell} in this run {twin:.2f} ms/iter, {ms_iter / twin:.4f}x"
+
+
+def split_round_profile(torch, s, st, v, kind):
+    """The split of one split-sweep step of ``s`` into its rounds' parts:
+    device us of the mv's (cuBLAS gemv), the round solves, the all-reduces
+    (NCCL) and every other kernel (the wrapper's and the step's small
+    ops), per round, and the step's wall ms."""
+    nr = s.nb_loc // s.split_blocks()
+    names = ("gemv", "serial_solve_kernel", "nccl")
+    split, dev_ms, wall_ms = profile_split(
+        torch, Steps(s, st, v, 1), names, want=nr,
+        counted=("serial_solve_kernel",))
+    check(profiled({"solve": split["serial_solve_kernel"]}, nr),
+          f"[25c] {kind} profiled round solves {split}")
+    parts = {n: us * c / nr for n, (us, c) in split.items()}
+    parts["other"] = dev_ms * 1e3 / nr - sum(parts.values())
+    return parts, split, dev_ms, wall_ms
+
+
+def split_cell(torch, bt, mesh, tmp):
+    """25c: dense-16kx49k through the split sweep (``split_sweep=True``) on
+    the one-rank NCCL mesh, X built on the card, both samplers: the first
+    two rounds' solves of a warm state against their plain versions
+    (``check_round_solve``), ``.run`` with the round solves' counts reset
+    just before (one launch a round), ms/iter beside the unsplit cell's
+    (phase 18), and a step's per-round split."""
+    from bayesrrcpp_tpu_torch.io.sink import CSVSink
+    from bayesrrcpp_tpu_torch.ops import jacobi as jr
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(27)
+    X = dense_x(torch, g, DENSE_N, DENSE_M)
+    Y = torch.randn(DENSE_N, generator=g, device=dev)
+    out_launches = {}
+    for kind in ("bayesr", "horseshoe"):
+        kw = dict(backend="pallas", transposed=True, split_sweep=True)
+        if kind == "bayesr":
+            s = bt.ShardedSpikeSlabSampler(
+                X, Y, CVA, bt.BayesRConfig(emit_epsilon=False), mesh, **kw)
+            solve, ref_solve = jr.bayesr_round_solve, \
+                jr.bayesr_round_solve_reference
+        else:
+            s = bt.ShardedHorseshoeSampler(
+                X, Y, bt.HorseshoeConfig(emit_epsilon=False), mesh, **kw)
+            solve, ref_solve = jr.horseshoe_round_solve, \
+                jr.horseshoe_round_solve_reference
+        J = s.split_blocks()
+        nr = s.nb_loc // J
+        check((s._split, s.B, J, nr) == (True, 512, 8, 12),
+              f"[25c] {kind} plan {(s._split, s.B, J, nr)}")
+        gs = torch.Generator(device=dev).manual_seed(8)
+        v = s.variates(gs)
+        st = s._run_steps(s.init(v), v, 2)
+        # the round solves of the first two rounds of a sweep, each round's
+        # inputs handed to the kernel and to the plain version alike
+        v.begin_step()
+        border, inner = v.loc.block_orders(s.nb_loc, s.B)
+        calls = []
+        p = v.loc.p(s.Mloc) if kind == "bayesr" else None
+        z = v.loc.z(s.Mloc)
+        by_block = torch.zeros_like(inner)
+        by_block[border.long()] = inner
+        d = s.data
+        if kind == "bayesr":
+            pkg, inner_sel = jr.build_pkg_jacobi(
+                d.xsq, d.g_assign, d.valid, p, z, st.pi, d.cva, st.sigmaE,
+                st.sigmaGG, border, by_block, B=s.B, J=J)
+        else:
+            pkg, inner_sel = jr.build_pkg_hs_jacobi(
+                d.xsq, d.valid, z, st.lam, st.tau, st.c2, st.sigmaE, border,
+                by_block, B=s.B, J=J)
+        beta = st.beta.clone()
+        labels = st.labels.clone() if kind == "bayesr" else None
+
+        def round_solve(i, r, blk, idx):
+            if kind == "bayesr":
+                a = (r, d.gram[blk], beta[idx].view(J, s.B),
+                     labels[idx].view(J, s.B), d.g_assign[idx].view(J, s.B),
+                     inner_sel[i], pkg[i], st.sigmaE)
+                kk = dict(K=s.K, G=s.G)
+            else:
+                a = (r, d.gram[blk], beta[idx].view(J, s.B), inner_sel[i],
+                     pkg[i])
+                kk = {}
+            ker, ref = solve(*a, **kk), ref_solve(*a, **kk)
+            calls.append(check_round_solve(torch, f"[25c] {kind} round {i}",
+                                           kind, ker, ref))
+            beta[idx] = ker[1].reshape(-1)
+            if kind == "bayesr":
+                labels[idx] = ker[2].reshape(-1)
+            return ker[0]
+
+        s._split_rounds(st.eps, border[:2 * J], round_solve)
+        worst = max(calls)
+        path = os.path.join(tmp, f"split_{kind}.csv")
+        chain = bt.ChainConfig(4, 2, 2)
+        reset_counts(jr.bayesr_round_solve, jr.horseshoe_round_solve)
+        st2, out, wall, launches, peak = main_path(
+            torch, lambda sk: s.run(gs, chain, sink=sk),
+            CSVSink(path, kind, M=s.M, N=s.N, emit_epsilon=False), solve)
+        header, widths, bad = read_csv(path)
+        check(widths == [len(header)] * len(list(chain.emit_iterations()))
+              and not bad, f"[25c] {path}: {widths} {bad}")
+        check(all(np_finite(x) for x in out.values()),
+              f"[25c] {kind} non-finite output")
+        rel = rel_err(st2.eps, s.refresh_eps(st2).eps)
+        want = nr * chain.max_iterations
+        check(rel < 1e-4, f"[25c] {kind} tracked eps vs recompute {rel}")
+        check(launches == want, f"[25c] {kind} round solves {launches} != "
+              f"{want}")
+        out_launches[kind] = launches
+        parts, split, dev_ms, wall_ms = split_round_profile(
+            torch, s, st2, s.variates(gs), kind)
+        ms_iter = wall / chain.max_iterations * 1e3
+        cell = "dense-16kx49k" + ("" if kind == "bayesr" else "-horseshoe")
+        log(f"[25c] {cell}-split ({kind}, J={J}, B={s.B}, nr={nr}): first 2 "
+            f"round solves vs plain max |d| {worst:.3g}; main path "
+            f"{ms_iter:.2f} ms/iter ({wall:.2f} s for {chain.max_iterations}"
+            f" iterations incl. CSV), peak {peak:.2f} GiB, round solves "
+            f"{launches} (want {want}), tracked-vs-exact eps {rel:.3g}; the "
+            f"unsplit " + beside(cell, ms_iter) + "; a round: "
+            + ", ".join(f"{k} {us:.2f} us" for k, us in parts.items())
+            + f" (device; profile " + ", ".join(
+                f"{n} {us:.2f} us x {c}" for n, (us, c) in split.items())
+            + f"), step device {dev_ms:.2f} ms of {wall_ms:.2f} ms wall, "
+            f"{wall_ms / nr:.3f} ms wall a round; {CARD}")
+        del s, st, st2, out, pkg
+    del X
+    return out_launches
+
+
+def mesh25_child(rank, port, out_path):
+    """One of the four ranks of 25d / 25e (a gloo group over CUDA tensors
+    on the one card): the (1, 2) cases on each half of the ranks, the
+    (2, 2) cases on all four, both samplers, the kernels (the split sweep)
+    and ``backend="xla"``, ``MESH25_STEPS`` steps each; then chains over
+    devices on each half: ``ChainParallelRunner`` with 4 fused chains a
+    rank beside a one-rank ``run_chains`` of the rank's streams.  Every
+    result or the error pickled to ``out_path``."""
+    import pickle
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import bayesrrcpp_tpu_torch as bt
+    from bayesrrcpp_tpu_torch.ops import jacobi as jr
+    from bayesrrcpp_tpu_torch.parallel.distributed import initialize
+
+    res = {}
+    try:
+        initialize(f"tcp://127.0.0.1:{port}", 4, rank, backend="gloo")
+        halves = [dist.new_group([0, 1]), dist.new_group([2, 3])]
+        half = halves[rank // 2]
+        g = torch.Generator(device="cuda").manual_seed(28)
+        X = dense_x(torch, g, MESH25_N, MESH25_M)
+        Y = torch.randn(MESH25_N, generator=g, device="cuda")
+        for shape, group in (((1, 2), half), ((2, 2), None)):
+            mesh = bt.make_mesh(*shape, group=group, device="cuda:0")
+            for kind in ("bayesr", "horseshoe"):
+                for backend in ("pallas", "xla"):
+                    Xc = X if backend == "pallas" else X[:MESH25_XLA_M]
+                    if kind == "bayesr":
+                        s = bt.ShardedSpikeSlabSampler(
+                            Xc, Y, CVA, bt.BayesRConfig(), mesh,
+                            backend=backend, transposed=True)
+                        solve = jr.bayesr_round_solve
+                    else:
+                        s = bt.ShardedHorseshoeSampler(
+                            Xc, Y, bt.HorseshoeConfig(), mesh,
+                            backend=backend, transposed=True)
+                        solve = jr.horseshoe_round_solve
+                    t0 = time.perf_counter()
+                    gen = torch.Generator(device="cuda").manual_seed(9)
+                    v = s.variates(gen)
+                    st = s.init(v)
+                    solve.launches = 0
+                    steps = []
+                    for _ in range(MESH25_STEPS):
+                        st = s.step(st, v)
+                        steps.append({k: getattr(st, k).cpu().numpy()
+                                      for k in ("mu", "sigmaE", "eps")})
+                    key = (shape, kind, backend)
+                    res[key, "steps"] = steps
+                    res[key, "at"] = (mesh.m_index, mesh.n_index)
+                    res[key, "rel_eps"] = rel_err(st.eps,
+                                                  s.refresh_eps(st).eps)
+                    res[key, "launches"] = solve.launches
+                    res[key, "nr"] = s.nb_loc // s.split_blocks()
+                    res[key, "s"] = time.perf_counter() - t0
+                    res[key, "M"] = s.M
+                    del s, st
+        # 25e: chains over devices, each half a chain mesh of 2
+        cmesh = bt.chain_mesh(2, group=half, device="cuda:0")
+        gw = torch.Generator(device="cuda").manual_seed(29)
+        words = bt.simulate.random_packed_words(gw, MESH25_M,
+                                                MESH25_N // 16, device="cuda")
+        stats = bt.simulate.packed_word_stats(MESH25_M)
+        Yw = torch.randn(MESH25_N, generator=gw, device="cuda")
+        for kind in ("bayesr", "horseshoe"):
+            kw = dict(transposed=True, x_dtype="2bit", x_stats=stats,
+                      device="cuda:0")
+            s = (bt.SpikeSlabSampler(words, Yw, CVA, bt.BayesRConfig(), **kw)
+                 if kind == "bayesr" else
+                 bt.HorseshoeSampler(words, Yw, bt.HorseshoeConfig(), **kw))
+            runner = bt.ChainParallelRunner(s, cmesh)
+            chain = bt.ChainConfig(4, 2, 1)
+            _, gathered = runner.run(
+                torch.Generator(device="cuda").manual_seed(30),
+                2 * CHAINS25, chain)
+            from bayesrrcpp_tpu_torch.parallel import chain_streams
+
+            _, local = s.run_chains(chain_streams(
+                torch.Generator(device="cuda").manual_seed(30), rank % 2),
+                CHAINS25, chain)
+            res["chains", kind] = (gathered, local, s.jacobi)
+            del s, runner
+        dist.barrier()
+    except Exception as e:  # noqa: BLE001 -- handed to the parent, which fails
+        res = {"error": f"rank {rank}: {e!r}\n{traceback.format_exc()}"}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    with open(out_path, "wb") as f:
+        pickle.dump(res, f)
+
+
+def mesh_phase(torch, tmp):
+    """25d / 25e: four spawned gloo ranks on the one card (NCCL takes no two
+    ranks on one device).  25d: dense N=4096 x M=8192 on (1, 2) (each half
+    of the ranks) and (2, 2) meshes, both samplers, the split sweep and
+    ``backend="xla"`` (its solve on the card, so on ``MESH25_XLA_M``
+    markers), 3 steps: the replicated scalars bitwise equal on
+    every rank of a mesh after every step, the eps n-slices on the ranks
+    of an "m" group, tracked vs recomputed eps < 1e-4, the round solves
+    one launch a round.  25e: chains over devices on each half, 4 fused
+    chains a rank: every rank's chains bitwise equal to a one-rank
+    ``run_chains`` of its streams.  A failure in a child fails the run."""
+    import multiprocessing as mp
+    import pickle
+
+    import numpy as np
+
+    port = free_port()
+    outs = [os.path.join(tmp, f"mesh25_rank{r}.pkl") for r in range(4)]
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=mesh25_child, args=(r, port, outs[r]))
+             for r in range(4)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(600)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    wall = time.perf_counter() - t0
+    ranks = []
+    for r, path in enumerate(outs):
+        check(os.path.exists(path), f"[25d] rank {r} wrote no result (exit "
+              f"code {procs[r].exitcode})")
+        with open(path, "rb") as f:
+            ranks.append(pickle.load(f))
+        check("error" not in ranks[r], ranks[r].get("error", ""))
+    log(f"[25d/25e] four ranks on one card, gloo all-reducing their CUDA "
+        f"tensors ({wall:.1f} s with start-up)")
+    for shape in ((1, 2), (2, 2)):
+        m, n = shape
+        for kind in ("bayesr", "horseshoe"):
+            for backend in ("pallas", "xla"):
+                key = (shape, kind, backend)
+                at = [r[key, "at"] for r in ranks]
+                check(at == [((i % (m * n)) // n, i % n) for i in range(4)],
+                      f"[25d] {key} ranks at {at}")
+                for i, r in enumerate(ranks):
+                    for a, b in zip(ranks[0][key, "steps"], r[key, "steps"]):
+                        for k in ("mu", "sigmaE"):
+                            check(np.array_equal(a[k], b[k]),
+                                  f"[25d] {key} rank {i}: {k} differs")
+                    # the rank of the same n index in the first "m" group
+                    for a, b in zip(ranks[i % n][key, "steps"],
+                                    r[key, "steps"]):
+                        check(np.array_equal(a["eps"], b["eps"]),
+                              f"[25d] {key} rank {i}: eps differs across "
+                              f"the m group")
+                rels = [r[key, "rel_eps"] for r in ranks]
+                check(max(rels) < 1e-4, f"[25d] {key} tracked eps {rels}")
+                nr = ranks[0][key, "nr"]
+                want = nr * MESH25_STEPS if backend == "pallas" else 0
+                got = [r[key, "launches"] for r in ranks]
+                check(got == [want] * 4, f"[25d] {key} round solves {got}")
+                log(f"[25d] {m}x{n} {kind} {backend} M={ranks[0][key, 'M']}: "
+                    f"scalars bitwise equal "
+                    f"on every rank and eps on each m group after each of "
+                    f"{MESH25_STEPS} steps, tracked vs recomputed eps "
+                    f"{max(rels):.3g}, round solves {got}; "
+                    f"{max(r[key, 's'] for r in ranks):.1f} s")
+    for kind in ("bayesr", "horseshoe"):
+        for h in (0, 2):
+            g0 = ranks[h]["chains", kind][0]
+            g1 = ranks[h + 1]["chains", kind][0]
+            for k in g0:
+                check(np.array_equal(g0[k], g1[k]),
+                      f"[25e] {kind} gathered {k} differs between ranks")
+            for i in (h, h + 1):
+                local = ranks[i]["chains", kind][1]
+                sl = slice((i % 2) * CHAINS25, (i % 2 + 1) * CHAINS25)
+                for k in local:
+                    check(np.array_equal(g0[k][:, sl], local[k]),
+                          f"[25e] {kind} rank {i} {k}: not a one-rank "
+                          f"run_chains of its streams")
+        J = ranks[0]["chains", kind][2]
+        log(f"[25e] {kind} chains over devices (J={J}): 2 x {CHAINS25} "
+            f"fused chains, every rank's bitwise a one-rank run_chains of "
+            f"its streams, the gathered (emits, {2 * CHAINS25}, M) rows "
+            f"equal on both ranks of a chain mesh")
+
+
+def split_phases(torch, bt, hs, tmp):
+    """Phase 25 (module docstring): the sharded horseshoe's chunked #10 and
+    its headline cell, the split sweep's #13 / #14 at the dense cell on a
+    real one-rank NCCL group, then the (1, 2) / (2, 2) meshes and chains
+    over devices as four gloo ranks.  Returns each site's launches from
+    its sharded main path."""
+    import torch.distributed as dist
+
+    from bayesrrcpp_tpu_torch.parallel.distributed import initialize
+
+    initialize(f"tcp://127.0.0.1:{free_port()}", 1, 0, backend="nccl")
+    try:
+        mesh = bt.make_mesh(1, 1, device="cuda:0")
+        check(mesh.group is not None, "[25] no process group")
+        worst = sharded_hs_small(torch, bt, mesh)
+        log(f"[25a] max |d| vs plain {worst:.3g}")
+        hs_launches = sharded_hs_headline(torch, bt, hs, mesh, tmp)
+        elapsed("25a-25b")
+        solves = split_cell(torch, bt, mesh, tmp)
+        elapsed("25c")
+    finally:
+        dist.destroy_process_group()
+    # the ranks share the card: hand them what this process's allocator
+    # holds cached
+    torch.cuda.empty_cache()
+    mesh_phase(torch, tmp)
+    return {"horseshoe_serial_sweep": hs_launches,
+            "bayesr_round_solve": solves["bayesr"],
+            "horseshoe_round_solve": solves["horseshoe"]}
 
 
 def np_finite(a):

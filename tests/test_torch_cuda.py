@@ -37,6 +37,9 @@ from bayesrrcpp_tpu_torch.ops.jacobi_t import (
     bayesr_jacobi_t_rounds_reference, horseshoe_jacobi_t,
     horseshoe_jacobi_t_mc, horseshoe_jacobi_t_mc_reference,
     horseshoe_jacobi_t_reference)
+# tests/ is on sys.path (pytest's prepend import mode); `tests.` may
+# name another package where the card is
+from torch_row_f64 import ROW_HS_F64_ATOL, row_hs_f64
 
 
 @pytest.fixture
@@ -793,7 +796,8 @@ def _row_args(seed, J, B, nr, N, dev, dense, hs):
     del kw["max_call_blocks"]
     kw["J"] = J
     if hs:
-        lam = torch.rand(nb * B, device=dev) * 1.9 + 0.1
+        lam = torch.as_tensor(np.random.default_rng(seed).uniform(
+            0.1, 2.0, nb * B), dtype=torch.float32, device=dev)
         return _serial_hs(args, lam, 0.05), kw
     return args, kw
 
@@ -801,7 +805,7 @@ def _row_args(seed, J, B, nr, N, dev, dense, hs):
 @pytest.mark.cuda
 @pytest.mark.parametrize("J,B,nr,N", [(8, 64, 2, 1500), (2, 16, 4, 4001),
                                       (16, 32, 2, 3000), (4, 200, 2, 2048),
-                                      (16, 512, 2, 4096)])
+                                      (16, 512, 2, 1500), (16, 512, 2, 4096)])
 @pytest.mark.parametrize("dense", [False, True])
 @pytest.mark.parametrize("hs", [False, True])
 def test_row_kernels_match_plain(cuda, hs, dense, J, B, nr, N):
@@ -811,7 +815,8 @@ def test_row_kernels_match_plain(cuda, hs, dense, J, B, nr, N):
     block, rounds of 8,192 entries (the 2-bit apply's two lists of 4,096):
     labels and v exact, eps as ``_assert_eps_close``, beta to f32
     reassociation; 3 launches a round, one of them the round solve; a second
-    sweep bitwise equal."""
+    sweep bitwise equal.  lam comes from the case's seed (more draws at
+    N=1,500: ``test_row_horseshoe_at_n1500_against_float64``)."""
     from bayesrrcpp_tpu_torch.ops import jacobi
 
     args, kw = _row_args(J + B + N, J, B, nr, N, cuda, dense, hs)
@@ -837,6 +842,47 @@ def test_row_kernels_match_plain(cuda, hs, dense, J, B, nr, N):
         assert (ker[0][N:] == 0).all()
     for a, b in zip(ker, fn(*args, **kw)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("draw", [("numpy", i) for i in range(8)]
+                         + [("torch", i) for i in range(8)])
+def test_row_horseshoe_at_n1500_against_float64(cuda, draw):
+    """The row horseshoe at (J, B, nr) = (16, 512, 2) on fold-mode words of
+    N=1,500 (8,192 markers a round, all moving, far more than N: the first
+    round overshoots and the fold cancels large terms), 16 lam draws
+    (numpy's of seeds 100-107, as tests/test_torch_jacobi_row.py draws
+    them, and the card's generator of seeds 100-107): the kernel and the
+    plain version each held elementwise to the same sweep in float64
+    (``ROW_HS_F64_ATOL``), and to each other within twice that, as the CPU
+    test holds the plain version and JAX's kernel (two f32 sides part by
+    more than ``test_row_kernels_match_plain``'s atol at this shape)."""
+    from bayesrrcpp_tpu_torch.ops import jacobi
+
+    J, B, nr, N = 16, 512, 2, 1500
+    args, kw = _row_args(J + B + N, J, B, nr, N, cuda, False, True)
+    src, i = draw
+    if src == "numpy":
+        lam = torch.as_tensor(np.random.default_rng(100 + i).uniform(
+            0.1, 2.0, J * B * nr), dtype=torch.float32, device=cuda)
+    else:
+        g = torch.Generator(device=cuda).manual_seed(100 + i)
+        lam = torch.rand(J * B * nr, generator=g, device=cuda) * 1.9 + 0.1
+    args = args[:8] + (lam,) + args[9:]
+    ker = jacobi.horseshoe_jacobi(*args, **kw)
+    ref = jacobi.horseshoe_jacobi_reference(*args, **kw)
+    exact = row_hs_f64(args, kw)
+    far = {side: {name: float((a.double() - b).abs().max())
+                  for name, a, b in zip(("eps", "beta"), out, exact)}
+           for side, out in (("kernel", ker), ("plain", ref))}
+    print(f"lam draw {draw}: max |d| from float64 {far}, kernel vs plain "
+          f"beta {float((ker[1] - ref[1]).abs().max()):.3g}")
+    for side, d in far.items():
+        for name, x in d.items():
+            assert x <= ROW_HS_F64_ATOL[name], (side, name, x)
+    for name, a, b in zip(("eps", "beta"), ker, ref):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=2 * ROW_HS_F64_ATOL[name])
 
 
 @pytest.mark.cuda
@@ -1466,3 +1512,149 @@ def test_strided_solves_with_partials_over_one_stage(cuda, storage):
 
 BAYESR_CHAIN = (3, 4, 5, 8, 9, 10, 12, 13)     # per-chain operands
 HS_CHAIN = (3, 4, 7, 8, 9, 10, 11)
+
+
+# ------------------------------------ the sharded samplers' kernel callers
+
+
+def _sharded_sampler(kind, x_dtype, dev, **kw):
+    """A one-rank sharded sampler on the card (no process group: the
+    all-reduces are the identity) at N=2048 x M=4096 of random words,
+    their int8 codes or dense standardized rows, with a warm state."""
+    import bayesrrcpp_tpu_torch as bt
+
+    g = torch.Generator(device=dev).manual_seed(61)
+    N, M = 2048, 4096
+    make = (bt.simulate.random_packed_words_missing if x_dtype == "2bit-miss"
+            else bt.simulate.random_packed_words)
+    words = make(g, M, N // 16, device=dev)
+    stats = bt.simulate.packed_word_stats(M)
+    if x_dtype == "int8":
+        X = genotypes.decode_codes(words)[:, :N].to(torch.int8)
+    elif x_dtype == "dense":
+        X = torch.randn((M, N), generator=g, device=dev)
+        X = (X - X.mean(1, keepdim=True)) / X.std(1, keepdim=True)
+    else:
+        X = words
+    kw = dict(kw, backend="pallas", transposed=True,
+              x_dtype="2bit" if x_dtype.startswith("2bit") else x_dtype,
+              x_stats=None if x_dtype == "dense" else stats)
+    mesh = bt.make_mesh(1, 1, device=dev)
+    Y = torch.randn(N, generator=g, device=dev)
+    s = (bt.ShardedSpikeSlabSampler(X, Y, [1e-4, 1e-3, 1e-2],
+                                    bt.BayesRConfig(block_size=256), mesh,
+                                    **kw)
+         if kind == "bayesr" else
+         bt.ShardedHorseshoeSampler(X, Y, bt.HorseshoeConfig(block_size=256),
+                                    mesh, **kw))
+    v = s.variates(torch.Generator(device=dev).manual_seed(62))
+    return s, v, s._run_steps(s.init(v), v, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype", ["2bit", "2bit-miss", "int8", "dense"])
+def test_sharded_horseshoe_chunks_match_plain(cuda, x_dtype):
+    """Site #10 through the sharded horseshoe's chunked call (chunks of 3
+    of the 16 blocks, an all-reduce of eps after each) in every storage
+    mode: the kernel's chunks against the plain version's on the first 5
+    blocks of a warm state's order (eps as ``_assert_eps_close``, beta to
+    f32 reassociation), 3 launches a block."""
+    from bayesrrcpp_tpu_torch.ops import serial
+
+    s, v, st = _sharded_sampler("horseshoe", x_dtype, cuda, chunk_blocks=3)
+    assert (s.jacobi, s.nb_loc, s._serial_chunk()) == (1, 16, 3)
+    assert s.data.has_missing == (x_dtype == "2bit-miss")
+    border, inner = v.loc.block_orders(s.nb_loc, s.B)
+    z = v.loc.z(s.Mloc)
+    d = s.data
+
+    def chunks(fn, n):
+        beta = st.beta
+
+        def sweep(eps, blocks, by_block, z_c):
+            return fn(d.XT, d.gram, d.xsq, eps, beta, blocks, by_block, z_c,
+                      st.lam, st.tau, st.c2, st.sigmaE, d.valid,
+                      **s._sweep_kw())
+
+        for eps, beta in s._serial_chunks(sweep, st.eps, border[:n],
+                                          inner[:n], z[:n * s.B]):
+            pass
+        return eps, beta
+
+    before = serial.horseshoe_sweep.launches
+    ker = chunks(serial.horseshoe_sweep, 5)
+    assert serial.horseshoe_sweep.launches == before + 3 * 5
+    ref = chunks(serial.horseshoe_sweep_reference, 5)
+    torch.cuda.synchronize()
+    _assert_eps_close(ker[0], ref[0])
+    torch.testing.assert_close(ker[1], ref[1], rtol=1e-4, atol=1e-5)
+    before = serial.horseshoe_sweep.launches
+    eps, beta = s._sweep_serial(st, st.eps, border, inner, z)
+    assert serial.horseshoe_sweep.launches == before + 3 * s.nb_loc
+    assert bool(torch.isfinite(eps).all()) and bool(torch.isfinite(beta).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bayesr", "horseshoe"])
+def test_split_sweep_round_solves_match_plain(cuda, kind):
+    """Sites #13 / #14 through the split sweep (``split_sweep=True`` on a
+    one-rank mesh, rounds of J=4 blocks): each of a warm state's rounds
+    solved by the kernel and by the plain version on the same r and
+    operands (labels and v exact, dlane / beta / bacc to 1e-5, as
+    ``test_round_solves_match_plain``), the sweep carried on by the
+    kernel's; a step launches one round solve a round."""
+    from bayesrrcpp_tpu_torch.ops import jacobi
+
+    s, v, st = _sharded_sampler(kind, "dense", cuda, split_sweep=True,
+                                chunk_blocks=4)
+    J = s.split_blocks()
+    nr = s.nb_loc // J
+    assert (s._split, J, nr) == (True, 4, 4)
+    border, inner = v.loc.block_orders(s.nb_loc, s.B)
+    z = v.loc.z(s.Mloc)
+    d = s.data
+    by_block = torch.zeros_like(inner)
+    by_block[border.long()] = inner
+    if kind == "bayesr":
+        p = v.loc.p(s.Mloc)
+        pkg, inner_sel = jacobi.build_pkg_jacobi(
+            d.xsq, d.g_assign, d.valid, p, z, st.pi, d.cva, st.sigmaE,
+            st.sigmaGG, border, by_block, B=s.B, J=J)
+        fns = (jacobi.bayesr_round_solve,
+               jacobi.bayesr_round_solve_reference)
+    else:
+        pkg, inner_sel = jacobi.build_pkg_hs_jacobi(
+            d.xsq, d.valid, z, st.lam, st.tau, st.c2, st.sigmaE, border,
+            by_block, B=s.B, J=J)
+        fns = (jacobi.horseshoe_round_solve,
+               jacobi.horseshoe_round_solve_reference)
+    beta = st.beta.clone()
+    labels = st.labels.clone() if kind == "bayesr" else None
+    moved = []
+
+    def solve(i, r, blk, idx):
+        if kind == "bayesr":
+            a = (r, d.gram[blk], beta[idx].view(J, s.B),
+                 labels[idx].view(J, s.B), d.g_assign[idx].view(J, s.B),
+                 inner_sel[i], pkg[i], st.sigmaE)
+            kw = dict(K=s.K, G=s.G)
+        else:
+            a = (r, d.gram[blk], beta[idx].view(J, s.B), inner_sel[i],
+                 pkg[i])
+            kw = {}
+        ker, ref = fns[0](*a, **kw), fns[1](*a, **kw)
+        if kind == "bayesr":
+            assert torch.equal(ker[2], ref[2]) and torch.equal(ker[3], ref[3])
+            labels[idx] = ker[2].reshape(-1)
+        for x, y in zip(ker[:2] + ker[4:], ref[:2] + ref[4:]):
+            torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5)
+        beta[idx] = ker[1].reshape(-1)
+        moved.append(int((ker[0] != 0).sum()))
+        return ker[0]
+
+    s._split_rounds(st.eps, border, solve)
+    assert len(moved) == nr and sum(moved) > 0
+    before = fns[0].launches
+    s.step(st, v)
+    torch.cuda.synchronize()
+    assert fns[0].launches == before + nr

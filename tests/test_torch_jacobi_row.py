@@ -30,6 +30,7 @@ from bayesrrcpp_tpu.ops import genotypes as jgen
 from bayesrrcpp_tpu.ops import pallas_jacobi as jpj
 from bayesrrcpp_tpu_torch.convert import unpermute_eps
 from bayesrrcpp_tpu_torch.ops import jacobi, serial
+from tests.torch_row_f64 import ROW_HS_F64_ATOL, row_hs_f64
 
 CVA = np.array([0.001, 0.01, 0.1])
 B = 16
@@ -275,3 +276,86 @@ def test_row_sweep_refusals():
     assert torch.equal(ref.labels, out.labels) and torch.equal(ref.v, out.v)
     torch.testing.assert_close(out.beta, ref.beta, rtol=2e-4, atol=2e-6)
     torch.testing.assert_close(out.eps, ref.eps[:N], rtol=2e-4, atol=2e-5)
+
+
+@pytest.fixture(scope="module")
+def n1500():
+    """The words, state and variates of the (16, 512, 2), N=1,500 row
+    horseshoe case (lam aside)."""
+    J, Bw, nr, N = 16, 512, 2, 1500
+    M = J * Bw * nr
+    rng = np.random.default_rng(2028)
+    dosage = rng.binomial(2, rng.uniform(0.1, 0.9, M), size=(N, M))
+    q = jgen.quantize_packed(dosage.astype(float), False, None, Bw, M, N,
+                             prepacked=False)
+    eps = np.zeros(q.Npad, np.float32)
+    eps[:N] = rng.standard_normal(N)
+    beta = np.zeros(M, np.float32)
+    hot = rng.choice(M, M // 8, replace=False)
+    beta[hot] = rng.normal(0, 0.05, hot.size)
+    border, inner = jbs.block_orders(jax.random.PRNGKey(5), J * nr, Bw)
+    return dict(
+        J=J, N=N, M=M, q=q, eps=eps, perm=np.asarray(q.n_perm),
+        XT=np.array(q.XT), gram=np.array(q.gram, np.float32),
+        xsq=np.array(q.xsq, np.float32), beta=beta, border=np.array(border),
+        inner=np.array(inner),
+        z=np.array(jax.random.normal(jax.random.PRNGKey(6), (M,),
+                                     jnp.float32)),
+        stats=[np.array(x, np.float32)
+               for x in (q.x_mean, q.x_scale, q.x_colsum)])
+
+
+@pytest.mark.parametrize("lam_seed", range(4))
+def test_row_horseshoe_at_n1500_against_jax_and_float64(n1500, lam_seed):
+    """The row-layout horseshoe at (J, B, nr) = (16, 512, 2) on fold-affine
+    words of N=1,500 individuals (M=16,384; the case tests/test_torch_cuda
+    .py runs on the card), four random lam: the plain version, JAX's
+    ``horseshoe_jacobi_pallas`` in interpret mode and the same sweep in
+    float64 (``tests/torch_row_f64.row_hs_f64``) on the same operands and
+    variates.  With 8,192 markers a round all moving and N far under M,
+    the first round overshoots (max |eps| ~ 70) and the fold's r = s
+    (C.eps) - m s sum(eps) cancels large terms, so the two f32 sides part
+    by more than this file's elementwise tolerances (up to 8.8e-6 in beta,
+    7.5e-4 in eps) while each lies as close to the float64 step as the
+    other.  So each f32 side is held elementwise to the float64 step
+    (``ROW_HS_F64_ATOL``), and the two to each other within twice that."""
+    c = n1500
+    J, N, M, q, eps, perm = (c[k] for k in ("J", "N", "M", "q", "eps",
+                                            "perm"))
+    common = dict(c, lam=np.random.default_rng(100 + lam_seed).uniform(
+        0.1, 2.0, M).astype(np.float32))
+    names = ("XT", "gram", "xsq", "beta", "border", "inner", "z", "lam")
+    scal = (np.float32(0.05), np.float32(1.5), np.float32(0.8))
+    valid = np.arange(M) < M - 3
+    stats = c["stats"]
+    t = {k: torch.as_tensor(common[k]) for k in names}
+    kw_t = dict(J=J, x_mean=torch.as_tensor(stats[0]),
+                x_scale=torch.as_tensor(stats[1]),
+                x_xsum=torch.as_tensor(stats[2]), fold_affine=True,
+                row_valid=torch.arange(q.Npad) < N)
+    args_t = (t["XT"], t["gram"], t["xsq"], torch.as_tensor(eps), t["beta"],
+              t["border"], t["inner"], t["z"], t["lam"],
+              *(torch.tensor(x) for x in scal), torch.as_tensor(valid))
+    eps_p, beta_p = jacobi.horseshoe_jacobi_reference(*args_t, **kw_t)
+    j = {k: jnp.asarray(common[k]) for k in names}
+    eps_k, beta_k = jpj.horseshoe_jacobi_pallas(
+        j["XT"], j["gram"], j["xsq"], jnp.asarray(eps[perm]), j["beta"],
+        j["border"], j["inner"], j["z"], j["lam"], *scal,
+        jnp.asarray(valid), J=J, interpret=True,
+        x_mean=jnp.asarray(stats[0]), x_scale=jnp.asarray(stats[1]),
+        x_xsum=jnp.asarray(stats[2]), fold_affine=True,
+        row_valid=jnp.asarray(q.row_valid))
+    eps_k = torch.as_tensor(unpermute_eps(np.asarray(eps_k), q.Npad))
+    beta_k = torch.as_tensor(np.asarray(beta_k))
+    eps_64, beta_64 = row_hs_f64(args_t, kw_t)
+
+    tol = ROW_HS_F64_ATOL
+    for side, (e, b) in (("plain", (eps_p, beta_p)),
+                         ("jax", (eps_k, beta_k))):
+        torch.testing.assert_close(e.double(), eps_64, rtol=0,
+                                   atol=tol["eps"], msg=side)
+        torch.testing.assert_close(b.double(), beta_64, rtol=0,
+                                   atol=tol["beta"], msg=side)
+    torch.testing.assert_close(eps_p, eps_k, rtol=0, atol=2 * tol["eps"])
+    torch.testing.assert_close(beta_p, beta_k, rtol=0, atol=2 * tol["beta"])
+    assert (eps_p[N:] == 0).all()

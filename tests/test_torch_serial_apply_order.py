@@ -24,11 +24,15 @@ x its code (code_f; Q: x = c == 3 ? 0 : (c - mean)*scale).  The new one:
   last partial) through a ring of 8 slots, stage g into slot g % 8 across
   the lists, a slot refilled only once its last stage was consumed.
 
-Both end with eps <- eps - (acc - dms_tot) (Q: eps - acc) on the lanes of
-row_valid, dms_tot = dms[0] + ... + dms[J-1] in j order, and CTA 0's
-esum <- esum - (espart[0] + ... + espart[J-1]).  fmaf is mirrored in
-float64 (an exact product) rounded to float32, the same in both
-schedules, so what the tests compare is the order of the operations.
+Both take each lane's sum a block at a time (acc_j from +0 over block j's
+moved entries) and end with eps <- eps - tot, tot = (+0 + (acc_0 -
+dms[0])) + ... + (acc_{J-1} - dms[J-1]) in j order (Q, J = 1: eps -
+acc_0) on the lanes of row_valid, and CTA 0's esum <- esum - (espart[0] +
+... + espart[J-1]).  At J = 1 that is eps - (acc - dms[0]), the bits of
+the kernel before it took its sums by block; a row round's J*B updates no
+longer pile up in one f32 sum.  fmaf is mirrored in float64 (an exact
+product) rounded to float32, the same in both schedules, so what the
+tests compare is the order of the operations.
 """
 import numpy as np
 import pytest
@@ -121,18 +125,19 @@ def round_rows(border, J, B):
 
 
 def _finish(eps, acc, dms, row_valid, q):
-    """eps - (acc - dms_tot) (Q: eps - acc) on the valid lanes, dms_tot
-    summed in j order from the first block's."""
+    """acc (C, J, lanes): each block's sum.  eps - tot, tot the blocks'
+    acc_j - dms[j] summed in j order from +0 (Q: eps - acc_0), on the
+    valid lanes."""
     out = eps.copy()
     for c in range(eps.shape[0]):
         assert not np.signbit(acc[c][acc[c] == 0]).any()   # never -0
         if q:
-            new = (eps[c] - acc[c]).astype(F32)
+            new = (eps[c] - acc[c, 0]).astype(F32)
         else:
-            dt = dms[c, 0]
-            for x in dms[c, 1:]:
-                dt = F32(dt + x)
-            new = (eps[c] - (acc[c] - dt).astype(F32)).astype(F32)
+            tot = np.zeros(eps.shape[1], F32)
+            for j in range(acc.shape[1]):
+                tot = (tot + (acc[c, j] - dms[c, j]).astype(F32)).astype(F32)
+            new = (eps[c] - tot).astype(F32)
         out[c] = np.where(row_valid, new, eps[c])
     return out
 
@@ -157,7 +162,7 @@ def apply_old(case):
     q = case["q"]
     C, JB = d.shape
     rows = round_rows(border, J, B)
-    acc = np.zeros(eps.shape, F32)
+    acc = np.zeros((C, J, eps.shape[1]), F32)
     for t0 in range(0, JB, OLD_TILE):
         tile = d[:, t0:t0 + OLD_TILE]
         for e in t0 + np.flatnonzero((tile != 0).any(0)):
@@ -166,7 +171,7 @@ def apply_old(case):
             if q:
                 x = decode_q(x, case["mean"][rows[e]], case["scale"][rows[e]])
             for c in range(C):
-                acc[c] = _fma(d[c, e], x, acc[c])
+                acc[c, e // B] = _fma(d[c, e], x, acc[c, e // B])
     return _finish(eps, acc, dms, rv, q), carry_esum(case["esum"],
                                                      case["espart"])
 
@@ -191,7 +196,7 @@ def apply_new(case, order=None):
     L = lanes(C)
     parts = 16 // L
     W = CONSUMERS // parts                          # words a CTA
-    acc = np.zeros((C, Nw, parts, L), F32)         # chain, word, sub, lane
+    acc = np.zeros((C, J, Nw, parts, L), F32)      # chain, block, word, ..
     for w0 in range(0, Nw, W):                      # a CTA
         nw = min(W, Nw - w0)
         ring = np.zeros((STAGES, ROWS, W), np.uint32)
@@ -222,10 +227,10 @@ def apply_new(case, order=None):
                             x = decode_q(x, case["mean"][rows[e]],
                                          case["scale"][rows[e]])
                         for c in range(C):
-                            acc[c, w0:w0 + nw, sub] = _fma(
-                                d[c, e], x, acc[c, w0:w0 + nw, sub])
+                            acc[c, e // B, w0:w0 + nw, sub] = _fma(
+                                d[c, e], x, acc[c, e // B, w0:w0 + nw, sub])
             g += nst
-    return (_finish(eps, acc.reshape(C, -1), dms, rv, q),
+    return (_finish(eps, acc.reshape(C, J, -1), dms, rv, q),
             carry_esum(case["esum"], case["espart"]))
 
 
@@ -351,3 +356,57 @@ def test_esum_carry_in_j_order():
     old_eps, old_esum = apply_old(case)
     new_eps, new_esum = apply_new(case)
     assert np.array_equal(_bits(old_esum), _bits(new_esum))
+
+
+def _one_sum(case):
+    """The apply before it took its sums by block: acc over the round's
+    moved entries in index order, then eps - (acc - dms_tot), dms_tot
+    summed in j order (fold mode)."""
+    words, d, eps, rv, dms, border, J, B = (
+        case[k] for k in ("words", "d", "eps", "row_valid", "dms", "border",
+                          "J", "B"))
+    rows = round_rows(border, J, B)
+    acc = np.zeros(eps.shape, F32)
+    for e in np.flatnonzero((d != 0).any(0)):
+        x = np.stack([code_f(words[rows[e]], k) for k in range(16)],
+                     1).ravel()
+        for c in range(d.shape[0]):
+            acc[c] = _fma(d[c, e], x, acc[c])
+    out = eps.copy()
+    for c in range(eps.shape[0]):
+        dt = dms[c, 0]
+        for x in dms[c, 1:]:
+            dt = F32(dt + x)
+        out[c] = np.where(rv, (eps[c] - (acc[c] - dt).astype(F32)), eps[c])
+    return out
+
+
+@pytest.mark.parametrize("C,B", [(1, 512), (8, 128)])
+def test_block_sums_at_one_block_are_the_one_sum(C, B):
+    """At J = 1 (the serial sweeps) the block sums give the bits of the
+    single sum, eps - (acc - dms[0])."""
+    case = _case(C + B, C, 1, B, 0.7)
+    assert np.array_equal(_bits(apply_new(case)[0]), _bits(_one_sum(case)))
+
+
+def test_block_sums_hold_a_row_round_closer_to_float64():
+    """A row round of J = 16 blocks of 256 every row moving, d of one sign
+    and dms the blocks' mean terms (the fold mode's cancellation, as at
+    the row horseshoe's first rounds): the block sums lie closer to the
+    same apply in float64 than one f32 sum over the 4,096 updates."""
+    rng = np.random.default_rng(16)
+    J, B, Nw = 16, 256, 4
+    case = _case(5, 1, J, B, 1.0, Nw=Nw)
+    case["d"] = rng.uniform(0.5, 1.5, (1, J * B)).astype(F32)
+    rows = round_rows(case["border"], J, B)
+    mean = rng.uniform(0.5, 1.5, J * B).astype(F32)
+    case["dms"] = (case["d"] * mean).reshape(1, J, B).sum(
+        -1, dtype=np.float64).astype(F32)
+    codes = np.stack([code_f(case["words"][rows], k) for k in range(16)],
+                     -1).reshape(J * B, -1).astype(np.float64)
+    exact = case["eps"][0] - (case["d"][0].astype(np.float64) @ codes
+                              - case["dms"][0].astype(np.float64).sum())
+    rv = case["row_valid"]
+    blocks = np.abs(apply_new(case)[0][0] - exact)[rv].max()
+    one = np.abs(_one_sum(case)[0] - exact)[rv].max()
+    assert blocks < one / 2, (blocks, one)

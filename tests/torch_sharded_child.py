@@ -1,16 +1,21 @@
-"""Helpers of tests/test_torch_sharded*.py: the JAX sharded sampler's draws
-for one m-slice, and the child process of the two-rank (2, 1) mesh runs.
+"""Helpers of tests/test_torch_sharded*.py and test_torch_chain_parallel.py:
+the JAX sharded samplers' draws for one m-slice, and the child process of
+the runs on meshes of several gloo ranks.
 
 ``JaxSliceReplay`` re-derives, from the JAX sampler's key, every draw that
 ``bayesrrcpp_tpu/parallel/sharded.py`` makes for slice ``m`` (init :480-482,
 ``_pre_marker`` :506-513, the single-chain sweep keys :546-559, the fused
 ones :860-871, ``_hypers`` :816-836), under the roles of the port's
 ``SliceVariates``, so that the port's sharded sampler steps with JAX's own
-variates.  ``child_main`` is one rank of a gloo group: it builds the port
-sampler on the case's data, carries JAX's data and init state across
-(``convert.sharded_data_from_jax`` / ``sharded_state_from_jax``), steps
-with the replay and writes its states to a file the parent compares with
-JAX's.  Not collected by pytest (no ``test_`` prefix).
+variates.  ``JaxHorseshoeSliceReplay`` does the same for
+``ShardedHorseshoeSampler`` (init :1443, the step's 9 keys :1469-1558).
+``child_main`` is one rank of a gloo group: for each case it builds the
+port sampler on the case's (m, n) mesh (the world split into groups of
+m * n consecutive ranks when it is larger), carries JAX's data and init
+state across (``convert.sharded_*_from_jax``), steps with the replay and
+writes its states to a file the parent compares with JAX's; a case of
+kind "chains" runs ``case["run"]`` instead.  Not collected by pytest (no
+``test_`` prefix).
 """
 from __future__ import annotations
 
@@ -153,6 +158,85 @@ class JaxSliceReplay:
         return self._per_group(8, alpha)
 
 
+class JaxHorseshoeSliceReplay:
+    """The JAX sharded horseshoe's draws for m-slice ``m`` from ``key``
+    (bayesrrcpp_tpu/parallel/sharded.py:1443, :1469-1558): the replicated
+    ones from the step's keys, the slice's v / lambda gammas, block orders
+    and z from keys with ``m`` folded in."""
+
+    def __init__(self, key, m: int):
+        _jax()
+        self.key = key
+        self.m = m
+
+    _t = staticmethod(JaxSliceReplay._t)
+
+    @staticmethod
+    def _gamma(k, shape):
+        import jax
+        import jax.numpy as jnp
+
+        # a python-float shape: f64 under x64, as the JAX draw's
+        return jax.random.gamma(k, jnp.asarray(shape, jnp.float64))
+
+    def init_gammas(self, eta_shape, tau_shape):
+        jax = _jax()
+        self.key, keta, ktau = jax.random.split(self.key, 3)
+        return (self._t(self._gamma(keta, eta_shape)),
+                self._t(self._gamma(ktau, tau_shape)))
+
+    def begin_step(self):
+        jax = _jax()
+        self.ks = jax.random.split(self.key, 9)
+        self.key = self.ks[0]
+        self.kb, self.ki, self.kz = jax.random.split(
+            jax.random.fold_in(self.ks[4], self.m), 3)
+        # v, then lambda
+        self.local = [jax.random.fold_in(self.ks[i], self.m) for i in (3, 5)]
+
+    def mu_noise(self):
+        jax = _jax()
+        import jax.numpy as jnp
+
+        return self._t(jax.random.normal(self.ks[1], (), jnp.float32))
+
+    def eta_gamma(self, shape):
+        return self._t(self._gamma(self.ks[2], shape))
+
+    def local_gamma(self, alpha, n):
+        import jax.numpy as jnp
+
+        from bayesrrcpp_tpu import distributions as jdist
+
+        return self._t(jdist.gamma_shape_rng(self.local.pop(0), alpha, n,
+                                             dtype=jnp.float32))
+
+    def block_orders(self, nb, B):
+        import torch
+
+        jax = _jax()
+        border = jax.random.permutation(self.kb, nb)
+        inner = jax.vmap(lambda k: jax.random.permutation(k, B))(
+            jax.random.split(self.ki, nb))
+        return (torch.as_tensor(np.array(border, np.int32)),
+                torch.as_tensor(np.array(inner, np.int32)))
+
+    def z(self, n):
+        jax = _jax()
+        import jax.numpy as jnp
+
+        return self._t(jax.random.normal(self.kz, (n,), jnp.float32))
+
+    def tau_gamma(self, shape):
+        return self._t(self._gamma(self.ks[6], shape))
+
+    def c2_gamma(self, shape):
+        return self._t(self._gamma(self.ks[7], shape))
+
+    def sigmaE_gamma(self, shape):
+        return self._t(self._gamma(self.ks[8], shape))
+
+
 def np_state(st) -> dict:
     """A port or JAX state as a dict of NumPy arrays."""
     d = st._asdict() if hasattr(st, "_asdict") else vars(st)
@@ -160,21 +244,33 @@ def np_state(st) -> dict:
 
 
 def port_sampler(case: dict, mesh, device="cpu"):
-    """The port's sampler on the case's data, then JAX's slice data carried
-    across (the sweep inputs exactly; the port's own are checked by the
-    caller against them)."""
-    from bayesrrcpp_tpu_torch import BayesRConfig
-    from bayesrrcpp_tpu_torch.convert import sharded_data_from_jax
-    from bayesrrcpp_tpu_torch.parallel import ShardedSpikeSlabSampler
+    """The port's sampler (``case["kind"]``: "bayesr", the default, or
+    "horseshoe") on the case's data, then JAX's slice data carried across
+    (the sweep inputs exactly; the port's own are checked by the caller
+    against them)."""
+    from bayesrrcpp_tpu_torch import BayesRConfig, HorseshoeConfig
+    from bayesrrcpp_tpu_torch import convert
+    from bayesrrcpp_tpu_torch.parallel import (ShardedHorseshoeSampler,
+                                               ShardedSpikeSlabSampler)
 
+    kw = dict(backend=case["backend"], x_dtype=case["x_dtype"],
+              chunk_blocks=case["chunk_blocks"],
+              split_sweep=case.get("split_sweep"))
+    at = dict(Dm=mesh.Dm, m_index=mesh.m_index, Dn=mesh.Dn,
+              n_index=mesh.n_index, device=device)
+    if case.get("kind", "bayesr") == "horseshoe":
+        s = ShardedHorseshoeSampler(
+            case["X"], case["Y"],
+            HorseshoeConfig(block_size=case["block_size"]), mesh, **kw)
+        own = s.data
+        s.data = convert.sharded_horseshoe_data_from_jax(
+            case["jax_data"], N=s.N, **at)
+        return s, own
     s = ShardedSpikeSlabSampler(
         case["X"], case["Y"], case["cva"],
-        BayesRConfig(block_size=case["block_size"]), mesh,
-        backend=case["backend"], x_dtype=case["x_dtype"],
-        chunk_blocks=case["chunk_blocks"])
+        BayesRConfig(block_size=case["block_size"]), mesh, **kw)
     own = s.data
-    s.data = sharded_data_from_jax(case["jax_data"], N=s.N, Dm=mesh.Dm,
-                                   m_index=mesh.m_index, device=device)
+    s.data = convert.sharded_data_from_jax(case["jax_data"], N=s.N, **at)
     return s, own
 
 
@@ -184,12 +280,18 @@ def replay_steps(case: dict, s, steps: int):
     returns the states as NumPy dicts."""
     import jax.numpy as jnp
 
-    from bayesrrcpp_tpu_torch.convert import sharded_state_from_jax
+    from bayesrrcpp_tpu_torch import convert
 
-    chains = case["chains"]
-    rv = JaxSliceReplay(jnp.asarray(case["key"]), s.mesh.m_index, chains)
-    s.init(rv, chains=chains)              # advances the keys as JAX's init
-    st = sharded_state_from_jax(case["jax_init"], s)
+    chains = case.get("chains")
+    key = jnp.asarray(case["key"])
+    if case.get("kind", "bayesr") == "horseshoe":
+        rv = JaxHorseshoeSliceReplay(key, s.mesh.m_index)
+        s.init(rv)                         # advances the key as JAX's init
+        st = convert.sharded_horseshoe_state_from_jax(case["jax_init"], s)
+    else:
+        rv = JaxSliceReplay(key, s.mesh.m_index, chains)
+        s.init(rv, chains=chains)          # advances the keys as JAX's init
+        st = convert.sharded_state_from_jax(case["jax_init"], s)
     out = []
     for _ in range(steps):
         st = s.step(st, rv) if chains is None else s.step_chains(st, rv)
@@ -197,33 +299,56 @@ def replay_steps(case: dict, s, steps: int):
     return out
 
 
+def _case_mesh(case, world, rank):
+    """The case's (m, n) mesh on this rank: the world itself, or one of its
+    groups of m * n consecutive ranks (every rank makes every group)."""
+    import torch.distributed as dist
+
+    from bayesrrcpp_tpu_torch.parallel import make_mesh
+
+    m, n = case.get("mesh", (world, 1))
+    size = m * n
+    if size == world:
+        return make_mesh(m, n, device="cpu")
+    mine = None
+    for g0 in range(0, world, size):
+        g = dist.new_group(list(range(g0, g0 + size)))
+        if g0 <= rank < g0 + size:
+            mine = g
+    return make_mesh(m, n, group=mine, device="cpu")
+
+
 def child_main(rank: int, world: int, port: int, case_file: str,
                out_file: str):
     """Rank ``rank`` of a gloo group of ``world``: every case of the pickled
-    list in ``case_file`` on its (world, 1) mesh, the results pickled to
-    ``out_file`` (an exception's text in their place when one is raised)."""
+    list in ``case_file`` on its mesh (``case["mesh"]``, default (world,
+    1)), the results pickled to ``out_file`` (an exception's text in their
+    place when one is raised)."""
     import torch
     import torch.distributed as dist
 
     torch.set_num_threads(2)
     _jax()
-    from bayesrrcpp_tpu_torch.parallel import make_mesh
     from bayesrrcpp_tpu_torch.parallel.distributed import initialize
 
     results = []
     try:
         initialize(f"tcp://127.0.0.1:{port}", world, rank, backend="gloo")
-        mesh = make_mesh(world, 1, device="cpu")
         with open(case_file, "rb") as f:
             cases = pickle.load(f)
         for case in cases:
+            if case.get("kind") == "chains":
+                results.append(case["run"](rank, world))
+                continue
+            mesh = _case_mesh(case, world, rank)
             s, own = port_sampler(case, mesh)
             results.append(dict(
                 states=replay_steps(case, s, case["steps"]),
                 own={k: np.array(getattr(own, k)) for k in
                      ("XT", "xsq", "gram", "x_mean", "x_scale", "x_colsum")},
                 has_missing=own.has_missing,
-                layout=(s.jacobi, s.B, s.Mpad, s.Mloc)))
+                layout=(s.jacobi, s.B, s.Mpad, s.Mloc),
+                at=(mesh.m_index, mesh.n_index)))
         dist.barrier()
     except Exception as e:  # noqa: BLE001 -- reported to the parent
         import traceback
@@ -237,9 +362,20 @@ def child_main(rank: int, world: int, port: int, case_file: str,
     os.replace(out_file + ".tmp", out_file)
 
 
-def run_ranks(cases: list, tmp_path, world: int = 2, timeout: float = 300):
-    """Every case on a (world, 1) mesh of ``world`` spawned gloo processes;
-    returns each rank's results (a list per rank, cases in order)."""
+def in_threads(fns: dict, workers: int = 4) -> dict:
+    """{name: fn()} with the calls in a pool of threads: JAX's compiles of
+    several samplers overlap (XLA compiles without the GIL)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(workers) as ex:
+        futures = {k: ex.submit(fn) for k, fn in fns.items()}
+        return {k: f.result() for k, f in futures.items()}
+
+
+def start_ranks(cases: list, tmp_path, world: int = 2):
+    """Spawn ``world`` gloo processes on every case (see ``child_main``);
+    returns the handle ``finish_ranks`` waits on, so that the caller can
+    work meanwhile."""
     import multiprocessing as mp
     import socket
 
@@ -256,6 +392,14 @@ def run_ranks(cases: list, tmp_path, world: int = 2, timeout: float = 300):
              for r in range(world)]
     for p in procs:
         p.start()
+    return procs, outs
+
+
+def finish_ranks(handle, timeout: float = 300):
+    """Each rank's results of ``start_ranks`` (a list per rank, cases in
+    order); raises on a rank's error or a rank still running after
+    ``timeout`` seconds."""
+    procs, outs = handle
     for p in procs:
         p.join(timeout)
     alive = [p for p in procs if p.is_alive()]
@@ -276,3 +420,10 @@ def run_ranks(cases: list, tmp_path, world: int = 2, timeout: float = 300):
             raise RuntimeError(res)
         results.append(res)
     return results
+
+
+def run_ranks(cases: list, tmp_path, world: int = 2, timeout: float = 300):
+    """Every case on its mesh of ``world`` spawned gloo processes (see
+    ``child_main``); returns each rank's results (a list per rank, cases in
+    order)."""
+    return finish_ranks(start_ranks(cases, tmp_path, world), timeout)
