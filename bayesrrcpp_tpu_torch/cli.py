@@ -1,12 +1,17 @@
 """Command-line interface of the port.
 
-Counterpart of the ``bayesr`` and ``horseshoe`` subcommands of
-``bayesrrcpp_tpu/cli.py``, reading PLINK .bed or NumPy inputs and writing
-the reference CSV schemas:
+Counterpart of ``bayesrrcpp_tpu/cli.py``'s ``bayesr``, ``groups``,
+``horseshoe`` and ``resume`` subcommands, reading PLINK .bed or NumPy
+inputs and writing the reference CSV schemas:
 
     python -m bayesrrcpp_tpu_torch bayesr    --bed data --pheno y.txt \\
                                              --x-dtype 2bit --out chain.csv
+    python -m bayesrrcpp_tpu_torch groups    --x X.npy --y y.npy \\
+                                             --groups-file g.txt \\
+                                             --fixed F.npy --out chain.csv
     python -m bayesrrcpp_tpu_torch horseshoe --x X.npy --y y.npy --out hs.csv
+    python -m bayesrrcpp_tpu_torch resume    --checkpoint ck.npz --x X.npy \\
+                                             --y y.npy --out more.csv
 
 With ``--x-dtype 2bit`` a .bed goes straight into packed words on the host
 (``io/bed.read_bed_packed``, padded to the planned marker count), missing
@@ -15,10 +20,14 @@ calls included, and never into a dense matrix; with ``--x-dtype int8`` a
 dosage .npy is taken as it is, both quantized to int8 codes.  The run is on ``--device``,
 the card by default; ``--backend auto`` sweeps with the kernels there, the
 default dense storage included, and with the plain sweep for dense X on the
-CPU (``--backend pallas|blocked`` chooses; ``scan`` is not ported).  Hyperparameter flags carry the reference names.  The
-``groups`` and ``resume`` subcommands and the checkpoint and .npz outputs
-are not ported yet: they raise ``NotImplementedError`` naming their ROADMAP
-entries.
+CPU (``--backend pallas|blocked`` chooses; ``scan`` is not ported).
+``--checkpoint-out`` writes the final state and the generator
+(``io/checkpoint.py``), and with ``--checkpoint-every SECONDS`` also
+during the run; ``resume --checkpoint`` continues such a chain bitwise,
+``resume --from-csv`` from a CSV's last row as BRV2Grstart does (pi, or
+the horseshoe's eta / v / c2, redrawn; the generator seeded by
+``--seed``).  Hyperparameter flags carry the reference names.  The .npz
+output raises ``NotImplementedError`` naming its ROADMAP entry.
 """
 from __future__ import annotations
 
@@ -27,12 +36,8 @@ import sys
 
 import numpy as np
 
-# the flags and subcommands outside the port, by ROADMAP entry
+# the flags outside the port, by ROADMAP entry
 _NOT_PORTED = {
-    "groups": "the groups subcommand (ROADMAP Queue 1 item 6)",
-    "resume": "the resume subcommand (ROADMAP Queue 1 item 7)",
-    "checkpoint_out": "--checkpoint-out (ROADMAP Queue 1 item 7)",
-    "checkpoint_every": "--checkpoint-every (ROADMAP Queue 1 item 7)",
     "npz_out": "--npz-out (the NpzSink, ROADMAP Queue 1 item 9)",
 }
 
@@ -44,9 +49,13 @@ def _add_common(p):
     p.add_argument("--y", help=".npy phenotype vector")
     p.add_argument("--out", required=True, help="output CSV path")
     p.add_argument("--npz-out", help="not ported: a columnar .npz")
-    p.add_argument("--checkpoint-out", help="not ported: a final checkpoint")
+    p.add_argument("--checkpoint-out",
+                   help="write the final state and generator (.npz)")
     p.add_argument("--checkpoint-every", type=float, default=0.0,
-                   metavar="SECONDS", help="not ported: periodic checkpoints")
+                   metavar="SECONDS",
+                   help="also checkpoint to --checkpoint-out during the run, "
+                        "at most every SECONDS (crash recovery; the "
+                        "reference has no mid-chain recovery at all)")
     p.add_argument("--seed", type=int, default=1)
     p.add_argument("--iterations", type=int, default=2000)
     p.add_argument("--burn-in", type=int, default=1000)
@@ -140,42 +149,179 @@ def _backend(args):
 
 
 def _check_ported(args):
-    if args.cmd in _NOT_PORTED:
-        raise NotImplementedError(f"{_NOT_PORTED[args.cmd]} is not ported "
-                                  f"to bayesrrcpp_tpu_torch yet")
-    for flag in ("checkpoint_out", "checkpoint_every", "npz_out"):
-        if getattr(args, flag):
+    for flag in _NOT_PORTED:
+        if getattr(args, flag, None):
             raise NotImplementedError(f"{_NOT_PORTED[flag]} is not ported "
                                       f"to bayesrrcpp_tpu_torch yet")
 
 
-def _run(sampler, args, schema):
+def _npz(path):
+    # np.savez appends .npz when it is missing
+    return path if path.endswith(".npz") else path + ".npz"
+
+
+def _periodic_saver(args, generator):
+    """Time-throttled mid-chain checkpoints through ``on_chunk``, each
+    written beside the target and renamed over it
+    (bayesrrcpp_tpu/cli.py:175-201)."""
+    if not (args.checkpoint_out and args.checkpoint_every > 0):
+        return None
+    import os
+    import time
+
+    from .io.checkpoint import save_checkpoint
+
+    target = _npz(args.checkpoint_out)
+    last = [time.monotonic()]
+
+    def on_chunk(state, done):
+        now = time.monotonic()
+        if now - last[0] >= args.checkpoint_every:
+            tmp = target[:-4] + ".tmp.npz"
+            save_checkpoint(tmp, state, generator)
+            os.replace(tmp, target)
+            last[0] = now
+
+    return on_chunk
+
+
+def _run(sampler, args, schema, state=None, generator=None, **sink_kw):
     """Run the chain(s) of ``args`` on ``sampler`` into the CSV(s) of
-    ``schema``; returns the final state."""
+    ``schema``, from ``state`` (default: fresh) with ``generator``
+    (default: seeded by ``--seed``); ``--chains`` > 1 runs fresh chains.
+    Writes ``--checkpoint-out``; returns the final state."""
     import torch
 
     from .config import ChainConfig
     from .io.sink import ChainFanoutSink, CSVSink
 
     chain = ChainConfig(args.iterations, args.burn_in, args.thinning)
-    g = torch.Generator(device=sampler.device).manual_seed(args.seed)
-    emit = not args.no_epsilon
-    if args.chains > 1:
-        sink = ChainFanoutSink.csv(args.out, args.chains, schema, M=sampler.M,
-                                   N=sampler.N, emit_epsilon=emit)
+    g = (generator if generator is not None else
+         torch.Generator(device=sampler.device).manual_seed(args.seed))
+    kw = dict(M=sampler.M, N=sampler.N, emit_epsilon=not args.no_epsilon,
+              **sink_kw)
+    saver = _periodic_saver(args, g)
+    if args.chains > 1 and state is None:
+        sink = ChainFanoutSink.csv(args.out, args.chains, schema, **kw)
         run = lambda: sampler.run_chains(  # noqa: E731
             g, args.chains, chain, sink=sink, collect=False,
-            progress=_progress)
+            progress=_progress, on_chunk=saver)
     else:
-        sink = CSVSink(args.out, schema, M=sampler.M, N=sampler.N,
-                       emit_epsilon=emit)
-        run = lambda: sampler.run(g, chain, sink=sink,  # noqa: E731
-                                  collect=False, progress=_progress)
+        sink = CSVSink(args.out, schema, **kw)
+        run = lambda: sampler.run(g, chain, state=state,  # noqa: E731
+                                  sink=sink, collect=False,
+                                  progress=_progress, on_chunk=saver)
     try:
         state, _ = run()
     finally:
         sink.close()
+    if args.checkpoint_out:
+        from .io.checkpoint import save_checkpoint
+
+        save_checkpoint(_npz(args.checkpoint_out), state, g)
     return state
+
+
+def _mixture_config(args, groups: bool):
+    from .config import BayesRConfig, GroupsConfig
+
+    cls = GroupsConfig if groups else BayesRConfig
+    return cls(sigma0=args.sigma0, v0E=args.v0E, s02E=args.s02E,
+               v0G=args.v0G, s02G=args.s02G, block_size=args.block_size,
+               emit_epsilon=not args.no_epsilon)
+
+
+def _horseshoe_config(args):
+    from .config import HorseshoeConfig
+
+    return HorseshoeConfig(A=args.A, v0E=args.v0E, s02E=args.s02E,
+                           vL=args.vL, vT=args.vT, c2=args.c2, vC=args.vC,
+                           sC=args.sC, block_size=args.block_size,
+                           emit_epsilon=not args.no_epsilon)
+
+
+def _cva(args, G: int = 1):
+    """The --cva row, tiled over G groups (bayesrrcpp_tpu/cli.py:339-341)."""
+    row = np.array([float(v) for v in args.cva.split(",")])
+    return np.tile(row, (G, 1)) if G > 1 else row
+
+
+def _groups(args):
+    return (np.loadtxt(args.groups_file, dtype=np.int32).reshape(-1)
+            if args.groups_file else None)
+
+
+def _resume(args, X, Y, xkw):
+    """The ``resume`` subcommand (bayesrrcpp_tpu/cli.py:369-456): from a
+    checkpoint, bitwise, or from a CSV's last row (``io/resume.py``), a
+    mixture chain (schema groups / grstart / bayesr) or a horseshoe one;
+    the resumed chain counts its iterations from 0."""
+    import torch
+
+    from .models.bayesr import SpikeSlabSampler
+    from .models.horseshoe import HorseshoeSampler
+    from .models.state import HorseshoeState
+
+    if bool(args.checkpoint) == bool(args.from_csv):
+        raise SystemExit("resume needs exactly one of --checkpoint / "
+                         "--from-csv")
+    quantized = xkw["x_dtype"] != "dense"
+    state = generator = None
+    if args.checkpoint:
+        from .io.checkpoint import load_checkpoint
+
+        state, generator = load_checkpoint(args.checkpoint,
+                                           device=args.device)
+        if state.mu.dim() != 0:
+            raise SystemExit("resume takes a one-chain checkpoint; this one "
+                             f"holds {state.mu.shape[0]} chains")
+        family = ("horseshoe" if isinstance(state, HorseshoeState)
+                  else "mixture")
+    else:
+        from .io.resume import csv_schema
+
+        family = csv_schema(args.from_csv)
+        generator = torch.Generator(device=args.device).manual_seed(
+            args.seed)
+    kw = dict(backend=_backend(args), device=args.device, **xkw)
+
+    if family == "horseshoe":
+        s = HorseshoeSampler(X, Y, _horseshoe_config(args), **kw)
+        if args.from_csv:
+            from .io.resume import horseshoe_kwargs_from_csv
+
+            state = s.init_from(generator, **horseshoe_kwargs_from_csv(
+                args.from_csv, X=None if quantized else X, Y=Y,
+                xbeta=s.xbeta))
+        _run(s, args, "horseshoe", state=state.replace(iteration=0),
+             generator=generator)
+        return
+
+    fixed = np.load(args.fixed) if args.fixed else None
+    if args.checkpoint:
+        G = state.sigmaGG.shape[-1]
+    else:
+        from .io.resume import parse_last_row
+
+        G = np.atleast_1d(parse_last_row(args.from_csv).get(
+            "sigmaG", np.array([np.nan]))).size
+    s = SpikeSlabSampler(X, Y, _cva(args, G), _mixture_config(args, True),
+                         g_assign=_groups(args), fixed=fixed,
+                         variant="groups" if G > 1 else "bayesr", **kw)
+    if args.from_csv:
+        from .io.resume import state_kwargs_from_csv
+
+        state = s.init_from(generator, **state_kwargs_from_csv(
+            args.from_csv, X=None if quantized else X, Y=Y, fixed=fixed,
+            xbeta=s.xbeta))
+    if state.alpha.shape[-1] != s.F:
+        raise SystemExit(
+            f"resumed state has {state.alpha.shape[-1]} fixed-effect "
+            f"coefficients but the sampler was built with F={s.F}; "
+            "pass the matching --fixed matrix")
+    schema = "groups" if s.F > 0 else ("grstart" if G > 1 else "bayesr")
+    _run(s, args, schema, state=state.replace(iteration=0),
+         generator=generator, groups=G, F=s.F)
 
 
 def main(argv=None):
@@ -186,47 +332,78 @@ def main(argv=None):
     _add_common(p1)
     _add_mixture(p1)
 
+    p2 = sub.add_parser("groups", help="grouped BayesRR chain + fixed effects")
+    _add_common(p2)
+    _add_mixture(p2)
+    p2.add_argument("--groups-file", required=True,
+                    help="one int group id per marker (gAssign)")
+    p2.add_argument("--fixed", help=".npy (N, F) fixed-effect covariates")
+
     p3 = sub.add_parser("horseshoe", help="regularized-horseshoe chain")
     _add_common(p3)
-    p3.add_argument("--A", type=float, default=1.0)
-    p3.add_argument("--v0E", type=float, default=0.001)
-    p3.add_argument("--s02E", type=float, default=0.001)
-    p3.add_argument("--vL", type=float, default=1.0)
-    p3.add_argument("--vT", type=float, default=1.0)
-    p3.add_argument("--c2", type=float, default=1.0)
-    p3.add_argument("--vC", type=float, default=10.0)
-    p3.add_argument("--sC", type=float, default=10.0)
+    _add_horseshoe(p3, v0=True)
 
-    for name in ("groups", "resume"):
-        sub.add_parser(name, help=f"not ported: {_NOT_PORTED[name]}")
+    p4 = sub.add_parser("resume", help="resume a chain from a checkpoint or "
+                                       "a sample CSV")
+    _add_common(p4)
+    _add_mixture(p4)
+    p4.add_argument("--checkpoint",
+                    help="checkpoint (.npz, --checkpoint-out): the exact "
+                         "resume, generator included")
+    p4.add_argument("--from-csv",
+                    help="resume from the last row of a sample CSV, as the "
+                         "reference's BRV2Grstart workflow (pi re-drawn "
+                         "from the component counts; the generator seeded "
+                         "by --seed).  Horseshoe CSVs are known by their "
+                         "tau / lambda columns (eta, v, c2 re-drawn from "
+                         "their conditionals).  Quantized --x-dtype runs "
+                         "rebuild missing epsilon columns from the "
+                         "genotypes on the device")
+    p4.add_argument("--groups-file")
+    p4.add_argument("--fixed",
+                    help=".npy (N, F) fixed-effect covariates; REQUIRED "
+                         "when the CSV or checkpoint carries alpha columns")
+    # the horseshoe's hyperparameters (used when the chain is a horseshoe)
+    _add_horseshoe(p4, v0=False)
 
-    args, extra = ap.parse_known_args(argv)
+    args = ap.parse_args(argv)
     _check_ported(args)
-    if extra:
-        ap.error(f"unrecognized arguments: {' '.join(extra)}")
 
-    from .config import BayesRConfig, HorseshoeConfig
     from .models.bayesr import SpikeSlabSampler
     from .models.horseshoe import HorseshoeSampler
 
     X, Y, xkw = _load_xy(args)
-    emit = not args.no_epsilon
+    kw = dict(backend=_backend(args), device=args.device, **xkw)
     if args.cmd == "bayesr":
-        cva = np.array([float(v) for v in args.cva.split(",")])
-        cfg = BayesRConfig(sigma0=args.sigma0, v0E=args.v0E, s02E=args.s02E,
-                           v0G=args.v0G, s02G=args.s02G,
-                           block_size=args.block_size, emit_epsilon=emit)
-        s = SpikeSlabSampler(X, Y, cva, cfg, backend=_backend(args),
-                             device=args.device, **xkw)
+        s = SpikeSlabSampler(X, Y, _cva(args), _mixture_config(args, False),
+                             **kw)
+        _run(s, args, "bayesr")
+    elif args.cmd == "groups":
+        g_assign = _groups(args)
+        G = int(g_assign.max()) + 1
+        fixed = np.load(args.fixed) if args.fixed else None
+        s = SpikeSlabSampler(X, Y, _cva(args, G),
+                             _mixture_config(args, True), g_assign=g_assign,
+                             fixed=fixed, **kw)
+        _run(s, args, "groups", groups=G, F=s.F)
+    elif args.cmd == "horseshoe":
+        s = HorseshoeSampler(X, Y, _horseshoe_config(args), **kw)
+        _run(s, args, "horseshoe")
     else:
-        cfg = HorseshoeConfig(A=args.A, v0E=args.v0E, s02E=args.s02E,
-                              vL=args.vL, vT=args.vT, c2=args.c2, vC=args.vC,
-                              sC=args.sC, block_size=args.block_size,
-                              emit_epsilon=emit)
-        s = HorseshoeSampler(X, Y, cfg, backend=_backend(args),
-                             device=args.device, **xkw)
-    _run(s, args, args.cmd)
+        _resume(args, X, Y, xkw)
     return 0
+
+
+def _add_horseshoe(p, v0: bool):
+    p.add_argument("--A", type=float, default=1.0)
+    if v0:
+        p.add_argument("--v0E", type=float, default=0.001)
+        p.add_argument("--s02E", type=float, default=0.001)
+    p.add_argument("--vL", type=float, default=1.0)
+    p.add_argument("--vT", type=float, default=1.0)
+    p.add_argument("--c2", type=float, default=1.0)
+    p.add_argument("--vC", type=float, default=10.0)
+    p.add_argument("--sC", type=float, default=10.0)
 
 
 if __name__ == "__main__":

@@ -17,6 +17,9 @@ needs no JAX.  Layout is free between the two packages, semantics are not:
 - int8 codes (XT (Mpad, N), pad markers code 3) carry across as they are,
   individuals in natural order, with their mean, scale and column sums;
   whether they hold a missing call is read off the real markers' codes;
+- the fixed-effect columns ``fixedT`` (F, Npad) and their squared norms
+  ``fsq`` carry across with ``g_assign``, un-permuted like eps for words
+  (and cut to the rank's individuals on an "n" axis);
 - beta, labels, lambda and v keep the JAX Mpad, since both packages
   choose the same plan; the PRNG key is dropped (the port's randomness
   lives in the variates object passed to each step);
@@ -166,11 +169,20 @@ def data_from_jax(data: dict, *, N: int, device) -> MarkerData:
     codes or words, and for words row_valid is rebuilt in individual
     order)."""
     geno = horseshoe_data_from_jax(data, N=N, device=device)
+    packed = np.asarray(data["XT"]).dtype == np.int32
+    lanes = geno.row_valid.numel() if packed else geno.XT.shape[1]
+    # (a data dict without fixed effects: F=0)
+    fixedT = np.asarray(data.get("fixedT", np.zeros((0, lanes))), np.float32)
+    if packed:
+        # the packed layout's individuals back in natural order
+        fixedT = unpermute_eps(fixedT, fixedT.shape[-1])
     return MarkerData(
         **geno._asdict(),
         g_assign=_t(data["g_assign"], device, torch.int32),
         cva=_t(data["cva"], device),
-        prior_pi=_t(data["prior_pi"], device))
+        prior_pi=_t(data["prior_pi"], device),
+        fixedT=_t(fixedT, device),
+        fsq=_t(data.get("fsq", np.zeros((0,))), device))
 
 
 _MARKER_FIELDS = ("XT", "xsq", "g_assign", "valid", "x_mean", "x_scale",
@@ -194,6 +206,9 @@ def _slice_data(data: dict, *, Dm: int, m_index: int, Dn: int,
     if Dn > 1:
         nloc = np.shape(data["XT"])[1] // Dn
         part["XT"] = part["XT"][:, n_index * nloc:(n_index + 1) * nloc]
+        if "fixedT" in data:
+            part["fixedT"] = np.asarray(data["fixedT"])[
+                :, n_index * nloc:(n_index + 1) * nloc]
     return part
 
 

@@ -36,14 +36,19 @@ Role (method)          draw                                JAX source
 ---------------------  ----------------------------------  -----------------
 ``begin_step()``       start of one Gibbs step             bayesr.py:511
 ``mu_noise()``         N(0, 1), the intercept              bayesr.py:519
+``fixed_order(F)``     the fixed effects' visit order      bayesr.py:529
+``fixed_z(F)``         N(0, 1) per fixed effect            bayesr.py:530
 ``orders(nb, B, J)``   strided rounds: rho (nr,), inner    bayesr.py:599
 ``block_orders(nb,B)`` blocked sweep: border (nb,), inner  bayesr.py:619
 ``p(Mpad)``            U(0, 1) per sweep position          bayesr.py:590
 ``z(Mpad)``            N(0, 1) per sweep position          bayesr.py:591
+``sigmaF_gamma(a)``    Gamma(a, 1), scalar (F > 0)         bayesr.py:556
 ``sigmaE_gamma(a)``    Gamma(a, 1), scalar                 bayesr.py:560
 ``sigmaG_gamma(a)``    Gamma(a_g, 1), (G,)                 bayesr.py:576
 ``pi_gamma(alpha)``    Gamma(alpha_gk, 1), (G, K)          bayesr.py:578
 ``init_sigmaGG(G)``    Beta(1, 1), (G,)                    bayesr.py:393
+``init_sigmaF()``      U(0, 1), scalar (F > 0)             bayesr.py:395
+``init_from_pi_gamma`` init_from's Gamma(v_gk + 1, 1)      bayesr.py:434
 
 Horseshoe (JAX source ``models/horseshoe.py``), one step in the order of
 its keys (:388-389), then the two inits:
@@ -185,11 +190,21 @@ class TorchVariates:
         return torch.randn(self.lead + (n,), generator=self.generator,
                            dtype=self.dtype, device=self.device)
 
+    def fixed_order(self, F: int):
+        """A permutation of the F fixed effects, one per chain."""
+        u = torch.rand(self.lead + (F,), generator=self.generator,
+                       device=self.device)
+        return torch.argsort(u, dim=-1)
+
+    def fixed_z(self, F: int):
+        return self.z(F)
+
     def sigmaE_gamma(self, shape: float):
         return gamma_rng(self.generator, self._full(self.lead, shape))
 
-    # the horseshoe's scalar gammas: the same draw under their roles
-    eta_gamma = tau_gamma = c2_gamma = sigmaE_gamma
+    # the horseshoe's scalar gammas and sigmaF's: the same draw under their
+    # roles
+    eta_gamma = tau_gamma = c2_gamma = sigmaF_gamma = sigmaE_gamma
 
     def sigmaG_gamma(self, shapes):
         """shapes (..., G) -> Gamma draws of the same shape."""
@@ -201,6 +216,13 @@ class TorchVariates:
     def init_sigmaGG(self, G: int):
         return beta_rng(self.generator, 1.0, 1.0, self.lead + (G,),
                         device=self.device, dtype=self.dtype)
+
+    def init_sigmaF(self):
+        return torch.rand(self.lead, generator=self.generator,
+                          dtype=self.dtype, device=self.device)
+
+    # init_from's per-group Dirichlet gammas: the pi draw's
+    init_from_pi_gamma = pi_gamma
 
     def local_gamma(self, alpha: float, n: int):
         return gamma_shape_rng(self.generator, alpha, self.lead + (n,),

@@ -42,7 +42,7 @@ def _stage(rows):
 
 def run_chain(state, chain, *, steps_fn, emit_fn, sink=None, collect=True,
               emit_chunk=32, start_iteration=0, progress=None,
-              refresh_fn=None):
+              on_chunk=None, refresh_fn=None):
     """Drive a full chain.
 
     steps_fn(state, n)           -- advance n iterations.
@@ -50,6 +50,14 @@ def run_chain(state, chain, *, steps_fn, emit_fn, sink=None, collect=True,
                                     returns (state, rows) with rows a dict
                                     of tensors stacked over the n emissions.
     progress(done, total)        -- optional callback per delivered chunk.
+    on_chunk(state, done)        -- optional callback per delivered chunk
+                                    with the newest state: that of the
+                                    newest enqueued chunk, one chunk ahead
+                                    of the rows delivered (periodic
+                                    checkpoints; the generator that drew
+                                    its steps is at the same point, since
+                                    a draw advances it when it is
+                                    enqueued).
     refresh_fn(state)            -- exact-residual recompute, applied every
                                     chain.eps_refresh_every iterations at
                                     the nearest chunk boundary.
@@ -68,7 +76,7 @@ def run_chain(state, chain, *, steps_fn, emit_fn, sink=None, collect=True,
         last_refresh = it_now
         return refresh_fn(state)
 
-    def deliver(wait, done):
+    def deliver(wait, done, state):
         rows = wait()
         if collected is not None:
             collected.append(rows)
@@ -76,6 +84,8 @@ def run_chain(state, chain, *, steps_fn, emit_fn, sink=None, collect=True,
             sink.write(rows)
         if progress is not None:
             progress(done, total)
+        if on_chunk is not None:
+            on_chunk(state, done)
 
     if not emits:
         state = steps_fn(state, chain.max_iterations - start_iteration)
@@ -92,9 +102,9 @@ def run_chain(state, chain, *, steps_fn, emit_fn, sink=None, collect=True,
             n = min(emit_chunk, total - done)
             state, rows = emit_fn(state, n, chain.thinning)
             done += n
-            deliver(*pending)
+            deliver(*pending, state)
             pending = (_stage(rows), done)
-        deliver(*pending)
+        deliver(*pending, state)
         tail = chain.max_iterations - (emits[-1] + 1)
         if tail > 0:
             state = steps_fn(state, tail)

@@ -297,7 +297,14 @@ class MarkerSampler:
 
     def xbeta(self, beta) -> torch.Tensor:
         """X @ beta, (..., N) in individual order, for a (..., Mpad) beta
-        tensor (one chain or a leading chain axis)."""
+        tensor (one chain or a leading chain axis) or an (M,) array (e.g.
+        a CSV row's, ``io/resume.py``), padded here."""
+        if not isinstance(beta, torch.Tensor):
+            beta = np.asarray(beta, np.float64).reshape(-1)
+            if beta.shape[0] != self.M:
+                raise ValueError("beta must have length M")
+            beta = torch.as_tensor(np.pad(beta, (0, self.Mpad - self.M)),
+                                   device=self.device)
         beta = beta.to(torch.float32)
         if self.x_packed or self.x_int8:
             d = self.data
@@ -306,12 +313,14 @@ class MarkerSampler:
         return beta @ self.data.XT
 
     def refresh_eps(self, state):
-        """Recompute eps = Y - mu - X beta with one fresh pass over X
-        (ChainConfig.eps_refresh_every; bounds the f32 drift of the rank-1
-        residual updates); one chain or a leading chain axis."""
+        """Recompute eps = Y - mu - X beta (- alpha F) with one fresh pass
+        over X (ChainConfig.eps_refresh_every; bounds the f32 drift of the
+        rank-1 residual updates); one chain or a leading chain axis."""
         xb = self.xbeta(state.beta)
         xb = torch.nn.functional.pad(xb, (0, self.Y.shape[-1] - xb.shape[-1]))
         eps = self.Y - xb - state.mu[..., None]
+        if getattr(self, "F", 0) > 0:
+            eps = eps - state.alpha @ self.data.fixedT
         mask = self._lane_mask()
         if mask is not None:
             eps = torch.where(mask, eps, 0.0)
@@ -397,11 +406,16 @@ class MarkerSampler:
                 else eps.new_zeros(eps.shape[:-1] + (0,)))
 
     def run(self, rng, chain: ChainConfig, *, state=None, sink=None,
-            collect: bool = True, emit_chunk: int = 32, progress=None):
+            collect: bool = True, emit_chunk: int = 32, progress=None,
+            on_chunk=None):
         """Run a chain from ``state`` (default: a fresh ``init``), emitting
         thinned post-burn-in samples to ``sink`` and, with ``collect``, as
         NumPy arrays stacked over emissions.  ``rng`` is a
         ``torch.Generator`` on the sampler's device or a variates object.
+        ``on_chunk(state, done)`` is called with the newest state after
+        each delivered chunk (``models/driver.run_chain``): a checkpoint
+        of that state with ``rng``'s state there resumes the chain bitwise
+        (``io/checkpoint.py``).
         """
         from .driver import run_chain
 
@@ -417,14 +431,15 @@ class MarkerSampler:
             emit_fn=lambda st, n, t: self._emit_chunk(st, advance, n, t),
             sink=sink, collect=collect, emit_chunk=emit_chunk,
             start_iteration=state.iteration, progress=progress,
-            refresh_fn=self.refresh_eps)
+            on_chunk=on_chunk, refresh_fn=self.refresh_eps)
 
     def run_chains(self, rng, n_chains: int, chain: ChainConfig, *,
                    fused: Optional[bool] = None, sink=None,
                    collect: bool = True, emit_chunk: int = 32,
-                   progress=None):
+                   progress=None, on_chunk=None):
         """Run ``n_chains`` independent chains from fresh inits, batched on
-        the sampler's device (bayesrrcpp_tpu/models/bayesr.py:828-864).
+        the sampler's device (bayesrrcpp_tpu/models/bayesr.py:828-864);
+        ``on_chunk`` as ``run``'s.
 
         ``fused=True`` (the default where ``supports_fused_chains``) sweeps
         all chains with one fused kernel per round (``step_chains``): the
@@ -461,4 +476,5 @@ class MarkerSampler:
             state, chain, steps_fn=advance,
             emit_fn=lambda st, n, t: self._emit_chunk(st, advance, n, t),
             sink=sink, collect=collect, emit_chunk=emit_chunk,
-            progress=progress, refresh_fn=self.refresh_eps)
+            progress=progress, on_chunk=on_chunk,
+            refresh_fn=self.refresh_eps)

@@ -29,7 +29,7 @@ class SpikeSlabState:
     sigmaE: torch.Tensor    # scalar residual variance
     sigmaGG: torch.Tensor   # (G,) genetic variances (G=1 ungrouped)
     pi: torch.Tensor        # (G, K) mixture probabilities
-    alpha: torch.Tensor     # (F,) fixed effects (F=0: not ported)
+    alpha: torch.Tensor     # (F,) fixed effects
     sigmaF: torch.Tensor    # scalar fixed-effect variance
 
     def replace(self, **changes) -> "SpikeSlabState":

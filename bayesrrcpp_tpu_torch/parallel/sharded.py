@@ -59,8 +59,12 @@ replicated: every rank holds them whole.
   slices' products (:933).  Dn > 1 takes dense X only, as JAX
   (:242-245); so does the split sweep.
 
-Groups and fixed effects raise ``NotImplementedError`` with their ROADMAP
-entry (Queue 1 item 6).
+- **Groups and fixed effects** (``variant="groups"``, ``g_assign``,
+  ``fixed``; sharded.py:309-416, :502-535, :802-838): each slice holds its
+  markers' groups, every rank the fixed-effect columns of its individuals
+  (F, Nloc); the fixed-effect sweep's dots are summed over "n", and the
+  per-group sum of slab beta^2 (``bacc``) over "m" beside the counts
+  before sigmaG is drawn per group.
 """
 from __future__ import annotations
 
@@ -71,11 +75,11 @@ import numpy as np
 import torch
 
 from .. import distributions as dist
-from ..config import BayesRConfig, ChainConfig, HorseshoeConfig
+from ..config import ChainConfig, HorseshoeConfig
 from ..distributions import TorchVariates
-from ..models.bayesr import MarkerData, _as_2d_cva, hyper_draws
+from ..models.bayesr import MarkerData, SpikeSlabSteps
 from ..models.horseshoe import HorseshoeData, HorseshoeSampler
-from ..models.sampler import MarkerSampler, not_ported
+from ..models.sampler import MarkerSampler
 from ..models.state import HorseshoeState, SpikeSlabState
 from ..ops import block_sweep as bs
 from ..ops import genotypes
@@ -145,11 +149,17 @@ class SliceVariates:
     def local_gamma(self, alpha: float, n: int):
         return self.loc.local_gamma(alpha, n)
 
+    def fixed_order(self, F: int):
+        return self.rep.fixed_order(F)
+
+    def fixed_z(self, F: int):
+        return self.rep.fixed_z(F)
+
     def sigmaE_gamma(self, shape):
         return self.rep.sigmaE_gamma(shape)
 
-    # the horseshoe's replicated scalar gammas
-    eta_gamma = tau_gamma = c2_gamma = sigmaE_gamma
+    # the horseshoe's replicated scalar gammas and sigmaF's
+    eta_gamma = tau_gamma = c2_gamma = sigmaF_gamma = sigmaE_gamma
 
     def sigmaG_gamma(self, shapes):
         return self.rep.sigmaG_gamma(shapes)
@@ -159,6 +169,9 @@ class SliceVariates:
 
     def init_sigmaGG(self, G: int):
         return self.rep.init_sigmaGG(G)
+
+    def init_sigmaF(self):
+        return self.rep.init_sigmaF()
 
     def init_gammas(self, eta_shape: float, tau_shape: float):
         return self.rep.init_gammas(eta_shape, tau_shape)
@@ -537,16 +550,17 @@ class _ShardedMarkers(MarkerSampler):
         return self.mesh.m_index == 0 and self.mesh.n_index == 0
 
     def run(self, rng, chain: ChainConfig, *, state=None, sink=None,
-            collect: bool = True, emit_chunk: int = 32, progress=None):
+            collect: bool = True, emit_chunk: int = 32, progress=None,
+            on_chunk=None):
         """``MarkerSampler.run`` on every rank together; only rank (0, 0)
         writes to ``sink`` (the others' is ignored)."""
         return super().run(rng, chain, state=state,
                            sink=sink if self._writer else None,
                            collect=collect, emit_chunk=emit_chunk,
-                           progress=progress)
+                           progress=progress, on_chunk=on_chunk)
 
 
-class ShardedSpikeSlabSampler(_ShardedMarkers):
+class ShardedSpikeSlabSampler(SpikeSlabSteps, _ShardedMarkers):
     """BayesR sampler with its markers split over the "m" axis and, for
     dense X, its individuals over the "n" axis of ``mesh``
     (``parallel.make_mesh(m, n)``): every rank constructs it with the same
@@ -581,38 +595,31 @@ class ShardedSpikeSlabSampler(_ShardedMarkers):
                  x_process_shard: bool = False,
                  n_markers: Optional[int] = None,
                  split_sweep: Optional[bool] = None):
-        if not isinstance(config, BayesRConfig) or variant not in (None,
-                                                                   "bayesr"):
-            raise not_ported("the groups variant", "Queue 1 item 6")
-        if g_assign is not None or fixed is not None:
-            raise not_ported("groups and fixed effects", "Queue 1 item 6")
         self._setup(mesh, backend, x_dtype, x_process_shard, chunk_blocks,
                     split_sweep, dtype)
-        self.config, self.variant = config, "bayesr"
-        cva2 = _as_2d_cva(cva)
-        G, Km1 = cva2.shape
-        if G != 1:
-            raise not_ported("per-group slab variances", "Queue 1 item 6")
-        if np.any(cva2 <= 0):
-            raise ValueError("slab variances must be strictly positive")
-        self.K, self.G, self.F = Km1 + 1, G, 0
         geno = self._lay_out_slice(
             X, Y, transposed, x_stats, n_individuals, n_markers, has_missing,
             config.block_size, backend == "pallas" and not self._split)
+        cva2, prior_pi, g_assign, fixed = self._mixture_setup(
+            config, variant, cva, g_assign, fixed, self.M, self.N)
         if self.x_int8 and geno["has_missing"]:
             # int8 codes with missing calls: the serial in-kernel decode
             # (JAX's use_t is False there, sharded.py:552-555)
             self.jacobi, self.jacobi_layout = 1, "row"
         dev, f32 = self.device, torch.float32
-        prior_pi = np.empty((G, self.K))
-        prior_pi[:, 0] = 0.5
-        prior_pi[:, 1:] = 0.5 * cva2 / cva2.sum(axis=1, keepdims=True)
+        # the fixed-effect columns, f32, individuals in natural order and
+        # pads 0, split over "n"; fsq of the f32 values (sharded.py:404-416)
+        fixedT = np.zeros((self.F, self.Npad), np.float32)
+        fixedT[:, :self.N] = fixed.T
         self.data = MarkerData(
             **geno, valid=self._valid(),
-            g_assign=torch.zeros((self.Mloc,), dtype=torch.int32,
-                                 device=dev),
+            g_assign=put_global(self.mesh, np.pad(g_assign,
+                                                  (0, self.Mpad - self.M))),
             cva=torch.as_tensor(cva2, dtype=f32, device=dev),
-            prior_pi=torch.as_tensor(prior_pi, dtype=f32, device=dev))
+            prior_pi=torch.as_tensor(prior_pi, dtype=f32, device=dev),
+            fixedT=put_global(self.mesh, fixedT, spec=(None, AXIS_N)),
+            fsq=torch.as_tensor((fixedT.astype(np.float64) ** 2).sum(axis=1),
+                                dtype=f32, device=dev))
 
     @property
     def supports_fused_chains(self) -> bool:
@@ -625,24 +632,8 @@ class ShardedSpikeSlabSampler(_ShardedMarkers):
         """Fresh-chain init (sharded.py:480-497): beta and labels of this
         slice zero, eps = Y (this n-slice); with ``chains=C`` a leading
         chain axis."""
-        v = self.variates(rng, chains)
-        dev, f32 = self.device, torch.float32
-        lead = () if chains is None else (chains,)
-        eps = self.Y.expand(lead + self.Y.shape).clone()
-        return SpikeSlabState(
-            iteration=0,
-            mu=torch.zeros(lead, dtype=f32, device=dev),
-            beta=torch.zeros(lead + (self.Mloc,), dtype=f32, device=dev),
-            labels=torch.zeros(lead + (self.Mloc,), dtype=torch.int32,
-                               device=dev),
-            eps=eps,
-            sigmaE=self._psum(torch.sum(eps * eps, dim=-1), AXIS_N)
-            / self.N * 0.5,
-            sigmaGG=v.init_sigmaGG(self.G).to(f32),
-            pi=self.data.prior_pi.expand(lead + self.data.prior_pi.shape
-                                         ).clone(),
-            alpha=torch.zeros(lead + (0,), dtype=f32, device=dev),
-            sigmaF=torch.ones(lead, dtype=f32, device=dev))
+        return self._init_state(self.variates(rng, chains), chains,
+                                self.Mloc)
 
     # ------------------------------------------------------------ step
 
@@ -652,6 +643,7 @@ class ShardedSpikeSlabSampler(_ShardedMarkers):
         v = self.variates(rng)
         v.begin_step()
         mu, eps = self._intercept(state, v)
+        alpha, eps = self._fixed_sweep(state, v, eps)
         Mloc, B, nb = self.Mloc, self.B, self.nb_loc
         if self.backend == "pallas" and self.strided:
             rho, inner = v.orders(nb, B, self.jacobi)
@@ -665,7 +657,7 @@ class ShardedSpikeSlabSampler(_ShardedMarkers):
                      else self._sweep_split if self._split
                      else self._sweep_serial)
             res = sweep(state, eps, border, inner, p, z)
-        return self._next(state, v, mu, *res)
+        return self._next(state, v, mu, alpha, *res)
 
     def step_chains(self, state: SpikeSlabState, rng) -> SpikeSlabState:
         """One fused iteration of every chain of a chain-batched state
@@ -681,6 +673,7 @@ class ShardedSpikeSlabSampler(_ShardedMarkers):
         v = self.variates(rng, state.beta.shape[0])
         v.begin_step()
         mu, eps = self._intercept(state, v)
+        alpha, eps = self._fixed_sweep(state, v, eps)
         Mloc, B, nb = self.Mloc, self.B, self.nb_loc
         if self.strided:
             rho, inner = v.orders(nb, B, self.jacobi)
@@ -691,7 +684,7 @@ class ShardedSpikeSlabSampler(_ShardedMarkers):
             border, inner = v.block_orders(nb, B)
             p, z = v.p(Mloc), v.z(Mloc)
             res = self._sweep_serial_mc(state, eps, border, inner, p, z)
-        return self._next(state, v, mu, *res)
+        return self._next(state, v, mu, alpha, *res)
 
     def _sweep_t(self, rounds, state, eps, rho, inner, p, z):
         """The slice's strided sweep in chunks of rounds through
@@ -808,20 +801,6 @@ class ShardedSpikeSlabSampler(_ShardedMarkers):
         eps = self._xla_blocks(eps, border, solve)
         return eps, beta, labels, v, bacc
 
-    def _next(self, state, v, mu, eps, beta, labels, counts, bacc):
-        """The hyperparameter draws after the sweep (sharded.py:802-838):
-        the counts and sum(beta^2) all-reduced over "m", sum(eps^2) over
-        "n", the draws the same on every rank."""
-        counts = self._psum(counts, AXIS_M)
-        ss_beta = self._psum(torch.sum(beta * beta, dim=-1), AXIS_M)
-        sigmaE, sigmaGG, pi = hyper_draws(
-            self.config, self.N, v,
-            self._psum(torch.sum(eps * eps, dim=-1), AXIS_N), ss_beta, counts)
-        return SpikeSlabState(
-            iteration=state.iteration + 1, mu=mu, beta=beta, labels=labels,
-            eps=eps, sigmaE=sigmaE, sigmaGG=sigmaGG, pi=pi,
-            alpha=state.alpha, sigmaF=state.sigmaF)
-
     # ------------------------------------------------------------ run
 
     def _emit_one(self, state: SpikeSlabState):
@@ -841,7 +820,7 @@ class ShardedSpikeSlabSampler(_ShardedMarkers):
     def run_chains(self, rng, n_chains: int, chain: ChainConfig, *,
                    fused: Optional[bool] = None, sink=None,
                    collect: bool = True, emit_chunk: int = 32,
-                   progress=None):
+                   progress=None, on_chunk=None):
         """``n_chains`` fused chains (sharded.py:1082-1152), the kernels'
         backend on an (m, 1) mesh only; only rank 0 writes to ``sink`` (a
         ``ChainFanoutSink``)."""
@@ -852,7 +831,7 @@ class ShardedSpikeSlabSampler(_ShardedMarkers):
         return super().run_chains(
             rng, n_chains, chain, fused=True,
             sink=sink if self._writer else None, collect=collect,
-            emit_chunk=emit_chunk, progress=progress)
+            emit_chunk=emit_chunk, progress=progress, on_chunk=on_chunk)
 
 
 class ShardedHorseshoeSampler(_ShardedMarkers, HorseshoeSampler):

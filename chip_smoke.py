@@ -253,6 +253,40 @@ Phases, each of which fails the run (non-zero exit, no result line):
    at N=4096 x M=8192, both samplers), every rank's chains bitwise a
    one-rank ``run_chains`` of its streams.
 
+26. the grouped sampler with fixed effects (``GroupsConfig``, bench.py's
+   four groups and slab variances, ``g_assign = m % 4``) and its warm
+   restart, checkpoint and resume: (a) at N=4096 x M=8192 with F=3
+   covariates, from states warmed by 2 grouped steps, each kernel of the
+   grouped paths against its plain version at G=4: #1 (2-bit fold,
+   ``miss``, dense, int8), #3 at C=8, #5 through the sharded sampler's
+   chunk on a one-rank mesh, #9 (2-bit fold at B=512 and the int8 ``_q``
+   decode, over 2 blocks), #11 at C=8, #13 through the split sweep (its
+   first 2 rounds) and #16 (J=8, B=512): labels and v equal, bacc to a
+   relative 1e-5 per group, beta and eps as phases 2a / 10a / 21a, fused
+   chain 0 bitwise the single-chain kernel; each path's 2-step run with
+   its launch count; (b) biobank-groups on phase 2's words (not copied):
+   ``SpikeSlabSampler(words, Y, cva (4, 3), GroupsConfig(), g_assign=...,
+   x_dtype="2bit", ...).run(generator, ChainConfig(10, 5, 5),
+   sink=CSVSink(..., "groups", ...))`` with #1's count reset just before
+   (the auto cell's launches a step), its ms/iter beside
+   biobank-packed-auto's (phase 4) and a profile of 2 steps, then its twin
+   with F=12 seeded covariates; the header byte-equal to the schema, every row its width,
+   finite values, tracked vs recomputed eps (the fixed term included) <
+   1e-4; (c) 8 fused grouped chains there (F=12), 3 iterations, launches
+   counted, chain 0 of a fused sweep bitwise the single-chain kernel; (d)
+   at N=4096 x M=8192 the groups variant (F=3) and the horseshoe: 6
+   iterations against 3, ``save_checkpoint``, ``load_checkpoint`` into a
+   new sampler object and 3 more, every state field and CSV value equal;
+   (e) BRV2Grstart's restart from (b)'s CSV: ``state_kwargs_from_csv``
+   (``parse_last_row``) of the full-width row, ``init_from`` on the words
+   (the API function takes dense X), eps equal to the CSV's values (the
+   sink prints each f32 as a decimal that reads back to it), each group's
+   pi summing to 1, 5 iterations into a ``grstart`` CSV, tracked vs
+   recomputed eps < 1e-4; (f) the CLI on a dense .npy of N=4096 x M=8192
+   on the card: ``groups --groups-file --fixed --checkpoint-out``, then
+   ``resume --checkpoint`` and ``resume --from-csv``, each CSV's header
+   and widths and #1's launches.
+
 Phases 8b, 9b and 13b also profile one more fused strided sweep and log
 the apply's device us a round against ``tools/kernel_bounds.apply_round``
 (the round's moved rows and, in the miss mode, their missing calls);
@@ -268,8 +302,8 @@ missing calls), the dense phases also one ``torch.addmv`` (``addmm`` for
 8 chains) computing the apply on a launch's rows, its PyTorch yardstick.
 Each such line ends with the card's nvidia-smi name and power limit.
 
-Phases 17-25 run after phase 12, on phase 2's words for 17b, 21b, 23,
-24 and 25b.
+Phases 17-26 run after phase 12, on phase 2's words for 17b, 21b, 23,
+24, 25b and 26b-26c.
 Each group of phases logs the seconds since the start.  The
 three kernel libraries build at once (one nvcc per source).  The script
 prints its total time before the last two lines.  The last
@@ -743,7 +777,7 @@ def main():
 
 
 def smoke(torch, tmp):
-    """Phases 1-25 (module docstring; 17-25 run after 12), their CSVs under
+    """Phases 1-26 (module docstring; 17-26 run after 12), their CSVs under
     ``tmp``; returns 0 or raises."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import bayesrrcpp_tpu_torch as bt
@@ -1023,6 +1057,11 @@ def smoke(torch, tmp):
     # (1, 2) / (2, 2) meshes and chains over devices
     sharded_callers = split_phases(torch, bt, hs, tmp)
     elapsed("25")
+
+    # ---- 26. the grouped sampler with fixed effects, its warm restart,
+    # checkpoint and resume
+    grouped_callers = groups_phases(torch, bt, hs, tmp, ms_iter_4)
+    elapsed("26")
     del hs
 
     # ---- 13-16. words with missing calls
@@ -1064,6 +1103,10 @@ def smoke(torch, tmp):
         if k["name"] in callers:
             k["sharded_caller"] = callers[k["name"]]
             k["sharded_launches"] = sharded_callers[k["name"]]
+        # the sites the grouped sampler (phase 26) runs at G=4
+        if k["name"] in grouped_callers:
+            k["grouped_caller"], k["grouped_launches"] = \
+                grouped_callers[k["name"]]
     log(f"[total] {time.perf_counter() - START:.1f} s since the script "
         f"started")
     print(json.dumps({"kernels": kernels}))
@@ -5165,6 +5208,504 @@ def split_phases(torch, bt, hs, tmp):
     return {"horseshoe_serial_sweep": hs_launches,
             "bayesr_round_solve": solves["bayesr"],
             "horseshoe_round_solve": solves["horseshoe"]}
+
+
+# ---------------------------------------------------------------- phase 26
+
+# biobank-groups (bench.py:262-272): 4 annotation groups with their slab
+# variances, marker m in group m % 4
+GROUPS_CVA = ((0.0001, 0.001, 0.01), (0.0002, 0.002, 0.02),
+              (0.0001, 0.001, 0.01), (0.0005, 0.005, 0.05))
+GROUPS_F = 12        # the seeded covariates of biobank-groups' F=12 twin
+SMALL_GROUPS_F = 3   # 26a / 26d / 26f's fixed effects
+
+
+def covariates(N, F, seed):
+    """(N, F) f32 fixed-effect covariates, standard normal from ``seed``."""
+    import numpy as np
+
+    return np.random.default_rng(seed).standard_normal((N, F)).astype(
+        np.float32)
+
+
+def grouped_sampler(bt, X, Y, M, N, F, cfg=None, seed=26, mesh=None, **kw):
+    """The grouped sampler (variant "groups") on X with bench.py's four
+    groups and ``F`` seeded covariates; the sharded one on ``mesh``."""
+    import numpy as np
+
+    common = dict(g_assign=np.arange(M) % 4,
+                  fixed=covariates(N, F, seed) if F else None, **kw)
+    cfg = cfg or bt.GroupsConfig()
+    if mesh is not None:
+        return bt.ShardedSpikeSlabSampler(X, Y, np.asarray(GROUPS_CVA), cfg,
+                                          mesh, **common)
+    return bt.SpikeSlabSampler(X, Y, np.asarray(GROUPS_CVA), cfg,
+                               device="cuda", **common)
+
+
+def check_bacc(torch, tag, a, b):
+    """The sweep's per-group sum of slab beta^2 against the plain
+    version's, to a relative 1e-5 in every group; returns the largest
+    relative difference."""
+    rel = float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
+    check(rel < 1e-5, f"{tag} bacc differs from plain: {rel:.3g} relative "
+          f"({a.tolist()} vs {b.tolist()})")
+    return rel
+
+
+def groups_small(torch, bt, jt):
+    """26a: every kernel of the grouped sampler's paths at G=4 against its
+    plain version at N=4096 x M=8192, F=3, from a state warmed by 2 grouped
+    steps: #1 (2-bit fold, ``miss``, dense, int8), #3 at C=8 (chain 0 also
+    bitwise the single-chain kernel), #5 through the sharded sampler's
+    chunk, #9 (2-bit fold, B=512, and the int8 ``_q`` decode, over the
+    first ``SMALL_SERIAL_BLOCKS`` blocks), #11 at C=8, #13 through the
+    split sweep (its first two rounds) and #16 (J=8, B=512); labels and v
+    equal, bacc to a relative 1e-5, beta and eps as phases 2a / 10a / 21a.
+    Each path's short run (``ChainConfig(2, 1, 1)``) with the launch counts
+    reset just before gives its grouped launches.  Returns ({JSON kernel
+    name: (caller, launches)}, worst |d| of the floats, worst bacc)."""
+    import numpy as np
+
+    from bayesrrcpp_tpu_torch.ops import jacobi as jr
+    from bayesrrcpp_tpu_torch.ops import multichain as mcs
+    from bayesrrcpp_tpu_torch.ops import serial as ser
+
+    N, M, F = 4096, 8192, SMALL_GROUPS_F
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(26)
+    words = bt.simulate.random_packed_words(g, M, N // 16, device="cuda")
+    mwords = bt.simulate.random_packed_words_missing(g, M, N // 16,
+                                                     device="cuda")
+    stats = bt.simulate.packed_word_stats(M)
+    Y = torch.randn(N, generator=g, device=dev)
+    codes = int8_codes(torch, words, N)
+    qcodes = codes.clone()
+    qcodes[torch.rand(codes.shape, generator=g, device=dev) < 2.0 ** -6] = 3
+    X = dense_x(torch, g, N, M)
+    packed = dict(transposed=True, x_dtype="2bit", x_stats=stats)
+    int8 = dict(transposed=True, x_dtype="int8", x_stats=stats)
+    big = bt.GroupsConfig(block_size=512)
+    worst, worst_bacc, callers = 0.0, 0.0, {}
+    cases = (
+        ("#1 fold", words, packed, None, "t"),
+        ("#1 miss", mwords, packed, None, "t"),
+        ("#1 dense", X, dict(transposed=True, backend="pallas"), None, "t"),
+        ("#1 int8", codes, int8, None, "t"),
+        ("#9 fold", words, dict(packed, jacobi_blocks=1), big, "serial"),
+        ("#9 int8 _q", qcodes, dict(int8, jacobi_blocks=1), big, "serial"),
+        ("#16 row", words, dict(packed, jacobi_blocks=8), big, "row"))
+    for tag, x, kw, cfg, path in cases:
+        s = grouped_sampler(bt, x, Y, M, N, F, cfg, **kw)
+        v = bt.TorchVariates(g)
+        st = s._run_steps(s.init(v), v, 2)
+        if path == "t":
+            check((s.jacobi, s.B, s.jacobi_layout) == (32, 32, "t"),
+                  f"[26a] {tag} plan {(s.jacobi, s.B, s.jacobi_layout)}")
+            args, akw = sweep_args(s, st, v)
+            fn, ref_fn = jt.bayesr_jacobi_t, jt.bayesr_jacobi_t_reference
+        elif path == "serial":
+            check((s.jacobi, s.B) == (1, 512), f"[26a] {tag} plan")
+            args, akw = serial_args(s, st, v, SMALL_SERIAL_BLOCKS)
+            fn, ref_fn = ser.bayesr_sweep, ser.bayesr_sweep_reference
+        else:
+            check((s.jacobi, s.B, s.jacobi_layout) == (8, 512, "row"),
+                  f"[26a] {tag} plan")
+            args, akw = row_args(s, st, v)
+            fn, ref_fn = jr.bayesr_jacobi, jr.bayesr_jacobi_reference
+        if tag == "#9 int8 _q":
+            check(s.data.has_missing and not akw["fold_affine"],
+                  "[26a] int8 _q mode")
+        ker, ref = tuple(fn(*args, **akw)), tuple(ref_fn(*args, **akw))
+        names = ("eps", "beta", "labels", "v", "beta_acum")
+        worst = max(worst, check_sweeps(torch, f"[26a] {tag}", names, ker,
+                                        ref))
+        worst_bacc = max(worst_bacc, check_bacc(torch, f"[26a] {tag}",
+                                                ker[4], ref[4]))
+        fn.launches = 0
+        s.run(g, bt.ChainConfig(2, 1, 1), collect=False)
+        torch.cuda.synchronize()
+        check(fn.launches > 0, f"[26a] {tag}: no launch")
+        key = {"t": "jacobi_t_sweep", "serial": "bayesr_serial_sweep",
+               "row": "bayesr_row_sweep"}[path]
+        callers.setdefault(key, ("SpikeSlabSampler, variant groups", 0))
+        callers[key] = (callers[key][0], callers[key][1] + fn.launches)
+        log(f"[26a] {tag} G=4 F={F} (J={s.jacobi}, B={s.B}): labels, v "
+            f"equal, bacc {ker[4].tolist()} (plain {ref[4].tolist()}), "
+            f"launches of 2 steps {fn.launches}")
+        # the fused chains on the strided and serial plans
+        if tag in ("#1 fold", "#9 fold"):
+            C = CHAINS
+            vc = bt.TorchVariates(g, chains=C)
+            stc = s.init(vc, chains=C)
+            for _ in range(2):
+                stc = s.step_chains(stc, vc)
+            if path == "t":
+                cargs, ckw = sweep_args(s, stc, vc)
+                mfn, mref = jt.bayesr_jacobi_t_mc, \
+                    jt.bayesr_jacobi_t_mc_reference
+                one = chain_args(cargs, 0, BAYESR_CHAIN_ARGS)
+                key, num = "jacobi_t_mc_sweep", "#3"
+            else:
+                cargs, ckw = serial_args(s, stc, vc, SMALL_SERIAL_BLOCKS)
+                mfn, mref = mcs.bayesr_sweep_mc, mcs.bayesr_sweep_mc_reference
+                one = single_chains(torch, cargs, "bayesr", 0)
+                key, num = "bayesr_mc_serial_sweep", "#11"
+            ker, ref = tuple(mfn(*cargs, **ckw)), tuple(mref(*cargs, **ckw))
+            single = tuple(fn(*one, **ckw))
+            worst = max(worst, check_sweeps(torch, f"[26a] {num} C={C}",
+                                            names, ker, ref))
+            for c in range(C):
+                worst_bacc = max(worst_bacc, check_bacc(
+                    torch, f"[26a] {num} chain {c}", ker[4][c], ref[4][c]))
+            for name, a, b in zip(names, single, ker):
+                check(torch.equal(a, b[0]), f"[26a] {num} chain 0 {name} "
+                      f"differs from the single-chain kernel")
+            mfn.launches = 0
+            s.run_chains(g, C, bt.ChainConfig(2, 1, 1), collect=False)
+            torch.cuda.synchronize()
+            check(mfn.launches > 0, f"[26a] {num}: no launch")
+            callers[key] = ("SpikeSlabSampler.run_chains, variant groups",
+                            mfn.launches)
+            log(f"[26a] {num} C={C} G=4 F={F}: labels, v equal, bacc within "
+                f"1e-5 chain by chain, chain 0 bitwise the single-chain "
+                f"kernel; launches of 2 fused steps {mfn.launches}")
+        del s, st, args, ker, ref
+    del codes, qcodes
+
+    # #5 through the sharded sampler's chunk (a one-rank mesh), #13 through
+    # the split sweep
+    mesh = bt.make_mesh(1, 1, device="cuda")
+    sh = grouped_sampler(bt, words, Y, M, N, F, mesh=mesh, backend="pallas",
+                         **packed)
+    check(sh.strided and sh._nrc(sh.nb // sh.jacobi) == sh.nb // sh.jacobi,
+          "[26a] #5 plan")
+    v = sh.variates(g)
+    st = sh._run_steps(sh.init(v), v, 2)
+    args, akw = sweep_args(sh, st, v)
+    akw["nr_total"] = sh.nb // sh.jacobi
+    ker = jt.bayesr_jacobi_t_rounds(*args, **akw)
+    ref = jt.bayesr_jacobi_t_rounds_reference(*args, **akw)
+    worst = max(worst, rounds_gates(torch, "[26a] #5", ker, ref))
+    worst_bacc = max(worst_bacc, check_bacc(torch, "[26a] #5",
+                                            ker.beta_acum, ref.beta_acum))
+    jt.bayesr_jacobi_t_rounds.launches = 0
+    sh.run(g, bt.ChainConfig(2, 1, 1), collect=False)
+    torch.cuda.synchronize()
+    callers["jacobi_t_rounds"] = ("ShardedSpikeSlabSampler, variant groups",
+                                  jt.bayesr_jacobi_t_rounds.launches)
+    log(f"[26a] #5 sharded groups: labels, v equal, bacc "
+        f"{ker.beta_acum.tolist()}; launches of 2 steps "
+        f"{jt.bayesr_jacobi_t_rounds.launches}")
+    del sh, st, args, ker, ref
+
+    sp = grouped_sampler(bt, X, Y, M, N, F, big, mesh=mesh,
+                         backend="pallas", transposed=True, split_sweep=True)
+    J = sp.split_blocks()
+    v = sp.variates(g)
+    st = sp._run_steps(sp.init(v), v, 2)
+    v.begin_step()
+    border, inner = v.loc.block_orders(sp.nb_loc, sp.B)
+    p, z = v.loc.p(sp.Mloc), v.loc.z(sp.Mloc)
+    by_block = torch.zeros_like(inner)
+    by_block[border.long()] = inner
+    d = sp.data
+    pkg, inner_sel = jr.build_pkg_jacobi(
+        d.xsq, d.g_assign, d.valid, p, z, st.pi, d.cva, st.sigmaE,
+        st.sigmaGG, border, by_block, B=sp.B, J=J)
+    beta, labels = st.beta.clone(), st.labels.clone()
+    baccs = []
+
+    def round_solve(i, r, blk, idx):
+        nonlocal worst
+        a = (r, d.gram[blk], beta[idx].view(J, sp.B),
+             labels[idx].view(J, sp.B), d.g_assign[idx].view(J, sp.B),
+             inner_sel[i], pkg[i], st.sigmaE)
+        k, rf = (jr.bayesr_round_solve(*a, K=sp.K, G=sp.G),
+                 jr.bayesr_round_solve_reference(*a, K=sp.K, G=sp.G))
+        worst = max(worst, check_round_solve(torch, f"[26a] #13 round {i}",
+                                             "bayesr", k, rf))
+        if float(rf[4].abs().max()) > 0:
+            baccs.append(check_bacc(torch, f"[26a] #13 round {i}",
+                                    k[4], rf[4]))
+        beta[idx] = k[1].reshape(-1)
+        labels[idx] = k[2].reshape(-1)
+        return k[0]
+
+    sp._split_rounds(st.eps, border[:2 * J], round_solve)
+    worst_bacc = max([worst_bacc] + baccs)
+    jr.bayesr_round_solve.launches = 0
+    sp.run(g, bt.ChainConfig(2, 1, 1), collect=False)
+    torch.cuda.synchronize()
+    callers["bayesr_round_solve"] = (
+        "ShardedSpikeSlabSampler split sweep, variant groups",
+        jr.bayesr_round_solve.launches)
+    check(jr.bayesr_round_solve.launches == 2 * sp.nb_loc // J,
+          f"[26a] #13 launches {jr.bayesr_round_solve.launches}")
+    log(f"[26a] #13 split sweep G=4 F={F} (J={J}, B={sp.B}): 2 rounds' "
+        f"solves vs plain, launches of 2 steps "
+        f"{jr.bayesr_round_solve.launches}")
+    del sp, st, X, words, mwords
+    return callers, worst, worst_bacc
+
+
+def groups_phases(torch, bt, hs, tmp, ms_iter_4):
+    """Phase 26 (module docstring): the grouped sampler with fixed effects
+    and its warm restart.  26a ``groups_small``; 26b biobank-groups and its
+    F=12 twin on the headline words of ``hs`` (phase 2's); 26c 8 fused
+    grouped chains there; 26d bitwise resume from a checkpoint; 26e the
+    restart from 26b's CSV; 26f the CLI.  Returns {JSON kernel name:
+    (grouped caller, launches)}."""
+    import numpy as np
+
+    from bayesrrcpp_tpu_torch import cli
+    from bayesrrcpp_tpu_torch.io.checkpoint import (load_checkpoint,
+                                                    save_checkpoint)
+    from bayesrrcpp_tpu_torch.io.resume import (parse_last_row,
+                                                state_kwargs_from_csv)
+    from bayesrrcpp_tpu_torch.io.sink import ChainFanoutSink, CSVSink, \
+        csv_header
+    from bayesrrcpp_tpu_torch.ops import jacobi_t as jt
+    from bayesrrcpp_tpu_torch.ops.jacobi_t import LAUNCHES_PER_ROUND
+
+    t26 = time.perf_counter()
+    callers, worst, worst_bacc = groups_small(torch, bt, jt)
+    log(f"[26a] max |d| vs plain {worst:.3g}, largest bacc relative "
+        f"difference {worst_bacc:.3g} ({time.perf_counter() - t26:.1f} s)")
+    elapsed("26a")
+
+    # ---- 26b. biobank-groups and its F=12 twin, on phase 2's words
+    dev = torch.device("cuda")
+    N, M = HEADLINE_N, HEADLINE_M
+    words, Y = hs.data.XT, hs.Y[:N]
+    packed = dict(transposed=True, x_dtype="2bit",
+                  x_stats=bt.simulate.packed_word_stats(M))
+    chain = bt.ChainConfig(10, 5, 5)
+    ms, paths = {}, {}
+    for F in (0, GROUPS_F):
+        t0 = time.perf_counter()
+        s = grouped_sampler(bt, words, Y, M, N, F, **packed)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        check(s.data.XT.data_ptr() == words.data_ptr(), "[26b] words copied")
+        check((s.variant, s.G, s.F, s.jacobi, s.B, s.jacobi_layout) ==
+              ("groups", 4, F, 128, 32, "t"), "[26b] plan")
+        nr = s.nb // s.jacobi
+        g = torch.Generator(device=dev).manual_seed(260 + F)
+        path = os.path.join(tmp, f"groups_f{F}.csv")
+        st, out, wall, launches, peak = main_path(
+            torch, lambda sk: s.run(g, chain, sink=sk),
+            CSVSink(path, "groups", M=M, N=N, groups=4, F=F),
+            jt.bayesr_jacobi_t)
+        with open(path) as f:
+            head = f.readline()
+        check(head == csv_header("groups", M, N, 4, F),
+              f"[26b] F={F} header is not the groups schema's")
+        header, widths, bad = read_csv(path)
+        check(widths == [len(header)] and not bad,
+              f"[26b] F={F} row widths {widths} of {len(header)}, bad {bad}")
+        check(all(np_finite(out[k]) for k in ("mu", "beta", "sigmaE",
+                                              "sigmaG", "alpha", "sigmaF")),
+              f"[26b] F={F} non-finite output")
+        rel = rel_err(st.eps, s.refresh_eps(st).eps)
+        want = LAUNCHES_PER_ROUND * nr * chain.max_iterations
+        check(rel < 1e-4, f"[26b] F={F} tracked eps vs recompute {rel}")
+        check(launches == want, f"[26b] F={F} launches {launches} != {want}")
+        cell = "biobank-groups" + (f"-f{F}" if F else "")
+        ms[cell] = CELL_MS[cell] = wall / chain.max_iterations * 1e3
+        paths[F] = path
+        log(f"[26b] {cell} (G=4, F={F}, sampler {setup_s:.2f} s): "
+            f"{ms[cell]:.2f} ms/iter ({wall:.2f} s for "
+            f"{chain.max_iterations} iterations incl. a {len(header)}-value "
+            f"CSV row), biobank-packed-auto {ms_iter_4:.2f} ms/iter in this "
+            f"run; peak {peak:.2f} GiB, launches {launches} (want {want}), "
+            f"tracked-vs-exact eps (fixed term included) {rel:.3g}, "
+            f"sigmaG {st.sigmaGG.tolist()}, sigmaF {float(st.sigmaF):.4g}; "
+            f"{CARD}")
+        callers["jacobi_t_sweep"] = (
+            "SpikeSlabSampler, variant groups (biobank-groups)", launches)
+        names = ("dot_kernel", "solve_kernel", "apply_kernel")
+        split, dev_ms, wall_ms = profile_split(
+            torch, Steps(s, st, bt.TorchVariates(g)), names, want=2 * nr)
+        check(profiled(split, 2 * nr), f"[26b] profiled launches {split}")
+        log(f"[26b] {cell} profile of 2 steps: " + ", ".join(
+            f"{n} {us:.2f} us x {c}" for n, (us, c) in split.items())
+            + f"; device {dev_ms:.2f} ms of {wall_ms:.2f} ms wall (idle "
+            f"{1 - dev_ms / wall_ms:.1%})")
+        if F:
+            break
+        # ---- 26e. BRV2Grstart's restart from 26b's CSV (init_from on the
+        # words: the API entry point takes dense X)
+        t0 = time.perf_counter()
+        kw = state_kwargs_from_csv(path)
+        parse_s = time.perf_counter() - t0
+        g2 = torch.Generator(device=dev).manual_seed(265)
+        st2 = s.init_from(g2, **kw)
+        eps_csv = torch.as_tensor(kw["epsilon"], dtype=torch.float32,
+                                  device=dev)
+        check(torch.equal(st2.eps[:N], eps_csv),
+              "[26e] restart eps differs from the CSV's")
+        check(float(out["epsilon"][-1][0]) == float(kw["epsilon"][0]),
+              "[26e] the CSV's eps is not the emitted row's")
+        check(bool(torch.allclose(st2.pi.sum(-1), torch.ones(4, device=dev),
+                                  rtol=1e-6)), f"[26e] pi rows {st2.pi}")
+        rpath = os.path.join(tmp, "grstart.csv")
+        st3, out, wall, launches, _ = main_path(
+            torch, lambda sk: s.run(g2, bt.ChainConfig(5, 1, 1), state=st2,
+                                    sink=sk),
+            CSVSink(rpath, "grstart", M=M, N=N, groups=4),
+            jt.bayesr_jacobi_t)
+        header, widths, bad = read_csv(rpath)
+        check(widths == [len(header)] * 4 and not bad,
+              f"[26e] grstart widths {widths}")
+        rel = rel_err(st3.eps, s.refresh_eps(st3).eps)
+        check(rel < 1e-4, f"[26e] tracked eps vs recompute {rel}")
+        log(f"[26e] restart from the {len(header)}-value grstart-width row "
+            f"(parsed in {parse_s:.2f} s): eps equal to the CSV's printed "
+            f"values (the sink prints each f32 as its shortest "
+            f"round-trip decimal), pi rows sum to 1, 5 iterations "
+            f"{wall / 5 * 1e3:.2f} ms/iter, launches {launches}, "
+            f"tracked-vs-exact eps {rel:.3g}")
+        del s, st, st2, st3, out
+    elapsed("26b, 26e")
+
+    # ---- 26c. 8 fused grouped chains, F=12, 3 iterations
+    C = CHAINS
+    g = torch.Generator(device=dev).manual_seed(266)
+    v = bt.TorchVariates(g, chains=C)
+    stc = s.init(v, chains=C)
+    jt.bayesr_jacobi_t_mc.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        stc = s.step_chains(stc, v)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = jt.bayesr_jacobi_t_mc.launches
+    want = LAUNCHES_PER_ROUND * nr * 3
+    check(launches == want, f"[26c] launches {launches} != {want}")
+    check(all(bool(torch.isfinite(x).all()) for x in
+              (stc.beta, stc.eps, stc.alpha, stc.sigmaGG)),
+          "[26c] non-finite state")
+    args, akw = sweep_args(s, stc, v)
+    ker = tuple(jt.bayesr_jacobi_t_mc(*args, **akw))
+    one = tuple(jt.bayesr_jacobi_t(*chain_args(args, 0, BAYESR_CHAIN_ARGS),
+                                   **akw))
+    for name, a, b in zip(("eps", "beta", "labels", "v", "beta_acum"), one,
+                          ker):
+        check(torch.equal(a, b[0]), f"[26c] chain 0 {name} differs from the "
+              f"single-chain kernel")
+    ms["biobank-groups-8chain-f12"] = wall / 3 * 1e3
+    callers["jacobi_t_mc_sweep"] = (
+        "SpikeSlabSampler.step_chains, variant groups (8 chains, F=12)",
+        launches)
+    log(f"[26c] 8 fused grouped chains (F={GROUPS_F}): {wall / 3 * 1e3:.2f} "
+        f"ms/iter, launches {launches} (want {want}); chain 0 bitwise the "
+        f"single-chain kernel; {CARD}")
+    del s, stc, args, ker, one
+    elapsed("26c")
+
+    # ---- 26d. bitwise resume on the card
+    Ns, Ms = 4096, 8192
+    gw = torch.Generator(device=dev).manual_seed(267)
+    swords = bt.simulate.random_packed_words(gw, Ms, Ns // 16, device="cuda")
+    sY = torch.randn(Ns, generator=gw, device=dev)
+    small = dict(transposed=True, x_dtype="2bit",
+                 x_stats=bt.simulate.packed_word_stats(Ms))
+    for kind in ("groups", "horseshoe"):
+        def make():
+            if kind == "groups":
+                return grouped_sampler(bt, swords, sY, Ms, Ns,
+                                       SMALL_GROUPS_F, **small)
+            return bt.HorseshoeSampler(swords, sY, bt.HorseshoeConfig(),
+                                       device="cuda", **small)
+
+        s = make()
+        kw = dict(groups=4, F=SMALL_GROUPS_F) if kind == "groups" else {}
+        rows = {}
+        for part, n in (("full", 6), ("a", 3)):
+            g = torch.Generator(device=dev).manual_seed(268)
+            path = os.path.join(tmp, f"resume_{kind}_{part}.csv")
+            sink = CSVSink(path, kind, M=Ms, N=Ns, **kw)
+            st, _ = s.run(g, bt.ChainConfig(n, 1, 1), sink=sink,
+                          collect=False)
+            sink.close()
+            rows[part] = open(path).read().split("\n")[1:]
+            if part == "full":
+                full = st
+            else:
+                ck = os.path.join(tmp, f"resume_{kind}.npz")
+                save_checkpoint(ck, st, g)
+        s2 = make()
+        st, g2 = load_checkpoint(ck)
+        check(st.iteration == 3 and g2.device.type == "cuda",
+              "[26d] checkpoint")
+        path = os.path.join(tmp, f"resume_{kind}_b.csv")
+        sink = CSVSink(path, kind, M=Ms, N=Ns, **kw)
+        st, _ = s2.run(g2, bt.ChainConfig(3, 1, 1),
+                       state=st.replace(iteration=0), sink=sink,
+                       collect=False)
+        sink.close()
+        rows["b"] = open(path).read().split("\n")[1:]
+        for f in full.__dataclass_fields__:
+            if f != "iteration":
+                check(torch.equal(getattr(full, f), getattr(st, f)),
+                      f"[26d] {kind}: resumed {f} differs")
+
+        def values(rs):
+            return [r.split(", ")[1:] for r in rs if r]
+
+        check(values(rows["a"] + rows["b"])
+              == values(rows["full"][:2] + rows["full"][3:]),
+              f"[26d] {kind}: resumed CSV rows differ")
+        log(f"[26d] {kind} N={Ns} M={Ms}: 3 + checkpoint + 3 iterations "
+            f"bitwise the uninterrupted 6 (every state field, every CSV "
+            f"value)")
+        del s, s2, st, full
+    elapsed("26d")
+
+    # ---- 26f. the CLI: groups, resume --checkpoint, resume --from-csv
+    t0 = time.perf_counter()
+    X = dense_x(torch, gw, Ns, Ms).T.contiguous().cpu().numpy()
+    files = {k: os.path.join(tmp, f"cli26_{k}") for k in
+             ("x.npy", "y.npy", "g.txt", "f.npy", "ck", "g.csv", "r.csv",
+              "c.csv")}
+    np.save(files["x.npy"], X)
+    np.save(files["y.npy"], sY.cpu().numpy())
+    np.savetxt(files["g.txt"], np.arange(Ms) % 4, fmt="%d")
+    np.save(files["f.npy"], covariates(Ns, SMALL_GROUPS_F, 269))
+    common = ["--x", files["x.npy"], "--y", files["y.npy"], "--iterations",
+              "4", "--burn-in", "2", "--thinning", "2", "--groups-file",
+              files["g.txt"], "--fixed", files["f.npy"], "--x-dtype",
+              "dense"]
+    widths = {}
+    for argv, out in ((["groups", "--checkpoint-out", files["ck"]], "g.csv"),
+                      (["resume", "--checkpoint", files["ck"] + ".npz"],
+                       "r.csv"),
+                      (["resume", "--from-csv", files["g.csv"]], "c.csv")):
+        jt.bayesr_jacobi_t.launches = 0
+        check(cli.main(argv + ["--out", files[out]] + common) == 0,
+              f"[26f] {argv[0]} failed")
+        torch.cuda.synchronize()
+        header, w, bad = read_csv(files[out])
+        check(header == csv_header("groups", Ms, Ns, 4,
+                                   SMALL_GROUPS_F).rstrip("\n").split(",")
+              and w == [len(header)] and not bad,
+              f"[26f] {' '.join(argv[:2])}: widths {w} of {len(header)}")
+        check(jt.bayesr_jacobi_t.launches > 0, f"[26f] {argv[0]}: no launch")
+        widths[" ".join(argv[:2])] = (len(header),
+                                      jt.bayesr_jacobi_t.launches)
+    row = parse_last_row(files["c.csv"])
+    check(row["alpha"].size == SMALL_GROUPS_F and row["sigmaG"].size == 4,
+          "[26f] the resumed CSV's alpha / sigmaG")
+    log(f"[26f] CLI groups / resume --checkpoint / resume --from-csv on "
+        f"dense N={Ns} x M={Ms} (G=4, F={SMALL_GROUPS_F}) on the card: "
+        + ", ".join(f"{k}: width {w}, #1 launches {n}"
+                    for k, (w, n) in widths.items())
+        + f" ({time.perf_counter() - t0:.1f} s)")
+    log("[26] ms/iter: " + ", ".join(f"{k} {v:.2f}" for k, v in ms.items())
+        + f"; biobank-packed-auto {ms_iter_4:.2f}; {CARD}")
+    return callers
 
 
 def np_finite(a):

@@ -28,15 +28,41 @@ def test_csv_header_matches_jax(emit_epsilon):
 
 
 def test_other_schemas_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        csv_header("groups", 3, 3)
+    """The groups and grstart schemas are ported (byte-equal to JAX's
+    headers; tests/test_torch_resume.py holds every schema); a schema the
+    reference has not raises, as JAX's."""
+    for schema in ("groups", "grstart"):
+        assert csv_header(schema, 3, 3, groups=2, F=1) == \
+            j_csv_header(schema, 3, 3, groups=2, F=1)
+    with pytest.raises(ValueError, match="schema"):
+        csv_header("nope", 3, 3)
 
 
 @pytest.mark.parametrize("name,entry", [("BayesRSamplerV2Groups", "item 6"),
                                         ("BRV2Grstart", "item 7")])
-def test_entry_points_outside_the_slice_raise(name, entry):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {entry}"):
-        getattr(api, name)("unused.csv", 1, 10, 5, 1)
+def test_entry_points_outside_the_slice_raise(name, entry, tmp_path):
+    """Queue 1 items 6 and 7 are ported: each entry point runs on the CPU
+    with JAX's positional signature and writes its schema's CSV
+    (tests/test_torch_resume.py holds the round trip to JAX)."""
+    sim = simulate.simulate_bayesr(seed=1, N=40, M=16, n_causal=2)
+    cva = np.tile(CVA, (2, 1))
+    g_assign = np.arange(16) % 2
+    out = str(tmp_path / f"{name}.csv")
+    hyper = (0.01, 0.001, 0.001, 0.001, 0.001, cva, 2, g_assign)
+    if name == "BayesRSamplerV2Groups":
+        st = api.BayesRSamplerV2Groups(out, 1, 10, 5, 1, sim.X, sim.Y,
+                                       *hyper, np.ones((40, 1)),
+                                       block_size=16, device="cpu")
+        schema, F = "groups", 1
+    else:
+        st = api.BRV2Grstart(out, 1, 10, 5, 1, 0.1, np.zeros(16), 1.0,
+                             np.ones(2), sim.X, sim.Y, np.zeros(16), *hyper,
+                             block_size=16, device="cpu")
+        schema, F = "grstart", 0
+    header, rows = _read_csv(out)
+    assert ",".join(header) + "\n" == j_csv_header(schema, 16, 40, 2, F)
+    assert len(rows) == 5 and all(len(r) == len(header) for r in rows)
+    assert st.iteration == 10 and st.sigmaGG.shape == (2,)
 
 
 def test_run_chains_raises():

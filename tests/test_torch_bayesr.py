@@ -44,8 +44,10 @@ def test_plan_matches_jax(block):
 
 class JaxReplayVariates:
     """The JAX sampler's draws, re-derived from its key exactly as
-    ``bayesrrcpp_tpu/models/bayesr.py`` draws them (init :391-394,
-    _pre_sweep :511-519, the strided step :590-599, _hyper_block :556-579).
+    ``bayesrrcpp_tpu/models/bayesr.py`` draws them (init :391-396,
+    init_from :424-435, _pre_sweep :511-530, the strided step :590-599,
+    _hyper_block :553-579), the groups variant's fixed-effect and sigmaF
+    draws included.
     """
 
     def __init__(self, key):
@@ -56,10 +58,31 @@ class JaxReplayVariates:
         return torch.as_tensor(np.array(x, np.float32))
 
     def init_sigmaGG(self, G):
-        self.key, kG, _ = jax.random.split(self.key, 3)
+        self.key, kG, self.kF = jax.random.split(self.key, 3)
         return self._t(jax.vmap(
             lambda k: jdist.beta_rng(k, 1.0, 1.0, dtype=jnp.float32))(
                 jax.random.split(kG, G)))
+
+    def init_sigmaF(self):
+        return self._t(jax.random.uniform(self.kF, (), jnp.float32))
+
+    def init_from_pi_gamma(self, alpha):
+        self.key, kpi = jax.random.split(self.key)
+        ks = jax.random.split(kpi, alpha.shape[0])
+        return self._t(jax.vmap(jax.random.gamma)(
+            ks, jnp.asarray(alpha.numpy(), jnp.float32)))
+
+    def fixed_order(self, F):
+        return torch.as_tensor(np.array(jax.random.permutation(
+            self.keys[2], F)))
+
+    def fixed_z(self, F):
+        return self._t(jax.random.normal(self.keys[3], (F,), jnp.float32))
+
+    def sigmaF_gamma(self, shape):
+        # a python-float dof: f64 under the tests' x64, as JAX's draw
+        return self._t(jax.random.gamma(self.keys[8],
+                                        jnp.asarray(shape, jnp.float64)))
 
     def begin_step(self):
         self.keys = jax.random.split(self.key, 11)
@@ -204,6 +227,25 @@ def test_configurations_outside_the_slice_raise(case):
         # ported, as row_plan
         kw = dict(backend="pallas", jacobi_blocks=2, jacobi_layout="row",
                   device="cpu")
+    if case in ("groups", "fixed"):
+        # ported (Queue 1 item 6): the bayesr variant with per-group rows or
+        # fixed effects builds as JAX's (tests/test_torch_groups.py replays
+        # the groups variant's steps) and steps
+        js = jbr.SpikeSlabSampler(dosage, Y, cva, jbr.BayesRConfig(),
+                                  x_dtype="2bit", fixed=kw.get("fixed"),
+                                  dtype=jnp.float32)
+        ts = SpikeSlabSampler(dosage, Y, cva, BayesRConfig(), **kw)
+        assert (ts.variant, ts.G, ts.F) == (js.variant, js.G, js.F)
+        np.testing.assert_allclose(ts.data.prior_pi.numpy(),
+                                   np.asarray(js.data.prior_pi), rtol=1e-7)
+        g = torch.Generator().manual_seed(0)
+        st = ts.step(ts.init(g), g)
+        assert st.sigmaGG.shape == (ts.G,) and st.alpha.shape == (ts.F,)
+        assert bool(torch.isfinite(st.eps).all())
+        rel = torch.linalg.norm(st.eps - ts.refresh_eps(st).eps) \
+            / torch.linalg.norm(st.eps)
+        assert float(rel) < 1e-5
+        return
     if case in ("row_plan", "dense_row_plan"):
         # (imported here: that module imports this one's replay variates)
         from tests.test_torch_row_samplers import assert_row_step_matches_jax

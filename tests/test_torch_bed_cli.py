@@ -9,8 +9,9 @@ the JAX package, and its command-line interface end to end, on the CPU.
 - ``python -m bayesrrcpp_tpu_torch bayesr|horseshoe --bed ... --x-dtype
   2bit --device cpu`` on a .bed with missing calls: the CSV header is the
   reference schema's and every row has its width; ``--chains 2`` writes
-  one CSV per chain; what is not ported raises ``NotImplementedError``
-  naming its ROADMAP entry.
+  one CSV per chain; ``groups``, ``resume`` and the checkpoint flags run;
+  what is not ported (``--npz-out``) raises ``NotImplementedError`` naming
+  its ROADMAP entry.
 
 Inputs are dosages made with numpy from a seed, N=1501 (the trailing
 .bed byte and the pad lanes are partly filled).
@@ -170,6 +171,41 @@ def test_cli_module_entry_point(cohort, tmp_path):
      "Queue 1 item 7"),
     (["bayesr", "--out", "o.csv", "--npz-out", "o.npz"], "Queue 1 item 9"),
 ])
-def test_cli_outside_the_port_raises(argv, entry):
-    with pytest.raises(NotImplementedError, match=entry):
-        cli.main(argv)
+def test_cli_outside_the_port_raises(argv, entry, cohort, tmp_path):
+    """What the port lacks raises ``NotImplementedError`` naming its ROADMAP
+    entry: ``--npz-out`` (item 9).  Items 6 and 7 are ported: each of their
+    calls runs on the .bed (2-bit words with missing calls) and writes its
+    CSV (``resume`` from the checkpoint of a ``bayesr`` run; ``x`` the
+    cohort); tests/test_torch_resume.py holds what they compute."""
+    if entry == "Queue 1 item 9":
+        with pytest.raises(NotImplementedError, match=entry):
+            cli.main(argv)
+        return
+    prefix, pheno = cohort
+    at = {"x": prefix, "o.csv": str(tmp_path / "o.csv"),
+          "ck.npz": str(tmp_path / "ck.npz"), "ck": str(tmp_path / "ck")}
+    argv = [at.get(a, a) for a in argv]
+    run = ["--bed", prefix, "--pheno", pheno, "--x-dtype", "2bit",
+           "--iterations", "4", "--burn-in", "2", "--thinning", "2",
+           "--device", "cpu", "--no-epsilon"]
+    if argv[0] == "groups":
+        groups = str(tmp_path / "g.txt")
+        np.savetxt(groups, np.arange(300) % 3, fmt="%d")
+        argv += ["--pheno", pheno, "--x-dtype", "2bit", "--out", at["o.csv"],
+                 "--groups-file", groups, "--iterations", "4", "--burn-in",
+                 "2", "--thinning", "2", "--device", "cpu", "--no-epsilon"]
+        schema = csv_header("groups", 300, N, groups=3, emit_epsilon=False)
+    elif argv[0] == "resume":
+        assert cli.main(["bayesr", "--out", str(tmp_path / "a.csv"),
+                         "--checkpoint-out", at["ck.npz"]] + run) == 0
+        argv += ["--out", at["o.csv"]] + run
+        schema = csv_header("bayesr", 300, N, emit_epsilon=False)
+    else:
+        argv += run
+        schema = csv_header(argv[0], 300, N, emit_epsilon=False)
+    assert cli.main(argv) == 0
+    header, rows = _read_csv(at["o.csv"])
+    assert header == schema and len(rows) == 1
+    assert len(rows[0].split(", ")) == len(header.split(","))
+    if "--checkpoint-out" in argv:
+        assert os.path.exists(at["ck"] + ".npz")

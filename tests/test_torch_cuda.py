@@ -21,7 +21,9 @@ multiple of 4; the chunked forms of the strided BayesR sweeps (sites
 kernels one chain and fused, the serial and row sweeps' fold mode, the
 serial in-kernel decode) on int8 codes at N=4096 and N=4001; and the
 strided solves at 0 to ~100 % moving steps and with more partial rows a
-block than one stage holds.
+block than one stage holds; and the grouped sampler's sweeps (G=4, F=3)
+on each of its paths, the sweep a step passes them held against its
+plain version, bacc per group to a relative 1e-5.
 Tolerances: labels and v exact, floats to f32 reassociation (the kernel
 sums the dot in another order).
 """
@@ -1658,3 +1660,98 @@ def test_split_sweep_round_solves_match_plain(cuda, kind):
     s.step(st, v)
     torch.cuda.synchronize()
     assert fns[0].launches == before + nr
+
+
+# ------------------------------------------------------------ groups
+
+GROUP_PATHS = {
+    # name: (storage, plan keywords, fused)
+    "t-fold": ("2bit", dict(jacobi_blocks=8, jacobi_layout="t",
+                            block_size=32), False),
+    "t-miss": ("2bit-miss", dict(jacobi_blocks=8, jacobi_layout="t",
+                                 block_size=32), False),
+    "t-dense": ("dense", dict(jacobi_blocks=8, jacobi_layout="t",
+                              block_size=32, backend="pallas"), False),
+    "t-int8": ("int8", dict(jacobi_blocks=8, jacobi_layout="t",
+                            block_size=32), False),
+    "t-fused": ("2bit", dict(jacobi_blocks=8, jacobi_layout="t",
+                             block_size=32), True),
+    "serial-fold": ("2bit", dict(jacobi_blocks=1, block_size=64), False),
+    "serial-q": ("int8-miss", dict(jacobi_blocks=1, block_size=64), False),
+    "serial-fused": ("2bit", dict(jacobi_blocks=1, block_size=64), True),
+    "row": ("2bit", dict(jacobi_blocks=4, block_size=64), False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", list(GROUP_PATHS))
+def test_grouped_sampler_kernels_match_plain(cuda, path, monkeypatch):
+    """The grouped sampler (G=4 groups, ``g_assign = m % 4``, F=3 fixed
+    effects) at N=1500 x M=2048 on each of its paths: after 2 steps, the
+    next step's sweep (its operands recorded as the step passes them,
+    eps after the fixed-effect sweep) against the plain version on the
+    same operands: labels and v equal, bacc per group to a relative 1e-5,
+    beta to rtol 1e-4 / atol 1e-5, eps to 1e-4 of its norm; a fused
+    sweep's chain 0 bitwise the single-chain kernel (strided)."""
+    import sys
+
+    from bayesrrcpp_tpu_torch import (GroupsConfig, SpikeSlabSampler,
+                                      TorchVariates)
+    from bayesrrcpp_tpu_torch.models import bayesr as tbayesr
+
+    storage, plan, fused = GROUP_PATHS[path]
+    N, M = 1500, 2048
+    rng = np.random.default_rng(17)
+    dosage = rng.binomial(2, rng.uniform(0.1, 0.9, M), size=(N, M)).astype(
+        float)
+    X = (dosage - dosage.mean(0)) / dosage.std(0, ddof=1)
+    Y = X @ np.where(rng.random(M) < 0.02, rng.normal(0, 0.3, M), 0.0) \
+        + rng.normal(0, 0.8, N)
+    if storage.endswith("miss"):
+        dosage[rng.random(dosage.shape) < 0.02] = np.nan
+    kw = dict(plan)
+    bs = kw.pop("block_size")
+    if storage != "dense":
+        kw["x_dtype"] = "int8" if storage.startswith("int8") else "2bit"
+    cva = np.array([[1e-4, 1e-3, 1e-2], [2e-4, 2e-3, 2e-2],
+                    [1e-4, 1e-3, 1e-2], [5e-4, 5e-3, 5e-2]])
+    s = SpikeSlabSampler(X if storage == "dense" else dosage, Y, cva,
+                         GroupsConfig(block_size=bs),
+                         g_assign=np.arange(M) % 4,
+                         fixed=rng.normal(size=(N, 3)), device=cuda, **kw)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    v = TorchVariates(g, chains=3 if fused else None)
+    st = s.init(v, chains=3 if fused else None)
+    step = s.step_chains if fused else s.step
+    for _ in range(2):
+        st = step(st, v)
+    calls = []
+
+    def wrap(fn):
+        def recorded(*a, **k):
+            calls.append((fn, a, k))
+            return fn(*a, **k)
+        return recorded
+
+    for name in ("bayesr_jacobi_t", "bayesr_jacobi_t_mc", "bayesr_sweep",
+                 "bayesr_sweep_mc", "bayesr_jacobi"):
+        monkeypatch.setattr(tbayesr, name, wrap(getattr(tbayesr, name)))
+    step(st, v)
+    (fn, a, k), = calls
+    ref_fn = getattr(sys.modules[fn.__module__], fn.__name__ + "_reference")
+    ker, ref = fn(*a, **k), ref_fn(*a, **k)
+    torch.cuda.synchronize()
+    assert torch.equal(ker.labels, ref.labels)
+    assert torch.equal(ker.v, ref.v)
+    assert bool((ker.labels > 0).any())
+    rel = (ker.beta_acum - ref.beta_acum).abs() / ref.beta_acum.abs()
+    assert float(rel.max()) < 1e-5, (ker.beta_acum, ref.beta_acum)
+    torch.testing.assert_close(ker.beta, ref.beta, rtol=1e-4, atol=1e-5)
+    d = torch.linalg.norm(ker.eps - ref.eps) / torch.linalg.norm(ref.eps)
+    assert float(d) < 1e-4
+    if fused and s.strided:
+        one = bayesr_jacobi_t(*[x[0] if i in (3, 4, 5, 8, 9, 10, 12, 13)
+                                else x for i, x in enumerate(a)], **k)
+        for name in ("eps", "beta", "labels", "v", "beta_acum"):
+            assert torch.equal(getattr(one, name), getattr(ker, name)[0]), \
+                name

@@ -229,10 +229,21 @@ def test_configurations_outside_the_slice_raise(case):
     if case == "split":
         # the split sweep takes dense X only (sharded.py:242-245)
         kw["split_sweep"], err = True, ValueError
-    elif case == "groups":
-        cva = np.tile(CVA, (2, 1))
-    elif case == "fixed":
-        kw["fixed"] = np.ones((N, 1))
+    elif case in ("groups", "fixed"):
+        # ported (Queue 1 item 6; tests/test_torch_groups_sharded.py holds
+        # them to JAX): the bayesr variant with per-group rows or a fixed
+        # effect builds and steps on one slice
+        if case == "groups":
+            cva = np.tile(CVA, (2, 1))
+        else:
+            kw["fixed"] = np.random.default_rng(0).normal(size=(N, 1))
+        s = ShardedSpikeSlabSampler(X, Y, cva, BayesRConfig(block_size=32),
+                                    mesh(), **kw)
+        g = torch.Generator().manual_seed(0)
+        st = s.step(s.init(g), g)
+        assert (st.sigmaGG.shape, st.alpha.shape) == ((s.G,), (s.F,))
+        assert bool(torch.isfinite(st.eps).all())
+        return
     elif case == "packed_xla":
         kw["backend"], err = "xla", ValueError
     with pytest.raises(err):

@@ -22,7 +22,8 @@ atol 2e-6, eps rtol 2e-4 / atol 2e-5, scalars rtol 1e-4; the horseshoe's
 auxiliaries rtol 2e-4); the replicated scalars are bitwise equal on every
 rank, and the eps n-slices on the ranks of an "m" group.  Also what the
 port refuses, as JAX does: quantized X on Dn > 1 and with the split
-sweep, ``step_chains`` on Dn > 1, and groups ("Queue 1 item 6").
+sweep, and ``step_chains`` on Dn > 1; groups now build and step
+(tests/test_torch_groups_sharded.py holds them to JAX).
 """
 import jax
 import jax.numpy as jnp
@@ -177,7 +178,7 @@ def test_split_sweep_on_one_rank_matches_jax(kind):
 def test_refusals(case):
     """What JAX refuses, the port refuses: quantized X on Dn > 1 or with
     the split sweep (sharded.py:242-245), fused chains on Dn > 1 (an
-    (m, 1) mesh only, :1074-1080); groups stay Queue 1 item 6.  A mesh
+    (m, 1) mesh only, :1074-1080); groups (ported) build and step.  A mesh
     of Dn = 2 is described here without its ranks: the refusals come
     before any collective."""
     X, Y = _data()
@@ -207,11 +208,20 @@ def test_refusals(case):
         with pytest.raises(ValueError, match=r"\(m, 1\) mesh"):
             s.run_chains(torch.Generator(), 2, ChainConfig(4, 2, 1))
     else:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            ShardedSpikeSlabSampler(X, Y, np.tile(CVA, (2, 1)), cfg, one)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            ShardedSpikeSlabSampler(X, Y, CVA, cfg, one,
-                                    fixed=np.ones((N, 1)))
+        # groups are ported (Queue 1 item 6; tests/test_torch_groups_sharded
+        # .py holds the split sweep with groups to JAX's): per-group rows
+        # and a fixed effect build and step through the split sweep
+        from bayesrrcpp_tpu_torch import GroupsConfig
+
+        s = ShardedSpikeSlabSampler(
+            X, Y, np.tile(CVA, (2, 1)), GroupsConfig(block_size=32), one,
+            g_assign=np.arange(M) % 2, fixed=np.ones((N, 1)),
+            backend="pallas", split_sweep=True)
+        g = torch.Generator().manual_seed(1)
+        st = s.step(s.init(g), g)
+        assert (s.variant, st.sigmaGG.shape, st.alpha.shape) == \
+            ("groups", (2,), (1,))
+        assert bool(torch.isfinite(st.eps).all())
 
 
 def test_put_global_places_as_jax_specs():

@@ -3,8 +3,8 @@ the JAX sharded samplers' draws for one m-slice, and the child process of
 the runs on meshes of several gloo ranks.
 
 ``JaxSliceReplay`` re-derives, from the JAX sampler's key, every draw that
-``bayesrrcpp_tpu/parallel/sharded.py`` makes for slice ``m`` (init :480-482,
-``_pre_marker`` :506-513, the single-chain sweep keys :546-559, the fused
+``bayesrrcpp_tpu/parallel/sharded.py`` makes for slice ``m`` (init :480-484,
+``_pre_marker`` :506-530 with the fixed effects', the single-chain sweep keys :546-559, the fused
 ones :860-871, ``_hypers`` :816-836), under the roles of the port's
 ``SliceVariates``, so that the port's sharded sampler steps with JAX's own
 variates.  ``JaxHorseshoeSliceReplay`` does the same for
@@ -62,13 +62,44 @@ class JaxSliceReplay:
 
         from bayesrrcpp_tpu import distributions as jdist
 
-        out = []
+        out, self.kF = [], []
         for c, key in enumerate(self.keys):
-            self.keys[c], kG, _ = jax.random.split(key, 3)
+            self.keys[c], kG, kF = jax.random.split(key, 3)
+            self.kF.append(kF)
             out.append(self._t(jax.vmap(
                 lambda k: jdist.beta_rng(k, 1.0, 1.0, dtype=jnp.float32))(
                     jax.random.split(kG, G))))
         return self._stack(out)
+
+    def init_sigmaF(self):
+        jax = _jax()
+        import jax.numpy as jnp
+
+        return self._stack([self._t(jax.random.uniform(k, (), jnp.float32))
+                            for k in self.kF])
+
+    def fixed_order(self, F):
+        import torch
+
+        jax = _jax()
+        return self._stack([torch.as_tensor(np.array(
+            jax.random.permutation(ks[2], F))) for ks in self.step_keys])
+
+    def fixed_z(self, F):
+        jax = _jax()
+        import jax.numpy as jnp
+
+        return self._stack([self._t(jax.random.normal(ks[3], (F,),
+                                                      jnp.float32))
+                            for ks in self.step_keys])
+
+    def sigmaF_gamma(self, shape):
+        jax = _jax()
+        import jax.numpy as jnp
+
+        return self._stack([self._t(jax.random.gamma(
+            ks[6], jnp.asarray(shape, jnp.float64)))
+            for ks in self.step_keys])
 
     def begin_step(self):
         jax = _jax()
@@ -266,9 +297,16 @@ def port_sampler(case: dict, mesh, device="cpu"):
         s.data = convert.sharded_horseshoe_data_from_jax(
             case["jax_data"], N=s.N, **at)
         return s, own
-    s = ShardedSpikeSlabSampler(
-        case["X"], case["Y"], case["cva"],
-        BayesRConfig(block_size=case["block_size"]), mesh, **kw)
+    if case.get("g_assign") is not None:
+        # the groups variant (tests/test_torch_groups_sharded.py)
+        from bayesrrcpp_tpu_torch import GroupsConfig
+
+        cfg = GroupsConfig(block_size=case["block_size"])
+        kw.update(g_assign=case["g_assign"], fixed=case["fixed"])
+    else:
+        cfg = BayesRConfig(block_size=case["block_size"])
+    s = ShardedSpikeSlabSampler(case["X"], case["Y"], case["cva"], cfg, mesh,
+                                **kw)
     own = s.data
     s.data = convert.sharded_data_from_jax(case["jax_data"], N=s.N, **at)
     return s, own
