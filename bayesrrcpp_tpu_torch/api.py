@@ -7,9 +7,10 @@ Counterpart of ``bayesrrcpp_tpu/api.py``: ``BayesRSamplerV2``
 (src/HorseshoeR.cpp:109, R/RcppExports.R:74), with the same positional
 signatures and defaults plus ``device``, which defaults to the card
 ("cuda"; without one they raise: pass ``device="cpu"`` to run on the CPU).
-``seed`` seeds a ``torch.Generator`` on ``device``.  The dense blocked
-sweeps are plain torch, as the JAX package runs them in XLA with no
-kernel.  Each returns the final sampler state.
+``seed`` seeds a ``torch.Generator`` on ``device``.  ``dtype`` is the
+state's, ``torch.float32`` (None) or ``torch.float64``.  The dense blocked
+and scan sweeps are plain torch, as the JAX package runs them in XLA with
+no kernel.  Each returns the final sampler state.
 """
 from __future__ import annotations
 
@@ -30,11 +31,12 @@ def BayesRSamplerV2(outputFile, seed, max_iterations, burn_in, thinning,
     ``outputFile`` in the reference CSV schema: iteration, mu, beta[1..M],
     sigmaE, sigmaG, comp[1..M], epsilon[1..N] (src/BayesRv2.cpp:16-37).
     Returns the final sampler state."""
-    _check_dtype(dtype)
+    dtype = _check_dtype(dtype)
     cfg = BayesRConfig(sigma0=sigma0, v0E=v0E, s02E=s02E, v0G=v0G, s02G=s02G,
                        block_size=block_size, emit_epsilon=emit_epsilon)
     sampler = SpikeSlabSampler(X, Y, np.atleast_1d(cva), cfg,
-                               backend=backend, device=device)
+                               backend=backend, dtype=dtype,
+                               device=device)
     return _run(sampler, "bayesr", outputFile, seed, max_iterations, burn_in,
                 thinning, emit_epsilon)
 
@@ -48,14 +50,15 @@ def BayesRSamplerV2Groups(outputFile, seed, max_iterations, burn_in, thinning,
     thinned samples to ``outputFile`` in the groups CSV schema: iteration,
     mu, beta, sigmaE, comp, sigmaG[1..groups], epsilon, alpha[1..F], sigmaF
     (src/BayesRv2Groups.cpp:25-54).  Returns the final sampler state."""
-    _check_dtype(dtype)
+    dtype = _check_dtype(dtype)
     cva = np.atleast_2d(cva)
     if cva.shape[0] != groups:
         raise ValueError("cva must have `groups` rows")
     cfg = GroupsConfig(sigma0=sigma0, v0E=v0E, s02E=s02E, v0G=v0G, s02G=s02G,
                        block_size=block_size, emit_epsilon=emit_epsilon)
     sampler = SpikeSlabSampler(X, Y, cva, cfg, g_assign=gAssign, fixed=fixed,
-                               backend=backend, device=device)
+                               backend=backend, dtype=dtype,
+                               device=device)
     return _run(sampler, "groups", outputFile, seed, max_iterations, burn_in,
                 thinning, emit_epsilon, groups=groups)
 
@@ -70,7 +73,7 @@ def BRV2Grstart(outputFile, seed, max_iterations, burn_in, thinning,
     (src/BRv2Grstart.cpp:157-165).  No fixed effects in this variant.
     CSV schema: iteration, mu, beta, sigmaE, comp, sigmaG, epsilon
     (src/BRv2Grstart.cpp:26-50).  Returns the final sampler state."""
-    _check_dtype(dtype)
+    dtype = _check_dtype(dtype)
     cva = np.atleast_2d(cva)
     if cva.shape[0] != groups:
         raise ValueError("cva must have `groups` rows")
@@ -80,7 +83,8 @@ def BRV2Grstart(outputFile, seed, max_iterations, burn_in, thinning,
     cfg = GroupsConfig(sigma0=sigma0, v0E=v0E, s02E=s02E, v0G=v0G, s02G=s02G,
                        block_size=block_size, emit_epsilon=emit_epsilon)
     sampler = SpikeSlabSampler(X, Y_placeholder, cva, cfg, g_assign=gAssign,
-                               backend=backend, device=device)
+                               backend=backend, dtype=dtype,
+                               device=device)
     generator = _generator(sampler, seed)
     state = sampler.init_from(generator, mu=mu, beta=beta, sigmaE=sigmaE,
                               sigmaGG=sigmaGG, epsilon=epsilon,
@@ -97,19 +101,22 @@ def HorseshoeR(outputFile, seed, max_iterations, burn_in, thinning,
     samples to ``outputFile`` in the horseshoe CSV schema: iteration, mu,
     beta[1..M], sigmaE, tau, lambda[1..M], epsilon[1..N]
     (src/HorseshoeR.cpp:279-291).  Returns the final sampler state."""
-    _check_dtype(dtype)
+    dtype = _check_dtype(dtype)
     cfg = HorseshoeConfig(A=A, v0E=v0E, s02E=s02E, vL=vL, vT=vT, c2=c2,
                           vC=vC, sC=sC, block_size=block_size,
                           emit_epsilon=emit_epsilon)
-    sampler = HorseshoeSampler(X, Y, cfg, backend=backend, device=device)
+    sampler = HorseshoeSampler(X, Y, cfg, backend=backend, dtype=dtype,
+                               device=device)
     return _run(sampler, "horseshoe", outputFile, seed, max_iterations,
                 burn_in, thinning, emit_epsilon)
 
 
 def _check_dtype(dtype):
-    if dtype not in (None, torch.float32):
-        raise NotImplementedError(
-            "bayesrrcpp_tpu_torch samples in float32 only")
+    """The state's dtype, float32 (None) or float64, as the JAX api's
+    ``dtype=dtype or float32``."""
+    if dtype not in (None, torch.float32, torch.float64):
+        raise ValueError(f"dtype={dtype!r}: torch.float32 or torch.float64")
+    return dtype or torch.float32
 
 
 def _generator(sampler, seed):

@@ -1,8 +1,9 @@
 """Command-line interface of the port.
 
 Counterpart of ``bayesrrcpp_tpu/cli.py``'s ``bayesr``, ``groups``,
-``horseshoe`` and ``resume`` subcommands, reading PLINK .bed or NumPy
-inputs and writing the reference CSV schemas:
+``horseshoe``, ``resume`` and ``summarize`` subcommands, reading PLINK .bed
+or NumPy inputs and writing the reference CSV schemas (and, with
+``--npz-out``, a columnar .npz beside the CSV):
 
     python -m bayesrrcpp_tpu_torch bayesr    --bed data --pheno y.txt \\
                                              --x-dtype 2bit --out chain.csv
@@ -12,22 +13,33 @@ inputs and writing the reference CSV schemas:
     python -m bayesrrcpp_tpu_torch horseshoe --x X.npy --y y.npy --out hs.csv
     python -m bayesrrcpp_tpu_torch resume    --checkpoint ck.npz --x X.npy \\
                                              --y y.npy --out more.csv
+    python -m bayesrrcpp_tpu_torch bayesr    --x X.npy --y y.npy --dtype f64 \\
+                                             --out c.csv --npz-out c.npz
+    python -m bayesrrcpp_tpu_torch summarize --npz c.npz --npz d.npz \\
+                                             --x X.npy --y y.npy --top 10
 
 With ``--x-dtype 2bit`` a .bed goes straight into packed words on the host
 (``io/bed.read_bed_packed``, padded to the planned marker count), missing
 calls included, and never into a dense matrix; with ``--x-dtype int8`` a
 .bed is read with NaN for a missing call and not standardized, and a
-dosage .npy is taken as it is, both quantized to int8 codes.  The run is on ``--device``,
-the card by default; ``--backend auto`` sweeps with the kernels there, the
-default dense storage included, and with the plain sweep for dense X on the
-CPU (``--backend pallas|blocked`` chooses; ``scan`` is not ported).
+dosage .npy is taken as it is, both quantized to int8 codes; a dense .npy
+or .bed is standardized unless ``--no-standardize``.  The run is on
+``--device``, the card by default; ``--backend auto`` sweeps with the
+kernels there, the default dense storage included, and with the plain sweep
+for dense X on the CPU (``--backend pallas|blocked|scan`` chooses; ``scan``
+is the literal per-marker sweep in a full permutation).  ``--dtype f64``
+runs the state in float64 (the kernels then as JAX's under float64,
+``models/sampler.py``).
 ``--checkpoint-out`` writes the final state and the generator
 (``io/checkpoint.py``), and with ``--checkpoint-every SECONDS`` also
 during the run; ``resume --checkpoint`` continues such a chain bitwise,
 ``resume --from-csv`` from a CSV's last row as BRV2Grstart does (pi, or
 the horseshoe's eta / v / c2, redrawn; the generator seeded by
-``--seed``).  Hyperparameter flags carry the reference names.  The .npz
-output raises ``NotImplementedError`` naming its ROADMAP entry.
+``--seed``).  Hyperparameter flags carry the reference names.  The
+horseshoe prints tau, eta and sigmaE at each tenth of its emissions.
+``summarize`` reads ``--npz-out`` files (one a chain) and prints JAX's
+JSON summary: means, h2, the top markers by inclusion probability, PVE
+with ``--x``/``--y``, and split R-hat / ESS over several chains.
 """
 from __future__ import annotations
 
@@ -36,11 +48,6 @@ import sys
 
 import numpy as np
 
-# the flags outside the port, by ROADMAP entry
-_NOT_PORTED = {
-    "npz_out": "--npz-out (the NpzSink, ROADMAP Queue 1 item 9)",
-}
-
 
 def _add_common(p):
     p.add_argument("--bed", help="PLINK .bed/.bim/.fam prefix")
@@ -48,7 +55,8 @@ def _add_common(p):
     p.add_argument("--x", help=".npy/.npz matrix of shape (N, M)")
     p.add_argument("--y", help=".npy phenotype vector")
     p.add_argument("--out", required=True, help="output CSV path")
-    p.add_argument("--npz-out", help="not ported: a columnar .npz")
+    p.add_argument("--npz-out", help="also write a columnar .npz (one "
+                                     "chain)")
     p.add_argument("--checkpoint-out",
                    help="write the final state and generator (.npz)")
     p.add_argument("--checkpoint-every", type=float, default=0.0,
@@ -65,12 +73,17 @@ def _add_common(p):
                    default="auto",
                    help="sweep: the kernels (pallas; auto on the card and "
                         "for packed X), the plain Gram-blocked sweep "
-                        "(blocked; dense X only), or the literal scan (not "
-                        "ported)")
+                        "(blocked; dense X only), or the literal per-marker "
+                        "scan (dense X only)")
+    p.add_argument("--dtype", choices=["f32", "f64"], default="f32",
+                   help="the state's float type")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default: the card)")
     p.add_argument("--no-epsilon", action="store_true",
                    help="omit the per-sample residual vector from the output")
+    p.add_argument("--no-standardize", action="store_true",
+                   help="take a dense .npy or .bed as it is (not centred "
+                        "and scaled)")
     p.add_argument("--x-dtype", choices=["dense", "int8", "2bit"],
                    default="dense",
                    help="genotype storage: dense f32, int8 codes (1 "
@@ -119,15 +132,17 @@ def _load_xy(args):
             kw.update(transposed=True, x_stats=(pb.means, pb.sds),
                       n_individuals=pb.n, n_markers=len(pb.snp_ids))
             return torch.as_tensor(pb.words), Y, kw
-        data = bedio.read_bed(args.bed, standardize=x_dtype == "dense",
-                              impute_missing=x_dtype == "dense")
+        data = bedio.read_bed(
+            args.bed,
+            standardize=x_dtype == "dense" and not args.no_standardize,
+            impute_missing=x_dtype == "dense")
         X = data.X
     elif args.x and args.y:
         X = np.load(args.x)
         if hasattr(X, "files"):
             X = X[X.files[0]]
         Y = np.load(args.y)
-        if x_dtype == "dense":
+        if x_dtype == "dense" and not args.no_standardize:
             sd = X.std(axis=0, ddof=1)
             sd[sd == 0] = 1.0
             X = (X - X.mean(axis=0)) / sd
@@ -148,11 +163,44 @@ def _backend(args):
     return None if args.backend == "auto" else args.backend
 
 
-def _check_ported(args):
-    for flag in _NOT_PORTED:
-        if getattr(args, flag, None):
-            raise NotImplementedError(f"{_NOT_PORTED[flag]} is not ported "
-                                      f"to bayesrrcpp_tpu_torch yet")
+def _dtype(args):
+    import torch
+
+    return torch.float64 if args.dtype == "f64" else torch.float32
+
+
+def _compose_chunks(*fns):
+    """One ``on_chunk`` calling each of ``fns`` that is not None."""
+    fns = [f for f in fns if f is not None]
+    if len(fns) < 2:
+        return fns[0] if fns else None
+
+    def on_chunk(state, done):
+        for f in fns:
+            f(state, done)
+
+    return on_chunk
+
+
+def _hs_decile_printer(total):
+    """tau, eta and sigmaE at each tenth of the emissions, as the
+    reference's horseshoe prints them (src/HorseshoeR.cpp:200-207;
+    bayesrrcpp_tpu/cli.py:153-168); a chain axis prints every chain's."""
+    last = [0]
+
+    def fmt(t):
+        a = t.detach().cpu().numpy().reshape(-1)
+        return (f"{a[0]:.6g}" if a.size == 1 else
+                "[" + ",".join(f"{x:.4g}" for x in a) + "]")
+
+    def on_chunk(state, done):
+        decile = done * 10 // max(1, total)
+        if decile > last[0]:
+            last[0] = decile
+            print(f"emitted {done}/{total}: tau {fmt(state.tau)} eta "
+                  f"{fmt(state.eta)} sigmaE {fmt(state.sigmaE)}", flush=True)
+
+    return on_chunk
 
 
 def _npz(path):
@@ -187,30 +235,40 @@ def _periodic_saver(args, generator):
 
 def _run(sampler, args, schema, state=None, generator=None, **sink_kw):
     """Run the chain(s) of ``args`` on ``sampler`` into the CSV(s) of
-    ``schema``, from ``state`` (default: fresh) with ``generator``
-    (default: seeded by ``--seed``); ``--chains`` > 1 runs fresh chains.
-    Writes ``--checkpoint-out``; returns the final state."""
+    ``schema`` (and ``--npz-out``), from ``state`` (default: fresh) with
+    ``generator`` (default: seeded by ``--seed``); ``--chains`` > 1 runs
+    fresh chains.  The horseshoe prints its deciles.  Writes
+    ``--checkpoint-out``; returns the final state."""
     import torch
 
     from .config import ChainConfig
-    from .io.sink import ChainFanoutSink, CSVSink
+    from .io.sink import ChainFanoutSink, CSVSink, NpzSink, TeeSink
 
     chain = ChainConfig(args.iterations, args.burn_in, args.thinning)
     g = (generator if generator is not None else
          torch.Generator(device=sampler.device).manual_seed(args.seed))
     kw = dict(M=sampler.M, N=sampler.N, emit_epsilon=not args.no_epsilon,
               **sink_kw)
-    saver = _periodic_saver(args, g)
-    if args.chains > 1 and state is None:
+    on_chunk = _compose_chunks(
+        _periodic_saver(args, g),
+        _hs_decile_printer(len(chain.emit_iterations()))
+        if schema == "horseshoe" else None)
+    fanout = args.chains > 1 and state is None
+    if fanout and args.npz_out:
+        raise SystemExit("--npz-out writes one chain: run it with "
+                         "--chains 1")
+    if fanout:
         sink = ChainFanoutSink.csv(args.out, args.chains, schema, **kw)
         run = lambda: sampler.run_chains(  # noqa: E731
             g, args.chains, chain, sink=sink, collect=False,
-            progress=_progress, on_chunk=saver)
+            progress=_progress, on_chunk=on_chunk)
     else:
         sink = CSVSink(args.out, schema, **kw)
+        if args.npz_out:
+            sink = TeeSink(sink, NpzSink(args.npz_out))
         run = lambda: sampler.run(g, chain, state=state,  # noqa: E731
                                   sink=sink, collect=False,
-                                  progress=_progress, on_chunk=saver)
+                                  progress=_progress, on_chunk=on_chunk)
     try:
         state, _ = run()
     finally:
@@ -275,6 +333,10 @@ def _resume(args, X, Y, xkw):
         if state.mu.dim() != 0:
             raise SystemExit("resume takes a one-chain checkpoint; this one "
                              f"holds {state.mu.shape[0]} chains")
+        if state.mu.dtype != _dtype(args):
+            want = "f64" if state.mu.dtype == torch.float64 else "f32"
+            raise SystemExit(f"the checkpoint holds a {state.mu.dtype} "
+                             f"state: resume it with --dtype {want}")
         family = ("horseshoe" if isinstance(state, HorseshoeState)
                   else "mixture")
     else:
@@ -283,7 +345,8 @@ def _resume(args, X, Y, xkw):
         family = csv_schema(args.from_csv)
         generator = torch.Generator(device=args.device).manual_seed(
             args.seed)
-    kw = dict(backend=_backend(args), device=args.device, **xkw)
+    kw = dict(backend=_backend(args), dtype=_dtype(args), device=args.device,
+              **xkw)
 
     if family == "horseshoe":
         s = HorseshoeSampler(X, Y, _horseshoe_config(args), **kw)
@@ -366,14 +429,27 @@ def main(argv=None):
     # the horseshoe's hyperparameters (used when the chain is a horseshoe)
     _add_horseshoe(p4, v0=False)
 
+    p5 = sub.add_parser("summarize",
+                        help="posterior summaries of saved chains (the "
+                             "vignette's manual R post-processing)")
+    p5.add_argument("--npz", action="append", required=True,
+                    help="columnar chain output (--npz-out); repeat for "
+                         "multi-chain R-hat/ESS")
+    p5.add_argument("--x", help=".npy (N, M) standardized X for PVE")
+    p5.add_argument("--y", help=".npy phenotype for PVE")
+    p5.add_argument("--top", type=int, default=10,
+                    help="print the top-K markers by inclusion probability")
+
     args = ap.parse_args(argv)
-    _check_ported(args)
+    if args.cmd == "summarize":
+        return _summarize(args)
 
     from .models.bayesr import SpikeSlabSampler
     from .models.horseshoe import HorseshoeSampler
 
     X, Y, xkw = _load_xy(args)
-    kw = dict(backend=_backend(args), device=args.device, **xkw)
+    kw = dict(backend=_backend(args), dtype=_dtype(args), device=args.device,
+              **xkw)
     if args.cmd == "bayesr":
         s = SpikeSlabSampler(X, Y, _cva(args), _mixture_config(args, False),
                              **kw)
@@ -391,6 +467,43 @@ def main(argv=None):
         _run(s, args, "horseshoe")
     else:
         _resume(args, X, Y, xkw)
+    return 0
+
+
+def _summarize(args):
+    """The ``summarize`` subcommand (bayesrrcpp_tpu/cli.py:458-490): JAX's
+    JSON of the chains in ``--npz`` (``utils/summary.py``)."""
+    import json
+
+    from .utils import summary
+
+    chains = [dict(np.load(p)) for p in args.npz]
+    s0 = chains[0]
+    out = {"n_samples": int(s0["mu"].shape[0]), "n_chains": len(chains)}
+    for k in ("mu", "sigmaE", "sigmaF", "tau"):
+        if k in s0:
+            out[k + "_mean"] = float(np.mean([c[k].mean() for c in chains]))
+    if "sigmaG" in s0:
+        h2 = np.concatenate([summary.heritability_samples(c) for c in chains])
+        out["h2_mean"] = float(h2.mean())
+        out["h2_sd"] = float(h2.std(ddof=1)) if h2.size > 1 else 0.0
+    if "comp" in s0:
+        pip = np.mean([summary.inclusion_probabilities(c) for c in chains],
+                      axis=0)
+        top = np.argsort(-pip)[:args.top]
+        out["top_markers"] = [{"index": int(i), "pip": round(float(pip[i]), 4)}
+                              for i in top]
+    if args.x and args.y:
+        merged = {"beta": np.concatenate([c["beta"] for c in chains], axis=0)}
+        out["pve"] = round(summary.pve(merged, np.load(args.x),
+                                       np.load(args.y)), 4)
+    if len(chains) > 1:
+        for k in ("sigmaE", "mu", "tau"):
+            if k in s0:
+                stacked = np.stack([c[k].reshape(-1) for c in chains], axis=1)
+                out[f"rhat_{k}"] = round(float(summary.split_rhat(stacked)), 4)
+                out[f"ess_{k}"] = round(float(summary.ess(stacked)), 1)
+    print(json.dumps(out, indent=2))
     return 0
 
 

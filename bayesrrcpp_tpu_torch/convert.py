@@ -77,30 +77,30 @@ def state_from_jax(state: dict, sampler) -> SpikeSlabState:
     """The port's state from a JAX ``SpikeSlabState`` given as a dict of
     NumPy arrays (e.g. ``{k: np.asarray(v) for k, v in
     jax_state._asdict().items()}``), one chain or chain-batched."""
-    dev = sampler.device
+    dev, dt = sampler.device, sampler.dtype
     eps = _eps_from_jax(state, sampler)
     return SpikeSlabState(
         iteration=_iteration(state),
-        mu=_t(state["mu"], dev),
-        beta=_t(state["beta"], dev),
+        mu=_t(state["mu"], dev, dt),
+        beta=_t(state["beta"], dev, dt),
         labels=_t(state["labels"], dev, torch.int32),
-        eps=_t(eps, dev),
-        sigmaE=_t(state["sigmaE"], dev),
-        sigmaGG=_t(state["sigmaGG"], dev),
-        pi=_t(state["pi"], dev),
-        alpha=_t(state["alpha"], dev),
-        sigmaF=_t(state["sigmaF"], dev))
+        eps=_t(eps, dev, dt),
+        sigmaE=_t(state["sigmaE"], dev, dt),
+        sigmaGG=_t(state["sigmaGG"], dev, dt),
+        pi=_t(state["pi"], dev, dt),
+        alpha=_t(state["alpha"], dev, dt),
+        sigmaF=_t(state["sigmaF"], dev, dt))
 
 
 def horseshoe_state_from_jax(state: dict, sampler) -> HorseshoeState:
     """The port's state from a JAX ``HorseshoeState`` given as a dict of
     NumPy arrays (as ``state_from_jax``), one chain or chain-batched."""
-    dev = sampler.device
+    dev, dt = sampler.device, sampler.dtype
     eps = _eps_from_jax(state, sampler)
     return HorseshoeState(
         iteration=_iteration(state),
-        eps=_t(eps, dev),
-        **{k: _t(state[k], dev)
+        eps=_t(eps, dev, dt),
+        **{k: _t(state[k], dev, dt)
            for k in ("mu", "beta", "sigmaE", "lam", "v", "tau", "eta",
                      "c2")})
 
@@ -120,16 +120,18 @@ def has_missing_calls(words, N: int, valid) -> bool:
     return bool(np.any(miss.astype(np.int64) & real[None, :]))
 
 
-def horseshoe_data_from_jax(data: dict, *, N: int, device) -> HorseshoeData:
+def horseshoe_data_from_jax(data: dict, *, N: int, device,
+                            dtype=torch.float32) -> HorseshoeData:
     """The port's ``HorseshoeData`` from a JAX dense, int8 or packed
     ``HorseshoeData`` given as a dict of NumPy arrays (as
-    ``data_from_jax``; the JAX lane permutation n_perm is dropped)."""
+    ``data_from_jax``; the JAX lane permutation n_perm is dropped); dense
+    rows, xsq and Gram blocks in ``dtype``, the sampler's."""
     words = np.asarray(data["XT"])
     if np.issubdtype(words.dtype, np.floating):
         empty = torch.zeros((0,), dtype=torch.float32, device=device)
         return HorseshoeData(
-            XT=_t(words, device), xsq=_t(data["xsq"], device),
-            gram=_t(data["gram"], device),
+            XT=_t(words, device, dtype), xsq=_t(data["xsq"], device, dtype),
+            gram=_t(data["gram"], device, dtype),
             valid=_t(data["valid"], device, torch.bool),
             x_mean=empty, x_scale=empty, x_colsum=empty,
             row_valid=torch.zeros((0,), dtype=torch.bool, device=device))
@@ -161,28 +163,30 @@ def horseshoe_data_from_jax(data: dict, *, N: int, device) -> HorseshoeData:
         has_missing=has_missing_calls(words, N, data["valid"]))
 
 
-def data_from_jax(data: dict, *, N: int, device) -> MarkerData:
+def data_from_jax(data: dict, *, N: int, device,
+                  dtype=torch.float32) -> MarkerData:
     """The port's ``MarkerData`` from a JAX dense, int8 or packed
     ``MarkerData`` given as a dict of NumPy arrays (dense rows, or int8
     codes or words with their mean, scale and column sums, pass through
     with xsq and the Gram blocks; has_missing is read off the real markers'
     codes or words, and for words row_valid is rebuilt in individual
-    order)."""
-    geno = horseshoe_data_from_jax(data, N=N, device=device)
+    order); dense rows and the prior and fixed-effect fields in ``dtype``,
+    the sampler's."""
+    geno = horseshoe_data_from_jax(data, N=N, device=device, dtype=dtype)
     packed = np.asarray(data["XT"]).dtype == np.int32
     lanes = geno.row_valid.numel() if packed else geno.XT.shape[1]
     # (a data dict without fixed effects: F=0)
-    fixedT = np.asarray(data.get("fixedT", np.zeros((0, lanes))), np.float32)
+    fixedT = np.asarray(data.get("fixedT", np.zeros((0, lanes))))
     if packed:
         # the packed layout's individuals back in natural order
         fixedT = unpermute_eps(fixedT, fixedT.shape[-1])
     return MarkerData(
         **geno._asdict(),
         g_assign=_t(data["g_assign"], device, torch.int32),
-        cva=_t(data["cva"], device),
-        prior_pi=_t(data["prior_pi"], device),
-        fixedT=_t(fixedT, device),
-        fsq=_t(data.get("fsq", np.zeros((0,))), device))
+        cva=_t(data["cva"], device, dtype),
+        prior_pi=_t(data["prior_pi"], device, dtype),
+        fixedT=_t(fixedT, device, dtype),
+        fsq=_t(data.get("fsq", np.zeros((0,))), device, dtype))
 
 
 _MARKER_FIELDS = ("XT", "xsq", "g_assign", "valid", "x_mean", "x_scale",
@@ -223,8 +227,8 @@ def _any_missing(data: dict, N: int) -> bool:
 
 
 def sharded_data_from_jax(data: dict, *, N: int, Dm: int, m_index: int,
-                          device, Dn: int = 1, n_index: int = 0
-                          ) -> MarkerData:
+                          device, Dn: int = 1, n_index: int = 0,
+                          dtype=torch.float32) -> MarkerData:
     """Slice (m_index, n_index) of a (Dm, Dn) JAX ``ShardedMarkerData``
     given as a dict of NumPy arrays of its global arrays, as the port's
     ``MarkerData`` of that rank (``data_from_jax`` on the slice's rows,
@@ -232,18 +236,20 @@ def sharded_data_from_jax(data: dict, *, N: int, Dm: int, m_index: int,
     missing calls is read off all of them, as every rank of the port
     agrees on it."""
     out = data_from_jax(_slice_data(data, Dm=Dm, m_index=m_index, Dn=Dn,
-                                    n_index=n_index), N=N, device=device)
+                                    n_index=n_index), N=N, device=device,
+                        dtype=dtype)
     return out._replace(has_missing=_any_missing(data, N))
 
 
 def sharded_horseshoe_data_from_jax(data: dict, *, N: int, Dm: int,
                                     m_index: int, device, Dn: int = 1,
-                                    n_index: int = 0) -> HorseshoeData:
+                                    n_index: int = 0,
+                                    dtype=torch.float32) -> HorseshoeData:
     """``sharded_data_from_jax`` for a JAX ``ShardedHorseshoeSampler``'s
     data dict."""
     out = horseshoe_data_from_jax(
         _slice_data(data, Dm=Dm, m_index=m_index, Dn=Dn, n_index=n_index),
-        N=N, device=device)
+        N=N, device=device, dtype=dtype)
     return out._replace(has_missing=_any_missing(data, N))
 
 

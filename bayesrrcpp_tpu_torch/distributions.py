@@ -19,7 +19,9 @@ draws from a bare generator: it asks a *variates* object for each draw by
 its role in the step (``models/bayesr.py``, ``models/horseshoe.py``).
 :class:`TorchVariates` is the production implementation; the tests pass an
 object with the same methods that replays the JAX sampler's draws, which
-holds the port to the reference variate for variate.
+holds the port to the reference variate for variate.  Every float draw
+is in the sampler's dtype (float32 or float64), as JAX draws in its
+sampler's ``dtype``.
 
 With ``chains=C`` a ``TorchVariates`` serves a fused multi-chain step
 (``step_chains``, bayesrrcpp_tpu/models/bayesr.py:672-731): every per-chain
@@ -40,6 +42,7 @@ Role (method)          draw                                JAX source
 ``fixed_z(F)``         N(0, 1) per fixed effect            bayesr.py:530
 ``orders(nb, B, J)``   strided rounds: rho (nr,), inner    bayesr.py:599
 ``block_orders(nb,B)`` blocked sweep: border (nb,), inner  bayesr.py:619
+``full_order(Mpad)``   the scan's full permutation         bayesr.py:658
 ``p(Mpad)``            U(0, 1) per sweep position          bayesr.py:590
 ``z(Mpad)``            N(0, 1) per sweep position          bayesr.py:591
 ``sigmaF_gamma(a)``    Gamma(a, 1), scalar (F > 0)         bayesr.py:556
@@ -60,6 +63,7 @@ Role (method)                  draw                           JAX source
 ``eta_gamma(a)``               Gamma(0.5+0.5vT, 1), scalar    :403
 ``local_gamma(a, Mpad)``       Gamma(0.5+0.5vL, 1), v         :406
 ``orders`` / ``block_orders``  as BayesR                      :446, :464
+``full_order(Mpad)``           the scan's full permutation    :502
 ``z(Mpad)``                    N(0, 1) per sweep position     :440
 ``local_gamma(a, Mpad)``       Gamma(0.5+0.5vL, 1), lambda    :417
 ``tau_gamma(a)``               Gamma(0.5(M+vT), 1), scalar    :421
@@ -181,6 +185,11 @@ class TorchVariates:
 
     def block_orders(self, nb: int, B: int):
         return block_sweep.block_orders(self.generator, nb, B)
+
+    def full_order(self, n: int):
+        """A permutation of all n markers (``permutation="full"``)."""
+        return torch.randperm(n, generator=self.generator,
+                              device=self.device)
 
     def p(self, n: int):
         return torch.rand(self.lead + (n,), generator=self.generator,

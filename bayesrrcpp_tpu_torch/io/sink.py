@@ -16,9 +16,12 @@ Counterpart of ``bayesrrcpp_tpu/io/sink.py``'s CSV schemas, rows
   reference's trailing comma, so the columns align with the rows.
 
 A background writer thread drains a bounded queue, so formatting overlaps
-the next chunk's device work.  ``ChainFanoutSink`` splits a multi-chain
-stream (``run_chains``) into one sink per chain, in any schema.  The
-columnar ``NpzSink`` is not ported yet (ROADMAP Queue 1 item 9).
+the next chunk's device work.  ``NpzSink`` is the columnar output (one
+``.npz`` of every emitted field, written on close), ``TeeSink`` fans one
+stream out to several sinks (the CLI's CSV + ``--npz-out``), ``MemorySink``
+keeps the chunks in memory, and ``ChainFanoutSink`` splits a multi-chain
+stream (``run_chains``) into one sink per chain, in any schema
+(bayesrrcpp_tpu/io/sink.py:173-271).
 """
 from __future__ import annotations
 
@@ -144,6 +147,73 @@ class CSVSink(_AsyncWriterMixin):
             super().close()
         finally:
             self._fh.close()
+
+
+class NpzSink(_AsyncWriterMixin):
+    """Columnar sink (bayesrrcpp_tpu/io/sink.py:173-196): keeps every
+    chunk's fields and, on close, writes them concatenated over the
+    emissions to one ``.npz`` (``np.savez_compressed``; the reference's
+    only output is a CSV carrying the N residuals in every row)."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self._chunks: List[Dict[str, np.ndarray]] = []
+        self._start_writer()
+
+    def write(self, rows: Dict[str, np.ndarray]):
+        self._submit(dict(rows))
+
+    def _write_chunk(self, rows):
+        self._chunks.append(rows)
+
+    def close(self):
+        super().close()
+        if self._chunks:
+            np.savez_compressed(self.path, **_merged(self._chunks))
+
+
+class TeeSink:
+    """One sample stream to several sinks, e.g. a CSV and an ``NpzSink``
+    (bayesrrcpp_tpu/io/sink.py:199-215)."""
+
+    def __init__(self, *sinks):
+        self.sinks = sinks
+
+    def write(self, rows):
+        for s in self.sinks:
+            s.write(rows)
+
+    def flush(self):
+        for s in self.sinks:
+            s.flush()
+
+    def close(self):
+        for s in self.sinks:
+            s.close()
+
+
+class MemorySink(_AsyncWriterMixin):
+    """The chunks in memory (bayesrrcpp_tpu/io/sink.py:218-235):
+    ``result()`` is every field concatenated over the emissions."""
+
+    def __init__(self):
+        self.rows: List[Dict[str, np.ndarray]] = []
+        self._start_writer()
+
+    def write(self, rows):
+        self._submit(rows)
+
+    def _write_chunk(self, rows):
+        self.rows.append(rows)
+
+    def result(self) -> Dict[str, np.ndarray]:
+        self.flush()
+        return _merged(self.rows) if self.rows else {}
+
+
+def _merged(chunks) -> Dict[str, np.ndarray]:
+    return {k: np.concatenate([c[k] for c in chunks], axis=0)
+            for k in chunks[0]}
 
 
 class ChainFanoutSink:

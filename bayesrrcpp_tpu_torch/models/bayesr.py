@@ -34,7 +34,9 @@ the main path), the row-layout one on a "row" plan with J > 1
 sweep (``ops/serial.py``).  Dense X on the CPU
 defaults to the plain Gram-blocked sweep (``backend="blocked"``,
 ``ops/block_sweep.py``), as the JAX package runs it in XLA off its
-accelerator.
+accelerator; ``backend="scan"`` is the literal per-marker sweep
+(``ops/sweep.py``) in a full permutation (the default) or the blocked one.
+The state runs in ``dtype``, float32 or float64 (``models/sampler.py``).
 
 Per iteration (src/BayesRv2.cpp:171-272, src/BayesRv2Groups.cpp:207-312):
 intercept -> fixed-effect sweep (F > 0; plain torch, as JAX runs it in
@@ -50,8 +52,7 @@ on a row plan, as JAX's ``_mc_step_impl``).
 Individuals stay in their natural order in every storage mode (the JAX
 packed layout permutes them, ``n_perm``): Y, eps and the fixed-effect
 columns ``fixedT`` (F, Npad) alike, pad lanes zero, so emission and
-``init_from`` need no permutation.  The scan backend raises
-``NotImplementedError`` naming its ROADMAP entry.  What it shares with the
+``init_from`` need no permutation.  What it shares with the
 horseshoe (storage, plan, intercept, residual recompute, chain driver)
 lives in ``models/sampler.py``; what it shares with the sharded sampler
 (the fixed-effect sweep, the hyperparameter draws, init) in
@@ -71,7 +72,8 @@ from ..ops.jacobi import bayesr_jacobi
 from ..ops.jacobi_t import bayesr_jacobi_t, bayesr_jacobi_t_mc
 from ..ops.multichain import bayesr_sweep_mc
 from ..ops.serial import bayesr_sweep
-from .sampler import MarkerSampler
+from ..ops.sweep import bayesr_sweep_scan
+from .sampler import MarkerSampler, numpy_dtype
 from .state import SpikeSlabState
 
 
@@ -161,17 +163,17 @@ class SpikeSlabSteps:
         """Fresh-chain init (src/BayesRv2.cpp:146-170,
         src/BayesRv2Groups.cpp:185-205) of ``n_markers`` (this slice's)
         markers; with ``chains=C`` a leading chain axis."""
-        dev, f32 = self.device, torch.float32
+        dev, dt = self.device, self.dtype
         lead = () if chains is None else (chains,)
         # packed: pad lanes of Y are exactly 0
         eps = self.Y.expand(lead + self.Y.shape).clone()
-        sigmaGG = v.init_sigmaGG(self.G).to(f32)
-        sigmaF = (v.init_sigmaF().to(f32) if self.F > 0
-                  else torch.ones(lead, dtype=f32, device=dev))
+        sigmaGG = v.init_sigmaGG(self.G).to(dt)
+        sigmaF = (v.init_sigmaF().to(dt) if self.F > 0
+                  else torch.ones(lead, dtype=dt, device=dev))
         return SpikeSlabState(
             iteration=0,
-            mu=torch.zeros(lead, dtype=f32, device=dev),
-            beta=torch.zeros(lead + (n_markers,), dtype=f32, device=dev),
+            mu=torch.zeros(lead, dtype=dt, device=dev),
+            beta=torch.zeros(lead + (n_markers,), dtype=dt, device=dev),
             labels=torch.zeros(lead + (n_markers,), dtype=torch.int32,
                                device=dev),
             eps=eps,
@@ -180,7 +182,7 @@ class SpikeSlabSteps:
             sigmaGG=sigmaGG,
             pi=self.data.prior_pi.expand(lead + self.data.prior_pi.shape
                                          ).clone(),
-            alpha=torch.zeros(lead + (self.F,), dtype=f32, device=dev),
+            alpha=torch.zeros(lead + (self.F,), dtype=dt, device=dev),
             sigmaF=sigmaF)
 
     def _fixed_sweep(self, state, v, eps):
@@ -223,12 +225,12 @@ class SpikeSlabSteps:
             sigmaF = dist.inv_scaled_chisq(
                 dof_f, (torch.sum(alpha * alpha, dim=-1)
                         + cfg.v0E * cfg.s02E) / dof_f,
-                v.sigmaF_gamma(0.5 * dof_f)).to(torch.float32)
+                v.sigmaF_gamma(0.5 * dof_f)).to(self.dtype)
         dof_e = cfg.v0E + self.N
         sigmaE = dist.inv_scaled_chisq(
             dof_e, (self._psum(torch.sum(eps * eps, dim=-1), "n")
                     + cfg.v0E * cfg.s02E) / dof_e,
-            v.sigmaE_gamma(0.5 * dof_e)).to(torch.float32)
+            v.sigmaE_gamma(0.5 * dof_e)).to(self.dtype)
         counts = self._psum(counts, "m")                     # (..., G, K)
         m0 = torch.sum(counts, dim=-1) - counts[..., 0]      # (..., G)
         if self.variant == "groups":
@@ -269,18 +271,21 @@ class SpikeSlabSampler(SpikeSlabSteps, MarkerSampler):
         by default).
     g_assign : (M,) int group of each marker, in [0, G).
     fixed : (N, F) fixed-effect covariates.
-    backend : None, "blocked" (dense X, plain Gram-blocked sweep) or
-        "pallas" (the sweep kernels: strided or row-layout Jacobi, or
-        serial at J=1).
+    dtype : the state's dtype, float32 (None) or float64.
+    backend : None, "blocked" (dense X, plain Gram-blocked sweep), "scan"
+        (dense X, the literal per-marker sweep) or "pallas" (the sweep
+        kernels: strided or row-layout Jacobi, or serial at J=1).
         None picks "pallas" for quantized X and for dense X on the card,
         "blocked" for dense X on the CPU.
+    permutation : "blocked" or "full" (the scan only); defaults to "full"
+        for the scan, else "blocked".
     device : where the data and state live; defaults to X's device for a
         tensor X, else the card ("cuda"; raises without one: pass
         ``device="cpu"`` to run on the CPU).
     """
 
     def __init__(self, X, Y, cva, config, *, g_assign=None, fixed=None,
-                 backend: Optional[str] = None,
+                 dtype=None, backend: Optional[str] = None,
                  permutation: Optional[str] = None,
                  variant: Optional[str] = None, transposed: bool = False,
                  x_dtype: str = "dense", x_stats=None,
@@ -288,7 +293,7 @@ class SpikeSlabSampler(SpikeSlabSteps, MarkerSampler):
                  n_markers: Optional[int] = None,
                  jacobi_blocks: Optional[int] = None,
                  jacobi_layout: str = "auto", device=None):
-        self._storage(x_dtype, backend, permutation, jacobi_layout)
+        self._storage(x_dtype, backend, permutation, jacobi_layout, dtype)
         X, prepacked, M, N = self._read_x(X, Y, transposed, x_stats,
                                           n_individuals, n_markers, device)
         cva2, prior_pi, g_assign, fixed = self._mixture_setup(
@@ -298,19 +303,19 @@ class SpikeSlabSampler(SpikeSlabSteps, MarkerSampler):
                              x_stats=x_stats, jacobi_blocks=jacobi_blocks,
                              jacobi_layout=jacobi_layout)
 
-        dev, f32 = self.device, torch.float32
+        dev, dt = self.device, self.dtype
         # the fixed-effect columns in eps's layout: natural individual
         # order, zero on pad lanes (bayesr.py:316-319 without n_perm)
-        fixedT = np.zeros((self.F, self.Npad), np.float32)
+        fixedT = np.zeros((self.F, self.Npad), numpy_dtype(dt))
         fixedT[:, :N] = fixed.T
         self.data = MarkerData(
             **geno._asdict(),
             g_assign=torch.as_tensor(np.pad(g_assign, (0, self.Mpad - M)),
                                      device=dev),
-            cva=torch.as_tensor(cva2, dtype=f32, device=dev),
-            prior_pi=torch.as_tensor(prior_pi, dtype=f32, device=dev),
+            cva=torch.as_tensor(cva2, dtype=dt, device=dev),
+            prior_pi=torch.as_tensor(prior_pi, dtype=dt, device=dev),
             fixedT=torch.as_tensor(fixedT, device=dev),
-            fsq=torch.as_tensor(np.sum(fixed * fixed, axis=0), dtype=f32,
+            fsq=torch.as_tensor(np.sum(fixed * fixed, axis=0), dtype=dt,
                                 device=dev))
 
     # ------------------------------------------------------------------ init
@@ -330,7 +335,7 @@ class SpikeSlabSampler(SpikeSlabSteps, MarkerSampler):
         from Dirichlet(v + 1) with v the per-group label counts.
         ``epsilon`` is (N,) in individual order."""
         v = self.variates(rng)
-        dev, f32 = self.device, torch.float32
+        dev, dt = self.device, self.dtype
         beta = np.asarray(beta, np.float64).reshape(-1)
         components = np.asarray(components).reshape(-1).astype(np.int32)
         if beta.shape[0] != self.M or components.shape[0] != self.M:
@@ -343,19 +348,19 @@ class SpikeSlabSampler(SpikeSlabSteps, MarkerSampler):
         counts = np.zeros((self.G, self.K))
         np.add.at(counts, (g_assign, components), 1.0)
         pi = dist.dirichlet(v.init_from_pi_gamma(
-            torch.as_tensor(counts + 1.0, dtype=f32, device=dev)))
+            torch.as_tensor(counts + 1.0, dtype=dt, device=dev)))
 
-        def t(x, dtype=f32):
+        def t(x, dtype=dt):
             return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
 
         return SpikeSlabState(
             iteration=0, mu=t(mu), beta=t(np.pad(beta, (0, pad))),
             labels=t(np.pad(components, (0, pad)), torch.int32),
             eps=t(np.pad(eps, (0, self.Npad - self.N))), sigmaE=t(sigmaE),
-            sigmaGG=t(sigmaGG).reshape(self.G), pi=pi.to(f32),
-            alpha=(torch.zeros((self.F,), dtype=f32, device=dev)
+            sigmaGG=t(sigmaGG).reshape(self.G), pi=pi.to(dt),
+            alpha=(torch.zeros((self.F,), dtype=dt, device=dev)
                    if alpha is None else t(alpha).reshape(self.F)),
-            sigmaF=(torch.ones((), dtype=f32, device=dev) if sigmaF is None
+            sigmaF=(torch.ones((), dtype=dt, device=dev) if sigmaF is None
                     else t(sigmaF)))
 
     # ------------------------------------------------------------------ step
@@ -369,13 +374,26 @@ class SpikeSlabSampler(SpikeSlabSteps, MarkerSampler):
         d = self.data
         Mpad, B, nb = self.Mpad, self.B, self.nb
         kernels = self.backend == "pallas"
-        if kernels and self.strided:
+        if self.backend == "scan":
+            # the literal sweep in a full permutation, or in the blocked one
+            # flattened (bayesr.py:652-660), p/z by sweep position
+            if self.permutation == "full":
+                order = v.full_order(Mpad)
+            else:
+                order = bs.flat_order(*v.block_orders(nb, B), B)
+            p, z = v.p(Mpad), v.z(Mpad)
+            res = bayesr_sweep_scan(
+                d.XT, d.xsq, eps, state.beta, state.labels, order, p, z,
+                state.pi, d.cva, state.sigmaE, state.sigmaGG, d.g_assign,
+                d.valid)
+        elif kernels and self.strided:
             rho, inner = v.orders(nb, B, self.jacobi)
             p, z = v.p(Mpad), v.z(Mpad)
-            res = bayesr_jacobi_t(
-                d.XT, d.gram, d.xsq, eps, state.beta, state.labels, rho,
-                inner, p, z, state.pi, d.cva, state.sigmaE, state.sigmaGG,
-                d.g_assign, d.valid, J=self.jacobi, **self._sweep_kw())
+            res = self._kernel(
+                bayesr_jacobi_t, d.XT, d.gram, d.xsq, eps, state.beta,
+                state.labels, rho, inner, p, z, state.pi, d.cva,
+                state.sigmaE, state.sigmaGG, d.g_assign, d.valid,
+                J=self.jacobi, **self._sweep_kw())
         else:
             # the shuffled block order, p/z by sweep position
             # (bayesr.py:619-645): the row-layout sweep at J > 1, the
@@ -388,9 +406,11 @@ class SpikeSlabSampler(SpikeSlabSteps, MarkerSampler):
             if not kernels:
                 res = bs.bayesr_block_sweep(*args)
             elif self.jacobi > 1:
-                res = bayesr_jacobi(*args, J=self.jacobi, **self._sweep_kw())
+                res = self._kernel(bayesr_jacobi, *args, J=self.jacobi,
+                                   **self._sweep_kw())
             else:
-                res = bayesr_sweep(*args, **self._sweep_kw())
+                self._f64_check("bayesr_sweep_pallas")
+                res = self._kernel(bayesr_sweep, *args, **self._sweep_kw())
         return self._next(state, v, mu, alpha, *res)
 
     def step_chains(self, state: SpikeSlabState, rng) -> SpikeSlabState:
@@ -414,13 +434,14 @@ class SpikeSlabSampler(SpikeSlabSteps, MarkerSampler):
         else:
             # J=1 and the row plan: the shared block order, p/z by marker
             # (bayesr.py:714-722)
+            self._f64_check("bayesr_sweep_pallas_mc")
             orders = v.block_orders(self.nb, self.B)
             sweep, kw = bayesr_sweep_mc, {}
         p, z = v.p(self.Mpad), v.z(self.Mpad)
-        res = sweep(d.XT, d.gram, d.xsq, eps, state.beta, state.labels,
-                    *orders, p, z, state.pi, d.cva, state.sigmaE,
-                    state.sigmaGG, d.g_assign, d.valid, **kw,
-                    **self._sweep_kw())
+        res = self._kernel(sweep, d.XT, d.gram, d.xsq, eps, state.beta,
+                           state.labels, *orders, p, z, state.pi, d.cva,
+                           state.sigmaE, state.sigmaGG, d.g_assign, d.valid,
+                           **kw, **self._sweep_kw())
         return self._next(state, v, mu, alpha, *res)
 
     # ------------------------------------------------------------------ run

@@ -16,7 +16,9 @@ the row-layout one on a "row" plan with J > 1
 (``ops/jacobi.horseshoe_jacobi``) or, at J=1, the exact serial sweep
 (``ops/serial.horseshoe_sweep``); dense X on the CPU defaults to the plain
 Gram-blocked sweep (``backend="blocked"``,
-``ops/block_sweep.horseshoe_block_sweep``).
+``ops/block_sweep.horseshoe_block_sweep``); ``backend="scan"`` is the
+literal per-marker sweep (``ops/sweep.horseshoe_sweep_scan``).  The state
+runs in ``dtype``, float32 or float64 (``models/sampler.py``).
 
 Per iteration, in the reference's order (src/HorseshoeR.cpp:210-253):
 
@@ -36,8 +38,7 @@ Every draw comes from the variates object the caller passes
 ``step_chains`` is the fused multi-chain iteration (horseshoe.py:516-562):
 the same per-chain draws around one ``horseshoe_jacobi_t_mc`` sweep of all
 chains (``horseshoe_sweep_mc`` at J=1 and on a row plan, as JAX's
-``_mc_step_impl``).  What lies outside the slice raises
-``NotImplementedError`` naming its ROADMAP entry: the scan backend.
+``_mc_step_impl``).
 """
 from __future__ import annotations
 
@@ -53,6 +54,7 @@ from ..ops.jacobi import horseshoe_jacobi
 from ..ops.jacobi_t import horseshoe_jacobi_t, horseshoe_jacobi_t_mc
 from ..ops.multichain import horseshoe_sweep_mc
 from ..ops.serial import horseshoe_sweep
+from ..ops.sweep import horseshoe_sweep_scan
 from .sampler import Genotypes, MarkerSampler
 from .state import HorseshoeState
 
@@ -66,14 +68,16 @@ class HorseshoeSampler(MarkerSampler):
 
     Parameters as ``SpikeSlabSampler``'s, without cva, groups and fixed
     effects: X as dosages, standardized values, pre-packed int32 words or
-    int8 codes; ``config`` a HorseshoeConfig; ``backend`` None, "blocked"
-    (dense X) or "pallas" (the sweep kernels, strided or serial; None picks
-    them for quantized X and for dense X on the card);
+    int8 codes; ``config`` a HorseshoeConfig; ``dtype`` float32 (None) or
+    float64; ``backend`` None, "blocked" (dense X), "scan" (dense X, the
+    literal sweep; ``permutation`` "full" by default, or "blocked") or
+    "pallas" (the sweep kernels, strided or serial; None picks them for
+    quantized X and for dense X on the card);
     ``device`` defaults to X's device for a tensor X, else the card
     ("cuda"; raises without one: pass ``device="cpu"`` to run on the CPU).
     """
 
-    def __init__(self, X, Y, config: HorseshoeConfig, *,
+    def __init__(self, X, Y, config: HorseshoeConfig, *, dtype=None,
                  backend: Optional[str] = None,
                  permutation: Optional[str] = None, transposed: bool = False,
                  x_dtype: str = "dense", x_stats=None,
@@ -81,7 +85,7 @@ class HorseshoeSampler(MarkerSampler):
                  n_markers: Optional[int] = None,
                  jacobi_blocks: Optional[int] = None,
                  jacobi_layout: str = "auto", device=None):
-        self._storage(x_dtype, backend, permutation, jacobi_layout)
+        self._storage(x_dtype, backend, permutation, jacobi_layout, dtype)
         self.config = config
         X, prepacked, M, N = self._read_x(X, Y, transposed, x_stats,
                                           n_individuals, n_markers, device)
@@ -98,7 +102,7 @@ class HorseshoeSampler(MarkerSampler):
         ``chains=C``, C fresh chains stacked on a leading axis."""
         v = self.variates(rng, chains)
         cfg = self.config
-        dev, f32 = self.device, torch.float32
+        dev, dt = self.device, self.dtype
         lead = () if chains is None else (chains,)
         # packed: pad lanes of Y are exactly 0
         eps = self.Y.expand(lead + self.Y.shape).clone()
@@ -106,14 +110,14 @@ class HorseshoeSampler(MarkerSampler):
         g_eta, g_tau = v.init_gammas(0.5, 0.5 * cfg.vT)
         eta = dist.inv_gamma(1.0 / (sigmaE * cfg.A ** 2), g_eta)
         tau = (1.0 / eta) * dist.inv_gamma(cfg.vT, g_tau)
-        ones = torch.ones(lead + (self.Mpad,), dtype=f32, device=dev)
+        ones = torch.ones(lead + (self.Mpad,), dtype=dt, device=dev)
         return HorseshoeState(
             iteration=0,
-            mu=torch.zeros(lead, dtype=f32, device=dev),
-            beta=torch.zeros(lead + (self.Mpad,), dtype=f32, device=dev),
+            mu=torch.zeros(lead, dtype=dt, device=dev),
+            beta=torch.zeros(lead + (self.Mpad,), dtype=dt, device=dev),
             eps=eps, sigmaE=sigmaE, lam=ones, v=ones.clone(),
-            tau=tau.to(f32), eta=eta.to(f32),
-            c2=torch.full(lead, cfg.c2, dtype=f32, device=dev))
+            tau=tau.to(dt), eta=eta.to(dt),
+            c2=torch.full(lead, cfg.c2, dtype=dt, device=dev))
 
     def init_from(self, rng, mu, beta, sigmaE, tau, lam,
                   epsilon) -> HorseshoeState:
@@ -125,19 +129,19 @@ class HorseshoeSampler(MarkerSampler):
         order."""
         v = self.variates(rng)
         cfg = self.config
-        dev, f32 = self.device, torch.float32
+        dev, dt = self.device, self.dtype
         beta = np.asarray(beta, np.float64).reshape(-1)
         lam = np.asarray(lam, np.float64).reshape(-1)
         if beta.shape[0] != self.M or lam.shape[0] != self.M:
             raise ValueError("beta/lambda must have length M")
         pad = self.Mpad - self.M
-        beta_pad = torch.as_tensor(np.pad(beta, (0, pad)), dtype=f32,
+        beta_pad = torch.as_tensor(np.pad(beta, (0, pad)), dtype=dt,
                                    device=dev)
         # pad lambdas are 1 (an exact 0 would divide by zero in the v draw)
         lam_pad = torch.as_tensor(np.pad(lam, (0, pad), constant_values=1.0),
-                                  dtype=f32, device=dev)
-        tau = torch.as_tensor(tau, dtype=f32, device=dev)
-        sigmaE = torch.as_tensor(sigmaE, dtype=f32, device=dev)
+                                  dtype=dt, device=dev)
+        tau = torch.as_tensor(tau, dtype=dt, device=dev)
+        sigmaE = torch.as_tensor(sigmaE, dtype=dt, device=dev)
         eps = np.asarray(epsilon, np.float64).reshape(-1)
         if eps.shape[0] != self.N:
             raise ValueError("epsilon must have length N")
@@ -154,12 +158,12 @@ class HorseshoeSampler(MarkerSampler):
             g_c2)
         return HorseshoeState(
             iteration=0,
-            mu=torch.as_tensor(mu, dtype=f32, device=dev),
+            mu=torch.as_tensor(mu, dtype=dt, device=dev),
             beta=beta_pad,
             eps=torch.as_tensor(np.pad(eps, (0, self.Npad - self.N)),
-                                dtype=f32, device=dev),
-            sigmaE=sigmaE, lam=lam_pad, v=v_aux.to(f32), tau=tau,
-            eta=eta.to(f32), c2=c2.to(f32))
+                                dtype=dt, device=dev),
+            sigmaE=sigmaE, lam=lam_pad, v=v_aux.to(dt), tau=tau,
+            eta=eta.to(dt), c2=c2.to(dt))
 
     # ------------------------------------------------------------------ step
 
@@ -201,7 +205,8 @@ class HorseshoeSampler(MarkerSampler):
             (self._psum(torch.sum(eps * eps, dim=-1), "n")
              + cfg.v0E * cfg.s02E) / dof_e,
             v.sigmaE_gamma(0.5 * dof_e))
-        return lam, tau, c2, sigmaE
+        dt = self.dtype
+        return lam, tau.to(dt), c2.to(dt), sigmaE.to(dt)
 
     def step(self, state: HorseshoeState, rng) -> HorseshoeState:
         """One Gibbs iteration; enqueues device work only."""
@@ -211,12 +216,22 @@ class HorseshoeSampler(MarkerSampler):
         d = self.data
         Mpad, B, nb = self.Mpad, self.B, self.nb
         kernels = self.backend == "pallas"
-        if kernels and self.strided:
+        if self.backend == "scan":
+            # the literal sweep in a full permutation, or in the blocked one
+            # flattened (horseshoe.py:496-505), z by sweep position
+            if self.permutation == "full":
+                order = v.full_order(Mpad)
+            else:
+                order = bs.flat_order(*v.block_orders(nb, B), B)
+            eps, beta = horseshoe_sweep_scan(
+                d.XT, d.xsq, eps, state.beta, order, v.z(Mpad), state.lam,
+                state.tau, state.c2, state.sigmaE, d.valid)
+        elif kernels and self.strided:
             rho, inner = v.orders(nb, B, self.jacobi)
-            eps, beta = horseshoe_jacobi_t(
-                d.XT, d.gram, d.xsq, eps, state.beta, rho, inner, v.z(Mpad),
-                state.lam, state.tau, state.c2, state.sigmaE, d.valid,
-                J=self.jacobi, **self._sweep_kw())
+            eps, beta = self._kernel(
+                horseshoe_jacobi_t, d.XT, d.gram, d.xsq, eps, state.beta,
+                rho, inner, v.z(Mpad), state.lam, state.tau, state.c2,
+                state.sigmaE, d.valid, J=self.jacobi, **self._sweep_kw())
         else:
             # the shuffled block order, z by sweep position
             # (horseshoe.py:464-485): the row-layout sweep at J > 1, the
@@ -228,10 +243,13 @@ class HorseshoeSampler(MarkerSampler):
             if not kernels:
                 eps, beta = bs.horseshoe_block_sweep(*args)
             elif self.jacobi > 1:
-                eps, beta = horseshoe_jacobi(*args, J=self.jacobi,
-                                             **self._sweep_kw())
+                self._f64_check("horseshoe_jacobi_pallas")
+                eps, beta = self._kernel(horseshoe_jacobi, *args,
+                                         J=self.jacobi, **self._sweep_kw())
             else:
-                eps, beta = horseshoe_sweep(*args, **self._sweep_kw())
+                self._f64_check("horseshoe_sweep_pallas")
+                eps, beta = self._kernel(horseshoe_sweep, *args,
+                                         **self._sweep_kw())
         return self._next(state, v, mu, eta, v_aux, eps, beta)
 
     def step_chains(self, state: HorseshoeState, rng) -> HorseshoeState:
@@ -254,11 +272,13 @@ class HorseshoeSampler(MarkerSampler):
         else:
             # J=1 and the row plan: the shared block order, z by marker
             # (horseshoe.py:545-552)
+            self._f64_check("horseshoe_sweep_pallas_mc")
             orders = v.block_orders(self.nb, self.B)
             sweep, kw = horseshoe_sweep_mc, {}
-        eps, beta = sweep(d.XT, d.gram, d.xsq, eps, state.beta, *orders,
-                          v.z(self.Mpad), state.lam, state.tau, state.c2,
-                          state.sigmaE, d.valid, **kw, **self._sweep_kw())
+        eps, beta = self._kernel(
+            sweep, d.XT, d.gram, d.xsq, eps, state.beta, *orders,
+            v.z(self.Mpad), state.lam, state.tau, state.c2, state.sigmaE,
+            d.valid, **kw, **self._sweep_kw())
         return self._next(state, v, mu, eta, v_aux, eps, beta)
 
     def _next(self, state, v, mu, eta, v_aux, eps, beta) -> HorseshoeState:

@@ -21,6 +21,15 @@ codes have no strided one (``_row_plan``).  int8 codes keep eps and Y in
 individual order with no pad lanes (Npad == N, no ``row_valid``), as
 dense X does.
 
+The state runs in ``dtype``, float32 (the default) or float64, as the JAX
+samplers take it (bayesr.py:111): the plain sweeps ("blocked", and "scan",
+the literal per-marker sweep of ``ops/sweep.py`` in any marker order,
+``permutation="full"`` its default) compute in it; the kernels compute in
+float32, and under a float64 state they take float32 casts of their operands
+and give their outputs back in float64, as JAX's Pallas wrappers do
+(pallas_jacobi_t.py:1048-1055), or raise ``ValueError`` where JAX's kernel
+raises (``_F64_RAISES``).
+
 Several chains (``run_chains``) are one state whose tensors carry a
 leading chain axis C (``init(rng, chains=C)``).  On the kernel backend a
 fused step (``step_chains``) sweeps all chains with one set of launches per
@@ -60,9 +69,42 @@ class Genotypes(NamedTuple):
     has_missing: bool = False  # quantized X holds missing calls (code 3)
 
 
-def not_ported(what: str, entry: str):
-    return NotImplementedError(
-        f"{what} is not ported to bayesrrcpp_tpu_torch yet (ROADMAP {entry})")
+def resolve_dtype(dtype) -> torch.dtype:
+    """The state's dtype: float32 (the default, ``None``) or float64, given
+    as a torch or NumPy dtype or its name."""
+    if dtype is None:
+        return torch.float32
+    if isinstance(dtype, torch.dtype):
+        out = dtype
+    else:
+        try:
+            out = {np.dtype(np.float32): torch.float32,
+                   np.dtype(np.float64): torch.float64}.get(np.dtype(dtype))
+        except TypeError:
+            out = None
+    if out not in (torch.float32, torch.float64):
+        raise ValueError(f"dtype={dtype!r}: the samplers run in float32 or "
+                         "float64")
+    return out
+
+
+def numpy_dtype(dtype: torch.dtype):
+    """The NumPy dtype of a state's torch dtype (float32 or float64)."""
+    return np.float64 if dtype == torch.float64 else np.float32
+
+
+# JAX's Pallas kernels that raise ValueError under a float64 state (dtype=
+# float64 in interpret mode on the CPU: "Invalid dtype for `swap`"), each
+# with whether it raises for dense X only; the strided sweeps (#1-#8), the
+# row-layout BayesR sweep (#16) and the round solves (#13, #14) run on
+# float32 casts of their operands instead
+_F64_RAISES = {
+    "bayesr_sweep_pallas": True,
+    "bayesr_sweep_pallas_mc": True,
+    "horseshoe_sweep_pallas_mc": True,
+    "horseshoe_sweep_pallas": False,
+    "horseshoe_jacobi_pallas": False,
+}
 
 
 class MarkerSampler:
@@ -72,31 +114,33 @@ class MarkerSampler:
     ``self.data`` (a NamedTuple with the fields of ``Genotypes``) and
     ``self.config``."""
 
-    def _storage(self, x_dtype, backend, permutation, jacobi_layout):
+    def _storage(self, x_dtype, backend, permutation, jacobi_layout,
+                 dtype=None):
         """Check the storage and sweep options; sets ``x_packed``,
-        ``x_int8`` and ``backend``: the sweep kernels ("pallas": strided or
-        row-layout Jacobi, or serial at J=1), which quantized X (2-bit
-        words, int8 codes) needs, or the plain Gram-blocked sweep
-        ("blocked", dense X only).  None for dense X is resolved by the
-        device in ``_read_x``."""
+        ``x_int8``, ``dtype``, ``permutation`` and ``backend``: the sweep
+        kernels ("pallas": strided or row-layout Jacobi, or serial at J=1),
+        which quantized X (2-bit words, int8 codes) needs, the plain
+        Gram-blocked sweep ("blocked", dense X only) or the literal scan
+        ("scan", dense X only).  None for dense X is resolved by the device
+        in ``_read_x``, and the permutation with it (bayesr.py:129-136)."""
         if x_dtype not in ("dense", "int8", "2bit"):
             raise ValueError(f"unknown x_dtype {x_dtype!r}")
-        if backend == "scan" or permutation == "full":
-            raise not_ported("the sequential scan sweep", "Queue 1 item 8")
-        if backend not in (None, "blocked", "pallas"):
+        if backend not in (None, "blocked", "pallas", "scan"):
             raise ValueError(f"unknown backend {backend!r}")
-        if permutation not in (None, "blocked"):
+        if permutation not in (None, "blocked", "full"):
             raise ValueError(f"unknown permutation {permutation!r}")
         if jacobi_layout not in ("auto", "row", "t"):
             raise ValueError(f"unknown jacobi_layout {jacobi_layout!r}")
         self.x_packed = x_dtype == "2bit"
         self.x_int8 = x_dtype == "int8"
+        self.dtype = resolve_dtype(dtype)
         if backend is None and x_dtype != "dense":
             backend = "pallas"
         if x_dtype != "dense" and backend != "pallas":
             raise ValueError(f"x_dtype={x_dtype!r} requires the pallas "
                              "backend")
         self.backend = backend
+        self.permutation = permutation
 
     def _read_x(self, X, Y, transposed, x_stats, n_individuals, n_markers,
                 device):
@@ -113,6 +157,11 @@ class MarkerSampler:
         if self.backend is None:
             # dense X: the kernels on the card, the plain sweep elsewhere
             self.backend = "pallas" if self.device.type == "cuda" else "blocked"
+        if self.permutation is None:
+            self.permutation = "full" if self.backend == "scan" else "blocked"
+        if self.backend != "scan" and self.permutation != "blocked":
+            raise ValueError(f"{self.backend} backend requires blocked "
+                             "permutation")
         prepacked = (self.x_packed and isinstance(X, torch.Tensor)
                      and X.dtype == torch.int32)
         if prepacked:
@@ -157,14 +206,13 @@ class MarkerSampler:
         self.N, self.M, self.Mpad, self.B = N, M, Mpad, B
         self.nb = Mpad // B
         self.jacobi, self.jacobi_layout = J, layout
-        self.dtype = torch.float32
         if prepacked and X.shape[0] not in (M, Mpad):
             raise ValueError(
                 f"pre-packed words have {X.shape[0]} rows; expected the "
                 f"true marker count ({M}) or the planned padded count "
                 f"({Mpad}, = ops.jacobi.planned_mpad)")
 
-        dev, f32 = self.device, torch.float32
+        dev, f32, dt = self.device, torch.float32, self.dtype
         empty = torch.zeros((0,), dtype=f32, device=dev)
         valid = torch.arange(Mpad, device=dev) < M
         if self.x_packed:
@@ -194,9 +242,10 @@ class MarkerSampler:
             self.Npad = N
             XT = X if transposed else X.T
             if not isinstance(XT, torch.Tensor):
-                # marker-major f32 on the host, then one transfer
-                XT = np.ascontiguousarray(XT, dtype=np.float32)
-            XT = torch.as_tensor(XT, dtype=f32, device=dev).contiguous()
+                # marker-major in the state's dtype on the host, then one
+                # transfer
+                XT = np.ascontiguousarray(XT, dtype=numpy_dtype(dt))
+            XT = torch.as_tensor(XT, dtype=dt, device=dev).contiguous()
             xsq = torch.sum(XT * XT, dim=1)
             XT, xsq, _ = bs.pad_markers(XT, xsq, B, mpad=Mpad)
             geno = Genotypes(
@@ -204,7 +253,7 @@ class MarkerSampler:
                 x_mean=empty, x_scale=empty, x_colsum=empty,
                 row_valid=torch.zeros((0,), dtype=torch.bool, device=dev))
         # packed mode keeps Y (and eps) padded to Npad, pad lanes exactly 0
-        Yt = torch.as_tensor(Y, dtype=f32, device=dev)
+        Yt = torch.as_tensor(Y, dtype=dt, device=dev)
         if self.Npad != N:
             Yt = torch.cat([Yt, Yt.new_zeros((self.Npad - N,))])
         self.Y = Yt
@@ -292,7 +341,7 @@ class MarkerSampler:
             if rng.device.type != self.device.type:
                 raise ValueError(f"generator on {rng.device}, sampler on "
                                  f"{self.device}")
-            return dist.TorchVariates(rng, chains=chains)
+            return dist.TorchVariates(rng, self.dtype, chains=chains)
         return rng
 
     def xbeta(self, beta) -> torch.Tensor:
@@ -310,21 +359,67 @@ class MarkerSampler:
             d = self.data
             return genotypes.xbeta_packed(d.XT, d.x_mean, d.x_scale, beta,
                                           self.B, self.N)
-        return beta @ self.data.XT
+        return beta @ self._f32(self.data.XT)
 
     def refresh_eps(self, state):
         """Recompute eps = Y - mu - X beta (- alpha F) with one fresh pass
         over X (ChainConfig.eps_refresh_every; bounds the f32 drift of the
-        rank-1 residual updates); one chain or a leading chain axis."""
+        rank-1 residual updates); one chain or a leading chain axis.  In
+        float32, then cast to the state's dtype, as JAX's _refresh_impl
+        (bayesr.py:472-495)."""
+        f32 = torch.float32
         xb = self.xbeta(state.beta)
         xb = torch.nn.functional.pad(xb, (0, self.Y.shape[-1] - xb.shape[-1]))
-        eps = self.Y - xb - state.mu[..., None]
+        eps = self.Y.to(f32) - xb - state.mu.to(f32)[..., None]
         if getattr(self, "F", 0) > 0:
-            eps = eps - state.alpha @ self.data.fixedT
+            eps = eps - state.alpha.to(f32) @ self._f32(self.data.fixedT)
         mask = self._lane_mask()
         if mask is not None:
             eps = torch.where(mask, eps, 0.0)
-        return state.replace(eps=eps)
+        return state.replace(eps=eps.to(self.dtype))
+
+    # ------------------------------------------------------------ kernels
+
+    def _f32(self, t):
+        """``t`` in float32, the kernels' dtype: itself in a float32 state;
+        a cast, kept once for X and the Gram blocks (static data), under a
+        float64 state."""
+        if not (isinstance(t, torch.Tensor) and t.is_floating_point()) \
+                or t.dtype == torch.float32:
+            return t
+        d = self.data
+        if not any(t is getattr(d, f, None) for f in ("XT", "gram",
+                                                     "fixedT")):
+            return t.to(torch.float32)
+        cache = self.__dict__.setdefault("_f32_static", {})
+        hit = cache.get(id(t))
+        if hit is None or hit[0] is not t:
+            hit = cache[id(t)] = (t, t.to(torch.float32))
+        return hit[1]
+
+    def _kernel(self, sweep, *args, **kw):
+        """``sweep(*args, **kw)``, a kernel wrapper.  Under a float64 state
+        its float operands go in as float32 and its float outputs come back
+        in float64, as JAX's Pallas wrappers cast them; a float32 state
+        calls it as it is."""
+        if self.dtype == torch.float32:
+            return sweep(*args, **kw)
+        res = sweep(*(self._f32(a) for a in args), **kw)
+        out = [t.to(self.dtype) if t.is_floating_point() else t for t in res]
+        return type(res)(*out) if hasattr(res, "_fields") else tuple(out)
+
+    def _f64_check(self, kernel: str):
+        """Under a float64 state, raise ``ValueError`` where JAX's Pallas
+        ``kernel`` raises (``_F64_RAISES``): the port computes in no dtype
+        other than JAX's."""
+        if self.dtype == torch.float32 or kernel not in _F64_RAISES:
+            return
+        if _F64_RAISES[kernel] and (self.x_packed or self.x_int8):
+            return
+        raise ValueError(
+            f"dtype=float64 on this plan sweeps through {kernel}, whose JAX "
+            "Pallas kernel takes no float64 state (it raises ValueError); "
+            "use backend='blocked' or 'scan', or a strided plan")
 
     def _lane_mask(self):
         """The lanes of eps that hold an individual (the packed layout's

@@ -12,10 +12,10 @@ markers with X_b (B x N rows of the marker-major XT):
 The permutation is block-restricted (shuffled block order, shuffled order
 inside each block), which keeps the reference's stationary distribution
 (src/BayesRv2.cpp:180-184).  ``bayesr_block_sweep`` and
-``horseshoe_block_sweep`` are the dense paths of the two samplers;
-``bayesr_jacobi_sweep`` and ``horseshoe_jacobi_sweep`` are the block-Jacobi
-oracles that the strided-rounds sweeps (``ops/jacobi_t.py``) are held to
-in the tests.
+``horseshoe_block_sweep`` are the dense paths of the two samplers, in the
+state's dtype (float32 or float64); ``bayesr_jacobi_sweep`` and
+``horseshoe_jacobi_sweep`` are the block-Jacobi oracles that the
+strided-rounds sweeps (``ops/jacobi_t.py``) are held to in the tests.
 """
 from __future__ import annotations
 
@@ -70,6 +70,14 @@ def strided_border(rho, J):
     nr = rho.shape[0]
     j = torch.arange(J, dtype=rho.dtype, device=rho.device)
     return (j[None, :] * nr + rho[:, None]).reshape(-1)
+
+
+def flat_order(block_order, inner_perm, block_size):
+    """A block-restricted permutation as one global marker order (for the
+    scan sweep, ``ops/sweep.py``): block_order[i]'s markers in the order
+    inner_perm[block_order[i]]."""
+    return (block_order[:, None].long() * block_size
+            + inner_perm[block_order.long()].long()).reshape(-1)
 
 
 def spike_slab_inner_solve(r, Gb, beta_b, labels_b, xsq_b, gas_b, valid_b,

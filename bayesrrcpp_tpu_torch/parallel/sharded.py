@@ -65,6 +65,13 @@ replicated: every rank holds them whole.
   (F, Nloc); the fixed-effect sweep's dots are summed over "n", and the
   per-group sum of slab beta^2 (``bacc``) over "m" beside the counts
   before sigmaG is drawn per group.
+
+- **dtype** (float32, the default, or float64, as JAX's ``dtype=``,
+  sharded.py:211): ``backend="xla"`` and the plain algebra run in it; the
+  kernels under a float64 state take float32 casts of their operands and
+  cast their outputs back where JAX's do (the strided chunks, the round
+  solves of the split sweep), and raise ``ValueError`` where JAX's serial
+  chunks raise (``models/sampler._F64_RAISES``).
 """
 from __future__ import annotations
 
@@ -79,7 +86,7 @@ from ..config import ChainConfig, HorseshoeConfig
 from ..distributions import TorchVariates
 from ..models.bayesr import MarkerData, SpikeSlabSteps
 from ..models.horseshoe import HorseshoeData, HorseshoeSampler
-from ..models.sampler import MarkerSampler
+from ..models.sampler import MarkerSampler, numpy_dtype, resolve_dtype
 from ..models.state import HorseshoeState, SpikeSlabState
 from ..ops import block_sweep as bs
 from ..ops import genotypes
@@ -120,13 +127,14 @@ class SliceVariates:
     in the same state; the slice's own (visit orders, p, z, the
     horseshoe's local gammas) from ``derived_generator(generator,
     m_index)``.  ``chains=C`` gives every per-chain draw a leading chain
-    axis, the visit order being shared (``distributions.TorchVariates``)."""
+    axis, the visit order being shared (``distributions.TorchVariates``);
+    float draws in ``dtype``."""
 
     def __init__(self, generator: torch.Generator, m_index: int,
-                 chains: Optional[int] = None):
+                 chains: Optional[int] = None, dtype=torch.float32):
         local = derived_generator(generator, m_index)
-        self.rep = TorchVariates(generator, chains=chains)
-        self.loc = TorchVariates(local, chains=chains)
+        self.rep = TorchVariates(generator, dtype, chains=chains)
+        self.loc = TorchVariates(local, dtype, chains=chains)
 
     def begin_step(self):
         pass
@@ -193,13 +201,12 @@ class _ShardedMarkers(MarkerSampler):
                              "backend='pallas'")
         if x_dtype != "dense" and (mesh.Dn != 1 or split_sweep):
             # sharded.py:242-245: code rows do not split over individuals
-            raise ValueError("Dn > 1 and the split sweep take dense f32 X "
+            raise ValueError("Dn > 1 and the split sweep take dense X "
                              "only (quantized codes: use an (m, 1) mesh)")
         if x_process_shard and x_dtype == "int8":
             raise ValueError("x_process_shard supports dense and pre-packed "
                              "2-bit input (int8: pass the full code matrix)")
-        if dtype not in (None, torch.float32, np.float32, "float32"):
-            raise ValueError("the port's samplers run in float32")
+        self.dtype = resolve_dtype(dtype)
         self.mesh = mesh
         self.Dm, self.Dn = mesh.Dm, mesh.Dn
         self.device = mesh.device
@@ -211,7 +218,6 @@ class _ShardedMarkers(MarkerSampler):
         self.x_packed = x_dtype == "2bit"
         self.x_int8 = x_dtype == "int8"
         self.x_process_shard = bool(x_process_shard)
-        self.dtype = torch.float32
 
     # ------------------------------------------------------------ layout
 
@@ -300,7 +306,7 @@ class _ShardedMarkers(MarkerSampler):
         else:
             geno = self._dense_slice(X, transposed, lo, m_real)
         Yt = torch.as_tensor(np.asarray(Y) if not isinstance(Y, torch.Tensor)
-                             else Y, dtype=torch.float32, device=self.device)
+                             else Y, dtype=self.dtype, device=self.device)
         if tuple(Yt.shape) != (N,):
             raise ValueError("Y must have the same number of rows as X")
         n0, n1 = self.n_range
@@ -394,10 +400,10 @@ class _ShardedMarkers(MarkerSampler):
                                                      has_missing))
 
     def _dense_slice(self, X, transposed, lo, m_real):
-        """This slice's standardized f32 rows (Mloc, Nloc), zero on padding
-        markers and individuals, with xsq and the Gram blocks summed over
-        the n-slices (sharded.py:438-455)."""
-        dev, f32 = self.device, torch.float32
+        """This slice's standardized rows (Mloc, Nloc) in the state's dtype,
+        zero on padding markers and individuals, with xsq and the Gram
+        blocks summed over the n-slices (sharded.py:438-455)."""
+        dev, f32, dt = self.device, torch.float32, self.dtype
         if self.x_process_shard:
             rows = X[:m_real]
         else:
@@ -407,9 +413,9 @@ class _ShardedMarkers(MarkerSampler):
         n_real = max(0, min(self.n_range[1], self.N) - n0)
         rows = rows[:, n0:n0 + n_real]
         if not isinstance(rows, torch.Tensor):
-            rows = np.ascontiguousarray(rows, dtype=np.float32)
-        XT = torch.zeros((self.Mloc, self.Nloc), dtype=f32, device=dev)
-        XT[:m_real, :n_real] = torch.as_tensor(rows, dtype=f32, device=dev)
+            rows = np.ascontiguousarray(rows, dtype=numpy_dtype(dt))
+        XT = torch.zeros((self.Mloc, self.Nloc), dtype=dt, device=dev)
+        XT[:m_real, :n_real] = torch.as_tensor(rows, dtype=dt, device=dev)
         empty = torch.zeros((0,), dtype=f32, device=dev)
         return dict(XT=XT, xsq=self._psum(torch.sum(XT * XT, dim=1), AXIS_N),
                     gram=self._psum(bs.gram_blocks(XT, self.B), AXIS_N),
@@ -431,7 +437,7 @@ class _ShardedMarkers(MarkerSampler):
             if rng.device.type != self.device.type:
                 raise ValueError(f"generator on {rng.device}, sampler on "
                                  f"{self.device}")
-            return SliceVariates(rng, self.mesh.m_index, chains)
+            return SliceVariates(rng, self.mesh.m_index, chains, self.dtype)
         return rng
 
     def _psum(self, t, axis: str):
@@ -606,20 +612,21 @@ class ShardedSpikeSlabSampler(SpikeSlabSteps, _ShardedMarkers):
             # int8 codes with missing calls: the serial in-kernel decode
             # (JAX's use_t is False there, sharded.py:552-555)
             self.jacobi, self.jacobi_layout = 1, "row"
-        dev, f32 = self.device, torch.float32
-        # the fixed-effect columns, f32, individuals in natural order and
-        # pads 0, split over "n"; fsq of the f32 values (sharded.py:404-416)
-        fixedT = np.zeros((self.F, self.Npad), np.float32)
+        dev, dt = self.device, self.dtype
+        # the fixed-effect columns in the state's dtype, individuals in
+        # natural order and pads 0, split over "n"; fsq of those values
+        # (sharded.py:396-417)
+        fixedT = np.zeros((self.F, self.Npad), numpy_dtype(dt))
         fixedT[:, :self.N] = fixed.T
         self.data = MarkerData(
             **geno, valid=self._valid(),
             g_assign=put_global(self.mesh, np.pad(g_assign,
                                                   (0, self.Mpad - self.M))),
-            cva=torch.as_tensor(cva2, dtype=f32, device=dev),
-            prior_pi=torch.as_tensor(prior_pi, dtype=f32, device=dev),
+            cva=torch.as_tensor(cva2, dtype=dt, device=dev),
+            prior_pi=torch.as_tensor(prior_pi, dtype=dt, device=dev),
             fixedT=put_global(self.mesh, fixedT, spec=(None, AXIS_N)),
             fsq=torch.as_tensor((fixedT.astype(np.float64) ** 2).sum(axis=1),
-                                dtype=f32, device=dev))
+                                dtype=dt, device=dev))
 
     @property
     def supports_fused_chains(self) -> bool:
@@ -696,10 +703,11 @@ class ShardedSpikeSlabSampler(SpikeSlabSteps, _ShardedMarkers):
         beta, labels = state.beta, state.labels
         v = bacc = 0.0
         for c0 in range(0, nr, nrc):
-            res = rounds(d.XT, d.gram, d.xsq, eps, beta, labels,
-                         rho[c0:c0 + nrc], inner, p, z, state.pi, d.cva,
-                         state.sigmaE, state.sigmaGG, d.g_assign, d.valid,
-                         J=self.jacobi, nr_total=nr, **self._sweep_kw())
+            res = self._kernel(
+                rounds, d.XT, d.gram, d.xsq, eps, beta, labels,
+                rho[c0:c0 + nrc], inner, p, z, state.pi, d.cva,
+                state.sigmaE, state.sigmaGG, d.g_assign, d.valid,
+                J=self.jacobi, nr_total=nr, **self._sweep_kw())
             eps = self._reduce_eps(eps, res.eps, mask=True)
             beta, labels = res.beta, res.labels
             v, bacc = v + res.v, bacc + res.beta_acum
@@ -709,15 +717,16 @@ class ShardedSpikeSlabSampler(SpikeSlabSteps, _ShardedMarkers):
         """A slice whose plan is not "t" (sharded.py:615-654): the serial
         kernel on each chunk of ``chunk_blocks`` blocks
         (``_serial_chunks``)."""
+        self._f64_check("bayesr_sweep_pallas")
         d = self.data
         beta, labels = state.beta, state.labels
         v = bacc = 0.0
 
         def sweep(eps, blocks, by_block, p_c, z_c):
-            return bayesr_sweep(d.XT, d.gram, d.xsq, eps, beta, labels,
-                                blocks, by_block, p_c, z_c, state.pi, d.cva,
-                                state.sigmaE, state.sigmaGG, d.g_assign,
-                                d.valid, **self._sweep_kw())
+            return self._kernel(bayesr_sweep, d.XT, d.gram, d.xsq, eps, beta,
+                                labels, blocks, by_block, p_c, z_c, state.pi,
+                                d.cva, state.sigmaE, state.sigmaGG,
+                                d.g_assign, d.valid, **self._sweep_kw())
 
         for eps, beta, labels, v_c, bacc_c in self._serial_chunks(
                 sweep, eps, border, inner, p, z):
@@ -731,6 +740,7 @@ class ShardedSpikeSlabSampler(SpikeSlabSteps, _ShardedMarkers):
         (``inner_perm[block_order]``, pallas_multichain.py:408, clamped to
         the chunk's last row), so block b sweeps in the order of position
         min(b, chunk - 1) of the chunk; so does this."""
+        self._f64_check("bayesr_sweep_pallas_mc")
         d = self.data
         nb, C = self.nb_loc, self._serial_chunk()
         beta, labels = state.beta, state.labels
@@ -738,11 +748,11 @@ class ShardedSpikeSlabSampler(SpikeSlabSteps, _ShardedMarkers):
         for c0 in range(0, nb, C):
             cb = min(C, nb - c0)
             at = torch.clamp(torch.arange(nb, device=inner.device), max=cb - 1)
-            res = bayesr_sweep_mc(d.XT, d.gram, d.xsq, eps, beta, labels,
-                                  border[c0:c0 + cb], inner[c0:c0 + cb][at],
-                                  p, z, state.pi, d.cva, state.sigmaE,
-                                  state.sigmaGG, d.g_assign, d.valid,
-                                  **self._sweep_kw())
+            res = self._kernel(bayesr_sweep_mc, d.XT, d.gram, d.xsq, eps,
+                               beta, labels, border[c0:c0 + cb],
+                               inner[c0:c0 + cb][at], p, z, state.pi, d.cva,
+                               state.sigmaE, state.sigmaGG, d.g_assign,
+                               d.valid, **self._sweep_kw())
             eps = self._reduce_eps(eps, res.eps, mask=False)
             beta, labels = res.beta, res.labels
             v, bacc = v + res.v, bacc + res.beta_acum
@@ -764,8 +774,8 @@ class ShardedSpikeSlabSampler(SpikeSlabSteps, _ShardedMarkers):
         acc = [0.0, 0.0]
 
         def solve(i, r, blk, idx):
-            dl, beta_new, labels_new, v_r, bacc_r = bayesr_round_solve(
-                r, d.gram[blk], beta[idx].view(J, B),
+            dl, beta_new, labels_new, v_r, bacc_r = self._kernel(
+                bayesr_round_solve, r, d.gram[blk], beta[idx].view(J, B),
                 labels[idx].view(J, B), d.g_assign[idx].view(J, B),
                 inner_sel[i], pkg[i], state.sigmaE, K=K, G=G)
             beta[idx] = beta_new.reshape(-1)
@@ -876,19 +886,19 @@ class ShardedHorseshoeSampler(_ShardedMarkers, HorseshoeSampler):
                              "(sharded.py has no fused horseshoe)")
         v = self.variates(rng)
         cfg = self.config
-        dev, f32 = self.device, torch.float32
+        dev, dt = self.device, self.dtype
         eps = self.Y.clone()
         sigmaE = self._psum(torch.sum(eps * eps), AXIS_N) / self.N * 0.5
         g_eta, g_tau = v.init_gammas(0.5, 0.5 * cfg.vT)
         eta = dist.inv_gamma(1.0 / (sigmaE * cfg.A ** 2), g_eta)
         tau = (1.0 / eta) * dist.inv_gamma(cfg.vT, g_tau)
-        ones = torch.ones((self.Mloc,), dtype=f32, device=dev)
+        ones = torch.ones((self.Mloc,), dtype=dt, device=dev)
         return HorseshoeState(
-            iteration=0, mu=torch.zeros((), dtype=f32, device=dev),
-            beta=torch.zeros((self.Mloc,), dtype=f32, device=dev),
+            iteration=0, mu=torch.zeros((), dtype=dt, device=dev),
+            beta=torch.zeros((self.Mloc,), dtype=dt, device=dev),
             eps=eps, sigmaE=sigmaE, lam=ones, v=ones.clone(),
-            tau=tau.to(f32), eta=eta.to(f32),
-            c2=torch.full((), cfg.c2, dtype=f32, device=dev))
+            tau=tau.to(dt), eta=eta.to(dt),
+            c2=torch.full((), cfg.c2, dtype=dt, device=dev))
 
     def init_from(self, *args, **kwargs):
         raise ValueError("the sharded horseshoe has no warm restart "
@@ -917,14 +927,15 @@ class ShardedHorseshoeSampler(_ShardedMarkers, HorseshoeSampler):
         """Site #10 (sharded.py:1498-1519): ``horseshoe_sweep`` on chunks
         of ``chunk_blocks`` (default 128) blocks, one all-reduce of eps
         over "m" after each."""
+        self._f64_check("horseshoe_sweep_pallas")
         d = self.data
         beta = state.beta
 
         def sweep(eps, blocks, by_block, z_c):
-            return horseshoe_sweep(d.XT, d.gram, d.xsq, eps, beta, blocks,
-                                   by_block, z_c, state.lam, state.tau,
-                                   state.c2, state.sigmaE, d.valid,
-                                   **self._sweep_kw())
+            return self._kernel(horseshoe_sweep, d.XT, d.gram, d.xsq, eps,
+                                beta, blocks, by_block, z_c, state.lam,
+                                state.tau, state.c2, state.sigmaE, d.valid,
+                                **self._sweep_kw())
 
         for eps, beta in self._serial_chunks(sweep, eps, border, inner, z):
             pass
@@ -944,8 +955,9 @@ class ShardedHorseshoeSampler(_ShardedMarkers, HorseshoeSampler):
         beta = state.beta.clone()
 
         def solve(i, r, blk, idx):
-            dl, beta_new = horseshoe_round_solve(
-                r, d.gram[blk], beta[idx].view(J, B), inner_sel[i], pkg[i])
+            dl, beta_new = self._kernel(
+                horseshoe_round_solve, r, d.gram[blk], beta[idx].view(J, B),
+                inner_sel[i], pkg[i])
             beta[idx] = beta_new.reshape(-1)
             return dl
 

@@ -287,6 +287,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``resume --checkpoint`` and ``resume --from-csv``, each CSV's header
    and widths and #1's launches.
 
+27. the slice of the CLI, the sinks and float64 (no new kernel): (a) at
+   the dense cell dense-16kx49k, its X (built on the card from a seed)
+   saved once as a Fortran-order .npy, ``python -m bayesrrcpp_tpu_torch
+   bayesr --x --y --no-standardize --npz-out`` in f32 through the auto
+   plan twice (seeds 1, 2; 10 iterations, 4 rows; #1's launches counted),
+   every .npz column equal to the CSV rows as parsed, then ``summarize
+   --npz a --npz b --x --y --top 10`` (its JSON keys JAX's), then the
+   horseshoe's ``run`` there (#2's launches, its decile lines); (b)
+   float64 on the card at N=4096 x M=1024 (B=64) for BayesR, the
+   horseshoe and the groups variant with F=3: the blocked sweep against
+   the scan in the blocked permutation over 2 steps from one generator
+   (labels equal, floats to rtol 1e-8 / atol 1e-10), one step of the
+   scan in the full permutation, tracked vs exact float64 eps < 1e-10
+   relative, the scan resumed from a checkpoint after its first step
+   bitwise the uninterrupted run (the horseshoe and the groups variant),
+   each path's ms/iter; (c)
+   ``ShardedSpikeSlabSampler(backend="xla", dtype=float64)`` on a
+   one-rank NCCL mesh replaying the init and first step of (b)'s BayesR
+   blocked run (the block orders re-keyed by sweep position): every state
+   field bitwise that run's.  It logs its seconds.
+
 Phases 8b, 9b and 13b also profile one more fused strided sweep and log
 the apply's device us a round against ``tools/kernel_bounds.apply_round``
 (the round's moved rows and, in the miss mode, their missing calls);
@@ -303,7 +324,7 @@ missing calls), the dense phases also one ``torch.addmv`` (``addmm`` for
 Each such line ends with the card's nvidia-smi name and power limit.
 
 Phases 17-26 run after phase 12, on phase 2's words for 17b, 21b, 23,
-24, 25b and 26b-26c.
+24, 25b and 26b-26c; 13-16 after 26, and 27 last.
 Each group of phases logs the seconds since the start.  The
 three kernel libraries build at once (one nvcc per source).  The script
 prints its total time before the last two lines.  The last
@@ -777,8 +798,8 @@ def main():
 
 
 def smoke(torch, tmp):
-    """Phases 1-26 (module docstring; 17-26 run after 12), their CSVs under
-    ``tmp``; returns 0 or raises."""
+    """Phases 1-27 (module docstring; 17-26 run after 12, 13-16 after 26,
+    27 last), their CSVs under ``tmp``; returns 0 or raises."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import bayesrrcpp_tpu_torch as bt
     from bayesrrcpp_tpu_torch.io.sink import CSVSink
@@ -1067,6 +1088,11 @@ def smoke(torch, tmp):
     # ---- 13-16. words with missing calls
     missing_kernels = missing_phases(torch, bt, tmp)
     elapsed("13-16")
+
+    # ---- 27. the CLI's sinks and summarize at the dense cell, float64
+    # through the blocked and scan sweeps, the sharded xla sampler
+    scan_phases(torch, bt, tmp)
+    elapsed("27")
 
     src = "bayesrrcpp_tpu_torch/csrc/jacobi_t.cu"
     src_mc = "bayesrrcpp_tpu_torch/csrc/jacobi_t_mc.cu"
@@ -5706,6 +5732,300 @@ def groups_phases(torch, bt, hs, tmp, ms_iter_4):
     log("[26] ms/iter: " + ", ".join(f"{k} {v:.2f}" for k, v in ms.items())
         + f"; biobank-packed-auto {ms_iter_4:.2f}; {CARD}")
     return callers
+
+
+# ---------------------------------------------------------------- phase 27
+
+SCAN_N, SCAN_M = 4096, 1024   # 27b / 27c: the plain float64 paths' size
+SCAN_STEPS = 2                # blocked vs scan (27b)
+# 27b's samplers resumed from a checkpoint: the groups variant's state holds
+# every field of BayesR's (alpha and sigmaF too), so BayesR's own resume
+# would add a scan step (~1.7 s) and no field
+RESUMED = ("horseshoe", "groups")
+# the keys of JAX's ``summarize`` JSON for two BayesR chains with --x / --y
+# (bayesrrcpp_tpu/cli.py:458-490; tests/test_torch_sinks_cli.py holds the
+# port's JSON equal to JAX's on the CPU)
+SUMMARY_KEYS = ["n_samples", "n_chains", "mu_mean", "sigmaE_mean",
+                "sigmaF_mean", "h2_mean", "h2_sd", "top_markers", "pve",
+                "rhat_sigmaE", "ess_sigmaE", "rhat_mu", "ess_mu"]
+DECILE_LINE = r"^emitted \d+/\d+: tau \S+ eta \S+ sigmaE \S+$"
+
+
+class TapeVariates:
+    """A variates object recording the draws of ``inner`` (a
+    ``TorchVariates``) role by role, or, with ``inner`` None, replaying the
+    recording ``tape``: two samplers that ask for the same roles take the
+    same draws (27c)."""
+
+    def __init__(self, inner=None, tape=None):
+        self.inner, self.tape = inner, [] if tape is None else list(tape)
+
+    def __getattr__(self, role):
+        if self.inner is None:
+            def replay(*args, **kw):
+                r, out = self.tape.pop(0)
+                check(r == role, f"[27c] replay asked for {role}, tape {r}")
+                return out
+            return replay
+        draw = getattr(self.inner, role)
+
+        def record(*args, **kw):
+            out = draw(*args, **kw)
+            self.tape.append((role, out))
+            return out
+        return record
+
+
+def exact_eps(torch, s, st):
+    """eps = Y - mu - X beta (- alpha F) in float64 on the card, for a
+    dense float64 sampler (``refresh_eps`` runs in float32, as JAX's)."""
+    d = s.data
+    eps = s.Y - st.mu - st.beta @ d.XT
+    if getattr(s, "F", 0):
+        eps = eps - st.alpha @ d.fixedT
+    return eps
+
+
+def same_state(torch, a, b):
+    return all(torch.equal(getattr(a, f), getattr(b, f))
+               for f in a.__dataclass_fields__ if f != "iteration")
+
+
+def timed_steps(torch, s, st, g, n):
+    """``n`` steps of ``s`` from ``st`` with generator ``g``: (state, ms a
+    step)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        st = s.step(st, g)
+    torch.cuda.synchronize()
+    return st, (time.perf_counter() - t0) / n * 1e3
+
+
+def scan_phases(torch, bt, tmp):
+    """Phase 27 (module docstring): (a) the CLI's --no-standardize,
+    --npz-out and summarize at dense-16kx49k, and the horseshoe's deciles;
+    (b) float64 through the blocked and scan sweeps on the card; (c) the
+    sharded ``backend="xla"`` sampler in float64 on a one-rank NCCL mesh.
+    Returns the phase's seconds."""
+    import contextlib
+    import io
+    import re
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from bayesrrcpp_tpu_torch import cli
+    from bayesrrcpp_tpu_torch.io.checkpoint import (load_checkpoint,
+                                                    save_checkpoint)
+    from bayesrrcpp_tpu_torch.io.sink import assemble_rows
+    from bayesrrcpp_tpu_torch.ops import jacobi_t as jt
+    from bayesrrcpp_tpu_torch.parallel.distributed import initialize
+
+    t27 = time.perf_counter()
+    dev = torch.device("cuda")
+
+    # ---- 27a. the CLI at the dense cell: run --no-standardize --npz-out
+    # (f32, the auto plan) twice, summarize the two, then the horseshoe
+    g = torch.Generator(device=dev).manual_seed(27)
+    X = dense_x(torch, g, DENSE_N, DENSE_M)
+    Y = torch.randn(DENSE_N, generator=g, device=dev) + X[:64].sum(0) * 0.1
+    d27 = tempfile.mkdtemp(dir=tmp)
+    xp, yp = os.path.join(d27, "x.npy"), os.path.join(d27, "y.npy")
+    t0 = time.perf_counter()
+    # (N, M) in Fortran order: the CLI's X.T is then C-contiguous, so the
+    # sampler lays it out with no transposed host copy
+    np.save(xp, X.cpu().numpy().T)
+    np.save(yp, Y.cpu().numpy())
+    save_s = time.perf_counter() - t0
+    del X
+    torch.cuda.empty_cache()
+    nr = DENSE_M // 32 // 128
+    chain = ["--iterations", "10", "--burn-in", "2", "--thinning", "2",
+             "--no-standardize"]
+    n_rows = len(list(bt.ChainConfig(10, 2, 2).emit_iterations()))
+    runs = {}
+    for kind, seed, counter in (("bayesr", 1, jt.bayesr_jacobi_t),
+                                ("bayesr", 2, jt.bayesr_jacobi_t),
+                                ("horseshoe", 3, jt.horseshoe_jacobi_t)):
+        out = os.path.join(d27, f"{kind}{seed}.csv")
+        npz = os.path.join(d27, f"{kind}{seed}.npz")
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        counter.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main([kind, "--x", xp, "--y", yp, "--out", out,
+                           "--npz-out", npz, "--seed", str(seed), *chain])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counter.launches
+        check(rc == 0 and launches == 3 * nr * 10,
+              f"[27a] {kind} seed {seed}: rc {rc}, launches {launches}")
+        with open(out) as f:
+            header = f.readline().rstrip("\n").split(",")
+            rows = np.array([[float(v) for v in r.split(", ")]
+                             for r in f.read().split("\n") if r])
+        with np.load(npz) as z:
+            cols = {k: z[k] for k in z.files}
+        check(rows.shape == (n_rows, len(header))
+              and len(header) == 4 + 2 * DENSE_M + DENSE_N,
+              f"[27a] {kind} CSV {rows.shape}")
+        check(np.array_equal(rows.astype(np.float32),
+                             assemble_rows(kind, cols).astype(np.float32)),
+              f"[27a] {kind} seed {seed}: the .npz columns differ from the "
+              f"CSV rows")
+        check(np.isfinite(rows).all(), f"[27a] {kind} non-finite values")
+        runs[kind, seed] = (npz, wall, launches, buf.getvalue())
+        log(f"[27a] {kind} --x x.npy (dense-16kx49k, N={DENSE_N}, "
+            f"M={DENSE_M}) --no-standardize --npz-out, seed {seed}: "
+            f"{wall:.2f} s for 10 iterations, CSV and .npz {rows.shape}, "
+            f"columns equal, #{1 if kind == 'bayesr' else 2} launches "
+            f"{launches}; {CARD}")
+    deciles = [ln for ln in runs["horseshoe", 3][3].splitlines()
+               if re.match(DECILE_LINE, ln)]
+    check(len(deciles) >= 1, "[27a] horseshoe decile lines")
+    for ln in deciles:
+        log(f"[27a]   {ln}")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["summarize", "--npz", runs["bayesr", 1][0], "--npz",
+                       runs["bayesr", 2][0], "--x", xp, "--y", yp, "--top",
+                       "10"])
+    summ = json.loads(buf.getvalue())
+    check(rc == 0 and list(summ) == SUMMARY_KEYS
+          and len(summ["top_markers"]) == 10,
+          f"[27a] summarize keys {list(summ)}")
+    log(f"[27a] summarize --npz a --npz b --x --y --top 10 "
+        f"({time.perf_counter() - t0:.2f} s): keys JAX's, pve "
+        f"{summ['pve']}, h2 {summ['h2_mean']:.4f}, rhat_sigmaE "
+        f"{summ['rhat_sigmaE']}; .npy written in {save_s:.2f} s")
+    elapsed("27a")
+
+    # ---- 27b. float64 on the card: blocked vs scan, the full permutation,
+    # exact eps, checkpoint and resume; BayesR, the horseshoe, groups F=3
+    f64 = torch.float64
+    g = torch.Generator(device=dev).manual_seed(271)
+    Xs = dense_x(torch, g, SCAN_N, SCAN_M).to(f64)
+    Ys = (torch.randn(SCAN_N, generator=g, device=dev, dtype=f64)
+          + Xs[:32].sum(0) * 0.2)
+    common = dict(transposed=True, dtype=f64)
+
+    def sampler(kind, **kw):
+        if kind == "horseshoe":
+            return bt.HorseshoeSampler(Xs, Ys, bt.HorseshoeConfig(
+                block_size=64), device="cuda", **common, **kw)
+        if kind == "groups":
+            return grouped_sampler(bt, Xs, Ys, SCAN_M, SCAN_N, SMALL_GROUPS_F,
+                                   cfg=bt.GroupsConfig(block_size=64),
+                                   seed=272, **common, **kw)
+        return bt.SpikeSlabSampler(Xs, Ys, CVA, bt.BayesRConfig(
+            block_size=64), device="cuda", **common, **kw)
+
+    ms, tape, unsharded = {}, None, None
+    for kind in ("bayesr", "horseshoe", "groups"):
+        states = {}
+        for backend, perm in (("blocked", None), ("scan", "blocked")):
+            s = sampler(kind, backend=backend, permutation=perm)
+            gk = torch.Generator(device=dev).manual_seed(273)
+            v = bt.TorchVariates(gk, f64)
+            if kind == "bayesr" and backend == "blocked":
+                v = TapeVariates(v)
+            st1, ms1 = timed_steps(torch, s, s.init(v), v, 1)
+            if isinstance(v, TapeVariates):
+                # 27c replays the init and the first step
+                tape, unsharded = list(v.tape), (s, st1)
+            if backend == "scan" and kind in RESUMED:
+                # the checkpoint after the first step (27b's resume)
+                ck = os.path.join(d27, f"{kind}.npz")
+                save_checkpoint(ck, st1, gk)
+            st, ms2 = timed_steps(torch, s, st1, v, SCAN_STEPS - 1)
+            ms[kind, backend, perm] = (ms1 + ms2 * (SCAN_STEPS - 1)) \
+                / SCAN_STEPS
+            check(st.eps.dtype == st.beta.dtype == f64 and st.eps.is_cuda,
+                  f"[27b] {kind} {backend}: state {st.eps.dtype}")
+            rel = float(torch.linalg.norm(st.eps - exact_eps(torch, s, st))
+                        / torch.linalg.norm(st.eps))
+            check(rel < 1e-10, f"[27b] {kind} {backend}: tracked vs exact "
+                  f"eps {rel}")
+            states[backend] = (s, st, st1, rel)
+        (_, b, _, rel_b), (ss, sc, sc1, rel_s) = (states["blocked"],
+                                                  states["scan"])
+        if kind != "horseshoe":
+            check(torch.equal(b.labels, sc.labels), f"[27b] {kind} labels")
+        worst = 0.0
+        for f in b.__dataclass_fields__:
+            x, y = getattr(b, f), getattr(sc, f)
+            if isinstance(x, torch.Tensor) and x.is_floating_point() \
+                    and x.numel():
+                check(torch.allclose(x, y, rtol=1e-8, atol=1e-10),
+                      f"[27b] {kind} blocked vs scan {f}")
+                worst = max(worst, float((x - y).abs().max()))
+        # resume on the scan: the checkpoint after the first step, loaded,
+        # then the other steps, against the uninterrupted run
+        resumed = "no resume"
+        if kind in RESUMED:
+            st_r, g_r = load_checkpoint(ck)
+            check(same_state(torch, sc1, st_r) and st_r.beta.dtype == f64,
+                  f"[27b] {kind} checkpoint round trip")
+            st_r, _ = timed_steps(torch, ss, st_r, g_r, SCAN_STEPS - 1)
+            check(same_state(torch, sc, st_r), f"[27b] {kind} resume")
+            resumed = "checkpoint and resume bitwise"
+        # the full permutation
+        sf = sampler(kind, backend="scan")
+        check(sf.permutation == "full", "[27b] scan default permutation")
+        gf = torch.Generator(device=dev).manual_seed(274)
+        stf = sf.init(gf)
+        stf, ms[kind, "scan", "full"] = timed_steps(torch, sf, stf, gf, 1)
+        rel_f = float(torch.linalg.norm(stf.eps - exact_eps(torch, sf, stf))
+                      / torch.linalg.norm(stf.eps))
+        check(rel_f < 1e-10 and bool(torch.isfinite(stf.beta).all()),
+              f"[27b] {kind} full permutation eps {rel_f}")
+        log(f"[27b] {kind} float64 N={SCAN_N} M={SCAN_M} (B=64): blocked "
+            f"{ms[kind, 'blocked', None]:.1f} ms/iter, scan (blocked "
+            f"permutation) {ms[kind, 'scan', 'blocked']:.1f}, scan (full) "
+            f"{ms[kind, 'scan', 'full']:.1f}; blocked vs scan after "
+            f"{SCAN_STEPS} steps max |d| {worst:.3g}; tracked vs exact eps "
+            f"{rel_b:.3g} / {rel_s:.3g} / {rel_f:.3g}; {resumed}; {CARD}")
+        del states, ss, sc, sc1, sf, b
+    elapsed("27b")
+
+    # ---- 27c. the sharded backend="xla" sampler in float64 on a one-rank
+    # NCCL mesh, replaying the init and first step of 27b's BayesR blocked
+    # run: bitwise that run.  The sharded sweep takes its within-block orders by
+    # sweep position (JAX's sharded.py), the unsharded one by block id
+    # (bayesr.py:619), so the replayed orders are re-keyed by position
+    tape = [(r, (o[0], o[1][o[0].long()]) if r == "block_orders" else o)
+            for r, o in tape]
+    initialize(f"tcp://127.0.0.1:{free_port()}", 1, 0, backend="nccl")
+    try:
+        mesh = bt.make_mesh(1, 1, device="cuda:0")
+        check(mesh.group is not None, "[27c] no process group")
+        sh = bt.ShardedSpikeSlabSampler(
+            Xs, Ys, CVA, bt.BayesRConfig(block_size=64), mesh,
+            backend="xla", dtype=f64, transposed=True)
+        ref, st0 = unsharded
+        check((sh.Mpad, sh.B, sh.dtype) == (ref.Mpad, ref.B, f64),
+              "[27c] plan")
+        v = TapeVariates(tape=tape)
+        st = sh.init(v)
+        st, ms_sh = timed_steps(torch, sh, st, v, 1)
+        check(not v.tape, "[27c] draws left on the tape")
+        for f in ("mu", "sigmaE", "sigmaGG", "pi", "beta", "labels", "eps"):
+            check(torch.equal(getattr(st, f), getattr(st0, f)),
+                  f"[27c] sharded {f} differs from the unsharded run")
+        log(f"[27c] ShardedSpikeSlabSampler(backend='xla', dtype=float64) "
+            f"on a one-rank NCCL mesh, N={SCAN_N} M={SCAN_M}: "
+            f"{ms_sh:.1f} ms for a step, every state field bitwise the "
+            f"unsharded blocked run's "
+            f"({ms['bayesr', 'blocked', None]:.1f} ms/iter); {CARD}")
+        del sh, ref, st, st0
+    finally:
+        dist.destroy_process_group()
+    secs = time.perf_counter() - t27
+    log(f"[27] {secs:.1f} s")
+    return secs
 
 
 def np_finite(a):

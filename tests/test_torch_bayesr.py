@@ -260,5 +260,14 @@ def test_configurations_outside_the_slice_raise(case):
 
         assert_int8_step_matches_jax("bayesr", dosage, Y, cva)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SpikeSlabSampler(dosage, Y, cva, BayesRConfig(), **kw)
+    # the scan (Queue 1 item 8): ported, with JAX's option checks (its
+    # replayed steps: tests/test_torch_scan.py, test_torch_mirror.py)
+    s = SpikeSlabSampler(dosage, Y, cva, BayesRConfig(), **kw)
+    assert (s.backend, s.permutation) == ("scan", "full")
+    g = torch.Generator().manual_seed(0)
+    assert bool(torch.isfinite(s.step(s.init(g), g).eps).all())
+    for bad in (dict(x_dtype="2bit"), dict(permutation="full",
+                                           backend="blocked")):
+        with pytest.raises(ValueError, match="backend"):
+            SpikeSlabSampler(dosage, Y, cva, BayesRConfig(),
+                             **{**kw, **bad})

@@ -9,9 +9,8 @@ the JAX package, and its command-line interface end to end, on the CPU.
 - ``python -m bayesrrcpp_tpu_torch bayesr|horseshoe --bed ... --x-dtype
   2bit --device cpu`` on a .bed with missing calls: the CSV header is the
   reference schema's and every row has its width; ``--chains 2`` writes
-  one CSV per chain; ``groups``, ``resume`` and the checkpoint flags run;
-  what is not ported (``--npz-out``) raises ``NotImplementedError`` naming
-  its ROADMAP entry.
+  one CSV per chain; ``groups``, ``resume``, the checkpoint flags and
+  ``--npz-out`` run.
 
 Inputs are dosages made with numpy from a seed, N=1501 (the trailing
 .bed byte and the pad lanes are partly filled).
@@ -172,18 +171,16 @@ def test_cli_module_entry_point(cohort, tmp_path):
     (["bayesr", "--out", "o.csv", "--npz-out", "o.npz"], "Queue 1 item 9"),
 ])
 def test_cli_outside_the_port_raises(argv, entry, cohort, tmp_path):
-    """What the port lacks raises ``NotImplementedError`` naming its ROADMAP
-    entry: ``--npz-out`` (item 9).  Items 6 and 7 are ported: each of their
-    calls runs on the .bed (2-bit words with missing calls) and writes its
-    CSV (``resume`` from the checkpoint of a ``bayesr`` run; ``x`` the
-    cohort); tests/test_torch_resume.py holds what they compute."""
-    if entry == "Queue 1 item 9":
-        with pytest.raises(NotImplementedError, match=entry):
-            cli.main(argv)
-        return
+    """Items 6, 7 and 9 of Queue 1 are ported: each of these calls runs on
+    the .bed (2-bit words with missing calls) and writes its CSV
+    (``resume`` from the checkpoint of a ``bayesr`` run; ``x`` the cohort),
+    ``--npz-out`` (item 9) also the .npz of the CSV's rows;
+    tests/test_torch_resume.py and test_torch_sinks_cli.py hold what they
+    compute."""
     prefix, pheno = cohort
     at = {"x": prefix, "o.csv": str(tmp_path / "o.csv"),
-          "ck.npz": str(tmp_path / "ck.npz"), "ck": str(tmp_path / "ck")}
+          "ck.npz": str(tmp_path / "ck.npz"), "ck": str(tmp_path / "ck"),
+          "o.npz": str(tmp_path / "o.npz")}
     argv = [at.get(a, a) for a in argv]
     run = ["--bed", prefix, "--pheno", pheno, "--x-dtype", "2bit",
            "--iterations", "4", "--burn-in", "2", "--thinning", "2",
@@ -209,3 +206,7 @@ def test_cli_outside_the_port_raises(argv, entry, cohort, tmp_path):
     assert len(rows[0].split(", ")) == len(header.split(","))
     if "--checkpoint-out" in argv:
         assert os.path.exists(at["ck"] + ".npz")
+    if "--npz-out" in argv:
+        with np.load(at["o.npz"]) as z:
+            assert z["beta"].shape == (1, 300)
+            assert z["iteration"].tolist() == [float(rows[0].split(", ")[0])]

@@ -242,8 +242,8 @@ def test_convert_carries_dense_data(kind):
 def test_cli_backend_flag(tmp_path):
     """``--backend`` parses JAX's choices: auto picks the kernels for
     dense X on the card and the plain sweep on the CPU; pallas runs the
-    kernels' dense mode on the CPU (their plain versions); scan is not
-    ported."""
+    kernels' dense mode on the CPU (their plain versions); scan runs the
+    literal per-marker sweep."""
     _, X, Y = dense_data(13)
     np.save(tmp_path / "x.npy", X)
     np.save(tmp_path / "y.npy", Y)
@@ -251,7 +251,7 @@ def test_cli_backend_flag(tmp_path):
             "--device", "cpu", "--iterations", "6", "--burn-in", "2",
             "--thinning", "2", "--block-size", str(B)]
     for kind in ("bayesr", "horseshoe"):
-        for backend in ("pallas", "auto", "blocked"):
+        for backend in ("pallas", "auto", "blocked", "scan"):
             out = str(tmp_path / f"{kind}_{backend}.csv")
             assert cli.main([kind, *base, "--backend", backend,
                              "--out", out]) == 0
@@ -262,9 +262,6 @@ def test_cli_backend_flag(tmp_path):
             assert len(rows) == 2
             assert all(len(r.split(", ")) == len(header) for r in rows)
             assert not any("nan" in r or "inf" in r for r in rows)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-        cli.main(["bayesr", *base, "--backend", "scan",
-                  "--out", str(tmp_path / "scan.csv")])
     with pytest.raises(SystemExit):
         cli.main(["bayesr", *base, "--backend", "xla",
                   "--out", str(tmp_path / "bad.csv")])

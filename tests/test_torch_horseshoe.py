@@ -291,9 +291,18 @@ def test_configurations_outside_the_slice_raise(case):
 
         assert_int8_step_matches_jax("horseshoe", dosage, Y)
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            HorseshoeSampler(dosage, Y, HorseshoeConfig(), **kw,
+        # the scan (Queue 1 item 8): ported, with JAX's option checks (its
+        # replayed steps: tests/test_torch_scan.py)
+        s = HorseshoeSampler(dosage, Y, HorseshoeConfig(), **kw,
                              device="cpu")
+        assert (s.backend, s.permutation) == ("scan", "full")
+        g = torch.Generator().manual_seed(0)
+        assert bool(torch.isfinite(s.step(s.init(g), g).eps).all())
+        for bad in (dict(x_dtype="2bit"), dict(permutation="full",
+                                               backend="blocked")):
+            with pytest.raises(ValueError, match="backend"):
+                HorseshoeSampler(dosage, Y, HorseshoeConfig(),
+                                 **{**kw, **bad}, device="cpu")
     if case == "dense_kernel":
         s = HorseshoeSampler(dosage, Y, HorseshoeConfig(), backend="pallas",
                              device="cpu")

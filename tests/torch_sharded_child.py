@@ -36,20 +36,21 @@ def _jax():
 class JaxSliceReplay:
     """JAX's draws for m-slice ``m`` from ``key``; ``chains=C``: the fused
     sampler's, chain c from ``jax.random.split(key, C)[c]`` (JAX's
-    ``init_chains``), the visit order from chain 0."""
+    ``init_chains``), the visit order from chain 0; float draws in
+    ``dtype`` (the JAX sampler's, "float32" or "float64")."""
 
-    def __init__(self, key, m: int, chains=None):
+    def __init__(self, key, m: int, chains=None, dtype="float32"):
         jax = _jax()
         self.m = m
         self.chains = chains
+        self.dt = np.dtype(dtype)
         self.keys = ([key] if chains is None
                      else list(jax.random.split(key, chains)))
 
-    @staticmethod
-    def _t(x):
+    def _t(self, x):
         import torch
 
-        return torch.as_tensor(np.array(x, np.float32))
+        return torch.as_tensor(np.array(x, self.dt))
 
     def _stack(self, xs):
         import torch
@@ -58,7 +59,6 @@ class JaxSliceReplay:
 
     def init_sigmaGG(self, G):
         jax = _jax()
-        import jax.numpy as jnp
 
         from bayesrrcpp_tpu import distributions as jdist
 
@@ -67,15 +67,14 @@ class JaxSliceReplay:
             self.keys[c], kG, kF = jax.random.split(key, 3)
             self.kF.append(kF)
             out.append(self._t(jax.vmap(
-                lambda k: jdist.beta_rng(k, 1.0, 1.0, dtype=jnp.float32))(
+                lambda k: jdist.beta_rng(k, 1.0, 1.0, dtype=self.dt))(
                     jax.random.split(kG, G))))
         return self._stack(out)
 
     def init_sigmaF(self):
         jax = _jax()
-        import jax.numpy as jnp
 
-        return self._stack([self._t(jax.random.uniform(k, (), jnp.float32))
+        return self._stack([self._t(jax.random.uniform(k, (), self.dt))
                             for k in self.kF])
 
     def fixed_order(self, F):
@@ -87,10 +86,9 @@ class JaxSliceReplay:
 
     def fixed_z(self, F):
         jax = _jax()
-        import jax.numpy as jnp
 
         return self._stack([self._t(jax.random.normal(ks[3], (F,),
-                                                      jnp.float32))
+                                                      self.dt))
                             for ks in self.step_keys])
 
     def sigmaF_gamma(self, shape):
@@ -120,9 +118,8 @@ class JaxSliceReplay:
 
     def mu_noise(self):
         jax = _jax()
-        import jax.numpy as jnp
 
-        return self._stack([self._t(jax.random.normal(ks[1], (), jnp.float32))
+        return self._stack([self._t(jax.random.normal(ks[1], (), self.dt))
                             for ks in self.step_keys])
 
     def orders(self, nb, B, J):
@@ -148,16 +145,14 @@ class JaxSliceReplay:
 
     def p(self, n):
         jax = _jax()
-        import jax.numpy as jnp
 
-        return self._stack([self._t(jax.random.uniform(k, (n,), jnp.float32))
+        return self._stack([self._t(jax.random.uniform(k, (n,), self.dt))
                             for k in self.kp])
 
     def z(self, n):
         jax = _jax()
-        import jax.numpy as jnp
 
-        return self._stack([self._t(jax.random.normal(k, (n,), jnp.float32))
+        return self._stack([self._t(jax.random.normal(k, (n,), self.dt))
                             for k in self.kz])
 
     def sigmaE_gamma(self, shape):
@@ -179,7 +174,7 @@ class JaxSliceReplay:
             a = arr if self.chains is None else arr[c]
             out.append(self._t(jax.vmap(jax.random.gamma)(
                 jax.random.split(ks[idx], a.shape[0]),
-                jnp.asarray(a, jnp.float32))))
+                jnp.asarray(a, self.dt))))
         return self._stack(out)
 
     def sigmaG_gamma(self, shapes):
@@ -193,14 +188,18 @@ class JaxHorseshoeSliceReplay:
     """The JAX sharded horseshoe's draws for m-slice ``m`` from ``key``
     (bayesrrcpp_tpu/parallel/sharded.py:1443, :1469-1558): the replicated
     ones from the step's keys, the slice's v / lambda gammas, block orders
-    and z from keys with ``m`` folded in."""
+    and z from keys with ``m`` folded in; float draws in ``dtype``."""
 
-    def __init__(self, key, m: int):
+    def __init__(self, key, m: int, dtype="float32"):
         _jax()
         self.key = key
         self.m = m
+        self.dt = np.dtype(dtype)
 
-    _t = staticmethod(JaxSliceReplay._t)
+    def _t(self, x):
+        import torch
+
+        return torch.as_tensor(np.array(x, self.dt))
 
     @staticmethod
     def _gamma(k, shape):
@@ -227,20 +226,17 @@ class JaxHorseshoeSliceReplay:
 
     def mu_noise(self):
         jax = _jax()
-        import jax.numpy as jnp
 
-        return self._t(jax.random.normal(self.ks[1], (), jnp.float32))
+        return self._t(jax.random.normal(self.ks[1], (), self.dt))
 
     def eta_gamma(self, shape):
         return self._t(self._gamma(self.ks[2], shape))
 
     def local_gamma(self, alpha, n):
-        import jax.numpy as jnp
-
         from bayesrrcpp_tpu import distributions as jdist
 
         return self._t(jdist.gamma_shape_rng(self.local.pop(0), alpha, n,
-                                             dtype=jnp.float32))
+                                             dtype=self.dt))
 
     def block_orders(self, nb, B):
         import torch
@@ -254,9 +250,8 @@ class JaxHorseshoeSliceReplay:
 
     def z(self, n):
         jax = _jax()
-        import jax.numpy as jnp
 
-        return self._t(jax.random.normal(self.kz, (n,), jnp.float32))
+        return self._t(jax.random.normal(self.kz, (n,), self.dt))
 
     def tau_gamma(self, shape):
         return self._t(self._gamma(self.ks[6], shape))
@@ -286,7 +281,7 @@ def port_sampler(case: dict, mesh, device="cpu"):
 
     kw = dict(backend=case["backend"], x_dtype=case["x_dtype"],
               chunk_blocks=case["chunk_blocks"],
-              split_sweep=case.get("split_sweep"))
+              split_sweep=case.get("split_sweep"), dtype=case.get("dtype"))
     at = dict(Dm=mesh.Dm, m_index=mesh.m_index, Dn=mesh.Dn,
               n_index=mesh.n_index, device=device)
     if case.get("kind", "bayesr") == "horseshoe":
@@ -295,7 +290,7 @@ def port_sampler(case: dict, mesh, device="cpu"):
             HorseshoeConfig(block_size=case["block_size"]), mesh, **kw)
         own = s.data
         s.data = convert.sharded_horseshoe_data_from_jax(
-            case["jax_data"], N=s.N, **at)
+            case["jax_data"], N=s.N, dtype=s.dtype, **at)
         return s, own
     if case.get("g_assign") is not None:
         # the groups variant (tests/test_torch_groups_sharded.py)
@@ -308,7 +303,8 @@ def port_sampler(case: dict, mesh, device="cpu"):
     s = ShardedSpikeSlabSampler(case["X"], case["Y"], case["cva"], cfg, mesh,
                                 **kw)
     own = s.data
-    s.data = convert.sharded_data_from_jax(case["jax_data"], N=s.N, **at)
+    s.data = convert.sharded_data_from_jax(case["jax_data"], N=s.N,
+                                           dtype=s.dtype, **at)
     return s, own
 
 
@@ -323,11 +319,13 @@ def replay_steps(case: dict, s, steps: int):
     chains = case.get("chains")
     key = jnp.asarray(case["key"])
     if case.get("kind", "bayesr") == "horseshoe":
-        rv = JaxHorseshoeSliceReplay(key, s.mesh.m_index)
+        rv = JaxHorseshoeSliceReplay(key, s.mesh.m_index,
+                                     case.get("dtype") or "float32")
         s.init(rv)                         # advances the key as JAX's init
         st = convert.sharded_horseshoe_state_from_jax(case["jax_init"], s)
     else:
-        rv = JaxSliceReplay(key, s.mesh.m_index, chains)
+        rv = JaxSliceReplay(key, s.mesh.m_index, chains,
+                            case.get("dtype") or "float32")
         s.init(rv, chains=chains)          # advances the keys as JAX's init
         st = convert.sharded_state_from_jax(case["jax_init"], s)
     out = []
