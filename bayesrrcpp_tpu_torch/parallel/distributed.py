@@ -5,8 +5,8 @@ drives one card; ``initialize`` joins it to the run, and the sharded
 samplers' mesh lays the processes out over its "m" and "n" axes
 (``mesh.make_mesh``).
 Nothing on the machine tells a process of its peers: the caller gives the
-address, the world size and the rank (``torchrun`` sets them in the
-environment, where ``init_method="env://"`` reads them).
+address, the world size and the rank, or ``torchrun`` sets them in the
+environment, where ``initialize()`` reads them.
 
 Where the JAX package places global arrays on a mesh, a process here
 holds only its own slice of the markers (and of the individuals):
@@ -21,6 +21,7 @@ holds only its own slice of the markers (and of the individuals):
 """
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import numpy as np
@@ -30,17 +31,32 @@ import torch.distributed as dist
 from .mesh import AXIS_M, Mesh
 
 
-def initialize(init_method: str, world_size: int, rank: int, *,
-               backend: Optional[str] = None, timeout=None) -> None:
+def initialize(init_method: str = "env://",
+               world_size: Optional[int] = None, rank: Optional[int] = None,
+               *, backend: Optional[str] = None, timeout=None) -> None:
     """Join this process to a run of ``world_size`` processes (the JAX
     package's ``jax.distributed.initialize``): ``init_method`` is
-    ``"tcp://host:port"`` of rank 0, or ``"env://"``.  The backend defaults
-    to NCCL where the card is, else gloo."""
+    ``"tcp://host:port"`` of rank 0, or ``"env://"``.  With no arguments it
+    joins a ``torchrun`` launch, as ``jax.distributed.initialize()`` joins
+    a pod: ``env://`` reads the address from MASTER_ADDR and MASTER_PORT,
+    and the world size and the rank come from WORLD_SIZE and RANK.  The
+    backend defaults to NCCL where the card is, else gloo."""
+    if world_size is None:
+        world_size = _env_int("WORLD_SIZE")
+    if rank is None:
+        rank = _env_int("RANK")
     if backend is None:
         backend = "nccl" if torch.cuda.is_available() else "gloo"
     kw = {} if timeout is None else {"timeout": timeout}
     dist.init_process_group(backend, init_method=init_method,
                             world_size=world_size, rank=rank, **kw)
+
+
+def _env_int(name: str) -> int:
+    if name not in os.environ:
+        raise ValueError(f"{name} is not set: launch with torchrun, or pass "
+                         "init_method, world_size and rank")
+    return int(os.environ[name])
 
 
 def process_marker_range(mesh: Mesh, mpad: int) -> tuple:

@@ -121,6 +121,29 @@ def derived_generator(generator: torch.Generator,
     return torch.Generator(device=dev).manual_seed(_mix(seed, index))
 
 
+def slice_plan(M: int, N: int, block_size: int, Dm: int, Dn: int, *,
+               strided: bool, packed: bool):
+    """The slices' plan, as JAX's (sharded.py:317-349, :1329-1341): (J, B,
+    Mpad, Npad).  With ``strided`` the kernels take the "t" plan of a
+    slice's ceil(M/Dm) markers where there is one; the marker axis pads to
+    a multiple of B*J*Dm (8-aligned block counts per slice at scale), the
+    individuals to the word tile (``packed`` 2-bit words) or to a multiple
+    of Dn."""
+    B = max(8, min(block_size, 1 << max(1, (M - 1).bit_length())))
+    J = 1
+    if strided:
+        jt, bt, lay = auto_jacobi_plan(-(-M // Dm), B)
+        if lay == "t":
+            B, J = bt, jt
+    unit = B * J * Dm
+    Mpad = -(-M // unit) * unit
+    if Mpad // (B * Dm) >= 64:
+        unit8 = (B * 8 * J // math.gcd(8, J)) * Dm
+        Mpad = -(-M // unit8) * unit8
+    Npad = genotypes.padded_individuals(N) if packed else -(-N // Dn) * Dn
+    return J, B, Mpad, Npad
+
+
 class SliceVariates:
     """The draws of a sharded step.  The replicated ones (intercept,
     hyperparameters, init) come from ``generator``, which every rank holds
@@ -255,31 +278,16 @@ class _ShardedMarkers(MarkerSampler):
         return M, N
 
     def _plan(self, M, N, block_size, strided: bool):
-        """The slices' plan, as JAX's (sharded.py:317-349, :1329-1341):
-        with ``strided`` the kernels take the "t" plan of a slice's
-        ceil(M/Dm) markers where there is one; the marker axis pads to a
-        multiple of B*J*Dm (8-aligned block counts per slice at scale), the
-        individuals to the word tile (2-bit) or to a multiple of Dn."""
-        Dm = self.Dm
-        B = max(8, min(block_size, 1 << max(1, (M - 1).bit_length())))
-        J = 1
-        if strided:
-            jt, bt, lay = auto_jacobi_plan(-(-M // Dm), B)
-            if lay == "t":
-                B, J = bt, jt
-        unit = B * J * Dm
-        Mpad = -(-M // unit) * unit
-        if Mpad // (B * Dm) >= 64:
-            unit8 = (B * 8 * J // math.gcd(8, J)) * Dm
-            Mpad = -(-M // unit8) * unit8
+        """Lay out the slices by ``slice_plan``; sets the sizes, the plan
+        and this rank's individuals ``n_range``."""
+        J, B, Mpad, Npad = slice_plan(M, N, block_size, self.Dm, self.Dn,
+                                      strided=strided, packed=self.x_packed)
         self.N, self.M, self.Mpad, self.B = N, M, Mpad, B
-        self.Mloc = Mpad // Dm
+        self.Mloc = Mpad // self.Dm
         self.nb_loc = self.nb = self.Mloc // B
         self.jacobi = J
         self.jacobi_layout = "t" if J > 1 else "row"
-        self.Npad = (genotypes.padded_individuals(N) if self.x_packed
-                     else -(-N // self.Dn) * self.Dn)
-        self.Nloc = self.Npad // self.Dn
+        self.Npad, self.Nloc = Npad, Npad // self.Dn
         n0 = self.mesh.n_index * self.Nloc
         self.n_range = (n0, n0 + self.Nloc)
 

@@ -308,6 +308,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
    blocked run (the block orders re-keyed by sweep position): every state
    field bitwise that run's.  It logs its seconds.
 
+28. the port's tools (``bayesrrcpp_tpu_torch/tools/``; no new kernel):
+   (a) ``gpu_validation``: kernel #1's dense mode against its plain
+   version at N=M=4,096, B=32, J=16 from a warm state (labels equal, max
+   |d eps| < 1e-3), and a packed chain at N=49,152 x M=245,760, J=16, 8
+   iterations (sigmaE finite and < 2.0 at the end, tracked vs recomputed
+   eps < 1e-4); (b) the drift probe on phase 2's words (not copied): the
+   headline chain of ``BayesRConfig(block_size=512)``, 1,000 iterations,
+   tracked eps against ``refresh_eps`` every 100, the curve printed, every
+   point finite and < 1e-3 relative; (c) ``ld_validation.run()`` at its
+   defaults (AR(1) dosages N=8,192 x M=32,768, rho 0.9, J=1 against the
+   auto plan, 2 fused chains each) but 600 iterations of its 1,500, under
+   tests/test_ld_partition.py:24-34's gates; (d) ``dryrun_multichip(4)``:
+   four gloo ranks on the card, the (2, 2) mesh, seven cases, then the
+   torchrun leg (2 ranks, both launches bitwise equal); (e) the comm
+   model's count at biobank-sharded-m1 against the all-reduces counted
+   over one step on a one-rank NCCL group (calls and bytes per axis).
+   The launches of each kernel the tools ran are counted and added to its
+   record (``tools_caller``, ``tools_launches``).  Phase 4 also logs its
+   ``ChainTimer`` record (SNP-updates/s, Gibbs iterations/min).
+
 Phases 8b, 9b and 13b also profile one more fused strided sweep and log
 the apply's device us a round against ``tools/kernel_bounds.apply_round``
 (the round's moved rows and, in the miss mode, their missing calls);
@@ -324,7 +344,7 @@ missing calls), the dense phases also one ``torch.addmv`` (``addmm`` for
 Each such line ends with the card's nvidia-smi name and power limit.
 
 Phases 17-26 run after phase 12, on phase 2's words for 17b, 21b, 23,
-24, 25b and 26b-26c; 13-16 after 26, and 27 last.
+24, 25b, 26b-26c and 28b; 13-16 after 26, then 27, and 28 last.
 Each group of phases logs the seconds since the start.  The
 three kernel libraries build at once (one nvcc per source).  The script
 prints its total time before the last two lines.  The last
@@ -798,8 +818,8 @@ def main():
 
 
 def smoke(torch, tmp):
-    """Phases 1-27 (module docstring; 17-26 run after 12, 13-16 after 26,
-    27 last), their CSVs under ``tmp``; returns 0 or raises."""
+    """Phases 1-28 (module docstring; 17-26 run after 12, 13-16 after 26,
+    then 27 and 28), their CSVs under ``tmp``; returns 0 or raises."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import bayesrrcpp_tpu_torch as bt
     from bayesrrcpp_tpu_torch.io.sink import CSVSink
@@ -808,6 +828,7 @@ def smoke(torch, tmp):
     from bayesrrcpp_tpu_torch.ops.jacobi_t import (
         LAUNCHES_PER_ROUND, bayesr_jacobi_t, bayesr_jacobi_t_reference,
         horseshoe_jacobi_t, horseshoe_jacobi_t_reference)
+    from bayesrrcpp_tpu_torch.utils.profiling import ChainTimer
 
     # ---- 1. the card and the build
     global CARD
@@ -911,10 +932,14 @@ def smoke(torch, tmp):
     # ---- 4. the main path
     chain = bt.ChainConfig(30, 10, 10)
     path = os.path.join(tmp, "chain.csv")
-    st, out, wall, launches, peak_gb = main_path(
-        torch, lambda sink: s.run(g, chain, sink=sink),
-        CSVSink(path, "bayesr", M=s.M, N=s.N, emit_epsilon=False),
-        bayesr_jacobi_t)
+    timer = ChainTimer(markers=s.M, device=dev)
+    # the sink (its header of 2M + 4 columns) is built before either clock
+    sink = CSVSink(path, "bayesr", M=s.M, N=s.N, emit_epsilon=False)
+    torch.cuda.synchronize()        # the window opens on an idle card
+    with timer.measure(chain.max_iterations):
+        st, out, wall, launches, peak_gb = main_path(
+            torch, lambda sink: s.run(g, chain, sink=sink), sink,
+            bayesr_jacobi_t)
     header, widths, _ = read_csv(path)
     check(len(header) == 2 + 2 * s.M + 2, f"header width {len(header)}")
     check(widths == [len(header)] * 2, f"row widths {widths}")
@@ -932,6 +957,7 @@ def smoke(torch, tmp):
     check(launches == want, f"launches {launches} != {want}")
     bayesr_launches = launches
     ms_iter_4 = wall / chain.max_iterations * 1e3
+    log(f"[4] ChainTimer {json.dumps(timer.stats.as_dict())}; {CARD}")
     strided_solve_report(torch, "[4]", s, bayesr_jacobi_t,
                          *sweep_args(s, st, bt.TorchVariates(g)),
                          "solve_kernel")
@@ -1083,7 +1109,6 @@ def smoke(torch, tmp):
     # checkpoint and resume
     grouped_callers = groups_phases(torch, bt, hs, tmp, ms_iter_4)
     elapsed("26")
-    del hs
 
     # ---- 13-16. words with missing calls
     missing_kernels = missing_phases(torch, bt, tmp)
@@ -1093,6 +1118,13 @@ def smoke(torch, tmp):
     # through the blocked and scan sweeps, the sharded xla sampler
     scan_phases(torch, bt, tmp)
     elapsed("27")
+
+    # ---- 28. the port's tools: gpu_validation, the drift probe on phase
+    # 2's words, LD validation, the dry run and its torchrun leg, the comm
+    # model against NCCL's counted all-reduces
+    tools_callers = tools_phases(torch, bt, hs, tmp)
+    elapsed("28")
+    del hs
 
     src = "bayesrrcpp_tpu_torch/csrc/jacobi_t.cu"
     src_mc = "bayesrrcpp_tpu_torch/csrc/jacobi_t_mc.cu"
@@ -1133,6 +1165,11 @@ def smoke(torch, tmp):
         if k["name"] in grouped_callers:
             k["grouped_caller"], k["grouped_launches"] = \
                 grouped_callers[k["name"]]
+        # the sites the tools (phase 28) launched
+        if k["name"] in tools_callers:
+            k["tools_caller"], k["tools_launches"] = tools_callers[k["name"]]
+    missing = set(tools_callers) - {k["name"] for k in kernels}
+    check(not missing, f"[28] no kernel record named {missing}")
     log(f"[total] {time.perf_counter() - START:.1f} s since the script "
         f"started")
     print(json.dumps({"kernels": kernels}))
@@ -6026,6 +6063,179 @@ def scan_phases(torch, bt, tmp):
     secs = time.perf_counter() - t27
     log(f"[27] {secs:.1f} s")
     return secs
+
+
+# ---------------------------------------------------------------- phase 28
+
+# 28b: tools/drift_probe.py's own depth (the JAX tool's), and its gate:
+# loose on purpose, the measured curve is the result
+DRIFT_ITERS, DRIFT_EVERY, DRIFT_BOUND = 1000, 100, 1e-3
+# 28c: ld_validation's 1,500 iterations cut to 600 (N, M and rho kept) for
+# the script's time: 1,500 took 25.9 s of chains in an 818.4 s script
+LD_ITERS = 600
+# 28d: the dry run's kernels by (case, wrapper) -> the kernel records'
+# names (every case but the grouped xla one runs a kernel)
+DRYRUN_KERNELS = {
+    ("packed", "bayesr_sweep"): "bayesr_serial_sweep",
+    ("chains", "bayesr_sweep_mc"): "bayesr_serial_sweep_mc_dense",
+    ("fused", "bayesr_sweep_mc"): "bayesr_serial_sweep_mc_dense",
+    ("strided", "bayesr_jacobi_t_mc_rounds"): "jacobi_t_mc_rounds",
+    ("split", "bayesr_round_solve"): "bayesr_round_solve",
+    ("row", "bayesr_jacobi"): "bayesr_row_sweep_dense",
+    # the row sweep's solve launch is the round solve's kernel
+    ("row", "bayesr_round_solve"): "bayesr_round_solve"}
+
+
+def tools_phases(torch, bt, hs, tmp):
+    """Phase 28 (module docstring): the port's tools on the card, on phase
+    2's words (``hs``'s, not copied).  Returns {kernel record name:
+    (caller, launches)} of the kernels the tools launched."""
+    import torch.distributed as dist
+
+    from bayesrrcpp_tpu_torch.ops import jacobi_t as jt
+    from bayesrrcpp_tpu_torch.ops import multichain as mc
+    from bayesrrcpp_tpu_torch.parallel.distributed import initialize
+    from bayesrrcpp_tpu_torch.tools import (comm_model, drift_probe, dryrun,
+                                            gpu_validation, ld_validation)
+
+    callers = {}
+
+    def note(name, caller, n):
+        check(n > 0, f"[28] {caller}: no launch of {name}")
+        old = callers.get(name)
+        callers[name] = ((caller, n) if old is None
+                         else (f"{old[0]}; {caller}", old[1] + n))
+
+    t28 = time.perf_counter()
+    # ---- 28a. gpu_validation: kernel #1 (dense) against its plain
+    # version, and the packed chain at N=49,152 x M=245,760, J=16
+    t0 = time.perf_counter()
+    jt.bayesr_jacobi_t.launches = 0
+    oracle = gpu_validation.oracle_agreement()
+    check(jt.bayesr_jacobi_t.launches == jt.LAUNCHES_PER_ROUND * 8,
+          f"[28a] oracle launches {jt.bayesr_jacobi_t.launches}")
+    note("jacobi_t_sweep_dense", "tools/gpu_validation.oracle_agreement",
+         jt.bayesr_jacobi_t.launches)
+    jt.bayesr_jacobi_t.launches = 0
+    stab = gpu_validation.chain_stability()
+    want = jt.LAUNCHES_PER_ROUND * (245_760 // 32 // 16) * 8
+    check(jt.bayesr_jacobi_t.launches == want,
+          f"[28a] chain launches {jt.bayesr_jacobi_t.launches} != {want}")
+    note("jacobi_t_sweep", "tools/gpu_validation.chain_stability",
+         jt.bayesr_jacobi_t.launches)
+    log(f"[28a] gpu_validation: oracle {json.dumps(oracle)}; chain "
+        f"{json.dumps(stab)}; launches of #1 {want}; "
+        f"{time.perf_counter() - t0:.1f} s; {CARD}")
+
+    # ---- 28b. the drift probe at the headline on phase 2's words
+    t0 = time.perf_counter()
+    jt.bayesr_jacobi_t.launches = 0
+    drift = drift_probe.probe(DRIFT_ITERS, DRIFT_EVERY, N=HEADLINE_N,
+                              M=HEADLINE_M, words=hs.data.XT,
+                              out_path=os.path.join(tmp, "drift.json"),
+                              log=lambda msg: log(f"[28b] {msg}"))
+    check(drift["plan"] == [128, 32, "t"], f"[28b] plan {drift['plan']}")
+    want = jt.LAUNCHES_PER_ROUND * (HEADLINE_M // 32 // 128) * DRIFT_ITERS
+    check(jt.bayesr_jacobi_t.launches == want,
+          f"[28b] launches {jt.bayesr_jacobi_t.launches} != {want}")
+    note("jacobi_t_sweep", "tools/drift_probe (biobank-packed-auto, 1,000 "
+         "iterations)", jt.bayesr_jacobi_t.launches)
+    bad = [c for c in drift["curve"] if not (
+        np_finite(c["rel_drift"]) and c["rel_drift"] < DRIFT_BOUND)]
+    log(f"[28b] drift curve {json.dumps(drift['curve'])}")
+    log(f"[28b] drift probe: {DRIFT_ITERS} iterations, max relative drift "
+        f"{drift['max_rel_drift']:.4g} (gate < {DRIFT_BOUND}), "
+        f"{drift['seconds']:.1f} s of chain "
+        f"({drift['seconds'] / DRIFT_ITERS * 1e3:.2f} ms/iter with the "
+        f"checks), {time.perf_counter() - t0:.1f} s; {CARD}")
+    check(not bad, f"[28b] drift beyond {DRIFT_BOUND} or not finite: {bad}")
+
+    # ---- 28c. LD validation at the tool's defaults, J=1 against the auto
+    # plan, 2 fused chains each (tests/test_ld_partition.py:24-34's gates)
+    t0 = time.perf_counter()
+    mc.bayesr_sweep_mc.launches = jt.bayesr_jacobi_t_mc.launches = 0
+    ld = ld_validation.run(iters=LD_ITERS,
+                           log=lambda msg: log(f"[28c] {msg}"))
+    note("bayesr_serial_sweep_mc_dense", f"tools/ld_validation J=1 (2 fused "
+         f"chains, {LD_ITERS} iterations)", mc.bayesr_sweep_mc.launches)
+    note("jacobi_t_mc_sweep_dense", f"tools/ld_validation auto plan (2 fused "
+         f"chains, {LD_ITERS} iterations)", jt.bayesr_jacobi_t_mc.launches)
+    log("[28c] LD comparison " + json.dumps(
+        {k: v for k, v in ld.items() if k != "per_config"}))
+    log(f"[28c] per plan {json.dumps(ld['per_config'])}; "
+        f"{time.perf_counter() - t0:.1f} s; {CARD}")
+    check(ld["config"]["J_auto"] > 1, "[28c] the auto plan is J=1")
+    for key, ok in (("pair_posterior_corr", ld["pair_posterior_corr"] > 0.95),
+                    ("pve_rel_diff", ld["pve_rel_diff"] < 0.15),
+                    ("ess_ratio_auto_vs_J1",
+                     ld["ess_ratio_auto_vs_J1"] > 0.6),
+                    ("ess_causal_ratio", ld["ess_causal_ratio"] > 0.5),
+                    ("rhat_q99_auto", ld["rhat_q99_auto"] < 1.2),
+                    ("rhat_q99_J1", ld["rhat_q99_J1"] < 1.2),
+                    ("corr_true_auto", ld["corr_true_auto"]
+                     > 0.8 * ld["corr_true_J1"])):
+        check(ok, f"[28c] {key}: {ld}")
+
+    # ---- 28d. the dry run: four ranks sharing the card (gloo), the
+    # (2, 2) mesh, then the torchrun leg against the tcp:// launch
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()        # the ranks allocate on the same card
+    dry = dryrun.dryrun_multichip(4, log=lambda msg: log(f"[28d] {msg}"))
+    sums = dict.fromkeys(DRYRUN_KERNELS, 0)
+    for r, rank in enumerate(dry["ranks"]):
+        for rec in rank:
+            for wrapper in rec["launches"]:
+                key = (rec["case"], wrapper)
+                check(key in DRYRUN_KERNELS, f"[28d] rank {r}: unexpected "
+                      f"{key}")
+            for case, wrapper in DRYRUN_KERNELS:
+                if case == rec["case"]:
+                    n = rec["launches"].get(wrapper, 0)
+                    check(n > 0, f"[28d] rank {r} case {case}: no launch of "
+                          f"{wrapper}")
+                    sums[case, wrapper] += n
+    for (case, wrapper), n in sums.items():
+        note(DRYRUN_KERNELS[case, wrapper],
+             f"tools/dryrun case {case} (4 ranks)", n)
+    log("[28d] dry run launches by rank: " + "; ".join(
+        ", ".join(f"{c['case']} {c['launches']}" for c in rank)
+        for rank in dry["ranks"])
+        + f"; {time.perf_counter() - t0:.1f} s; {CARD}")
+
+    # ---- 28e. the comm model at biobank-sharded-m1 against the NCCL
+    # all-reduces counted over one step on a one-rank group (phase 23b's)
+    t0 = time.perf_counter()
+    initialize(f"tcp://127.0.0.1:{free_port()}", 1, 0, backend="nccl")
+    try:
+        sh, _ = sharded_sampler(torch, bt, hs, bt.make_mesh(1, 1,
+                                                            device="cuda:0"))
+        g = torch.Generator(device="cuda").manual_seed(28)
+        st = sh.init(g)
+        jt.bayesr_jacobi_t_rounds.launches = 0
+        counts, st = comm_model.count_step(sh, st, g)
+        torch.cuda.synchronize()
+        launches = jt.bayesr_jacobi_t_rounds.launches
+        model = comm_model.analytic_model(N=HEADLINE_N, M=HEADLINE_M, B=32,
+                                          Dm=1, Dn=1, x_dtype="2bit")
+        log(f"[28e] biobank-sharded-m1 all-reduces a step: counted "
+            f"{json.dumps(counts)}, model calls {model['calls']} bytes "
+            f"{model['bytes']} (path {model['path']}, "
+            f"{model['rounds_per_iter']} chunk); #5 launches {launches}; "
+            f"{time.perf_counter() - t0:.1f} s; {CARD}")
+        for ax in comm_model.AXES:
+            check(counts[ax]["calls"] == model["calls"][ax]
+                  and counts[ax]["bytes"] == model["bytes"][ax],
+                  f"[28e] axis {ax}: counted {counts[ax]}, model "
+                  f"{model['calls'][ax]} calls {model['bytes'][ax]} bytes")
+        check(counts["other"]["calls"] == 0, f"[28e] {counts}")
+        note("jacobi_t_rounds", "tools/comm_model.count_step "
+             "(biobank-sharded-m1, one step)", launches)
+        del sh, st
+    finally:
+        dist.destroy_process_group()
+    secs = time.perf_counter() - t28
+    log(f"[28] {secs:.1f} s")
+    return callers
 
 
 def np_finite(a):

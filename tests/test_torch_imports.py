@@ -27,7 +27,10 @@ def _sources():
 def test_the_package_has_sources():
     names = {p.relative_to(PKG).as_posix() for p in _sources()}
     assert {"__init__.py", "ops/jacobi_t.py", "models/bayesr.py",
-            "models/horseshoe.py", "utils/summary.py"} <= names
+            "models/horseshoe.py", "utils/summary.py", "utils/profiling.py",
+            "tools/gpu_validation.py", "tools/drift_probe.py",
+            "tools/ld_validation.py", "tools/comm_model.py",
+            "tools/dryrun.py"} <= names
     for src in ("jacobi_t.cu", "jacobi_t_mc.cu", "jacobi_t_common.cuh"):
         assert (PKG / "csrc" / src).exists(), src
 
